@@ -7,9 +7,12 @@ counterpart is easy to find:
 
 - ``ops``:    per-ray math on tensors — RNG, camera rays, sphere closest hit
               (plain PyTorch, plus the CUDA sweep kernel in ``csrc/``),
-              fat-row shading and the no-light NEE branch.
+              fat-row shading and the no-light NEE branch; the fused
+              bounce kernel (``ops/megakernel.py``, ``csrc/megakernel.cu``)
+              and its plain version.
 - ``engine``: device scene arrays, the wavefront bounce loop, and the
-              progressive ``Renderer`` with checkpoint/resume.
+              progressive ``Renderer`` (fused kernel or wavefront) with
+              checkpoint/resume.
 - ``cli``:    ``render`` on the command line.
 
 The numpy-only host layers (``raytrace_tpu.scene_file``, ``.models``,

@@ -7,8 +7,11 @@ Usage:
 
 ``--device`` defaults to ``cuda`` and fails with a clear error when no
 CUDA device is present; the CPU has to be asked for with ``--device cpu``.
-Each batch refines the running mean; with ``--checkpoint`` the state is
-saved after every batch, and ``--resume`` continues from it.
+The Renderer chooses its path (the fused kernel on a CUDA device for
+every scene it covers, else the wavefront).  The render steps in chunks
+of ``Renderer.chunk_size()`` batches (one fused kernel launch each on the
+fused path); with ``--checkpoint`` the state is saved after every chunk,
+and ``--resume`` continues from it.
 """
 
 from __future__ import annotations
@@ -57,9 +60,13 @@ def cmd_render(args) -> int:
         renderer.load_checkpoint(args.checkpoint)
         log.info("resumed at batch %d", renderer.current_batch)
 
+    log.info("path: %s", "fused bounce kernel" if renderer.use_megakernel
+             else "wavefront")
+
     t0 = time.perf_counter()
     total = cs.render.sample_batches
-    while renderer.render_next_batch():
+    chunk = renderer.chunk_size()
+    while renderer.render_batches(chunk):
         log.info("batch %d/%d done", renderer.current_batch, total)
         if args.checkpoint:
             renderer.save_checkpoint(args.checkpoint)

@@ -1,0 +1,423 @@
+// The whole path-tracing loop in one kernel: raygen, sphere closest hit,
+// fat-row shading, the no-light NEE branch and per-pixel sums.
+//
+// Replaces the TPU kernel raytrace_tpu/ops/megakernel.py::_mega_kernel
+// (launched by mega_dispatch) in its spheres-in-world-space, direct-normal,
+// no-light, no-triangle, no-image, no-animation configuration.  It computes
+// what the torch wavefront (engine/wavefront.py) computes, ray for ray: the
+// same PCG stream per (pixel, sample), the same camera and shading
+// arithmetic in the same operation order, the same closest hit (strict <
+// over ascending sphere ids, T_MIN/T_MAX), and the same termination (miss,
+// absorption, or max_depth bounces).
+//
+// Design: one thread owns one pixel and traces its K = n_batches *
+// spp_local samples one after another in sample order (sample s_all
+// belongs to batch batch0 + s_all / spp_local), each bounce by bounce until
+// it ends, then starts the next: the TPU kernel's sample regeneration
+// without its lane-assignment machinery, since every (pixel, sample) has
+// its own RNG stream and a pixel's samples are summed in sample order.  The
+// thread writes its pixel's radiance sums and bounce count once, at the
+// end: no atomics, so two launches give the same bytes.
+//
+// The sphere table [S8, 8] and the camera/sky parameters are staged into
+// shared memory once, before any loop; the only __syncthreads() sits
+// there, because threads of a block run different numbers of bounces.
+// Every thread of a bounce reads the same sphere at the same time (a
+// broadcast).  The fat rows are read per hit from global memory through
+// the read-only cache: columns 0:24 (material) and 44:48 (world centre and
+// radius).
+//
+// What bounds it: per bounce S ray-sphere tests of ~20 flops and a sqrt,
+// against one 112-byte row fetch; at 488 spheres the fp32 ALU issue rate.
+// The first version is the simple one: a per-thread cluster/BVH traversal
+// and a persistent work queue come later.
+//
+// Bits: built with -fmad=false (ops/_build.py), so no multiply-add is
+// contracted and each operation rounds as PyTorch's elementwise kernels
+// do; sqrtf and division are IEEE (no fast math); sinf/cosf are the
+// accurate library functions.  Where the torch code divides a tensor by a
+// Python number (x / width, x / pi), PyTorch's CUDA division multiplies by
+// the number's float reciprocal, and so does this kernel, so it follows
+// the plain version on the card.  Every 0/0 guard of the torch code is
+// kept.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kTMin = 0.001f;    // ops/intersect.py T_MIN
+constexpr float kTMax = 10000.0f;  // ops/intersect.py T_MAX
+constexpr int kThreads = 128;
+constexpr int kRowWidth = 64;      // engine/wavefront.py prepare_batch rows
+
+// raytrace_tpu/models/compile.py MAT_TYPE_*; shading_table.py MODE_CHECKER.
+constexpr int kLambertian = 1;
+constexpr int kMetal = 2;
+constexpr int kDielectric = 3;
+constexpr int kDiffuseLight = 4;
+constexpr float kModeChecker = 2.0f;
+
+// float32 roundings of the constants, as ops/rng.py and ops/nee.py hold them.
+constexpr float kPi = static_cast<float>(3.14159265358979323846);
+constexpr float kTwoPi = static_cast<float>(2.0 * 3.14159265358979323846);
+constexpr float kPiOver2 = static_cast<float>(3.14159265358979323846 / 2.0);
+constexpr float kPiOver4 = static_cast<float>(3.14159265358979323846 / 4.0);
+
+// Launch flags (bit mask).
+constexpr int kUseDof = 1;
+constexpr int kHasChecker = 2;
+constexpr int kHasEmissive = 4;
+
+// Float parameters, staged into shared memory (ops/megakernel.py
+// _float_params builds the same layout).
+constexpr int kViewInv = 0;    // [16] row-major view_inverse
+constexpr int kProjInv = 16;   // [16] row-major proj_inverse
+constexpr int kFocal = 32;
+constexpr int kAperture = 33;
+constexpr int kSky = 34;       // [3]
+constexpr int kRecipSqrtSpp = 37;
+constexpr int kNumParams = 40;
+
+struct V3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ V3 v3(float x, float y, float z) { return {x, y, z}; }
+__device__ __forceinline__ V3 operator+(V3 a, V3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
+__device__ __forceinline__ V3 operator-(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
+__device__ __forceinline__ V3 operator*(V3 a, V3 b) { return {a.x * b.x, a.y * b.y, a.z * b.z}; }
+__device__ __forceinline__ V3 operator*(V3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
+__device__ __forceinline__ V3 operator-(V3 a) { return {-a.x, -a.y, -a.z}; }
+
+__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+
+__device__ __forceinline__ V3 cross(V3 a, V3 b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
+}
+
+// ops/vec3.py normalize
+__device__ __forceinline__ V3 normalize(V3 v) {
+  const float inv = 1.0f / fmaxf(sqrtf(dot(v, v)), 1e-20f);
+  return v * inv;
+}
+
+// ops/vec3.py reflect (GLSL reflect)
+__device__ __forceinline__ V3 reflect(V3 i, V3 n) {
+  const float d = 2.0f * dot(i, n);
+  return {i.x - d * n.x, i.y - d * n.y, i.z - d * n.z};
+}
+
+// ops/vec3.py refract (GLSL refract); 0 on total internal reflection
+__device__ __forceinline__ V3 refract(V3 i, V3 n, float eta) {
+  const float cos_i = -dot(i, n);
+  const float k = 1.0f - eta * eta * (1.0f - cos_i * cos_i);
+  if (k < 0.0f) return {0.0f, 0.0f, 0.0f};
+  const float coef = eta * cos_i - sqrtf(fmaxf(k, 0.0f));
+  return {eta * i.x + coef * n.x, eta * i.y + coef * n.y, eta * i.z + coef * n.z};
+}
+
+// ---- ops/rng.py: the per-(pixel, sample) PCG hash, in native uint32 ----
+
+__device__ __forceinline__ uint32_t init_rng(uint32_t batch, uint32_t s, uint32_t py,
+                                             uint32_t px, uint32_t res_x, uint32_t res_y,
+                                             uint32_t spp) {
+  uint32_t v = batch * spp + s;
+  v = v * res_y + py;
+  return v * res_x + px;
+}
+
+__device__ __forceinline__ float random_float(uint32_t& state) {
+  state = state * 747796405u + 1u;
+  uint32_t word = ((state >> ((state >> 28) + 4u)) ^ state) * 277803737u;
+  word = (word >> 22) ^ word;
+  return __uint2float_rn(word) / 4294967296.0f;  // f32(4294967295)
+}
+
+__device__ __forceinline__ V3 random_unit(uint32_t& state) {
+  const float u1 = random_float(state);
+  const float u2 = random_float(state);
+  const float z = 1.0f - 2.0f * u1;
+  const float r = sqrtf(fmaxf(1.0f - z * z, 0.0f));
+  const float phi = kTwoPi * u2;
+  return {r * cosf(phi), r * sinf(phi), z};
+}
+
+__device__ __forceinline__ V3 random_cosine(uint32_t& state) {
+  const float r1 = random_float(state);
+  const float r2 = random_float(state);
+  const float phi = kTwoPi * r1;
+  const float sq = sqrtf(r2);
+  return {cosf(phi) * sq, sinf(phi) * sq, sqrtf(fmaxf(1.0f - r2, 0.0f))};
+}
+
+// ---- ops/camera.py get_rays_v3 (with the thin-lens quirk) ----
+
+__device__ __forceinline__ void get_ray(uint32_t& state, const float* prm, int px, int py,
+                                        int si, int sj, int width, int height, bool use_dof,
+                                        V3& origin, V3& dir) {
+  const float recip = prm[kRecipSqrtSpp];
+  const float rx = random_float(state);
+  const float ry = random_float(state);
+  const float ox_pix = (static_cast<float>(si) + rx) * recip - 0.5f;
+  const float oy_pix = (static_cast<float>(sj) + ry) * recip - 0.5f;
+  const float inv_w = 1.0f / static_cast<float>(width);
+  const float inv_h = 1.0f / static_cast<float>(height);
+  const float dx = ((static_cast<float>(px) + 0.5f + ox_pix) * inv_w) * 2.0f - 1.0f;
+  const float dy = ((static_cast<float>(py) + 0.5f + oy_pix) * inv_h) * 2.0f - 1.0f;
+
+  const float* pi = prm + kProjInv;
+  const float* vi = prm + kViewInv;
+  const V3 target = {pi[0] * dx + pi[1] * dy + pi[2] + pi[3],
+                     pi[4] * dx + pi[5] * dy + pi[6] + pi[7],
+                     pi[8] * dx + pi[9] * dy + pi[10] + pi[11]};
+  const V3 tn = normalize(target);
+  dir = {vi[0] * tn.x + vi[1] * tn.y + vi[2] * tn.z,
+         vi[4] * tn.x + vi[5] * tn.y + vi[6] * tn.z,
+         vi[8] * tn.x + vi[9] * tn.y + vi[10] * tn.z};
+  origin = {vi[3], vi[7], vi[11]};
+  if (!use_dof) return;
+
+  // rng.sample_disk_concentric_xy
+  const float u1 = random_float(state);
+  const float u2 = random_float(state);
+  const float ux = 2.0f * u1 - 1.0f;
+  const float uy = 2.0f * u2 - 1.0f;
+  const bool degenerate = ux == 0.0f && uy == 0.0f;
+  const bool x_major = fabsf(ux) > fabsf(uy);
+  const float r = x_major ? ux : uy;
+  const float theta = x_major ? kPiOver4 * (uy / (ux == 0.0f ? 1.0f : ux))
+                              : kPiOver2 - kPiOver4 * (ux / (uy == 0.0f ? 1.0f : uy));
+  const float lx = degenerate ? 0.0f : r * cosf(theta);
+  const float ly = degenerate ? 0.0f : r * sinf(theta);
+  const float half_ap = prm[kAperture] / 2.0f;
+  // QUIRK (ray_gen.glsl:554-558): world x/y offset scaled by NDC d.
+  origin.x = origin.x + lx * half_ap * dx;
+  origin.y = origin.y + ly * half_ap * dy;
+  const float f = prm[kFocal];
+  const V3 fp = {f * tn.x, f * tn.y, f * tn.z};
+  const V3 fpw = {vi[0] * fp.x + vi[1] * fp.y + vi[2] * fp.z + vi[3],
+                  vi[4] * fp.x + vi[5] * fp.y + vi[6] * fp.z + vi[7],
+                  vi[8] * fp.x + vi[9] * fp.y + vi[10] * fp.z + vi[11]};
+  dir = normalize(fpw - origin);
+}
+
+// ---- ops/textures.py checker_is_even and the fat-row property slots ----
+
+__device__ __forceinline__ bool checker_is_even(float scale, V3 p) {
+  const float inv = 1.0f / (scale == 0.0f ? 1.0f : scale);
+  // int32 sum as in torch, wrapping; & 1 is the floor-mod parity.
+  const uint32_t cells = static_cast<uint32_t>(static_cast<int>(floorf(inv * p.x))) +
+                         static_cast<uint32_t>(static_cast<int>(floorf(inv * p.y))) +
+                         static_cast<uint32_t>(static_cast<int>(floorf(inv * p.z)));
+  return (cells & 1u) == 0u;
+}
+
+__device__ __forceinline__ V3 load3(const float* __restrict__ row, int c) {
+  return {__ldg(row + c), __ldg(row + c + 1), __ldg(row + c + 2)};
+}
+
+// shading._eval_property: the constant slot, or the row's checker.
+__device__ __forceinline__ V3 eval_property(const float* __restrict__ row, int base, int mode,
+                                            bool has_checker, V3 p) {
+  if (has_checker && __ldg(row + mode) == kModeChecker) {
+    return checker_is_even(__ldg(row + 17), p) ? load3(row, 18) : load3(row, 21);
+  }
+  return load3(row, base);
+}
+
+// ---- the kernel ----
+
+__global__ void __launch_bounds__(kThreads)
+megakernel(const float4* __restrict__ table, int s8, const float* __restrict__ rows, int n_rows,
+           const float* __restrict__ fparams, int width, int height, int sqrt_spp, int spp_local,
+           int n_batches, int batch0, int sample_base, int max_depth, int flags,
+           float* __restrict__ sums, int* __restrict__ traced_out) {
+  extern __shared__ float4 smem[];
+  float* prm = reinterpret_cast<float*>(smem);        // kNumParams floats
+  float4* tbl = smem + kNumParams / 4;                // sphere j: tbl[2j], tbl[2j+1].x
+  for (int j = threadIdx.x; j < kNumParams; j += kThreads) prm[j] = fparams[j];
+  for (int j = threadIdx.x; j < 2 * s8; j += kThreads) tbl[j] = table[j];
+  __syncthreads();  // the only barrier: no thread waits on another below
+
+  const int n_pix = width * height;
+  const int pix = blockIdx.x * kThreads + threadIdx.x;
+  if (pix >= n_pix) return;
+  const int px = pix % width;
+  const int py = pix / width;
+  const bool use_dof = flags & kUseDof;
+  const bool has_checker = flags & kHasChecker;
+  const bool has_emissive = flags & kHasEmissive;
+  const uint32_t spp = static_cast<uint32_t>(sqrt_spp * sqrt_spp);
+  const V3 bg = {prm[kSky], prm[kSky + 1], prm[kSky + 2]};
+  const int n_samples = n_batches * spp_local;
+
+  float sum_x = 0.0f, sum_y = 0.0f, sum_z = 0.0f;
+  int traced = 0;
+  for (int s_all = 0; s_all < n_samples; ++s_all) {
+    const int batch = batch0 + s_all / spp_local;
+    const int s = s_all % spp_local + sample_base;
+    uint32_t state = init_rng(static_cast<uint32_t>(batch), static_cast<uint32_t>(s),
+                              static_cast<uint32_t>(py), static_cast<uint32_t>(px),
+                              static_cast<uint32_t>(width), static_cast<uint32_t>(height), spp);
+    V3 o, d;
+    get_ray(state, prm, px, py, s % sqrt_spp, s / sqrt_spp, width, height, use_dof, o, d);
+    V3 thr = {1.0f, 1.0f, 1.0f};
+    V3 acc = {0.0f, 0.0f, 0.0f};
+
+    for (int depth = 0; depth < max_depth; ++depth) {
+      ++traced;
+      // Closest hit (the quadratic of csrc/sphere_sweep.cu and
+      // ops/spheres.py intersect_spheres_world).
+      const float d_dot_o = d.x * o.x + d.y * o.y + d.z * o.z;
+      const float a = d.x * d.x + d.y * d.y + d.z * d.z;
+      const float o_sq = o.x * o.x + o.y * o.y + o.z * o.z;
+      const float inv_a = 1.0f / (a == 0.0f ? 1.0f : a);
+      float best_t = kTMax;
+      int best_id = -1;
+      for (int j = 0; j < s8; ++j) {
+        const float4 sph = tbl[2 * j];
+        const float k = tbl[2 * j + 1].x;
+        const float dc = sph.x * d.x + sph.y * d.y + sph.z * d.z;
+        const float oc = sph.x * o.x + sph.y * o.y + sph.z * o.z;
+        const float h = d_dot_o - dc;
+        const float c2 = o_sq - 2.0f * oc + k;
+        const float disc = h * h - a * c2;
+        const bool ok = disc >= 0.0f && sph.w > 0.0f;
+        const float sq = sqrtf(fmaxf(disc, 0.0f));
+        const float t1 = (-h - sq) * inv_a;
+        const float t2 = (-h + sq) * inv_a;
+        const bool t1_ok = ok && t1 > kTMin && t1 < kTMax;
+        const bool t2_ok = ok && t2 > kTMin && t2 < kTMax;
+        const float t = t1_ok ? t1 : (t2_ok ? t2 : kTMax);
+        if (t < best_t) {
+          best_t = t;
+          best_id = j;
+        }
+      }
+      if (best_t >= kTMax) {  // miss: the sky, and the sample ends
+        acc = acc + thr * bg;
+        break;
+      }
+      const float* __restrict__ row =
+          rows + static_cast<size_t>(min(max(best_id, 0), n_rows - 1)) * kRowWidth;
+
+      // Hit reconstruction, direct world normal (wavefront.reconstruct_hit).
+      const V3 p = {o.x + d.x * best_t, o.y + d.y * best_t, o.z + d.z * best_t};
+      const V3 c = load3(row, 44);
+      const float r = __ldg(row + 47);
+      const float inv_r = 1.0f / (r == 0.0f ? 1.0f : r);
+      const V3 n = normalize(v3((p.x - c.x) * inv_r, (p.y - c.y) * inv_r, (p.z - c.z) * inv_r));
+      const bool front = dot(d, n) < 0.0f;
+      const V3 normal = front ? n : -n;
+
+      // shading.scatter_and_emit_v3 (fat rows); the draws are unconditional.
+      const int mat = static_cast<int>(__ldg(row + 0));
+      const V3 fuzz_unit = random_unit(state);
+      const float diel_u = random_float(state);
+      const bool is_lamb = mat == kLambertian;
+      const bool is_metal = mat == kMetal;
+      const bool is_diel = mat == kDielectric;
+      const bool is_light = mat == kDiffuseLight;
+
+      V3 attenuation = {0.0f, 0.0f, 0.0f};
+      V3 skip_dir = {0.0f, 0.0f, 0.0f};
+      bool scattered = false;
+      if (is_lamb || is_metal) attenuation = eval_property(row, 2, 11, has_checker, p);
+      if (is_lamb) {
+        scattered = true;
+      } else if (is_metal) {
+        const V3 reflected = reflect(d, normal);
+        scattered = dot(reflected, normal) > 0.0f;
+        skip_dir = normalize(reflected) + load3(row, 5) * fuzz_unit;
+      } else if (is_diel) {
+        scattered = true;
+        attenuation = {1.0f, 1.0f, 1.0f};
+        const float ref_idx = __ldg(row + 1);
+        const float ri = front ? 1.0f / (ref_idx == 0.0f ? 1.0f : ref_idx) : ref_idx;
+        const V3 unit_dir = normalize(d);
+        const float cos_theta = fminf(-dot(unit_dir, normal), 1.0f);
+        const float sin_theta = sqrtf(fmaxf(1.0f - cos_theta * cos_theta, 0.0f));
+        // materials.schlick_reflectance, x**5 as the squarings JAX lowers to
+        float r0 = (1.0f - ri) / (1.0f + ri);
+        r0 = r0 * r0;
+        const float x = 1.0f - cos_theta;
+        const float x2 = x * x;
+        const float schlick = r0 + (1.0f - r0) * (x * (x2 * x2));
+        const bool cannot_refract = ri * sin_theta > 1.0f || schlick > diel_u;
+        skip_dir = cannot_refract ? reflect(unit_dir, normal) : refract(unit_dir, normal, ri);
+      }
+      if (has_emissive && is_light && front) {
+        acc = acc + thr * eval_property(row, 8, 15, has_checker, p);
+      }
+      if (!scattered) break;  // absorbed
+
+      // nee.py, the no-light branch: the material pdf alone.  Both
+      // direction draws are unconditional, as in gen_scatter_direction_v3.
+      random_unit(state);  // the sphere-pdf direction, unused without lights
+      const V3 cl = random_cosine(state);
+      if (is_lamb) {
+        // make_onb_v3 about the normal; the cosine direction
+        const V3 axis2 = normalize(normal);
+        const bool pick_y = fabsf(axis2.x) > 0.9f;
+        const V3 up = pick_y ? v3(0.0f, 1.0f, 0.0f) : v3(1.0f, 0.0f, 0.0f);
+        const V3 axis1 = normalize(cross(axis2, up));
+        const V3 axis0 = cross(axis2, axis1);
+        const V3 sdir = {cl.x * axis0.x + cl.y * axis1.x + cl.z * axis2.x,
+                         cl.x * axis0.y + cl.y * axis1.y + cl.z * axis2.y,
+                         cl.x * axis0.z + cl.y * axis1.z + cl.z * axis2.z};
+        // pdf_value_v3, cosine branch; the ratio pdf/pdf is 1 except where
+        // the pdf is 0 (guarded 0/0)
+        const float dn = sqrtf(dot(sdir, sdir));
+        const float inv = 1.0f / (dn == 0.0f ? 1.0f : dn);
+        const float scatter_pdf = fmaxf(dot(sdir * inv, normal) * (1.0f / kPi), 0.0f);
+        const float ratio = scatter_pdf > 0.0f ? 1.0f : 0.0f;
+        thr = thr * attenuation * ratio;
+        d = normalize(sdir);
+      } else {  // metal or dielectric: skip the pdf
+        thr = thr * attenuation;
+        d = skip_dir;
+      }
+      o = p;
+    }
+    sum_x += acc.x;
+    sum_y += acc.y;
+    sum_z += acc.z;
+  }
+  sums[3 * pix + 0] = sum_x;
+  sums[3 * pix + 1] = sum_y;
+  sums[3 * pix + 2] = sum_z;
+  traced_out[pix] = traced;
+}
+
+}  // namespace
+
+// table8: [s8, 8] f32, 16-byte aligned; rows: [n_rows, 64] f32;
+// fparams: [40] f32 (layout above); sums: [height * width, 3] f32 out;
+// traced: [height * width] i32 out.  Launches on `stream` without
+// synchronising and returns cudaGetLastError().
+extern "C" int megakernel_launch(const void* table8, int s8, const void* rows, int n_rows,
+                                 const void* fparams, int width, int height, int sqrt_spp,
+                                 int spp_local, int n_batches, int batch0, int sample_base,
+                                 int max_depth, int flags, void* sums, void* traced,
+                                 void* stream) {
+  const int n_pix = width * height;
+  if (n_pix <= 0) return static_cast<int>(cudaGetLastError());
+  const size_t smem = (kNumParams + 8 * static_cast<size_t>(s8)) * sizeof(float);
+  if (smem > 48 * 1024) {  // above the default limit it must be opted into
+    const cudaError_t err = cudaFuncSetAttribute(
+        megakernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = (n_pix + kThreads - 1) / kThreads;
+  megakernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(table8), s8, static_cast<const float*>(rows), n_rows,
+      static_cast<const float*>(fparams), width, height, sqrt_spp, spp_local, n_batches, batch0,
+      sample_base, max_depth, flags, static_cast<float*>(sums), static_cast<int*>(traced));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* megakernel_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+

@@ -94,6 +94,10 @@ class SceneStatic:
     width: int
     height: int
     use_fat_shading: bool
+    num_spheres: int = 0
+    # Set by the Renderer once every sphere has a world-space table
+    # (uniform scale), as in the JAX package.
+    sphere_world_mode: bool = False
 
 
 def _scene_numpy(cs: CompiledScene) -> dict:
@@ -166,6 +170,7 @@ def upload_scene(cs: CompiledScene, device):
         width=int(cs.render.width),
         height=int(cs.render.height),
         use_fat_shading=cs.shade_rows is not None,
+        num_spheres=int(cs.num_spheres),
     )
     return arrays, static
 

@@ -2,9 +2,19 @@
 and PNG export (raytrace_tpu/engine/renderer.py).
 
 Each ``render_next_batch`` traces one sample batch and folds it into the
-running mean (ray_gen.glsl:597-603); ``render_all`` drives every batch.  A
-checkpoint is the JAX package's npz (accumulation image, batch index,
-resolution), so a render started there resumes here.
+running mean (ray_gen.glsl:597-603); ``render_batches(k)`` renders k
+batches, on the fused path in one kernel launch; ``render_all`` drives
+every batch in chunks of ``chunk_size()``.  A checkpoint is the JAX
+package's npz (accumulation image, batch index, resolution), so a render
+started there resumes here.
+
+Two paths render a batch, as in the JAX package: the fused bounce kernel
+(ops/megakernel.py) for every scene its gate admits, and the torch
+wavefront (engine/wavefront.py, with the sphere-sweep kernel) for the
+rest.  ``use_megakernel`` picks: None takes the fused kernel on a CUDA
+device when the gate admits the scene and the wavefront on the CPU; True
+takes the fused path wherever the gate admits the scene (on the CPU its
+plain version); False always takes the wavefront.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ from raytrace_tpu.tools.chacha import ChaCha20Rng
 from raytrace_tpu.utils.image import write_png
 
 from ..ops import camera as cam_ops
+from ..ops import megakernel
 from ..ops.spheres import world_sphere_tables
 from .arrays import SceneStatic, upload_scene
 from .wavefront import make_trace_fn, prepare_batch, render_tile
@@ -88,8 +99,15 @@ def _synchronize(device: torch.device) -> None:
 
 
 class Renderer:
-    def __init__(self, compiled: CompiledScene, device="cuda"):
+    # Batches fused into one kernel launch by render_all and the CLI.
+    CHUNK = 12
+
+    def __init__(self, compiled: CompiledScene, device="cuda",
+                 use_megakernel: Optional[bool] = None):
         self.device = torch.device(device)
+        # Kept so update_image_size rebuilds with the same options.
+        self._ctor_kwargs = dict(device=self.device,
+                                 use_megakernel=use_megakernel)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA is not available; rendering on the CPU must be asked "
@@ -105,7 +123,12 @@ class Renderer:
             raise NotImplementedError(
                 "not ported yet: spheres with non-uniform scale (ROADMAP "
                 "queue 1: 'Object-space spheres')")
+        self.static = dataclasses.replace(self.static, sphere_world_mode=True)
         self.compiled = compiled
+        if use_megakernel is None:
+            use_megakernel = self.device.type == "cuda"
+        self.use_megakernel = bool(use_megakernel) and (
+            megakernel.megakernel_supported(self.static))
 
         name = compiled.render.camera
         if name not in compiled.cameras:
@@ -127,43 +150,79 @@ class Renderer:
         self.current_batch = 0
         self.stats = RenderStats()
 
+    def _geometry(self, batch: int):
+        sph_table = torch.tensor(self.sphere_tables[batch], device=self.device)
+        return prepare_batch(self.static, self.scene, sph_table)
+
+    def _record(self, batches: int, rays: int, t0: float) -> None:
+        dt = _time.perf_counter() - t0
+        self.current_batch += batches
+        self.stats.batches_done += batches
+        self.stats.rays_traced += rays
+        self.stats.render_seconds += dt
+
     def render_next_batch(self) -> bool:
         """Trace one sample batch; returns False when every batch is done."""
         if self.current_batch >= self.compiled.render.sample_batches:
             return False
         t0 = _time.perf_counter()
         H = self.static.height
-        sph_table = torch.tensor(self.sphere_tables[self.current_batch],
-                                 device=self.device)
-        geom = prepare_batch(self.static, self.scene, sph_table)
-        trace = make_trace_fn(geom)
-        tiles, rays = [], 0
-        for row0 in range(0, H, self.rows_per_tile):
-            tile, tr = render_tile(
-                self.static, self.scene, self.camera, trace, geom,
-                self.current_batch, row0, self.rows_per_tile, self.use_dof)
-            tiles.append(tile)
-            rays += tr
-        img = torch.cat(tiles, dim=0)[:H]
+        geom = self._geometry(self.current_batch)
+        if self.use_megakernel:
+            img, traced = megakernel.render_tile_mega(
+                self.static, self.scene, geom, self.camera,
+                self.current_batch, 1, use_dof=self.use_dof, reduce_mean=True)
+            rays = int(traced.sum(dtype=torch.int64))
+        else:
+            trace = make_trace_fn(geom)
+            tiles, rays = [], 0
+            for row0 in range(0, H, self.rows_per_tile):
+                tile, tr = render_tile(
+                    self.static, self.scene, self.camera, trace, geom,
+                    self.current_batch, row0, self.rows_per_tile,
+                    self.use_dof)
+                tiles.append(tile)
+                rays += tr
+            img = torch.cat(tiles, dim=0)[:H]
         b = float(self.current_batch)
         self.accum = (b * self.accum + img) / (b + 1.0)
         _synchronize(self.device)
-        dt = _time.perf_counter() - t0
-        self.current_batch += 1
-        self.stats.batches_done += 1
-        self.stats.rays_traced += rays
-        self.stats.render_seconds += dt
+        self._record(1, rays, t0)
         return True
 
     def render_batches(self, k: int) -> int:
-        """Render up to k batches; returns how many were rendered."""
-        done = 0
-        while done < k and self.render_next_batch():
-            done += 1
-        return done
+        """Render up to k batches; returns how many were rendered.  On the
+        fused path the k batches are one kernel launch of k x spp samples
+        per pixel; otherwise (and for k == 1) they are stepped one by
+        one."""
+        k = min(k, self.compiled.render.sample_batches - self.current_batch)
+        if k <= 0:
+            return 0
+        if not self.use_megakernel or k == 1:
+            done = 0
+            while done < k and self.render_next_batch():
+                done += 1
+            return done
+        t0 = _time.perf_counter()
+        b0 = self.current_batch
+        # A static scene: every batch of the chunk shares batch b0's table.
+        sums, traced = megakernel.render_tile_mega(
+            self.static, self.scene, self._geometry(b0), self.camera, b0, k,
+            use_dof=self.use_dof)
+        spp = self.static.sqrt_spp ** 2
+        self.accum = (float(b0) * self.accum + sums / spp) / float(b0 + k)
+        rays = int(traced.sum(dtype=torch.int64))
+        _synchronize(self.device)
+        self._record(k, rays, t0)
+        return k
+
+    def chunk_size(self) -> int:
+        """Batches per render_batches call from render_all and the CLI."""
+        spp = max(1, self.static.sqrt_spp ** 2)
+        return max(1, min(self.CHUNK, 256 // spp))
 
     def render_all(self) -> np.ndarray:
-        while self.render_next_batch():
+        while self.render_batches(self.chunk_size()):
             pass
         return self.image()
 
@@ -195,4 +254,4 @@ class Renderer:
             render=dataclasses.replace(self.compiled.render, width=width,
                                        height=height),
         )
-        return Renderer(cs, device=self.device)
+        return Renderer(cs, **self._ctor_kwargs)

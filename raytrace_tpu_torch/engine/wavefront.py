@@ -14,7 +14,7 @@ no triangles and no lights.  The Renderer rejects every other scene.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -192,10 +192,12 @@ def _bounce(static: SceneStatic, bg: V3, trace_fn, geom: BatchGeometry,
 
 def bounce_wavefront(static: SceneStatic, scene: SceneArrays,
                      trace_fn: Callable, geom: BatchGeometry, state,
-                     ray_o: V3, ray_d: V3):
+                     ray_o: V3, ray_d: V3,
+                     counts: Optional[torch.Tensor] = None):
     """Bounce a wavefront to termination; returns (radiance V3 of [R],
     rays traced).  Rays traced is the sum over bounces of the rays alive
-    at that bounce, as in the JAX package.
+    at that bounce, as in the JAX package.  ``counts`` ([R] int32), when
+    given, gets each ray's own number of bounces added to it.
 
     Tail compaction: scenes run to max depth 50 while most paths end after
     a few bounces.  Whenever the alive count falls to the next size of
@@ -240,6 +242,8 @@ def bounce_wavefront(static: SceneStatic, scene: SceneArrays,
                       accumulated=V3(nz, nz, nz),
                       alive=torch.ones(n_alive, dtype=torch.bool, device=dev))
         rays_traced += n_alive
+        if counts is not None:
+            counts.index_add_(0, w.idx, w.alive.to(torch.int32))
         w = _bounce(static, bg, trace_fn, geom, w)
     flush(w)
     return V3(*out), rays_traced
@@ -247,15 +251,16 @@ def bounce_wavefront(static: SceneStatic, scene: SceneArrays,
 
 def primary_rays(static: SceneStatic, cam: cam_ops.CameraArrays,
                  sample_batch: int, row0: int, rows_per_tile: int,
-                 use_dof: bool, device):
+                 use_dof: bool, device, sample_base: int = 0):
     """Raygen for ``rows_per_tile`` pixel rows x width x spp samples, ray
-    order (row, column, sample).  Returns (rng state, origin, direction)."""
+    order (row, column, sample); the samples are numbered from
+    ``sample_base``.  Returns (rng state, origin, direction)."""
     W = static.width
     sqrt_spp = static.sqrt_spp
     spp = sqrt_spp * sqrt_spp
     ray_ids = torch.arange(rows_per_tile * W * spp, dtype=torch.int64,
                            device=device)
-    s = ray_ids % spp
+    s = ray_ids % spp + sample_base
     pix = ray_ids // spp
     px = pix % W
     py = row0 + pix // W

@@ -26,6 +26,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+# Flags a kernel adds to NVCC_FLAGS.  The fused bounce kernel is built
+# without multiply-add contraction, so each of its operations rounds as the
+# plain PyTorch version's elementwise kernels do.
+KERNEL_FLAGS = {"megakernel": ("-fmad=false",)}
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 
 
@@ -39,9 +43,14 @@ def _nvcc() -> str:
                        "CUDA toolkit (on PATH or in /usr/local/cuda)")
 
 
+def nvcc_flags(name: str) -> tuple:
+    return NVCC_FLAGS + KERNEL_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = " ".join(nvcc_flags(name)).encode()
+    digest = hashlib.sha256(src + flags).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -61,7 +70,8 @@ def build(name: str) -> Path:
         os.close(fd)
         try:
             proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+                [_nvcc(), *nvcc_flags(name), "-o", tmp,
+                 str(CSRC / f"{name}.cu")],
                 capture_output=True, text=True,
             )
             if proc.returncode != 0:

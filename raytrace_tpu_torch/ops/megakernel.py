@@ -1,0 +1,214 @@
+"""The fused bounce kernel: the CUDA kernel ``csrc/megakernel.cu`` and its
+plain PyTorch version (counterpart of raytrace_tpu/ops/megakernel.py,
+``render_tile_mega`` and ``megakernel_supported``).
+
+One launch renders every pixel of the frame for ``n_batches`` consecutive
+sample batches: each pixel's K = n_batches * spp samples are traced in
+sample order and summed, so the result is the per-pixel radiance sums and
+the per-pixel bounce counts.  ``render_tile_mega`` is the one entry point:
+for tensors on the CPU it runs the plain version, for CUDA tensors it
+launches the kernel on the current stream, or raises.  ``LAUNCHES`` counts
+kernel launches, so a run can show that its main path went through the
+kernel.
+
+The kernel covers spheres in world space with direct normals, fat-row
+shading, no lights, no triangles, no image or noise textures and no
+animation; ``megakernel_supported`` is that gate, decided from facts about
+the scene.  The TPU kernel's lane machinery (q-pixel lanes, snake
+permutations, pair stealing), its row-fetch matmul and its sub-linear
+sweeps are TPU mechanisms and have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from . import _build, sphere_sweep, vec3
+from .intersect import T_MAX
+from .vec3 import V3
+
+LAUNCHES = 0
+
+# The kernel stages the whole [S8, 8] sphere table in shared memory
+# (32 bytes a sphere): 4096 spheres take 128 KiB of the 227 KiB a block
+# may use.  Scenes with more spheres render on the wavefront.
+MAX_SPHERES = 4096
+
+_N_PARAMS = 40  # csrc/megakernel.cu kNumParams
+_USE_DOF, _HAS_CHECKER, _HAS_EMISSIVE = 1, 2, 4
+
+
+class MegaConfig(NamedTuple):
+    """What one launch is specialised on (the fields of the JAX
+    ``MegaConfig`` this kernel reads)."""
+
+    width: int
+    height: int
+    sqrt_spp: int
+    spp: int
+    spp_local: int
+    n_batches: int
+    max_depth: int
+    use_dof: bool
+    has_checker: bool
+    has_emissive: bool
+    S8: int
+    P: int
+
+
+def megakernel_supported(static) -> bool:
+    """Scenes the fused kernel covers: spheres in world space (uniform
+    scale, so the world table holds), fat-row shading, no triangles, no
+    lights, no image or noise textures, no animation, and at most
+    MAX_SPHERES spheres.  Every other scene renders on the wavefront."""
+    f = static.flags
+    return (static.use_fat_shading and static.sphere_world_mode
+            and not (static.has_tris or static.has_lights
+                     or static.any_animated or f.has_image or f.has_noise)
+            and static.num_spheres <= MAX_SPHERES)
+
+
+def make_config(static, geom, use_dof: bool, n_batches: int) -> MegaConfig:
+    spp = static.sqrt_spp ** 2
+    return MegaConfig(
+        width=static.width, height=static.height, sqrt_spp=static.sqrt_spp,
+        spp=spp, spp_local=spp, n_batches=int(n_batches),
+        max_depth=static.max_ray_depth, use_dof=bool(use_dof),
+        has_checker=static.flags.has_checker,
+        has_emissive=static.flags.has_emissive,
+        S8=geom.sph_table8.shape[0], P=geom.prim_rows.shape[0])
+
+
+def _float_params(cfg: MegaConfig, static, scene, cam) -> torch.Tensor:
+    """The kernel's [40] f32 parameter block, built on the device: view
+    and projection inverses (row-major), focal length, aperture, the sky
+    colour (direction-independent, render_tile_mega :2894-2900),
+    f32(1 / sqrt_spp)."""
+    from ..engine.wavefront import _background_v3
+
+    dev = cam.view_inverse.device
+    recip = torch.tensor([float(np.float32(1.0 / cfg.sqrt_spp))],
+                         dtype=torch.float32, device=dev)
+    out = torch.cat([
+        cam.view_inverse.reshape(16), cam.proj_inverse.reshape(16),
+        cam.focal_length.reshape(1), cam.aperture_size.reshape(1),
+        torch.stack(list(_background_v3(static, scene))), recip])
+    return torch.nn.functional.pad(out, (0, _N_PARAMS - out.shape[0]))
+
+
+def megakernel_reference(static, scene, geom, cam, batch0: int,
+                         n_batches: int = 1, sample_base: int = 0, *,
+                         use_dof: bool):
+    """The plain version of the kernel: (sums [H, W, 3] f32, traced
+    [H, W] int32).  Each batch's pixel x sample rays go through the
+    wavefront bounce loop with the plain sphere sweep (not the K1 kernel);
+    a pixel's samples are then summed in sample order, batch after batch,
+    as the kernel sums them."""
+    from ..engine.wavefront import RawHit, bounce_wavefront, primary_rays
+
+    H, W = static.height, static.width
+    spp = static.sqrt_spp ** 2
+    dev = geom.sph_table8.device
+
+    def trace(o: V3, d: V3, alive) -> RawHit:
+        t, ids = sphere_sweep.sphere_sweep_reference(o, d, geom.sph_table8)
+        t = torch.where(alive, t, T_MAX)
+        return RawHit(missed=t >= T_MAX, t=t,
+                      prim=torch.clamp_min(torch.where(alive, ids, -1), 0))
+
+    sums = torch.zeros((H * W, 3), dtype=torch.float32, device=dev)
+    traced = torch.zeros(H * W, dtype=torch.int32, device=dev)
+    for b in range(n_batches):
+        state, o, d = primary_rays(static, cam, batch0 + b, 0, H, use_dof,
+                                   dev, sample_base)
+        counts = torch.zeros(H * W * spp, dtype=torch.int32, device=dev)
+        radiance, _ = bounce_wavefront(static, scene, trace, geom, state, o,
+                                       d, counts)
+        rad = vec3.to_rows(radiance).reshape(H * W, spp, 3)
+        for j in range(spp):
+            sums = sums + rad[:, j]
+        traced = traced + counts.reshape(H * W, spp).sum(1, dtype=torch.int32)
+    return sums.reshape(H, W, 3), traced.reshape(H, W)
+
+
+def _check_inputs(cfg: MegaConfig, geom, params) -> None:
+    table8, rows = geom.sph_table8, geom.prim_rows
+    device = table8.device
+    if (table8.dtype != torch.float32 or table8.dim() != 2
+            or table8.shape[1] != 8 or table8.shape[0] % 8
+            or not table8.is_contiguous()):
+        raise ValueError("sph_table8 must be a contiguous float32 [S8, 8] "
+                         "tensor (S8 a multiple of 8)")
+    if (rows.dtype != torch.float32 or rows.dim() != 2
+            or rows.shape[1] != 64 or rows.device != device
+            or not rows.is_contiguous()):
+        raise ValueError("prim_rows must be a contiguous float32 [P, 64] "
+                         "tensor on the table's device")
+    if params.device != device:
+        raise ValueError("camera and scene must be on the table's device")
+    if cfg.S8 > MAX_SPHERES:
+        raise ValueError(f"{cfg.S8} table rows: the kernel holds at most "
+                         f"{MAX_SPHERES} spheres (megakernel_supported)")
+    if table8.data_ptr() % 16:
+        raise ValueError("sph_table8 must be 16-byte aligned (float4 loads)")
+
+
+def render_tile_mega(static, scene, geom, cam, batch0: int,
+                     n_batches: int = 1, sample_base: int = 0, *,
+                     use_dof: bool, reduce_mean: bool = False):
+    """Render the whole frame for sample batches batch0 .. batch0 +
+    n_batches - 1 in one launch.  Returns (image [H, W, 3] f32, traced
+    [H, W] int32): the image is the per-pixel radiance sums over the
+    K = n_batches * spp samples, or their mean with ``reduce_mean``;
+    traced is each pixel's number of bounces."""
+    global LAUNCHES
+    device = geom.sph_table8.device
+    cfg = make_config(static, geom, use_dof, n_batches)
+    if device.type == "cpu":
+        sums, traced = megakernel_reference(static, scene, geom, cam, batch0,
+                                            n_batches, sample_base,
+                                            use_dof=use_dof)
+    elif device.type != "cuda":
+        raise ValueError(f"no fused bounce kernel for device {device}")
+    else:
+        params = _float_params(cfg, static, scene, cam)
+        _check_inputs(cfg, geom, params)
+        lib = library()
+        H, W = cfg.height, cfg.width
+        sums = torch.empty((H, W, 3), dtype=torch.float32, device=device)
+        traced = torch.empty((H, W), dtype=torch.int32, device=device)
+        flags = ((_USE_DOF if cfg.use_dof else 0)
+                 | (_HAS_CHECKER if cfg.has_checker else 0)
+                 | (_HAS_EMISSIVE if cfg.has_emissive else 0))
+        err = lib.megakernel_launch(
+            geom.sph_table8.data_ptr(), cfg.S8, geom.prim_rows.data_ptr(),
+            cfg.P, params.data_ptr(), W, H, cfg.sqrt_spp, cfg.spp_local,
+            cfg.n_batches, int(batch0), int(sample_base), cfg.max_depth,
+            flags, sums.data_ptr(), traced.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(
+                f"megakernel launch failed: CUDA error {err} "
+                f"({lib.megakernel_error_string(err).decode()})")
+        LAUNCHES += 1
+    if reduce_mean:
+        sums = sums / float(np.float32(cfg.spp_local * cfg.n_batches))
+    return sums, traced
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The kernel's shared library, built from csrc/ at first use."""
+    lib = _build.load_library("megakernel")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.megakernel_launch.argtypes = [p, i, p, i, p, i, i, i, i, i, i, i, i,
+                                      i, p, p, p]
+    lib.megakernel_launch.restype = i
+    lib.megakernel_error_string.argtypes = [i]
+    lib.megakernel_error_string.restype = ctypes.c_char_p
+    return lib

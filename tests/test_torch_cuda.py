@@ -1,26 +1,32 @@
-"""Card-only tests of the port: the CUDA sphere-sweep kernel against its
-plain PyTorch version on the same tensors, and the main path rendered on
-the card against the CPU.  No JAX here, so they also run on a GPU machine
-without it (tests/conftest.py imports jax, hence ``--noconftest``):
+"""Card-only tests of the port: the CUDA kernels against their plain
+PyTorch versions on the same tensors, and both render paths on the card.
+No JAX here, so they also run on a GPU machine without it
+(tests/conftest.py imports jax, hence ``--noconftest``):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Every test skips with a reason where torch.cuda.is_available() is false.
-Tolerance: ids equal, and ids equal with t within rtol=1e-3, atol=1e-3,
+Sphere sweep: ids equal, and ids equal with t within rtol=1e-3, atol=1e-3,
 each on >= 99.9% of rays (nvcc contracts multiply-adds into FMAs, PyTorch's
 elementwise kernels do not; a ray starting within float error of T_MIN
-from a surface may take the other root).
+from a surface may take the other root).  Fused bounce kernel (built
+without contraction): traced rays within 0.5%, per-sample channel means
+within 1e-3, at most 5% of pixels with a max-channel difference above
+1e-4; on small scenes every pixel's bounce count equal.
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
 import torch
 
+from raytrace_tpu.models import compile_scene
+from raytrace_tpu.scene_file import SceneFile
 from raytrace_tpu_torch import cli
 from raytrace_tpu_torch.engine import Renderer
-from raytrace_tpu_torch.ops import sphere_sweep
+from raytrace_tpu_torch.ops import megakernel, sphere_sweep
 from raytrace_tpu_torch.ops.intersect import T_MAX
 from raytrace_tpu_torch.ops.vec3 import V3
 
@@ -108,7 +114,7 @@ def test_render_on_card_matches_cpu(dev):
     cs = dataclasses.replace(cs, render=dataclasses.replace(
         cs.render, sample_batches=1, max_ray_depth=8))
     before = sphere_sweep.LAUNCHES
-    gpu = Renderer(cs, device=dev)
+    gpu = Renderer(cs, device=dev, use_megakernel=False)
     g_img = gpu.render_all()
     assert sphere_sweep.LAUNCHES > before
     cpu = Renderer(cs, device="cpu")
@@ -118,3 +124,101 @@ def test_render_on_card_matches_cpu(dev):
                                c_img.mean(axis=(0, 1)), atol=1e-2)
     assert abs(gpu.stats.rays_traced - cpu.stats.rays_traced) <= (
         0.02 * cpu.stats.rays_traced)
+
+
+# ---- the fused bounce kernel ------------------------------------------------
+
+def _fused_args(cs, dev, k):
+    r = Renderer(cs, device=dev)
+    assert r.use_megakernel
+    return (r.static, r.scene, r._geometry(0), r.camera, 0, k), r.use_dof
+
+
+def _final(w, h, depth):
+    cs = cli.load_scene(cli.DEFAULT_SCENE, w, h)
+    return dataclasses.replace(cs, render=dataclasses.replace(
+        cs.render, max_ray_depth=depth))
+
+
+@pytest.mark.parametrize("w,h", [(32, 18), (96, 54)])
+def test_fused_kernel_matches_plain(dev, w, h):
+    k = 2
+    args, use_dof = _fused_args(_final(w, h, 8), dev, k)
+    before = megakernel.LAUNCHES
+    sums, traced = megakernel.render_tile_mega(*args, use_dof=use_dof)
+    torch.cuda.synchronize()
+    assert megakernel.LAUNCHES == before + 1
+    ref, ref_traced = megakernel.megakernel_reference(*args, use_dof=use_dof)
+    assert sums.shape == (h, w, 3) and torch.isfinite(sums).all()
+    rays, ref_rays = int(traced.sum()), int(ref_traced.sum())
+    assert abs(rays - ref_rays) <= 0.005 * ref_rays
+    n = 4 * k
+    torch.testing.assert_close(sums.mean((0, 1)) / n, ref.mean((0, 1)) / n,
+                               rtol=0, atol=1e-3)
+    bad = (sums - ref).abs().amax(-1) > 1e-4
+    assert bad.double().mean().item() <= 0.05
+
+
+def test_fused_kernel_is_deterministic(dev):
+    args, use_dof = _fused_args(_final(96, 54, 8), dev, 2)
+    a = megakernel.render_tile_mega(*args, use_dof=use_dof)
+    b = megakernel.render_tile_mega(*args, use_dof=use_dof)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def _sphere_doc(n):
+    """Spheres under the final-one-weekend camera: a lambertian ground,
+    then a metal and a dielectric sphere."""
+    cam = json.load(open(cli.DEFAULT_SCENE))["cameras"]
+    prims = [("ground", [0, 1000, 0], 1000.0, "lamb"),  # y points down
+             ("metal", [4, -1, 0], 1.0, "metal"),
+             ("glass", [0, -1, 0], 1.0, "glass")][:n]
+    return {
+        "cameras": cam,
+        "textures": [{"constant": {"name": "grey", "rgb": [0.5, 0.5, 0.5]}},
+                     {"constant": {"name": "gold",
+                                   "rgb": [0.7, 0.6, 0.5]}},
+                     {"constant": {"name": "fuzz", "rgb": [0.1, 0.1, 0.1]}}],
+        "materials": [{"lambertian": {"name": "lamb", "albedo": "grey"}},
+                      {"metal": {"name": "metal", "albedo": "gold",
+                                 "fuzz": "fuzz"}},
+                      {"dielectric": {"name": "glass",
+                                      "refraction_index": 1.5}}],
+        "primitives": [{"uv_sphere": {"name": nm, "center": c, "radius": r,
+                                      "rings": 8, "segments": 16,
+                                      "material": m}}
+                       for nm, c, r, m in prims],
+        "instances": [{"name": nm} for nm, *_ in prims],
+        "sky": {"vertical_gradient": {"factor": 0.5, "top": [0.5, 0.7, 1.0],
+                                      "bottom": [1.0, 1.0, 1.0]}},
+        "render": {"camera": "default", "samples_per_pixel": 4,
+                   "sample_batches": 2, "max_ray_depth": 10,
+                   "aspect_ratio": 16 / 9},
+    }
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_fused_kernel_traced_counts_equal_plain(dev, n):
+    cs = compile_scene(SceneFile.from_json_dict(_sphere_doc(n)), width=64,
+                       height=36)
+    args, use_dof = _fused_args(cs, dev, 2)
+    _, traced = megakernel.render_tile_mega(*args, use_dof=use_dof)
+    _, ref_traced = megakernel.megakernel_reference(*args, use_dof=use_dof)
+    assert torch.equal(traced, ref_traced)
+
+
+def test_renderer_defaults_to_the_fused_path_on_the_card(dev):
+    cs = dataclasses.replace(_final(96, 54, 8), render=dataclasses.replace(
+        _final(96, 54, 8).render, sample_batches=3))
+    sweeps, fused = sphere_sweep.LAUNCHES, megakernel.LAUNCHES
+    r = Renderer(cs, device=dev)
+    img = r.render_all()
+    assert r.use_megakernel and megakernel.LAUNCHES == fused + 1
+    assert sphere_sweep.LAUNCHES == sweeps
+    w = Renderer(cs, device=dev, use_megakernel=False)
+    w_img = w.render_all()
+    np.testing.assert_allclose(img.mean(axis=(0, 1)), w_img.mean(axis=(0, 1)),
+                               atol=1e-3)
+    assert abs(r.stats.rays_traced - w.stats.rays_traced) <= (
+        0.005 * w.stats.rays_traced)
