@@ -14,11 +14,15 @@ counterpart is easy to find:
               progressive ``Renderer`` (fused kernel or wavefront) with
               checkpoint/resume.
 - ``cli``:    ``render`` on the command line.
+- ``scene_file``, ``models``, ``tools.chacha``, ``utils.image``: the
+              numpy host layers (scene JSON schema, ``compile_scene``,
+              the host RNG, PNG output), copies of the JAX package's
+              modules of the same names, held to them by
+              ``tests/test_torch_host_layers.py``.
 
-The numpy-only host layers (``raytrace_tpu.scene_file``, ``.models``,
-``.tools.chacha``, ``.utils.image``) are imported as they are; none of
-them loads JAX.  Everything here takes an explicit ``device``; the per-ray
-PCG state tensor is the only source of randomness.
+The port imports nothing of the JAX package.  Everything here takes an
+explicit ``device``; the per-ray PCG state tensor is the only source of
+randomness.
 """
 
 __version__ = "0.1.0"

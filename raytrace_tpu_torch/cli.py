@@ -8,9 +8,10 @@ Usage:
 ``--device`` defaults to ``cuda`` and fails with a clear error when no
 CUDA device is present; the CPU has to be asked for with ``--device cpu``.
 The Renderer chooses its path (the fused kernel on a CUDA device for
-every scene it covers, else the wavefront).  The render steps in chunks
-of ``Renderer.chunk_size()`` batches (one fused kernel launch each on the
-fused path); with ``--checkpoint`` the state is saved after every chunk,
+every scene it covers, static or with moving spheres, else the
+wavefront) and logs it.  The render steps in chunks of
+``Renderer.chunk_size()`` batches (one fused kernel launch each on the
+fused paths); with ``--checkpoint`` the state is saved after every chunk,
 and ``--resume`` continues from it.
 """
 
@@ -30,9 +31,9 @@ DEFAULT_SCENE = str(Path(__file__).resolve().parents[1] / "assets"
 
 
 def load_scene(path: str, width=None, height=None):
-    """Scene JSON → CompiledScene (the shared numpy host layers)."""
-    from raytrace_tpu.models import compile_scene
-    from raytrace_tpu.scene_file import SceneFile
+    """Scene JSON → CompiledScene (the port's numpy host layers)."""
+    from .models import compile_scene
+    from .scene_file import SceneFile
 
     scene = SceneFile.load_json(path)
     scene.validate()
@@ -60,8 +61,8 @@ def cmd_render(args) -> int:
         renderer.load_checkpoint(args.checkpoint)
         log.info("resumed at batch %d", renderer.current_batch)
 
-    log.info("path: %s", "fused bounce kernel" if renderer.use_megakernel
-             else "wavefront")
+    log.info("path: %s (%s)", "fused bounce kernel"
+             if renderer.use_megakernel else "wavefront", renderer.path)
 
     t0 = time.perf_counter()
     total = cs.render.sample_batches
@@ -98,7 +99,7 @@ def main(argv=None) -> int:
     pr.set_defaults(fn=cmd_render)
 
     args = p.parse_args(argv)
-    from raytrace_tpu.scene_file import SceneError
+    from .scene_file import SceneError
 
     try:
         return args.fn(args)

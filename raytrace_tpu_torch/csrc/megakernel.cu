@@ -3,7 +3,8 @@
 //
 // Replaces the TPU kernel raytrace_tpu/ops/megakernel.py::_mega_kernel
 // (launched by mega_dispatch) in its spheres-in-world-space, direct-normal,
-// no-light, no-triangle, no-image, no-animation configuration.  It computes
+// no-light, no-triangle, no-image configuration, static or with the
+// spheres moving on straight lines (its anim_lerp form).  It computes
 // what the torch wavefront (engine/wavefront.py) computes, ray for ray: the
 // same PCG stream per (pixel, sample), the same camera and shading
 // arithmetic in the same operation order, the same closest hit (strict <
@@ -22,6 +23,16 @@
 // The sphere table [S8, 8] and the camera/sky parameters are staged into
 // shared memory once, before any loop; the only __syncthreads() sits
 // there, because threads of a block run different numbers of bounces.
+//
+// Motion (template parameter kAnim, so the static kernel's inner loop is
+// compiled without it): the table holds each sphere at shutter time 0 and
+// a second table [S8, 8] its motion, dc = c1 - c0 in columns 0:3, k1 =
+// 2 c0.dc in 4 and k2 = |dc|^2 in 5 (ops/spheres.world_sphere_anim_tables).
+// A sample of batch b runs at time t = times[b]: the sweep tests the
+// sphere at c0 + t * dc with k0 + t * (k1 + t * k2), and the hit's normal
+// uses the centre moved the same way (fat-row slots 49:52 hold dc).  Each
+// sphere is staged as three float4 (48 B): (c0, r), (k0, k1, k2, -),
+// (dc, -), so 4096 spheres take 192 KiB of shared memory.
 // Every thread of a bounce reads the same sphere at the same time (a
 // broadcast).  The fat rows are read per hit from global memory through
 // the read-only cache: columns 0:24 (material) and 44:48 (world centre and
@@ -68,6 +79,10 @@ constexpr float kPiOver4 = static_cast<float>(3.14159265358979323846 / 4.0);
 constexpr int kUseDof = 1;
 constexpr int kHasChecker = 2;
 constexpr int kHasEmissive = 4;
+
+// float4 per sphere in shared memory.
+template <bool kAnim>
+constexpr int kStride = kAnim ? 3 : 2;
 
 // Float parameters, staged into shared memory (ops/megakernel.py
 // _float_params builds the same layout).
@@ -228,16 +243,29 @@ __device__ __forceinline__ V3 eval_property(const float* __restrict__ row, int b
 
 // ---- the kernel ----
 
+template <bool kAnim>
 __global__ void __launch_bounds__(kThreads)
-megakernel(const float4* __restrict__ table, int s8, const float* __restrict__ rows, int n_rows,
+megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
+           const float* __restrict__ times, int s8, const float* __restrict__ rows, int n_rows,
            const float* __restrict__ fparams, int width, int height, int sqrt_spp, int spp_local,
            int n_batches, int batch0, int sample_base, int max_depth, int flags,
            float* __restrict__ sums, int* __restrict__ traced_out) {
   extern __shared__ float4 smem[];
   float* prm = reinterpret_cast<float*>(smem);        // kNumParams floats
-  float4* tbl = smem + kNumParams / 4;                // sphere j: tbl[2j], tbl[2j+1].x
+  // Static sphere j: tbl[2j] = (c, r), tbl[2j+1].x = k.  Animated:
+  // tbl[3j] = (c0, r), tbl[3j+1] = (k0, k1, k2, -), tbl[3j+2] = (dc, -).
+  float4* tbl = smem + kNumParams / 4;
   for (int j = threadIdx.x; j < kNumParams; j += kThreads) prm[j] = fparams[j];
-  for (int j = threadIdx.x; j < 2 * s8; j += kThreads) tbl[j] = table[j];
+  if constexpr (kAnim) {
+    for (int j = threadIdx.x; j < s8; j += kThreads) {
+      const float4 dk = dtable[2 * j + 1];
+      tbl[3 * j] = table[2 * j];
+      tbl[3 * j + 1] = make_float4(table[2 * j + 1].x, dk.x, dk.y, 0.0f);
+      tbl[3 * j + 2] = dtable[2 * j];
+    }
+  } else {
+    for (int j = threadIdx.x; j < 2 * s8; j += kThreads) tbl[j] = table[j];
+  }
   __syncthreads();  // the only barrier: no thread waits on another below
 
   const int n_pix = width * height;
@@ -257,6 +285,7 @@ megakernel(const float4* __restrict__ table, int s8, const float* __restrict__ r
   for (int s_all = 0; s_all < n_samples; ++s_all) {
     const int batch = batch0 + s_all / spp_local;
     const int s = s_all % spp_local + sample_base;
+    const float tcur = kAnim ? __ldg(times + batch) : 0.0f;  // shutter time
     uint32_t state = init_rng(static_cast<uint32_t>(batch), static_cast<uint32_t>(s),
                               static_cast<uint32_t>(py), static_cast<uint32_t>(px),
                               static_cast<uint32_t>(width), static_cast<uint32_t>(height), spp);
@@ -276,8 +305,19 @@ megakernel(const float4* __restrict__ table, int s8, const float* __restrict__ r
       float best_t = kTMax;
       int best_id = -1;
       for (int j = 0; j < s8; ++j) {
-        const float4 sph = tbl[2 * j];
-        const float k = tbl[2 * j + 1].x;
+        float4 sph;
+        float k;
+        if constexpr (kAnim) {
+          // The sphere at the sample's time (megakernel.py sph_8 anim_lerp).
+          const float4 c0 = tbl[3 * j];
+          const float4 kk = tbl[3 * j + 1];
+          const float4 dc = tbl[3 * j + 2];
+          sph = make_float4(c0.x + tcur * dc.x, c0.y + tcur * dc.y, c0.z + tcur * dc.z, c0.w);
+          k = kk.x + tcur * (kk.y + tcur * kk.z);
+        } else {
+          sph = tbl[2 * j];
+          k = tbl[2 * j + 1].x;
+        }
         const float dc = sph.x * d.x + sph.y * d.y + sph.z * d.z;
         const float oc = sph.x * o.x + sph.y * o.y + sph.z * o.z;
         const float h = d_dot_o - dc;
@@ -304,7 +344,11 @@ megakernel(const float4* __restrict__ table, int s8, const float* __restrict__ r
 
       // Hit reconstruction, direct world normal (wavefront.reconstruct_hit).
       const V3 p = {o.x + d.x * best_t, o.y + d.y * best_t, o.z + d.z * best_t};
-      const V3 c = load3(row, 44);
+      V3 c = load3(row, 44);
+      if constexpr (kAnim) {  // the centre at the sample's time, as swept
+        c = {c.x + tcur * __ldg(row + 49), c.y + tcur * __ldg(row + 50),
+             c.z + tcur * __ldg(row + 51)};
+      }
       const float r = __ldg(row + 47);
       const float inv_r = 1.0f / (r == 0.0f ? 1.0f : r);
       const V3 n = normalize(v3((p.x - c.x) * inv_r, (p.y - c.y) * inv_r, (p.z - c.z) * inv_r));
@@ -390,31 +434,51 @@ megakernel(const float4* __restrict__ table, int s8, const float* __restrict__ r
   traced_out[pix] = traced;
 }
 
-}  // namespace
-
-// table8: [s8, 8] f32, 16-byte aligned; rows: [n_rows, 64] f32;
-// fparams: [40] f32 (layout above); sums: [height * width, 3] f32 out;
-// traced: [height * width] i32 out.  Launches on `stream` without
-// synchronising and returns cudaGetLastError().
-extern "C" int megakernel_launch(const void* table8, int s8, const void* rows, int n_rows,
-                                 const void* fparams, int width, int height, int sqrt_spp,
-                                 int spp_local, int n_batches, int batch0, int sample_base,
-                                 int max_depth, int flags, void* sums, void* traced,
-                                 void* stream) {
+template <bool kAnim>
+int launch(const void* table8, const void* dtab8, const void* times, int s8, const void* rows,
+           int n_rows, const void* fparams, int width, int height, int sqrt_spp, int spp_local,
+           int n_batches, int batch0, int sample_base, int max_depth, int flags, void* sums,
+           void* traced, void* stream) {
   const int n_pix = width * height;
   if (n_pix <= 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = (kNumParams + 8 * static_cast<size_t>(s8)) * sizeof(float);
+  const size_t smem =
+      (kNumParams + 4 * kStride<kAnim> * static_cast<size_t>(s8)) * sizeof(float);
   if (smem > 48 * 1024) {  // above the default limit it must be opted into
     const cudaError_t err = cudaFuncSetAttribute(
-        megakernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        megakernel<kAnim>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int blocks = (n_pix + kThreads - 1) / kThreads;
-  megakernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(table8), s8, static_cast<const float*>(rows), n_rows,
+  megakernel<kAnim><<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(table8), static_cast<const float4*>(dtab8),
+      static_cast<const float*>(times), s8, static_cast<const float*>(rows), n_rows,
       static_cast<const float*>(fparams), width, height, sqrt_spp, spp_local, n_batches, batch0,
       sample_base, max_depth, flags, static_cast<float*>(sums), static_cast<int*>(traced));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// table8: [s8, 8] f32, 16-byte aligned; dtab8: null for a static table,
+// else the [s8, 8] f32 motion rows (16-byte aligned), and times: every
+// batch's shutter time, [>= batch0 + n_batches] f32; rows: [n_rows, 64]
+// f32; fparams: [40] f32 (layout above); sums: [height * width, 3] f32
+// out; traced: [height * width] i32 out.  Launches on `stream` without
+// synchronising and returns cudaGetLastError().
+extern "C" int megakernel_launch(const void* table8, const void* dtab8, const void* times,
+                                 int s8, const void* rows, int n_rows, const void* fparams,
+                                 int width, int height, int sqrt_spp, int spp_local,
+                                 int n_batches, int batch0, int sample_base, int max_depth,
+                                 int flags, void* sums, void* traced, void* stream) {
+  if (dtab8 != nullptr) {
+    if (times == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return launch<true>(table8, dtab8, times, s8, rows, n_rows, fparams, width, height,
+                        sqrt_spp, spp_local, n_batches, batch0, sample_base, max_depth, flags,
+                        sums, traced, stream);
+  }
+  return launch<false>(table8, dtab8, times, s8, rows, n_rows, fparams, width, height,
+                       sqrt_spp, spp_local, n_batches, batch0, sample_base, max_depth, flags,
+                       sums, traced, stream);
 }
 
 extern "C" const char* megakernel_error_string(int err) {

@@ -4,18 +4,21 @@
 package's ``SceneArrays``, so ``from_jax_scene`` can carry the JAX arrays
 across unchanged and the tests can feed both packages the same state.
 ``SceneStatic`` holds the host-side facts that select code paths.
+``from_jax_compiled`` carries the JAX package's ``CompiledScene`` over to
+the port's, so one compiled scene can feed both packages.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from raytrace_tpu.models.compile import CompiledScene
-
+from ..models import compile as _compile
+from ..models.compile import CompiledScene
 from ..ops.textures import TexFlags, srgb_u8_to_linear_lut
 
 
@@ -158,6 +161,11 @@ def _to_device(arrays: dict, device) -> SceneArrays:
 
 def upload_scene(cs: CompiledScene, device):
     """CompiledScene (numpy) → (SceneArrays on ``device``, SceneStatic)."""
+    if not isinstance(cs, CompiledScene):
+        raise TypeError(
+            f"upload_scene takes the port's models.compile.CompiledScene, "
+            f"not {type(cs).__module__}.{type(cs).__name__} (convert a JAX "
+            f"package scene with engine.arrays.from_jax_compiled)")
     arrays = _to_device(_scene_numpy(cs), device)
     static = SceneStatic(
         sky_type=int(cs.sky_type),
@@ -181,3 +189,29 @@ def from_jax_scene(scene_arrays, device="cpu") -> SceneArrays:
     return _to_device(
         {k: np.asarray(getattr(scene_arrays, k)) for k in SceneArrays._fields},
         device)
+
+
+def _port_record(value):
+    """A value of a JAX package CompiledScene field → the port's: its
+    dataclass records (camera, render) become the port's classes of the
+    same name, arrays become numpy copies, containers are walked."""
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        cls = getattr(_compile, type(value).__name__)
+        return cls(**{f.name: _port_record(getattr(value, f.name))
+                      for f in dataclasses.fields(value)})
+    if isinstance(value, dict):
+        return {k: _port_record(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(_port_record(v) for v in value)
+    if isinstance(value, np.ndarray):
+        return value.copy()
+    return value
+
+
+def from_jax_compiled(cs) -> CompiledScene:
+    """The JAX package's CompiledScene (or any dataclass with the same
+    fields and records) → the port's CompiledScene, through numpy."""
+    out = _port_record(cs)
+    if not isinstance(out, CompiledScene):
+        raise TypeError(f"not a CompiledScene: {type(cs).__name__}")
+    return out

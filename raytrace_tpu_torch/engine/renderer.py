@@ -15,6 +15,17 @@ rest.  ``use_megakernel`` picks: None takes the fused kernel on a CUDA
 device when the gate admits the scene and the wavefront on the CPU; True
 takes the fused path wherever the gate admits the scene (on the CPU its
 plain version); False always takes the wavefront.
+
+``path`` names what the scene gets, from facts about it:
+
+- ``"fused"``: a static scene; a chunk of batches is one launch.
+- ``"fused_anim"``: spheres that move on straight lines at a constant
+  radius; one geometry (the spheres at shutter time 0 and their motion)
+  serves every batch, the kernel moves them to each batch's time, and a
+  chunk is one launch.
+- ``"fused_per_batch"``: other motion; one launch per batch, each from
+  that batch's world table (the JAX renderer's ``step`` scan).
+- ``"wavefront"``: per-batch world tables, one batch at a time.
 """
 
 from __future__ import annotations
@@ -27,13 +38,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from raytrace_tpu.models.compile import CompiledScene
-from raytrace_tpu.tools.chacha import ChaCha20Rng
-from raytrace_tpu.utils.image import write_png
-
+from ..models.compile import CompiledScene
 from ..ops import camera as cam_ops
 from ..ops import megakernel
-from ..ops.spheres import world_sphere_tables
+from ..ops.spheres import world_sphere_anim_tables, world_sphere_tables
+from ..tools.chacha import ChaCha20Rng
+from ..utils.image import write_png
 from .arrays import SceneStatic, upload_scene
 from .wavefront import make_trace_fn, prepare_batch, render_tile
 
@@ -72,8 +82,6 @@ def unsupported_feature(static: SceneStatic) -> Optional[str]:
         return "image textures (ROADMAP queue 1: 'Image textures')"
     if static.flags.has_noise:
         return "noise textures (ROADMAP queue 1: 'Noise textures')"
-    if static.any_animated:
-        return "animated instances (ROADMAP queue 1: 'Motion blur')"
     if not static.use_fat_shading:
         return ("materials beyond the fat-row encoding (ROADMAP queue 1: "
                 "'Registry shading')")
@@ -129,6 +137,25 @@ class Renderer:
             use_megakernel = self.device.type == "cuda"
         self.use_megakernel = bool(use_megakernel) and (
             megakernel.megakernel_supported(self.static))
+        # Every batch's shutter time, read by the animated fused kernel.
+        self.batch_times_dev = torch.tensor(self.batch_times,
+                                            device=self.device)
+        # The animated fused kernel's one geometry, built once.
+        self._anim_geom = None
+        if self.use_megakernel and self.static.any_animated:
+            tables = world_sphere_anim_tables(compiled)
+            if tables is not None:
+                tab0, dtab8 = (torch.tensor(t, device=self.device)
+                               for t in tables)
+                self._anim_geom = prepare_batch(self.static, self.scene,
+                                                tab0, sph_dtab=dtab8)
+        if not self.use_megakernel:
+            self.path = "wavefront"
+        elif not self.static.any_animated:
+            self.path = "fused"
+        else:
+            self.path = ("fused_per_batch" if self._anim_geom is None
+                         else "fused_anim")
 
         name = compiled.render.camera
         if name not in compiled.cameras:
@@ -151,6 +178,10 @@ class Renderer:
         self.stats = RenderStats()
 
     def _geometry(self, batch: int):
+        """The geometry the fused kernel or the wavefront renders batch
+        ``batch`` from."""
+        if self._anim_geom is not None:
+            return self._anim_geom
         sph_table = torch.tensor(self.sphere_tables[batch], device=self.device)
         return prepare_batch(self.static, self.scene, sph_table)
 
@@ -171,7 +202,8 @@ class Renderer:
         if self.use_megakernel:
             img, traced = megakernel.render_tile_mega(
                 self.static, self.scene, geom, self.camera,
-                self.current_batch, 1, use_dof=self.use_dof, reduce_mean=True)
+                self.current_batch, 1, use_dof=self.use_dof, reduce_mean=True,
+                times=self.batch_times_dev)
             rays = int(traced.sum(dtype=torch.int64))
         else:
             trace = make_trace_fn(geom)
@@ -192,23 +224,25 @@ class Renderer:
 
     def render_batches(self, k: int) -> int:
         """Render up to k batches; returns how many were rendered.  On the
-        fused path the k batches are one kernel launch of k x spp samples
-        per pixel; otherwise (and for k == 1) they are stepped one by
-        one."""
+        "fused" and "fused_anim" paths the k batches are one kernel launch
+        of k x spp samples per pixel; otherwise (and for k == 1) they are
+        stepped one by one."""
         k = min(k, self.compiled.render.sample_batches - self.current_batch)
         if k <= 0:
             return 0
-        if not self.use_megakernel or k == 1:
+        if self.path not in ("fused", "fused_anim") or k == 1:
             done = 0
             while done < k and self.render_next_batch():
                 done += 1
             return done
         t0 = _time.perf_counter()
         b0 = self.current_batch
-        # A static scene: every batch of the chunk shares batch b0's table.
+        # Static: every batch of the chunk shares batch b0's table.
+        # Animated: the one geometry, moved to each batch's time in the
+        # kernel.
         sums, traced = megakernel.render_tile_mega(
             self.static, self.scene, self._geometry(b0), self.camera, b0, k,
-            use_dof=self.use_dof)
+            use_dof=self.use_dof, times=self.batch_times_dev)
         spp = self.static.sqrt_spp ** 2
         self.accum = (float(b0) * self.accum + sums / spp) / float(b0 + k)
         rays = int(traced.sum(dtype=torch.int64))

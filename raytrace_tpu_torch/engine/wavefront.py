@@ -9,7 +9,8 @@ host, one bounce per iteration; each iteration reads the alive count once,
 which both ends the loop and drives the tail compaction.
 
 Covered here: spheres in world mode with direct normals, fat-row shading,
-no triangles and no lights.  The Renderer rejects every other scene.
+no triangles and no lights; animated spheres through the Renderer's
+per-batch world tables.  The Renderer rejects every other scene.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from raytrace_tpu.models.compile import SKY_SOLID, SKY_VERTICAL_GRADIENT
+from ..models.compile import SKY_SOLID, SKY_VERTICAL_GRADIENT
 
 from ..ops import camera as cam_ops
 from ..ops import nee, rng, shading, sphere_sweep, vec3
@@ -41,10 +42,15 @@ class HitRecord(NamedTuple):
 
 
 class BatchGeometry(NamedTuple):
-    """Per-batch world-space geometry."""
+    """Per-batch world-space geometry.  For the fused kernel's animated
+    variant the table and rows hold the spheres at shutter time 0 and
+    ``sph_dtab8`` their linear motion (ops/spheres.world_sphere_anim_tables),
+    so one geometry serves every batch."""
 
     sph_table8: torch.Tensor  # [S8, 8] the sweep kernel's table
     prim_rows: torch.Tensor   # [P, 64] combined per-primitive rows
+    # [S8, 8] motion rows (dc xyz, -, k1, k2), or None for a static table
+    sph_dtab8: Optional[torch.Tensor] = None
 
 
 def _compact_size(R: int) -> int:
@@ -80,14 +86,17 @@ def _background_v3(static: SceneStatic, scene: SceneArrays) -> V3:
 
 
 def prepare_batch(static: SceneStatic, scene: SceneArrays,
-                  sph_table: torch.Tensor) -> BatchGeometry:
+                  sph_table: torch.Tensor,
+                  sph_dtab: Optional[torch.Tensor] = None) -> BatchGeometry:
     """Kernel table and fat rows for one batch.
 
     sph_table: [S, 5] world sphere rows at the batch time
-    (ops/spheres.world_sphere_tables).  Rows of ``prim_rows``:
-    [0:32] shading row | [44:47] world center | [47] world radius |
-    [48] instance id; the rest stay zero (raytrace_tpu/engine/
-    wavefront.py:845-871, direct-normal branch).
+    (ops/spheres.world_sphere_tables), or at shutter time 0 when
+    ``sph_dtab`` ([S8, 8], ops/spheres.world_sphere_anim_tables) gives the
+    spheres' linear motion.  Rows of ``prim_rows``: [0:32] shading row |
+    [44:47] world center | [47] world radius | [48] instance id | [49:52]
+    the center's motion delta when ``sph_dtab`` is given; the rest stay
+    zero (raytrace_tpu/engine/wavefront.py:845-871, direct-normal branch).
     """
     s_pad = scene.sph_center.shape[0]
     P = scene.shade_rows.shape[0]
@@ -98,8 +107,10 @@ def prepare_batch(static: SceneStatic, scene: SceneArrays,
     rows[:s_pad, 47] = sph_table[:s_pad, 3]
     rows[:s_pad, 48] = scene.sph_inst.to(torch.float32)
     rows[s_pad:, 48] = scene.tri_inst.to(torch.float32)
+    if sph_dtab is not None:
+        rows[:s_pad, 49:52] = sph_dtab[:s_pad, 0:3]
     return BatchGeometry(sph_table8=sphere_sweep.pad_table8(sph_table),
-                         prim_rows=rows)
+                         prim_rows=rows, sph_dtab8=sph_dtab)
 
 
 def make_trace_fn(geom: BatchGeometry) -> Callable:

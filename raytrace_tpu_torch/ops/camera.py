@@ -65,7 +65,7 @@ def look_at_rh(eye, center, up) -> np.ndarray:
 
 def build_camera_arrays(params, width: int, height: int,
                         device) -> CameraArrays:
-    """params: raytrace_tpu.models.compile.CameraParams."""
+    """params: models.compile.CameraParams."""
     aspect = width / height
     proj = perspective_rh(math.radians(params.fov_y_deg), aspect,
                           params.z_near, params.z_far)

@@ -8,15 +8,24 @@ sample order and summed, so the result is the per-pixel radiance sums and
 the per-pixel bounce counts.  ``render_tile_mega`` is the one entry point:
 for tensors on the CPU it runs the plain version, for CUDA tensors it
 launches the kernel on the current stream, or raises.  ``LAUNCHES`` counts
-kernel launches, so a run can show that its main path went through the
-kernel.
+kernel launches and ``ANIM_LAUNCHES`` those of the animated form, so a run
+can show that its main path went through the kernel.
 
 The kernel covers spheres in world space with direct normals, fat-row
-shading, no lights, no triangles, no image or noise textures and no
-animation; ``megakernel_supported`` is that gate, decided from facts about
-the scene.  The TPU kernel's lane machinery (q-pixel lanes, snake
-permutations, pair stealing), its row-fetch matmul and its sub-linear
-sweeps are TPU mechanisms and have no counterpart here.
+shading, no lights, no triangles and no image or noise textures;
+``megakernel_supported`` is that gate, decided from facts about the scene.
+Animated spheres take one of two forms.  When every sphere moves on a
+straight line at a constant radius (ops/spheres.world_sphere_anim_tables),
+the geometry holds the spheres at shutter time 0 and their motion
+(``BatchGeometry.sph_dtab8``), and the kernel's animated variant
+(``MegaConfig.anim``, the JAX kernel's ``anim_lerp``) moves each sphere to
+the time of the sample's batch, read from ``times``: one launch serves any
+number of batches.  Otherwise the static kernel renders one batch per
+launch from that batch's world table.
+
+The TPU kernel's lane machinery (q-pixel lanes, snake permutations, pair
+stealing), its row-fetch matmul and its sub-linear sweeps are TPU
+mechanisms and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -32,15 +41,22 @@ from . import _build, sphere_sweep, vec3
 from .intersect import T_MAX
 from .vec3 import V3
 
+# Launches of the kernel, of either form, and of its animated form alone.
 LAUNCHES = 0
-
-# The kernel stages the whole [S8, 8] sphere table in shared memory
-# (32 bytes a sphere): 4096 spheres take 128 KiB of the 227 KiB a block
-# may use.  Scenes with more spheres render on the wavefront.
-MAX_SPHERES = 4096
+ANIM_LAUNCHES = 0
 
 _N_PARAMS = 40  # csrc/megakernel.cu kNumParams
 _USE_DOF, _HAS_CHECKER, _HAS_EMISSIVE = 1, 2, 4
+
+# The kernel stages the sphere table in shared memory, of which a block
+# may use 227 KiB on the H100.  A static sphere takes two float4 (32 B):
+# 4096 spheres take 128 KiB.  An animated sphere takes three (48 B: its
+# time-0 row, k with its motion terms k1 and k2, its centre's delta), so
+# 4096 take 192 KiB, and the cap that fits is above the static one.
+# Scenes with more spheres render on the wavefront.
+_SMEM_BYTES = 232_448
+MAX_SPHERES = 4096
+MAX_SPHERES_ANIM = min(MAX_SPHERES, (_SMEM_BYTES - 4 * _N_PARAMS) // 48)
 
 
 class MegaConfig(NamedTuple):
@@ -57,6 +73,7 @@ class MegaConfig(NamedTuple):
     use_dof: bool
     has_checker: bool
     has_emissive: bool
+    anim: bool
     S8: int
     P: int
 
@@ -64,13 +81,17 @@ class MegaConfig(NamedTuple):
 def megakernel_supported(static) -> bool:
     """Scenes the fused kernel covers: spheres in world space (uniform
     scale, so the world table holds), fat-row shading, no triangles, no
-    lights, no image or noise textures, no animation, and at most
-    MAX_SPHERES spheres.  Every other scene renders on the wavefront."""
+    lights, no image or noise textures, and at most MAX_SPHERES spheres
+    (MAX_SPHERES_ANIM when they move).  Animated scenes are admitted under
+    the JAX package's conditions for its fused animated kernel
+    (raytrace_tpu/engine/renderer.py:468-472).  Every other scene renders
+    on the wavefront."""
     f = static.flags
+    cap = MAX_SPHERES_ANIM if static.any_animated else MAX_SPHERES
     return (static.use_fat_shading and static.sphere_world_mode
             and not (static.has_tris or static.has_lights
-                     or static.any_animated or f.has_image or f.has_noise)
-            and static.num_spheres <= MAX_SPHERES)
+                     or f.has_image or f.has_noise)
+            and static.num_spheres <= cap)
 
 
 def make_config(static, geom, use_dof: bool, n_batches: int) -> MegaConfig:
@@ -81,6 +102,7 @@ def make_config(static, geom, use_dof: bool, n_batches: int) -> MegaConfig:
         max_depth=static.max_ray_depth, use_dof=bool(use_dof),
         has_checker=static.flags.has_checker,
         has_emissive=static.flags.has_emissive,
+        anim=geom.sph_dtab8 is not None,
         S8=geom.sph_table8.shape[0], P=geom.prim_rows.shape[0])
 
 
@@ -101,33 +123,55 @@ def _float_params(cfg: MegaConfig, static, scene, cam) -> torch.Tensor:
     return torch.nn.functional.pad(out, (0, _N_PARAMS - out.shape[0]))
 
 
+def geometry_at(geom, t: torch.Tensor):
+    """An animated geometry at shutter time t (a 0-dim f32 tensor): the
+    static geometry whose table and rows hold the moved spheres.  The
+    arithmetic is the kernel's: c + t * dc for each centre coordinate,
+    k + t * (k1 + t * k2), in f32 (raytrace_tpu/ops/megakernel.py:1420-1436
+    and :1876-1882)."""
+    from ..engine.wavefront import BatchGeometry
+
+    tab, dt = geom.sph_table8, geom.sph_dtab8
+    table8 = tab.clone()
+    table8[:, 0:3] = tab[:, 0:3] + t * dt[:, 0:3]
+    table8[:, 4] = tab[:, 4] + t * (dt[:, 4] + t * dt[:, 5])
+    rows = geom.prim_rows.clone()
+    rows[:, 44:47] = rows[:, 44:47] + t * rows[:, 49:52]
+    return BatchGeometry(sph_table8=table8, prim_rows=rows)
+
+
 def megakernel_reference(static, scene, geom, cam, batch0: int,
                          n_batches: int = 1, sample_base: int = 0, *,
-                         use_dof: bool):
+                         use_dof: bool, times=None):
     """The plain version of the kernel: (sums [H, W, 3] f32, traced
     [H, W] int32).  Each batch's pixel x sample rays go through the
     wavefront bounce loop with the plain sphere sweep (not the K1 kernel);
     a pixel's samples are then summed in sample order, batch after batch,
-    as the kernel sums them."""
+    as the kernel sums them.  An animated geometry is moved to each
+    batch's time, ``times[batch0 + b]``, first."""
     from ..engine.wavefront import RawHit, bounce_wavefront, primary_rays
 
     H, W = static.height, static.width
     spp = static.sqrt_spp ** 2
     dev = geom.sph_table8.device
 
-    def trace(o: V3, d: V3, alive) -> RawHit:
-        t, ids = sphere_sweep.sphere_sweep_reference(o, d, geom.sph_table8)
-        t = torch.where(alive, t, T_MAX)
-        return RawHit(missed=t >= T_MAX, t=t,
-                      prim=torch.clamp_min(torch.where(alive, ids, -1), 0))
-
     sums = torch.zeros((H * W, 3), dtype=torch.float32, device=dev)
     traced = torch.zeros(H * W, dtype=torch.int32, device=dev)
     for b in range(n_batches):
+        g = (geom if geom.sph_dtab8 is None
+             else geometry_at(geom, times[batch0 + b]))
+
+        def trace(o: V3, d: V3, alive, g=g) -> RawHit:
+            t, ids = sphere_sweep.sphere_sweep_reference(o, d, g.sph_table8)
+            t = torch.where(alive, t, T_MAX)
+            return RawHit(missed=t >= T_MAX, t=t,
+                          prim=torch.clamp_min(torch.where(alive, ids, -1),
+                                               0))
+
         state, o, d = primary_rays(static, cam, batch0 + b, 0, H, use_dof,
                                    dev, sample_base)
         counts = torch.zeros(H * W * spp, dtype=torch.int32, device=dev)
-        radiance, _ = bounce_wavefront(static, scene, trace, geom, state, o,
+        radiance, _ = bounce_wavefront(static, scene, trace, g, state, o,
                                        d, counts)
         rad = vec3.to_rows(radiance).reshape(H * W, spp, 3)
         for j in range(spp):
@@ -136,7 +180,7 @@ def megakernel_reference(static, scene, geom, cam, batch0: int,
     return sums.reshape(H, W, 3), traced.reshape(H, W)
 
 
-def _check_inputs(cfg: MegaConfig, geom, params) -> None:
+def _check_inputs(cfg: MegaConfig, geom, params, times, batch0: int) -> None:
     table8, rows = geom.sph_table8, geom.prim_rows
     device = table8.device
     if (table8.dtype != torch.float32 or table8.dim() != 2
@@ -151,33 +195,51 @@ def _check_inputs(cfg: MegaConfig, geom, params) -> None:
                          "tensor on the table's device")
     if params.device != device:
         raise ValueError("camera and scene must be on the table's device")
-    if cfg.S8 > MAX_SPHERES:
+    cap = MAX_SPHERES_ANIM if cfg.anim else MAX_SPHERES
+    if cfg.S8 > cap:
         raise ValueError(f"{cfg.S8} table rows: the kernel holds at most "
-                         f"{MAX_SPHERES} spheres (megakernel_supported)")
+                         f"{cap} spheres (megakernel_supported)")
     if table8.data_ptr() % 16:
         raise ValueError("sph_table8 must be 16-byte aligned (float4 loads)")
+    if not cfg.anim:
+        return
+    dtab = geom.sph_dtab8
+    if (dtab.dtype != torch.float32 or dtab.shape != table8.shape
+            or dtab.device != device or not dtab.is_contiguous()
+            or dtab.data_ptr() % 16):
+        raise ValueError("sph_dtab8 must be a contiguous, 16-byte aligned "
+                         "float32 tensor shaped as sph_table8, on its device")
+    if (times.dtype != torch.float32 or times.dim() != 1
+            or times.device != device or not times.is_contiguous()
+            or times.shape[0] < batch0 + cfg.n_batches):
+        raise ValueError("times must be a contiguous float32 [B] tensor on "
+                         "the table's device with a time for every batch")
 
 
 def render_tile_mega(static, scene, geom, cam, batch0: int,
                      n_batches: int = 1, sample_base: int = 0, *,
-                     use_dof: bool, reduce_mean: bool = False):
+                     use_dof: bool, reduce_mean: bool = False, times=None):
     """Render the whole frame for sample batches batch0 .. batch0 +
     n_batches - 1 in one launch.  Returns (image [H, W, 3] f32, traced
     [H, W] int32): the image is the per-pixel radiance sums over the
     K = n_batches * spp samples, or their mean with ``reduce_mean``;
-    traced is each pixel's number of bounces."""
-    global LAUNCHES
+    traced is each pixel's number of bounces.  An animated geometry
+    (``geom.sph_dtab8``) needs ``times``, every batch's shutter time
+    ([B] f32 on the geometry's device); a static one ignores it."""
+    global LAUNCHES, ANIM_LAUNCHES
     device = geom.sph_table8.device
     cfg = make_config(static, geom, use_dof, n_batches)
+    if cfg.anim and times is None:
+        raise ValueError("an animated geometry needs the batch times")
     if device.type == "cpu":
         sums, traced = megakernel_reference(static, scene, geom, cam, batch0,
                                             n_batches, sample_base,
-                                            use_dof=use_dof)
+                                            use_dof=use_dof, times=times)
     elif device.type != "cuda":
         raise ValueError(f"no fused bounce kernel for device {device}")
     else:
         params = _float_params(cfg, static, scene, cam)
-        _check_inputs(cfg, geom, params)
+        _check_inputs(cfg, geom, params, times, batch0)
         lib = library()
         H, W = cfg.height, cfg.width
         sums = torch.empty((H, W, 3), dtype=torch.float32, device=device)
@@ -186,7 +248,10 @@ def render_tile_mega(static, scene, geom, cam, batch0: int,
                  | (_HAS_CHECKER if cfg.has_checker else 0)
                  | (_HAS_EMISSIVE if cfg.has_emissive else 0))
         err = lib.megakernel_launch(
-            geom.sph_table8.data_ptr(), cfg.S8, geom.prim_rows.data_ptr(),
+            geom.sph_table8.data_ptr(),
+            geom.sph_dtab8.data_ptr() if cfg.anim else None,
+            times.data_ptr() if cfg.anim else None,
+            cfg.S8, geom.prim_rows.data_ptr(),
             cfg.P, params.data_ptr(), W, H, cfg.sqrt_spp, cfg.spp_local,
             cfg.n_batches, int(batch0), int(sample_base), cfg.max_depth,
             flags, sums.data_ptr(), traced.data_ptr(),
@@ -196,6 +261,7 @@ def render_tile_mega(static, scene, geom, cam, batch0: int,
                 f"megakernel launch failed: CUDA error {err} "
                 f"({lib.megakernel_error_string(err).decode()})")
         LAUNCHES += 1
+        ANIM_LAUNCHES += cfg.anim
     if reduce_mean:
         sums = sums / float(np.float32(cfg.spp_local * cfg.n_batches))
     return sums, traced
@@ -206,8 +272,8 @@ def library() -> ctypes.CDLL:
     """The kernel's shared library, built from csrc/ at first use."""
     lib = _build.load_library("megakernel")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.megakernel_launch.argtypes = [p, i, p, i, p, i, i, i, i, i, i, i, i,
-                                      i, p, p, p]
+    lib.megakernel_launch.argtypes = [p, p, p, i, p, i, p, i, i, i, i, i, i,
+                                      i, i, i, p, p, p]
     lib.megakernel_launch.restype = i
     lib.megakernel_error_string.argtypes = [i]
     lib.megakernel_error_string.restype = ctypes.c_char_p

@@ -14,13 +14,13 @@ from typing import NamedTuple
 
 import torch
 
-from raytrace_tpu.models.compile import (
+from ..models.compile import (
     MAT_TYPE_DIELECTRIC,
     MAT_TYPE_DIFFUSE_LIGHT,
     MAT_TYPE_LAMBERTIAN,
     MAT_TYPE_METAL,
 )
-from raytrace_tpu.models.shading_table import MODE_CHECKER
+from ..models.shading_table import MODE_CHECKER
 
 from . import rng, vec3
 from .materials import COSINE_PDF, NO_PDF, schlick_reflectance

@@ -1,4 +1,5 @@
-"""Analytic spheres in world space (raytrace_tpu/ops/spheres.py:104, :203).
+"""Analytic spheres in world space (raytrace_tpu/ops/spheres.py:104, :137,
+:203).
 
 Any rigid + uniform-scale instance maps a sphere to a sphere, so each batch
 gets a world table (c.xyz, r, k = |c|^2 - r^2) precomputed on the host in
@@ -13,7 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from raytrace_tpu.models.bvh_build import _instance_matrix_at
+from ..models.bvh_build import _instance_matrix_at
 
 from .intersect import T_MAX, T_MIN
 from .vec3 import V3
@@ -49,6 +50,70 @@ def world_sphere_tables(cs, batch_times) -> "np.ndarray | None":
         out[bi, :n, 4] = (c_world ** 2).sum(-1) - r_world ** 2
         out[bi, n:, 4] = 3.0e37
     return out.astype(np.float32)
+
+
+def world_sphere_anim_tables(cs):
+    """Host (f64) endpoint + delta tables for the FUSED animated
+    megakernel (ops/megakernel.py MegaConfig.anim): instead of one table
+    per batch time, the kernel lerps world centers in-flight —
+    c(t) = c0 + t*dc — so one pair of tables serves every batch of a
+    fused chunk.  The TPU replacement for the reference's per-batch TLAS
+    refit + fence (acceleration.rs:91-115) on animated scenes.
+
+    Returns (tab0 [S,5] f32 endpoint-0 table in world_sphere_tables
+    layout, dtab8 [S8,8] f32 with cols 0:3 = dc = c1-c0, col 4 =
+    k1 = 2*c0.dc, col 5 = k2 = |dc|^2, so k(t) = k0 + t*(k1 + t*k2)
+    keeps the f64-precomputed |c0|^2 - r^2 cancellation), or None when
+    the fused form is invalid: non-uniform scale (no world mode), a
+    radius-animated sphere (dr != 0 — the kernel lerps centers only),
+    or a center path that is not linear in t (rotation-about-offset
+    animation: c(t) = T(t) + R(t) S(t) c_obj bends when R animates and
+    c_obj != 0; verified against the true transform at t = 0.25/0.5/0.75).
+    """
+    S = cs.sph_center.shape[0]
+    n = cs.num_spheres
+    if n == 0:
+        return None
+
+    def _world(t):
+        mats = _instance_matrix_at(cs.inst_t0, cs.inst_t1, float(t))
+        m = mats[cs.sph_inst[:n]]
+        rot = m[:, :, :3]
+        scale = np.linalg.norm(rot, axis=1)
+        if not np.allclose(scale, scale[:, :1], rtol=1e-5, atol=1e-7):
+            return None, None
+        c = np.einsum("sij,sj->si", rot, cs.sph_center[:n]) + m[:, :, 3]
+        r = scale[:, 0] * cs.sph_radius[:n]
+        return c, r
+
+    c0, r0 = _world(0.0)
+    c1, r1 = _world(1.0)
+    if c0 is None or c1 is None:
+        return None
+    rs = np.maximum(np.abs(r0), np.abs(r1))
+    if not np.all(np.abs(r1 - r0) <= 1e-6 * rs + 1e-9):
+        return None                       # radius-animated sphere
+    dc = c1 - c0
+    span = np.linalg.norm(dc, axis=-1) + rs
+    for t in (0.25, 0.5, 0.75):
+        ct, _ = _world(t)
+        if ct is None:
+            return None
+        dev = np.linalg.norm(ct - (c0 + t * dc), axis=-1)
+        if not np.all(dev <= 1e-6 * span + 1e-9):
+            return None                   # nonlinear center path
+
+    tab0 = np.zeros((S, 5), np.float64)
+    tab0[:n, 0:3] = c0
+    tab0[:n, 3] = r0
+    tab0[:n, 4] = (c0 ** 2).sum(-1) - r0 ** 2
+    tab0[n:, 4] = 3.0e37                  # padding: never hits
+    S8 = max(8, -(-S // 8) * 8)
+    dtab8 = np.zeros((S8, 8), np.float64)
+    dtab8[:n, 0:3] = dc
+    dtab8[:n, 4] = 2.0 * (c0 * dc).sum(-1)
+    dtab8[:n, 5] = (dc ** 2).sum(-1)
+    return tab0.astype(np.float32), dtab8.astype(np.float32)
 
 
 def intersect_spheres_world(o: V3, d: V3, table) -> SphereHit:

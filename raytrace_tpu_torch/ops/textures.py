@@ -1,6 +1,6 @@
 """Texture families (raytrace_tpu/ops/textures.py:32-61 and :118-124).
 
-The fat shading rows (``raytrace_tpu.models.shading_table``) resolve
+The fat shading rows (``models/shading_table.py``) resolve
 constant colours on the host, so on the device the constant family is the
 row's rgb slots and the checker family is one parity test.  Image and
 noise textures are not ported yet (ops/shading.py raises for them).
@@ -13,7 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from raytrace_tpu.models.compile import MAT_TYPE_DIFFUSE_LIGHT
+from ..models.compile import MAT_TYPE_DIFFUSE_LIGHT
 
 
 class TexFlags(NamedTuple):
@@ -26,7 +26,7 @@ class TexFlags(NamedTuple):
 
     @staticmethod
     def for_scene(cs) -> "TexFlags":
-        """cs: raytrace_tpu.models.compile.CompiledScene."""
+        """cs: models.compile.CompiledScene."""
         return TexFlags(
             has_image=bool(np.prod(cs.atlas.shape[1:3]) > 1),
             has_checker=bool(len(cs.checker_scale) > 0

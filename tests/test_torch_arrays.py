@@ -13,9 +13,11 @@ import torch
 from raytrace_tpu.engine import arrays as jarrays
 from raytrace_tpu.engine import renderer as jrenderer
 from raytrace_tpu.engine import wavefront as jwavefront
+from raytrace_tpu.models import compile_scene as jax_compile_scene
 from raytrace_tpu.ops import spheres as jspheres
 from raytrace_tpu.ops import textures as jtextures
-from raytrace_tpu_torch.cli import DEFAULT_SCENE, load_scene
+from raytrace_tpu.scene_file import SceneFile
+from raytrace_tpu_torch.cli import DEFAULT_SCENE
 from raytrace_tpu_torch.engine import arrays as tarrays
 from raytrace_tpu_torch.engine import renderer as trenderer
 from raytrace_tpu_torch.engine import wavefront as twavefront
@@ -26,9 +28,12 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def scene():
-    cs = load_scene(DEFAULT_SCENE, 96, 54)
-    jscene, jstatic = jarrays.upload_scene(cs)
-    return cs, jscene, jstatic
+    """(the port's CompiledScene, the JAX scene arrays and static, the
+    JAX CompiledScene it was carried over from)."""
+    jcs = jax_compile_scene(SceneFile.load_json(DEFAULT_SCENE), width=96,
+                            height=54)
+    jscene, jstatic = jarrays.upload_scene(jcs)
+    return tarrays.from_jax_compiled(jcs), jscene, jstatic, jcs
 
 
 def _equal(j, t):
@@ -38,7 +43,7 @@ def _equal(j, t):
 
 
 def test_upload_scene_and_from_jax_scene_bitwise(scene):
-    cs, jscene, jstatic = scene
+    cs, jscene, jstatic, _ = scene
     tscene, tstatic = tarrays.upload_scene(cs, "cpu")
     carried = tarrays.from_jax_scene(jscene)
     assert tarrays.SceneArrays._fields == jarrays.SceneArrays._fields
@@ -50,9 +55,9 @@ def test_upload_scene_and_from_jax_scene_bitwise(scene):
 
 
 def test_texflags_and_srgb_lut_bitwise(scene):
-    cs = scene[0]
+    cs, jcs = scene[0], scene[3]
     assert tuple(ttextures.TexFlags.for_scene(cs)) == tuple(
-        jtextures.TexFlags.for_scene(cs))
+        jtextures.TexFlags.for_scene(jcs))
     np.testing.assert_array_equal(ttextures.srgb_u8_to_linear_lut(),
                                   jtextures.srgb_u8_to_linear_lut())
 
@@ -64,8 +69,8 @@ def test_batch_ray_times_bitwise(batches):
 
 
 def test_prepare_batch_bitwise(scene):
-    cs, jscene, jstatic = scene
-    tab = jspheres.world_sphere_tables(cs, [0.5])[0]
+    cs, jscene, jstatic, jcs = scene
+    tab = jspheres.world_sphere_tables(jcs, [0.5])[0]
     jst = dataclasses.replace(jstatic, sphere_world_mode=True)
     jgeom = jwavefront.prepare_batch(jst, jscene, jnp.float32(0.5),
                                      sph_table=tab)

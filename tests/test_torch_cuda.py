@@ -12,23 +12,25 @@ elementwise kernels do not; a ray starting within float error of T_MIN
 from a surface may take the other root).  Fused bounce kernel (built
 without contraction): traced rays within 0.5%, per-sample channel means
 within 1e-3, at most 5% of pixels with a max-channel difference above
-1e-4; on small scenes every pixel's bounce count equal.
+1e-4; on small scenes every pixel's bounce count equal.  Its animated
+form (motion blur): the same, and every pixel's bounce count equal.
 """
 
 import dataclasses
 import json
+import os
 
 import numpy as np
 import pytest
 import torch
 
-from raytrace_tpu.models import compile_scene
-from raytrace_tpu.scene_file import SceneFile
 from raytrace_tpu_torch import cli
 from raytrace_tpu_torch.engine import Renderer
+from raytrace_tpu_torch.models import compile_scene
 from raytrace_tpu_torch.ops import megakernel, sphere_sweep
 from raytrace_tpu_torch.ops.intersect import T_MAX
 from raytrace_tpu_torch.ops.vec3 import V3
+from raytrace_tpu_torch.scene_file import SceneFile
 
 pytestmark = pytest.mark.cuda
 
@@ -222,3 +224,74 @@ def test_renderer_defaults_to_the_fused_path_on_the_card(dev):
                                atol=1e-3)
     assert abs(r.stats.rays_traced - w.stats.rays_traced) <= (
         0.005 * w.stats.rays_traced)
+
+
+# ---- the fused kernel's animated form (motion blur) -------------------------
+
+def _motion_blur(w, h, depth, batches):
+    path = os.path.join(os.path.dirname(cli.DEFAULT_SCENE),
+                        "final-one-weekend-motion-blur.json")
+    cs = cli.load_scene(path, w, h)
+    return dataclasses.replace(cs, render=dataclasses.replace(
+        cs.render, max_ray_depth=depth, sample_batches=batches))
+
+
+@pytest.mark.parametrize("w,h", [(32, 18), (96, 54)])
+def test_animated_fused_kernel_matches_plain(dev, w, h):
+    """The animated form against its plain version: the same bounce
+    counts and rays, and (built without contraction) the same sums."""
+    r = Renderer(_motion_blur(w, h, 8, 2), device=dev)
+    assert r.path == "fused_anim"
+    args = (r.static, r.scene, r._geometry(0), r.camera, 0, 2)
+    kw = dict(use_dof=r.use_dof, times=r.batch_times_dev)
+    before = megakernel.LAUNCHES, megakernel.ANIM_LAUNCHES
+    sums, traced = megakernel.render_tile_mega(*args, **kw)
+    again, _ = megakernel.render_tile_mega(*args, **kw)
+    torch.cuda.synchronize()
+    assert (megakernel.LAUNCHES, megakernel.ANIM_LAUNCHES) == (
+        before[0] + 2, before[1] + 2)
+    ref, ref_traced = megakernel.megakernel_reference(*args, **kw)
+    assert torch.equal(sums, again) and torch.isfinite(sums).all()
+    assert torch.equal(traced, ref_traced)
+    n = 4 * 2
+    torch.testing.assert_close(sums.mean((0, 1)) / n, ref.mean((0, 1)) / n,
+                               rtol=0, atol=1e-3)
+    bad = (sums - ref).abs().amax(-1) > 1e-4
+    assert bad.double().mean().item() <= 0.05
+
+
+def test_animated_kernel_needs_every_batch_time(dev):
+    r = Renderer(_motion_blur(32, 18, 2, 3), device=dev)
+    args = (r.static, r.scene, r._geometry(0), r.camera, 0, 3)
+    with pytest.raises(ValueError, match="batch times"):
+        megakernel.render_tile_mega(*args, use_dof=r.use_dof)
+    with pytest.raises(ValueError, match="every batch"):
+        megakernel.render_tile_mega(*args, use_dof=r.use_dof,
+                                    times=r.batch_times_dev[:2])
+
+
+def test_renderer_takes_the_animated_kernel_on_the_card(dev):
+    cs = _motion_blur(96, 54, 8, 3)
+    fused, anim = megakernel.LAUNCHES, megakernel.ANIM_LAUNCHES
+    r = Renderer(cs, device=dev)
+    img = r.render_all()
+    assert r.path == "fused_anim"
+    assert megakernel.ANIM_LAUNCHES == anim + 1
+    assert megakernel.LAUNCHES == fused + 1
+    w = Renderer(cs, device=dev, use_megakernel=False)
+    w_img = w.render_all()
+    np.testing.assert_allclose(img.mean(axis=(0, 1)), w_img.mean(axis=(0, 1)),
+                               atol=2e-3)
+
+
+def test_other_motion_launches_once_per_batch_on_the_card(dev):
+    cs = _motion_blur(32, 18, 4, 3)
+    si = int(cs.sph_inst[0])
+    t1 = np.array(cs.inst_t1)
+    t1[si, 3:7] = [np.sin(np.pi / 4), 0.0, 0.0, np.sin(np.pi / 4)]
+    cs = dataclasses.replace(cs, inst_t1=t1)
+    fused, anim = megakernel.LAUNCHES, megakernel.ANIM_LAUNCHES
+    r = Renderer(cs, device=dev)
+    assert r.path == "fused_per_batch" and r.render_batches(3) == 3
+    assert megakernel.LAUNCHES == fused + 3
+    assert megakernel.ANIM_LAUNCHES == anim

@@ -1,5 +1,5 @@
-"""The PyTorch port loads without JAX, and chip_smoke.py refuses to run
-without a CUDA device."""
+"""The PyTorch port loads without JAX and without the JAX package
+(raytrace_tpu), and chip_smoke.py refuses to run without a CUDA device."""
 
 import os
 import pathlib
@@ -20,6 +20,9 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+ref = sorted(m for m in sys.modules
+             if m == "raytrace_tpu" or m.startswith("raytrace_tpu."))
+assert not ref, ref
 print(len(names))
 """
 
@@ -32,9 +35,10 @@ def _run(args, cwd):
 
 def test_every_port_module_imports_without_jax():
     # A subprocess: this test process already imported jax (conftest).
+    # It also finds no module of the JAX package loaded.
     proc = _run(["-c", _IMPORT_ALL], REPO)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 15
+    assert int(proc.stdout.strip()) >= 35
 
 
 def test_port_sources_never_import_jax():
@@ -44,6 +48,19 @@ def test_port_sources_never_import_jax():
     offenders += ["chip_smoke.py"] if pattern.search(
         (REPO / "chip_smoke.py").read_text()) else []
     assert offenders == []
+
+
+def test_port_sources_never_import_the_jax_package():
+    pattern = re.compile(r"^\s*(import raytrace_tpu|from raytrace_tpu)(\.|\s|$)",
+                         re.MULTILINE)
+    sources = [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]
+    offenders = [str(p.relative_to(REPO)) for p in sources
+                 if pattern.search(p.read_text())]
+    assert offenders == []
+    # The pattern tells the JAX package from the port.
+    assert pattern.search("from raytrace_tpu.models import compile_scene")
+    assert pattern.search("import raytrace_tpu\n")
+    assert not pattern.search("from raytrace_tpu_torch import cli")
 
 
 def test_chip_smoke_refuses_without_cuda():

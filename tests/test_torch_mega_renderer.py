@@ -16,8 +16,11 @@ import pytest
 import torch
 
 from raytrace_tpu.engine import Renderer as JaxRenderer
+from raytrace_tpu.models import compile_scene as jax_compile_scene
+from raytrace_tpu.scene_file import SceneFile as JaxSceneFile
 from raytrace_tpu_torch import cli
 from raytrace_tpu_torch.engine import Renderer
+from raytrace_tpu_torch.engine.arrays import from_jax_compiled
 from raytrace_tpu_torch.ops import megakernel
 
 torch.set_num_threads(1)
@@ -26,11 +29,18 @@ W, H = 32, 18
 
 
 @functools.lru_cache(maxsize=None)
-def _cs(batches=3, depth=4):
-    cs = cli.load_scene(cli.DEFAULT_SCENE, W, H)
+def _jcs(batches=3, depth=4):
+    """The JAX package's compiled scene; the port takes its carry-over."""
+    cs = jax_compile_scene(JaxSceneFile.load_json(cli.DEFAULT_SCENE),
+                           width=W, height=H)
     return dataclasses.replace(cs, render=dataclasses.replace(
         cs.render, samples_per_pixel=4, sample_batches=batches,
         max_ray_depth=depth))
+
+
+@functools.lru_cache(maxsize=None)
+def _cs(batches=3, depth=4):
+    return from_jax_compiled(_jcs(batches, depth))
 
 
 def _agree(img, rays, ref_img, ref_rays):
@@ -83,7 +93,7 @@ def test_fused_path_matches_the_wavefront(fused):
 
 def test_fused_path_matches_the_jax_fused_chunk(fused):
     r, img = fused
-    j = JaxRenderer(_cs(), use_pallas_sweep=True)
+    j = JaxRenderer(_jcs(), use_pallas_sweep=True)
     assert j._mega_step is not None
     assert j.render_batches(3) == 3
     _agree(img, r.stats.rays_traced, j.image(), j.stats.rays_traced)
@@ -115,7 +125,7 @@ def test_resume_at_a_chunk_boundary_is_byte_identical(tmp_path):
 
 
 def test_jax_checkpoint_resumes_in_the_fused_path(tmp_path):
-    j = JaxRenderer(_cs(), use_pallas_sweep=True)
+    j = JaxRenderer(_jcs(), use_pallas_sweep=True)
     j.render_next_batch()
     ck = str(tmp_path / "jax.npz")
     j.save_checkpoint(ck)

@@ -23,12 +23,14 @@ import torch
 
 from raytrace_tpu.engine import arrays as jarrays
 from raytrace_tpu.engine import wavefront as jwavefront
-from raytrace_tpu.models import compile_scene
+from raytrace_tpu.models import compile_scene as jax_compile_scene
 from raytrace_tpu.ops import camera as jcamera
 from raytrace_tpu.ops import megakernel as jmega
-from raytrace_tpu.scene_file import SceneFile
+from raytrace_tpu.scene_file import SceneFile as JaxSceneFile
 from raytrace_tpu_torch import cli
 from raytrace_tpu_torch.engine import arrays, wavefront
+from raytrace_tpu_torch.models import compile_scene
+from raytrace_tpu_torch.scene_file import SceneFile
 from raytrace_tpu_torch.engine.renderer import get_batch_ray_times
 from raytrace_tpu_torch.ops import _build, camera, megakernel, spheres
 
@@ -38,11 +40,18 @@ W, H = 32, 18
 N_BATCHES = 2
 
 
-def _cs(depth):
-    cs = cli.load_scene(cli.DEFAULT_SCENE, W, H)
+@functools.lru_cache(maxsize=None)
+def _jcs(depth):
+    """The JAX package's compiled scene; the port takes its carry-over."""
+    cs = jax_compile_scene(JaxSceneFile.load_json(cli.DEFAULT_SCENE),
+                           width=W, height=H)
     return dataclasses.replace(cs, render=dataclasses.replace(
         cs.render, samples_per_pixel=4, sample_batches=N_BATCHES,
         max_ray_depth=depth))
+
+
+def _cs(depth):
+    return arrays.from_jax_compiled(_jcs(depth))
 
 
 def _table(cs):
@@ -52,7 +61,7 @@ def _table(cs):
 @functools.lru_cache(maxsize=None)
 def _jax(depth):
     """JAX K4 in interpret mode: (sums [H, W, 3], rays, traced [H, W])."""
-    cs = _cs(depth)
+    cs = _jcs(depth)
     scene, static = jarrays.upload_scene(cs)
     static = dataclasses.replace(static, use_pallas_sweep=True,
                                  pallas_interpret=True,
@@ -154,7 +163,8 @@ def test_sample_base_offsets_the_sample_numbers():
 def test_wrapper_rejects_other_devices():
     args, use_dof = _port_args(2)
     static, scene, geom, cam = args
-    meta = wavefront.BatchGeometry(*(t.to("meta") for t in geom))
+    meta = geom._replace(sph_table8=geom.sph_table8.to("meta"),
+                         prim_rows=geom.prim_rows.to("meta"))
     with pytest.raises(ValueError, match="no fused bounce kernel"):
         megakernel.render_tile_mega(static, scene, meta, cam, 0,
                                     use_dof=use_dof)
@@ -188,7 +198,7 @@ def _port_static(cs):
 
 def test_gate_agrees_with_jax_on_final_one_weekend():
     cs = _cs(6)
-    _, jstatic = jarrays.upload_scene(cs)
+    _, jstatic = jarrays.upload_scene(_jcs(6))
     jstatic = dataclasses.replace(jstatic, sphere_world_mode=True)
     assert jmega.megakernel_supported(jstatic)
     assert megakernel.megakernel_supported(_port_static(cs))
@@ -228,8 +238,10 @@ _TRIANGLE = {"triangle": {"name": "t", "points": [[0, 0, 0], [1, 0, 0],
     _tiny_doc(extra_prims=[_TRIANGLE]),
     _tiny_doc(material="l"),
     _tiny_doc(albedo="n"),
+    # A moving ellipsoid: motion the kernel takes, a shape it does not.
     _tiny_doc(transform={"animated": [{"translate": [0, 0, 0]},
-                                      {"translate": [0, 1, 0]}]}),
+                                      {"translate": [0, 1, 0],
+                                       "scale": [1, 2, 1]}]}),
     _tiny_doc(transform={"static": {"scale": [1, 2, 1]}}),
 ], ids=["triangles", "lights", "noise", "motion-blur", "object-space"])
 def test_gate_rejects_scenes_the_kernel_cannot_render(doc):

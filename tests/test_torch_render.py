@@ -20,10 +20,13 @@ import pytest
 import torch
 
 from raytrace_tpu.engine import Renderer as JaxRenderer
-from raytrace_tpu.models import compile_scene
-from raytrace_tpu.scene_file import SceneFile
+from raytrace_tpu.models import compile_scene as jax_compile_scene
+from raytrace_tpu.scene_file import SceneFile as JaxSceneFile
 from raytrace_tpu_torch import cli
 from raytrace_tpu_torch.engine import Renderer
+from raytrace_tpu_torch.engine.arrays import from_jax_compiled
+from raytrace_tpu_torch.models import compile_scene
+from raytrace_tpu_torch.scene_file import SceneFile
 
 torch.set_num_threads(1)
 
@@ -32,19 +35,25 @@ W, H = 96, 54
 
 @functools.lru_cache(maxsize=1)
 def _base():
-    return cli.load_scene(cli.DEFAULT_SCENE, W, H)
+    """The JAX package's compiled scene; the port renders its carry-over."""
+    return jax_compile_scene(JaxSceneFile.load_json(cli.DEFAULT_SCENE),
+                             width=W, height=H)
 
 
-def _cs(depth, batches=1):
+def _jcs(depth, batches=1):
     cs = _base()
     return dataclasses.replace(cs, render=dataclasses.replace(
         cs.render, samples_per_pixel=4, sample_batches=batches,
         max_ray_depth=depth))
 
 
+def _cs(depth, batches=1):
+    return from_jax_compiled(_jcs(depth, batches))
+
+
 @pytest.fixture(scope="module")
 def jax_depth1():
-    r = JaxRenderer(_cs(1, batches=2), use_pallas_sweep=False)
+    r = JaxRenderer(_jcs(1, batches=2), use_pallas_sweep=False)
     r.render_next_batch()
     return r
 
@@ -58,7 +67,7 @@ def test_depth1_matches_jax(jax_depth1):
 
 
 def test_depth8_matches_jax():
-    j = JaxRenderer(_cs(8), use_pallas_sweep=False)
+    j = JaxRenderer(_jcs(8), use_pallas_sweep=False)
     jimg = j.render_all()
     port = Renderer(_cs(8), device="cpu")
     img = port.render_all()
@@ -133,9 +142,12 @@ _TRIANGLE = {"triangle": {"name": "t", "points": [[0, 0, 0], [1, 0, 0],
     (_tiny_doc(extra_prims=[_TRIANGLE]), "Triangles"),
     (_tiny_doc(material="l"), "NEE with lights"),
     (_tiny_doc(albedo="n"), "Noise textures"),
-    (_tiny_doc(transform={"animated": [{"translate": [0, 0, 0]},
-                                       {"translate": [0, 1, 0]}]}),
-     "Motion blur"),
+    # Motion blur is inside the slice; a moving ellipsoid is not, for its
+    # shape.
+    pytest.param(_tiny_doc(transform={"animated": [
+        {"translate": [0, 0, 0]}, {"translate": [0, 1, 0],
+                                   "scale": [1, 2, 1]}]}),
+        "Object-space spheres", id="doc3-Motion blur"),
     (_tiny_doc(transform={"static": {"scale": [1, 2, 1]}}),
      "Object-space spheres"),
 ])

@@ -9,13 +9,15 @@ import pytest
 import torch
 
 from raytrace_tpu.engine.arrays import upload_scene as jax_upload
+from raytrace_tpu.models import compile_scene as jax_compile_scene
 from raytrace_tpu.models.compile import MAT_TYPE_DIFFUSE_LIGHT
 from raytrace_tpu.models.shading_table import MODE_CHECKER
 from raytrace_tpu.ops import nee as jnee
 from raytrace_tpu.ops import shading as jshading
 from raytrace_tpu.ops import textures as jtextures
 from raytrace_tpu.ops import vec3 as jvec3
-from raytrace_tpu_torch.cli import DEFAULT_SCENE, load_scene
+from raytrace_tpu.scene_file import SceneFile
+from raytrace_tpu_torch.cli import DEFAULT_SCENE
 from raytrace_tpu_torch.engine.arrays import from_jax_scene
 from raytrace_tpu_torch.ops import nee as tnee
 from raytrace_tpu_torch.ops import shading as tshading
@@ -34,7 +36,8 @@ def inputs():
     """Rows of final-one-weekend's primitives (carried across from the JAX
     scene arrays), a quarter turned into emitters with checker or constant
     emission, and random hit data."""
-    cs = load_scene(DEFAULT_SCENE, 96, 54)
+    cs = jax_compile_scene(SceneFile.load_json(DEFAULT_SCENE), width=96,
+                           height=54)
     jscene, _ = jax_upload(cs)
     scene = from_jax_scene(jscene)
     g = np.random.default_rng(0)

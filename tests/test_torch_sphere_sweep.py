@@ -15,9 +15,12 @@ import pytest
 import torch
 
 from raytrace_tpu.engine.renderer import get_batch_ray_times as jax_times
+from raytrace_tpu.models import compile_scene as jax_compile_scene
 from raytrace_tpu.ops import pallas_sweep as jsweep
 from raytrace_tpu.ops import spheres as jspheres
-from raytrace_tpu_torch.cli import DEFAULT_SCENE, load_scene
+from raytrace_tpu.scene_file import SceneFile
+from raytrace_tpu_torch.cli import DEFAULT_SCENE
+from raytrace_tpu_torch.engine.arrays import from_jax_compiled
 from raytrace_tpu_torch.ops import _build, sphere_sweep, spheres
 from raytrace_tpu_torch.ops.intersect import T_MAX
 from raytrace_tpu_torch.ops.vec3 import V3
@@ -115,10 +118,12 @@ def test_ties_go_to_the_lowest_id():
 
 
 def test_world_sphere_tables_and_pad_table8_bitwise():
-    cs = load_scene(DEFAULT_SCENE, 96, 54)
-    times = jax_times(cs.render.sample_batches)[:3]
-    tabs = spheres.world_sphere_tables(cs, times)
-    np.testing.assert_array_equal(tabs, jspheres.world_sphere_tables(cs, times))
+    jcs = jax_compile_scene(SceneFile.load_json(DEFAULT_SCENE), width=96,
+                            height=54)
+    times = jax_times(jcs.render.sample_batches)[:3]
+    tabs = spheres.world_sphere_tables(from_jax_compiled(jcs), times)
+    np.testing.assert_array_equal(tabs,
+                                  jspheres.world_sphere_tables(jcs, times))
     for S in (488, 3):
         t8 = sphere_sweep.pad_table8(torch.tensor(tabs[0, :S]))
         np.testing.assert_array_equal(
