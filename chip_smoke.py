@@ -4,50 +4,70 @@
     python3 chip_smoke.py
 
 Drives the port's render paths through the entry points a user calls,
-on the repository's two scenes at their full size: final-one-weekend at
-1200x675 with its 4 spp and depth 50 (static: the fused kernel K4 and the
-wavefront with K1), and final-one-weekend-motion-blur at its shipped
-1024x576, 4 spp x 25 batches, depth 50 (391 of 488 spheres moving: K4's
-animated form, and the wavefront).  Every phase is checked; any failure
-raises and the script exits non-zero without printing a result.  Phases:
+on three scenes at their full size: final-one-weekend at 1200x675 with
+its 4 spp and depth 50 (static: the fused kernel K4 and the wavefront
+with K1), final-one-weekend-motion-blur at its shipped 1024x576, 4 spp x
+25 batches, depth 50 (391 of 488 spheres moving: K4's animated form, and
+the wavefront), and the triangle stress scene tri-stress-15360
+(raytrace_tpu_torch/tools/stress_scenes.py: 16 instances of a
+960-triangle OBJ over a ground sphere, 1024x576, 16 spp x 1 batch, depth
+50: K4's triangle form, and the wavefront with the triangle sweep K2 and
+K1).  Every phase is checked; any failure raises and the script exits
+non-zero without printing a result.  Phases:
 
 1. needs torch.cuda.is_available(); prints nvidia-smi's name and power limit;
-2. builds both kernel sources from the checkout, in parallel: the sphere
-   sweep K1 (csrc/sphere_sweep.cu) and the fused bounce kernel K4
-   (csrc/megakernel.cu, static and animated forms), with nvcc's register
-   report;
+2. builds the three kernel sources from the checkout, one nvcc each,
+   started together: the sphere sweep K1 (csrc/sphere_sweep.cu), the
+   triangle sweep K2 (csrc/tri_sweep.cu) and the fused bounce kernel K4
+   (csrc/megakernel.cu: static, animated and triangle forms), with nvcc's
+   register report and a line per K4 form;
 3. K1 against the plain PyTorch sweep: the 3,240,000 primary rays of the
    main path and 2^20 random rays with an alive mask (ids equal, and ids
    equal with t within rtol=1e-3, atol=1e-3, each on >= 99.9% of rays),
-   timed with CUDA events;
-4. K4 against its plain version (the wavefront loop with the plain sweep):
-   at 96x54, depth 8, 2 batches fused (rays within 0.5%, per-sample channel
-   means within 1e-3, at most 5% of pixels above 1e-4) and at the main
-   path's 1200x675, 4 spp, depth 50, one batch (rays within 0.5%, means
-   within 2e-3); two launches give the same bytes; both timed with CUDA
-   events; then K4's animated form the same way on the motion-blur scene,
-   at 96x54/depth 8/k=2 and at 1024x576/depth 50/k=1;
+   timed with CUDA events; then K2 the same way (bit for bit, or the same
+   agreement): 2^18 of tri-stress's primary rays against its 15,360
+   triangles and 2^20 random rays with an alive mask against 960, timed
+   over all 9,437,184 primary rays;
+4. K4 against its plain version (the wavefront loop with the plain
+   sweeps): at 96x54, depth 8, 2 batches fused (rays within 0.5%,
+   per-sample channel means within 1e-3, at most 5% of pixels above 1e-4)
+   and at the main path's 1200x675, 4 spp, depth 50, one batch (rays
+   within 0.5%, means within 2e-3); two launches give the same bytes;
+   both timed with CUDA events; then K4's animated form the same way on
+   the motion-blur scene, at 96x54/depth 8/k=2 and at 1024x576/depth
+   50/k=1; then its triangle form, bit for bit at 96x54/depth 8/k=2 on
+   tri-stress at k=1 and k=4 and on the triangle fixture, and at
+   tri-stress's full size against the plain version and against the
+   wavefront with K2 on the same batch (rays within 0.5%, means within
+   2e-3), which also counts the work its bound estimates;
 5. the wavefront path, Renderer(cs, use_megakernel=False): several batches,
    counting K1 launches; the image checks; the same for the motion-blur
-   scene; a small frame on the card against the CPU, for both paths and
-   the animated fused path;
+   scene and for tri-stress's one batch (counting K2 and K1 launches); a
+   small frame on the card against the CPU, for both paths and the
+   animated fused path, and for both triangle paths;
 6. the main path, Renderer(cs) with defaults: it must take the fused path
    (K4 launched, K1 not); Mrays/s over batches 1-3 stepped one at a time
    and over one fused chunk of 12 batches, the chunk beside the 298.602
-   that PERF.md records for the static kernel before its animated form; the image checks; then the motion-blur
-   scene's Renderer with defaults, which must take the animated fused
-   path (one animated K4 launch per batch stepped and per chunk), with
-   the same numbers and its image within 2e-3 of the wavefront's means;
+   that PERF.md records for the static kernel before its animated form;
+   the image checks; then the motion-blur scene's Renderer with defaults,
+   which must take the animated fused path (one animated K4 launch per
+   batch stepped and per chunk), with the same numbers and its image
+   within 2e-3 of the wavefront's means; then tri-stress's Renderer with
+   defaults, which must take the fused path in K4's triangle form (K1 and
+   K2 not launched), with Mrays/s for its batch stepped and for
+   render_all, and the image checks;
 7. checkpoint round trips on both paths, with the same chunk boundaries:
    the resumed image must be byte-identical to the uninterrupted render;
-8. the CLI renders all 25 batches of each scene to a PNG (fused chunks);
-9. one fused chunk of each scene under torch.profiler (one session):
-   device busy share, the fused kernel's share of device time and device
-   operations per batch.
+8. the CLI renders every batch of each scene to a PNG (fused chunks);
+9. one fused chunk of each sphere scene and tri-stress's batch under
+   torch.profiler (one session): the device's busy share of the traced
+   window's own device timeline and of the untraced wall, the fused
+   kernel's share of device time and device operations per batch.
 
 The line before the last is the kernels' JSON record (with each kernel's
 bound: the larger of its FP32 operations over 67 TFLOP/s and its bytes
-over 3.35 TB/s, counted from this run's inputs), the last line
+over 3.35 TB/s, counted from this run's inputs; K4's triangle form's is
+an estimate, see _k4_tris_bound), the last line
 {"ok": true, "device": {...}}.
 """
 
@@ -58,6 +78,7 @@ import dataclasses
 import json
 import logging
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -91,6 +112,18 @@ PEAK_BYTES = 3.35e12
 # alone and is a lower bound.
 FLOPS_PER_TEST = 25
 FLOPS_PER_TEST_ANIM = 35
+# The triangle stress scene: k x k instances of the 960-triangle OBJ.
+TRI_K = 4
+TRI_WIDTH, TRI_HEIGHT = 1024, 576
+TRI_SUBSET = 1 << 18
+# FP32 operations of one ray-triangle test, counted from the loops of
+# csrc/tri_sweep.cu and csrc/megakernel.cu as FLOPS_PER_TEST is (compares
+# not counted): p = d x e2 9, det 5, 1 / det 1, s = o - v0 3, u 6,
+# q = s x e1 9, v 6, t 6, u + v 1.  One cluster-box pretest: per axis two
+# subtractions, two multiplies, a min and a max (18), the running max and
+# min over axes (4), the pruned best t (2).
+FLOPS_PER_TRI_TEST = 46
+FLOPS_PER_PRETEST = 24
 
 
 def _bound(flops: float, nbytes: float):
@@ -113,6 +146,123 @@ def _k4_bound(geom, traced_sum: int, width: int, height: int,
         nbytes += (geom.sph_dtab8.numel() + n_times) * 4
     nbytes += width * height * (3 * 4 + 4)
     return _bound(traced_sum * s8 * per_test, nbytes)
+
+
+def _k4_tris_bound(geom, work, width: int, height: int):
+    """An estimate of K4's triangle form's bound for one launch, from the
+    work ``_tri_work`` counted on the wavefront's rays of the same batch:
+    every bounce tests every sphere row and every cluster box, and the
+    triangles of each cluster whose box passes the pretest seeded by the
+    sphere hit (the JAX kernel's, megakernel.py:1280; the kernel's own
+    running best t can only skip more).  Bytes: the tables, boxes, rows
+    and parameters read once, the sums and counts written once."""
+    s8 = geom.sph_table8.shape[0]
+    flops = (work["rays"] * s8 * FLOPS_PER_TEST
+             + work["pretests"] * FLOPS_PER_PRETEST
+             + work["tri_tests"] * FLOPS_PER_TRI_TEST)
+    nbytes = (geom.sph_table8.numel() + geom.prim_rows.numel()
+              + geom.tri_table12.numel() + geom.tri_boxes.numel() + 40) * 4
+    nbytes += width * height * (3 * 4 + 4)
+    return _bound(flops, nbytes)
+
+
+def _ptxas_forms(log: str):
+    """[(form, registers, spill store bytes)] of each K4 instantiation in
+    nvcc's -Xptxas=-v report (megakernel<kAnim, kTris>)."""
+    forms = []
+    names = {("0", "0"): "static", ("1", "0"): "anim", ("0", "1"): "tris"}
+    for block in log.split("Compiling entry function")[1:]:
+        m = re.search(r"megakernelILb(\d)ELb(\d)E", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores", block)
+        if m and regs and spill:
+            forms.append((names.get(m.groups(), str(m.groups())),
+                          int(regs.group(1)), int(spill.group(1))))
+    return forms
+
+
+def _tri_stress(k: int, width: int, obj_dir: str, depth=None, batches=None):
+    """The triangle stress scene (tools/stress_scenes.py) at ``width``,
+    its JSON and OBJ written into ``obj_dir``; with the JSON's path."""
+    from raytrace_tpu_torch import cli
+    from raytrace_tpu_torch.tools import stress_scenes
+
+    path = stress_scenes.write_tri_stress(obj_dir, k)
+    cs = cli.load_scene(path, width)
+    return _scene(cs, cs.render.width, cs.render.height, depth,
+                  batches), path
+
+
+def _compare_tris(name, o, d, table16, alive):
+    """K2 vs its plain version on the same rays: bit for bit, or else ids
+    equal and t within rtol/atol on >= 99.9% of rays.  Returns max |dt|
+    over the rays whose ids agree."""
+    import torch
+
+    from raytrace_tpu_torch.ops import tri_sweep
+    from raytrace_tpu_torch.ops.intersect import T_MAX
+
+    hit = tri_sweep.intersect_tris_sweep(o, d, table16, alive)
+    t, ids, u, v = tri_sweep.tri_sweep_reference(o, d, table16)
+    ref = (torch.where(alive, t, T_MAX), torch.where(alive, ids, -1),
+           torch.where(alive, u, 0.0), torch.where(alive, v, 0.0))
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(hit, ref))
+    same_id = hit.tri == ref[1]
+    agree = same_id & ((hit.t - ref[0]).abs() <= ATOL + RTOL * ref[0].abs())
+    frac = agree.double().mean().item()
+    if not bitwise and frac < AGREEMENT:
+        raise AssertionError(f"K2 {name}: (id, t) agree on {frac:.6f} of "
+                             f"rays (need {AGREEMENT})")
+    err = (hit.t[same_id] - ref[0][same_id]).abs().max().item()
+    print(f"triangle sweep {name}: R={o.x.shape[0]} T8={table16.shape[0]} "
+          f"alive {alive.double().mean().item():.4f}: bit for bit "
+          f"{bitwise}; (id, t) agree on {frac:.6f} of rays; hit share "
+          f"{(hit.tri >= 0).double().mean().item():.4f}; max |dt| where "
+          f"ids agree {err:.3g}")
+    return err
+
+
+def _tri_work(renderer):
+    """Render batch 0 of ``renderer``'s triangle scene on the wavefront
+    (K2, K1), as render_next_batch does, and count at every bounce the
+    work of K4's triangle form on the same rays (for _k4_tris_bound): the
+    alive rays, their cluster pretests, and the triangle tests of the
+    clusters that pass the pretest against each ray's sphere hit.
+    Returns (image [H, W, 3] on the host, rays traced, work)."""
+    import torch
+
+    from raytrace_tpu_torch.engine import wavefront
+    from raytrace_tpu_torch.ops import megakernel, sphere_sweep
+
+    static, scene = renderer.static, renderer.scene
+    geom = renderer._geometry(0)
+    trace = wavefront.make_trace_fn(static, scene, geom)
+    n_clusters = geom.tri_boxes.shape[0]
+    group = megakernel.tri_group(static, geom.tri_table16.shape[0])
+    work = dict(rays=0, pretests=0, tri_tests=0)
+
+    def counting(o, d, alive):
+        sph = sphere_sweep.intersect_spheres_sweep(o, d, geom.sph_table8,
+                                                   alive)
+        passes = megakernel.cluster_pretest(o, d, geom.tri_boxes, sph.t)
+        n = int(alive.sum())
+        work["rays"] += n
+        work["pretests"] += n * n_clusters
+        work["tri_tests"] += int((passes & alive).sum()) * group
+        return trace(o, d, alive)
+
+    tiles, rays = [], 0
+    rows = renderer.rows_per_tile
+    for row0 in range(0, static.height, rows):
+        tile, tr = wavefront.render_tile(static, scene, renderer.camera,
+                                         counting, geom, 0, row0, rows,
+                                         renderer.use_dof)
+        tiles.append(tile)
+        rays += tr
+    torch.cuda.synchronize()
+    img = torch.cat(tiles, dim=0)[:static.height].cpu().numpy()
+    return img, rays, work
 
 
 def _median_ms(fn, reps: int) -> float:
@@ -172,12 +322,14 @@ def _scene(cs, width, height, depth=None, batches=None):
     return dataclasses.replace(cs, render=render)
 
 
-def _compare_fused(label, renderer, k, mean_tol, pixel_share, card):
+def _compare_fused(label, renderer, k, mean_tol, pixel_share, card,
+                   bitwise_required=False):
     """K4 vs its plain version on batches 0..k-1 of ``renderer``'s frame.
     Rays within 0.5%, per-sample channel means within mean_tol, and (when
     pixel_share is set) at most that share of pixels with a max-channel
-    difference above 1e-4; two launches must give the same bytes.
-    Returns (max |sums difference|, launch args, launch keywords, rays)."""
+    difference above 1e-4, or bit for bit when ``bitwise_required``; two
+    launches must give the same bytes.  Returns (max |sums difference|,
+    launch args, launch keywords, rays, plain seconds)."""
     import torch
 
     from raytrace_tpu_torch.ops import megakernel
@@ -189,13 +341,16 @@ def _compare_fused(label, renderer, k, mean_tol, pixel_share, card):
     kw = dict(use_dof=renderer.use_dof, times=renderer.batch_times_dev)
     sums, traced = megakernel.render_tile_mega(*args, **kw)
     again, traced2 = megakernel.render_tile_mega(*args, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     ref, ref_traced = megakernel.megakernel_reference(*args, **kw)
     torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
     if not (torch.equal(sums, again) and torch.equal(traced, traced2)):
         raise AssertionError(f"{label}: two launches differ")
     if not torch.isfinite(sums).all():
         raise AssertionError(f"{label}: non-finite sums")
-    n = 4 * k
+    n = renderer.static.sqrt_spp ** 2 * k
     rays, ref_rays = int(traced.sum()), int(ref_traced.sum())
     mdiff = ((sums.mean((0, 1)) - ref.mean((0, 1))).abs().max() / n).item()
     pix = (sums - ref).abs().amax(-1)
@@ -209,9 +364,10 @@ def _compare_fused(label, renderer, k, mean_tol, pixel_share, card):
           f"max |dsum| {err:.3g}; bit for bit: {bitwise}; repeat launch "
           f"byte-identical ({card})")
     if abs(rays - ref_rays) > 0.005 * ref_rays or mdiff > mean_tol or (
-            pixel_share is not None and bad > pixel_share):
+            pixel_share is not None and bad > pixel_share) or (
+            bitwise_required and not bitwise):
         raise AssertionError(f"{label}: kernel and plain version disagree")
-    return err, args, kw, rays
+    return err, args, kw, rays, plain_s
 
 
 def _check_image(img, label, width=WIDTH, height=HEIGHT):
@@ -235,15 +391,29 @@ def _step(renderer, batches):
     return out
 
 
+def _reset_counts():
+    """Every kernel's launch count to 0."""
+    from raytrace_tpu_torch.ops import megakernel, sphere_sweep, tri_sweep
+
+    sphere_sweep.LAUNCHES = tri_sweep.LAUNCHES = 0
+    megakernel.LAUNCHES = megakernel.ANIM_LAUNCHES = 0
+    megakernel.TRI_LAUNCHES = 0
+
+
 def _mrays(per_batch):
     return sum(r for r, _ in per_batch) / sum(s for _, s in per_batch) / 1e6
 
 
 def _busy_share(events, label, wall_s):
-    """(device busy share of wall_s, device operations, fused-kernel share
-    of device time) for the chunk profiled under record_function(label):
-    the union of the card's operation intervals that start inside that
-    host range (the chunk ends in a synchronize) over the wall time."""
+    """The device timeline of the work profiled under
+    record_function(label): the card's operation intervals that start
+    inside that host range (the work ends in a synchronize).  Returns a
+    dict: ``busy_s``, their union; ``timeline``, the union over the span
+    from the first operation's start to the last one's end (the traced
+    window's own device timeline: what is not busy there is the card
+    waiting between its operations); ``wall``, the union over wall_s, an
+    untraced run's host time; ``ops``, the operations; ``k4``, the fused
+    kernel's share of the union."""
     from torch.autograd import DeviceType
 
     host = [e for e in events
@@ -261,7 +431,10 @@ def _busy_share(events, label, wall_s):
         if e > end:
             busy += e - max(s, end)
             end = e
-    return busy / 1e6 / wall_s, len(spans), k4 / busy if busy else 0.0
+    window = (max(e for _, e, _ in spans) - spans[0][0]) if spans else 0.0
+    return dict(busy_s=busy / 1e6, timeline=busy / window if window else 0.0,
+                wall=busy / 1e6 / wall_s, ops=len(spans),
+                k4=k4 / busy if busy else 0.0)
 
 
 class _Capture(logging.Handler):
@@ -283,8 +456,12 @@ def main() -> int:
     from raytrace_tpu_torch import cli
     from raytrace_tpu_torch.engine import Renderer
     from raytrace_tpu_torch.engine.wavefront import prepare_batch, primary_rays
-    from raytrace_tpu_torch.ops import _build, megakernel, sphere_sweep
+    from raytrace_tpu_torch.models import compile_scene
+    from raytrace_tpu_torch.ops import (_build, megakernel, sphere_sweep,
+                                        tri_sweep)
     from raytrace_tpu_torch.ops.vec3 import V3
+    from raytrace_tpu_torch.scene_file import SceneFile
+    from raytrace_tpu_torch.tools import stress_scenes
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -297,13 +474,16 @@ def main() -> int:
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
 
-    # -- 2. build both kernels, one nvcc each, started together ------------
+    tri_dir = tempfile.TemporaryDirectory()
+
+    # -- 2. build the three kernels, one nvcc each, started together --------
     def timed_build(mod):
         t0 = time.perf_counter()
         mod.library()
         return time.perf_counter() - t0
 
-    mods = {"sphere_sweep": sphere_sweep, "megakernel": megakernel}
+    mods = {"sphere_sweep": sphere_sweep, "tri_sweep": tri_sweep,
+            "megakernel": megakernel}
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
         secs = dict(zip(mods, pool.map(timed_build, mods.values())))
     for name, sec in secs.items():
@@ -311,6 +491,13 @@ def main() -> int:
         log = _build.library_path(name).with_suffix(".log")
         if log.exists():
             print(log.read_text().strip())
+    forms = _ptxas_forms(_build.library_path("megakernel").with_suffix(
+        ".log").read_text())
+    if sorted(f for f, _, _ in forms) != ["anim", "static", "tris"]:
+        raise AssertionError(f"K4's forms in nvcc's report: {forms}")
+    for form, regs, spill in forms:
+        print(f"K4 {form} form: {regs} registers, {spill} bytes spill "
+              f"stores")
 
     # -- 3. K1 vs plain at the main path's shapes ---------------------------
     cs = cli.load_scene(cli.DEFAULT_SCENE, WIDTH, HEIGHT)
@@ -323,7 +510,7 @@ def main() -> int:
     if o.x.shape[0] != WIDTH * HEIGHT * 4:
         raise AssertionError(f"primary rays: {o.x.shape[0]}")
     alive = torch.ones(o.x.shape[0], dtype=torch.bool, device=dev)
-    err = _compare_sweep("primary", o, d, table8, alive)
+    k1_err = _compare_sweep("primary", o, d, table8, alive)
 
     rng = np.random.default_rng(0)
     # Origins in the scene's air (its ground fills y > 0).
@@ -334,8 +521,8 @@ def main() -> int:
     to_v3 = lambda a: V3(*(torch.tensor(np.ascontiguousarray(a[:, i]),  # noqa
                                         device=dev) for i in range(3)))
     r_alive = torch.tensor(rng.random(RANDOM_RAYS) < 0.75, device=dev)
-    err = max(err, _compare_sweep("random", to_v3(ro), to_v3(rd), table8,
-                                  r_alive))
+    k1_err = max(k1_err, _compare_sweep("random", to_v3(ro), to_v3(rd),
+                                        table8, r_alive))
 
     ms = _median_ms(
         lambda: sphere_sweep.intersect_spheres_sweep(o, d, table8, alive), 20)
@@ -350,13 +537,72 @@ def main() -> int:
           f"{k1_bound[0]:.4f} ms by {k1_bound[1]} ({card})")
     del probe, geom, o, d, alive
 
+    # -- 3b. K2 vs plain at tri-stress's shapes ------------------------------
+    tri_cs, tri_json = _tri_stress(TRI_K, TRI_WIDTH, tri_dir.name)
+    if (tri_cs.render.width, tri_cs.render.height) != (TRI_WIDTH, TRI_HEIGHT):
+        raise AssertionError("tri-stress's size changed")
+    probe = Renderer(tri_cs, device=dev, use_megakernel=False)
+    if (probe.static.num_triangles, probe.static.tri_cluster_g) != (
+            TRI_K * TRI_K * 960, 128):
+        raise AssertionError("tri-stress: unexpected soup "
+                             f"{probe.static.num_triangles} / "
+                             f"{probe.static.tri_cluster_g}")
+    table16 = probe._geometry(0).tri_table16
+    _, o, d = primary_rays(probe.static, probe.camera, 0, 0, TRI_HEIGHT,
+                           probe.use_dof, dev)
+    n_rays = o.x.shape[0]
+    if n_rays != TRI_WIDTH * TRI_HEIGHT * 16:
+        raise AssertionError(f"tri-stress primary rays: {n_rays}")
+    alive = torch.ones(n_rays, dtype=torch.bool, device=dev)
+    sel = torch.tensor(rng.choice(n_rays, TRI_SUBSET, replace=False),
+                       device=dev)
+    k2_err = _compare_tris(f"{TRI_SUBSET} primary", V3(*(c[sel] for c in o)),
+                           V3(*(c[sel] for c in d)), table16, alive[sel])
+
+    # Random rays against tri-stress k=1's 960 triangles: from around the
+    # soup towards random points of random triangles, a tenth of them in
+    # random directions.
+    small_cs, _ = _tri_stress(1, 96, tri_dir.name)
+    soup = Renderer(small_cs, device=dev, use_megakernel=False)._geometry(0)
+    wp = soup.world_p[:960].double().cpu().numpy()
+    lo, hi = wp.min((0, 1)), wp.max((0, 1))
+    span = np.maximum(hi - lo, 1.0)
+    ro = rng.uniform(lo - span, hi + span, (RANDOM_RAYS, 3))
+    pick = rng.integers(0, 960, RANDOM_RAYS)
+    bary = rng.dirichlet(np.ones(3), RANDOM_RAYS)
+    rd = np.einsum("rv,rvi->ri", bary, wp[pick]) - ro
+    rd[:RANDOM_RAYS // 10] = rng.standard_normal((RANDOM_RAYS // 10, 3))
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    r_alive = torch.tensor(rng.random(RANDOM_RAYS) < 0.75, device=dev)
+    k2_err = max(k2_err, _compare_tris(
+        "random", to_v3(ro.astype(np.float32)), to_v3(rd.astype(np.float32)),
+        soup.tri_table16, r_alive))
+
+    k2_ms = _median_ms(
+        lambda: tri_sweep.intersect_tris_sweep(o, d, table16, alive), 5)
+    t0 = time.perf_counter()
+    tri_sweep.tri_sweep_reference(o, d, table16)
+    torch.cuda.synchronize()
+    k2_plain_ms = (time.perf_counter() - t0) * 1e3
+    t8 = table16.shape[0]
+    # Rays in: origin, direction, alive; out: t, id, u, v; the table once.
+    k2_bound = _bound(n_rays * t8 * FLOPS_PER_TRI_TEST,
+                      n_rays * (6 * 4 + 1 + 4 * 4) + table16.numel() * 4)
+    print(f"triangle sweep time at R={n_rays} (tri-stress's primary rays), "
+          f"T8={t8}: kernel {k2_ms:.3f} ms (median of 5), plain PyTorch "
+          f"{k2_plain_ms:.3f} ms (one run); "
+          f"{n_rays * t8 / k2_ms / 1e6:.4g}G ray-triangle tests/s; bound "
+          f"{k2_bound[0]:.4f} ms by {k2_bound[1]} "
+          f"({k2_bound[0] / k2_ms:.3f} of it) ({card})")
+    del probe, soup, table16, o, d, alive, sel
+
     # -- 4. K4 vs plain -----------------------------------------------------
     small = _scene(cs, 96, 54, depth=8, batches=2)
-    k4_err, _, _, _ = _compare_fused("96x54 depth 8 k=2",
-                                     Renderer(small, device=dev), 2, 1e-3,
-                                     0.05, card)
+    k4_err, *_ = _compare_fused("96x54 depth 8 k=2",
+                                Renderer(small, device=dev), 2, 1e-3, 0.05,
+                                card)
     full = Renderer(cs, device=dev)
-    err_full, args, kw, k4_rays = _compare_fused(
+    err_full, args, kw, k4_rays, _ = _compare_fused(
         f"{WIDTH}x{HEIGHT} 4 spp depth 50 k=1", full, 1, 2e-3, None, card)
     k4_err = max(k4_err, err_full)
     k4_ms = _median_ms(lambda: megakernel.render_tile_mega(*args, **kw), 5)
@@ -381,9 +627,9 @@ def main() -> int:
     if mb_small.path != "fused_anim" or mb_full.path != "fused_anim":
         raise AssertionError("the motion-blur scene did not take the "
                              "animated fused path")
-    anim_err, _, _, _ = _compare_fused("motion-blur 96x54 depth 8 k=2",
-                                       mb_small, 2, 1e-3, 0.05, card)
-    err_full, args, kw, anim_rays = _compare_fused(
+    anim_err, *_ = _compare_fused("motion-blur 96x54 depth 8 k=2",
+                                  mb_small, 2, 1e-3, 0.05, card)
+    err_full, args, kw, anim_rays, _ = _compare_fused(
         f"motion-blur {MB_WIDTH}x{MB_HEIGHT} 4 spp depth 50 k=1", mb_full,
         1, 2e-3, None, card)
     anim_err = max(anim_err, err_full)
@@ -399,12 +645,67 @@ def main() -> int:
           f"({card})")
     del mb_small, mb_full, args, kw
 
+    # -- 4c. K4's triangle form vs plain, on tri-stress and the fixture -----
+    fixture = compile_scene(SceneFile.from_json_dict(
+        stress_scenes.triangle_fixture_doc()), width=96)
+    tris_err = 0.0
+    for label, small_cs in (
+            ("tri-stress k=1", _tri_stress(1, 96, tri_dir.name, 8, 2)[0]),
+            (f"tri-stress k={TRI_K}",
+             _tri_stress(TRI_K, 96, tri_dir.name, 8, 2)[0]),
+            ("triangle fixture", _scene(fixture, 96, 54, 8, 2))):
+        r = Renderer(small_cs, device=dev)
+        if r.path != "fused":
+            raise AssertionError(f"{label}: path {r.path}, not fused")
+        small_err, *_ = _compare_fused(f"{label} 96x54 depth 8 k=2", r, 2,
+                                       1e-3, None, card,
+                                       bitwise_required=True)
+        tris_err = max(tris_err, small_err)
+    tri_full = Renderer(tri_cs, device=dev)
+    if tri_full.path != "fused":
+        raise AssertionError(f"tri-stress: path {tri_full.path}, not fused")
+    err_full, args, kw, tris_rays, tris_plain_s = _compare_fused(
+        f"tri-stress-15360 {TRI_WIDTH}x{TRI_HEIGHT} 16 spp depth 50 k=1",
+        tri_full, 1, 2e-3, None, card)
+    tris_err = max(tris_err, err_full)
+    tris_ms = _median_ms(lambda: megakernel.render_tile_mega(*args, **kw), 5)
+    tris_plain_ms = tris_plain_s * 1e3
+    sums, _ = megakernel.render_tile_mega(*args, **kw)
+    # The image as the Renderer folds it (sums / spp per pixel); its mean
+    # on the host, as the wavefront image's (a float32 mean of the sums on
+    # the card rounds by ~1e-3 at this size).
+    fused_img = (sums / tri_full.static.sqrt_spp ** 2).cpu().numpy()
+    # The same batch on the wavefront with K2 and K1, counting the work
+    # of the kernel's bound on its rays.
+    wave_img, wave_rays, work = _tri_work(
+        Renderer(tri_cs, device=dev, use_megakernel=False))
+    mdiff = np.abs(fused_img.mean(axis=(0, 1))
+                   - wave_img.mean(axis=(0, 1))).max()
+    print(f"fused (triangle form) vs wavefront with K2 on tri-stress-15360's "
+          f"batch at {TRI_WIDTH}x{TRI_HEIGHT}, 16 spp, depth 50: rays "
+          f"{tris_rays} vs {wave_rays}, max channel-mean diff {mdiff:.3g} "
+          f"({card})")
+    if abs(tris_rays - wave_rays) > 0.005 * wave_rays or mdiff > 2e-3:
+        raise AssertionError("tri-stress: the fused and wavefront renders "
+                             "disagree")
+    tris_bound = _k4_tris_bound(args[2], work, TRI_WIDTH, TRI_HEIGHT)
+    print(f"fused kernel (triangle form) time at {TRI_WIDTH}x{TRI_HEIGHT}, "
+          f"16 spp, depth 50, one batch: kernel {tris_ms:.3f} ms (median of "
+          f"5, CUDA events), plain PyTorch {tris_plain_ms:.1f} ms (one run, "
+          f"host clock); work counted on the wavefront's rays: "
+          f"{work['rays']} bounces, {work['pretests']} cluster pretests, "
+          f"{work['tri_tests']} triangle tests in clusters that pass against "
+          f"the sphere hit ({work['tri_tests'] / max(work['rays'], 1):.1f} a "
+          f"bounce, of {TRI_K * TRI_K * 960}); bound (an estimate) "
+          f"{tris_bound[0]:.4f} ms by {tris_bound[1]} ({card})")
+    del tri_full, args, kw, sums
+
     # -- 5. the wavefront path ----------------------------------------------
-    sphere_sweep.LAUNCHES = megakernel.LAUNCHES = megakernel.ANIM_LAUNCHES = 0
+    _reset_counts()
     wave = Renderer(cs, device=dev, use_megakernel=False)
     per_batch = _step(wave, MAIN_BATCHES)
     sweep_launches = sphere_sweep.LAUNCHES
-    if sweep_launches <= 0 or megakernel.LAUNCHES:
+    if sweep_launches <= 0 or megakernel.LAUNCHES or tri_sweep.LAUNCHES:
         raise AssertionError("the wavefront path did not run on K1 alone")
     for i, (r, s) in enumerate(per_batch):
         print(f"wavefront batch {i}: {r} rays in {s:.4f} s "
@@ -416,10 +717,11 @@ def main() -> int:
     wave_img = wave.image()
     _check_image(wave_img, "wavefront")
 
-    sphere_sweep.LAUNCHES = megakernel.LAUNCHES = megakernel.ANIM_LAUNCHES = 0
+    _reset_counts()
     wave_mb = Renderer(cs_mb, device=dev, use_megakernel=False)
     per_batch = _step(wave_mb, MAIN_BATCHES)
-    if sphere_sweep.LAUNCHES <= 0 or megakernel.LAUNCHES:
+    if (sphere_sweep.LAUNCHES <= 0 or megakernel.LAUNCHES
+            or tri_sweep.LAUNCHES):
         raise AssertionError("the motion-blur wavefront did not run on K1 "
                              "alone")
     print(f"wavefront path: final-one-weekend-motion-blur {MB_WIDTH}x"
@@ -430,14 +732,37 @@ def main() -> int:
     _check_image(wave_mb_img, "motion-blur wavefront", MB_WIDTH, MB_HEIGHT)
     del wave_mb
 
+    # tri-stress's one batch on the wavefront: K2, then K1 for the ground.
+    _reset_counts()
+    wave_tri = Renderer(tri_cs, device=dev, use_megakernel=False)
+    (tri_wave_rays, tri_wave_s), = _step(wave_tri, 1)
+    k2_launches, k1_tri_launches = tri_sweep.LAUNCHES, sphere_sweep.LAUNCHES
+    if k2_launches <= 0 or k1_tri_launches <= 0 or megakernel.LAUNCHES:
+        raise AssertionError("tri-stress's wavefront did not run on K2 and "
+                             "K1")
+    print(f"wavefront path: tri-stress-15360 {TRI_WIDTH}x{TRI_HEIGHT}, 16 "
+          f"spp, depth 50, one batch: {tri_wave_rays} rays in "
+          f"{tri_wave_s:.4f} s ({tri_wave_rays / tri_wave_s / 1e6:.3f} "
+          f"Mrays/s); tri_sweep LAUNCHES={k2_launches}, sphere_sweep "
+          f"LAUNCHES={k1_tri_launches} ({card})")
+    _check_image(wave_tri.image(), "tri-stress wavefront", TRI_WIDTH,
+                 TRI_HEIGHT)
+    del wave_tri
+
     # Small-input reference: the same frame on the card and on the CPU
     # (plain versions) must agree in channel means and ray counts.
     tiny = _scene(cs, 96, 54, depth=8, batches=1)
     tiny_mb = _scene(cs_mb, 96, 54, depth=8, batches=2)
+    tiny_tri = _tri_stress(1, 96, tri_dir.name, depth=8)[0]
+    tiny_fix = _scene(fixture, 96, 54, depth=8, batches=1)
     for name, small_cs, fused in (("final-one-weekend", tiny, False),
                                   ("final-one-weekend", tiny, True),
                                   ("motion-blur", tiny_mb, False),
-                                  ("motion-blur", tiny_mb, True)):
+                                  ("motion-blur", tiny_mb, True),
+                                  ("tri-stress k=1", tiny_tri, False),
+                                  ("tri-stress k=1", tiny_tri, True),
+                                  ("triangle fixture", tiny_fix, False),
+                                  ("triangle fixture", tiny_fix, True)):
         gpu_s = Renderer(small_cs, device=dev, use_megakernel=fused)
         cpu_s = Renderer(small_cs, device="cpu", use_megakernel=fused)
         if gpu_s.path != cpu_s.path:
@@ -456,7 +781,7 @@ def main() -> int:
               f"{g_rays} vs {c_rays} ({card})")
 
     # -- 6. the main path: Renderer with defaults, the fused kernel ---------
-    sphere_sweep.LAUNCHES = megakernel.LAUNCHES = megakernel.ANIM_LAUNCHES = 0
+    _reset_counts()
     main_r = Renderer(cs, device=dev)
     per_batch = _step(main_r, MAIN_BATCHES)
     rays0, sec0 = main_r.stats.rays_traced, main_r.stats.render_seconds
@@ -486,7 +811,7 @@ def main() -> int:
 
     # The motion-blur scene's main path: Renderer with defaults, the
     # animated fused kernel, one launch per stepped batch and per chunk.
-    sphere_sweep.LAUNCHES = megakernel.LAUNCHES = megakernel.ANIM_LAUNCHES = 0
+    _reset_counts()
     mb_r = Renderer(cs_mb, device=dev)
     per_batch = _step(mb_r, MAIN_BATCHES)
     fused_mb_img = mb_r.image()
@@ -523,6 +848,35 @@ def main() -> int:
                              "disagree")
     del mb_r
 
+    # tri-stress's main path: Renderer with defaults, K4's triangle form;
+    # its one batch stepped, then render_all on a second Renderer.
+    _reset_counts()
+    tri_r = Renderer(tri_cs, device=dev)
+    (tri_rays, tri_s), = _step(tri_r, 1)
+    tri_all = Renderer(tri_cs, device=dev)
+    tri_img = tri_all.render_all()
+    tris_launches = megakernel.TRI_LAUNCHES
+    if (tri_r.path != "fused" or tri_all.path != "fused"
+            or tris_launches != 2 or megakernel.LAUNCHES != 2
+            or megakernel.ANIM_LAUNCHES or sphere_sweep.LAUNCHES
+            or tri_sweep.LAUNCHES):
+        raise AssertionError(
+            f"tri-stress's main path did not take K4's triangle form (path "
+            f"{tri_r.path}, K4 {megakernel.LAUNCHES}, triangle form "
+            f"{tris_launches}, K1 {sphere_sweep.LAUNCHES}, K2 "
+            f"{tri_sweep.LAUNCHES})")
+    print(f"tri-stress main path (fused, triangle form): tri-stress-15360 "
+          f"{TRI_WIDTH}x{TRI_HEIGHT}, 16 spp, depth 50: its batch stepped "
+          f"{tri_rays} rays in {tri_s:.4f} s "
+          f"({tri_rays / tri_s / 1e6:.3f} Mrays/s); render_all "
+          f"{tri_all.stats.rays_traced} rays in "
+          f"{tri_all.stats.render_seconds:.4f} s "
+          f"({tri_all.stats.mrays_per_sec:.3f} Mrays/s); megakernel "
+          f"LAUNCHES={megakernel.LAUNCHES} (triangle form {tris_launches}), "
+          f"tri_sweep and sphere_sweep LAUNCHES=0 ({card})")
+    _check_image(tri_img, "tri-stress fused", TRI_WIDTH, TRI_HEIGHT)
+    del tri_r, tri_all
+
     # -- 7. checkpoint round trips, same chunk boundaries --------------------
     with tempfile.TemporaryDirectory() as tmp:
         ck = os.path.join(tmp, "ck.npz")
@@ -549,7 +903,8 @@ def main() -> int:
         for scene_path, size_args, (w, h), path in (
                 (cli.DEFAULT_SCENE, ["--width", str(WIDTH), "--height",
                                      str(HEIGHT)], (WIDTH, HEIGHT), "fused"),
-                (mb_scene, [], (MB_WIDTH, MB_HEIGHT), "fused_anim")):
+                (mb_scene, [], (MB_WIDTH, MB_HEIGHT), "fused_anim"),
+                (tri_json, [], (TRI_WIDTH, TRI_HEIGHT), "fused")):
             name = os.path.splitext(os.path.basename(scene_path))[0]
             png = os.path.join(tmp, name + ".png")
             capture = _Capture()
@@ -583,30 +938,34 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     runs = []
-    for name, prof_cs in (("final-one-weekend", cs),
-                          ("final-one-weekend-motion-blur", cs_mb)):
+    for name, prof_cs, k in (("final-one-weekend", cs, CHUNK_BATCHES),
+                             ("final-one-weekend-motion-blur", cs_mb,
+                              CHUNK_BATCHES),
+                             ("tri-stress-15360", tri_cs, 1)):
         prof_r = Renderer(prof_cs, device=dev)
-        prof_r.render_batches(CHUNK_BATCHES)   # warm-up
-        sec0 = prof_r.stats.render_seconds
-        prof_r.render_batches(CHUNK_BATCHES)
+        prof_r.render_batches(k)   # warm-up
         prof_r.current_batch = 0
-        runs.append((name, prof_r, prof_r.stats.render_seconds - sec0))
+        sec0 = prof_r.stats.render_seconds
+        prof_r.render_batches(k)
+        prof_r.current_batch = 0
+        runs.append((name, prof_r, k, prof_r.stats.render_seconds - sec0))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for name, prof_r, _ in runs:
+        for name, prof_r, k, _ in runs:
             with record_function(name):
-                prof_r.render_batches(CHUNK_BATCHES)
+                prof_r.render_batches(k)
     events = prof.events()
-    for name, prof_r, untraced in runs:
-        share, n_ops, k4_share = _busy_share(events, name, untraced)
-        busy = (f"device busy {share * untraced:.4f} s = {share:.4f} of the "
-                f"untraced wall; the fused kernel {k4_share:.4f} of device "
-                f"time" if k4_share > 0 else
+    for name, prof_r, k, untraced in runs:
+        b = _busy_share(events, name, untraced)
+        busy = (f"device busy {b['busy_s']:.4f} s = {b['timeline']:.4f} of "
+                f"the traced window's own device timeline, {b['wall']:.4f} "
+                f"of the untraced wall; the fused kernel {b['k4']:.4f} of "
+                f"device time" if b["k4"] > 0 else
                 "the profiler recorded no fused-kernel time: device busy "
                 "share not measured")
-        print(f"profile of one {CHUNK_BATCHES}-batch fused chunk of {name} "
-              f"({prof_r.path}): untraced {untraced:.4f} s; {busy}; {n_ops} "
-              f"device operations, {n_ops / CHUNK_BATCHES:.2f} per batch "
+        print(f"profile of one {k}-batch fused chunk of {name} "
+              f"({prof_r.path}): untraced {untraced:.4f} s; {busy}; "
+              f"{b['ops']} device operations, {b['ops'] / k:.2f} per batch "
               f"({card})")
     print(prof.key_averages().table(sort_by="device_time_total",
                                     row_limit=8))
@@ -620,7 +979,7 @@ def main() -> int:
         "name": "sphere_sweep", "route": "cuda",
         "source": "raytrace_tpu_torch/csrc/sphere_sweep.cu",
         "replaces": "raytrace_tpu/ops/pallas_sweep.py:33",
-        "launches": sweep_launches, "max_abs_err": err, "ms": ms,
+        "launches": sweep_launches, "max_abs_err": k1_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": k1_bound[0],
         "bound_by": k1_bound[1], "library_ms": None,
     }, {
@@ -637,7 +996,22 @@ def main() -> int:
         "launches": anim_launches, "max_abs_err": anim_err, "ms": anim_ms,
         "plain_ms": anim_plain_ms, "bound_ms": anim_bound[0],
         "bound_by": anim_bound[1], "library_ms": None,
+    }, {
+        "name": "tri_sweep", "route": "cuda",
+        "source": "raytrace_tpu_torch/csrc/tri_sweep.cu",
+        "replaces": "raytrace_tpu/ops/pallas_tri_sweep.py:27",
+        "launches": k2_launches, "max_abs_err": k2_err, "ms": k2_ms,
+        "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
+        "bound_by": k2_bound[1], "library_ms": None,
+    }, {
+        "name": "megakernel_tris", "route": "cuda",
+        "source": "raytrace_tpu_torch/csrc/megakernel.cu",
+        "replaces": "raytrace_tpu/ops/megakernel.py:1666",
+        "launches": tris_launches, "max_abs_err": tris_err, "ms": tris_ms,
+        "plain_ms": tris_plain_ms, "bound_ms": tris_bound[0],
+        "bound_by": tris_bound[1], "library_ms": None,
     }]}))
+    tri_dir.cleanup()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

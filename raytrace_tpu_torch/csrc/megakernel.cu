@@ -1,10 +1,11 @@
-// The whole path-tracing loop in one kernel: raygen, sphere closest hit,
-// fat-row shading, the no-light NEE branch and per-pixel sums.
+// The whole path-tracing loop in one kernel: raygen, sphere and triangle
+// closest hit, fat-row shading, the no-light NEE branch and per-pixel sums.
 //
 // Replaces the TPU kernel raytrace_tpu/ops/megakernel.py::_mega_kernel
 // (launched by mega_dispatch) in its spheres-in-world-space, direct-normal,
-// no-light, no-triangle, no-image configuration, static or with the
-// spheres moving on straight lines (its anim_lerp form).  It computes
+// no-light, no-image configuration: static, with the spheres moving on
+// straight lines (its anim_lerp form), or with a world-space triangle soup
+// (its triangle sweeps, _sweep :1486-1536 and _sweep_tri_gather).  It computes
 // what the torch wavefront (engine/wavefront.py) computes, ray for ray: the
 // same PCG stream per (pixel, sample), the same camera and shading
 // arithmetic in the same operation order, the same closest hit (strict <
@@ -38,10 +39,33 @@
 // the read-only cache: columns 0:24 (material) and 44:48 (world centre and
 // radius).
 //
-// What bounds it: per bounce S ray-sphere tests of ~20 flops and a sqrt,
-// against one 112-byte row fetch; at 488 spheres the fp32 ALU issue rate.
-// The first version is the simple one: a per-thread cluster/BVH traversal
-// and a persistent work queue come later.
+// Triangles (template parameter kTris; not combined with kAnim, as in the
+// JAX kernel): the soup is a [t8, 12] table in global memory, 48 bytes a
+// triangle as three float4 (v0, valid), (e1, -), (e2, -), read through the
+// read-only cache; at 15,360 triangles that is 737 KB, which stays in L2.
+// The soup is laid out in contiguous clusters of cluster_g triangles
+// (models/sphere_order.apply_triangle_order; one cluster holds the whole
+// soup when it is not clustered), and the clusters' boxes, [n_clusters, 8]
+// as two float4 (min, -), (max, -), at most 128 x 32 B = 4 KiB, sit in
+// shared memory after the sphere table.  After the sphere sweep seeds the
+// best t, a thread visits the clusters in ascending id, slab-tests each box
+// with the JAX kernel's conservative pretest (megakernel.py:1262-1280:
+// te <= tx, tx > T_MIN, te < best_t * 1.0001 + 1e-4, with its 1e-30 guard
+// on 1/d), pruned by its running best t, and runs the dense sweep's exact
+// Moller-Trumbore operations over the triangles of each cluster that
+// passes, strict < over ascending ids.  A skipped cluster can hold only
+// hits at t >= best t, which under strict < never win, so the result is
+// the dense sweep's (ops/tri_sweep.py), bit for bit.  The hit point is
+// captured in the sweep as v0 + u e1 + v e2 and the normal is the
+// barycentric lerp of the fat row's n0, n1 - n0, n2 - n0 (slots 49:58),
+// as engine/wavefront.py reconstruct_hit computes them.  At equal t a
+// sphere keeps the hit (it is swept first), as in the JAX kernel.
+//
+// What bounds it: per bounce S ray-sphere tests of ~20 flops and a sqrt
+// (and for triangles the box pretests and the tests of the clusters that
+// pass), against one 112-byte row fetch: the fp32 ALU issue rate.  The
+// first version is the simple one: a persistent work queue and a deeper
+// hierarchy come later.
 //
 // Bits: built with -fmad=false (ops/_build.py), so no multiply-add is
 // contracted and each operation rounds as PyTorch's elementwise kernels
@@ -83,6 +107,12 @@ constexpr int kHasEmissive = 4;
 // float4 per sphere in shared memory.
 template <bool kAnim>
 constexpr int kStride = kAnim ? 3 : 2;
+
+// The slab pretest's guard on 1 / d (megakernel.py:1262) and the prune
+// margin on the best t (:1280).
+constexpr float kSlabEps = 1e-30f;
+constexpr float kPruneScale = 1.0001f;
+constexpr float kPruneAdd = 1e-4f;
 
 // Float parameters, staged into shared memory (ops/megakernel.py
 // _float_params builds the same layout).
@@ -241,21 +271,94 @@ __device__ __forceinline__ V3 eval_property(const float* __restrict__ row, int b
   return load3(row, base);
 }
 
+// 1 / d for the slab pretest, with |d| kept at least kSlabEps
+// (megakernel.py:1264-1266).
+__device__ __forceinline__ float slab_inv(float dx) {
+  return 1.0f / (fabsf(dx) < kSlabEps ? (dx < 0.0f ? -kSlabEps : kSlabEps) : dx);
+}
+
+// The triangle soup against one ray, after the sphere sweep: see the
+// header.  Updates the best t and id, the barycentrics and the hit point.
+__device__ __forceinline__ void sweep_tris(const float4* __restrict__ tris, int t8,
+                                           const float4* boxes, int n_clusters, int cluster_g,
+                                           int s_pad, V3 o, V3 d, float& best_t, int& best_id,
+                                           float& best_u, float& best_v, V3& tp) {
+  const float ivx = slab_inv(d.x);
+  const float ivy = slab_inv(d.y);
+  const float ivz = slab_inv(d.z);
+  for (int c = 0; c < n_clusters; ++c) {
+    const float4 mn = boxes[2 * c];
+    const float4 mx = boxes[2 * c + 1];
+    float a0 = (mn.x - o.x) * ivx;
+    float a1 = (mx.x - o.x) * ivx;
+    float te = fminf(a0, a1);
+    float tx = fmaxf(a0, a1);
+    a0 = (mn.y - o.y) * ivy;
+    a1 = (mx.y - o.y) * ivy;
+    te = fmaxf(te, fminf(a0, a1));
+    tx = fminf(tx, fmaxf(a0, a1));
+    a0 = (mn.z - o.z) * ivz;
+    a1 = (mx.z - o.z) * ivz;
+    te = fmaxf(te, fminf(a0, a1));
+    tx = fminf(tx, fmaxf(a0, a1));
+    if (!(te <= tx && tx > kTMin && te < best_t * kPruneScale + kPruneAdd)) continue;
+    const int j1 = min((c + 1) * cluster_g, t8);
+    for (int j = c * cluster_g; j < j1; ++j) {
+      // csrc/tri_sweep.cu's operations, in its order.
+      const float4 v0 = __ldg(tris + 3 * j);
+      const float4 e1 = __ldg(tris + 3 * j + 1);
+      const float4 e2 = __ldg(tris + 3 * j + 2);
+      const float px = d.y * e2.z - d.z * e2.y;
+      const float py = d.z * e2.x - d.x * e2.z;
+      const float pz = d.x * e2.y - d.y * e2.x;
+      const float det = e1.x * px + e1.y * py + e1.z * pz;
+      const float inv_det = det != 0.0f ? 1.0f / det : 0.0f;
+      const float sx = o.x - v0.x;
+      const float sy = o.y - v0.y;
+      const float sz = o.z - v0.z;
+      const float u = (sx * px + sy * py + sz * pz) * inv_det;
+      const float qx = sy * e1.z - sz * e1.y;
+      const float qy = sz * e1.x - sx * e1.z;
+      const float qz = sx * e1.y - sy * e1.x;
+      const float v = (d.x * qx + d.y * qy + d.z * qz) * inv_det;
+      const float t = (e2.x * qx + e2.y * qy + e2.z * qz) * inv_det;
+      const bool ok = v0.w > 0.0f && det != 0.0f && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
+                      t > kTMin && t < kTMax;
+      if (ok && t < best_t) {
+        best_t = t;
+        best_id = s_pad + j;
+        best_u = u;
+        best_v = v;
+        tp = {v0.x + u * e1.x + v * e2.x, v0.y + u * e1.y + v * e2.y,
+              v0.z + u * e1.z + v * e2.z};
+      }
+    }
+  }
+}
+
 // ---- the kernel ----
 
-template <bool kAnim>
+template <bool kAnim, bool kTris>
 __global__ void __launch_bounds__(kThreads)
 megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
-           const float* __restrict__ times, int s8, const float* __restrict__ rows, int n_rows,
-           const float* __restrict__ fparams, int width, int height, int sqrt_spp, int spp_local,
-           int n_batches, int batch0, int sample_base, int max_depth, int flags,
-           float* __restrict__ sums, int* __restrict__ traced_out) {
+           const float* __restrict__ times, int s8, const float4* __restrict__ tris, int t8,
+           const float4* __restrict__ tri_boxes, int n_clusters, int cluster_g, int s_pad,
+           const float* __restrict__ rows, int n_rows, const float* __restrict__ fparams,
+           int width, int height, int sqrt_spp, int spp_local, int n_batches, int batch0,
+           int sample_base, int max_depth, int flags, float* __restrict__ sums,
+           int* __restrict__ traced_out) {
+  static_assert(!(kAnim && kTris), "the animated form has no triangles");
   extern __shared__ float4 smem[];
   float* prm = reinterpret_cast<float*>(smem);        // kNumParams floats
   // Static sphere j: tbl[2j] = (c, r), tbl[2j+1].x = k.  Animated:
   // tbl[3j] = (c0, r), tbl[3j+1] = (k0, k1, k2, -), tbl[3j+2] = (dc, -).
   float4* tbl = smem + kNumParams / 4;
+  // Cluster c's box: boxes[2c] = (min, -), boxes[2c+1] = (max, -).
+  float4* boxes = tbl + kStride<kAnim> * s8;
   for (int j = threadIdx.x; j < kNumParams; j += kThreads) prm[j] = fparams[j];
+  if constexpr (kTris) {
+    for (int j = threadIdx.x; j < 2 * n_clusters; j += kThreads) boxes[j] = tri_boxes[j];
+  }
   if constexpr (kAnim) {
     for (int j = threadIdx.x; j < s8; j += kThreads) {
       const float4 dk = dtable[2 * j + 1];
@@ -335,6 +438,12 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
           best_id = j;
         }
       }
+      float bu = 0.0f, bv = 0.0f;
+      V3 tp = {0.0f, 0.0f, 0.0f};
+      if constexpr (kTris) {
+        sweep_tris(tris, t8, boxes, n_clusters, cluster_g, s_pad, o, d, best_t, best_id, bu,
+                   bv, tp);
+      }
       if (best_t >= kTMax) {  // miss: the sky, and the sample ends
         acc = acc + thr * bg;
         break;
@@ -342,16 +451,28 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
       const float* __restrict__ row =
           rows + static_cast<size_t>(min(max(best_id, 0), n_rows - 1)) * kRowWidth;
 
-      // Hit reconstruction, direct world normal (wavefront.reconstruct_hit).
-      const V3 p = {o.x + d.x * best_t, o.y + d.y * best_t, o.z + d.z * best_t};
-      V3 c = load3(row, 44);
-      if constexpr (kAnim) {  // the centre at the sample's time, as swept
-        c = {c.x + tcur * __ldg(row + 49), c.y + tcur * __ldg(row + 50),
-             c.z + tcur * __ldg(row + 51)};
+      // Hit reconstruction (wavefront.reconstruct_hit): a sphere's point
+      // o + t d and its direct world normal, or a triangle's captured point
+      // and lerped normal.
+      const bool is_sphere = !kTris || best_id < s_pad;
+      V3 p;
+      V3 n;
+      if (is_sphere) {
+        p = {o.x + d.x * best_t, o.y + d.y * best_t, o.z + d.z * best_t};
+        V3 c = load3(row, 44);
+        if constexpr (kAnim) {  // the centre at the sample's time, as swept
+          c = {c.x + tcur * __ldg(row + 49), c.y + tcur * __ldg(row + 50),
+               c.z + tcur * __ldg(row + 51)};
+        }
+        const float r = __ldg(row + 47);
+        const float inv_r = 1.0f / (r == 0.0f ? 1.0f : r);
+        n = normalize(v3((p.x - c.x) * inv_r, (p.y - c.y) * inv_r, (p.z - c.z) * inv_r));
+      } else {
+        p = tp;
+        n = normalize(v3(__ldg(row + 49) + bu * __ldg(row + 52) + bv * __ldg(row + 55),
+                         __ldg(row + 50) + bu * __ldg(row + 53) + bv * __ldg(row + 56),
+                         __ldg(row + 51) + bu * __ldg(row + 54) + bv * __ldg(row + 57)));
       }
-      const float r = __ldg(row + 47);
-      const float inv_r = 1.0f / (r == 0.0f ? 1.0f : r);
-      const V3 n = normalize(v3((p.x - c.x) * inv_r, (p.y - c.y) * inv_r, (p.z - c.z) * inv_r));
       const bool front = dot(d, n) < 0.0f;
       const V3 normal = front ? n : -n;
 
@@ -434,26 +555,31 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
   traced_out[pix] = traced;
 }
 
-template <bool kAnim>
-int launch(const void* table8, const void* dtab8, const void* times, int s8, const void* rows,
-           int n_rows, const void* fparams, int width, int height, int sqrt_spp, int spp_local,
-           int n_batches, int batch0, int sample_base, int max_depth, int flags, void* sums,
-           void* traced, void* stream) {
+template <bool kAnim, bool kTris>
+int launch(const void* table8, const void* dtab8, const void* times, int s8, const void* tris12,
+           int t8, const void* tri_boxes, int n_clusters, int cluster_g, int s_pad,
+           const void* rows, int n_rows, const void* fparams, int width, int height,
+           int sqrt_spp, int spp_local, int n_batches, int batch0, int sample_base,
+           int max_depth, int flags, void* sums, void* traced, void* stream) {
   const int n_pix = width * height;
   if (n_pix <= 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem =
-      (kNumParams + 4 * kStride<kAnim> * static_cast<size_t>(s8)) * sizeof(float);
+  const size_t smem = (kNumParams + 4 * kStride<kAnim> * static_cast<size_t>(s8) +
+                       (kTris ? 8 * static_cast<size_t>(n_clusters) : 0)) *
+                      sizeof(float);
   if (smem > 48 * 1024) {  // above the default limit it must be opted into
-    const cudaError_t err = cudaFuncSetAttribute(
-        megakernel<kAnim>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    const cudaError_t err =
+        cudaFuncSetAttribute(megakernel<kAnim, kTris>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int blocks = (n_pix + kThreads - 1) / kThreads;
-  megakernel<kAnim><<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  megakernel<kAnim, kTris><<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(table8), static_cast<const float4*>(dtab8),
-      static_cast<const float*>(times), s8, static_cast<const float*>(rows), n_rows,
-      static_cast<const float*>(fparams), width, height, sqrt_spp, spp_local, n_batches, batch0,
-      sample_base, max_depth, flags, static_cast<float*>(sums), static_cast<int*>(traced));
+      static_cast<const float*>(times), s8, static_cast<const float4*>(tris12), t8,
+      static_cast<const float4*>(tri_boxes), n_clusters, cluster_g, s_pad,
+      static_cast<const float*>(rows), n_rows, static_cast<const float*>(fparams), width, height,
+      sqrt_spp, spp_local, n_batches, batch0, sample_base, max_depth, flags,
+      static_cast<float*>(sums), static_cast<int*>(traced));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -461,24 +587,41 @@ int launch(const void* table8, const void* dtab8, const void* times, int s8, con
 
 // table8: [s8, 8] f32, 16-byte aligned; dtab8: null for a static table,
 // else the [s8, 8] f32 motion rows (16-byte aligned), and times: every
-// batch's shutter time, [>= batch0 + n_batches] f32; rows: [n_rows, 64]
-// f32; fparams: [40] f32 (layout above); sums: [height * width, 3] f32
-// out; traced: [height * width] i32 out.  Launches on `stream` without
-// synchronising and returns cudaGetLastError().
+// batch's shutter time, [>= batch0 + n_batches] f32; tris12: null for no
+// triangles, else the [t8, 12] f32 soup (v0, valid, e1, -, e2, -; 16-byte
+// aligned, not with dtab8), tri_boxes: [n_clusters, 8] f32 cluster boxes
+// (min, -, max, -), cluster_g: triangles per cluster, s_pad: the primitive
+// id of triangle 0; rows: [n_rows, 64] f32; fparams: [40] f32 (layout
+// above); sums: [height * width, 3] f32 out; traced: [height * width] i32
+// out.  Launches on `stream` without synchronising and returns
+// cudaGetLastError().
 extern "C" int megakernel_launch(const void* table8, const void* dtab8, const void* times,
-                                 int s8, const void* rows, int n_rows, const void* fparams,
-                                 int width, int height, int sqrt_spp, int spp_local,
-                                 int n_batches, int batch0, int sample_base, int max_depth,
-                                 int flags, void* sums, void* traced, void* stream) {
+                                 int s8, const void* tris12, int t8, const void* tri_boxes,
+                                 int n_clusters, int cluster_g, int s_pad, const void* rows,
+                                 int n_rows, const void* fparams, int width, int height,
+                                 int sqrt_spp, int spp_local, int n_batches, int batch0,
+                                 int sample_base, int max_depth, int flags, void* sums,
+                                 void* traced, void* stream) {
+  if (tris12 != nullptr) {
+    if (dtab8 != nullptr || tri_boxes == nullptr || cluster_g <= 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch<false, true>(table8, dtab8, times, s8, tris12, t8, tri_boxes, n_clusters,
+                               cluster_g, s_pad, rows, n_rows, fparams, width, height, sqrt_spp,
+                               spp_local, n_batches, batch0, sample_base, max_depth, flags, sums,
+                               traced, stream);
+  }
   if (dtab8 != nullptr) {
     if (times == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    return launch<true>(table8, dtab8, times, s8, rows, n_rows, fparams, width, height,
-                        sqrt_spp, spp_local, n_batches, batch0, sample_base, max_depth, flags,
-                        sums, traced, stream);
+    return launch<true, false>(table8, dtab8, times, s8, tris12, t8, tri_boxes, n_clusters,
+                               cluster_g, s_pad, rows, n_rows, fparams, width, height, sqrt_spp,
+                               spp_local, n_batches, batch0, sample_base, max_depth, flags, sums,
+                               traced, stream);
   }
-  return launch<false>(table8, dtab8, times, s8, rows, n_rows, fparams, width, height,
-                       sqrt_spp, spp_local, n_batches, batch0, sample_base, max_depth, flags,
-                       sums, traced, stream);
+  return launch<false, false>(table8, dtab8, times, s8, tris12, t8, tri_boxes, n_clusters,
+                              cluster_g, s_pad, rows, n_rows, fparams, width, height, sqrt_spp,
+                              spp_local, n_batches, batch0, sample_base, max_depth, flags, sums,
+                              traced, stream);
 }
 
 extern "C" const char* megakernel_error_string(int err) {

@@ -101,6 +101,11 @@ class SceneStatic:
     # Set by the Renderer once every sphere has a world-space table
     # (uniform scale), as in the JAX package.
     sphere_world_mode: bool = False
+    has_spheres: bool = False
+    num_triangles: int = 0   # real triangles (the soup is padded beyond)
+    # Triangles per contiguous cluster of the soup
+    # (models/sphere_order.apply_triangle_order); 0 = file order.
+    tri_cluster_g: int = 0
 
 
 def _scene_numpy(cs: CompiledScene) -> dict:
@@ -179,6 +184,9 @@ def upload_scene(cs: CompiledScene, device):
         height=int(cs.render.height),
         use_fat_shading=cs.shade_rows is not None,
         num_spheres=int(cs.num_spheres),
+        has_spheres=bool(cs.num_spheres > 0),
+        num_triangles=int(cs.num_triangles),
+        tri_cluster_g=int(cs.tri_cluster_g),
     )
     return arrays, static
 

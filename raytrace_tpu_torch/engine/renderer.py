@@ -10,22 +10,26 @@ started there resumes here.
 
 Two paths render a batch, as in the JAX package: the fused bounce kernel
 (ops/megakernel.py) for every scene its gate admits, and the torch
-wavefront (engine/wavefront.py, with the sphere-sweep kernel) for the
-rest.  ``use_megakernel`` picks: None takes the fused kernel on a CUDA
-device when the gate admits the scene and the wavefront on the CPU; True
-takes the fused path wherever the gate admits the scene (on the CPU its
-plain version); False always takes the wavefront.
+wavefront (engine/wavefront.py, with the sphere and triangle sweep
+kernels) for the rest.  ``use_megakernel`` picks: None takes the fused
+kernel on a CUDA device when the gate admits the scene and the wavefront
+on the CPU; True takes the fused path wherever the gate admits the scene
+(on the CPU its plain version); False always takes the wavefront.
 
 ``path`` names what the scene gets, from facts about it:
 
 - ``"fused"``: a static scene; a chunk of batches is one launch.
 - ``"fused_anim"``: spheres that move on straight lines at a constant
-  radius; one geometry (the spheres at shutter time 0 and their motion)
-  serves every batch, the kernel moves them to each batch's time, and a
-  chunk is one launch.
-- ``"fused_per_batch"``: other motion; one launch per batch, each from
-  that batch's world table (the JAX renderer's ``step`` scan).
+  radius, and no triangles; one geometry (the spheres at shutter time 0
+  and their motion) serves every batch, the kernel moves them to each
+  batch's time, and a chunk is one launch.
+- ``"fused_per_batch"``: other motion, and any motion in a scene with
+  triangles; one launch per batch, each from that batch's world table and
+  soup (the JAX renderer's ``step`` scan).
 - ``"wavefront"``: per-batch world tables, one batch at a time.
+
+A static scene's triangle soup goes to world space once; an animated
+one's at every batch's time.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ from ..ops.spheres import world_sphere_anim_tables, world_sphere_tables
 from ..tools.chacha import ChaCha20Rng
 from ..utils.image import write_png
 from .arrays import SceneStatic, upload_scene
-from .wavefront import make_trace_fn, prepare_batch, render_tile
+from .wavefront import make_trace_fn, prepare_batch, prepare_tris, render_tile
 
 # The reference seeds its host RNG with this value (render_engine.rs:116);
 # it drives the batch-time jitter stream.
@@ -54,6 +58,12 @@ HOST_SEED = 485_674_845_675_491
 # Rays per tile: a whole 1200x675x4 frame is one tile, which fills the card
 # and keeps the host's per-bounce loop overhead to one pass per frame.
 RAY_BUDGET = 1 << 22
+
+# Triangles a scene may have when the fused kernel does not take it in
+# clusters: the JAX Renderer's dense-sweep ceiling (tri_fast_max,
+# raytrace_tpu/engine/renderer.py:341-350); above it, and above the fused
+# kernel's own ceiling, scenes wait for the big-mesh path.
+DENSE_SWEEP_MAX_TRIANGLES = 8192
 
 
 def get_batch_ray_times(sample_batches: int,
@@ -71,11 +81,20 @@ def get_batch_ray_times(sample_batches: int,
     return np.asarray(out, np.float32)
 
 
+def triangle_ceiling(static: SceneStatic) -> int:
+    """The most triangles the port renders a scene with: the fused kernel's
+    ceiling for a clustered soup when its gate admits the scene, else the
+    dense sweep's (the JAX Renderer's rule, decided by the one gate,
+    ops/megakernel.megakernel_supported)."""
+    if static.tri_cluster_g > 0 and megakernel.megakernel_supported(static):
+        return megakernel.MAX_TRIANGLES
+    return DENSE_SWEEP_MAX_TRIANGLES
+
+
 def unsupported_feature(static: SceneStatic) -> Optional[str]:
     """Why this port cannot render the scene yet, naming the ROADMAP
-    queue 1 item that will add it; None when it is inside the slice."""
-    if static.has_tris:
-        return "triangles (ROADMAP queue 1: 'Triangles')"
+    queue 1 item that will add it; None when it is inside the slice.
+    ``static`` is the Renderer's, with ``sphere_world_mode`` set."""
     if static.has_lights:
         return "lights (ROADMAP queue 1: 'NEE with lights')"
     if static.flags.has_image:
@@ -85,6 +104,10 @@ def unsupported_feature(static: SceneStatic) -> Optional[str]:
     if not static.use_fat_shading:
         return ("materials beyond the fat-row encoding (ROADMAP queue 1: "
                 "'Registry shading')")
+    ceiling = triangle_ceiling(static)
+    if static.num_triangles > ceiling:
+        return (f"{static.num_triangles} triangles, above the {ceiling} "
+                f"the port sweeps (ROADMAP queue 1: 'Big meshes')")
     return None
 
 
@@ -121,9 +144,6 @@ class Renderer:
                 "CUDA is not available; rendering on the CPU must be asked "
                 "for with device='cpu'")
         self.scene, self.static = upload_scene(compiled, self.device)
-        missing = unsupported_feature(self.static)
-        if missing is not None:
-            raise NotImplementedError(f"not ported yet: {missing}")
         self.batch_times = get_batch_ray_times(compiled.render.sample_batches)
         # World-space sphere tables per batch time (host f64 -> f32).
         self.sphere_tables = world_sphere_tables(compiled, self.batch_times)
@@ -132,6 +152,9 @@ class Renderer:
                 "not ported yet: spheres with non-uniform scale (ROADMAP "
                 "queue 1: 'Object-space spheres')")
         self.static = dataclasses.replace(self.static, sphere_world_mode=True)
+        missing = unsupported_feature(self.static)
+        if missing is not None:
+            raise NotImplementedError(f"not ported yet: {missing}")
         self.compiled = compiled
         if use_megakernel is None:
             use_megakernel = self.device.type == "cuda"
@@ -140,9 +163,16 @@ class Renderer:
         # Every batch's shutter time, read by the animated fused kernel.
         self.batch_times_dev = torch.tensor(self.batch_times,
                                             device=self.device)
+        # A static soup in world space, built once (at the first batch's
+        # time, where the JAX package's first chunk builds it).
+        self._tris = None
+        if self.static.has_tris and not self.static.any_animated:
+            self._tris = prepare_tris(self.static, self.scene,
+                                      self.batch_times_dev[0])
         # The animated fused kernel's one geometry, built once.
         self._anim_geom = None
-        if self.use_megakernel and self.static.any_animated:
+        if (self.use_megakernel and self.static.any_animated
+                and not self.static.has_tris):
             tables = world_sphere_anim_tables(compiled)
             if tables is not None:
                 tab0, dtab8 = (torch.tensor(t, device=self.device)
@@ -183,7 +213,11 @@ class Renderer:
         if self._anim_geom is not None:
             return self._anim_geom
         sph_table = torch.tensor(self.sphere_tables[batch], device=self.device)
-        return prepare_batch(self.static, self.scene, sph_table)
+        tris = self._tris
+        if self.static.has_tris and tris is None:
+            tris = prepare_tris(self.static, self.scene,
+                                self.batch_times_dev[batch])
+        return prepare_batch(self.static, self.scene, sph_table, tris=tris)
 
     def _record(self, batches: int, rays: int, t0: float) -> None:
         dt = _time.perf_counter() - t0
@@ -206,7 +240,7 @@ class Renderer:
                 times=self.batch_times_dev)
             rays = int(traced.sum(dtype=torch.int64))
         else:
-            trace = make_trace_fn(geom)
+            trace = make_trace_fn(self.static, self.scene, geom)
             tiles, rays = [], 0
             for row0 in range(0, H, self.rows_per_tile):
                 tile, tr = render_tile(

@@ -1,5 +1,6 @@
-"""The wavefront path-tracing loop for analytic spheres in world space
-(raytrace_tpu/engine/wavefront.py:87-871, the XLA wavefront configuration).
+"""The wavefront path-tracing loop for analytic spheres in world space and
+triangle soups (raytrace_tpu/engine/wavefront.py:87-871, the XLA wavefront
+configuration with the packed triangle tables).
 
 One sample batch is one geometry prepare plus one ``render_tile`` per row
 tile.  A tile generates its pixel x sample wavefront and bounces it until
@@ -8,9 +9,11 @@ of ray_gen.glsl:457-541 across the whole wavefront).  The loop runs on the
 host, one bounce per iteration; each iteration reads the alive count once,
 which both ends the loop and drives the tail compaction.
 
-Covered here: spheres in world mode with direct normals, fat-row shading,
-no triangles and no lights; animated spheres through the Renderer's
-per-batch world tables.  The Renderer rejects every other scene.
+Covered here: spheres in world mode with direct normals, triangles swept
+densely (the kernel K2) with their hit point and normal rebuilt from the
+packed position and attribute tables, fat-row shading and no lights;
+animated spheres and instances through per-batch geometry.  The Renderer
+rejects every other scene.
 """
 
 from __future__ import annotations
@@ -22,8 +25,10 @@ import torch
 from ..models.compile import SKY_SOLID, SKY_VERTICAL_GRADIENT
 
 from ..ops import camera as cam_ops
-from ..ops import nee, rng, shading, sphere_sweep, vec3
-from ..ops.intersect import T_MAX
+from ..ops import (megakernel, nee, rng, shading, sphere_sweep, transforms,
+                   tri_sweep, vec3)
+from ..ops.intersect import T_MAX, Hit
+from ..ops.spheres import SphereHit
 from ..ops.vec3 import V3
 from .arrays import SceneArrays, SceneStatic
 
@@ -31,9 +36,12 @@ from .arrays import SceneArrays, SceneStatic
 class RawHit(NamedTuple):
     """Closest-hit output of the trace sweep."""
 
-    missed: torch.Tensor  # [R] bool
-    t: torch.Tensor       # [R] f32
-    prim: torch.Tensor    # [R] int32 primitive id (0 on a miss)
+    missed: torch.Tensor     # [R] bool
+    t: torch.Tensor          # [R] f32
+    prim: torch.Tensor       # [R] int32: sphere i | s_pad + triangle j
+    is_sphere: torch.Tensor  # [R] bool
+    bu: torch.Tensor         # [R] f32 triangle barycentric u (0 for spheres)
+    bv: torch.Tensor         # [R] f32
 
 
 class HitRecord(NamedTuple):
@@ -45,12 +53,22 @@ class BatchGeometry(NamedTuple):
     """Per-batch world-space geometry.  For the fused kernel's animated
     variant the table and rows hold the spheres at shutter time 0 and
     ``sph_dtab8`` their linear motion (ops/spheres.world_sphere_anim_tables),
-    so one geometry serves every batch."""
+    so one geometry serves every batch.  The triangle fields are None for
+    a scene without triangles (see ``prepare_tris``)."""
 
     sph_table8: torch.Tensor  # [S8, 8] the sweep kernel's table
     prim_rows: torch.Tensor   # [P, 64] combined per-primitive rows
     # [S8, 8] motion rows (dc xyz, -, k1, k2), or None for a static table
     sph_dtab8: Optional[torch.Tensor] = None
+    world_p: Optional[torch.Tensor] = None      # [T, 3, 3] world soup
+    world_n: Optional[torch.Tensor] = None      # [T, 3, 3] unnormalised
+    tri_table16: Optional[torch.Tensor] = None  # [T8, 16] ops/tri_sweep
+    # [T8, 16] n0, n1 - n0, n2 - n0, uv0, uv1 - uv0, uv2 - uv0, pad
+    tri_attr16: Optional[torch.Tensor] = None
+    # The fused kernel's triangle tables (ops/megakernel.py): [T8, 12]
+    # v0, e1, e2 each padded to four floats, and [C, 8] cluster boxes.
+    tri_table12: Optional[torch.Tensor] = None
+    tri_boxes: Optional[torch.Tensor] = None
 
 
 def _compact_size(R: int) -> int:
@@ -85,18 +103,61 @@ def _background_v3(static: SceneStatic, scene: SceneArrays) -> V3:
     return V3(col[0], col[1], col[2])
 
 
+def tri_attr_table(world_n: torch.Tensor, tri_uv: torch.Tensor,
+                   T8: int) -> torch.Tensor:
+    """[T8, 16] attribute rows: n0, n1 - n0, n2 - n0, uv0, uv1 - uv0,
+    uv2 - uv0, pad (raytrace_tpu/engine/wavefront.py:821-838)."""
+    T = world_n.shape[0]
+    n0 = world_n[:, 0, :]
+    uv0 = tri_uv[:, 0, :]
+    att = torch.zeros((T8, 16), dtype=torch.float32, device=world_n.device)
+    att[:T, 0:3] = n0
+    att[:T, 3:6] = world_n[:, 1, :] - n0
+    att[:T, 6:9] = world_n[:, 2, :] - n0
+    att[:T, 9:11] = uv0
+    att[:T, 11:13] = tri_uv[:, 1, :] - uv0
+    att[:T, 13:15] = tri_uv[:, 2, :] - uv0
+    return att
+
+
+def prepare_tris(static: SceneStatic, scene: SceneArrays,
+                 batch_time: torch.Tensor) -> dict:
+    """The triangle fields of a BatchGeometry for one batch time (a 0-dim
+    f32 tensor): the instances go to that time, the soup to world space,
+    then the packed position and attribute tables and the fused kernel's
+    tables (raytrace_tpu/engine/wavefront.py:779-839).  A static scene
+    builds them once."""
+    mats = transforms.interpolate_instances(scene.inst_t0, scene.inst_t1,
+                                            batch_time)
+    world_p, world_n = transforms.transform_soup(scene.tri_p, scene.tri_n,
+                                                 scene.tri_inst, mats)
+    table16 = tri_sweep.pack_tri_table(world_p, static.num_triangles)
+    T8 = table16.shape[0]
+    return dict(
+        world_p=world_p, world_n=world_n, tri_table16=table16,
+        tri_attr16=tri_attr_table(world_n, scene.tri_uv, T8),
+        tri_table12=megakernel.tri_table12(table16),
+        tri_boxes=megakernel.cluster_boxes(
+            table16, static.num_triangles, megakernel.tri_group(static, T8)))
+
+
 def prepare_batch(static: SceneStatic, scene: SceneArrays,
                   sph_table: torch.Tensor,
-                  sph_dtab: Optional[torch.Tensor] = None) -> BatchGeometry:
-    """Kernel table and fat rows for one batch.
+                  sph_dtab: Optional[torch.Tensor] = None,
+                  tris: Optional[dict] = None) -> BatchGeometry:
+    """Kernel tables and fat rows for one batch.
 
     sph_table: [S, 5] world sphere rows at the batch time
     (ops/spheres.world_sphere_tables), or at shutter time 0 when
     ``sph_dtab`` ([S8, 8], ops/spheres.world_sphere_anim_tables) gives the
-    spheres' linear motion.  Rows of ``prim_rows``: [0:32] shading row |
+    spheres' linear motion.  A scene with triangles takes ``tris``, the
+    fields ``prepare_tris`` built for the batch's time.  Rows of
+    ``prim_rows``: [0:32] shading row |
     [44:47] world center | [47] world radius | [48] instance id | [49:52]
-    the center's motion delta when ``sph_dtab`` is given; the rest stay
-    zero (raytrace_tpu/engine/wavefront.py:845-871, direct-normal branch).
+    the center's motion delta when ``sph_dtab`` is given; a triangle's row
+    holds its normal rows n0, dn1, dn2 in [49:58] (the JAX megakernel's
+    _SLOT_TRIN); the rest stay zero
+    (raytrace_tpu/engine/wavefront.py:845-871, direct-normal branch).
     """
     s_pad = scene.sph_center.shape[0]
     P = scene.shade_rows.shape[0]
@@ -109,30 +170,90 @@ def prepare_batch(static: SceneStatic, scene: SceneArrays,
     rows[s_pad:, 48] = scene.tri_inst.to(torch.float32)
     if sph_dtab is not None:
         rows[:s_pad, 49:52] = sph_dtab[:s_pad, 0:3]
+    if static.has_tris:
+        if tris is None:
+            raise ValueError("a scene with triangles needs prepare_tris's "
+                             "tables")
+        att = tris["tri_attr16"]
+        T = min(att.shape[0], P - s_pad)
+        rows[s_pad:s_pad + T, 49:58] = att[:T, 0:9]
     return BatchGeometry(sph_table8=sphere_sweep.pad_table8(sph_table),
-                         prim_rows=rows, sph_dtab8=sph_dtab)
+                         prim_rows=rows, sph_dtab8=sph_dtab, **(tris or {}))
 
 
-def make_trace_fn(geom: BatchGeometry) -> Callable:
-    """trace(o, d, alive) -> RawHit: the sphere sweep for this batch."""
+def combine_hits(sph: Optional[SphereHit], tri: Optional[Hit], s_pad: int,
+                 ties_to_spheres: bool = False) -> RawHit:
+    """The nearer of the sphere and triangle closest hits (either may be
+    None when the scene has no such primitive).  At equal t the triangle
+    wins, as in the JAX wavefront, or the sphere with ``ties_to_spheres``,
+    as in the fused kernel, which sweeps the spheres first."""
+    if tri is None:
+        zeros = torch.zeros_like(sph.t)
+        return RawHit(missed=sph.t >= T_MAX, t=sph.t,
+                      prim=torch.clamp_min(sph.sph, 0),
+                      is_sphere=torch.ones_like(sph.t, dtype=torch.bool),
+                      bu=zeros, bv=zeros)
+    tri_prim = s_pad + torch.clamp_min(tri.tri, 0)
+    if sph is None:
+        return RawHit(missed=tri.t >= T_MAX, t=tri.t, prim=tri_prim,
+                      is_sphere=torch.zeros_like(tri.t, dtype=torch.bool),
+                      bu=tri.u, bv=tri.v)
+    sphere_wins = ~(tri.t < sph.t) if ties_to_spheres else sph.t < tri.t
+    t = torch.minimum(tri.t, sph.t)
+    return RawHit(missed=t >= T_MAX, t=t,
+                  prim=torch.where(sphere_wins, torch.clamp_min(sph.sph, 0),
+                                   tri_prim),
+                  is_sphere=sphere_wins,
+                  bu=torch.where(sphere_wins, 0.0, tri.u),
+                  bv=torch.where(sphere_wins, 0.0, tri.v))
+
+
+def make_trace_fn(static: SceneStatic, scene: SceneArrays,
+                  geom: BatchGeometry) -> Callable:
+    """trace(o, d, alive) -> RawHit for this batch: the triangle sweep
+    (K2), then the sphere sweep (K1), each only where the scene has such
+    primitives (raytrace_tpu/engine/wavefront.py:138-232)."""
+    s_pad = scene.sph_center.shape[0]
 
     def trace(o: V3, d: V3, alive) -> RawHit:
-        hit = sphere_sweep.intersect_spheres_sweep(o, d, geom.sph_table8,
-                                                   alive)
-        return RawHit(missed=hit.t >= T_MAX, t=hit.t,
-                      prim=torch.clamp_min(hit.sph, 0))
+        tri = (tri_sweep.intersect_tris_sweep(o, d, geom.tri_table16, alive)
+               if static.has_tris else None)
+        sph = (sphere_sweep.intersect_spheres_sweep(o, d, geom.sph_table8,
+                                                    alive)
+               if static.has_spheres or not static.has_tris else None)
+        return combine_hits(sph, tri, s_pad)
 
     return trace
 
 
-def reconstruct_hit(raw: RawHit, ray_o: V3, ray_d: V3, rows) -> HitRecord:
-    """RawHit → HitRecord from the fat rows: the direct sphere normal
-    (hit - c_world) / r_world (raytrace_tpu/engine/wavefront.py:355-365)."""
+def reconstruct_hit(raw: RawHit, ray_o: V3, ray_d: V3, rows,
+                    geom: BatchGeometry, s_pad: int) -> HitRecord:
+    """RawHit → HitRecord.  A sphere's normal is the direct one from the
+    fat rows, (hit - c_world) / r_world; a triangle's hit point is
+    v0 + u e1 + v e2 from the position table and its normal the
+    barycentric lerp of the attribute rows; the pair is chosen per ray,
+    then normalised (raytrace_tpu/engine/wavefront.py:321-341, :355-365,
+    :388-399)."""
     c = V3(rows[:, 44], rows[:, 45], rows[:, 46])
     r = rows[:, 47]
     p = ray_o + raw.t * ray_d
     inv_r = 1.0 / torch.where(r == 0.0, 1.0, r)
     n = V3((p.x - c.x) * inv_r, (p.y - c.y) * inv_r, (p.z - c.z) * inv_r)
+    if geom.tri_table16 is not None:
+        tri = torch.clamp_min(raw.prim - s_pad, 0)
+        pos = geom.tri_table16[torch.clamp(tri, 0,
+                                           geom.tri_table16.shape[0] - 1)]
+        att = geom.tri_attr16[torch.clamp(tri, 0,
+                                          geom.tri_attr16.shape[0] - 1)]
+        bu, bv = raw.bu, raw.bv
+        tp = V3(pos[:, 0] + bu * pos[:, 3] + bv * pos[:, 6],
+                pos[:, 1] + bu * pos[:, 4] + bv * pos[:, 7],
+                pos[:, 2] + bu * pos[:, 5] + bv * pos[:, 8])
+        tn = V3(att[:, 0] + bu * att[:, 3] + bv * att[:, 6],
+                att[:, 1] + bu * att[:, 4] + bv * att[:, 7],
+                att[:, 2] + bu * att[:, 5] + bv * att[:, 8])
+        p = vec3.where(raw.is_sphere, p, tp)
+        n = vec3.where(raw.is_sphere, n, tn)
     return HitRecord(p=p, n=vec3.normalize(n))
 
 
@@ -149,7 +270,7 @@ class _Wave(NamedTuple):
 
 
 def _bounce(static: SceneStatic, bg: V3, trace_fn, geom: BatchGeometry,
-            w: _Wave) -> _Wave:
+            s_pad: int, w: _Wave) -> _Wave:
     """One bounce of every ray in the wave (ray_gen.glsl:467-541)."""
     raw = trace_fn(w.ray_o, w.ray_d, w.alive)
 
@@ -163,7 +284,7 @@ def _bounce(static: SceneStatic, bg: V3, trace_fn, geom: BatchGeometry,
     P = geom.prim_rows.shape[0]
     rows = geom.prim_rows[torch.clamp(prim, 0, P - 1)]
 
-    rec = reconstruct_hit(raw, w.ray_o, w.ray_d, rows)
+    rec = reconstruct_hit(raw, w.ray_o, w.ray_d, rows, geom, s_pad)
     front = vec3.dot(w.ray_d, rec.n) < 0.0   # common.glsl:239-241
     normal = vec3.where(front, rec.n, -rec.n)
 
@@ -229,6 +350,7 @@ def bounce_wavefront(static: SceneStatic, scene: SceneArrays,
               alive=torch.ones(R, dtype=torch.bool, device=dev))
     out = [zeros.clone(), zeros.clone(), zeros.clone()]
     bg = _background_v3(static, scene)
+    s_pad = scene.sph_center.shape[0]
     sizes = _compact_schedule(R)
 
     def flush(w: _Wave) -> None:
@@ -255,7 +377,7 @@ def bounce_wavefront(static: SceneStatic, scene: SceneArrays,
         rays_traced += n_alive
         if counts is not None:
             counts.index_add_(0, w.idx, w.alive.to(torch.int32))
-        w = _bounce(static, bg, trace_fn, geom, w)
+        w = _bounce(static, bg, trace_fn, geom, s_pad, w)
     flush(w)
     return V3(*out), rays_traced
 

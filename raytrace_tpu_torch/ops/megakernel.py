@@ -8,12 +8,18 @@ sample order and summed, so the result is the per-pixel radiance sums and
 the per-pixel bounce counts.  ``render_tile_mega`` is the one entry point:
 for tensors on the CPU it runs the plain version, for CUDA tensors it
 launches the kernel on the current stream, or raises.  ``LAUNCHES`` counts
-kernel launches and ``ANIM_LAUNCHES`` those of the animated form, so a run
-can show that its main path went through the kernel.
+kernel launches, ``ANIM_LAUNCHES`` and ``TRI_LAUNCHES`` those of the
+animated and the triangle forms, so a run can show that its main path
+went through the kernel.
 
-The kernel covers spheres in world space with direct normals, fat-row
-shading, no lights, no triangles and no image or noise textures;
-``megakernel_supported`` is that gate, decided from facts about the scene.
+The kernel covers spheres in world space with direct normals, triangle
+soups in world space, fat-row shading, no lights and no image or noise
+textures; ``megakernel_supported`` is that gate, decided from facts about
+the scene.  Triangles take the kernel's third form (``MegaConfig.tris``):
+the soup's table (``tri_table12``) and its cluster boxes
+(``cluster_boxes``) come with the batch's geometry, and the kernel tests
+the triangles of each cluster whose box its ray may hit first, which
+gives the dense triangle sweep's closest hit (ops/tri_sweep.py).
 Animated spheres take one of two forms.  When every sphere moves on a
 straight line at a constant radius (ops/spheres.world_sphere_anim_tables),
 the geometry holds the spheres at shutter time 0 and their motion
@@ -37,13 +43,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import _build, sphere_sweep, vec3
-from .intersect import T_MAX
+from . import _build, sphere_sweep, tri_sweep, vec3
+from .intersect import T_MAX, T_MIN, Hit
+from .spheres import SphereHit
 from .vec3 import V3
 
-# Launches of the kernel, of either form, and of its animated form alone.
+# Launches of the kernel, of any form, and of its animated and triangle
+# forms alone.
 LAUNCHES = 0
 ANIM_LAUNCHES = 0
+TRI_LAUNCHES = 0
 
 _N_PARAMS = 40  # csrc/megakernel.cu kNumParams
 _USE_DOF, _HAS_CHECKER, _HAS_EMISSIVE = 1, 2, 4
@@ -57,6 +66,17 @@ _USE_DOF, _HAS_CHECKER, _HAS_EMISSIVE = 1, 2, 4
 _SMEM_BYTES = 232_448
 MAX_SPHERES = 4096
 MAX_SPHERES_ANIM = min(MAX_SPHERES, (_SMEM_BYTES - 4 * _N_PARAMS) // 48)
+
+# Triangles the kernel takes: a clustered soup (models/sphere_order.
+# apply_triangle_order) of at most MAX_TRI_CLUSTERS clusters, each box 32 B
+# of shared memory beside the sphere table, or a soup in file order of at
+# most MAX_TRIANGLES_DENSE, swept as one cluster (the JAX gate's ceilings,
+# raytrace_tpu/ops/megakernel.py:2756).
+MAX_TRI_CLUSTERS = 128
+MAX_TRIANGLES = 16384
+MAX_TRIANGLES_DENSE = 2048
+_BIGF = 3.0e37  # an empty cluster's box: a point the pretest never passes
+_SLAB_EPS = 1e-30  # the pretest keeps |d| at least this in 1 / d
 
 
 class MegaConfig(NamedTuple):
@@ -74,36 +94,125 @@ class MegaConfig(NamedTuple):
     has_checker: bool
     has_emissive: bool
     anim: bool
-    S8: int
+    tris: bool
+    S8: int         # sphere table rows; also the primitive id of triangle 0
     P: int
+    T8: int         # triangle table rows (0 without triangles)
+    tri_g: int      # triangles per cluster
+    n_clusters: int
 
 
 def megakernel_supported(static) -> bool:
     """Scenes the fused kernel covers: spheres in world space (uniform
-    scale, so the world table holds), fat-row shading, no triangles, no
-    lights, no image or noise textures, and at most MAX_SPHERES spheres
-    (MAX_SPHERES_ANIM when they move).  Animated scenes are admitted under
-    the JAX package's conditions for its fused animated kernel
-    (raytrace_tpu/engine/renderer.py:468-472).  Every other scene renders
-    on the wavefront."""
+    scale, so the world table holds), fat-row shading, no lights, no image
+    or noise textures, at most MAX_SPHERES spheres (MAX_SPHERES_ANIM when
+    they move), and at most MAX_TRIANGLES triangles in clusters or
+    MAX_TRIANGLES_DENSE in file order (raytrace_tpu/ops/megakernel.py:
+    2743-2785).  Animated scenes are admitted under the JAX package's
+    conditions for its fused animated kernel (raytrace_tpu/engine/
+    renderer.py:468-472).  Every other scene renders on the wavefront.
+    The Renderer's triangle ceiling reads this gate too."""
     f = static.flags
     cap = MAX_SPHERES_ANIM if static.any_animated else MAX_SPHERES
-    return (static.use_fat_shading and static.sphere_world_mode
-            and not (static.has_tris or static.has_lights
-                     or f.has_image or f.has_noise)
-            and static.num_spheres <= cap)
+    tri_max = (MAX_TRIANGLES if static.tri_cluster_g > 0
+               else MAX_TRIANGLES_DENSE)
+    return (static.use_fat_shading
+            and (static.sphere_world_mode or not static.has_spheres)
+            and not (static.has_lights or f.has_image or f.has_noise)
+            and static.num_spheres <= cap
+            and static.num_triangles <= tri_max)
+
+
+def tri_group(static, T8: int) -> int:
+    """Triangles per cluster of the kernel's traversal: the soup's own
+    cluster size, or the whole soup as one cluster when it keeps its file
+    order."""
+    return static.tri_cluster_g if static.tri_cluster_g > 0 else T8
+
+
+def tri_table12(table16: torch.Tensor) -> torch.Tensor:
+    """[T8, 16] triangle table (ops/tri_sweep.pack_tri_table) → the
+    kernel's [T8, 12]: three float4 a triangle, (v0, valid), (e1, 0),
+    (e2, 0)."""
+    out = torch.zeros((table16.shape[0], 12), dtype=torch.float32,
+                      device=table16.device)
+    out[:, 0:3] = table16[:, 0:3]
+    out[:, 3] = table16[:, 9]
+    out[:, 4:7] = table16[:, 3:6]
+    out[:, 8:11] = table16[:, 6:9]
+    return out
+
+
+def cluster_boxes(table16: torch.Tensor, num_real: int,
+                  G: int) -> torch.Tensor:
+    """[C, 8] boxes (min xyz, 0, max xyz, 0) of the contiguous G-triangle
+    clusters of the soup's first ``num_real`` rows, C = ceil(num_real / G),
+    in f32: the min and max over each cluster's valid vertices v0, v0 + e1,
+    v0 + e2, widened by 1e-5 + 1e-5 max(|min|, |max|)
+    (raytrace_tpu/ops/megakernel.py:2442-2464).  A cluster without a valid
+    triangle gets the point box at (_BIGF, _BIGF, _BIGF), far beyond T_MAX,
+    which the pretest never passes (the JAX kernel's min > max box passes
+    the slab test, whose min/max swap makes it the whole space, and its
+    triangles then never hit)."""
+    T8 = table16.shape[0]
+    C = max(1, -(-num_real // G))
+    grid = torch.zeros((C * G, 10), dtype=torch.float32,
+                       device=table16.device)
+    take = min(C * G, T8)
+    grid[:take] = table16[:take, 0:10]
+    g = grid.reshape(C, G, 10)
+    v0 = g[..., 0:3]
+    p1 = v0 + g[..., 3:6]
+    p2 = v0 + g[..., 6:9]
+    valid = g[..., 9:10] > 0.0
+    mn = torch.where(valid, torch.minimum(torch.minimum(v0, p1), p2),
+                     _BIGF).amin(dim=1)
+    mx = torch.where(valid, torch.maximum(torch.maximum(v0, p1), p2),
+                     -_BIGF).amax(dim=1)
+    ipad = 1e-5 + 1e-5 * torch.maximum(mn.abs(), mx.abs())
+    anyv = valid[:, :, 0].any(dim=1, keepdim=True)
+    out = torch.zeros((C, 8), dtype=torch.float32, device=table16.device)
+    out[:, 0:3] = torch.where(anyv, mn - ipad, _BIGF)
+    out[:, 4:7] = torch.where(anyv, mx + ipad, _BIGF)
+    return out
+
+
+def cluster_pretest(o: V3, d: V3, boxes: torch.Tensor,
+                    best_t: torch.Tensor) -> torch.Tensor:
+    """[C, R] bool: the kernel's slab pretest of every ray against every
+    cluster box, given each ray's best t so far; a cluster that fails
+    cannot hold a hit closer than best_t (csrc/megakernel.cu sweep_tris,
+    raytrace_tpu/ops/megakernel.py:1262-1280)."""
+    def inv(x):
+        return 1.0 / torch.where(x.abs() < _SLAB_EPS,
+                                 torch.where(x < 0.0, -_SLAB_EPS, _SLAB_EPS),
+                                 x)
+
+    te = tx = None
+    for ax, (oa, da) in enumerate(zip(o, d)):
+        iv = inv(da)
+        a0 = (boxes[:, ax:ax + 1] - oa) * iv
+        a1 = (boxes[:, 4 + ax:5 + ax] - oa) * iv
+        tn, tf = torch.minimum(a0, a1), torch.maximum(a0, a1)
+        te = tn if te is None else torch.maximum(te, tn)
+        tx = tf if tx is None else torch.minimum(tx, tf)
+    return (te <= tx) & (tx > T_MIN) & (te < best_t * 1.0001 + 1e-4)
 
 
 def make_config(static, geom, use_dof: bool, n_batches: int) -> MegaConfig:
     spp = static.sqrt_spp ** 2
+    tris = geom.tri_table12 is not None
+    T8 = geom.tri_table12.shape[0] if tris else 0
     return MegaConfig(
         width=static.width, height=static.height, sqrt_spp=static.sqrt_spp,
         spp=spp, spp_local=spp, n_batches=int(n_batches),
         max_depth=static.max_ray_depth, use_dof=bool(use_dof),
         has_checker=static.flags.has_checker,
         has_emissive=static.flags.has_emissive,
-        anim=geom.sph_dtab8 is not None,
-        S8=geom.sph_table8.shape[0], P=geom.prim_rows.shape[0])
+        anim=geom.sph_dtab8 is not None, tris=tris,
+        S8=geom.sph_table8.shape[0], P=geom.prim_rows.shape[0], T8=T8,
+        tri_g=tri_group(static, T8) if tris else 0,
+        n_clusters=geom.tri_boxes.shape[0] if tris else 0)
 
 
 def _float_params(cfg: MegaConfig, static, scene, cam) -> torch.Tensor:
@@ -145,34 +254,42 @@ def megakernel_reference(static, scene, geom, cam, batch0: int,
                          use_dof: bool, times=None):
     """The plain version of the kernel: (sums [H, W, 3] f32, traced
     [H, W] int32).  Each batch's pixel x sample rays go through the
-    wavefront bounce loop with the plain sphere sweep (not the K1 kernel);
-    a pixel's samples are then summed in sample order, batch after batch,
-    as the kernel sums them.  An animated geometry is moved to each
+    wavefront bounce loop with the plain sphere sweep (not the K1 kernel)
+    and, for a soup, the plain dense triangle sweep over the soup in its
+    stored order (not K2), the sphere keeping the hit at equal t as in the
+    kernel; a pixel's samples are then summed in sample order, batch after
+    batch, as the kernel sums them.  An animated geometry is moved to each
     batch's time, ``times[batch0 + b]``, first."""
-    from ..engine.wavefront import RawHit, bounce_wavefront, primary_rays
+    from ..engine.wavefront import (RawHit, bounce_wavefront, combine_hits,
+                                    primary_rays)
 
     H, W = static.height, static.width
     spp = static.sqrt_spp ** 2
     dev = geom.sph_table8.device
+    s_pad = scene.sph_center.shape[0]
+
+    def trace(o: V3, d: V3, alive, g) -> RawHit:
+        t, ids = sphere_sweep.sphere_sweep_reference(o, d, g.sph_table8)
+        sph = SphereHit(t=torch.where(alive, t, T_MAX),
+                        sph=torch.where(alive, ids, -1))
+        tri = None
+        if g.tri_table16 is not None:
+            t, ids, u, v = tri_sweep.tri_sweep_reference(o, d, g.tri_table16)
+            tri = Hit(t=torch.where(alive, t, T_MAX),
+                      tri=torch.where(alive, ids, -1), u=u, v=v)
+        return combine_hits(sph, tri, s_pad, ties_to_spheres=True)
 
     sums = torch.zeros((H * W, 3), dtype=torch.float32, device=dev)
     traced = torch.zeros(H * W, dtype=torch.int32, device=dev)
     for b in range(n_batches):
         g = (geom if geom.sph_dtab8 is None
              else geometry_at(geom, times[batch0 + b]))
-
-        def trace(o: V3, d: V3, alive, g=g) -> RawHit:
-            t, ids = sphere_sweep.sphere_sweep_reference(o, d, g.sph_table8)
-            t = torch.where(alive, t, T_MAX)
-            return RawHit(missed=t >= T_MAX, t=t,
-                          prim=torch.clamp_min(torch.where(alive, ids, -1),
-                                               0))
-
         state, o, d = primary_rays(static, cam, batch0 + b, 0, H, use_dof,
                                    dev, sample_base)
         counts = torch.zeros(H * W * spp, dtype=torch.int32, device=dev)
-        radiance, _ = bounce_wavefront(static, scene, trace, g, state, o,
-                                       d, counts)
+        radiance, _ = bounce_wavefront(
+            static, scene, lambda o, d, alive, g=g: trace(o, d, alive, g),
+            g, state, o, d, counts)
         rad = vec3.to_rows(radiance).reshape(H * W, spp, 3)
         for j in range(spp):
             sums = sums + rad[:, j]
@@ -201,6 +318,8 @@ def _check_inputs(cfg: MegaConfig, geom, params, times, batch0: int) -> None:
                          f"{cap} spheres (megakernel_supported)")
     if table8.data_ptr() % 16:
         raise ValueError("sph_table8 must be 16-byte aligned (float4 loads)")
+    if cfg.tris:
+        _check_tris(cfg, geom, device)
     if not cfg.anim:
         return
     dtab = geom.sph_dtab8
@@ -216,6 +335,26 @@ def _check_inputs(cfg: MegaConfig, geom, params, times, batch0: int) -> None:
                          "the table's device with a time for every batch")
 
 
+def _check_tris(cfg: MegaConfig, geom, device) -> None:
+    t12, boxes = geom.tri_table12, geom.tri_boxes
+    if cfg.anim:
+        raise ValueError("the animated form takes no triangles")
+    if (t12.dtype != torch.float32 or t12.dim() != 2 or t12.shape[1] != 12
+            or t12.device != device or not t12.is_contiguous()
+            or t12.data_ptr() % 16):
+        raise ValueError("tri_table12 must be a contiguous, 16-byte aligned "
+                         "float32 [T8, 12] tensor on the table's device")
+    if (boxes.dtype != torch.float32 or boxes.dim() != 2
+            or boxes.shape[1] != 8 or boxes.device != device
+            or not boxes.is_contiguous() or boxes.data_ptr() % 16):
+        raise ValueError("tri_boxes must be a contiguous, 16-byte aligned "
+                         "float32 [C, 8] tensor on the table's device")
+    if cfg.n_clusters > MAX_TRI_CLUSTERS:
+        raise ValueError(f"{cfg.n_clusters} triangle clusters: the kernel "
+                         f"holds at most {MAX_TRI_CLUSTERS} "
+                         f"(megakernel_supported)")
+
+
 def render_tile_mega(static, scene, geom, cam, batch0: int,
                      n_batches: int = 1, sample_base: int = 0, *,
                      use_dof: bool, reduce_mean: bool = False, times=None):
@@ -226,7 +365,7 @@ def render_tile_mega(static, scene, geom, cam, batch0: int,
     traced is each pixel's number of bounces.  An animated geometry
     (``geom.sph_dtab8``) needs ``times``, every batch's shutter time
     ([B] f32 on the geometry's device); a static one ignores it."""
-    global LAUNCHES, ANIM_LAUNCHES
+    global LAUNCHES, ANIM_LAUNCHES, TRI_LAUNCHES
     device = geom.sph_table8.device
     cfg = make_config(static, geom, use_dof, n_batches)
     if cfg.anim and times is None:
@@ -240,6 +379,9 @@ def render_tile_mega(static, scene, geom, cam, batch0: int,
     else:
         params = _float_params(cfg, static, scene, cam)
         _check_inputs(cfg, geom, params, times, batch0)
+        if cfg.tris and cfg.S8 != scene.sph_center.shape[0]:
+            raise ValueError("the sphere table must have a row for every "
+                             "sphere slot: triangle ids start after it")
         lib = library()
         H, W = cfg.height, cfg.width
         sums = torch.empty((H, W, 3), dtype=torch.float32, device=device)
@@ -250,8 +392,10 @@ def render_tile_mega(static, scene, geom, cam, batch0: int,
         err = lib.megakernel_launch(
             geom.sph_table8.data_ptr(),
             geom.sph_dtab8.data_ptr() if cfg.anim else None,
-            times.data_ptr() if cfg.anim else None,
-            cfg.S8, geom.prim_rows.data_ptr(),
+            times.data_ptr() if cfg.anim else None, cfg.S8,
+            geom.tri_table12.data_ptr() if cfg.tris else None, cfg.T8,
+            geom.tri_boxes.data_ptr() if cfg.tris else None, cfg.n_clusters,
+            cfg.tri_g, cfg.S8, geom.prim_rows.data_ptr(),
             cfg.P, params.data_ptr(), W, H, cfg.sqrt_spp, cfg.spp_local,
             cfg.n_batches, int(batch0), int(sample_base), cfg.max_depth,
             flags, sums.data_ptr(), traced.data_ptr(),
@@ -262,6 +406,7 @@ def render_tile_mega(static, scene, geom, cam, batch0: int,
                 f"({lib.megakernel_error_string(err).decode()})")
         LAUNCHES += 1
         ANIM_LAUNCHES += cfg.anim
+        TRI_LAUNCHES += cfg.tris
     if reduce_mean:
         sums = sums / float(np.float32(cfg.spp_local * cfg.n_batches))
     return sums, traced
@@ -272,8 +417,8 @@ def library() -> ctypes.CDLL:
     """The kernel's shared library, built from csrc/ at first use."""
     lib = _build.load_library("megakernel")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.megakernel_launch.argtypes = [p, p, p, i, p, i, p, i, i, i, i, i, i,
-                                      i, i, i, p, p, p]
+    lib.megakernel_launch.argtypes = [p, p, p, i, p, i, p, i, i, i, p, i, p,
+                                      i, i, i, i, i, i, i, i, i, p, p, p]
     lib.megakernel_launch.restype = i
     lib.megakernel_error_string.argtypes = [i]
     lib.megakernel_error_string.restype = ctypes.c_char_p

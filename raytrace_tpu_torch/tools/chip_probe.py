@@ -2,6 +2,7 @@
 
     python3 raytrace_tpu_torch/tools/chip_probe.py anim [TREE]
     python3 raytrace_tpu_torch/tools/chip_probe.py chunks [TREE]
+    python3 raytrace_tpu_torch/tools/chip_probe.py tris [TREE]
 
 TREE is the root of a checkout whose ``raytrace_tpu_torch`` is measured
 (default: the checkout holding this file), so two trees can be compared on
@@ -17,6 +18,13 @@ not with ``-m``, so that the package comes from TREE.
 - ``chunks``: the static fused main path, final-one-weekend at 1200x675,
   4 spp, depth 50: the kernel's time for one batch (7 CUDA-event runs)
   and Mrays/s of three 12-batch chunks, as one JSON line.
+- ``tris``: builds the three kernels and prints nvcc's register reports;
+  on the triangle stress scene (tools/stress_scenes.py) holds the
+  triangle sweep K2 against its plain version on 2^18 primary rays and
+  times it over all of them, holds the fused kernel's triangle form
+  against its plain version at 96x54/depth 8/k=2 (k = 1 and 4, and the
+  triangle fixture) and at 256x144/depth 50, times it at 1024x576, and
+  renders the scene's one batch on the fused path and on the wavefront.
 """
 
 from __future__ import annotations
@@ -113,6 +121,116 @@ def anim() -> None:
     print("mb chunk Mrays/s", r.path, _chunk_mrays(r))
 
 
+def _tri_stress(k, width, depth=None, batches=None):
+    """The triangle stress scene at ``width`` (its files written to a
+    temporary directory)."""
+    import tempfile
+
+    from raytrace_tpu_torch.tools import stress_scenes
+
+    return _scene(stress_scenes.write_tri_stress(tempfile.mkdtemp(), k),
+                  width, None, depth, batches)
+
+
+def tris() -> None:
+    import concurrent.futures
+
+    import torch
+
+    from raytrace_tpu_torch.engine import Renderer
+    from raytrace_tpu_torch.engine.wavefront import primary_rays
+    from raytrace_tpu_torch.models import compile_scene
+    from raytrace_tpu_torch.ops import (_build, megakernel, sphere_sweep,
+                                        tri_sweep)
+    from raytrace_tpu_torch.ops.vec3 import V3
+    from raytrace_tpu_torch.scene_file import SceneFile
+    from raytrace_tpu_torch.tools import stress_scenes
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    print(sys.version.split()[0], torch.__version__, torch.version.cuda)
+    mods = (megakernel, tri_sweep, sphere_sweep)
+    with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
+        list(pool.map(lambda m: m.library(), mods))
+    for name in ("megakernel", "tri_sweep"):
+        print(_build.library_path(name).with_suffix(".log").read_text())
+    dev = torch.device("cuda:0")
+
+    full = Renderer(_tri_stress(4, 1024), device=dev)
+    print("tri-stress-15360", full.path, full.static.num_triangles,
+          full.static.tri_cluster_g)
+    geom = full._geometry(0)
+    _, o, d = primary_rays(full.static, full.camera, 0, 0, full.static.height,
+                           full.use_dof, dev)
+    n = o.x.shape[0]
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    sel = torch.randperm(n, generator=torch.Generator().manual_seed(0))[
+        :1 << 18].to(dev)
+    so, sd = (V3(*(c[sel].contiguous() for c in v)) for v in (o, d))
+    hit = tri_sweep.intersect_tris_sweep(so, sd, geom.tri_table16, alive[sel])
+    ref = tri_sweep.tri_sweep_reference(so, sd, geom.tri_table16)
+    torch.cuda.synchronize()
+    print("K2 2^18 primary: bitwise", [torch.equal(a, b) for a, b in
+                                       zip(hit, ref)],
+          "ids agree", (hit.tri == ref[1]).double().mean().item(),
+          "hit share", (hit.tri >= 0).double().mean().item())
+    print("K2 ms over", n, "rays:",
+          _med(lambda: tri_sweep.intersect_tris_sweep(o, d, geom.tri_table16,
+                                                      alive), 3))
+    t0 = time.perf_counter()
+    tri_sweep.tri_sweep_reference(so, sd, geom.tri_table16)
+    torch.cuda.synchronize()
+    print("K2 plain s at 2^18 rays", time.perf_counter() - t0)
+
+    fixture = compile_scene(SceneFile.from_json_dict(
+        stress_scenes.triangle_fixture_doc()), width=96)
+    for label, cs in (("k1", _tri_stress(1, 96, 8, 2)),
+                      ("k4", _tri_stress(4, 96, 8, 2)),
+                      ("fixture", dataclasses.replace(
+                          fixture, render=dataclasses.replace(
+                              fixture.render, max_ray_depth=8,
+                              sample_batches=2)))):
+        r = Renderer(cs, device=dev)
+        args = (r.static, r.scene, r._geometry(0), r.camera, 0, 2)
+        kw = dict(use_dof=r.use_dof, times=r.batch_times_dev)
+        s1, t1 = megakernel.render_tile_mega(*args, **kw)
+        s2, t2 = megakernel.render_tile_mega(*args, **kw)
+        t0 = time.perf_counter()
+        ref, rt = megakernel.megakernel_reference(*args, **kw)
+        torch.cuda.synchronize()
+        print(label, r.path, "repeat identical",
+              torch.equal(s1, s2) and torch.equal(t1, t2), "bitwise",
+              torch.equal(s1, ref), torch.equal(t1, rt), "maxdiff",
+              (s1 - ref).abs().max().item(), "rays", int(t1.sum()),
+              int(rt.sum()), "plain s", time.perf_counter() - t0)
+
+    args = (full.static, full.scene, geom, full.camera, 0, 1)
+    kw = dict(use_dof=full.use_dof, times=full.batch_times_dev)
+    print("K4 tris full ms", _med(lambda: megakernel.render_tile_mega(
+        *args, **kw), 3))
+    for label, r in (("fused", full),
+                     ("wavefront", Renderer(_tri_stress(4, 1024), device=dev,
+                                            use_megakernel=False))):
+        launches = (megakernel.TRI_LAUNCHES, tri_sweep.LAUNCHES,
+                    sphere_sweep.LAUNCHES)
+        r.render_all()
+        print(label, r.path, "Mrays/s", r.stats.mrays_per_sec, "rays",
+              r.stats.rays_traced, "s", r.stats.render_seconds,
+              "means", r.image().mean((0, 1)), "K4/K2/K1 launches",
+              megakernel.TRI_LAUNCHES - launches[0],
+              tri_sweep.LAUNCHES - launches[1],
+              sphere_sweep.LAUNCHES - launches[2])
+    mid = Renderer(_tri_stress(4, 256, 50, 1), device=dev)
+    args = (mid.static, mid.scene, mid._geometry(0), mid.camera, 0, 1)
+    s1, t1 = megakernel.render_tile_mega(*args, **kw)
+    t0 = time.perf_counter()
+    ref, rt = megakernel.megakernel_reference(*args, **kw)
+    torch.cuda.synchronize()
+    print("256x144 d50 plain s", time.perf_counter() - t0, "bitwise",
+          torch.equal(s1, ref), "rays", int(rt.sum()))
+
+
 def chunks(tree: str) -> None:
     import torch
 
@@ -148,7 +266,7 @@ def chunks(tree: str) -> None:
 
 
 def main(argv) -> int:
-    if len(argv) < 2 or argv[1] not in ("anim", "chunks"):
+    if len(argv) < 2 or argv[1] not in ("anim", "chunks", "tris"):
         print(__doc__, file=sys.stderr)
         return 2
     tree = str(Path(argv[2] if len(argv) > 2
@@ -159,7 +277,10 @@ def main(argv) -> int:
     if not raytrace_tpu_torch.__file__.startswith(tree):
         raise RuntimeError(f"raytrace_tpu_torch came from "
                            f"{raytrace_tpu_torch.__file__}, not {tree}")
-    anim() if argv[1] == "anim" else chunks(tree)
+    if argv[1] == "chunks":
+        chunks(tree)
+    else:
+        {"anim": anim, "tris": tris}[argv[1]]()
     return 0
 
 

@@ -14,6 +14,9 @@ without contraction): traced rays within 0.5%, per-sample channel means
 within 1e-3, at most 5% of pixels with a max-channel difference above
 1e-4; on small scenes every pixel's bounce count equal.  Its animated
 form (motion blur): the same, and every pixel's bounce count equal.
+Triangle sweep K2 and the fused kernel's triangle form (both built without
+contraction): bit for bit with their plain versions; the triangle form
+against the wavefront with K2: channel means within 2e-3, rays within 0.5%.
 """
 
 import dataclasses
@@ -27,7 +30,7 @@ import torch
 from raytrace_tpu_torch import cli
 from raytrace_tpu_torch.engine import Renderer
 from raytrace_tpu_torch.models import compile_scene
-from raytrace_tpu_torch.ops import megakernel, sphere_sweep
+from raytrace_tpu_torch.ops import megakernel, sphere_sweep, tri_sweep
 from raytrace_tpu_torch.ops.intersect import T_MAX
 from raytrace_tpu_torch.ops.vec3 import V3
 from raytrace_tpu_torch.scene_file import SceneFile
@@ -295,3 +298,109 @@ def test_other_motion_launches_once_per_batch_on_the_card(dev):
     assert r.path == "fused_per_batch" and r.render_batches(3) == 3
     assert megakernel.LAUNCHES == fused + 3
     assert megakernel.ANIM_LAUNCHES == anim
+
+
+# ---- triangles: the sweep K2 and the fused kernel's triangle form -----------
+
+def _tri_soup(T, seed):
+    """T random small triangles in a 10-unit box, with a duplicate pair."""
+    g = np.random.default_rng(seed)
+    c = g.uniform(-5, 5, (T, 3))
+    tri = (c[:, None, :] + g.uniform(-0.8, 0.8, (T, 3, 3))).astype(np.float32)
+    tri[T // 2] = tri[1]
+    return tri
+
+
+def _tri_rays(tri, R, seed, dev):
+    """R rays from around the soup towards points of random triangles, a
+    tenth in random directions, and a random alive mask."""
+    g = np.random.default_rng(seed)
+    wp = tri.astype(np.float64)
+    o = g.uniform(-9, 9, (R, 3))
+    j = g.integers(0, len(tri), R)
+    d = np.einsum("rv,rvi->ri", g.dirichlet(np.ones(3), R), wp[j]) - o
+    d[:R // 10] = g.standard_normal((R // 10, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    v3 = lambda a: V3(*(torch.tensor(  # noqa: E731
+        np.ascontiguousarray(a[:, i], np.float32), device=dev)
+        for i in range(3)))
+    return v3(o), v3(d), torch.tensor(g.random(R) < 0.7, device=dev)
+
+
+@pytest.mark.parametrize("T,R", [(7, 2048), (300, 4099), (2000, 1 << 16)])
+def test_tri_sweep_kernel_matches_plain_bit_for_bit(dev, T, R):
+    """Built without contraction, K2 gives the plain version's bits."""
+    tri = _tri_soup(T, seed=T)
+    table16 = tri_sweep.pack_tri_table(torch.tensor(tri, device=dev), T - 1)
+    o, d, alive = _tri_rays(tri, R, seed=R, dev=dev)
+    before = tri_sweep.LAUNCHES
+    hit = tri_sweep.intersect_tris_sweep(o, d, table16, alive)
+    torch.cuda.synchronize()
+    assert tri_sweep.LAUNCHES == before + 1
+    t, ids, u, v = tri_sweep.tri_sweep_reference(o, d, table16)
+    assert torch.equal(hit.t, torch.where(alive, t, T_MAX))
+    assert torch.equal(hit.tri, torch.where(alive, ids, -1))
+    assert torch.equal(hit.u, torch.where(alive, u, 0.0))
+    assert torch.equal(hit.v, torch.where(alive, v, 0.0))
+    assert (hit.tri >= 0).any() and (hit.tri != T // 2).all()
+    assert (hit.tri < T - 1).all()   # the last row is marked invalid
+
+
+def test_tri_sweep_kernel_rejects_misaligned_table(dev):
+    tri = _tri_soup(8, seed=1)
+    table16 = tri_sweep.pack_tri_table(torch.tensor(tri, device=dev), 8)
+    shifted = torch.zeros(table16.numel() + 1, device=dev)[1:].view(8, 16)
+    shifted.copy_(table16)
+    o, d, alive = _tri_rays(tri, 256, seed=2, dev=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        tri_sweep.intersect_tris_sweep(o, d, shifted, alive)
+
+
+def _tri_scene(name, w, depth, batches, tmp_path):
+    from raytrace_tpu_torch.tools import stress_scenes
+
+    if name == "fixture":
+        doc = stress_scenes.triangle_fixture_doc()
+    else:
+        obj = stress_scenes.write_sphere_obj(str(tmp_path / "sphere.obj"))
+        doc = stress_scenes.tri_stress_doc(int(name[-1]), obj)
+    cs = compile_scene(SceneFile.from_json_dict(doc), width=w)
+    return dataclasses.replace(cs, render=dataclasses.replace(
+        cs.render, max_ray_depth=depth, sample_batches=batches))
+
+
+@pytest.mark.parametrize("name", ["tri-stress-k1", "tri-stress-k4",
+                                  "fixture"])
+def test_triangle_fused_kernel_matches_plain_bit_for_bit(dev, name, tmp_path):
+    r = Renderer(_tri_scene(name, 96, 8, 2, tmp_path), device=dev)
+    assert r.path == "fused"
+    args = (r.static, r.scene, r._geometry(0), r.camera, 0, 2)
+    before = megakernel.LAUNCHES, megakernel.TRI_LAUNCHES
+    sums, traced = megakernel.render_tile_mega(*args, use_dof=r.use_dof)
+    again, traced2 = megakernel.render_tile_mega(*args, use_dof=r.use_dof)
+    torch.cuda.synchronize()
+    assert (megakernel.LAUNCHES, megakernel.TRI_LAUNCHES) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(sums, again) and torch.equal(traced, traced2)
+    ref, ref_traced = megakernel.megakernel_reference(*args,
+                                                      use_dof=r.use_dof)
+    assert torch.isfinite(sums).all()
+    assert torch.equal(sums, ref) and torch.equal(traced, ref_traced)
+
+
+def test_renderer_takes_the_triangle_kernel_on_the_card(dev, tmp_path):
+    cs = _tri_scene("tri-stress-k1", 96, 8, 1, tmp_path)
+    before = (megakernel.TRI_LAUNCHES, tri_sweep.LAUNCHES,
+              sphere_sweep.LAUNCHES)
+    r = Renderer(cs, device=dev)
+    img = r.render_all()
+    assert r.path == "fused"
+    assert (megakernel.TRI_LAUNCHES, tri_sweep.LAUNCHES,
+            sphere_sweep.LAUNCHES) == (before[0] + 1, before[1], before[2])
+    w = Renderer(cs, device=dev, use_megakernel=False)
+    w_img = w.render_all()
+    assert tri_sweep.LAUNCHES > before[1] and sphere_sweep.LAUNCHES > before[2]
+    np.testing.assert_allclose(img.mean(axis=(0, 1)), w_img.mean(axis=(0, 1)),
+                               atol=2e-3)
+    assert abs(r.stats.rays_traced - w.stats.rays_traced) <= (
+        0.005 * w.stats.rays_traced)

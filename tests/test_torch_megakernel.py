@@ -136,7 +136,7 @@ def test_reference_matches_the_wavefront_batch_by_batch():
     (static, scene, geom, cam), use_dof = _port_args(4)
     sums, traced = megakernel.megakernel_reference(
         static, scene, geom, cam, 0, 2, use_dof=use_dof)
-    trace = wavefront.make_trace_fn(geom)
+    trace = wavefront.make_trace_fn(static, scene, geom)
     rays, tiles = 0, []
     for b in range(2):
         tile, tr = wavefront.render_tile(static, scene, cam, trace, geom, b,
@@ -228,14 +228,23 @@ def _tiny_doc(material="m", transform=None, extra_prims=(), albedo="white"):
     }
 
 
-_TRIANGLE = {"triangle": {"name": "t", "points": [[0, 0, 0], [1, 0, 0],
-                                                  [0, 1, 0]],
-                          "normal": [0, 0, 1], "uv": [[0, 0], [1, 0], [0, 1]],
-                          "material": "m"}}
+def _big_mesh_doc(n_boxes=1366):
+    """16,392 triangles (12 a box): too many for the soup's clusters, and
+    above the kernel's ceiling for a soup in file order."""
+    doc = _tiny_doc()
+    doc["primitives"] = [{"box": {"name": "b", "corners": [[0, 0, 0],
+                                                           [0.1, 0.1, 0.1]],
+                                  "material": "m"}}]
+    doc["instances"] = [{"name": "b", "transform": {"static": {
+        "translate": [0.2 * (i % 40), 0, 0.2 * (i // 40)]}}}
+        for i in range(n_boxes)]
+    return doc
 
 
 @pytest.mark.parametrize("doc", [
-    _tiny_doc(extra_prims=[_TRIANGLE]),
+    # A triangle is inside the gate (tests/test_torch_triangles.py); a
+    # mesh above its ceiling is not.
+    _big_mesh_doc(),
     _tiny_doc(material="l"),
     _tiny_doc(albedo="n"),
     # A moving ellipsoid: motion the kernel takes, a shape it does not.

@@ -7,7 +7,8 @@ stored golden is stale), with the JAX XLA wavefront (use_pallas_sweep=False).
   means within 1e-4, rays 52131 vs 52120, RMSE 0.0045, asserted < 0.02);
 - checkpoints: a JAX checkpoint resumes here, and resume is byte-identical
   to a one-shot render;
-- scenes outside the slice raise NotImplementedError naming their item.
+- scenes outside the slice raise NotImplementedError naming their item
+  (triangles are inside it, up to the ceiling of ROADMAP's "Big meshes").
 """
 
 import dataclasses
@@ -132,14 +133,23 @@ def _tiny_doc(material="m", transform=None, extra_prims=(), albedo="white"):
     }
 
 
-_TRIANGLE = {"triangle": {"name": "t", "points": [[0, 0, 0], [1, 0, 0],
-                                                  [0, 1, 0]],
-                          "normal": [0, 0, 1], "uv": [[0, 0], [1, 0], [0, 1]],
-                          "material": "m"}}
+def _big_mesh_doc(n_boxes=1366):
+    """16,392 triangles (12 a box): above every triangle ceiling, and too
+    many for the soup's clusters."""
+    doc = _tiny_doc()
+    doc["primitives"] = [{"box": {"name": "b", "corners": [[0, 0, 0],
+                                                           [0.1, 0.1, 0.1]],
+                                  "material": "m"}}]
+    doc["instances"] = [{"name": "b", "transform": {"static": {
+        "translate": [0.2 * (i % 40), 0, 0.2 * (i // 40)]}}}
+        for i in range(n_boxes)]
+    return doc
 
 
 @pytest.mark.parametrize("doc,item", [
-    (_tiny_doc(extra_prims=[_TRIANGLE]), "Triangles"),
+    # Triangles are inside the slice up to a ceiling; a mesh above it is
+    # not.
+    pytest.param(_big_mesh_doc(), "Big meshes", id="doc0-Triangles"),
     (_tiny_doc(material="l"), "NEE with lights"),
     (_tiny_doc(albedo="n"), "Noise textures"),
     # Motion blur is inside the slice; a moving ellipsoid is not, for its
