@@ -4,23 +4,31 @@
     python3 chip_smoke.py
 
 Drives the port's render paths through the entry points a user calls,
-on three scenes at their full size: final-one-weekend at 1200x675 with
+on five scenes at their full size: final-one-weekend at 1200x675 with
 its 4 spp and depth 50 (static: the fused kernel K4 and the wavefront
 with K1), final-one-weekend-motion-blur at its shipped 1024x576, 4 spp x
 25 batches, depth 50 (391 of 488 spheres moving: K4's animated form, and
-the wavefront), and the triangle stress scene tri-stress-15360
+the wavefront), the triangle stress scene tri-stress-15360
 (raytrace_tpu_torch/tools/stress_scenes.py: 16 instances of a
 960-triangle OBJ over a ground sphere, 1024x576, 16 spp x 1 batch, depth
 50: K4's triangle form, and the wavefront with the triangle sweep K2 and
-K1).  Every phase is checked; any failure raises and the script exits
-non-zero without printing a result.  Phases:
+K1), and the two light scenes of raytrace_tpu_torch/tools/light_scenes.py
+(K4's lit forms, and the wavefront's NEE branch with K2, and K1):
+cornell-style (a Cornell box of 36 triangles with a quad light, 1024x1024,
+64 spp x 32 batches, depth 50) and sphere-light-962 (analytic spheres, a
+light sphere and a light quad: 962 light triangles; 1024x576, 64 spp x 2
+batches, depth 50).  Every phase is checked; any failure raises and the
+script exits non-zero without printing a result.  No path runs at a cut
+depth.  Phases:
 
 1. needs torch.cuda.is_available(); prints nvidia-smi's name and power limit;
 2. builds the three kernel sources from the checkout, one nvcc each,
    started together: the sphere sweep K1 (csrc/sphere_sweep.cu), the
    triangle sweep K2 (csrc/tri_sweep.cu) and the fused bounce kernel K4
-   (csrc/megakernel.cu: static, animated and triangle forms), with nvcc's
-   register report and a line per K4 form;
+   (csrc/megakernel.cu: static, animated, triangle and the two lit
+   forms), with nvcc's register report and a line per K4 form; the
+   static, animated and triangle forms must keep the registers and
+   spills they had before the lit forms (FORMS_BEFORE);
 3. K1 against the plain PyTorch sweep: the 3,240,000 primary rays of the
    main path and 2^20 random rays with an alive mask (ids equal, and ids
    equal with t within rtol=1e-3, atol=1e-3, each on >= 99.9% of rays),
@@ -39,12 +47,20 @@ non-zero without printing a result.  Phases:
    tri-stress at k=1 and k=4 and on the triangle fixture, and at
    tri-stress's full size against the plain version and against the
    wavefront with K2 on the same batch (rays within 0.5%, means within
-   2e-3), which also counts the work its bound estimates;
+   2e-3), which also counts the work its bound estimates; then its lit
+   forms, bit for bit (and two launches byte-identical) at depth 50, k=2
+   on cornell-style at 128x128, sphere-light-962 at 128x72, the lit
+   spheres doc (no triangle: the lit form without triangles) at 96x54 and
+   the 70-instance lit doc at 96x96; then each light scene's full batch
+   bit for bit with the plain version (both timed), and held against the
+   wavefront with K2 (and K1) on the same batch (rays within 0.5%, means
+   within LIGHT_MEAN_TOL), which also counts the work of the bound;
 5. the wavefront path, Renderer(cs, use_megakernel=False): several batches,
    counting K1 launches; the image checks; the same for the motion-blur
    scene and for tri-stress's one batch (counting K2 and K1 launches); a
    small frame on the card against the CPU, for both paths and the
-   animated fused path, and for both triangle paths;
+   animated fused path, for both triangle paths and both paths of each
+   light scene;
 6. the main path, Renderer(cs) with defaults: it must take the fused path
    (K4 launched, K1 not); Mrays/s over batches 1-3 stepped one at a time
    and over one fused chunk of 12 batches, the chunk beside the 298.602
@@ -55,19 +71,27 @@ non-zero without printing a result.  Phases:
    within 2e-3 of the wavefront's means; then tri-stress's Renderer with
    defaults, which must take the fused path in K4's triangle form (K1 and
    K2 not launched), with Mrays/s for its batch stepped and for
-   render_all, and the image checks;
-7. checkpoint round trips on both paths, with the same chunk boundaries:
-   the resumed image must be byte-identical to the uninterrupted render;
+   render_all, and the image checks; then cornell-style's Renderer with
+   defaults at 1024x1024, 64 spp, depth 50, which must take the fused
+   path in K4's lit form (K1 and K2 not launched), with Mrays/s over
+   batches 1-3 stepped and over one fused chunk of 4 batches, and
+   sphere-light-962's, its batches stepped and in render_all; the image
+   checks;
+7. checkpoint round trips on both paths, with the same chunk boundaries,
+   and on cornell-style's fused path: the resumed image must be
+   byte-identical to the uninterrupted render;
 8. the CLI renders every batch of each scene to a PNG (fused chunks);
-9. one fused chunk of each sphere scene and tri-stress's batch under
-   torch.profiler (one session): the device's busy share of the traced
-   window's own device timeline and of the untraced wall, the fused
-   kernel's share of device time and device operations per batch.
+9. one fused chunk of each sphere scene, tri-stress's batch and a chunk
+   of each light scene under torch.profiler (one session): the device's
+   busy share of the traced window's own device timeline and of the
+   untraced wall, the fused kernel's share of device time and device
+   operations per batch.
 
 The line before the last is the kernels' JSON record (with each kernel's
 bound: the larger of its FP32 operations over 67 TFLOP/s and its bytes
-over 3.35 TB/s, counted from this run's inputs; K4's triangle form's is
-an estimate, see _k4_tris_bound), the last line
+over 3.35 TB/s, counted from this run's inputs and the scene's real
+spheres, not the table's padding rows; K4's triangle and lit forms' are
+estimates, see _k4_tris_bound), the last line
 {"ok": true, "device": {...}}.
 """
 
@@ -124,6 +148,26 @@ TRI_SUBSET = 1 << 18
 # min over axes (4), the pruned best t (2).
 FLOPS_PER_TRI_TEST = 46
 FLOPS_PER_PRETEST = 24
+# FP32 operations of one NEE step of K4's lit form after a scattering hit,
+# counted from csrc/megakernel.cu as above (the cheaper direction, the
+# light's; RNG words and compares not counted): the alias pick 1, three
+# points moved by the 3x4 matrix 54, the fold and the point on the
+# triangle 19, the light normal 26, the sphere and cosine samples 20, the
+# light direction 3, the two pdfs, their mixture and the ratio 35, the
+# throughput 6 and the new direction 11.
+FLOPS_PER_NEE = 175
+# Registers and spill-store bytes of K4's forms before the lit forms were
+# added (nvcc -Xptxas -v; PERF.md): they must compile as before.
+FORMS_BEFORE = {"static": (61, 0), "anim": (62, 0), "tris": (72, 4)}
+# The light scenes: their full sizes, and the widths of the small frames
+# that hold K4's lit forms against the plain version at depth 50, k=2.
+LIGHT_SMALL = {"cornell-style": 128, "sphere-light-962": 128,
+               "lit spheres": 96, "70 instances": 96}
+# The light scenes' full batch, fused against the wavefront with K2 (and
+# K1, which contracts multiply-adds): per-sample channel means within
+# this.  Measured 6.0e-8 (cornell-style) and 1.1e-6 (sphere-light-962)
+# on an H100 (PERF.md).
+LIGHT_MEAN_TOL = 1e-5
 
 
 def _bound(flops: float, nbytes: float):
@@ -133,46 +177,58 @@ def _bound(flops: float, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def _k4_bound(geom, traced_sum: int, width: int, height: int,
+def _spheres(static) -> int:
+    """The scene's real spheres: the rows of the sphere table that a bound
+    counts (the table's padding rows hold nothing to hit)."""
+    return static.num_spheres if static.has_spheres else 0
+
+
+def _k4_bound(static, geom, traced_sum: int, width: int, height: int,
               n_times: int):
-    """K4's bound for one launch: every bounce tests every table row;
+    """K4's bound for one launch: every bounce tests every sphere;
     bytes are the tables, rows, parameters (and motion rows and times)
     read once and the sums and counts written once."""
-    s8 = geom.sph_table8.shape[0]
     anim = geom.sph_dtab8 is not None
     per_test = FLOPS_PER_TEST_ANIM if anim else FLOPS_PER_TEST
     nbytes = (geom.sph_table8.numel() + geom.prim_rows.numel() + 40) * 4
     if anim:
         nbytes += (geom.sph_dtab8.numel() + n_times) * 4
     nbytes += width * height * (3 * 4 + 4)
-    return _bound(traced_sum * s8 * per_test, nbytes)
+    return _bound(traced_sum * _spheres(static) * per_test, nbytes)
 
 
-def _k4_tris_bound(geom, work, width: int, height: int):
+def _k4_tris_bound(static, geom, work, width: int, height: int, scene=None):
     """An estimate of K4's triangle form's bound for one launch, from the
     work ``_tri_work`` counted on the wavefront's rays of the same batch:
-    every bounce tests every sphere row and every cluster box, and the
-    triangles of each cluster whose box passes the pretest seeded by the
-    sphere hit (the JAX kernel's, megakernel.py:1280; the kernel's own
-    running best t can only skip more).  Bytes: the tables, boxes, rows
+    every bounce tests every sphere and every cluster box, and the
+    real triangles of each cluster whose box passes the pretest seeded by
+    the sphere hit (the JAX kernel's, megakernel.py:1280; the kernel's own
+    running best t can only skip more).  With ``scene`` (the lit form),
+    every bounce but a sample's last takes an NEE step, and the light rows
+    and instance transforms are read too.  Bytes: the tables, boxes, rows
     and parameters read once, the sums and counts written once."""
-    s8 = geom.sph_table8.shape[0]
-    flops = (work["rays"] * s8 * FLOPS_PER_TEST
+    flops = (work["rays"] * _spheres(static) * FLOPS_PER_TEST
              + work["pretests"] * FLOPS_PER_PRETEST
              + work["tri_tests"] * FLOPS_PER_TRI_TEST)
     nbytes = (geom.sph_table8.numel() + geom.prim_rows.numel()
               + geom.tri_table12.numel() + geom.tri_boxes.numel() + 40) * 4
+    if scene is not None:
+        flops += (work["rays"] - work["samples"]) * FLOPS_PER_NEE
+        nbytes += (scene.light_tri_packed.numel()
+                   + geom.inst_o2w_rows.numel()) * 4
     nbytes += width * height * (3 * 4 + 4)
     return _bound(flops, nbytes)
 
 
 def _ptxas_forms(log: str):
     """[(form, registers, spill store bytes)] of each K4 instantiation in
-    nvcc's -Xptxas=-v report (megakernel<kAnim, kTris>)."""
+    nvcc's -Xptxas=-v report (megakernel<kAnim, kTris, kLights>)."""
     forms = []
-    names = {("0", "0"): "static", ("1", "0"): "anim", ("0", "1"): "tris"}
+    names = {("0", "0", "0"): "static", ("1", "0", "0"): "anim",
+             ("0", "1", "0"): "tris", ("0", "0", "1"): "lights",
+             ("0", "1", "1"): "tris+lights"}
     for block in log.split("Compiling entry function")[1:]:
-        m = re.search(r"megakernelILb(\d)ELb(\d)E", block)
+        m = re.search(r"megakernelILb(\d)ELb(\d)ELb(\d)E", block)
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores", block)
         if m and regs and spill:
@@ -227,9 +283,10 @@ def _tri_work(renderer):
     """Render batch 0 of ``renderer``'s triangle scene on the wavefront
     (K2, K1), as render_next_batch does, and count at every bounce the
     work of K4's triangle form on the same rays (for _k4_tris_bound): the
-    alive rays, their cluster pretests, and the triangle tests of the
-    clusters that pass the pretest against each ray's sphere hit.
-    Returns (image [H, W, 3] on the host, rays traced, work)."""
+    alive rays, their cluster pretests, and the tests of the real
+    triangles of the clusters that pass the pretest against each ray's
+    sphere hit; and the samples.  Returns (image [H, W, 3] on the host,
+    rays traced, work)."""
     import torch
 
     from raytrace_tpu_torch.engine import wavefront
@@ -240,7 +297,11 @@ def _tri_work(renderer):
     trace = wavefront.make_trace_fn(static, scene, geom)
     n_clusters = geom.tri_boxes.shape[0]
     group = megakernel.tri_group(static, geom.tri_table16.shape[0])
-    work = dict(rays=0, pretests=0, tri_tests=0)
+    # The rows K4 sweeps in each cluster: the real triangles.
+    sizes = (static.num_triangles - group * torch.arange(
+        n_clusters, device=geom.tri_boxes.device)).clamp(0, group)
+    work = dict(rays=0, pretests=0, tri_tests=0,
+                samples=static.width * static.height * static.sqrt_spp ** 2)
 
     def counting(o, d, alive):
         sph = sphere_sweep.intersect_spheres_sweep(o, d, geom.sph_table8,
@@ -249,7 +310,7 @@ def _tri_work(renderer):
         n = int(alive.sum())
         work["rays"] += n
         work["pretests"] += n * n_clusters
-        work["tri_tests"] += int((passes & alive).sum()) * group
+        work["tri_tests"] += int(((passes & alive).sum(1) * sizes).sum())
         return trace(o, d, alive)
 
     tiles, rays = [], 0
@@ -397,7 +458,7 @@ def _reset_counts():
 
     sphere_sweep.LAUNCHES = tri_sweep.LAUNCHES = 0
     megakernel.LAUNCHES = megakernel.ANIM_LAUNCHES = 0
-    megakernel.TRI_LAUNCHES = 0
+    megakernel.TRI_LAUNCHES = megakernel.LIGHT_LAUNCHES = 0
 
 
 def _mrays(per_batch):
@@ -461,7 +522,7 @@ def main() -> int:
                                         tri_sweep)
     from raytrace_tpu_torch.ops.vec3 import V3
     from raytrace_tpu_torch.scene_file import SceneFile
-    from raytrace_tpu_torch.tools import stress_scenes
+    from raytrace_tpu_torch.tools import light_scenes, stress_scenes
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -493,11 +554,16 @@ def main() -> int:
             print(log.read_text().strip())
     forms = _ptxas_forms(_build.library_path("megakernel").with_suffix(
         ".log").read_text())
-    if sorted(f for f, _, _ in forms) != ["anim", "static", "tris"]:
+    if sorted(f for f, _, _ in forms) != ["anim", "lights", "static",
+                                          "tris", "tris+lights"]:
         raise AssertionError(f"K4's forms in nvcc's report: {forms}")
     for form, regs, spill in forms:
         print(f"K4 {form} form: {regs} registers, {spill} bytes spill "
               f"stores")
+        if FORMS_BEFORE.get(form, (regs, spill)) != (regs, spill):
+            raise AssertionError(f"K4's {form} form changed: {regs} "
+                                 f"registers, {spill} bytes spilled, "
+                                 f"before {FORMS_BEFORE[form]}")
 
     # -- 3. K1 vs plain at the main path's shapes ---------------------------
     cs = cli.load_scene(cli.DEFAULT_SCENE, WIDTH, HEIGHT)
@@ -608,7 +674,7 @@ def main() -> int:
     k4_ms = _median_ms(lambda: megakernel.render_tile_mega(*args, **kw), 5)
     k4_plain_ms = _median_ms(
         lambda: megakernel.megakernel_reference(*args, **kw), 2)
-    k4_bound = _k4_bound(args[2], k4_rays, WIDTH, HEIGHT, 0)
+    k4_bound = _k4_bound(full.static, args[2], k4_rays, WIDTH, HEIGHT, 0)
     print(f"fused kernel time at {WIDTH}x{HEIGHT}, 4 spp, depth 50, one "
           f"batch: kernel {k4_ms:.3f} ms (median of 5), plain PyTorch "
           f"{k4_plain_ms:.3f} ms (median of 2) (CUDA events); bound "
@@ -636,8 +702,8 @@ def main() -> int:
     anim_ms = _median_ms(lambda: megakernel.render_tile_mega(*args, **kw), 5)
     anim_plain_ms = _median_ms(
         lambda: megakernel.megakernel_reference(*args, **kw), 2)
-    anim_bound = _k4_bound(args[2], anim_rays, MB_WIDTH, MB_HEIGHT,
-                           len(mb_full.batch_times))
+    anim_bound = _k4_bound(mb_full.static, args[2], anim_rays, MB_WIDTH,
+                           MB_HEIGHT, len(mb_full.batch_times))
     print(f"animated fused kernel time at {MB_WIDTH}x{MB_HEIGHT}, 4 spp, "
           f"depth 50, one batch: kernel {anim_ms:.3f} ms (median of 5), "
           f"plain PyTorch {anim_plain_ms:.3f} ms (median of 2) (CUDA "
@@ -688,7 +754,8 @@ def main() -> int:
     if abs(tris_rays - wave_rays) > 0.005 * wave_rays or mdiff > 2e-3:
         raise AssertionError("tri-stress: the fused and wavefront renders "
                              "disagree")
-    tris_bound = _k4_tris_bound(args[2], work, TRI_WIDTH, TRI_HEIGHT)
+    tris_bound = _k4_tris_bound(args[0], args[2], work, TRI_WIDTH,
+                                TRI_HEIGHT)
     print(f"fused kernel (triangle form) time at {TRI_WIDTH}x{TRI_HEIGHT}, "
           f"16 spp, depth 50, one batch: kernel {tris_ms:.3f} ms (median of "
           f"5, CUDA events), plain PyTorch {tris_plain_ms:.1f} ms (one run, "
@@ -699,6 +766,84 @@ def main() -> int:
           f"bounce, of {TRI_K * TRI_K * 960}); bound (an estimate) "
           f"{tris_bound[0]:.4f} ms by {tris_bound[1]} ({card})")
     del tri_full, args, kw, sums
+
+    # -- 4d. K4's lit forms vs plain, on the light scenes --------------------
+    light_paths = dict(zip(light_scenes.DOCS,
+                           light_scenes.write_light_scenes(tri_dir.name)))
+    light_cs = {name: cli.load_scene(path)
+                for name, path in light_paths.items()}
+    light_size = {"cornell-style": (1024, 1024),
+                  "sphere-light-962": (1024, 576)}
+    for name, size in light_size.items():
+        if (light_cs[name].render.width, light_cs[name].render.height,
+                light_cs[name].render.samples_per_pixel) != (*size, 64):
+            raise AssertionError(f"{name}'s size changed")
+    small_docs = {"cornell-style": light_scenes.cornell_doc(),
+                  "sphere-light-962": light_scenes.sphere_light_doc(),
+                  "lit spheres": light_scenes.lit_spheres_doc(),
+                  "70 instances": light_scenes.many_instances_doc(70)}
+    lights_err = 0.0
+    for label, doc in small_docs.items():
+        small_cs = compile_scene(SceneFile.from_json_dict(doc),
+                                 width=LIGHT_SMALL[label])
+        w, h = small_cs.render.width, small_cs.render.height
+        r = Renderer(_scene(small_cs, w, h, 50, 2), device=dev)
+        if r.path != "fused" or not r.static.has_lights:
+            raise AssertionError(f"{label}: path {r.path}, not the lit "
+                                 f"fused form")
+        small_err, *_ = _compare_fused(
+            f"lit {label} {w}x{h} depth 50 k=2 "
+            f"({'with' if r.static.has_tris else 'no'} triangles, "
+            f"{r.static.num_instances} instances, "
+            f"{r.scene.light_tri_packed.shape[0]} lights)", r, 2, 1e-3,
+            None, card,
+            bitwise_required=True)
+        lights_err = max(lights_err, small_err)
+    light_full = {}
+    for name, (w, h) in light_size.items():
+        r = Renderer(light_cs[name], device=dev)
+        if r.path != "fused":
+            raise AssertionError(f"{name}: path {r.path}, not fused")
+        # The full batch bit for bit with the plain version.
+        err_full, args, kw, lit_rays, plain_s = _compare_fused(
+            f"lit {name} {w}x{h} 64 spp depth 50 k=1", r, 1, 0.0, None, card,
+            bitwise_required=True)
+        lights_err = max(lights_err, err_full)
+        lit_ms = _median_ms(
+            lambda: megakernel.render_tile_mega(*args, **kw), 5)
+        sums, _ = megakernel.render_tile_mega(*args, **kw)
+        fused_img = (sums / r.static.sqrt_spp ** 2).cpu().numpy()
+        # The same batch on the wavefront with K2 (and K1 for the spheres),
+        # counting the work of the kernel's bound on its rays.
+        t0 = time.perf_counter()
+        wave_img, wave_rays, work = _tri_work(
+            Renderer(light_cs[name], device=dev, use_megakernel=False))
+        wave_s = time.perf_counter() - t0
+        mdiff = np.abs(fused_img.mean(axis=(0, 1))
+                       - wave_img.mean(axis=(0, 1))).max()
+        bound = _k4_tris_bound(r.static, args[2], work, w, h, scene=r.scene)
+        print(f"fused (lit form) vs wavefront with K2 on {name}'s batch at "
+              f"{w}x{h}, 64 spp, depth 50: rays {lit_rays} vs {wave_rays}, "
+              f"max channel-mean diff {mdiff:.3g}; the wavefront's batch "
+              f"{wave_s:.2f} s with the work count ({card})")
+        if (abs(lit_rays - wave_rays) > 0.005 * wave_rays
+                or mdiff > LIGHT_MEAN_TOL):
+            raise AssertionError(f"{name}: the fused and wavefront renders "
+                                 f"disagree")
+        print(f"fused kernel (lit form) time on {name} at {w}x{h}, 64 spp, "
+              f"depth 50, one batch: kernel {lit_ms:.3f} ms (median of 5, "
+              f"CUDA events), plain PyTorch {plain_s * 1e3:.1f} ms (one run, "
+              f"host clock), {lit_rays / lit_ms / 1e3:.1f} Mrays/s in the "
+              f"kernel; work "
+              f"counted on the wavefront's rays: {work['rays']} bounces of "
+              f"{work['samples']} samples, {work['pretests']} cluster "
+              f"pretests, {work['tri_tests']} triangle tests, "
+              f"{work['rays'] - work['samples']} NEE steps; bound (an "
+              f"estimate) {bound[0]:.4f} ms by {bound[1]} "
+              f"({bound[0] / lit_ms:.4f} of it) ({card})")
+        light_full[name] = dict(ms=lit_ms, plain_ms=plain_s * 1e3,
+                                bound=bound)
+        del r, args, kw, sums
 
     # -- 5. the wavefront path ----------------------------------------------
     _reset_counts()
@@ -755,6 +900,9 @@ def main() -> int:
     tiny_mb = _scene(cs_mb, 96, 54, depth=8, batches=2)
     tiny_tri = _tri_stress(1, 96, tri_dir.name, depth=8)[0]
     tiny_fix = _scene(fixture, 96, 54, depth=8, batches=1)
+    tiny_cb = _scene(light_cs["cornell-style"], 32, 32, depth=8, batches=1)
+    tiny_sl = _scene(light_cs["sphere-light-962"], 48, 27, depth=8,
+                     batches=1)
     for name, small_cs, fused in (("final-one-weekend", tiny, False),
                                   ("final-one-weekend", tiny, True),
                                   ("motion-blur", tiny_mb, False),
@@ -762,7 +910,11 @@ def main() -> int:
                                   ("tri-stress k=1", tiny_tri, False),
                                   ("tri-stress k=1", tiny_tri, True),
                                   ("triangle fixture", tiny_fix, False),
-                                  ("triangle fixture", tiny_fix, True)):
+                                  ("triangle fixture", tiny_fix, True),
+                                  ("cornell-style", tiny_cb, False),
+                                  ("cornell-style", tiny_cb, True),
+                                  ("sphere-light-962", tiny_sl, False),
+                                  ("sphere-light-962", tiny_sl, True)):
         gpu_s = Renderer(small_cs, device=dev, use_megakernel=fused)
         cpu_s = Renderer(small_cs, device="cpu", use_megakernel=fused)
         if gpu_s.path != cpu_s.path:
@@ -776,7 +928,8 @@ def main() -> int:
             raise AssertionError(f"{name} {gpu_s.path} card vs CPU at 96x54: "
                                  f"mean diff {mdiff}, rays {g_rays} vs "
                                  f"{c_rays}")
-        print(f"{name} {gpu_s.path} card vs CPU at 96x54, depth 8: max "
+        print(f"{name} {gpu_s.path} card vs CPU at {small_cs.render.width}x"
+              f"{small_cs.render.height}, depth 8: max "
               f"channel-mean diff {mdiff:.3g}, RMSE {rmse:.3g}, rays "
               f"{g_rays} vs {c_rays} ({card})")
 
@@ -877,6 +1030,68 @@ def main() -> int:
     _check_image(tri_img, "tri-stress fused", TRI_WIDTH, TRI_HEIGHT)
     del tri_r, tri_all
 
+    # cornell-style's main path, the slice at full size: Renderer with
+    # defaults, K4's lit form (with triangles), batches stepped, then one
+    # fused chunk.
+    _reset_counts()
+    cb_r = Renderer(light_cs["cornell-style"], device=dev)
+    per_batch = _step(cb_r, MAIN_BATCHES)
+    cb_k = cb_r.chunk_size()
+    rays0, sec0 = cb_r.stats.rays_traced, cb_r.stats.render_seconds
+    if cb_r.render_batches(cb_k) != cb_k:
+        raise AssertionError("render_batches rendered a short chunk")
+    cb_chunk = (cb_r.stats.rays_traced - rays0,
+                cb_r.stats.render_seconds - sec0)
+    lights_launches = megakernel.LIGHT_LAUNCHES
+    if (cb_r.path != "fused" or lights_launches != MAIN_BATCHES + 1
+            or megakernel.LAUNCHES != lights_launches
+            or megakernel.TRI_LAUNCHES != lights_launches
+            or sphere_sweep.LAUNCHES or tri_sweep.LAUNCHES):
+        raise AssertionError(
+            f"cornell-style's main path did not take K4's lit form (path "
+            f"{cb_r.path}, K4 {megakernel.LAUNCHES}, lit form "
+            f"{lights_launches}, K1 {sphere_sweep.LAUNCHES}, K2 "
+            f"{tri_sweep.LAUNCHES})")
+    for i, (r, s) in enumerate(per_batch):
+        print(f"cornell-style fused batch {i}: {r} rays in {s:.4f} s "
+              f"({r / s / 1e6:.3f} Mrays/s)")
+    print(f"cornell-style main path (fused, lit form): 1024x1024, 64 spp, "
+          f"depth 50: {_mrays(per_batch[1:]):.3f} Mrays/s over batches "
+          f"1-{MAIN_BATCHES - 1} stepped one at a time; "
+          f"{_mrays([cb_chunk]):.3f} Mrays/s over one {cb_k}-batch chunk "
+          f"({cb_chunk[0]} rays in {cb_chunk[1]:.4f} s); megakernel "
+          f"LAUNCHES={megakernel.LAUNCHES} (lit form {lights_launches}), "
+          f"tri_sweep and sphere_sweep LAUNCHES=0 ({card})")
+    _check_image(cb_r.image(), "cornell-style fused", 1024, 1024)
+    del cb_r
+
+    # sphere-light-962's main path: its first batch stepped, then
+    # render_all (its two batches in one chunk) on a second Renderer.
+    _reset_counts()
+    sl_r = Renderer(light_cs["sphere-light-962"], device=dev)
+    (sl_rays, sl_s), = _step(sl_r, 1)
+    sl_all = Renderer(light_cs["sphere-light-962"], device=dev)
+    sl_img = sl_all.render_all()
+    if (sl_all.path != "fused" or megakernel.LIGHT_LAUNCHES != 2
+            or megakernel.LAUNCHES != 2 or sphere_sweep.LAUNCHES
+            or tri_sweep.LAUNCHES):
+        raise AssertionError(
+            f"sphere-light-962's main path did not take K4's lit form (path "
+            f"{sl_all.path}, K4 {megakernel.LAUNCHES}, lit form "
+            f"{megakernel.LIGHT_LAUNCHES}, K1 {sphere_sweep.LAUNCHES}, K2 "
+            f"{tri_sweep.LAUNCHES})")
+    print(f"sphere-light-962 main path (fused, lit form): 1024x576, 64 spp, "
+          f"depth 50: its first batch stepped {sl_rays} rays in "
+          f"{sl_s:.4f} s ({sl_rays / sl_s / 1e6:.3f} Mrays/s); render_all "
+          f"{sl_all.stats.rays_traced} rays in "
+          f"{sl_all.stats.render_seconds:.4f} s "
+          f"({sl_all.stats.mrays_per_sec:.3f} Mrays/s); megakernel "
+          f"LAUNCHES={megakernel.LAUNCHES} (lit form "
+          f"{megakernel.LIGHT_LAUNCHES}), tri_sweep and sphere_sweep "
+          f"LAUNCHES=0 ({card})")
+    _check_image(sl_img, "sphere-light-962 fused", 1024, 576)
+    del sl_r, sl_all
+
     # -- 7. checkpoint round trips, same chunk boundaries --------------------
     with tempfile.TemporaryDirectory() as tmp:
         ck = os.path.join(tmp, "ck.npz")
@@ -898,13 +1113,30 @@ def main() -> int:
                                      "main-path render")
             print(f"checkpoint ({path}): resume after batch {CKPT_SPLIT} of "
                   f"{MAIN_BATCHES} is byte-identical")
+        cb = light_cs["cornell-style"]
+        one_shot = Renderer(cb, device=dev)
+        one_shot.render_batches(CKPT_SPLIT)
+        one_shot.render_batches(CKPT_SPLIT)
+        first = Renderer(cb, device=dev)
+        first.render_batches(CKPT_SPLIT)
+        first.save_checkpoint(ck)
+        resumed = Renderer(cb, device=dev)
+        resumed.load_checkpoint(ck)
+        resumed.render_batches(CKPT_SPLIT)
+        if resumed.image().tobytes() != one_shot.image().tobytes():
+            raise AssertionError("cornell-style: resumed render differs")
+        print(f"checkpoint (cornell-style, {resumed.path}): resume after "
+              f"batch {CKPT_SPLIT} of {2 * CKPT_SPLIT} is byte-identical")
+        del one_shot, first, resumed
 
         # -- 8. CLI: every batch of each scene -------------------------------
         for scene_path, size_args, (w, h), path in (
                 (cli.DEFAULT_SCENE, ["--width", str(WIDTH), "--height",
                                      str(HEIGHT)], (WIDTH, HEIGHT), "fused"),
                 (mb_scene, [], (MB_WIDTH, MB_HEIGHT), "fused_anim"),
-                (tri_json, [], (TRI_WIDTH, TRI_HEIGHT), "fused")):
+                (tri_json, [], (TRI_WIDTH, TRI_HEIGHT), "fused"),
+                (light_paths["cornell-style"], [], (1024, 1024), "fused"),
+                (light_paths["sphere-light-962"], [], (1024, 576), "fused")):
             name = os.path.splitext(os.path.basename(scene_path))[0]
             png = os.path.join(tmp, name + ".png")
             capture = _Capture()
@@ -941,7 +1173,10 @@ def main() -> int:
     for name, prof_cs, k in (("final-one-weekend", cs, CHUNK_BATCHES),
                              ("final-one-weekend-motion-blur", cs_mb,
                               CHUNK_BATCHES),
-                             ("tri-stress-15360", tri_cs, 1)):
+                             ("tri-stress-15360", tri_cs, 1),
+                             ("cornell-style", light_cs["cornell-style"], 4),
+                             ("sphere-light-962",
+                              light_cs["sphere-light-962"], 2)):
         prof_r = Renderer(prof_cs, device=dev)
         prof_r.render_batches(k)   # warm-up
         prof_r.current_batch = 0
@@ -1010,6 +1245,17 @@ def main() -> int:
         "launches": tris_launches, "max_abs_err": tris_err, "ms": tris_ms,
         "plain_ms": tris_plain_ms, "bound_ms": tris_bound[0],
         "bound_by": tris_bound[1], "library_ms": None,
+    }, {
+        # cornell-style's full batch, the slice's main path.
+        "name": "megakernel_lights", "route": "cuda",
+        "source": "raytrace_tpu_torch/csrc/megakernel.cu",
+        "replaces": "raytrace_tpu/ops/megakernel.py:1666",
+        "launches": lights_launches, "max_abs_err": lights_err,
+        "ms": light_full["cornell-style"]["ms"],
+        "plain_ms": light_full["cornell-style"]["plain_ms"],
+        "bound_ms": light_full["cornell-style"]["bound"][0],
+        "bound_by": light_full["cornell-style"]["bound"][1],
+        "library_ms": None,
     }]}))
     tri_dir.cleanup()
     print(json.dumps({"ok": True, "device": {

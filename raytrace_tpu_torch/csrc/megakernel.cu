@@ -1,11 +1,15 @@
 // The whole path-tracing loop in one kernel: raygen, sphere and triangle
-// closest hit, fat-row shading, the no-light NEE branch and per-pixel sums.
+// closest hit, fat-row shading, next-event estimation (with or without
+// lights) and per-pixel sums.
 //
 // Replaces the TPU kernel raytrace_tpu/ops/megakernel.py::_mega_kernel
 // (launched by mega_dispatch) in its spheres-in-world-space, direct-normal,
-// no-light, no-image configuration: static, with the spheres moving on
-// straight lines (its anim_lerp form), or with a world-space triangle soup
-// (its triangle sweeps, _sweep :1486-1536 and _sweep_tri_gather).  It computes
+// no-image configuration: static, with the spheres moving on straight lines
+// (its anim_lerp form), or with a world-space triangle soup (its triangle
+// sweeps, _sweep :1486-1536 and _sweep_tri_gather), each without lights, and
+// the static and triangle forms also with lights (its light slice,
+// _sample_lights_kernel :1542, _o2w_cols_kernel :1602 and the MIS branch
+// :1970-1991).  It computes
 // what the torch wavefront (engine/wavefront.py) computes, ray for ray: the
 // same PCG stream per (pixel, sample), the same camera and shading
 // arithmetic in the same operation order, the same closest hit (strict <
@@ -60,6 +64,23 @@
 // barycentric lerp of the fat row's n0, n1 - n0, n2 - n0 (slots 49:58),
 // as engine/wavefront.py reconstruct_hit computes them.  At equal t a
 // sphere keeps the hit (it is swept first), as in the JAX kernel.
+//
+// Lights (template parameter kLights; not combined with kAnim: the JAX
+// renderer never fuses animation with lights, renderer.py:468-472): after a
+// scattering hit the thread picks a light triangle with the alias table
+// (two draws; one index, u1 * n, into a [n_lights, 16] table of 64-byte rows
+// holding p0 p1 p2, the probability and the alias, read through the
+// read-only cache: 962 lights are 61 KB, which stay in L1/L2), moves its
+// three points by the objectToWorld of the instance that was HIT (fat-row
+// slot 48 names it; its [12] row of the [I, 12] table is read from global
+// memory, so any number of instances is taken: the JAX kernel's 64-instance
+// cap is its SMEM budget), samples a point on it (two draws and the fold),
+// draws the 50/50 mixture choice and both direction samples, and weighs the
+// material pdf by the mixture's (ops/nee.py, engine/wavefront.py _bounce).
+// Metal and dielectric hits consume the same nine draws and then take their
+// own direction.  The JAX kernel's select loop over the light table and its
+// light_gather (for more than 16 lights) are TPU mechanisms: one indexed
+// load serves any number of lights here.
 //
 // What bounds it: per bounce S ray-sphere tests of ~20 flops and a sqrt
 // (and for triangles the box pretests and the tests of the clusters that
@@ -122,7 +143,10 @@ constexpr int kFocal = 32;
 constexpr int kAperture = 33;
 constexpr int kSky = 34;       // [3]
 constexpr int kRecipSqrtSpp = 37;
+constexpr int kLightCount = 38;  // f32(number of light triangles)
+constexpr int kLightArea = 39;   // their total world-space area
 constexpr int kNumParams = 40;
+constexpr int kLightWidth = 16;  // floats per light row (light_table16)
 
 struct V3 {
   float x, y, z;
@@ -262,6 +286,26 @@ __device__ __forceinline__ V3 load3(const float* __restrict__ row, int c) {
   return {__ldg(row + c), __ldg(row + c + 1), __ldg(row + c + 2)};
 }
 
+// ops/vec3.py mat34_apply_point: M p + t, m a row-major 3x4
+__device__ __forceinline__ V3 apply_point(const float (&m)[12], V3 p) {
+  return {m[0] * p.x + m[1] * p.y + m[2] * p.z + m[3],
+          m[4] * p.x + m[5] * p.y + m[6] * p.z + m[7],
+          m[8] * p.x + m[9] * p.y + m[10] * p.z + m[11]};
+}
+
+// nee.make_onb_v3 about the normal, then the cosine sample in that basis
+// (nee.gen_scatter_direction_v3's cosine direction)
+__device__ __forceinline__ V3 cosine_direction(V3 normal, V3 cl) {
+  const V3 axis2 = normalize(normal);
+  const bool pick_y = fabsf(axis2.x) > 0.9f;
+  const V3 up = pick_y ? v3(0.0f, 1.0f, 0.0f) : v3(1.0f, 0.0f, 0.0f);
+  const V3 axis1 = normalize(cross(axis2, up));
+  const V3 axis0 = cross(axis2, axis1);
+  return {cl.x * axis0.x + cl.y * axis1.x + cl.z * axis2.x,
+          cl.x * axis0.y + cl.y * axis1.y + cl.z * axis2.y,
+          cl.x * axis0.z + cl.y * axis1.z + cl.z * axis2.z};
+}
+
 // shading._eval_property: the constant slot, or the row's checker.
 __device__ __forceinline__ V3 eval_property(const float* __restrict__ row, int base, int mode,
                                             bool has_checker, V3 p) {
@@ -338,16 +382,18 @@ __device__ __forceinline__ void sweep_tris(const float4* __restrict__ tris, int 
 
 // ---- the kernel ----
 
-template <bool kAnim, bool kTris>
+template <bool kAnim, bool kTris, bool kLights>
 __global__ void __launch_bounds__(kThreads)
 megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
            const float* __restrict__ times, int s8, const float4* __restrict__ tris, int t8,
            const float4* __restrict__ tri_boxes, int n_clusters, int cluster_g, int s_pad,
+           const float* __restrict__ lights, const float* __restrict__ o2w,
            const float* __restrict__ rows, int n_rows, const float* __restrict__ fparams,
            int width, int height, int sqrt_spp, int spp_local, int n_batches, int batch0,
            int sample_base, int max_depth, int flags, float* __restrict__ sums,
            int* __restrict__ traced_out) {
   static_assert(!(kAnim && kTris), "the animated form has no triangles");
+  static_assert(!(kAnim && kLights), "the animated form has no lights");
   extern __shared__ float4 smem[];
   float* prm = reinterpret_cast<float*>(smem);        // kNumParams floats
   // Static sphere j: tbl[2j] = (c, r), tbl[2j+1].x = k.  Animated:
@@ -517,26 +563,62 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
       }
       if (!scattered) break;  // absorbed
 
-      // nee.py, the no-light branch: the material pdf alone.  Both
-      // direction draws are unconditional, as in gen_scatter_direction_v3.
-      random_unit(state);  // the sphere-pdf direction, unused without lights
+      // nee.py.  With lights, sample_light_sources_v3 (the alias pick, the
+      // hit instance's objectToWorld: the quirk, a uniform point and the
+      // light normal) and choose_mixture_pdf; without, the material pdf
+      // alone.  Both direction draws are unconditional, as in
+      // gen_scatter_direction_v3.
+      bool chose_light = false;
+      V3 lpos = {0.0f, 0.0f, 0.0f};
+      V3 lnrm = {0.0f, 0.0f, 0.0f};
+      if constexpr (kLights) {
+        const float u1 = random_float(state);
+        const float u2 = random_float(state);
+        const float n_lights = prm[kLightCount];
+        const int li = min(static_cast<int>(u1 * n_lights), max(static_cast<int>(n_lights) - 1, 0));
+        const float* __restrict__ lrow = lights + static_cast<size_t>(li) * kLightWidth;
+        const int tri = u2 >= __ldg(lrow + 9) ? static_cast<int>(__ldg(lrow + 10)) : li;
+        const float* __restrict__ lt = lights + static_cast<size_t>(tri) * kLightWidth;
+        const float* __restrict__ o2w_row =
+            o2w + static_cast<size_t>(static_cast<int>(__ldg(row + 48))) * 12;
+        float m[12];
+#pragma unroll
+        for (int k = 0; k < 12; ++k) m[k] = __ldg(o2w_row + k);
+        const V3 w0 = apply_point(m, load3(lt, 0));
+        const V3 w1 = apply_point(m, load3(lt, 3));
+        const V3 w2 = apply_point(m, load3(lt, 6));
+        float rx = random_float(state);
+        float ry = random_float(state);
+        if (rx + ry > 1.0f) {
+          rx = 1.0f - rx;
+          ry = 1.0f - ry;
+        }
+        lpos = {w0.x + rx * (w1.x - w0.x) + ry * (w2.x - w0.x),
+                w0.y + rx * (w1.y - w0.y) + ry * (w2.y - w0.y),
+                w0.z + rx * (w1.z - w0.z) + ry * (w2.z - w0.z)};
+        lnrm = normalize(cross(w1 - w0, w2 - w0));
+        chose_light = random_float(state) < 0.5f;
+      }
+      random_unit(state);  // the sphere-pdf direction, which no material takes
       const V3 cl = random_cosine(state);
       if (is_lamb) {
-        // make_onb_v3 about the normal; the cosine direction
-        const V3 axis2 = normalize(normal);
-        const bool pick_y = fabsf(axis2.x) > 0.9f;
-        const V3 up = pick_y ? v3(0.0f, 1.0f, 0.0f) : v3(1.0f, 0.0f, 0.0f);
-        const V3 axis1 = normalize(cross(axis2, up));
-        const V3 axis0 = cross(axis2, axis1);
-        const V3 sdir = {cl.x * axis0.x + cl.y * axis1.x + cl.z * axis2.x,
-                         cl.x * axis0.y + cl.y * axis1.y + cl.z * axis2.y,
-                         cl.x * axis0.z + cl.y * axis1.z + cl.z * axis2.z};
-        // pdf_value_v3, cosine branch; the ratio pdf/pdf is 1 except where
-        // the pdf is 0 (guarded 0/0)
+        const V3 sdir = chose_light ? lpos - p : cosine_direction(normal, cl);
+        // pdf_value_v3: the cosine pdf of sdir (and with lights its light pdf)
         const float dn = sqrtf(dot(sdir, sdir));
         const float inv = 1.0f / (dn == 0.0f ? 1.0f : dn);
-        const float scatter_pdf = fmaxf(dot(sdir * inv, normal) * (1.0f / kPi), 0.0f);
-        const float ratio = scatter_pdf > 0.0f ? 1.0f : 0.0f;
+        const V3 unit = sdir * inv;
+        const float scatter_pdf = fmaxf(dot(unit, normal) * (1.0f / kPi), 0.0f);
+        // Without lights the ratio pdf/pdf is 1 except where the pdf is 0
+        // (guarded 0/0).
+        float ratio = scatter_pdf > 0.0f ? 1.0f : 0.0f;
+        if constexpr (kLights) {
+          const float dist_sq = dot(sdir, sdir);
+          const float cos_l = fabsf(-dot(lnrm, unit));
+          const float light_pdf =
+              cos_l <= 0.0f ? 0.0f : (dist_sq / cos_l) * (1.0f / prm[kLightArea]);
+          const float pdf_value = 0.5f * light_pdf + 0.5f * scatter_pdf;
+          ratio = pdf_value > 0.0f ? scatter_pdf / pdf_value : 0.0f;
+        }
         thr = thr * attenuation * ratio;
         d = normalize(sdir);
       } else {  // metal or dielectric: skip the pdf
@@ -555,12 +637,13 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
   traced_out[pix] = traced;
 }
 
-template <bool kAnim, bool kTris>
+template <bool kAnim, bool kTris, bool kLights>
 int launch(const void* table8, const void* dtab8, const void* times, int s8, const void* tris12,
            int t8, const void* tri_boxes, int n_clusters, int cluster_g, int s_pad,
-           const void* rows, int n_rows, const void* fparams, int width, int height,
-           int sqrt_spp, int spp_local, int n_batches, int batch0, int sample_base,
-           int max_depth, int flags, void* sums, void* traced, void* stream) {
+           const void* lights16, const void* o2w12, const void* rows, int n_rows,
+           const void* fparams, int width, int height, int sqrt_spp, int spp_local,
+           int n_batches, int batch0, int sample_base, int max_depth, int flags, void* sums,
+           void* traced, void* stream) {
   const int n_pix = width * height;
   if (n_pix <= 0) return static_cast<int>(cudaGetLastError());
   const size_t smem = (kNumParams + 4 * kStride<kAnim> * static_cast<size_t>(s8) +
@@ -568,15 +651,16 @@ int launch(const void* table8, const void* dtab8, const void* times, int s8, con
                       sizeof(float);
   if (smem > 48 * 1024) {  // above the default limit it must be opted into
     const cudaError_t err =
-        cudaFuncSetAttribute(megakernel<kAnim, kTris>,
+        cudaFuncSetAttribute(megakernel<kAnim, kTris, kLights>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int blocks = (n_pix + kThreads - 1) / kThreads;
-  megakernel<kAnim, kTris><<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  megakernel<kAnim, kTris, kLights><<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(table8), static_cast<const float4*>(dtab8),
       static_cast<const float*>(times), s8, static_cast<const float4*>(tris12), t8,
       static_cast<const float4*>(tri_boxes), n_clusters, cluster_g, s_pad,
+      static_cast<const float*>(lights16), static_cast<const float*>(o2w12),
       static_cast<const float*>(rows), n_rows, static_cast<const float*>(fparams), width, height,
       sqrt_spp, spp_local, n_batches, batch0, sample_base, max_depth, flags,
       static_cast<float*>(sums), static_cast<int*>(traced));
@@ -589,42 +673,44 @@ int launch(const void* table8, const void* dtab8, const void* times, int s8, con
 // else the [s8, 8] f32 motion rows (16-byte aligned), and times: every
 // batch's shutter time, [>= batch0 + n_batches] f32; tris12: null for no
 // triangles, else the [t8, 12] f32 soup (v0, valid, e1, -, e2, -; 16-byte
-// aligned, not with dtab8), tri_boxes: [n_clusters, 8] f32 cluster boxes
-// (min, -, max, -), cluster_g: triangles per cluster, s_pad: the primitive
-// id of triangle 0; rows: [n_rows, 64] f32; fparams: [40] f32 (layout
+// aligned, not with dtab8; t8: the rows swept, the real triangles),
+// tri_boxes: [n_clusters, 8] f32 cluster boxes (min, -, max, -), cluster_g:
+// triangles per cluster, s_pad: the primitive id of triangle 0; lights16:
+// null for no lights, else the [n_lights, 16] f32 light rows (p0 p1 p2,
+// prob, alias; not with dtab8) and o2w12 the [n_instances, 12] f32
+// objectToWorld rows; rows: [n_rows, 64] f32; fparams: [40] f32 (layout
 // above); sums: [height * width, 3] f32 out; traced: [height * width] i32
 // out.  Launches on `stream` without synchronising and returns
 // cudaGetLastError().
 extern "C" int megakernel_launch(const void* table8, const void* dtab8, const void* times,
                                  int s8, const void* tris12, int t8, const void* tri_boxes,
-                                 int n_clusters, int cluster_g, int s_pad, const void* rows,
-                                 int n_rows, const void* fparams, int width, int height,
-                                 int sqrt_spp, int spp_local, int n_batches, int batch0,
-                                 int sample_base, int max_depth, int flags, void* sums,
-                                 void* traced, void* stream) {
-  if (tris12 != nullptr) {
-    if (dtab8 != nullptr || tri_boxes == nullptr || cluster_g <= 0) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    return launch<false, true>(table8, dtab8, times, s8, tris12, t8, tri_boxes, n_clusters,
-                               cluster_g, s_pad, rows, n_rows, fparams, width, height, sqrt_spp,
-                               spp_local, n_batches, batch0, sample_base, max_depth, flags, sums,
-                               traced, stream);
+                                 int n_clusters, int cluster_g, int s_pad, const void* lights16,
+                                 const void* o2w12, const void* rows, int n_rows,
+                                 const void* fparams, int width, int height, int sqrt_spp,
+                                 int spp_local, int n_batches, int batch0, int sample_base,
+                                 int max_depth, int flags, void* sums, void* traced,
+                                 void* stream) {
+#define MEGA_ARGS                                                                         \
+  table8, dtab8, times, s8, tris12, t8, tri_boxes, n_clusters, cluster_g, s_pad, lights16, \
+      o2w12, rows, n_rows, fparams, width, height, sqrt_spp, spp_local, n_batches, batch0, \
+      sample_base, max_depth, flags, sums, traced, stream
+  if (tris12 != nullptr && (dtab8 != nullptr || tri_boxes == nullptr || cluster_g <= 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtab8 != nullptr) {
-    if (times == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    return launch<true, false>(table8, dtab8, times, s8, tris12, t8, tri_boxes, n_clusters,
-                               cluster_g, s_pad, rows, n_rows, fparams, width, height, sqrt_spp,
-                               spp_local, n_batches, batch0, sample_base, max_depth, flags, sums,
-                               traced, stream);
+  if (lights16 != nullptr && (dtab8 != nullptr || o2w12 == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch<false, false>(table8, dtab8, times, s8, tris12, t8, tri_boxes, n_clusters,
-                              cluster_g, s_pad, rows, n_rows, fparams, width, height, sqrt_spp,
-                              spp_local, n_batches, batch0, sample_base, max_depth, flags, sums,
-                              traced, stream);
+  if (dtab8 != nullptr && times == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (lights16 != nullptr) {
+    return tris12 != nullptr ? launch<false, true, true>(MEGA_ARGS)
+                             : launch<false, false, true>(MEGA_ARGS);
+  }
+  if (tris12 != nullptr) return launch<false, true, false>(MEGA_ARGS);
+  if (dtab8 != nullptr) return launch<true, false, false>(MEGA_ARGS);
+  return launch<false, false, false>(MEGA_ARGS);
+#undef MEGA_ARGS
 }
 
 extern "C" const char* megakernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
-

@@ -2,7 +2,8 @@
 
 ``SceneArrays`` holds the scene's tensors, field for field the JAX
 package's ``SceneArrays``, so ``from_jax_scene`` can carry the JAX arrays
-across unchanged and the tests can feed both packages the same state.
+across and the tests can feed both packages the same state; only
+``light_tri_packed`` also holds the alias table (``light_table16``).
 ``SceneStatic`` holds the host-side facts that select code paths.
 ``from_jax_compiled`` carries the JAX package's ``CompiledScene`` over to
 the port's, so one compiled scene can feed both packages.
@@ -43,7 +44,9 @@ class SceneArrays(NamedTuple):
     light_prob: torch.Tensor
     light_alias: torch.Tensor
     light_tri_p: torch.Tensor
-    light_tri_packed: torch.Tensor  # [L,16] p0 p1 p2 pad
+    # [L,16] p0 p1 p2 | prob | alias (as f32) | pad: one 64-byte row a
+    # light, the alias table and the triangle together (light_table16)
+    light_tri_packed: torch.Tensor
     light_count: torch.Tensor       # i32 scalar
     light_total_area: torch.Tensor  # f32 scalar
     # textures
@@ -106,6 +109,22 @@ class SceneStatic:
     # Triangles per contiguous cluster of the soup
     # (models/sphere_order.apply_triangle_order); 0 = file order.
     tri_cluster_g: int = 0
+    num_instances: int = 0
+
+
+def light_table16(tri_p, prob, alias) -> np.ndarray:
+    """[L, 16] f32 light rows: the object-space triangle p0 p1 p2 in
+    columns 0:9, the alias table's probability in 9 and its alias (an
+    integer below 2^24, exact in f32) in 10, zeros after.  One 64-byte row
+    a light, which the fused kernel reads by index (the JAX package's
+    build_mega_tables layout, raytrace_tpu/ops/megakernel.py:2284-2289,
+    transposed to rows); the wavefront reads columns 0:9."""
+    tri_p = np.asarray(tri_p, np.float32)
+    out = np.zeros((len(tri_p), 16), np.float32)
+    out[:, 0:9] = tri_p.reshape(len(tri_p), 9)
+    out[:, 9] = np.asarray(prob, np.float32)
+    out[:, 10] = np.asarray(alias, np.int32).astype(np.float32)
+    return out
 
 
 def _scene_numpy(cs: CompiledScene) -> dict:
@@ -128,8 +147,8 @@ def _scene_numpy(cs: CompiledScene) -> dict:
         inst_t0=f32(cs.inst_t0), inst_t1=f32(cs.inst_t1),
         light_prob=f32(cs.light_prob), light_alias=i32(cs.light_alias),
         light_tri_p=f32(cs.light_tri_p),
-        light_tri_packed=f32(np.pad(
-            cs.light_tri_p.reshape(len(cs.light_tri_p), 9), ((0, 0), (0, 7)))),
+        light_tri_packed=light_table16(cs.light_tri_p, cs.light_prob,
+                                       cs.light_alias),
         light_count=i32(cs.light_count),
         light_total_area=f32(cs.light_total_area),
         const_colours=f32(cs.const_colours),
@@ -187,16 +206,22 @@ def upload_scene(cs: CompiledScene, device):
         has_spheres=bool(cs.num_spheres > 0),
         num_triangles=int(cs.num_triangles),
         tri_cluster_g=int(cs.tri_cluster_g),
+        num_instances=int(cs.num_instances),
     )
     return arrays, static
 
 
 def from_jax_scene(scene_arrays, device="cpu") -> SceneArrays:
     """The JAX package's SceneArrays (or any object with the same fields
-    that numpy can read) → the port's SceneArrays on ``device``."""
-    return _to_device(
-        {k: np.asarray(getattr(scene_arrays, k)) for k in SceneArrays._fields},
-        device)
+    that numpy can read) → the port's SceneArrays on ``device``.  Every
+    field is carried across unchanged but ``light_tri_packed``, whose
+    columns 9 and 10 the JAX package leaves zero: it is packed again with
+    the alias table (``light_table16``)."""
+    arrays = {k: np.asarray(getattr(scene_arrays, k))
+              for k in SceneArrays._fields}
+    arrays["light_tri_packed"] = light_table16(
+        arrays["light_tri_p"], arrays["light_prob"], arrays["light_alias"])
+    return _to_device(arrays, device)
 
 
 def _port_record(value):

@@ -20,16 +20,18 @@ on the CPU; True takes the fused path wherever the gate admits the scene
 
 - ``"fused"``: a static scene; a chunk of batches is one launch.
 - ``"fused_anim"``: spheres that move on straight lines at a constant
-  radius, and no triangles; one geometry (the spheres at shutter time 0
-  and their motion) serves every batch, the kernel moves them to each
-  batch's time, and a chunk is one launch.
+  radius, and no triangles or lights; one geometry (the spheres at
+  shutter time 0 and their motion) serves every batch, the kernel moves
+  them to each batch's time, and a chunk is one launch.
 - ``"fused_per_batch"``: other motion, and any motion in a scene with
-  triangles; one launch per batch, each from that batch's world table and
-  soup (the JAX renderer's ``step`` scan).
+  triangles or lights; one launch per batch, each from that batch's world
+  table, soup and instance transforms (the JAX renderer's ``step`` scan).
 - ``"wavefront"``: per-batch world tables, one batch at a time.
 
 A static scene's triangle soup goes to world space once; an animated
-one's at every batch's time.
+one's at every batch's time.  The instance transforms that move a light
+sample (the hit-instance quirk, ops/nee.py) come with the soup, or, in a
+scene without triangles, at each batch's time.
 """
 
 from __future__ import annotations
@@ -95,8 +97,6 @@ def unsupported_feature(static: SceneStatic) -> Optional[str]:
     """Why this port cannot render the scene yet, naming the ROADMAP
     queue 1 item that will add it; None when it is inside the slice.
     ``static`` is the Renderer's, with ``sphere_world_mode`` set."""
-    if static.has_lights:
-        return "lights (ROADMAP queue 1: 'NEE with lights')"
     if static.flags.has_image:
         return "image textures (ROADMAP queue 1: 'Image textures')"
     if static.flags.has_noise:
@@ -172,7 +172,7 @@ class Renderer:
         # The animated fused kernel's one geometry, built once.
         self._anim_geom = None
         if (self.use_megakernel and self.static.any_animated
-                and not self.static.has_tris):
+                and not (self.static.has_tris or self.static.has_lights)):
             tables = world_sphere_anim_tables(compiled)
             if tables is not None:
                 tab0, dtab8 = (torch.tensor(t, device=self.device)
@@ -217,7 +217,8 @@ class Renderer:
         if self.static.has_tris and tris is None:
             tris = prepare_tris(self.static, self.scene,
                                 self.batch_times_dev[batch])
-        return prepare_batch(self.static, self.scene, sph_table, tris=tris)
+        return prepare_batch(self.static, self.scene, sph_table, tris=tris,
+                             batch_time=self.batch_times_dev[batch])
 
     def _record(self, batches: int, rays: int, t0: float) -> None:
         dt = _time.perf_counter() - t0

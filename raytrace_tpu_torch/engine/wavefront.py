@@ -11,9 +11,11 @@ which both ends the loop and drives the tail compaction.
 
 Covered here: spheres in world mode with direct normals, triangles swept
 densely (the kernel K2) with their hit point and normal rebuilt from the
-packed position and attribute tables, fat-row shading and no lights;
-animated spheres and instances through per-batch geometry.  The Renderer
-rejects every other scene.
+packed position and attribute tables, fat-row shading, next-event
+estimation with lights (the alias-table light sample moved by the hit
+instance's objectToWorld, and the 50/50 mixture of the light and material
+pdfs); animated spheres and instances through per-batch geometry.  The
+Renderer rejects every other scene.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from ..ops import camera as cam_ops
 from ..ops import (megakernel, nee, rng, shading, sphere_sweep, transforms,
                    tri_sweep, vec3)
 from ..ops.intersect import T_MAX, Hit
+from ..ops.materials import LIGHT_PDF
 from ..ops.spheres import SphereHit
 from ..ops.vec3 import V3
 from .arrays import SceneArrays, SceneStatic
@@ -69,6 +72,10 @@ class BatchGeometry(NamedTuple):
     # v0, e1, e2 each padded to four floats, and [C, 8] cluster boxes.
     tri_table12: Optional[torch.Tensor] = None
     tri_boxes: Optional[torch.Tensor] = None
+    # [I, 12] every instance's objectToWorld at the batch's time, row-major
+    # 3x4: the light sample's transform (raytrace_tpu/engine/wavefront.py:
+    # 755, :875-876); None when the geometry was built without a time.
+    inst_o2w_rows: Optional[torch.Tensor] = None
 
 
 def _compact_size(R: int) -> int:
@@ -134,6 +141,7 @@ def prepare_tris(static: SceneStatic, scene: SceneArrays,
     table16 = tri_sweep.pack_tri_table(world_p, static.num_triangles)
     T8 = table16.shape[0]
     return dict(
+        inst_o2w_rows=_o2w_rows(mats),
         world_p=world_p, world_n=world_n, tri_table16=table16,
         tri_attr16=tri_attr_table(world_n, scene.tri_uv, T8),
         tri_table12=megakernel.tri_table12(table16),
@@ -141,17 +149,25 @@ def prepare_tris(static: SceneStatic, scene: SceneArrays,
             table16, static.num_triangles, megakernel.tri_group(static, T8)))
 
 
+def _o2w_rows(mats: transforms.InstanceMatrices) -> torch.Tensor:
+    return mats.object_to_world.reshape(-1, 12).contiguous()
+
+
 def prepare_batch(static: SceneStatic, scene: SceneArrays,
                   sph_table: torch.Tensor,
                   sph_dtab: Optional[torch.Tensor] = None,
-                  tris: Optional[dict] = None) -> BatchGeometry:
+                  tris: Optional[dict] = None,
+                  batch_time: Optional[torch.Tensor] = None) -> BatchGeometry:
     """Kernel tables and fat rows for one batch.
 
     sph_table: [S, 5] world sphere rows at the batch time
     (ops/spheres.world_sphere_tables), or at shutter time 0 when
     ``sph_dtab`` ([S8, 8], ops/spheres.world_sphere_anim_tables) gives the
     spheres' linear motion.  A scene with triangles takes ``tris``, the
-    fields ``prepare_tris`` built for the batch's time.  Rows of
+    fields ``prepare_tris`` built for the batch's time, with the instances'
+    objectToWorld rows at that time; a scene with lights and without
+    triangles takes ``batch_time`` (a 0-dim f32 tensor) for those rows
+    (a scene without lights needs none).  Rows of
     ``prim_rows``: [0:32] shading row |
     [44:47] world center | [47] world radius | [48] instance id | [49:52]
     the center's motion delta when ``sph_dtab`` is given; a triangle's row
@@ -177,8 +193,15 @@ def prepare_batch(static: SceneStatic, scene: SceneArrays,
         att = tris["tri_attr16"]
         T = min(att.shape[0], P - s_pad)
         rows[s_pad:s_pad + T, 49:58] = att[:T, 0:9]
+    extra = dict(tris or {})
+    if tris is None and batch_time is not None and static.has_lights:
+        extra["inst_o2w_rows"] = _o2w_rows(transforms.interpolate_instances(
+            scene.inst_t0, scene.inst_t1, batch_time))
+    if static.has_lights and extra.get("inst_o2w_rows") is None:
+        raise ValueError("a scene with lights needs the batch time (or "
+                         "prepare_tris's tables)")
     return BatchGeometry(sph_table8=sphere_sweep.pad_table8(sph_table),
-                         prim_rows=rows, sph_dtab8=sph_dtab, **(tris or {}))
+                         prim_rows=rows, sph_dtab8=sph_dtab, **extra)
 
 
 def combine_hits(sph: Optional[SphereHit], tri: Optional[Hit], s_pad: int,
@@ -269,8 +292,8 @@ class _Wave(NamedTuple):
     alive: torch.Tensor     # [n] bool
 
 
-def _bounce(static: SceneStatic, bg: V3, trace_fn, geom: BatchGeometry,
-            s_pad: int, w: _Wave) -> _Wave:
+def _bounce(static: SceneStatic, scene: SceneArrays, bg: V3, trace_fn,
+            geom: BatchGeometry, s_pad: int, w: _Wave) -> _Wave:
     """One bounce of every ray in the wave (ray_gen.glsl:467-541)."""
     raw = trace_fn(w.ray_o, w.ray_d, w.alive)
 
@@ -294,17 +317,41 @@ def _bounce(static: SceneStatic, bg: V3, trace_fn, geom: BatchGeometry,
                              accumulated)
     alive = alive & srec.is_scattered
 
-    # No lights: pdfValue == scatteringPdf and the ratio cancels to 1,
-    # except where the cosine pdf is exactly 0 (the reference's 0/0,
-    # guarded to 0 here).
-    state, chosen = nee.choose_mixture_pdf(state, srec.mat_pdf_type, False)
-    zero = vec3.zeros_like(rec.p)
-    no_light = nee.LightSampleV3(position=zero, normal=zero)
-    state, sdir = nee.gen_scatter_direction_v3(state, chosen, rec.p, normal,
-                                               no_light)
-    scatter_pdf = nee.pdf_value_v3(srec.mat_pdf_type, sdir, normal, no_light,
-                                   1.0)
-    ratio = torch.where(scatter_pdf > 0.0, 1.0, 0.0)
+    if static.has_lights:
+        # NEE / MIS (ray_gen.glsl:516-537): a light sample moved by the hit
+        # instance's objectToWorld (fat-row slot 48), the 50/50 mixture,
+        # and the material pdf over the mixture's pdf.
+        inst = rows[:, 48].to(torch.int64)
+        o2w = geom.inst_o2w_rows[inst]                   # [R, 12]
+        state, light = nee.sample_light_sources_v3(
+            state, scene, tuple(o2w[:, i] for i in range(12)))
+        state, chosen = nee.choose_mixture_pdf(state, srec.mat_pdf_type,
+                                               True)
+        state, sdir = nee.gen_scatter_direction_v3(state, chosen, rec.p,
+                                                   normal, light)
+        scatter_pdf = nee.pdf_value_v3(srec.mat_pdf_type, sdir, normal, light,
+                                       scene.light_total_area)
+        light_pdf = nee.pdf_value_v3(torch.full_like(chosen, LIGHT_PDF),
+                                     sdir, normal, light,
+                                     scene.light_total_area)
+        pdf_value = 0.5 * light_pdf + 0.5 * scatter_pdf
+        ratio = torch.where(
+            pdf_value > 0.0,
+            scatter_pdf / torch.where(pdf_value == 0.0, 1.0, pdf_value),
+            0.0)
+    else:
+        # No lights: pdfValue == scatteringPdf and the ratio cancels to 1,
+        # except where the cosine pdf is exactly 0 (the reference's 0/0,
+        # guarded to 0 here).
+        state, chosen = nee.choose_mixture_pdf(state, srec.mat_pdf_type,
+                                               False)
+        zero = vec3.zeros_like(rec.p)
+        no_light = nee.LightSampleV3(position=zero, normal=zero)
+        state, sdir = nee.gen_scatter_direction_v3(state, chosen, rec.p,
+                                                   normal, no_light)
+        scatter_pdf = nee.pdf_value_v3(srec.mat_pdf_type, sdir, normal,
+                                       no_light, 1.0)
+        ratio = torch.where(scatter_pdf > 0.0, 1.0, 0.0)
     mis_throughput = w.throughput * srec.attenuation * ratio
     mis_dir = vec3.normalize(sdir)
 
@@ -377,7 +424,7 @@ def bounce_wavefront(static: SceneStatic, scene: SceneArrays,
         rays_traced += n_alive
         if counts is not None:
             counts.index_add_(0, w.idx, w.alive.to(torch.int32))
-        w = _bounce(static, bg, trace_fn, geom, s_pad, w)
+        w = _bounce(static, scene, bg, trace_fn, geom, s_pad, w)
     flush(w)
     return V3(*out), rays_traced
 

@@ -8,15 +8,20 @@ sample order and summed, so the result is the per-pixel radiance sums and
 the per-pixel bounce counts.  ``render_tile_mega`` is the one entry point:
 for tensors on the CPU it runs the plain version, for CUDA tensors it
 launches the kernel on the current stream, or raises.  ``LAUNCHES`` counts
-kernel launches, ``ANIM_LAUNCHES`` and ``TRI_LAUNCHES`` those of the
-animated and the triangle forms, so a run can show that its main path
-went through the kernel.
+kernel launches, ``ANIM_LAUNCHES``, ``TRI_LAUNCHES`` and ``LIGHT_LAUNCHES``
+those of the animated, the triangle and the lit forms, so a run can show
+that its main path went through the kernel.
 
 The kernel covers spheres in world space with direct normals, triangle
-soups in world space, fat-row shading, no lights and no image or noise
+soups in world space, fat-row shading, lights, and no image or noise
 textures; ``megakernel_supported`` is that gate, decided from facts about
-the scene.  Triangles take the kernel's third form (``MegaConfig.tris``):
-the soup's table (``tri_table12``) and its cluster boxes
+the scene.  Lights take the kernel's lit form (``MegaConfig.lights``): the
+scene's light rows (``SceneArrays.light_tri_packed``, the triangle and the
+alias table in one 64-byte row) and the batch's instance transforms
+(``BatchGeometry.inst_o2w_rows``) go to the kernel, which samples a light
+point after every scattering hit as the wavefront does (ops/nee.py).
+Triangles take the kernel's third form (``MegaConfig.tris``): the soup's
+table (``tri_table12``) and its cluster boxes
 (``cluster_boxes``) come with the batch's geometry, and the kernel tests
 the triangles of each cluster whose box its ray may hit first, which
 gives the dense triangle sweep's closest hit (ops/tri_sweep.py).
@@ -48,11 +53,12 @@ from .intersect import T_MAX, T_MIN, Hit
 from .spheres import SphereHit
 from .vec3 import V3
 
-# Launches of the kernel, of any form, and of its animated and triangle
-# forms alone.
+# Launches of the kernel, of any form, and of its animated, triangle and
+# lit forms alone.
 LAUNCHES = 0
 ANIM_LAUNCHES = 0
 TRI_LAUNCHES = 0
+LIGHT_LAUNCHES = 0
 
 _N_PARAMS = 40  # csrc/megakernel.cu kNumParams
 _USE_DOF, _HAS_CHECKER, _HAS_EMISSIVE = 1, 2, 4
@@ -95,30 +101,37 @@ class MegaConfig(NamedTuple):
     has_emissive: bool
     anim: bool
     tris: bool
-    S8: int         # sphere table rows; also the primitive id of triangle 0
+    lights: bool
+    S8: int        # sphere table rows; also the primitive id of triangle 0
     P: int
     T8: int         # triangle table rows (0 without triangles)
+    n_tris: int     # the real triangles, the rows the kernel sweeps
     tri_g: int      # triangles per cluster
     n_clusters: int
 
 
 def megakernel_supported(static) -> bool:
     """Scenes the fused kernel covers: spheres in world space (uniform
-    scale, so the world table holds), fat-row shading, no lights, no image
-    or noise textures, at most MAX_SPHERES spheres (MAX_SPHERES_ANIM when
-    they move), and at most MAX_TRIANGLES triangles in clusters or
-    MAX_TRIANGLES_DENSE in file order (raytrace_tpu/ops/megakernel.py:
-    2743-2785).  Animated scenes are admitted under the JAX package's
-    conditions for its fused animated kernel (raytrace_tpu/engine/
-    renderer.py:468-472).  Every other scene renders on the wavefront.
-    The Renderer's triangle ceiling reads this gate too."""
+    scale, so the world table holds), fat-row shading, no image or noise
+    textures, at most MAX_SPHERES spheres (MAX_SPHERES_ANIM when they
+    move), and at most MAX_TRIANGLES triangles in clusters or
+    MAX_TRIANGLES_DENSE in file order; with or without lights
+    (raytrace_tpu/ops/megakernel.py:2743-2785, as one predicate).  The JAX
+    gate's cap of 64 instances on lit scenes (:2783) is not carried over:
+    it is the TPU's SMEM budget for the instance transforms, which this
+    kernel reads from global memory.  Animated scenes are admitted under
+    the JAX package's conditions for its fused animated kernel
+    (raytrace_tpu/engine/renderer.py:468-472); a lit animated scene renders
+    one launch per batch (the Renderer's ``fused_per_batch``).  Every other
+    scene renders on the wavefront.  The Renderer's triangle ceiling reads
+    this gate too."""
     f = static.flags
     cap = MAX_SPHERES_ANIM if static.any_animated else MAX_SPHERES
     tri_max = (MAX_TRIANGLES if static.tri_cluster_g > 0
                else MAX_TRIANGLES_DENSE)
     return (static.use_fat_shading
             and (static.sphere_world_mode or not static.has_spheres)
-            and not (static.has_lights or f.has_image or f.has_noise)
+            and not (f.has_image or f.has_noise)
             and static.num_spheres <= cap
             and static.num_triangles <= tri_max)
 
@@ -210,7 +223,9 @@ def make_config(static, geom, use_dof: bool, n_batches: int) -> MegaConfig:
         has_checker=static.flags.has_checker,
         has_emissive=static.flags.has_emissive,
         anim=geom.sph_dtab8 is not None, tris=tris,
+        lights=bool(static.has_lights),
         S8=geom.sph_table8.shape[0], P=geom.prim_rows.shape[0], T8=T8,
+        n_tris=min(T8, static.num_triangles),
         tri_g=tri_group(static, T8) if tris else 0,
         n_clusters=geom.tri_boxes.shape[0] if tris else 0)
 
@@ -219,7 +234,8 @@ def _float_params(cfg: MegaConfig, static, scene, cam) -> torch.Tensor:
     """The kernel's [40] f32 parameter block, built on the device: view
     and projection inverses (row-major), focal length, aperture, the sky
     colour (direction-independent, render_tile_mega :2894-2900),
-    f32(1 / sqrt_spp)."""
+    f32(1 / sqrt_spp), then in slots 38 and 39 the light count as f32 and
+    the lights' total area (:2909-2910)."""
     from ..engine.wavefront import _background_v3
 
     dev = cam.view_inverse.device
@@ -228,8 +244,10 @@ def _float_params(cfg: MegaConfig, static, scene, cam) -> torch.Tensor:
     out = torch.cat([
         cam.view_inverse.reshape(16), cam.proj_inverse.reshape(16),
         cam.focal_length.reshape(1), cam.aperture_size.reshape(1),
-        torch.stack(list(_background_v3(static, scene))), recip])
-    return torch.nn.functional.pad(out, (0, _N_PARAMS - out.shape[0]))
+        torch.stack(list(_background_v3(static, scene))), recip,
+        scene.light_count.to(torch.float32).reshape(1),
+        scene.light_total_area.reshape(1)])
+    return out
 
 
 def geometry_at(geom, t: torch.Tensor):
@@ -238,15 +256,13 @@ def geometry_at(geom, t: torch.Tensor):
     arithmetic is the kernel's: c + t * dc for each centre coordinate,
     k + t * (k1 + t * k2), in f32 (raytrace_tpu/ops/megakernel.py:1420-1436
     and :1876-1882)."""
-    from ..engine.wavefront import BatchGeometry
-
     tab, dt = geom.sph_table8, geom.sph_dtab8
     table8 = tab.clone()
     table8[:, 0:3] = tab[:, 0:3] + t * dt[:, 0:3]
     table8[:, 4] = tab[:, 4] + t * (dt[:, 4] + t * dt[:, 5])
     rows = geom.prim_rows.clone()
     rows[:, 44:47] = rows[:, 44:47] + t * rows[:, 49:52]
-    return BatchGeometry(sph_table8=table8, prim_rows=rows)
+    return geom._replace(sph_table8=table8, prim_rows=rows, sph_dtab8=None)
 
 
 def megakernel_reference(static, scene, geom, cam, batch0: int,
@@ -297,7 +313,8 @@ def megakernel_reference(static, scene, geom, cam, batch0: int,
     return sums.reshape(H, W, 3), traced.reshape(H, W)
 
 
-def _check_inputs(cfg: MegaConfig, geom, params, times, batch0: int) -> None:
+def _check_inputs(cfg: MegaConfig, scene, geom, params, times,
+                  batch0: int) -> None:
     table8, rows = geom.sph_table8, geom.prim_rows
     device = table8.device
     if (table8.dtype != torch.float32 or table8.dim() != 2
@@ -320,6 +337,8 @@ def _check_inputs(cfg: MegaConfig, geom, params, times, batch0: int) -> None:
         raise ValueError("sph_table8 must be 16-byte aligned (float4 loads)")
     if cfg.tris:
         _check_tris(cfg, geom, device)
+    if cfg.lights:
+        _check_lights(cfg, scene, geom, device)
     if not cfg.anim:
         return
     dtab = geom.sph_dtab8
@@ -355,6 +374,25 @@ def _check_tris(cfg: MegaConfig, geom, device) -> None:
                          f"(megakernel_supported)")
 
 
+def _check_lights(cfg: MegaConfig, scene, geom, device) -> None:
+    """Shapes and devices only, so no check waits on the card: the light
+    count the kernel reads (``scene.light_count``) is the table's row
+    count for any lit scene (models/compile.py _build_light_table)."""
+    lights, o2w = scene.light_tri_packed, geom.inst_o2w_rows
+    if cfg.anim:
+        raise ValueError("the animated form takes no lights")
+    if (lights.dtype != torch.float32 or lights.dim() != 2
+            or lights.shape[0] < 1 or lights.shape[1] != 16
+            or lights.device != device or not lights.is_contiguous()):
+        raise ValueError("light_tri_packed must be a contiguous float32 "
+                         "[L, 16] tensor (L >= 1) on the table's device")
+    if o2w is None or (o2w.dtype != torch.float32 or o2w.dim() != 2
+                       or o2w.shape != (scene.inst_t0.shape[0], 12)
+                       or o2w.device != device or not o2w.is_contiguous()):
+        raise ValueError("a lit geometry needs inst_o2w_rows, a contiguous "
+                         "float32 [I, 12] tensor on the table's device")
+
+
 def render_tile_mega(static, scene, geom, cam, batch0: int,
                      n_batches: int = 1, sample_base: int = 0, *,
                      use_dof: bool, reduce_mean: bool = False, times=None):
@@ -365,7 +403,7 @@ def render_tile_mega(static, scene, geom, cam, batch0: int,
     traced is each pixel's number of bounces.  An animated geometry
     (``geom.sph_dtab8``) needs ``times``, every batch's shutter time
     ([B] f32 on the geometry's device); a static one ignores it."""
-    global LAUNCHES, ANIM_LAUNCHES, TRI_LAUNCHES
+    global LAUNCHES, ANIM_LAUNCHES, TRI_LAUNCHES, LIGHT_LAUNCHES
     device = geom.sph_table8.device
     cfg = make_config(static, geom, use_dof, n_batches)
     if cfg.anim and times is None:
@@ -378,7 +416,7 @@ def render_tile_mega(static, scene, geom, cam, batch0: int,
         raise ValueError(f"no fused bounce kernel for device {device}")
     else:
         params = _float_params(cfg, static, scene, cam)
-        _check_inputs(cfg, geom, params, times, batch0)
+        _check_inputs(cfg, scene, geom, params, times, batch0)
         if cfg.tris and cfg.S8 != scene.sph_center.shape[0]:
             raise ValueError("the sphere table must have a row for every "
                              "sphere slot: triangle ids start after it")
@@ -393,9 +431,12 @@ def render_tile_mega(static, scene, geom, cam, batch0: int,
             geom.sph_table8.data_ptr(),
             geom.sph_dtab8.data_ptr() if cfg.anim else None,
             times.data_ptr() if cfg.anim else None, cfg.S8,
-            geom.tri_table12.data_ptr() if cfg.tris else None, cfg.T8,
+            geom.tri_table12.data_ptr() if cfg.tris else None, cfg.n_tris,
             geom.tri_boxes.data_ptr() if cfg.tris else None, cfg.n_clusters,
-            cfg.tri_g, cfg.S8, geom.prim_rows.data_ptr(),
+            cfg.tri_g, cfg.S8,
+            scene.light_tri_packed.data_ptr() if cfg.lights else None,
+            geom.inst_o2w_rows.data_ptr() if cfg.lights else None,
+            geom.prim_rows.data_ptr(),
             cfg.P, params.data_ptr(), W, H, cfg.sqrt_spp, cfg.spp_local,
             cfg.n_batches, int(batch0), int(sample_base), cfg.max_depth,
             flags, sums.data_ptr(), traced.data_ptr(),
@@ -407,6 +448,7 @@ def render_tile_mega(static, scene, geom, cam, batch0: int,
         LAUNCHES += 1
         ANIM_LAUNCHES += cfg.anim
         TRI_LAUNCHES += cfg.tris
+        LIGHT_LAUNCHES += cfg.lights
     if reduce_mean:
         sums = sums / float(np.float32(cfg.spp_local * cfg.n_batches))
     return sums, traced
@@ -417,8 +459,9 @@ def library() -> ctypes.CDLL:
     """The kernel's shared library, built from csrc/ at first use."""
     lib = _build.load_library("megakernel")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.megakernel_launch.argtypes = [p, p, p, i, p, i, p, i, i, i, p, i, p,
-                                      i, i, i, i, i, i, i, i, i, p, p, p]
+    lib.megakernel_launch.argtypes = [p, p, p, i, p, i, p, i, i, i, p, p, p,
+                                      i, p, i, i, i, i, i, i, i, i, i, p, p,
+                                      p]
     lib.megakernel_launch.restype = i
     lib.megakernel_error_string.argtypes = [i]
     lib.megakernel_error_string.restype = ctypes.c_char_p

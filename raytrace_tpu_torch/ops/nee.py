@@ -1,10 +1,14 @@
-"""Next-event estimation, the no-light branch (raytrace_tpu/ops/nee.py:27,
-:71, :95, :107).
+"""Next-event estimation: alias-table light sampling, the 50/50 mixture
+choice and pdf evaluation (raytrace_tpu/ops/nee.py:27-124,
+ray_gen.glsl:252-326).
 
 Scenes without lights sample only the material pdf; the light sample is a
-zero placeholder that no pdf branch reads.  Light sampling (the alias table
-and the hit-instance o2w quirk) is still to port: ROADMAP queue 1, 'NEE
-with lights'.
+zero placeholder that no pdf branch reads.
+
+QUIRK kept (SURVEY.md §8 #2): the sampled light triangle, stored in object
+space, is moved to the world by the objectToWorld of the instance that was
+HIT, not by the light's own.  That is right only where the two coincide;
+the reference does it, so the port does it too.
 """
 
 from __future__ import annotations
@@ -29,13 +33,36 @@ class LightSampleV3(NamedTuple):
 
 
 def choose_mixture_pdf(state, mat_pdf_type, has_lights: bool):
-    """50/50 light/material choice (ray_gen.glsl:317-326); without lights
-    the material pdf is used and no RNG is consumed."""
-    if has_lights:
-        raise NotImplementedError(
-            "NEE with lights is not ported yet (ROADMAP queue 1: "
-            "'NEE with lights')")
-    return state, mat_pdf_type
+    """50/50 light/material choice (ray_gen.glsl:317-326): one draw, and
+    r < 0.5 picks the light pdf.  Without lights the material pdf is used
+    and no RNG is consumed (the reference's early return)."""
+    if not has_lights:
+        return state, mat_pdf_type
+    state, r = rng.random_float(state)
+    return state, torch.where(r < 0.5, LIGHT_PDF,
+                              mat_pdf_type).to(torch.int32)
+
+
+def sample_light_sources_v3(state, scene, o2w_cols):
+    """One point on a light triangle picked by the alias table, in world
+    space (raytrace_tpu/ops/nee.py:46-68).  ``o2w_cols`` are the 12 [R]
+    entries of the HIT instance's objectToWorld (the quirk above)."""
+    state, u1 = rng.random_float(state)
+    state, u2 = rng.random_float(state)
+
+    n = scene.light_count.to(torch.float32)
+    n_idx = torch.clamp_min(scene.light_count - 1, 0)
+    i = torch.minimum((u1 * n).to(torch.int32), n_idx).long()
+    use_alias = u2 >= scene.light_prob[i]
+    tri_index = torch.where(use_alias, scene.light_alias[i].long(), i)
+
+    row = scene.light_tri_packed[tri_index]        # [R, 16]: p0 p1 p2 ...
+    w0, w1, w2 = (vec3.mat34_apply_point(
+        o2w_cols, V3(row[:, c], row[:, c + 1], row[:, c + 2]))
+        for c in (0, 3, 6))
+    state, position = rng.sample_triangle_uniform_v3(state, w0, w1, w2)
+    nrm = vec3.normalize(vec3.cross(w1 - w0, w2 - w0))
+    return state, LightSampleV3(position=position, normal=nrm)
 
 
 def pdf_value_v3(pdf_type, direction: V3, normal: V3, light: LightSampleV3,

@@ -81,6 +81,21 @@ def random_cosine_v3(state):
     )
 
 
+def sample_triangle_uniform_v3(state, p0: V3, p1: V3, p2: V3):
+    """Uniform point on a triangle (common.glsl:383-394): two draws, then
+    the fold of (rx, ry) into the lower triangle when rx + ry > 1."""
+    state, rx = random_float(state)
+    state, ry = random_float(state)
+    flip = rx + ry > 1.0
+    rx = torch.where(flip, 1.0 - rx, rx)
+    ry = torch.where(flip, 1.0 - ry, ry)
+    return state, V3(
+        p0.x + rx * (p1.x - p0.x) + ry * (p2.x - p0.x),
+        p0.y + rx * (p1.y - p0.y) + ry * (p2.y - p0.y),
+        p0.z + rx * (p1.z - p0.z) + ry * (p2.z - p0.z),
+    )
+
+
 def sample_disk_concentric_xy(state):
     """Concentric disk sample as two [R] components (common.glsl:353-373)."""
     state, u1 = random_float(state)

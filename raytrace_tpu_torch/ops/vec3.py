@@ -85,6 +85,17 @@ def reflect(i: V3, n: V3) -> V3:
     return V3(i.x - d * n.x, i.y - d * n.y, i.z - d * n.z)
 
 
+def mat34_apply_point(m_cols, p: V3) -> V3:
+    """M p + t for a row-major 3x4 matrix given as its 12 [R] entries
+    (raytrace_tpu/ops/vec3.py:121)."""
+    (m00, m01, m02, m03, m10, m11, m12, m13, m20, m21, m22, m23) = m_cols
+    return V3(
+        m00 * p.x + m01 * p.y + m02 * p.z + m03,
+        m10 * p.x + m11 * p.y + m12 * p.z + m13,
+        m20 * p.x + m21 * p.y + m22 * p.z + m23,
+    )
+
+
 def refract(i: V3, n: V3, eta) -> V3:
     """GLSL refract (i, n unit); returns 0 on total internal reflection."""
     cos_i = -dot(i, n)

@@ -3,6 +3,7 @@
     python3 raytrace_tpu_torch/tools/chip_probe.py anim [TREE]
     python3 raytrace_tpu_torch/tools/chip_probe.py chunks [TREE]
     python3 raytrace_tpu_torch/tools/chip_probe.py tris [TREE]
+    python3 raytrace_tpu_torch/tools/chip_probe.py lights [TREE]
 
 TREE is the root of a checkout whose ``raytrace_tpu_torch`` is measured
 (default: the checkout holding this file), so two trees can be compared on
@@ -25,6 +26,15 @@ not with ``-m``, so that the package comes from TREE.
   against its plain version at 96x54/depth 8/k=2 (k = 1 and 4, and the
   triangle fixture) and at 256x144/depth 50, times it at 1024x576, and
   renders the scene's one batch on the fused path and on the wavefront.
+- ``lights``: builds the fused kernel and prints nvcc's register report;
+  holds its lit forms against the plain version at depth 50, k=2 on the
+  four lit docs of tools/light_scenes.py (cornell-style at 128x128,
+  sphere-light-962 at 128x72, the lit spheres and the 70-instance doc at
+  96 wide; bit for bit or not, and two launches byte-identical), holds
+  one full batch of each light scene against the plain version (bit for
+  bit or not; the plain version's seconds and peak device memory) and
+  times it (kernel median of 3), and steps two full cornell-style
+  batches through ``Renderer`` with defaults.
 """
 
 from __future__ import annotations
@@ -231,6 +241,84 @@ def tris() -> None:
           torch.equal(s1, ref), "rays", int(rt.sum()))
 
 
+def lights() -> None:
+    import concurrent.futures
+
+    import torch
+
+    from raytrace_tpu_torch.engine import Renderer
+    from raytrace_tpu_torch.models import compile_scene
+    from raytrace_tpu_torch.ops import (_build, megakernel, sphere_sweep,
+                                        tri_sweep)
+    from raytrace_tpu_torch.scene_file import SceneFile
+    from raytrace_tpu_torch.tools import light_scenes as ls
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    print(sys.version.split()[0], torch.__version__, torch.version.cuda)
+    mods = (megakernel, tri_sweep, sphere_sweep)
+    with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
+        list(pool.map(lambda m: m.library(), mods))
+    print(_build.library_path("megakernel").with_suffix(".log").read_text())
+    dev = torch.device("cuda:0")
+
+    def doc_scene(doc, w, depth=None, batches=None):
+        cs = compile_scene(SceneFile.from_json_dict(doc), width=w)
+        return dataclasses.replace(cs, render=dataclasses.replace(
+            cs.render, max_ray_depth=depth or cs.render.max_ray_depth,
+            sample_batches=batches or cs.render.sample_batches))
+
+    for label, doc, w in (("cornell-style", ls.cornell_doc(), 128),
+                          ("sphere-light-962", ls.sphere_light_doc(), 128),
+                          ("lit spheres", ls.lit_spheres_doc(), 96),
+                          ("70 instances", ls.many_instances_doc(70), 96)):
+        r = Renderer(doc_scene(doc, w, 50, 2), device=dev)
+        args = (r.static, r.scene, r._geometry(0), r.camera, 0, 2)
+        kw = dict(use_dof=r.use_dof, times=r.batch_times_dev)
+        s1, t1 = megakernel.render_tile_mega(*args, **kw)
+        s2, t2 = megakernel.render_tile_mega(*args, **kw)
+        t0 = time.perf_counter()
+        ref, rt = megakernel.megakernel_reference(*args, **kw)
+        torch.cuda.synchronize()
+        print(label, r.path, r.static.width, r.static.height,
+              "repeat identical", torch.equal(s1, s2) and torch.equal(t1, t2),
+              "bitwise", torch.equal(s1, ref), torch.equal(t1, rt),
+              "maxdiff", (s1 - ref).abs().max().item(), "rays",
+              int(t1.sum()), int(rt.sum()), "plain s",
+              time.perf_counter() - t0, "LIGHT_LAUNCHES",
+              megakernel.LIGHT_LAUNCHES)
+
+    for label, doc in (("cornell-style", ls.cornell_doc()),
+                       ("sphere-light-962", ls.sphere_light_doc())):
+        r = Renderer(doc_scene(doc, 1024), device=dev)
+        args = (r.static, r.scene, r._geometry(0), r.camera, 0, 1)
+        kw = dict(use_dof=r.use_dof, times=r.batch_times_dev)
+        sums, traced = megakernel.render_tile_mega(*args, **kw)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        ref, rt = megakernel.megakernel_reference(*args, **kw)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        print(label, "full batch", r.static.width, r.static.height, "rays",
+              int(traced.sum()), "kernel ms",
+              _med(lambda: megakernel.render_tile_mega(*args, **kw), 3),
+              "bitwise", torch.equal(sums, ref), torch.equal(traced, rt),
+              "plain s", plain_s, "plain peak GiB",
+              torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+        del sums, traced, ref, rt
+    r = Renderer(doc_scene(ls.cornell_doc(), 1024), device=dev)
+    before = (megakernel.LIGHT_LAUNCHES, sphere_sweep.LAUNCHES,
+              tri_sweep.LAUNCHES)
+    for _ in range(2):
+        r.render_next_batch()
+    print("cornell-style main path", r.path, "Mrays/s",
+          r.stats.mrays_per_sec, "rays", r.stats.rays_traced, "launches",
+          megakernel.LIGHT_LAUNCHES - before[0],
+          sphere_sweep.LAUNCHES - before[1], tri_sweep.LAUNCHES - before[2],
+          "means", r.image().mean((0, 1)))
+
+
 def chunks(tree: str) -> None:
     import torch
 
@@ -266,7 +354,7 @@ def chunks(tree: str) -> None:
 
 
 def main(argv) -> int:
-    if len(argv) < 2 or argv[1] not in ("anim", "chunks", "tris"):
+    if len(argv) < 2 or argv[1] not in ("anim", "chunks", "tris", "lights"):
         print(__doc__, file=sys.stderr)
         return 2
     tree = str(Path(argv[2] if len(argv) > 2
@@ -280,7 +368,7 @@ def main(argv) -> int:
     if argv[1] == "chunks":
         chunks(tree)
     else:
-        {"anim": anim, "tris": tris}[argv[1]]()
+        {"anim": anim, "tris": tris, "lights": lights}[argv[1]]()
     return 0
 
 

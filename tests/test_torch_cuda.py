@@ -17,6 +17,10 @@ form (motion blur): the same, and every pixel's bounce count equal.
 Triangle sweep K2 and the fused kernel's triangle form (both built without
 contraction): bit for bit with their plain versions; the triangle form
 against the wavefront with K2: channel means within 2e-3, rays within 0.5%.
+The fused kernel's lit forms (lights, with and without triangles): bit for
+bit with their plain versions on the four lit docs of
+tools/light_scenes.py at depth 50; the Renderer's fused path against the
+wavefront: channel means within 2e-3, rays within 0.5%.
 """
 
 import dataclasses
@@ -404,3 +408,75 @@ def test_renderer_takes_the_triangle_kernel_on_the_card(dev, tmp_path):
                                atol=2e-3)
     assert abs(r.stats.rays_traced - w.stats.rays_traced) <= (
         0.005 * w.stats.rays_traced)
+
+
+# ---- lights: the fused kernel's lit forms -----------------------------------
+
+def _lit_scene(name, w, depth, batches, spp):
+    from raytrace_tpu_torch.tools import light_scenes
+
+    doc = {"cornell-style": light_scenes.cornell_doc,
+           "sphere-light-962": light_scenes.sphere_light_doc,
+           "lit-spheres": light_scenes.lit_spheres_doc,
+           "70-instances": light_scenes.many_instances_doc}[name]()
+    cs = compile_scene(SceneFile.from_json_dict(doc), width=w)
+    return dataclasses.replace(cs, render=dataclasses.replace(
+        cs.render, max_ray_depth=depth, sample_batches=batches,
+        samples_per_pixel=spp))
+
+
+@pytest.mark.parametrize("name", ["cornell-style", "sphere-light-962",
+                                  "lit-spheres", "70-instances"])
+def test_lit_fused_kernel_matches_plain_bit_for_bit(dev, name):
+    r = Renderer(_lit_scene(name, 48, 50, 2, 16), device=dev)
+    assert r.path == "fused" and r.static.has_lights
+    args = (r.static, r.scene, r._geometry(0), r.camera, 0, 2)
+    before = (megakernel.LAUNCHES, megakernel.LIGHT_LAUNCHES,
+              megakernel.TRI_LAUNCHES)
+    sums, traced = megakernel.render_tile_mega(*args, use_dof=r.use_dof)
+    again, traced2 = megakernel.render_tile_mega(*args, use_dof=r.use_dof)
+    torch.cuda.synchronize()
+    tris = 2 if r.static.has_tris else 0
+    assert (megakernel.LAUNCHES, megakernel.LIGHT_LAUNCHES,
+            megakernel.TRI_LAUNCHES) == (before[0] + 2, before[1] + 2,
+                                         before[2] + tris)
+    assert torch.equal(sums, again) and torch.equal(traced, traced2)
+    ref, ref_traced = megakernel.megakernel_reference(*args,
+                                                      use_dof=r.use_dof)
+    assert torch.isfinite(sums).all() and float(sums.max()) > 0.0
+    assert torch.equal(sums, ref) and torch.equal(traced, ref_traced)
+
+
+def test_renderer_takes_the_lit_kernel_on_the_card(dev):
+    cs = _lit_scene("cornell-style", 32, 8, 2, 4)
+    before = (megakernel.LIGHT_LAUNCHES, tri_sweep.LAUNCHES,
+              sphere_sweep.LAUNCHES)
+    r = Renderer(cs, device=dev)
+    img = r.render_all()
+    assert r.path == "fused"
+    assert (megakernel.LIGHT_LAUNCHES, tri_sweep.LAUNCHES,
+            sphere_sweep.LAUNCHES) == (before[0] + 1, before[1], before[2])
+    w = Renderer(cs, device=dev, use_megakernel=False)
+    w_img = w.render_all()
+    assert tri_sweep.LAUNCHES > before[1]
+    np.testing.assert_allclose(img.mean(axis=(0, 1)), w_img.mean(axis=(0, 1)),
+                               atol=2e-3)
+    assert abs(r.stats.rays_traced - w.stats.rays_traced) <= (
+        0.005 * w.stats.rays_traced)
+
+
+def test_lit_scene_with_motion_launches_once_per_batch_on_the_card(dev):
+    from raytrace_tpu_torch.tools import light_scenes
+
+    doc = light_scenes.cornell_doc()
+    box = next(i for i in doc["instances"] if i["name"] == "short_box")
+    box["transform"] = {"animated": [{"translate": [130, 0, 65]},
+                                     {"translate": [160, 0, 65]}]}
+    cs = compile_scene(SceneFile.from_json_dict(doc), width=32)
+    cs = dataclasses.replace(cs, render=dataclasses.replace(
+        cs.render, max_ray_depth=4, sample_batches=3, samples_per_pixel=1))
+    before = (megakernel.LIGHT_LAUNCHES, megakernel.ANIM_LAUNCHES)
+    r = Renderer(cs, device=dev)
+    assert r.path == "fused_per_batch" and r.render_batches(3) == 3
+    assert (megakernel.LIGHT_LAUNCHES, megakernel.ANIM_LAUNCHES) == (
+        before[0] + 3, before[1])

@@ -241,21 +241,33 @@ def _big_mesh_doc(n_boxes=1366):
     return doc
 
 
-@pytest.mark.parametrize("doc", [
+@pytest.mark.parametrize("doc,admitted", [
     # A triangle is inside the gate (tests/test_torch_triangles.py); a
     # mesh above its ceiling is not.
-    _big_mesh_doc(),
-    _tiny_doc(material="l"),
-    _tiny_doc(albedo="n"),
+    (_big_mesh_doc(), False),
+    # The gate admits a lit scene (the kernel's lit form), as the JAX gate
+    # does.
+    (_tiny_doc(material="l"), True),
+    (_tiny_doc(albedo="n"), False),
     # A moving ellipsoid: motion the kernel takes, a shape it does not.
-    _tiny_doc(transform={"animated": [{"translate": [0, 0, 0]},
-                                      {"translate": [0, 1, 0],
-                                       "scale": [1, 2, 1]}]}),
-    _tiny_doc(transform={"static": {"scale": [1, 2, 1]}}),
+    (_tiny_doc(transform={"animated": [{"translate": [0, 0, 0]},
+                                       {"translate": [0, 1, 0],
+                                        "scale": [1, 2, 1]}]}), False),
+    (_tiny_doc(transform={"static": {"scale": [1, 2, 1]}}), False),
 ], ids=["triangles", "lights", "noise", "motion-blur", "object-space"])
-def test_gate_rejects_scenes_the_kernel_cannot_render(doc):
+def test_gate_rejects_scenes_the_kernel_cannot_render(doc, admitted):
+    """The gate on scenes at its edges: it rejects those the kernel cannot
+    render and admits the one it now can (a lit scene)."""
     cs = compile_scene(SceneFile.from_json_dict(doc), width=16, height=8)
-    assert not megakernel.megakernel_supported(_port_static(cs))
+    static = _port_static(cs)
+    assert megakernel.megakernel_supported(static) is admitted
+    if admitted:
+        assert static.has_lights
+        jcs = jax_compile_scene(JaxSceneFile.from_json_dict(doc), width=16,
+                                height=8)
+        _, jstatic = jarrays.upload_scene(jcs)
+        jstatic = dataclasses.replace(jstatic, sphere_world_mode=True)
+        assert jmega.megakernel_supported(jstatic)
 
 
 def test_gate_admits_a_tiny_sphere_scene_and_caps_the_sphere_count():

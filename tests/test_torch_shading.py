@@ -21,7 +21,8 @@ from raytrace_tpu_torch.cli import DEFAULT_SCENE
 from raytrace_tpu_torch.engine.arrays import from_jax_scene
 from raytrace_tpu_torch.ops import nee as tnee
 from raytrace_tpu_torch.ops import shading as tshading
-from raytrace_tpu_torch.ops.materials import COSINE_PDF, NO_PDF, SPHERE_PDF
+from raytrace_tpu_torch.ops.materials import (COSINE_PDF, LIGHT_PDF, NO_PDF,
+                                              SPHERE_PDF)
 from raytrace_tpu_torch.ops.textures import TexFlags
 from raytrace_tpu_torch.ops.vec3 import V3
 
@@ -150,6 +151,26 @@ def test_no_light_nee(inputs):
 
 
 def test_nee_with_lights_raises(inputs):
-    with pytest.raises(NotImplementedError, match="NEE with lights"):
-        tnee.choose_mixture_pdf(torch.zeros(4, dtype=torch.int64),
-                                torch.zeros(4, dtype=torch.int32), True)
+    """NEE with lights is ported: the mixture choice no longer raises, it
+    draws once and picks the light pdf where r < 0.5, as JAX does, and
+    the light pdf of a direction matches JAX's (tests/test_torch_nee.py
+    holds the light sample)."""
+    x = inputs
+    js, jchosen = jnee.choose_mixture_pdf(
+        jnp.asarray(x["state"].astype(np.uint32)), jnp.asarray(x["pdf"]),
+        True)
+    ts, tchosen = tnee.choose_mixture_pdf(
+        torch.tensor(x["state"].astype(np.int64)), torch.tensor(x["pdf"]),
+        True)
+    _exact(js, ts)
+    _exact(jchosen, tchosen)
+    assert not torch.equal(ts, torch.tensor(x["state"].astype(np.int64)))
+    assert (tchosen == LIGHT_PDF).any() and (tchosen != LIGHT_PDF).any()
+    light = jnee.LightSampleV3(position=_jv(x["p"]), normal=_jv(x["normal"]))
+    tlight = tnee.LightSampleV3(position=_tv(x["p"]), normal=_tv(x["normal"]))
+    jpdf = jnee.pdf_value_v3(jchosen, _jv(x["wrd"]), _jv(x["normal"]), light,
+                             jnp.float32(13650.0))
+    tpdf = tnee.pdf_value_v3(tchosen, _tv(x["wrd"]), _tv(x["normal"]),
+                             tlight, torch.tensor(13650.0))
+    np.testing.assert_allclose(tpdf.numpy(), np.asarray(jpdf), rtol=1e-5,
+                               atol=ATOL)

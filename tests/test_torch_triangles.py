@@ -158,6 +158,14 @@ def test_gate_and_triangle_ceiling(g, n, fused, renders):
 
 
 def test_other_gates_still_hold_triangle_scenes_back():
-    static = dataclasses.replace(_static(), has_lights=True)
-    assert not megakernel.megakernel_supported(static)
-    assert "NEE with lights" in unsupported_feature(static)
+    """Lights no longer hold a triangle scene back (the fused kernel's lit
+    form takes it); image and noise textures still do."""
+    lit = dataclasses.replace(_static(), has_lights=True)
+    assert megakernel.megakernel_supported(lit)
+    assert unsupported_feature(lit) is None
+    for flags, item in (
+            (lit.flags._replace(has_image=True), "Image textures"),
+            (lit.flags._replace(has_noise=True), "Noise textures")):
+        static = dataclasses.replace(lit, flags=flags)
+        assert not megakernel.megakernel_supported(static)
+        assert item in unsupported_feature(static)
