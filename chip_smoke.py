@@ -17,18 +17,22 @@ K1), and the two light scenes of raytrace_tpu_torch/tools/light_scenes.py
 cornell-style (a Cornell box of 36 triangles with a quad light, 1024x1024,
 64 spp x 32 batches, depth 50) and sphere-light-962 (analytic spheres, a
 light sphere and a light quad: 962 light triangles; 1024x576, 64 spp x 2
-batches, depth 50).  Every phase is checked; any failure raises and the
-script exits non-zero without printing a result.  No path runs at a cut
-depth.  Phases:
+batches, depth 50); and final-one-weekend with --mesh-geometry (its 488
+uv spheres tessellated: 2,033,920 triangles, 125 pages of the paged
+sweep K3; 1200x675, 4 spp, depth 50: the paged wavefront), with its
+motion-blur twin the same way (page tables built per batch).  Every phase
+is checked; any failure raises and the script exits non-zero without
+printing a result.  No path runs at a cut depth.  Phases:
 
 1. needs torch.cuda.is_available(); prints nvidia-smi's name and power limit;
-2. builds the three kernel sources from the checkout, one nvcc each,
+2. builds the four kernel sources from the checkout, one nvcc each,
    started together: the sphere sweep K1 (csrc/sphere_sweep.cu), the
-   triangle sweep K2 (csrc/tri_sweep.cu) and the fused bounce kernel K4
+   triangle sweep K2 (csrc/tri_sweep.cu), the fused bounce kernel K4
    (csrc/megakernel.cu: static, animated, triangle and the two lit
-   forms), with nvcc's register report and a line per K4 form; the
-   static, animated and triangle forms must keep the registers and
-   spills they had before the lit forms (FORMS_BEFORE);
+   forms) and the paged triangle sweep K3 (csrc/paged_tri.cu), with
+   nvcc's register report, a line per K4 form and K3's; the static,
+   animated and triangle forms must keep the registers and spills they
+   had before the lit forms (FORMS_BEFORE);
 3. K1 against the plain PyTorch sweep: the 3,240,000 primary rays of the
    main path and 2^20 random rays with an alive mask (ids equal, and ids
    equal with t within rtol=1e-3, atol=1e-3, each on >= 99.9% of rays),
@@ -54,13 +58,19 @@ depth.  Phases:
    the 70-instance lit doc at 96x96; then each light scene's full batch
    bit for bit with the plain version (both timed), and held against the
    wavefront with K2 (and K1) on the same batch (rays within 0.5%, means
-   within LIGHT_MEAN_TOL), which also counts the work of the bound;
+   within LIGHT_MEAN_TOL), which also counts the work of the bound; then
+   K3 bit for bit with its plain version and with K2 (two launches
+   byte-identical) on random multi-page soups with a partial last page
+   and an alive mask (g = c = 128, and g = 8, c = 16), on all 3,240,000
+   primary rays of the mesh scene's batch 0 (plain version timed) and on
+   2^17 of them and of its bounce-2 rays against K2 too; K3 timed over
+   the primary rays, its work counted on the subset for the bound;
 5. the wavefront path, Renderer(cs, use_megakernel=False): several batches,
    counting K1 launches; the image checks; the same for the motion-blur
    scene and for tri-stress's one batch (counting K2 and K1 launches); a
    small frame on the card against the CPU, for both paths and the
-   animated fused path, for both triangle paths and both paths of each
-   light scene;
+   animated fused path, for both triangle paths, both paths of each
+   light scene and the paged wavefront (a tessellated big-spheres doc);
 6. the main path, Renderer(cs) with defaults: it must take the fused path
    (K4 launched, K1 not); Mrays/s over batches 1-3 stepped one at a time
    and over one fused chunk of 12 batches, the chunk beside the 298.602
@@ -76,22 +86,29 @@ depth.  Phases:
    path in K4's lit form (K1 and K2 not launched), with Mrays/s over
    batches 1-3 stepped and over one fused chunk of 4 batches, and
    sphere-light-962's, its batches stepped and in render_all; the image
-   checks;
+   checks; then the mesh scene's Renderer with defaults, which must take
+   the paged wavefront (K3 launched; K1, K2 and K4 not), Mrays/s over
+   batches 1-3 stepped, the image checks and its channel means beside the
+   analytic scene's; a reduced frame (240x135, depth 50, one batch) of its
+   soup on the paged and on the dense sweep, byte-identical with equal
+   ray counts; one batch of the motion-blur mesh (tables built once for
+   the batch), the image checks and the same reduced-frame identity;
 7. checkpoint round trips on both paths, with the same chunk boundaries,
    and on cornell-style's fused path: the resumed image must be
    byte-identical to the uninterrupted render;
-8. the CLI renders every batch of each scene to a PNG (fused chunks);
-9. one fused chunk of each sphere scene, tri-stress's batch and a chunk
-   of each light scene under torch.profiler (one session): the device's
-   busy share of the traced window's own device timeline and of the
-   untraced wall, the fused kernel's share of device time and device
-   operations per batch.
+8. the CLI renders every batch of each scene to a PNG (fused chunks;
+   the mesh scene with --mesh-geometry on the paged wavefront);
+9. one fused chunk of each sphere scene, tri-stress's batch, a chunk of
+   each light scene and one batch of the mesh scene under torch.profiler
+   (one session): the device's busy share of the traced window's own
+   device timeline and of the untraced wall, the fused kernel's (or
+   K3's) share of device time and device operations per batch.
 
 The line before the last is the kernels' JSON record (with each kernel's
 bound: the larger of its FP32 operations over 67 TFLOP/s and its bytes
 over 3.35 TB/s, counted from this run's inputs and the scene's real
-spheres, not the table's padding rows; K4's triangle and lit forms' are
-estimates, see _k4_tris_bound), the last line
+spheres, not the table's padding rows; K4's triangle and lit forms' and
+K3's are estimates, see _k4_tris_bound and _k3_full), the last line
 {"ok": true, "device": {...}}.
 """
 
@@ -168,6 +185,13 @@ LIGHT_SMALL = {"cornell-style": 128, "sphere-light-962": 128,
 # this.  Measured 6.0e-8 (cornell-style) and 1.1e-6 (sphere-light-962)
 # on an H100 (PERF.md).
 LIGHT_MEAN_TOL = 1e-5
+# Big meshes: final-one-weekend --mesh-geometry (its 488 uv spheres
+# tessellated, as the reference renders them), held against the plain
+# version and K2 on this many of its rays at a bounce; the reduced frame
+# on which the paged and the dense sweep must render the same bytes.
+MESH_TRIANGLES = 2_033_920
+MESH_SUBSET = 1 << 17
+REDUCED = (240, 135)
 
 
 def _bound(flops: float, nbytes: float):
@@ -326,6 +350,152 @@ def _tri_work(renderer):
     return img, rays, work
 
 
+def _ptxas_kernel(log: str):
+    """(registers, spill store bytes) of the one kernel in nvcc's report."""
+    regs = re.search(r"Used (\d+) registers", log)
+    spill = re.search(r"(\d+) bytes spill stores", log)
+    return int(regs.group(1)), int(spill.group(1)) if spill else 0
+
+
+def _paged_equal(a, b, alive) -> bool:
+    """Two sweeps' hits bit for bit: t and id on every ray, u and v on the
+    alive ones (the dense sweep fills them on dead rays too)."""
+    import torch
+
+    return (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            and torch.equal(a[2][alive], b[2][alive])
+            and torch.equal(a[3][alive], b[3][alive]))
+
+
+def _compare_paged(name, o, d, tables, table16, alive, plain=True):
+    """K3 vs its plain version (when ``plain``) and vs K2 over the same
+    soup, on the same rays: bit for bit, and two launches byte-identical.
+    Returns (plain seconds or None, K3's hits)."""
+    import torch
+
+    from raytrace_tpu_torch.ops import paged_tri, tri_sweep
+
+    hit = paged_tri.intersect_tris_paged(o, d, tables, alive)
+    again = paged_tri.intersect_tris_paged(o, d, tables, alive)
+    k2 = tri_sweep.intersect_tris_sweep(o, d, table16, alive)
+    torch.cuda.synchronize()
+    plain_s = None
+    checks = {"K2": _paged_equal(hit, k2, alive),
+              "repeat": all(torch.equal(a, b) for a, b in zip(hit, again))}
+    if plain:
+        t0 = time.perf_counter()
+        ref = paged_tri.paged_tri_sweep_reference(o, d, tables, alive)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        checks["plain"] = _paged_equal(hit, ref, alive)
+    print(f"paged sweep {name}: R={o.x.shape[0]} T={tables.num_tris} "
+          f"g={tables.g} c={tables.c} pages {tables.page_boxes.shape[0]} "
+          f"alive {alive.double().mean().item():.4f}: bit for bit with "
+          + ", ".join(f"{k} {v}" for k, v in checks.items())
+          + f"; hit share {(hit.tri >= 0).double().mean().item():.4f}"
+          + (f"; plain {plain_s:.3f} s" if plain else ""))
+    if not all(checks.values()):
+        raise AssertionError(f"K3 {name}: {checks}")
+    return plain_s, hit
+
+
+def _paged_random(T, g, c, R, seed, dev):
+    """T random small triangles in a 10-unit box in the paged sweep's
+    order, with a duplicate pair: (page tables, dense table, rays towards
+    random triangles with a tenth in random directions, alive mask)."""
+    import torch
+
+    from raytrace_tpu_torch.ops import paged_tri, tri_sweep
+    from raytrace_tpu_torch.ops.vec3 import V3
+
+    rng = np.random.default_rng(seed)
+    tri = (rng.uniform(-5, 5, (T, 1, 3))
+           + rng.uniform(-0.8, 0.8, (T, 3, 3))).astype(np.float32)
+    tri[T // 2] = tri[1]
+    tri = tri[paged_tri.paged_tri_order(tri, T)]
+    o = rng.uniform(-9, 9, (R, 3))
+    d = np.einsum("rv,rvi->ri", rng.dirichlet(np.ones(3), R),
+                  tri[rng.integers(0, T, R)].astype(np.float64)) - o
+    d[:R // 10] = rng.standard_normal((R // 10, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    v3 = lambda a: V3(*(torch.tensor(  # noqa: E731
+        np.ascontiguousarray(a[:, i], np.float32), device=dev)
+        for i in range(3)))
+    wp = torch.tensor(tri, device=dev)
+    return (paged_tri.build_page_tables(wp, T, g=g, c=c),
+            tri_sweep.pack_tri_table(wp, T), v3(o), v3(d),
+            torch.tensor(rng.random(R) < 0.7, device=dev))
+
+
+def _k3_full(mesh_r, card):
+    """K3 on final-one-weekend --mesh-geometry, the main path's soup: the
+    frame's rays at every bounce of batch 0 (render_tile with a capturing
+    trace); all primary rays bit for bit with the plain version (timed), a
+    subset of them and of bounce 2's against K2 too; K3 timed over all
+    primary rays; the work of the traversal counted on the subset and
+    scaled to all primary rays for the bound.  Returns a dict."""
+    import torch
+
+    from raytrace_tpu_torch.engine import wavefront
+    from raytrace_tpu_torch.ops import paged_tri
+    from raytrace_tpu_torch.ops.vec3 import V3
+
+    static, geom = mesh_r.static, mesh_r._geometry(0)
+    pages, table16 = geom.tri_pages, geom.tri_table16
+    trace = wavefront.make_trace_fn(static, mesh_r.scene, geom)
+    seen = []
+
+    def capture(o, d, alive):
+        seen.append((o, d, alive))
+        return trace(o, d, alive)
+
+    wavefront.render_tile(static, mesh_r.scene, mesh_r.camera, capture, geom,
+                          0, 0, static.height, mesh_r.use_dof)
+    torch.cuda.synchronize()
+    (o, d, alive), later = seen[0], seen[2]
+    del seen
+    n_rays = o.x.shape[0]
+    if n_rays != static.width * static.height * static.sqrt_spp ** 2:
+        raise AssertionError(f"mesh primary rays: {n_rays}")
+    plain_s, hit = _compare_paged(f"{n_rays} primary (all)", o, d, pages,
+                                  table16, alive)
+    del hit
+    gen = torch.Generator().manual_seed(0)
+    work = None
+    for label, (ro, rd, ra) in (("primary", (o, d, alive)),
+                                ("bounce 2", later)):
+        sel = torch.randperm(ro.x.shape[0], generator=gen)[:MESH_SUBSET].to(
+            ro.x.device)
+        so, sd = (V3(*(x[sel].contiguous() for x in v)) for v in (ro, rd))
+        sa = ra[sel].contiguous()
+        _, hit = _compare_paged(f"{MESH_SUBSET} {label}", so, sd, pages,
+                                table16, sa, plain=label != "primary")
+        if label == "primary":
+            work = paged_tri.visit_counts(so, sd, pages, hit.t, sa)
+    ms = _median_ms(
+        lambda: paged_tri.intersect_tris_paged(o, d, pages, alive), 5)
+    scale = n_rays / work["rays"]
+    flops = scale * ((work["page_tests"] + work["cluster_tests"])
+                     * FLOPS_PER_PRETEST
+                     + work["tri_tests"] * FLOPS_PER_TRI_TEST)
+    # Rays in: origin, direction, alive; out: t, id, u, v; the triangle
+    # rows, cluster boxes and page boxes once.
+    nbytes = n_rays * (6 * 4 + 1 + 4 * 4) + 4 * (
+        pages.tris.numel() + pages.boxes.numel() + pages.page_boxes.numel())
+    bound = _bound(flops, nbytes)
+    per = {k: work[k] / work["rays"] for k in ("page_tests",
+                                              "cluster_tests", "tri_tests")}
+    print(f"paged sweep time at R={n_rays} (final-one-weekend --mesh-geometry"
+          f"'s primary rays), T={pages.num_tris}: kernel {ms:.3f} ms (median "
+          f"of 5, CUDA events), plain PyTorch {plain_s * 1e3:.1f} ms (one "
+          f"run, host clock); work counted on {work['rays']} of its rays: "
+          f"{per['page_tests']:.1f} page tests, {per['cluster_tests']:.1f} "
+          f"cluster tests and {per['tri_tests']:.1f} triangle tests a ray; "
+          f"bound (an estimate) {bound[0]:.4f} ms by {bound[1]} "
+          f"({bound[0] / ms:.4f} of it) ({card})")
+    return dict(ms=ms, plain_ms=plain_s * 1e3, bound=bound)
+
+
 def _median_ms(fn, reps: int) -> float:
     import torch
 
@@ -454,9 +624,10 @@ def _step(renderer, batches):
 
 def _reset_counts():
     """Every kernel's launch count to 0."""
-    from raytrace_tpu_torch.ops import megakernel, sphere_sweep, tri_sweep
+    from raytrace_tpu_torch.ops import (megakernel, paged_tri, sphere_sweep,
+                                        tri_sweep)
 
-    sphere_sweep.LAUNCHES = tri_sweep.LAUNCHES = 0
+    sphere_sweep.LAUNCHES = tri_sweep.LAUNCHES = paged_tri.LAUNCHES = 0
     megakernel.LAUNCHES = megakernel.ANIM_LAUNCHES = 0
     megakernel.TRI_LAUNCHES = megakernel.LIGHT_LAUNCHES = 0
 
@@ -465,7 +636,7 @@ def _mrays(per_batch):
     return sum(r for r, _ in per_batch) / sum(s for _, s in per_batch) / 1e6
 
 
-def _busy_share(events, label, wall_s):
+def _busy_share(events, label, wall_s, kernel="megakernel"):
     """The device timeline of the work profiled under
     record_function(label): the card's operation intervals that start
     inside that host range (the work ends in a synchronize).  Returns a
@@ -473,8 +644,8 @@ def _busy_share(events, label, wall_s):
     from the first operation's start to the last one's end (the traced
     window's own device timeline: what is not busy there is the card
     waiting between its operations); ``wall``, the union over wall_s, an
-    untraced run's host time; ``ops``, the operations; ``k4``, the fused
-    kernel's share of the union."""
+    untraced run's host time; ``ops``, the operations; ``kernel``, the
+    share of the union in the kernel whose name holds ``kernel``."""
     from torch.autograd import DeviceType
 
     host = [e for e in events
@@ -487,7 +658,7 @@ def _busy_share(events, label, wall_s):
                    and lo <= e.time_range.start <= hi)
     busy, end, k4 = 0.0, -1.0, 0.0
     for s, e, name in spans:
-        if "megakernel" in name:
+        if kernel in name:
             k4 += e - s
         if e > end:
             busy += e - max(s, end)
@@ -495,7 +666,106 @@ def _busy_share(events, label, wall_s):
     window = (max(e for _, e, _ in spans) - spans[0][0]) if spans else 0.0
     return dict(busy_s=busy / 1e6, timeline=busy / window if window else 0.0,
                 wall=busy / 1e6 / wall_s, ops=len(spans),
-                k4=k4 / busy if busy else 0.0)
+                kernel=k4 / busy if busy else 0.0)
+
+
+def _paged_vs_dense(label, paged_cs, dev, card):
+    """A reduced frame of a soup in paged order, one batch at full depth,
+    on the paged sweep and on the dense sweep K2: the same bytes and the
+    same ray count."""
+    from raytrace_tpu_torch.engine import Renderer
+
+    small = _scene(paged_cs, *REDUCED, batches=1)
+    out = {}
+    for mode in ("paged", False):
+        r = Renderer(small, device=dev, use_bvh=mode)
+        (rays, sec), = _step(r, 1)
+        out[mode] = (r.image(), rays, sec)
+    same = out["paged"][0].tobytes() == out[False][0].tobytes()
+    print(f"{label} at {REDUCED[0]}x{REDUCED[1]}, depth "
+          f"{small.render.max_ray_depth}, one batch: paged and dense images "
+          f"byte-identical {same}; rays {out['paged'][1]} vs "
+          f"{out[False][1]}; {out['paged'][2]:.3f} s vs {out[False][2]:.3f} "
+          f"s ({card})")
+    if not same or out["paged"][1] != out[False][1]:
+        raise AssertionError(f"{label}: the paged and dense renders differ")
+
+
+def _mesh_paths(mesh_r, mb_scene, fused_img, wave_img, dev, card):
+    """The big-mesh paths: ``mesh_r`` (final-one-weekend --mesh-geometry,
+    Renderer with defaults) stepped as the main path, the reduced-frame
+    identity on its soup, and one batch of the motion-blur scene with
+    --mesh-geometry.  Returns K3's launches on the main path."""
+    from raytrace_tpu_torch import cli
+    from raytrace_tpu_torch.engine import Renderer
+    from raytrace_tpu_torch.ops import (megakernel, paged_tri, sphere_sweep,
+                                        tri_sweep)
+
+    # The big-mesh main path: final-one-weekend --mesh-geometry through
+    # Renderer with defaults, the paged wavefront (K3 alone: no sphere is
+    # left, and K2 and K4 must not run), its batches stepped.
+    _reset_counts()
+    per_batch = _step(mesh_r, MAIN_BATCHES)
+    k3_launches = paged_tri.LAUNCHES
+    if (mesh_r.path != "wavefront" or k3_launches <= 0 or tri_sweep.LAUNCHES
+            or megakernel.LAUNCHES or sphere_sweep.LAUNCHES):
+        raise AssertionError(
+            f"the mesh main path did not take the paged wavefront (path "
+            f"{mesh_r.path}, K3 {k3_launches}, K2 {tri_sweep.LAUNCHES}, K4 "
+            f"{megakernel.LAUNCHES}, K1 {sphere_sweep.LAUNCHES})")
+    for i, (r, s) in enumerate(per_batch):
+        print(f"mesh paged batch {i}: {r} rays in {s:.4f} s "
+              f"({r / s / 1e6:.3f} Mrays/s)")
+    print(f"mesh main path (wavefront, paged triangles): final-one-weekend "
+          f"--mesh-geometry {WIDTH}x{HEIGHT}, 4 spp, depth 50: "
+          f"{_mrays(per_batch[1:]):.3f} Mrays/s over batches "
+          f"1-{MAIN_BATCHES - 1} stepped one at a time; paged_tri "
+          f"LAUNCHES={k3_launches}, tri_sweep, megakernel and sphere_sweep "
+          f"LAUNCHES=0 ({card})")
+    mesh_img = mesh_r.image()
+    _check_image(mesh_img, "mesh paged")
+    print(f"mesh vs analytic spheres over batches 0-{MAIN_BATCHES - 1}: "
+          f"channel means {mesh_img.mean(axis=(0, 1)).tolist()} (mesh), "
+          f"{fused_img.mean(axis=(0, 1)).tolist()} (fused), "
+          f"{wave_img.mean(axis=(0, 1)).tolist()} (wavefront)")
+
+    # The whole path bit for bit: a reduced frame of the same permuted
+    # soup on the paged sweep and on the dense sweep K2.
+    _paged_vs_dense("mesh", mesh_r.compiled, dev, card)
+
+    # Motion blur with meshes: final-one-weekend-motion-blur
+    # --mesh-geometry, its page tables built for every batch from that
+    # batch's world soup.
+    cs_mb_mesh = cli.load_scene(mb_scene, analytic_spheres=False)
+    mb_mesh = Renderer(cs_mb_mesh, device=dev)
+    builds = []
+    build_tables = paged_tri.build_page_tables
+    paged_tri.build_page_tables = lambda *a, **k: (  # noqa: E731
+        builds.append(1), build_tables(*a, **k))[1]
+    _reset_counts()
+    try:
+        (mb_rays, mb_s), = _step(mb_mesh, 1)
+    finally:
+        paged_tri.build_page_tables = build_tables
+    if (mb_mesh.path != "wavefront" or mb_mesh.static.bvh_mode != "paged"
+            or not mb_mesh.static.any_animated or len(builds) != 1
+            or paged_tri.LAUNCHES <= 0 or tri_sweep.LAUNCHES
+            or megakernel.LAUNCHES):
+        raise AssertionError(
+            f"the motion-blur mesh did not take the paged wavefront with "
+            f"per-batch tables (path {mb_mesh.path}, tables built "
+            f"{len(builds)}, K3 {paged_tri.LAUNCHES})")
+    print(f"motion-blur mesh (wavefront, paged triangles, tables per "
+          f"batch): final-one-weekend-motion-blur --mesh-geometry "
+          f"{MB_WIDTH}x{MB_HEIGHT}, {cs_mb_mesh.num_triangles} triangles, "
+          f"one batch: {mb_rays} rays in {mb_s:.4f} s "
+          f"({mb_rays / mb_s / 1e6:.3f} Mrays/s); paged_tri "
+          f"LAUNCHES={paged_tri.LAUNCHES} ({card})")
+    _check_image(mb_mesh.image(), "motion-blur mesh paged", MB_WIDTH,
+                 MB_HEIGHT)
+    _paged_vs_dense("motion-blur mesh", mb_mesh.compiled, dev, card)
+    return k3_launches
+
 
 
 class _Capture(logging.Handler):
@@ -518,8 +788,8 @@ def main() -> int:
     from raytrace_tpu_torch.engine import Renderer
     from raytrace_tpu_torch.engine.wavefront import prepare_batch, primary_rays
     from raytrace_tpu_torch.models import compile_scene
-    from raytrace_tpu_torch.ops import (_build, megakernel, sphere_sweep,
-                                        tri_sweep)
+    from raytrace_tpu_torch.ops import (_build, megakernel, paged_tri,
+                                        sphere_sweep, tri_sweep)
     from raytrace_tpu_torch.ops.vec3 import V3
     from raytrace_tpu_torch.scene_file import SceneFile
     from raytrace_tpu_torch.tools import light_scenes, stress_scenes
@@ -537,14 +807,14 @@ def main() -> int:
 
     tri_dir = tempfile.TemporaryDirectory()
 
-    # -- 2. build the three kernels, one nvcc each, started together --------
+    # -- 2. build the four kernels, one nvcc each, started together ---------
     def timed_build(mod):
         t0 = time.perf_counter()
         mod.library()
         return time.perf_counter() - t0
 
     mods = {"sphere_sweep": sphere_sweep, "tri_sweep": tri_sweep,
-            "megakernel": megakernel}
+            "megakernel": megakernel, "paged_tri": paged_tri}
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
         secs = dict(zip(mods, pool.map(timed_build, mods.values())))
     for name, sec in secs.items():
@@ -564,6 +834,9 @@ def main() -> int:
             raise AssertionError(f"K4's {form} form changed: {regs} "
                                  f"registers, {spill} bytes spilled, "
                                  f"before {FORMS_BEFORE[form]}")
+    k3_regs, k3_spill = _ptxas_kernel(_build.library_path(
+        "paged_tri").with_suffix(".log").read_text())
+    print(f"K3: {k3_regs} registers, {k3_spill} bytes spill stores")
 
     # -- 3. K1 vs plain at the main path's shapes ---------------------------
     cs = cli.load_scene(cli.DEFAULT_SCENE, WIDTH, HEIGHT)
@@ -845,6 +1118,33 @@ def main() -> int:
                                 bound=bound)
         del r, args, kw, sums
 
+    # -- 4e. K3 vs plain and K2, at small size and on the 2M-triangle mesh ---
+    for T, g, c, R in ((40000, 128, 128, 1 << 16), (3001, 8, 16, 1 << 14)):
+        tables, table16, ro, rd, r_alive = _paged_random(T, g, c, R, T, dev)
+        _compare_paged(f"random T={T}", ro, rd, tables, table16, r_alive)
+    del tables, table16, ro, rd, r_alive
+    t0 = time.perf_counter()
+    cs_mesh = cli.load_scene(cli.DEFAULT_SCENE, WIDTH, HEIGHT,
+                             analytic_spheres=False)
+    mesh_compile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh_r = Renderer(cs_mesh, device=dev)
+    mesh_init_s = time.perf_counter() - t0
+    pages = mesh_r._geometry(0).tri_pages
+    print(f"final-one-weekend --mesh-geometry: {cs_mesh.num_triangles} "
+          f"triangles, {cs_mesh.num_spheres} spheres, compiled in "
+          f"{mesh_compile_s:.2f} s; Renderer (paged order, upload, tables) "
+          f"{mesh_init_s:.2f} s; path {mesh_r.path}, bvh_mode "
+          f"{mesh_r.static.bvh_mode}; {pages.page_boxes.shape[0]} pages, "
+          f"{pages.boxes.shape[0]} clusters")
+    if (cs_mesh.num_triangles != MESH_TRIANGLES or cs_mesh.num_spheres
+            or mesh_r.path != "wavefront"
+            or mesh_r.static.bvh_mode != "paged"):
+        raise AssertionError("the mesh scene did not take the paged "
+                             "wavefront")
+    del pages
+    k3 = _k3_full(mesh_r, card)
+
     # -- 5. the wavefront path ----------------------------------------------
     _reset_counts()
     wave = Renderer(cs, device=dev, use_megakernel=False)
@@ -903,6 +1203,9 @@ def main() -> int:
     tiny_cb = _scene(light_cs["cornell-style"], 32, 32, depth=8, batches=1)
     tiny_sl = _scene(light_cs["sphere-light-962"], 48, 27, depth=8,
                      batches=1)
+    tiny_mesh = _scene(compile_scene(SceneFile.from_json_dict(
+        stress_scenes.big_spheres_doc()), width=48,
+        analytic_spheres=False), 48, 27, depth=8, batches=1)
     for name, small_cs, fused in (("final-one-weekend", tiny, False),
                                   ("final-one-weekend", tiny, True),
                                   ("motion-blur", tiny_mb, False),
@@ -914,10 +1217,13 @@ def main() -> int:
                                   ("cornell-style", tiny_cb, False),
                                   ("cornell-style", tiny_cb, True),
                                   ("sphere-light-962", tiny_sl, False),
-                                  ("sphere-light-962", tiny_sl, True)):
+                                  ("sphere-light-962", tiny_sl, True),
+                                  ("big spheres --mesh-geometry", tiny_mesh,
+                                   None)):
         gpu_s = Renderer(small_cs, device=dev, use_megakernel=fused)
         cpu_s = Renderer(small_cs, device="cpu", use_megakernel=fused)
-        if gpu_s.path != cpu_s.path:
+        if gpu_s.path != cpu_s.path or (
+                gpu_s.static.bvh_mode != cpu_s.static.bvh_mode):
             raise AssertionError(f"{name}: card path {gpu_s.path}, CPU path "
                                  f"{cpu_s.path}")
         g_img, c_img = gpu_s.render_all(), cpu_s.render_all()
@@ -928,7 +1234,8 @@ def main() -> int:
             raise AssertionError(f"{name} {gpu_s.path} card vs CPU at 96x54: "
                                  f"mean diff {mdiff}, rays {g_rays} vs "
                                  f"{c_rays}")
-        print(f"{name} {gpu_s.path} card vs CPU at {small_cs.render.width}x"
+        print(f"{name} {gpu_s.path} ({gpu_s.static.bvh_mode}) card vs CPU at "
+              f"{small_cs.render.width}x"
               f"{small_cs.render.height}, depth 8: max "
               f"channel-mean diff {mdiff:.3g}, RMSE {rmse:.3g}, rays "
               f"{g_rays} vs {c_rays} ({card})")
@@ -959,7 +1266,8 @@ def main() -> int:
     print(f"static fused chunk: {_mrays([chunk]):.3f} Mrays/s in this run, "
           f"{STATIC_CHUNK_MRAYS_BEFORE} before the animated form "
           f"(PERF.md) ({card})")
-    _check_image(main_r.image(), "fused")
+    fused_img = main_r.image()
+    _check_image(fused_img, "fused")
     del main_r
 
     # The motion-blur scene's main path: Renderer with defaults, the
@@ -1092,6 +1400,10 @@ def main() -> int:
     _check_image(sl_img, "sphere-light-962 fused", 1024, 576)
     del sl_r, sl_all
 
+    k3_launches = _mesh_paths(mesh_r, mb_scene, fused_img, wave_img, dev,
+                              card)
+    del mesh_r
+
     # -- 7. checkpoint round trips, same chunk boundaries --------------------
     with tempfile.TemporaryDirectory() as tmp:
         ck = os.path.join(tmp, "ck.npz")
@@ -1130,14 +1442,23 @@ def main() -> int:
         del one_shot, first, resumed
 
         # -- 8. CLI: every batch of each scene -------------------------------
+        full_size = ["--width", str(WIDTH), "--height", str(HEIGHT)]
         for scene_path, size_args, (w, h), path in (
-                (cli.DEFAULT_SCENE, ["--width", str(WIDTH), "--height",
-                                     str(HEIGHT)], (WIDTH, HEIGHT), "fused"),
-                (mb_scene, [], (MB_WIDTH, MB_HEIGHT), "fused_anim"),
-                (tri_json, [], (TRI_WIDTH, TRI_HEIGHT), "fused"),
-                (light_paths["cornell-style"], [], (1024, 1024), "fused"),
-                (light_paths["sphere-light-962"], [], (1024, 576), "fused")):
+                (cli.DEFAULT_SCENE, full_size, (WIDTH, HEIGHT),
+                 "fused bounce kernel (fused)"),
+                (mb_scene, [], (MB_WIDTH, MB_HEIGHT),
+                 "fused bounce kernel (fused_anim)"),
+                (tri_json, [], (TRI_WIDTH, TRI_HEIGHT),
+                 "fused bounce kernel (fused)"),
+                (light_paths["cornell-style"], [], (1024, 1024),
+                 "fused bounce kernel (fused)"),
+                (light_paths["sphere-light-962"], [], (1024, 576),
+                 "fused bounce kernel (fused)"),
+                (cli.DEFAULT_SCENE, ["--mesh-geometry", *full_size],
+                 (WIDTH, HEIGHT), "wavefront (paged triangles)")):
             name = os.path.splitext(os.path.basename(scene_path))[0]
+            if "--mesh-geometry" in size_args:
+                name += "-mesh-geometry"
             png = os.path.join(tmp, name + ".png")
             capture = _Capture()
             logging.getLogger("raytrace_tpu_torch").addHandler(capture)
@@ -1154,7 +1475,7 @@ def main() -> int:
                     int.from_bytes(head[20:24], "big")) != (w, h):
                 raise AssertionError(f"cli wrote no valid PNG of {name}'s "
                                      f"size")
-            if f"path: fused bounce kernel ({path})" not in capture.lines:
+            if f"path: {path}" not in capture.lines:
                 raise AssertionError(f"the cli did not take the {path} path "
                                      f"for {name}")
             done = [m for m in capture.lines if m.startswith("rendered ")]
@@ -1164,9 +1485,10 @@ def main() -> int:
                   f"{time.perf_counter() - t0:.1f} s in all ({card})")
 
     # -- 9. one fused chunk of each scene under the profiler ----------------
-    # One profiler session for both chunks, each under its own
+    # One profiler session for all the chunks, each under its own
     # record_function range (a second session in one process has dropped
-    # the kernel's device events).
+    # the kernel's device events); and one batch of the mesh scene's paged
+    # wavefront.
     from torch.profiler import ProfilerActivity, profile, record_function
 
     runs = []
@@ -1176,7 +1498,9 @@ def main() -> int:
                              ("tri-stress-15360", tri_cs, 1),
                              ("cornell-style", light_cs["cornell-style"], 4),
                              ("sphere-light-962",
-                              light_cs["sphere-light-962"], 2)):
+                              light_cs["sphere-light-962"], 2),
+                             ("final-one-weekend --mesh-geometry", cs_mesh,
+                              1)):
         prof_r = Renderer(prof_cs, device=dev)
         prof_r.render_batches(k)   # warm-up
         prof_r.current_batch = 0
@@ -1191,14 +1515,18 @@ def main() -> int:
                 prof_r.render_batches(k)
     events = prof.events()
     for name, prof_r, k, untraced in runs:
-        b = _busy_share(events, name, untraced)
+        paged = prof_r.static.bvh_mode == "paged"
+        kernel = "the paged sweep" if paged else "the fused kernel"
+        b = _busy_share(events, name, untraced,
+                        "paged_tri" if paged else "megakernel")
         busy = (f"device busy {b['busy_s']:.4f} s = {b['timeline']:.4f} of "
                 f"the traced window's own device timeline, {b['wall']:.4f} "
-                f"of the untraced wall; the fused kernel {b['k4']:.4f} of "
-                f"device time" if b["k4"] > 0 else
-                "the profiler recorded no fused-kernel time: device busy "
-                "share not measured")
-        print(f"profile of one {k}-batch fused chunk of {name} "
+                f"of the untraced wall; {kernel} {b['kernel']:.4f} of "
+                f"device time" if b["kernel"] > 0 else
+                f"the profiler recorded no time of {kernel}: device busy "
+                f"share not measured")
+        what = "batch" if paged else f"{k}-batch fused chunk"
+        print(f"profile of one {what} of {name} "
               f"({prof_r.path}): untraced {untraced:.4f} s; {busy}; "
               f"{b['ops']} device operations, {b['ops'] / k:.2f} per batch "
               f"({card})")
@@ -1256,6 +1584,14 @@ def main() -> int:
         "bound_ms": light_full["cornell-style"]["bound"][0],
         "bound_by": light_full["cornell-style"]["bound"][1],
         "library_ms": None,
+    }, {
+        # final-one-weekend --mesh-geometry's primary rays: the main path's.
+        "name": "paged_tri", "route": "cuda",
+        "source": "raytrace_tpu_torch/csrc/paged_tri.cu",
+        "replaces": "raytrace_tpu/ops/pallas_paged_tri.py:185",
+        "launches": k3_launches, "max_abs_err": 0.0, "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"], "bound_ms": k3["bound"][0],
+        "bound_by": k3["bound"][1], "library_ms": None,
     }]}))
     tri_dir.cleanup()
     print(json.dumps({"ok": True, "device": {

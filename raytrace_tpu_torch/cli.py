@@ -2,14 +2,16 @@
 
 Usage:
   python -m raytrace_tpu_torch.cli render [--path scene.json] [-o out.png]
-      [--width W] [--height H] [--checkpoint ck.npz] [--resume]
-      [--device cuda|cpu]
+      [--width W] [--height H] [--mesh-geometry] [--checkpoint ck.npz]
+      [--resume] [--device cuda|cpu]
 
 ``--device`` defaults to ``cuda`` and fails with a clear error when no
 CUDA device is present; the CPU has to be asked for with ``--device cpu``.
+``--mesh-geometry`` tessellates the uv spheres into triangles, as the
+reference renders them (final-one-weekend becomes 2,033,920 triangles).
 The Renderer chooses its path (the fused kernel on a CUDA device for
 every scene it covers, static or with moving spheres, else the
-wavefront) and logs it.  The render steps in chunks of
+wavefront, whose big meshes take the paged sweep K3) and logs it.  The render steps in chunks of
 ``Renderer.chunk_size()`` batches (one fused kernel launch each on the
 fused paths); with ``--checkpoint`` the state is saved after every chunk,
 and ``--resume`` continues from it.
@@ -30,14 +32,17 @@ DEFAULT_SCENE = str(Path(__file__).resolve().parents[1] / "assets"
                     / "final-one-weekend.json")
 
 
-def load_scene(path: str, width=None, height=None):
-    """Scene JSON → CompiledScene (the port's numpy host layers)."""
+def load_scene(path: str, width=None, height=None,
+               analytic_spheres: bool = True):
+    """Scene JSON → CompiledScene (the port's numpy host layers);
+    ``analytic_spheres=False`` tessellates the uv spheres."""
     from .models import compile_scene
     from .scene_file import SceneFile
 
     scene = SceneFile.load_json(path)
     scene.validate()
-    return compile_scene(scene, width=width, height=height)
+    return compile_scene(scene, width=width, height=height,
+                         analytic_spheres=analytic_spheres)
 
 
 def cmd_render(args) -> int:
@@ -49,7 +54,8 @@ def cmd_render(args) -> int:
         log.error("CUDA is not available on this machine; pass --device cpu "
                   "to render on the CPU")
         return 2
-    cs = load_scene(args.path, args.width, args.height)
+    cs = load_scene(args.path, args.width, args.height,
+                    analytic_spheres=not args.mesh_geometry)
     log.info("scene: %d spheres, %d triangles, %dx%d, %d spp x %d batches",
              cs.num_spheres, cs.num_triangles, cs.render.width,
              cs.render.height, cs.render.samples_per_pixel,
@@ -62,7 +68,9 @@ def cmd_render(args) -> int:
         log.info("resumed at batch %d", renderer.current_batch)
 
     log.info("path: %s (%s)", "fused bounce kernel"
-             if renderer.use_megakernel else "wavefront", renderer.path)
+             if renderer.use_megakernel else "wavefront",
+             "paged triangles" if renderer.static.bvh_mode == "paged"
+             else renderer.path)
 
     t0 = time.perf_counter()
     total = cs.render.sample_batches
@@ -92,6 +100,8 @@ def main(argv=None) -> int:
     pr.add_argument("-o", "--output", default=None)
     pr.add_argument("--width", type=int, default=None)
     pr.add_argument("--height", type=int, default=None)
+    pr.add_argument("--mesh-geometry", action="store_true",
+                    help="tessellate spheres (the reference's geometry)")
     pr.add_argument("--checkpoint", default=None)
     pr.add_argument("--resume", action="store_true")
     pr.add_argument("--device", default="cuda",

@@ -110,6 +110,9 @@ class SceneStatic:
     # (models/sphere_order.apply_triangle_order); 0 = file order.
     tri_cluster_g: int = 0
     num_instances: int = 0
+    # How triangles are traced: "none" (the dense sweep, or the fused
+    # kernel's clusters) or "paged" (ops/paged_tri.py), set by the Renderer.
+    bvh_mode: str = "none"
 
 
 def light_table16(tri_p, prob, alias) -> np.ndarray:
@@ -185,13 +188,18 @@ def _to_device(arrays: dict, device) -> SceneArrays:
 
 def upload_scene(cs: CompiledScene, device):
     """CompiledScene (numpy) → (SceneArrays on ``device``, SceneStatic)."""
+    static = scene_static(cs)
+    return _to_device(_scene_numpy(cs), device), static
+
+
+def scene_static(cs: CompiledScene) -> SceneStatic:
+    """The host-side facts of a CompiledScene, without uploading it."""
     if not isinstance(cs, CompiledScene):
         raise TypeError(
             f"upload_scene takes the port's models.compile.CompiledScene, "
             f"not {type(cs).__module__}.{type(cs).__name__} (convert a JAX "
             f"package scene with engine.arrays.from_jax_compiled)")
-    arrays = _to_device(_scene_numpy(cs), device)
-    static = SceneStatic(
+    return SceneStatic(
         sky_type=int(cs.sky_type),
         flags=TexFlags.for_scene(cs),
         has_lights=bool(cs.light_count > 0 and cs.light_total_area > 0.0),
@@ -208,7 +216,6 @@ def upload_scene(cs: CompiledScene, device):
         tri_cluster_g=int(cs.tri_cluster_g),
         num_instances=int(cs.num_instances),
     )
-    return arrays, static
 
 
 def from_jax_scene(scene_arrays, device="cpu") -> SceneArrays:

@@ -32,6 +32,17 @@ A static scene's triangle soup goes to world space once; an animated
 one's at every batch's time.  The instance transforms that move a light
 sample (the hit-instance quirk, ops/nee.py) come with the soup, or, in a
 scene without triangles, at each batch's time.
+
+``use_bvh`` picks how the wavefront traces triangles, as in the JAX
+package: ``"auto"`` takes the dense sweep (K2) up to ``triangle_ceiling``
+and the paged sweep (K3, ops/paged_tri.py) above it; ``"paged"`` takes the
+paged sweep at any size; ``False`` the dense sweep at any size.  The paged
+sweep first puts the soup in Morton order (``paged_soup``), and the fused
+kernel refuses such a soup, so the scene renders on the wavefront (path
+``"wavefront"``, ``static.bvh_mode == "paged"``).  Where the port differs
+from JAX: on the CPU the JAX Renderer traces a big mesh through its SAH
+BVH, while the port takes K3's plain version there too; ``True`` (the SAH
+or implicit BVH) is not ported yet.
 """
 
 from __future__ import annotations
@@ -44,13 +55,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..models.bvh_build import permute_soup
 from ..models.compile import CompiledScene
 from ..ops import camera as cam_ops
-from ..ops import megakernel
+from ..ops import megakernel, paged_tri
 from ..ops.spheres import world_sphere_anim_tables, world_sphere_tables
 from ..tools.chacha import ChaCha20Rng
 from ..utils.image import write_png
-from .arrays import SceneStatic, upload_scene
+from .arrays import SceneStatic, scene_static, upload_scene
 from .wavefront import make_trace_fn, prepare_batch, prepare_tris, render_tile
 
 # The reference seeds its host RNG with this value (render_engine.rs:116);
@@ -58,13 +70,16 @@ from .wavefront import make_trace_fn, prepare_batch, prepare_tris, render_tile
 HOST_SEED = 485_674_845_675_491
 
 # Rays per tile: a whole 1200x675x4 frame is one tile, which fills the card
-# and keeps the host's per-bounce loop overhead to one pass per frame.
+# and keeps the host's per-bounce loop overhead to one pass per frame.  The
+# paged sweep keeps it: the JAX package's smaller paged tiles (1 << 19,
+# raytrace_tpu/engine/renderer.py:495-500) exist for its kernel's scratch
+# cap, which K3 does not have.
 RAY_BUDGET = 1 << 22
 
 # Triangles a scene may have when the fused kernel does not take it in
 # clusters: the JAX Renderer's dense-sweep ceiling (tri_fast_max,
 # raytrace_tpu/engine/renderer.py:341-350); above it, and above the fused
-# kernel's own ceiling, scenes wait for the big-mesh path.
+# kernel's own ceiling, "auto" takes the paged sweep.
 DENSE_SWEEP_MAX_TRIANGLES = 8192
 
 
@@ -93,6 +108,37 @@ def triangle_ceiling(static: SceneStatic) -> int:
     return DENSE_SWEEP_MAX_TRIANGLES
 
 
+def bvh_mode(static: SceneStatic, use_bvh="auto") -> str:
+    """How the scene's triangles are traced: "paged" or "none" (the dense
+    sweep, or the fused kernel's clusters).  ``static`` has
+    ``bvh_mode`` "none"; "auto" pages a soup above ``triangle_ceiling``
+    (raytrace_tpu/engine/renderer.py:331-359)."""
+    if use_bvh is True:
+        raise NotImplementedError(
+            "not ported yet: the SAH and implicit BVH (use_bvh=True; "
+            "ROADMAP queue 1: 'SAH BVH'); use_bvh='paged' traces any soup")
+    if use_bvh not in ("auto", "paged", False):
+        raise ValueError(f"use_bvh must be 'auto', 'paged' or False, not "
+                         f"{use_bvh!r}")
+    if not static.has_tris or use_bvh is False:
+        return "none"
+    if use_bvh == "paged" or static.num_triangles > triangle_ceiling(static):
+        return "paged"
+    return "none"
+
+
+def paged_soup(cs: CompiledScene) -> CompiledScene:
+    """``cs`` with its soup in the paged sweep's order: the Morton order
+    of the real triangles' world centroids at shutter time 0.5, the
+    padding rows kept at the end (raytrace_tpu/engine/renderer.py:
+    359-374).  A triangle's id is its row in the result.  On a soup
+    already in that order the order is the identity."""
+    n = cs.num_triangles
+    order = paged_tri.paged_tri_order(paged_tri.world_soup_mid(cs), n)
+    return permute_soup(cs, np.concatenate(
+        [order, np.arange(n, cs.tri_p.shape[0])]))
+
+
 def unsupported_feature(static: SceneStatic) -> Optional[str]:
     """Why this port cannot render the scene yet, naming the ROADMAP
     queue 1 item that will add it; None when it is inside the slice.
@@ -104,10 +150,6 @@ def unsupported_feature(static: SceneStatic) -> Optional[str]:
     if not static.use_fat_shading:
         return ("materials beyond the fat-row encoding (ROADMAP queue 1: "
                 "'Registry shading')")
-    ceiling = triangle_ceiling(static)
-    if static.num_triangles > ceiling:
-        return (f"{static.num_triangles} triangles, above the {ceiling} "
-                f"the port sweeps (ROADMAP queue 1: 'Big meshes')")
     return None
 
 
@@ -134,16 +176,16 @@ class Renderer:
     CHUNK = 12
 
     def __init__(self, compiled: CompiledScene, device="cuda",
-                 use_megakernel: Optional[bool] = None):
+                 use_megakernel: Optional[bool] = None, use_bvh="auto"):
         self.device = torch.device(device)
         # Kept so update_image_size rebuilds with the same options.
         self._ctor_kwargs = dict(device=self.device,
-                                 use_megakernel=use_megakernel)
+                                 use_megakernel=use_megakernel,
+                                 use_bvh=use_bvh)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA is not available; rendering on the CPU must be asked "
                 "for with device='cpu'")
-        self.scene, self.static = upload_scene(compiled, self.device)
         self.batch_times = get_batch_ray_times(compiled.render.sample_batches)
         # World-space sphere tables per batch time (host f64 -> f32).
         self.sphere_tables = world_sphere_tables(compiled, self.batch_times)
@@ -151,10 +193,17 @@ class Renderer:
             raise NotImplementedError(
                 "not ported yet: spheres with non-uniform scale (ROADMAP "
                 "queue 1: 'Object-space spheres')")
-        self.static = dataclasses.replace(self.static, sphere_world_mode=True)
-        missing = unsupported_feature(self.static)
+        static = dataclasses.replace(scene_static(compiled),
+                                     sphere_world_mode=True)
+        missing = unsupported_feature(static)
         if missing is not None:
             raise NotImplementedError(f"not ported yet: {missing}")
+        mode = bvh_mode(static, use_bvh)
+        if mode == "paged":
+            compiled = paged_soup(compiled)
+        self.scene, static = upload_scene(compiled, self.device)
+        self.static = dataclasses.replace(static, sphere_world_mode=True,
+                                          bvh_mode=mode)
         self.compiled = compiled
         if use_megakernel is None:
             use_megakernel = self.device.type == "cuda"

@@ -10,8 +10,9 @@ host, one bounce per iteration; each iteration reads the alive count once,
 which both ends the loop and drives the tail compaction.
 
 Covered here: spheres in world mode with direct normals, triangles swept
-densely (the kernel K2) with their hit point and normal rebuilt from the
-packed position and attribute tables, fat-row shading, next-event
+densely (the kernel K2) or, on a soup the Renderer put in paged order, by
+pages and clusters (the kernel K3), with their hit point and normal rebuilt
+from the packed position and attribute tables, fat-row shading, next-event
 estimation with lights (the alias-table light sample moved by the hit
 instance's objectToWorld, and the 50/50 mixture of the light and material
 pdfs); animated spheres and instances through per-batch geometry.  The
@@ -27,8 +28,8 @@ import torch
 from ..models.compile import SKY_SOLID, SKY_VERTICAL_GRADIENT
 
 from ..ops import camera as cam_ops
-from ..ops import (megakernel, nee, rng, shading, sphere_sweep, transforms,
-                   tri_sweep, vec3)
+from ..ops import (megakernel, nee, paged_tri, rng, shading, sphere_sweep,
+                   transforms, tri_sweep, vec3)
 from ..ops.intersect import T_MAX, Hit
 from ..ops.materials import LIGHT_PDF
 from ..ops.spheres import SphereHit
@@ -69,9 +70,12 @@ class BatchGeometry(NamedTuple):
     # [T8, 16] n0, n1 - n0, n2 - n0, uv0, uv1 - uv0, uv2 - uv0, pad
     tri_attr16: Optional[torch.Tensor] = None
     # The fused kernel's triangle tables (ops/megakernel.py): [T8, 12]
-    # v0, e1, e2 each padded to four floats, and [C, 8] cluster boxes.
+    # v0, e1, e2 each padded to four floats, and [C, 8] cluster boxes
+    # (None on the paged sweep, which nothing else reads them on).
     tri_table12: Optional[torch.Tensor] = None
     tri_boxes: Optional[torch.Tensor] = None
+    # The paged sweep's tables (ops/paged_tri.py), on a "paged" soup.
+    tri_pages: Optional[paged_tri.PageTables] = None
     # [I, 12] every instance's objectToWorld at the batch's time, row-major
     # 3x4: the light sample's transform (raytrace_tpu/engine/wavefront.py:
     # 755, :875-876); None when the geometry was built without a time.
@@ -131,8 +135,9 @@ def prepare_tris(static: SceneStatic, scene: SceneArrays,
                  batch_time: torch.Tensor) -> dict:
     """The triangle fields of a BatchGeometry for one batch time (a 0-dim
     f32 tensor): the instances go to that time, the soup to world space,
-    then the packed position and attribute tables and the fused kernel's
-    tables (raytrace_tpu/engine/wavefront.py:779-839).  A static scene
+    then the packed position and attribute tables, and the fused kernel's
+    tables, or on a "paged" soup the paged sweep's
+    (raytrace_tpu/engine/wavefront.py:779-839, :881-890).  A static scene
     builds them once."""
     mats = transforms.interpolate_instances(scene.inst_t0, scene.inst_t1,
                                             batch_time)
@@ -140,13 +145,18 @@ def prepare_tris(static: SceneStatic, scene: SceneArrays,
                                                  scene.tri_inst, mats)
     table16 = tri_sweep.pack_tri_table(world_p, static.num_triangles)
     T8 = table16.shape[0]
-    return dict(
-        inst_o2w_rows=_o2w_rows(mats),
-        world_p=world_p, world_n=world_n, tri_table16=table16,
-        tri_attr16=tri_attr_table(world_n, scene.tri_uv, T8),
-        tri_table12=megakernel.tri_table12(table16),
-        tri_boxes=megakernel.cluster_boxes(
-            table16, static.num_triangles, megakernel.tri_group(static, T8)))
+    table12 = megakernel.tri_table12(table16)
+    out = dict(inst_o2w_rows=_o2w_rows(mats), world_p=world_p,
+               world_n=world_n, tri_table16=table16,
+               tri_attr16=tri_attr_table(world_n, scene.tri_uv, T8),
+               tri_table12=table12)
+    if static.bvh_mode == "paged":
+        out["tri_pages"] = paged_tri.build_page_tables(
+            world_p, static.num_triangles, table12)
+    else:
+        out["tri_boxes"] = megakernel.cluster_boxes(
+            table16, static.num_triangles, megakernel.tri_group(static, T8))
+    return out
 
 
 def _o2w_rows(mats: transforms.InstanceMatrices) -> torch.Tensor:
@@ -234,13 +244,18 @@ def combine_hits(sph: Optional[SphereHit], tri: Optional[Hit], s_pad: int,
 def make_trace_fn(static: SceneStatic, scene: SceneArrays,
                   geom: BatchGeometry) -> Callable:
     """trace(o, d, alive) -> RawHit for this batch: the triangle sweep
-    (K2), then the sphere sweep (K1), each only where the scene has such
-    primitives (raytrace_tpu/engine/wavefront.py:138-232)."""
+    (K2, or the paged sweep K3 on a "paged" soup), then the sphere sweep
+    (K1), each only where the scene has such primitives
+    (raytrace_tpu/engine/wavefront.py:138-232)."""
     s_pad = scene.sph_center.shape[0]
 
     def trace(o: V3, d: V3, alive) -> RawHit:
-        tri = (tri_sweep.intersect_tris_sweep(o, d, geom.tri_table16, alive)
-               if static.has_tris else None)
+        tri = None
+        if static.bvh_mode == "paged":
+            tri = paged_tri.intersect_tris_paged(o, d, geom.tri_pages, alive)
+        elif static.has_tris:
+            tri = tri_sweep.intersect_tris_sweep(o, d, geom.tri_table16,
+                                                 alive)
         sph = (sphere_sweep.intersect_spheres_sweep(o, d, geom.sph_table8,
                                                     alive)
                if static.has_spheres or not static.has_tris else None)

@@ -26,12 +26,13 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-# Flags a kernel adds to NVCC_FLAGS.  The fused bounce kernel and the
-# triangle sweep are built without multiply-add contraction, so each of
+# Flags a kernel adds to NVCC_FLAGS.  The fused bounce kernel and the two
+# triangle sweeps are built without multiply-add contraction, so each of
 # their operations rounds as the plain PyTorch version's elementwise
 # kernels do.
 KERNEL_FLAGS = {"megakernel": ("-fmad=false",),
-                "tri_sweep": ("-fmad=false",)}
+                "tri_sweep": ("-fmad=false",),
+                "paged_tri": ("-fmad=false",)}
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 
 

@@ -122,14 +122,17 @@ def megakernel_supported(static) -> bool:
     kernel reads from global memory.  Animated scenes are admitted under
     the JAX package's conditions for its fused animated kernel
     (raytrace_tpu/engine/renderer.py:468-472); a lit animated scene renders
-    one launch per batch (the Renderer's ``fused_per_batch``).  Every other
+    one launch per batch (the Renderer's ``fused_per_batch``).  A soup the
+    Renderer put on the paged sweep (``bvh_mode`` "paged") is refused, as
+    the JAX gate refuses any ``bvh_mode`` but "none" (:2752).  Every other
     scene renders on the wavefront.  The Renderer's triangle ceiling reads
     this gate too."""
     f = static.flags
     cap = MAX_SPHERES_ANIM if static.any_animated else MAX_SPHERES
     tri_max = (MAX_TRIANGLES if static.tri_cluster_g > 0
                else MAX_TRIANGLES_DENSE)
-    return (static.use_fat_shading
+    return (static.bvh_mode == "none"
+            and static.use_fat_shading
             and (static.sphere_world_mode or not static.has_spheres)
             and not (f.has_image or f.has_noise)
             and static.num_spheres <= cap

@@ -1,0 +1,386 @@
+"""Closest hit over any number of triangles: the CUDA kernel
+``csrc/paged_tri.cu`` (K3) and its plain PyTorch version (counterpart of
+raytrace_tpu/ops/pallas_paged_tri.py).
+
+The soup is put in Morton order of its world-space centroids once
+(``paged_tri_order``, on the host), then cut into clusters of ``g``
+contiguous triangles and pages of ``c`` clusters.  A ray tests a page's
+box, then the boxes of the page's clusters, then the triangles of each
+cluster its box lets through, in ascending id, with the dense sweep's
+Moller-Trumbore operations (ops/tri_sweep.py) and a strict ``<``.  A box
+is skipped when the ray enters it at or beyond ``best_t * 1.0001 + 1e-4``,
+and the boxes are widened, so no skipped triangle can be closer than the
+best hit: the result is the dense sweep's over the same soup, bit for bit
+(the lowest id on ties).
+
+``build_page_tables`` builds the tables on the soup's device: once for a
+static scene, every batch for an animated one.  ``intersect_tris_paged``
+is the one entry point: for tensors on the CPU it runs the plain version;
+for CUDA tensors it launches the kernel on the current stream, or raises.
+``LAUNCHES`` counts kernel launches.
+
+The TPU kernel's lane-gather layout (``pageG``), its powers-of-two mask
+packing (``tw``) and its row relayouts are TPU mechanisms and have no
+counterpart here.  Its cap of 512 ray blocks a dispatch is not carried
+over: the kernel takes any number of rays.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..models.bvh_build import _instance_matrix_at
+from . import _build, megakernel, tri_sweep
+from .intersect import T_MAX, T_MIN, Hit
+from .vec3 import V3
+
+LAUNCHES = 0
+
+TRI_G = 128    # triangles per cluster
+PAGE_C = 128   # clusters per page
+_BIG = 3e38    # min/max seed over a cluster's vertices
+_SLAB_EPS = 1e-30  # the slab test keeps |d| at least this in 1 / d
+# Elements of one [pairs, g] temporary in the plain version (64 MiB of f32).
+_CHUNK_ELEMS = 1 << 24
+
+
+# ---------------------------------------------------------------- host side
+
+def paged_tri_order(world_p: np.ndarray, num_real: int) -> np.ndarray:
+    """Morton permutation of the real triangles by their world-space
+    centroids, in f64, stable on equal codes
+    (raytrace_tpu/ops/pallas_paged_tri.py:57)."""
+    v = np.asarray(world_p[:num_real], np.float64)          # [n,3,3]
+    c = v.mean(axis=1)                                      # [n,3]
+    lo = c.min(axis=0)
+    ext = np.maximum(c.max(axis=0) - lo, 1e-12)
+    q = np.clip(((c - lo) / ext) * 1023.0, 0, 1023).astype(np.uint64)
+
+    def spread(x):
+        x = (x | (x << 16)) & np.uint64(0x030000FF)
+        x = (x | (x << 8)) & np.uint64(0x0300F00F)
+        x = (x | (x << 4)) & np.uint64(0x030C30C3)
+        x = (x | (x << 2)) & np.uint64(0x09249249)
+        return x
+
+    code = ((spread(q[:, 0]) << np.uint64(2))
+            | (spread(q[:, 1]) << np.uint64(1)) | spread(q[:, 2]))
+    return np.argsort(code, kind="stable").astype(np.int64)
+
+
+def world_soup_mid(cs) -> np.ndarray:
+    """The real triangles in world space at shutter time 0.5, f64 on the
+    host: the time the order is taken at
+    (raytrace_tpu/ops/pallas_paged_tri.py:82)."""
+    n = cs.num_triangles
+    mats = _instance_matrix_at(cs.inst_t0, cs.inst_t1, 0.5)  # [I,3,4] f64
+    tp = np.asarray(cs.tri_p[:n], np.float64)
+    m = mats[np.asarray(cs.tri_inst[:n], np.int64)]
+    return np.einsum("tij,tvj->tvi", m[:, :, :3], tp) + m[:, None, :, 3]
+
+
+def num_pages(num_tris: int, g: int = TRI_G, c: int = PAGE_C) -> int:
+    return max(1, -(-num_tris // (g * c)))
+
+
+class PageTables(NamedTuple):
+    """One soup's tables for the paged sweep, on the soup's device."""
+
+    tris: torch.Tensor        # [T8, 12] (v0, valid), (e1, 0), (e2, 0)
+    boxes: torch.Tensor       # [n_clusters, 8] (min xyz, 0, max xyz, 0)
+    page_boxes: torch.Tensor  # [NP, 8] the same, over each page's clusters
+    num_tris: int             # the real triangles (rows past it are padding)
+    g: int                    # triangles per cluster
+    c: int                    # clusters per page
+
+
+def build_page_tables(world_p: torch.Tensor, num_real: int,
+                      tris: Optional[torch.Tensor] = None, g: int = TRI_G,
+                      c: int = PAGE_C) -> PageTables:
+    """The tables of a [T, 3, 3] world soup whose first ``num_real`` rows
+    are its triangles.  ``tris`` is the soup's [T8, 12] table
+    (ops/megakernel.tri_table12), built here when not given.  A cluster's
+    box spans its triangles' world vertices, widened by
+    1e-5 + 1e-5 max(|min|, |max|) in f32, as
+    raytrace_tpu/ops/pallas_paged_tri.py:159-169 computes it; a page's box
+    is the exact min and max of its clusters' boxes.  Only the real
+    clusters get a box: the kernel never reads past them."""
+    if num_real < 1:
+        raise ValueError("a paged soup needs at least one triangle")
+    if tris is None:
+        tris = megakernel.tri_table12(tri_sweep.pack_tri_table(world_p,
+                                                               num_real))
+    n_clusters = -(-num_real // g)
+    NP = num_pages(num_real, g, c)
+    dev = world_p.device
+    v = torch.zeros((n_clusters * g, 3, 3), dtype=torch.float32, device=dev)
+    v[:num_real] = world_p[:num_real]
+    real = (torch.arange(n_clusters * g, device=dev) < num_real).reshape(
+        n_clusters, g, 1, 1)
+    v = v.reshape(n_clusters, g, 3, 3)
+    mn = torch.where(real, v, _BIG).amin(dim=(1, 2))          # [C, 3]
+    mx = torch.where(real, v, -_BIG).amax(dim=(1, 2))
+    pad = 1e-5 + 1e-5 * torch.maximum(mn.abs(), mx.abs())
+    boxes = torch.zeros((n_clusters, 8), dtype=torch.float32, device=dev)
+    boxes[:, 0:3] = mn - pad
+    boxes[:, 4:7] = mx + pad
+    full = torch.zeros((NP * c, 8), dtype=torch.float32, device=dev)
+    full[:, 0:3] = _BIG
+    full[:, 4:7] = -_BIG
+    full[:n_clusters] = boxes
+    full = full.reshape(NP, c, 8)
+    page_boxes = torch.zeros((NP, 8), dtype=torch.float32, device=dev)
+    page_boxes[:, 0:3] = full[:, :, 0:3].amin(dim=1)
+    page_boxes[:, 4:7] = full[:, :, 4:7].amax(dim=1)
+    return PageTables(tris=tris, boxes=boxes, page_boxes=page_boxes,
+                      num_tris=int(num_real), g=int(g), c=int(c))
+
+
+# ------------------------------------------------------------ plain version
+
+def _inv(x: torch.Tensor) -> torch.Tensor:
+    return 1.0 / torch.where(x.abs() < _SLAB_EPS,
+                             torch.where(x < 0.0, -_SLAB_EPS, _SLAB_EPS), x)
+
+
+def _slab(o3, iv3, boxes: torch.Tensor, best_t: torch.Tensor):
+    """The slab test of rays (o3, iv3: three [..] tensors) against boxes
+    ([.., 8], broadcast against the rays), pruned by each ray's best t
+    (raytrace_tpu/ops/pallas_paged_tri.py:226-236, :241-251)."""
+    te = tx = None
+    for ax in range(3):
+        a0 = (boxes[..., ax] - o3[ax]) * iv3[ax]
+        a1 = (boxes[..., 4 + ax] - o3[ax]) * iv3[ax]
+        tn, tf = torch.minimum(a0, a1), torch.maximum(a0, a1)
+        te = tn if te is None else torch.maximum(te, tn)
+        tx = tf if tx is None else torch.minimum(tx, tf)
+    return (te <= tx) & (tx > T_MIN) & (te < best_t * 1.0001 + 1e-4)
+
+
+def _cluster_hits(o3, d3, tris: torch.Tensor, tri_ids: torch.Tensor,
+                  num_tris: int):
+    """Moller-Trumbore of K rays (o3, d3: three [K, 1] tensors) against
+    their clusters' triangles (tri_ids [K, g]), in the operation order of
+    ops/tri_sweep.tri_sweep_reference.  Returns (t, u, v) [K, g], t T_MAX
+    where there is no hit (and on the ids at or past ``num_tris``)."""
+    rows = tris[tri_ids.clamp(max=tris.shape[0] - 1)]         # [K, g, 12]
+    v0x, v0y, v0z = rows[..., 0], rows[..., 1], rows[..., 2]
+    e1x, e1y, e1z = rows[..., 4], rows[..., 5], rows[..., 6]
+    e2x, e2y, e2z = rows[..., 8], rows[..., 9], rows[..., 10]
+    (ox, oy, oz), (dx, dy, dz) = o3, d3
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    inv_det = torch.where(det != 0.0,
+                          1.0 / torch.where(det == 0.0, 1.0, det), 0.0)
+    tx = ox - v0x
+    ty = oy - v0y
+    tz = oz - v0z
+    u = (tx * px + ty * py + tz * pz) * inv_det
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    ok = ((tri_ids < num_tris) & (det != 0.0) & (u >= 0.0) & (v >= 0.0)
+          & (u + v <= 1.0) & (t > T_MIN) & (t < T_MAX))
+    return torch.where(ok, t, T_MAX), u, v
+
+
+def paged_tri_sweep_reference(o: V3, d: V3, tables: PageTables,
+                              active: Optional[torch.Tensor] = None):
+    """The plain version of the kernel, as the TPU kernel computes it: for
+    each page in ascending order, the page-box gate against each ray's
+    best t, then the cluster-box pretest against the best t at the page's
+    start, then the triangles of every cluster that passes.  Within a page
+    the closest of those hits wins, the lowest id on ties, and it replaces
+    the best hit only when strictly closer, which is what visiting the
+    clusters in ascending id with a strict ``<`` gives.  Returns (t, id,
+    u, v); (T_MAX, -1, 0, 0) on a miss and for inactive rays."""
+    R = o.x.shape[0]
+    dev = o.x.device
+    g, c = tables.g, tables.c
+    n_clusters = tables.boxes.shape[0]
+    bt = torch.full((R,), T_MAX, dtype=torch.float32, device=dev)
+    bid = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    bu = torch.zeros(R, dtype=torch.float32, device=dev)
+    bv = torch.zeros(R, dtype=torch.float32, device=dev)
+    live = (torch.ones(R, dtype=torch.bool, device=dev) if active is None
+            else active)
+    iv3 = tuple(_inv(x) for x in d)
+    lane = torch.arange(g, device=dev)
+    for p in range(tables.page_boxes.shape[0]):
+        rays = torch.nonzero(
+            live & _slab(tuple(o), iv3, tables.page_boxes[p], bt)).squeeze(1)
+        if rays.numel() == 0:
+            continue
+        c0, c1 = p * c, min((p + 1) * c, n_clusters)
+        boxes = tables.boxes[c0:c1]
+        # The page's hits land in these after the pretest against the
+        # page's starting best t.
+        page_t = bt[rays]
+        page_id = bid[rays]
+        page_u, page_v = bu[rays], bv[rays]
+        step = max(1, _CHUNK_ELEMS // max(boxes.shape[0], g))
+        for r0 in range(0, rays.numel(), step):
+            rr = rays[r0:r0 + step]
+            sel = _slab(tuple(x[rr][:, None] for x in o),
+                        tuple(x[rr][:, None] for x in iv3), boxes[None],
+                        bt[rr][:, None])                      # [r, C]
+            # (ray, cluster) pairs, ray-major, each ray's clusters ascending
+            ri, ci = torch.nonzero(sel, as_tuple=True)
+            for k0 in range(0, ri.numel(), step):
+                kr, kc = ri[k0:k0 + step], ci[k0:k0 + step]
+                ray = rr[kr]
+                ids = (c0 + kc)[:, None] * g + lane           # [K, g]
+                t, u, v = _cluster_hits(
+                    tuple(x[ray][:, None] for x in o),
+                    tuple(x[ray][:, None] for x in d), tables.tris, ids,
+                    tables.num_tris)
+                tk, arg = torch.min(t, dim=1)   # the first minimum
+                idk = ids.gather(1, arg[:, None])[:, 0]
+                # Each ray's closest hit among these pairs, then its lowest
+                # id; a later chunk holds only higher ids of a ray, so it
+                # takes over only when strictly closer.
+                n = rr.numel()
+                lt = torch.full((n,), T_MAX, dtype=torch.float32, device=dev)
+                lt.scatter_reduce_(0, kr, tk, "amin")
+                near = tk == lt[kr]
+                li = torch.full((n,), np.iinfo(np.int64).max,
+                                dtype=torch.int64, device=dev)
+                li.scatter_reduce_(0, kr[near], idk[near], "amin")
+                won = near & (idk == li[kr])
+                lu = torch.zeros(n, dtype=torch.float32, device=dev)
+                lv = torch.zeros(n, dtype=torch.float32, device=dev)
+                lu[kr[won]] = u.gather(1, arg[:, None])[:, 0][won]
+                lv[kr[won]] = v.gather(1, arg[:, None])[:, 0][won]
+                s = slice(r0, r0 + n)
+                upd = lt < page_t[s]
+                page_t[s] = torch.where(upd, lt, page_t[s])
+                page_id[s] = torch.where(upd, li.to(torch.int32), page_id[s])
+                page_u[s] = torch.where(upd, lu, page_u[s])
+                page_v[s] = torch.where(upd, lv, page_v[s])
+        bt[rays], bid[rays] = page_t, page_id
+        bu[rays], bv[rays] = page_u, page_v
+    return bt, bid, bu, bv
+
+
+def visit_counts(o: V3, d: V3, tables: PageTables, best_t: torch.Tensor,
+                 active: torch.Tensor) -> dict:
+    """The work of the sweep's traversal for rays whose closest hit is
+    ``best_t``: every active ray tests every page box; the real clusters of
+    each page whose box passes against ``best_t``; the real triangles of
+    each such cluster whose box passes too.  Any traversal that proves
+    ``best_t`` does at least this (a bound counts it).  Returns Python
+    ints: ``rays``, ``page_tests``, ``cluster_tests``, ``tri_tests``."""
+    dev = o.x.device
+    g, c = tables.g, tables.c
+    n_clusters = tables.boxes.shape[0]
+    sizes = (tables.num_tris - g * torch.arange(n_clusters, device=dev)
+             ).clamp(0, g)
+    iv3 = tuple(_inv(x) for x in d)
+    n = int(active.sum())
+    out = dict(rays=n, page_tests=n * tables.page_boxes.shape[0],
+               cluster_tests=0, tri_tests=0)
+    for p in range(tables.page_boxes.shape[0]):
+        rays = torch.nonzero(active & _slab(
+            tuple(o), iv3, tables.page_boxes[p], best_t)).squeeze(1)
+        c0, c1 = p * c, min((p + 1) * c, n_clusters)
+        out["cluster_tests"] += rays.numel() * (c1 - c0)
+        step = max(1, _CHUNK_ELEMS // (c1 - c0))
+        for r0 in range(0, rays.numel(), step):
+            rr = rays[r0:r0 + step]
+            sel = _slab(tuple(x[rr][:, None] for x in o),
+                        tuple(x[rr][:, None] for x in iv3),
+                        tables.boxes[None, c0:c1], best_t[rr][:, None])
+            out["tri_tests"] += int((sel * sizes[c0:c1]).sum())
+    return out
+
+
+# ------------------------------------------------------------------- kernel
+
+def _check_inputs(o: V3, d: V3, tables: PageTables, active) -> None:
+    R = o.x.shape[0]
+    device = o.x.device
+    for comp in (*o, *d):
+        if (comp.dtype != torch.float32 or comp.shape != (R,)
+                or comp.device != device or not comp.is_contiguous()):
+            raise ValueError("ray components must be contiguous float32 [R] "
+                             "tensors on one device")
+    if (active.dtype != torch.bool or active.shape != (R,)
+            or active.device != device or not active.is_contiguous()):
+        raise ValueError("active must be a contiguous bool [R] tensor on the "
+                         "rays' device")
+    n_clusters = -(-tables.num_tris // tables.g)
+    NP = num_pages(tables.num_tris, tables.g, tables.c)
+    for name, t, rows, cols in (
+            ("tris", tables.tris, None, 12),
+            ("boxes", tables.boxes, n_clusters, 8),
+            ("page_boxes", tables.page_boxes, NP, 8)):
+        if (t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != cols
+                or (rows is not None and t.shape[0] != rows)
+                or t.device != device or not t.is_contiguous()):
+            raise ValueError(f"tables.{name} must be a contiguous float32 "
+                             f"[{rows or 'T8'}, {cols}] tensor on the rays' "
+                             f"device")
+    if tables.tris.shape[0] < tables.num_tris:
+        raise ValueError("tables.tris has fewer rows than triangles")
+    if tables.g < 1 or tables.c < 1 or NP * tables.c * tables.g >= 2 ** 31:
+        raise ValueError("the paged soup must index in 32 bits")
+
+
+def intersect_tris_paged(o: V3, d: V3, tables: PageTables,
+                         active: torch.Tensor) -> Hit:
+    """Closest hit of rays o + t d against the paged soup; the lowest id
+    on ties; inactive rays and misses give (T_MAX, -1, 0, 0)."""
+    global LAUNCHES
+    _check_inputs(o, d, tables, active)
+    device = o.x.device
+    if device.type == "cpu":
+        return Hit(*paged_tri_sweep_reference(o, d, tables, active))
+    if device.type != "cuda":
+        raise ValueError(f"no paged triangle sweep for device {device}")
+    R = o.x.shape[0]
+    if R >= 2 ** 31:
+        raise ValueError(f"{R} rays: the kernel indexes rays in 32 bits")
+    if any(t.data_ptr() % 16 for t in tables[:3]):
+        raise ValueError("the page tables must be 16-byte aligned (float4 "
+                         "loads)")
+    lib = library()
+    t = torch.empty(R, dtype=torch.float32, device=device)
+    ids = torch.empty(R, dtype=torch.int32, device=device)
+    u = torch.empty(R, dtype=torch.float32, device=device)
+    v = torch.empty(R, dtype=torch.float32, device=device)
+    err = lib.paged_tri_launch(
+        tables.tris.data_ptr(), tables.num_tris, tables.boxes.data_ptr(),
+        tables.boxes.shape[0], tables.page_boxes.data_ptr(),
+        tables.page_boxes.shape[0], tables.g, tables.c,
+        o.x.data_ptr(), o.y.data_ptr(), o.z.data_ptr(),
+        d.x.data_ptr(), d.y.data_ptr(), d.z.data_ptr(),
+        active.data_ptr(), R, t.data_ptr(), ids.data_ptr(), u.data_ptr(),
+        v.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"paged_tri launch failed: CUDA error {err} "
+            f"({lib.paged_tri_error_string(err).decode()})")
+    LAUNCHES += 1
+    return Hit(t=t, tri=ids, u=u, v=v)
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The kernel's shared library, built from csrc/ at first use."""
+    lib = _build.load_library("paged_tri")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.paged_tri_launch.argtypes = [p, i, p, i, p, i, i, i, p, p, p, p, p,
+                                     p, p, i, p, p, p, p, p]
+    lib.paged_tri_launch.restype = i
+    lib.paged_tri_error_string.argtypes = [i]
+    lib.paged_tri_error_string.restype = ctypes.c_char_p
+    return lib

@@ -4,6 +4,7 @@
     python3 raytrace_tpu_torch/tools/chip_probe.py chunks [TREE]
     python3 raytrace_tpu_torch/tools/chip_probe.py tris [TREE]
     python3 raytrace_tpu_torch/tools/chip_probe.py lights [TREE]
+    python3 raytrace_tpu_torch/tools/chip_probe.py paged [TREE]
 
 TREE is the root of a checkout whose ``raytrace_tpu_torch`` is measured
 (default: the checkout holding this file), so two trees can be compared on
@@ -35,6 +36,18 @@ not with ``-m``, so that the package comes from TREE.
   bit or not; the plain version's seconds and peak device memory) and
   times it (kernel median of 3), and steps two full cornell-style
   batches through ``Renderer`` with defaults.
+- ``paged``: builds the paged triangle sweep K3 (with K1 and K2) and
+  prints nvcc's register report; holds K3 against its plain version and
+  K2 on random soups of several pages (g = c = 128, and g = 8, c = 16)
+  with an alive mask, and a repeat launch; on final-one-weekend
+  --mesh-geometry (2,033,920 triangles) renders one frame through
+  ``render_tile`` capturing every bounce's rays, holds K3 against the
+  plain version and K2 on 2^16 primary and bounce-2 rays (plain seconds,
+  traversal work), times it over all of them (median of 3), steps two
+  batches of ``Renderer`` with defaults (launch counts, means, peak
+  memory), renders one batch of the motion-blur scene with
+  --mesh-geometry, and renders a 240x135 frame of each soup on the paged
+  and the dense sweep (byte-identical or not).
 """
 
 from __future__ import annotations
@@ -319,6 +332,172 @@ def lights() -> None:
           "means", r.image().mean((0, 1)))
 
 
+def _paged_soup_tables(T, g, c, seed, dev):
+    """T random small triangles in a 10-unit box put in the paged sweep's
+    order, with a duplicate pair; their page tables and dense table."""
+    import numpy as np
+    import torch
+
+    from raytrace_tpu_torch.ops import paged_tri, tri_sweep
+
+    rng = np.random.default_rng(seed)
+    cen = rng.uniform(-5, 5, (T, 3))
+    tri = (cen[:, None, :] + rng.uniform(-0.8, 0.8, (T, 3, 3))).astype(
+        np.float32)
+    tri[T // 2] = tri[1]
+    tri = tri[paged_tri.paged_tri_order(tri, T)]
+    wp = torch.tensor(tri, device=dev)
+    return tri, paged_tri.build_page_tables(wp, T, g=g, c=c), \
+        tri_sweep.pack_tri_table(wp, T)
+
+
+def _hits_equal(a, b, alive):
+    """(t, id equal) and (u, v equal on the alive rays) of two hits."""
+    import torch
+
+    return (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            and torch.equal(a[2][alive], b[2][alive])
+            and torch.equal(a[3][alive], b[3][alive]))
+
+
+def paged() -> None:
+    import concurrent.futures
+
+    import numpy as np
+    import torch
+
+    from raytrace_tpu_torch import cli
+    from raytrace_tpu_torch.engine import Renderer, wavefront
+    from raytrace_tpu_torch.ops import (_build, megakernel, paged_tri,
+                                        sphere_sweep, tri_sweep)
+    from raytrace_tpu_torch.ops.vec3 import V3
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    print(sys.version.split()[0], torch.__version__, torch.version.cuda)
+    mods = (paged_tri, tri_sweep, sphere_sweep)
+    with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
+        list(pool.map(lambda m: m.library(), mods))
+    print(_build.library_path("paged_tri").with_suffix(".log").read_text())
+    dev = torch.device("cuda:0")
+
+    for T, g, c, R in ((40000, 128, 128, 1 << 16), (3001, 8, 16, 1 << 14)):
+        tri, tables, table16 = _paged_soup_tables(T, g, c, T, dev)
+        rng = np.random.default_rng(R)
+        o = rng.uniform(-9, 9, (R, 3))
+        j = rng.integers(0, T, R)
+        d = np.einsum("rv,rvi->ri", rng.dirichlet(np.ones(3), R),
+                      tri[j].astype(np.float64)) - o
+        d[:R // 10] = rng.standard_normal((R // 10, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        v3 = lambda a: V3(*(torch.tensor(  # noqa: E731
+            np.ascontiguousarray(a[:, i], np.float32), device=dev)
+            for i in range(3)))
+        o, d = v3(o), v3(d)
+        alive = torch.tensor(rng.random(R) < 0.7, device=dev)
+        hit = paged_tri.intersect_tris_paged(o, d, tables, alive)
+        again = paged_tri.intersect_tris_paged(o, d, tables, alive)
+        ref = paged_tri.paged_tri_sweep_reference(o, d, tables, alive)
+        k2 = tri_sweep.intersect_tris_sweep(o, d, table16, alive)
+        torch.cuda.synchronize()
+        print(f"random T={T} g={g} c={c} pages "
+              f"{tables.page_boxes.shape[0]} R={R}: vs plain "
+              f"{_hits_equal(hit, ref, alive)}, vs K2 "
+              f"{_hits_equal(hit, k2, alive)}, repeat "
+              f"{all(torch.equal(a, b) for a, b in zip(hit, again))}, hit "
+              f"share {(hit.tri >= 0).double().mean().item():.4f}")
+
+    t0 = time.perf_counter()
+    cs = cli.load_scene(cli.DEFAULT_SCENE, 1200, 675, analytic_spheres=False)
+    print("mesh compile s", time.perf_counter() - t0, cs.num_triangles)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    r = Renderer(cs, device=dev)
+    print("Renderer s", time.perf_counter() - t0, r.path, r.static.bvh_mode,
+          "peak GiB", torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    geom = r._geometry(0)
+    pages = geom.tri_pages
+    print("pages", pages.page_boxes.shape[0], "clusters",
+          pages.boxes.shape[0])
+    trace = wavefront.make_trace_fn(r.static, r.scene, geom)
+    seen = []
+
+    def capture(o, d, alive):
+        seen.append((o, d, alive))
+        return trace(o, d, alive)
+
+    t0 = time.perf_counter()
+    wavefront.render_tile(r.static, r.scene, r.camera, capture, geom, 0, 0,
+                          r.static.height, r.use_dof)
+    torch.cuda.synchronize()
+    print("one frame through render_tile s", time.perf_counter() - t0,
+          "bounces", len(seen))
+    gen = torch.Generator().manual_seed(0)
+    for label, (o, d, alive) in (("primary", seen[0]), ("bounce 2",
+                                                        seen[2])):
+        n = o.x.shape[0]
+        sel = torch.randperm(n, generator=gen)[:1 << 16].to(dev)
+        so, sd = (V3(*(x[sel].contiguous() for x in v)) for v in (o, d))
+        sa = alive[sel].contiguous()
+        hit = paged_tri.intersect_tris_paged(so, sd, pages, sa)
+        t1 = time.perf_counter()
+        ref = paged_tri.paged_tri_sweep_reference(so, sd, pages, sa)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t1
+        k2 = tri_sweep.intersect_tris_sweep(so, sd, geom.tri_table16, sa)
+        torch.cuda.synchronize()
+        work = paged_tri.visit_counts(so, sd, pages, hit.t, sa)
+        print(label, "R", n, "2^16 subset: vs plain",
+              _hits_equal(hit, ref, sa), "vs K2", _hits_equal(hit, k2, sa),
+              "plain s", plain_s, "hit share",
+              (hit.tri >= 0).double().mean().item(), "work", work)
+        print(label, "K3 ms over", n, "rays", _med(
+            lambda: paged_tri.intersect_tris_paged(o, d, pages, alive), 3))
+    del seen
+
+    before = (paged_tri.LAUNCHES, tri_sweep.LAUNCHES, sphere_sweep.LAUNCHES,
+              megakernel.LAUNCHES)
+    for _ in range(2):
+        r.render_next_batch()
+        print("main path batch", r.stats.rays_traced, r.stats.render_seconds)
+    print("main path", r.path, "Mrays/s", r.stats.mrays_per_sec, "K3/K2/K1/K4",
+          paged_tri.LAUNCHES - before[0], tri_sweep.LAUNCHES - before[1],
+          sphere_sweep.LAUNCHES - before[2], megakernel.LAUNCHES - before[3],
+          "means", r.image().mean((0, 1)), "peak GiB",
+          torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+
+    mb = str(Path(cli.DEFAULT_SCENE).with_name(MB_SCENE))
+    cs_mb = cli.load_scene(mb, analytic_spheres=False)
+    for label, paged_cs in (("static", r.compiled), ("motion blur", None)):
+        if paged_cs is None:
+            t0 = time.perf_counter()
+            rm = Renderer(cs_mb, device=dev)
+            before = paged_tri.LAUNCHES
+            rm.render_next_batch()
+            print("motion blur", rm.path, rm.static.bvh_mode,
+                  rm.static.any_animated, "Renderer + batch s",
+                  time.perf_counter() - t0, "rays", rm.stats.rays_traced,
+                  "batch s", rm.stats.render_seconds, "K3",
+                  paged_tri.LAUNCHES - before, "means",
+                  rm.image().mean((0, 1)))
+            paged_cs = rm.compiled
+            del rm
+        small = dataclasses.replace(paged_cs, render=dataclasses.replace(
+            paged_cs.render, width=240, height=135, sample_batches=1))
+        imgs = {}
+        for mode in ("paged", False):
+            rs = Renderer(small, device=dev, use_bvh=mode)
+            rs.render_next_batch()
+            imgs[mode] = (rs.image(), rs.stats.rays_traced,
+                          rs.stats.render_seconds)
+        print(label, "240x135 paged vs dense identical",
+              imgs["paged"][0].tobytes() == imgs[False][0].tobytes(),
+              "rays", imgs["paged"][1], imgs[False][1], "s",
+              imgs["paged"][2], imgs[False][2])
+    print("peak GiB", torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+
+
 def chunks(tree: str) -> None:
     import torch
 
@@ -354,7 +533,8 @@ def chunks(tree: str) -> None:
 
 
 def main(argv) -> int:
-    if len(argv) < 2 or argv[1] not in ("anim", "chunks", "tris", "lights"):
+    if len(argv) < 2 or argv[1] not in ("anim", "chunks", "tris", "lights",
+                                        "paged"):
         print(__doc__, file=sys.stderr)
         return 2
     tree = str(Path(argv[2] if len(argv) > 2
@@ -368,7 +548,8 @@ def main(argv) -> int:
     if argv[1] == "chunks":
         chunks(tree)
     else:
-        {"anim": anim, "tris": tris, "lights": lights}[argv[1]]()
+        {"anim": anim, "tris": tris, "lights": lights,
+         "paged": paged}[argv[1]]()
     return 0
 
 

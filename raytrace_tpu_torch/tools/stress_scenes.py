@@ -14,6 +14,12 @@
 - ``triangle_fixture_doc()``: a small scene of triangles alone (a quad
   floor with a checker, a metal box, a dielectric triangle and a
   lambertian quad wall; no sphere, light or noise).
+- ``box_grid_doc(n_boxes, moving)``: a grid of small boxes, 12 triangles
+  each (16,392 at the default 1366: two pages of the paged sweep, too many
+  for the fused kernel's clusters), static or sliding over the shutter.
+- ``big_spheres_doc(...)``: final-one-weekend's ground sphere and its
+  three large spheres alone, for rendering tessellated
+  (``analytic_spheres=False``; 28,032 triangles at the default rings).
 
 Run as a script to write tri-stress-<n>.json and its OBJ into a directory:
 
@@ -27,6 +33,10 @@ import os
 import sys
 
 from ..models.tessellate import generate_uv_sphere
+
+_FINAL_ONE_WEEKEND = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), "assets", "final-one-weekend.json")
 
 
 def write_sphere_obj(path: str, rings: int = 16, segments: int = 32) -> str:
@@ -139,6 +149,56 @@ def triangle_fixture_doc() -> dict:
                    "sample_batches": 2, "max_ray_depth": 8,
                    "aspect_ratio": 1.7777778},
     }
+
+
+def box_grid_doc(n_boxes: int = 1366, moving: bool = False) -> dict:
+    """``n_boxes`` 0.1-unit boxes in rows of 40 on a 0.2 grid, seen by
+    final-one-weekend's camera under its sky, lambertian; with ``moving``
+    each box slides 0.1 along y over the shutter."""
+    with open(_FINAL_ONE_WEEKEND) as f:
+        base = json.load(f)
+    def transform(i):
+        at = [0.2 * (i % 40), 0.0, 0.2 * (i // 40)]
+        if not moving:
+            return {"static": {"translate": at}}
+        return {"animated": [{"translate": at},
+                             {"translate": [at[0], -0.1, at[2]]}]}
+    return {
+        "cameras": base["cameras"],
+        "textures": [{"constant": {"name": "white",
+                                   "rgb": [0.8, 0.8, 0.8]}}],
+        "materials": [{"lambertian": {"name": "m", "albedo": "white"}}],
+        "primitives": [{"box": {"name": "b", "corners": [[0, 0, 0],
+                                                         [0.1, 0.1, 0.1]],
+                                "material": "m"}}],
+        "instances": [{"name": "b", "transform": transform(i)}
+                      for i in range(n_boxes)],
+        "sky": base["sky"],
+        "render": {"camera": "default", "samples_per_pixel": 4,
+                   "sample_batches": 2, "max_ray_depth": 6,
+                   "aspect_ratio": 1.7777778},
+    }
+
+
+def big_spheres_doc(ground=(64, 128), spheres=(32, 64)) -> dict:
+    """final-one-weekend (assets/final-one-weekend.json) cut to its ground
+    sphere and its three large spheres (sphere1-3: dielectric, checkered
+    lambertian and metal), with their materials, camera and sky, and the
+    (rings, segments) given for the ground and for the three."""
+    with open(_FINAL_ONE_WEEKEND) as f:
+        doc = json.load(f)
+    keep = {"ground_sphere": ground, "sphere1": spheres,
+            "sphere2": spheres, "sphere3": spheres}
+    doc["primitives"] = [p for p in doc["primitives"]
+                         if p["uv_sphere"]["name"] in keep]
+    for p in doc["primitives"]:
+        sph = p["uv_sphere"]
+        sph["rings"], sph["segments"] = keep[sph["name"]]
+    doc["instances"] = [i for i in doc["instances"] if i["name"] in keep]
+    used = {p["uv_sphere"]["material"] for p in doc["primitives"]}
+    doc["materials"] = [m for m in doc["materials"]
+                        if next(iter(m.values()))["name"] in used]
+    return doc
 
 
 def write_tri_stress(out_dir: str, k: int = 4) -> str:

@@ -20,7 +20,11 @@ against the wavefront with K2: channel means within 2e-3, rays within 0.5%.
 The fused kernel's lit forms (lights, with and without triangles): bit for
 bit with their plain versions on the four lit docs of
 tools/light_scenes.py at depth 50; the Renderer's fused path against the
-wavefront: channel means within 2e-3, rays within 0.5%.
+wavefront: channel means within 2e-3, rays within 0.5%.  The paged
+triangle sweep K3 (built without contraction): bit for bit with its plain
+version and with K2 over the same soup; the Renderer's paged wavefront on
+the card byte-identical with its dense sweep, and within the card-vs-CPU
+limits (means 1e-2, rays 2%) of the CPU's render.
 """
 
 import dataclasses
@@ -34,7 +38,7 @@ import torch
 from raytrace_tpu_torch import cli
 from raytrace_tpu_torch.engine import Renderer
 from raytrace_tpu_torch.models import compile_scene
-from raytrace_tpu_torch.ops import megakernel, sphere_sweep, tri_sweep
+from raytrace_tpu_torch.ops import megakernel, paged_tri, sphere_sweep, tri_sweep
 from raytrace_tpu_torch.ops.intersect import T_MAX
 from raytrace_tpu_torch.ops.vec3 import V3
 from raytrace_tpu_torch.scene_file import SceneFile
@@ -480,3 +484,90 @@ def test_lit_scene_with_motion_launches_once_per_batch_on_the_card(dev):
     assert r.path == "fused_per_batch" and r.render_batches(3) == 3
     assert (megakernel.LIGHT_LAUNCHES, megakernel.ANIM_LAUNCHES) == (
         before[0] + 3, before[1])
+
+
+# ---- big meshes: the paged triangle sweep K3 --------------------------------
+
+def _paged_soup(T, g, c, seed, dev):
+    """_tri_soup's triangles in the paged sweep's order, their page tables
+    and their dense table."""
+    tri = _tri_soup(T, seed)
+    tri = tri[paged_tri.paged_tri_order(tri, T)]
+    wp = torch.tensor(tri, device=dev)
+    return (tri, paged_tri.build_page_tables(wp, T, g=g, c=c),
+            tri_sweep.pack_tri_table(wp, T))
+
+
+@pytest.mark.parametrize("T,g,c,R", [(5, 8, 16, 2048), (300, 16, 4, 4099),
+                                     (3001, 8, 16, 1 << 14),
+                                     (40000, 128, 128, 1 << 16)])
+def test_paged_kernel_matches_plain_and_k2_bit_for_bit(dev, T, g, c, R):
+    """Built without contraction, K3 gives its plain version's bits and the
+    dense sweep's, over several pages with a partial last one."""
+    tri, tables, table16 = _paged_soup(T, g, c, T, dev)
+    o, d, alive = _tri_rays(tri, R, seed=R, dev=dev)
+    before = paged_tri.LAUNCHES
+    hit = paged_tri.intersect_tris_paged(o, d, tables, alive)
+    torch.cuda.synchronize()
+    assert paged_tri.LAUNCHES == before + 1
+    ref = paged_tri.paged_tri_sweep_reference(o, d, tables, alive)
+    dense = tri_sweep.intersect_tris_sweep(o, d, table16, alive)
+    for a, b in ((hit, ref), (hit, dense)):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        assert torch.equal(a[2][alive], b[2][alive])
+        assert torch.equal(a[3][alive], b[3][alive])
+    assert (hit.tri[~alive] == -1).all() and (hit.t[~alive] == T_MAX).all()
+    assert (hit.tri >= 0).any() and (hit.tri < T).all()
+
+
+def test_paged_kernel_is_deterministic(dev):
+    tri, tables, _ = _paged_soup(20000, 128, 128, 3, dev)
+    o, d, alive = _tri_rays(tri, 1 << 16, seed=4, dev=dev)
+    a = paged_tri.intersect_tris_paged(o, d, tables, alive)
+    b = paged_tri.intersect_tris_paged(o, d, tables, alive)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_paged_kernel_rejects_bad_inputs(dev):
+    tri, tables, _ = _paged_soup(300, 8, 16, 5, dev)
+    o, d, alive = _tri_rays(tri, 256, seed=6, dev=dev)
+    shifted = torch.zeros(tables.boxes.numel() + 1, device=dev)[1:].view(
+        tables.boxes.shape)
+    shifted.copy_(tables.boxes)
+    with pytest.raises(ValueError, match="aligned"):
+        paged_tri.intersect_tris_paged(o, d, tables._replace(boxes=shifted),
+                                       alive)
+    with pytest.raises(ValueError, match="device"):
+        paged_tri.intersect_tris_paged(
+            o, d, tables._replace(boxes=tables.boxes.cpu()), alive)
+    with pytest.raises(ValueError, match="active"):
+        paged_tri.intersect_tris_paged(o, d, tables, alive.cpu())
+
+
+def test_renderer_takes_the_paged_sweep_on_the_card(dev):
+    """A 16,392-triangle box grid: the paged wavefront on the card (K3, not
+    K2 or K4), the same bytes as the dense sweep on its soup, and the CPU's
+    render within the card-vs-CPU limits (means 1e-2, rays 2%)."""
+    from raytrace_tpu_torch.engine.renderer import paged_soup
+    from raytrace_tpu_torch.tools import stress_scenes
+
+    cs = compile_scene(SceneFile.from_json_dict(
+        stress_scenes.box_grid_doc(moving=False)), width=96)
+    cs = dataclasses.replace(cs, render=dataclasses.replace(
+        cs.render, max_ray_depth=8, sample_batches=1))
+    before = (paged_tri.LAUNCHES, tri_sweep.LAUNCHES, megakernel.LAUNCHES)
+    r = Renderer(cs, device=dev)
+    img = r.render_all()
+    assert r.path == "wavefront" and r.static.bvh_mode == "paged"
+    assert paged_tri.LAUNCHES > before[0]
+    assert (tri_sweep.LAUNCHES, megakernel.LAUNCHES) == before[1:]
+    dense = Renderer(paged_soup(cs), device=dev, use_bvh=False)
+    assert dense.render_all().tobytes() == img.tobytes()
+    assert dense.stats.rays_traced == r.stats.rays_traced
+    cpu = Renderer(cs, device="cpu")
+    c_img = cpu.render_all()
+    np.testing.assert_allclose(img.mean(axis=(0, 1)), c_img.mean(axis=(0, 1)),
+                               atol=1e-2)
+    assert abs(r.stats.rays_traced - cpu.stats.rays_traced) <= (
+        0.02 * cpu.stats.rays_traced)

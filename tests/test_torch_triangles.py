@@ -34,7 +34,7 @@ from raytrace_tpu.models import compile_scene as jax_compile_scene
 from raytrace_tpu.scene_file import SceneFile as JaxSceneFile
 from raytrace_tpu_torch.engine import Renderer
 from raytrace_tpu_torch.engine.arrays import from_jax_compiled, upload_scene
-from raytrace_tpu_torch.engine.renderer import unsupported_feature
+from raytrace_tpu_torch.engine.renderer import bvh_mode, unsupported_feature
 from raytrace_tpu_torch.ops import megakernel
 from raytrace_tpu_torch.tools import stress_scenes
 
@@ -137,24 +137,30 @@ def _static():
 
 @pytest.mark.parametrize("g,n,fused,renders", [
     # In clusters: the fused kernel up to 16,384 triangles; above it the
-    # big-mesh path, not ported yet.
+    # paged sweep.
     (128, 16384, True, True),
     (128, 16385, False, False),
     # In file order: the fused kernel up to 2,048, the dense wavefront
-    # sweep up to 8,192.
+    # sweep up to 8,192, the paged sweep above.
     (0, 2048, True, True),
     (0, 2049, False, True),
     (0, 8192, False, True),
     (0, 8193, False, False),
 ])
 def test_gate_and_triangle_ceiling(g, n, fused, renders):
+    """``renders`` here: without paging (the fused kernel or the dense
+    sweep); above the ceiling "auto" pages the soup, and the fused gate
+    refuses a paged soup, as the JAX gate does."""
     static = dataclasses.replace(_static(), tri_cluster_g=g, num_triangles=n)
     assert megakernel.megakernel_supported(static) is fused
-    missing = unsupported_feature(static)
-    if renders:
-        assert missing is None
-    else:
-        assert "Big meshes" in missing
+    assert unsupported_feature(static) is None
+    mode = bvh_mode(static)
+    assert mode == ("none" if renders else "paged")
+    assert bvh_mode(static, use_bvh=False) == "none"
+    assert bvh_mode(static, use_bvh="paged") == "paged"
+    paged = dataclasses.replace(static, bvh_mode="paged")
+    assert not megakernel.megakernel_supported(paged)
+    assert unsupported_feature(paged) is None
 
 
 def test_other_gates_still_hold_triangle_scenes_back():
