@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Drives the port's render paths through the entry points a user calls,
-on five scenes at their full size: final-one-weekend at 1200x675 with
+on six scenes at their full size: final-one-weekend at 1200x675 with
 its 4 spp and depth 50 (static: the fused kernel K4 and the wavefront
 with K1), final-one-weekend-motion-blur at its shipped 1024x576, 4 spp x
 25 batches, depth 50 (391 of 488 spheres moving: K4's animated form, and
@@ -15,12 +15,16 @@ the wavefront), the triangle stress scene tri-stress-15360
 K1), and the two light scenes of raytrace_tpu_torch/tools/light_scenes.py
 (K4's lit forms, and the wavefront's NEE branch with K2, and K1):
 cornell-style (a Cornell box of 36 triangles with a quad light, 1024x1024,
-64 spp x 32 batches, depth 50) and sphere-light-962 (analytic spheres, a
-light sphere and a light quad: 962 light triangles; 1024x576, 64 spp x 2
-batches, depth 50); and final-one-weekend with --mesh-geometry (its 488
-uv spheres tessellated: 2,033,920 triangles, 125 pages of the paged
-sweep K3; 1200x675, 4 spp, depth 50: the paged wavefront), with its
-motion-blur twin the same way (page tables built per batch).  Every phase
+64 spp x 32 batches, depth 50) and sphere-light-962 (analytic spheres
+with the book's Perlin texture, a light sphere and a light quad: 962
+light triangles; 1024x576, 64 spp x 2 batches, depth 50: K4's lit noise
+form); perlin-spheres (raytrace_tpu_torch/tools/noise_scenes.py: the
+book's two Perlin spheres, 1024x576, 16 spp x 1 batch, depth 50: K4's
+noise form, and the wavefront with K1); and final-one-weekend with
+--mesh-geometry (its 488 uv spheres tessellated: 2,033,920 triangles, 125
+pages of the paged sweep K3; 1200x675, 4 spp, depth 50: the paged
+wavefront), with its motion-blur twin the same way (page tables built
+per batch).  Every phase
 is checked; any failure raises and the script exits non-zero without
 printing a result.  No path runs at a cut depth.  Phases:
 
@@ -29,10 +33,10 @@ printing a result.  No path runs at a cut depth.  Phases:
    started together: the sphere sweep K1 (csrc/sphere_sweep.cu), the
    triangle sweep K2 (csrc/tri_sweep.cu), the fused bounce kernel K4
    (csrc/megakernel.cu: static, animated, triangle and the two lit
-   forms) and the paged triangle sweep K3 (csrc/paged_tri.cu), with
-   nvcc's register report, a line per K4 form and K3's; the static,
-   animated and triangle forms must keep the registers and spills they
-   had before the lit forms (FORMS_BEFORE);
+   forms, each without and with noise) and the paged triangle sweep K3
+   (csrc/paged_tri.cu), with nvcc's register report, a line per K4 form
+   and K3's; the five forms without noise must keep the registers and
+   spills they had before the noise forms (FORMS_BEFORE);
 3. K1 against the plain PyTorch sweep: the 3,240,000 primary rays of the
    main path and 2^20 random rays with an alive mask (ids equal, and ids
    equal with t within rtol=1e-3, atol=1e-3, each on >= 99.9% of rays),
@@ -59,18 +63,27 @@ printing a result.  No path runs at a cut depth.  Phases:
    bit for bit with the plain version (both timed), and held against the
    wavefront with K2 (and K1) on the same batch (rays within 0.5%, means
    within LIGHT_MEAN_TOL), which also counts the work of the bound; then
-   K3 bit for bit with its plain version and with K2 (two launches
-   byte-identical) on random multi-page soups with a partial last page
-   and an alive mask (g = c = 128, and g = 8, c = 16), on all 3,240,000
-   primary rays of the mesh scene's batch 0 (plain version timed) and on
-   2^17 of them and of its bounce-2 rays against K2 too; K3 timed over
-   the primary rays, its work counted on the subset for the bound;
+   K4's five noise forms, each bit for bit with its plain version (and
+   two launches byte-identical) on the small frames of
+   noise_scenes.form_checks (perlin-spheres at 96x54, depth 8, the
+   motion-blur scene with noise, the noise checker and the noise light
+   docs, and sphere-light-962 at 128x72, depth 50; k=2), and
+   perlin-spheres' full batch bit for bit with the plain version (both
+   timed; the plain version run again counts the noise hits of the
+   bound); then K3 bit for bit with its plain version and with K2 (two
+   launches byte-identical) on random multi-page soups with a partial
+   last page and an alive mask (g = c = 128, and g = 8, c = 16), on all
+   3,240,000 primary rays of the mesh scene's batch 0 (plain version
+   timed) and on 2^17 of them and of its bounce-2 rays against K2 too;
+   K3 timed over the primary rays, its work counted on the subset for
+   the bound;
 5. the wavefront path, Renderer(cs, use_megakernel=False): several batches,
    counting K1 launches; the image checks; the same for the motion-blur
-   scene and for tri-stress's one batch (counting K2 and K1 launches); a
-   small frame on the card against the CPU, for both paths and the
-   animated fused path, for both triangle paths, both paths of each
-   light scene and the paged wavefront (a tessellated big-spheres doc);
+   scene, for tri-stress's one batch (counting K2 and K1 launches) and
+   for perlin-spheres' batch (K1); a small frame on the card against the
+   CPU, for both paths and the animated fused path, for both triangle
+   paths, both paths of each light scene and of perlin-spheres, and the
+   paged wavefront (a tessellated big-spheres doc);
 6. the main path, Renderer(cs) with defaults: it must take the fused path
    (K4 launched, K1 not); Mrays/s over batches 1-3 stepped one at a time
    and over one fused chunk of 12 batches, the chunk beside the 298.602
@@ -86,20 +99,25 @@ printing a result.  No path runs at a cut depth.  Phases:
    path in K4's lit form (K1 and K2 not launched), with Mrays/s over
    batches 1-3 stepped and over one fused chunk of 4 batches, and
    sphere-light-962's, its batches stepped and in render_all; the image
-   checks; then the mesh scene's Renderer with defaults, which must take
-   the paged wavefront (K3 launched; K1, K2 and K4 not), Mrays/s over
-   batches 1-3 stepped, the image checks and its channel means beside the
-   analytic scene's; a reduced frame (240x135, depth 50, one batch) of its
-   soup on the paged and on the dense sweep, byte-identical with equal
-   ray counts; one batch of the motion-blur mesh (tables built once for
-   the batch), the image checks and the same reduced-frame identity;
+   checks; then perlin-spheres' Renderer with defaults, which must take
+   the fused path in K4's noise form (K1 not launched), its batch
+   stepped and in render_all, the image checks and its channel means
+   beside the wavefront's; then the mesh scene's Renderer with
+   defaults, which must take the paged wavefront (K3 launched; K1, K2
+   and K4 not), Mrays/s over batches 1-3 stepped, the image checks and
+   its channel means beside the analytic scene's; a reduced frame
+   (240x135, depth 50, one batch) of its soup on the paged and on the
+   dense sweep, byte-identical with equal ray counts; one batch of the
+   motion-blur mesh (tables built once for the batch), the image checks
+   and the same reduced-frame identity;
 7. checkpoint round trips on both paths, with the same chunk boundaries,
    and on cornell-style's fused path: the resumed image must be
    byte-identical to the uninterrupted render;
 8. the CLI renders every batch of each scene to a PNG (fused chunks;
    the mesh scene with --mesh-geometry on the paged wavefront);
 9. one fused chunk of each sphere scene, tri-stress's batch, a chunk of
-   each light scene and one batch of the mesh scene under torch.profiler
+   each light scene, perlin-spheres' batch and one batch of the mesh
+   scene under torch.profiler
    (one session): the device's busy share of the traced window's own
    device timeline and of the untraced wall, the fused kernel's (or
    K3's) share of device time and device operations per batch.
@@ -107,8 +125,9 @@ printing a result.  No path runs at a cut depth.  Phases:
 The line before the last is the kernels' JSON record (with each kernel's
 bound: the larger of its FP32 operations over 67 TFLOP/s and its bytes
 over 3.35 TB/s, counted from this run's inputs and the scene's real
-spheres, not the table's padding rows; K4's triangle and lit forms' and
-K3's are estimates, see _k4_tris_bound and _k3_full), the last line
+spheres, not the table's padding rows; K4's triangle, lit and noise
+forms' and K3's are estimates, see _k4_tris_bound, _noise_bound and
+_k3_full), the last line
 {"ok": true, "device": {...}}.
 """
 
@@ -173,9 +192,22 @@ FLOPS_PER_PRETEST = 24
 # light direction 3, the two pdfs, their mixture and the ratio 35, the
 # throughput 6 and the new direction 11.
 FLOPS_PER_NEE = 175
-# Registers and spill-store bytes of K4's forms before the lit forms were
-# added (nvcc -Xptxas -v; PERF.md): they must compile as before.
-FORMS_BEFORE = {"static": (61, 0), "anim": (62, 0), "tris": (72, 4)}
+# FP32 operations of one noise evaluation of K4's noise forms, counted
+# from csrc/megakernel.cu as above (compares and selects not counted;
+# floorf, fmodf, fabsf and sinf one each): a cnoise is 451 (the lattice
+# floors, the six mod-289s and the offsets 36, three fades 21, each of the
+# four (x, y) corners 96: its hash 15, its two z corners 39 each with
+# their permute, gradient, normalisation and dot, and a z mix 3; the y
+# and x mixes and the gain 10); an octave adds 6, the turbulence's abs 1
+# and the marble around it 6.  An estimate: it counts the turbulence
+# alone, once per hit whose slot is in noise mode (_noise_hits).
+FLOPS_PER_TURBULENCE = 7 * (451 + 6) + 1 + 6
+# Registers and spill-store bytes of K4's forms without noise, as the
+# parent of the noise forms compiled them (nvcc -Xptxas -v; PERF.md):
+# they must compile as before.
+FORMS_BEFORE = {"static": (61, 0), "anim": (62, 0), "tris": (72, 4),
+                "lights": (72, 0), "tris+lights": (72, 4)}
+K4_FORMS = sorted(f + n for f in FORMS_BEFORE for n in ("", "+noise"))
 # The light scenes: their full sizes, and the widths of the small frames
 # that hold K4's lit forms against the plain version at depth 50, k=2.
 LIGHT_SMALL = {"cornell-style": 128, "sphere-light-962": 128,
@@ -190,6 +222,12 @@ LIGHT_MEAN_TOL = 1e-5
 # version and K2 on this many of its rays at a bounce; the reduced frame
 # on which the paged and the dense sweep must render the same bytes.
 MESH_TRIANGLES = 2_033_920
+# perlin-spheres (tools/noise_scenes.py): its size, and its full batch,
+# fused against the wavefront with K1 (which contracts multiply-adds,
+# and the turbulence amplifies a hit point's last bits about 100x):
+# per-sample channel means within this.
+PERLIN_SIZE = (1024, 576)
+NOISE_MEAN_TOL = 1e-4
 MESH_SUBSET = 1 << 17
 REDUCED = (240, 135)
 
@@ -227,13 +265,15 @@ def _k4_tris_bound(static, geom, work, width: int, height: int, scene=None):
     every bounce tests every sphere and every cluster box, and the
     real triangles of each cluster whose box passes the pretest seeded by
     the sphere hit (the JAX kernel's, megakernel.py:1280; the kernel's own
-    running best t can only skip more).  With ``scene`` (the lit form),
+    running best t can only skip more), and every noise hit takes
+    FLOPS_PER_TURBULENCE.  With ``scene`` (the lit form),
     every bounce but a sample's last takes an NEE step, and the light rows
     and instance transforms are read too.  Bytes: the tables, boxes, rows
     and parameters read once, the sums and counts written once."""
     flops = (work["rays"] * _spheres(static) * FLOPS_PER_TEST
              + work["pretests"] * FLOPS_PER_PRETEST
-             + work["tri_tests"] * FLOPS_PER_TRI_TEST)
+             + work["tri_tests"] * FLOPS_PER_TRI_TEST
+             + work["noise_hits"] * FLOPS_PER_TURBULENCE)
     nbytes = (geom.sph_table8.numel() + geom.prim_rows.numel()
               + geom.tri_table12.numel() + geom.tri_boxes.numel() + 40) * 4
     if scene is not None:
@@ -246,19 +286,93 @@ def _k4_tris_bound(static, geom, work, width: int, height: int, scene=None):
 
 def _ptxas_forms(log: str):
     """[(form, registers, spill store bytes)] of each K4 instantiation in
-    nvcc's -Xptxas=-v report (megakernel<kAnim, kTris, kLights>)."""
+    nvcc's -Xptxas=-v report (megakernel<kAnim, kTris, kLights, kNoise>;
+    a noise form's name ends in "+noise")."""
     forms = []
     names = {("0", "0", "0"): "static", ("1", "0", "0"): "anim",
              ("0", "1", "0"): "tris", ("0", "0", "1"): "lights",
              ("0", "1", "1"): "tris+lights"}
     for block in log.split("Compiling entry function")[1:]:
-        m = re.search(r"megakernelILb(\d)ELb(\d)ELb(\d)E", block)
+        m = re.search(r"megakernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E", block)
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores", block)
         if m and regs and spill:
-            forms.append((names.get(m.groups(), str(m.groups())),
+            name = names.get(m.groups()[:3], str(m.groups()))
+            forms.append((name + ("+noise" if m.group(4) == "1" else ""),
                           int(regs.group(1)), int(spill.group(1))))
     return forms
+
+
+def _noise_hits(static, scene, geom, o, d, alive, raw) -> int:
+    """The hits of one bounce whose slot is in noise mode, the turbulences
+    K4's noise form computes there (csrc/megakernel.cu eval_slot): the
+    albedo of a lambertian or metal hit, or a front-facing light's
+    emission, read through the row's checker."""
+    import torch
+
+    from raytrace_tpu_torch.engine import wavefront
+    from raytrace_tpu_torch.models.compile import (MAT_TYPE_DIFFUSE_LIGHT,
+                                                   MAT_TYPE_LAMBERTIAN,
+                                                   MAT_TYPE_METAL)
+    from raytrace_tpu_torch.models.shading_table import (MODE_CHECKER,
+                                                         MODE_NOISE)
+    from raytrace_tpu_torch.ops import vec3
+    from raytrace_tpu_torch.ops.textures import checker_is_even
+
+    hit = alive & ~raw.missed
+    rows = geom.prim_rows[torch.where(hit, raw.prim, 0)]
+    rec = wavefront.reconstruct_hit(raw, o, d, rows, geom,
+                                    scene.sph_center.shape[0])
+    mat = rows[:, 0]
+    albedo = (mat == MAT_TYPE_LAMBERTIAN) | (mat == MAT_TYPE_METAL)
+    emit = ((mat == MAT_TYPE_DIFFUSE_LIGHT) & (vec3.dot(d, rec.n) < 0.0)
+            if static.flags.has_emissive else torch.zeros_like(hit))
+    mode = torch.where(albedo, rows[:, 11], rows[:, 15])
+    if static.flags.has_checker:
+        side = torch.where(checker_is_even(rows[:, 17], rec.p), rows[:, 24],
+                           rows[:, 26])
+        mode = torch.where(mode == MODE_CHECKER, side, mode)
+    return int((hit & (albedo | emit) & (mode == MODE_NOISE)).sum())
+
+
+def _plain_noise_work(args, kw):
+    """K4's plain version on ``args`` once more, counting at every bounce
+    the rays traced and the noise hits (_noise_hits), for _noise_bound."""
+    from raytrace_tpu_torch.engine import wavefront
+    from raytrace_tpu_torch.ops import megakernel
+
+    static, scene = args[0], args[1]
+    work = dict(rays=0, noise_hits=0)
+    inner = wavefront.bounce_wavefront
+
+    def counting(static_, scene_, trace_fn, geom, *rest):
+        def trace(o, d, alive):
+            raw = trace_fn(o, d, alive)
+            work["rays"] += int(alive.sum())
+            work["noise_hits"] += _noise_hits(static, scene, geom, o, d,
+                                              alive, raw)
+            return raw
+
+        return inner(static_, scene_, trace, geom, *rest)
+
+    wavefront.bounce_wavefront = counting
+    try:
+        megakernel.megakernel_reference(*args, **kw)
+    finally:
+        wavefront.bounce_wavefront = inner
+    return work
+
+
+def _noise_bound(static, geom, work, width: int, height: int):
+    """An estimate of K4's noise form's bound for one launch of a sphere
+    scene, from the work ``_plain_noise_work`` counted: every bounce tests
+    every sphere and every noise hit takes FLOPS_PER_TURBULENCE; bytes as
+    _k4_bound's."""
+    flops = (work["rays"] * _spheres(static) * FLOPS_PER_TEST
+             + work["noise_hits"] * FLOPS_PER_TURBULENCE)
+    nbytes = ((geom.sph_table8.numel() + geom.prim_rows.numel() + 40) * 4
+              + width * height * (3 * 4 + 4))
+    return _bound(flops, nbytes)
 
 
 def _tri_stress(k: int, width: int, obj_dir: str, depth=None, batches=None):
@@ -307,10 +421,10 @@ def _tri_work(renderer):
     """Render batch 0 of ``renderer``'s triangle scene on the wavefront
     (K2, K1), as render_next_batch does, and count at every bounce the
     work of K4's triangle form on the same rays (for _k4_tris_bound): the
-    alive rays, their cluster pretests, and the tests of the real
-    triangles of the clusters that pass the pretest against each ray's
-    sphere hit; and the samples.  Returns (image [H, W, 3] on the host,
-    rays traced, work)."""
+    alive rays, their cluster pretests, the tests of the real triangles
+    of the clusters that pass the pretest against each ray's sphere hit,
+    and the noise hits (_noise_hits); and the samples.  Returns (image
+    [H, W, 3] on the host, rays traced, work)."""
     import torch
 
     from raytrace_tpu_torch.engine import wavefront
@@ -324,7 +438,7 @@ def _tri_work(renderer):
     # The rows K4 sweeps in each cluster: the real triangles.
     sizes = (static.num_triangles - group * torch.arange(
         n_clusters, device=geom.tri_boxes.device)).clamp(0, group)
-    work = dict(rays=0, pretests=0, tri_tests=0,
+    work = dict(rays=0, pretests=0, tri_tests=0, noise_hits=0,
                 samples=static.width * static.height * static.sqrt_spp ** 2)
 
     def counting(o, d, alive):
@@ -335,7 +449,10 @@ def _tri_work(renderer):
         work["rays"] += n
         work["pretests"] += n * n_clusters
         work["tri_tests"] += int(((passes & alive).sum(1) * sizes).sum())
-        return trace(o, d, alive)
+        raw = trace(o, d, alive)
+        work["noise_hits"] += _noise_hits(static, scene, geom, o, d, alive,
+                                          raw)
+        return raw
 
     tiles, rays = [], 0
     rows = renderer.rows_per_tile
@@ -630,6 +747,7 @@ def _reset_counts():
     sphere_sweep.LAUNCHES = tri_sweep.LAUNCHES = paged_tri.LAUNCHES = 0
     megakernel.LAUNCHES = megakernel.ANIM_LAUNCHES = 0
     megakernel.TRI_LAUNCHES = megakernel.LIGHT_LAUNCHES = 0
+    megakernel.NOISE_LAUNCHES = 0
 
 
 def _mrays(per_batch):
@@ -792,7 +910,8 @@ def main() -> int:
                                         sphere_sweep, tri_sweep)
     from raytrace_tpu_torch.ops.vec3 import V3
     from raytrace_tpu_torch.scene_file import SceneFile
-    from raytrace_tpu_torch.tools import light_scenes, stress_scenes
+    from raytrace_tpu_torch.tools import (light_scenes, noise_scenes,
+                                          stress_scenes)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -824,8 +943,7 @@ def main() -> int:
             print(log.read_text().strip())
     forms = _ptxas_forms(_build.library_path("megakernel").with_suffix(
         ".log").read_text())
-    if sorted(f for f, _, _ in forms) != ["anim", "lights", "static",
-                                          "tris", "tris+lights"]:
+    if sorted(f for f, _, _ in forms) != K4_FORMS:
         raise AssertionError(f"K4's forms in nvcc's report: {forms}")
     for form, regs, spill in forms:
         print(f"K4 {form} form: {regs} registers, {spill} bytes spill "
@@ -1111,14 +1229,69 @@ def main() -> int:
               f"counted on the wavefront's rays: {work['rays']} bounces of "
               f"{work['samples']} samples, {work['pretests']} cluster "
               f"pretests, {work['tri_tests']} triangle tests, "
-              f"{work['rays'] - work['samples']} NEE steps; bound (an "
+              f"{work['rays'] - work['samples']} NEE steps, "
+              f"{work['noise_hits']} noise hits; bound (an "
               f"estimate) {bound[0]:.4f} ms by {bound[1]} "
               f"({bound[0] / lit_ms:.4f} of it) ({card})")
         light_full[name] = dict(ms=lit_ms, plain_ms=plain_s * 1e3,
                                 bound=bound)
         del r, args, kw, sums
 
-    # -- 4e. K3 vs plain and K2, at small size and on the 2M-triangle mesh ---
+    # -- 4e. K4's noise forms vs plain, and perlin-spheres' full batch -------
+    with open(mb_scene) as f:
+        form_docs = noise_scenes.form_checks(json.load(f))
+    noise_err = 0.0
+    for form, (doc, w, depth) in form_docs.items():
+        small_cs = compile_scene(SceneFile.from_json_dict(doc), width=w)
+        r = Renderer(_scene(small_cs, small_cs.render.width,
+                            small_cs.render.height, depth, 2), device=dev)
+        shape = (r.path == "fused_anim", r.static.has_tris,
+                 r.static.has_lights)
+        if not (r.use_megakernel and r.static.flags.has_noise) or shape != (
+                form == "anim", "tris" in form, "lights" in form):
+            raise AssertionError(f"noise {form}: path {r.path}, not K4's "
+                                 f"{form} noise form")
+        before = megakernel.NOISE_LAUNCHES
+        small_err, *_ = _compare_fused(
+            f"noise {form} {r.static.width}x{r.static.height} depth {depth} "
+            f"k=2 ({r.path})", r, 2, 1e-3, None, card, bitwise_required=True)
+        if megakernel.NOISE_LAUNCHES != before + 2:
+            raise AssertionError(f"noise {form}: the noise form was not "
+                                 f"launched")
+        noise_err = max(noise_err, small_err)
+    perlin_json = noise_scenes.write_perlin_spheres(tri_dir.name)
+    perlin_cs = cli.load_scene(perlin_json)
+    pr = perlin_cs.render
+    if (pr.width, pr.height, pr.samples_per_pixel, pr.sample_batches,
+            pr.max_ray_depth) != (*PERLIN_SIZE, 16, 1, 50):
+        raise AssertionError("perlin-spheres' settings changed")
+    perlin_full = Renderer(perlin_cs, device=dev)
+    if perlin_full.path != "fused":
+        raise AssertionError(f"perlin-spheres: path {perlin_full.path}")
+    err_full, args, kw, noise_rays, noise_plain_s = _compare_fused(
+        "perlin-spheres 1024x576 16 spp depth 50 k=1", perlin_full, 1, 0.0,
+        None, card, bitwise_required=True)
+    noise_err = max(noise_err, err_full)
+    noise_ms = _median_ms(lambda: megakernel.render_tile_mega(*args, **kw), 5)
+    sums, _ = megakernel.render_tile_mega(*args, **kw)
+    perlin_fused_img = (sums / pr.samples_per_pixel).cpu().numpy()
+    work = _plain_noise_work(args, kw)
+    if work["rays"] != noise_rays:
+        raise AssertionError("perlin-spheres: the counted rays differ")
+    noise_bound = _noise_bound(perlin_full.static, args[2], work,
+                               *PERLIN_SIZE)
+    print(f"fused kernel (noise form) time on perlin-spheres at 1024x576, 16 "
+          f"spp, depth 50, one batch: kernel {noise_ms:.3f} ms (median of 5, "
+          f"CUDA events), plain PyTorch {noise_plain_s * 1e3:.1f} ms (one "
+          f"run, host clock), {noise_rays / noise_ms / 1e3:.1f} Mrays/s in "
+          f"the kernel; work counted on the plain version's rays: "
+          f"{work['rays']} bounces, {work['noise_hits']} noise hits "
+          f"({work['noise_hits'] / work['rays']:.4f} a bounce); bound (an "
+          f"estimate) {noise_bound[0]:.4f} ms by {noise_bound[1]} "
+          f"({noise_bound[0] / noise_ms:.4f} of it) ({card})")
+    del perlin_full, args, kw, sums
+
+    # -- 4f. K3 vs plain and K2, at small size and on the 2M-triangle mesh ---
     for T, g, c, R in ((40000, 128, 128, 1 << 16), (3001, 8, 16, 1 << 14)):
         tables, table16, ro, rd, r_alive = _paged_random(T, g, c, R, T, dev)
         _compare_paged(f"random T={T}", ro, rd, tables, table16, r_alive)
@@ -1194,6 +1367,30 @@ def main() -> int:
                  TRI_HEIGHT)
     del wave_tri
 
+    # perlin-spheres' batch on the wavefront: K1, the turbulence in torch.
+    _reset_counts()
+    wave_perlin = Renderer(perlin_cs, device=dev, use_megakernel=False)
+    (pw_rays, pw_s), = _step(wave_perlin, 1)
+    if (sphere_sweep.LAUNCHES <= 0 or megakernel.LAUNCHES
+            or tri_sweep.LAUNCHES):
+        raise AssertionError("perlin-spheres' wavefront did not run on K1 "
+                             "alone")
+    print(f"wavefront path: perlin-spheres 1024x576, 16 spp, depth 50, one "
+          f"batch: {pw_rays} rays in {pw_s:.4f} s "
+          f"({pw_rays / pw_s / 1e6:.3f} Mrays/s); sphere_sweep "
+          f"LAUNCHES={sphere_sweep.LAUNCHES} ({card})")
+    perlin_wave_img = wave_perlin.image()
+    _check_image(perlin_wave_img, "perlin-spheres wavefront", *PERLIN_SIZE)
+    mdiff = np.abs(perlin_fused_img.mean(axis=(0, 1))
+                   - perlin_wave_img.mean(axis=(0, 1))).max()
+    print(f"fused (noise form) vs wavefront with K1 on perlin-spheres' "
+          f"batch: rays {noise_rays} vs {pw_rays}, max channel-mean diff "
+          f"{mdiff:.3g} ({card})")
+    if abs(noise_rays - pw_rays) > 0.005 * pw_rays or mdiff > NOISE_MEAN_TOL:
+        raise AssertionError("perlin-spheres: the fused and wavefront renders "
+                             "disagree")
+    del wave_perlin
+
     # Small-input reference: the same frame on the card and on the CPU
     # (plain versions) must agree in channel means and ray counts.
     tiny = _scene(cs, 96, 54, depth=8, batches=1)
@@ -1203,6 +1400,7 @@ def main() -> int:
     tiny_cb = _scene(light_cs["cornell-style"], 32, 32, depth=8, batches=1)
     tiny_sl = _scene(light_cs["sphere-light-962"], 48, 27, depth=8,
                      batches=1)
+    tiny_perlin = _scene(perlin_cs, 48, 27, depth=8)
     tiny_mesh = _scene(compile_scene(SceneFile.from_json_dict(
         stress_scenes.big_spheres_doc()), width=48,
         analytic_spheres=False), 48, 27, depth=8, batches=1)
@@ -1218,6 +1416,8 @@ def main() -> int:
                                   ("cornell-style", tiny_cb, True),
                                   ("sphere-light-962", tiny_sl, False),
                                   ("sphere-light-962", tiny_sl, True),
+                                  ("perlin-spheres", tiny_perlin, False),
+                                  ("perlin-spheres", tiny_perlin, True),
                                   ("big spheres --mesh-geometry", tiny_mesh,
                                    None)):
         gpu_s = Renderer(small_cs, device=dev, use_megakernel=fused)
@@ -1400,6 +1600,37 @@ def main() -> int:
     _check_image(sl_img, "sphere-light-962 fused", 1024, 576)
     del sl_r, sl_all
 
+    # perlin-spheres' main path, the slice at full size: Renderer with
+    # defaults, K4's noise form; its batch stepped, then render_all on a
+    # second Renderer.
+    _reset_counts()
+    pl_r = Renderer(perlin_cs, device=dev)
+    (pl_rays, pl_s), = _step(pl_r, 1)
+    pl_all = Renderer(perlin_cs, device=dev)
+    pl_img = pl_all.render_all()
+    noise_launches = megakernel.NOISE_LAUNCHES
+    if (pl_r.path != "fused" or pl_all.path != "fused" or noise_launches != 2
+            or megakernel.LAUNCHES != 2 or megakernel.ANIM_LAUNCHES
+            or megakernel.TRI_LAUNCHES or megakernel.LIGHT_LAUNCHES
+            or sphere_sweep.LAUNCHES or tri_sweep.LAUNCHES):
+        raise AssertionError(
+            f"perlin-spheres' main path did not take K4's noise form (path "
+            f"{pl_all.path}, K4 {megakernel.LAUNCHES}, noise form "
+            f"{noise_launches}, K1 {sphere_sweep.LAUNCHES})")
+    print(f"perlin-spheres main path (fused, noise form): 1024x576, 16 spp, "
+          f"depth 50: its batch stepped {pl_rays} rays in {pl_s:.4f} s "
+          f"({pl_rays / pl_s / 1e6:.3f} Mrays/s); render_all "
+          f"{pl_all.stats.rays_traced} rays in "
+          f"{pl_all.stats.render_seconds:.4f} s "
+          f"({pl_all.stats.mrays_per_sec:.3f} Mrays/s); megakernel "
+          f"LAUNCHES={megakernel.LAUNCHES} (noise form {noise_launches}), "
+          f"tri_sweep and sphere_sweep LAUNCHES=0 ({card})")
+    _check_image(pl_img, "perlin-spheres fused", *PERLIN_SIZE)
+    print(f"perlin-spheres fused vs wavefront: channel means "
+          f"{pl_img.mean(axis=(0, 1)).tolist()} (fused), "
+          f"{perlin_wave_img.mean(axis=(0, 1)).tolist()} (wavefront)")
+    del pl_r, pl_all
+
     k3_launches = _mesh_paths(mesh_r, mb_scene, fused_img, wave_img, dev,
                               card)
     del mesh_r
@@ -1454,6 +1685,7 @@ def main() -> int:
                  "fused bounce kernel (fused)"),
                 (light_paths["sphere-light-962"], [], (1024, 576),
                  "fused bounce kernel (fused)"),
+                (perlin_json, [], PERLIN_SIZE, "fused bounce kernel (fused)"),
                 (cli.DEFAULT_SCENE, ["--mesh-geometry", *full_size],
                  (WIDTH, HEIGHT), "wavefront (paged triangles)")):
             name = os.path.splitext(os.path.basename(scene_path))[0]
@@ -1499,6 +1731,7 @@ def main() -> int:
                              ("cornell-style", light_cs["cornell-style"], 4),
                              ("sphere-light-962",
                               light_cs["sphere-light-962"], 2),
+                             ("perlin-spheres", perlin_cs, 1),
                              ("final-one-weekend --mesh-geometry", cs_mesh,
                               1)):
         prof_r = Renderer(prof_cs, device=dev)
@@ -1583,6 +1816,15 @@ def main() -> int:
         "plain_ms": light_full["cornell-style"]["plain_ms"],
         "bound_ms": light_full["cornell-style"]["bound"][0],
         "bound_by": light_full["cornell-style"]["bound"][1],
+        "library_ms": None,
+    }, {
+        # perlin-spheres' full batch, the slice's main path.
+        "name": "megakernel_noise", "route": "cuda",
+        "source": "raytrace_tpu_torch/csrc/megakernel.cu",
+        "replaces": "raytrace_tpu/ops/megakernel.py:1666",
+        "launches": noise_launches, "max_abs_err": noise_err,
+        "ms": noise_ms, "plain_ms": noise_plain_s * 1e3,
+        "bound_ms": noise_bound[0], "bound_by": noise_bound[1],
         "library_ms": None,
     }, {
         # final-one-weekend --mesh-geometry's primary rays: the main path's.

@@ -1,15 +1,17 @@
 // The whole path-tracing loop in one kernel: raygen, sphere and triangle
-// closest hit, fat-row shading, next-event estimation (with or without
-// lights) and per-pixel sums.
+// closest hit, fat-row shading (constant, checker and noise textures),
+// next-event estimation (with or without lights) and per-pixel sums.
 //
 // Replaces the TPU kernel raytrace_tpu/ops/megakernel.py::_mega_kernel
-// (launched by mega_dispatch) in its spheres-in-world-space, direct-normal,
-// no-image configuration: static, with the spheres moving on straight lines
-// (its anim_lerp form), or with a world-space triangle soup (its triangle
-// sweeps, _sweep :1486-1536 and _sweep_tri_gather), each without lights, and
-// the static and triangle forms also with lights (its light slice,
-// _sample_lights_kernel :1542, _o2w_cols_kernel :1602 and the MIS branch
-// :1970-1991).  It computes
+// (launched by mega_dispatch) in its spheres-in-world-space, direct-normal
+// configuration without image textures: static, with the spheres moving on
+// straight lines (its anim_lerp form), or with a world-space triangle soup
+// (its triangle sweeps, _sweep :1486-1536 and _sweep_tri_gather), each
+// without lights, and the static and triangle forms also with lights (its
+// light slice, _sample_lights_kernel :1542, _o2w_cols_kernel :1602 and the
+// MIS branch :1970-1991); each of these also with noise textures (its
+// scatter_and_emit_v3 call :1953, which reaches shading._eval_slot_v3 and
+// perlin.turbulence_v3).  It computes
 // what the torch wavefront (engine/wavefront.py) computes, ray for ray: the
 // same PCG stream per (pixel, sample), the same camera and shading
 // arithmetic in the same operation order, the same closest hit (strict <
@@ -82,6 +84,22 @@
 // light_gather (for more than 16 lights) are TPU mechanisms: one indexed
 // load serves any number of lights here.
 //
+// Noise (template parameter kNoise, instantiated with each of the five forms
+// above, so their code is compiled without it): a hit reads one property
+// slot, the albedo of a lambertian or metal, or a front-facing light's
+// emission, through the row's checker when its mode says so.  Where that
+// slot is in noise mode the thread computes the turbulence at the hit point
+// (ops/perlin.py turbulence_v3: 7 octaves of classic Perlin noise, each
+// eight hashed lattice corners) and the marble 0.5 (1 + sin(aux p.z + 10
+// turb)) on all three channels; elsewhere it computes none.  The plain
+// version evaluates every slot of every ray and selects, but noise draws no
+// random number and a dielectric reads no albedo, so the values taken are
+// the same.  Perlin's operations run in ops/perlin.py's order: floorf, the
+// floor-mod of torch.remainder as fmodf with its sign fix-up, the fade
+// t*t*t*(t*(t*6-15)+10) left to right, the corners in cnoise_v3's order,
+// and the accurate sinf.  A turbulence is ~3,000 operations, so a noise
+// hit costs about as much as 120 sphere tests.
+//
 // What bounds it: per bounce S ray-sphere tests of ~20 flops and a sqrt
 // (and for triangles the box pretests and the tests of the clusters that
 // pass), against one 112-byte row fetch: the fp32 ALU issue rate.  The
@@ -113,6 +131,7 @@ constexpr int kMetal = 2;
 constexpr int kDielectric = 3;
 constexpr int kDiffuseLight = 4;
 constexpr float kModeChecker = 2.0f;
+constexpr float kModeNoise = 3.0f;
 
 // float32 roundings of the constants, as ops/rng.py and ops/nee.py hold them.
 constexpr float kPi = static_cast<float>(3.14159265358979323846);
@@ -124,6 +143,7 @@ constexpr float kPiOver4 = static_cast<float>(3.14159265358979323846 / 4.0);
 constexpr int kUseDof = 1;
 constexpr int kHasChecker = 2;
 constexpr int kHasEmissive = 4;
+constexpr int kHasNoise = 8;
 
 // float4 per sphere in shared memory.
 template <bool kAnim>
@@ -306,11 +326,114 @@ __device__ __forceinline__ V3 cosine_direction(V3 normal, V3 cl) {
           cl.x * axis0.z + cl.y * axis1.z + cl.z * axis2.z};
 }
 
-// shading._eval_property: the constant slot, or the row's checker.
+// shading._eval_property without noise: the constant slot, or the row's
+// checker.
 __device__ __forceinline__ V3 eval_property(const float* __restrict__ row, int base, int mode,
                                             bool has_checker, V3 p) {
   if (has_checker && __ldg(row + mode) == kModeChecker) {
     return checker_is_even(__ldg(row + 17), p) ? load3(row, 18) : load3(row, 21);
+  }
+  return load3(row, base);
+}
+
+// ---- ops/perlin.py: classic Perlin noise and turbulence ----
+
+// float32 roundings of the Python constants, as PyTorch rounds a number
+// that meets a float tensor.
+constexpr float kInv289 = static_cast<float>(1.0 / 289.0);
+constexpr float kInv7 = static_cast<float>(1.0 / 7.0);
+constexpr float kTaylor0 = static_cast<float>(1.79284291400159);
+constexpr float kTaylor1 = static_cast<float>(0.85373472095314);
+constexpr float kNoiseGain = static_cast<float>(2.2);
+constexpr int kOctaves = 7;
+
+__device__ __forceinline__ float mod289(float x) { return x - floorf(x * kInv289) * 289.0f; }
+
+__device__ __forceinline__ float permute(float x) { return mod289(((x * 34.0f) + 10.0f) * x); }
+
+// torch.remainder(x, 1.0): fmod, plus the divisor where the result's sign
+// differs from the divisor's
+__device__ __forceinline__ float rem1(float x) {
+  const float m = fmodf(x, 1.0f);
+  return m < 0.0f ? m + 1.0f : m;
+}
+
+__device__ __forceinline__ float fade(float t) {
+  return t * t * t * (t * (t * 6.0f - 15.0f) + 10.0f);
+}
+
+__device__ __forceinline__ float mix(float a, float b, float t) { return a + (b - a) * t; }
+
+// perlin._grads of one hashed corner, scaled by _taylor_inv_sqrt of its
+// squared length, dotted with the corner's offset (xx, yy, zz)
+__device__ __forceinline__ float corner(float hash, float xx, float yy, float zz) {
+  float gx = hash * kInv7;
+  float gy = rem1(floorf(gx) * kInv7) - 0.5f;
+  gx = rem1(gx);
+  const float gz = 0.5f - fabsf(gx) - fabsf(gy);
+  const float sz = gz <= 0.0f ? 1.0f : 0.0f;
+  gx = gx - sz * ((gx >= 0.0f ? 1.0f : 0.0f) - 0.5f);
+  gy = gy - sz * ((gy >= 0.0f ? 1.0f : 0.0f) - 0.5f);
+  const float norm = kTaylor0 - kTaylor1 * (gx * gx + gy * gy + gz * gz);
+  return (gx * norm) * xx + (gy * norm) * yy + (gz * norm) * zz;
+}
+
+// perlin.cnoise_v3.  Each (x, y) corner's two z corners are mixed along z
+// as soon as both are known, which computes the same mixes in fewer
+// registers.
+__device__ __forceinline__ float cnoise(float px, float py, float pz) {
+  const float fpx = floorf(px);
+  const float fpy = floorf(py);
+  const float fpz = floorf(pz);
+  const float x0i = mod289(fpx), y0i = mod289(fpy), z0i = mod289(fpz);
+  const float x1i = mod289(fpx + 1.0f), y1i = mod289(fpy + 1.0f), z1i = mod289(fpz + 1.0f);
+  const float x0 = px - fpx, y0 = py - fpy, z0 = pz - fpz;
+  const float x1 = x0 - 1.0f, y1 = y0 - 1.0f, z1 = z0 - 1.0f;
+  const float fz = fade(z0);
+  float nz[4];  // corners (x0,y0) (x1,y0) (x0,y1) (x1,y1), as cnoise_v3's
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float ixy = permute(permute(c & 1 ? x1i : x0i) + (c & 2 ? y1i : y0i));
+    const float xx = c & 1 ? x1 : x0;
+    const float yy = c & 2 ? y1 : y0;
+    const float n0 = corner(permute(ixy + z0i), xx, yy, z0);
+    const float n1 = corner(permute(ixy + z1i), xx, yy, z1);
+    nz[c] = mix(n0, n1, fz);
+  }
+  const float fy = fade(y0);
+  const float fx = fade(x0);
+  return kNoiseGain * mix(mix(nz[0], nz[2], fy), mix(nz[1], nz[3], fy), fx);
+}
+
+// perlin.turbulence_v3(p, 7)
+__device__ __forceinline__ float turbulence(V3 p) {
+  float accum = 0.0f;
+  float weight = 1.0f;
+#pragma unroll 1
+  for (int i = 0; i < kOctaves; ++i) {
+    accum = accum + weight * cnoise(p.x, p.y, p.z);
+    weight *= 0.5f;
+    p = p * 2.0f;
+  }
+  return fabsf(accum);
+}
+
+// shading._eval_property in the noise forms: the slot (cols base:base+3,
+// its mode at mode, its aux after it), or the row's checker's even or odd
+// slot where the mode says so; a slot in noise mode is the marble.
+__device__ __forceinline__ V3 eval_slot(const float* __restrict__ row, int base, int mode,
+                                        bool has_checker, V3 p) {
+  float m = __ldg(row + mode);
+  int aux = mode + 1;
+  if (has_checker && m == kModeChecker) {
+    const bool even = checker_is_even(__ldg(row + 17), p);
+    base = even ? 18 : 21;
+    aux = even ? 25 : 27;
+    m = __ldg(row + aux - 1);
+  }
+  if (m == kModeNoise) {
+    const float v = 0.5f * (1.0f + sinf(__ldg(row + aux) * p.z + 10.0f * turbulence(p)));
+    return {v, v, v};
   }
   return load3(row, base);
 }
@@ -382,7 +505,7 @@ __device__ __forceinline__ void sweep_tris(const float4* __restrict__ tris, int 
 
 // ---- the kernel ----
 
-template <bool kAnim, bool kTris, bool kLights>
+template <bool kAnim, bool kTris, bool kLights, bool kNoise>
 __global__ void __launch_bounds__(kThreads)
 megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
            const float* __restrict__ times, int s8, const float4* __restrict__ tris, int t8,
@@ -534,7 +657,22 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
       V3 attenuation = {0.0f, 0.0f, 0.0f};
       V3 skip_dir = {0.0f, 0.0f, 0.0f};
       bool scattered = false;
-      if (is_lamb || is_metal) attenuation = eval_property(row, 2, 11, has_checker, p);
+      V3 emit = {0.0f, 0.0f, 0.0f};
+      if constexpr (kNoise) {
+        // The one slot this hit reads, evaluated once: one call site
+        // holds the turbulence.
+        const bool reads_albedo = is_lamb || is_metal;
+        if (reads_albedo || (has_emissive && is_light && front)) {
+          const V3 v = eval_slot(row, reads_albedo ? 2 : 8, reads_albedo ? 11 : 15, has_checker, p);
+          if (reads_albedo) {
+            attenuation = v;
+          } else {
+            emit = v;
+          }
+        }
+      } else {
+        if (is_lamb || is_metal) attenuation = eval_property(row, 2, 11, has_checker, p);
+      }
       if (is_lamb) {
         scattered = true;
       } else if (is_metal) {
@@ -559,7 +697,11 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
         skip_dir = cannot_refract ? reflect(unit_dir, normal) : refract(unit_dir, normal, ri);
       }
       if (has_emissive && is_light && front) {
-        acc = acc + thr * eval_property(row, 8, 15, has_checker, p);
+        if constexpr (kNoise) {
+          acc = acc + thr * emit;
+        } else {
+          acc = acc + thr * eval_property(row, 8, 15, has_checker, p);
+        }
       }
       if (!scattered) break;  // absorbed
 
@@ -637,7 +779,7 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
   traced_out[pix] = traced;
 }
 
-template <bool kAnim, bool kTris, bool kLights>
+template <bool kAnim, bool kTris, bool kLights, bool kNoise>
 int launch(const void* table8, const void* dtab8, const void* times, int s8, const void* tris12,
            int t8, const void* tri_boxes, int n_clusters, int cluster_g, int s_pad,
            const void* lights16, const void* o2w12, const void* rows, int n_rows,
@@ -651,12 +793,13 @@ int launch(const void* table8, const void* dtab8, const void* times, int s8, con
                       sizeof(float);
   if (smem > 48 * 1024) {  // above the default limit it must be opted into
     const cudaError_t err =
-        cudaFuncSetAttribute(megakernel<kAnim, kTris, kLights>,
+        cudaFuncSetAttribute(megakernel<kAnim, kTris, kLights, kNoise>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int blocks = (n_pix + kThreads - 1) / kThreads;
-  megakernel<kAnim, kTris, kLights><<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  megakernel<kAnim, kTris, kLights, kNoise>
+      <<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(table8), static_cast<const float4*>(dtab8),
       static_cast<const float*>(times), s8, static_cast<const float4*>(tris12), t8,
       static_cast<const float4*>(tri_boxes), n_clusters, cluster_g, s_pad,
@@ -665,6 +808,28 @@ int launch(const void* table8, const void* dtab8, const void* times, int s8, con
       sqrt_spp, spp_local, n_batches, batch0, sample_base, max_depth, flags,
       static_cast<float*>(sums), static_cast<int*>(traced));
   return static_cast<int>(cudaGetLastError());
+}
+
+#define MEGA_ARGS                                                                         \
+  table8, dtab8, times, s8, tris12, t8, tri_boxes, n_clusters, cluster_g, s_pad, lights16, \
+      o2w12, rows, n_rows, fparams, width, height, sqrt_spp, spp_local, n_batches, batch0, \
+      sample_base, max_depth, flags, sums, traced, stream
+
+// The form for the inputs that megakernel_launch has checked.
+template <bool kNoise>
+int dispatch(const void* table8, const void* dtab8, const void* times, int s8,
+             const void* tris12, int t8, const void* tri_boxes, int n_clusters, int cluster_g,
+             int s_pad, const void* lights16, const void* o2w12, const void* rows, int n_rows,
+             const void* fparams, int width, int height, int sqrt_spp, int spp_local,
+             int n_batches, int batch0, int sample_base, int max_depth, int flags, void* sums,
+             void* traced, void* stream) {
+  if (lights16 != nullptr) {
+    return tris12 != nullptr ? launch<false, true, true, kNoise>(MEGA_ARGS)
+                             : launch<false, false, true, kNoise>(MEGA_ARGS);
+  }
+  if (tris12 != nullptr) return launch<false, true, false, kNoise>(MEGA_ARGS);
+  if (dtab8 != nullptr) return launch<true, false, false, kNoise>(MEGA_ARGS);
+  return launch<false, false, false, kNoise>(MEGA_ARGS);
 }
 
 }  // namespace
@@ -679,7 +844,8 @@ int launch(const void* table8, const void* dtab8, const void* times, int s8, con
 // null for no lights, else the [n_lights, 16] f32 light rows (p0 p1 p2,
 // prob, alias; not with dtab8) and o2w12 the [n_instances, 12] f32
 // objectToWorld rows; rows: [n_rows, 64] f32; fparams: [40] f32 (layout
-// above); sums: [height * width, 3] f32 out; traced: [height * width] i32
+// above); flags: kUseDof | kHasChecker | kHasEmissive | kHasNoise (the
+// last picks the noise form); sums: [height * width, 3] f32 out; traced: [height * width] i32
 // out.  Launches on `stream` without synchronising and returns
 // cudaGetLastError().
 extern "C" int megakernel_launch(const void* table8, const void* dtab8, const void* times,
@@ -690,10 +856,6 @@ extern "C" int megakernel_launch(const void* table8, const void* dtab8, const vo
                                  int spp_local, int n_batches, int batch0, int sample_base,
                                  int max_depth, int flags, void* sums, void* traced,
                                  void* stream) {
-#define MEGA_ARGS                                                                         \
-  table8, dtab8, times, s8, tris12, t8, tri_boxes, n_clusters, cluster_g, s_pad, lights16, \
-      o2w12, rows, n_rows, fparams, width, height, sqrt_spp, spp_local, n_batches, batch0, \
-      sample_base, max_depth, flags, sums, traced, stream
   if (tris12 != nullptr && (dtab8 != nullptr || tri_boxes == nullptr || cluster_g <= 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -701,13 +863,7 @@ extern "C" int megakernel_launch(const void* table8, const void* dtab8, const vo
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtab8 != nullptr && times == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (lights16 != nullptr) {
-    return tris12 != nullptr ? launch<false, true, true>(MEGA_ARGS)
-                             : launch<false, false, true>(MEGA_ARGS);
-  }
-  if (tris12 != nullptr) return launch<false, true, false>(MEGA_ARGS);
-  if (dtab8 != nullptr) return launch<true, false, false>(MEGA_ARGS);
-  return launch<false, false, false>(MEGA_ARGS);
+  return (flags & kHasNoise) ? dispatch<true>(MEGA_ARGS) : dispatch<false>(MEGA_ARGS);
 #undef MEGA_ARGS
 }
 

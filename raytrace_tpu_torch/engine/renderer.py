@@ -145,8 +145,6 @@ def unsupported_feature(static: SceneStatic) -> Optional[str]:
     ``static`` is the Renderer's, with ``sphere_world_mode`` set."""
     if static.flags.has_image:
         return "image textures (ROADMAP queue 1: 'Image textures')"
-    if static.flags.has_noise:
-        return "noise textures (ROADMAP queue 1: 'Noise textures')"
     if not static.use_fat_shading:
         return ("materials beyond the fat-row encoding (ROADMAP queue 1: "
                 "'Registry shading')")

@@ -8,23 +8,28 @@ sample order and summed, so the result is the per-pixel radiance sums and
 the per-pixel bounce counts.  ``render_tile_mega`` is the one entry point:
 for tensors on the CPU it runs the plain version, for CUDA tensors it
 launches the kernel on the current stream, or raises.  ``LAUNCHES`` counts
-kernel launches, ``ANIM_LAUNCHES``, ``TRI_LAUNCHES`` and ``LIGHT_LAUNCHES``
-those of the animated, the triangle and the lit forms, so a run can show
-that its main path went through the kernel.
+kernel launches, ``ANIM_LAUNCHES``, ``TRI_LAUNCHES``, ``LIGHT_LAUNCHES``
+and ``NOISE_LAUNCHES`` those of the animated, the triangle, the lit and
+the noise forms, so a run can show that its main path went through the
+kernel.
 
 The kernel covers spheres in world space with direct normals, triangle
-soups in world space, fat-row shading, lights, and no image or noise
-textures; ``megakernel_supported`` is that gate, decided from facts about
-the scene.  Lights take the kernel's lit form (``MegaConfig.lights``): the
-scene's light rows (``SceneArrays.light_tri_packed``, the triangle and the
-alias table in one 64-byte row) and the batch's instance transforms
+soups in world space, fat-row shading with constant, checker and noise
+textures, and lights, but no image texture; ``megakernel_supported`` is
+that gate, decided from facts about the scene.  Noise textures take the
+kernel's noise form (``MegaConfig.has_noise``) of any of its other forms:
+the hit's turbulence (ops/perlin.py) is computed in the kernel where a
+slot the hit reads is in noise mode.  Lights take the kernel's lit form
+(``MegaConfig.lights``): the scene's light rows
+(``SceneArrays.light_tri_packed``, the triangle and the alias table in
+one 64-byte row) and the batch's instance transforms
 (``BatchGeometry.inst_o2w_rows``) go to the kernel, which samples a light
 point after every scattering hit as the wavefront does (ops/nee.py).
 Triangles take the kernel's third form (``MegaConfig.tris``): the soup's
-table (``tri_table12``) and its cluster boxes
-(``cluster_boxes``) come with the batch's geometry, and the kernel tests
-the triangles of each cluster whose box its ray may hit first, which
-gives the dense triangle sweep's closest hit (ops/tri_sweep.py).
+table (``tri_table12``) and its cluster boxes (``cluster_boxes``) come
+with the batch's geometry, and the kernel tests the triangles of each
+cluster whose box its ray may hit first, which gives the dense triangle
+sweep's closest hit (ops/tri_sweep.py).
 Animated spheres take one of two forms.  When every sphere moves on a
 straight line at a constant radius (ops/spheres.world_sphere_anim_tables),
 the geometry holds the spheres at shutter time 0 and their motion
@@ -53,15 +58,16 @@ from .intersect import T_MAX, T_MIN, Hit
 from .spheres import SphereHit
 from .vec3 import V3
 
-# Launches of the kernel, of any form, and of its animated, triangle and
-# lit forms alone.
+# Launches of the kernel, of any form, and of its animated, triangle, lit
+# and noise forms alone.
 LAUNCHES = 0
 ANIM_LAUNCHES = 0
 TRI_LAUNCHES = 0
 LIGHT_LAUNCHES = 0
+NOISE_LAUNCHES = 0
 
 _N_PARAMS = 40  # csrc/megakernel.cu kNumParams
-_USE_DOF, _HAS_CHECKER, _HAS_EMISSIVE = 1, 2, 4
+_USE_DOF, _HAS_CHECKER, _HAS_EMISSIVE, _HAS_NOISE = 1, 2, 4, 8
 
 # The kernel stages the sphere table in shared memory, of which a block
 # may use 227 KiB on the H100.  A static sphere takes two float4 (32 B):
@@ -99,6 +105,7 @@ class MegaConfig(NamedTuple):
     use_dof: bool
     has_checker: bool
     has_emissive: bool
+    has_noise: bool
     anim: bool
     tris: bool
     lights: bool
@@ -112,12 +119,13 @@ class MegaConfig(NamedTuple):
 
 def megakernel_supported(static) -> bool:
     """Scenes the fused kernel covers: spheres in world space (uniform
-    scale, so the world table holds), fat-row shading, no image or noise
-    textures, at most MAX_SPHERES spheres (MAX_SPHERES_ANIM when they
-    move), and at most MAX_TRIANGLES triangles in clusters or
-    MAX_TRIANGLES_DENSE in file order; with or without lights
-    (raytrace_tpu/ops/megakernel.py:2743-2785, as one predicate).  The JAX
-    gate's cap of 64 instances on lit scenes (:2783) is not carried over:
+    scale, so the world table holds), fat-row shading, no image texture,
+    at most MAX_SPHERES spheres (MAX_SPHERES_ANIM when they move), and at
+    most MAX_TRIANGLES triangles in clusters or MAX_TRIANGLES_DENSE in
+    file order; with or without lights, with or without noise textures
+    (raytrace_tpu/ops/megakernel.py:2743-2785, as one predicate; the JAX
+    gate has no noise exclusion, whatever its comment at :107 says).  The
+    JAX gate's cap of 64 instances on lit scenes (:2783) is not carried over:
     it is the TPU's SMEM budget for the instance transforms, which this
     kernel reads from global memory.  Animated scenes are admitted under
     the JAX package's conditions for its fused animated kernel
@@ -134,7 +142,7 @@ def megakernel_supported(static) -> bool:
     return (static.bvh_mode == "none"
             and static.use_fat_shading
             and (static.sphere_world_mode or not static.has_spheres)
-            and not (f.has_image or f.has_noise)
+            and not f.has_image
             and static.num_spheres <= cap
             and static.num_triangles <= tri_max)
 
@@ -225,6 +233,7 @@ def make_config(static, geom, use_dof: bool, n_batches: int) -> MegaConfig:
         max_depth=static.max_ray_depth, use_dof=bool(use_dof),
         has_checker=static.flags.has_checker,
         has_emissive=static.flags.has_emissive,
+        has_noise=static.flags.has_noise,
         anim=geom.sph_dtab8 is not None, tris=tris,
         lights=bool(static.has_lights),
         S8=geom.sph_table8.shape[0], P=geom.prim_rows.shape[0], T8=T8,
@@ -407,6 +416,7 @@ def render_tile_mega(static, scene, geom, cam, batch0: int,
     (``geom.sph_dtab8``) needs ``times``, every batch's shutter time
     ([B] f32 on the geometry's device); a static one ignores it."""
     global LAUNCHES, ANIM_LAUNCHES, TRI_LAUNCHES, LIGHT_LAUNCHES
+    global NOISE_LAUNCHES
     device = geom.sph_table8.device
     cfg = make_config(static, geom, use_dof, n_batches)
     if cfg.anim and times is None:
@@ -429,7 +439,8 @@ def render_tile_mega(static, scene, geom, cam, batch0: int,
         traced = torch.empty((H, W), dtype=torch.int32, device=device)
         flags = ((_USE_DOF if cfg.use_dof else 0)
                  | (_HAS_CHECKER if cfg.has_checker else 0)
-                 | (_HAS_EMISSIVE if cfg.has_emissive else 0))
+                 | (_HAS_EMISSIVE if cfg.has_emissive else 0)
+                 | (_HAS_NOISE if cfg.has_noise else 0))
         err = lib.megakernel_launch(
             geom.sph_table8.data_ptr(),
             geom.sph_dtab8.data_ptr() if cfg.anim else None,
@@ -452,6 +463,7 @@ def render_tile_mega(static, scene, geom, cam, batch0: int,
         ANIM_LAUNCHES += cfg.anim
         TRI_LAUNCHES += cfg.tris
         LIGHT_LAUNCHES += cfg.lights
+        NOISE_LAUNCHES += cfg.has_noise
     if reduce_mean:
         sums = sums / float(np.float32(cfg.spp_local * cfg.n_batches))
     return sums, traced

@@ -20,9 +20,9 @@ from ..models.compile import (
     MAT_TYPE_LAMBERTIAN,
     MAT_TYPE_METAL,
 )
-from ..models.shading_table import MODE_CHECKER
+from ..models.shading_table import MODE_CHECKER, MODE_NOISE
 
-from . import rng, vec3
+from . import perlin, rng, vec3
 from .materials import COSINE_PDF, NO_PDF, schlick_reflectance
 from .textures import TexFlags, checker_is_even
 from .vec3 import V3
@@ -45,30 +45,45 @@ def _check_families(flags: TexFlags) -> None:
         raise NotImplementedError(
             "image textures are not ported yet (ROADMAP queue 1: "
             "'Image textures')")
-    if flags.has_noise:
-        raise NotImplementedError(
-            "noise textures are not ported yet (ROADMAP queue 1: "
-            "'Noise textures')")
 
 
-def _eval_property(flags: TexFlags, rows, base_col: int, mode_col: int, p):
-    """A constant property slot, or the row's checker when the slot's mode
-    says so (ray_gen.glsl:184-243)."""
+def _eval_slot(flags: TexFlags, base: V3, mode, aux, p: V3, turb) -> V3:
+    """One basic property slot (raytrace_tpu/ops/shading.py:194-209): the
+    constant rgb, or where the slot's mode is noise the marble
+    (ray_gen.glsl:203-208) on all three channels, aux being the baked
+    noise scale.  ``turb`` is the hit points' turbulence, computed once for
+    every slot (None without noise)."""
+    if not flags.has_noise:
+        return base
+    m = 0.5 * (1.0 + torch.sin(aux * p.z + 10.0 * turb))
+    return vec3.where(mode == MODE_NOISE, V3(m, m, m), base)
+
+
+def _eval_property(flags: TexFlags, rows, base_col: int, mode_col: int, p,
+                   turb) -> V3:
+    """A property slot (cols base_col:+3, its mode at mode_col and aux
+    after it), or the row's checker of two slots where the mode says so
+    (raytrace_tpu/ops/shading.py:216-251).  Triangles pass no UV: noise
+    reads none, and images are refused."""
     _check_families(flags)
-    out = _rowv3(rows, base_col)
+    out = _eval_slot(flags, _rowv3(rows, base_col), rows[:, mode_col],
+                     rows[:, mode_col + 1], p, turb)
     if flags.has_checker:
-        even = checker_is_even(rows[:, 17], p)
-        ck = vec3.where(even, _rowv3(rows, 18), _rowv3(rows, 21))
+        even = _eval_slot(flags, _rowv3(rows, 18), rows[:, 24], rows[:, 25],
+                          p, turb)
+        odd = _eval_slot(flags, _rowv3(rows, 21), rows[:, 26], rows[:, 27],
+                         p, turb)
+        ck = vec3.where(checker_is_even(rows[:, 17], p), even, odd)
         out = vec3.where(rows[:, mode_col] == MODE_CHECKER, ck, out)
     return out
 
 
-def eval_albedo_v3(flags: TexFlags, rows, p: V3) -> V3:
-    return _eval_property(flags, rows, 2, 11, p)
+def eval_albedo_v3(flags: TexFlags, rows, p: V3, turb) -> V3:
+    return _eval_property(flags, rows, 2, 11, p, turb)
 
 
-def eval_emit_v3(flags: TexFlags, rows, p: V3) -> V3:
-    return _eval_property(flags, rows, 8, 15, p)
+def eval_emit_v3(flags: TexFlags, rows, p: V3, turb) -> V3:
+    return _eval_property(flags, rows, 8, 15, p, turb)
 
 
 def scatter_and_emit_v3(state, flags: TexFlags, rows, p: V3, normal: V3,
@@ -82,7 +97,10 @@ def scatter_and_emit_v3(state, flags: TexFlags, rows, p: V3, normal: V3,
     state, fuzz_unit = rng.random_unit_v3(state)
     state, diel_u = rng.random_float(state)
 
-    albedo = eval_albedo_v3(flags, rows, p)
+    # One turbulence at the hit point serves every slot.
+    turb = (perlin.turbulence_v3(p.x, p.y, p.z, 7) if flags.has_noise
+            else None)
+    albedo = eval_albedo_v3(flags, rows, p, turb)
     fuzz = _rowv3(rows, 5)
 
     is_lamb = mat_type == MAT_TYPE_LAMBERTIAN
@@ -130,7 +148,7 @@ def scatter_and_emit_v3(state, flags: TexFlags, rows, p: V3, normal: V3,
     )
 
     if flags.has_emissive:
-        emit = eval_emit_v3(flags, rows, p)
+        emit = eval_emit_v3(flags, rows, p, turb)
         emission = vec3.where(is_light & front_face, emit, zero)
     else:
         emission = zero

@@ -2,8 +2,13 @@
 
 The fat shading rows (``models/shading_table.py``) resolve
 constant colours on the host, so on the device the constant family is the
-row's rgb slots and the checker family is one parity test.  Image and
-noise textures are not ported yet (ops/shading.py raises for them).
+row's rgb slots, the checker family is one parity test and the noise
+family is the marble of ops/perlin.py's turbulence (ops/shading.py).
+Image textures are not ported yet (ops/shading.py raises for them).
+
+``TexFlags.for_scene`` is the JAX rule as it stands, quirk included: a
+``noise`` texture whose scale is 0 leaves ``has_noise`` False, so its slot
+shades as the row's zero base colour, not as the marble.
 """
 
 from __future__ import annotations

@@ -5,6 +5,7 @@
     python3 raytrace_tpu_torch/tools/chip_probe.py tris [TREE]
     python3 raytrace_tpu_torch/tools/chip_probe.py lights [TREE]
     python3 raytrace_tpu_torch/tools/chip_probe.py paged [TREE]
+    python3 raytrace_tpu_torch/tools/chip_probe.py noise [TREE]
 
 TREE is the root of a checkout whose ``raytrace_tpu_torch`` is measured
 (default: the checkout holding this file), so two trees can be compared on
@@ -48,6 +49,14 @@ not with ``-m``, so that the package comes from TREE.
   memory), renders one batch of the motion-blur scene with
   --mesh-geometry, and renders a 240x135 frame of each soup on the paged
   and the dense sweep (byte-identical or not).
+- ``noise``: builds the fused kernel and prints nvcc's register report;
+  holds each of its five noise forms against the plain version on the
+  small frames of ``tools/noise_scenes.form_checks`` (2 batches in one
+  launch; bit for bit or not, two launches byte-identical, the noise
+  launches counted), holds perlin-spheres' full batch (1024x576, 16 spp,
+  depth 50) against the plain version (bit for bit or not; the plain
+  version's seconds and peak device memory) and times it (kernel median
+  of 3), and steps that batch through ``Renderer`` with defaults.
 """
 
 from __future__ import annotations
@@ -83,6 +92,18 @@ def _scene(path, w, h, depth=None, batches=None):
     from raytrace_tpu_torch import cli
 
     cs = cli.load_scene(path, w, h)
+    return dataclasses.replace(cs, render=dataclasses.replace(
+        cs.render, max_ray_depth=depth or cs.render.max_ray_depth,
+        sample_batches=batches or cs.render.sample_batches))
+
+
+def _doc_scene(doc, w, depth=None, batches=None):
+    """A scene doc compiled at width ``w``, its depth and batch count
+    replaced where given."""
+    from raytrace_tpu_torch.models import compile_scene
+    from raytrace_tpu_torch.scene_file import SceneFile
+
+    cs = compile_scene(SceneFile.from_json_dict(doc), width=w)
     return dataclasses.replace(cs, render=dataclasses.replace(
         cs.render, max_ray_depth=depth or cs.render.max_ray_depth,
         sample_batches=batches or cs.render.sample_batches))
@@ -260,10 +281,8 @@ def lights() -> None:
     import torch
 
     from raytrace_tpu_torch.engine import Renderer
-    from raytrace_tpu_torch.models import compile_scene
     from raytrace_tpu_torch.ops import (_build, megakernel, sphere_sweep,
                                         tri_sweep)
-    from raytrace_tpu_torch.scene_file import SceneFile
     from raytrace_tpu_torch.tools import light_scenes as ls
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -276,17 +295,11 @@ def lights() -> None:
     print(_build.library_path("megakernel").with_suffix(".log").read_text())
     dev = torch.device("cuda:0")
 
-    def doc_scene(doc, w, depth=None, batches=None):
-        cs = compile_scene(SceneFile.from_json_dict(doc), width=w)
-        return dataclasses.replace(cs, render=dataclasses.replace(
-            cs.render, max_ray_depth=depth or cs.render.max_ray_depth,
-            sample_batches=batches or cs.render.sample_batches))
-
     for label, doc, w in (("cornell-style", ls.cornell_doc(), 128),
                           ("sphere-light-962", ls.sphere_light_doc(), 128),
                           ("lit spheres", ls.lit_spheres_doc(), 96),
                           ("70 instances", ls.many_instances_doc(70), 96)):
-        r = Renderer(doc_scene(doc, w, 50, 2), device=dev)
+        r = Renderer(_doc_scene(doc, w, 50, 2), device=dev)
         args = (r.static, r.scene, r._geometry(0), r.camera, 0, 2)
         kw = dict(use_dof=r.use_dof, times=r.batch_times_dev)
         s1, t1 = megakernel.render_tile_mega(*args, **kw)
@@ -304,7 +317,7 @@ def lights() -> None:
 
     for label, doc in (("cornell-style", ls.cornell_doc()),
                        ("sphere-light-962", ls.sphere_light_doc())):
-        r = Renderer(doc_scene(doc, 1024), device=dev)
+        r = Renderer(_doc_scene(doc, 1024), device=dev)
         args = (r.static, r.scene, r._geometry(0), r.camera, 0, 1)
         kw = dict(use_dof=r.use_dof, times=r.batch_times_dev)
         sums, traced = megakernel.render_tile_mega(*args, **kw)
@@ -320,7 +333,7 @@ def lights() -> None:
               "plain s", plain_s, "plain peak GiB",
               torch.cuda.max_memory_allocated(dev) / 2 ** 30)
         del sums, traced, ref, rt
-    r = Renderer(doc_scene(ls.cornell_doc(), 1024), device=dev)
+    r = Renderer(_doc_scene(ls.cornell_doc(), 1024), device=dev)
     before = (megakernel.LIGHT_LAUNCHES, sphere_sweep.LAUNCHES,
               tri_sweep.LAUNCHES)
     for _ in range(2):
@@ -330,6 +343,68 @@ def lights() -> None:
           megakernel.LIGHT_LAUNCHES - before[0],
           sphere_sweep.LAUNCHES - before[1], tri_sweep.LAUNCHES - before[2],
           "means", r.image().mean((0, 1)))
+
+
+def noise() -> None:
+    import torch
+
+    from raytrace_tpu_torch import cli
+    from raytrace_tpu_torch.engine import Renderer
+    from raytrace_tpu_torch.ops import _build, megakernel, sphere_sweep
+    from raytrace_tpu_torch.tools import noise_scenes as ns
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    print(sys.version.split()[0], torch.__version__, torch.version.cuda)
+    t0 = time.perf_counter()
+    megakernel.library()
+    print("build", time.perf_counter() - t0)
+    print(_build.library_path("megakernel").with_suffix(".log").read_text())
+    dev = torch.device("cuda:0")
+
+    with open(Path(cli.DEFAULT_SCENE).with_name(MB_SCENE)) as f:
+        checks = ns.form_checks(json.load(f))
+    for form, (doc, w, depth) in checks.items():
+        r = Renderer(_doc_scene(doc, w, depth, 2), device=dev)
+        args = (r.static, r.scene, r._geometry(0), r.camera, 0, 2)
+        kw = dict(use_dof=r.use_dof, times=r.batch_times_dev)
+        before = megakernel.NOISE_LAUNCHES
+        s1, t1 = megakernel.render_tile_mega(*args, **kw)
+        s2, t2 = megakernel.render_tile_mega(*args, **kw)
+        ref, rt = megakernel.megakernel_reference(*args, **kw)
+        torch.cuda.synchronize()
+        print(form, r.path, r.static.width, r.static.height, "depth", depth,
+              "repeat identical", torch.equal(s1, s2) and torch.equal(t1, t2),
+              "bitwise", torch.equal(s1, ref), torch.equal(t1, rt),
+              "maxdiff", (s1 - ref).abs().max().item(), "pixels > 1e-4",
+              ((s1 - ref).abs().amax(-1) > 1e-4).double().mean().item(),
+              "rays", int(t1.sum()), int(rt.sum()), "NOISE_LAUNCHES +",
+              megakernel.NOISE_LAUNCHES - before)
+
+    r = Renderer(_doc_scene(ns.perlin_spheres_doc(), 1024), device=dev)
+    args = (r.static, r.scene, r._geometry(0), r.camera, 0, 1)
+    kw = dict(use_dof=r.use_dof, times=r.batch_times_dev)
+    sums, traced = megakernel.render_tile_mega(*args, **kw)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    ref, rt = megakernel.megakernel_reference(*args, **kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    print("perlin-spheres full batch", r.static.width, r.static.height,
+          "rays", int(traced.sum()), "kernel ms",
+          _med(lambda: megakernel.render_tile_mega(*args, **kw), 3),
+          "bitwise", torch.equal(sums, ref), torch.equal(traced, rt),
+          "maxdiff", (sums - ref).abs().max().item(), "plain s", plain_s,
+          "plain peak GiB", torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    del sums, traced, ref, rt
+    before = (megakernel.NOISE_LAUNCHES, sphere_sweep.LAUNCHES)
+    r = Renderer(_doc_scene(ns.perlin_spheres_doc(), 1024), device=dev)
+    r.render_next_batch()
+    print("perlin-spheres main path", r.path, "Mrays/s", r.stats.mrays_per_sec,
+          "rays", r.stats.rays_traced, "NOISE_LAUNCHES +",
+          megakernel.NOISE_LAUNCHES - before[0], "K1 +",
+          sphere_sweep.LAUNCHES - before[1], "means", r.image().mean((0, 1)))
 
 
 def _paged_soup_tables(T, g, c, seed, dev):
@@ -534,7 +609,7 @@ def chunks(tree: str) -> None:
 
 def main(argv) -> int:
     if len(argv) < 2 or argv[1] not in ("anim", "chunks", "tris", "lights",
-                                        "paged"):
+                                        "paged", "noise"):
         print(__doc__, file=sys.stderr)
         return 2
     tree = str(Path(argv[2] if len(argv) > 2
@@ -548,8 +623,8 @@ def main(argv) -> int:
     if argv[1] == "chunks":
         chunks(tree)
     else:
-        {"anim": anim, "tris": tris, "lights": lights,
-         "paged": paged}[argv[1]]()
+        {"anim": anim, "tris": tris, "lights": lights, "paged": paged,
+         "noise": noise}[argv[1]]()
     return 0
 
 

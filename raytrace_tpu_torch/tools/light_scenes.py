@@ -15,18 +15,18 @@ the reference scenes of those names (BENCH_SCENES.json):
   triangles in file order (2 of them the light), 8 instances, no sphere.
   The rotated boxes make the hit-instance quirk of the light sample
   (ops/nee.py) visible.
-- ``sphere_light_doc()``, ``sphere-light-962``: a checkered ground sphere,
-  a lambertian sphere, a light sphere (16 rings x 32 segments) and a
-  light quad, both of emit (4, 4, 4); black sky; 1024x576, 64 spp x 2
-  batches, depth 50.  The spheres are traced analytically; the alias
-  table holds the light sphere's 960 tessellated triangles and the quad's
-  2: 962 lights, the count the JAX kernel's light_gather comment gives
-  for simple-light (raytrace_tpu/ops/megakernel.py:260-263).  One cut:
-  the book's Perlin texture is replaced by a checker on the ground and a
-  constant grey on the sphere (noise textures are not ported yet).
+- ``sphere_light_doc()``, ``sphere-light-962``: a ground sphere and a
+  lambertian sphere, both with the book's Perlin texture (``noise`` of
+  scale 4), a light sphere (16 rings x 32 segments) and a light quad,
+  both of emit (4, 4, 4); black sky; 1024x576, 64 spp x 2 batches, depth
+  50.  The spheres are traced analytically; the alias table holds the
+  light sphere's 960 tessellated triangles and the quad's 2: 962 lights,
+  the count the JAX kernel's light_gather comment gives for simple-light
+  (raytrace_tpu/ops/megakernel.py:260-263).
 
 Two small fixtures for kernel checks: ``lit_spheres_doc()`` (the sphere
-scene without its quad: lights and no triangle) and
+scene without its quad, and with a checker ground and a grey sphere in
+place of the Perlin texture: lights, no triangle and no noise) and
 ``many_instances_doc(n)`` (a lit scene of ``n`` instances).
 
 The camera's up vector is (0, -1, 0): the reference's world is y-down
@@ -110,21 +110,16 @@ def cornell_doc() -> dict:
     }
 
 
-def sphere_light_doc() -> dict:
-    """The Next Week's simple light (its ``simple_light()``), with the
-    Perlin texture cut to a checker and a constant."""
+def _simple_light(textures, ground: str, ball: str) -> dict:
+    """The Next Week's simple light with the ground and the lambertian
+    sphere textured ``ground`` and ``ball`` (names among ``textures``)."""
     return {
         "cameras": [_camera([26, 3, 6], [0, 2, 0], 20)],
-        "textures": [
-            {"constant": {"name": "dark", "rgb": [0.2, 0.3, 0.1]}},
-            {"constant": {"name": "pale", "rgb": [0.9, 0.9, 0.9]}},
-            {"checker": {"name": "ground", "scale": 0.32, "even": "dark",
-                         "odd": "pale"}},
-            {"constant": {"name": "grey", "rgb": [0.5, 0.5, 0.5]}},
+        "textures": textures + [
             {"constant": {"name": "light", "rgb": [4, 4, 4]}}],
         "materials": [
-            {"lambertian": {"name": "ground", "albedo": "ground"}},
-            {"lambertian": {"name": "grey", "albedo": "grey"}},
+            {"lambertian": {"name": "ground", "albedo": ground}},
+            {"lambertian": {"name": "grey", "albedo": ball}},
             {"diffuse_light": {"name": "light", "emit": "light"}}],
         "primitives": [
             {"uv_sphere": {"name": "ground", "center": [0, -1000, 0],
@@ -146,11 +141,25 @@ def sphere_light_doc() -> dict:
     }
 
 
+def sphere_light_doc() -> dict:
+    """The Next Week's simple light (its ``simple_light()``): the Perlin
+    texture on the ground and the sphere."""
+    return _simple_light([{"noise": {"name": "pertext", "scale": 4}}],
+                         "pertext", "pertext")
+
+
 def lit_spheres_doc() -> dict:
-    """sphere-light-962 without its quad: analytic spheres and the light
-    sphere's 960 light triangles, no triangle to trace (the fused
-    kernel's lit form without triangles)."""
-    doc = sphere_light_doc()
+    """sphere-light-962 without its quad, and with a checkered ground and
+    a grey sphere: analytic spheres and the light sphere's 960 light
+    triangles, no triangle to trace and no noise (the fused kernel's lit
+    form without triangles, and a checker under lights)."""
+    doc = _simple_light([
+        {"constant": {"name": "dark", "rgb": [0.2, 0.3, 0.1]}},
+        {"constant": {"name": "pale", "rgb": [0.9, 0.9, 0.9]}},
+        {"checker": {"name": "checker", "scale": 0.32, "even": "dark",
+                     "odd": "pale"}},
+        {"constant": {"name": "grey", "rgb": [0.5, 0.5, 0.5]}}],
+        "checker", "grey")
     doc["primitives"] = doc["primitives"][:3]
     doc["instances"] = doc["instances"][:3]
     return doc

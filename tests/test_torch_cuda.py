@@ -24,7 +24,12 @@ wavefront: channel means within 2e-3, rays within 0.5%.  The paged
 triangle sweep K3 (built without contraction): bit for bit with its plain
 version and with K2 over the same soup; the Renderer's paged wavefront on
 the card byte-identical with its dense sweep, and within the card-vs-CPU
-limits (means 1e-2, rays 2%) of the CPU's render.
+limits (means 1e-2, rays 2%) of the CPU's render.  The fused kernel's
+noise forms (each of its five forms with noise textures): bit for bit
+with their plain versions on the small docs of
+tools/noise_scenes.form_checks, and the Renderer's fused path on
+perlin-spheres against its wavefront: channel means within 2e-3, rays
+within 0.5%.
 """
 
 import dataclasses
@@ -571,3 +576,57 @@ def test_renderer_takes_the_paged_sweep_on_the_card(dev):
                                atol=1e-2)
     assert abs(r.stats.rays_traced - cpu.stats.rays_traced) <= (
         0.02 * cpu.stats.rays_traced)
+
+
+# ---- noise textures: the fused kernel's noise forms -------------------------
+
+def _noise_form_scene(form, w=48):
+    from raytrace_tpu_torch.tools import noise_scenes
+
+    with open(os.path.join(os.path.dirname(cli.DEFAULT_SCENE),
+                           "final-one-weekend-motion-blur.json")) as f:
+        doc, _, depth = noise_scenes.form_checks(json.load(f))[form]
+    cs = compile_scene(SceneFile.from_json_dict(doc), width=w)
+    return dataclasses.replace(cs, render=dataclasses.replace(
+        cs.render, max_ray_depth=depth, sample_batches=2))
+
+
+@pytest.mark.parametrize("form", ["static", "anim", "tris", "lights",
+                                  "tris+lights"])
+def test_noise_fused_kernel_matches_plain_bit_for_bit(dev, form):
+    r = Renderer(_noise_form_scene(form), device=dev)
+    assert r.use_megakernel and r.static.flags.has_noise
+    args = (r.static, r.scene, r._geometry(0), r.camera, 0, 2)
+    kw = dict(use_dof=r.use_dof, times=r.batch_times_dev)
+    before = megakernel.LAUNCHES, megakernel.NOISE_LAUNCHES
+    sums, traced = megakernel.render_tile_mega(*args, **kw)
+    again, traced2 = megakernel.render_tile_mega(*args, **kw)
+    torch.cuda.synchronize()
+    assert (megakernel.LAUNCHES, megakernel.NOISE_LAUNCHES) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(sums, again) and torch.equal(traced, traced2)
+    ref, ref_traced = megakernel.megakernel_reference(*args, **kw)
+    assert torch.isfinite(sums).all() and float(sums.max()) > 0.0
+    assert torch.equal(sums, ref) and torch.equal(traced, ref_traced)
+
+
+def test_renderer_takes_the_noise_kernel_on_the_card(dev):
+    from raytrace_tpu_torch.tools import noise_scenes
+
+    cs = compile_scene(SceneFile.from_json_dict(
+        noise_scenes.perlin_spheres_doc()), width=64)
+    cs = dataclasses.replace(cs, render=dataclasses.replace(
+        cs.render, max_ray_depth=8))
+    before = (megakernel.NOISE_LAUNCHES, sphere_sweep.LAUNCHES)
+    r = Renderer(cs, device=dev)
+    img = r.render_all()
+    assert r.path == "fused"
+    assert (megakernel.NOISE_LAUNCHES, sphere_sweep.LAUNCHES) == (
+        before[0] + 1, before[1])
+    w = Renderer(cs, device=dev, use_megakernel=False)
+    w_img = w.render_all()
+    assert sphere_sweep.LAUNCHES > before[1]
+    np.testing.assert_allclose(img.mean(axis=(0, 1)), w_img.mean(axis=(0, 1)),
+                               atol=2e-3)
+    assert abs(r.stats.rays_traced - w.stats.rays_traced) <= (
+        0.005 * w.stats.rays_traced)

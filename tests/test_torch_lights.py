@@ -1,7 +1,8 @@
 """Scenes with lights through the port against the JAX package: the two
 light scenes of tools/light_scenes.py (cornell-style: 36 triangles, 2 of
 them a quad light, boxes under rotations; sphere-light-962: analytic
-spheres, a tessellated light sphere and a light quad, 962 lights).
+spheres with the book's Perlin texture, a tessellated light sphere and a
+light quad, 962 lights).
 
 - The port's wavefront, ``Renderer(cs, device="cpu",
   use_megakernel=False)``, against the JAX ``Renderer`` (its XLA
@@ -19,9 +20,12 @@ FMAs where torch does not, so single paths may part, and a light sample
 of emit 15 makes one path worth several units).  Measured: rays equal
 but for the JAX wavefront on cornell-style (25,070 against the port's
 25,019 and JAX K4's 25,019, which agree) and one ray of 7,643 on
-sphere-light-962; channel means within 1.5e-8 on cornell-style and 5.6e-6
-on sphere-light-962, RMSE at most 5.0e-4.  The port's two paths agree
-with each other within 1e-5 in means, with equal rays.
+sphere-light-962; channel means within 1.5e-8 on cornell-style, and on
+sphere-light-962 (with its Perlin texture) within 5.6e-6 of the JAX
+wavefront and 6.6e-6 of JAX K4; RMSE at most 5.3e-4.  The port's two paths agree with each other within
+1e-5 in means, with equal rays.  JAX's K4 in interpret mode takes about a
+minute on sphere-light-962 with its noise, at any frame size: the time
+is XLA's compile of the interpret kernel, not the render.
 """
 
 import dataclasses

@@ -245,10 +245,10 @@ def _big_mesh_doc(n_boxes=1366):
     # A triangle is inside the gate (tests/test_torch_triangles.py); a
     # mesh above its ceiling is not.
     (_big_mesh_doc(), False),
-    # The gate admits a lit scene (the kernel's lit form), as the JAX gate
-    # does.
+    # The gate admits a lit scene (the kernel's lit form) and a noise
+    # texture (its noise form), as the JAX gate does.
     (_tiny_doc(material="l"), True),
-    (_tiny_doc(albedo="n"), False),
+    (_tiny_doc(albedo="n"), True),
     # A moving ellipsoid: motion the kernel takes, a shape it does not.
     (_tiny_doc(transform={"animated": [{"translate": [0, 0, 0]},
                                        {"translate": [0, 1, 0],
@@ -257,12 +257,13 @@ def _big_mesh_doc(n_boxes=1366):
 ], ids=["triangles", "lights", "noise", "motion-blur", "object-space"])
 def test_gate_rejects_scenes_the_kernel_cannot_render(doc, admitted):
     """The gate on scenes at its edges: it rejects those the kernel cannot
-    render and admits the one it now can (a lit scene)."""
+    render and admits those it now can (a lit scene, a noise texture),
+    as the JAX gate does."""
     cs = compile_scene(SceneFile.from_json_dict(doc), width=16, height=8)
     static = _port_static(cs)
     assert megakernel.megakernel_supported(static) is admitted
     if admitted:
-        assert static.has_lights
+        assert static.has_lights != static.flags.has_noise
         jcs = jax_compile_scene(JaxSceneFile.from_json_dict(doc), width=16,
                                 height=8)
         _, jstatic = jarrays.upload_scene(jcs)

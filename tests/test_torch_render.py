@@ -9,7 +9,7 @@ stored golden is stale), with the JAX XLA wavefront (use_pallas_sweep=False).
   to a one-shot render;
 - scenes outside the slice raise NotImplementedError naming their item
   (triangles are inside it at any count: a big mesh takes the paged
-  sweep).
+  sweep; lights and noise textures are inside it too).
 """
 
 import dataclasses
@@ -153,7 +153,8 @@ def _big_mesh_doc(n_boxes=1366):
     pytest.param(_big_mesh_doc(), None, id="doc0-Triangles"),
     # NEE with lights is inside the slice now: a lit scene renders.
     pytest.param(_tiny_doc(material="l"), None, id="doc1-NEE with lights"),
-    (_tiny_doc(albedo="n"), "Noise textures"),
+    # Noise textures are inside the slice now: the marble renders.
+    pytest.param(_tiny_doc(albedo="n"), None, id="doc2-Noise textures"),
     # Motion blur is inside the slice; a moving ellipsoid is not, for its
     # shape.
     pytest.param(_tiny_doc(transform={"animated": [
@@ -171,7 +172,9 @@ def test_scenes_outside_the_slice_raise(doc, item):
         r = Renderer(cs, device="cpu")
         img = r.render_all()
         assert r.path == "wavefront"
-        assert r.static.has_lights != (r.static.bvh_mode == "paged")
+        # Each case shows the one feature it ports.
+        assert sum((r.static.has_lights, r.static.bvh_mode == "paged",
+                    r.static.flags.has_noise)) == 1
         assert img.shape == (8, 16, 3) and np.isfinite(img).all()
         assert img.max() > 0.0
         return

@@ -1,7 +1,8 @@
-"""Fat-row shading and the no-light NEE branch: the port against
-raytrace_tpu.ops.shading / .nee on identical rows, RNG states and hit data
-(numpy-seeded).  Integer outputs and RNG states match exactly; floats within
-atol=1e-5 (sin/cos and XLA's FMA contraction move the last bits)."""
+"""Fat-row shading (constant, checker and noise slots) and the no-light
+NEE branch: the port against raytrace_tpu.ops.shading / .nee on identical
+rows, RNG states and hit data (numpy-seeded).  Integer outputs and RNG
+states match exactly; floats within atol=1e-5 (sin/cos and XLA's FMA
+contraction move the last bits)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,7 +12,7 @@ import torch
 from raytrace_tpu.engine.arrays import upload_scene as jax_upload
 from raytrace_tpu.models import compile_scene as jax_compile_scene
 from raytrace_tpu.models.compile import MAT_TYPE_DIFFUSE_LIGHT
-from raytrace_tpu.models.shading_table import MODE_CHECKER
+from raytrace_tpu.models.shading_table import MODE_CHECKER, MODE_NOISE
 from raytrace_tpu.ops import nee as jnee
 from raytrace_tpu.ops import shading as jshading
 from raytrace_tpu.ops import textures as jtextures
@@ -105,15 +106,69 @@ def test_scatter_and_emit_v3(inputs, has_checker, has_emissive):
         assert float(temit.x.abs().sum()) > 0.0
 
 
+def _noise_rows(rows, seed):
+    """``rows`` with noise slots (ops/shading.py's three places a noise
+    slot is read): a third of the albedo slots, the even side of every
+    checker and half of the emission slots become noise of a random scale,
+    their base rgb zero as the shading table writes it."""
+    g = np.random.default_rng(seed)
+    rows = rows.copy()
+    n = len(rows)
+    albedo = (g.random(n) < 1 / 3) & (rows[:, 11] == 0.0)
+    rows[albedo, 11] = MODE_NOISE
+    rows[albedo, 12] = g.uniform(0, 8, albedo.sum())
+    rows[albedo, 2:5] = 0.0
+    checker = rows[:, 11] == MODE_CHECKER
+    rows[checker, 24], rows[checker, 25] = MODE_NOISE, 4.0
+    rows[checker, 18:21] = 0.0
+    emit = (rows[:, 0] == MAT_TYPE_DIFFUSE_LIGHT) & (g.random(n) < 0.5)
+    rows[emit, 15], rows[emit, 16] = MODE_NOISE, g.uniform(0, 8, emit.sum())
+    rows[emit, 8:11] = 0.0
+    assert albedo.any() and checker.any() and emit.any()
+    return rows
+
+
+def _scatter_both(x, rows, flags):
+    zeros = jnp.zeros(N, jnp.float32)
+    jout = jshading.scatter_and_emit_v3(
+        jnp.asarray(x["state"].astype(np.uint32)), x["jscene"],
+        jtextures.TexFlags(*flags), jnp.asarray(rows), _jv(x["p"]),
+        _jv(x["normal"]), jnp.asarray(x["front"]), zeros, zeros, _jv(x["wrd"]))
+    tout = tshading.scatter_and_emit_v3(
+        torch.tensor(x["state"].astype(np.int64)), flags, torch.tensor(rows),
+        _tv(x["p"]), _tv(x["normal"]), torch.tensor(x["front"]), _tv(x["wrd"]))
+    return jout, tout
+
+
 @pytest.mark.parametrize("flags", [TexFlags(True, False, False),
-                                   TexFlags(False, False, True)])
+                                   TexFlags(False, True, True)])
 def test_image_and_noise_textures_raise(inputs, flags):
+    """Image textures still raise.  Noise textures are ported: with noise
+    slots in the rows (albedo, a checker's side, emission), the port's
+    scatter_and_emit_v3 matches JAX's (floats within ATOL; the marble of
+    the same hit point is the same turbulence on both sides, and each
+    side's sin rounds on its own)."""
     x = inputs
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tshading.scatter_and_emit_v3(
-            torch.tensor(x["state"].astype(np.int64)), flags,
-            torch.tensor(x["rows"]), _tv(x["p"]), _tv(x["normal"]),
-            torch.tensor(x["front"]), _tv(x["wrd"]))
+    if flags.has_image:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tshading.scatter_and_emit_v3(
+                torch.tensor(x["state"].astype(np.int64)), flags,
+                torch.tensor(x["rows"]), _tv(x["p"]), _tv(x["normal"]),
+                torch.tensor(x["front"]), _tv(x["wrd"]))
+        return
+    rows = _noise_rows(x["rows"], seed=1)
+    (js, jrec, jemit), (ts, trec, temit) = _scatter_both(x, rows, flags)
+    _exact(js, ts)
+    for name in ("is_scattered", "mat_pdf_type", "skip_pdf"):
+        _exact(getattr(jrec, name), getattr(trec, name))
+    _close(jrec.attenuation, trec.attenuation)
+    _close(jemit, temit)
+    # The noise slots took the marble, not their zero base colour.
+    lamb = (rows[:, 0] == 1) & (rows[:, 11] == MODE_NOISE)
+    assert (trec.attenuation.x.numpy()[lamb] > 0.0).mean() > 0.99
+    light = ((rows[:, 0] == MAT_TYPE_DIFFUSE_LIGHT)
+             & (rows[:, 15] == MODE_NOISE) & x["front"])
+    assert (temit.x.numpy()[light] > 0.0).mean() > 0.99
 
 
 def test_no_light_nee(inputs):
