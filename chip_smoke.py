@@ -20,7 +20,11 @@ with the book's Perlin texture, a light sphere and a light quad: 962
 light triangles; 1024x576, 64 spp x 2 batches, depth 50: K4's lit noise
 form); perlin-spheres (raytrace_tpu_torch/tools/noise_scenes.py: the
 book's two Perlin spheres, 1024x576, 16 spp x 1 batch, depth 50: K4's
-noise form, and the wavefront with K1); and final-one-weekend with
+noise form, and the wavefront with K1); earth and earth-motion-blur
+(raytrace_tpu_torch/tools/image_scenes.py: the book's globe of radius 2
+with a 5400x2700 texel-id image, 512x512, 4 spp x 16 batches and 8 spp x
+32, depth 50: K4's image form, fused and, for the turning globe, one
+launch per batch, and the wavefront with K1); and final-one-weekend with
 --mesh-geometry (its 488 uv spheres tessellated: 2,033,920 triangles, 125
 pages of the paged sweep K3; 1200x675, 4 spp, depth 50: the paged
 wavefront), with its motion-blur twin the same way (page tables built
@@ -33,10 +37,11 @@ printing a result.  No path runs at a cut depth.  Phases:
    started together: the sphere sweep K1 (csrc/sphere_sweep.cu), the
    triangle sweep K2 (csrc/tri_sweep.cu), the fused bounce kernel K4
    (csrc/megakernel.cu: static, animated, triangle and the two lit
-   forms, each without and with noise) and the paged triangle sweep K3
-   (csrc/paged_tri.cu), with nvcc's register report, a line per K4 form
-   and K3's; the five forms without noise must keep the registers and
-   spills they had before the noise forms (FORMS_BEFORE);
+   forms, each without and with noise, and each but the animated one
+   with images) and the paged triangle sweep K3 (csrc/paged_tri.cu), with
+   nvcc's register report, a line per K4 form and K3's; the ten forms
+   without images must keep the registers and spills they had before the
+   image forms (FORMS_BEFORE);
 3. K1 against the plain PyTorch sweep: the 3,240,000 primary rays of the
    main path and 2^20 random rays with an alive mask (ids equal, and ids
    equal with t within rtol=1e-3, atol=1e-3, each on >= 99.9% of rays),
@@ -70,8 +75,13 @@ printing a result.  No path runs at a cut depth.  Phases:
    docs, and sphere-light-962 at 128x72, depth 50; k=2), and
    perlin-spheres' full batch bit for bit with the plain version (both
    timed; the plain version run again counts the noise hits of the
-   bound); then K3 bit for bit with its plain version and with K2 (two
-   launches byte-identical) on random multi-page soups with a partial
+   bound); then K4's eight image forms, each bit for bit with its plain
+   version (and two launches byte-identical) on the small frames of
+   image_scenes.form_checks (a 640x320 texel-id image; k=2), and earth's
+   full batch bit for bit with the plain version (both timed; the plain
+   version run again counts the image hits of the bound); then K3 bit
+   for bit with its plain version and with K2 (two launches
+   byte-identical) on random multi-page soups with a partial
    last page and an alive mask (g = c = 128, and g = 8, c = 16), on all
    3,240,000 primary rays of the mesh scene's batch 0 (plain version
    timed) and on 2^17 of them and of its bounce-2 rays against K2 too;
@@ -80,10 +90,11 @@ printing a result.  No path runs at a cut depth.  Phases:
 5. the wavefront path, Renderer(cs, use_megakernel=False): several batches,
    counting K1 launches; the image checks; the same for the motion-blur
    scene, for tri-stress's one batch (counting K2 and K1 launches) and
-   for perlin-spheres' batch (K1); a small frame on the card against the
+   for perlin-spheres' and earth's batches (K1; each held to its fused
+   batch's channel means); a small frame on the card against the
    CPU, for both paths and the animated fused path, for both triangle
-   paths, both paths of each light scene and of perlin-spheres, and the
-   paged wavefront (a tessellated big-spheres doc);
+   paths, both paths of each light scene, of perlin-spheres and of earth,
+   and the paged wavefront (a tessellated big-spheres doc);
 6. the main path, Renderer(cs) with defaults: it must take the fused path
    (K4 launched, K1 not); Mrays/s over batches 1-3 stepped one at a time
    and over one fused chunk of 12 batches, the chunk beside the 298.602
@@ -102,7 +113,12 @@ printing a result.  No path runs at a cut depth.  Phases:
    checks; then perlin-spheres' Renderer with defaults, which must take
    the fused path in K4's noise form (K1 not launched), its batch
    stepped and in render_all, the image checks and its channel means
-   beside the wavefront's; then the mesh scene's Renderer with
+   beside the wavefront's; then earth's Renderer with defaults, which
+   must take the fused path in K4's image form (K1 not launched), its
+   first batch stepped and render_all; then earth-motion-blur's, which
+   must take fused_per_batch (one image launch a batch, no animated
+   form), four batches stepped and held to the wavefront's four (channel
+   means within IMAGE_MEAN_TOL); then the mesh scene's Renderer with
    defaults, which must take the paged wavefront (K3 launched; K1, K2
    and K4 not), Mrays/s over batches 1-3 stepped, the image checks and
    its channel means beside the analytic scene's; a reduced frame
@@ -116,8 +132,8 @@ printing a result.  No path runs at a cut depth.  Phases:
 8. the CLI renders every batch of each scene to a PNG (fused chunks;
    the mesh scene with --mesh-geometry on the paged wavefront);
 9. one fused chunk of each sphere scene, tri-stress's batch, a chunk of
-   each light scene, perlin-spheres' batch and one batch of the mesh
-   scene under torch.profiler
+   each light scene, perlin-spheres' batch, a chunk of earth and one
+   batch of the mesh scene under torch.profiler
    (one session): the device's busy share of the traced window's own
    device timeline and of the untraced wall, the fused kernel's (or
    K3's) share of device time and device operations per batch.
@@ -125,9 +141,9 @@ printing a result.  No path runs at a cut depth.  Phases:
 The line before the last is the kernels' JSON record (with each kernel's
 bound: the larger of its FP32 operations over 67 TFLOP/s and its bytes
 over 3.35 TB/s, counted from this run's inputs and the scene's real
-spheres, not the table's padding rows; K4's triangle, lit and noise
-forms' and K3's are estimates, see _k4_tris_bound, _noise_bound and
-_k3_full), the last line
+spheres, not the table's padding rows; K4's triangle, lit, noise and
+image forms' and K3's are estimates, see _k4_tris_bound, _noise_bound,
+_image_bound and _k3_full), the last line
 {"ok": true, "device": {...}}.
 """
 
@@ -200,14 +216,32 @@ FLOPS_PER_NEE = 175
 # their permute, gradient, normalisation and dot, and a z mix 3; the y
 # and x mixes and the gain 10); an octave adds 6, the turbulence's abs 1
 # and the marble around it 6.  An estimate: it counts the turbulence
-# alone, once per hit whose slot is in noise mode (_noise_hits).
+# alone, once per hit whose slot is in noise mode (_slot_hits).
 FLOPS_PER_TURBULENCE = 7 * (451 + 6) + 1 + 6
-# Registers and spill-store bytes of K4's forms without noise, as the
-# parent of the noise forms compiled them (nvcc -Xptxas -v; PERF.md):
-# they must compile as before.
+# FP32 operations of one image read of K4's image forms, counted from
+# csrc/megakernel.cu as above (compares, selects and integer work not
+# counted; acosf, atan2f, floorf and fmodf one each): a sphere's object
+# normal again 25 (the point moved by the 3x4 matrix 18, its reciprocal
+# radius 1, the offset and scale 6), its normalisation 11, v 5 (clamp 2,
+# negation, acosf, scale) and u 5 (negation, atan2f, scale, fmodf and its
+# fix-up), the texel's wrap, scale and floor in u and v 8.  An estimate:
+# the sphere form (the earth's one globe), once per hit whose slot is in
+# image mode (_slot_hits).  Its bytes: one 32-byte sector a texel read,
+# at a random address of the atlas.
+FLOPS_PER_IMAGE_READ = 25 + 11 + 5 + 5 + 8
+BYTES_PER_IMAGE_READ = 32
+# Registers and spill-store bytes of K4's forms without images, as the
+# parent of the image forms compiled them (nvcc -Xptxas -v; PERF.md, PR
+# 7): they must compile as before.
 FORMS_BEFORE = {"static": (61, 0), "anim": (62, 0), "tris": (72, 4),
-                "lights": (72, 0), "tris+lights": (72, 4)}
-K4_FORMS = sorted(f + n for f in FORMS_BEFORE for n in ("", "+noise"))
+                "lights": (72, 0), "tris+lights": (72, 4),
+                "static+noise": (72, 8), "anim+noise": (72, 8),
+                "tris+noise": (72, 28), "lights+noise": (72, 8),
+                "tris+lights+noise": (72, 28)}
+# The image forms: each form but the animated one, with and without noise.
+IMAGE_FORMS = sorted(f + "+image" for f in FORMS_BEFORE
+                     if not f.startswith("anim"))
+K4_FORMS = sorted(list(FORMS_BEFORE) + IMAGE_FORMS)
 # The light scenes: their full sizes, and the widths of the small frames
 # that hold K4's lit forms against the plain version at depth 50, k=2.
 LIGHT_SMALL = {"cornell-style": 128, "sphere-light-962": 128,
@@ -230,6 +264,14 @@ PERLIN_SIZE = (1024, 576)
 NOISE_MEAN_TOL = 1e-4
 MESH_SUBSET = 1 << 17
 REDUCED = (240, 135)
+# Cycles of the spin kernel _median_ms queues before each timed run: ~2 ms.
+SPIN_CYCLES = 4_000_000
+# earth (tools/image_scenes.py): its size, and its full batch, fused
+# against the wavefront with K1 (which contracts multiply-adds): channel
+# means within this.  earth-motion-blur's batch on fused_per_batch against
+# its wavefront batch, the same.
+EARTH_SIZE = (512, 512)
+IMAGE_MEAN_TOL = 1e-4
 
 
 def _bound(flops: float, nbytes: float):
@@ -286,71 +328,77 @@ def _k4_tris_bound(static, geom, work, width: int, height: int, scene=None):
 
 def _ptxas_forms(log: str):
     """[(form, registers, spill store bytes)] of each K4 instantiation in
-    nvcc's -Xptxas=-v report (megakernel<kAnim, kTris, kLights, kNoise>;
-    a noise form's name ends in "+noise")."""
+    nvcc's -Xptxas=-v report (megakernel<kAnim, kTris, kLights, kNoise,
+    kImage>; a noise form's name ends in "+noise", an image form's in
+    "+image")."""
     forms = []
     names = {("0", "0", "0"): "static", ("1", "0", "0"): "anim",
              ("0", "1", "0"): "tris", ("0", "0", "1"): "lights",
              ("0", "1", "1"): "tris+lights"}
     for block in log.split("Compiling entry function")[1:]:
-        m = re.search(r"megakernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E", block)
+        m = re.search(r"megakernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", block)
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores", block)
         if m and regs and spill:
             name = names.get(m.groups()[:3], str(m.groups()))
-            forms.append((name + ("+noise" if m.group(4) == "1" else ""),
+            forms.append((name + ("+noise" if m.group(4) == "1" else "")
+                          + ("+image" if m.group(5) == "1" else ""),
                           int(regs.group(1)), int(spill.group(1))))
     return forms
 
 
-def _noise_hits(static, scene, geom, o, d, alive, raw) -> int:
-    """The hits of one bounce whose slot is in noise mode, the turbulences
-    K4's noise form computes there (csrc/megakernel.cu eval_slot): the
-    albedo of a lambertian or metal hit, or a front-facing light's
-    emission, read through the row's checker."""
+def _slot_hits(static, scene, geom, o, d, alive, raw, mode) -> int:
+    """The hits of one bounce whose slot is in ``mode`` (noise or image),
+    the turbulences or texel reads K4 computes there (csrc/megakernel.cu
+    eval_slot): the albedo of a lambertian or metal hit, or a front-facing
+    light's emission, read through the row's checker."""
     import torch
 
     from raytrace_tpu_torch.engine import wavefront
     from raytrace_tpu_torch.models.compile import (MAT_TYPE_DIFFUSE_LIGHT,
                                                    MAT_TYPE_LAMBERTIAN,
                                                    MAT_TYPE_METAL)
-    from raytrace_tpu_torch.models.shading_table import (MODE_CHECKER,
-                                                         MODE_NOISE)
+    from raytrace_tpu_torch.models.shading_table import MODE_CHECKER
     from raytrace_tpu_torch.ops import vec3
     from raytrace_tpu_torch.ops.textures import checker_is_even
 
     hit = alive & ~raw.missed
     rows = geom.prim_rows[torch.where(hit, raw.prim, 0)]
     rec = wavefront.reconstruct_hit(raw, o, d, rows, geom,
-                                    scene.sph_center.shape[0])
+                                    scene.sph_center.shape[0],
+                                    static.flags.has_image)
     mat = rows[:, 0]
     albedo = (mat == MAT_TYPE_LAMBERTIAN) | (mat == MAT_TYPE_METAL)
     emit = ((mat == MAT_TYPE_DIFFUSE_LIGHT) & (vec3.dot(d, rec.n) < 0.0)
             if static.flags.has_emissive else torch.zeros_like(hit))
-    mode = torch.where(albedo, rows[:, 11], rows[:, 15])
+    slot = torch.where(albedo, rows[:, 11], rows[:, 15])
     if static.flags.has_checker:
         side = torch.where(checker_is_even(rows[:, 17], rec.p), rows[:, 24],
                            rows[:, 26])
-        mode = torch.where(mode == MODE_CHECKER, side, mode)
-    return int((hit & (albedo | emit) & (mode == MODE_NOISE)).sum())
+        slot = torch.where(slot == MODE_CHECKER, side, slot)
+    return int((hit & (albedo | emit) & (slot == mode)).sum())
 
 
-def _plain_noise_work(args, kw):
+def _plain_work(args, kw):
     """K4's plain version on ``args`` once more, counting at every bounce
-    the rays traced and the noise hits (_noise_hits), for _noise_bound."""
+    the rays traced, the noise hits and the image hits (_slot_hits), for
+    _noise_bound and _image_bound."""
     from raytrace_tpu_torch.engine import wavefront
+    from raytrace_tpu_torch.models.shading_table import MODE_IMAGE, MODE_NOISE
     from raytrace_tpu_torch.ops import megakernel
 
     static, scene = args[0], args[1]
-    work = dict(rays=0, noise_hits=0)
+    work = dict(rays=0, noise_hits=0, image_hits=0)
     inner = wavefront.bounce_wavefront
 
     def counting(static_, scene_, trace_fn, geom, *rest):
         def trace(o, d, alive):
             raw = trace_fn(o, d, alive)
             work["rays"] += int(alive.sum())
-            work["noise_hits"] += _noise_hits(static, scene, geom, o, d,
-                                              alive, raw)
+            for key, mode in (("noise_hits", MODE_NOISE),
+                              ("image_hits", MODE_IMAGE)):
+                work[key] += _slot_hits(static, scene, geom, o, d, alive,
+                                        raw, mode)
             return raw
 
         return inner(static_, scene_, trace, geom, *rest)
@@ -363,9 +411,25 @@ def _plain_noise_work(args, kw):
     return work
 
 
+def _image_bound(static, scene, geom, work, width: int, height: int):
+    """An estimate of K4's image form's bound for one launch of a sphere
+    scene, from the work ``_plain_work`` counted: every bounce tests every
+    sphere, every image hit takes FLOPS_PER_IMAGE_READ and reads one
+    random 32-byte sector of the atlas; the tables, rows, parameters, the
+    atlas sizes and the sRGB table read once, the sums and counts written
+    once."""
+    flops = (work["rays"] * _spheres(static) * FLOPS_PER_TEST
+             + work["image_hits"] * FLOPS_PER_IMAGE_READ)
+    nbytes = ((geom.sph_table8.numel() + geom.prim_rows.numel() + 40
+               + scene.atlas_wh.numel() + scene.srgb_lut.numel()) * 4
+              + work["image_hits"] * BYTES_PER_IMAGE_READ
+              + width * height * (3 * 4 + 4))
+    return _bound(flops, nbytes)
+
+
 def _noise_bound(static, geom, work, width: int, height: int):
     """An estimate of K4's noise form's bound for one launch of a sphere
-    scene, from the work ``_plain_noise_work`` counted: every bounce tests
+    scene, from the work ``_plain_work`` counted: every bounce tests
     every sphere and every noise hit takes FLOPS_PER_TURBULENCE; bytes as
     _k4_bound's."""
     flops = (work["rays"] * _spheres(static) * FLOPS_PER_TEST
@@ -423,11 +487,12 @@ def _tri_work(renderer):
     work of K4's triangle form on the same rays (for _k4_tris_bound): the
     alive rays, their cluster pretests, the tests of the real triangles
     of the clusters that pass the pretest against each ray's sphere hit,
-    and the noise hits (_noise_hits); and the samples.  Returns (image
+    and the noise hits (_slot_hits); and the samples.  Returns (image
     [H, W, 3] on the host, rays traced, work)."""
     import torch
 
     from raytrace_tpu_torch.engine import wavefront
+    from raytrace_tpu_torch.models.shading_table import MODE_NOISE
     from raytrace_tpu_torch.ops import megakernel, sphere_sweep
 
     static, scene = renderer.static, renderer.scene
@@ -450,8 +515,8 @@ def _tri_work(renderer):
         work["pretests"] += n * n_clusters
         work["tri_tests"] += int(((passes & alive).sum(1) * sizes).sum())
         raw = trace(o, d, alive)
-        work["noise_hits"] += _noise_hits(static, scene, geom, o, d, alive,
-                                          raw)
+        work["noise_hits"] += _slot_hits(static, scene, geom, o, d, alive,
+                                         raw, MODE_NOISE)
         return raw
 
     tiles, rays = [], 0
@@ -614,6 +679,13 @@ def _k3_full(mesh_r, card):
 
 
 def _median_ms(fn, reps: int) -> float:
+    """Median device time of ``fn`` in ms, by CUDA events.  A spin kernel
+    of ~2 ms (at the H100's ~2 GHz clock) is queued before each start
+    event, so the host's work inside ``fn`` (a wrapper's checks and
+    parameter tensors) is done while the card is still busy, and the
+    events measure the card's time alone: without it, a kernel shorter
+    than its wrapper's host time (K4 on the earth) reads as the host
+    time."""
     import torch
 
     fn()  # warm-up
@@ -621,6 +693,7 @@ def _median_ms(fn, reps: int) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -747,7 +820,7 @@ def _reset_counts():
     sphere_sweep.LAUNCHES = tri_sweep.LAUNCHES = paged_tri.LAUNCHES = 0
     megakernel.LAUNCHES = megakernel.ANIM_LAUNCHES = 0
     megakernel.TRI_LAUNCHES = megakernel.LIGHT_LAUNCHES = 0
-    megakernel.NOISE_LAUNCHES = 0
+    megakernel.NOISE_LAUNCHES = megakernel.IMAGE_LAUNCHES = 0
 
 
 def _mrays(per_batch):
@@ -757,7 +830,9 @@ def _mrays(per_batch):
 def _busy_share(events, label, wall_s, kernel="megakernel"):
     """The device timeline of the work profiled under
     record_function(label): the card's operation intervals that start
-    inside that host range (the work ends in a synchronize).  Returns a
+    inside that host range (the work ends in a synchronize), without the
+    range's own device-side annotation, which spans the whole range and
+    is no operation of the card's.  Returns a
     dict: ``busy_s``, their union; ``timeline``, the union over the span
     from the first operation's start to the last one's end (the traced
     window's own device timeline: what is not busy there is the card
@@ -773,7 +848,7 @@ def _busy_share(events, label, wall_s, kernel="megakernel"):
     lo, hi = host[0].time_range.start, host[0].time_range.end
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in events if e.device_type == DeviceType.CUDA
-                   and lo <= e.time_range.start <= hi)
+                   and e.name != label and lo <= e.time_range.start <= hi)
     busy, end, k4 = 0.0, -1.0, 0.0
     for s, e, name in spans:
         if kernel in name:
@@ -910,8 +985,8 @@ def main() -> int:
                                         sphere_sweep, tri_sweep)
     from raytrace_tpu_torch.ops.vec3 import V3
     from raytrace_tpu_torch.scene_file import SceneFile
-    from raytrace_tpu_torch.tools import (light_scenes, noise_scenes,
-                                          stress_scenes)
+    from raytrace_tpu_torch.tools import (image_scenes, light_scenes,
+                                          noise_scenes, stress_scenes)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1275,7 +1350,7 @@ def main() -> int:
     noise_ms = _median_ms(lambda: megakernel.render_tile_mega(*args, **kw), 5)
     sums, _ = megakernel.render_tile_mega(*args, **kw)
     perlin_fused_img = (sums / pr.samples_per_pixel).cpu().numpy()
-    work = _plain_noise_work(args, kw)
+    work = _plain_work(args, kw)
     if work["rays"] != noise_rays:
         raise AssertionError("perlin-spheres: the counted rays differ")
     noise_bound = _noise_bound(perlin_full.static, args[2], work,
@@ -1290,6 +1365,61 @@ def main() -> int:
           f"estimate) {noise_bound[0]:.4f} ms by {noise_bound[1]} "
           f"({noise_bound[0] / noise_ms:.4f} of it) ({card})")
     del perlin_full, args, kw, sums
+
+    # -- 4g. K4's image forms vs plain, and earth's full batch ---------------
+    small_png = image_scenes.texel_id_png(
+        os.path.join(tri_dir.name, "small-map.png"), 640, 320)
+    image_err = 0.0
+    for form, (doc, w, depth) in image_scenes.form_checks(small_png).items():
+        small_cs = compile_scene(SceneFile.from_json_dict(doc), width=w)
+        r = Renderer(_scene(small_cs, small_cs.render.width,
+                            small_cs.render.height, depth, 2), device=dev)
+        shape = (r.static.has_tris, r.static.has_lights,
+                 r.static.flags.has_noise)
+        if r.path != "fused" or not r.static.flags.has_image or shape != (
+                "tris" in form, "lights" in form, "noise" in form):
+            raise AssertionError(f"image {form}: path {r.path}, not K4's "
+                                 f"{form} image form")
+        before = megakernel.IMAGE_LAUNCHES
+        small_err, *_ = _compare_fused(
+            f"image {form} {r.static.width}x{r.static.height} depth {depth} "
+            f"k=2", r, 2, 1e-3, None, card, bitwise_required=True)
+        if megakernel.IMAGE_LAUNCHES != before + 2:
+            raise AssertionError(f"image {form}: the image form was not "
+                                 f"launched")
+        image_err = max(image_err, small_err)
+    earth_json, earth_mb_json = image_scenes.write_earth_scenes(tri_dir.name)
+    earth_cs = cli.load_scene(earth_json, EARTH_SIZE[0])
+    er = earth_cs.render
+    if (er.width, er.height, er.samples_per_pixel, er.sample_batches,
+            er.max_ray_depth) != (*EARTH_SIZE, 4, 16, 50) or (
+            tuple(earth_cs.atlas_wh[0]) != image_scenes.EARTH_SIZE):
+        raise AssertionError("earth's settings changed")
+    earth_full = Renderer(earth_cs, device=dev)
+    if earth_full.path != "fused":
+        raise AssertionError(f"earth: path {earth_full.path}")
+    err_full, args, kw, image_rays, image_plain_s = _compare_fused(
+        "earth 512x512 4 spp depth 50 k=1", earth_full, 1, 0.0, None, card,
+        bitwise_required=True)
+    image_err = max(image_err, err_full)
+    image_ms = _median_ms(lambda: megakernel.render_tile_mega(*args, **kw), 5)
+    sums, _ = megakernel.render_tile_mega(*args, **kw)
+    earth_fused_img = (sums / er.samples_per_pixel).cpu().numpy()
+    work = _plain_work(args, kw)
+    if work["rays"] != image_rays:
+        raise AssertionError("earth: the counted rays differ")
+    image_bound = _image_bound(earth_full.static, earth_full.scene, args[2],
+                               work, *EARTH_SIZE)
+    print(f"fused kernel (image form) time on earth at 512x512, 4 spp, depth "
+          f"50, one batch: kernel {image_ms:.3f} ms (median of 5, CUDA "
+          f"events), plain PyTorch {image_plain_s * 1e3:.1f} ms (one run, "
+          f"host clock), {image_rays / image_ms / 1e3:.1f} Mrays/s in the "
+          f"kernel; work counted on the plain version's rays: "
+          f"{work['rays']} bounces, {work['image_hits']} image hits "
+          f"({work['image_hits'] / work['rays']:.4f} a bounce); bound (an "
+          f"estimate) {image_bound[0]:.5f} ms by {image_bound[1]} "
+          f"({image_bound[0] / image_ms:.4f} of it) ({card})")
+    del earth_full, args, kw, sums
 
     # -- 4f. K3 vs plain and K2, at small size and on the 2M-triangle mesh ---
     for T, g, c, R in ((40000, 128, 128, 1 << 16), (3001, 8, 16, 1 << 14)):
@@ -1391,6 +1521,28 @@ def main() -> int:
                              "disagree")
     del wave_perlin
 
+    # earth's batch on the wavefront: K1, the image sampled in torch.
+    _reset_counts()
+    wave_earth = Renderer(earth_cs, device=dev, use_megakernel=False)
+    (ew_rays, ew_s), = _step(wave_earth, 1)
+    if (sphere_sweep.LAUNCHES <= 0 or megakernel.LAUNCHES
+            or tri_sweep.LAUNCHES):
+        raise AssertionError("earth's wavefront did not run on K1 alone")
+    print(f"wavefront path: earth 512x512, 4 spp, depth 50, one batch: "
+          f"{ew_rays} rays in {ew_s:.4f} s ({ew_rays / ew_s / 1e6:.3f} "
+          f"Mrays/s); sphere_sweep LAUNCHES={sphere_sweep.LAUNCHES} ({card})")
+    earth_wave_img = wave_earth.image()
+    _check_image(earth_wave_img, "earth wavefront", *EARTH_SIZE)
+    mdiff = np.abs(earth_fused_img.mean(axis=(0, 1))
+                   - earth_wave_img.mean(axis=(0, 1))).max()
+    print(f"fused (image form) vs wavefront with K1 on earth's batch: rays "
+          f"{image_rays} vs {ew_rays}, max channel-mean diff {mdiff:.3g} "
+          f"({card})")
+    if abs(image_rays - ew_rays) > 0.005 * ew_rays or mdiff > IMAGE_MEAN_TOL:
+        raise AssertionError("earth: the fused and wavefront renders "
+                             "disagree")
+    del wave_earth
+
     # Small-input reference: the same frame on the card and on the CPU
     # (plain versions) must agree in channel means and ray counts.
     tiny = _scene(cs, 96, 54, depth=8, batches=1)
@@ -1401,6 +1553,7 @@ def main() -> int:
     tiny_sl = _scene(light_cs["sphere-light-962"], 48, 27, depth=8,
                      batches=1)
     tiny_perlin = _scene(perlin_cs, 48, 27, depth=8)
+    tiny_earth = _scene(earth_cs, 48, 48, depth=8, batches=1)
     tiny_mesh = _scene(compile_scene(SceneFile.from_json_dict(
         stress_scenes.big_spheres_doc()), width=48,
         analytic_spheres=False), 48, 27, depth=8, batches=1)
@@ -1418,6 +1571,8 @@ def main() -> int:
                                   ("sphere-light-962", tiny_sl, True),
                                   ("perlin-spheres", tiny_perlin, False),
                                   ("perlin-spheres", tiny_perlin, True),
+                                  ("earth", tiny_earth, False),
+                                  ("earth", tiny_earth, True),
                                   ("big spheres --mesh-geometry", tiny_mesh,
                                    None)):
         gpu_s = Renderer(small_cs, device=dev, use_megakernel=fused)
@@ -1631,6 +1786,70 @@ def main() -> int:
           f"{perlin_wave_img.mean(axis=(0, 1)).tolist()} (wavefront)")
     del pl_r, pl_all
 
+    # earth's main path, the slice at full size: Renderer with defaults,
+    # K4's image form; its first batch stepped, then render_all (its 16
+    # batches in chunks of 12) on a second Renderer.
+    _reset_counts()
+    ea_r = Renderer(earth_cs, device=dev)
+    (ea_rays, ea_s), = _step(ea_r, 1)
+    ea_all = Renderer(earth_cs, device=dev)
+    ea_img = ea_all.render_all()
+    image_launches = megakernel.IMAGE_LAUNCHES
+    n_chunks = -(-er.sample_batches // ea_all.chunk_size())
+    if (ea_r.path != "fused" or ea_all.path != "fused"
+            or image_launches != 1 + n_chunks
+            or megakernel.LAUNCHES != image_launches
+            or megakernel.ANIM_LAUNCHES or megakernel.TRI_LAUNCHES
+            or megakernel.LIGHT_LAUNCHES or megakernel.NOISE_LAUNCHES
+            or sphere_sweep.LAUNCHES or tri_sweep.LAUNCHES):
+        raise AssertionError(
+            f"earth's main path did not take K4's image form (path "
+            f"{ea_all.path}, K4 {megakernel.LAUNCHES}, image form "
+            f"{image_launches}, K1 {sphere_sweep.LAUNCHES})")
+    print(f"earth main path (fused, image form): 512x512, 4 spp, depth 50: "
+          f"its first batch stepped {ea_rays} rays in {ea_s:.4f} s "
+          f"({ea_rays / ea_s / 1e6:.3f} Mrays/s); render_all "
+          f"{ea_all.stats.rays_traced} rays in "
+          f"{ea_all.stats.render_seconds:.4f} s "
+          f"({ea_all.stats.mrays_per_sec:.3f} Mrays/s) in {n_chunks} "
+          f"launches; megakernel LAUNCHES={megakernel.LAUNCHES} (image form "
+          f"{image_launches}), tri_sweep and sphere_sweep LAUNCHES=0 "
+          f"({card})")
+    _check_image(ea_img, "earth fused", *EARTH_SIZE)
+    del ea_r, ea_all
+
+    # earth-motion-blur: the globe turns, so each batch is one launch of
+    # the static image form from that batch's world-to-object rows
+    # (fused_per_batch), against the same batches on the wavefront.
+    earth_mb_cs = cli.load_scene(earth_mb_json, EARTH_SIZE[0])
+    _reset_counts()
+    emb_r = Renderer(earth_mb_cs, device=dev)
+    per_batch = _step(emb_r, MAIN_BATCHES)
+    if (emb_r.path != "fused_per_batch"
+            or megakernel.IMAGE_LAUNCHES != MAIN_BATCHES
+            or megakernel.ANIM_LAUNCHES or sphere_sweep.LAUNCHES):
+        raise AssertionError(
+            f"earth-motion-blur did not take fused_per_batch in K4's image "
+            f"form (path {emb_r.path}, image form "
+            f"{megakernel.IMAGE_LAUNCHES}, animated "
+            f"{megakernel.ANIM_LAUNCHES})")
+    emb_wave = Renderer(earth_mb_cs, device=dev, use_megakernel=False)
+    wave_batches = _step(emb_wave, MAIN_BATCHES)
+    emb_img, emb_wave_img = emb_r.image(), emb_wave.image()
+    _check_image(emb_img, "earth-motion-blur fused_per_batch", *EARTH_SIZE)
+    mdiff = np.abs(emb_img.mean(axis=(0, 1))
+                   - emb_wave_img.mean(axis=(0, 1))).max()
+    print(f"earth-motion-blur (fused_per_batch, image form): 512x512, 8 spp, "
+          f"depth 50: {_mrays(per_batch[1:]):.3f} Mrays/s over batches "
+          f"1-{MAIN_BATCHES - 1} stepped, the wavefront "
+          f"{_mrays(wave_batches[1:]):.3f}; max channel-mean diff over "
+          f"batches 0-{MAIN_BATCHES - 1} {mdiff:.3g}; megakernel "
+          f"IMAGE_LAUNCHES={MAIN_BATCHES}, ANIM_LAUNCHES=0 ({card})")
+    if mdiff > IMAGE_MEAN_TOL:
+        raise AssertionError("earth-motion-blur: the fused and wavefront "
+                             "renders disagree")
+    del emb_r, emb_wave
+
     k3_launches = _mesh_paths(mesh_r, mb_scene, fused_img, wave_img, dev,
                               card)
     del mesh_r
@@ -1686,6 +1905,10 @@ def main() -> int:
                 (light_paths["sphere-light-962"], [], (1024, 576),
                  "fused bounce kernel (fused)"),
                 (perlin_json, [], PERLIN_SIZE, "fused bounce kernel (fused)"),
+                (earth_json, ["--width", str(EARTH_SIZE[0])], EARTH_SIZE,
+                 "fused bounce kernel (fused)"),
+                (earth_mb_json, ["--width", str(EARTH_SIZE[0])], EARTH_SIZE,
+                 "fused bounce kernel (fused_per_batch)"),
                 (cli.DEFAULT_SCENE, ["--mesh-geometry", *full_size],
                  (WIDTH, HEIGHT), "wavefront (paged triangles)")):
             name = os.path.splitext(os.path.basename(scene_path))[0]
@@ -1732,6 +1955,7 @@ def main() -> int:
                              ("sphere-light-962",
                               light_cs["sphere-light-962"], 2),
                              ("perlin-spheres", perlin_cs, 1),
+                             ("earth", earth_cs, CHUNK_BATCHES),
                              ("final-one-weekend --mesh-geometry", cs_mesh,
                               1)):
         prof_r = Renderer(prof_cs, device=dev)
@@ -1825,6 +2049,15 @@ def main() -> int:
         "launches": noise_launches, "max_abs_err": noise_err,
         "ms": noise_ms, "plain_ms": noise_plain_s * 1e3,
         "bound_ms": noise_bound[0], "bound_by": noise_bound[1],
+        "library_ms": None,
+    }, {
+        # earth's full batch, the slice's main path.
+        "name": "megakernel_image", "route": "cuda",
+        "source": "raytrace_tpu_torch/csrc/megakernel.cu",
+        "replaces": "raytrace_tpu/ops/megakernel.py:1666",
+        "launches": image_launches, "max_abs_err": image_err,
+        "ms": image_ms, "plain_ms": image_plain_s * 1e3,
+        "bound_ms": image_bound[0], "bound_by": image_bound[1],
         "library_ms": None,
     }, {
         # final-one-weekend --mesh-geometry's primary rays: the main path's.

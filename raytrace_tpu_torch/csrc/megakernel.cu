@@ -1,5 +1,5 @@
 // The whole path-tracing loop in one kernel: raygen, sphere and triangle
-// closest hit, fat-row shading (constant, checker and noise textures),
+// closest hit, fat-row shading (constant, checker, noise and image textures),
 // next-event estimation (with or without lights) and per-pixel sums.
 //
 // Replaces the TPU kernel raytrace_tpu/ops/megakernel.py::_mega_kernel
@@ -11,7 +11,9 @@
 // light slice, _sample_lights_kernel :1542, _o2w_cols_kernel :1602 and the
 // MIS branch :1970-1991); each of these also with noise textures (its
 // scatter_and_emit_v3 call :1953, which reaches shading._eval_slot_v3 and
-// perlin.turbulence_v3).  It computes
+// perlin.turbulence_v3); and the static, triangle and lit forms also with
+// image textures (the same call, which reaches textures.sample_image_nearest
+// at the UV of reconstruct_hit's world-to-object branch).  It computes
 // what the torch wavefront (engine/wavefront.py) computes, ray for ray: the
 // same PCG stream per (pixel, sample), the same camera and shading
 // arithmetic in the same operation order, the same closest hit (strict <
@@ -100,6 +102,31 @@
 // and the accurate sinf.  A turbulence is ~3,000 operations, so a noise
 // hit costs about as much as 120 sphere tests.
 //
+// Images (template parameter kImage, instantiated with each form but the
+// animated one, with and without kNoise, so the forms without images are
+// compiled as before): the fat rows of a sphere hold its world-to-object
+// matrix at the batch's time (slots 32:44) and its object-space centre and
+// radius (44:48), so the normal is engine/wavefront.py reconstruct_hit's
+// world-to-object branch: the hit point moved to object space, (p_obj - c) /
+// r, taken to world space by the transposed matrix.  Where the slot a hit
+// reads is in image mode (after the checker, as for noise), the thread
+// computes the UV: a sphere's from its unit object normal, v = acosf(-n.y) /
+// pi and u = atan2f(n.z, -n.x) / 2 pi floor-mod 1 (the object normal is
+// computed again there from the hit point, by the same operations, so it is
+// not held across the draws), a triangle's as the barycentric lerp of uv0,
+// uv1 - uv0, uv2 - uv0 in fat-row slots 58:64; then the texel of
+// sample_image_nearest, floor((u floor-mod 1) * w) clamped to [0, w - 1] (and
+// the same in v), read as one 32-bit word (r | g << 8 | b << 16) through the
+// read-only cache from the packed atlas (engine/arrays.pack_atlas: the images
+// padded to the largest, row stride its width), each byte decoded by the
+// 256-entry sRGB table staged in shared memory after the other tables.  The
+// TPU kernel shades images as 1 and multiplies each sample by its primary
+// hit's texel afterwards (its item mode and _texel_factor), which is exact
+// only for one convex sphere seen from outside: this kernel samples the
+// image at every hit, as the wavefront does.  An animated image scene
+// renders with the static form, one launch per batch, because the
+// world-to-object rows change with the batch's time.
+//
 // What bounds it: per bounce S ray-sphere tests of ~20 flops and a sqrt
 // (and for triangles the box pretests and the tests of the clusters that
 // pass), against one 112-byte row fetch: the fp32 ALU issue rate.  The
@@ -132,6 +159,8 @@ constexpr int kDielectric = 3;
 constexpr int kDiffuseLight = 4;
 constexpr float kModeChecker = 2.0f;
 constexpr float kModeNoise = 3.0f;
+constexpr float kModeImage = 1.0f;
+constexpr int kLutSize = 256;  // the sRGB table's entries
 
 // float32 roundings of the constants, as ops/rng.py and ops/nee.py hold them.
 constexpr float kPi = static_cast<float>(3.14159265358979323846);
@@ -144,6 +173,7 @@ constexpr int kUseDof = 1;
 constexpr int kHasChecker = 2;
 constexpr int kHasEmissive = 4;
 constexpr int kHasNoise = 8;
+constexpr int kHasImage = 16;
 
 // float4 per sphere in shared memory.
 template <bool kAnim>
@@ -418,11 +448,60 @@ __device__ __forceinline__ float turbulence(V3 p) {
   return fabsf(accum);
 }
 
-// shading._eval_property in the noise forms: the slot (cols base:base+3,
-// its mode at mode, its aux after it), or the row's checker's even or odd
-// slot where the mode says so; a slot in noise mode is the marble.
+// ---- images: the sphere's world-to-object branch, its UV, the sampler ----
+
+// engine/wavefront.py reconstruct_hit's object normal (p_obj - c) / r of a
+// sphere whose fat row holds its world-to-object matrix (slots 32:44) and
+// its object-space centre and radius (44:48), at world point p
+__device__ __forceinline__ V3 object_normal(const float* __restrict__ row, V3 p) {
+  float m[12];
+#pragma unroll
+  for (int k = 0; k < 12; ++k) m[k] = __ldg(row + 32 + k);
+  const V3 po = apply_point(m, p);
+  const float r = __ldg(row + 47);
+  const float inv_r = 1.0f / (r == 0.0f ? 1.0f : r);
+  return {(po.x - __ldg(row + 44)) * inv_r, (po.y - __ldg(row + 45)) * inv_r,
+          (po.z - __ldg(row + 46)) * inv_r};
+}
+
+// ops/vec3.py mat34_apply_transposed_vec: v M of the row's 3x4 matrix
+__device__ __forceinline__ V3 apply_transposed(const float* __restrict__ row, V3 v) {
+  float m[12];
+#pragma unroll
+  for (int k = 0; k < 12; ++k) m[k] = __ldg(row + 32 + k);
+  return {m[0] * v.x + m[4] * v.y + m[8] * v.z, m[1] * v.x + m[5] * v.y + m[9] * v.z,
+          m[2] * v.x + m[6] * v.y + m[10] * v.z};
+}
+
+// The packed image atlas (engine/arrays.pack_atlas) and what samples it.
+struct Atlas {
+  const int* __restrict__ words;  // [n, h, w] r | g << 8 | b << 16
+  const int* __restrict__ wh;     // [n, 2] each image's width and height
+  int n, h, w;                    // images, and the padded height and width
+  const float* lut;               // the sRGB table, in shared memory
+};
+
+// textures.sample_image_nearest of image `aux` (clipped to the atlas) at (u, v)
+__device__ __forceinline__ V3 sample_image(const Atlas& at, float aux, float u, float v) {
+  const int idx = min(max(static_cast<int>(aux), 0), at.n - 1);
+  const int w = __ldg(at.wh + 2 * idx);
+  const int h = __ldg(at.wh + 2 * idx + 1);
+  const int x = min(max(static_cast<int>(floorf(rem1(u) * static_cast<float>(w))), 0), w - 1);
+  const int y = min(max(static_cast<int>(floorf(rem1(v) * static_cast<float>(h))), 0), h - 1);
+  const uint32_t word = static_cast<uint32_t>(
+      __ldg(at.words + (static_cast<size_t>(idx) * at.h + y) * at.w + x));
+  return {at.lut[word & 0xffu], at.lut[(word >> 8) & 0xffu], at.lut[(word >> 16) & 0xffu]};
+}
+
+// shading._eval_property in the noise and image forms: the slot (cols
+// base:base+3, its mode at mode, its aux after it), or the row's checker's
+// even or odd slot where the mode says so; a slot in noise mode is the
+// marble, one in image mode the texel at the hit's UV (a sphere's from its
+// object normal at p, a triangle's the lerp of fat-row slots 58:64).
+template <bool kNoise, bool kImage>
 __device__ __forceinline__ V3 eval_slot(const float* __restrict__ row, int base, int mode,
-                                        bool has_checker, V3 p) {
+                                        bool has_checker, V3 p, bool is_sphere, float bu,
+                                        float bv, const Atlas& atlas) {
   float m = __ldg(row + mode);
   int aux = mode + 1;
   if (has_checker && m == kModeChecker) {
@@ -431,9 +510,25 @@ __device__ __forceinline__ V3 eval_slot(const float* __restrict__ row, int base,
     aux = even ? 25 : 27;
     m = __ldg(row + aux - 1);
   }
-  if (m == kModeNoise) {
-    const float v = 0.5f * (1.0f + sinf(__ldg(row + aux) * p.z + 10.0f * turbulence(p)));
-    return {v, v, v};
+  if constexpr (kNoise) {
+    if (m == kModeNoise) {
+      const float v = 0.5f * (1.0f + sinf(__ldg(row + aux) * p.z + 10.0f * turbulence(p)));
+      return {v, v, v};
+    }
+  }
+  if constexpr (kImage) {
+    if (m == kModeImage) {
+      float u, v;
+      if (is_sphere) {
+        const V3 nn = normalize(object_normal(row, p));
+        v = acosf(fminf(fmaxf(-nn.y, -1.0f), 1.0f)) * (1.0f / kPi);
+        u = rem1(atan2f(nn.z, -nn.x) * (1.0f / kTwoPi));
+      } else {
+        u = __ldg(row + 58) + bu * __ldg(row + 60) + bv * __ldg(row + 62);
+        v = __ldg(row + 59) + bu * __ldg(row + 61) + bv * __ldg(row + 63);
+      }
+      return sample_image(atlas, __ldg(row + aux), u, v);
+    }
   }
   return load3(row, base);
 }
@@ -505,18 +600,21 @@ __device__ __forceinline__ void sweep_tris(const float4* __restrict__ tris, int 
 
 // ---- the kernel ----
 
-template <bool kAnim, bool kTris, bool kLights, bool kNoise>
+template <bool kAnim, bool kTris, bool kLights, bool kNoise, bool kImage>
 __global__ void __launch_bounds__(kThreads)
 megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
            const float* __restrict__ times, int s8, const float4* __restrict__ tris, int t8,
            const float4* __restrict__ tri_boxes, int n_clusters, int cluster_g, int s_pad,
            const float* __restrict__ lights, const float* __restrict__ o2w,
+           const int* __restrict__ atlas_words, const int* __restrict__ atlas_wh, int n_images,
+           int atlas_h, int atlas_w, const float* __restrict__ lut,
            const float* __restrict__ rows, int n_rows, const float* __restrict__ fparams,
            int width, int height, int sqrt_spp, int spp_local, int n_batches, int batch0,
            int sample_base, int max_depth, int flags, float* __restrict__ sums,
            int* __restrict__ traced_out) {
   static_assert(!(kAnim && kTris), "the animated form has no triangles");
   static_assert(!(kAnim && kLights), "the animated form has no lights");
+  static_assert(!(kAnim && kImage), "the animated form has no images");
   extern __shared__ float4 smem[];
   float* prm = reinterpret_cast<float*>(smem);        // kNumParams floats
   // Static sphere j: tbl[2j] = (c, r), tbl[2j+1].x = k.  Animated:
@@ -524,9 +622,14 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
   float4* tbl = smem + kNumParams / 4;
   // Cluster c's box: boxes[2c] = (min, -), boxes[2c+1] = (max, -).
   float4* boxes = tbl + kStride<kAnim> * s8;
+  // The sRGB table, after the boxes.
+  float* lut_s = reinterpret_cast<float*>(boxes + (kTris ? 2 * n_clusters : 0));
   for (int j = threadIdx.x; j < kNumParams; j += kThreads) prm[j] = fparams[j];
   if constexpr (kTris) {
     for (int j = threadIdx.x; j < 2 * n_clusters; j += kThreads) boxes[j] = tri_boxes[j];
+  }
+  if constexpr (kImage) {
+    for (int j = threadIdx.x; j < kLutSize; j += kThreads) lut_s[j] = lut[j];
   }
   if constexpr (kAnim) {
     for (int j = threadIdx.x; j < s8; j += kThreads) {
@@ -551,6 +654,7 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
   const uint32_t spp = static_cast<uint32_t>(sqrt_spp * sqrt_spp);
   const V3 bg = {prm[kSky], prm[kSky + 1], prm[kSky + 2]};
   const int n_samples = n_batches * spp_local;
+  const Atlas atlas = {atlas_words, atlas_wh, n_images, atlas_h, atlas_w, lut_s};
 
   float sum_x = 0.0f, sum_y = 0.0f, sum_z = 0.0f;
   int traced = 0;
@@ -621,21 +725,26 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
           rows + static_cast<size_t>(min(max(best_id, 0), n_rows - 1)) * kRowWidth;
 
       // Hit reconstruction (wavefront.reconstruct_hit): a sphere's point
-      // o + t d and its direct world normal, or a triangle's captured point
-      // and lerped normal.
+      // o + t d and its direct world normal (with images, the normal of the
+      // world-to-object branch), or a triangle's captured point and lerped
+      // normal.
       const bool is_sphere = !kTris || best_id < s_pad;
       V3 p;
       V3 n;
       if (is_sphere) {
         p = {o.x + d.x * best_t, o.y + d.y * best_t, o.z + d.z * best_t};
-        V3 c = load3(row, 44);
-        if constexpr (kAnim) {  // the centre at the sample's time, as swept
-          c = {c.x + tcur * __ldg(row + 49), c.y + tcur * __ldg(row + 50),
-               c.z + tcur * __ldg(row + 51)};
+        if constexpr (kImage) {
+          n = normalize(apply_transposed(row, object_normal(row, p)));
+        } else {
+          V3 c = load3(row, 44);
+          if constexpr (kAnim) {  // the centre at the sample's time, as swept
+            c = {c.x + tcur * __ldg(row + 49), c.y + tcur * __ldg(row + 50),
+                 c.z + tcur * __ldg(row + 51)};
+          }
+          const float r = __ldg(row + 47);
+          const float inv_r = 1.0f / (r == 0.0f ? 1.0f : r);
+          n = normalize(v3((p.x - c.x) * inv_r, (p.y - c.y) * inv_r, (p.z - c.z) * inv_r));
         }
-        const float r = __ldg(row + 47);
-        const float inv_r = 1.0f / (r == 0.0f ? 1.0f : r);
-        n = normalize(v3((p.x - c.x) * inv_r, (p.y - c.y) * inv_r, (p.z - c.z) * inv_r));
       } else {
         p = tp;
         n = normalize(v3(__ldg(row + 49) + bu * __ldg(row + 52) + bv * __ldg(row + 55),
@@ -658,12 +767,14 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
       V3 skip_dir = {0.0f, 0.0f, 0.0f};
       bool scattered = false;
       V3 emit = {0.0f, 0.0f, 0.0f};
-      if constexpr (kNoise) {
+      if constexpr (kNoise || kImage) {
         // The one slot this hit reads, evaluated once: one call site
-        // holds the turbulence.
+        // holds the turbulence and the texel read.
         const bool reads_albedo = is_lamb || is_metal;
         if (reads_albedo || (has_emissive && is_light && front)) {
-          const V3 v = eval_slot(row, reads_albedo ? 2 : 8, reads_albedo ? 11 : 15, has_checker, p);
+          const V3 v = eval_slot<kNoise, kImage>(row, reads_albedo ? 2 : 8,
+                                                 reads_albedo ? 11 : 15, has_checker, p,
+                                                 is_sphere, bu, bv, atlas);
           if (reads_albedo) {
             attenuation = v;
           } else {
@@ -697,7 +808,7 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
         skip_dir = cannot_refract ? reflect(unit_dir, normal) : refract(unit_dir, normal, ri);
       }
       if (has_emissive && is_light && front) {
-        if constexpr (kNoise) {
+        if constexpr (kNoise || kImage) {
           acc = acc + thr * emit;
         } else {
           acc = acc + thr * eval_property(row, 8, 15, has_checker, p);
@@ -779,57 +890,68 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
   traced_out[pix] = traced;
 }
 
-template <bool kAnim, bool kTris, bool kLights, bool kNoise>
+template <bool kAnim, bool kTris, bool kLights, bool kNoise, bool kImage>
 int launch(const void* table8, const void* dtab8, const void* times, int s8, const void* tris12,
            int t8, const void* tri_boxes, int n_clusters, int cluster_g, int s_pad,
-           const void* lights16, const void* o2w12, const void* rows, int n_rows,
-           const void* fparams, int width, int height, int sqrt_spp, int spp_local,
-           int n_batches, int batch0, int sample_base, int max_depth, int flags, void* sums,
-           void* traced, void* stream) {
+           const void* lights16, const void* o2w12, const void* atlas_words,
+           const void* atlas_wh, int n_images, int atlas_h, int atlas_w, const void* lut,
+           const void* rows, int n_rows, const void* fparams, int width, int height,
+           int sqrt_spp, int spp_local, int n_batches, int batch0, int sample_base,
+           int max_depth, int flags, void* sums, void* traced, void* stream) {
   const int n_pix = width * height;
   if (n_pix <= 0) return static_cast<int>(cudaGetLastError());
   const size_t smem = (kNumParams + 4 * kStride<kAnim> * static_cast<size_t>(s8) +
-                       (kTris ? 8 * static_cast<size_t>(n_clusters) : 0)) *
+                       (kTris ? 8 * static_cast<size_t>(n_clusters) : 0) +
+                       (kImage ? kLutSize : 0)) *
                       sizeof(float);
   if (smem > 48 * 1024) {  // above the default limit it must be opted into
     const cudaError_t err =
-        cudaFuncSetAttribute(megakernel<kAnim, kTris, kLights, kNoise>,
+        cudaFuncSetAttribute(megakernel<kAnim, kTris, kLights, kNoise, kImage>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int blocks = (n_pix + kThreads - 1) / kThreads;
-  megakernel<kAnim, kTris, kLights, kNoise>
+  megakernel<kAnim, kTris, kLights, kNoise, kImage>
       <<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(table8), static_cast<const float4*>(dtab8),
       static_cast<const float*>(times), s8, static_cast<const float4*>(tris12), t8,
       static_cast<const float4*>(tri_boxes), n_clusters, cluster_g, s_pad,
       static_cast<const float*>(lights16), static_cast<const float*>(o2w12),
-      static_cast<const float*>(rows), n_rows, static_cast<const float*>(fparams), width, height,
-      sqrt_spp, spp_local, n_batches, batch0, sample_base, max_depth, flags,
-      static_cast<float*>(sums), static_cast<int*>(traced));
+      static_cast<const int*>(atlas_words), static_cast<const int*>(atlas_wh), n_images, atlas_h,
+      atlas_w, static_cast<const float*>(lut), static_cast<const float*>(rows), n_rows,
+      static_cast<const float*>(fparams), width, height, sqrt_spp, spp_local, n_batches, batch0,
+      sample_base, max_depth, flags, static_cast<float*>(sums), static_cast<int*>(traced));
   return static_cast<int>(cudaGetLastError());
 }
 
-#define MEGA_ARGS                                                                         \
-  table8, dtab8, times, s8, tris12, t8, tri_boxes, n_clusters, cluster_g, s_pad, lights16, \
-      o2w12, rows, n_rows, fparams, width, height, sqrt_spp, spp_local, n_batches, batch0, \
-      sample_base, max_depth, flags, sums, traced, stream
+#define MEGA_ARGS                                                                          \
+  table8, dtab8, times, s8, tris12, t8, tri_boxes, n_clusters, cluster_g, s_pad, lights16,  \
+      o2w12, atlas_words, atlas_wh, n_images, atlas_h, atlas_w, lut, rows, n_rows, fparams, \
+      width, height, sqrt_spp, spp_local, n_batches, batch0, sample_base, max_depth, flags, \
+      sums, traced, stream
 
 // The form for the inputs that megakernel_launch has checked.
-template <bool kNoise>
+template <bool kNoise, bool kImage>
 int dispatch(const void* table8, const void* dtab8, const void* times, int s8,
              const void* tris12, int t8, const void* tri_boxes, int n_clusters, int cluster_g,
-             int s_pad, const void* lights16, const void* o2w12, const void* rows, int n_rows,
-             const void* fparams, int width, int height, int sqrt_spp, int spp_local,
-             int n_batches, int batch0, int sample_base, int max_depth, int flags, void* sums,
-             void* traced, void* stream) {
+             int s_pad, const void* lights16, const void* o2w12, const void* atlas_words,
+             const void* atlas_wh, int n_images, int atlas_h, int atlas_w, const void* lut,
+             const void* rows, int n_rows, const void* fparams, int width, int height,
+             int sqrt_spp, int spp_local, int n_batches, int batch0, int sample_base,
+             int max_depth, int flags, void* sums, void* traced, void* stream) {
   if (lights16 != nullptr) {
-    return tris12 != nullptr ? launch<false, true, true, kNoise>(MEGA_ARGS)
-                             : launch<false, false, true, kNoise>(MEGA_ARGS);
+    return tris12 != nullptr ? launch<false, true, true, kNoise, kImage>(MEGA_ARGS)
+                             : launch<false, false, true, kNoise, kImage>(MEGA_ARGS);
   }
-  if (tris12 != nullptr) return launch<false, true, false, kNoise>(MEGA_ARGS);
-  if (dtab8 != nullptr) return launch<true, false, false, kNoise>(MEGA_ARGS);
-  return launch<false, false, false, kNoise>(MEGA_ARGS);
+  if (tris12 != nullptr) return launch<false, true, false, kNoise, kImage>(MEGA_ARGS);
+  if (dtab8 != nullptr) {
+    if constexpr (kImage) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    } else {
+      return launch<true, false, false, kNoise, false>(MEGA_ARGS);
+    }
+  }
+  return launch<false, false, false, kNoise, kImage>(MEGA_ARGS);
 }
 
 }  // namespace
@@ -843,19 +965,23 @@ int dispatch(const void* table8, const void* dtab8, const void* times, int s8,
 // triangles per cluster, s_pad: the primitive id of triangle 0; lights16:
 // null for no lights, else the [n_lights, 16] f32 light rows (p0 p1 p2,
 // prob, alias; not with dtab8) and o2w12 the [n_instances, 12] f32
-// objectToWorld rows; rows: [n_rows, 64] f32; fparams: [40] f32 (layout
-// above); flags: kUseDof | kHasChecker | kHasEmissive | kHasNoise (the
-// last picks the noise form); sums: [height * width, 3] f32 out; traced: [height * width] i32
-// out.  Launches on `stream` without synchronising and returns
+// objectToWorld rows; atlas_words: with kHasImage the [n_images, atlas_h,
+// atlas_w] i32 packed atlas, atlas_wh its [n_images, 2] i32 sizes and lut
+// the [256] f32 sRGB table (not with dtab8); rows: [n_rows, 64] f32;
+// fparams: [40] f32 (layout above); flags: kUseDof | kHasChecker |
+// kHasEmissive | kHasNoise | kHasImage (the last two pick the noise and
+// image forms); sums: [height * width, 3] f32 out; traced: [height * width]
+// i32 out.  Launches on `stream` without synchronising and returns
 // cudaGetLastError().
 extern "C" int megakernel_launch(const void* table8, const void* dtab8, const void* times,
                                  int s8, const void* tris12, int t8, const void* tri_boxes,
                                  int n_clusters, int cluster_g, int s_pad, const void* lights16,
-                                 const void* o2w12, const void* rows, int n_rows,
-                                 const void* fparams, int width, int height, int sqrt_spp,
-                                 int spp_local, int n_batches, int batch0, int sample_base,
-                                 int max_depth, int flags, void* sums, void* traced,
-                                 void* stream) {
+                                 const void* o2w12, const void* atlas_words, const void* atlas_wh,
+                                 int n_images, int atlas_h, int atlas_w, const void* lut,
+                                 const void* rows, int n_rows, const void* fparams, int width,
+                                 int height, int sqrt_spp, int spp_local, int n_batches,
+                                 int batch0, int sample_base, int max_depth, int flags,
+                                 void* sums, void* traced, void* stream) {
   if (tris12 != nullptr && (dtab8 != nullptr || tri_boxes == nullptr || cluster_g <= 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -863,7 +989,15 @@ extern "C" int megakernel_launch(const void* table8, const void* dtab8, const vo
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtab8 != nullptr && times == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return (flags & kHasNoise) ? dispatch<true>(MEGA_ARGS) : dispatch<false>(MEGA_ARGS);
+  const bool image = flags & kHasImage;
+  if (image && (atlas_words == nullptr || atlas_wh == nullptr || lut == nullptr ||
+                n_images < 1 || atlas_h < 1 || atlas_w < 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (flags & kHasNoise) {
+    return image ? dispatch<true, true>(MEGA_ARGS) : dispatch<true, false>(MEGA_ARGS);
+  }
+  return image ? dispatch<false, true>(MEGA_ARGS) : dispatch<false, false>(MEGA_ARGS);
 #undef MEGA_ARGS
 }
 

@@ -6,7 +6,10 @@ across and the tests can feed both packages the same state; only
 ``light_tri_packed`` also holds the alias table (``light_table16``).
 ``SceneStatic`` holds the host-side facts that select code paths.
 ``from_jax_compiled`` carries the JAX package's ``CompiledScene`` over to
-the port's, so one compiled scene can feed both packages.
+the port's, so one compiled scene can feed both packages.  The image
+atlas travels as the JAX package keeps it (uint8 sRGB, padded to the
+largest image) and is what the plain sampler reads; ``pack_atlas`` builds
+the fused kernel's copy of it, one 32-bit word a texel.
 """
 
 from __future__ import annotations
@@ -128,6 +131,16 @@ def light_table16(tri_p, prob, alias) -> np.ndarray:
     out[:, 9] = np.asarray(prob, np.float32)
     out[:, 10] = np.asarray(alias, np.int32).astype(np.float32)
     return out
+
+
+def pack_atlas(atlas: torch.Tensor) -> torch.Tensor:
+    """[NI, AH, AW, 3] uint8 sRGB atlas → [NI, AH, AW] int32 words
+    r | g << 8 | b << 16 (the top byte zero), on the atlas's device: one
+    aligned 4-byte load a texel for the fused kernel, whose row stride is
+    the padded width AW.  Each byte indexes the same sRGB table as the
+    uint8 atlas, so both decode to the same linear values."""
+    a = atlas.to(torch.int32)
+    return (a[..., 0] | (a[..., 1] << 8) | (a[..., 2] << 16)).contiguous()
 
 
 def _scene_numpy(cs: CompiledScene) -> dict:

@@ -24,8 +24,9 @@ on the CPU; True takes the fused path wherever the gate admits the scene
   shutter time 0 and their motion) serves every batch, the kernel moves
   them to each batch's time, and a chunk is one launch.
 - ``"fused_per_batch"``: other motion, and any motion in a scene with
-  triangles or lights; one launch per batch, each from that batch's world
-  table, soup and instance transforms (the JAX renderer's ``step`` scan).
+  triangles, lights or image textures; one launch per batch, each from
+  that batch's world table, soup, instance transforms and spheres'
+  world-to-object rows (the JAX renderer's ``step`` scan).
 - ``"wavefront"``: per-batch world tables, one batch at a time.
 
 A static scene's triangle soup goes to world space once; an animated
@@ -62,7 +63,7 @@ from ..ops import megakernel, paged_tri
 from ..ops.spheres import world_sphere_anim_tables, world_sphere_tables
 from ..tools.chacha import ChaCha20Rng
 from ..utils.image import write_png
-from .arrays import SceneStatic, scene_static, upload_scene
+from .arrays import SceneStatic, pack_atlas, scene_static, upload_scene
 from .wavefront import make_trace_fn, prepare_batch, prepare_tris, render_tile
 
 # The reference seeds its host RNG with this value (render_engine.rs:116);
@@ -143,8 +144,6 @@ def unsupported_feature(static: SceneStatic) -> Optional[str]:
     """Why this port cannot render the scene yet, naming the ROADMAP
     queue 1 item that will add it; None when it is inside the slice.
     ``static`` is the Renderer's, with ``sphere_world_mode`` set."""
-    if static.flags.has_image:
-        return "image textures (ROADMAP queue 1: 'Image textures')"
     if not static.use_fat_shading:
         return ("materials beyond the fat-row encoding (ROADMAP queue 1: "
                 "'Registry shading')")
@@ -189,8 +188,9 @@ class Renderer:
         self.sphere_tables = world_sphere_tables(compiled, self.batch_times)
         if self.sphere_tables is None:
             raise NotImplementedError(
-                "not ported yet: spheres with non-uniform scale (ROADMAP "
-                "queue 1: 'Object-space spheres')")
+                "not ported yet: spheres with non-uniform scale, which need "
+                "object-space intersection (ROADMAP queue 1: 'Object-space "
+                "spheres')")
         static = dataclasses.replace(scene_static(compiled),
                                      sphere_world_mode=True)
         missing = unsupported_feature(static)
@@ -207,6 +207,10 @@ class Renderer:
             use_megakernel = self.device.type == "cuda"
         self.use_megakernel = bool(use_megakernel) and (
             megakernel.megakernel_supported(self.static))
+        # The fused kernel's copy of the image atlas, packed once.
+        self._atlas_words = (pack_atlas(self.scene.atlas)
+                             if self.use_megakernel
+                             and self.static.flags.has_image else None)
         # Every batch's shutter time, read by the animated fused kernel.
         self.batch_times_dev = torch.tensor(self.batch_times,
                                             device=self.device)
@@ -216,10 +220,14 @@ class Renderer:
         if self.static.has_tris and not self.static.any_animated:
             self._tris = prepare_tris(self.static, self.scene,
                                       self.batch_times_dev[0])
-        # The animated fused kernel's one geometry, built once.
+        # The animated fused kernel's one geometry, built once.  Not for
+        # triangles or lights, nor for image textures, whose spheres'
+        # world-to-object rows change with every batch time (the JAX
+        # Renderer's rule, raytrace_tpu/engine/renderer.py:462-472).
         self._anim_geom = None
         if (self.use_megakernel and self.static.any_animated
-                and not (self.static.has_tris or self.static.has_lights)):
+                and not (self.static.has_tris or self.static.has_lights
+                         or self.static.flags.has_image)):
             tables = world_sphere_anim_tables(compiled)
             if tables is not None:
                 tab0, dtab8 = (torch.tensor(t, device=self.device)
@@ -265,7 +273,8 @@ class Renderer:
             tris = prepare_tris(self.static, self.scene,
                                 self.batch_times_dev[batch])
         return prepare_batch(self.static, self.scene, sph_table, tris=tris,
-                             batch_time=self.batch_times_dev[batch])
+                             batch_time=self.batch_times_dev[batch],
+                             atlas_words=self._atlas_words)
 
     def _record(self, batches: int, rays: int, t0: float) -> None:
         dt = _time.perf_counter() - t0

@@ -9,10 +9,13 @@ of ray_gen.glsl:457-541 across the whole wavefront).  The loop runs on the
 host, one bounce per iteration; each iteration reads the alive count once,
 which both ends the loop and drives the tail compaction.
 
-Covered here: spheres in world mode with direct normals, triangles swept
+Covered here: spheres swept in world mode, with direct normals, or in a
+scene with an image texture with the normal and UV of the sphere's
+world-to-object branch; triangles swept
 densely (the kernel K2) or, on a soup the Renderer put in paged order, by
-pages and clusters (the kernel K3), with their hit point and normal rebuilt
-from the packed position and attribute tables, fat-row shading, next-event
+pages and clusters (the kernel K3), with their hit point, normal and UV
+rebuilt from the packed position and attribute tables, fat-row shading
+(constant, checker, noise and image textures), next-event
 estimation with lights (the alias-table light sample moved by the hit
 instance's objectToWorld, and the 50/50 mixture of the light and material
 pdfs); animated spheres and instances through per-batch geometry.  The
@@ -29,7 +32,7 @@ from ..models.compile import SKY_SOLID, SKY_VERTICAL_GRADIENT
 
 from ..ops import camera as cam_ops
 from ..ops import (megakernel, nee, paged_tri, rng, shading, sphere_sweep,
-                   transforms, tri_sweep, vec3)
+                   spheres, transforms, tri_sweep, vec3)
 from ..ops.intersect import T_MAX, Hit
 from ..ops.materials import LIGHT_PDF
 from ..ops.spheres import SphereHit
@@ -51,6 +54,9 @@ class RawHit(NamedTuple):
 class HitRecord(NamedTuple):
     p: V3  # hit point
     n: V3  # unit geometric normal (not yet flipped to face the ray)
+    # texture coordinates, in a scene with an image texture (else None)
+    u: Optional[torch.Tensor] = None
+    v: Optional[torch.Tensor] = None
 
 
 class BatchGeometry(NamedTuple):
@@ -80,6 +86,9 @@ class BatchGeometry(NamedTuple):
     # 3x4: the light sample's transform (raytrace_tpu/engine/wavefront.py:
     # 755, :875-876); None when the geometry was built without a time.
     inst_o2w_rows: Optional[torch.Tensor] = None
+    # The fused kernel's copy of the image atlas (engine/arrays.pack_atlas),
+    # in a scene with an image texture; the wavefront reads scene.atlas.
+    atlas_words: Optional[torch.Tensor] = None
 
 
 def _compact_size(R: int) -> int:
@@ -167,7 +176,9 @@ def prepare_batch(static: SceneStatic, scene: SceneArrays,
                   sph_table: torch.Tensor,
                   sph_dtab: Optional[torch.Tensor] = None,
                   tris: Optional[dict] = None,
-                  batch_time: Optional[torch.Tensor] = None) -> BatchGeometry:
+                  batch_time: Optional[torch.Tensor] = None,
+                  atlas_words: Optional[torch.Tensor] = None
+                  ) -> BatchGeometry:
     """Kernel tables and fat rows for one batch.
 
     sph_table: [S, 5] world sphere rows at the batch time
@@ -184,14 +195,32 @@ def prepare_batch(static: SceneStatic, scene: SceneArrays,
     holds its normal rows n0, dn1, dn2 in [49:58] (the JAX megakernel's
     _SLOT_TRIN); the rest stay zero
     (raytrace_tpu/engine/wavefront.py:845-871, direct-normal branch).
+    A scene with an image texture takes JAX's other branch, which needs
+    ``batch_time``: a sphere's row holds its world-to-object matrix at
+    that time in [32:44] and its object-space center and radius in
+    [44:48]; a triangle's row also holds uv0, uv1 - uv0 and uv2 - uv0 in
+    [58:64], for the fused kernel, which reads ``atlas_words`` (the
+    packed atlas, engine/arrays.pack_atlas) where the wavefront reads the
+    scene's atlas.
     """
     s_pad = scene.sph_center.shape[0]
     P = scene.shade_rows.shape[0]
     rows = torch.zeros((P, 64), dtype=torch.float32,
                        device=scene.shade_rows.device)
     rows[:, 0:32] = scene.shade_rows
-    rows[:s_pad, 44:47] = sph_table[:s_pad, 0:3]
-    rows[:s_pad, 47] = sph_table[:s_pad, 3]
+    image = static.flags.has_image
+    if image:
+        if batch_time is None:
+            raise ValueError("a scene with an image texture needs the batch "
+                             "time (its spheres' world-to-object rows)")
+        w2o = transforms.interpolate_instances(
+            scene.inst_t0, scene.inst_t1, batch_time).world_to_object
+        rows[:s_pad, 32:44] = w2o[scene.sph_inst.long()].reshape(s_pad, 12)
+        rows[:s_pad, 44:47] = scene.sph_center
+        rows[:s_pad, 47] = scene.sph_radius
+    else:
+        rows[:s_pad, 44:47] = sph_table[:s_pad, 0:3]
+        rows[:s_pad, 47] = sph_table[:s_pad, 3]
     rows[:s_pad, 48] = scene.sph_inst.to(torch.float32)
     rows[s_pad:, 48] = scene.tri_inst.to(torch.float32)
     if sph_dtab is not None:
@@ -203,6 +232,8 @@ def prepare_batch(static: SceneStatic, scene: SceneArrays,
         att = tris["tri_attr16"]
         T = min(att.shape[0], P - s_pad)
         rows[s_pad:s_pad + T, 49:58] = att[:T, 0:9]
+        if image:
+            rows[s_pad:s_pad + T, 58:64] = att[:T, 9:15]
     extra = dict(tris or {})
     if tris is None and batch_time is not None and static.has_lights:
         extra["inst_o2w_rows"] = _o2w_rows(transforms.interpolate_instances(
@@ -211,7 +242,8 @@ def prepare_batch(static: SceneStatic, scene: SceneArrays,
         raise ValueError("a scene with lights needs the batch time (or "
                          "prepare_tris's tables)")
     return BatchGeometry(sph_table8=sphere_sweep.pad_table8(sph_table),
-                         prim_rows=rows, sph_dtab8=sph_dtab, **extra)
+                         prim_rows=rows, sph_dtab8=sph_dtab,
+                         atlas_words=atlas_words, **extra)
 
 
 def combine_hits(sph: Optional[SphereHit], tri: Optional[Hit], s_pad: int,
@@ -265,18 +297,40 @@ def make_trace_fn(static: SceneStatic, scene: SceneArrays,
 
 
 def reconstruct_hit(raw: RawHit, ray_o: V3, ray_d: V3, rows,
-                    geom: BatchGeometry, s_pad: int) -> HitRecord:
+                    geom: BatchGeometry, s_pad: int,
+                    has_image: bool = False) -> HitRecord:
     """RawHit → HitRecord.  A sphere's normal is the direct one from the
     fat rows, (hit - c_world) / r_world; a triangle's hit point is
     v0 + u e1 + v e2 from the position table and its normal the
     barycentric lerp of the attribute rows; the pair is chosen per ray,
     then normalised (raytrace_tpu/engine/wavefront.py:321-341, :355-365,
-    :388-399)."""
-    c = V3(rows[:, 44], rows[:, 45], rows[:, 46])
-    r = rows[:, 47]
+    :388-399).
+
+    With ``has_image`` the sphere takes JAX's world-to-object branch
+    (:366-386) from the rows of ``prepare_batch``: the hit point moved to
+    object space, the object normal (p_obj - c) / r taken back to world
+    space by the transposed matrix, and the UV of the tessellator's
+    parameterisation, v = arccos(-n.y) / pi and u = arctan2(n.z, -n.x) /
+    2 pi floor-mod 1, of the unit object normal; a triangle's UV is the
+    barycentric lerp of its attribute rows' uv0, duv1, duv2."""
     p = ray_o + raw.t * ray_d
+    r = rows[:, 47]
     inv_r = 1.0 / torch.where(r == 0.0, 1.0, r)
-    n = V3((p.x - c.x) * inv_r, (p.y - c.y) * inv_r, (p.z - c.z) * inv_r)
+    su = sv = None
+    if has_image:
+        m_cols = tuple(rows[:, 32 + i] for i in range(12))
+        p_obj = vec3.mat34_apply_point(m_cols, p)
+        n_obj = V3((p_obj.x - rows[:, 44]) * inv_r,
+                   (p_obj.y - rows[:, 45]) * inv_r,
+                   (p_obj.z - rows[:, 46]) * inv_r)
+        n = vec3.mat34_apply_transposed_vec(m_cols, n_obj)
+        nn = vec3.normalize(n_obj)
+        sv = torch.arccos(torch.clamp(-nn.y, -1.0, 1.0)) / spheres.PI
+        su = torch.remainder(torch.arctan2(nn.z, -nn.x) / spheres.TWO_PI,
+                             1.0)
+    else:
+        c = V3(rows[:, 44], rows[:, 45], rows[:, 46])
+        n = V3((p.x - c.x) * inv_r, (p.y - c.y) * inv_r, (p.z - c.z) * inv_r)
     if geom.tri_table16 is not None:
         tri = torch.clamp_min(raw.prim - s_pad, 0)
         pos = geom.tri_table16[torch.clamp(tri, 0,
@@ -292,7 +346,12 @@ def reconstruct_hit(raw: RawHit, ray_o: V3, ray_d: V3, rows,
                 att[:, 2] + bu * att[:, 5] + bv * att[:, 8])
         p = vec3.where(raw.is_sphere, p, tp)
         n = vec3.where(raw.is_sphere, n, tn)
-    return HitRecord(p=p, n=vec3.normalize(n))
+        if has_image:
+            tu = att[:, 9] + bu * att[:, 11] + bv * att[:, 13]
+            tv = att[:, 10] + bu * att[:, 12] + bv * att[:, 14]
+            su = torch.where(raw.is_sphere, su, tu)
+            sv = torch.where(raw.is_sphere, sv, tv)
+    return HitRecord(p=p, n=vec3.normalize(n), u=su, v=sv)
 
 
 class _Wave(NamedTuple):
@@ -322,12 +381,14 @@ def _bounce(static: SceneStatic, scene: SceneArrays, bg: V3, trace_fn,
     P = geom.prim_rows.shape[0]
     rows = geom.prim_rows[torch.clamp(prim, 0, P - 1)]
 
-    rec = reconstruct_hit(raw, w.ray_o, w.ray_d, rows, geom, s_pad)
+    rec = reconstruct_hit(raw, w.ray_o, w.ray_d, rows, geom, s_pad,
+                          static.flags.has_image)
     front = vec3.dot(w.ray_d, rec.n) < 0.0   # common.glsl:239-241
     normal = vec3.where(front, rec.n, -rec.n)
 
     state, srec, emit = shading.scatter_and_emit_v3(
-        w.state, static.flags, rows, rec.p, normal, front, w.ray_d)
+        w.state, static.flags, rows, rec.p, normal, front, w.ray_d,
+        scene=scene, hit_u=rec.u, hit_v=rec.v)
     accumulated = vec3.where(alive, accumulated + w.throughput * emit,
                              accumulated)
     alive = alive & srec.is_scattered

@@ -8,15 +8,25 @@ sample order and summed, so the result is the per-pixel radiance sums and
 the per-pixel bounce counts.  ``render_tile_mega`` is the one entry point:
 for tensors on the CPU it runs the plain version, for CUDA tensors it
 launches the kernel on the current stream, or raises.  ``LAUNCHES`` counts
-kernel launches, ``ANIM_LAUNCHES``, ``TRI_LAUNCHES``, ``LIGHT_LAUNCHES``
-and ``NOISE_LAUNCHES`` those of the animated, the triangle, the lit and
-the noise forms, so a run can show that its main path went through the
-kernel.
+kernel launches, ``ANIM_LAUNCHES``, ``TRI_LAUNCHES``, ``LIGHT_LAUNCHES``,
+``NOISE_LAUNCHES`` and ``IMAGE_LAUNCHES`` those of the animated, the
+triangle, the lit, the noise and the image forms, so a run can show that
+its main path went through the kernel.
 
-The kernel covers spheres in world space with direct normals, triangle
-soups in world space, fat-row shading with constant, checker and noise
-textures, and lights, but no image texture; ``megakernel_supported`` is
-that gate, decided from facts about the scene.  Noise textures take the
+The kernel covers spheres in world space, triangle soups in world space,
+fat-row shading with constant, checker, noise and image textures, and
+lights; ``megakernel_supported`` is that gate, decided from facts about
+the scene.  Image textures take the kernel's image form
+(``MegaConfig.has_image``) of its static, triangle and lit forms: the
+spheres' normals come from their world-to-object rows (engine/wavefront.py
+prepare_batch), and where a slot a hit reads is in image mode the kernel
+samples the image at the hit's UV from the packed atlas
+(``BatchGeometry.atlas_words``, engine/arrays.pack_atlas), at any bounce,
+as the wavefront does.  The JAX kernel's item mode (image albedo shaded
+as 1, each sample multiplied by its primary hit's texel afterwards, for
+one convex sphere seen from outside: ``deferred_image_supported``,
+``camera_outside_spheres``, ``_texel_factor``) is a TPU workaround and
+has no counterpart here.  Noise textures take the
 kernel's noise form (``MegaConfig.has_noise``) of any of its other forms:
 the hit's turbulence (ops/perlin.py) is computed in the kernel where a
 slot the hit reads is in noise mode.  Lights take the kernel's lit form
@@ -65,9 +75,10 @@ ANIM_LAUNCHES = 0
 TRI_LAUNCHES = 0
 LIGHT_LAUNCHES = 0
 NOISE_LAUNCHES = 0
+IMAGE_LAUNCHES = 0
 
 _N_PARAMS = 40  # csrc/megakernel.cu kNumParams
-_USE_DOF, _HAS_CHECKER, _HAS_EMISSIVE, _HAS_NOISE = 1, 2, 4, 8
+_USE_DOF, _HAS_CHECKER, _HAS_EMISSIVE, _HAS_NOISE, _HAS_IMAGE = 1, 2, 4, 8, 16
 
 # The kernel stages the sphere table in shared memory, of which a block
 # may use 227 KiB on the H100.  A static sphere takes two float4 (32 B):
@@ -106,6 +117,7 @@ class MegaConfig(NamedTuple):
     has_checker: bool
     has_emissive: bool
     has_noise: bool
+    has_image: bool
     anim: bool
     tris: bool
     lights: bool
@@ -119,12 +131,14 @@ class MegaConfig(NamedTuple):
 
 def megakernel_supported(static) -> bool:
     """Scenes the fused kernel covers: spheres in world space (uniform
-    scale, so the world table holds), fat-row shading, no image texture,
-    at most MAX_SPHERES spheres (MAX_SPHERES_ANIM when they move), and at
-    most MAX_TRIANGLES triangles in clusters or MAX_TRIANGLES_DENSE in
-    file order; with or without lights, with or without noise textures
+    scale, so the world table holds), fat-row shading, at most MAX_SPHERES
+    spheres (MAX_SPHERES_ANIM when they move), and at most MAX_TRIANGLES
+    triangles in clusters or MAX_TRIANGLES_DENSE in file order; with or
+    without lights, with or without noise and image textures
     (raytrace_tpu/ops/megakernel.py:2743-2785, as one predicate; the JAX
-    gate has no noise exclusion, whatever its comment at :107 says).  The
+    gate has no noise exclusion, whatever its comment at :107 says, and
+    refuses images, which its deferred item mode takes for one convex
+    sphere, :2788-2833: here the kernel samples any image at any hit).  The
     JAX gate's cap of 64 instances on lit scenes (:2783) is not carried over:
     it is the TPU's SMEM budget for the instance transforms, which this
     kernel reads from global memory.  Animated scenes are admitted under
@@ -135,14 +149,12 @@ def megakernel_supported(static) -> bool:
     the JAX gate refuses any ``bvh_mode`` but "none" (:2752).  Every other
     scene renders on the wavefront.  The Renderer's triangle ceiling reads
     this gate too."""
-    f = static.flags
     cap = MAX_SPHERES_ANIM if static.any_animated else MAX_SPHERES
     tri_max = (MAX_TRIANGLES if static.tri_cluster_g > 0
                else MAX_TRIANGLES_DENSE)
     return (static.bvh_mode == "none"
             and static.use_fat_shading
             and (static.sphere_world_mode or not static.has_spheres)
-            and not f.has_image
             and static.num_spheres <= cap
             and static.num_triangles <= tri_max)
 
@@ -234,6 +246,7 @@ def make_config(static, geom, use_dof: bool, n_batches: int) -> MegaConfig:
         has_checker=static.flags.has_checker,
         has_emissive=static.flags.has_emissive,
         has_noise=static.flags.has_noise,
+        has_image=static.flags.has_image,
         anim=geom.sph_dtab8 is not None, tris=tris,
         lights=bool(static.has_lights),
         S8=geom.sph_table8.shape[0], P=geom.prim_rows.shape[0], T8=T8,
@@ -251,8 +264,10 @@ def _float_params(cfg: MegaConfig, static, scene, cam) -> torch.Tensor:
     from ..engine.wavefront import _background_v3
 
     dev = cam.view_inverse.device
-    recip = torch.tensor([float(np.float32(1.0 / cfg.sqrt_spp))],
-                         dtype=torch.float32, device=dev)
+    # Filled on the device: a copy from the host's pageable memory would
+    # wait for the stream, and so for the work queued before this launch.
+    recip = torch.full((1,), float(np.float32(1.0 / cfg.sqrt_spp)),
+                       dtype=torch.float32, device=dev)
     out = torch.cat([
         cam.view_inverse.reshape(16), cam.proj_inverse.reshape(16),
         cam.focal_length.reshape(1), cam.aperture_size.reshape(1),
@@ -351,6 +366,8 @@ def _check_inputs(cfg: MegaConfig, scene, geom, params, times,
         _check_tris(cfg, geom, device)
     if cfg.lights:
         _check_lights(cfg, scene, geom, device)
+    if cfg.has_image:
+        _check_image(cfg, scene, geom, device)
     if not cfg.anim:
         return
     dtab = geom.sph_dtab8
@@ -405,6 +422,33 @@ def _check_lights(cfg: MegaConfig, scene, geom, device) -> None:
                          "float32 [I, 12] tensor on the table's device")
 
 
+def _check_image(cfg: MegaConfig, scene, geom, device) -> None:
+    atlas, words = scene.atlas, geom.atlas_words
+    if cfg.anim:
+        raise ValueError("the animated form takes no image textures")
+    if words is None:
+        raise ValueError("an image scene's geometry needs atlas_words, the "
+                         "packed atlas (engine/arrays.pack_atlas)")
+    if (atlas.dtype != torch.uint8 or atlas.dim() != 4
+            or atlas.shape[3] != 3):
+        raise ValueError("the scene's atlas must be a uint8 [NI, AH, AW, 3] "
+                         "tensor")
+    if (words.dtype != torch.int32 or words.shape != atlas.shape[:3]
+            or words.device != device or not words.is_contiguous()):
+        raise ValueError("atlas_words must be a contiguous int32 [NI, AH, "
+                         "AW] tensor, the atlas packed, on the table's "
+                         "device")
+    wh, lut = scene.atlas_wh, scene.srgb_lut
+    if (wh.dtype != torch.int32 or wh.shape != (atlas.shape[0], 2)
+            or wh.device != device or not wh.is_contiguous()):
+        raise ValueError("atlas_wh must be a contiguous int32 [NI, 2] "
+                         "tensor on the table's device")
+    if (lut.dtype != torch.float32 or lut.shape != (256,)
+            or lut.device != device or not lut.is_contiguous()):
+        raise ValueError("srgb_lut must be a contiguous float32 [256] tensor "
+                         "on the table's device")
+
+
 def render_tile_mega(static, scene, geom, cam, batch0: int,
                      n_batches: int = 1, sample_base: int = 0, *,
                      use_dof: bool, reduce_mean: bool = False, times=None):
@@ -416,7 +460,7 @@ def render_tile_mega(static, scene, geom, cam, batch0: int,
     (``geom.sph_dtab8``) needs ``times``, every batch's shutter time
     ([B] f32 on the geometry's device); a static one ignores it."""
     global LAUNCHES, ANIM_LAUNCHES, TRI_LAUNCHES, LIGHT_LAUNCHES
-    global NOISE_LAUNCHES
+    global NOISE_LAUNCHES, IMAGE_LAUNCHES
     device = geom.sph_table8.device
     cfg = make_config(static, geom, use_dof, n_batches)
     if cfg.anim and times is None:
@@ -440,7 +484,9 @@ def render_tile_mega(static, scene, geom, cam, batch0: int,
         flags = ((_USE_DOF if cfg.use_dof else 0)
                  | (_HAS_CHECKER if cfg.has_checker else 0)
                  | (_HAS_EMISSIVE if cfg.has_emissive else 0)
-                 | (_HAS_NOISE if cfg.has_noise else 0))
+                 | (_HAS_NOISE if cfg.has_noise else 0)
+                 | (_HAS_IMAGE if cfg.has_image else 0))
+        image = cfg.has_image
         err = lib.megakernel_launch(
             geom.sph_table8.data_ptr(),
             geom.sph_dtab8.data_ptr() if cfg.anim else None,
@@ -450,6 +496,10 @@ def render_tile_mega(static, scene, geom, cam, batch0: int,
             cfg.tri_g, cfg.S8,
             scene.light_tri_packed.data_ptr() if cfg.lights else None,
             geom.inst_o2w_rows.data_ptr() if cfg.lights else None,
+            geom.atlas_words.data_ptr() if image else None,
+            scene.atlas_wh.data_ptr() if image else None,
+            scene.atlas.shape[0], scene.atlas.shape[1], scene.atlas.shape[2],
+            scene.srgb_lut.data_ptr() if image else None,
             geom.prim_rows.data_ptr(),
             cfg.P, params.data_ptr(), W, H, cfg.sqrt_spp, cfg.spp_local,
             cfg.n_batches, int(batch0), int(sample_base), cfg.max_depth,
@@ -464,6 +514,7 @@ def render_tile_mega(static, scene, geom, cam, batch0: int,
         TRI_LAUNCHES += cfg.tris
         LIGHT_LAUNCHES += cfg.lights
         NOISE_LAUNCHES += cfg.has_noise
+        IMAGE_LAUNCHES += cfg.has_image
     if reduce_mean:
         sums = sums / float(np.float32(cfg.spp_local * cfg.n_batches))
     return sums, traced
@@ -475,8 +526,8 @@ def library() -> ctypes.CDLL:
     lib = _build.load_library("megakernel")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.megakernel_launch.argtypes = [p, p, p, i, p, i, p, i, i, i, p, p, p,
-                                      i, p, i, i, i, i, i, i, i, i, i, p, p,
-                                      p]
+                                      p, i, i, i, p, p, i, p, i, i, i, i, i,
+                                      i, i, i, i, p, p, p]
     lib.megakernel_launch.restype = i
     lib.megakernel_error_string.argtypes = [i]
     lib.megakernel_error_string.restype = ctypes.c_char_p

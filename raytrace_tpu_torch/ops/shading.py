@@ -20,9 +20,9 @@ from ..models.compile import (
     MAT_TYPE_LAMBERTIAN,
     MAT_TYPE_METAL,
 )
-from ..models.shading_table import MODE_CHECKER, MODE_NOISE
+from ..models.shading_table import MODE_CHECKER, MODE_IMAGE, MODE_NOISE
 
-from . import perlin, rng, vec3
+from . import perlin, rng, textures, vec3
 from .materials import COSINE_PDF, NO_PDF, schlick_reflectance
 from .textures import TexFlags, checker_is_even
 from .vec3 import V3
@@ -40,57 +40,54 @@ def _rowv3(rows, c0):
     return V3(rows[:, c0], rows[:, c0 + 1], rows[:, c0 + 2])
 
 
-def _check_families(flags: TexFlags) -> None:
-    if flags.has_image:
-        raise NotImplementedError(
-            "image textures are not ported yet (ROADMAP queue 1: "
-            "'Image textures')")
-
-
-def _eval_slot(flags: TexFlags, base: V3, mode, aux, p: V3, turb) -> V3:
+def _eval_slot(flags: TexFlags, image, base: V3, mode, aux, p: V3,
+               turb) -> V3:
     """One basic property slot (raytrace_tpu/ops/shading.py:194-209): the
-    constant rgb, or where the slot's mode is noise the marble
+    constant rgb; where the slot's mode is image, image ``aux`` (clipped
+    to the atlas) sampled at the hit's UV; where it is noise, the marble
     (ray_gen.glsl:203-208) on all three channels, aux being the baked
-    noise scale.  ``turb`` is the hit points' turbulence, computed once for
+    noise scale.  ``image`` is (scene, u, v) in a scene with an image
+    texture; ``turb`` is the hit points' turbulence, computed once for
     every slot (None without noise)."""
-    if not flags.has_noise:
-        return base
-    m = 0.5 * (1.0 + torch.sin(aux * p.z + 10.0 * turb))
-    return vec3.where(mode == MODE_NOISE, V3(m, m, m), base)
+    out = base
+    if flags.has_image:
+        scene, u, v = image
+        idx = torch.clamp(aux.to(torch.int32), 0, scene.atlas.shape[0] - 1)
+        img = textures.sample_image_nearest(scene.atlas, scene.atlas_wh,
+                                            scene.srgb_lut, idx, u, v)
+        out = vec3.where(mode == MODE_IMAGE,
+                         V3(img[:, 0], img[:, 1], img[:, 2]), out)
+    if flags.has_noise:
+        m = 0.5 * (1.0 + torch.sin(aux * p.z + 10.0 * turb))
+        out = vec3.where(mode == MODE_NOISE, V3(m, m, m), out)
+    return out
 
 
-def _eval_property(flags: TexFlags, rows, base_col: int, mode_col: int, p,
-                   turb) -> V3:
+def _eval_property(flags: TexFlags, image, rows, base_col: int,
+                   mode_col: int, p, turb) -> V3:
     """A property slot (cols base_col:+3, its mode at mode_col and aux
     after it), or the row's checker of two slots where the mode says so
-    (raytrace_tpu/ops/shading.py:216-251).  Triangles pass no UV: noise
-    reads none, and images are refused."""
-    _check_families(flags)
-    out = _eval_slot(flags, _rowv3(rows, base_col), rows[:, mode_col],
+    (raytrace_tpu/ops/shading.py:216-251)."""
+    out = _eval_slot(flags, image, _rowv3(rows, base_col), rows[:, mode_col],
                      rows[:, mode_col + 1], p, turb)
     if flags.has_checker:
-        even = _eval_slot(flags, _rowv3(rows, 18), rows[:, 24], rows[:, 25],
-                          p, turb)
-        odd = _eval_slot(flags, _rowv3(rows, 21), rows[:, 26], rows[:, 27],
-                         p, turb)
+        even = _eval_slot(flags, image, _rowv3(rows, 18), rows[:, 24],
+                          rows[:, 25], p, turb)
+        odd = _eval_slot(flags, image, _rowv3(rows, 21), rows[:, 26],
+                         rows[:, 27], p, turb)
         ck = vec3.where(checker_is_even(rows[:, 17], p), even, odd)
         out = vec3.where(rows[:, mode_col] == MODE_CHECKER, ck, out)
     return out
 
 
-def eval_albedo_v3(flags: TexFlags, rows, p: V3, turb) -> V3:
-    return _eval_property(flags, rows, 2, 11, p, turb)
-
-
-def eval_emit_v3(flags: TexFlags, rows, p: V3, turb) -> V3:
-    return _eval_property(flags, rows, 8, 15, p, turb)
-
-
 def scatter_and_emit_v3(state, flags: TexFlags, rows, p: V3, normal: V3,
-                        front_face, wrd: V3):
+                        front_face, wrd: V3, scene=None, hit_u=None,
+                        hit_v=None):
     """Fat-row calculateScatter + calculateEmission (ray_gen.glsl:328-440).
     ``normal`` is the front-face-flipped shading normal, ``wrd`` the
-    incoming direction as traced.  Returns (state, ScatterV3, emission V3).
+    incoming direction as traced; a scene with an image texture needs
+    ``scene`` (its atlas, sizes and sRGB table) and the hits' UV ``hit_u``,
+    ``hit_v``.  Returns (state, ScatterV3, emission V3).
     """
     mat_type = rows[:, 0].to(torch.int32)
 
@@ -100,7 +97,8 @@ def scatter_and_emit_v3(state, flags: TexFlags, rows, p: V3, normal: V3,
     # One turbulence at the hit point serves every slot.
     turb = (perlin.turbulence_v3(p.x, p.y, p.z, 7) if flags.has_noise
             else None)
-    albedo = eval_albedo_v3(flags, rows, p, turb)
+    image = (scene, hit_u, hit_v)
+    albedo = _eval_property(flags, image, rows, 2, 11, p, turb)
     fuzz = _rowv3(rows, 5)
 
     is_lamb = mat_type == MAT_TYPE_LAMBERTIAN
@@ -148,7 +146,7 @@ def scatter_and_emit_v3(state, flags: TexFlags, rows, p: V3, normal: V3,
     )
 
     if flags.has_emissive:
-        emit = eval_emit_v3(flags, rows, p, turb)
+        emit = _eval_property(flags, image, rows, 8, 15, p, turb)
         emission = vec3.where(is_light & front_face, emit, zero)
     else:
         emission = zero

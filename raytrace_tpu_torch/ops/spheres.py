@@ -21,6 +21,9 @@ from .vec3 import V3
 
 # Elements of one [chunk, R] temporary in the plain sweep (64 MiB of f32).
 _CHUNK_ELEMS = 1 << 24
+# The float32 constants of the sphere UV (raytrace_tpu/ops/spheres.py:265-266).
+TWO_PI = float(np.float32(2.0 * np.pi))
+PI = float(np.float32(np.pi))
 
 
 class SphereHit(NamedTuple):

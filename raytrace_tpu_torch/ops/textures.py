@@ -3,8 +3,8 @@
 The fat shading rows (``models/shading_table.py``) resolve
 constant colours on the host, so on the device the constant family is the
 row's rgb slots, the checker family is one parity test and the noise
-family is the marble of ops/perlin.py's turbulence (ops/shading.py).
-Image textures are not ported yet (ops/shading.py raises for them).
+family is the marble of ops/perlin.py's turbulence (ops/shading.py) and
+the image family ``sample_image_nearest`` at the hit's UV.
 
 ``TexFlags.for_scene`` is the JAX rule as it stands, quirk included: a
 ``noise`` texture whose scale is 0 leaves ``has_noise`` False, so its slot
@@ -59,3 +59,21 @@ def checker_is_even(scale, p):
              + torch.floor(inv_scale * p.y).to(torch.int32)
              + torch.floor(inv_scale * p.z).to(torch.int32))
     return cells % 2 == 0
+
+
+def sample_image_nearest(atlas, atlas_wh, srgb_lut, index, u, v):
+    """Nearest/repeat sample of image ``index`` [R] at (u, v) [R]
+    (raytrace_tpu/ops/textures.py:63-76).  atlas: [NI, AH, AW, 3] uint8
+    sRGB, padded to the largest image; atlas_wh: [NI, 2] int32 (width,
+    height); srgb_lut: [256] f32.  Returns [R, 3] linear f32.  ``%`` is
+    floor-mod (torch.remainder: fmod plus the divisor where the signs
+    differ, as jnp.remainder), in JAX's order of operations."""
+    wh = atlas_wh[index]
+    w = wh[:, 0].to(torch.float32)
+    h = wh[:, 1].to(torch.float32)
+    x = torch.floor(torch.remainder(u, 1.0) * w).to(torch.int32)
+    y = torch.floor(torch.remainder(v, 1.0) * h).to(torch.int32)
+    x = torch.minimum(torch.clamp_min(x, 0), wh[:, 0] - 1)
+    y = torch.minimum(torch.clamp_min(y, 0), wh[:, 1] - 1)
+    texel = atlas[index.long(), y.long(), x.long()]
+    return srgb_lut[texel.long()]

@@ -96,6 +96,17 @@ def mat34_apply_point(m_cols, p: V3) -> V3:
     )
 
 
+def mat34_apply_transposed_vec(m_cols, v: V3) -> V3:
+    """v M, the normal transform when M is world-to-object
+    (raytrace_tpu/ops/vec3.py:140)."""
+    (m00, m01, m02, _m03, m10, m11, m12, _m13, m20, m21, m22, _m23) = m_cols
+    return V3(
+        m00 * v.x + m10 * v.y + m20 * v.z,
+        m01 * v.x + m11 * v.y + m21 * v.z,
+        m02 * v.x + m12 * v.y + m22 * v.z,
+    )
+
+
 def refract(i: V3, n: V3, eta) -> V3:
     """GLSL refract (i, n unit); returns 0 on total internal reflection."""
     cos_i = -dot(i, n)

@@ -6,6 +6,7 @@
     python3 raytrace_tpu_torch/tools/chip_probe.py lights [TREE]
     python3 raytrace_tpu_torch/tools/chip_probe.py paged [TREE]
     python3 raytrace_tpu_torch/tools/chip_probe.py noise [TREE]
+    python3 raytrace_tpu_torch/tools/chip_probe.py image [TREE]
 
 TREE is the root of a checkout whose ``raytrace_tpu_torch`` is measured
 (default: the checkout holding this file), so two trees can be compared on
@@ -57,6 +58,15 @@ not with ``-m``, so that the package comes from TREE.
   depth 50) against the plain version (bit for bit or not; the plain
   version's seconds and peak device memory) and times it (kernel median
   of 3), and steps that batch through ``Renderer`` with defaults.
+- ``image``: builds the fused kernel and prints nvcc's register report;
+  holds each of its image forms against the plain version on the small
+  frames of ``tools/image_scenes.form_checks`` (a 640x320 texel-id image;
+  2 batches in one launch; bit for bit or not, two launches
+  byte-identical, the image launches counted), holds earth's full batch
+  (512x512, 4 spp, depth 50, its 5400x2700 image) against the plain
+  version (bit for bit or not, texel ids of the primary hits, the plain
+  version's seconds) and times it (kernel median of 3), steps that batch
+  through ``Renderer`` with defaults, and one batch of earth-motion-blur.
 """
 
 from __future__ import annotations
@@ -73,6 +83,9 @@ MB_SCENE = "final-one-weekend-motion-blur.json"
 
 
 def _med(fn, n):
+    """Median device ms of ``fn``: a ~2 ms spin kernel goes before each
+    start event, so the host's work inside ``fn`` does not count (as in
+    chip_smoke.py's _median_ms)."""
     import torch
 
     fn()
@@ -80,6 +93,7 @@ def _med(fn, n):
     for _ in range(n):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(4_000_000)
         a.record()
         fn()
         b.record()
@@ -407,6 +421,77 @@ def noise() -> None:
           sphere_sweep.LAUNCHES - before[1], "means", r.image().mean((0, 1)))
 
 
+def image() -> None:
+    import tempfile
+
+    import torch
+
+    from raytrace_tpu_torch import cli
+    from raytrace_tpu_torch.engine import Renderer
+    from raytrace_tpu_torch.ops import _build, megakernel, sphere_sweep
+    from raytrace_tpu_torch.tools import image_scenes as ims
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    print(sys.version.split()[0], torch.__version__, torch.version.cuda)
+    t0 = time.perf_counter()
+    megakernel.library()
+    print("build", time.perf_counter() - t0)
+    print(_build.library_path("megakernel").with_suffix(".log").read_text())
+    dev = torch.device("cuda:0")
+    tmp = tempfile.mkdtemp()
+    png = ims.texel_id_png(str(Path(tmp) / "small.png"), 640, 320)
+    for form, (doc, w, depth) in ims.form_checks(png).items():
+        r = Renderer(_doc_scene(doc, w, depth, 2), device=dev)
+        args = (r.static, r.scene, r._geometry(0), r.camera, 0, 2)
+        kw = dict(use_dof=r.use_dof, times=r.batch_times_dev)
+        before = megakernel.IMAGE_LAUNCHES
+        s1, t1 = megakernel.render_tile_mega(*args, **kw)
+        s2, t2 = megakernel.render_tile_mega(*args, **kw)
+        ref, rt = megakernel.megakernel_reference(*args, **kw)
+        torch.cuda.synchronize()
+        print(form, r.path, r.static.width, r.static.height, "depth", depth,
+              "repeat identical", torch.equal(s1, s2) and torch.equal(t1, t2),
+              "bitwise", torch.equal(s1, ref), torch.equal(t1, rt),
+              "maxdiff", (s1 - ref).abs().max().item(), "pixels > 1e-4",
+              ((s1 - ref).abs().amax(-1) > 1e-4).double().mean().item(),
+              "rays", int(t1.sum()), int(rt.sum()), "IMAGE_LAUNCHES +",
+              megakernel.IMAGE_LAUNCHES - before, "means",
+              s1.mean((0, 1)).tolist())
+
+    earth_json, mb_json = ims.write_earth_scenes(tmp)
+    r = Renderer(cli.load_scene(earth_json, ims.EARTH_WIDTH), device=dev)
+    args = (r.static, r.scene, r._geometry(0), r.camera, 0, 1)
+    kw = dict(use_dof=r.use_dof, times=r.batch_times_dev)
+    sums, traced = megakernel.render_tile_mega(*args, **kw)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    ref, rt = megakernel.megakernel_reference(*args, **kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    print("earth full batch", r.static.width, r.static.height,
+          "rays", int(traced.sum()), "kernel ms",
+          _med(lambda: megakernel.render_tile_mega(*args, **kw), 3),
+          "bitwise", torch.equal(sums, ref), torch.equal(traced, rt),
+          "maxdiff", (sums - ref).abs().max().item(), "pixels > 1e-4",
+          ((sums - ref).abs().amax(-1) > 1e-4).double().mean().item(),
+          "plain s", plain_s, "plain peak GiB",
+          torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    del sums, traced, ref, rt
+    before = (megakernel.IMAGE_LAUNCHES, sphere_sweep.LAUNCHES)
+    r = Renderer(cli.load_scene(earth_json, ims.EARTH_WIDTH), device=dev)
+    r.render_next_batch()
+    print("earth main path", r.path, "Mrays/s", r.stats.mrays_per_sec,
+          "rays", r.stats.rays_traced, "IMAGE_LAUNCHES +",
+          megakernel.IMAGE_LAUNCHES - before[0], "K1 +",
+          sphere_sweep.LAUNCHES - before[1], "means", r.image().mean((0, 1)))
+    r = Renderer(cli.load_scene(mb_json, ims.EARTH_WIDTH), device=dev)
+    r.render_next_batch()
+    print("earth-motion-blur", r.path, "Mrays/s", r.stats.mrays_per_sec,
+          "means", r.image().mean((0, 1)))
+
+
 def _paged_soup_tables(T, g, c, seed, dev):
     """T random small triangles in a 10-unit box put in the paged sweep's
     order, with a duplicate pair; their page tables and dense table."""
@@ -609,7 +694,7 @@ def chunks(tree: str) -> None:
 
 def main(argv) -> int:
     if len(argv) < 2 or argv[1] not in ("anim", "chunks", "tris", "lights",
-                                        "paged", "noise"):
+                                        "paged", "noise", "image"):
         print(__doc__, file=sys.stderr)
         return 2
     tree = str(Path(argv[2] if len(argv) > 2
@@ -624,7 +709,7 @@ def main(argv) -> int:
         chunks(tree)
     else:
         {"anim": anim, "tris": tris, "lights": lights, "paged": paged,
-         "noise": noise}[argv[1]]()
+         "noise": noise, "image": image}[argv[1]]()
     return 0
 
 

@@ -29,7 +29,12 @@ noise forms (each of its five forms with noise textures): bit for bit
 with their plain versions on the small docs of
 tools/noise_scenes.form_checks, and the Renderer's fused path on
 perlin-spheres against its wavefront: channel means within 2e-3, rays
-within 0.5%.
+within 0.5%.  The fused kernel's image forms (each form but the animated
+one, with and without noise, with image textures): bit for bit with their
+plain versions on the small docs of tools/image_scenes.form_checks, two
+launches byte-identical; the Renderer's fused path on the earth against
+its wavefront: channel means within 2e-3, rays within 0.5%; a moving image
+scene launches the image form once per batch.
 """
 
 import dataclasses
@@ -630,3 +635,90 @@ def test_renderer_takes_the_noise_kernel_on_the_card(dev):
                                atol=2e-3)
     assert abs(r.stats.rays_traced - w.stats.rays_traced) <= (
         0.005 * w.stats.rays_traced)
+
+
+# ---- image textures: the fused kernel's image forms -------------------------
+
+IMAGE_FORMS = ["static", "tris", "lights", "tris+lights", "static+noise",
+               "tris+noise", "lights+noise", "tris+lights+noise"]
+
+
+def _image_png(tmp_path):
+    from raytrace_tpu_torch.tools import image_scenes
+
+    return image_scenes.texel_id_png(str(tmp_path / "map.png"), 640, 320)
+
+
+def _doc_cs(doc, w, depth=None, batches=None):
+    cs = compile_scene(SceneFile.from_json_dict(doc), width=w)
+    return dataclasses.replace(cs, render=dataclasses.replace(
+        cs.render, max_ray_depth=depth or cs.render.max_ray_depth,
+        sample_batches=batches or cs.render.sample_batches))
+
+
+@pytest.mark.parametrize("form", IMAGE_FORMS)
+def test_image_fused_kernel_matches_plain_bit_for_bit(dev, form, tmp_path):
+    from raytrace_tpu_torch.tools import image_scenes
+
+    doc, _, depth = image_scenes.form_checks(_image_png(tmp_path))[form]
+    r = Renderer(_doc_cs(doc, 48, depth, 2), device=dev)
+    assert r.use_megakernel and r.static.flags.has_image
+    args = (r.static, r.scene, r._geometry(0), r.camera, 0, 2)
+    kw = dict(use_dof=r.use_dof, times=r.batch_times_dev)
+    before = megakernel.LAUNCHES, megakernel.IMAGE_LAUNCHES
+    sums, traced = megakernel.render_tile_mega(*args, **kw)
+    again, traced2 = megakernel.render_tile_mega(*args, **kw)
+    torch.cuda.synchronize()
+    assert (megakernel.LAUNCHES, megakernel.IMAGE_LAUNCHES) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(sums, again) and torch.equal(traced, traced2)
+    ref, ref_traced = megakernel.megakernel_reference(*args, **kw)
+    assert torch.isfinite(sums).all() and float(sums.max()) > 0.0
+    assert torch.equal(sums, ref) and torch.equal(traced, ref_traced)
+
+
+def test_image_kernel_needs_the_packed_atlas(dev, tmp_path):
+    from raytrace_tpu_torch.tools import image_scenes
+
+    r = Renderer(_doc_cs(image_scenes.earth_doc(_image_png(tmp_path)), 16, 4,
+                         1), device=dev)
+    geom = r._geometry(0)._replace(atlas_words=None)
+    with pytest.raises(ValueError, match="atlas_words"):
+        megakernel.render_tile_mega(r.static, r.scene, geom, r.camera, 0, 1,
+                                    use_dof=r.use_dof)
+
+
+def test_renderer_takes_the_image_kernel_on_the_card(dev, tmp_path):
+    from raytrace_tpu_torch.tools import image_scenes
+
+    cs = _doc_cs(image_scenes.earth_doc(_image_png(tmp_path)), 64, 8, 2)
+    before = (megakernel.IMAGE_LAUNCHES, sphere_sweep.LAUNCHES)
+    r = Renderer(cs, device=dev)
+    img = r.render_all()
+    assert r.path == "fused"
+    assert (megakernel.IMAGE_LAUNCHES, sphere_sweep.LAUNCHES) == (
+        before[0] + 1, before[1])
+    w = Renderer(cs, device=dev, use_megakernel=False)
+    w_img = w.render_all()
+    assert sphere_sweep.LAUNCHES > before[1]
+    np.testing.assert_allclose(img.mean(axis=(0, 1)), w_img.mean(axis=(0, 1)),
+                               atol=2e-3)
+    assert abs(r.stats.rays_traced - w.stats.rays_traced) <= (
+        0.005 * w.stats.rays_traced)
+
+
+def test_moving_image_scene_launches_once_per_batch_on_the_card(dev,
+                                                                tmp_path):
+    from raytrace_tpu_torch.tools import image_scenes
+
+    cs = _doc_cs(image_scenes.earth_motion_blur_doc(_image_png(tmp_path)),
+                 32, 8, 3)
+    before = (megakernel.IMAGE_LAUNCHES, megakernel.ANIM_LAUNCHES)
+    r = Renderer(cs, device=dev)
+    img = r.render_all()
+    assert r.path == "fused_per_batch"
+    assert (megakernel.IMAGE_LAUNCHES, megakernel.ANIM_LAUNCHES) == (
+        before[0] + 3, before[1])
+    c = Renderer(cs, device="cpu", use_megakernel=True)
+    np.testing.assert_allclose(img.mean(axis=(0, 1)),
+                               c.render_all().mean(axis=(0, 1)), atol=1e-2)

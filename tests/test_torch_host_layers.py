@@ -22,6 +22,7 @@ from raytrace_tpu_torch.engine import arrays
 from raytrace_tpu_torch.models import bvh_build, compile_scene
 from raytrace_tpu_torch.models.compile import CompiledScene
 from raytrace_tpu_torch.scene_file import SceneFile
+from raytrace_tpu_torch.tools import image_scenes
 from raytrace_tpu_torch.tools.chacha import ChaCha20Rng
 from raytrace_tpu_torch.utils import image
 
@@ -56,10 +57,19 @@ def _assert_same(j, t, where="cs"):
         assert type(t) is type(j) and t == j, (where, j, t)
 
 
-def _feature_doc():
-    """Every family compile_scene handles apart from images and OBJ files:
-    quads, a box, a triangle, a checker, a noise texture, a diffuse light,
-    metal and dielectric, a moving and a rotated instance."""
+@pytest.fixture(scope="module")
+def png(tmp_path_factory):
+    """A 48x24 texel-id image (tools/image_scenes.py) for the image
+    texture of _feature_doc."""
+    return image_scenes.texel_id_png(
+        str(tmp_path_factory.mktemp("maps") / "map.png"), 48, 24)
+
+
+def _feature_doc(png):
+    """Every family compile_scene handles apart from OBJ files: quads, a
+    box, a triangle, a checker (whose odd side is an image), a noise
+    texture, an image texture (``png``), a diffuse light, metal and
+    dielectric, a moving and a rotated instance."""
     cam = json.load(open(cli.DEFAULT_SCENE))["cameras"]
     quad = lambda name, y, mat: {"quad": {  # noqa: E731
         "name": name, "points": [[-1, y, -1], [1, y, -1], [1, y, 1],
@@ -73,13 +83,15 @@ def _feature_doc():
             {"constant": {"name": "red", "rgb": [0.7, 0.1, 0.1]}},
             {"constant": {"name": "fuzz", "rgb": [0.2, 0.2, 0.2]}},
             {"checker": {"name": "check", "scale": 0.5, "even": "white",
-                         "odd": "red"}},
+                         "odd": "map"}},
             {"noise": {"name": "marble", "scale": 4.0}},
+            {"image": {"name": "map", "path": png}},
         ],
         "materials": [
             {"lambertian": {"name": "plain", "albedo": "white"}},
             {"lambertian": {"name": "checked", "albedo": "check"}},
             {"lambertian": {"name": "noisy", "albedo": "marble"}},
+            {"lambertian": {"name": "mapped", "albedo": "map"}},
             {"metal": {"name": "steel", "albedo": "red", "fuzz": "fuzz"}},
             {"dielectric": {"name": "glass", "refraction_index": 1.5}},
             {"diffuse_light": {"name": "lamp", "emit": "white"}},
@@ -91,6 +103,9 @@ def _feature_doc():
             {"uv_sphere": {"name": "marble", "center": [3, -1, 0],
                            "radius": 1.0, "rings": 8, "segments": 16,
                            "material": "noisy"}},
+            {"uv_sphere": {"name": "globe", "center": [-3, -1, 0],
+                           "radius": 1.0, "rings": 8, "segments": 16,
+                           "material": "mapped"}},
             {"triangle": {"name": "tri", "points": [[0, 0, 0], [1, 0, 0],
                                                     [0, 1, 0]],
                           "normal": [0, 0, 1],
@@ -105,6 +120,7 @@ def _feature_doc():
             {"name": "ball", "transform": {"animated": [
                 {"translate": [0, 0, 0]}, {"translate": [0, -0.5, 0.2]}]}},
             {"name": "marble"},
+            {"name": "globe"},
             {"name": "tri", "transform": {"static": {
                 "rotate": {"axis": [0, 1, 0], "degrees": 30.0}}}},
             {"name": "floor", "transform": {"static": {"scale": [4, 1, 4]}}},
@@ -140,17 +156,22 @@ def test_compile_scene_matches_jax(name, size):
     _assert_same(jcs, cs)
 
 
-def test_compile_scene_matches_jax_on_every_feature():
-    jcs, cs = _both(_feature_doc(), 48, 27)
+def test_compile_scene_matches_jax_on_every_feature(png):
+    jcs, cs = _both(_feature_doc(png), 48, 27)
     assert cs.num_triangles > 0 and cs.light_count > 0 and cs.any_animated
     assert cs.noise_scale.any() and cs.checker_scale.any()
+    # The image: its atlas bytes and size as the JAX package decodes them.
+    assert cs.atlas.shape == (1, 24, 48, 3) and cs.atlas.dtype == np.uint8
+    np.testing.assert_array_equal(cs.atlas, jcs.atlas)
+    np.testing.assert_array_equal(cs.atlas_wh, jcs.atlas_wh)
+    assert tuple(cs.atlas_wh[0]) == (48, 24)
     _assert_same(jcs, cs)
 
 
 @pytest.mark.parametrize("source", SCENES + ["features"])
-def test_scene_file_json_round_trip_matches_jax(source):
+def test_scene_file_json_round_trip_matches_jax(source, png):
     if source == "features":
-        doc = _feature_doc()
+        doc = _feature_doc(png)
     else:
         doc = json.load(open(os.path.join(ASSETS, source)))
     jdoc = JaxSceneFile.from_json_dict(doc).to_json_dict()
@@ -190,8 +211,8 @@ def test_instance_motion_matches_jax():
             jbvh_build._instance_matrix_at(jcs.inst_t0, jcs.inst_t1, t))
 
 
-def test_from_jax_compiled_round_trips():
-    jcs, cs = _both(_feature_doc(), 32, 18)
+def test_from_jax_compiled_round_trips(png):
+    jcs, cs = _both(_feature_doc(png), 32, 18)
     carried = arrays.from_jax_compiled(jcs)
     assert isinstance(carried, CompiledScene)
     assert type(carried.render) is type(cs.render)

@@ -1,4 +1,4 @@
-"""Fat-row shading (constant, checker and noise slots) and the no-light
+"""Fat-row shading (constant, checker, noise and image slots) and the no-light
 NEE branch: the port against raytrace_tpu.ops.shading / .nee on identical
 rows, RNG states and hit data (numpy-seeded).  Integer outputs and RNG
 states match exactly; floats within atol=1e-5 (sin/cos and XLA's FMA
@@ -12,7 +12,8 @@ import torch
 from raytrace_tpu.engine.arrays import upload_scene as jax_upload
 from raytrace_tpu.models import compile_scene as jax_compile_scene
 from raytrace_tpu.models.compile import MAT_TYPE_DIFFUSE_LIGHT
-from raytrace_tpu.models.shading_table import MODE_CHECKER, MODE_NOISE
+from raytrace_tpu.models.shading_table import (MODE_CHECKER, MODE_IMAGE,
+                                               MODE_NOISE)
 from raytrace_tpu.ops import nee as jnee
 from raytrace_tpu.ops import shading as jshading
 from raytrace_tpu.ops import textures as jtextures
@@ -26,6 +27,7 @@ from raytrace_tpu_torch.ops.materials import (COSINE_PDF, LIGHT_PDF, NO_PDF,
                                               SPHERE_PDF)
 from raytrace_tpu_torch.ops.textures import TexFlags
 from raytrace_tpu_torch.ops.vec3 import V3
+from raytrace_tpu_torch.tools.image_scenes import texel_ids
 
 torch.set_num_threads(1)
 
@@ -128,47 +130,83 @@ def _noise_rows(rows, seed):
     return rows
 
 
-def _scatter_both(x, rows, flags):
-    zeros = jnp.zeros(N, jnp.float32)
+def _image_rows(rows, seed):
+    """``rows`` with image slots: a third of the albedo slots and half of
+    the emission slots become image 0, their base rgb zero as the shading
+    table writes it."""
+    g = np.random.default_rng(seed)
+    rows = rows.copy()
+    n = len(rows)
+    albedo = (g.random(n) < 1 / 3) & (rows[:, 11] == 0.0)
+    rows[albedo, 11], rows[albedo, 12] = MODE_IMAGE, 0.0
+    rows[albedo, 2:5] = 0.0
+    emit = (rows[:, 0] == MAT_TYPE_DIFFUSE_LIGHT) & (g.random(n) < 0.5)
+    rows[emit, 15], rows[emit, 16] = MODE_IMAGE, 0.0
+    rows[emit, 8:11] = 0.0
+    assert albedo.any() and emit.any()
+    return rows
+
+
+def _with_atlas(jscene):
+    """The JAX scene arrays with a 64x32 texel-id image as their atlas."""
+    atlas = texel_ids(64, 32)[None]
+    return jscene._replace(atlas=jnp.asarray(atlas),
+                           atlas_wh=jnp.asarray([[64, 32]], jnp.int32))
+
+
+def _scatter_both(x, rows, flags, jscene=None, uv=None):
+    if uv is None:
+        uv = np.zeros((2, N), np.float32)
+    jscene = x["jscene"] if jscene is None else jscene
     jout = jshading.scatter_and_emit_v3(
-        jnp.asarray(x["state"].astype(np.uint32)), x["jscene"],
+        jnp.asarray(x["state"].astype(np.uint32)), jscene,
         jtextures.TexFlags(*flags), jnp.asarray(rows), _jv(x["p"]),
-        _jv(x["normal"]), jnp.asarray(x["front"]), zeros, zeros, _jv(x["wrd"]))
+        _jv(x["normal"]), jnp.asarray(x["front"]), jnp.asarray(uv[0]),
+        jnp.asarray(uv[1]), _jv(x["wrd"]))
     tout = tshading.scatter_and_emit_v3(
         torch.tensor(x["state"].astype(np.int64)), flags, torch.tensor(rows),
-        _tv(x["p"]), _tv(x["normal"]), torch.tensor(x["front"]), _tv(x["wrd"]))
+        _tv(x["p"]), _tv(x["normal"]), torch.tensor(x["front"]), _tv(x["wrd"]),
+        scene=from_jax_scene(jscene), hit_u=torch.tensor(uv[0]),
+        hit_v=torch.tensor(uv[1]))
     return jout, tout
 
 
 @pytest.mark.parametrize("flags", [TexFlags(True, False, False),
                                    TexFlags(False, True, True)])
 def test_image_and_noise_textures_raise(inputs, flags):
-    """Image textures still raise.  Noise textures are ported: with noise
-    slots in the rows (albedo, a checker's side, emission), the port's
-    scatter_and_emit_v3 matches JAX's (floats within ATOL; the marble of
-    the same hit point is the same turbulence on both sides, and each
-    side's sin rounds on its own)."""
+    """Neither texture family raises any more: both are ported.  With image
+    slots in the rows (the albedo and the emission of a scene whose atlas
+    is a texel-id image, at random UVs) or noise slots (albedo, a checker's
+    side, emission), the port's scatter_and_emit_v3 matches JAX's (floats
+    within ATOL; an image slot's colour is the same table entry on both
+    sides; the marble of the same hit point is the same turbulence on both
+    sides, and each side's sin rounds on its own)."""
     x = inputs
     if flags.has_image:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tshading.scatter_and_emit_v3(
-                torch.tensor(x["state"].astype(np.int64)), flags,
-                torch.tensor(x["rows"]), _tv(x["p"]), _tv(x["normal"]),
-                torch.tensor(x["front"]), _tv(x["wrd"]))
-        return
-    rows = _noise_rows(x["rows"], seed=1)
-    (js, jrec, jemit), (ts, trec, temit) = _scatter_both(x, rows, flags)
+        rows = _image_rows(x["rows"], seed=2)
+        uv = np.random.default_rng(3).uniform(-1.5, 2.5, (2, N)).astype(
+            np.float32)
+        (js, jrec, jemit), (ts, trec, temit) = _scatter_both(
+            x, rows, flags, _with_atlas(x["jscene"]), uv)
+        mode = MODE_IMAGE
+    else:
+        rows = _noise_rows(x["rows"], seed=1)
+        (js, jrec, jemit), (ts, trec, temit) = _scatter_both(x, rows, flags)
+        mode = MODE_NOISE
     _exact(js, ts)
     for name in ("is_scattered", "mat_pdf_type", "skip_pdf"):
         _exact(getattr(jrec, name), getattr(trec, name))
     _close(jrec.attenuation, trec.attenuation)
     _close(jemit, temit)
-    # The noise slots took the marble, not their zero base colour.
-    lamb = (rows[:, 0] == 1) & (rows[:, 11] == MODE_NOISE)
-    assert (trec.attenuation.x.numpy()[lamb] > 0.0).mean() > 0.99
+    # The image or noise slots took texels or the marble, not their zero
+    # base colour (a texel is dark in all three channels only at one of the
+    # image's 2048 texels).
+    lum = lambda v: v.x.numpy() + v.y.numpy() + v.z.numpy()  # noqa: E731
+    lamb = (rows[:, 0] == 1) & (rows[:, 11] == mode)
+    assert (lum(trec.attenuation)[lamb] > 0.0).mean() > 0.99
     light = ((rows[:, 0] == MAT_TYPE_DIFFUSE_LIGHT)
-             & (rows[:, 15] == MODE_NOISE) & x["front"])
-    assert (temit.x.numpy()[light] > 0.0).mean() > 0.99
+             & (rows[:, 15] == mode) & x["front"])
+    assert (lum(temit)[light] > 0.0).mean() > 0.99
 
 
 def test_no_light_nee(inputs):

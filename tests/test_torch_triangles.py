@@ -164,9 +164,9 @@ def test_gate_and_triangle_ceiling(g, n, fused, renders):
 
 
 def test_other_gates_still_hold_triangle_scenes_back():
-    """Lights and noise textures no longer hold a triangle scene back (the
-    fused kernel's lit and noise forms take it); image textures still
-    do."""
+    """Lights, noise and image textures no longer hold a triangle scene
+    back (the fused kernel's lit, noise and image forms take it); nothing
+    else in the gate reads the texture families."""
     lit = dataclasses.replace(_static(), has_lights=True)
     assert megakernel.megakernel_supported(lit)
     assert unsupported_feature(lit) is None
@@ -175,5 +175,5 @@ def test_other_gates_still_hold_triangle_scenes_back():
     assert unsupported_feature(noisy) is None
     static = dataclasses.replace(
         noisy, flags=noisy.flags._replace(has_image=True))
-    assert not megakernel.megakernel_supported(static)
-    assert "Image textures" in unsupported_feature(static)
+    assert megakernel.megakernel_supported(static)
+    assert unsupported_feature(static) is None
