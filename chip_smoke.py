@@ -28,7 +28,12 @@ launch per batch, and the wavefront with K1); and final-one-weekend with
 --mesh-geometry (its 488 uv spheres tessellated: 2,033,920 triangles, 125
 pages of the paged sweep K3; 1200x675, 4 spp, depth 50: the paged
 wavefront), with its motion-blur twin the same way (page tables built
-per batch).  Every phase
+per batch); and the sphere stress scenes of
+raytrace_tpu_torch/tools/stress_scenes.py, final-one-weekend's small
+spheres tiled 2 x 2 (stress-4x: 1,940 spheres, 121 clusters of 16) and 6 x
+6 cut to 16,384 (stress-16k: 128 clusters of 128), 1024x576, 4 spp x 25,
+depth 50: K4's clustered sphere form, which final-one-weekend and its
+motion-blur twin take too, and the wavefront with K1.  Every phase
 is checked; any failure raises and the script exits non-zero without
 printing a result.  No path runs at a cut depth.  Phases:
 
@@ -38,10 +43,12 @@ printing a result.  No path runs at a cut depth.  Phases:
    triangle sweep K2 (csrc/tri_sweep.cu), the fused bounce kernel K4
    (csrc/megakernel.cu: static, animated, triangle and the two lit
    forms, each without and with noise, and each but the animated one
-   with images) and the paged triangle sweep K3 (csrc/paged_tri.cu), with
+   with images; each of these eighteen dense forms and its clustered
+   sphere twin) and the paged triangle sweep K3 (csrc/paged_tri.cu), with
    nvcc's register report, a line per K4 form and K3's; the ten forms
    without images must keep the registers and spills they had before the
-   image forms (FORMS_BEFORE);
+   image forms (FORMS_BEFORE), and the eight image forms those they had
+   before the clustered forms (IMAGE_FORMS_BEFORE);
 3. K1 against the plain PyTorch sweep: the 3,240,000 primary rays of the
    main path and 2^20 random rays with an alive mask (ids equal, and ids
    equal with t within rtol=1e-3, atol=1e-3, each on >= 99.9% of rays),
@@ -53,10 +60,16 @@ printing a result.  No path runs at a cut depth.  Phases:
    sweeps): at 96x54, depth 8, 2 batches fused (rays within 0.5%,
    per-sample channel means within 1e-3, at most 5% of pixels above 1e-4)
    and at the main path's 1200x675, 4 spp, depth 50, one batch (rays
-   within 0.5%, means within 2e-3); two launches give the same bytes;
-   both timed with CUDA events; then K4's animated form the same way on
-   the motion-blur scene, at 96x54/depth 8/k=2 and at 1024x576/depth
-   50/k=1; then its triangle form, bit for bit at 96x54/depth 8/k=2 on
+   within 0.5%, means within 2e-3, and bit for bit: the clustered static
+   form); two launches give the same bytes; both timed with CUDA events,
+   and the dense form on the same batch; the clustered traversal's work
+   counted for the bound on 2^17 of the wavefront's rays of the batch;
+   wherever a scene in clusters is held to the plain version (here and
+   below, up to the dense gate's 4096 spheres), its dense form (the
+   layout dropped) is too, bit for bit, two launches byte-identical;
+   then K4's animated form the same way on the motion-blur scene, at
+   96x54/depth 8/k=2 and at 1024x576/depth 50/k=1 (bit for bit); then
+   its triangle form, bit for bit at 96x54/depth 8/k=2 on
    tri-stress at k=1 and k=4 and on the triangle fixture, and at
    tri-stress's full size against the plain version and against the
    wavefront with K2 on the same batch (rays within 0.5%, means within
@@ -79,7 +92,18 @@ printing a result.  No path runs at a cut depth.  Phases:
    version (and two launches byte-identical) on the small frames of
    image_scenes.form_checks (a 640x320 texel-id image; k=2), and earth's
    full batch bit for bit with the plain version (both timed; the plain
-   version run again counts the image hits of the bound); then K3 bit
+   version run again counts the image hits of the bound); then K4's
+   eighteen clustered sphere forms, each bit for bit with its plain
+   (dense) version (and two launches byte-identical, the clustered
+   launches counted) on the small docs of stress_scenes.
+   cluster_form_checks (final-one-weekend's 488 spheres, or its
+   motion-blur twin's, with a triangle, a light sphere or quad, a marble
+   ground and an image albedo; 96x54, depth 8, k=2); then stress-4x and
+   stress-16k (compile and Renderer seconds), stress-16k first at 128x72,
+   depth 50, k=1, and each full batch bit for bit with the plain version
+   (both timed, stress-4x's dense form too) and against the wavefront
+   with K1 on the same batch (rays within 0.5%, means within 2e-3),
+   whose rays count the clustered work of the bound; then K3 bit
    for bit with its plain version and with K2 (two launches
    byte-identical) on random multi-page soups with a partial
    last page and an alive mask (g = c = 128, and g = 8, c = 16), on all
@@ -125,15 +149,20 @@ printing a result.  No path runs at a cut depth.  Phases:
    (240x135, depth 50, one batch) of its soup on the paged and on the
    dense sweep, byte-identical with equal ray counts; one batch of the
    motion-blur mesh (tables built once for the batch), the image checks
-   and the same reduced-frame identity;
+   and the same reduced-frame identity; final-one-weekend and its
+   motion-blur twin must count every K4 launch as clustered; then
+   stress-4x's and stress-16k's Renderer with defaults, which must take
+   the fused path in K4's clustered form (K1 not launched), Mrays/s over
+   batches 1-3 stepped and in render_all (three launches), and the image
+   checks;
 7. checkpoint round trips on both paths, with the same chunk boundaries,
    and on cornell-style's fused path: the resumed image must be
    byte-identical to the uninterrupted render;
 8. the CLI renders every batch of each scene to a PNG (fused chunks;
    the mesh scene with --mesh-geometry on the paged wavefront);
 9. one fused chunk of each sphere scene, tri-stress's batch, a chunk of
-   each light scene, perlin-spheres' batch, a chunk of earth and one
-   batch of the mesh scene under torch.profiler
+   each light scene, perlin-spheres' batch, a chunk of earth and of
+   stress-16k and one batch of the mesh scene under torch.profiler
    (one session): the device's busy share of the traced window's own
    device timeline and of the untraced wall, the fused kernel's (or
    K3's) share of device time and device operations per batch.
@@ -143,7 +172,8 @@ bound: the larger of its FP32 operations over 67 TFLOP/s and its bytes
 over 3.35 TB/s, counted from this run's inputs and the scene's real
 spheres, not the table's padding rows; K4's triangle, lit, noise and
 image forms' and K3's are estimates, see _k4_tris_bound, _noise_bound,
-_image_bound and _k3_full), the last line
+_image_bound and _k3_full; its clustered forms' count the traversal's
+work on a subset of the rays, _cluster_bound), the last line
 {"ok": true, "device": {...}}.
 """
 
@@ -200,6 +230,16 @@ TRI_SUBSET = 1 << 18
 # min over axes (4), the pruned best t (2).
 FLOPS_PER_TRI_TEST = 46
 FLOPS_PER_PRETEST = 24
+# One sphere cluster's pretest: the box pretest above, its rounding margin
+# (|o| + reach)^2 / r_min scaled (3) and the box widened by it (6).
+FLOPS_PER_SPHERE_PRETEST = FLOPS_PER_PRETEST + 9
+# The sphere stress scenes (tools/stress_scenes.py): spheres, spheres per
+# cluster and clusters; and the rays on which K4's clustered traversal
+# work is counted for its bound.
+STRESS_LAYOUT = {"stress-4x": (1940, 16, 121), "stress-16k": (16384, 128, 128)}
+STRESS_SIZE = (1024, 576)
+STRESS_SMALL = (128, 72)
+CLUSTER_SUBSET = 1 << 17
 # FP32 operations of one NEE step of K4's lit form after a scattering hit,
 # counted from csrc/megakernel.cu as above (the cheaper direction, the
 # light's; RNG words and compares not counted): the alias pick 1, three
@@ -232,16 +272,26 @@ FLOPS_PER_IMAGE_READ = 25 + 11 + 5 + 5 + 8
 BYTES_PER_IMAGE_READ = 32
 # Registers and spill-store bytes of K4's forms without images, as the
 # parent of the image forms compiled them (nvcc -Xptxas -v; PERF.md, PR
-# 7): they must compile as before.
+# 7), and of its image forms, as the parent of the clustered sphere forms
+# compiled them (PERF.md): the dense forms must compile as before.
 FORMS_BEFORE = {"static": (61, 0), "anim": (62, 0), "tris": (72, 4),
                 "lights": (72, 0), "tris+lights": (72, 4),
                 "static+noise": (72, 8), "anim+noise": (72, 8),
                 "tris+noise": (72, 28), "lights+noise": (72, 8),
                 "tris+lights+noise": (72, 28)}
+IMAGE_FORMS_BEFORE = {"static+image": (64, 0), "tris+image": (72, 4),
+                      "lights+image": (64, 0), "tris+lights+image": (72, 4),
+                      "static+noise+image": (72, 8),
+                      "tris+noise+image": (72, 28),
+                      "lights+noise+image": (72, 8),
+                      "tris+lights+noise+image": (72, 28)}
 # The image forms: each form but the animated one, with and without noise.
-IMAGE_FORMS = sorted(f + "+image" for f in FORMS_BEFORE
-                     if not f.startswith("anim"))
-K4_FORMS = sorted(list(FORMS_BEFORE) + IMAGE_FORMS)
+IMAGE_FORMS = sorted(IMAGE_FORMS_BEFORE)
+DENSE_FORMS = sorted(list(FORMS_BEFORE) + IMAGE_FORMS)
+# The clustered sphere forms: the twin of each dense form
+# (tools/stress_scenes.cluster_form_checks names them without the suffix).
+CLUSTER_FORMS = sorted(f + "+clusters" for f in DENSE_FORMS)
+K4_FORMS = sorted(DENSE_FORMS + CLUSTER_FORMS)
 # The light scenes: their full sizes, and the widths of the small frames
 # that hold K4's lit forms against the plain version at depth 50, k=2.
 LIGHT_SMALL = {"cornell-style": 128, "sphere-light-962": 128,
@@ -326,23 +376,106 @@ def _k4_tris_bound(static, geom, work, width: int, height: int, scene=None):
     return _bound(flops, nbytes)
 
 
+def _cluster_work(wave_r, geom, times=None):
+    """Render batch 0 of ``wave_r``'s scene on the wavefront (K1), as
+    render_next_batch does, capturing every bounce's alive rays; count on
+    CLUSTER_SUBSET of them K4's clustered traversal against ``geom`` (the
+    fused path's geometry, moved to times[0] when it moves) with
+    ops/megakernel.sphere_cluster_sweep_reference.  Returns (image [H, W,
+    3] on the host, rays traced, per-ray work: prefix sphere tests, box
+    tests and sphere tests in clusters that pass)."""
+    import torch
+
+    from raytrace_tpu_torch.engine import wavefront
+    from raytrace_tpu_torch.ops import megakernel
+    from raytrace_tpu_torch.ops.vec3 import V3
+
+    static, scene = wave_r.static, wave_r.scene
+    wave_geom = wave_r._geometry(0)
+    trace = wavefront.make_trace_fn(static, scene, wave_geom)
+    seen = []
+
+    def capture(o, d, alive):
+        seen.append(torch.stack([*o, *d])[:, alive])
+        return trace(o, d, alive)
+
+    tiles, rays = [], 0
+    for row0 in range(0, static.height, wave_r.rows_per_tile):
+        tile, tr = wavefront.render_tile(static, scene, wave_r.camera,
+                                         capture, wave_geom, 0, row0,
+                                         wave_r.rows_per_tile,
+                                         wave_r.use_dof)
+        tiles.append(tile)
+        rays += tr
+    img = torch.cat(tiles, dim=0)[:static.height].cpu().numpy()
+    allr = torch.cat(seen, dim=1)
+    del seen
+    gen = torch.Generator().manual_seed(0)
+    sel = torch.randperm(allr.shape[1], generator=gen)[:CLUSTER_SUBSET].to(
+        allr.device)
+    sub = allr[:, sel]
+    o, d = V3(*sub[0:3]), V3(*sub[3:6])
+    n_prefix, G, _ = megakernel.sphere_cluster_layout(static)
+    work = {}
+    megakernel.sphere_cluster_sweep_reference(
+        o, d, geom.sph_table8, geom.sph_boxes, n_prefix, G,
+        dtab8=geom.sph_dtab8, t=None if times is None else times[0],
+        work=work)
+    per_ray = {k: work[k] / work["rays"] for k in ("prefix_tests",
+                                                  "box_tests",
+                                                  "sphere_tests")}
+    return img, rays, per_ray
+
+
+def _cluster_bound(geom, per_ray, traced_sum: int, width: int, height: int,
+                   n_times: int):
+    """K4's bound for one launch of a clustered sphere form, from the
+    per-ray work ``_cluster_work`` counted: every bounce tests the prefix,
+    every cluster box and the spheres of the clusters that pass; bytes
+    are the tables, boxes, rows, parameters (and motion rows and times)
+    read once and the sums and counts written once."""
+    anim = geom.sph_dtab8 is not None
+    per_test = FLOPS_PER_TEST_ANIM if anim else FLOPS_PER_TEST
+    flops = traced_sum * ((per_ray["prefix_tests"] + per_ray["sphere_tests"])
+                          * per_test
+                          + per_ray["box_tests"] * FLOPS_PER_SPHERE_PRETEST)
+    nbytes = (geom.sph_table8.numel() + geom.sph_boxes.numel()
+              + geom.prim_rows.numel() + 40) * 4
+    if anim:
+        nbytes += (geom.sph_dtab8.numel() + n_times) * 4
+    nbytes += width * height * (3 * 4 + 4)
+    return _bound(flops, nbytes)
+
+
+def _dense_ms(args, kw):
+    """The dense form's median time (5 launches) on the same batch: the
+    static with its cluster layout dropped, which the dense sweep takes
+    (_compare_fused has held it to the plain version)."""
+    from raytrace_tpu_torch.ops import megakernel
+
+    flat = (dataclasses.replace(args[0], sph_prefix=0),) + args[1:]
+    return _median_ms(lambda: megakernel.render_tile_mega(*flat, **kw), 5)
+
+
 def _ptxas_forms(log: str):
     """[(form, registers, spill store bytes)] of each K4 instantiation in
     nvcc's -Xptxas=-v report (megakernel<kAnim, kTris, kLights, kNoise,
-    kImage>; a noise form's name ends in "+noise", an image form's in
-    "+image")."""
+    kImage, kSphClusters>; a noise form's name has "+noise", an image
+    form's "+image", a clustered sphere form's ends in "+clusters")."""
     forms = []
     names = {("0", "0", "0"): "static", ("1", "0", "0"): "anim",
              ("0", "1", "0"): "tris", ("0", "0", "1"): "lights",
              ("0", "1", "1"): "tris+lights"}
     for block in log.split("Compiling entry function")[1:]:
-        m = re.search(r"megakernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", block)
+        m = re.search(r"megakernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E",
+                      block)
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores", block)
         if m and regs and spill:
             name = names.get(m.groups()[:3], str(m.groups()))
             forms.append((name + ("+noise" if m.group(4) == "1" else "")
-                          + ("+image" if m.group(5) == "1" else ""),
+                          + ("+image" if m.group(5) == "1" else "")
+                          + ("+clusters" if m.group(6) == "1" else ""),
                           int(regs.group(1)), int(spill.group(1))))
     return forms
 
@@ -743,14 +876,58 @@ def _scene(cs, width, height, depth=None, batches=None):
     return dataclasses.replace(cs, render=render)
 
 
+K4_COUNTS = ("LAUNCHES", "ANIM_LAUNCHES", "TRI_LAUNCHES", "LIGHT_LAUNCHES",
+             "NOISE_LAUNCHES", "IMAGE_LAUNCHES", "SPHERE_CLUSTER_LAUNCHES")
+
+
+def _hold_dense(label, args, kw, ref, ref_traced, card):
+    """The dense form of a scene in clusters, on the same batch with the
+    cluster layout dropped: launched as the dense form, two launches
+    byte-identical, and its sums and traced counts byte-equal to the plain
+    version's (``ref``, ``ref_traced``).  Skipped where the dense gate
+    refuses the scene (above its sphere cap).  Its launches are taken off
+    K4's counts again, so that the caller counts the clustered ones."""
+    import torch
+
+    from raytrace_tpu_torch.ops import megakernel
+
+    flat = dataclasses.replace(args[0], sph_prefix=0)
+    if not megakernel.megakernel_supported(flat):
+        print(f"dense form {label}: not held (the dense gate refuses "
+              f"{flat.num_spheres} spheres)")
+        return
+    counts = {name: getattr(megakernel, name) for name in K4_COUNTS}
+    sums, traced = megakernel.render_tile_mega(flat, *args[1:], **kw)
+    again, traced2 = megakernel.render_tile_mega(flat, *args[1:], **kw)
+    torch.cuda.synchronize()
+    launched = (megakernel.LAUNCHES - counts["LAUNCHES"],
+                megakernel.SPHERE_CLUSTER_LAUNCHES
+                - counts["SPHERE_CLUSTER_LAUNCHES"])
+    for name, n in counts.items():
+        setattr(megakernel, name, n)
+    repeat = torch.equal(sums, again) and torch.equal(traced, traced2)
+    bitwise = torch.equal(sums, ref) and torch.equal(traced, ref_traced)
+    print(f"dense form {label}: bit for bit with the plain version: "
+          f"{bitwise}; repeat launch byte-identical: {repeat} ({card})")
+    if launched != (2, 0):
+        raise AssertionError(f"{label}: the dense form was not launched "
+                             f"(K4 +{launched[0]}, clustered "
+                             f"+{launched[1]})")
+    if not (repeat and bitwise):
+        raise AssertionError(f"{label}: the dense form and the plain "
+                             f"version disagree")
+
+
 def _compare_fused(label, renderer, k, mean_tol, pixel_share, card,
                    bitwise_required=False):
     """K4 vs its plain version on batches 0..k-1 of ``renderer``'s frame.
     Rays within 0.5%, per-sample channel means within mean_tol, and (when
     pixel_share is set) at most that share of pixels with a max-channel
     difference above 1e-4, or bit for bit when ``bitwise_required``; two
-    launches must give the same bytes.  Returns (max |sums difference|,
-    launch args, launch keywords, rays, plain seconds)."""
+    launches must give the same bytes.  A scene in clusters also has its
+    dense form held to the plain version bit for bit (_hold_dense).
+    Returns (max |sums difference|, launch args, launch keywords, rays,
+    plain seconds)."""
     import torch
 
     from raytrace_tpu_torch.ops import megakernel
@@ -788,6 +965,8 @@ def _compare_fused(label, renderer, k, mean_tol, pixel_share, card,
             pixel_share is not None and bad > pixel_share) or (
             bitwise_required and not bitwise):
         raise AssertionError(f"{label}: kernel and plain version disagree")
+    if megakernel.sphere_cluster_layout(renderer.static) is not None:
+        _hold_dense(label, args, kw, ref, ref_traced, card)
     return err, args, kw, rays, plain_s
 
 
@@ -821,6 +1000,7 @@ def _reset_counts():
     megakernel.LAUNCHES = megakernel.ANIM_LAUNCHES = 0
     megakernel.TRI_LAUNCHES = megakernel.LIGHT_LAUNCHES = 0
     megakernel.NOISE_LAUNCHES = megakernel.IMAGE_LAUNCHES = 0
+    megakernel.SPHERE_CLUSTER_LAUNCHES = 0
 
 
 def _mrays(per_batch):
@@ -979,6 +1159,7 @@ def main() -> int:
         return 1
     from raytrace_tpu_torch import cli
     from raytrace_tpu_torch.engine import Renderer
+    from raytrace_tpu_torch.engine.renderer import RenderStats
     from raytrace_tpu_torch.engine.wavefront import prepare_batch, primary_rays
     from raytrace_tpu_torch.models import compile_scene
     from raytrace_tpu_torch.ops import (_build, megakernel, paged_tri,
@@ -1023,10 +1204,11 @@ def main() -> int:
     for form, regs, spill in forms:
         print(f"K4 {form} form: {regs} registers, {spill} bytes spill "
               f"stores")
-        if FORMS_BEFORE.get(form, (regs, spill)) != (regs, spill):
+        before = {**FORMS_BEFORE, **IMAGE_FORMS_BEFORE}
+        if before.get(form, (regs, spill)) != (regs, spill):
             raise AssertionError(f"K4's {form} form changed: {regs} "
                                  f"registers, {spill} bytes spilled, "
-                                 f"before {FORMS_BEFORE[form]}")
+                                 f"before {before[form]}")
     k3_regs, k3_spill = _ptxas_kernel(_build.library_path(
         "paged_tri").with_suffix(".log").read_text())
     print(f"K3: {k3_regs} registers, {k3_spill} bytes spill stores")
@@ -1134,17 +1316,33 @@ def main() -> int:
                                 Renderer(small, device=dev), 2, 1e-3, 0.05,
                                 card)
     full = Renderer(cs, device=dev)
+    before = megakernel.SPHERE_CLUSTER_LAUNCHES
     err_full, args, kw, k4_rays, _ = _compare_fused(
-        f"{WIDTH}x{HEIGHT} 4 spp depth 50 k=1", full, 1, 2e-3, None, card)
+        f"{WIDTH}x{HEIGHT} 4 spp depth 50 k=1", full, 1, 2e-3, None, card,
+        bitwise_required=True)
+    if megakernel.SPHERE_CLUSTER_LAUNCHES != before + 2:
+        raise AssertionError("final-one-weekend did not take K4's clustered "
+                             "sphere form")
     k4_err = max(k4_err, err_full)
     k4_ms = _median_ms(lambda: megakernel.render_tile_mega(*args, **kw), 5)
     k4_plain_ms = _median_ms(
         lambda: megakernel.megakernel_reference(*args, **kw), 2)
-    k4_bound = _k4_bound(full.static, args[2], k4_rays, WIDTH, HEIGHT, 0)
-    print(f"fused kernel time at {WIDTH}x{HEIGHT}, 4 spp, depth 50, one "
-          f"batch: kernel {k4_ms:.3f} ms (median of 5), plain PyTorch "
-          f"{k4_plain_ms:.3f} ms (median of 2) (CUDA events); bound "
-          f"{k4_bound[0]:.4f} ms by {k4_bound[1]} ({card})")
+    k4_dense_ms = _dense_ms(args, kw)
+    dense_bound = _k4_bound(full.static, args[2], k4_rays, WIDTH, HEIGHT, 0)
+    _, _, per_ray = _cluster_work(
+        Renderer(cs, device=dev, use_megakernel=False), args[2])
+    k4_bound = _cluster_bound(args[2], per_ray, k4_rays, WIDTH, HEIGHT, 0)
+    print(f"fused kernel (clustered static form) time at {WIDTH}x{HEIGHT}, 4 "
+          f"spp, depth 50, one batch: kernel {k4_ms:.3f} ms (median of 5), "
+          f"the dense form {k4_dense_ms:.3f} ms (median of 5), plain "
+          f"PyTorch {k4_plain_ms:.3f} ms (median of 2) (CUDA events); work "
+          f"counted on {CLUSTER_SUBSET} of the wavefront's rays, a bounce: "
+          f"{per_ray['prefix_tests']:.0f} prefix tests, "
+          f"{per_ray['box_tests']:.0f} box pretests, "
+          f"{per_ray['sphere_tests']:.2f} sphere tests in clusters that "
+          f"pass; bound {k4_bound[0]:.4f} ms by {k4_bound[1]} "
+          f"({k4_bound[0] / k4_ms:.4f} of it), the dense sweep's "
+          f"{dense_bound[0]:.4f} ms by {dense_bound[1]} ({card})")
     del full, args, kw
 
     # -- 4b. K4's animated form vs plain, on the motion-blur scene ----------
@@ -1161,20 +1359,36 @@ def main() -> int:
                              "animated fused path")
     anim_err, *_ = _compare_fused("motion-blur 96x54 depth 8 k=2",
                                   mb_small, 2, 1e-3, 0.05, card)
+    before = megakernel.SPHERE_CLUSTER_LAUNCHES
     err_full, args, kw, anim_rays, _ = _compare_fused(
         f"motion-blur {MB_WIDTH}x{MB_HEIGHT} 4 spp depth 50 k=1", mb_full,
-        1, 2e-3, None, card)
+        1, 2e-3, None, card, bitwise_required=True)
+    if megakernel.SPHERE_CLUSTER_LAUNCHES != before + 2:
+        raise AssertionError("the motion-blur scene did not take K4's "
+                             "clustered animated form")
     anim_err = max(anim_err, err_full)
     anim_ms = _median_ms(lambda: megakernel.render_tile_mega(*args, **kw), 5)
     anim_plain_ms = _median_ms(
         lambda: megakernel.megakernel_reference(*args, **kw), 2)
-    anim_bound = _k4_bound(mb_full.static, args[2], anim_rays, MB_WIDTH,
-                           MB_HEIGHT, len(mb_full.batch_times))
-    print(f"animated fused kernel time at {MB_WIDTH}x{MB_HEIGHT}, 4 spp, "
-          f"depth 50, one batch: kernel {anim_ms:.3f} ms (median of 5), "
-          f"plain PyTorch {anim_plain_ms:.3f} ms (median of 2) (CUDA "
-          f"events); bound {anim_bound[0]:.4f} ms by {anim_bound[1]} "
-          f"({card})")
+    anim_dense_ms = _dense_ms(args, kw)
+    n_times = len(mb_full.batch_times)
+    dense_bound = _k4_bound(mb_full.static, args[2], anim_rays, MB_WIDTH,
+                            MB_HEIGHT, n_times)
+    _, _, per_ray = _cluster_work(
+        Renderer(cs_mb, device=dev, use_megakernel=False), args[2],
+        mb_full.batch_times_dev)
+    anim_bound = _cluster_bound(args[2], per_ray, anim_rays, MB_WIDTH,
+                                MB_HEIGHT, n_times)
+    print(f"animated fused kernel (clustered) time at {MB_WIDTH}x"
+          f"{MB_HEIGHT}, 4 spp, depth 50, one batch: kernel {anim_ms:.3f} ms "
+          f"(median of 5), the dense form {anim_dense_ms:.3f} ms (median of "
+          f"5), plain PyTorch {anim_plain_ms:.3f} ms (median of 2) (CUDA "
+          f"events); work a bounce: {per_ray['prefix_tests']:.0f} prefix "
+          f"tests, {per_ray['box_tests']:.0f} box pretests, "
+          f"{per_ray['sphere_tests']:.2f} sphere tests; bound "
+          f"{anim_bound[0]:.4f} ms by {anim_bound[1]} "
+          f"({anim_bound[0] / anim_ms:.4f} of it), the dense sweep's "
+          f"{dense_bound[0]:.4f} ms by {dense_bound[1]} ({card})")
     del mb_small, mb_full, args, kw
 
     # -- 4c. K4's triangle form vs plain, on tri-stress and the fixture -----
@@ -1421,6 +1635,116 @@ def main() -> int:
           f"({image_bound[0] / image_ms:.4f} of it) ({card})")
     del earth_full, args, kw, sums
 
+    # -- 4h. K4's clustered sphere forms vs plain, and the stress scenes ----
+    cluster_err = 0.0
+    for form, (doc, w, depth) in stress_scenes.cluster_form_checks(
+            small_png).items():
+        small_cs = compile_scene(SceneFile.from_json_dict(doc), width=w)
+        r = Renderer(_scene(small_cs, small_cs.render.width,
+                            small_cs.render.height, depth, 2), device=dev)
+        parts = form.split("+")
+        shape = (r.path == "fused_anim", r.static.has_tris,
+                 r.static.has_lights, r.static.flags.has_noise,
+                 r.static.flags.has_image)
+        if (not r.use_megakernel or r._geometry(0).sph_boxes is None
+                or shape != tuple(f in parts for f in ("anim", "tris",
+                                                       "lights", "noise",
+                                                       "image"))):
+            raise AssertionError(f"clusters {form}: path {r.path}, not K4's "
+                                 f"clustered {form} form")
+        before = megakernel.SPHERE_CLUSTER_LAUNCHES
+        small_err, *_ = _compare_fused(
+            f"clusters {form} {r.static.width}x{r.static.height} depth "
+            f"{depth} k=2 ({r.path}, {r.static.num_spheres} spheres)", r, 2,
+            1e-3, None, card, bitwise_required=True)
+        if megakernel.SPHERE_CLUSTER_LAUNCHES != before + 2:
+            raise AssertionError(f"clusters {form}: the clustered form was "
+                                 f"not launched")
+        cluster_err = max(cluster_err, small_err)
+    stress_paths = stress_scenes.write_sphere_stress(tri_dir.name)
+    stress_cs, stress_r, stress = {}, {}, {}
+    for name, path in stress_paths.items():
+        t0 = time.perf_counter()
+        stress_cs[name] = cli.load_scene(path)
+        compile_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r = stress_r[name] = Renderer(stress_cs[name], device=dev)
+        init_s = time.perf_counter() - t0
+        rs = stress_cs[name].render
+        layout = megakernel.sphere_cluster_layout(r.static)
+        if ((rs.width, rs.height, rs.samples_per_pixel, rs.sample_batches,
+             rs.max_ray_depth) != (*STRESS_SIZE, 4, 25, 50)
+                or (r.static.num_spheres, *layout[1:]) != STRESS_LAYOUT[name]
+                or r.path != "fused"):
+            raise AssertionError(f"{name}: {r.static.num_spheres} spheres, "
+                                 f"layout {layout}, path {r.path}")
+        print(f"{name}: {r.static.num_spheres} spheres (prefix {layout[0]}, "
+              f"{layout[2]} clusters of {layout[1]}), compiled in "
+              f"{compile_s:.2f} s, Renderer (world tables for "
+              f"{rs.sample_batches} batch times, upload, boxes) in "
+              f"{init_s:.2f} s; path {r.path}")
+        label = f"{name} {STRESS_SIZE[0]}x{STRESS_SIZE[1]} 4 spp depth 50 k=1"
+        if name == "stress-16k":
+            # A small frame first: the plain version's time where its
+            # chunked dense sweep of 16,384 spheres is short.
+            small_r = Renderer(_scene(stress_cs[name], *STRESS_SMALL),
+                               device=dev)
+            small_err, args, kw, small_rays, small_plain_s = _compare_fused(
+                f"{name} {STRESS_SMALL[0]}x{STRESS_SMALL[1]} 4 spp depth 50 "
+                f"k=1", small_r, 1, 0.0, None, card, bitwise_required=True)
+            small_ms = _median_ms(
+                lambda: megakernel.render_tile_mega(*args, **kw), 5)
+            print(f"{name} at {STRESS_SMALL[0]}x{STRESS_SMALL[1]}, 4 spp, "
+                  f"depth 50, one batch, {small_rays} rays: kernel "
+                  f"{small_ms:.3f} ms (median of 5, CUDA events), plain "
+                  f"PyTorch {small_plain_s * 1e3:.1f} ms (one run, host "
+                  f"clock) ({card})")
+            cluster_err = max(cluster_err, small_err)
+            del small_r, args, kw
+        err_full, args, kw, rays, plain_s = _compare_fused(
+            label, r, 1, 0.0, None, card, bitwise_required=True)
+        cluster_err = max(cluster_err, err_full)
+        stress_ms = _median_ms(
+            lambda: megakernel.render_tile_mega(*args, **kw), 5)
+        sums, _ = megakernel.render_tile_mega(*args, **kw)
+        fused_img = (sums / rs.samples_per_pixel).cpu().numpy()
+        t0 = time.perf_counter()
+        wave_img, wave_rays, per_ray = _cluster_work(
+            Renderer(stress_cs[name], device=dev, use_megakernel=False),
+            args[2])
+        wave_s = time.perf_counter() - t0
+        mdiff = np.abs(fused_img.mean(axis=(0, 1))
+                       - wave_img.mean(axis=(0, 1))).max()
+        print(f"fused (clustered) vs wavefront with K1 on {name}'s batch: "
+              f"rays {rays} vs {wave_rays}, max channel-mean diff "
+              f"{mdiff:.3g}; the wavefront's batch {wave_s:.2f} s with the "
+              f"work count ({card})")
+        if abs(rays - wave_rays) > 0.005 * wave_rays or mdiff > 2e-3:
+            raise AssertionError(f"{name}: the fused and wavefront renders "
+                                 f"disagree")
+        bound = _cluster_bound(args[2], per_ray, rays, *STRESS_SIZE, 0)
+        dense_bound = _k4_bound(r.static, args[2], rays, *STRESS_SIZE, 0)
+        dense = (f"the dense form {_dense_ms(args, kw):.3f} ms (median of "
+                 f"5), " if r.static.num_spheres <= megakernel.MAX_SPHERES
+                 else "")
+        print(f"fused kernel (clustered) time on {name} at {STRESS_SIZE[0]}x"
+              f"{STRESS_SIZE[1]}, 4 spp, depth 50, one batch: kernel "
+              f"{stress_ms:.3f} ms (median of 5, CUDA events), {dense}plain "
+              f"PyTorch {plain_s * 1e3:.1f} ms (one run, host clock), "
+              f"{rays / stress_ms / 1e3:.1f} Mrays/s in the kernel, the "
+              f"wavefront "
+              f"{wave_rays / wave_s / 1e6:.3f} Mrays/s; work a bounce: "
+              f"{per_ray['prefix_tests']:.0f} prefix tests, "
+              f"{per_ray['box_tests']:.0f} box pretests, "
+              f"{per_ray['sphere_tests']:.2f} sphere tests in clusters that "
+              f"pass (of {r.static.num_spheres}); bound {bound[0]:.4f} ms by "
+              f"{bound[1]} ({bound[0] / stress_ms:.4f} of it), the dense "
+              f"sweep's "
+              f"{dense_bound[0]:.4f} ms ({card})")
+        stress[name] = dict(ms=stress_ms, plain_ms=plain_s * 1e3,
+                            bound=bound)
+        del args, kw, sums
+
     # -- 4f. K3 vs plain and K2, at small size and on the 2M-triangle mesh ---
     for T, g, c, R in ((40000, 128, 128, 1 << 16), (3001, 8, 16, 1 << 14)):
         tables, table16, ro, rd, r_alive = _paged_random(T, g, c, R, T, dev)
@@ -1606,9 +1930,12 @@ def main() -> int:
              main_r.stats.render_seconds - sec0)
     k4_launches = megakernel.LAUNCHES
     if (main_r.path != "fused" or k4_launches <= 0 or sphere_sweep.LAUNCHES
-            or megakernel.ANIM_LAUNCHES):
-        raise AssertionError("the main path did not take the fused kernel "
-                             f"(K4 {k4_launches}, K1 {sphere_sweep.LAUNCHES})")
+            or megakernel.ANIM_LAUNCHES
+            or megakernel.SPHERE_CLUSTER_LAUNCHES != k4_launches):
+        raise AssertionError("the main path did not take the fused kernel's "
+                             f"clustered form (K4 {k4_launches}, clustered "
+                             f"{megakernel.SPHERE_CLUSTER_LAUNCHES}, K1 "
+                             f"{sphere_sweep.LAUNCHES})")
     for i, (r, s) in enumerate(per_batch):
         print(f"fused batch {i}: {r} rays in {s:.4f} s "
               f"({r / s / 1e6:.3f} Mrays/s)")
@@ -1617,7 +1944,9 @@ def main() -> int:
           f"1-{MAIN_BATCHES - 1} stepped one at a time; "
           f"{_mrays([chunk]):.3f} Mrays/s over one {CHUNK_BATCHES}-batch "
           f"chunk ({chunk[0]} rays in {chunk[1]:.4f} s); megakernel "
-          f"LAUNCHES={k4_launches}, sphere_sweep LAUNCHES=0 ({card})")
+          f"LAUNCHES={k4_launches} (SPHERE_CLUSTER_LAUNCHES="
+          f"{megakernel.SPHERE_CLUSTER_LAUNCHES}), sphere_sweep LAUNCHES=0 "
+          f"({card})")
     print(f"static fused chunk: {_mrays([chunk]):.3f} Mrays/s in this run, "
           f"{STATIC_CHUNK_MRAYS_BEFORE} before the animated form "
           f"(PERF.md) ({card})")
@@ -1638,7 +1967,8 @@ def main() -> int:
                 mb_r.stats.render_seconds - sec0)
     anim_launches = megakernel.ANIM_LAUNCHES
     if (mb_r.path != "fused_anim" or anim_launches != MAIN_BATCHES + 1
-            or megakernel.LAUNCHES != anim_launches or sphere_sweep.LAUNCHES):
+            or megakernel.LAUNCHES != anim_launches or sphere_sweep.LAUNCHES
+            or megakernel.SPHERE_CLUSTER_LAUNCHES != anim_launches):
         raise AssertionError(
             f"the motion-blur main path did not take the animated fused "
             f"kernel (path {mb_r.path}, K4 {megakernel.LAUNCHES}, animated "
@@ -1663,6 +1993,40 @@ def main() -> int:
         raise AssertionError("motion-blur: the fused and wavefront renders "
                              "disagree")
     del mb_r
+
+    # The sphere stress scenes' main paths: Renderer with defaults, K4's
+    # clustered form; batches stepped, then render_all from batch 0 (its
+    # 25 batches in chunks of 12).
+    for name, r in stress_r.items():
+        _reset_counts()
+        per_batch = _step(r, MAIN_BATCHES)
+        stepped = megakernel.SPHERE_CLUSTER_LAUNCHES
+        r.current_batch = 0
+        r.accum.zero_()
+        r.stats = RenderStats()
+        img = r.render_all()
+        launches = stress[name]["launches"] = (
+            megakernel.SPHERE_CLUSTER_LAUNCHES)
+        n_chunks = -(-r.compiled.render.sample_batches // r.chunk_size())
+        if (r.path != "fused" or stepped != MAIN_BATCHES
+                or launches != MAIN_BATCHES + n_chunks
+                or megakernel.LAUNCHES != launches or sphere_sweep.LAUNCHES
+                or megakernel.ANIM_LAUNCHES):
+            raise AssertionError(
+                f"{name}'s main path did not take K4's clustered form (path "
+                f"{r.path}, K4 {megakernel.LAUNCHES}, clustered {launches}, "
+                f"K1 {sphere_sweep.LAUNCHES})")
+        print(f"{name} main path (fused, clustered spheres): "
+              f"{STRESS_SIZE[0]}x{STRESS_SIZE[1]}, 4 spp, depth 50: "
+              f"{_mrays(per_batch[1:]):.3f} Mrays/s over batches "
+              f"1-{MAIN_BATCHES - 1} stepped one at a time; render_all "
+              f"{r.stats.rays_traced} rays in {r.stats.render_seconds:.4f} s "
+              f"({r.stats.mrays_per_sec:.3f} Mrays/s) in {n_chunks} launches; "
+              f"megakernel LAUNCHES={megakernel.LAUNCHES} "
+              f"(SPHERE_CLUSTER_LAUNCHES={launches}), sphere_sweep "
+              f"LAUNCHES=0 ({card})")
+        _check_image(img, f"{name} fused", *STRESS_SIZE)
+    del stress_r
 
     # tri-stress's main path: Renderer with defaults, K4's triangle form;
     # its one batch stepped, then render_all on a second Renderer.
@@ -1956,6 +2320,8 @@ def main() -> int:
                               light_cs["sphere-light-962"], 2),
                              ("perlin-spheres", perlin_cs, 1),
                              ("earth", earth_cs, CHUNK_BATCHES),
+                             ("stress-16k", stress_cs["stress-16k"],
+                              CHUNK_BATCHES),
                              ("final-one-weekend --mesh-geometry", cs_mesh,
                               1)):
         prof_r = Renderer(prof_cs, device=dev)
@@ -2059,6 +2425,26 @@ def main() -> int:
         "ms": image_ms, "plain_ms": image_plain_s * 1e3,
         "bound_ms": image_bound[0], "bound_by": image_bound[1],
         "library_ms": None,
+    }, {
+        # stress-4x's and stress-16k's full batches (K4's clustered form),
+        # the slice's main paths.
+        "name": "megakernel_stress_4x", "route": "cuda",
+        "source": "raytrace_tpu_torch/csrc/megakernel.cu",
+        "replaces": "raytrace_tpu/ops/megakernel.py:1666",
+        "launches": stress["stress-4x"]["launches"],
+        "max_abs_err": cluster_err, "ms": stress["stress-4x"]["ms"],
+        "plain_ms": stress["stress-4x"]["plain_ms"],
+        "bound_ms": stress["stress-4x"]["bound"][0],
+        "bound_by": stress["stress-4x"]["bound"][1], "library_ms": None,
+    }, {
+        "name": "megakernel_stress_16k", "route": "cuda",
+        "source": "raytrace_tpu_torch/csrc/megakernel.cu",
+        "replaces": "raytrace_tpu/ops/megakernel.py:1666",
+        "launches": stress["stress-16k"]["launches"],
+        "max_abs_err": cluster_err, "ms": stress["stress-16k"]["ms"],
+        "plain_ms": stress["stress-16k"]["plain_ms"],
+        "bound_ms": stress["stress-16k"]["bound"][0],
+        "bound_by": stress["stress-16k"]["bound"][1], "library_ms": None,
     }, {
         # final-one-weekend --mesh-geometry's primary rays: the main path's.
         "name": "paged_tri", "route": "cuda",

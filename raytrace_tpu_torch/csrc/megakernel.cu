@@ -13,7 +13,9 @@
 // scatter_and_emit_v3 call :1953, which reaches shading._eval_slot_v3 and
 // perlin.turbulence_v3); and the static, triangle and lit forms also with
 // image textures (the same call, which reaches textures.sample_image_nearest
-// at the UV of reconstruct_hit's world-to-object branch).  It computes
+// at the UV of reconstruct_hit's world-to-object branch); and each of these
+// with its spheres in Morton clusters (its gather sweep: _sweep :1389,
+// _sweep_sieve :1005, _cluster_rounds_gather :550).  It computes
 // what the torch wavefront (engine/wavefront.py) computes, ray for ray: the
 // same PCG stream per (pixel, sample), the same camera and shading
 // arithmetic in the same operation order, the same closest hit (strict <
@@ -127,11 +129,41 @@
 // renders with the static form, one launch per batch, because the
 // world-to-object rows change with the batch's time.
 //
+// Spheres in clusters (template parameter kSphClusters, instantiated with
+// each form above, so the dense forms are compiled as before): a scene whose
+// compiler put its sphere block in Morton clusters (models/sphere_order.py:
+// a dense prefix of n_prefix large spheres, then the rest in contiguous
+// clusters of sph_g) is swept as the JAX kernel's gather sweep is
+// (megakernel.py _sweep :1389, _sweep_sieve :1005, _cluster_rounds_gather
+// :550), without its TPU mechanisms.  The prefix is swept densely; then the
+// thread visits the n_sph_clusters clusters in ascending id, slab-tests each
+// box (ops/megakernel.py sphere_cluster_boxes, at most 128 x 32 B in shared
+// memory after the triangle boxes) with the triangles' pretest against its
+// running best t, and tests the spheres of each cluster that passes with the
+// dense sweep's own test (test_sphere), strict < over ascending ids.  Prefix
+// ids are below cluster ids, and a skipped cluster can hold only hits at t
+// above the best t, so the result is the dense sweep's (t, id), bit for bit.
+// The box is first widened by a margin for the quadratic's rounding, (|o| +
+// reach)^2 * 2^-19 / r_min (its w components hold reach and 2^-19 / r_min;
+// ops/megakernel.py sphere_cluster_pretest derives it): the f32 test can
+// report a grazing hit up to that far outside a sphere, and without it a ray
+// from ~1,800 units away kept a hit that the dense sweep does not (measured
+// on the lit cluster doc); at the camera of final-one-weekend it is ~0.008.
+// The animated form's boxes are the union of a cluster's boxes at shutter
+// times 0 and 1, which holds each sphere c0 + t dc for t in [0, 1].  The
+// clustered forms read the sphere rows from global memory through the
+// read-only cache (up to 16,384 spheres: 512 KiB static, 768 KiB with the
+// motion rows, which stay in L2): a ray reads only the rows of the
+// clusters it enters, and a staged table would lower the blocks each
+// multiprocessor holds.  A warp runs the union of its threads' passing
+// clusters.
+//
 // What bounds it: per bounce S ray-sphere tests of ~20 flops and a sqrt
-// (and for triangles the box pretests and the tests of the clusters that
-// pass), against one 112-byte row fetch: the fp32 ALU issue rate.  The
-// first version is the simple one: a persistent work queue and a deeper
-// hierarchy come later.
+// (for clustered spheres the prefix, the box pretests and the spheres of
+// the clusters that pass; for triangles the box pretests and the tests of
+// the clusters that pass), against one 112-byte row fetch: the fp32 ALU
+// issue rate.  The first version is the simple one: a persistent work
+// queue and a deeper hierarchy come later.
 //
 // Bits: built with -fmad=false (ops/_build.py), so no multiply-add is
 // contracted and each operation rounds as PyTorch's elementwise kernels
@@ -539,6 +571,129 @@ __device__ __forceinline__ float slab_inv(float dx) {
   return 1.0f / (fabsf(dx) < kSlabEps ? (dx < 0.0f ? -kSlabEps : kSlabEps) : dx);
 }
 
+// The slab pretest of one cluster box (min, max) against the ray, pruned by
+// its best t so far (megakernel.py:1262-1280).
+__device__ __forceinline__ bool box_passes(float4 mn, float4 mx, V3 o, float ivx, float ivy,
+                                           float ivz, float best_t) {
+  float a0 = (mn.x - o.x) * ivx;
+  float a1 = (mx.x - o.x) * ivx;
+  float te = fminf(a0, a1);
+  float tx = fmaxf(a0, a1);
+  a0 = (mn.y - o.y) * ivy;
+  a1 = (mx.y - o.y) * ivy;
+  te = fmaxf(te, fminf(a0, a1));
+  tx = fminf(tx, fmaxf(a0, a1));
+  a0 = (mn.z - o.z) * ivz;
+  a1 = (mx.z - o.z) * ivz;
+  te = fmaxf(te, fminf(a0, a1));
+  tx = fminf(tx, fmaxf(a0, a1));
+  return te <= tx && tx > kTMin && te < best_t * kPruneScale + kPruneAdd;
+}
+
+// Sphere j of the table staged in shared memory, at the sample's time in
+// the animated form (megakernel.py sph_8 anim_lerp).
+template <bool kAnim>
+__device__ __forceinline__ void staged_sphere(const float4* tbl, int j, float tcur, float4& sph,
+                                              float& k) {
+  if constexpr (kAnim) {
+    const float4 c0 = tbl[3 * j];
+    const float4 kk = tbl[3 * j + 1];
+    const float4 dc = tbl[3 * j + 2];
+    sph = make_float4(c0.x + tcur * dc.x, c0.y + tcur * dc.y, c0.z + tcur * dc.z, c0.w);
+    k = kk.x + tcur * (kk.y + tcur * kk.z);
+  } else {
+    sph = tbl[2 * j];
+    k = tbl[2 * j + 1].x;
+  }
+}
+
+// The same sphere read from the tables in global memory through the
+// read-only cache: (c, r) and k from the [s8, 8] table, (dc) and (k1, k2)
+// from the motion rows.
+template <bool kAnim>
+__device__ __forceinline__ void global_sphere(const float4* __restrict__ table,
+                                              const float4* __restrict__ dtable, int j,
+                                              float tcur, float4& sph, float& k) {
+  const float4 c0 = __ldg(table + 2 * j);
+  const float k0 = __ldg(reinterpret_cast<const float*>(table + 2 * j + 1));
+  if constexpr (kAnim) {
+    const float4 dc = __ldg(dtable + 2 * j);
+    const float2 kk = __ldg(reinterpret_cast<const float2*>(dtable + 2 * j + 1));
+    sph = make_float4(c0.x + tcur * dc.x, c0.y + tcur * dc.y, c0.z + tcur * dc.z, c0.w);
+    k = k0 + tcur * (kk.x + tcur * kk.y);
+  } else {
+    sph = c0;
+    k = k0;
+  }
+}
+
+// Sphere j: staged in the dense forms, from global memory in the
+// clustered ones.
+template <bool kAnim, bool kSphClusters>
+__device__ __forceinline__ void fetch_sphere(const float4* tbl, const float4* __restrict__ table,
+                                             const float4* __restrict__ dtable, int j, float tcur,
+                                             float4& sph, float& k) {
+  if constexpr (kSphClusters) {
+    global_sphere<kAnim>(table, dtable, j, tcur, sph, k);
+  } else {
+    staged_sphere<kAnim>(tbl, j, tcur, sph, k);
+  }
+}
+
+// The closest-hit quadratic against sphere j (csrc/sphere_sweep.cu and
+// ops/spheres.py intersect_spheres_world), and the strict < update of the
+// best hit.  d_dot_o, a, o_sq and inv_a are the ray's.
+__device__ __forceinline__ void test_sphere(float4 sph, float k, V3 o, V3 d, float d_dot_o,
+                                            float a, float o_sq, float inv_a, int j,
+                                            float& best_t, int& best_id) {
+  const float dc = sph.x * d.x + sph.y * d.y + sph.z * d.z;
+  const float oc = sph.x * o.x + sph.y * o.y + sph.z * o.z;
+  const float h = d_dot_o - dc;
+  const float c2 = o_sq - 2.0f * oc + k;
+  const float disc = h * h - a * c2;
+  const bool ok = disc >= 0.0f && sph.w > 0.0f;
+  const float sq = sqrtf(fmaxf(disc, 0.0f));
+  const float t1 = (-h - sq) * inv_a;
+  const float t2 = (-h + sq) * inv_a;
+  const bool t1_ok = ok && t1 > kTMin && t1 < kTMax;
+  const bool t2_ok = ok && t2 > kTMin && t2 < kTMax;
+  const float t = t1_ok ? t1 : (t2_ok ? t2 : kTMax);
+  if (t < best_t) {
+    best_t = t;
+    best_id = j;
+  }
+}
+
+// The clustered spheres against one ray, after the prefix: see the header.
+template <bool kAnim>
+__device__ __forceinline__ void sweep_sphere_clusters(
+    const float4* __restrict__ table, const float4* __restrict__ dtable, const float4* boxes,
+    int n_clusters, int g, int n_prefix, int n_sph, float tcur, V3 o, V3 d, float d_dot_o,
+    float a, float o_sq, float inv_a, float& best_t, int& best_id) {
+  const float ivx = slab_inv(d.x);
+  const float ivy = slab_inv(d.y);
+  const float ivz = slab_inv(d.z);
+  const float onorm = sqrtf(o_sq);
+  for (int c = 0; c < n_clusters; ++c) {
+    const float4 mn = boxes[2 * c];
+    const float4 mx = boxes[2 * c + 1];
+    // The rounding margin: (|o| + reach)^2 * SPHERE_ROUNDING / r_min.
+    const float s = onorm + mx.w;
+    const float m = s * s * mn.w;
+    if (!box_passes(make_float4(mn.x - m, mn.y - m, mn.z - m, 0.0f),
+                    make_float4(mx.x + m, mx.y + m, mx.z + m, 0.0f), o, ivx, ivy, ivz, best_t)) {
+      continue;
+    }
+    const int j1 = min(n_prefix + (c + 1) * g, n_sph);
+    for (int j = n_prefix + c * g; j < j1; ++j) {
+      float4 sph;
+      float k;
+      global_sphere<kAnim>(table, dtable, j, tcur, sph, k);
+      test_sphere(sph, k, o, d, d_dot_o, a, o_sq, inv_a, j, best_t, best_id);
+    }
+  }
+}
+
 // The triangle soup against one ray, after the sphere sweep: see the
 // header.  Updates the best t and id, the barycentrics and the hit point.
 __device__ __forceinline__ void sweep_tris(const float4* __restrict__ tris, int t8,
@@ -549,21 +704,7 @@ __device__ __forceinline__ void sweep_tris(const float4* __restrict__ tris, int 
   const float ivy = slab_inv(d.y);
   const float ivz = slab_inv(d.z);
   for (int c = 0; c < n_clusters; ++c) {
-    const float4 mn = boxes[2 * c];
-    const float4 mx = boxes[2 * c + 1];
-    float a0 = (mn.x - o.x) * ivx;
-    float a1 = (mx.x - o.x) * ivx;
-    float te = fminf(a0, a1);
-    float tx = fmaxf(a0, a1);
-    a0 = (mn.y - o.y) * ivy;
-    a1 = (mx.y - o.y) * ivy;
-    te = fmaxf(te, fminf(a0, a1));
-    tx = fminf(tx, fmaxf(a0, a1));
-    a0 = (mn.z - o.z) * ivz;
-    a1 = (mx.z - o.z) * ivz;
-    te = fmaxf(te, fminf(a0, a1));
-    tx = fminf(tx, fmaxf(a0, a1));
-    if (!(te <= tx && tx > kTMin && te < best_t * kPruneScale + kPruneAdd)) continue;
+    if (!box_passes(boxes[2 * c], boxes[2 * c + 1], o, ivx, ivy, ivz, best_t)) continue;
     const int j1 = min((c + 1) * cluster_g, t8);
     for (int j = c * cluster_g; j < j1; ++j) {
       // csrc/tri_sweep.cu's operations, in its order.
@@ -600,11 +741,12 @@ __device__ __forceinline__ void sweep_tris(const float4* __restrict__ tris, int 
 
 // ---- the kernel ----
 
-template <bool kAnim, bool kTris, bool kLights, bool kNoise, bool kImage>
+template <bool kAnim, bool kTris, bool kLights, bool kNoise, bool kImage, bool kSphClusters>
 __global__ void __launch_bounds__(kThreads)
 megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
-           const float* __restrict__ times, int s8, const float4* __restrict__ tris, int t8,
+           const float* __restrict__ times, int n_sph, const float4* __restrict__ tris, int t8,
            const float4* __restrict__ tri_boxes, int n_clusters, int cluster_g, int s_pad,
+           const float4* __restrict__ sph_boxes, int n_prefix, int sph_g, int n_sph_clusters,
            const float* __restrict__ lights, const float* __restrict__ o2w,
            const int* __restrict__ atlas_words, const int* __restrict__ atlas_wh, int n_images,
            int atlas_h, int atlas_w, const float* __restrict__ lut,
@@ -619,27 +761,34 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
   float* prm = reinterpret_cast<float*>(smem);        // kNumParams floats
   // Static sphere j: tbl[2j] = (c, r), tbl[2j+1].x = k.  Animated:
   // tbl[3j] = (c0, r), tbl[3j+1] = (k0, k1, k2, -), tbl[3j+2] = (dc, -).
+  // The clustered forms stage no row.
+  const int n_staged = kSphClusters ? 0 : n_sph;
   float4* tbl = smem + kNumParams / 4;
-  // Cluster c's box: boxes[2c] = (min, -), boxes[2c+1] = (max, -).
-  float4* boxes = tbl + kStride<kAnim> * s8;
+  // Triangle cluster c's box: boxes[2c] = (min, -), boxes[2c+1] = (max, -).
+  float4* boxes = tbl + kStride<kAnim> * n_staged;
+  // Sphere cluster c's box, the same way, after them.
+  float4* sboxes = boxes + (kTris ? 2 * n_clusters : 0);
   // The sRGB table, after the boxes.
-  float* lut_s = reinterpret_cast<float*>(boxes + (kTris ? 2 * n_clusters : 0));
+  float* lut_s = reinterpret_cast<float*>(sboxes + (kSphClusters ? 2 * n_sph_clusters : 0));
   for (int j = threadIdx.x; j < kNumParams; j += kThreads) prm[j] = fparams[j];
   if constexpr (kTris) {
     for (int j = threadIdx.x; j < 2 * n_clusters; j += kThreads) boxes[j] = tri_boxes[j];
+  }
+  if constexpr (kSphClusters) {
+    for (int j = threadIdx.x; j < 2 * n_sph_clusters; j += kThreads) sboxes[j] = sph_boxes[j];
   }
   if constexpr (kImage) {
     for (int j = threadIdx.x; j < kLutSize; j += kThreads) lut_s[j] = lut[j];
   }
   if constexpr (kAnim) {
-    for (int j = threadIdx.x; j < s8; j += kThreads) {
+    for (int j = threadIdx.x; j < n_staged; j += kThreads) {
       const float4 dk = dtable[2 * j + 1];
       tbl[3 * j] = table[2 * j];
       tbl[3 * j + 1] = make_float4(table[2 * j + 1].x, dk.x, dk.y, 0.0f);
       tbl[3 * j + 2] = dtable[2 * j];
     }
   } else {
-    for (int j = threadIdx.x; j < 2 * s8; j += kThreads) tbl[j] = table[j];
+    for (int j = threadIdx.x; j < 2 * n_staged; j += kThreads) tbl[j] = table[j];
   }
   __syncthreads();  // the only barrier: no thread waits on another below
 
@@ -680,36 +829,18 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
       const float inv_a = 1.0f / (a == 0.0f ? 1.0f : a);
       float best_t = kTMax;
       int best_id = -1;
-      for (int j = 0; j < s8; ++j) {
+      // Every real sphere densely, or in the clustered forms the prefix,
+      // then the clusters.
+      const int n_dense = kSphClusters ? n_prefix : n_sph;
+      for (int j = 0; j < n_dense; ++j) {
         float4 sph;
         float k;
-        if constexpr (kAnim) {
-          // The sphere at the sample's time (megakernel.py sph_8 anim_lerp).
-          const float4 c0 = tbl[3 * j];
-          const float4 kk = tbl[3 * j + 1];
-          const float4 dc = tbl[3 * j + 2];
-          sph = make_float4(c0.x + tcur * dc.x, c0.y + tcur * dc.y, c0.z + tcur * dc.z, c0.w);
-          k = kk.x + tcur * (kk.y + tcur * kk.z);
-        } else {
-          sph = tbl[2 * j];
-          k = tbl[2 * j + 1].x;
-        }
-        const float dc = sph.x * d.x + sph.y * d.y + sph.z * d.z;
-        const float oc = sph.x * o.x + sph.y * o.y + sph.z * o.z;
-        const float h = d_dot_o - dc;
-        const float c2 = o_sq - 2.0f * oc + k;
-        const float disc = h * h - a * c2;
-        const bool ok = disc >= 0.0f && sph.w > 0.0f;
-        const float sq = sqrtf(fmaxf(disc, 0.0f));
-        const float t1 = (-h - sq) * inv_a;
-        const float t2 = (-h + sq) * inv_a;
-        const bool t1_ok = ok && t1 > kTMin && t1 < kTMax;
-        const bool t2_ok = ok && t2 > kTMin && t2 < kTMax;
-        const float t = t1_ok ? t1 : (t2_ok ? t2 : kTMax);
-        if (t < best_t) {
-          best_t = t;
-          best_id = j;
-        }
+        fetch_sphere<kAnim, kSphClusters>(tbl, table, dtable, j, tcur, sph, k);
+        test_sphere(sph, k, o, d, d_dot_o, a, o_sq, inv_a, j, best_t, best_id);
+      }
+      if constexpr (kSphClusters) {
+        sweep_sphere_clusters<kAnim>(table, dtable, sboxes, n_sph_clusters, sph_g, n_prefix,
+                                     n_sph, tcur, o, d, d_dot_o, a, o_sq, inv_a, best_t, best_id);
       }
       float bu = 0.0f, bv = 0.0f;
       V3 tp = {0.0f, 0.0f, 0.0f};
@@ -890,9 +1021,10 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
   traced_out[pix] = traced;
 }
 
-template <bool kAnim, bool kTris, bool kLights, bool kNoise, bool kImage>
-int launch(const void* table8, const void* dtab8, const void* times, int s8, const void* tris12,
+template <bool kAnim, bool kTris, bool kLights, bool kNoise, bool kImage, bool kSphClusters>
+int launch(const void* table8, const void* dtab8, const void* times, int n_sph, const void* tris12,
            int t8, const void* tri_boxes, int n_clusters, int cluster_g, int s_pad,
+           const void* sph_boxes, int n_prefix, int sph_g, int n_sph_clusters,
            const void* lights16, const void* o2w12, const void* atlas_words,
            const void* atlas_wh, int n_images, int atlas_h, int atlas_w, const void* lut,
            const void* rows, int n_rows, const void* fparams, int width, int height,
@@ -900,22 +1032,24 @@ int launch(const void* table8, const void* dtab8, const void* times, int s8, con
            int max_depth, int flags, void* sums, void* traced, void* stream) {
   const int n_pix = width * height;
   if (n_pix <= 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = (kNumParams + 4 * kStride<kAnim> * static_cast<size_t>(s8) +
+  const size_t n_staged = kSphClusters ? 0 : static_cast<size_t>(n_sph);
+  const size_t smem = (kNumParams + 4 * kStride<kAnim> * n_staged +
                        (kTris ? 8 * static_cast<size_t>(n_clusters) : 0) +
+                       (kSphClusters ? 8 * static_cast<size_t>(n_sph_clusters) : 0) +
                        (kImage ? kLutSize : 0)) *
                       sizeof(float);
+  auto* kernel = megakernel<kAnim, kTris, kLights, kNoise, kImage, kSphClusters>;
   if (smem > 48 * 1024) {  // above the default limit it must be opted into
-    const cudaError_t err =
-        cudaFuncSetAttribute(megakernel<kAnim, kTris, kLights, kNoise, kImage>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int blocks = (n_pix + kThreads - 1) / kThreads;
-  megakernel<kAnim, kTris, kLights, kNoise, kImage>
-      <<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(table8), static_cast<const float4*>(dtab8),
-      static_cast<const float*>(times), s8, static_cast<const float4*>(tris12), t8,
+      static_cast<const float*>(times), n_sph, static_cast<const float4*>(tris12), t8,
       static_cast<const float4*>(tri_boxes), n_clusters, cluster_g, s_pad,
+      static_cast<const float4*>(sph_boxes), n_prefix, sph_g, n_sph_clusters,
       static_cast<const float*>(lights16), static_cast<const float*>(o2w12),
       static_cast<const int*>(atlas_words), static_cast<const int*>(atlas_wh), n_images, atlas_h,
       atlas_w, static_cast<const float*>(lut), static_cast<const float*>(rows), n_rows,
@@ -924,64 +1058,77 @@ int launch(const void* table8, const void* dtab8, const void* times, int s8, con
   return static_cast<int>(cudaGetLastError());
 }
 
-#define MEGA_ARGS                                                                          \
-  table8, dtab8, times, s8, tris12, t8, tri_boxes, n_clusters, cluster_g, s_pad, lights16,  \
-      o2w12, atlas_words, atlas_wh, n_images, atlas_h, atlas_w, lut, rows, n_rows, fparams, \
-      width, height, sqrt_spp, spp_local, n_batches, batch0, sample_base, max_depth, flags, \
-      sums, traced, stream
+#define MEGA_PARAMS                                                                            \
+  const void *table8, const void *dtab8, const void *times, int n_sph, const void *tris12,     \
+      int t8, const void *tri_boxes, int n_clusters, int cluster_g, int s_pad,                 \
+      const void *sph_boxes, int n_prefix, int sph_g, int n_sph_clusters,                      \
+      const void *lights16, const void *o2w12, const void *atlas_words, const void *atlas_wh,  \
+      int n_images, int atlas_h, int atlas_w, const void *lut, const void *rows, int n_rows,   \
+      const void *fparams, int width, int height, int sqrt_spp, int spp_local, int n_batches, \
+      int batch0, int sample_base, int max_depth, int flags, void *sums, void *traced,         \
+      void *stream
+
+#define MEGA_ARGS                                                                            \
+  table8, dtab8, times, n_sph, tris12, t8, tri_boxes, n_clusters, cluster_g, s_pad, sph_boxes, \
+      n_prefix, sph_g, n_sph_clusters, lights16, o2w12, atlas_words, atlas_wh,                 \
+      n_images, atlas_h, atlas_w, lut, rows, n_rows, fparams, width, height, sqrt_spp,         \
+      spp_local, n_batches, batch0, sample_base, max_depth, flags, sums, traced, stream
 
 // The form for the inputs that megakernel_launch has checked.
-template <bool kNoise, bool kImage>
-int dispatch(const void* table8, const void* dtab8, const void* times, int s8,
-             const void* tris12, int t8, const void* tri_boxes, int n_clusters, int cluster_g,
-             int s_pad, const void* lights16, const void* o2w12, const void* atlas_words,
-             const void* atlas_wh, int n_images, int atlas_h, int atlas_w, const void* lut,
-             const void* rows, int n_rows, const void* fparams, int width, int height,
-             int sqrt_spp, int spp_local, int n_batches, int batch0, int sample_base,
-             int max_depth, int flags, void* sums, void* traced, void* stream) {
+template <bool kNoise, bool kImage, bool kSphClusters>
+int dispatch(MEGA_PARAMS) {
   if (lights16 != nullptr) {
-    return tris12 != nullptr ? launch<false, true, true, kNoise, kImage>(MEGA_ARGS)
-                             : launch<false, false, true, kNoise, kImage>(MEGA_ARGS);
+    return tris12 != nullptr
+               ? launch<false, true, true, kNoise, kImage, kSphClusters>(MEGA_ARGS)
+               : launch<false, false, true, kNoise, kImage, kSphClusters>(MEGA_ARGS);
   }
-  if (tris12 != nullptr) return launch<false, true, false, kNoise, kImage>(MEGA_ARGS);
+  if (tris12 != nullptr) return launch<false, true, false, kNoise, kImage, kSphClusters>(MEGA_ARGS);
   if (dtab8 != nullptr) {
     if constexpr (kImage) {
       return static_cast<int>(cudaErrorInvalidValue);
     } else {
-      return launch<true, false, false, kNoise, false>(MEGA_ARGS);
+      return launch<true, false, false, kNoise, false, kSphClusters>(MEGA_ARGS);
     }
   }
-  return launch<false, false, false, kNoise, kImage>(MEGA_ARGS);
+  return launch<false, false, false, kNoise, kImage, kSphClusters>(MEGA_ARGS);
+}
+
+// The noise and image twins of the clustered or dense forms.
+template <bool kSphClusters>
+int dispatch_textures(MEGA_PARAMS) {
+  const bool image = flags & kHasImage;
+  if (flags & kHasNoise) {
+    return image ? dispatch<true, true, kSphClusters>(MEGA_ARGS)
+                 : dispatch<true, false, kSphClusters>(MEGA_ARGS);
+  }
+  return image ? dispatch<false, true, kSphClusters>(MEGA_ARGS)
+               : dispatch<false, false, kSphClusters>(MEGA_ARGS);
 }
 
 }  // namespace
 
-// table8: [s8, 8] f32, 16-byte aligned; dtab8: null for a static table,
-// else the [s8, 8] f32 motion rows (16-byte aligned), and times: every
-// batch's shutter time, [>= batch0 + n_batches] f32; tris12: null for no
+// table8: [>= n_sph, 8] f32, 16-byte aligned, n_sph the spheres swept (the
+// real ones; 0 sweeps none); dtab8: null for a static table, else the
+// motion rows shaped as table8 (16-byte aligned), and times: every batch's
+// shutter time, [>= batch0 + n_batches] f32; tris12: null for no
 // triangles, else the [t8, 12] f32 soup (v0, valid, e1, -, e2, -; 16-byte
 // aligned, not with dtab8; t8: the rows swept, the real triangles),
 // tri_boxes: [n_clusters, 8] f32 cluster boxes (min, -, max, -), cluster_g:
-// triangles per cluster, s_pad: the primitive id of triangle 0; lights16:
-// null for no lights, else the [n_lights, 16] f32 light rows (p0 p1 p2,
-// prob, alias; not with dtab8) and o2w12 the [n_instances, 12] f32
-// objectToWorld rows; atlas_words: with kHasImage the [n_images, atlas_h,
-// atlas_w] i32 packed atlas, atlas_wh its [n_images, 2] i32 sizes and lut
-// the [256] f32 sRGB table (not with dtab8); rows: [n_rows, 64] f32;
+// triangles per cluster, s_pad: the primitive id of triangle 0; sph_boxes:
+// null for the dense sphere sweep, else the [n_sph_clusters, 8] f32 boxes
+// (16-byte aligned, 1 <= n_sph_clusters <= 128) of the clusters of sph_g
+// spheres after the n_prefix swept densely (their rows read from global
+// memory); lights16: null for no lights, else the [n_lights, 16] f32 light
+// rows (p0 p1 p2, prob, alias; not with dtab8) and o2w12 the [n_instances,
+// 12] f32 objectToWorld rows; atlas_words: with kHasImage the [n_images,
+// atlas_h, atlas_w] i32 packed atlas, atlas_wh its [n_images, 2] i32 sizes
+// and lut the [256] f32 sRGB table (not with dtab8); rows: [n_rows, 64] f32;
 // fparams: [40] f32 (layout above); flags: kUseDof | kHasChecker |
 // kHasEmissive | kHasNoise | kHasImage (the last two pick the noise and
 // image forms); sums: [height * width, 3] f32 out; traced: [height * width]
 // i32 out.  Launches on `stream` without synchronising and returns
 // cudaGetLastError().
-extern "C" int megakernel_launch(const void* table8, const void* dtab8, const void* times,
-                                 int s8, const void* tris12, int t8, const void* tri_boxes,
-                                 int n_clusters, int cluster_g, int s_pad, const void* lights16,
-                                 const void* o2w12, const void* atlas_words, const void* atlas_wh,
-                                 int n_images, int atlas_h, int atlas_w, const void* lut,
-                                 const void* rows, int n_rows, const void* fparams, int width,
-                                 int height, int sqrt_spp, int spp_local, int n_batches,
-                                 int batch0, int sample_base, int max_depth, int flags,
-                                 void* sums, void* traced, void* stream) {
+extern "C" int megakernel_launch(MEGA_PARAMS) {
   if (tris12 != nullptr && (dtab8 != nullptr || tri_boxes == nullptr || cluster_g <= 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -989,17 +1136,21 @@ extern "C" int megakernel_launch(const void* table8, const void* dtab8, const vo
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtab8 != nullptr && times == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const bool image = flags & kHasImage;
-  if (image && (atlas_words == nullptr || atlas_wh == nullptr || lut == nullptr ||
-                n_images < 1 || atlas_h < 1 || atlas_w < 1)) {
+  if ((flags & kHasImage) && (atlas_words == nullptr || atlas_wh == nullptr || lut == nullptr ||
+                            n_images < 1 || atlas_h < 1 || atlas_w < 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (flags & kHasNoise) {
-    return image ? dispatch<true, true>(MEGA_ARGS) : dispatch<true, false>(MEGA_ARGS);
+  if (sph_boxes != nullptr) {
+    if (n_sph_clusters < 1 || n_sph_clusters > 128 || sph_g < 1 || n_prefix < 0 ||
+        n_prefix + n_sph_clusters * sph_g < n_sph) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return dispatch_textures<true>(MEGA_ARGS);
   }
-  return image ? dispatch<false, true>(MEGA_ARGS) : dispatch<false, false>(MEGA_ARGS);
-#undef MEGA_ARGS
+  return dispatch_textures<false>(MEGA_ARGS);
 }
+#undef MEGA_ARGS
+#undef MEGA_PARAMS
 
 extern "C" const char* megakernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -104,6 +104,9 @@ class SceneStatic:
     height: int
     use_fat_shading: bool
     num_spheres: int = 0
+    # Spheres swept densely before the rest, which lie in Morton clusters
+    # (models/sphere_order.apply_sphere_order); 0 = no cluster layout.
+    sph_prefix: int = 0
     # Set by the Renderer once every sphere has a world-space table
     # (uniform scale), as in the JAX package.
     sphere_world_mode: bool = False
@@ -224,6 +227,7 @@ def scene_static(cs: CompiledScene) -> SceneStatic:
         height=int(cs.render.height),
         use_fat_shading=cs.shade_rows is not None,
         num_spheres=int(cs.num_spheres),
+        sph_prefix=int(cs.sph_prefix),
         has_spheres=bool(cs.num_spheres > 0),
         num_triangles=int(cs.num_triangles),
         tri_cluster_g=int(cs.tri_cluster_g),

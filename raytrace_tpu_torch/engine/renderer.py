@@ -233,7 +233,8 @@ class Renderer:
                 tab0, dtab8 = (torch.tensor(t, device=self.device)
                                for t in tables)
                 self._anim_geom = prepare_batch(self.static, self.scene,
-                                                tab0, sph_dtab=dtab8)
+                                                tab0, sph_dtab=dtab8,
+                                                fused=True)
         if not self.use_megakernel:
             self.path = "wavefront"
         elif not self.static.any_animated:
@@ -274,7 +275,8 @@ class Renderer:
                                 self.batch_times_dev[batch])
         return prepare_batch(self.static, self.scene, sph_table, tris=tris,
                              batch_time=self.batch_times_dev[batch],
-                             atlas_words=self._atlas_words)
+                             atlas_words=self._atlas_words,
+                             fused=self.use_megakernel)
 
     def _record(self, batches: int, rays: int, t0: float) -> None:
         dt = _time.perf_counter() - t0

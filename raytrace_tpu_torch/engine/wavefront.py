@@ -89,6 +89,11 @@ class BatchGeometry(NamedTuple):
     # The fused kernel's copy of the image atlas (engine/arrays.pack_atlas),
     # in a scene with an image texture; the wavefront reads scene.atlas.
     atlas_words: Optional[torch.Tensor] = None
+    # The fused kernel's [C, 8] sphere cluster boxes
+    # (ops/megakernel.sphere_cluster_boxes; with sph_dtab8, the union over
+    # the shutter), in a scene with its spheres in clusters, on the fused
+    # path only.
+    sph_boxes: Optional[torch.Tensor] = None
 
 
 def _compact_size(R: int) -> int:
@@ -177,8 +182,8 @@ def prepare_batch(static: SceneStatic, scene: SceneArrays,
                   sph_dtab: Optional[torch.Tensor] = None,
                   tris: Optional[dict] = None,
                   batch_time: Optional[torch.Tensor] = None,
-                  atlas_words: Optional[torch.Tensor] = None
-                  ) -> BatchGeometry:
+                  atlas_words: Optional[torch.Tensor] = None,
+                  fused: bool = False) -> BatchGeometry:
     """Kernel tables and fat rows for one batch.
 
     sph_table: [S, 5] world sphere rows at the batch time
@@ -201,7 +206,10 @@ def prepare_batch(static: SceneStatic, scene: SceneArrays,
     [44:48]; a triangle's row also holds uv0, uv1 - uv0 and uv2 - uv0 in
     [58:64], for the fused kernel, which reads ``atlas_words`` (the
     packed atlas, engine/arrays.pack_atlas) where the wavefront reads the
-    scene's atlas.
+    scene's atlas.  With ``fused`` (the geometry feeds the fused kernel), a
+    scene with its spheres in clusters (ops/megakernel.
+    sphere_cluster_layout) gets the clusters' boxes, built on the table's
+    device; the wavefront reads none.
     """
     s_pad = scene.sph_center.shape[0]
     P = scene.shade_rows.shape[0]
@@ -241,9 +249,13 @@ def prepare_batch(static: SceneStatic, scene: SceneArrays,
     if static.has_lights and extra.get("inst_o2w_rows") is None:
         raise ValueError("a scene with lights needs the batch time (or "
                          "prepare_tris's tables)")
-    return BatchGeometry(sph_table8=sphere_sweep.pad_table8(sph_table),
-                         prim_rows=rows, sph_dtab8=sph_dtab,
-                         atlas_words=atlas_words, **extra)
+    table8 = sphere_sweep.pad_table8(sph_table)
+    layout = megakernel.sphere_cluster_layout(static) if fused else None
+    if layout is not None:
+        extra["sph_boxes"] = megakernel.sphere_cluster_boxes(
+            table8, *layout, dtab8=sph_dtab)
+    return BatchGeometry(sph_table8=table8, prim_rows=rows,
+                         sph_dtab8=sph_dtab, atlas_words=atlas_words, **extra)
 
 
 def combine_hits(sph: Optional[SphereHit], tri: Optional[Hit], s_pad: int,

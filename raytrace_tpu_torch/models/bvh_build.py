@@ -19,17 +19,24 @@ from .transform import quat_slerp, quat_to_mat3
 
 def _instance_matrix_at(inst_t0: np.ndarray, inst_t1: np.ndarray, t: float) -> np.ndarray:
     """[I,10] TRS pairs → [I,3,4] object-to-world at time t (host mirror of
-    ops/transforms.interpolate_instances)."""
-    I = inst_t0.shape[0]
-    out = np.zeros((I, 3, 4), np.float64)
-    for i in range(I):
+    ops/transforms.interpolate_instances).  Each distinct (t0, t1) pair,
+    compared by its bytes, is computed once: the same operations on the
+    same inputs, so the result is the per-instance loop's, bit for bit,
+    while a scene of 16,384 untransformed instances costs one."""
+    pairs = np.ascontiguousarray(np.concatenate([inst_t0, inst_t1], axis=1))
+    keys = pairs.view(np.dtype((np.void, pairs.dtype.itemsize
+                                * pairs.shape[1])))[:, 0]
+    _, first, inverse = np.unique(keys, return_index=True,
+                                  return_inverse=True)
+    out = np.zeros((len(first), 3, 4), np.float64)
+    for u, i in enumerate(first):
         tr = (1 - t) * inst_t0[i, 0:3] + t * inst_t1[i, 0:3]
         q = quat_slerp(inst_t0[i, 3:7], inst_t1[i, 3:7], t)
         sc = (1 - t) * inst_t0[i, 7:10] + t * inst_t1[i, 7:10]
         m = quat_to_mat3(q) * sc[None, :]
-        out[i, :, :3] = m
-        out[i, :, 3] = tr
-    return out
+        out[u, :, :3] = m
+        out[u, :, 3] = tr
+    return out[inverse.reshape(-1)]
 
 
 def permute_soup(cs, order: np.ndarray):

@@ -9,9 +9,28 @@ the per-pixel bounce counts.  ``render_tile_mega`` is the one entry point:
 for tensors on the CPU it runs the plain version, for CUDA tensors it
 launches the kernel on the current stream, or raises.  ``LAUNCHES`` counts
 kernel launches, ``ANIM_LAUNCHES``, ``TRI_LAUNCHES``, ``LIGHT_LAUNCHES``,
-``NOISE_LAUNCHES`` and ``IMAGE_LAUNCHES`` those of the animated, the
-triangle, the lit, the noise and the image forms, so a run can show that
-its main path went through the kernel.
+``NOISE_LAUNCHES``, ``IMAGE_LAUNCHES`` and ``SPHERE_CLUSTER_LAUNCHES``
+those of the animated, the triangle, the lit, the noise, the image and the
+clustered-sphere forms, so a run can show that its main path went through
+the kernel.
+
+Spheres in clusters: a scene whose sphere block the compiler put in
+Morton clusters (``SceneStatic.sph_prefix`` > 0, models/sphere_order.py)
+takes the clustered twin of its form (``MegaConfig.n_sph_clusters`` > 0)
+when the clusters number at most ``MAX_SPHERE_CLUSTERS``: the kernel
+sweeps the prefix densely, then visits the clusters in ascending order,
+slab-tests each cluster's box (``sphere_cluster_boxes``, built with the
+batch's geometry as ``BatchGeometry.sph_boxes``, widened by the ray's
+rounding margin, ``sphere_cluster_pretest``) against the ray's best t
+so far, and tests the spheres of the clusters that pass with the dense
+sweep's operations.  The result is the dense sweep's (t, id), bit for
+bit: the JAX kernel's gather sweep (``_sweep`` :1389, ``_sweep_sieve``
+:1005, ``_cluster_rounds_gather`` :550) as its contract, without its
+TPU mechanisms (the MXU sieve, lane gathers, rounds and bands).  Such a
+scene may hold MAX_SPHERES_CLUSTERED spheres, whose rows the clustered
+forms read from global memory.  ``sphere_cluster_sweep_reference`` is
+the clustered loop in plain PyTorch; ``megakernel_reference`` keeps the
+dense sweep, the yardstick the kernel is held to.
 
 The kernel covers spheres in world space, triangle soups in world space,
 fat-row shading with constant, checker, noise and image textures, and
@@ -50,8 +69,8 @@ number of batches.  Otherwise the static kernel renders one batch per
 launch from that batch's world table.
 
 The TPU kernel's lane machinery (q-pixel lanes, snake permutations, pair
-stealing), its row-fetch matmul and its sub-linear sweeps are TPU
-mechanisms and have no counterpart here.
+stealing), its row-fetch matmul, its MXU, sieve and selective sphere
+sweeps are TPU mechanisms and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -63,32 +82,47 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..models.sphere_order import effective_cluster_g
 from . import _build, sphere_sweep, tri_sweep, vec3
 from .intersect import T_MAX, T_MIN, Hit
-from .spheres import SphereHit
+from .spheres import SphereHit, intersect_spheres_world
 from .vec3 import V3
 
-# Launches of the kernel, of any form, and of its animated, triangle, lit
-# and noise forms alone.
+# Launches of the kernel, of any form, and of its animated, triangle, lit,
+# noise, image and clustered-sphere forms alone.
 LAUNCHES = 0
 ANIM_LAUNCHES = 0
 TRI_LAUNCHES = 0
 LIGHT_LAUNCHES = 0
 NOISE_LAUNCHES = 0
 IMAGE_LAUNCHES = 0
+SPHERE_CLUSTER_LAUNCHES = 0
 
 _N_PARAMS = 40  # csrc/megakernel.cu kNumParams
 _USE_DOF, _HAS_CHECKER, _HAS_EMISSIVE, _HAS_NOISE, _HAS_IMAGE = 1, 2, 4, 8, 16
 
-# The kernel stages the sphere table in shared memory, of which a block
+# The dense forms stage the sphere table in shared memory, of which a block
 # may use 227 KiB on the H100.  A static sphere takes two float4 (32 B):
 # 4096 spheres take 128 KiB.  An animated sphere takes three (48 B: its
 # time-0 row, k with its motion terms k1 and k2, its centre's delta), so
 # 4096 take 192 KiB, and the cap that fits is above the static one.
-# Scenes with more spheres render on the wavefront.
+# Scenes with more spheres render on the wavefront, unless they are in
+# clusters.
 _SMEM_BYTES = 232_448
 MAX_SPHERES = 4096
 MAX_SPHERES_ANIM = min(MAX_SPHERES, (_SMEM_BYTES - 4 * _N_PARAMS) // 48)
+
+# Spheres in clusters (models/sphere_order.py): at most MAX_SPHERE_CLUSTERS
+# boxes of 32 B in shared memory (the JAX gather table's 128 lanes,
+# raytrace_tpu/ops/megakernel.py:2607-2611), and so at most 128 x 128
+# spheres (the JAX gate's ceiling, :2756-2781).  A clustered form reads
+# the sphere rows from global memory through the read-only cache, where a
+# ray reads only the rows of the clusters it enters; it stages only the
+# boxes.  SPHERE_ROUNDING (32 u, u = 2^-24) scales the pretest's rounding
+# margin (sphere_cluster_pretest).
+MAX_SPHERE_CLUSTERS = 128
+MAX_SPHERES_CLUSTERED = 16384
+SPHERE_ROUNDING = 2.0 ** -19
 
 # Triangles the kernel takes: a clustered soup (models/sphere_order.
 # apply_triangle_order) of at most MAX_TRI_CLUSTERS clusters, each box 32 B
@@ -127,13 +161,37 @@ class MegaConfig(NamedTuple):
     n_tris: int     # the real triangles, the rows the kernel sweeps
     tri_g: int      # triangles per cluster
     n_clusters: int
+    n_sph: int      # the real spheres, the rows the kernel sweeps
+    # The clustered sphere sweep: the dense prefix, spheres per cluster and
+    # clusters (all 0 for a scene without the cluster layout).
+    n_prefix: int
+    sph_g: int
+    n_sph_clusters: int
+
+
+def sphere_cluster_layout(static):
+    """(n_prefix, G, C) of the kernel's clustered sphere sweep, or None
+    for a scene it sweeps densely: the scene's Morton cluster layout
+    (``sph_prefix`` > 0) when its n_local = num_spheres - n_prefix spheres
+    make at most MAX_SPHERE_CLUSTERS clusters of G =
+    effective_cluster_g(n_local) (raytrace_tpu/ops/megakernel.py
+    make_config :2602-2611, its default ``sweep="auto"``)."""
+    n_prefix = static.sph_prefix
+    if n_prefix <= 0:
+        return None
+    n_local = static.num_spheres - n_prefix
+    G = effective_cluster_g(n_local)
+    C = -(-n_local // G)
+    return (n_prefix, G, C) if C <= MAX_SPHERE_CLUSTERS else None
 
 
 def megakernel_supported(static) -> bool:
     """Scenes the fused kernel covers: spheres in world space (uniform
-    scale, so the world table holds), fat-row shading, at most MAX_SPHERES
-    spheres (MAX_SPHERES_ANIM when they move), and at most MAX_TRIANGLES
-    triangles in clusters or MAX_TRIANGLES_DENSE in file order; with or
+    scale, so the world table holds), fat-row shading, at most
+    MAX_SPHERES_CLUSTERED spheres in clusters (``sphere_cluster_layout``),
+    else at most MAX_SPHERES (MAX_SPHERES_ANIM when they move), and at
+    most MAX_TRIANGLES triangles in clusters or MAX_TRIANGLES_DENSE in
+    file order; with or
     without lights, with or without noise and image textures
     (raytrace_tpu/ops/megakernel.py:2743-2785, as one predicate; the JAX
     gate has no noise exclusion, whatever its comment at :107 says, and
@@ -149,7 +207,10 @@ def megakernel_supported(static) -> bool:
     the JAX gate refuses any ``bvh_mode`` but "none" (:2752).  Every other
     scene renders on the wavefront.  The Renderer's triangle ceiling reads
     this gate too."""
-    cap = MAX_SPHERES_ANIM if static.any_animated else MAX_SPHERES
+    if sphere_cluster_layout(static) is not None:
+        cap = MAX_SPHERES_CLUSTERED
+    else:
+        cap = MAX_SPHERES_ANIM if static.any_animated else MAX_SPHERES
     tri_max = (MAX_TRIANGLES if static.tri_cluster_g > 0
                else MAX_TRIANGLES_DENSE)
     return (static.bvh_mode == "none"
@@ -213,32 +274,171 @@ def cluster_boxes(table16: torch.Tensor, num_real: int,
     return out
 
 
-def cluster_pretest(o: V3, d: V3, boxes: torch.Tensor,
-                    best_t: torch.Tensor) -> torch.Tensor:
-    """[C, R] bool: the kernel's slab pretest of every ray against every
-    cluster box, given each ray's best t so far; a cluster that fails
-    cannot hold a hit closer than best_t (csrc/megakernel.cu sweep_tris,
-    raytrace_tpu/ops/megakernel.py:1262-1280)."""
-    def inv(x):
-        return 1.0 / torch.where(x.abs() < _SLAB_EPS,
-                                 torch.where(x < 0.0, -_SLAB_EPS, _SLAB_EPS),
-                                 x)
-
+def _slab_pretest(o: V3, d: V3, lo, hi, best_t: torch.Tensor):
+    """The kernel's slab test of the rays against boxes whose per-axis
+    bounds lo[axis] and hi[axis] broadcast against them, pruned by each
+    ray's best t so far: te <= tx, tx > T_MIN and te < best_t * 1.0001 +
+    1e-4, with |d| kept at least _SLAB_EPS in 1 / d
+    (raytrace_tpu/ops/megakernel.py:1262-1280)."""
     te = tx = None
-    for ax, (oa, da) in enumerate(zip(o, d)):
-        iv = inv(da)
-        a0 = (boxes[:, ax:ax + 1] - oa) * iv
-        a1 = (boxes[:, 4 + ax:5 + ax] - oa) * iv
+    for oa, da, lo_a, hi_a in zip(o, d, lo, hi):
+        iv = 1.0 / torch.where(da.abs() < _SLAB_EPS,
+                               torch.where(da < 0.0, -_SLAB_EPS, _SLAB_EPS),
+                               da)
+        a0 = (lo_a - oa) * iv
+        a1 = (hi_a - oa) * iv
         tn, tf = torch.minimum(a0, a1), torch.maximum(a0, a1)
         te = tn if te is None else torch.maximum(te, tn)
         tx = tf if tx is None else torch.minimum(tx, tf)
     return (te <= tx) & (tx > T_MIN) & (te < best_t * 1.0001 + 1e-4)
 
 
+def cluster_pretest(o: V3, d: V3, boxes: torch.Tensor,
+                    best_t: torch.Tensor) -> torch.Tensor:
+    """[C, R] bool: the kernel's slab pretest of every ray against every
+    cluster box, given each ray's best t so far; a cluster that fails
+    cannot hold a hit closer than best_t (csrc/megakernel.cu sweep_tris)."""
+    return _slab_pretest(o, d, [boxes[:, ax:ax + 1] for ax in range(3)],
+                         [boxes[:, 4 + ax:5 + ax] for ax in range(3)],
+                         best_t)
+
+
+def sphere_cluster_boxes(table8: torch.Tensor, n_prefix: int, G: int,
+                         C: int, dtab8=None) -> torch.Tensor:
+    """[C, 8] boxes of the G-sphere clusters of the [S8, 8] table's rows
+    past ``n_prefix``, in f32: columns 0:3 and 4:7 the min and max of
+    c -/+ |r| over each cluster's valid rows (k < 1e37; rows past S8 are
+    padding), widened by 1e-5 + 1e-5 max(|min|, |max|)
+    (raytrace_tpu/ops/megakernel.py cluster_aabbs :2185-2207); column 3
+    SPHERE_ROUNDING / the least positive radius and column 7 the most
+    |c| + |r|, the terms of the pretest's rounding margin
+    (``sphere_cluster_pretest``).  With ``dtab8`` (the spheres' linear
+    motion, table8 at shutter time 0) a box is the union of the boxes at
+    c0 and at c0 + dc, which holds the spheres at every time in [0, 1]:
+    the radii are fixed (:2364-2378).  A cluster without a valid sphere
+    gets the point box at (_BIGF, _BIGF, _BIGF) and no margin, which the
+    pretest never passes (as ``cluster_boxes``)."""
+    take = min(C * G, table8.shape[0] - n_prefix)
+    grid = torch.zeros((C * G, 8), dtype=torch.float32, device=table8.device)
+    grid[:, 4] = _BIGF
+    grid[:take] = table8[n_prefix:n_prefix + take]
+
+    def bounds(rows):
+        g = rows.reshape(C, G, 8)
+        c, r = g[..., 0:3], g[..., 3:4].abs()
+        valid = g[..., 4:5] < 1e37
+        mn = torch.where(valid, c - r, _BIGF).amin(dim=1)
+        mx = torch.where(valid, c + r, -_BIGF).amax(dim=1)
+        pad = 1e-5 + 1e-5 * torch.maximum(mn.abs(), mx.abs())
+        reach = torch.where(valid[..., 0], torch.linalg.vector_norm(c, dim=-1)
+                            + r[..., 0], 0.0).amax(dim=1)
+        return mn - pad, mx + pad, reach
+
+    mn, mx, reach = bounds(grid)
+    if dtab8 is not None:
+        moved = grid.clone()
+        moved[:take, 0:3] = grid[:take, 0:3] + dtab8[n_prefix:n_prefix + take,
+                                                     0:3]
+        mn1, mx1, reach1 = bounds(moved)
+        mn, mx = torch.minimum(mn, mn1), torch.maximum(mx, mx1)
+        reach = torch.maximum(reach, reach1)
+    g = grid.reshape(C, G, 8)
+    radius = torch.where((g[..., 4] < 1e37) & (g[..., 3] > 0.0), g[..., 3],
+                         _BIGF).amin(dim=1)
+    anyv = (g[..., 4] < 1e37).any(dim=1, keepdim=True)
+    out = torch.zeros((C, 8), dtype=torch.float32, device=table8.device)
+    out[:, 0:3] = torch.where(anyv, mn, _BIGF)
+    out[:, 4:7] = torch.where(anyv, mx, _BIGF)
+    out[:, 3] = torch.where(radius < _BIGF, SPHERE_ROUNDING / radius, 0.0)
+    out[:, 7] = reach
+    return out
+
+
+def sphere_cluster_pretest(o: V3, d: V3, box: torch.Tensor,
+                           best_t: torch.Tensor) -> torch.Tensor:
+    """[R] bool: the kernel's pretest of one sphere cluster's box
+    (``sphere_cluster_boxes`` row) against every ray: the slab test and
+    prune of ``cluster_pretest`` on the box widened by the ray's rounding
+    margin m = (|o| + reach)^2 * box[3], reach = box[7] (csrc/megakernel.cu
+    sweep_sphere_clusters).  m bounds how far outside a sphere the dense
+    sweep's f32 quadratic can report a hit: its discriminant's error is
+    below ~18 u a S^2 (S = |o| + |c| + |r|, u = 2^-24), so a reported hit
+    lies within (S^2 * SPHERE_ROUNDING / (2 r)) of the sphere, and with
+    SPHERE_ROUNDING = 32 u the margin also covers the error of the
+    reported t.  Without it the JAX pad alone lets a ray from far away
+    (|o| ~ 1,800 inside final-one-weekend's ground sphere) keep a hit the
+    dense sweep does not report."""
+    s = torch.sqrt(o.x * o.x + o.y * o.y + o.z * o.z) + box[7]
+    m = s * s * box[3]
+    return _slab_pretest(o, d, [box[ax] - m for ax in range(3)],
+                         [box[4 + ax] + m for ax in range(3)], best_t)
+
+
+def moved_table(table8: torch.Tensor, dtab8: torch.Tensor,
+                t: torch.Tensor) -> torch.Tensor:
+    """The animated kernel's sphere table at shutter time t (a 0-dim f32
+    tensor): c + t * dc and k + t * (k1 + t * k2), in f32
+    (raytrace_tpu/ops/megakernel.py:1420-1436)."""
+    out = table8.clone()
+    out[:, 0:3] = table8[:, 0:3] + t * dtab8[:, 0:3]
+    out[:, 4] = table8[:, 4] + t * (dtab8[:, 4] + t * dtab8[:, 5])
+    return out
+
+
+def sphere_cluster_sweep_reference(o: V3, d: V3, table8: torch.Tensor,
+                                   boxes: torch.Tensor, n_prefix: int,
+                                   G: int, dtab8=None, t=None, work=None):
+    """The kernel's clustered sphere sweep in plain PyTorch: (t [R] f32,
+    id [R] int32), (T_MAX, -1) on a miss.  The prefix is swept densely,
+    then the clusters in ascending order, each pretested
+    (``sphere_cluster_pretest``, the kernel's) against every ray's best t
+    so far and its spheres tested, for the rays whose pretest passes,
+    with the dense sweep's arithmetic (ops/spheres.intersect_spheres_world)
+    under strict <.  With ``dtab8`` the spheres first move to time ``t``
+    (``moved_table``).  A ``work`` dict gets the rays, the prefix tests,
+    the box tests and the tests of the real spheres of the clusters that
+    pass, summed."""
+    if dtab8 is not None:
+        table8 = moved_table(table8, dtab8, t)
+    R = o.x.shape[0]
+    dev = o.x.device
+    best_t = torch.full((R,), T_MAX, dtype=torch.float32, device=dev)
+    best_id = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    if n_prefix > 0:
+        hit = intersect_spheres_world(o, d, table8[:n_prefix])
+        best_t, best_id = hit.t, hit.sph
+    real = (table8[:, 4] < 1e37).nonzero()
+    n_real = int(real[-1]) + 1 if real.numel() else 0
+    for c in range(boxes.shape[0]):
+        j0, j1 = n_prefix + c * G, min(n_prefix + (c + 1) * G, n_real)
+        rays = sphere_cluster_pretest(o, d, boxes[c], best_t).nonzero()[:, 0]
+        if work is not None:
+            work["box_tests"] = work.get("box_tests", 0) + R
+            work["sphere_tests"] = (work.get("sphere_tests", 0)
+                                    + rays.numel() * max(j1 - j0, 0))
+        if rays.numel() == 0 or j1 <= j0:
+            continue
+        hit = intersect_spheres_world(V3(*(x[rays] for x in o)),
+                                      V3(*(x[rays] for x in d)),
+                                      table8[j0:j1])
+        better = hit.t < best_t[rays]
+        best_t[rays] = torch.where(better, hit.t, best_t[rays])
+        best_id[rays] = torch.where(better, hit.sph + j0, best_id[rays])
+    if work is not None:
+        work["rays"] = work.get("rays", 0) + R
+        work["prefix_tests"] = work.get("prefix_tests", 0) + R * n_prefix
+    return best_t, best_id
+
+
 def make_config(static, geom, use_dof: bool, n_batches: int) -> MegaConfig:
     spp = static.sqrt_spp ** 2
     tris = geom.tri_table12 is not None
     T8 = geom.tri_table12.shape[0] if tris else 0
+    S8 = geom.sph_table8.shape[0]
+    n_sph = min(S8, static.num_spheres)
+    layout = sphere_cluster_layout(static)
+    n_prefix, sph_g, n_sph_clusters = layout or (0, 0, 0)
+    anim = geom.sph_dtab8 is not None
     return MegaConfig(
         width=static.width, height=static.height, sqrt_spp=static.sqrt_spp,
         spp=spp, spp_local=spp, n_batches=int(n_batches),
@@ -247,12 +447,14 @@ def make_config(static, geom, use_dof: bool, n_batches: int) -> MegaConfig:
         has_emissive=static.flags.has_emissive,
         has_noise=static.flags.has_noise,
         has_image=static.flags.has_image,
-        anim=geom.sph_dtab8 is not None, tris=tris,
+        anim=anim, tris=tris,
         lights=bool(static.has_lights),
-        S8=geom.sph_table8.shape[0], P=geom.prim_rows.shape[0], T8=T8,
+        S8=S8, P=geom.prim_rows.shape[0], T8=T8,
         n_tris=min(T8, static.num_triangles),
         tri_g=tri_group(static, T8) if tris else 0,
-        n_clusters=geom.tri_boxes.shape[0] if tris else 0)
+        n_clusters=geom.tri_boxes.shape[0] if tris else 0,
+        n_sph=n_sph, n_prefix=n_prefix, sph_g=sph_g,
+        n_sph_clusters=n_sph_clusters)
 
 
 def _float_params(cfg: MegaConfig, static, scene, cam) -> torch.Tensor:
@@ -280,13 +482,9 @@ def _float_params(cfg: MegaConfig, static, scene, cam) -> torch.Tensor:
 def geometry_at(geom, t: torch.Tensor):
     """An animated geometry at shutter time t (a 0-dim f32 tensor): the
     static geometry whose table and rows hold the moved spheres.  The
-    arithmetic is the kernel's: c + t * dc for each centre coordinate,
-    k + t * (k1 + t * k2), in f32 (raytrace_tpu/ops/megakernel.py:1420-1436
-    and :1876-1882)."""
-    tab, dt = geom.sph_table8, geom.sph_dtab8
-    table8 = tab.clone()
-    table8[:, 0:3] = tab[:, 0:3] + t * dt[:, 0:3]
-    table8[:, 4] = tab[:, 4] + t * (dt[:, 4] + t * dt[:, 5])
+    arithmetic is the kernel's (``moved_table``, and the centre in the
+    rows as raytrace_tpu/ops/megakernel.py:1876-1882 moves it)."""
+    table8 = moved_table(geom.sph_table8, geom.sph_dtab8, t)
     rows = geom.prim_rows.clone()
     rows[:, 44:47] = rows[:, 44:47] + t * rows[:, 49:52]
     return geom._replace(sph_table8=table8, prim_rows=rows, sph_dtab8=None)
@@ -356,10 +554,13 @@ def _check_inputs(cfg: MegaConfig, scene, geom, params, times,
                          "tensor on the table's device")
     if params.device != device:
         raise ValueError("camera and scene must be on the table's device")
-    cap = MAX_SPHERES_ANIM if cfg.anim else MAX_SPHERES
-    if cfg.S8 > cap:
-        raise ValueError(f"{cfg.S8} table rows: the kernel holds at most "
-                         f"{cap} spheres (megakernel_supported)")
+    if cfg.n_sph_clusters:
+        _check_sphere_clusters(cfg, geom, device)
+    else:
+        cap = MAX_SPHERES_ANIM if cfg.anim else MAX_SPHERES
+        if cfg.n_sph > cap:
+            raise ValueError(f"{cfg.n_sph} spheres: the kernel holds at most "
+                             f"{cap} outside clusters (megakernel_supported)")
     if table8.data_ptr() % 16:
         raise ValueError("sph_table8 must be 16-byte aligned (float4 loads)")
     if cfg.tris:
@@ -381,6 +582,27 @@ def _check_inputs(cfg: MegaConfig, scene, geom, params, times,
             or times.shape[0] < batch0 + cfg.n_batches):
         raise ValueError("times must be a contiguous float32 [B] tensor on "
                          "the table's device with a time for every batch")
+
+
+def _check_sphere_clusters(cfg: MegaConfig, geom, device) -> None:
+    boxes = geom.sph_boxes
+    if boxes is None:
+        raise ValueError("a scene with its spheres in clusters needs "
+                         "sph_boxes (engine/wavefront.prepare_batch)")
+    if (boxes.dtype != torch.float32
+            or boxes.shape != (cfg.n_sph_clusters, 8)
+            or boxes.device != device or not boxes.is_contiguous()
+            or boxes.data_ptr() % 16):
+        raise ValueError(f"sph_boxes must be a contiguous, 16-byte aligned "
+                         f"float32 [{cfg.n_sph_clusters}, 8] tensor on the "
+                         f"table's device")
+    if (cfg.n_sph > MAX_SPHERES_CLUSTERED
+            or cfg.n_sph_clusters > MAX_SPHERE_CLUSTERS
+            or cfg.n_prefix + cfg.n_sph_clusters * cfg.sph_g < cfg.n_sph):
+        raise ValueError(f"{cfg.n_sph} spheres in {cfg.n_sph_clusters} "
+                         f"clusters of {cfg.sph_g}: the kernel holds at most "
+                         f"{MAX_SPHERES_CLUSTERED} in {MAX_SPHERE_CLUSTERS} "
+                         f"(megakernel_supported)")
 
 
 def _check_tris(cfg: MegaConfig, geom, device) -> None:
@@ -460,7 +682,7 @@ def render_tile_mega(static, scene, geom, cam, batch0: int,
     (``geom.sph_dtab8``) needs ``times``, every batch's shutter time
     ([B] f32 on the geometry's device); a static one ignores it."""
     global LAUNCHES, ANIM_LAUNCHES, TRI_LAUNCHES, LIGHT_LAUNCHES
-    global NOISE_LAUNCHES, IMAGE_LAUNCHES
+    global NOISE_LAUNCHES, IMAGE_LAUNCHES, SPHERE_CLUSTER_LAUNCHES
     device = geom.sph_table8.device
     cfg = make_config(static, geom, use_dof, n_batches)
     if cfg.anim and times is None:
@@ -487,13 +709,16 @@ def render_tile_mega(static, scene, geom, cam, batch0: int,
                  | (_HAS_NOISE if cfg.has_noise else 0)
                  | (_HAS_IMAGE if cfg.has_image else 0))
         image = cfg.has_image
+        clustered = cfg.n_sph_clusters > 0
         err = lib.megakernel_launch(
             geom.sph_table8.data_ptr(),
             geom.sph_dtab8.data_ptr() if cfg.anim else None,
-            times.data_ptr() if cfg.anim else None, cfg.S8,
+            times.data_ptr() if cfg.anim else None, cfg.n_sph,
             geom.tri_table12.data_ptr() if cfg.tris else None, cfg.n_tris,
             geom.tri_boxes.data_ptr() if cfg.tris else None, cfg.n_clusters,
             cfg.tri_g, cfg.S8,
+            geom.sph_boxes.data_ptr() if clustered else None, cfg.n_prefix,
+            cfg.sph_g, cfg.n_sph_clusters,
             scene.light_tri_packed.data_ptr() if cfg.lights else None,
             geom.inst_o2w_rows.data_ptr() if cfg.lights else None,
             geom.atlas_words.data_ptr() if image else None,
@@ -515,6 +740,7 @@ def render_tile_mega(static, scene, geom, cam, batch0: int,
         LIGHT_LAUNCHES += cfg.lights
         NOISE_LAUNCHES += cfg.has_noise
         IMAGE_LAUNCHES += cfg.has_image
+        SPHERE_CLUSTER_LAUNCHES += clustered
     if reduce_mean:
         sums = sums / float(np.float32(cfg.spp_local * cfg.n_batches))
     return sums, traced
@@ -525,9 +751,9 @@ def library() -> ctypes.CDLL:
     """The kernel's shared library, built from csrc/ at first use."""
     lib = _build.load_library("megakernel")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.megakernel_launch.argtypes = [p, p, p, i, p, i, p, i, i, i, p, p, p,
-                                      p, i, i, i, p, p, i, p, i, i, i, i, i,
-                                      i, i, i, i, p, p, p]
+    lib.megakernel_launch.argtypes = [p, p, p, i, p, i, p, i, i, i, p, i, i,
+                                      i, p, p, p, p, i, i, i, p, p, i, p,
+                                      i, i, i, i, i, i, i, i, i, p, p, p]
     lib.megakernel_launch.restype = i
     lib.megakernel_error_string.argtypes = [i]
     lib.megakernel_error_string.restype = ctypes.c_char_p

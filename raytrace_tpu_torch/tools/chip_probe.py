@@ -7,6 +7,7 @@
     python3 raytrace_tpu_torch/tools/chip_probe.py paged [TREE]
     python3 raytrace_tpu_torch/tools/chip_probe.py noise [TREE]
     python3 raytrace_tpu_torch/tools/chip_probe.py image [TREE]
+    python3 raytrace_tpu_torch/tools/chip_probe.py spheres [TREE]
 
 TREE is the root of a checkout whose ``raytrace_tpu_torch`` is measured
 (default: the checkout holding this file), so two trees can be compared on
@@ -67,6 +68,18 @@ not with ``-m``, so that the package comes from TREE.
   version (bit for bit or not, texel ids of the primary hits, the plain
   version's seconds) and times it (kernel median of 3), steps that batch
   through ``Renderer`` with defaults, and one batch of earth-motion-blur.
+- ``spheres``: builds the fused kernel and prints nvcc's register report;
+  holds each form of its clustered sphere sweep against the plain version
+  on the small docs of ``tools/stress_scenes.cluster_form_checks`` (2
+  batches in one launch; bit for bit or not, two launches byte-identical,
+  the clustered launches counted); holds one full batch of
+  final-one-weekend (1200x675), its motion-blur twin and stress-4x
+  (1024x576) against the plain version (bit for bit or not) and times the
+  clustered form and the dense form (kernel medians of 5); compiles stress-16k
+  (seconds), holds a 128x72, depth-50 batch of it against the plain
+  version, times its full batch and holds it against the wavefront's;
+  steps one batch of each stress scene through ``Renderer`` with
+  defaults.
 """
 
 from __future__ import annotations
@@ -492,6 +505,137 @@ def image() -> None:
           "means", r.image().mean((0, 1)))
 
 
+def _cluster_times(args, kw, dense):
+    """Kernel medians (ms, 5 launches each) of the clustered form, and of
+    the dense form (the cluster layout dropped) when ``dense``."""
+    from raytrace_tpu_torch.ops import megakernel
+
+    out = {"clusters": _med(
+        lambda: megakernel.render_tile_mega(*args, **kw), 5)}
+    if dense:
+        flat = (dataclasses.replace(args[0], sph_prefix=0),) + args[1:]
+        out["dense"] = _med(lambda: megakernel.render_tile_mega(*flat, **kw),
+                            5)
+    return out
+
+
+def spheres() -> None:
+    import tempfile
+
+    import torch
+
+    from raytrace_tpu_torch import cli
+    from raytrace_tpu_torch.engine import Renderer
+    from raytrace_tpu_torch.ops import _build, megakernel, sphere_sweep
+    from raytrace_tpu_torch.tools import image_scenes as ims
+    from raytrace_tpu_torch.tools import stress_scenes
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    print(sys.version.split()[0], torch.__version__, torch.version.cuda)
+    t0 = time.perf_counter()
+    megakernel.library()
+    print("build", time.perf_counter() - t0)
+    print(_build.library_path("megakernel").with_suffix(".log").read_text())
+    dev = torch.device("cuda:0")
+    tmp = tempfile.mkdtemp()
+    png = ims.texel_id_png(str(Path(tmp) / "small.png"), 640, 320)
+    for form, (doc, w, depth) in stress_scenes.cluster_form_checks(
+            png).items():
+        r = Renderer(_doc_scene(doc, w, depth, 2), device=dev)
+        args = (r.static, r.scene, r._geometry(0), r.camera, 0, 2)
+        kw = dict(use_dof=r.use_dof, times=r.batch_times_dev)
+        before = megakernel.SPHERE_CLUSTER_LAUNCHES
+        s1, t1 = megakernel.render_tile_mega(*args, **kw)
+        s2, t2 = megakernel.render_tile_mega(*args, **kw)
+        ref, rt = megakernel.megakernel_reference(*args, **kw)
+        torch.cuda.synchronize()
+        print(form, r.path, r.static.width, r.static.height, "depth", depth,
+              "repeat identical", torch.equal(s1, s2) and torch.equal(t1, t2),
+              "bitwise", torch.equal(s1, ref), torch.equal(t1, rt),
+              "maxdiff", (s1 - ref).abs().max().item(), "rays",
+              int(t1.sum()), int(rt.sum()), "SPHERE_CLUSTER_LAUNCHES +",
+              megakernel.SPHERE_CLUSTER_LAUNCHES - before)
+
+    stress = stress_scenes.write_sphere_stress(tmp)
+    mb = str(Path(cli.DEFAULT_SCENE).with_name(MB_SCENE))
+    full = [("final-one-weekend", lambda: _scene(cli.DEFAULT_SCENE, 1200,
+                                                 675), True),
+            ("motion-blur", lambda: _scene(mb, 1024, 576), True),
+            ("stress-4x", lambda: cli.load_scene(stress["stress-4x"]),
+             True)]
+    for label, make, dense in full:
+        t0 = time.perf_counter()
+        cs = make()
+        compile_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r = Renderer(cs, device=dev)
+        init_s = time.perf_counter() - t0
+        args = (r.static, r.scene, r._geometry(0), r.camera, 0, 1)
+        kw = dict(use_dof=r.use_dof, times=r.batch_times_dev)
+        s1, t1 = megakernel.render_tile_mega(*args, **kw)
+        t0 = time.perf_counter()
+        ref, rt = megakernel.megakernel_reference(*args, **kw)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        print(label, r.path, r.static.width, r.static.height,
+              r.static.num_spheres,
+              megakernel.sphere_cluster_layout(r.static), "compile s",
+              compile_s, "Renderer s", init_s, "bitwise",
+              torch.equal(s1, ref), torch.equal(t1, rt), "rays",
+              int(t1.sum()), "plain s", plain_s, "ms", _cluster_times(
+                  args, kw, dense))
+        del r, args, kw, s1, t1, ref, rt
+
+    t0 = time.perf_counter()
+    cs16 = cli.load_scene(stress["stress-16k"])
+    compile_s = time.perf_counter() - t0
+    small = dataclasses.replace(cs16, render=dataclasses.replace(
+        cs16.render, width=128, height=72))
+    r = Renderer(small, device=dev)
+    args = (r.static, r.scene, r._geometry(0), r.camera, 0, 1)
+    kw = dict(use_dof=r.use_dof, times=r.batch_times_dev)
+    s1, t1 = megakernel.render_tile_mega(*args, **kw)
+    s2, t2 = megakernel.render_tile_mega(*args, **kw)
+    t0 = time.perf_counter()
+    ref, rt = megakernel.megakernel_reference(*args, **kw)
+    torch.cuda.synchronize()
+    print("stress-16k 128x72 depth 50", r.path, r.static.num_spheres,
+          megakernel.sphere_cluster_layout(r.static), "compile s", compile_s,
+          "repeat identical", torch.equal(s1, s2) and torch.equal(t1, t2),
+          "bitwise", torch.equal(s1, ref), torch.equal(t1, rt), "rays",
+          int(t1.sum()), "plain s", time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    r = Renderer(cs16, device=dev)
+    init_s = time.perf_counter() - t0
+    args = (r.static, r.scene, r._geometry(0), r.camera, 0, 1)
+    kw = dict(use_dof=r.use_dof, times=r.batch_times_dev)
+    sums, traced = megakernel.render_tile_mega(*args, **kw)
+    fused = (sums / 4).cpu().numpy()
+    w = Renderer(cs16, device=dev, use_megakernel=False)
+    t0 = time.perf_counter()
+    w.render_next_batch()
+    print("stress-16k full batch", r.path, "Renderer s", init_s, "rays",
+          int(traced.sum()), w.stats.rays_traced, "channel-mean diff",
+          abs(fused.mean((0, 1)) - w.image().mean((0, 1))).max(),
+          "wavefront s", time.perf_counter() - t0, "ms",
+          _cluster_times(args, kw, False))
+    del r, w, args, kw, sums, traced
+    for name in stress_scenes.SPHERE_STRESS:
+        before = (megakernel.SPHERE_CLUSTER_LAUNCHES, sphere_sweep.LAUNCHES)
+        r = Renderer(cs16 if name == "stress-16k"
+                     else cli.load_scene(stress[name]), device=dev)
+        r.render_next_batch()
+        r.render_next_batch()
+        print(name, "main path", r.path, "Mrays/s", r.stats.mrays_per_sec,
+              "SPHERE_CLUSTER_LAUNCHES +",
+              megakernel.SPHERE_CLUSTER_LAUNCHES - before[0], "K1 +",
+              sphere_sweep.LAUNCHES - before[1], "means",
+              r.image().mean((0, 1)), "peak GiB",
+              torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+
+
 def _paged_soup_tables(T, g, c, seed, dev):
     """T random small triangles in a 10-unit box put in the paged sweep's
     order, with a duplicate pair; their page tables and dense table."""
@@ -694,7 +838,8 @@ def chunks(tree: str) -> None:
 
 def main(argv) -> int:
     if len(argv) < 2 or argv[1] not in ("anim", "chunks", "tris", "lights",
-                                        "paged", "noise", "image"):
+                                        "paged", "noise", "image",
+                                        "spheres"):
         print(__doc__, file=sys.stderr)
         return 2
     tree = str(Path(argv[2] if len(argv) > 2
@@ -709,7 +854,7 @@ def main(argv) -> int:
         chunks(tree)
     else:
         {"anim": anim, "tris": tris, "lights": lights, "paged": paged,
-         "noise": noise, "image": image}[argv[1]]()
+         "noise": noise, "image": image, "spheres": spheres}[argv[1]]()
     return 0
 
 

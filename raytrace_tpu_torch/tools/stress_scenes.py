@@ -1,4 +1,5 @@
-"""Triangle scenes for the port's tests and smoke run.
+"""Stress scenes for the port's tests and smoke run: big triangle soups
+and big sphere fields.
 
 - ``tri_stress_doc(k, obj_path)``: the JAX package's triangle stress
   scene (tools_dev/gen_tri_stress.py:27 ``tri_stress_doc``): a k x k grid
@@ -20,14 +21,29 @@
 - ``big_spheres_doc(...)``: final-one-weekend's ground sphere and its
   three large spheres alone, for rendering tessellated
   (``analytic_spheres=False``; 28,032 triangles at the default rings).
+- ``sphere_stress_doc(k, cap=0)``: the JAX package's sphere stress scene
+  (tools_dev/gen_tri_stress.py:65 ``sphere_stress_doc``):
+  final-one-weekend's small spheres tiled k x k at 22.5-unit offsets,
+  optionally trimmed to ``cap`` spheres in all; at 1024x576 (the
+  ``BENCH_STRESS.json`` shapes) with the doc's 4 spp x 25 batches and
+  depth 50.  ``SPHERE_STRESS`` names the two the port renders:
+  ``stress-4x`` (k = 2: 1,940 spheres, 121 clusters of 16) and
+  ``stress-16k`` (k = 6 cut to 16,384: 128 clusters of 128, the fused
+  kernel's most).  ``write_sphere_stress(out_dir)`` writes both.
+- ``cluster_form_checks(png)``: small docs on final-one-weekend's 488
+  spheres (and its motion-blur twin), one for each form of the fused
+  kernel's clustered sphere sweep.
 
-Run as a script to write tri-stress-<n>.json and its OBJ into a directory:
+Run as a script to write tri-stress-<n>.json and its OBJ into a directory,
+or with ``spheres`` the two sphere stress scenes:
 
     python -m raytrace_tpu_torch.tools.stress_scenes OUT_DIR [K]
+    python -m raytrace_tpu_torch.tools.stress_scenes spheres OUT_DIR
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import sys
@@ -201,6 +217,127 @@ def big_spheres_doc(ground=(64, 128), spheres=(32, 64)) -> dict:
     return doc
 
 
+# The sphere stress scenes the port renders: (k, cap) of sphere_stress_doc.
+SPHERE_STRESS = {"stress-4x": (2, 0), "stress-16k": (6, 16384)}
+
+
+def sphere_stress_doc(k: int, cap: int = 0) -> dict:
+    """final-one-weekend (assets/final-one-weekend.json) with its grid of
+    small spheres (the ``sphere_*`` primitives) tiled k x k at offsets of
+    22.5 in x and z; with ``cap``, the added spheres are trimmed so that
+    the scene holds exactly ``cap`` (tools_dev/gen_tri_stress.py:65-89)."""
+    with open(_FINAL_ONE_WEEKEND) as f:
+        doc = json.load(f)
+    prims = doc["primitives"]
+    grid = [p for p in prims
+            if "uv_sphere" in p
+            and p["uv_sphere"]["name"].startswith("sphere_")]
+    new_prims, new_insts = [], []
+    for ti in range(k):
+        for tj in range(k):
+            if ti == 0 and tj == 0:
+                continue
+            for p in grid:
+                b = copy.deepcopy(p["uv_sphere"])
+                b["name"] = f'{b["name"]}_t{ti}{tj}'
+                b["center"] = [b["center"][0] + 22.5 * ti, b["center"][1],
+                               b["center"][2] + 22.5 * tj]
+                new_prims.append({"uv_sphere": b})
+                new_insts.append({"name": b["name"]})
+    if cap:
+        n0 = sum(1 for p in prims if "uv_sphere" in p)
+        keep = max(0, cap - n0)
+        new_prims, new_insts = new_prims[:keep], new_insts[:keep]
+    doc["primitives"] = prims + new_prims
+    doc["instances"] = doc["instances"] + new_insts
+    return doc
+
+
+def write_sphere_stress(out_dir: str) -> dict:
+    """Write stress-4x.json and stress-16k.json into ``out_dir``; returns
+    their paths by name."""
+    os.makedirs(out_dir, exist_ok=True)
+    paths = {}
+    for name, (k, cap) in SPHERE_STRESS.items():
+        paths[name] = os.path.join(out_dir, name + ".json")
+        with open(paths[name], "w") as f:
+            json.dump(sphere_stress_doc(k, cap), f)
+    return paths
+
+
+def cluster_form_checks(png: str) -> dict:
+    """The small docs on which each form of the fused kernel's clustered
+    sphere sweep is held against its plain version, by form name as
+    chip_smoke.py names the forms ("static", "anim", "tris", "lights",
+    "tris+lights", each with "+noise", and each but "anim" with "+image"
+    and "+noise+image"): final-one-weekend's 488 spheres, or for "anim"
+    its motion-blur twin's, with a lambertian triangle over the big
+    spheres ("tris"), a light sphere ("lights") or a quad light
+    ("tris+lights"), the ground's albedo a marble ("noise", the book's
+    noise of scale 4), and the middle big sphere's albedo the image at
+    ``png`` ("image").  Each is (doc, 96, 8): 96 wide, depth 8.  The
+    scene's spheres keep their centres, radii and materials, but are
+    tessellated at 4 rings x 8 segments: an analytic sphere that emits no
+    light renders without its triangles, and the book's 32 x 64 take ~2 s
+    a doc to build."""
+    assets = os.path.dirname(_FINAL_ONE_WEEKEND)
+    with open(_FINAL_ONE_WEEKEND) as f:
+        static = json.load(f)
+    with open(os.path.join(assets, "final-one-weekend-motion-blur.json")) as f:
+        moving = json.load(f)
+    white = {"constant": {"name": "white4", "rgb": [4.0, 4.0, 4.0]}}
+    lamp = {"diffuse_light": {"name": "lamp", "emit": "white4"}}
+    shapes = {
+        "tris": {"triangle": {"name": "tri", "points": [[-3, -2.6, -1.5],
+                                                        [3, -2.6, -1.5],
+                                                        [0, -3.4, 1.5]],
+                              "normal": [0, -1, 0],
+                              "uv": [[0, 0], [1, 0], [0.5, 1]],
+                              "material": "material2"}},
+        "lights": {"uv_sphere": {"name": "lamp_ball", "center": [2, -4, 2],
+                                 "radius": 0.5, "rings": 8, "segments": 16,
+                                 "material": "lamp"}},
+        "tris+lights": {"quad": {"name": "lamp_quad",
+                                 "points": [[-2, -4, -2], [2, -4, -2],
+                                            [2, -4, 2], [-2, -4, 2]],
+                                 "normal": [0, 1, 0],
+                                 "uv": [[0, 0], [1, 0], [1, 1], [0, 1]],
+                                 "material": "lamp"}}}
+
+    for doc in (static, moving):
+        for p in doc["primitives"]:
+            p["uv_sphere"]["rings"], p["uv_sphere"]["segments"] = 4, 8
+
+    def form_doc(form):
+        doc = copy.deepcopy(moving if form.startswith("anim") else static)
+        parts = form.split("+")
+        base = "tris+lights" if "lights" in parts and "tris" in parts else (
+            "lights" if "lights" in parts else "tris" if "tris" in parts
+            else None)
+        if base is not None:
+            prim = shapes[base]
+            doc["primitives"].append(prim)
+            doc["instances"].append({"name": next(iter(prim.values()))["name"]})
+            if "lights" in parts:
+                doc["textures"].append(white)
+                doc["materials"].append(lamp)
+        mats = {next(iter(m.values()))["name"]: next(iter(m.values()))
+                for m in doc["materials"]}
+        if "noise" in parts:
+            doc["textures"].append({"noise": {"name": "marble", "scale": 4}})
+            mats["ground"]["albedo"] = "marble"
+        if "image" in parts:
+            doc["textures"].append({"image": {"name": "map", "path": png}})
+            mats["material2"]["albedo"] = "map"
+        return doc, 96, 8
+
+    forms = ["static", "anim", "tris", "lights", "tris+lights"]
+    names = forms + [f + "+noise" for f in forms]
+    names += [f + "+image" for f in forms if f != "anim"]
+    names += [f + "+noise+image" for f in forms if f != "anim"]
+    return {name: form_doc(name) for name in names}
+
+
 def write_tri_stress(out_dir: str, k: int = 4) -> str:
     """Write tri-stress-<k * k * 960>.json and the OBJ it loads into
     ``out_dir``; returns the JSON's path."""
@@ -216,6 +353,10 @@ def main(argv) -> int:
     if len(argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
+    if argv[1] == "spheres" and len(argv) == 3:
+        for path in write_sphere_stress(argv[2]).values():
+            print(path)
+        return 0
     print(write_tri_stress(argv[1], int(argv[2]) if len(argv) > 2 else 4))
     return 0
 

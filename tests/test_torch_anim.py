@@ -228,9 +228,17 @@ def test_gate_admits_motion_blur_and_keeps_its_cap():
     r = Renderer(_cs(), device="cpu", use_megakernel=True)
     assert r.static.any_animated and megakernel.megakernel_supported(r.static)
     assert megakernel.MAX_SPHERES_ANIM * 48 + 160 <= 232_448
-    big = dataclasses.replace(r.static,
+    # Swept densely (no cluster layout), the moving spheres keep the
+    # staged table's cap; in clusters the cap is the clustered sweep's,
+    # as in the JAX gate, which reads no motion.
+    dense = dataclasses.replace(r.static, sph_prefix=0)
+    big = dataclasses.replace(dense,
                               num_spheres=megakernel.MAX_SPHERES_ANIM + 1)
     assert not megakernel.megakernel_supported(big)
+    assert megakernel.megakernel_supported(dataclasses.replace(
+        big, sph_prefix=r.static.sph_prefix))
+    assert not megakernel.megakernel_supported(dataclasses.replace(
+        r.static, num_spheres=megakernel.MAX_SPHERES_CLUSTERED + 1))
 
 
 def test_cli_renders_motion_blur_on_the_cpu_when_asked(tmp_path, monkeypatch):

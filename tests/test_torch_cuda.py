@@ -34,7 +34,15 @@ one, with and without noise, with image textures): bit for bit with their
 plain versions on the small docs of tools/image_scenes.form_checks, two
 launches byte-identical; the Renderer's fused path on the earth against
 its wavefront: channel means within 2e-3, rays within 0.5%; a moving image
-scene launches the image form once per batch.
+scene launches the image form once per batch.  The fused kernel's
+clustered sphere forms (each form, and its noise and image twins, with
+the spheres in Morton clusters): bit for bit with their plain (dense)
+versions on the small docs of tools/stress_scenes.cluster_form_checks,
+two launches byte-identical, and the dense forms the same on those docs
+with the cluster layout dropped; the Renderer's fused path on stress-4x
+against its wavefront: channel means within 2e-3, rays within 0.5%.  The
+final-one-weekend and motion-blur checks above run both the clustered
+form (the scenes' layout) and the dense one (layout dropped).
 """
 
 import dataclasses
@@ -157,20 +165,32 @@ def _fused_args(cs, dev, k):
     return (r.static, r.scene, r._geometry(0), r.camera, 0, k), r.use_dof
 
 
+def _with_layout(args, layout):
+    """The launch arguments with the scene's sphere cluster layout
+    ("clusters": the clustered form) or without it ("dense")."""
+    assert megakernel.sphere_cluster_layout(args[0]) is not None
+    if layout == "clusters":
+        return args
+    return (dataclasses.replace(args[0], sph_prefix=0),) + tuple(args[1:])
+
+
 def _final(w, h, depth):
     cs = cli.load_scene(cli.DEFAULT_SCENE, w, h)
     return dataclasses.replace(cs, render=dataclasses.replace(
         cs.render, max_ray_depth=depth))
 
 
+@pytest.mark.parametrize("layout", ["clusters", "dense"])
 @pytest.mark.parametrize("w,h", [(32, 18), (96, 54)])
-def test_fused_kernel_matches_plain(dev, w, h):
+def test_fused_kernel_matches_plain(dev, w, h, layout):
     k = 2
     args, use_dof = _fused_args(_final(w, h, 8), dev, k)
-    before = megakernel.LAUNCHES
+    args = _with_layout(args, layout)
+    before = megakernel.LAUNCHES, megakernel.SPHERE_CLUSTER_LAUNCHES
     sums, traced = megakernel.render_tile_mega(*args, use_dof=use_dof)
     torch.cuda.synchronize()
-    assert megakernel.LAUNCHES == before + 1
+    assert (megakernel.LAUNCHES, megakernel.SPHERE_CLUSTER_LAUNCHES) == (
+        before[0] + 1, before[1] + (layout == "clusters"))
     ref, ref_traced = megakernel.megakernel_reference(*args, use_dof=use_dof)
     assert sums.shape == (h, w, 3) and torch.isfinite(sums).all()
     rays, ref_rays = int(traced.sum()), int(ref_traced.sum())
@@ -257,20 +277,24 @@ def _motion_blur(w, h, depth, batches):
         cs.render, max_ray_depth=depth, sample_batches=batches))
 
 
+@pytest.mark.parametrize("layout", ["clusters", "dense"])
 @pytest.mark.parametrize("w,h", [(32, 18), (96, 54)])
-def test_animated_fused_kernel_matches_plain(dev, w, h):
+def test_animated_fused_kernel_matches_plain(dev, w, h, layout):
     """The animated form against its plain version: the same bounce
     counts and rays, and (built without contraction) the same sums."""
     r = Renderer(_motion_blur(w, h, 8, 2), device=dev)
     assert r.path == "fused_anim"
-    args = (r.static, r.scene, r._geometry(0), r.camera, 0, 2)
+    args = _with_layout((r.static, r.scene, r._geometry(0), r.camera, 0, 2),
+                        layout)
     kw = dict(use_dof=r.use_dof, times=r.batch_times_dev)
-    before = megakernel.LAUNCHES, megakernel.ANIM_LAUNCHES
+    before = (megakernel.LAUNCHES, megakernel.ANIM_LAUNCHES,
+              megakernel.SPHERE_CLUSTER_LAUNCHES)
     sums, traced = megakernel.render_tile_mega(*args, **kw)
     again, _ = megakernel.render_tile_mega(*args, **kw)
     torch.cuda.synchronize()
-    assert (megakernel.LAUNCHES, megakernel.ANIM_LAUNCHES) == (
-        before[0] + 2, before[1] + 2)
+    assert (megakernel.LAUNCHES, megakernel.ANIM_LAUNCHES,
+            megakernel.SPHERE_CLUSTER_LAUNCHES) == (
+        before[0] + 2, before[1] + 2, before[2] + 2 * (layout == "clusters"))
     ref, ref_traced = megakernel.megakernel_reference(*args, **kw)
     assert torch.equal(sums, again) and torch.isfinite(sums).all()
     assert torch.equal(traced, ref_traced)
@@ -722,3 +746,83 @@ def test_moving_image_scene_launches_once_per_batch_on_the_card(dev,
     c = Renderer(cs, device="cpu", use_megakernel=True)
     np.testing.assert_allclose(img.mean(axis=(0, 1)),
                                c.render_all().mean(axis=(0, 1)), atol=1e-2)
+
+
+# ---- spheres in clusters: the fused kernel's clustered sphere sweep ---------
+
+CLUSTER_FORMS = ["static", "anim", "tris", "lights", "tris+lights",
+                 "static+noise", "anim+noise", "tris+noise", "lights+noise",
+                 "tris+lights+noise", "static+image", "tris+image",
+                 "lights+image", "tris+lights+image", "static+noise+image",
+                 "tris+noise+image", "lights+noise+image",
+                 "tris+lights+noise+image"]
+
+
+def _cluster_form_args(form, tmp_path, dev, w=48):
+    from raytrace_tpu_torch.tools import stress_scenes
+
+    doc, _, depth = stress_scenes.cluster_form_checks(
+        _image_png(tmp_path))[form]
+    r = Renderer(_doc_cs(doc, w, depth, 2), device=dev)
+    assert r.use_megakernel and r._geometry(0).sph_boxes is not None
+    return (r.static, r.scene, r._geometry(0), r.camera, 0, 2), dict(
+        use_dof=r.use_dof, times=r.batch_times_dev)
+
+
+@pytest.mark.parametrize("form", CLUSTER_FORMS)
+def test_sphere_cluster_kernel_matches_plain_bit_for_bit(dev, form, tmp_path):
+    args, kw = _cluster_form_args(form, tmp_path, dev)
+    before = megakernel.LAUNCHES, megakernel.SPHERE_CLUSTER_LAUNCHES
+    sums, traced = megakernel.render_tile_mega(*args, **kw)
+    again, traced2 = megakernel.render_tile_mega(*args, **kw)
+    torch.cuda.synchronize()
+    assert (megakernel.LAUNCHES, megakernel.SPHERE_CLUSTER_LAUNCHES) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(sums, again) and torch.equal(traced, traced2)
+    ref, ref_traced = megakernel.megakernel_reference(*args, **kw)
+    assert torch.isfinite(sums).all() and float(sums.max()) > 0.0
+    assert torch.equal(sums, ref) and torch.equal(traced, ref_traced)
+
+
+@pytest.mark.parametrize("form", CLUSTER_FORMS)
+def test_dense_kernel_matches_plain_on_the_cluster_docs(dev, form, tmp_path):
+    """The dense form of each clustered one, on the same doc with the
+    cluster layout dropped: bit for bit with the plain version, two
+    launches byte-identical, no clustered launch."""
+    args, kw = _cluster_form_args(form, tmp_path, dev)
+    args = _with_layout(args, "dense")
+    before = megakernel.LAUNCHES, megakernel.SPHERE_CLUSTER_LAUNCHES
+    sums, traced = megakernel.render_tile_mega(*args, **kw)
+    again, traced2 = megakernel.render_tile_mega(*args, **kw)
+    torch.cuda.synchronize()
+    assert (megakernel.LAUNCHES, megakernel.SPHERE_CLUSTER_LAUNCHES) == (
+        before[0] + 2, before[1])
+    assert torch.equal(sums, again) and torch.equal(traced, traced2)
+    ref, ref_traced = megakernel.megakernel_reference(*args, **kw)
+    assert torch.isfinite(sums).all() and float(sums.max()) > 0.0
+    assert torch.equal(sums, ref) and torch.equal(traced, ref_traced)
+
+
+def test_sphere_cluster_kernel_needs_the_boxes(dev, tmp_path):
+    args, kw = _cluster_form_args("static", tmp_path, dev, 16)
+    geom = args[2]._replace(sph_boxes=None)
+    with pytest.raises(ValueError, match="sph_boxes"):
+        megakernel.render_tile_mega(*args[:2], geom, *args[3:], **kw)
+
+
+def test_renderer_takes_the_clustered_kernel_on_the_card(dev):
+    from raytrace_tpu_torch.tools import stress_scenes
+
+    cs = _doc_cs(stress_scenes.sphere_stress_doc(2), 64, 8, 2)
+    before = (megakernel.SPHERE_CLUSTER_LAUNCHES, sphere_sweep.LAUNCHES)
+    r = Renderer(cs, device=dev)
+    img = r.render_all()
+    assert r.path == "fused" and r.static.num_spheres == 1940
+    assert (megakernel.SPHERE_CLUSTER_LAUNCHES, sphere_sweep.LAUNCHES) == (
+        before[0] + 1, before[1])
+    w = Renderer(cs, device=dev, use_megakernel=False)
+    w_img = w.render_all()
+    np.testing.assert_allclose(img.mean(axis=(0, 1)), w_img.mean(axis=(0, 1)),
+                               atol=2e-3)
+    assert abs(r.stats.rays_traced - w.stats.rays_traced) <= (
+        0.005 * w.stats.rays_traced)
