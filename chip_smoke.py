@@ -38,24 +38,40 @@ is checked; any failure raises and the script exits non-zero without
 printing a result.  No path runs at a cut depth.  Phases:
 
 1. needs torch.cuda.is_available(); prints nvidia-smi's name and power limit;
-2. builds the four kernel sources from the checkout, one nvcc each,
+2. builds the seven kernel sources from the checkout, one nvcc each,
    started together: the sphere sweep K1 (csrc/sphere_sweep.cu), the
    triangle sweep K2 (csrc/tri_sweep.cu), the fused bounce kernel K4
    (csrc/megakernel.cu: static, animated, triangle and the two lit
    forms, each without and with noise, and each but the animated one
    with images; each of these eighteen dense forms and its clustered
-   sphere twin) and the paged triangle sweep K3 (csrc/paged_tri.cu), with
-   nvcc's register report, a line per K4 form and K3's; the ten forms
-   without images must keep the registers and spills they had before the
-   image forms (FORMS_BEFORE), and the eight image forms those they had
-   before the clustered forms (IMAGE_FORMS_BEFORE);
+   sphere twin), the paged triangle sweep K3 (csrc/paged_tri.cu) and the
+   dev probes P1-P3 (csrc/probe_ops.cu, csrc/probe_trig.cu,
+   csrc/micro_raygen.cu), with nvcc's register report, a line per K4
+   form and K3's; the ten forms without images must keep the registers
+   and spills they had before the image forms (FORMS_BEFORE), the eight
+   image forms those they had before the clustered forms
+   (IMAGE_FORMS_BEFORE), and the eighteen clustered forms those they had
+   before K4's raygen moved into csrc/raygen.cuh (CLUSTER_FORMS_BEFORE);
 3. K1 against the plain PyTorch sweep: the 3,240,000 primary rays of the
    main path and 2^20 random rays with an alive mask (ids equal, and ids
    equal with t within rtol=1e-3, atol=1e-3, each on >= 99.9% of rays),
    timed with CUDA events; then K2 the same way (bit for bit, or the same
    agreement): 2^18 of tri-stress's primary rays against its 15,360
    triangles and 2^20 random rays with an alive mask against 960, timed
-   over all 9,437,184 primary rays;
+   over all 9,437,184 primary rays; a failed K1 check first prints what
+   it saw (smoke_lib.sweep_diagnostics); then the dev probes
+   (raytrace_tpu_torch/tools_dev/; smoke_lib.dev_probes): each module's
+   main run as a user runs it (the dev-probe path, every probe kernel
+   launched), which holds P1's ten probes against their plain versions
+   at the JAX probe's shapes (bit for bit; sin+cos and pow-exp-log within
+   2^-22), P2 at (8, 128) and 2^24 points (within 2 ulps; its ulps
+   against float64 printed), P3's three variants at the JAX layout (8
+   programs over one (8, 128) block) and at a cell per pixel-sample of
+   final-one-weekend (3,240,000 cells), bit for bit at 4 iterations with
+   two launches byte-identical, and times each (P3 at 20,000 iterations
+   and at 1 and 16); the bounds, and the PyTorch call of the fetch and
+   the two table reads, timed beside; with K4's batch time below,
+   raygen's share of it;
 4. K4 against its plain version (the wavefront loop with the plain
    sweeps): at 96x54, depth 8, 2 batches fused (rays within 0.5%,
    per-sample channel means within 1e-3, at most 5% of pixels above 1e-4)
@@ -168,7 +184,8 @@ printing a result.  No path runs at a cut depth.  Phases:
    K3's) share of device time and device operations per batch.
 
 The line before the last is the kernels' JSON record (with each kernel's
-bound: the larger of its FP32 operations over 67 TFLOP/s and its bytes
+bound: the larger of its FP32 operations over 67 TFLOP/s (the dev
+probes' INT32 operations counted as PEAK_INT32_OPS says) and its bytes
 over 3.35 TB/s, counted from this run's inputs and the scene's real
 spheres, not the table's padding rows; K4's triangle, lit, noise and
 image forms' and K3's are estimates, see _k4_tris_bound, _noise_bound,
@@ -179,13 +196,10 @@ work on a subset of the rays, _cluster_bound), the last line
 
 from __future__ import annotations
 
-import concurrent.futures
 import dataclasses
 import json
 import logging
 import os
-import re
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -193,31 +207,20 @@ import time
 
 import numpy as np
 
-WIDTH, HEIGHT = 1200, 675
+from raytrace_tpu_torch.tools import smoke_lib
+from raytrace_tpu_torch.tools.smoke_lib import (
+    AGREEMENT, ATOL, FLOPS_PER_TEST, FLOPS_PER_TEST_ANIM, HEIGHT,
+    RANDOM_RAYS, RTOL, WIDTH, least_ms, median_ms, rows_to_v3)
+
 MB_WIDTH, MB_HEIGHT = 1024, 576   # the motion-blur scene's shipped size
 MAIN_BATCHES = 4          # the first one is warm-up for the Mrays/s figure
 CHUNK_BATCHES = 12        # Renderer.CHUNK: one fused launch
 CKPT_SPLIT = 2            # round trip: save after this many batches
-RANDOM_RAYS = 1 << 20
-AGREEMENT = 0.999
-RTOL = ATOL = 1e-3
 # The static fused chunk's Mrays/s that PERF.md records for the static
 # kernel before its animated form was added (NVIDIA H100 80GB HBM3,
 # 700 W), printed beside this run's.
 STATIC_CHUNK_MRAYS_BEFORE = 298.602
 
-# The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W).
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
-# FP32 operations of one ray-sphere test, counted from the sweep loops of
-# csrc/sphere_sweep.cu and csrc/megakernel.cu: dc 5, oc 5, h 1, c2 3,
-# disc 3, max 1, sqrt 1, t1 3, t2 3.  The animated form adds the moved
-# centre (3 multiplies, 3 adds) and k0 + t * (k1 + t * k2) (2 and 2).
-# The tests are ~99% of the fused kernel's operations (a bounce's other
-# work is ~150 operations against 488 x 25), so its bound counts them
-# alone and is a lower bound.
-FLOPS_PER_TEST = 25
-FLOPS_PER_TEST_ANIM = 35
 # The triangle stress scene: k x k instances of the 960-triangle OBJ.
 TRI_K = 4
 TRI_WIDTH, TRI_HEIGHT = 1024, 576
@@ -270,28 +273,6 @@ FLOPS_PER_TURBULENCE = 7 * (451 + 6) + 1 + 6
 # at a random address of the atlas.
 FLOPS_PER_IMAGE_READ = 25 + 11 + 5 + 5 + 8
 BYTES_PER_IMAGE_READ = 32
-# Registers and spill-store bytes of K4's forms without images, as the
-# parent of the image forms compiled them (nvcc -Xptxas -v; PERF.md, PR
-# 7), and of its image forms, as the parent of the clustered sphere forms
-# compiled them (PERF.md): the dense forms must compile as before.
-FORMS_BEFORE = {"static": (61, 0), "anim": (62, 0), "tris": (72, 4),
-                "lights": (72, 0), "tris+lights": (72, 4),
-                "static+noise": (72, 8), "anim+noise": (72, 8),
-                "tris+noise": (72, 28), "lights+noise": (72, 8),
-                "tris+lights+noise": (72, 28)}
-IMAGE_FORMS_BEFORE = {"static+image": (64, 0), "tris+image": (72, 4),
-                      "lights+image": (64, 0), "tris+lights+image": (72, 4),
-                      "static+noise+image": (72, 8),
-                      "tris+noise+image": (72, 28),
-                      "lights+noise+image": (72, 8),
-                      "tris+lights+noise+image": (72, 28)}
-# The image forms: each form but the animated one, with and without noise.
-IMAGE_FORMS = sorted(IMAGE_FORMS_BEFORE)
-DENSE_FORMS = sorted(list(FORMS_BEFORE) + IMAGE_FORMS)
-# The clustered sphere forms: the twin of each dense form
-# (tools/stress_scenes.cluster_form_checks names them without the suffix).
-CLUSTER_FORMS = sorted(f + "+clusters" for f in DENSE_FORMS)
-K4_FORMS = sorted(DENSE_FORMS + CLUSTER_FORMS)
 # The light scenes: their full sizes, and the widths of the small frames
 # that hold K4's lit forms against the plain version at depth 50, k=2.
 LIGHT_SMALL = {"cornell-style": 128, "sphere-light-962": 128,
@@ -314,23 +295,12 @@ PERLIN_SIZE = (1024, 576)
 NOISE_MEAN_TOL = 1e-4
 MESH_SUBSET = 1 << 17
 REDUCED = (240, 135)
-# Cycles of the spin kernel _median_ms queues before each timed run: ~2 ms.
-SPIN_CYCLES = 4_000_000
 # earth (tools/image_scenes.py): its size, and its full batch, fused
 # against the wavefront with K1 (which contracts multiply-adds): channel
 # means within this.  earth-motion-blur's batch on fused_per_batch against
 # its wavefront batch, the same.
 EARTH_SIZE = (512, 512)
 IMAGE_MEAN_TOL = 1e-4
-
-
-def _bound(flops: float, nbytes: float):
-    """(least ms, "operations" or "bytes"): the larger of the two."""
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
 def _spheres(static) -> int:
     """The scene's real spheres: the rows of the sphere table that a bound
     counts (the table's padding rows hold nothing to hit)."""
@@ -348,7 +318,7 @@ def _k4_bound(static, geom, traced_sum: int, width: int, height: int,
     if anim:
         nbytes += (geom.sph_dtab8.numel() + n_times) * 4
     nbytes += width * height * (3 * 4 + 4)
-    return _bound(traced_sum * _spheres(static) * per_test, nbytes)
+    return least_ms(traced_sum * _spheres(static) * per_test, nbytes)
 
 
 def _k4_tris_bound(static, geom, work, width: int, height: int, scene=None):
@@ -373,7 +343,7 @@ def _k4_tris_bound(static, geom, work, width: int, height: int, scene=None):
         nbytes += (scene.light_tri_packed.numel()
                    + geom.inst_o2w_rows.numel()) * 4
     nbytes += width * height * (3 * 4 + 4)
-    return _bound(flops, nbytes)
+    return least_ms(flops, nbytes)
 
 
 def _cluster_work(wave_r, geom, times=None):
@@ -444,7 +414,7 @@ def _cluster_bound(geom, per_ray, traced_sum: int, width: int, height: int,
     if anim:
         nbytes += (geom.sph_dtab8.numel() + n_times) * 4
     nbytes += width * height * (3 * 4 + 4)
-    return _bound(flops, nbytes)
+    return least_ms(flops, nbytes)
 
 
 def _dense_ms(args, kw):
@@ -454,30 +424,7 @@ def _dense_ms(args, kw):
     from raytrace_tpu_torch.ops import megakernel
 
     flat = (dataclasses.replace(args[0], sph_prefix=0),) + args[1:]
-    return _median_ms(lambda: megakernel.render_tile_mega(*flat, **kw), 5)
-
-
-def _ptxas_forms(log: str):
-    """[(form, registers, spill store bytes)] of each K4 instantiation in
-    nvcc's -Xptxas=-v report (megakernel<kAnim, kTris, kLights, kNoise,
-    kImage, kSphClusters>; a noise form's name has "+noise", an image
-    form's "+image", a clustered sphere form's ends in "+clusters")."""
-    forms = []
-    names = {("0", "0", "0"): "static", ("1", "0", "0"): "anim",
-             ("0", "1", "0"): "tris", ("0", "0", "1"): "lights",
-             ("0", "1", "1"): "tris+lights"}
-    for block in log.split("Compiling entry function")[1:]:
-        m = re.search(r"megakernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E",
-                      block)
-        regs = re.search(r"Used (\d+) registers", block)
-        spill = re.search(r"(\d+) bytes spill stores", block)
-        if m and regs and spill:
-            name = names.get(m.groups()[:3], str(m.groups()))
-            forms.append((name + ("+noise" if m.group(4) == "1" else "")
-                          + ("+image" if m.group(5) == "1" else "")
-                          + ("+clusters" if m.group(6) == "1" else ""),
-                          int(regs.group(1)), int(spill.group(1))))
-    return forms
+    return median_ms(lambda: megakernel.render_tile_mega(*flat, **kw), 5)
 
 
 def _slot_hits(static, scene, geom, o, d, alive, raw, mode) -> int:
@@ -557,7 +504,7 @@ def _image_bound(static, scene, geom, work, width: int, height: int):
                + scene.atlas_wh.numel() + scene.srgb_lut.numel()) * 4
               + work["image_hits"] * BYTES_PER_IMAGE_READ
               + width * height * (3 * 4 + 4))
-    return _bound(flops, nbytes)
+    return least_ms(flops, nbytes)
 
 
 def _noise_bound(static, geom, work, width: int, height: int):
@@ -569,7 +516,7 @@ def _noise_bound(static, geom, work, width: int, height: int):
              + work["noise_hits"] * FLOPS_PER_TURBULENCE)
     nbytes = ((geom.sph_table8.numel() + geom.prim_rows.numel() + 40) * 4
               + width * height * (3 * 4 + 4))
-    return _bound(flops, nbytes)
+    return least_ms(flops, nbytes)
 
 
 def _tri_stress(k: int, width: int, obj_dir: str, depth=None, batches=None):
@@ -663,13 +610,6 @@ def _tri_work(renderer):
     torch.cuda.synchronize()
     img = torch.cat(tiles, dim=0)[:static.height].cpu().numpy()
     return img, rays, work
-
-
-def _ptxas_kernel(log: str):
-    """(registers, spill store bytes) of the one kernel in nvcc's report."""
-    regs = re.search(r"Used (\d+) registers", log)
-    spill = re.search(r"(\d+) bytes spill stores", log)
-    return int(regs.group(1)), int(spill.group(1)) if spill else 0
 
 
 def _paged_equal(a, b, alive) -> bool:
@@ -787,7 +727,7 @@ def _k3_full(mesh_r, card):
                                 table16, sa, plain=label != "primary")
         if label == "primary":
             work = paged_tri.visit_counts(so, sd, pages, hit.t, sa)
-    ms = _median_ms(
+    ms = median_ms(
         lambda: paged_tri.intersect_tris_paged(o, d, pages, alive), 5)
     scale = n_rays / work["rays"]
     flops = scale * ((work["page_tests"] + work["cluster_tests"])
@@ -797,7 +737,7 @@ def _k3_full(mesh_r, card):
     # rows, cluster boxes and page boxes once.
     nbytes = n_rays * (6 * 4 + 1 + 4 * 4) + 4 * (
         pages.tris.numel() + pages.boxes.numel() + pages.page_boxes.numel())
-    bound = _bound(flops, nbytes)
+    bound = least_ms(flops, nbytes)
     per = {k: work[k] / work["rays"] for k in ("page_tests",
                                               "cluster_tests", "tri_tests")}
     print(f"paged sweep time at R={n_rays} (final-one-weekend --mesh-geometry"
@@ -809,63 +749,6 @@ def _k3_full(mesh_r, card):
           f"bound (an estimate) {bound[0]:.4f} ms by {bound[1]} "
           f"({bound[0] / ms:.4f} of it) ({card})")
     return dict(ms=ms, plain_ms=plain_s * 1e3, bound=bound)
-
-
-def _median_ms(fn, reps: int) -> float:
-    """Median device time of ``fn`` in ms, by CUDA events.  A spin kernel
-    of ~2 ms (at the H100's ~2 GHz clock) is queued before each start
-    event, so the host's work inside ``fn`` (a wrapper's checks and
-    parameter tensors) is done while the card is still busy, and the
-    events measure the card's time alone: without it, a kernel shorter
-    than its wrapper's host time (K4 on the earth) reads as the host
-    time."""
-    import torch
-
-    fn()  # warm-up
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def _compare_sweep(name, o, d, table8, alive):
-    """Kernel vs plain version on the same rays.  A ray agrees when both
-    give the same sphere id and t within rtol/atol; ids must agree on
-    >= 99.9% of rays, and so must whole hits.  (A ray that starts within
-    float error of T_MIN from a surface may keep the near root in one
-    version and take the far root in the other.)  Returns max |dt| over
-    the rays that agree."""
-    import torch
-
-    from raytrace_tpu_torch.ops import sphere_sweep
-    from raytrace_tpu_torch.ops.intersect import T_MAX
-
-    hit = sphere_sweep.intersect_spheres_sweep(o, d, table8, alive)
-    t_ref, id_ref = sphere_sweep.sphere_sweep_reference(o, d, table8)
-    t_ref = torch.where(alive, t_ref, T_MAX)
-    id_ref = torch.where(alive, id_ref, -1)
-    torch.cuda.synchronize()
-    same_id = hit.sph == id_ref
-    agree = same_id & ((hit.t - t_ref).abs() <= ATOL + RTOL * t_ref.abs())
-    frac_id = same_id.double().mean().item()
-    frac = agree.double().mean().item()
-    if frac_id < AGREEMENT or frac < AGREEMENT:
-        raise AssertionError(f"{name}: ids agree on {frac_id:.6f}, hits on "
-                             f"{frac:.6f} of rays (need {AGREEMENT})")
-    err = (hit.t[agree] - t_ref[agree]).abs().max().item()
-    hits = (hit.sph >= 0).double().mean().item()
-    print(f"sweep {name}: R={o.x.shape[0]} S8={table8.shape[0]}: ids agree "
-          f"on {frac_id:.6f}, (id, t) on {frac:.6f} of rays "
-          f"({int((same_id & ~agree).sum())} same-id root flips); hit share "
-          f"{hits:.4f}; max |dt| where they agree {err:.3g}")
-    return err
 
 
 def _scene(cs, width, height, depth=None, batches=None):
@@ -995,12 +878,16 @@ def _reset_counts():
     """Every kernel's launch count to 0."""
     from raytrace_tpu_torch.ops import (megakernel, paged_tri, sphere_sweep,
                                         tri_sweep)
+    from raytrace_tpu_torch.tools_dev import (micro_raygen, probe_ops,
+                                              probe_trig)
 
     sphere_sweep.LAUNCHES = tri_sweep.LAUNCHES = paged_tri.LAUNCHES = 0
     megakernel.LAUNCHES = megakernel.ANIM_LAUNCHES = 0
     megakernel.TRI_LAUNCHES = megakernel.LIGHT_LAUNCHES = 0
     megakernel.NOISE_LAUNCHES = megakernel.IMAGE_LAUNCHES = 0
     megakernel.SPHERE_CLUSTER_LAUNCHES = 0
+    probe_ops.LAUNCHES = dict.fromkeys(probe_ops.PROBES, 0)
+    probe_trig.LAUNCHES = micro_raygen.LAUNCHES = 0
 
 
 def _mrays(per_batch):
@@ -1140,7 +1027,6 @@ def _mesh_paths(mesh_r, mb_scene, fused_img, wave_img, dev, card):
     return k3_launches
 
 
-
 class _Capture(logging.Handler):
     def __init__(self):
         super().__init__()
@@ -1160,10 +1046,10 @@ def main() -> int:
     from raytrace_tpu_torch import cli
     from raytrace_tpu_torch.engine import Renderer
     from raytrace_tpu_torch.engine.renderer import RenderStats
-    from raytrace_tpu_torch.engine.wavefront import prepare_batch, primary_rays
+    from raytrace_tpu_torch.engine.wavefront import primary_rays
     from raytrace_tpu_torch.models import compile_scene
-    from raytrace_tpu_torch.ops import (_build, megakernel, paged_tri,
-                                        sphere_sweep, tri_sweep)
+    from raytrace_tpu_torch.ops import (megakernel, paged_tri, sphere_sweep,
+                                        tri_sweep)
     from raytrace_tpu_torch.ops.vec3 import V3
     from raytrace_tpu_torch.scene_file import SceneFile
     from raytrace_tpu_torch.tools import (image_scenes, light_scenes,
@@ -1182,74 +1068,14 @@ def main() -> int:
 
     tri_dir = tempfile.TemporaryDirectory()
 
-    # -- 2. build the four kernels, one nvcc each, started together ---------
-    def timed_build(mod):
-        t0 = time.perf_counter()
-        mod.library()
-        return time.perf_counter() - t0
-
-    mods = {"sphere_sweep": sphere_sweep, "tri_sweep": tri_sweep,
-            "megakernel": megakernel, "paged_tri": paged_tri}
-    with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
-        secs = dict(zip(mods, pool.map(timed_build, mods.values())))
-    for name, sec in secs.items():
-        print(f"build: csrc/{name}.cu in {sec:.2f} s")
-        log = _build.library_path(name).with_suffix(".log")
-        if log.exists():
-            print(log.read_text().strip())
-    forms = _ptxas_forms(_build.library_path("megakernel").with_suffix(
-        ".log").read_text())
-    if sorted(f for f, _, _ in forms) != K4_FORMS:
-        raise AssertionError(f"K4's forms in nvcc's report: {forms}")
-    for form, regs, spill in forms:
-        print(f"K4 {form} form: {regs} registers, {spill} bytes spill "
-              f"stores")
-        before = {**FORMS_BEFORE, **IMAGE_FORMS_BEFORE}
-        if before.get(form, (regs, spill)) != (regs, spill):
-            raise AssertionError(f"K4's {form} form changed: {regs} "
-                                 f"registers, {spill} bytes spilled, "
-                                 f"before {before[form]}")
-    k3_regs, k3_spill = _ptxas_kernel(_build.library_path(
-        "paged_tri").with_suffix(".log").read_text())
-    print(f"K3: {k3_regs} registers, {k3_spill} bytes spill stores")
+    # -- 2. build the seven kernel sources, one nvcc each, started together --
+    smoke_lib.build_kernels()
 
     # -- 3. K1 vs plain at the main path's shapes ---------------------------
     cs = cli.load_scene(cli.DEFAULT_SCENE, WIDTH, HEIGHT)
-    probe = Renderer(cs, device=dev, use_megakernel=False)
-    geom = prepare_batch(probe.static, probe.scene,
-                         torch.tensor(probe.sphere_tables[0], device=dev))
-    table8 = geom.sph_table8
-    _, o, d = primary_rays(probe.static, probe.camera, 0, 0, HEIGHT,
-                           probe.use_dof, dev)
-    if o.x.shape[0] != WIDTH * HEIGHT * 4:
-        raise AssertionError(f"primary rays: {o.x.shape[0]}")
-    alive = torch.ones(o.x.shape[0], dtype=torch.bool, device=dev)
-    k1_err = _compare_sweep("primary", o, d, table8, alive)
-
     rng = np.random.default_rng(0)
-    # Origins in the scene's air (its ground fills y > 0).
-    ro = rng.uniform([-14.0, -4.0, -14.0], [14.0, -0.05, 14.0],
-                     (RANDOM_RAYS, 3)).astype(np.float32)
-    rd = rng.standard_normal((RANDOM_RAYS, 3)).astype(np.float32)
-    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
-    to_v3 = lambda a: V3(*(torch.tensor(np.ascontiguousarray(a[:, i]),  # noqa
-                                        device=dev) for i in range(3)))
-    r_alive = torch.tensor(rng.random(RANDOM_RAYS) < 0.75, device=dev)
-    k1_err = max(k1_err, _compare_sweep("random", to_v3(ro), to_v3(rd),
-                                        table8, r_alive))
-
-    ms = _median_ms(
-        lambda: sphere_sweep.intersect_spheres_sweep(o, d, table8, alive), 20)
-    plain_ms = _median_ms(
-        lambda: sphere_sweep.sphere_sweep_reference(o, d, table8), 5)
-    n_rays, s8 = o.x.shape[0], table8.shape[0]
-    # Rays in: origin, direction, alive; out: t and id; the table once.
-    k1_bound = _bound(n_rays * s8 * FLOPS_PER_TEST,
-                      n_rays * (6 * 4 + 1 + 4 + 4) + table8.numel() * 4)
-    print(f"sweep time at R={n_rays}, S8={s8}: kernel {ms:.3f} ms, plain "
-          f"PyTorch {plain_ms:.3f} ms (median, CUDA events); bound "
-          f"{k1_bound[0]:.4f} ms by {k1_bound[1]} ({card})")
-    del probe, geom, o, d, alive
+    k1 = smoke_lib.k1_checks(cs, dev, card, rng)
+    to_v3 = lambda a: rows_to_v3(a, dev)  # noqa: E731
 
     # -- 3b. K2 vs plain at tri-stress's shapes ------------------------------
     tri_cs, tri_json = _tri_stress(TRI_K, TRI_WIDTH, tri_dir.name)
@@ -1292,7 +1118,7 @@ def main() -> int:
         "random", to_v3(ro.astype(np.float32)), to_v3(rd.astype(np.float32)),
         soup.tri_table16, r_alive))
 
-    k2_ms = _median_ms(
+    k2_ms = median_ms(
         lambda: tri_sweep.intersect_tris_sweep(o, d, table16, alive), 5)
     t0 = time.perf_counter()
     tri_sweep.tri_sweep_reference(o, d, table16)
@@ -1300,7 +1126,7 @@ def main() -> int:
     k2_plain_ms = (time.perf_counter() - t0) * 1e3
     t8 = table16.shape[0]
     # Rays in: origin, direction, alive; out: t, id, u, v; the table once.
-    k2_bound = _bound(n_rays * t8 * FLOPS_PER_TRI_TEST,
+    k2_bound = least_ms(n_rays * t8 * FLOPS_PER_TRI_TEST,
                       n_rays * (6 * 4 + 1 + 4 * 4) + table16.numel() * 4)
     print(f"triangle sweep time at R={n_rays} (tri-stress's primary rays), "
           f"T8={t8}: kernel {k2_ms:.3f} ms (median of 5), plain PyTorch "
@@ -1309,6 +1135,9 @@ def main() -> int:
           f"{k2_bound[0]:.4f} ms by {k2_bound[1]} "
           f"({k2_bound[0] / k2_ms:.3f} of it) ({card})")
     del probe, soup, table16, o, d, alive, sel
+
+    # -- 3c. the dev probes P1-P3 -------------------------------------------
+    probe_entries, raygen_b1 = smoke_lib.dev_probes(dev, card)
 
     # -- 4. K4 vs plain -----------------------------------------------------
     small = _scene(cs, 96, 54, depth=8, batches=2)
@@ -1324,8 +1153,8 @@ def main() -> int:
         raise AssertionError("final-one-weekend did not take K4's clustered "
                              "sphere form")
     k4_err = max(k4_err, err_full)
-    k4_ms = _median_ms(lambda: megakernel.render_tile_mega(*args, **kw), 5)
-    k4_plain_ms = _median_ms(
+    k4_ms = median_ms(lambda: megakernel.render_tile_mega(*args, **kw), 5)
+    k4_plain_ms = median_ms(
         lambda: megakernel.megakernel_reference(*args, **kw), 2)
     k4_dense_ms = _dense_ms(args, kw)
     dense_bound = _k4_bound(full.static, args[2], k4_rays, WIDTH, HEIGHT, 0)
@@ -1343,6 +1172,11 @@ def main() -> int:
           f"pass; bound {k4_bound[0]:.4f} ms by {k4_bound[1]} "
           f"({k4_bound[0] / k4_ms:.4f} of it), the dense sweep's "
           f"{dense_bound[0]:.4f} ms by {dense_bound[1]} ({card})")
+    print(f"raygen's share of K4's final-one-weekend batch: P3 base at "
+          f"{WIDTH}x{HEIGHT}x4 cells, one iteration, {raygen_b1['ms']:.4f} "
+          f"ms ({raygen_b1['ns_per_raygen']:.4f} ns a pixel-sample) against "
+          f"K4's "
+          f"{k4_ms:.3f} ms: {raygen_b1['ms'] / k4_ms:.4f} ({card})")
     del full, args, kw
 
     # -- 4b. K4's animated form vs plain, on the motion-blur scene ----------
@@ -1367,8 +1201,8 @@ def main() -> int:
         raise AssertionError("the motion-blur scene did not take K4's "
                              "clustered animated form")
     anim_err = max(anim_err, err_full)
-    anim_ms = _median_ms(lambda: megakernel.render_tile_mega(*args, **kw), 5)
-    anim_plain_ms = _median_ms(
+    anim_ms = median_ms(lambda: megakernel.render_tile_mega(*args, **kw), 5)
+    anim_plain_ms = median_ms(
         lambda: megakernel.megakernel_reference(*args, **kw), 2)
     anim_dense_ms = _dense_ms(args, kw)
     n_times = len(mb_full.batch_times)
@@ -1414,7 +1248,7 @@ def main() -> int:
         f"tri-stress-15360 {TRI_WIDTH}x{TRI_HEIGHT} 16 spp depth 50 k=1",
         tri_full, 1, 2e-3, None, card)
     tris_err = max(tris_err, err_full)
-    tris_ms = _median_ms(lambda: megakernel.render_tile_mega(*args, **kw), 5)
+    tris_ms = median_ms(lambda: megakernel.render_tile_mega(*args, **kw), 5)
     tris_plain_ms = tris_plain_s * 1e3
     sums, _ = megakernel.render_tile_mega(*args, **kw)
     # The image as the Renderer folds it (sums / spp per pixel); its mean
@@ -1489,7 +1323,7 @@ def main() -> int:
             f"lit {name} {w}x{h} 64 spp depth 50 k=1", r, 1, 0.0, None, card,
             bitwise_required=True)
         lights_err = max(lights_err, err_full)
-        lit_ms = _median_ms(
+        lit_ms = median_ms(
             lambda: megakernel.render_tile_mega(*args, **kw), 5)
         sums, _ = megakernel.render_tile_mega(*args, **kw)
         fused_img = (sums / r.static.sqrt_spp ** 2).cpu().numpy()
@@ -1561,7 +1395,7 @@ def main() -> int:
         "perlin-spheres 1024x576 16 spp depth 50 k=1", perlin_full, 1, 0.0,
         None, card, bitwise_required=True)
     noise_err = max(noise_err, err_full)
-    noise_ms = _median_ms(lambda: megakernel.render_tile_mega(*args, **kw), 5)
+    noise_ms = median_ms(lambda: megakernel.render_tile_mega(*args, **kw), 5)
     sums, _ = megakernel.render_tile_mega(*args, **kw)
     perlin_fused_img = (sums / pr.samples_per_pixel).cpu().numpy()
     work = _plain_work(args, kw)
@@ -1616,7 +1450,7 @@ def main() -> int:
         "earth 512x512 4 spp depth 50 k=1", earth_full, 1, 0.0, None, card,
         bitwise_required=True)
     image_err = max(image_err, err_full)
-    image_ms = _median_ms(lambda: megakernel.render_tile_mega(*args, **kw), 5)
+    image_ms = median_ms(lambda: megakernel.render_tile_mega(*args, **kw), 5)
     sums, _ = megakernel.render_tile_mega(*args, **kw)
     earth_fused_img = (sums / er.samples_per_pixel).cpu().numpy()
     work = _plain_work(args, kw)
@@ -1692,7 +1526,7 @@ def main() -> int:
             small_err, args, kw, small_rays, small_plain_s = _compare_fused(
                 f"{name} {STRESS_SMALL[0]}x{STRESS_SMALL[1]} 4 spp depth 50 "
                 f"k=1", small_r, 1, 0.0, None, card, bitwise_required=True)
-            small_ms = _median_ms(
+            small_ms = median_ms(
                 lambda: megakernel.render_tile_mega(*args, **kw), 5)
             print(f"{name} at {STRESS_SMALL[0]}x{STRESS_SMALL[1]}, 4 spp, "
                   f"depth 50, one batch, {small_rays} rays: kernel "
@@ -1704,7 +1538,7 @@ def main() -> int:
         err_full, args, kw, rays, plain_s = _compare_fused(
             label, r, 1, 0.0, None, card, bitwise_required=True)
         cluster_err = max(cluster_err, err_full)
-        stress_ms = _median_ms(
+        stress_ms = median_ms(
             lambda: megakernel.render_tile_mega(*args, **kw), 5)
         sums, _ = megakernel.render_tile_mega(*args, **kw)
         fused_img = (sums / rs.samples_per_pixel).cpu().numpy()
@@ -2365,9 +2199,10 @@ def main() -> int:
         "name": "sphere_sweep", "route": "cuda",
         "source": "raytrace_tpu_torch/csrc/sphere_sweep.cu",
         "replaces": "raytrace_tpu/ops/pallas_sweep.py:33",
-        "launches": sweep_launches, "max_abs_err": k1_err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": k1_bound[0],
-        "bound_by": k1_bound[1], "library_ms": None,
+        "launches": sweep_launches, "max_abs_err": k1["err"],
+        "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound"][0], "bound_by": k1["bound"][1],
+        "library_ms": None,
     }, {
         "name": "megakernel", "route": "cuda",
         "source": "raytrace_tpu_torch/csrc/megakernel.cu",
@@ -2453,7 +2288,7 @@ def main() -> int:
         "launches": k3_launches, "max_abs_err": 0.0, "ms": k3["ms"],
         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound"][0],
         "bound_by": k3["bound"][1], "library_ms": None,
-    }]}))
+    }, *probe_entries]}))
     tri_dir.cleanup()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Build the CUDA kernels in ``csrc/`` with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles alone into
-``build/lib<name>-<hash>.so``, where the hash covers the source and the
-flags, so an edited source rebuilds and a stale library is never loaded.
+``build/lib<name>-<hash>.so``, where the hash covers the source, every
+header ``csrc/*.cuh`` and the flags, so an edited source or header
+rebuilds and a stale library is never loaded.
 A file lock serialises concurrent builds; a failed build raises with
 nvcc's output.  Delete ``raytrace_tpu_torch/build/`` to force a rebuild.
 """
@@ -26,13 +27,13 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-# Flags a kernel adds to NVCC_FLAGS.  The fused bounce kernel and the two
-# triangle sweeps are built without multiply-add contraction, so each of
-# their operations rounds as the plain PyTorch version's elementwise
-# kernels do.
-KERNEL_FLAGS = {"megakernel": ("-fmad=false",),
-                "tri_sweep": ("-fmad=false",),
-                "paged_tri": ("-fmad=false",)}
+# Flags a kernel adds to NVCC_FLAGS.  The fused bounce kernel, the two
+# triangle sweeps and the three dev probes are built without multiply-add
+# contraction, so each of their operations rounds as the plain PyTorch
+# version's elementwise kernels do.
+KERNEL_FLAGS = {name: ("-fmad=false",) for name in (
+    "megakernel", "tri_sweep", "paged_tri", "probe_ops", "probe_trig",
+    "micro_raygen")}
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 
 
@@ -51,10 +52,13 @@ def nvcc_flags(name: str) -> tuple:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    flags = " ".join(nvcc_flags(name)).encode()
-    digest = hashlib.sha256(src + flags).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library's path, keyed by the source, every header (any source
+    may include any of them) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(nvcc_flags(name)).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

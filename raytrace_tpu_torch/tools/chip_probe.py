@@ -8,6 +8,9 @@
     python3 raytrace_tpu_torch/tools/chip_probe.py noise [TREE]
     python3 raytrace_tpu_torch/tools/chip_probe.py image [TREE]
     python3 raytrace_tpu_torch/tools/chip_probe.py spheres [TREE]
+    python3 raytrace_tpu_torch/tools/chip_probe.py probes [TREE]
+    python3 raytrace_tpu_torch/tools/chip_probe.py k1 [TREE]
+    python3 raytrace_tpu_torch/tools/chip_probe.py forms [TREE]
 
 TREE is the root of a checkout whose ``raytrace_tpu_torch`` is measured
 (default: the checkout holding this file), so two trees can be compared on
@@ -80,6 +83,22 @@ not with ``-m``, so that the package comes from TREE.
   version, times its full batch and holds it against the wavefront's;
   steps one batch of each stress scene through ``Renderer`` with
   defaults.
+- ``probes``: builds the three dev probes (P1-P3,
+  ``raytrace_tpu_torch/tools_dev/``) together and prints nvcc's register
+  reports, then runs the dev-probe phase of ``chip_smoke.py``
+  (``smoke_lib.dev_probes``): each module's ``main`` on the card, which
+  holds each kernel against its plain version and times both, and the
+  bounds; one JSON line of the times.
+- ``k1``: what ``chip_smoke.py``'s phases 2 and 3 do for K1
+  (``smoke_lib.build_kernels`` and ``smoke_lib.k1_checks``): every kernel
+  source built together, then K1 against its plain version on the main
+  path's primary rays and on 2^20 random rays, with the failure
+  diagnostics; run it in fresh processes to look for a fault of K1's
+  first launches.
+- ``forms``: builds TREE's fused kernel and prints one JSON line of each
+  K4 form's registers and spill-store bytes (nvcc -Xptxas -v), to set a
+  ``*_FORMS_BEFORE`` table of ``smoke_lib`` from a parent's build on
+  the same card.
 """
 
 from __future__ import annotations
@@ -96,23 +115,12 @@ MB_SCENE = "final-one-weekend-motion-blur.json"
 
 
 def _med(fn, n):
-    """Median device ms of ``fn``: a ~2 ms spin kernel goes before each
-    start event, so the host's work inside ``fn`` does not count (as in
-    chip_smoke.py's _median_ms)."""
-    import torch
+    """Median device ms of ``fn`` (smoke_lib.median_ms, as chip_smoke.py
+    times): a ~2 ms spin kernel goes before each start event, so the
+    host's work inside ``fn`` does not count."""
+    from raytrace_tpu_torch.tools import smoke_lib
 
-    fn()
-    ts = []
-    for _ in range(n):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(4_000_000)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        ts.append(a.elapsed_time(b))
-    return statistics.median(ts)
+    return smoke_lib.median_ms(fn, n)
 
 
 def _scene(path, w, h, depth=None, batches=None):
@@ -802,6 +810,56 @@ def paged() -> None:
     print("peak GiB", torch.cuda.max_memory_allocated(dev) / 2 ** 30)
 
 
+def _card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], check=True,
+                          capture_output=True, text=True).stdout.strip()
+
+
+def probes() -> None:
+    import torch
+
+    from raytrace_tpu_torch.tools import smoke_lib
+
+    card = _card()
+    secs = smoke_lib.build_kernels(("probe_ops", "probe_trig",
+                                    "micro_raygen"))
+    entries, _ = smoke_lib.dev_probes(torch.device("cuda:0"), card)
+    print(json.dumps({"card": card, "build_s": secs, "kernels": entries}))
+
+
+def k1() -> None:
+    import os
+
+    import numpy as np
+    import torch
+
+    from raytrace_tpu_torch import cli
+    from raytrace_tpu_torch.tools import smoke_lib
+
+    card = _card()
+    print(card, "pid", os.getpid(), "CUDA_MODULE_LOADING",
+          os.environ.get("CUDA_MODULE_LOADING"), flush=True)
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    smoke_lib.build_kernels()
+    cs = cli.load_scene(cli.DEFAULT_SCENE, smoke_lib.WIDTH, smoke_lib.HEIGHT)
+    res = smoke_lib.k1_checks(cs, dev, card, np.random.default_rng(0))
+    print(json.dumps({"k1": res}))
+
+
+def forms() -> None:
+    from raytrace_tpu_torch.ops import _build, megakernel
+    from raytrace_tpu_torch.tools import smoke_lib
+
+    t0 = time.perf_counter()
+    megakernel.library()
+    log = _build.library_path("megakernel").with_suffix(".log").read_text()
+    print(json.dumps({"build_s": time.perf_counter() - t0, "forms": {
+        form: [regs, spill]
+        for form, regs, spill in smoke_lib.ptxas_forms(log)}}))
+
+
 def chunks(tree: str) -> None:
     import torch
 
@@ -839,7 +897,7 @@ def chunks(tree: str) -> None:
 def main(argv) -> int:
     if len(argv) < 2 or argv[1] not in ("anim", "chunks", "tris", "lights",
                                         "paged", "noise", "image",
-                                        "spheres"):
+                                        "spheres", "probes", "k1", "forms"):
         print(__doc__, file=sys.stderr)
         return 2
     tree = str(Path(argv[2] if len(argv) > 2
@@ -854,7 +912,8 @@ def main(argv) -> int:
         chunks(tree)
     else:
         {"anim": anim, "tris": tris, "lights": lights, "paged": paged,
-         "noise": noise, "image": image, "spheres": spheres}[argv[1]]()
+         "noise": noise, "image": image, "spheres": spheres,
+         "probes": probes, "k1": k1, "forms": forms}[argv[1]]()
     return 0
 
 

@@ -1,0 +1,495 @@
+"""What chip_smoke.py and tools/chip_probe.py share: the card's peak
+rates and the least time they allow, CUDA-event timing, the kernel
+builds with K4's form pins, K1's check against its plain version and the
+dev-probe phase.
+
+Every function here needs a CUDA card but ``least_ms``, ``ptxas_forms``,
+``ptxas_kernel``, ``sweep_diagnostics``, ``library_call`` and
+``rows_to_v3``; the port's modules are imported inside the functions
+that use them.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import re
+import statistics
+import time
+
+import numpy as np
+import torch
+
+# The main path's frame: final-one-weekend at its 1200x675, 4 spp.
+WIDTH, HEIGHT = 1200, 675
+# K1's check: random rays beside the primary ones; ids, and ids with t
+# within RTOL/ATOL, must agree on this share of rays.
+RANDOM_RAYS = 1 << 20
+AGREEMENT = 0.999
+RTOL = ATOL = 1e-3
+# Cycles of the spin kernel queued before each timed run (~2 ms at the
+# H100's ~2 GHz clock).
+SPIN_CYCLES = 4_000_000
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W).
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# FP32 operations of one ray-sphere test, counted from the sweep loops of
+# csrc/sphere_sweep.cu and csrc/megakernel.cu: dc 5, oc 5, h 1, c2 3,
+# disc 3, max 1, sqrt 1, t1 3, t2 3.  The animated form adds the moved
+# centre (3 multiplies, 3 adds) and k0 + t * (k1 + t * k2) (2 and 2).
+# The tests are ~99% of the fused kernel's operations (a bounce's other
+# work is ~150 operations against 488 x 25), so its bound counts them
+# alone and is a lower bound.
+FLOPS_PER_TEST = 25
+FLOPS_PER_TEST_ANIM = 35
+
+# Registers and spill-store bytes of K4's forms without images, as the
+# parent of the image forms compiled them (nvcc -Xptxas -v; PERF.md, PR
+# 7), and of its image forms, as the parent of the clustered sphere forms
+# compiled them (PERF.md): the dense forms must compile as before.
+FORMS_BEFORE = {"static": (61, 0), "anim": (62, 0), "tris": (72, 4),
+                "lights": (72, 0), "tris+lights": (72, 4),
+                "static+noise": (72, 8), "anim+noise": (72, 8),
+                "tris+noise": (72, 28), "lights+noise": (72, 8),
+                "tris+lights+noise": (72, 28)}
+IMAGE_FORMS_BEFORE = {"static+image": (64, 0), "tris+image": (72, 4),
+                      "lights+image": (64, 0), "tris+lights+image": (72, 4),
+                      "static+noise+image": (72, 8),
+                      "tris+noise+image": (72, 28),
+                      "lights+noise+image": (72, 8),
+                      "tris+lights+noise+image": (72, 28)}
+# The clustered sphere forms, as the parent of K4's raygen header
+# (csrc/raygen.cuh) compiled them on the same card (PERF.md): the header
+# move must change no form.
+CLUSTER_FORMS_BEFORE = {
+    "static+clusters": (56, 12), "anim+clusters": (64, 0),
+    "tris+clusters": (64, 72), "lights+clusters": (64, 0),
+    "tris+lights+clusters": (64, 56), "static+image+clusters": (64, 0),
+    "tris+image+clusters": (72, 4), "lights+image+clusters": (64, 0),
+    "tris+lights+image+clusters": (72, 4),
+    "static+noise+clusters": (72, 8), "anim+noise+clusters": (72, 8),
+    "tris+noise+clusters": (72, 28), "lights+noise+clusters": (72, 8),
+    "tris+lights+noise+clusters": (72, 28),
+    "static+noise+image+clusters": (72, 8),
+    "tris+noise+image+clusters": (72, 28),
+    "lights+noise+image+clusters": (72, 8),
+    "tris+lights+noise+image+clusters": (72, 28)}
+# The image forms: each form but the animated one, with and without noise.
+IMAGE_FORMS = sorted(IMAGE_FORMS_BEFORE)
+DENSE_FORMS = sorted(list(FORMS_BEFORE) + IMAGE_FORMS)
+# The clustered sphere forms: the twin of each dense form
+# (tools/stress_scenes.cluster_form_checks names them without the suffix).
+CLUSTER_FORMS = sorted(f + "+clusters" for f in DENSE_FORMS)
+K4_FORMS = sorted(DENSE_FORMS + CLUSTER_FORMS)
+
+# The dev probes P1-P3 (raytrace_tpu_torch/tools_dev/).  The card's INT32
+# rate: 64 INT32 lanes an SM against 128 FP32 lanes (NVIDIA's Hopper
+# white paper), so half of PEAK_FP32_FLOPS on its convention.  A kernel
+# that does both dispatches one instruction a lane-slot, so its operation
+# bound is the larger of its FP32 ops over PEAK_FP32_FLOPS, its INT32 ops
+# over PEAK_INT32_OPS and all its ops over PEAK_FP32_FLOPS.
+PEAK_INT32_OPS = PEAK_FP32_FLOPS / 2
+# FP32 and INT32 operations of each P1 probe per element, counted from
+# csrc/probe_ops.cu (library transcendentals, sqrt and conversions one
+# each; compares and selects not counted): (fp32, int32).  The branch
+# probes count the block sum's add per element; the fetch probe computes
+# nothing.
+PROBE_OPS = {"sin+cos": (3, 0), "pcg-rng": (2, 9), "onehot-fetch": (0, 0),
+             "smem-scalar-loop": (2 * 64, 0), "while-loop": (10, 0),
+             "lax-cond-datadep": (2, 0), "pl-when-datadep": (1, 0),
+             "vmem-scalar-read": (1, 0), "vmem-dynrow-read": (1, 0),
+             "pow-exp-log": (11, 0)}
+# P2 per element: neg, add, atan2f, scale, fmodf and its fix-up; scale,
+# max, min, acosf, scale; the sum.
+TRIG_FLOPS = 12
+# P3 per raygen (one iteration), counted from csrc/raygen.cuh's get_ray
+# and csrc/micro_raygen.cu's loop: a random_float is 9 INT32 operations
+# (the PCG step and word) and 2 FP32 (the conversion and the scale); the
+# camera without the lens 65 FP32 (the sub-pixel offsets 8, the two
+# reciprocals 4, the NDC point 12, the projected target 15, its
+# normalisation 11, the direction 15); the lens sample 55 (the disk 13
+# with sinf and cosf, the half aperture and the origin 7, the focal point
+# 21, the direction again 14 with its normalisation); the sum 7; 13 INT32
+# (the batch and sample 2, the seed 6, the + it 1, si and sj 2, the next
+# sip 2).  base and packedpx draw five random floats, nodof three.
+RAYGEN_OPS = {"base": (65 + 55 + 5 * 2 + 7, 13 + 5 * 9),
+              "nodof": (65 + 3 * 2 + 7, 13 + 3 * 9),
+              "packedpx": (65 + 55 + 5 * 2 + 7, 13 + 5 * 9)}
+
+
+def least_ms(flops: float, nbytes: float, int_ops: float = 0.0):
+    """(least ms, "operations" or "bytes"): the larger of the two (the
+    operations' time as PEAK_INT32_OPS says)."""
+    t_ops = max(flops, int_ops * PEAK_FP32_FLOPS / PEAK_INT32_OPS,
+                flops + int_ops) / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def ptxas_forms(log: str):
+    """[(form, registers, spill store bytes)] of each K4 instantiation in
+    nvcc's -Xptxas=-v report (megakernel<kAnim, kTris, kLights, kNoise,
+    kImage, kSphClusters>; a noise form's name has "+noise", an image
+    form's "+image", a clustered sphere form's ends in "+clusters")."""
+    forms = []
+    names = {("0", "0", "0"): "static", ("1", "0", "0"): "anim",
+             ("0", "1", "0"): "tris", ("0", "0", "1"): "lights",
+             ("0", "1", "1"): "tris+lights"}
+    for block in log.split("Compiling entry function")[1:]:
+        m = re.search(r"megakernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E",
+                      block)
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores", block)
+        if m and regs and spill:
+            name = names.get(m.groups()[:3], str(m.groups()))
+            forms.append((name + ("+noise" if m.group(4) == "1" else "")
+                          + ("+image" if m.group(5) == "1" else "")
+                          + ("+clusters" if m.group(6) == "1" else ""),
+                          int(regs.group(1)), int(spill.group(1))))
+    return forms
+
+
+def ptxas_kernel(log: str):
+    """(registers, spill store bytes) of the one kernel in nvcc's report."""
+    regs = re.search(r"Used (\d+) registers", log)
+    spill = re.search(r"(\d+) bytes spill stores", log)
+    return int(regs.group(1)), int(spill.group(1)) if spill else 0
+
+
+def median_ms(fn, reps: int = 5) -> float:
+    """Median device time of ``fn`` in ms by CUDA events, after a warm-up
+    call.  A spin kernel of SPIN_CYCLES is queued before each start event,
+    so the host's work inside ``fn`` (a wrapper's checks and parameter
+    tensors) is done while the card is still busy, and the events measure
+    the card's time alone: without it, a kernel shorter than its wrapper's
+    host time (K4 on the earth) reads as the host time."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def sweep_diagnostics(ids, id_ref, t, s8: int, block: int = 256) -> str:
+    """What a failed K1 check saw: the share of K1's ids outside [-1, S8)
+    and of its t not finite (values a launch that never wrote its output
+    leaves), the share of the disagreeing rays that K1 calls a miss and the
+    plain version a hit, and whether the disagreeing rays fill whole
+    ``block``-ray blocks (K1's thread blocks: blocks that never ran or read
+    a stale tile), with the first such blocks."""
+    bad = ids != id_ref
+    n_bad = int(bad.sum())
+    outside = ((ids < -1) | (ids >= s8)).double().mean().item()
+    not_finite = (~torch.isfinite(t)).double().mean().item()
+    miss_vs_hit = int((bad & (ids == -1) & (id_ref >= 0)).sum())
+    block_of = torch.arange(bad.numel(), device=bad.device) // block
+    rays = torch.bincount(block_of)
+    wrong = torch.bincount(block_of[bad], minlength=rays.numel())
+    full = (wrong == rays).nonzero().flatten()
+    touched = int((wrong > 0).sum())
+    return (f"{n_bad} rays disagree; ids outside [-1, {s8}) on {outside:.6f}"
+            f" of rays, t not finite on {not_finite:.6f}; of the disagreeing"
+            f" rays {miss_vs_hit / max(n_bad, 1):.6f} are a K1 miss and a "
+            f"plain hit; {full.numel()} whole {block}-ray blocks disagree "
+            f"(first {full[:8].tolist()}), of {touched} blocks with a "
+            f"disagreement")
+
+
+def compare_sweep(name, o, d, table8, alive):
+    """Kernel vs plain version on the same rays.  A ray agrees when both
+    give the same sphere id and t within rtol/atol; ids must agree on
+    >= 99.9% of rays, and so must whole hits.  (A ray that starts within
+    float error of T_MIN from a surface may keep the near root in one
+    version and take the far root in the other.)  Returns max |dt| over
+    the rays that agree."""
+    from raytrace_tpu_torch.ops import sphere_sweep
+    from raytrace_tpu_torch.ops.intersect import T_MAX
+
+    hit = sphere_sweep.intersect_spheres_sweep(o, d, table8, alive)
+    t_ref, id_ref = sphere_sweep.sphere_sweep_reference(o, d, table8)
+    t_ref = torch.where(alive, t_ref, T_MAX)
+    id_ref = torch.where(alive, id_ref, -1)
+    torch.cuda.synchronize()
+    same_id = hit.sph == id_ref
+    agree = same_id & ((hit.t - t_ref).abs() <= ATOL + RTOL * t_ref.abs())
+    frac_id = same_id.double().mean().item()
+    frac = agree.double().mean().item()
+    if frac_id < AGREEMENT or frac < AGREEMENT:
+        diag = sweep_diagnostics(hit.sph, id_ref, hit.t, table8.shape[0])
+        print(f"sweep {name} FAILED: {diag}", flush=True)
+        raise AssertionError(f"{name}: ids agree on {frac_id:.6f}, hits on "
+                             f"{frac:.6f} of rays (need {AGREEMENT}); {diag}")
+    err = (hit.t[agree] - t_ref[agree]).abs().max().item()
+    hits = (hit.sph >= 0).double().mean().item()
+    print(f"sweep {name}: R={o.x.shape[0]} S8={table8.shape[0]}: ids agree "
+          f"on {frac_id:.6f}, (id, t) on {frac:.6f} of rays "
+          f"({int((same_id & ~agree).sum())} same-id root flips); hit share "
+          f"{hits:.4f}; max |dt| where they agree {err:.3g}")
+    return err
+
+
+def rows_to_v3(a, dev):
+    """[R, 3] numpy rows → a V3 of contiguous [R] tensors on ``dev``."""
+    from raytrace_tpu_torch.ops.vec3 import V3
+
+    return V3(*(torch.tensor(np.ascontiguousarray(a[:, i]), device=dev)
+                for i in range(3)))
+
+
+def kernel_modules():
+    """The module of each kernel source phase 2 builds, by source name."""
+    from raytrace_tpu_torch.ops import (megakernel, paged_tri, sphere_sweep,
+                                        tri_sweep)
+    from raytrace_tpu_torch.tools_dev import (micro_raygen, probe_ops,
+                                              probe_trig)
+
+    return {"sphere_sweep": sphere_sweep, "tri_sweep": tri_sweep,
+            "megakernel": megakernel, "paged_tri": paged_tri,
+            "probe_ops": probe_ops, "probe_trig": probe_trig,
+            "micro_raygen": micro_raygen}
+
+
+def build_kernels(names=None):
+    """Phase 2: builds every kernel source (or those ``names``), one nvcc
+    each, started together; prints each build's seconds and nvcc's
+    register report, a line per K4 form and K3's; every K4 form must keep
+    the registers and spills it had before (FORMS_BEFORE,
+    IMAGE_FORMS_BEFORE, CLUSTER_FORMS_BEFORE)."""
+    from raytrace_tpu_torch.ops import _build
+
+    def timed_build(mod):
+        t0 = time.perf_counter()
+        mod.library()
+        return time.perf_counter() - t0
+
+    mods = {name: mod for name, mod in kernel_modules().items()
+            if names is None or name in names}
+    with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
+        secs = dict(zip(mods, pool.map(timed_build, mods.values())))
+    for name, sec in secs.items():
+        print(f"build: csrc/{name}.cu in {sec:.2f} s")
+        log = _build.library_path(name).with_suffix(".log")
+        if log.exists():
+            print(log.read_text().strip())
+    if names is not None:
+        return secs
+    forms = ptxas_forms(_build.library_path("megakernel").with_suffix(
+        ".log").read_text())
+    if sorted(f for f, _, _ in forms) != K4_FORMS:
+        raise AssertionError(f"K4's forms in nvcc's report: {forms}")
+    before = {**FORMS_BEFORE, **IMAGE_FORMS_BEFORE, **CLUSTER_FORMS_BEFORE}
+    for form, regs, spill in forms:
+        print(f"K4 {form} form: {regs} registers, {spill} bytes spill "
+              f"stores")
+        if before[form] != (regs, spill):
+            raise AssertionError(f"K4's {form} form changed: {regs} "
+                                 f"registers, {spill} bytes spilled, "
+                                 f"before {before[form]}")
+    k3_regs, k3_spill = ptxas_kernel(_build.library_path(
+        "paged_tri").with_suffix(".log").read_text())
+    print(f"K3: {k3_regs} registers, {k3_spill} bytes spill stores")
+    return secs
+
+
+def library_call(name, x, tab):
+    """The one PyTorch call that computes P1 probe ``name``'s function on
+    its inputs, or None.  The fetch is a gather (``index_select``) and the
+    two table reads a product by one entry (``mul``), each bit for bit
+    with the plain version.  The other seven are chains of operations in
+    a fixed order that no one call reproduces: two transcendentals and a
+    sum (sin+cos), the PCG step and word, 64 or 10 sums in order (the
+    table loop, the while loop), a block sum and then a select (the two
+    branch probes), the power, exp and log."""
+    from raytrace_tpu_torch.tools_dev import probe_ops
+
+    if name == "onehot-fetch":
+        ids = x.reshape(-1).to(torch.int64)
+        return lambda: torch.index_select(tab, 1, ids)
+    row = {"vmem-scalar-read": probe_ops.SCALAR_ROW,
+           "vmem-dynrow-read": probe_ops.DYN_ROW}.get(name)
+    if row is None:
+        return None
+    scalar = tab[row, 0]
+    return lambda: torch.mul(x, scalar)
+
+
+def dev_probes(dev, card):
+    """Phase 3c: the dev probes P1-P3, through the mains a user runs
+    (``python3 -m raytrace_tpu_torch.tools_dev.probe_ops`` and the
+    others).  Each main holds its kernels against their plain versions,
+    raises where one disagrees (P1 bit for bit, sin+cos and pow-exp-log
+    within probe_ops.TRANSCENDENTAL_ATOL; P2 at (8, 128) and 2^24 points
+    within probe_trig.ULP_TOL ulps; P3's three variants at shapes (a) and
+    (b) bit for bit at 4 iterations, two launches byte-identical) and
+    times both (CUDA-event medians of 5; P3 at (a) with 20,000 iterations
+    and at (b) with 1 and 16).  The launches are counted from 0 across
+    the mains, and every probe kernel must launch there.  Adds what the
+    mains do not give: each least time the card allows and the PyTorch
+    call where one computes a P1 probe's function.  Returns the three
+    entries of the kernels line and P3's base variant at (b) with one
+    iteration."""
+    from raytrace_tpu_torch.tools_dev import micro_raygen as mr
+    from raytrace_tpu_torch.tools_dev import probe_ops, probe_trig
+
+    probe_ops.LAUNCHES = dict.fromkeys(probe_ops.PROBES, 0)
+    probe_trig.LAUNCHES = mr.LAUNCHES = 0
+    t0 = time.perf_counter()
+    p1, p2, p3 = probe_ops.main([]), probe_trig.main([]), mr.main([])
+    launches = dict(probe_ops.LAUNCHES, probe_trig=probe_trig.LAUNCHES,
+                    micro_raygen=mr.LAUNCHES)
+    idle = [name for name, count in launches.items() if count <= 0]
+    if idle:
+        raise AssertionError(f"dev probes never launched: {idle}")
+    print(f"dev probes' mains in {time.perf_counter() - t0:.1f} s; "
+          f"launches {launches}")
+
+    # P1 at the JAX probe's shapes; every probe is bound by its launch.
+    inp = probe_ops.make_inputs(dev)
+    rows = []
+    for name in probe_ops.PROBES:
+        x, tab = inp.args(name)
+        n, res = x.numel(), p1[name]
+        ref = probe_ops.probe_reference(name, x, tab)
+        # Bytes the function needs: x, the table's entries it reads, out.
+        nbytes = (n + ref.numel()) * 4
+        if name == "onehot-fetch":
+            nbytes += tab.shape[0] * int(x.unique().numel()) * 4
+        elif tab is not None:
+            nbytes += (tab.shape[0] if name == "smem-scalar-loop" else 1) * 4
+        call = library_call(name, x, tab)
+        library_ms = None
+        if call is not None:
+            if not torch.equal(call(), ref):
+                raise AssertionError(f"P1 {name}: the PyTorch call differs "
+                                     "from the plain version")
+            library_ms = median_ms(call)
+        fp, iops = PROBE_OPS[name]
+        bound = least_ms(fp * n, nbytes, iops * n)
+        rows.append(dict(name=name, launches=launches[name],
+                         max_abs_err=res["max_abs_err"], ms=res["ms"],
+                         plain_ms=res["plain_ms"], bound_ms=bound[0],
+                         bound_by=bound[1], library_ms=library_ms,
+                         flops=fp * n, int_ops=iops * n, bytes=nbytes))
+        print(f"P1 {name}: kernel {res['ms']:.4f} ms, plain "
+              f"{res['plain_ms']:.4f} ms"
+              + (f", one PyTorch call {library_ms:.4f} ms"
+                 if library_ms is not None else "")
+              + f"; bound {bound[0]:.6f} ms by {bound[1]}: launch-bound "
+              f"({card})")
+    p1_bound = least_ms(sum(r["flops"] for r in rows),
+                        sum(r["bytes"] for r in rows),
+                        sum(r["int_ops"] for r in rows))
+
+    # P2 at the probe's (8, 128) and at 2^24 points.
+    trig = {}
+    for size, res in p2.items():
+        bound = least_ms(TRIG_FLOPS * res["n"], 8 * res["n"])
+        trig[size] = dict(res, bound=bound)
+        print(f"P2 at {res['n']} points: kernel {res['ms']:.4f} ms; bound "
+              f"{bound[0]:.6f} ms by {bound[1]}"
+              + (": launch-bound" if size == "probe" else
+                 f" ({bound[0] / res['ms']:.3f} of it)") + f" ({card})")
+
+    # P3: every variant at both shapes.
+    for variant, runs in p3.items():
+        fp, iops = RAYGEN_OPS[variant]
+        for run, res in runs.items():
+            cells, iters = res["cells"], res["iters"]
+            pixels = cells // (mr.PROGRAMS if run == "a" else 1)
+            # Each cell decodes its pixel once (2 INT32 operations).
+            res["bound"] = bound = least_ms(
+                fp * cells * iters, (pixels + cells + mr.N_PARAMS) * 4,
+                (iops * iters + 2) * cells)
+            print(f"P3 {variant} {run}: {cells} cells x {iters} iterations"
+                  f", {res['ms']:.4f} ms; bound {bound[0]:.4f} ms by "
+                  f"{bound[1]} ({bound[0] / res['ms']:.3f} of it) ({card})")
+    b1 = p3["base"]["b1"]
+    print(f"dev-probe phase in {time.perf_counter() - t0:.1f} s")
+
+    entries = [{
+        # The ten probes, each launched once; the PyTorch calls of the
+        # fetch and the two table reads are in their rows of "probes": no
+        # one call computes the ten.
+        "name": "probe_ops", "route": "cuda",
+        "source": "raytrace_tpu_torch/csrc/probe_ops.cu",
+        "replaces": "tools_dev/probe_pallas.py:17",
+        "launches": sum(r["launches"] for r in rows),
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": sum(r["ms"] for r in rows),
+        "plain_ms": sum(r["plain_ms"] for r in rows),
+        "bound_ms": p1_bound[0], "bound_by": p1_bound[1], "library_ms": None,
+        "probes": [{k: r[k] for k in (
+            "name", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")} for r in rows],
+    }, {
+        # 2^24 points; the probe's (8, 128) is launch-bound.
+        "name": "probe_trig", "route": "cuda",
+        "source": "raytrace_tpu_torch/csrc/probe_trig.cu",
+        "replaces": "tools_dev/probe_trig.py:20",
+        "launches": launches["probe_trig"],
+        "max_abs_err": trig["large"]["max_abs_err"],
+        "ms": trig["large"]["ms"], "plain_ms": trig["large"]["plain_ms"],
+        "bound_ms": trig["large"]["bound"][0],
+        "bound_by": trig["large"]["bound"][1], "library_ms": None,
+    }, {
+        # The base variant at shape (b), one iteration: the raygen work of
+        # one K4 batch of final-one-weekend.
+        "name": "micro_raygen", "route": "cuda", "variant": "base",
+        "source": "raytrace_tpu_torch/csrc/micro_raygen.cu",
+        "replaces": "tools_dev/micro_raygen.py:89",
+        "launches": launches["micro_raygen"],
+        "max_abs_err": b1["max_abs_err"], "ms": b1["ms"],
+        "plain_ms": b1["plain_ms"], "bound_ms": b1["bound"][0],
+        "bound_by": b1["bound"][1], "library_ms": None,
+    }]
+    return entries, b1
+
+
+def k1_checks(cs, dev, card, rng):
+    """Phase 3's K1 part: K1 against the plain sweep on the main path's
+    3,240,000 primary rays of ``cs`` (final-one-weekend at 1200x675) and
+    on 2^20 random rays with an alive mask drawn from ``rng``, then its
+    time.  Returns {err, ms, plain_ms, bound}."""
+    from raytrace_tpu_torch.engine import Renderer
+    from raytrace_tpu_torch.engine.wavefront import prepare_batch, primary_rays
+    from raytrace_tpu_torch.ops import sphere_sweep
+
+    probe = Renderer(cs, device=dev, use_megakernel=False)
+    geom = prepare_batch(probe.static, probe.scene,
+                         torch.tensor(probe.sphere_tables[0], device=dev))
+    table8 = geom.sph_table8
+    _, o, d = primary_rays(probe.static, probe.camera, 0, 0, HEIGHT,
+                           probe.use_dof, dev)
+    if o.x.shape[0] != WIDTH * HEIGHT * 4:
+        raise AssertionError(f"primary rays: {o.x.shape[0]}")
+    alive = torch.ones(o.x.shape[0], dtype=torch.bool, device=dev)
+    err = compare_sweep("primary", o, d, table8, alive)
+
+    # Origins in the scene's air (its ground fills y > 0).
+    ro = rng.uniform([-14.0, -4.0, -14.0], [14.0, -0.05, 14.0],
+                     (RANDOM_RAYS, 3)).astype(np.float32)
+    rd = rng.standard_normal((RANDOM_RAYS, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    r_alive = torch.tensor(rng.random(RANDOM_RAYS) < 0.75, device=dev)
+    err = max(err, compare_sweep("random", rows_to_v3(ro, dev),
+                                 rows_to_v3(rd, dev), table8, r_alive))
+
+    ms = median_ms(
+        lambda: sphere_sweep.intersect_spheres_sweep(o, d, table8, alive), 20)
+    plain_ms = median_ms(
+        lambda: sphere_sweep.sphere_sweep_reference(o, d, table8), 5)
+    n_rays, s8 = o.x.shape[0], table8.shape[0]
+    # Rays in: origin, direction, alive; out: t and id; the table once.
+    bound = least_ms(n_rays * s8 * FLOPS_PER_TEST,
+                     n_rays * (6 * 4 + 1 + 4 + 4) + table8.numel() * 4)
+    print(f"sweep time at R={n_rays}, S8={s8}: kernel {ms:.3f} ms, plain "
+          f"PyTorch {plain_ms:.3f} ms (median, CUDA events); bound "
+          f"{bound[0]:.4f} ms by {bound[1]} ({card})")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound)

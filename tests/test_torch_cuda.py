@@ -42,7 +42,12 @@ two launches byte-identical, and the dense forms the same on those docs
 with the cluster layout dropped; the Renderer's fused path on stress-4x
 against its wavefront: channel means within 2e-3, rays within 0.5%.  The
 final-one-weekend and motion-blur checks above run both the clustered
-form (the scenes' layout) and the dense one (layout dropped).
+form (the scenes' layout) and the dense one (layout dropped).  The dev
+probes (raytrace_tpu_torch/tools_dev/, built without contraction): P1's
+ten probe kernels bit for bit with their plain versions (sin+cos and
+pow-exp-log within 2^-22), P2 within 2 ulps at (8, 128) and 2^24 points,
+P3's three variants bit for bit at 4 iterations at both shapes, two
+launches byte-identical; each module's main runs on the card.
 """
 
 import dataclasses
@@ -60,6 +65,9 @@ from raytrace_tpu_torch.ops import megakernel, paged_tri, sphere_sweep, tri_swee
 from raytrace_tpu_torch.ops.intersect import T_MAX
 from raytrace_tpu_torch.ops.vec3 import V3
 from raytrace_tpu_torch.scene_file import SceneFile
+from raytrace_tpu_torch.tools_dev import _common
+from raytrace_tpu_torch.tools_dev import micro_raygen as mr
+from raytrace_tpu_torch.tools_dev import probe_ops, probe_trig
 
 pytestmark = pytest.mark.cuda
 
@@ -826,3 +834,56 @@ def test_renderer_takes_the_clustered_kernel_on_the_card(dev):
                                atol=2e-3)
     assert abs(r.stats.rays_traced - w.stats.rays_traced) <= (
         0.005 * w.stats.rays_traced)
+
+
+@pytest.mark.parametrize("name", probe_ops.PROBES)
+def test_probe_ops_kernel_matches_plain(dev, name):
+    x, tab = probe_ops.make_inputs(dev).args(name)
+    before = probe_ops.LAUNCHES[name]
+    out = probe_ops.probe(name, x, tab)
+    again = probe_ops.probe(name, x, tab)
+    ref = probe_ops.probe_reference(name, x, tab)
+    torch.cuda.synchronize()
+    assert probe_ops.LAUNCHES[name] == before + 2
+    assert probe_ops.agrees(name, out, ref) and torch.equal(out, again)
+
+
+def test_probe_ops_fetch_gives_nan_for_ids_out_of_range(dev):
+    rows_t = torch.rand(4, 16, device=dev)
+    ids = torch.tensor([[0, 15, 16, -1]], dtype=torch.int32, device=dev)
+    out = probe_ops.probe("onehot-fetch", ids, rows_t)
+    assert torch.equal(out[:, :2], rows_t[:, [0, 15]])
+    assert torch.isnan(out[:, 2:]).all()
+
+
+@pytest.mark.parametrize("size", sorted(probe_trig.SIZES))
+def test_probe_trig_kernel_matches_plain(dev, size):
+    x = probe_trig.points(probe_trig.SIZES[size], dev)
+    before = probe_trig.LAUNCHES
+    out = probe_trig.uv_sum(x)
+    ref = probe_trig.uv_sum_reference(x)
+    assert probe_trig.LAUNCHES == before + 1
+    assert _common.max_ulps(out, ref) <= probe_trig.ULP_TOL
+    assert probe_trig.ulps_vs_float64(x, out) < 8
+
+
+@pytest.mark.parametrize("shape", ["a", "b"])
+@pytest.mark.parametrize("variant", mr.VARIANTS)
+def test_micro_raygen_kernel_matches_plain(dev, variant, shape):
+    params = mr.camera_params(dev)
+    pix = mr.pixels(variant, shape, dev)
+    before = mr.LAUNCHES
+    chk = mr.check(params, pix, variant, mr.PROGRAMS if shape == "a" else 1)
+    assert mr.LAUNCHES == before + 2
+    assert chk["bitwise"] and chk["repeat_identical"], chk
+
+
+def test_probe_mains_run_on_the_card(dev, capsys, monkeypatch):
+    assert all(r["ok"] for r in probe_ops.main([]).values())
+    assert probe_trig.main([])["large"]["n"] == 1 << 24
+    monkeypatch.setattr(mr, "ITERS", 64)
+    res = mr.main([])
+    assert all(r["a"]["iters"] == 64 and r["a"]["ns_per_raygen"] > 0
+               and r["b1"]["plain_ms"] > 0 for r in res.values())
+    out = capsys.readouterr().out
+    assert out.count("PASS ") == 10 and "FAIL" not in out
