@@ -25,10 +25,10 @@ noise form, and the wavefront with K1); earth and earth-motion-blur
 with a 5400x2700 texel-id image, 512x512, 4 spp x 16 batches and 8 spp x
 32, depth 50: K4's image form, fused and, for the turning globe, one
 launch per batch, and the wavefront with K1); and final-one-weekend with
---mesh-geometry (its 488 uv spheres tessellated: 2,033,920 triangles, 125
-pages of the paged sweep K3; 1200x675, 4 spp, depth 50: the paged
-wavefront), with its motion-blur twin the same way (page tables built
-per batch); and the sphere stress scenes of
+--mesh-geometry (its 488 uv spheres tessellated: 2,033,920 triangles in
+a tree over leaves of 4 that the paged sweep K3 walks; 1200x675, 4 spp,
+depth 50: the paged wavefront), with its motion-blur twin the same way
+(the tree re-fitted per batch); and the sphere stress scenes of
 raytrace_tpu_torch/tools/stress_scenes.py, final-one-weekend's small
 spheres tiled 2 x 2 (stress-4x: 1,940 spheres, 121 clusters of 16) and 6 x
 6 cut to 16,384 (stress-16k: 128 clusters of 128), 1024x576, 4 spp x 25,
@@ -121,12 +121,17 @@ printing a result.  No path runs at a cut depth.  Phases:
    with K1 on the same batch (rays within 0.5%, means within 2e-3),
    whose rays count the clustered work of the bound; then K3 bit
    for bit with its plain version and with K2 (two launches
-   byte-identical) on random multi-page soups with a partial
-   last page and an alive mask (g = c = 128, and g = 8, c = 16), on all
-   3,240,000 primary rays of the mesh scene's batch 0 (plain version
-   timed) and on 2^17 of them and of its bounce-2 rays against K2 too;
-   K3 timed over the primary rays, its work counted on the subset for
-   the bound;
+   byte-identical) on random soups whose leaf counts are not powers of
+   two, with a duplicate pair and an alive mask (40,000, 3,001 and 5
+   triangles), the mesh's tree built on the card (timed), all 3,240,000
+   primary rays of the mesh scene's batch 0 (plain version timed) and
+   2^17 of the rays of bounces 0, 1, 2 and 10 against K2 (and the plain
+   version past bounce 0); 2^18 far grazing rays (1,000-2,000 units away,
+   aimed at the mesh's leaf boxes) against K2, bit for bit but for rays
+   whose K2 hit lies off its own triangle by more than the rounding
+   margin (each printed); K3 timed on every bounce's rays (K3 ms a
+   batch) and over the primary rays, the tree's and the flat page walk's
+   work counted on 2^17 rays of bounces 0, 1 and 2 for the bounds;
 5. the wavefront path, Renderer(cs, use_megakernel=False): several batches,
    counting K1 launches; the image checks; the same for the motion-blur
    scene, for tri-stress's one batch (counting K2 and K1 launches) and
@@ -160,11 +165,13 @@ printing a result.  No path runs at a cut depth.  Phases:
    form), four batches stepped and held to the wavefront's four (channel
    means within IMAGE_MEAN_TOL); then the mesh scene's Renderer with
    defaults, which must take the paged wavefront (K3 launched; K1, K2
-   and K4 not), Mrays/s over batches 1-3 stepped, the image checks and
-   its channel means beside the analytic scene's; a reduced frame
+   and K4 not), Mrays/s over batches 1-3 stepped and over the other 21
+   in render_all, the image checks and its channel means beside the
+   analytic scene's; a reduced frame
    (240x135, depth 50, one batch) of its soup on the paged and on the
    dense sweep, byte-identical with equal ray counts; one batch of the
-   motion-blur mesh (tables built once for the batch), the image checks
+   motion-blur mesh (its tree re-fitted once for the batch; the re-fit
+   timed), the image checks
    and the same reduced-frame identity; final-one-weekend and its
    motion-blur twin must count every K4 launch as clustered; then
    stress-4x's and stress-16k's Renderer with defaults, which must take
@@ -295,6 +302,12 @@ PERLIN_SIZE = (1024, 576)
 NOISE_MEAN_TOL = 1e-4
 MESH_SUBSET = 1 << 17
 REDUCED = (240, 135)
+# K3's far grazing check: rays from 1,000-2,000 units away aimed at the
+# mesh's leaf boxes.  One node of K3's tree: its two children's box tests,
+# each FLOPS_PER_PRETEST and the box widened by the ray's rounding margin
+# (|o|_inf + reach) 2^-18 (2) on its six faces (6).
+GRAZING_RAYS = 1 << 18
+FLOPS_PER_TREE_NODE = 2 * (FLOPS_PER_PRETEST + 8)
 # earth (tools/image_scenes.py): its size, and its full batch, fused
 # against the wavefront with K1 (which contracts multiply-adds): channel
 # means within this.  earth-motion-blur's batch on fused_per_batch against
@@ -622,7 +635,7 @@ def _paged_equal(a, b, alive) -> bool:
             and torch.equal(a[3][alive], b[3][alive]))
 
 
-def _compare_paged(name, o, d, tables, table16, alive, plain=True):
+def _compare_paged(name, o, d, tree, table16, alive, plain=True):
     """K3 vs its plain version (when ``plain``) and vs K2 over the same
     soup, on the same rays: bit for bit, and two launches byte-identical.
     Returns (plain seconds or None, K3's hits)."""
@@ -630,8 +643,8 @@ def _compare_paged(name, o, d, tables, table16, alive, plain=True):
 
     from raytrace_tpu_torch.ops import paged_tri, tri_sweep
 
-    hit = paged_tri.intersect_tris_paged(o, d, tables, alive)
-    again = paged_tri.intersect_tris_paged(o, d, tables, alive)
+    hit = paged_tri.intersect_tris_paged(o, d, tree, alive)
+    again = paged_tri.intersect_tris_paged(o, d, tree, alive)
     k2 = tri_sweep.intersect_tris_sweep(o, d, table16, alive)
     torch.cuda.synchronize()
     plain_s = None
@@ -639,13 +652,13 @@ def _compare_paged(name, o, d, tables, table16, alive, plain=True):
               "repeat": all(torch.equal(a, b) for a, b in zip(hit, again))}
     if plain:
         t0 = time.perf_counter()
-        ref = paged_tri.paged_tri_sweep_reference(o, d, tables, alive)
+        ref = paged_tri.tri_tree_sweep_reference(o, d, tree, alive)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
         checks["plain"] = _paged_equal(hit, ref, alive)
-    print(f"paged sweep {name}: R={o.x.shape[0]} T={tables.num_tris} "
-          f"g={tables.g} c={tables.c} pages {tables.page_boxes.shape[0]} "
-          f"alive {alive.double().mean().item():.4f}: bit for bit with "
+    print(f"paged sweep {name}: R={o.x.shape[0]} T={tree.num_tris} "
+          f"L={tree.leaf} depth {tree.depth} alive "
+          f"{alive.double().mean().item():.4f}: bit for bit with "
           + ", ".join(f"{k} {v}" for k, v in checks.items())
           + f"; hit share {(hit.tri >= 0).double().mean().item():.4f}"
           + (f"; plain {plain_s:.3f} s" if plain else ""))
@@ -654,10 +667,10 @@ def _compare_paged(name, o, d, tables, table16, alive, plain=True):
     return plain_s, hit
 
 
-def _paged_random(T, g, c, R, seed, dev):
+def _paged_random(T, R, seed, dev):
     """T random small triangles in a 10-unit box in the paged sweep's
-    order, with a duplicate pair: (page tables, dense table, rays towards
-    random triangles with a tenth in random directions, alive mask)."""
+    order, with a duplicate pair: (tree, dense table, rays towards random
+    triangles with a tenth in random directions, alive mask)."""
     import torch
 
     from raytrace_tpu_torch.ops import paged_tri, tri_sweep
@@ -677,78 +690,170 @@ def _paged_random(T, g, c, R, seed, dev):
         np.ascontiguousarray(a[:, i], np.float32), device=dev)
         for i in range(3)))
     wp = torch.tensor(tri, device=dev)
-    return (paged_tri.build_page_tables(wp, T, g=g, c=c),
-            tri_sweep.pack_tri_table(wp, T), v3(o), v3(d),
-            torch.tensor(rng.random(R) < 0.7, device=dev))
+    return (paged_tri.build_tri_tree(wp, T), tri_sweep.pack_tri_table(wp, T),
+            v3(o), v3(d), torch.tensor(rng.random(R) < 0.7, device=dev))
 
 
-def _k3_full(mesh_r, card):
-    """K3 on final-one-weekend --mesh-geometry, the main path's soup: the
-    frame's rays at every bounce of batch 0 (render_tile with a capturing
-    trace); all primary rays bit for bit with the plain version (timed), a
-    subset of them and of bounce 2's against K2 too; K3 timed over all
-    primary rays; the work of the traversal counted on the subset and
-    scaled to all primary rays for the bound.  Returns a dict."""
+def _k3_far_grazing(geom, static, dev):
+    """K3 against K2 on rays from 1,000-2,000 units away grazing the
+    mesh's leaf boxes: bit for bit, but for rays whose K2 hit lies farther
+    off its own triangle's box than the ray's rounding margin (the
+    Moller-Trumbore test's error far from the origin at near-parallel
+    incidence, which no conservative box can hold), each printed.
+    Returns (rays, such rays)."""
     import torch
 
-    from raytrace_tpu_torch.engine import wavefront
+    from raytrace_tpu_torch.ops import paged_tri, tri_sweep
+
+    n = static.num_triangles
+    wp = geom.world_p[:n]
+    boxes = paged_tri.leaf_boxes(wp, n)[:-(-n // paged_tri.LEAF)]
+    o, d = smoke_lib.grazing_rays(boxes.cpu().numpy(), GRAZING_RAYS, 11, dev)
+    alive = torch.ones(GRAZING_RAYS, dtype=torch.bool, device=dev)
+    hit = paged_tri.intersect_tris_paged(o, d, geom.tri_tree, alive)
+    k2 = tri_sweep.intersect_tris_sweep(o, d, geom.tri_table16, alive)
+    bad = torch.nonzero((hit.t != k2.t) | (hit.tri != k2.tri))[:, 0]
+    for r in bad.tolist():
+        j = int(k2.tri[r])
+        tri = wp[j].double()
+        p = torch.stack([x[r].double() for x in o]) + k2.t[r].double() * \
+            torch.stack([x[r].double() for x in d])
+        off = float(torch.maximum(tri.amin(0) - p, p - tri.amax(0)).amax())
+        reach = float(boxes[j // paged_tri.LEAF].abs().amax())
+        margin = (max(abs(float(x[r])) for x in o) + reach) * \
+            paged_tri.TREE_ROUNDING
+        print(f"far grazing ray {r}: K2 hit {j} at t {float(k2.t[r])}, "
+              f"{off:.3g} off its triangle's box (margin {margin:.3g}); K3 "
+              f"{int(hit.tri[r])} at t {float(hit.t[r])}")
+        if not off > margin:
+            raise AssertionError(f"K3 lost K2's hit on far grazing ray {r}")
+    print(f"far grazing: {GRAZING_RAYS} rays at the mesh's leaf boxes, K2 "
+          f"hits {float((k2.tri >= 0).double().mean()):.4f}; K3 bit for bit "
+          f"with K2 on all but {len(bad)}, each a K2 hit off its triangle")
+    return GRAZING_RAYS, len(bad)
+
+
+def _k3_work(label, o, d, alive, geom, pages, gen):
+    """The tree's and the flat walk's work on MESH_SUBSET of one bounce's
+    rays: (per active ray: tree node tests, tree triangle tests, flat page,
+    cluster and triangle tests)."""
+    import torch
+
     from raytrace_tpu_torch.ops import paged_tri
     from raytrace_tpu_torch.ops.vec3 import V3
 
-    static, geom = mesh_r.static, mesh_r._geometry(0)
-    pages, table16 = geom.tri_pages, geom.tri_table16
-    trace = wavefront.make_trace_fn(static, mesh_r.scene, geom)
-    seen = []
+    sel = torch.randperm(o.x.shape[0], generator=gen)[:MESH_SUBSET].to(
+        o.x.device)
+    so, sd = (V3(*(x[sel].contiguous() for x in v)) for v in (o, d))
+    sa = alive[sel].contiguous()
+    bt = paged_tri.intersect_tris_paged(so, sd, geom.tri_tree, sa).t
+    tree = paged_tri.tree_visit_counts(so, sd, geom.tri_tree, bt, sa)
+    flat = paged_tri.visit_counts(so, sd, pages, bt, sa)
+    n = tree["rays"]
+    per = (tree["node_tests"] / n, tree["tri_tests"] / n,
+           flat["page_tests"] / n, flat["cluster_tests"] / n,
+           flat["tri_tests"] / n)
+    print(f"K3 work on {n} active of {sa.numel()} {label} rays, a ray: tree "
+          f"{per[0]:.1f} nodes (two box tests each) and {per[1]:.1f} "
+          f"triangle tests, {tree['nodes_read']} node rows and "
+          f"{tree['tris_read']} triangle rows read in all; flat walk "
+          f"{per[2]:.1f} page, {per[3]:.1f} cluster and {per[4]:.1f} "
+          f"triangle tests")
+    return per, 64 * tree["nodes_read"] + 48 * tree["tris_read"]
 
-    def capture(o, d, alive):
-        seen.append((o, d, alive))
-        return trace(o, d, alive)
 
-    wavefront.render_tile(static, mesh_r.scene, mesh_r.camera, capture, geom,
-                          0, 0, static.height, mesh_r.use_dof)
-    torch.cuda.synchronize()
-    (o, d, alive), later = seen[0], seen[2]
-    del seen
+def _k3_bounds(per, rays, n_launch, R_total, tree_bytes, flat_bytes):
+    """(tree bound, flat bound) of K3 over ``rays`` active rays of
+    ``n_launch`` launches of ``R_total`` rays in all, from per-ray work
+    ``per`` (_k3_work): least_ms of the FP32 operations, and of the rays'
+    bytes with, each launch, the tree's rows its subset read
+    (``tree_bytes``: fewer than the whole launch reads) or the flat walk's
+    tables (``flat_bytes``, read whole, as PRs 6-10 counted them)."""
+    nodes, tris, pages, clusters, flat_tris = per
+    nbytes = R_total * (6 * 4 + 1 + 4 * 4)
+    tree = smoke_lib.least_ms(
+        rays * (nodes * FLOPS_PER_TREE_NODE + tris * FLOPS_PER_TRI_TEST),
+        nbytes + n_launch * tree_bytes)
+    flat = smoke_lib.least_ms(
+        rays * ((pages + clusters) * FLOPS_PER_PRETEST
+                + flat_tris * FLOPS_PER_TRI_TEST),
+        nbytes + n_launch * flat_bytes)
+    return tree, flat
+
+
+def _k3_full(mesh_r, card):
+    """K3 on final-one-weekend --mesh-geometry, the main path's soup: every
+    bounce's rays of batch 0 (render_tile with a capturing trace); all
+    primary rays bit for bit with the plain version (timed) and K2, and
+    MESH_SUBSET of bounces 0, 1, 2 and 10 against K2 (and, past the
+    primary rays, the plain version); far grazing rays against K2; K3
+    timed on every bounce's rays (K3 ms a batch) and over the primary
+    rays; the tree's and the flat walk's work counted on MESH_SUBSET of
+    bounces 0, 1 and 2 for the bounds.  Returns a dict."""
+    import torch
+
+    from raytrace_tpu_torch.ops import paged_tri
+    from raytrace_tpu_torch.ops.vec3 import V3
+
+    static = mesh_r.static
+    geom, seen = smoke_lib.capture_bounces(mesh_r)
+    tree, table16 = geom.tri_tree, geom.tri_table16
+    o, d, alive = seen[0]
     n_rays = o.x.shape[0]
     if n_rays != static.width * static.height * static.sqrt_spp ** 2:
         raise AssertionError(f"mesh primary rays: {n_rays}")
-    plain_s, hit = _compare_paged(f"{n_rays} primary (all)", o, d, pages,
+    plain_s, hit = _compare_paged(f"{n_rays} primary (all)", o, d, tree,
                                   table16, alive)
     del hit
     gen = torch.Generator().manual_seed(0)
-    work = None
-    for label, (ro, rd, ra) in (("primary", (o, d, alive)),
-                                ("bounce 2", later)):
+    for b in (0, 1, 2, 10):
+        ro, rd, ra = seen[b]
         sel = torch.randperm(ro.x.shape[0], generator=gen)[:MESH_SUBSET].to(
             ro.x.device)
         so, sd = (V3(*(x[sel].contiguous() for x in v)) for v in (ro, rd))
-        sa = ra[sel].contiguous()
-        _, hit = _compare_paged(f"{MESH_SUBSET} {label}", so, sd, pages,
-                                table16, sa, plain=label != "primary")
-        if label == "primary":
-            work = paged_tri.visit_counts(so, sd, pages, hit.t, sa)
+        _compare_paged(f"{min(MESH_SUBSET, ro.x.shape[0])} of bounce {b}'s "
+                       f"{ro.x.shape[0]}", so, sd, tree, table16,
+                       ra[sel].contiguous(), plain=b > 0)
+    grazing = _k3_far_grazing(geom, static, o.x.device)
+    per_bounce = smoke_lib.k3_bounce_ms(tree, seen)
     ms = median_ms(
-        lambda: paged_tri.intersect_tris_paged(o, d, pages, alive), 5)
-    scale = n_rays / work["rays"]
-    flops = scale * ((work["page_tests"] + work["cluster_tests"])
-                     * FLOPS_PER_PRETEST
-                     + work["tri_tests"] * FLOPS_PER_TRI_TEST)
-    # Rays in: origin, direction, alive; out: t, id, u, v; the triangle
-    # rows, cluster boxes and page boxes once.
-    nbytes = n_rays * (6 * 4 + 1 + 4 * 4) + 4 * (
-        pages.tris.numel() + pages.boxes.numel() + pages.page_boxes.numel())
-    bound = least_ms(flops, nbytes)
-    per = {k: work[k] / work["rays"] for k in ("page_tests",
-                                              "cluster_tests", "tri_tests")}
-    print(f"paged sweep time at R={n_rays} (final-one-weekend --mesh-geometry"
-          f"'s primary rays), T={pages.num_tris}: kernel {ms:.3f} ms (median "
-          f"of 5, CUDA events), plain PyTorch {plain_s * 1e3:.1f} ms (one "
-          f"run, host clock); work counted on {work['rays']} of its rays: "
-          f"{per['page_tests']:.1f} page tests, {per['cluster_tests']:.1f} "
-          f"cluster tests and {per['tri_tests']:.1f} triangle tests a ray; "
-          f"bound (an estimate) {bound[0]:.4f} ms by {bound[1]} "
-          f"({bound[0] / ms:.4f} of it) ({card})")
-    return dict(ms=ms, plain_ms=plain_s * 1e3, bound=bound)
+        lambda: paged_tri.intersect_tris_paged(o, d, tree, alive), 5)
+    pages = paged_tri.build_page_tables(geom.world_p, static.num_triangles,
+                                        geom.tri_table12)
+    work = [_k3_work(f"bounce {b}", *seen[b], geom, pages, gen)
+            for b in (0, 1, 2)]
+    active = [int(a.sum()) for _, _, a in seen]
+    R_all = sum(x.x.shape[0] for x, _, _ in seen)
+    flat_bytes = 4 * (pages.tris.numel() + pages.boxes.numel()
+                      + pages.page_boxes.numel())
+    bound, flat_bound = _k3_bounds(work[0][0], active[0], 1, n_rays,
+                                   work[0][1], flat_bytes)
+    # The later bounces at the mean of bounces 1 and 2's work a ray.
+    later = [(w1 + w2) / 2 for w1, w2 in zip(work[1][0], work[2][0])]
+    b_tree, b_flat = _k3_bounds(later, sum(active[1:]), len(seen) - 1,
+                                R_all - n_rays,
+                                min(work[1][1], work[2][1]), flat_bytes)
+    batch_bound = (bound[0] + b_tree[0], b_tree[1])
+    batch_flat = (flat_bound[0] + b_flat[0], b_flat[1])
+    batch_ms = sum(per_bounce)
+    print(f"K3 ms per bounce of batch 0 ({len(seen)} launches, "
+          f"{sum(active)} active rays of {R_all}): "
+          + ", ".join(f"{x:.3f}" for x in per_bounce) + f" ({card})")
+    print(f"K3 a batch of final-one-weekend --mesh-geometry at L={tree.leaf}"
+          f" (depth {tree.depth}, {tree.nodes.numel() * 4 / 1e6:.1f} MB of "
+          f"nodes): {batch_ms:.3f} ms, the primary rays' launch {ms:.3f} ms "
+          f"(median of 5, CUDA events); plain PyTorch on the primary rays "
+          f"{plain_s * 1e3:.1f} ms (one run, host clock); bound (an "
+          f"estimate from the work on {MESH_SUBSET} rays of bounces 0, 1 "
+          f"and 2) {bound[0]:.4f} ms on the primary rays by {bound[1]} "
+          f"({bound[0] / ms:.4f} of it), {batch_bound[0]:.4f} ms a batch "
+          f"({batch_bound[0] / batch_ms:.4f} of it); the flat walk's bound "
+          f"{flat_bound[0]:.4f} ms and {batch_flat[0]:.4f} ms a batch "
+          f"({card})")
+    return dict(ms=ms, plain_ms=plain_s * 1e3, bound=bound,
+                flat_bound=flat_bound, batch_ms=batch_ms,
+                batch_bound=batch_bound, batch_flat_bound=batch_flat,
+                leaf=tree.leaf, grazing=grazing)
 
 
 def _scene(cs, width, height, depth=None, batches=None):
@@ -966,6 +1071,10 @@ def _mesh_paths(mesh_r, mb_scene, fused_img, wave_img, dev, card):
     # left, and K2 and K4 must not run), its batches stepped.
     _reset_counts()
     per_batch = _step(mesh_r, MAIN_BATCHES)
+    rays0, sec0 = mesh_r.stats.rays_traced, mesh_r.stats.render_seconds
+    mesh_r.render_all()
+    all_rays = mesh_r.stats.rays_traced - rays0
+    all_s = mesh_r.stats.render_seconds - sec0
     k3_launches = paged_tri.LAUNCHES
     if (mesh_r.path != "wavefront" or k3_launches <= 0 or tri_sweep.LAUNCHES
             or megakernel.LAUNCHES or sphere_sweep.LAUNCHES):
@@ -979,12 +1088,15 @@ def _mesh_paths(mesh_r, mb_scene, fused_img, wave_img, dev, card):
     print(f"mesh main path (wavefront, paged triangles): final-one-weekend "
           f"--mesh-geometry {WIDTH}x{HEIGHT}, 4 spp, depth 50: "
           f"{_mrays(per_batch[1:]):.3f} Mrays/s over batches "
-          f"1-{MAIN_BATCHES - 1} stepped one at a time; paged_tri "
-          f"LAUNCHES={k3_launches}, tri_sweep, megakernel and sphere_sweep "
-          f"LAUNCHES=0 ({card})")
+          f"1-{MAIN_BATCHES - 1} stepped one at a time, "
+          f"{all_rays / all_s / 1e6:.3f} over the other "
+          f"{mesh_r.compiled.render.sample_batches - MAIN_BATCHES} in "
+          f"render_all ({all_s:.3f} s); paged_tri LAUNCHES={k3_launches}, "
+          f"tri_sweep, megakernel and sphere_sweep LAUNCHES=0 ({card})")
     mesh_img = mesh_r.image()
     _check_image(mesh_img, "mesh paged")
-    print(f"mesh vs analytic spheres over batches 0-{MAIN_BATCHES - 1}: "
+    print(f"mesh vs analytic spheres (all {mesh_r.current_batch} batches "
+          f"against {MAIN_BATCHES}): "
           f"channel means {mesh_img.mean(axis=(0, 1)).tolist()} (mesh), "
           f"{fused_img.mean(axis=(0, 1)).tolist()} (fused), "
           f"{wave_img.mean(axis=(0, 1)).tolist()} (wavefront)")
@@ -994,29 +1106,34 @@ def _mesh_paths(mesh_r, mb_scene, fused_img, wave_img, dev, card):
     _paged_vs_dense("mesh", mesh_r.compiled, dev, card)
 
     # Motion blur with meshes: final-one-weekend-motion-blur
-    # --mesh-geometry, its page tables built for every batch from that
+    # --mesh-geometry, its tree re-fitted for every batch from that
     # batch's world soup.
     cs_mb_mesh = cli.load_scene(mb_scene, analytic_spheres=False)
     mb_mesh = Renderer(cs_mb_mesh, device=dev)
     builds = []
-    build_tables = paged_tri.build_page_tables
-    paged_tri.build_page_tables = lambda *a, **k: (  # noqa: E731
-        builds.append(1), build_tables(*a, **k))[1]
+    build_tree = paged_tri.build_tri_tree
+    paged_tri.build_tri_tree = lambda *a, **k: (  # noqa: E731
+        builds.append(1), build_tree(*a, **k))[1]
     _reset_counts()
     try:
         (mb_rays, mb_s), = _step(mb_mesh, 1)
     finally:
-        paged_tri.build_page_tables = build_tables
+        paged_tri.build_tri_tree = build_tree
+    g1 = mb_mesh._geometry(1)
+    refit_ms = median_ms(lambda: paged_tri.build_tri_tree(
+        g1.world_p, cs_mb_mesh.num_triangles, g1.tri_table12), 5)
+    del g1
     if (mb_mesh.path != "wavefront" or mb_mesh.static.bvh_mode != "paged"
             or not mb_mesh.static.any_animated or len(builds) != 1
             or paged_tri.LAUNCHES <= 0 or tri_sweep.LAUNCHES
             or megakernel.LAUNCHES):
         raise AssertionError(
             f"the motion-blur mesh did not take the paged wavefront with "
-            f"per-batch tables (path {mb_mesh.path}, tables built "
+            f"a tree re-fitted per batch (path {mb_mesh.path}, trees built "
             f"{len(builds)}, K3 {paged_tri.LAUNCHES})")
-    print(f"motion-blur mesh (wavefront, paged triangles, tables per "
-          f"batch): final-one-weekend-motion-blur --mesh-geometry "
+    print(f"motion-blur mesh (wavefront, paged triangles, tree re-fitted "
+          f"per batch in {refit_ms:.3f} ms, median of 5, CUDA events): "
+          f"final-one-weekend-motion-blur --mesh-geometry "
           f"{MB_WIDTH}x{MB_HEIGHT}, {cs_mb_mesh.num_triangles} triangles, "
           f"one batch: {mb_rays} rays in {mb_s:.4f} s "
           f"({mb_rays / mb_s / 1e6:.3f} Mrays/s); paged_tri "
@@ -1580,10 +1697,10 @@ def main() -> int:
         del args, kw, sums
 
     # -- 4f. K3 vs plain and K2, at small size and on the 2M-triangle mesh ---
-    for T, g, c, R in ((40000, 128, 128, 1 << 16), (3001, 8, 16, 1 << 14)):
-        tables, table16, ro, rd, r_alive = _paged_random(T, g, c, R, T, dev)
-        _compare_paged(f"random T={T}", ro, rd, tables, table16, r_alive)
-    del tables, table16, ro, rd, r_alive
+    for T, R in ((40000, 1 << 16), (3001, 1 << 14), (5, 2048)):
+        tree, table16, ro, rd, r_alive = _paged_random(T, R, T, dev)
+        _compare_paged(f"random T={T}", ro, rd, tree, table16, r_alive)
+    del tree, table16, ro, rd, r_alive
     t0 = time.perf_counter()
     cs_mesh = cli.load_scene(cli.DEFAULT_SCENE, WIDTH, HEIGHT,
                              analytic_spheres=False)
@@ -1591,19 +1708,22 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh_r = Renderer(cs_mesh, device=dev)
     mesh_init_s = time.perf_counter() - t0
-    pages = mesh_r._geometry(0).tri_pages
+    geom = mesh_r._geometry(0)
+    tree_ms = median_ms(lambda: paged_tri.build_tri_tree(
+        geom.world_p, cs_mesh.num_triangles, geom.tri_table12), 5)
     print(f"final-one-weekend --mesh-geometry: {cs_mesh.num_triangles} "
           f"triangles, {cs_mesh.num_spheres} spheres, compiled in "
-          f"{mesh_compile_s:.2f} s; Renderer (paged order, upload, tables) "
+          f"{mesh_compile_s:.2f} s; Renderer (paged order, upload, tree) "
           f"{mesh_init_s:.2f} s; path {mesh_r.path}, bvh_mode "
-          f"{mesh_r.static.bvh_mode}; {pages.page_boxes.shape[0]} pages, "
-          f"{pages.boxes.shape[0]} clusters")
+          f"{mesh_r.static.bvh_mode}; a tree of depth {geom.tri_tree.depth} "
+          f"over leaves of {geom.tri_tree.leaf}, built on the card in "
+          f"{tree_ms:.3f} ms (median of 5, CUDA events) ({card})")
     if (cs_mesh.num_triangles != MESH_TRIANGLES or cs_mesh.num_spheres
             or mesh_r.path != "wavefront"
             or mesh_r.static.bvh_mode != "paged"):
         raise AssertionError("the mesh scene did not take the paged "
                              "wavefront")
-    del pages
+    del geom
     k3 = _k3_full(mesh_r, card)
 
     # -- 5. the wavefront path ----------------------------------------------
@@ -2281,13 +2401,18 @@ def main() -> int:
         "bound_ms": stress["stress-16k"]["bound"][0],
         "bound_by": stress["stress-16k"]["bound"][1], "library_ms": None,
     }, {
-        # final-one-weekend --mesh-geometry's primary rays: the main path's.
+        # final-one-weekend --mesh-geometry's primary rays, the main
+        # path's, and its whole batch (every bounce's launch); the bounds
+        # of the tree walk and of the flat page walk it replaced; the leaf.
         "name": "paged_tri", "route": "cuda",
         "source": "raytrace_tpu_torch/csrc/paged_tri.cu",
         "replaces": "raytrace_tpu/ops/pallas_paged_tri.py:185",
         "launches": k3_launches, "max_abs_err": 0.0, "ms": k3["ms"],
         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound"][0],
         "bound_by": k3["bound"][1], "library_ms": None,
+        "batch_ms": k3["batch_ms"], "batch_bound_ms": k3["batch_bound"][0],
+        "flat_bound_ms": k3["flat_bound"][0],
+        "batch_flat_bound_ms": k3["batch_flat_bound"][0], "leaf": k3["leaf"],
     }, *probe_entries]}))
     tri_dir.cleanup()
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,7 @@ Covered here: spheres swept in world mode, with direct normals, or in a
 scene with an image texture with the normal and UV of the sphere's
 world-to-object branch; triangles swept
 densely (the kernel K2) or, on a soup the Renderer put in paged order, by
-pages and clusters (the kernel K3), with their hit point, normal and UV
+a walk of a tree over it (the kernel K3), with their hit point, normal and UV
 rebuilt from the packed position and attribute tables, fat-row shading
 (constant, checker, noise and image textures), next-event
 estimation with lights (the alias-table light sample moved by the hit
@@ -80,8 +80,9 @@ class BatchGeometry(NamedTuple):
     # (None on the paged sweep, which nothing else reads them on).
     tri_table12: Optional[torch.Tensor] = None
     tri_boxes: Optional[torch.Tensor] = None
-    # The paged sweep's tables (ops/paged_tri.py), on a "paged" soup.
-    tri_pages: Optional[paged_tri.PageTables] = None
+    # The paged sweep's tree (ops/paged_tri.build_tri_tree), on a "paged"
+    # soup.
+    tri_tree: Optional[paged_tri.TriTree] = None
     # [I, 12] every instance's objectToWorld at the batch's time, row-major
     # 3x4: the light sample's transform (raytrace_tpu/engine/wavefront.py:
     # 755, :875-876); None when the geometry was built without a time.
@@ -150,9 +151,10 @@ def prepare_tris(static: SceneStatic, scene: SceneArrays,
     """The triangle fields of a BatchGeometry for one batch time (a 0-dim
     f32 tensor): the instances go to that time, the soup to world space,
     then the packed position and attribute tables, and the fused kernel's
-    tables, or on a "paged" soup the paged sweep's
+    tables, or on a "paged" soup the paged sweep's tree
     (raytrace_tpu/engine/wavefront.py:779-839, :881-890).  A static scene
-    builds them once."""
+    builds them once; a moving one every batch (the tree re-fitted over
+    the same order)."""
     mats = transforms.interpolate_instances(scene.inst_t0, scene.inst_t1,
                                             batch_time)
     world_p, world_n = transforms.transform_soup(scene.tri_p, scene.tri_n,
@@ -165,7 +167,7 @@ def prepare_tris(static: SceneStatic, scene: SceneArrays,
                tri_attr16=tri_attr_table(world_n, scene.tri_uv, T8),
                tri_table12=table12)
     if static.bvh_mode == "paged":
-        out["tri_pages"] = paged_tri.build_page_tables(
+        out["tri_tree"] = paged_tri.build_tri_tree(
             world_p, static.num_triangles, table12)
     else:
         out["tri_boxes"] = megakernel.cluster_boxes(
@@ -296,7 +298,7 @@ def make_trace_fn(static: SceneStatic, scene: SceneArrays,
     def trace(o: V3, d: V3, alive) -> RawHit:
         tri = None
         if static.bvh_mode == "paged":
-            tri = paged_tri.intersect_tris_paged(o, d, geom.tri_pages, alive)
+            tri = paged_tri.intersect_tris_paged(o, d, geom.tri_tree, alive)
         elif static.has_tris:
             tri = tri_sweep.intersect_tris_sweep(o, d, geom.tri_table16,
                                                  alive)

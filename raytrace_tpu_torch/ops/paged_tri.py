@@ -1,22 +1,30 @@
 """Closest hit over any number of triangles: the CUDA kernel
-``csrc/paged_tri.cu`` (K3) and its plain PyTorch version (counterpart of
+``csrc/paged_tri.cu`` (K3) and its plain PyTorch versions (counterpart of
 raytrace_tpu/ops/pallas_paged_tri.py).
 
 The soup is put in Morton order of its world-space centroids once
-(``paged_tri_order``, on the host), then cut into clusters of ``g``
-contiguous triangles and pages of ``c`` clusters.  A ray tests a page's
-box, then the boxes of the page's clusters, then the triangles of each
-cluster its box lets through, in ascending id, with the dense sweep's
-Moller-Trumbore operations (ops/tri_sweep.py) and a strict ``<``.  A box
-is skipped when the ray enters it at or beyond ``best_t * 1.0001 + 1e-4``,
-and the boxes are widened, so no skipped triangle can be closer than the
-best hit: the result is the dense sweep's over the same soup, bit for bit
-(the lowest id on ties).
+(``paged_tri_order``, on the host).  The kernel walks an implicit binary
+tree over that order (``build_tri_tree``): a leaf is ``LEAF`` contiguous
+triangles, an internal node the exact union of its two children, and
+every node stores both children's boxes in one 64-byte row.  A ray tests
+both children of a node, descends into the nearer one that passes and
+keeps the other on a stack; at a leaf it runs the dense sweep's
+Moller-Trumbore operations (ops/tri_sweep.py) and keeps the
+lexicographic minimum of (t, id).  A box is skipped when the ray enters
+it at or beyond ``best_t * 1.0001 + 1e-4``, and the boxes are widened, so
+no skipped triangle can hold the closest hit: the result is the dense
+sweep's over the same soup, bit for bit (the lowest id on ties), in
+whatever order the walk visits the leaves.
 
-``build_page_tables`` builds the tables on the soup's device: once for a
-static scene, every batch for an animated one.  ``intersect_tris_paged``
-is the one entry point: for tensors on the CPU it runs the plain version;
-for CUDA tensors it launches the kernel on the current stream, or raises.
+The TPU kernel's flat walk (pages of ``PAGE_C`` clusters of ``TRI_G``
+triangles, ``build_page_tables``) stays as a plain version,
+``paged_tri_sweep_reference``, which holds the port to the TPU kernel;
+``visit_counts`` counts its work beside ``tree_visit_counts``.
+
+``intersect_tris_paged`` is the one entry point.  Given a ``TriTree``, for
+tensors on the CPU it runs ``tri_tree_sweep_reference``; for CUDA tensors
+it launches the kernel on the current stream, or raises.  Given
+``PageTables`` (on the CPU only) it runs the flat plain version.
 ``LAUNCHES`` counts kernel launches.
 
 The TPU kernel's lane-gather layout (``pageG``), its powers-of-two mask
@@ -36,11 +44,18 @@ import torch
 
 from ..models.bvh_build import _instance_matrix_at
 from . import _build, megakernel, tri_sweep
+from .megakernel import _BIGF
 from .intersect import T_MAX, T_MIN, Hit
 from .vec3 import V3
 
 LAUNCHES = 0
 
+LEAF = 4        # triangles per leaf of the tree (chosen on the card: PERF.md)
+MAX_DEPTH = 24  # the kernel's stack (csrc/paged_tri.cu kStack)
+# A node's box is widened for each ray by (|o|_inf + reach) TREE_ROUNDING,
+# reach the box's largest |coordinate|, against the rounding of the
+# Moller-Trumbore test and the slab test far from the origin.
+TREE_ROUNDING = 2.0 ** -18
 TRI_G = 128    # triangles per cluster
 PAGE_C = 128   # clusters per page
 _BIG = 3e38    # min/max seed over a cluster's vertices
@@ -141,6 +156,79 @@ def build_page_tables(world_p: torch.Tensor, num_real: int,
                       num_tris=int(num_real), g=int(g), c=int(c))
 
 
+class TriTree(NamedTuple):
+    """One soup's implicit binary tree for the kernel, on the soup's
+    device.  Node n has children 2n + 1 and 2n + 2; leaf k is node
+    K - 1 + k and holds triangles [k leaf, (k + 1) leaf)."""
+
+    tris: torch.Tensor   # [T8, 12] (v0, valid), (e1, 0), (e2, 0)
+    # [K - 1, 16] each internal node's children's boxes: left min xyz,
+    # left max xyz, right min xyz, right max xyz, four zeros
+    nodes: torch.Tensor
+    num_tris: int        # the real triangles (rows past it are padding)
+    leaf: int            # triangles per leaf
+    depth: int           # log2 K, K leaves
+
+
+def leaf_boxes(world_p: torch.Tensor, num_real: int,
+               leaf: int = LEAF) -> torch.Tensor:
+    """[K, 6] boxes (min xyz, max xyz) of the soup's leaves of ``leaf``
+    triangles, K the next power of two of their count.  A real leaf's box
+    spans its triangles' world vertices, widened as ``build_page_tables``
+    widens a cluster's (so it lies inside its cluster's box); a padding
+    leaf's is (+BIG, -BIG), the identity of the union."""
+    n_leaves = -(-num_real // leaf)
+    K = 1 << (n_leaves - 1).bit_length()
+    dev = world_p.device
+    v = torch.zeros((K * leaf, 3, 3), dtype=torch.float32, device=dev)
+    v[:num_real] = world_p[:num_real]
+    real = (torch.arange(K * leaf, device=dev) < num_real).reshape(
+        K, leaf, 1, 1)
+    v = v.reshape(K, leaf, 3, 3)
+    mn = torch.where(real, v, _BIG).amin(dim=(1, 2))          # [K, 3]
+    mx = torch.where(real, v, -_BIG).amax(dim=(1, 2))
+    pad = 1e-5 + 1e-5 * torch.maximum(mn.abs(), mx.abs())
+    boxes = torch.cat([mn - pad, mx + pad], dim=1)
+    boxes[n_leaves:, :3] = _BIG
+    boxes[n_leaves:, 3:] = -_BIG
+    return boxes
+
+
+def build_tri_tree(world_p: torch.Tensor, num_real: int,
+                   tris: Optional[torch.Tensor] = None,
+                   leaf: int = LEAF) -> TriTree:
+    """The tree of a [T, 3, 3] world soup in Morton order whose first
+    ``num_real`` rows are its triangles, built level by level on the
+    soup's device (raytrace_tpu/models/bvh_build.py:120-182 ``build_bvh``'s
+    loop over ``leaf_boxes``).  An internal node's box is the exact union
+    of its children's; a box that holds no real triangle is stored as the
+    point (BIG, BIG, BIG), which the slab test never passes.  ``tris`` is
+    the soup's [T8, 12] table (ops/megakernel.tri_table12), built here
+    when not given.  A moving soup is re-fitted by building again from
+    the batch's world soup: the order, and so the tree's shape, stay."""
+    if num_real < 1:
+        raise ValueError("a paged soup needs at least one triangle")
+    if tris is None:
+        tris = megakernel.tri_table12(tri_sweep.pack_tri_table(world_p,
+                                                               num_real))
+    levels = [leaf_boxes(world_p, num_real, leaf)]
+    while levels[-1].shape[0] > 1:
+        pair = levels[-1].reshape(-1, 2, 6)
+        levels.append(torch.cat([pair[:, :, :3].amin(dim=1),
+                                 pair[:, :, 3:].amax(dim=1)], dim=1))
+    heap = torch.cat(levels[::-1])                  # [2K - 1, 6] node n's
+    empty = (heap[:, :3] > heap[:, 3:]).any(dim=1, keepdim=True)
+    heap = torch.where(empty, _BIGF, heap)
+    K = levels[0].shape[0]
+    nodes = torch.zeros((K - 1, 16), dtype=torch.float32,
+                        device=world_p.device)
+    nodes[:, :12] = heap[1:].reshape(K - 1, 12)
+    reach = torch.where(empty, 0.0, heap.abs().amax(dim=1, keepdim=True))
+    nodes[:, 12:14] = reach[1:].reshape(K - 1, 2)
+    return TriTree(tris=tris, nodes=nodes, num_tris=int(num_real),
+                   leaf=int(leaf), depth=len(levels) - 1)
+
+
 # ------------------------------------------------------------ plain version
 
 def _inv(x: torch.Tensor) -> torch.Tensor:
@@ -148,14 +236,20 @@ def _inv(x: torch.Tensor) -> torch.Tensor:
                              torch.where(x < 0.0, -_SLAB_EPS, _SLAB_EPS), x)
 
 
-def _slab(o3, iv3, boxes: torch.Tensor, best_t: torch.Tensor):
+def _slab(o3, iv3, boxes: torch.Tensor, best_t: torch.Tensor, hi: int = 4,
+          margin=None):
     """The slab test of rays (o3, iv3: three [..] tensors) against boxes
-    ([.., 8], broadcast against the rays), pruned by each ray's best t
-    (raytrace_tpu/ops/pallas_paged_tri.py:226-236, :241-251)."""
+    ([.., 8] with the max at column 4, or [.., 6] with ``hi`` 3; broadcast
+    against the rays), pruned by each ray's best t
+    (raytrace_tpu/ops/pallas_paged_tri.py:226-236, :241-251); each box
+    first widened by ``margin`` where one is given."""
     te = tx = None
     for ax in range(3):
-        a0 = (boxes[..., ax] - o3[ax]) * iv3[ax]
-        a1 = (boxes[..., 4 + ax] - o3[ax]) * iv3[ax]
+        lo, up = boxes[..., ax], boxes[..., hi + ax]
+        if margin is not None:
+            lo, up = lo - margin, up + margin
+        a0 = (lo - o3[ax]) * iv3[ax]
+        a1 = (up - o3[ax]) * iv3[ax]
         tn, tf = torch.minimum(a0, a1), torch.maximum(a0, a1)
         te = tn if te is None else torch.maximum(te, tn)
         tx = tf if tx is None else torch.minimum(tx, tf)
@@ -303,9 +397,136 @@ def visit_counts(o: V3, d: V3, tables: PageTables, best_t: torch.Tensor,
     return out
 
 
+# Rays a chunk of the tree's plain versions, and the levels of the
+# subtrees they walk one after another (a ray's best t prunes the later
+# subtrees' boxes).
+_RAY_STEP = 1 << 18
+_SUBTREE_LEVELS = 11
+_NO_ID = np.iinfo(np.int64).max
+
+
+def _descend(o3, iv3, tree: TriTree, ray, node, level: int, bt, work=None):
+    """(ray, node) pairs at ``level`` walked to the leaves: at each level
+    both children's boxes of every pair's node are tested against the
+    ray's best t and the pairs of the children that pass go on.  Returns
+    (ray, leaf index) pairs; counts the nodes tested in ``work``."""
+    o_inf = torch.maximum(torch.maximum(o3[0].abs(), o3[1].abs()),
+                          o3[2].abs())
+    for _ in range(level, tree.depth):
+        if work is not None:
+            work["node_tests"] += ray.numel()
+            work["seen"][node] = True
+        rows = tree.nodes[node]
+        ro, ri = (tuple(x[ray] for x in v) for v in (o3, iv3))
+        b, far = bt[ray], o_inf[ray]
+        hit_l = _slab(ro, ri, rows[:, 0:6], b, 3,
+                      (far + rows[:, 12]) * TREE_ROUNDING)
+        hit_r = _slab(ro, ri, rows[:, 6:12], b, 3,
+                      (far + rows[:, 13]) * TREE_ROUNDING)
+        ray = torch.cat([ray[hit_l], ray[hit_r]])
+        node = torch.cat([2 * node[hit_l] + 1, 2 * node[hit_r] + 2])
+    return ray, node - ((1 << tree.depth) - 1)
+
+
+def _leaf_hits(o: V3, d: V3, tree: TriTree, ray, leaf, best) -> None:
+    """The triangles of (ray, leaf) pairs, merged into ``best`` = [t, id,
+    u, v] (in place) as the lexicographic minimum of (t, id) per ray."""
+    bt, bid, bu, bv = best
+    L = tree.leaf
+    lane = torch.arange(L, device=ray.device)
+    step = max(1, _CHUNK_ELEMS // L)
+    for k0 in range(0, ray.numel(), step):
+        kr, kl = ray[k0:k0 + step], leaf[k0:k0 + step]
+        ids = kl[:, None] * L + lane                          # [K, L]
+        t, u, v = _cluster_hits(tuple(x[kr][:, None] for x in o),
+                                tuple(x[kr][:, None] for x in d), tree.tris,
+                                ids, tree.num_tris)
+        tk, arg = torch.min(t, dim=1)   # the first minimum: the lowest id
+        idk = torch.where(tk < T_MAX, ids.gather(1, arg[:, None])[:, 0],
+                          _NO_ID)
+        lt = bt.clone()
+        lt.scatter_reduce_(0, kr, tk, "amin")
+        near = tk == lt[kr]
+        li = torch.where((bt == lt) & (bid >= 0), bid.long(), _NO_ID)
+        li.scatter_reduce_(0, kr[near], idk[near], "amin")
+        won = near & (idk == li[kr]) & (tk < T_MAX)
+        bu[kr[won]] = u.gather(1, arg[:, None])[:, 0][won]
+        bv[kr[won]] = v.gather(1, arg[:, None])[:, 0][won]
+        bt.copy_(lt)
+        bid.copy_(torch.where(li != _NO_ID, li, bid.long()).int())
+
+
+def tri_tree_sweep_reference(o: V3, d: V3, tree: TriTree,
+                             active: Optional[torch.Tensor] = None):
+    """The plain version of the kernel: the same tree walked level by
+    level over (ray, node) pairs, each pair pruned by its ray's best t.
+    The rays walk in chunks; each chunk walks to the roots of the
+    subtrees of ``_SUBTREE_LEVELS`` levels, then through those subtrees
+    one after another in ascending order, so the best t found in one
+    prunes the next.  At the leaves each ray keeps the lexicographic
+    minimum of (t, id), so any order of the walk gives the kernel's bits.
+    Returns (t, id, u, v); (T_MAX, -1, 0, 0) on a miss and for inactive
+    rays."""
+    R = o.x.shape[0]
+    dev = o.x.device
+    best = [torch.full((R,), T_MAX, dtype=torch.float32, device=dev),
+            torch.full((R,), -1, dtype=torch.int32, device=dev),
+            torch.zeros(R, dtype=torch.float32, device=dev),
+            torch.zeros(R, dtype=torch.float32, device=dev)]
+    live = (torch.ones(R, dtype=torch.bool, device=dev) if active is None
+            else active)
+    iv3 = tuple(_inv(x) for x in d)
+    top = max(0, tree.depth - _SUBTREE_LEVELS)
+    rays = torch.nonzero(live).squeeze(1)
+    for r0 in range(0, rays.numel(), _RAY_STEP):
+        rr = rays[r0:r0 + _RAY_STEP]
+        ray, sub = _descend(tuple(o), iv3, tree._replace(depth=top), rr,
+                            torch.zeros_like(rr), 0, best[0])
+        for k in torch.unique(sub).tolist():
+            root = (1 << top) - 1 + k
+            ray_k, leaf = _descend(tuple(o), iv3, tree, ray[sub == k],
+                                   torch.full_like(ray[sub == k], root),
+                                   top, best[0])
+            _leaf_hits(o, d, tree, ray_k, leaf, best)
+    return tuple(best)
+
+
+def tree_visit_counts(o: V3, d: V3, tree: TriTree, best_t: torch.Tensor,
+                      active: torch.Tensor) -> dict:
+    """The work of the tree walk for rays whose closest hit is ``best_t``:
+    the internal nodes whose two child boxes a walk must test (the root,
+    and every node whose box and its ancestors' pass against ``best_t``)
+    and the real triangles of every leaf reached so.  No walk of this
+    tree that proves ``best_t`` does less (a bound counts it).  Returns
+    Python ints: ``rays``, ``node_tests`` (two box tests each),
+    ``tri_tests``, and the distinct rows those read, ``nodes_read`` and
+    ``tris_read``."""
+    iv3 = tuple(_inv(x) for x in d)
+    rays = torch.nonzero(active).squeeze(1)
+    K = 1 << tree.depth
+    work = dict(rays=rays.numel(), node_tests=0, tri_tests=0,
+                seen=torch.zeros(K, dtype=torch.bool, device=rays.device))
+    reached = torch.zeros(K, dtype=torch.bool, device=rays.device)
+    for r0 in range(0, rays.numel(), _RAY_STEP):
+        rr = rays[r0:r0 + _RAY_STEP]
+        _, leaf = _descend(tuple(o), iv3, tree, rr, torch.zeros_like(rr), 0,
+                           best_t, work)
+        work["tri_tests"] += int(_leaf_sizes(tree, leaf).sum())
+        reached[leaf] = True
+    work["nodes_read"] = int(work.pop("seen")[:K - 1].sum())
+    work["tris_read"] = int(_leaf_sizes(tree, torch.nonzero(reached)[:, 0])
+                            .sum())
+    return work
+
+
+def _leaf_sizes(tree: TriTree, leaf: torch.Tensor) -> torch.Tensor:
+    """The real triangles of each of the given leaves."""
+    return (tree.num_tris - leaf * tree.leaf).clamp(0, tree.leaf)
+
+
 # ------------------------------------------------------------------- kernel
 
-def _check_inputs(o: V3, d: V3, tables: PageTables, active) -> None:
+def _check_rays(o: V3, d: V3, active) -> None:
     R = o.x.shape[0]
     device = o.x.device
     for comp in (*o, *d):
@@ -317,40 +538,73 @@ def _check_inputs(o: V3, d: V3, tables: PageTables, active) -> None:
             or active.device != device or not active.is_contiguous()):
         raise ValueError("active must be a contiguous bool [R] tensor on the "
                          "rays' device")
+
+
+def _check_table(name, t, rows, cols, device) -> None:
+    if (t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != cols
+            or (rows is not None and t.shape[0] != rows)
+            or t.device != device or not t.is_contiguous()):
+        raise ValueError(f"tables.{name} must be a contiguous float32 "
+                         f"[{rows or 'T8'}, {cols}] tensor on the rays' "
+                         f"device")
+
+
+def _check_pages(tables: PageTables, device) -> None:
     n_clusters = -(-tables.num_tris // tables.g)
     NP = num_pages(tables.num_tris, tables.g, tables.c)
     for name, t, rows, cols in (
             ("tris", tables.tris, None, 12),
             ("boxes", tables.boxes, n_clusters, 8),
             ("page_boxes", tables.page_boxes, NP, 8)):
-        if (t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != cols
-                or (rows is not None and t.shape[0] != rows)
-                or t.device != device or not t.is_contiguous()):
-            raise ValueError(f"tables.{name} must be a contiguous float32 "
-                             f"[{rows or 'T8'}, {cols}] tensor on the rays' "
-                             f"device")
+        _check_table(name, t, rows, cols, device)
     if tables.tris.shape[0] < tables.num_tris:
         raise ValueError("tables.tris has fewer rows than triangles")
     if tables.g < 1 or tables.c < 1 or NP * tables.c * tables.g >= 2 ** 31:
         raise ValueError("the paged soup must index in 32 bits")
 
 
-def intersect_tris_paged(o: V3, d: V3, tables: PageTables,
-                         active: torch.Tensor) -> Hit:
-    """Closest hit of rays o + t d against the paged soup; the lowest id
-    on ties; inactive rays and misses give (T_MAX, -1, 0, 0)."""
+def _check_tree(tree: TriTree, device) -> None:
+    if tree.num_tris < 1 or tree.leaf < 1:
+        raise ValueError("a tree needs at least one triangle and leaf size")
+    n_leaves = -(-tree.num_tris // tree.leaf)
+    if tree.depth != (n_leaves - 1).bit_length():
+        raise ValueError(f"a tree of depth {tree.depth} does not match its "
+                         f"soup of {tree.num_tris} triangles in leaves of "
+                         f"{tree.leaf}")
+    if tree.depth > MAX_DEPTH:
+        raise ValueError(f"a tree of depth {tree.depth} is deeper than the "
+                         f"kernel's stack ({MAX_DEPTH})")
+    _check_table("tris", tree.tris, None, 12, device)
+    _check_table("nodes", tree.nodes, (1 << tree.depth) - 1, 16, device)
+    if tree.tris.shape[0] < tree.num_tris:
+        raise ValueError("tables.tris has fewer rows than triangles")
+    if (tree.leaf << tree.depth) >= 2 ** 31:
+        raise ValueError("the tree's soup must index in 32 bits")
+
+
+def intersect_tris_paged(o: V3, d: V3, tables, active: torch.Tensor) -> Hit:
+    """Closest hit of rays o + t d against the soup of ``tables``, a
+    ``TriTree`` (or ``PageTables``, on the CPU only); the lowest id on
+    ties; inactive rays and misses give (T_MAX, -1, 0, 0)."""
     global LAUNCHES
-    _check_inputs(o, d, tables, active)
+    _check_rays(o, d, active)
     device = o.x.device
-    if device.type == "cpu":
+    if isinstance(tables, PageTables):
+        _check_pages(tables, device)
+        if device.type != "cpu":
+            raise ValueError("the kernel walks a TriTree (build_tri_tree); "
+                             "PageTables are for the plain version")
         return Hit(*paged_tri_sweep_reference(o, d, tables, active))
+    _check_tree(tables, device)
+    if device.type == "cpu":
+        return Hit(*tri_tree_sweep_reference(o, d, tables, active))
     if device.type != "cuda":
         raise ValueError(f"no paged triangle sweep for device {device}")
     R = o.x.shape[0]
     if R >= 2 ** 31:
         raise ValueError(f"{R} rays: the kernel indexes rays in 32 bits")
-    if any(t.data_ptr() % 16 for t in tables[:3]):
-        raise ValueError("the page tables must be 16-byte aligned (float4 "
+    if tables.tris.data_ptr() % 16 or tables.nodes.data_ptr() % 16:
+        raise ValueError("the tree's tables must be 16-byte aligned (float4 "
                          "loads)")
     lib = library()
     t = torch.empty(R, dtype=torch.float32, device=device)
@@ -358,11 +612,9 @@ def intersect_tris_paged(o: V3, d: V3, tables: PageTables,
     u = torch.empty(R, dtype=torch.float32, device=device)
     v = torch.empty(R, dtype=torch.float32, device=device)
     err = lib.paged_tri_launch(
-        tables.tris.data_ptr(), tables.num_tris, tables.boxes.data_ptr(),
-        tables.boxes.shape[0], tables.page_boxes.data_ptr(),
-        tables.page_boxes.shape[0], tables.g, tables.c,
-        o.x.data_ptr(), o.y.data_ptr(), o.z.data_ptr(),
-        d.x.data_ptr(), d.y.data_ptr(), d.z.data_ptr(),
+        tables.tris.data_ptr(), tables.num_tris, tables.nodes.data_ptr(),
+        tables.depth, tables.leaf, o.x.data_ptr(), o.y.data_ptr(),
+        o.z.data_ptr(), d.x.data_ptr(), d.y.data_ptr(), d.z.data_ptr(),
         active.data_ptr(), R, t.data_ptr(), ids.data_ptr(), u.data_ptr(),
         v.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
@@ -378,8 +630,8 @@ def library() -> ctypes.CDLL:
     """The kernel's shared library, built from csrc/ at first use."""
     lib = _build.load_library("paged_tri")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.paged_tri_launch.argtypes = [p, i, p, i, p, i, i, i, p, p, p, p, p,
-                                     p, p, i, p, p, p, p, p]
+    lib.paged_tri_launch.argtypes = [p, i, p, i, i, p, p, p, p, p, p, p, i,
+                                     p, p, p, p, p]
     lib.paged_tri_launch.restype = i
     lib.paged_tri_error_string.argtypes = [i]
     lib.paged_tri_error_string.restype = ctypes.c_char_p

@@ -44,16 +44,20 @@ not with ``-m``, so that the package comes from TREE.
   batches through ``Renderer`` with defaults.
 - ``paged``: builds the paged triangle sweep K3 (with K1 and K2) and
   prints nvcc's register report; holds K3 against its plain version and
-  K2 on random soups of several pages (g = c = 128, and g = 8, c = 16)
-  with an alive mask, and a repeat launch; on final-one-weekend
-  --mesh-geometry (2,033,920 triangles) renders one frame through
-  ``render_tile`` capturing every bounce's rays, holds K3 against the
-  plain version and K2 on 2^16 primary and bounce-2 rays (plain seconds,
-  traversal work), times it over all of them (median of 3), steps two
-  batches of ``Renderer`` with defaults (launch counts, means, peak
-  memory), renders one batch of the motion-blur scene with
-  --mesh-geometry, and renders a 240x135 frame of each soup on the paged
-  and the dense sweep (byte-identical or not).
+  K2 on random soups with an alive mask and a repeat launch; on
+  final-one-weekend --mesh-geometry (2,033,920 triangles) captures every
+  bounce's rays of one batch, times the table build and K3 on each
+  bounce's rays (K3 ms a batch), holds K3 against K2 on 2^17 rays of
+  bounces 0, 1, 2 and 10 and on 2^16 far grazing rays at the leaf boxes;
+  with a tree, times the batch at leaf sizes 4, 8 and 16 and counts the
+  tree's and the flat walk's work on bounces 0-2; steps three batches of
+  ``Renderer`` with defaults and profiles a fourth (Mrays/s, the card's
+  busy share, K3's share of device time), renders one batch of the
+  motion-blur scene with --mesh-geometry (with a tree, its re-fit
+  timed), and ends with one JSON line.  It runs on a parent checkout
+  whose K3 walked page tables too (``smoke_lib``'s K3 helpers, loaded
+  from beside this file), so TREE = the parent's ``git archive`` gives
+  the before of the same card.
 - ``noise``: builds the fused kernel and prints nvcc's register report;
   holds each of its five noise forms against the plain version on the
   small frames of ``tools/noise_scenes.form_checks`` (2 batches in one
@@ -644,23 +648,16 @@ def spheres() -> None:
               torch.cuda.max_memory_allocated(dev) / 2 ** 30)
 
 
-def _paged_soup_tables(T, g, c, seed, dev):
-    """T random small triangles in a 10-unit box put in the paged sweep's
-    order, with a duplicate pair; their page tables and dense table."""
-    import numpy as np
-    import torch
+def _change_smoke_lib():
+    """This checkout's tools/smoke_lib.py, loaded from beside this file
+    whatever TREE is: its K3 helpers run on a parent's package too."""
+    import importlib.util
 
-    from raytrace_tpu_torch.ops import paged_tri, tri_sweep
-
-    rng = np.random.default_rng(seed)
-    cen = rng.uniform(-5, 5, (T, 3))
-    tri = (cen[:, None, :] + rng.uniform(-0.8, 0.8, (T, 3, 3))).astype(
-        np.float32)
-    tri[T // 2] = tri[1]
-    tri = tri[paged_tri.paged_tri_order(tri, T)]
-    wp = torch.tensor(tri, device=dev)
-    return tri, paged_tri.build_page_tables(wp, T, g=g, c=c), \
-        tri_sweep.pack_tri_table(wp, T)
+    spec = importlib.util.spec_from_file_location(
+        "change_smoke_lib", Path(__file__).with_name("smoke_lib.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _hits_equal(a, b, alive):
@@ -673,141 +670,198 @@ def _hits_equal(a, b, alive):
 
 
 def paged() -> None:
-    import concurrent.futures
-
     import numpy as np
     import torch
 
     from raytrace_tpu_torch import cli
-    from raytrace_tpu_torch.engine import Renderer, wavefront
-    from raytrace_tpu_torch.ops import (_build, megakernel, paged_tri,
-                                        sphere_sweep, tri_sweep)
+    from raytrace_tpu_torch.engine import Renderer
+    from raytrace_tpu_torch.ops import (_build, paged_tri, sphere_sweep,
+                                        tri_sweep)
     from raytrace_tpu_torch.ops.vec3 import V3
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip())
+    lib = _change_smoke_lib()
+    tree_mode = hasattr(paged_tri, "build_tri_tree")
+    card = _card()
+    print(card)
     print(sys.version.split()[0], torch.__version__, torch.version.cuda)
-    mods = (paged_tri, tri_sweep, sphere_sweep)
-    with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
-        list(pool.map(lambda m: m.library(), mods))
+    t0 = time.perf_counter()
+    for m in (paged_tri, tri_sweep, sphere_sweep):
+        m.library()
+    print("builds s", time.perf_counter() - t0)
     print(_build.library_path("paged_tri").with_suffix(".log").read_text())
     dev = torch.device("cuda:0")
+    out = {"tree": str(Path(paged_tri.__file__).parents[2]),
+           "tree_mode": tree_mode, "card": card}
 
-    for T, g, c, R in ((40000, 128, 128, 1 << 16), (3001, 8, 16, 1 << 14)):
-        tri, tables, table16 = _paged_soup_tables(T, g, c, T, dev)
-        rng = np.random.default_rng(R)
+    # Random soups with a duplicate pair: K3 against its plain version and
+    # K2, a repeat launch.
+    for T, R in ((40000, 1 << 16), (3001, 1 << 14), (5, 2048)):
+        rng = np.random.default_rng(T)
+        tri = (rng.uniform(-5, 5, (T, 1, 3))
+               + rng.uniform(-0.8, 0.8, (T, 3, 3))).astype(np.float32)
+        tri[T // 2] = tri[1]
+        tri = tri[paged_tri.paged_tri_order(tri, T)]
+        wp = torch.tensor(tri, device=dev)
+        if tree_mode:
+            tables = paged_tri.build_tri_tree(wp, T)
+            plain = paged_tri.tri_tree_sweep_reference
+        else:
+            tables = paged_tri.build_page_tables(wp, T)
+            plain = paged_tri.paged_tri_sweep_reference
         o = rng.uniform(-9, 9, (R, 3))
-        j = rng.integers(0, T, R)
         d = np.einsum("rv,rvi->ri", rng.dirichlet(np.ones(3), R),
-                      tri[j].astype(np.float64)) - o
+                      tri[rng.integers(0, T, R)].astype(np.float64)) - o
         d[:R // 10] = rng.standard_normal((R // 10, 3))
         d /= np.linalg.norm(d, axis=1, keepdims=True)
-        v3 = lambda a: V3(*(torch.tensor(  # noqa: E731
-            np.ascontiguousarray(a[:, i], np.float32), device=dev)
-            for i in range(3)))
-        o, d = v3(o), v3(d)
+        o, d = (lib.rows_to_v3(a.astype(np.float32), dev) for a in (o, d))
         alive = torch.tensor(rng.random(R) < 0.7, device=dev)
         hit = paged_tri.intersect_tris_paged(o, d, tables, alive)
         again = paged_tri.intersect_tris_paged(o, d, tables, alive)
-        ref = paged_tri.paged_tri_sweep_reference(o, d, tables, alive)
-        k2 = tri_sweep.intersect_tris_sweep(o, d, table16, alive)
+        ref = plain(o, d, tables, alive)
+        k2 = tri_sweep.intersect_tris_sweep(
+            o, d, tri_sweep.pack_tri_table(wp, T), alive)
         torch.cuda.synchronize()
-        print(f"random T={T} g={g} c={c} pages "
-              f"{tables.page_boxes.shape[0]} R={R}: vs plain "
-              f"{_hits_equal(hit, ref, alive)}, vs K2 "
-              f"{_hits_equal(hit, k2, alive)}, repeat "
+        print(f"random T={T} R={R}: vs plain {_hits_equal(hit, ref, alive)}"
+              f", vs K2 {_hits_equal(hit, k2, alive)}, repeat "
               f"{all(torch.equal(a, b) for a, b in zip(hit, again))}, hit "
               f"share {(hit.tri >= 0).double().mean().item():.4f}")
 
     t0 = time.perf_counter()
     cs = cli.load_scene(cli.DEFAULT_SCENE, 1200, 675, analytic_spheres=False)
     print("mesh compile s", time.perf_counter() - t0, cs.num_triangles)
-    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     r = Renderer(cs, device=dev)
-    print("Renderer s", time.perf_counter() - t0, r.path, r.static.bvh_mode,
-          "peak GiB", torch.cuda.max_memory_allocated(dev) / 2 ** 30)
-    geom = r._geometry(0)
-    pages = geom.tri_pages
-    print("pages", pages.page_boxes.shape[0], "clusters",
-          pages.boxes.shape[0])
-    trace = wavefront.make_trace_fn(r.static, r.scene, geom)
-    seen = []
-
-    def capture(o, d, alive):
-        seen.append((o, d, alive))
-        return trace(o, d, alive)
-
+    print("Renderer s", time.perf_counter() - t0, r.path, r.static.bvh_mode)
     t0 = time.perf_counter()
-    wavefront.render_tile(r.static, r.scene, r.camera, capture, geom, 0, 0,
-                          r.static.height, r.use_dof)
-    torch.cuda.synchronize()
-    print("one frame through render_tile s", time.perf_counter() - t0,
-          "bounces", len(seen))
+    geom, seen = lib.capture_bounces(r)
+    tables = lib.k3_tables(geom)
+    print("one batch through render_tile s", time.perf_counter() - t0,
+          "bounces", len(seen), "rays", sum(int(a.sum()) for *_, a in seen))
+    n = geom.world_p.shape[0]
+    if tree_mode:
+        build = lambda leaf=paged_tri.LEAF: paged_tri.build_tri_tree(  # noqa
+            geom.world_p, r.static.num_triangles, geom.tri_table12, leaf)
+        out["build_ms"] = _med(build, 3)
+    else:
+        build = lambda: paged_tri.build_page_tables(  # noqa: E731
+            geom.world_p, r.static.num_triangles, geom.tri_table12)
+        out["build_ms"] = _med(build, 3)
+    print("table build ms (median of 3)", out["build_ms"], "soup", n)
+
+    # K3 a batch: each bounce's rays, median of 3 each.
+    per = lib.k3_bounce_ms(tables, seen)
+    out["k3_primary_ms"], out["k3_batch_ms"] = per[0], sum(per)
+    print("K3 ms per bounce", [round(x, 3) for x in per])
+    print("K3 ms a batch", sum(per), "primary", per[0])
+
+    # Bit for bit with K2 on 2^17 of bounces 0, 1, 2 and 10.
     gen = torch.Generator().manual_seed(0)
-    for label, (o, d, alive) in (("primary", seen[0]), ("bounce 2",
-                                                        seen[2])):
-        n = o.x.shape[0]
-        sel = torch.randperm(n, generator=gen)[:1 << 16].to(dev)
+    for b in (0, 1, 2, 10):
+        o, d, alive = seen[b]
+        sel = torch.randperm(o.x.shape[0], generator=gen)[:1 << 17].to(dev)
         so, sd = (V3(*(x[sel].contiguous() for x in v)) for v in (o, d))
         sa = alive[sel].contiguous()
-        hit = paged_tri.intersect_tris_paged(so, sd, pages, sa)
-        t1 = time.perf_counter()
-        ref = paged_tri.paged_tri_sweep_reference(so, sd, pages, sa)
-        torch.cuda.synchronize()
-        plain_s = time.perf_counter() - t1
+        hit = paged_tri.intersect_tris_paged(so, sd, tables, sa)
         k2 = tri_sweep.intersect_tris_sweep(so, sd, geom.tri_table16, sa)
         torch.cuda.synchronize()
-        work = paged_tri.visit_counts(so, sd, pages, hit.t, sa)
-        print(label, "R", n, "2^16 subset: vs plain",
-              _hits_equal(hit, ref, sa), "vs K2", _hits_equal(hit, k2, sa),
-              "plain s", plain_s, "hit share",
-              (hit.tri >= 0).double().mean().item(), "work", work)
-        print(label, "K3 ms over", n, "rays", _med(
-            lambda: paged_tri.intersect_tris_paged(o, d, pages, alive), 3))
+        print(f"bounce {b}: R {o.x.shape[0]}, 2^17 subset vs K2 "
+              f"{_hits_equal(hit, k2, sa)}, hit share "
+              f"{(hit.tri >= 0).double().mean().item():.4f}")
+
+    # Far grazing rays at the mesh's leaf boxes (of L = 8), against K2.
+    wp = geom.world_p[:r.static.num_triangles]
+    boxes = (paged_tri.leaf_boxes(wp, wp.shape[0], 8) if tree_mode else None)
+    if boxes is None:
+        pad = torch.zeros((-(-wp.shape[0] // 8) * 8 - wp.shape[0], 3, 3),
+                          device=dev)
+        v = torch.cat([wp, pad]).reshape(-1, 8 * 3, 3)
+        boxes = torch.cat([v.amin(1), v.amax(1)], 1)
+    boxes = boxes[:-(-wp.shape[0] // 8)].cpu().numpy()
+    go, gd = lib.grazing_rays(boxes, 1 << 16, 1, dev)
+    ga = torch.ones(1 << 16, dtype=torch.bool, device=dev)
+    hit = paged_tri.intersect_tris_paged(go, gd, tables, ga)
+    k2 = tri_sweep.intersect_tris_sweep(go, gd, geom.tri_table16, ga)
+    bad = (hit.t != k2.t) | (hit.tri != k2.tri)
+    out["grazing_disagree"] = int(bad.sum())
+    print("far grazing 2^16 vs K2: disagree", int(bad.sum()), "K2 hits",
+          int((k2.tri >= 0).sum()))
+
+    if tree_mode:
+        # The leaf size: each of 4, 8 and 16 timed a batch, bit for bit with
+        # the module's own on bounce 2.
+        leaves = {}
+        for leaf in (4, 8, 16):
+            tl = build(leaf)
+            same = _hits_equal(paged_tri.intersect_tris_paged(
+                *seen[2][:2], tl, seen[2][2]), paged_tri.intersect_tris_paged(
+                *seen[2][:2], tables, seen[2][2]), seen[2][2])
+            leaves[leaf] = sum(lib.k3_bounce_ms(tl, seen))
+            print(f"L={leaf}: depth {tl.depth}, {leaves[leaf]:.3f} ms a "
+                  f"batch; bounce 2 same bits {same}", flush=True)
+            del tl
+        out["leaf_batch_ms"] = leaves
+        # The work on 2^17 of bounces 0, 1 and 2, tree and flat.
+        pages = paged_tri.build_page_tables(wp, wp.shape[0], geom.tri_table12)
+        for b in (0, 1, 2):
+            o, d, alive = seen[b]
+            sel = torch.randperm(o.x.shape[0], generator=gen)[:1 << 17].to(
+                dev)
+            so, sd = (V3(*(x[sel].contiguous() for x in v)) for v in (o, d))
+            sa = alive[sel].contiguous()
+            bt = paged_tri.intersect_tris_paged(so, sd, tables, sa).t
+            print(f"bounce {b} work a ray: tree",
+                  paged_tri.tree_visit_counts(so, sd, tables, bt, sa),
+                  "flat", paged_tri.visit_counts(so, sd, pages, bt, sa))
     del seen
 
-    before = (paged_tri.LAUNCHES, tri_sweep.LAUNCHES, sphere_sweep.LAUNCHES,
-              megakernel.LAUNCHES)
+    # The main path: three batches stepped; the third profiled.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     for _ in range(2):
         r.render_next_batch()
-        print("main path batch", r.stats.rays_traced, r.stats.render_seconds)
-    print("main path", r.path, "Mrays/s", r.stats.mrays_per_sec, "K3/K2/K1/K4",
-          paged_tri.LAUNCHES - before[0], tri_sweep.LAUNCHES - before[1],
-          sphere_sweep.LAUNCHES - before[2], megakernel.LAUNCHES - before[3],
-          "means", r.image().mean((0, 1)), "peak GiB",
-          torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    rays0, sec0 = r.stats.rays_traced, r.stats.render_seconds
+    r.render_next_batch()
+    rays, sec = r.stats.rays_traced - rays0, r.stats.render_seconds - sec0
+    out["mrays_stepped"] = rays / sec / 1e6
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        r.render_next_batch()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end, k3 = 0.0, -1.0, 0.0
+    for s0, e0, name in spans:
+        if "paged_tri" in name:
+            k3 += e0 - s0
+        if e0 > end:
+            busy += e0 - max(s0, end)
+            end = e0
+    window = spans[-1][1] - spans[0][0] if spans else 0.0
+    out["busy_timeline"] = busy / window if window else 0.0
+    out["k3_share"] = k3 / busy if busy else 0.0
+    out["device_busy_s"] = busy / 1e6
+    print(f"main path batch 2: {rays} rays in {sec:.4f} s, "
+          f"{out['mrays_stepped']:.3f} Mrays/s; profiled batch 3: device "
+          f"busy {busy / 1e6:.4f} s, {out['busy_timeline']:.4f} of its "
+          f"timeline, K3 {out['k3_share']:.4f} of device time; K3 launches "
+          f"{paged_tri.LAUNCHES}")
 
+    # Motion blur with meshes: one batch (the tree re-fitted for it).
     mb = str(Path(cli.DEFAULT_SCENE).with_name(MB_SCENE))
-    cs_mb = cli.load_scene(mb, analytic_spheres=False)
-    for label, paged_cs in (("static", r.compiled), ("motion blur", None)):
-        if paged_cs is None:
-            t0 = time.perf_counter()
-            rm = Renderer(cs_mb, device=dev)
-            before = paged_tri.LAUNCHES
-            rm.render_next_batch()
-            print("motion blur", rm.path, rm.static.bvh_mode,
-                  rm.static.any_animated, "Renderer + batch s",
-                  time.perf_counter() - t0, "rays", rm.stats.rays_traced,
-                  "batch s", rm.stats.render_seconds, "K3",
-                  paged_tri.LAUNCHES - before, "means",
-                  rm.image().mean((0, 1)))
-            paged_cs = rm.compiled
-            del rm
-        small = dataclasses.replace(paged_cs, render=dataclasses.replace(
-            paged_cs.render, width=240, height=135, sample_batches=1))
-        imgs = {}
-        for mode in ("paged", False):
-            rs = Renderer(small, device=dev, use_bvh=mode)
-            rs.render_next_batch()
-            imgs[mode] = (rs.image(), rs.stats.rays_traced,
-                          rs.stats.render_seconds)
-        print(label, "240x135 paged vs dense identical",
-              imgs["paged"][0].tobytes() == imgs[False][0].tobytes(),
-              "rays", imgs["paged"][1], imgs[False][1], "s",
-              imgs["paged"][2], imgs[False][2])
+    rm = Renderer(cli.load_scene(mb, analytic_spheres=False), device=dev)
+    t0 = time.perf_counter()
+    rm.render_next_batch()
+    print("motion blur one batch s", time.perf_counter() - t0, "rays",
+          rm.stats.rays_traced, "means", rm.image().mean((0, 1)))
+    if tree_mode:
+        g1 = rm._geometry(1)
+        out["refit_ms"] = _med(lambda: paged_tri.build_tri_tree(
+            g1.world_p, rm.static.num_triangles, g1.tri_table12), 3)
+        print("motion blur tree re-fit ms", out["refit_ms"])
     print("peak GiB", torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    print(json.dumps(out))
 
 
 def _card() -> str:

@@ -493,3 +493,62 @@ def k1_checks(cs, dev, card, rng):
           f"PyTorch {plain_ms:.3f} ms (median, CUDA events); bound "
           f"{bound[0]:.4f} ms by {bound[1]} ({card})")
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound)
+
+
+# ---- K3 on the mesh path.  Written against paged_tri's entry point and
+# the Renderer alone, so tools/chip_probe.py runs them on a parent checkout
+# too, whose K3 walked page tables.
+
+def k3_tables(geom):
+    """The tables K3 takes in a paged wavefront's batch geometry: its tree,
+    or a parent checkout's page tables."""
+    tree = getattr(geom, "tri_tree", None)
+    return tree if tree is not None else geom.tri_pages
+
+
+def capture_bounces(renderer, batch: int = 0):
+    """(geometry, [(o, d, alive)] of every bounce) of one batch of a
+    wavefront Renderer, rendered through render_tile with a trace that
+    keeps each bounce's rays."""
+    from raytrace_tpu_torch.engine import wavefront
+
+    static, geom = renderer.static, renderer._geometry(batch)
+    trace = wavefront.make_trace_fn(static, renderer.scene, geom)
+    seen = []
+
+    def capture(o, d, alive):
+        seen.append((o, d, alive))
+        return trace(o, d, alive)
+
+    wavefront.render_tile(static, renderer.scene, renderer.camera, capture,
+                          geom, batch, 0, static.height, renderer.use_dof)
+    torch.cuda.synchronize()
+    return geom, seen
+
+
+def k3_bounce_ms(tables, bounces, reps: int = 3):
+    """K3's median device ms (median_ms) on each bounce's rays."""
+    from raytrace_tpu_torch.ops import paged_tri
+
+    return [median_ms(lambda o=o, d=d, a=a: paged_tri.intersect_tris_paged(
+        o, d, tables, a), reps) for o, d, a in bounces]
+
+
+def grazing_rays(boxes, n: int, seed: int, dev, jitter: float = 1e-5):
+    """n rays from 1,000-2,000 units away aimed at points on random edges
+    of the [.., 6] boxes (min xyz, max xyz), each aim moved by ``jitter``
+    of its magnitude (tests/test_torch_tri_tree.py's far grazing rays):
+    (o, d) as V3s on ``dev``."""
+    g = np.random.default_rng(seed)
+    b = boxes[g.integers(0, len(boxes), n)].astype(np.float64)
+    mn, mx = b[:, :3], b[:, 3:]
+    p = np.where(g.random((n, 3)) < 0.5, mn, mx)
+    ax, rows = g.integers(0, 3, n), np.arange(n)
+    p[rows, ax] = mn[rows, ax] + g.random(n) * (mx - mn)[rows, ax]
+    w = g.standard_normal((n, 3))
+    w /= np.linalg.norm(w, axis=1, keepdims=True)
+    o = p + w * g.uniform(1000, 2000, (n, 1))
+    d = p + g.standard_normal((n, 3)) * jitter * (1 + np.abs(p)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (rows_to_v3(o.astype(np.float32), dev),
+            rows_to_v3(d.astype(np.float32), dev))

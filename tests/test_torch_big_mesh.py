@@ -9,7 +9,7 @@ tools/stress_scenes.py (16,392 triangles in 1,366 instances: two pages of
 128 x 128, above every triangle ceiling); final-one-weekend's ground and
 three large spheres tessellated (``analytic_spheres=False``, 28,032
 triangles, as ``--mesh-geometry`` renders them); and the box grid with its
-boxes sliding over the shutter, whose page tables are built per batch.
+boxes sliding over the shutter, whose tree is re-fitted per batch.
 
 - ``Renderer(cs, device="cpu")`` with defaults takes the paged wavefront;
   against the JAX render, channel means within 5e-3, RMSE below 0.05 and
@@ -102,7 +102,7 @@ def test_paged_render_matches_the_jax_dense_render(name):
 def test_paged_and_dense_sweeps_render_the_same_bytes(name, monkeypatch):
     """On the Renderer's permuted soup, at 16x9, the paged sweep and the
     dense sweep give the same image and ray count; each path calls only
-    its sweep, and an animated scene builds its page tables once per
+    its sweep, and an animated scene builds (re-fits) its tree once per
     batch."""
     calls = {"paged": 0, "dense": 0, "tables": 0}
 
@@ -116,8 +116,8 @@ def test_paged_and_dense_sweeps_render_the_same_bytes(name, monkeypatch):
                         counted("paged", paged_tri.intersect_tris_paged))
     monkeypatch.setattr(tri_sweep, "intersect_tris_sweep",
                         counted("dense", tri_sweep.intersect_tris_sweep))
-    monkeypatch.setattr(paged_tri, "build_page_tables",
-                        counted("tables", paged_tri.build_page_tables))
+    monkeypatch.setattr(paged_tri, "build_tri_tree",
+                        counted("tables", paged_tri.build_tri_tree))
     soup = paged_soup(from_jax_compiled(_jcs(name)))
     np.testing.assert_array_equal(soup.tri_p, _port(name)[0].compiled.tri_p)
     soup = dataclasses.replace(soup, render=dataclasses.replace(

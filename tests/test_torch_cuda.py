@@ -21,8 +21,10 @@ The fused kernel's lit forms (lights, with and without triangles): bit for
 bit with their plain versions on the four lit docs of
 tools/light_scenes.py at depth 50; the Renderer's fused path against the
 wavefront: channel means within 2e-3, rays within 0.5%.  The paged
-triangle sweep K3 (built without contraction): bit for bit with its plain
-version and with K2 over the same soup; the Renderer's paged wavefront on
+triangle sweep K3 (built without contraction; a walk of a tree over the
+soup): bit for bit with its plain version and with K2 over the same soup,
+on far grazing rays with K2 on every ray whose K2 hit lies within the
+rounding margin of its triangle; a moving mesh's tree re-fitted per batch; the Renderer's paged wavefront on
 the card byte-identical with its dense sweep, and within the card-vs-CPU
 limits (means 1e-2, rays 2%) of the CPU's render.  The fused kernel's
 noise forms (each of its five forms with noise textures): bit for bit
@@ -530,61 +532,167 @@ def test_lit_scene_with_motion_launches_once_per_batch_on_the_card(dev):
 
 # ---- big meshes: the paged triangle sweep K3 --------------------------------
 
-def _paged_soup(T, g, c, seed, dev):
-    """_tri_soup's triangles in the paged sweep's order, their page tables
-    and their dense table."""
+def _paged_soup(T, seed, dev, leaf=paged_tri.LEAF):
+    """_tri_soup's triangles in the paged sweep's order, their tree and
+    their dense table."""
     tri = _tri_soup(T, seed)
     tri = tri[paged_tri.paged_tri_order(tri, T)]
     wp = torch.tensor(tri, device=dev)
-    return (tri, paged_tri.build_page_tables(wp, T, g=g, c=c),
+    return (tri, paged_tri.build_tri_tree(wp, T, leaf=leaf),
             tri_sweep.pack_tri_table(wp, T))
 
 
-@pytest.mark.parametrize("T,g,c,R", [(5, 8, 16, 2048), (300, 16, 4, 4099),
-                                     (3001, 8, 16, 1 << 14),
-                                     (40000, 128, 128, 1 << 16)])
-def test_paged_kernel_matches_plain_and_k2_bit_for_bit(dev, T, g, c, R):
-    """Built without contraction, K3 gives its plain version's bits and the
-    dense sweep's, over several pages with a partial last one."""
-    tri, tables, table16 = _paged_soup(T, g, c, T, dev)
+def _assert_hits_equal(a, b, alive):
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert torch.equal(a[2][alive], b[2][alive])
+    assert torch.equal(a[3][alive], b[3][alive])
+
+
+@pytest.mark.parametrize("T,leaf,R", [(5, 4, 2048), (300, 4, 4099),
+                                      (3001, 8, 1 << 14),
+                                      (40000, 4, 1 << 16),
+                                      (40000, 16, 1 << 16)])
+def test_paged_kernel_matches_plain_and_k2_bit_for_bit(dev, T, leaf, R):
+    """Built without contraction, K3's tree walk gives its plain version's
+    bits and the dense sweep's, on soups whose leaf counts are not powers
+    of two, with a duplicate pair (the lower id wins)."""
+    tri, tree, table16 = _paged_soup(T, T, dev, leaf)
     o, d, alive = _tri_rays(tri, R, seed=R, dev=dev)
     before = paged_tri.LAUNCHES
-    hit = paged_tri.intersect_tris_paged(o, d, tables, alive)
+    hit = paged_tri.intersect_tris_paged(o, d, tree, alive)
     torch.cuda.synchronize()
     assert paged_tri.LAUNCHES == before + 1
-    ref = paged_tri.paged_tri_sweep_reference(o, d, tables, alive)
+    ref = paged_tri.tri_tree_sweep_reference(o, d, tree, alive)
     dense = tri_sweep.intersect_tris_sweep(o, d, table16, alive)
-    for a, b in ((hit, ref), (hit, dense)):
-        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-        assert torch.equal(a[2][alive], b[2][alive])
-        assert torch.equal(a[3][alive], b[3][alive])
+    for other in (ref, dense):
+        _assert_hits_equal(hit, other, alive)
     assert (hit.tri[~alive] == -1).all() and (hit.t[~alive] == T_MAX).all()
     assert (hit.tri >= 0).any() and (hit.tri < T).all()
 
 
 def test_paged_kernel_is_deterministic(dev):
-    tri, tables, _ = _paged_soup(20000, 128, 128, 3, dev)
+    tri, tree, _ = _paged_soup(20000, 3, dev)
     o, d, alive = _tri_rays(tri, 1 << 16, seed=4, dev=dev)
-    a = paged_tri.intersect_tris_paged(o, d, tables, alive)
-    b = paged_tri.intersect_tris_paged(o, d, tables, alive)
+    a = paged_tri.intersect_tris_paged(o, d, tree, alive)
+    b = paged_tri.intersect_tris_paged(o, d, tree, alive)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def test_paged_kernel_rejects_bad_inputs(dev):
-    tri, tables, _ = _paged_soup(300, 8, 16, 5, dev)
+    tri, tree, _ = _paged_soup(300, 5, dev)
     o, d, alive = _tri_rays(tri, 256, seed=6, dev=dev)
-    shifted = torch.zeros(tables.boxes.numel() + 1, device=dev)[1:].view(
-        tables.boxes.shape)
-    shifted.copy_(tables.boxes)
+    shifted = torch.zeros(tree.nodes.numel() + 1, device=dev)[1:].view(
+        tree.nodes.shape)
+    shifted.copy_(tree.nodes)
     with pytest.raises(ValueError, match="aligned"):
-        paged_tri.intersect_tris_paged(o, d, tables._replace(boxes=shifted),
+        paged_tri.intersect_tris_paged(o, d, tree._replace(nodes=shifted),
                                        alive)
     with pytest.raises(ValueError, match="device"):
         paged_tri.intersect_tris_paged(
-            o, d, tables._replace(boxes=tables.boxes.cpu()), alive)
+            o, d, tree._replace(nodes=tree.nodes.cpu()), alive)
     with pytest.raises(ValueError, match="active"):
-        paged_tri.intersect_tris_paged(o, d, tables, alive.cpu())
+        paged_tri.intersect_tris_paged(o, d, tree, alive.cpu())
+    pages = paged_tri.build_page_tables(torch.tensor(tri, device=dev), 300)
+    with pytest.raises(ValueError, match="TriTree"):
+        paged_tri.intersect_tris_paged(o, d, pages, alive)
+
+
+def test_paged_kernel_rejects_trees_that_do_not_match(dev):
+    tri, tree, _ = _paged_soup(300, 7, dev)
+    o, d, alive = _tri_rays(tri, 256, seed=8, dev=dev)
+    before = paged_tri.LAUNCHES
+    with pytest.raises(ValueError, match="does not match"):
+        paged_tri.intersect_tris_paged(o, d, tree._replace(num_tris=1200),
+                                       alive)
+    with pytest.raises(ValueError, match="nodes"):
+        paged_tri.intersect_tris_paged(
+            o, d, tree._replace(nodes=tree.nodes[:-1]), alive)
+    with pytest.raises(ValueError, match="stack"):
+        paged_tri.intersect_tris_paged(
+            o, d, tree._replace(num_tris=1 << 28, leaf=1, depth=28), alive)
+    assert paged_tri.LAUNCHES == before
+
+
+def test_paged_kernel_on_equal_t_duplicates(dev):
+    """Copies of one triangle in leaves far apart: the lowest id wins, as
+    in the dense sweep, whatever order the walk meets them in."""
+    tri = _tri_soup(4000, 9)
+    tri = tri[paged_tri.paged_tri_order(tri, 4000)]
+    tri[[3, 1999, 3998]] = tri[2500]
+    wp = torch.tensor(tri, device=dev)
+    tree = paged_tri.build_tri_tree(wp, 4000)
+    o, d, alive = _tri_rays(tri, 1 << 15, seed=10, dev=dev)
+    hit = paged_tri.intersect_tris_paged(o, d, tree, alive)
+    dense = tri_sweep.intersect_tris_sweep(
+        o, d, tri_sweep.pack_tri_table(wp, 4000), alive)
+    _assert_hits_equal(hit, dense, alive)
+    _assert_hits_equal(hit, paged_tri.tri_tree_sweep_reference(
+        o, d, tree, alive), alive)
+    assert (hit.tri == 3).any() and not torch.isin(
+        hit.tri, torch.tensor([1999, 2500, 3998], device=dev)).any()
+
+
+def test_paged_kernel_on_far_grazing_rays(dev):
+    """Rays from 1,000-2,000 units away grazing the leaf boxes of a small
+    sphere tessellated (radius 0.2, 64 rings x 128 segments): bit for bit
+    with the plain version on every ray, and with K2 on every ray whose
+    K2 hit lies within the rounding margin of its triangle's box."""
+    from raytrace_tpu_torch.models.tessellate import generate_uv_sphere
+    from raytrace_tpu_torch.tools import smoke_lib
+
+    pos, _, _, idx = generate_uv_sphere((4.0, 0.2, 1.0), 0.2, 64, 128)
+    tri = pos[idx.reshape(-1, 3)].astype(np.float32)
+    T = tri.shape[0]
+    tri = tri[paged_tri.paged_tri_order(tri, T)]
+    wp = torch.tensor(tri, device=dev)
+    tree = paged_tri.build_tri_tree(wp, T)
+    boxes = paged_tri.leaf_boxes(wp, T)[:-(-T // paged_tri.LEAF)]
+    o, d = smoke_lib.grazing_rays(boxes.cpu().numpy(), 1 << 16, 12, dev)
+    alive = torch.ones(1 << 16, dtype=torch.bool, device=dev)
+    hit = paged_tri.intersect_tris_paged(o, d, tree, alive)
+    _assert_hits_equal(hit, paged_tri.tri_tree_sweep_reference(
+        o, d, tree, alive), alive)
+    k2 = tri_sweep.intersect_tris_sweep(o, d, tri_sweep.pack_tri_table(wp, T),
+                                        alive)
+    assert (k2.tri >= 0).double().mean() > 0.3
+    for r in torch.nonzero((hit.t != k2.t) | (hit.tri != k2.tri))[:, 0].tolist():
+        j = int(k2.tri[r])
+        p = torch.stack([x[r].double() for x in o]) + k2.t[r].double() * \
+            torch.stack([x[r].double() for x in d])
+        off = float(torch.maximum(wp[j].double().amin(0) - p,
+                                  p - wp[j].double().amax(0)).amax())
+        o_inf = max(abs(float(x[r])) for x in o)
+        reach = float(boxes[j // paged_tri.LEAF].abs().amax())
+        assert off > (o_inf + reach) * paged_tri.TREE_ROUNDING
+
+
+def test_moving_mesh_refits_its_tree_on_the_card(dev):
+    """The moving box grid on the card: each batch's tree is a fresh build
+    from that batch's world soup, the boxes move, and K3 renders it."""
+    from raytrace_tpu_torch.ops import transforms
+    from raytrace_tpu_torch.tools import stress_scenes
+
+    cs = compile_scene(SceneFile.from_json_dict(
+        stress_scenes.box_grid_doc(moving=True)), width=48)
+    cs = dataclasses.replace(cs, render=dataclasses.replace(
+        cs.render, max_ray_depth=8, sample_batches=2))
+    r = Renderer(cs, device=dev)
+    assert r.static.bvh_mode == "paged" and r.static.any_animated
+    trees = []
+    for b in (0, 1):
+        geom = r._geometry(b)
+        mats = transforms.interpolate_instances(
+            r.scene.inst_t0, r.scene.inst_t1, r.batch_times_dev[b])
+        world_p, _ = transforms.transform_soup(r.scene.tri_p, r.scene.tri_n,
+                                               r.scene.tri_inst, mats)
+        fresh = paged_tri.build_tri_tree(world_p, r.static.num_triangles)
+        assert torch.equal(geom.tri_tree.nodes, fresh.nodes)
+        trees.append(geom.tri_tree.nodes)
+    assert not torch.equal(trees[0], trees[1])
+    before = paged_tri.LAUNCHES
+    img = r.render_all()
+    assert paged_tri.LAUNCHES > before and np.isfinite(img).all()
 
 
 def test_renderer_takes_the_paged_sweep_on_the_card(dev):

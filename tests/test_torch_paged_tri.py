@@ -237,20 +237,26 @@ def test_plain_sweep_is_the_dense_sweep_bit_for_bit(T, g, c):
 
 def test_plain_sweep_on_a_scene_soup_is_the_dense_sweep():
     """The box grid's world soup in the Renderer's order, two pages of
-    g = c = 128, through the wavefront's own table builder; and the
-    sweep over it at the frame's primary rays."""
+    g = c = 128, through the wavefront's prepare_tris (the tree K3 walks,
+    sharing the triangle rows; no page tables on the path); and the
+    sweep over it at the frame's primary rays, through the tree and
+    through the page tables."""
     cs = paged_soup(arrays.from_jax_compiled(_jcs()))
     scene, static = arrays.upload_scene(cs, "cpu")
     static = dataclasses.replace(static, bvh_mode="paged")
     tris = wavefront.prepare_tris(static, scene, torch.tensor(0.0))
-    assert "tri_boxes" not in tris
-    tables = tris["tri_pages"]
+    assert "tri_boxes" not in tris and "tri_pages" not in tris
+    tree = tris["tri_tree"]
+    assert tree.tris.data_ptr() == tris["tri_table12"].data_ptr()
+    wp = tris["world_p"][:static.num_triangles]
+    tables = paged_tri.build_page_tables(wp, static.num_triangles)
     assert tables.page_boxes.shape[0] == 2
-    assert tables.tris.data_ptr() == tris["tri_table12"].data_ptr()
-    wp = tris["world_p"][:static.num_triangles].numpy()
+    wp = wp.numpy()
     o, d, active = _rays(wp, R // 2, seed=11)
     o, d, active = _v3(o), _v3(d), torch.tensor(active)
-    hit = paged_tri.intersect_tris_paged(o, d, tables, active)
+    hit = paged_tri.intersect_tris_paged(o, d, tree, active)
+    flat = paged_tri.intersect_tris_paged(o, d, tables, active)
+    assert all(torch.equal(a, b) for a, b in zip(hit, flat))
     dense = tri_sweep.intersect_tris_sweep(o, d, tris["tri_table16"], active)
     assert torch.equal(hit.t, dense.t) and torch.equal(hit.tri, dense.tri)
     assert torch.equal(hit.u[active], dense.u[active])

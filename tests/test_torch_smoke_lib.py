@@ -66,3 +66,38 @@ def test_library_calls_compute_the_probes(name):
         assert torch.equal(call(), probe_ops.probe_reference(name, x, tab))
     else:
         assert call is None
+
+
+def test_grazing_rays_aim_at_box_edges_from_far_away():
+    """Each ray's origin lies 1,000-2,000 units from a point within the
+    jitter of an edge of one of the boxes, and its direction is a unit
+    vector towards that point."""
+    import numpy as np
+
+    boxes = np.array([[0.0, 0.0, 0.0, 1.0, 2.0, 3.0],
+                      [-5.0, 4.0, 4.0, -4.0, 4.5, 6.0]], np.float32)
+    o, d = smoke_lib.grazing_rays(boxes, 256, 3, "cpu")
+    o = torch.stack(tuple(o), 1).double()
+    d = torch.stack(tuple(d), 1).double()
+    assert torch.allclose(d.norm(dim=1), torch.ones(256, dtype=torch.float64),
+                          atol=1e-6)
+    dist = o.norm(dim=1)
+    assert (dist > 990).all() and (dist < 2010).all()
+    # Each ray's line comes within 2e-3 of one of the boxes (sampled every
+    # 1e-3 around its closest approach to the box's centre).
+    steps = torch.arange(-4.0, 4.0, 1e-3, dtype=torch.float64)
+    near = []
+    for b in torch.tensor(boxes, dtype=torch.float64):
+        s = ((((b[:3] + b[3:]) / 2) - o) * d).sum(1, keepdim=True)
+        p = o[:, None] + (s + steps)[..., None] * d[:, None]   # [R, S, 3]
+        out = torch.maximum(b[:3] - p, p - b[3:]).clamp(min=0).norm(dim=2)
+        near.append(out.amin(1))
+    assert (torch.stack(near).amin(0) < 2e-3).all()
+
+
+def test_k3_tables_take_the_tree():
+    from types import SimpleNamespace
+
+    assert smoke_lib.k3_tables(SimpleNamespace(tri_tree="tree",
+                                               tri_pages=None)) == "tree"
+    assert smoke_lib.k3_tables(SimpleNamespace(tri_pages="pages")) == "pages"
