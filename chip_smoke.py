@@ -85,7 +85,8 @@ printing a result.  No path runs at a cut depth.  Phases:
    layout dropped) is too, bit for bit, two launches byte-identical;
    then K4's animated form the same way on the motion-blur scene, at
    96x54/depth 8/k=2 and at 1024x576/depth 50/k=1 (bit for bit); then
-   its triangle form, bit for bit at 96x54/depth 8/k=2 on
+   its triangle form (the soup's tree walked with csrc/tri_tree.cuh,
+   the walk K3 runs), bit for bit at 96x54/depth 8/k=2 on
    tri-stress at k=1 and k=4 and on the triangle fixture, and at
    tri-stress's full size against the plain version and against the
    wavefront with K2 on the same batch (rays within 0.5%, means within
@@ -96,7 +97,9 @@ printing a result.  No path runs at a cut depth.  Phases:
    the 70-instance lit doc at 96x96; then each light scene's full batch
    bit for bit with the plain version (both timed), and held against the
    wavefront with K2 (and K1) on the same batch (rays within 0.5%, means
-   within LIGHT_MEAN_TOL), which also counts the work of the bound; then
+   within LIGHT_MEAN_TOL), which also counts the work of the bound and
+   each (pixel, sample)'s path length, from which the share of lanes that
+   K4's per-sample reconvergence keeps busy is printed (_warp_tail); then
    K4's five noise forms, each bit for bit with its plain version (and
    two launches byte-identical) on the small frames of
    noise_scenes.form_checks (perlin-spheres at 96x54, depth 8, the
@@ -195,7 +198,8 @@ bound: the larger of its FP32 operations over 67 TFLOP/s (the dev
 probes' INT32 operations counted as PEAK_INT32_OPS says) and its bytes
 over 3.35 TB/s, counted from this run's inputs and the scene's real
 spheres, not the table's padding rows; K4's triangle, lit, noise and
-image forms' and K3's are estimates, see _k4_tris_bound, _noise_bound,
+image forms' and K3's are estimates, see _k4_tris_bound (the tree's
+work, beside the flat cluster walk's as flat_bound_ms), _noise_bound,
 _image_bound and _k3_full; its clustered forms' count the traversal's
 work on a subset of the rays, _cluster_bound), the last line
 {"ok": true, "device": {...}}.
@@ -232,6 +236,9 @@ STATIC_CHUNK_MRAYS_BEFORE = 298.602
 TRI_K = 4
 TRI_WIDTH, TRI_HEIGHT = 1024, 576
 TRI_SUBSET = 1 << 18
+# Rays of each bounce on which the work of K4's tree walk is counted for
+# its bound (_tri_work).
+TREE_SUBSET = 1 << 17
 # FP32 operations of one ray-triangle test, counted from the loops of
 # csrc/tri_sweep.cu and csrc/megakernel.cu as FLOPS_PER_TEST is (compares
 # not counted): p = d x e2 9, det 5, 1 / det 1, s = o - v0 3, u 6,
@@ -337,26 +344,38 @@ def _k4_bound(static, geom, traced_sum: int, width: int, height: int,
 def _k4_tris_bound(static, geom, work, width: int, height: int, scene=None):
     """An estimate of K4's triangle form's bound for one launch, from the
     work ``_tri_work`` counted on the wavefront's rays of the same batch:
-    every bounce tests every sphere and every cluster box, and the
-    real triangles of each cluster whose box passes the pretest seeded by
-    the sphere hit (the JAX kernel's, megakernel.py:1280; the kernel's own
-    running best t can only skip more), and every noise hit takes
-    FLOPS_PER_TURBULENCE.  With ``scene`` (the lit form),
-    every bounce but a sample's last takes an NEE step, and the light rows
-    and instance transforms are read too.  Bytes: the tables, boxes, rows
-    and parameters read once, the sums and counts written once."""
+    every bounce tests every sphere; the tree walk tests the nodes and the
+    real triangles of the leaves that a walk proving each ray's closest
+    hit must reach (paged_tri.tree_visit_counts, on a subset of each
+    bounce's rays: the kernel's walk, seeded by the sphere hit, can only
+    do more); every noise hit takes FLOPS_PER_TURBULENCE.  With ``scene``
+    (the lit form), every bounce but a sample's last takes an NEE step,
+    and the light rows and instance transforms are read too.  Bytes: the
+    tables, the tree's rows, ids and nodes, the fat rows and parameters
+    read once, the sums and counts written once.  Returns (the tree
+    walk's bound, the flat cluster walk's that it replaced: every cluster
+    box pretested and the real triangles of each cluster that passes
+    against the sphere hit, the JAX kernel's pretest, megakernel.py:1280,
+    with the soup's table and boxes read once)."""
+    tree = geom.tri_tree
     flops = (work["rays"] * _spheres(static) * FLOPS_PER_TEST
-             + work["pretests"] * FLOPS_PER_PRETEST
-             + work["tri_tests"] * FLOPS_PER_TRI_TEST
              + work["noise_hits"] * FLOPS_PER_TURBULENCE)
-    nbytes = (geom.sph_table8.numel() + geom.prim_rows.numel()
-              + geom.tri_table12.numel() + geom.tri_boxes.numel() + 40) * 4
+    nbytes = (geom.sph_table8.numel() + geom.prim_rows.numel() + 40) * 4
     if scene is not None:
         flops += (work["rays"] - work["samples"]) * FLOPS_PER_NEE
         nbytes += (scene.light_tri_packed.numel()
                    + geom.inst_o2w_rows.numel()) * 4
     nbytes += width * height * (3 * 4 + 4)
-    return least_ms(flops, nbytes)
+    tree_bound = least_ms(
+        flops + work["node_tests"] * FLOPS_PER_TREE_NODE
+        + work["tree_tri_tests"] * FLOPS_PER_TRI_TEST,
+        nbytes + (tree.tris.numel() + tree.nodes.numel()
+                  + tree.ids.numel()) * 4)
+    flat_bound = least_ms(
+        flops + work["pretests"] * FLOPS_PER_PRETEST
+        + work["tri_tests"] * FLOPS_PER_TRI_TEST,
+        nbytes + (geom.tri_table12.numel() + 8 * work["clusters"]) * 4)
+    return tree_bound, flat_bound
 
 
 def _cluster_work(wave_r, geom, times=None):
@@ -578,51 +597,94 @@ def _tri_work(renderer):
     """Render batch 0 of ``renderer``'s triangle scene on the wavefront
     (K2, K1), as render_next_batch does, and count at every bounce the
     work of K4's triangle form on the same rays (for _k4_tris_bound): the
-    alive rays, their cluster pretests, the tests of the real triangles
-    of the clusters that pass the pretest against each ray's sphere hit,
-    and the noise hits (_slot_hits); and the samples.  Returns (image
-    [H, W, 3] on the host, rays traced, work)."""
+    alive rays; the tree walk's node tests and triangle tests against each
+    ray's closest hit (paged_tri.tree_visit_counts on TREE_SUBSET of the
+    bounce's rays, evenly spaced, scaled to its alive rays); the flat
+    cluster walk's pretests and the tests of the real triangles of the
+    clusters that pass the pretest against each ray's sphere hit, on every
+    ray; the noise hits (_slot_hits); and the samples.  Returns (image
+    [H, W, 3] on the host, rays traced, work, [H * W, spp] int32 each
+    (pixel, sample)'s bounces: its path length)."""
     import torch
 
     from raytrace_tpu_torch.engine import wavefront
     from raytrace_tpu_torch.models.shading_table import MODE_NOISE
-    from raytrace_tpu_torch.ops import megakernel, sphere_sweep
+    from raytrace_tpu_torch.ops import (megakernel, paged_tri, sphere_sweep,
+                                        vec3)
+    from raytrace_tpu_torch.ops.vec3 import V3
 
     static, scene = renderer.static, renderer.scene
     geom = renderer._geometry(0)
     trace = wavefront.make_trace_fn(static, scene, geom)
-    n_clusters = geom.tri_boxes.shape[0]
     group = megakernel.tri_group(static, geom.tri_table16.shape[0])
-    # The rows K4 sweeps in each cluster: the real triangles.
+    boxes = megakernel.cluster_boxes(geom.tri_table16, static.num_triangles,
+                                     group)
+    n_clusters = boxes.shape[0]
+    # The rows the flat walk sweeps in each cluster: the real triangles.
     sizes = (static.num_triangles - group * torch.arange(
-        n_clusters, device=geom.tri_boxes.device)).clamp(0, group)
+        n_clusters, device=boxes.device)).clamp(0, group)
+    W, H = static.width, static.height
+    spp = static.sqrt_spp ** 2
     work = dict(rays=0, pretests=0, tri_tests=0, noise_hits=0,
-                samples=static.width * static.height * static.sqrt_spp ** 2)
+                node_tests=0.0, tree_tri_tests=0.0, clusters=n_clusters,
+                samples=W * H * spp)
 
     def counting(o, d, alive):
         sph = sphere_sweep.intersect_spheres_sweep(o, d, geom.sph_table8,
                                                    alive)
-        passes = megakernel.cluster_pretest(o, d, geom.tri_boxes, sph.t)
+        passes = megakernel.cluster_pretest(o, d, boxes, sph.t)
         n = int(alive.sum())
         work["rays"] += n
         work["pretests"] += n * n_clusters
         work["tri_tests"] += int(((passes & alive).sum(1) * sizes).sum())
         raw = trace(o, d, alive)
+        sel = torch.arange(0, o.x.shape[0], max(1, o.x.shape[0]
+                                                // TREE_SUBSET),
+                           device=alive.device)[:TREE_SUBSET]
+        tree = paged_tri.tree_visit_counts(
+            V3(*(x[sel].contiguous() for x in o)),
+            V3(*(x[sel].contiguous() for x in d)), geom.tri_tree,
+            raw.t[sel].contiguous(), alive[sel].contiguous())
+        if tree["rays"]:
+            work["node_tests"] += tree["node_tests"] * n / tree["rays"]
+            work["tree_tri_tests"] += tree["tri_tests"] * n / tree["rays"]
         work["noise_hits"] += _slot_hits(static, scene, geom, o, d, alive,
                                          raw, MODE_NOISE)
         return raw
 
-    tiles, rays = [], 0
+    tiles, rays, lengths = [], 0, []
     rows = renderer.rows_per_tile
-    for row0 in range(0, static.height, rows):
-        tile, tr = wavefront.render_tile(static, scene, renderer.camera,
-                                         counting, geom, 0, row0, rows,
-                                         renderer.use_dof)
-        tiles.append(tile)
+    dev = geom.sph_table8.device
+    for row0 in range(0, H, rows):
+        # wavefront.render_tile, keeping each ray's bounce count.
+        state, o, d = wavefront.primary_rays(static, renderer.camera, 0, row0,
+                                             rows, renderer.use_dof, dev)
+        counts = torch.zeros(o.x.shape[0], dtype=torch.int32, device=dev)
+        radiance, tr = wavefront.bounce_wavefront(static, scene, counting,
+                                                  geom, state, o, d, counts)
+        tiles.append(vec3.to_rows(radiance).reshape(rows, W, spp, 3).mean(2))
+        lengths.append(counts.reshape(rows, W * spp)[:H - row0])
         rays += tr
     torch.cuda.synchronize()
-    img = torch.cat(tiles, dim=0)[:static.height].cpu().numpy()
-    return img, rays, work
+    img = torch.cat(tiles, dim=0)[:H].cpu().numpy()
+    return img, rays, work, torch.cat(lengths).reshape(H * W, spp)
+
+
+def _warp_tail(lengths):
+    """K4's idle lanes from the per-sample reconvergence of its bounce
+    loop (csrc/megakernel.cu: one sample's bounces inside the sample
+    loop, so a warp of 32 consecutive pixels runs each sample until its
+    longest path ends): for each warp and sample, the longest and the mean
+    path length of its 32 lanes.  Returns (mean lanes busy: the sum of the
+    means over the sum of the longest, the mean of the per-(warp, sample)
+    ratios, the mean longest, the mean path length)."""
+    n_pix, spp = lengths.shape
+    warps = lengths[:n_pix - n_pix % 32].reshape(-1, 32, spp).double()
+    longest = warps.amax(dim=1)
+    mean = warps.mean(dim=1)
+    return (float(mean.sum() / longest.sum()),
+            float((mean / longest.clamp(min=1)).mean()),
+            float(longest.mean()), float(mean.mean()))
 
 
 def _paged_equal(a, b, alive) -> bool:
@@ -1374,7 +1436,7 @@ def main() -> int:
     fused_img = (sums / tri_full.static.sqrt_spp ** 2).cpu().numpy()
     # The same batch on the wavefront with K2 and K1, counting the work
     # of the kernel's bound on its rays.
-    wave_img, wave_rays, work = _tri_work(
+    wave_img, wave_rays, work, _ = _tri_work(
         Renderer(tri_cs, device=dev, use_megakernel=False))
     mdiff = np.abs(fused_img.mean(axis=(0, 1))
                    - wave_img.mean(axis=(0, 1))).max()
@@ -1385,17 +1447,26 @@ def main() -> int:
     if abs(tris_rays - wave_rays) > 0.005 * wave_rays or mdiff > 2e-3:
         raise AssertionError("tri-stress: the fused and wavefront renders "
                              "disagree")
-    tris_bound = _k4_tris_bound(args[0], args[2], work, TRI_WIDTH,
-                                TRI_HEIGHT)
+    tris_bound, tris_flat = _k4_tris_bound(args[0], args[2], work,
+                                           TRI_WIDTH, TRI_HEIGHT)
+    tris_leaf = args[2].tri_tree.leaf
+    per = max(work["rays"], 1)
     print(f"fused kernel (triangle form) time at {TRI_WIDTH}x{TRI_HEIGHT}, "
           f"16 spp, depth 50, one batch: kernel {tris_ms:.3f} ms (median of "
           f"5, CUDA events), plain PyTorch {tris_plain_ms:.1f} ms (one run, "
           f"host clock); work counted on the wavefront's rays: "
-          f"{work['rays']} bounces, {work['pretests']} cluster pretests, "
+          f"{work['rays']} bounces; the tree (depth "
+          f"{args[2].tri_tree.depth}, leaves of {tris_leaf}): "
+          f"{work['node_tests'] / per:.1f} node and "
+          f"{work['tree_tri_tests'] / per:.1f} triangle tests a bounce "
+          f"against the closest hit (on {TREE_SUBSET} rays a bounce); the "
+          f"flat walk: {work['pretests']} cluster pretests, "
           f"{work['tri_tests']} triangle tests in clusters that pass against "
-          f"the sphere hit ({work['tri_tests'] / max(work['rays'], 1):.1f} a "
-          f"bounce, of {TRI_K * TRI_K * 960}); bound (an estimate) "
-          f"{tris_bound[0]:.4f} ms by {tris_bound[1]} ({card})")
+          f"the sphere hit ({work['tri_tests'] / per:.1f} a bounce, of "
+          f"{TRI_K * TRI_K * 960}); bound (an estimate) "
+          f"{tris_bound[0]:.4f} ms by {tris_bound[1]} "
+          f"({tris_bound[0] / tris_ms:.4f} of it), the flat walk's "
+          f"{tris_flat[0]:.4f} ms by {tris_flat[1]} ({card})")
     del tri_full, args, kw, sums
 
     # -- 4d. K4's lit forms vs plain, on the light scenes --------------------
@@ -1447,12 +1518,20 @@ def main() -> int:
         # The same batch on the wavefront with K2 (and K1 for the spheres),
         # counting the work of the kernel's bound on its rays.
         t0 = time.perf_counter()
-        wave_img, wave_rays, work = _tri_work(
+        wave_img, wave_rays, work, lengths = _tri_work(
             Renderer(light_cs[name], device=dev, use_megakernel=False))
         wave_s = time.perf_counter() - t0
         mdiff = np.abs(fused_img.mean(axis=(0, 1))
                        - wave_img.mean(axis=(0, 1))).max()
-        bound = _k4_tris_bound(r.static, args[2], work, w, h, scene=r.scene)
+        bound, flat = _k4_tris_bound(r.static, args[2], work, w, h,
+                                     scene=r.scene)
+        tail = _warp_tail(lengths)
+        print(f"{name}'s batch on the wavefront, per-sample reconvergence "
+              f"of K4's bounce loop: warps of 32 pixels run each sample "
+              f"until their longest path ends; mean over longest path "
+              f"length {tail[0]:.4f} (lanes busy; idle {1 - tail[0]:.4f}), "
+              f"per (warp, sample) {tail[1]:.4f}; longest {tail[2]:.2f} and "
+              f"mean {tail[3]:.2f} bounces a (warp, sample) ({card})")
         print(f"fused (lit form) vs wavefront with K2 on {name}'s batch at "
               f"{w}x{h}, 64 spp, depth 50: rays {lit_rays} vs {wave_rays}, "
               f"max channel-mean diff {mdiff:.3g}; the wavefront's batch "
@@ -1467,14 +1546,19 @@ def main() -> int:
               f"host clock), {lit_rays / lit_ms / 1e3:.1f} Mrays/s in the "
               f"kernel; work "
               f"counted on the wavefront's rays: {work['rays']} bounces of "
-              f"{work['samples']} samples, {work['pretests']} cluster "
-              f"pretests, {work['tri_tests']} triangle tests, "
-              f"{work['rays'] - work['samples']} NEE steps, "
+              f"{work['samples']} samples, "
+              f"{work['node_tests'] / max(work['rays'], 1):.1f} node and "
+              f"{work['tree_tri_tests'] / max(work['rays'], 1):.1f} "
+              f"triangle tests a bounce in the tree, the flat walk's "
+              f"{work['pretests']} cluster pretests and {work['tri_tests']} "
+              f"triangle tests, {work['rays'] - work['samples']} NEE steps, "
               f"{work['noise_hits']} noise hits; bound (an "
               f"estimate) {bound[0]:.4f} ms by {bound[1]} "
-              f"({bound[0] / lit_ms:.4f} of it) ({card})")
+              f"({bound[0] / lit_ms:.4f} of it), the flat walk's "
+              f"{flat[0]:.4f} ms ({card})")
         light_full[name] = dict(ms=lit_ms, plain_ms=plain_s * 1e3,
-                                bound=bound)
+                                bound=bound, flat_bound=flat, tail=tail,
+                                leaf=args[2].tri_tree.leaf)
         del r, args, kw, sums
 
     # -- 4e. K4's noise forms vs plain, and perlin-spheres' full batch -------
@@ -2351,6 +2435,7 @@ def main() -> int:
         "launches": tris_launches, "max_abs_err": tris_err, "ms": tris_ms,
         "plain_ms": tris_plain_ms, "bound_ms": tris_bound[0],
         "bound_by": tris_bound[1], "library_ms": None,
+        "flat_bound_ms": tris_flat[0], "leaf": tris_leaf,
     }, {
         # cornell-style's full batch, the slice's main path.
         "name": "megakernel_lights", "route": "cuda",
@@ -2362,6 +2447,10 @@ def main() -> int:
         "bound_ms": light_full["cornell-style"]["bound"][0],
         "bound_by": light_full["cornell-style"]["bound"][1],
         "library_ms": None,
+        "flat_bound_ms": light_full["cornell-style"]["flat_bound"][0],
+        "leaf": light_full["cornell-style"]["leaf"],
+        # The share of lanes busy under K4's per-sample reconvergence.
+        "warp_busy_share": light_full["cornell-style"]["tail"][0],
     }, {
         # perlin-spheres' full batch, the slice's main path.
         "name": "megakernel_noise", "route": "cuda",

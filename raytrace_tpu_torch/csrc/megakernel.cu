@@ -50,26 +50,31 @@
 // radius).
 //
 // Triangles (template parameter kTris; not combined with kAnim, as in the
-// JAX kernel): the soup is a [t8, 12] table in global memory, 48 bytes a
-// triangle as three float4 (v0, valid), (e1, -), (e2, -), read through the
-// read-only cache; at 15,360 triangles that is 737 KB, which stays in L2.
-// The soup is laid out in contiguous clusters of cluster_g triangles
-// (models/sphere_order.apply_triangle_order; one cluster holds the whole
-// soup when it is not clustered), and the clusters' boxes, [n_clusters, 8]
-// as two float4 (min, -), (max, -), at most 128 x 32 B = 4 KiB, sit in
-// shared memory after the sphere table.  After the sphere sweep seeds the
-// best t, a thread visits the clusters in ascending id, slab-tests each box
-// with the JAX kernel's conservative pretest (megakernel.py:1262-1280:
-// te <= tx, tx > T_MIN, te < best_t * 1.0001 + 1e-4, with its 1e-30 guard
-// on 1/d), pruned by its running best t, and runs the dense sweep's exact
-// Moller-Trumbore operations over the triangles of each cluster that
-// passes, strict < over ascending ids.  A skipped cluster can hold only
-// hits at t >= best t, which under strict < never win, so the result is
-// the dense sweep's (ops/tri_sweep.py), bit for bit.  The hit point is
-// captured in the sweep as v0 + u e1 + v e2 and the normal is the
-// barycentric lerp of the fat row's n0, n1 - n0, n2 - n0 (slots 49:58),
-// as engine/wavefront.py reconstruct_hit computes them.  At equal t a
-// sphere keeps the hit (it is swept first), as in the JAX kernel.
+// JAX kernel): after the sphere sweep, a thread walks the soup's tree with
+// csrc/tri_tree.cuh's walk, the one K3 runs: nearest first, over leaves of
+// 2 triangles (a soup of at most 40 is one leaf: ops/paged_tri.soup_leaf,
+// chosen on the card), seeded with the sphere sweep's best (t, id).  The soup keeps
+// its compiled order (models/sphere_order.apply_triangle_order), whose
+// groups are not spatial inside, so the tree is built over a Morton order
+// of the soup's world centroids (ops/paged_tri.py build_soup_tree): a
+// permuted copy of the [t8, 12] rows, 48 bytes a triangle as three float4
+// (v0, valid), (e1, -), (e2, -), an int32 slot -> triangle id table and
+// the node rows, all read through the read-only cache from global memory
+// (at 16,384 triangles 768 KiB of rows and 512 KiB of nodes, which stay in
+// L2).  A triangle's primitive id is s_pad + ids[slot], above every
+// sphere's, and the walk keeps the lexicographic minimum of (t, id): a
+// sphere keeps an equal-t hit (it was swept first in the dense order), and
+// among triangles the lowest id wins, so the result is the dense sweep's
+// (ops/tri_sweep.py) behind the spheres', bit for bit, in any order of the
+// walk.  The hit point is captured in the walk as v0 + u e1 + v e2 and the
+// normal is the barycentric lerp of the fat row's n0, n1 - n0, n2 - n0
+// (slots 49:58), as engine/wavefront.py reconstruct_hit computes them.
+// It replaces the JAX kernel's flat sweep over 128-triangle clusters in
+// ascending id (its pretest, megakernel.py:1262-1280, and
+// _sweep_tri_gather), under which a warp runs the union of its threads'
+// passing clusters, 128 triangles each.
+// The stack holds one entry a level: 13 for the 8,192 leaves of the
+// gate's 16,384 triangles (ops/megakernel.py MAX_TRI_DEPTH).
 //
 // Lights (template parameter kLights; not combined with kAnim: the JAX
 // renderer never fuses animation with lights, renderer.py:468-472): after a
@@ -138,8 +143,8 @@
 // :550), without its TPU mechanisms.  The prefix is swept densely; then the
 // thread visits the n_sph_clusters clusters in ascending id, slab-tests each
 // box (ops/megakernel.py sphere_cluster_boxes, at most 128 x 32 B in shared
-// memory after the triangle boxes) with the triangles' pretest against its
-// running best t, and tests the spheres of each cluster that passes with the
+// memory after the sphere table) with the JAX kernel's pretest
+// (megakernel.py:1262-1280, box_passes below) against its running best t, and tests the spheres of each cluster that passes with the
 // dense sweep's own test (test_sphere), strict < over ascending ids.  Prefix
 // ids are below cluster ids, and a skipped cluster can hold only hits at t
 // above the best t, so the result is the dense sweep's (t, id), bit for bit.
@@ -160,9 +165,9 @@
 //
 // What bounds it: per bounce S ray-sphere tests of ~20 flops and a sqrt
 // (for clustered spheres the prefix, the box pretests and the spheres of
-// the clusters that pass; for triangles the box pretests and the tests of
-// the clusters that pass), against one 112-byte row fetch: the fp32 ALU
-// issue rate.  The first version is the simple one: a persistent work
+// the clusters that pass; for triangles the node tests and the triangles
+// of the leaves the walk reaches), against one 112-byte row fetch: the
+// fp32 ALU issue rate.  The first version is the simple one: a persistent work
 // queue and a deeper hierarchy come later.
 //
 // Bits: built with -fmad=false (ops/_build.py), so no multiply-add is
@@ -179,6 +184,8 @@
 
 // The raygen (PCG hash, get_ray, V3, the parameters' first slots).
 #include "raygen.cuh"
+// The triangle tree walk shared with K3.
+#include "tri_tree.cuh"
 
 namespace {
 
@@ -186,6 +193,7 @@ constexpr float kTMin = 0.001f;    // ops/intersect.py T_MIN
 constexpr float kTMax = 10000.0f;  // ops/intersect.py T_MAX
 constexpr int kThreads = 128;
 constexpr int kRowWidth = 64;      // engine/wavefront.py prepare_batch rows
+constexpr int kTriStack = 13;      // ops/megakernel.py MAX_TRI_DEPTH
 
 // raytrace_tpu/models/compile.py MAT_TYPE_*; shading_table.py MODE_CHECKER.
 constexpr int kLambertian = 1;
@@ -482,8 +490,8 @@ __device__ __forceinline__ float slab_inv(float dx) {
   return 1.0f / (fabsf(dx) < kSlabEps ? (dx < 0.0f ? -kSlabEps : kSlabEps) : dx);
 }
 
-// The slab pretest of one cluster box (min, max) against the ray, pruned by
-// its best t so far (megakernel.py:1262-1280).
+// The slab pretest of one sphere cluster's box (min, max) against the ray,
+// pruned by its best t so far (megakernel.py:1262-1280).
 __device__ __forceinline__ bool box_passes(float4 mn, float4 mx, V3 o, float ivx, float ivy,
                                            float ivz, float best_t) {
   float a0 = (mn.x - o.x) * ivx;
@@ -605,49 +613,19 @@ __device__ __forceinline__ void sweep_sphere_clusters(
   }
 }
 
-// The triangle soup against one ray, after the sphere sweep: see the
-// header.  Updates the best t and id, the barycentrics and the hit point.
-__device__ __forceinline__ void sweep_tris(const float4* __restrict__ tris, int t8,
-                                           const float4* boxes, int n_clusters, int cluster_g,
-                                           int s_pad, V3 o, V3 d, float& best_t, int& best_id,
-                                           float& best_u, float& best_v, V3& tp) {
-  const float ivx = slab_inv(d.x);
-  const float ivy = slab_inv(d.y);
-  const float ivz = slab_inv(d.z);
-  for (int c = 0; c < n_clusters; ++c) {
-    if (!box_passes(boxes[2 * c], boxes[2 * c + 1], o, ivx, ivy, ivz, best_t)) continue;
-    const int j1 = min((c + 1) * cluster_g, t8);
-    for (int j = c * cluster_g; j < j1; ++j) {
-      // csrc/tri_sweep.cu's operations, in its order.
-      const float4 v0 = __ldg(tris + 3 * j);
-      const float4 e1 = __ldg(tris + 3 * j + 1);
-      const float4 e2 = __ldg(tris + 3 * j + 2);
-      const float px = d.y * e2.z - d.z * e2.y;
-      const float py = d.z * e2.x - d.x * e2.z;
-      const float pz = d.x * e2.y - d.y * e2.x;
-      const float det = e1.x * px + e1.y * py + e1.z * pz;
-      const float inv_det = det != 0.0f ? 1.0f / det : 0.0f;
-      const float sx = o.x - v0.x;
-      const float sy = o.y - v0.y;
-      const float sz = o.z - v0.z;
-      const float u = (sx * px + sy * py + sz * pz) * inv_det;
-      const float qx = sy * e1.z - sz * e1.y;
-      const float qy = sz * e1.x - sx * e1.z;
-      const float qz = sx * e1.y - sy * e1.x;
-      const float v = (d.x * qx + d.y * qy + d.z * qz) * inv_det;
-      const float t = (e2.x * qx + e2.y * qy + e2.z * qz) * inv_det;
-      const bool ok = v0.w > 0.0f && det != 0.0f && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
-                      t > kTMin && t < kTMax;
-      if (ok && t < best_t) {
-        best_t = t;
-        best_id = s_pad + j;
-        best_u = u;
-        best_v = v;
+// The triangle soup's tree against one ray, after the sphere sweep: see
+// the header.  Updates the best t and id, the barycentrics and the hit
+// point.
+__device__ __forceinline__ void sweep_tris(const tri_tree::Tree& tree, int s_pad, V3 o, V3 d,
+                                           float& best_t, int& best_id, float& best_u,
+                                           float& best_v, V3& tp) {
+  const tri_tree::Ray r = tri_tree::make_ray(o.x, o.y, o.z, d.x, d.y, d.z);
+  tri_tree::walk<kTriStack, true>(
+      tree, r, s_pad, best_t, best_id, best_u, best_v,
+      [&](float4 v0, float4 e1, float4 e2, float u, float v) {
         tp = {v0.x + u * e1.x + v * e2.x, v0.y + u * e1.y + v * e2.y,
               v0.z + u * e1.z + v * e2.z};
-      }
-    }
-  }
+      });
 }
 
 // ---- the kernel ----
@@ -656,7 +634,8 @@ template <bool kAnim, bool kTris, bool kLights, bool kNoise, bool kImage, bool k
 __global__ void __launch_bounds__(kThreads)
 megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
            const float* __restrict__ times, int n_sph, const float4* __restrict__ tris, int t8,
-           const float4* __restrict__ tri_boxes, int n_clusters, int cluster_g, int s_pad,
+           const float4* __restrict__ tri_nodes, const int* __restrict__ tri_ids, int tri_depth,
+           int tri_leaf, int s_pad,
            const float4* __restrict__ sph_boxes, int n_prefix, int sph_g, int n_sph_clusters,
            const float* __restrict__ lights, const float* __restrict__ o2w,
            const int* __restrict__ atlas_words, const int* __restrict__ atlas_wh, int n_images,
@@ -675,16 +654,11 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
   // The clustered forms stage no row.
   const int n_staged = kSphClusters ? 0 : n_sph;
   float4* tbl = smem + kNumParams / 4;
-  // Triangle cluster c's box: boxes[2c] = (min, -), boxes[2c+1] = (max, -).
-  float4* boxes = tbl + kStride<kAnim> * n_staged;
-  // Sphere cluster c's box, the same way, after them.
-  float4* sboxes = boxes + (kTris ? 2 * n_clusters : 0);
+  // Sphere cluster c's box: sboxes[2c] = (min, -), sboxes[2c+1] = (max, -).
+  float4* sboxes = tbl + kStride<kAnim> * n_staged;
   // The sRGB table, after the boxes.
   float* lut_s = reinterpret_cast<float*>(sboxes + (kSphClusters ? 2 * n_sph_clusters : 0));
   for (int j = threadIdx.x; j < kNumParams; j += kThreads) prm[j] = fparams[j];
-  if constexpr (kTris) {
-    for (int j = threadIdx.x; j < 2 * n_clusters; j += kThreads) boxes[j] = tri_boxes[j];
-  }
   if constexpr (kSphClusters) {
     for (int j = threadIdx.x; j < 2 * n_sph_clusters; j += kThreads) sboxes[j] = sph_boxes[j];
   }
@@ -715,6 +689,7 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
   const V3 bg = {prm[kSky], prm[kSky + 1], prm[kSky + 2]};
   const int n_samples = n_batches * spp_local;
   const Atlas atlas = {atlas_words, atlas_wh, n_images, atlas_h, atlas_w, lut_s};
+  const tri_tree::Tree tree = {tris, tri_nodes, tri_ids, t8, tri_depth, tri_leaf};
 
   float sum_x = 0.0f, sum_y = 0.0f, sum_z = 0.0f;
   int traced = 0;
@@ -756,8 +731,7 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
       float bu = 0.0f, bv = 0.0f;
       V3 tp = {0.0f, 0.0f, 0.0f};
       if constexpr (kTris) {
-        sweep_tris(tris, t8, boxes, n_clusters, cluster_g, s_pad, o, d, best_t, best_id, bu,
-                   bv, tp);
+        sweep_tris(tree, s_pad, o, d, best_t, best_id, bu, bv, tp);
       }
       if (best_t >= kTMax) {  // miss: the sky, and the sample ends
         acc = acc + thr * bg;
@@ -934,8 +908,8 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
 
 template <bool kAnim, bool kTris, bool kLights, bool kNoise, bool kImage, bool kSphClusters>
 int launch(const void* table8, const void* dtab8, const void* times, int n_sph, const void* tris12,
-           int t8, const void* tri_boxes, int n_clusters, int cluster_g, int s_pad,
-           const void* sph_boxes, int n_prefix, int sph_g, int n_sph_clusters,
+           int t8, const void* tri_nodes, const void* tri_ids, int tri_depth, int tri_leaf,
+           int s_pad, const void* sph_boxes, int n_prefix, int sph_g, int n_sph_clusters,
            const void* lights16, const void* o2w12, const void* atlas_words,
            const void* atlas_wh, int n_images, int atlas_h, int atlas_w, const void* lut,
            const void* rows, int n_rows, const void* fparams, int width, int height,
@@ -945,7 +919,6 @@ int launch(const void* table8, const void* dtab8, const void* times, int n_sph, 
   if (n_pix <= 0) return static_cast<int>(cudaGetLastError());
   const size_t n_staged = kSphClusters ? 0 : static_cast<size_t>(n_sph);
   const size_t smem = (kNumParams + 4 * kStride<kAnim> * n_staged +
-                       (kTris ? 8 * static_cast<size_t>(n_clusters) : 0) +
                        (kSphClusters ? 8 * static_cast<size_t>(n_sph_clusters) : 0) +
                        (kImage ? kLutSize : 0)) *
                       sizeof(float);
@@ -959,8 +932,8 @@ int launch(const void* table8, const void* dtab8, const void* times, int n_sph, 
   kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(table8), static_cast<const float4*>(dtab8),
       static_cast<const float*>(times), n_sph, static_cast<const float4*>(tris12), t8,
-      static_cast<const float4*>(tri_boxes), n_clusters, cluster_g, s_pad,
-      static_cast<const float4*>(sph_boxes), n_prefix, sph_g, n_sph_clusters,
+      static_cast<const float4*>(tri_nodes), static_cast<const int*>(tri_ids), tri_depth,
+      tri_leaf, s_pad, static_cast<const float4*>(sph_boxes), n_prefix, sph_g, n_sph_clusters,
       static_cast<const float*>(lights16), static_cast<const float*>(o2w12),
       static_cast<const int*>(atlas_words), static_cast<const int*>(atlas_wh), n_images, atlas_h,
       atlas_w, static_cast<const float*>(lut), static_cast<const float*>(rows), n_rows,
@@ -971,8 +944,8 @@ int launch(const void* table8, const void* dtab8, const void* times, int n_sph, 
 
 #define MEGA_PARAMS                                                                            \
   const void *table8, const void *dtab8, const void *times, int n_sph, const void *tris12,     \
-      int t8, const void *tri_boxes, int n_clusters, int cluster_g, int s_pad,                 \
-      const void *sph_boxes, int n_prefix, int sph_g, int n_sph_clusters,                      \
+      int t8, const void *tri_nodes, const void *tri_ids, int tri_depth, int tri_leaf,         \
+      int s_pad, const void *sph_boxes, int n_prefix, int sph_g, int n_sph_clusters,           \
       const void *lights16, const void *o2w12, const void *atlas_words, const void *atlas_wh,  \
       int n_images, int atlas_h, int atlas_w, const void *lut, const void *rows, int n_rows,   \
       const void *fparams, int width, int height, int sqrt_spp, int spp_local, int n_batches, \
@@ -980,8 +953,8 @@ int launch(const void* table8, const void* dtab8, const void* times, int n_sph, 
       void *stream
 
 #define MEGA_ARGS                                                                            \
-  table8, dtab8, times, n_sph, tris12, t8, tri_boxes, n_clusters, cluster_g, s_pad, sph_boxes, \
-      n_prefix, sph_g, n_sph_clusters, lights16, o2w12, atlas_words, atlas_wh,                 \
+  table8, dtab8, times, n_sph, tris12, t8, tri_nodes, tri_ids, tri_depth, tri_leaf, s_pad,   \
+      sph_boxes, n_prefix, sph_g, n_sph_clusters, lights16, o2w12, atlas_words, atlas_wh,    \
       n_images, atlas_h, atlas_w, lut, rows, n_rows, fparams, width, height, sqrt_spp,         \
       spp_local, n_batches, batch0, sample_base, max_depth, flags, sums, traced, stream
 
@@ -1022,11 +995,12 @@ int dispatch_textures(MEGA_PARAMS) {
 // real ones; 0 sweeps none); dtab8: null for a static table, else the
 // motion rows shaped as table8 (16-byte aligned), and times: every batch's
 // shutter time, [>= batch0 + n_batches] f32; tris12: null for no
-// triangles, else the [t8, 12] f32 soup (v0, valid, e1, -, e2, -; 16-byte
-// aligned, not with dtab8; t8: the rows swept, the real triangles),
-// tri_boxes: [n_clusters, 8] f32 cluster boxes (min, -, max, -), cluster_g:
-// triangles per cluster, s_pad: the primitive id of triangle 0; sph_boxes:
-// null for the dense sphere sweep, else the [n_sph_clusters, 8] f32 boxes
+// triangles, else the soup's rows in its tree's order, [>= t8, 12] f32
+// (v0, valid, e1, -, e2, -; 16-byte aligned, not with dtab8; t8: the real
+// triangles), tri_nodes: the tree's [2^tri_depth - 1, 16] f32 node rows
+// (16-byte aligned; tri_depth <= kTriStack), tri_ids: [t8] i32 each row's
+// triangle id, tri_leaf: triangles per leaf, s_pad: the primitive id of
+// triangle 0; sph_boxes: null for the dense sphere sweep, else the [n_sph_clusters, 8] f32 boxes
 // (16-byte aligned, 1 <= n_sph_clusters <= 128) of the clusters of sph_g
 // spheres after the n_prefix swept densely (their rows read from global
 // memory); lights16: null for no lights, else the [n_lights, 16] f32 light
@@ -1040,7 +1014,9 @@ int dispatch_textures(MEGA_PARAMS) {
 // i32 out.  Launches on `stream` without synchronising and returns
 // cudaGetLastError().
 extern "C" int megakernel_launch(MEGA_PARAMS) {
-  if (tris12 != nullptr && (dtab8 != nullptr || tri_boxes == nullptr || cluster_g <= 0)) {
+  if (tris12 != nullptr &&
+      (dtab8 != nullptr || tri_ids == nullptr || (tri_depth > 0 && tri_nodes == nullptr) ||
+       tri_depth < 0 || tri_depth > kTriStack || tri_leaf < 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (lights16 != nullptr && (dtab8 != nullptr || o2w12 == nullptr)) {

@@ -17,26 +17,10 @@
 // child's reach (its box's largest |coordinate|).  A box holding no real
 // triangle is the point (BIG, BIG, BIG) with reach 0, which never passes.
 //
-// Walk (Aila and Laine, "Understanding the Efficiency of Ray Traversal on
-// GPUs", HPG 2009: the while-while loop, a short stack, the nearer child
-// first): at an internal node both children's boxes are slab-tested, each
-// widened for this ray by (|o|_inf + reach) 2^-18 against the rounding of
-// the slab and Moller-Trumbore tests far from the origin, and pruned as
-// the TPU kernel prunes (enter <= exit, exit > T_MIN, enter < best_t *
-// 1.0001 + 1e-4, |d| kept at least 1e-30 in 1 / d).  Of two that pass,
-// the one entered first is walked and the other pushed with its entry t,
-// which is tested against the best t again when it is popped (the same
-// test, as best t only falls).  At a leaf each triangle is tested with
-// csrc/tri_sweep.cu's operations in its order.
-//
-// Bits.  The walk no longer visits ids in ascending order, so a hit
-// replaces the best one when t < best_t, or t == best_t and id < best_id:
-// the lexicographic minimum of (t, id) over the triangles visited.  The
-// boxes are conservative (widened, and the test passes for any best t at
-// or above a hit's own t whose point lies on its triangle), so the dense
-// sweep's winner is always visited, and the lexicographic minimum over any
-// superset holding it is that winner: the dense sweep's (t, id, u, v), bit
-// for bit, whatever the order.  Built with -fmad=false (ops/_build.py
+// The walk and its bits are csrc/tri_tree.cuh's, which K4's triangle
+// forms share (csrc/megakernel.cu): the lexicographic minimum of (t, id)
+// over a conservative walk is the dense sweep's (t, id, u, v), bit for
+// bit, whatever the order.  Built with -fmad=false (ops/_build.py
 // KERNEL_FLAGS), so every operation rounds as the plain PyTorch versions'
 // (ops/paged_tri.py tri_tree_sweep_reference, ops/tri_sweep.py).
 //
@@ -61,54 +45,21 @@
 
 #include <cuda_runtime.h>
 
+// The tree walk shared with K4.
+#include "tri_tree.cuh"
+
 namespace {
 
-constexpr float kTMin = 0.001f;    // ops/intersect.py T_MIN
-constexpr float kTMax = 10000.0f;  // ops/intersect.py T_MAX
-constexpr float kSlabEps = 1e-30f; // ops/paged_tri.py _SLAB_EPS
-constexpr float kRounding = 0x1p-18f;  // ops/paged_tri.py TREE_ROUNDING
+constexpr float kTMax = tri_tree::kTMax;
 constexpr int kStack = 24;         // ops/paged_tri.py MAX_DEPTH
 constexpr int kThreads = 128;
 
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, ivx, ivy, ivz, o_inf;
-};
-
-__device__ __forceinline__ float slab_inv(float d) {
-  return 1.0f / (fabsf(d) < kSlabEps ? (d < 0.0f ? -kSlabEps : kSlabEps) : d);
-}
-
-// The slab test of the ray against the box (lo, hi) widened by the ray's
-// margin, pruned by its best t; *te is the entry t.
-__device__ __forceinline__ bool box_passes(float lx, float ly, float lz,
-                                           float hx, float hy, float hz,
-                                           float reach, const Ray& r,
-                                           float best_t, float* te_out) {
-  const float m = (r.o_inf + reach) * kRounding;
-  float a0 = (lx - m - r.ox) * r.ivx;
-  float a1 = (hx + m - r.ox) * r.ivx;
-  float te = fminf(a0, a1);
-  float tx = fmaxf(a0, a1);
-  a0 = (ly - m - r.oy) * r.ivy;
-  a1 = (hy + m - r.oy) * r.ivy;
-  te = fmaxf(te, fminf(a0, a1));
-  tx = fminf(tx, fmaxf(a0, a1));
-  a0 = (lz - m - r.oz) * r.ivz;
-  a1 = (hz + m - r.oz) * r.ivz;
-  te = fmaxf(te, fminf(a0, a1));
-  tx = fminf(tx, fmaxf(a0, a1));
-  *te_out = te;
-  return te <= tx && tx > kTMin && te < best_t * 1.0001f + 1e-4f;
-}
-
-struct Tree {
-  const float4* tris;   // [>= n_tris, 3] (v0, valid), (e1, -), (e2, -)
-  const float4* nodes;  // [K - 1, 4]
-  int n_tris, depth, leaf;
+struct NoCapture {
+  __device__ __forceinline__ void operator()(float4, float4, float4, float, float) const {}
 };
 
 __global__ void __launch_bounds__(kThreads)
-paged_tri_kernel(Tree tree, const float* __restrict__ ox,
+paged_tri_kernel(tri_tree::Tree tree, const float* __restrict__ ox,
                  const float* __restrict__ oy,
                  const float* __restrict__ oz,
                  const float* __restrict__ dx,
@@ -122,80 +73,8 @@ paged_tri_kernel(Tree tree, const float* __restrict__ ox,
   float best_t = kTMax, best_u = 0.0f, best_v = 0.0f;
   int best_id = -1;
   if (alive[i] != 0) {
-    Ray r;
-    r.ox = ox[i]; r.oy = oy[i]; r.oz = oz[i];
-    r.dx = dx[i]; r.dy = dy[i]; r.dz = dz[i];
-    r.ivx = slab_inv(r.dx); r.ivy = slab_inv(r.dy); r.ivz = slab_inv(r.dz);
-    r.o_inf = fmaxf(fmaxf(fabsf(r.ox), fabsf(r.oy)), fabsf(r.oz));
-    const int first_leaf = (1 << tree.depth) - 1;
-    int stack_node[kStack];
-    float stack_te[kStack];
-    int sp = 0;
-    int node = 0;
-    while (node >= 0) {
-      if (node < first_leaf) {
-        const float4* row = tree.nodes + 4 * node;
-        const float4 a = __ldg(row), b = __ldg(row + 1), c = __ldg(row + 2),
-                     e = __ldg(row + 3);
-        float tl, tr;
-        const bool hl = box_passes(a.x, a.y, a.z, a.w, b.x, b.y, e.x, r,
-                                   best_t, &tl);
-        const bool hr = box_passes(b.z, b.w, c.x, c.y, c.z, c.w, e.y, r,
-                                   best_t, &tr);
-        const int left = 2 * node + 1;
-        if (hl && hr) {
-          const bool left_first = tl <= tr;
-          node = left_first ? left : left + 1;
-          stack_node[sp] = left_first ? left + 1 : left;
-          stack_te[sp] = left_first ? tr : tl;
-          ++sp;
-          continue;
-        }
-        if (hl || hr) {
-          node = hl ? left : left + 1;
-          continue;
-        }
-      } else {
-        const int j0 = (node - first_leaf) * tree.leaf;
-        const int j1 = min(j0 + tree.leaf, tree.n_tris);
-        for (int j = j0; j < j1; ++j) {
-          const float4 v0 = __ldg(tree.tris + 3 * j);
-          const float4 e1 = __ldg(tree.tris + 3 * j + 1);
-          const float4 e2 = __ldg(tree.tris + 3 * j + 2);
-          const float px = r.dy * e2.z - r.dz * e2.y;
-          const float py = r.dz * e2.x - r.dx * e2.z;
-          const float pz = r.dx * e2.y - r.dy * e2.x;
-          const float det = e1.x * px + e1.y * py + e1.z * pz;
-          const float inv_det = det != 0.0f ? 1.0f / det : 0.0f;
-          const float tx = r.ox - v0.x;
-          const float ty = r.oy - v0.y;
-          const float tz = r.oz - v0.z;
-          const float u = (tx * px + ty * py + tz * pz) * inv_det;
-          const float qx = ty * e1.z - tz * e1.y;
-          const float qy = tz * e1.x - tx * e1.z;
-          const float qz = tx * e1.y - ty * e1.x;
-          const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-          const float t = (e2.x * qx + e2.y * qy + e2.z * qz) * inv_det;
-          const bool ok = det != 0.0f && u >= 0.0f && v >= 0.0f &&
-                          u + v <= 1.0f && t > kTMin && t < kTMax;
-          if (ok && (t < best_t || (t == best_t && j < best_id))) {
-            best_t = t;
-            best_id = j;
-            best_u = u;
-            best_v = v;
-          }
-        }
-      }
-      // Pop the nearest pending sibling that still passes.
-      node = -1;
-      while (sp > 0) {
-        --sp;
-        if (stack_te[sp] < best_t * 1.0001f + 1e-4f) {
-          node = stack_node[sp];
-          break;
-        }
-      }
-    }
+    const tri_tree::Ray r = tri_tree::make_ray(ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]);
+    tri_tree::walk<kStack, false>(tree, r, 0, best_t, best_id, best_u, best_v, NoCapture{});
   }
   t_out[i] = best_t;
   id_out[i] = best_id;
@@ -218,8 +97,9 @@ extern "C" int paged_tri_launch(const void* tris, int n_tris,
                                 void* u, void* v, void* stream) {
   if (depth > kStack) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
-    const Tree tree{static_cast<const float4*>(tris),
-                    static_cast<const float4*>(nodes), n_tris, depth, leaf};
+    const tri_tree::Tree tree{static_cast<const float4*>(tris),
+                              static_cast<const float4*>(nodes), nullptr, n_tris,
+                              depth, leaf};
     paged_tri_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
         tree, static_cast<const float*>(ox), static_cast<const float*>(oy),

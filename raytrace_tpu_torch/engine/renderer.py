@@ -64,7 +64,8 @@ from ..ops.spheres import world_sphere_anim_tables, world_sphere_tables
 from ..tools.chacha import ChaCha20Rng
 from ..utils.image import write_png
 from .arrays import SceneStatic, pack_atlas, scene_static, upload_scene
-from .wavefront import make_trace_fn, prepare_batch, prepare_tris, render_tile
+from .wavefront import (make_trace_fn, prepare_batch, prepare_tris,
+                        render_tile, world_soup)
 
 # The reference seeds its host RNG with this value (render_engine.rs:116);
 # it drives the batch-time jitter stream.
@@ -215,11 +216,17 @@ class Renderer:
         self.batch_times_dev = torch.tensor(self.batch_times,
                                             device=self.device)
         # A static soup in world space, built once (at the first batch's
-        # time, where the JAX package's first chunk builds it).
-        self._tris = None
+        # time, where the JAX package's first chunk builds it).  A moving
+        # soup outside the paged sweep keeps the Morton order of its tree
+        # from that time, on the host once, and re-fits the tree each batch.
+        self._tris = self._tri_order = None
         if self.static.has_tris and not self.static.any_animated:
             self._tris = prepare_tris(self.static, self.scene,
                                       self.batch_times_dev[0])
+        elif self.static.has_tris and mode != "paged":
+            _, world_p, _ = world_soup(self.scene, self.batch_times_dev[0])
+            self._tri_order = paged_tri.soup_order(world_p,
+                                                   self.static.num_triangles)
         # The animated fused kernel's one geometry, built once.  Not for
         # triangles or lights, nor for image textures, whose spheres'
         # world-to-object rows change with every batch time (the JAX
@@ -272,7 +279,7 @@ class Renderer:
         tris = self._tris
         if self.static.has_tris and tris is None:
             tris = prepare_tris(self.static, self.scene,
-                                self.batch_times_dev[batch])
+                                self.batch_times_dev[batch], self._tri_order)
         return prepare_batch(self.static, self.scene, sph_table, tris=tris,
                              batch_time=self.batch_times_dev[batch],
                              atlas_words=self._atlas_words,

@@ -75,13 +75,12 @@ class BatchGeometry(NamedTuple):
     tri_table16: Optional[torch.Tensor] = None  # [T8, 16] ops/tri_sweep
     # [T8, 16] n0, n1 - n0, n2 - n0, uv0, uv1 - uv0, uv2 - uv0, pad
     tri_attr16: Optional[torch.Tensor] = None
-    # The fused kernel's triangle tables (ops/megakernel.py): [T8, 12]
-    # v0, e1, e2 each padded to four floats, and [C, 8] cluster boxes
-    # (None on the paged sweep, which nothing else reads them on).
+    # [T8, 12] v0, e1, e2 each padded to four floats (ops/megakernel.
+    # tri_table12): the rows the trees are built from.
     tri_table12: Optional[torch.Tensor] = None
-    tri_boxes: Optional[torch.Tensor] = None
-    # The paged sweep's tree (ops/paged_tri.build_tri_tree), on a "paged"
-    # soup.
+    # The soup's tree: on a "paged" soup the one K3 walks
+    # (ops/paged_tri.build_tri_tree), else the one the fused kernel walks
+    # (ops/paged_tri.build_soup_tree, with its slot -> id table).
     tri_tree: Optional[paged_tri.TriTree] = None
     # [I, 12] every instance's objectToWorld at the batch's time, row-major
     # 3x4: the light sample's transform (raytrace_tpu/engine/wavefront.py:
@@ -146,19 +145,28 @@ def tri_attr_table(world_n: torch.Tensor, tri_uv: torch.Tensor,
     return att
 
 
-def prepare_tris(static: SceneStatic, scene: SceneArrays,
-                 batch_time: torch.Tensor) -> dict:
-    """The triangle fields of a BatchGeometry for one batch time (a 0-dim
-    f32 tensor): the instances go to that time, the soup to world space,
-    then the packed position and attribute tables, and the fused kernel's
-    tables, or on a "paged" soup the paged sweep's tree
-    (raytrace_tpu/engine/wavefront.py:779-839, :881-890).  A static scene
-    builds them once; a moving one every batch (the tree re-fitted over
-    the same order)."""
+def world_soup(scene: SceneArrays, batch_time: torch.Tensor):
+    """(instance matrices, world_p, world_n) of the soup at a batch time (a
+    0-dim f32 tensor)."""
     mats = transforms.interpolate_instances(scene.inst_t0, scene.inst_t1,
                                             batch_time)
-    world_p, world_n = transforms.transform_soup(scene.tri_p, scene.tri_n,
-                                                 scene.tri_inst, mats)
+    return (mats, *transforms.transform_soup(scene.tri_p, scene.tri_n,
+                                             scene.tri_inst, mats))
+
+
+def prepare_tris(static: SceneStatic, scene: SceneArrays,
+                 batch_time: torch.Tensor,
+                 order: Optional[torch.Tensor] = None) -> dict:
+    """The triangle fields of a BatchGeometry for one batch time (a 0-dim
+    f32 tensor): the instances go to that time, the soup to world space,
+    then the packed position and attribute tables and the soup's tree: on
+    a "paged" soup the paged sweep's, else the fused kernel's over the
+    Morton order ``order`` (ops/paged_tri.soup_order; taken from this
+    batch's soup when not given) (raytrace_tpu/engine/wavefront.py:779-839,
+    :881-890).  A static scene builds them once; a moving one every batch
+    (the tree re-fitted over the same order: the Renderer passes the order
+    of its first batch time)."""
+    mats, world_p, world_n = world_soup(scene, batch_time)
     table16 = tri_sweep.pack_tri_table(world_p, static.num_triangles)
     T8 = table16.shape[0]
     table12 = megakernel.tri_table12(table16)
@@ -166,12 +174,14 @@ def prepare_tris(static: SceneStatic, scene: SceneArrays,
                world_n=world_n, tri_table16=table16,
                tri_attr16=tri_attr_table(world_n, scene.tri_uv, T8),
                tri_table12=table12)
+    n = static.num_triangles
     if static.bvh_mode == "paged":
-        out["tri_tree"] = paged_tri.build_tri_tree(
-            world_p, static.num_triangles, table12)
+        out["tri_tree"] = paged_tri.build_tri_tree(world_p, n, table12)
     else:
-        out["tri_boxes"] = megakernel.cluster_boxes(
-            table16, static.num_triangles, megakernel.tri_group(static, T8))
+        if order is None:
+            order = paged_tri.soup_order(world_p, n)
+        out["tri_tree"] = paged_tri.build_soup_tree(world_p, n, table12,
+                                                    order)
     return out
 
 

@@ -55,10 +55,14 @@ one 64-byte row) and the batch's instance transforms
 (``BatchGeometry.inst_o2w_rows``) go to the kernel, which samples a light
 point after every scattering hit as the wavefront does (ops/nee.py).
 Triangles take the kernel's third form (``MegaConfig.tris``): the soup's
-table (``tri_table12``) and its cluster boxes (``cluster_boxes``) come
-with the batch's geometry, and the kernel tests the triangles of each
-cluster whose box its ray may hit first, which gives the dense triangle
-sweep's closest hit (ops/tri_sweep.py).
+tree (``BatchGeometry.tri_tree``, ops/paged_tri.build_soup_tree: the
+soup's rows in a Morton order of their centroids, an id table and the
+node rows) comes with the batch's geometry, and the kernel walks it
+nearest first with K3's walk (csrc/tri_tree.cuh), seeded with the sphere
+sweep's best hit, which gives the dense triangle sweep's closest hit
+(ops/tri_sweep.py) behind the spheres'.  ``cluster_boxes`` and
+``cluster_pretest`` stay as the port's hold on the JAX kernel's
+cluster sweep (``_sweep_tri_gather``); the kernel reads neither.
 Animated spheres take one of two forms.  When every sphere moves on a
 straight line at a constant radius (ops/spheres.world_sphere_anim_tables),
 the geometry holds the spheres at shutter time 0 and their motion
@@ -125,13 +129,15 @@ MAX_SPHERES_CLUSTERED = 16384
 SPHERE_ROUNDING = 2.0 ** -19
 
 # Triangles the kernel takes: a clustered soup (models/sphere_order.
-# apply_triangle_order) of at most MAX_TRI_CLUSTERS clusters, each box 32 B
-# of shared memory beside the sphere table, or a soup in file order of at
-# most MAX_TRIANGLES_DENSE, swept as one cluster (the JAX gate's ceilings,
-# raytrace_tpu/ops/megakernel.py:2756).
-MAX_TRI_CLUSTERS = 128
+# apply_triangle_order) of at most MAX_TRIANGLES, or a soup in file order of
+# at most MAX_TRIANGLES_DENSE (the JAX gate's ceilings,
+# raytrace_tpu/ops/megakernel.py:2756; the tree walk could take more, but
+# the JAX package renders no more fused).  MAX_TRI_DEPTH is the walk's
+# stack (csrc/megakernel.cu kTriStack): the depth of MAX_TRIANGLES' tree at
+# leaves of 2 (ops/paged_tri.SOUP_LEAF).
 MAX_TRIANGLES = 16384
 MAX_TRIANGLES_DENSE = 2048
+MAX_TRI_DEPTH = 13
 _BIGF = 3.0e37  # an empty cluster's box: a point the pretest never passes
 _SLAB_EPS = 1e-30  # the pretest keeps |d| at least this in 1 / d
 
@@ -158,9 +164,9 @@ class MegaConfig(NamedTuple):
     S8: int        # sphere table rows; also the primitive id of triangle 0
     P: int
     T8: int         # triangle table rows (0 without triangles)
-    n_tris: int     # the real triangles, the rows the kernel sweeps
-    tri_g: int      # triangles per cluster
-    n_clusters: int
+    n_tris: int     # the real triangles, the rows the kernel walks
+    tri_depth: int  # the soup's tree: its depth and triangles per leaf
+    tri_leaf: int
     n_sph: int      # the real spheres, the rows the kernel sweeps
     # The clustered sphere sweep: the dense prefix, spheres per cluster and
     # clusters (all 0 for a scene without the cluster layout).
@@ -221,9 +227,9 @@ def megakernel_supported(static) -> bool:
 
 
 def tri_group(static, T8: int) -> int:
-    """Triangles per cluster of the kernel's traversal: the soup's own
-    cluster size, or the whole soup as one cluster when it keeps its file
-    order."""
+    """Triangles per cluster of the JAX kernel's triangle sweep: the soup's
+    own cluster size, or the whole soup as one cluster when it keeps its
+    file order."""
     return static.tri_cluster_g if static.tri_cluster_g > 0 else T8
 
 
@@ -295,9 +301,10 @@ def _slab_pretest(o: V3, d: V3, lo, hi, best_t: torch.Tensor):
 
 def cluster_pretest(o: V3, d: V3, boxes: torch.Tensor,
                     best_t: torch.Tensor) -> torch.Tensor:
-    """[C, R] bool: the kernel's slab pretest of every ray against every
-    cluster box, given each ray's best t so far; a cluster that fails
-    cannot hold a hit closer than best_t (csrc/megakernel.cu sweep_tris)."""
+    """[C, R] bool: the JAX kernel's slab pretest of every ray against
+    every cluster box, given each ray's best t so far; a cluster that fails
+    cannot hold a hit closer than best_t (raytrace_tpu/ops/megakernel.py
+    _sweep_tri_gather; this kernel walks a tree instead)."""
     return _slab_pretest(o, d, [boxes[:, ax:ax + 1] for ax in range(3)],
                          [boxes[:, 4 + ax:5 + ax] for ax in range(3)],
                          best_t)
@@ -434,6 +441,7 @@ def make_config(static, geom, use_dof: bool, n_batches: int) -> MegaConfig:
     spp = static.sqrt_spp ** 2
     tris = geom.tri_table12 is not None
     T8 = geom.tri_table12.shape[0] if tris else 0
+    tree = geom.tri_tree if tris else None
     S8 = geom.sph_table8.shape[0]
     n_sph = min(S8, static.num_spheres)
     layout = sphere_cluster_layout(static)
@@ -451,8 +459,8 @@ def make_config(static, geom, use_dof: bool, n_batches: int) -> MegaConfig:
         lights=bool(static.has_lights),
         S8=S8, P=geom.prim_rows.shape[0], T8=T8,
         n_tris=min(T8, static.num_triangles),
-        tri_g=tri_group(static, T8) if tris else 0,
-        n_clusters=geom.tri_boxes.shape[0] if tris else 0,
+        tri_depth=tree.depth if tree is not None else 0,
+        tri_leaf=tree.leaf if tree is not None else 0,
         n_sph=n_sph, n_prefix=n_prefix, sph_g=sph_g,
         n_sph_clusters=n_sph_clusters)
 
@@ -563,8 +571,6 @@ def _check_inputs(cfg: MegaConfig, scene, geom, params, times,
                              f"{cap} outside clusters (megakernel_supported)")
     if table8.data_ptr() % 16:
         raise ValueError("sph_table8 must be 16-byte aligned (float4 loads)")
-    if cfg.tris:
-        _check_tris(cfg, geom, device)
     if cfg.lights:
         _check_lights(cfg, scene, geom, device)
     if cfg.has_image:
@@ -606,23 +612,25 @@ def _check_sphere_clusters(cfg: MegaConfig, geom, device) -> None:
 
 
 def _check_tris(cfg: MegaConfig, geom, device) -> None:
-    t12, boxes = geom.tri_table12, geom.tri_boxes
+    """The soup's tree against the soup (ops/paged_tri._check_tree: its
+    tables' shapes, devices and depth within the walk's stack), with one id
+    a real triangle; every table 16-byte aligned for the float4 loads."""
+    from . import paged_tri
+
+    tree = geom.tri_tree
     if cfg.anim:
         raise ValueError("the animated form takes no triangles")
-    if (t12.dtype != torch.float32 or t12.dim() != 2 or t12.shape[1] != 12
-            or t12.device != device or not t12.is_contiguous()
-            or t12.data_ptr() % 16):
-        raise ValueError("tri_table12 must be a contiguous, 16-byte aligned "
-                         "float32 [T8, 12] tensor on the table's device")
-    if (boxes.dtype != torch.float32 or boxes.dim() != 2
-            or boxes.shape[1] != 8 or boxes.device != device
-            or not boxes.is_contiguous() or boxes.data_ptr() % 16):
-        raise ValueError("tri_boxes must be a contiguous, 16-byte aligned "
-                         "float32 [C, 8] tensor on the table's device")
-    if cfg.n_clusters > MAX_TRI_CLUSTERS:
-        raise ValueError(f"{cfg.n_clusters} triangle clusters: the kernel "
-                         f"holds at most {MAX_TRI_CLUSTERS} "
-                         f"(megakernel_supported)")
+    if tree is None or tree.ids is None:
+        raise ValueError("a triangle geometry needs its soup's tree with an "
+                         "id table (ops/paged_tri.build_soup_tree, built by "
+                         "engine/wavefront.prepare_tris)")
+    if tree.num_tris != cfg.n_tris:
+        raise ValueError(f"the tree holds {tree.num_tris} triangles, the soup "
+                         f"{cfg.n_tris}")
+    paged_tri._check_tree(tree, device, MAX_TRI_DEPTH)
+    if any(t.data_ptr() % 16 for t in (tree.tris, tree.nodes)):
+        raise ValueError("the tree's tables must be 16-byte aligned (float4 "
+                         "loads)")
 
 
 def _check_lights(cfg: MegaConfig, scene, geom, device) -> None:
@@ -687,6 +695,8 @@ def render_tile_mega(static, scene, geom, cam, batch0: int,
     cfg = make_config(static, geom, use_dof, n_batches)
     if cfg.anim and times is None:
         raise ValueError("an animated geometry needs the batch times")
+    if cfg.tris:
+        _check_tris(cfg, geom, device)
     if device.type == "cpu":
         sums, traced = megakernel_reference(static, scene, geom, cam, batch0,
                                             n_batches, sample_base,
@@ -710,13 +720,15 @@ def render_tile_mega(static, scene, geom, cam, batch0: int,
                  | (_HAS_IMAGE if cfg.has_image else 0))
         image = cfg.has_image
         clustered = cfg.n_sph_clusters > 0
+        tree = geom.tri_tree if cfg.tris else None
         err = lib.megakernel_launch(
             geom.sph_table8.data_ptr(),
             geom.sph_dtab8.data_ptr() if cfg.anim else None,
             times.data_ptr() if cfg.anim else None, cfg.n_sph,
-            geom.tri_table12.data_ptr() if cfg.tris else None, cfg.n_tris,
-            geom.tri_boxes.data_ptr() if cfg.tris else None, cfg.n_clusters,
-            cfg.tri_g, cfg.S8,
+            tree.tris.data_ptr() if cfg.tris else None, cfg.n_tris,
+            tree.nodes.data_ptr() if cfg.tris else None,
+            tree.ids.data_ptr() if cfg.tris else None, cfg.tri_depth,
+            cfg.tri_leaf, cfg.S8,
             geom.sph_boxes.data_ptr() if clustered else None, cfg.n_prefix,
             cfg.sph_g, cfg.n_sph_clusters,
             scene.light_tri_packed.data_ptr() if cfg.lights else None,
@@ -751,8 +763,8 @@ def library() -> ctypes.CDLL:
     """The kernel's shared library, built from csrc/ at first use."""
     lib = _build.load_library("megakernel")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.megakernel_launch.argtypes = [p, p, p, i, p, i, p, i, i, i, p, i, i,
-                                      i, p, p, p, p, i, i, i, p, p, i, p,
+    lib.megakernel_launch.argtypes = [p, p, p, i, p, i, p, p, i, i, i, p, i,
+                                      i, i, p, p, p, p, i, i, i, p, p, i, p,
                                       i, i, i, i, i, i, i, i, i, p, p, p]
     lib.megakernel_launch.restype = i
     lib.megakernel_error_string.argtypes = [i]

@@ -21,6 +21,13 @@ triangles, ``build_page_tables``) stays as a plain version,
 ``paged_tri_sweep_reference``, which holds the port to the TPU kernel;
 ``visit_counts`` counts its work beside ``tree_visit_counts``.
 
+The fused kernel K4 walks the same tree in its triangle forms
+(csrc/tri_tree.cuh, shared by both kernels), over a soup that keeps its
+compiled order: ``build_soup_tree`` builds the tree over a Morton-permuted
+copy of the soup (``soup_order``) with a slot -> id table (``TriTree.ids``),
+and ``tri_tree_sweep_reference`` with that table and a seed hit is the
+plain version of K4's walk.
+
 ``intersect_tris_paged`` is the one entry point.  Given a ``TriTree``, for
 tensors on the CPU it runs ``tri_tree_sweep_reference``; for CUDA tensors
 it launches the kernel on the current stream, or raises.  Given
@@ -52,6 +59,13 @@ LAUNCHES = 0
 
 LEAF = 4        # triangles per leaf of the tree (chosen on the card: PERF.md)
 MAX_DEPTH = 24  # the kernel's stack (csrc/paged_tri.cu kStack)
+# The fused kernel's soup trees (soup_leaf): leaves of SOUP_LEAF triangles,
+# and one leaf holding the whole soup up to SOUP_FLAT_MAX triangles, where
+# the walk's node tests cost more than they save.  Both chosen on the card
+# over soups of 17 to 15,360 triangles (PERF.md §6): leaves of 2 were the
+# fastest from 48 triangles up, one leaf at 17 and 36 and 8% slower at 48.
+SOUP_LEAF = 2
+SOUP_FLAT_MAX = 40
 # A node's box is widened for each ray by (|o|_inf + reach) TREE_ROUNDING,
 # reach the box's largest |coordinate|, against the rounding of the
 # Moller-Trumbore test and the slab test far from the origin.
@@ -159,7 +173,9 @@ def build_page_tables(world_p: torch.Tensor, num_real: int,
 class TriTree(NamedTuple):
     """One soup's implicit binary tree for the kernel, on the soup's
     device.  Node n has children 2n + 1 and 2n + 2; leaf k is node
-    K - 1 + k and holds triangles [k leaf, (k + 1) leaf)."""
+    K - 1 + k and holds the triangle rows [k leaf, (k + 1) leaf).  K3's
+    soup is in the tree's order, so a row's slot is its id; K4's keeps its
+    own order, and ``ids`` maps each slot to its triangle's id."""
 
     tris: torch.Tensor   # [T8, 12] (v0, valid), (e1, 0), (e2, 0)
     # [K - 1, 16] each internal node's children's boxes: left min xyz,
@@ -168,6 +184,9 @@ class TriTree(NamedTuple):
     num_tris: int        # the real triangles (rows past it are padding)
     leaf: int            # triangles per leaf
     depth: int           # log2 K, K leaves
+    # [num_tris] int32 each slot's triangle id (build_soup_tree), or None
+    # where the slot is the id (build_tri_tree)
+    ids: Optional[torch.Tensor] = None
 
 
 def leaf_boxes(world_p: torch.Tensor, num_real: int,
@@ -227,6 +246,40 @@ def build_tri_tree(world_p: torch.Tensor, num_real: int,
     nodes[:, 12:14] = reach[1:].reshape(K - 1, 2)
     return TriTree(tris=tris, nodes=nodes, num_tris=int(num_real),
                    leaf=int(leaf), depth=len(levels) - 1)
+
+
+def soup_order(world_p: torch.Tensor, num_real: int) -> torch.Tensor:
+    """[num_real] int32 on the soup's device: the Morton order of a [T, 3,
+    3] world soup's first ``num_real`` triangles (``paged_tri_order``, on
+    the host, once per soup), the slot -> id table of ``build_soup_tree``."""
+    order = paged_tri_order(world_p[:num_real].double().cpu().numpy(),
+                            num_real)
+    return torch.tensor(order, dtype=torch.int32, device=world_p.device)
+
+
+def soup_leaf(num_real: int) -> int:
+    """Triangles per leaf of the fused kernel's tree over a soup of
+    ``num_real``: SOUP_LEAF, or the whole soup as one leaf (the flat
+    sweep, no node test) up to SOUP_FLAT_MAX."""
+    return num_real if num_real <= SOUP_FLAT_MAX else SOUP_LEAF
+
+
+def build_soup_tree(world_p: torch.Tensor, num_real: int,
+                    table12: torch.Tensor, ids: torch.Tensor,
+                    leaf: Optional[int] = None) -> TriTree:
+    """The tree K4 walks over a soup that keeps its own order: the rows of
+    ``table12`` (the soup's [T8, 12] table, ops/megakernel.tri_table12) and
+    of the [T, 3, 3] world soup permuted by ``ids`` (``soup_order``), the
+    tree built over them (``build_tri_tree``), and ``ids`` kept as the
+    slot -> id table.  A moving soup keeps its ids and is re-fitted by
+    building again from the batch's world soup."""
+    if ids.dtype != torch.int32 or ids.shape != (num_real,):
+        raise ValueError(f"ids must be an int32 [{num_real}] permutation of "
+                         f"the soup's triangles")
+    take = ids.long()
+    tree = build_tri_tree(world_p[take], num_real, table12[take],
+                          soup_leaf(num_real) if leaf is None else leaf)
+    return tree._replace(ids=ids)
 
 
 # ------------------------------------------------------------ plain version
@@ -428,22 +481,28 @@ def _descend(o3, iv3, tree: TriTree, ray, node, level: int, bt, work=None):
     return ray, node - ((1 << tree.depth) - 1)
 
 
-def _leaf_hits(o: V3, d: V3, tree: TriTree, ray, leaf, best) -> None:
+def _leaf_hits(o: V3, d: V3, tree: TriTree, ray, leaf, best,
+               id_base: int) -> None:
     """The triangles of (ray, leaf) pairs, merged into ``best`` = [t, id,
-    u, v] (in place) as the lexicographic minimum of (t, id) per ray."""
+    u, v] (in place) as the lexicographic minimum of (t, id) per ray; a
+    triangle's id is its slot, or ``id_base`` + ``tree.ids[slot]``."""
     bt, bid, bu, bv = best
     L = tree.leaf
     lane = torch.arange(L, device=ray.device)
     step = max(1, _CHUNK_ELEMS // L)
     for k0 in range(0, ray.numel(), step):
         kr, kl = ray[k0:k0 + step], leaf[k0:k0 + step]
-        ids = kl[:, None] * L + lane                          # [K, L]
+        slots = kl[:, None] * L + lane                        # [K, L]
         t, u, v = _cluster_hits(tuple(x[kr][:, None] for x in o),
                                 tuple(x[kr][:, None] for x in d), tree.tris,
-                                ids, tree.num_tris)
-        tk, arg = torch.min(t, dim=1)   # the first minimum: the lowest id
-        idk = torch.where(tk < T_MAX, ids.gather(1, arg[:, None])[:, 0],
-                          _NO_ID)
+                                slots, tree.num_tris)
+        gid = slots
+        if tree.ids is not None:
+            gid = id_base + tree.ids[slots.clamp(max=tree.num_tris - 1)].long()
+        tk = t.amin(dim=1)
+        # Each pair's lowest id at its closest t (the first, if slots).
+        idk, arg = torch.min(torch.where((t == tk[:, None]) & (t < T_MAX),
+                                         gid, _NO_ID), dim=1)
         lt = bt.clone()
         lt.scatter_reduce_(0, kr, tk, "amin")
         near = tk == lt[kr]
@@ -457,7 +516,8 @@ def _leaf_hits(o: V3, d: V3, tree: TriTree, ray, leaf, best) -> None:
 
 
 def tri_tree_sweep_reference(o: V3, d: V3, tree: TriTree,
-                             active: Optional[torch.Tensor] = None):
+                             active: Optional[torch.Tensor] = None,
+                             seed=None, id_base: int = 0):
     """The plain version of the kernel: the same tree walked level by
     level over (ray, node) pairs, each pair pruned by its ray's best t.
     The rays walk in chunks; each chunk walks to the roots of the
@@ -465,12 +525,17 @@ def tri_tree_sweep_reference(o: V3, d: V3, tree: TriTree,
     one after another in ascending order, so the best t found in one
     prunes the next.  At the leaves each ray keeps the lexicographic
     minimum of (t, id), so any order of the walk gives the kernel's bits.
-    Returns (t, id, u, v); (T_MAX, -1, 0, 0) on a miss and for inactive
-    rays."""
+    A triangle's id is its slot, or with an id table ``id_base`` +
+    ``tree.ids[slot]``.  ``seed`` (t [R] f32, id [R] int32) is each ray's
+    best hit before the walk (K4's sphere sweep, whose ids are below
+    ``id_base``), kept with u = v = 0 where no triangle beats it, and by
+    inactive rays; without one (T_MAX, -1).  Returns (t, id, u, v)."""
     R = o.x.shape[0]
     dev = o.x.device
-    best = [torch.full((R,), T_MAX, dtype=torch.float32, device=dev),
-            torch.full((R,), -1, dtype=torch.int32, device=dev),
+    if seed is None:
+        seed = (torch.full((R,), T_MAX, dtype=torch.float32, device=dev),
+                torch.full((R,), -1, dtype=torch.int32, device=dev))
+    best = [seed[0].clone(), seed[1].clone(),
             torch.zeros(R, dtype=torch.float32, device=dev),
             torch.zeros(R, dtype=torch.float32, device=dev)]
     live = (torch.ones(R, dtype=torch.bool, device=dev) if active is None
@@ -487,7 +552,7 @@ def tri_tree_sweep_reference(o: V3, d: V3, tree: TriTree,
             ray_k, leaf = _descend(tuple(o), iv3, tree, ray[sub == k],
                                    torch.full_like(ray[sub == k], root),
                                    top, best[0])
-            _leaf_hits(o, d, tree, ray_k, leaf, best)
+            _leaf_hits(o, d, tree, ray_k, leaf, best, id_base)
     return tuple(best)
 
 
@@ -563,7 +628,9 @@ def _check_pages(tables: PageTables, device) -> None:
         raise ValueError("the paged soup must index in 32 bits")
 
 
-def _check_tree(tree: TriTree, device) -> None:
+def _check_tree(tree: TriTree, device, max_depth: int = MAX_DEPTH) -> None:
+    """The tree's tables against its soup's size and the kernel's stack
+    (``max_depth``), and its id table where it has one."""
     if tree.num_tris < 1 or tree.leaf < 1:
         raise ValueError("a tree needs at least one triangle and leaf size")
     n_leaves = -(-tree.num_tris // tree.leaf)
@@ -571,15 +638,22 @@ def _check_tree(tree: TriTree, device) -> None:
         raise ValueError(f"a tree of depth {tree.depth} does not match its "
                          f"soup of {tree.num_tris} triangles in leaves of "
                          f"{tree.leaf}")
-    if tree.depth > MAX_DEPTH:
+    if tree.depth > max_depth:
         raise ValueError(f"a tree of depth {tree.depth} is deeper than the "
-                         f"kernel's stack ({MAX_DEPTH})")
+                         f"kernel's stack ({max_depth})")
     _check_table("tris", tree.tris, None, 12, device)
     _check_table("nodes", tree.nodes, (1 << tree.depth) - 1, 16, device)
     if tree.tris.shape[0] < tree.num_tris:
         raise ValueError("tables.tris has fewer rows than triangles")
     if (tree.leaf << tree.depth) >= 2 ** 31:
         raise ValueError("the tree's soup must index in 32 bits")
+    ids = tree.ids
+    if ids is not None and (
+            ids.dtype != torch.int32 or ids.shape != (tree.num_tris,)
+            or ids.device != device or not ids.is_contiguous()):
+        raise ValueError(f"the tree's ids must be a contiguous int32 "
+                         f"[{tree.num_tris}] tensor on the rays' device, one "
+                         f"id a triangle row")
 
 
 def intersect_tris_paged(o: V3, d: V3, tables, active: torch.Tensor) -> Hit:
@@ -596,6 +670,10 @@ def intersect_tris_paged(o: V3, d: V3, tables, active: torch.Tensor) -> Hit:
                              "PageTables are for the plain version")
         return Hit(*paged_tri_sweep_reference(o, d, tables, active))
     _check_tree(tables, device)
+    if tables.ids is not None:
+        raise ValueError("K3 walks a soup in its tree's order; a tree with "
+                         "an id table (build_soup_tree) is the fused "
+                         "kernel's")
     if device.type == "cpu":
         return Hit(*tri_tree_sweep_reference(o, d, tables, active))
     if device.type != "cuda":

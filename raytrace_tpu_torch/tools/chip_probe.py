@@ -26,13 +26,20 @@ not with ``-m``, so that the package comes from TREE.
 - ``chunks``: the static fused main path, final-one-weekend at 1200x675,
   4 spp, depth 50: the kernel's time for one batch (7 CUDA-event runs)
   and Mrays/s of three 12-batch chunks, as one JSON line.
-- ``tris``: builds the three kernels and prints nvcc's register reports;
-  on the triangle stress scene (tools/stress_scenes.py) holds the
-  triangle sweep K2 against its plain version on 2^18 primary rays and
-  times it over all of them, holds the fused kernel's triangle form
-  against its plain version at 96x54/depth 8/k=2 (k = 1 and 4, and the
-  triangle fixture) and at 256x144/depth 50, times it at 1024x576, and
-  renders the scene's one batch on the fused path and on the wavefront.
+- ``tris``: builds the fused kernel (with K1 and K2) and prints each K4
+  form's registers and spills; holds the triangle forms against the plain
+  version at small size (the triangle stress scene, tools/stress_scenes.py,
+  at k = 1 and 4 and the triangle fixture at 96x54/depth 8/k=2; the two
+  light scenes of tools/light_scenes.py at 128 wide/depth 50/k=2; bit for
+  bit, two launches byte-identical); times K4 on one full batch of
+  tri-stress-15360 (1024x576, 16 spp, depth 50; median of 5),
+  cornell-style (1024x1024, 64 spp) and sphere-light-962 (1024x576, 64
+  spp; medians of 3); with a soup tree (since the tree walk), times the
+  tri-stress and cornell-style batches at leaf sizes 2, 4, 8 and 16;
+  renders tri-stress's batch through ``Renderer`` with defaults; ends
+  with one JSON line.  It runs on a parent checkout whose K4 swept
+  cluster boxes too, so TREE = the parent's ``git archive`` gives the
+  before of the same card.
 - ``lights``: builds the fused kernel and prints nvcc's register report;
   holds its lit forms against the plain version at depth 50, k=2 on the
   four lit docs of tools/light_scenes.py (cornell-style at 128x128,
@@ -215,103 +222,140 @@ def _tri_stress(k, width, depth=None, batches=None):
                   width, None, depth, batches)
 
 
+def _batch_ms(r, reps):
+    """K4's median device ms (_med) for batch 0 of Renderer ``r``."""
+    from raytrace_tpu_torch.ops import megakernel
+
+    args = (r.static, r.scene, r._geometry(0), r.camera, 0, 1)
+    kw = dict(use_dof=r.use_dof, times=r.batch_times_dev)
+    return _med(lambda: megakernel.render_tile_mega(*args, **kw), reps)
+
+
 def tris() -> None:
     import concurrent.futures
+    import tempfile
 
     import torch
 
+    from raytrace_tpu_torch import cli
     from raytrace_tpu_torch.engine import Renderer
-    from raytrace_tpu_torch.engine.wavefront import primary_rays
     from raytrace_tpu_torch.models import compile_scene
     from raytrace_tpu_torch.ops import (_build, megakernel, sphere_sweep,
                                         tri_sweep)
-    from raytrace_tpu_torch.ops.vec3 import V3
     from raytrace_tpu_torch.scene_file import SceneFile
-    from raytrace_tpu_torch.tools import stress_scenes
+    from raytrace_tpu_torch.tools import light_scenes, stress_scenes
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip())
+    lib = _change_smoke_lib()
+    card = _card()
+    print(card)
     print(sys.version.split()[0], torch.__version__, torch.version.cuda)
     mods = (megakernel, tri_sweep, sphere_sweep)
+    t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
         list(pool.map(lambda m: m.library(), mods))
-    for name in ("megakernel", "tri_sweep"):
-        print(_build.library_path(name).with_suffix(".log").read_text())
+    out = {"card": card, "build_s": time.perf_counter() - t0}
+    forms = lib.ptxas_forms(_build.library_path("megakernel").with_suffix(
+        ".log").read_text())
+    out["forms"] = {f: [regs, spill] for f, regs, spill in forms}
+    print("K4 forms (registers, spill bytes):", out["forms"])
     dev = torch.device("cuda:0")
 
-    full = Renderer(_tri_stress(4, 1024), device=dev)
-    print("tri-stress-15360", full.path, full.static.num_triangles,
-          full.static.tri_cluster_g)
-    geom = full._geometry(0)
-    _, o, d = primary_rays(full.static, full.camera, 0, 0, full.static.height,
-                           full.use_dof, dev)
-    n = o.x.shape[0]
-    alive = torch.ones(n, dtype=torch.bool, device=dev)
-    sel = torch.randperm(n, generator=torch.Generator().manual_seed(0))[
-        :1 << 18].to(dev)
-    so, sd = (V3(*(c[sel].contiguous() for c in v)) for v in (o, d))
-    hit = tri_sweep.intersect_tris_sweep(so, sd, geom.tri_table16, alive[sel])
-    ref = tri_sweep.tri_sweep_reference(so, sd, geom.tri_table16)
-    torch.cuda.synchronize()
-    print("K2 2^18 primary: bitwise", [torch.equal(a, b) for a, b in
-                                       zip(hit, ref)],
-          "ids agree", (hit.tri == ref[1]).double().mean().item(),
-          "hit share", (hit.tri >= 0).double().mean().item())
-    print("K2 ms over", n, "rays:",
-          _med(lambda: tri_sweep.intersect_tris_sweep(o, d, geom.tri_table16,
-                                                      alive), 3))
-    t0 = time.perf_counter()
-    tri_sweep.tri_sweep_reference(so, sd, geom.tri_table16)
-    torch.cuda.synchronize()
-    print("K2 plain s at 2^18 rays", time.perf_counter() - t0)
-
+    # Each triangle scene small, bit for bit with the plain version.
     fixture = compile_scene(SceneFile.from_json_dict(
         stress_scenes.triangle_fixture_doc()), width=96)
+    out["bitwise"] = {}
     for label, cs in (("k1", _tri_stress(1, 96, 8, 2)),
                       ("k4", _tri_stress(4, 96, 8, 2)),
                       ("fixture", dataclasses.replace(
                           fixture, render=dataclasses.replace(
                               fixture.render, max_ray_depth=8,
-                              sample_batches=2)))):
+                              sample_batches=2))),
+                      ("cornell-style", _doc_scene(
+                          light_scenes.cornell_doc(), 128, 50, 2)),
+                      ("sphere-light-962", _doc_scene(
+                          light_scenes.sphere_light_doc(), 128, 50, 2))):
         r = Renderer(cs, device=dev)
         args = (r.static, r.scene, r._geometry(0), r.camera, 0, 2)
         kw = dict(use_dof=r.use_dof, times=r.batch_times_dev)
         s1, t1 = megakernel.render_tile_mega(*args, **kw)
         s2, t2 = megakernel.render_tile_mega(*args, **kw)
-        t0 = time.perf_counter()
         ref, rt = megakernel.megakernel_reference(*args, **kw)
         torch.cuda.synchronize()
-        print(label, r.path, "repeat identical",
-              torch.equal(s1, s2) and torch.equal(t1, t2), "bitwise",
-              torch.equal(s1, ref), torch.equal(t1, rt), "maxdiff",
-              (s1 - ref).abs().max().item(), "rays", int(t1.sum()),
-              int(rt.sum()), "plain s", time.perf_counter() - t0)
+        ok = (torch.equal(s1, s2) and torch.equal(t1, t2)
+              and torch.equal(s1, ref) and torch.equal(t1, rt))
+        out["bitwise"][label] = ok
+        print(label, r.path, "bit for bit, repeat identical", ok, "rays",
+              int(t1.sum()), int(rt.sum()))
 
-    args = (full.static, full.scene, geom, full.camera, 0, 1)
-    kw = dict(use_dof=full.use_dof, times=full.batch_times_dev)
-    print("K4 tris full ms", _med(lambda: megakernel.render_tile_mega(
-        *args, **kw), 3))
-    for label, r in (("fused", full),
-                     ("wavefront", Renderer(_tri_stress(4, 1024), device=dev,
-                                            use_megakernel=False))):
-        launches = (megakernel.TRI_LAUNCHES, tri_sweep.LAUNCHES,
-                    sphere_sweep.LAUNCHES)
-        r.render_all()
-        print(label, r.path, "Mrays/s", r.stats.mrays_per_sec, "rays",
-              r.stats.rays_traced, "s", r.stats.render_seconds,
-              "means", r.image().mean((0, 1)), "K4/K2/K1 launches",
-              megakernel.TRI_LAUNCHES - launches[0],
-              tri_sweep.LAUNCHES - launches[1],
-              sphere_sweep.LAUNCHES - launches[2])
-    mid = Renderer(_tri_stress(4, 256, 50, 1), device=dev)
-    args = (mid.static, mid.scene, mid._geometry(0), mid.camera, 0, 1)
-    s1, t1 = megakernel.render_tile_mega(*args, **kw)
-    t0 = time.perf_counter()
-    ref, rt = megakernel.megakernel_reference(*args, **kw)
-    torch.cuda.synchronize()
-    print("256x144 d50 plain s", time.perf_counter() - t0, "bitwise",
-          torch.equal(s1, ref), "rays", int(rt.sum()))
+    # The full batches: tri-stress-15360, cornell-style, sphere-light-962.
+    full = Renderer(_tri_stress(4, 1024), device=dev)
+    print("tri-stress-15360", full.path, full.static.num_triangles,
+          full.static.tri_cluster_g)
+    out["tris_ms"] = _batch_ms(full, 5)
+    light_dir = tempfile.mkdtemp()
+    lights = dict(zip(light_scenes.DOCS,
+                      light_scenes.write_light_scenes(light_dir)))
+    for name, path in lights.items():
+        r = Renderer(cli.load_scene(path), device=dev)
+        out[f"{name}_ms"] = _batch_ms(r, 3)
+        geom = r._geometry(0)
+        out[f"{name}_tree"] = (
+            None if getattr(geom, "tri_tree", None) is None else
+            [geom.tri_tree.depth, geom.tri_tree.leaf])
+    print("K4 ms a batch: tri-stress", out["tris_ms"], "cornell-style",
+          out["cornell-style_ms"], "sphere-light-962",
+          out["sphere-light-962_ms"])
+
+    # With a soup tree: K4 at other leaf sizes on the same batches, and on
+    # small soups at leaves of LEAF and at one leaf holding the whole soup
+    # (the flat sweep): cornell-style, the triangle fixture at 1024 wide,
+    # and tri-stress k = 1 with coarser uv spheres (48 to 960 triangles).
+    tree = getattr(full._geometry(0), "tri_tree", None)
+    if tree is not None and tree.ids is not None:
+        from raytrace_tpu_torch.ops import paged_tri
+
+        def leaf_ms(r, leaf):
+            g = r._geometry(0)
+            t = paged_tri.build_soup_tree(
+                g.world_p, r.static.num_triangles, g.tri_table12,
+                g.tri_tree.ids, leaf)
+            if t.depth > megakernel.MAX_TRI_DEPTH:
+                return None
+            args = (r.static, r.scene, g._replace(tri_tree=t), r.camera, 0,
+                    1)
+            return _med(lambda: megakernel.render_tile_mega(
+                *args, use_dof=r.use_dof), 3)
+
+        out["leaf_ms"] = {}
+        small = [("cornell-style", Renderer(cli.load_scene(
+            lights["cornell-style"]), device=dev)),
+                 ("fixture", Renderer(compile_scene(SceneFile.from_json_dict(
+                     stress_scenes.triangle_fixture_doc()), width=1024),
+                     device=dev))]
+        for rings, segments in ((4, 8), (6, 12), (8, 16), (12, 24),
+                                (16, 32)):
+            obj = stress_scenes.write_sphere_obj(
+                tempfile.mkdtemp() + "/sphere.obj", rings, segments)
+            doc = stress_scenes.tri_stress_doc(1, obj)
+            small.append((f"uv {rings}x{segments}", Renderer(compile_scene(
+                SceneFile.from_json_dict(doc), width=1024), device=dev)))
+        for name, r in [("tri-stress", full)] + small:
+            n = r.static.num_triangles
+            for leaf in sorted({2, 4, 8, 16, n} if name != "tri-stress"
+                               else {2, 4, 8, 16}):
+                ms = leaf_ms(r, leaf)
+                if ms is not None:
+                    out["leaf_ms"][f"{name} n={n} L={leaf}"] = ms
+        print("K4 ms by leaf size", out["leaf_ms"])
+
+    # tri-stress's main path: its one batch through Renderer with defaults.
+    before = megakernel.TRI_LAUNCHES
+    full.render_all()
+    out["tris_mrays"] = full.stats.mrays_per_sec
+    print("tri-stress main path", full.path, "Mrays/s",
+          full.stats.mrays_per_sec, "K4 tris launches",
+          megakernel.TRI_LAUNCHES - before)
+    print(json.dumps(out))
 
 
 def lights() -> None:

@@ -17,6 +17,13 @@ form (motion blur): the same, and every pixel's bounce count equal.
 Triangle sweep K2 and the fused kernel's triangle form (both built without
 contraction): bit for bit with their plain versions; the triangle form
 against the wavefront with K2: channel means within 2e-3, rays within 0.5%.
+The triangle forms' tree walk (csrc/tri_tree.cuh, shared with K3): each of
+the sixteen triangle forms bit for bit on the small docs of
+tools/stress_scenes.cluster_form_checks, dense and clustered; equal-t ties
+between duplicated shapes under other materials, in one leaf, in the
+Morton tree and in a tree over a random permutation; grazing rays from
+1,500 units; a moving triangle scene re-fitting its tree once a batch; a
+tree that does not match its soup refused.
 The fused kernel's lit forms (lights, with and without triangles): bit for
 bit with their plain versions on the four lit docs of
 tools/light_scenes.py at depth 50; the Renderer's fused path against the
@@ -456,6 +463,153 @@ def test_renderer_takes_the_triangle_kernel_on_the_card(dev, tmp_path):
                                atol=2e-3)
     assert abs(r.stats.rays_traced - w.stats.rays_traced) <= (
         0.005 * w.stats.rays_traced)
+
+
+# ---- the fused kernel's triangle tree walk (csrc/tri_tree.cuh) --------------
+
+def _tie_doc():
+    """The triangle fixture with each shape given twice, the copy under
+    another material: every triangle hit ties at equal t, and the lowest
+    id (the first copy) must win, or the pixel takes the copy's colour."""
+    from raytrace_tpu_torch.tools import stress_scenes
+
+    doc = stress_scenes.triangle_fixture_doc()
+    twins = {"floor": "wall", "wall": "floor", "box": "glass",
+             "prism": "steel"}
+    for prim in list(doc["primitives"]):
+        (kind, body), = prim.items()
+        doc["primitives"].append({kind: dict(body, name=body["name"] + "2",
+                                             material=twins[body["name"]])})
+        doc["instances"].append({"name": body["name"] + "2"})
+    return doc
+
+
+def _hold_k4(args, kw):
+    """K4 on ``args`` bit for bit with the plain version, two launches
+    byte-identical, one triangle launch each."""
+    before = megakernel.TRI_LAUNCHES
+    sums, traced = megakernel.render_tile_mega(*args, **kw)
+    again, traced2 = megakernel.render_tile_mega(*args, **kw)
+    torch.cuda.synchronize()
+    assert megakernel.TRI_LAUNCHES == before + 2
+    assert torch.equal(sums, again) and torch.equal(traced, traced2)
+    ref, ref_traced = megakernel.megakernel_reference(*args, **kw)
+    assert torch.isfinite(sums).all() and float(sums.max()) > 0.0
+    assert torch.equal(sums, ref) and torch.equal(traced, ref_traced)
+
+
+TRI_FORMS = ["tris", "tris+lights", "tris+noise", "tris+lights+noise",
+             "tris+image", "tris+lights+image", "tris+noise+image",
+             "tris+lights+noise+image"]
+
+
+@pytest.mark.parametrize("layout", ["clusters", "dense"])
+@pytest.mark.parametrize("form", TRI_FORMS)
+def test_triangle_forms_walk_the_tree_bit_for_bit(dev, form, layout,
+                                                  tmp_path):
+    """Each triangle form, dense and clustered: the geometry carries the
+    soup's tree with its id table (no cluster boxes), and the kernel walks
+    it bit for bit with the plain version's dense sweep; a one-leaf soup
+    also through a tree of one triangle a leaf."""
+    args, kw = _cluster_form_args(form, tmp_path, dev)
+    geom = args[2]
+    tree = geom.tri_tree
+    assert tree.ids is not None and tree.ids.is_cuda
+    assert "tri_boxes" not in geom._fields
+    _hold_k4(_with_layout(args, layout), kw)
+    # A soup small enough to be one leaf walks a tree of one triangle a
+    # leaf too.
+    n = args[0].num_triangles
+    if tree.depth == 0 and n > 1:
+        deep = paged_tri.build_soup_tree(geom.world_p, n, geom.tri_table12,
+                                         tree.ids, 1)
+        args = args[:2] + (geom._replace(tri_tree=deep),) + args[3:]
+        _hold_k4(_with_layout(args, layout), kw)
+
+
+@pytest.mark.parametrize("order", ["one leaf", "morton", "random"])
+def test_triangle_kernel_on_equal_t_ties(dev, order):
+    """Every shape twice under another material: the lowest id wins each
+    tie in the Renderer's tree (this small soup is one leaf), in a tree of
+    leaves of SOUP_LEAF in Morton order (twins side by side) and over a
+    random permutation (twins in any leaves, the lower id not first)."""
+    r = Renderer(_doc_cs(_tie_doc(), 48, 8, 2), device=dev)
+    assert r.path == "fused"
+    geom = r._geometry(0)
+    n = r.static.num_triangles
+    ids = geom.tri_tree.ids
+    if order == "random":
+        ids = torch.tensor(np.random.default_rng(1).permutation(n),
+                           dtype=torch.int32, device=dev)
+    if order != "one leaf":
+        geom = geom._replace(tri_tree=paged_tri.build_soup_tree(
+            geom.world_p, n, geom.tri_table12, ids, paged_tri.SOUP_LEAF))
+    assert (geom.tri_tree.depth > 0) == (order != "one leaf")
+    _hold_k4((r.static, r.scene, geom, r.camera, 0, 2),
+             dict(use_dof=r.use_dof))
+
+
+def test_triangle_kernel_on_far_grazing_rays(dev, tmp_path):
+    """tri-stress k = 1 seen from 1,500 units away, low over the ground,
+    through a narrow field of view: rays graze the ball's 960 triangles
+    far from the origin, where the walk's boxes are widened by the ray's
+    rounding margin; bit for bit."""
+    from raytrace_tpu_torch.tools import stress_scenes
+
+    obj = stress_scenes.write_sphere_obj(str(tmp_path / "sphere.obj"))
+    doc = stress_scenes.tri_stress_doc(1, obj)
+    doc["cameras"][0]["perspective"].update(eye=[1500.0, 1.3, 40.0],
+                                            look_at=[0.0, 1.0, 0.0],
+                                            fov_y=0.2)
+    r = Renderer(_doc_cs(doc, 96, 8, 2), device=dev)
+    assert r.path == "fused" and r._geometry(0).tri_tree.depth > 0
+    _hold_k4((r.static, r.scene, r._geometry(0), r.camera, 0, 2),
+             dict(use_dof=r.use_dof))
+
+
+def test_moving_triangle_scene_refits_its_tree_on_the_card(dev, tmp_path):
+    """tri-stress k = 1 with its ball sliding over the shutter: one order
+    from the first batch time, each batch's tree a fresh build over it
+    (new boxes), each batch's launch bit for bit with the plain version,
+    one launch a batch through the Renderer."""
+    from raytrace_tpu_torch.tools import stress_scenes
+
+    obj = stress_scenes.write_sphere_obj(str(tmp_path / "sphere.obj"))
+    doc = stress_scenes.tri_stress_doc(1, obj)
+    doc["instances"][1]["transform"] = {"animated": [
+        {"translate": [0.0, 1.0, 0.0]}, {"translate": [0.6, 1.0, 0.0]}]}
+    r = Renderer(_doc_cs(doc, 48, 8, 3), device=dev)
+    assert r.path == "fused_per_batch"
+    n = r.static.num_triangles
+    nodes = []
+    for b in (0, 2):
+        geom = r._geometry(b)
+        assert torch.equal(geom.tri_tree.ids, r._tri_order)
+        fresh = paged_tri.build_soup_tree(geom.world_p, n, geom.tri_table12,
+                                          r._tri_order)
+        assert torch.equal(geom.tri_tree.nodes, fresh.nodes)
+        nodes.append(geom.tri_tree.nodes)
+        _hold_k4((r.static, r.scene, geom, r.camera, b, 1),
+                 dict(use_dof=r.use_dof, times=r.batch_times_dev))
+    assert not torch.equal(nodes[0], nodes[1])
+    before = megakernel.TRI_LAUNCHES
+    assert r.render_batches(3) == 3 and megakernel.TRI_LAUNCHES == before + 3
+
+
+def test_triangle_kernel_rejects_a_tree_that_does_not_match(dev, tmp_path):
+    r = Renderer(_tri_scene("tri-stress-k1", 32, 4, 1, tmp_path), device=dev)
+    geom = r._geometry(0)
+    args = (r.static, r.scene)
+    before = megakernel.LAUNCHES
+    for bad, match in ((geom.tri_tree._replace(ids=None), "id table"),
+                       (geom.tri_tree._replace(ids=geom.tri_tree.ids.cpu()),
+                        "ids"),
+                       (geom.tri_tree._replace(nodes=geom.tri_tree.nodes[1:]),
+                        "nodes")):
+        with pytest.raises(ValueError, match=match):
+            megakernel.render_tile_mega(*args, geom._replace(tri_tree=bad),
+                                        r.camera, 0, 1, use_dof=r.use_dof)
+    assert megakernel.LAUNCHES == before
 
 
 # ---- lights: the fused kernel's lit forms -----------------------------------
