@@ -46,12 +46,11 @@ printing a result.  No path runs at a cut depth.  Phases:
    with images; each of these eighteen dense forms and its clustered
    sphere twin), the paged triangle sweep K3 (csrc/paged_tri.cu) and the
    dev probes P1-P3 (csrc/probe_ops.cu, csrc/probe_trig.cu,
-   csrc/micro_raygen.cu), with nvcc's register report, a line per K4
-   form and K3's; the ten forms without images must keep the registers
-   and spills they had before the image forms (FORMS_BEFORE), the eight
-   image forms those they had before the clustered forms
-   (IMAGE_FORMS_BEFORE), and the eighteen clustered forms those they had
-   before K4's raygen moved into csrc/raygen.cuh (CLUSTER_FORMS_BEFORE);
+   csrc/micro_raygen.cu), and K4's measuring build (the same source under
+   K4_MEASURE), with nvcc's register report, a line per K4 form and
+   K3's; every K4 form must keep the registers and spills pinned for it
+   as it compiles with the loop of steps (FORMS_BEFORE,
+   IMAGE_FORMS_BEFORE, CLUSTER_FORMS_BEFORE), and K3 its K3_BEFORE;
 3. K1 against the plain PyTorch sweep: the 3,240,000 primary rays of the
    main path and 2^20 random rays with an alive mask (ids equal, and ids
    equal with t within rtol=1e-3, atol=1e-3, each on >= 99.9% of rays),
@@ -98,8 +97,7 @@ printing a result.  No path runs at a cut depth.  Phases:
    bit for bit with the plain version (both timed), and held against the
    wavefront with K2 (and K1) on the same batch (rays within 0.5%, means
    within LIGHT_MEAN_TOL), which also counts the work of the bound and
-   each (pixel, sample)'s path length, from which the share of lanes that
-   K4's per-sample reconvergence keeps busy is printed (_warp_tail); then
+   each (pixel, sample)'s path length; then
    K4's five noise forms, each bit for bit with its plain version (and
    two launches byte-identical) on the small frames of
    noise_scenes.form_checks (perlin-spheres at 96x54, depth 8, the
@@ -135,6 +133,17 @@ printing a result.  No path runs at a cut depth.  Phases:
    margin (each printed); K3 timed on every bounce's rays (K3 ms a
    batch) and over the primary rays, the tree's and the flat page walk's
    work counted on 2^17 rays of bounces 0, 1 and 2 for the bounds;
+   K4's lanes busy: on the path lengths of one batch of final-one-weekend,
+   its motion-blur twin, tri-stress, both light scenes, perlin-spheres,
+   earth and both stress scenes (the wavefront's, or the plain version's
+   where that batch is rendered anyway), the share of a warp's lane slots
+   that trace a bounce under per-sample reconvergence and under per-lane
+   regeneration (smoke_lib.warp_tail, warp_regen); on final-one-weekend
+   and the light scenes K4's own share, from its measuring build
+   (csrc/megakernel.cu under K4_MEASURE), whose sums must be the normal
+   build's byte for byte and whose busy lanes must add up to the bounces
+   traced, with the warps' cycles by phase (raygen, closest hit,
+   shading, NEE, the sample's end);
 5. the wavefront path, Renderer(cs, use_megakernel=False): several batches,
    counting K1 launches; the image checks; the same for the motion-blur
    scene, for tri-stress's one batch (counting K2 and K1 launches) and
@@ -385,7 +394,8 @@ def _cluster_work(wave_r, geom, times=None):
     fused path's geometry, moved to times[0] when it moves) with
     ops/megakernel.sphere_cluster_sweep_reference.  Returns (image [H, W,
     3] on the host, rays traced, per-ray work: prefix sphere tests, box
-    tests and sphere tests in clusters that pass)."""
+    tests and sphere tests in clusters that pass, [H * W, spp] each
+    (pixel, sample)'s path length)."""
     import torch
 
     from raytrace_tpu_torch.engine import wavefront
@@ -401,15 +411,10 @@ def _cluster_work(wave_r, geom, times=None):
         seen.append(torch.stack([*o, *d])[:, alive])
         return trace(o, d, alive)
 
-    tiles, rays = [], 0
-    for row0 in range(0, static.height, wave_r.rows_per_tile):
-        tile, tr = wavefront.render_tile(static, scene, wave_r.camera,
-                                         capture, wave_geom, 0, row0,
-                                         wave_r.rows_per_tile,
-                                         wave_r.use_dof)
-        tiles.append(tile)
-        rays += tr
-    img = torch.cat(tiles, dim=0)[:static.height].cpu().numpy()
+    img, rays, lengths = smoke_lib.wave_lengths(
+        static, scene, wave_r.camera, capture, wave_geom, wave_r.use_dof,
+        wave_r.rows_per_tile)
+    img = img.cpu().numpy()
     allr = torch.cat(seen, dim=1)
     del seen
     gen = torch.Generator().manual_seed(0)
@@ -426,7 +431,7 @@ def _cluster_work(wave_r, geom, times=None):
     per_ray = {k: work[k] / work["rays"] for k in ("prefix_tests",
                                                   "box_tests",
                                                   "sphere_tests")}
-    return img, rays, per_ray
+    return img, rays, per_ray, lengths
 
 
 def _cluster_bound(geom, per_ray, traced_sum: int, width: int, height: int,
@@ -492,9 +497,10 @@ def _slot_hits(static, scene, geom, o, d, alive, raw, mode) -> int:
 
 
 def _plain_work(args, kw):
-    """K4's plain version on ``args`` once more, counting at every bounce
-    the rays traced, the noise hits and the image hits (_slot_hits), for
-    _noise_bound and _image_bound."""
+    """K4's plain version on ``args`` (one batch) once more, counting at
+    every bounce the rays traced, the noise hits and the image hits
+    (_slot_hits), for _noise_bound and _image_bound, and keeping each
+    (pixel, sample)'s path length ([H * W, spp] under "lengths")."""
     from raytrace_tpu_torch.engine import wavefront
     from raytrace_tpu_torch.models.shading_table import MODE_IMAGE, MODE_NOISE
     from raytrace_tpu_torch.ops import megakernel
@@ -513,7 +519,9 @@ def _plain_work(args, kw):
                                         raw, mode)
             return raw
 
-        return inner(static_, scene_, trace, geom, *rest)
+        out = inner(static_, scene_, trace, geom, *rest)
+        work["lengths"] = rest[-1].reshape(static.width * static.height, -1)
+        return out
 
     wavefront.bounce_wavefront = counting
     try:
@@ -609,8 +617,7 @@ def _tri_work(renderer):
 
     from raytrace_tpu_torch.engine import wavefront
     from raytrace_tpu_torch.models.shading_table import MODE_NOISE
-    from raytrace_tpu_torch.ops import (megakernel, paged_tri, sphere_sweep,
-                                        vec3)
+    from raytrace_tpu_torch.ops import megakernel, paged_tri, sphere_sweep
     from raytrace_tpu_torch.ops.vec3 import V3
 
     static, scene = renderer.static, renderer.scene
@@ -652,39 +659,41 @@ def _tri_work(renderer):
                                          raw, MODE_NOISE)
         return raw
 
-    tiles, rays, lengths = [], 0, []
-    rows = renderer.rows_per_tile
-    dev = geom.sph_table8.device
-    for row0 in range(0, H, rows):
-        # wavefront.render_tile, keeping each ray's bounce count.
-        state, o, d = wavefront.primary_rays(static, renderer.camera, 0, row0,
-                                             rows, renderer.use_dof, dev)
-        counts = torch.zeros(o.x.shape[0], dtype=torch.int32, device=dev)
-        radiance, tr = wavefront.bounce_wavefront(static, scene, counting,
-                                                  geom, state, o, d, counts)
-        tiles.append(vec3.to_rows(radiance).reshape(rows, W, spp, 3).mean(2))
-        lengths.append(counts.reshape(rows, W * spp)[:H - row0])
-        rays += tr
-    torch.cuda.synchronize()
-    img = torch.cat(tiles, dim=0)[:H].cpu().numpy()
-    return img, rays, work, torch.cat(lengths).reshape(H * W, spp)
+    img, rays, lengths = smoke_lib.wave_lengths(
+        static, scene, renderer.camera, counting, geom, renderer.use_dof,
+        renderer.rows_per_tile)
+    return img.cpu().numpy(), rays, work, lengths
 
 
-def _warp_tail(lengths):
-    """K4's idle lanes from the per-sample reconvergence of its bounce
-    loop (csrc/megakernel.cu: one sample's bounces inside the sample
-    loop, so a warp of 32 consecutive pixels runs each sample until its
-    longest path ends): for each warp and sample, the longest and the mean
-    path length of its 32 lanes.  Returns (mean lanes busy: the sum of the
-    means over the sum of the longest, the mean of the per-(warp, sample)
-    ratios, the mean longest, the mean path length)."""
-    n_pix, spp = lengths.shape
-    warps = lengths[:n_pix - n_pix % 32].reshape(-1, 32, spp).double()
-    longest = warps.amax(dim=1)
-    mean = warps.mean(dim=1)
-    return (float(mean.sum() / longest.sum()),
-            float((mean / longest.clamp(min=1)).mean()),
-            float(longest.mean()), float(mean.mean()))
+def _warp_models(label, lengths, card):
+    """K4's lanes busy on ``label``'s batch under the two warp models of
+    smoke_lib over its [H * W, spp] path lengths: per-sample
+    reconvergence (the parent's nested loops) and per-lane regeneration
+    (the loop of steps).  Prints both; returns {"per_sample", "regen"}."""
+    tail = smoke_lib.warp_tail(lengths)
+    regen = smoke_lib.warp_regen(lengths)
+    print(f"{label}: K4's lanes busy, modelled on the batch's path lengths "
+          f"(warps of 32 pixels): per-sample reconvergence {tail[0]:.4f} "
+          f"(longest {tail[2]:.2f} and mean {tail[3]:.2f} bounces a (warp, "
+          f"sample)), per-lane regeneration {regen[0]:.4f} (busiest lane "
+          f"{regen[2]:.1f} and mean lane {regen[3]:.1f} bounces over the "
+          f"{lengths.shape[1]} samples) ({card})")
+    return {"per_sample": tail[0], "regen": regen[0]}
+
+
+def _measured_busy(label, args, kw, models, card):
+    """K4's measuring build on the same launch (smoke_lib.measure_busy:
+    byte-identical sums, busy lanes equal to the bounces traced): prints
+    its lanes-busy share beside the models and each phase's share of the
+    warps' cycles; returns them."""
+    res = smoke_lib.measure_busy(args, kw)
+    print(f"{label}: K4's own lanes busy (measuring build, byte-identical "
+          f"sums) {res['busy']:.4f} of {res['steps']} warp steps, against "
+          f"the models' {models['regen']:.4f} (regeneration) and "
+          f"{models['per_sample']:.4f} (per-sample); the warps' cycles: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in res["phases"].items())
+          + f" ({card})")
+    return res
 
 
 def _paged_equal(a, b, alive) -> bool:
@@ -1061,12 +1070,13 @@ def _mrays(per_batch):
     return sum(r for r, _ in per_batch) / sum(s for _, s in per_batch) / 1e6
 
 
-def _busy_share(events, label, wall_s, kernel="megakernel"):
+def _busy_share(events, label, wall_s, kernel="megakernel", labels=()):
     """The device timeline of the work profiled under
     record_function(label): the card's operation intervals that start
     inside that host range (the work ends in a synchronize), without the
-    range's own device-side annotation, which spans the whole range and
-    is no operation of the card's.  Returns a
+    device-side annotations of the range and of the other profiled
+    ``labels``, each of which spans its whole range and is no operation
+    of the card's (the next range's can start inside this one).  Returns a
     dict: ``busy_s``, their union; ``timeline``, the union over the span
     from the first operation's start to the last one's end (the traced
     window's own device timeline: what is not busy there is the card
@@ -1082,7 +1092,8 @@ def _busy_share(events, label, wall_s, kernel="megakernel"):
     lo, hi = host[0].time_range.start, host[0].time_range.end
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in events if e.device_type == DeviceType.CUDA
-                   and e.name != label and lo <= e.time_range.start <= hi)
+                   and e.name != label and e.name not in labels
+                   and lo <= e.time_range.start <= hi)
     busy, end, k4 = 0.0, -1.0, 0.0
     for s, e, name in spans:
         if kernel in name:
@@ -1337,9 +1348,13 @@ def main() -> int:
         lambda: megakernel.megakernel_reference(*args, **kw), 2)
     k4_dense_ms = _dense_ms(args, kw)
     dense_bound = _k4_bound(full.static, args[2], k4_rays, WIDTH, HEIGHT, 0)
-    _, _, per_ray = _cluster_work(
+    _, _, per_ray, lengths = _cluster_work(
         Renderer(cs, device=dev, use_megakernel=False), args[2])
     k4_bound = _cluster_bound(args[2], per_ray, k4_rays, WIDTH, HEIGHT, 0)
+    fow = _warp_models("final-one-weekend", lengths, card)
+    fow["measured"] = _measured_busy("final-one-weekend", args, kw, fow,
+                                     card)
+    lanes_busy = {"final-one-weekend": fow}
     print(f"fused kernel (clustered static form) time at {WIDTH}x{HEIGHT}, 4 "
           f"spp, depth 50, one batch: kernel {k4_ms:.3f} ms (median of 5), "
           f"the dense form {k4_dense_ms:.3f} ms (median of 5), plain "
@@ -1387,9 +1402,10 @@ def main() -> int:
     n_times = len(mb_full.batch_times)
     dense_bound = _k4_bound(mb_full.static, args[2], anim_rays, MB_WIDTH,
                             MB_HEIGHT, n_times)
-    _, _, per_ray = _cluster_work(
+    _, _, per_ray, lengths = _cluster_work(
         Renderer(cs_mb, device=dev, use_megakernel=False), args[2],
         mb_full.batch_times_dev)
+    lanes_busy["motion-blur"] = _warp_models("motion-blur", lengths, card)
     anim_bound = _cluster_bound(args[2], per_ray, anim_rays, MB_WIDTH,
                                 MB_HEIGHT, n_times)
     print(f"animated fused kernel (clustered) time at {MB_WIDTH}x"
@@ -1436,8 +1452,10 @@ def main() -> int:
     fused_img = (sums / tri_full.static.sqrt_spp ** 2).cpu().numpy()
     # The same batch on the wavefront with K2 and K1, counting the work
     # of the kernel's bound on its rays.
-    wave_img, wave_rays, work, _ = _tri_work(
+    wave_img, wave_rays, work, lengths = _tri_work(
         Renderer(tri_cs, device=dev, use_megakernel=False))
+    lanes_busy["tri-stress"] = _warp_models("tri-stress-15360", lengths,
+                                            card)
     mdiff = np.abs(fused_img.mean(axis=(0, 1))
                    - wave_img.mean(axis=(0, 1))).max()
     print(f"fused (triangle form) vs wavefront with K2 on tri-stress-15360's "
@@ -1525,13 +1543,9 @@ def main() -> int:
                        - wave_img.mean(axis=(0, 1))).max()
         bound, flat = _k4_tris_bound(r.static, args[2], work, w, h,
                                      scene=r.scene)
-        tail = _warp_tail(lengths)
-        print(f"{name}'s batch on the wavefront, per-sample reconvergence "
-              f"of K4's bounce loop: warps of 32 pixels run each sample "
-              f"until their longest path ends; mean over longest path "
-              f"length {tail[0]:.4f} (lanes busy; idle {1 - tail[0]:.4f}), "
-              f"per (warp, sample) {tail[1]:.4f}; longest {tail[2]:.2f} and "
-              f"mean {tail[3]:.2f} bounces a (warp, sample) ({card})")
+        lanes_busy[name] = _warp_models(name, lengths, card)
+        lanes_busy[name]["measured"] = _measured_busy(
+            name, args, kw, lanes_busy[name], card)
         print(f"fused (lit form) vs wavefront with K2 on {name}'s batch at "
               f"{w}x{h}, 64 spp, depth 50: rays {lit_rays} vs {wave_rays}, "
               f"max channel-mean diff {mdiff:.3g}; the wavefront's batch "
@@ -1557,7 +1571,7 @@ def main() -> int:
               f"({bound[0] / lit_ms:.4f} of it), the flat walk's "
               f"{flat[0]:.4f} ms ({card})")
         light_full[name] = dict(ms=lit_ms, plain_ms=plain_s * 1e3,
-                                bound=bound, flat_bound=flat, tail=tail,
+                                bound=bound, flat_bound=flat,
                                 leaf=args[2].tri_tree.leaf)
         del r, args, kw, sums
 
@@ -1602,6 +1616,8 @@ def main() -> int:
     work = _plain_work(args, kw)
     if work["rays"] != noise_rays:
         raise AssertionError("perlin-spheres: the counted rays differ")
+    lanes_busy["perlin-spheres"] = _warp_models(
+        "perlin-spheres", work["lengths"], card)
     noise_bound = _noise_bound(perlin_full.static, args[2], work,
                                *PERLIN_SIZE)
     print(f"fused kernel (noise form) time on perlin-spheres at 1024x576, 16 "
@@ -1657,6 +1673,7 @@ def main() -> int:
     work = _plain_work(args, kw)
     if work["rays"] != image_rays:
         raise AssertionError("earth: the counted rays differ")
+    lanes_busy["earth"] = _warp_models("earth", work["lengths"], card)
     image_bound = _image_bound(earth_full.static, earth_full.scene, args[2],
                                work, *EARTH_SIZE)
     print(f"fused kernel (image form) time on earth at 512x512, 4 spp, depth "
@@ -1744,9 +1761,10 @@ def main() -> int:
         sums, _ = megakernel.render_tile_mega(*args, **kw)
         fused_img = (sums / rs.samples_per_pixel).cpu().numpy()
         t0 = time.perf_counter()
-        wave_img, wave_rays, per_ray = _cluster_work(
+        wave_img, wave_rays, per_ray, lengths = _cluster_work(
             Renderer(stress_cs[name], device=dev, use_megakernel=False),
             args[2])
+        lanes_busy[name] = _warp_models(name, lengths, card)
         wave_s = time.perf_counter() - t0
         mdiff = np.abs(fused_img.mean(axis=(0, 1))
                        - wave_img.mean(axis=(0, 1))).max()
@@ -2379,7 +2397,8 @@ def main() -> int:
         paged = prof_r.static.bvh_mode == "paged"
         kernel = "the paged sweep" if paged else "the fused kernel"
         b = _busy_share(events, name, untraced,
-                        "paged_tri" if paged else "megakernel")
+                        "paged_tri" if paged else "megakernel",
+                        {label for label, *_ in runs})
         busy = (f"device busy {b['busy_s']:.4f} s = {b['timeline']:.4f} of "
                 f"the traced window's own device timeline, {b['wall']:.4f} "
                 f"of the untraced wall; {kernel} {b['kernel']:.4f} of "
@@ -2397,6 +2416,9 @@ def main() -> int:
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
+    print("K4's lanes busy by configuration (the two warp models; measured "
+          "by the measuring build where given): " + json.dumps(lanes_busy))
+    cornell_busy = lanes_busy["cornell-style"]
     # No single PyTorch call computes a closest-hit sweep or a whole path
     # tracer, so library_ms is null for each kernel.
     print(json.dumps({"kernels": [{
@@ -2449,8 +2471,11 @@ def main() -> int:
         "library_ms": None,
         "flat_bound_ms": light_full["cornell-style"]["flat_bound"][0],
         "leaf": light_full["cornell-style"]["leaf"],
-        # The share of lanes busy under K4's per-sample reconvergence.
-        "warp_busy_share": light_full["cornell-style"]["tail"][0],
+        # The share of lanes busy: K4's own (the measuring build) and the
+        # two warp models on the wavefront's path lengths of the batch.
+        "warp_busy_share": cornell_busy["measured"]["busy"],
+        "warp_busy_model_regen": cornell_busy["regen"],
+        "warp_busy_model_per_sample": cornell_busy["per_sample"],
     }, {
         # perlin-spheres' full batch, the slice's main path.
         "name": "megakernel_noise", "route": "cuda",

@@ -23,13 +23,31 @@
 // absorption, or max_depth bounces).
 //
 // Design: one thread owns one pixel and traces its K = n_batches *
-// spp_local samples one after another in sample order (sample s_all
-// belongs to batch batch0 + s_all / spp_local), each bounce by bounce until
-// it ends, then starts the next: the TPU kernel's sample regeneration
-// without its lane-assignment machinery, since every (pixel, sample) has
-// its own RNG stream and a pixel's samples are summed in sample order.  The
-// thread writes its pixel's radiance sums and bounce count once, at the
-// end: no atomics, so two launches give the same bytes.
+// spp_local samples in sample order (sample s_all belongs to batch batch0 +
+// s_all / spp_local) in one loop of steps: each step is one bounce of the
+// thread's sample in flight, and a sample that ends (a miss, absorption or
+// max_depth bounces) adds its radiance to the pixel's sums and hands the
+// thread's next step to the next sample's raygen.  This is the TPU kernel's
+// sample regeneration (megakernel.py:1671-1689, "regenerating a fresh
+// camera ray the moment a sample terminates") without its lane-assignment
+// machinery, since every (pixel, sample) has its own RNG stream and a
+// pixel's samples are summed in sample order: the sums and bounce counts
+// are those of sample-by-sample tracing, bit for bit.  A warp's 32 lanes
+// therefore trace different samples at different depths in one step, and
+// a lane idles only once its pixel has no sample left, where a loop over
+// samples around a loop over bounces kept every lane of the warp waiting,
+// sample by sample, for the warp's longest path.  A step's phases run
+// one after another, each behind its own branch: the raygen of lanes whose
+// sample starts, the closest hit, the shading of hits (a miss adds the
+// sky), the NEE of scattering hits, the flush of ending samples.  In the
+// compiled code (cuobjdump -sass of the lit triangle form) each branch is
+// a region closed by a reconvergence barrier (BSSY/BSYNC; the flush's few
+// instructions are predicated instead), so the warp
+// reconverges after each phase and takes the step's one back-edge
+// together; a lane with no sample left waits at the barrier after the
+// loop.  The thread writes its pixel's radiance
+// sums and bounce count once, at the end: no atomics, so two launches give
+// the same bytes.
 //
 // The sphere table [S8, 8] and the camera/sky parameters are staged into
 // shared memory once, before any loop; the only __syncthreads() sits
@@ -167,8 +185,11 @@
 // (for clustered spheres the prefix, the box pretests and the spheres of
 // the clusters that pass; for triangles the node tests and the triangles
 // of the leaves the walk reaches), against one 112-byte row fetch: the
-// fp32 ALU issue rate.  The first version is the simple one: a persistent work
-// queue and a deeper hierarchy come later.
+// fp32 ALU issue rate, times the share of a warp's lane slots that do a
+// bounce.  With per-lane regeneration that share is the warp's total
+// bounces over 32 x its busiest lane's, the tail of the pixel with the
+// most bounces over its K samples; the measuring build below reads it.  A
+// persistent work queue and a deeper hierarchy come later.
 //
 // Bits: built with -fmad=false (ops/_build.py), so no multiply-add is
 // contracted and each operation rounds as PyTorch's elementwise kernels
@@ -628,6 +649,60 @@ __device__ __forceinline__ void sweep_tris(const tri_tree::Tree& tree, int s_pad
       });
 }
 
+// ---- the measuring build ----
+//
+// Built with -DK4_MEASURE (ops/_build.py "megakernel_measure"; never
+// loaded by the Renderer), the kernel also counts, each step of a warp,
+// its busy lanes (__popc(__activemask())) and 32 lane slots, and clock64
+// spans of the step's phases: regeneration, closest hit, shading, NEE and
+// the sample's end.  The step's lowest active lane keeps the warp's counts
+// in registers; each lane adds what it kept into g_measure once, after
+// its last step.  The clocks are read by every active lane at the points
+// where the warp has reconverged, so a span is the warp's time in that
+// phase, other warps' issue slots on the multiprocessor included.  The
+// sums and bounce counts are the normal build's, byte for byte.
+
+enum MeasureSlot {
+  kMeasureBusy, kMeasureSlots, kMeasureRegen, kMeasureHit, kMeasureShade, kMeasureNee,
+  kMeasureEnd, kMeasureCount
+};
+
+#ifdef K4_MEASURE
+__device__ unsigned long long g_measure[kMeasureCount];
+
+#define K4_MEASURE_INIT()                             \
+  unsigned long long m_acc[kMeasureCount] = {};       \
+  bool m_lead = false;                                \
+  long long m_t = 0
+#define K4_MEASURE_STEP()                                          \
+  do {                                                             \
+    const unsigned m_mask = __activemask();                        \
+    m_lead = (threadIdx.x & 31) == __ffs(m_mask) - 1;              \
+    m_t = clock64();                                               \
+    if (m_lead) {                                                  \
+      m_acc[kMeasureBusy] += __popc(m_mask);                       \
+      m_acc[kMeasureSlots] += 32;                                  \
+    }                                                              \
+  } while (0)
+#define K4_MEASURE_SPAN(slot)                                      \
+  do {                                                             \
+    const long long m_now = clock64();                             \
+    if (m_lead) m_acc[slot] += static_cast<unsigned long long>(m_now - m_t); \
+    m_t = m_now;                                                   \
+  } while (0)
+#define K4_MEASURE_FLUSH()                                         \
+  do {                                                             \
+    _Pragma("unroll") for (int m_k = 0; m_k < kMeasureCount; ++m_k) { \
+      if (m_acc[m_k] != 0) atomicAdd(&g_measure[m_k], m_acc[m_k]); \
+    }                                                              \
+  } while (0)
+#else
+#define K4_MEASURE_INIT() static_cast<void>(0)
+#define K4_MEASURE_STEP() static_cast<void>(0)
+#define K4_MEASURE_SPAN(slot) static_cast<void>(0)
+#define K4_MEASURE_FLUSH() static_cast<void>(0)
+#endif
+
 // ---- the kernel ----
 
 template <bool kAnim, bool kTris, bool kLights, bool kNoise, bool kImage, bool kSphClusters>
@@ -693,59 +768,89 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
 
   float sum_x = 0.0f, sum_y = 0.0f, sum_z = 0.0f;
   int traced = 0;
-  for (int s_all = 0; s_all < n_samples; ++s_all) {
-    const int batch = batch0 + s_all / spp_local;
-    const int s = s_all % spp_local + sample_base;
-    const float tcur = kAnim ? __ldg(times + batch) : 0.0f;  // shutter time
-    uint32_t state = init_rng(static_cast<uint32_t>(batch), static_cast<uint32_t>(s),
-                              static_cast<uint32_t>(py), static_cast<uint32_t>(px),
-                              static_cast<uint32_t>(width), static_cast<uint32_t>(height), spp);
-    V3 o, d;
-    get_ray(state, prm, px, py, s % sqrt_spp, s / sqrt_spp, width, height, use_dof, o, d);
-    V3 thr = {1.0f, 1.0f, 1.0f};
-    V3 acc = {0.0f, 0.0f, 0.0f};
+  // The lane's sample in flight: its index s_all, its bounces so far
+  // (depth 0: the sample is still to start), its PCG state, ray,
+  // throughput, radiance and (kAnim) shutter time.  With max_depth <= 0 no
+  // sample traces a bounce, as in the plain version.
+  const int n_run = max_depth > 0 ? n_samples : 0;
+  int s_all = 0;
+  int depth = 0;
+  uint32_t state = 0u;
+  V3 o = {0.0f, 0.0f, 0.0f};
+  V3 d = {0.0f, 0.0f, 0.0f};
+  V3 thr = {0.0f, 0.0f, 0.0f};
+  V3 acc = {0.0f, 0.0f, 0.0f};
+  float tcur = 0.0f;  // the sample's shutter time (kAnim)
+  K4_MEASURE_INIT();
 
-    for (int depth = 0; depth < max_depth; ++depth) {
-      ++traced;
-      // Closest hit (the quadratic of csrc/sphere_sweep.cu and
-      // ops/spheres.py intersect_spheres_world).
-      const float d_dot_o = d.x * o.x + d.y * o.y + d.z * o.z;
-      const float a = d.x * d.x + d.y * d.y + d.z * d.z;
-      const float o_sq = o.x * o.x + o.y * o.y + o.z * o.z;
-      const float inv_a = 1.0f / (a == 0.0f ? 1.0f : a);
-      float best_t = kTMax;
-      int best_id = -1;
-      // Every real sphere densely, or in the clustered forms the prefix,
-      // then the clusters.
-      const int n_dense = kSphClusters ? n_prefix : n_sph;
-      for (int j = 0; j < n_dense; ++j) {
-        float4 sph;
-        float k;
-        fetch_sphere<kAnim, kSphClusters>(tbl, table, dtable, j, tcur, sph, k);
-        test_sphere(sph, k, o, d, d_dot_o, a, o_sq, inv_a, j, best_t, best_id);
-      }
-      if constexpr (kSphClusters) {
-        sweep_sphere_clusters<kAnim>(table, dtable, sboxes, n_sph_clusters, sph_g, n_prefix,
-                                     n_sph, tcur, o, d, d_dot_o, a, o_sq, inv_a, best_t, best_id);
-      }
-      float bu = 0.0f, bv = 0.0f;
-      V3 tp = {0.0f, 0.0f, 0.0f};
-      if constexpr (kTris) {
-        sweep_tris(tree, s_pad, o, d, best_t, best_id, bu, bv, tp);
-      }
-      if (best_t >= kTMax) {  // miss: the sky, and the sample ends
-        acc = acc + thr * bg;
-        break;
-      }
-      const float* __restrict__ row =
-          rows + static_cast<size_t>(min(max(best_id, 0), n_rows - 1)) * kRowWidth;
+  // One step a loop iteration: one bounce of the lane's sample, after its
+  // raygen where the sample starts.  A lane whose sample ends adds it to its
+  // pixel's sums and starts the next one at the top of its next step, so
+  // the warp's lanes run their own samples at their own depths and a lane
+  // waits only when its pixel has no sample left.
+  while (s_all < n_run) {
+    K4_MEASURE_STEP();
+    if (depth == 0) {  // regeneration: the camera ray of sample s_all
+      const int batch = batch0 + s_all / spp_local;
+      const int s = s_all % spp_local + sample_base;
+      if constexpr (kAnim) tcur = __ldg(times + batch);
+      state = init_rng(static_cast<uint32_t>(batch), static_cast<uint32_t>(s),
+                       static_cast<uint32_t>(py), static_cast<uint32_t>(px),
+                       static_cast<uint32_t>(width), static_cast<uint32_t>(height), spp);
+      get_ray(state, prm, px, py, s % sqrt_spp, s / sqrt_spp, width, height, use_dof, o, d);
+      thr = {1.0f, 1.0f, 1.0f};
+      acc = {0.0f, 0.0f, 0.0f};
+    }
+    K4_MEASURE_SPAN(kMeasureRegen);
 
+    ++traced;
+    // Closest hit (the quadratic of csrc/sphere_sweep.cu and
+    // ops/spheres.py intersect_spheres_world).
+    const float d_dot_o = d.x * o.x + d.y * o.y + d.z * o.z;
+    const float a = d.x * d.x + d.y * d.y + d.z * d.z;
+    const float o_sq = o.x * o.x + o.y * o.y + o.z * o.z;
+    const float inv_a = 1.0f / (a == 0.0f ? 1.0f : a);
+    float best_t = kTMax;
+    int best_id = -1;
+    // Every real sphere densely, or in the clustered forms the prefix,
+    // then the clusters.
+    const int n_dense = kSphClusters ? n_prefix : n_sph;
+    for (int j = 0; j < n_dense; ++j) {
+      float4 sph;
+      float k;
+      fetch_sphere<kAnim, kSphClusters>(tbl, table, dtable, j, tcur, sph, k);
+      test_sphere(sph, k, o, d, d_dot_o, a, o_sq, inv_a, j, best_t, best_id);
+    }
+    if constexpr (kSphClusters) {
+      sweep_sphere_clusters<kAnim>(table, dtable, sboxes, n_sph_clusters, sph_g, n_prefix,
+                                   n_sph, tcur, o, d, d_dot_o, a, o_sq, inv_a, best_t, best_id);
+    }
+    float bu = 0.0f, bv = 0.0f;
+    V3 tp = {0.0f, 0.0f, 0.0f};
+    if constexpr (kTris) {
+      sweep_tris(tree, s_pad, o, d, best_t, best_id, bu, bv, tp);
+    }
+    K4_MEASURE_SPAN(kMeasureHit);
+
+    // Shading: a miss adds the sky; a hit is reconstructed and shaded, and
+    // either scatters or is absorbed.  What the next phase needs of the
+    // hit is declared here.
+    const float* __restrict__ row =
+        rows + static_cast<size_t>(min(max(best_id, 0), n_rows - 1)) * kRowWidth;
+    V3 p = {0.0f, 0.0f, 0.0f};
+    V3 normal = {0.0f, 0.0f, 0.0f};
+    V3 attenuation = {0.0f, 0.0f, 0.0f};
+    V3 skip_dir = {0.0f, 0.0f, 0.0f};
+    bool is_lamb = false;
+    bool scattered = false;
+    if (best_t >= kTMax) {  // miss: the sky, and the sample ends
+      acc = acc + thr * bg;
+    } else {
       // Hit reconstruction (wavefront.reconstruct_hit): a sphere's point
       // o + t d and its direct world normal (with images, the normal of the
       // world-to-object branch), or a triangle's captured point and lerped
       // normal.
       const bool is_sphere = !kTris || best_id < s_pad;
-      V3 p;
       V3 n;
       if (is_sphere) {
         p = {o.x + d.x * best_t, o.y + d.y * best_t, o.z + d.z * best_t};
@@ -768,20 +873,17 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
                          __ldg(row + 51) + bu * __ldg(row + 54) + bv * __ldg(row + 57)));
       }
       const bool front = dot(d, n) < 0.0f;
-      const V3 normal = front ? n : -n;
+      normal = front ? n : -n;
 
       // shading.scatter_and_emit_v3 (fat rows); the draws are unconditional.
       const int mat = static_cast<int>(__ldg(row + 0));
       const V3 fuzz_unit = random_unit(state);
       const float diel_u = random_float(state);
-      const bool is_lamb = mat == kLambertian;
+      is_lamb = mat == kLambertian;
       const bool is_metal = mat == kMetal;
       const bool is_diel = mat == kDielectric;
       const bool is_light = mat == kDiffuseLight;
 
-      V3 attenuation = {0.0f, 0.0f, 0.0f};
-      V3 skip_dir = {0.0f, 0.0f, 0.0f};
-      bool scattered = false;
       V3 emit = {0.0f, 0.0f, 0.0f};
       if constexpr (kNoise || kImage) {
         // The one slot this hit reads, evaluated once: one call site
@@ -830,8 +932,10 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
           acc = acc + thr * eval_property(row, 8, 15, has_checker, p);
         }
       }
-      if (!scattered) break;  // absorbed
+    }
+    K4_MEASURE_SPAN(kMeasureShade);
 
+    if (scattered) {
       // nee.py.  With lights, sample_light_sources_v3 (the alias pick, the
       // hit instance's objectToWorld: the quirk, a uniform point and the
       // light normal) and choose_mixture_pdf; without, the material pdf
@@ -895,11 +999,22 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
         d = skip_dir;
       }
       o = p;
+      ++depth;
     }
-    sum_x += acc.x;
-    sum_y += acc.y;
-    sum_z += acc.z;
+    K4_MEASURE_SPAN(kMeasureNee);
+
+    // The sample ends on a miss, on absorption or after max_depth bounces
+    // (no sky then): its radiance joins the pixel's sums in sample order.
+    if (!scattered || depth == max_depth) {
+      sum_x += acc.x;
+      sum_y += acc.y;
+      sum_z += acc.z;
+      ++s_all;
+      depth = 0;
+    }
+    K4_MEASURE_SPAN(kMeasureEnd);
   }
+  K4_MEASURE_FLUSH();
   sums[3 * pix + 0] = sum_x;
   sums[3 * pix + 1] = sum_y;
   sums[3 * pix + 2] = sum_z;
@@ -1042,3 +1157,18 @@ extern "C" int megakernel_launch(MEGA_PARAMS) {
 extern "C" const char* megakernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#ifdef K4_MEASURE
+// The measuring build's counters since the last reset (kMeasureCount
+// uint64, in MeasureSlot order) into out, then zeroed when reset is set.
+// Waits for the device's work before it reads.
+extern "C" int megakernel_measure_read(unsigned long long* out, int reset) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(out, g_measure, sizeof(g_measure));
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero[kMeasureCount] = {};
+    err = cudaMemcpyToSymbol(g_measure, zero, sizeof(g_measure));
+  }
+  return static_cast<int>(err);
+}
+#endif

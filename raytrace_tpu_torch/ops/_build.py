@@ -3,7 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles alone into
 ``build/lib<name>-<hash>.so``, where the hash covers the source, every
 header ``csrc/*.cuh`` and the flags, so an edited source or header
-rebuilds and a stale library is never loaded.
+rebuilds and a stale library is never loaded.  A library named in
+``SOURCES`` is another build of a source under its own flags (the fused
+bounce kernel's measuring build).
 A file lock serialises concurrent builds; a failed build raises with
 nvcc's output.  Delete ``raytrace_tpu_torch/build/`` to force a rebuild.
 """
@@ -34,6 +36,12 @@ NVCC_FLAGS = (
 KERNEL_FLAGS = {name: ("-fmad=false",) for name in (
     "megakernel", "tri_sweep", "paged_tri", "probe_ops", "probe_trig",
     "micro_raygen")}
+# Libraries built from another library's source, with their own flags:
+# the fused bounce kernel's measuring build (csrc/megakernel.cu under
+# K4_MEASURE: its warp lanes-busy counts and phase clocks; loaded by
+# ops/megakernel.measure_library, never by the Renderer).
+SOURCES = {"megakernel_measure": "megakernel"}
+KERNEL_FLAGS["megakernel_measure"] = ("-fmad=false", "-DK4_MEASURE")
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 
 
@@ -51,10 +59,15 @@ def nvcc_flags(name: str) -> tuple:
     return NVCC_FLAGS + KERNEL_FLAGS.get(name, ())
 
 
+def source(name: str) -> Path:
+    """The source that library ``name`` is built from."""
+    return CSRC / f"{SOURCES.get(name, name)}.cu"
+
+
 def library_path(name: str) -> Path:
     """The library's path, keyed by the source, every header (any source
     may include any of them) and the flags."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    digest = hashlib.sha256(source(name).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.name.encode() + header.read_bytes())
     digest.update(" ".join(nvcc_flags(name)).encode())
@@ -62,7 +75,8 @@ def library_path(name: str) -> Path:
 
 
 def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless the library for this source exists.
+    """Compile library ``name``'s source unless the library for this
+    source and these flags exists.
     Returns the library's path; nvcc's report (registers, spills) is kept
     beside it as ``.log``."""
     so = library_path(name)
@@ -77,13 +91,12 @@ def build(name: str) -> Path:
         os.close(fd)
         try:
             proc = subprocess.run(
-                [_nvcc(), *nvcc_flags(name), "-o", tmp,
-                 str(CSRC / f"{name}.cu")],
+                [_nvcc(), *nvcc_flags(name), "-o", tmp, str(source(name))],
                 capture_output=True, text=True,
             )
             if proc.returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed to build {name}.cu (exit {proc.returncode}):"
+                    f"nvcc failed to build {name} (exit {proc.returncode}):"
                     f"\n{proc.stdout}{proc.stderr}")
             so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
             os.replace(tmp, so)

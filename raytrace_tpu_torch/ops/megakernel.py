@@ -5,14 +5,18 @@ plain PyTorch version (counterpart of raytrace_tpu/ops/megakernel.py,
 One launch renders every pixel of the frame for ``n_batches`` consecutive
 sample batches: each pixel's K = n_batches * spp samples are traced in
 sample order and summed, so the result is the per-pixel radiance sums and
-the per-pixel bounce counts.  ``render_tile_mega`` is the one entry point:
-for tensors on the CPU it runs the plain version, for CUDA tensors it
-launches the kernel on the current stream, or raises.  ``LAUNCHES`` counts
-kernel launches, ``ANIM_LAUNCHES``, ``TRI_LAUNCHES``, ``LIGHT_LAUNCHES``,
-``NOISE_LAUNCHES``, ``IMAGE_LAUNCHES`` and ``SPHERE_CLUSTER_LAUNCHES``
-those of the animated, the triangle, the lit, the noise, the image and the
-clustered-sphere forms, so a run can show that its main path went through
-the kernel.
+the per-pixel bounce counts.  The kernel's thread runs them as one loop of
+bounces, starting the pixel's next sample where a path ends (per-lane
+regeneration), so a warp waits only for its busiest pixel's total; its
+measuring build (``measure_tile_mega``) also counts each warp step's busy
+lanes and the cycles of its phases.  ``render_tile_mega`` is the one
+entry point: for tensors on the CPU it runs the plain version, for CUDA
+tensors it launches the kernel on the current stream, or raises.
+``LAUNCHES`` counts kernel launches, ``ANIM_LAUNCHES``, ``TRI_LAUNCHES``,
+``LIGHT_LAUNCHES``, ``NOISE_LAUNCHES``, ``IMAGE_LAUNCHES`` and
+``SPHERE_CLUSTER_LAUNCHES`` those of the animated, the triangle, the
+lit, the noise, the image and the clustered-sphere forms, so a run can
+show that its main path went through the kernel.
 
 Spheres in clusters: a scene whose sphere block the compiler put in
 Morton clusters (``SceneStatic.sph_prefix`` > 0, models/sphere_order.py)
@@ -692,11 +696,7 @@ def render_tile_mega(static, scene, geom, cam, batch0: int,
     global LAUNCHES, ANIM_LAUNCHES, TRI_LAUNCHES, LIGHT_LAUNCHES
     global NOISE_LAUNCHES, IMAGE_LAUNCHES, SPHERE_CLUSTER_LAUNCHES
     device = geom.sph_table8.device
-    cfg = make_config(static, geom, use_dof, n_batches)
-    if cfg.anim and times is None:
-        raise ValueError("an animated geometry needs the batch times")
-    if cfg.tris:
-        _check_tris(cfg, geom, device)
+    cfg = _checked_config(static, geom, use_dof, n_batches, times)
     if device.type == "cpu":
         sums, traced = megakernel_reference(static, scene, geom, cam, batch0,
                                             n_batches, sample_base,
@@ -704,64 +704,131 @@ def render_tile_mega(static, scene, geom, cam, batch0: int,
     elif device.type != "cuda":
         raise ValueError(f"no fused bounce kernel for device {device}")
     else:
-        params = _float_params(cfg, static, scene, cam)
-        _check_inputs(cfg, scene, geom, params, times, batch0)
-        if cfg.tris and cfg.S8 != scene.sph_center.shape[0]:
-            raise ValueError("the sphere table must have a row for every "
-                             "sphere slot: triangle ids start after it")
-        lib = library()
-        H, W = cfg.height, cfg.width
-        sums = torch.empty((H, W, 3), dtype=torch.float32, device=device)
-        traced = torch.empty((H, W), dtype=torch.int32, device=device)
-        flags = ((_USE_DOF if cfg.use_dof else 0)
-                 | (_HAS_CHECKER if cfg.has_checker else 0)
-                 | (_HAS_EMISSIVE if cfg.has_emissive else 0)
-                 | (_HAS_NOISE if cfg.has_noise else 0)
-                 | (_HAS_IMAGE if cfg.has_image else 0))
-        image = cfg.has_image
-        clustered = cfg.n_sph_clusters > 0
-        tree = geom.tri_tree if cfg.tris else None
-        err = lib.megakernel_launch(
-            geom.sph_table8.data_ptr(),
-            geom.sph_dtab8.data_ptr() if cfg.anim else None,
-            times.data_ptr() if cfg.anim else None, cfg.n_sph,
-            tree.tris.data_ptr() if cfg.tris else None, cfg.n_tris,
-            tree.nodes.data_ptr() if cfg.tris else None,
-            tree.ids.data_ptr() if cfg.tris else None, cfg.tri_depth,
-            cfg.tri_leaf, cfg.S8,
-            geom.sph_boxes.data_ptr() if clustered else None, cfg.n_prefix,
-            cfg.sph_g, cfg.n_sph_clusters,
-            scene.light_tri_packed.data_ptr() if cfg.lights else None,
-            geom.inst_o2w_rows.data_ptr() if cfg.lights else None,
-            geom.atlas_words.data_ptr() if image else None,
-            scene.atlas_wh.data_ptr() if image else None,
-            scene.atlas.shape[0], scene.atlas.shape[1], scene.atlas.shape[2],
-            scene.srgb_lut.data_ptr() if image else None,
-            geom.prim_rows.data_ptr(),
-            cfg.P, params.data_ptr(), W, H, cfg.sqrt_spp, cfg.spp_local,
-            cfg.n_batches, int(batch0), int(sample_base), cfg.max_depth,
-            flags, sums.data_ptr(), traced.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(
-                f"megakernel launch failed: CUDA error {err} "
-                f"({lib.megakernel_error_string(err).decode()})")
+        sums, traced = _launch(library(), cfg, static, scene, geom, cam,
+                               batch0, sample_base, times)
         LAUNCHES += 1
         ANIM_LAUNCHES += cfg.anim
         TRI_LAUNCHES += cfg.tris
         LIGHT_LAUNCHES += cfg.lights
         NOISE_LAUNCHES += cfg.has_noise
         IMAGE_LAUNCHES += cfg.has_image
-        SPHERE_CLUSTER_LAUNCHES += clustered
+        SPHERE_CLUSTER_LAUNCHES += cfg.n_sph_clusters > 0
     if reduce_mean:
         sums = sums / float(np.float32(cfg.spp_local * cfg.n_batches))
     return sums, traced
 
 
+def _checked_config(static, geom, use_dof: bool, n_batches: int,
+                    times) -> MegaConfig:
+    """The launch's config, after the checks that hold on any device."""
+    cfg = make_config(static, geom, use_dof, n_batches)
+    if cfg.anim and times is None:
+        raise ValueError("an animated geometry needs the batch times")
+    if cfg.tris:
+        _check_tris(cfg, geom, geom.sph_table8.device)
+    return cfg
+
+
+def _launch(lib, cfg: MegaConfig, static, scene, geom, cam, batch0: int,
+            sample_base: int, times):
+    """One launch of ``lib``'s kernel on the card (the inputs checked
+    first): (sums [H, W, 3] f32, traced [H, W] int32)."""
+    device = geom.sph_table8.device
+    params = _float_params(cfg, static, scene, cam)
+    _check_inputs(cfg, scene, geom, params, times, batch0)
+    if cfg.tris and cfg.S8 != scene.sph_center.shape[0]:
+        raise ValueError("the sphere table must have a row for every "
+                         "sphere slot: triangle ids start after it")
+    H, W = cfg.height, cfg.width
+    sums = torch.empty((H, W, 3), dtype=torch.float32, device=device)
+    traced = torch.empty((H, W), dtype=torch.int32, device=device)
+    flags = ((_USE_DOF if cfg.use_dof else 0)
+             | (_HAS_CHECKER if cfg.has_checker else 0)
+             | (_HAS_EMISSIVE if cfg.has_emissive else 0)
+             | (_HAS_NOISE if cfg.has_noise else 0)
+             | (_HAS_IMAGE if cfg.has_image else 0))
+    image = cfg.has_image
+    clustered = cfg.n_sph_clusters > 0
+    tree = geom.tri_tree if cfg.tris else None
+    err = lib.megakernel_launch(
+        geom.sph_table8.data_ptr(),
+        geom.sph_dtab8.data_ptr() if cfg.anim else None,
+        times.data_ptr() if cfg.anim else None, cfg.n_sph,
+        tree.tris.data_ptr() if cfg.tris else None, cfg.n_tris,
+        tree.nodes.data_ptr() if cfg.tris else None,
+        tree.ids.data_ptr() if cfg.tris else None, cfg.tri_depth,
+        cfg.tri_leaf, cfg.S8,
+        geom.sph_boxes.data_ptr() if clustered else None, cfg.n_prefix,
+        cfg.sph_g, cfg.n_sph_clusters,
+        scene.light_tri_packed.data_ptr() if cfg.lights else None,
+        geom.inst_o2w_rows.data_ptr() if cfg.lights else None,
+        geom.atlas_words.data_ptr() if image else None,
+        scene.atlas_wh.data_ptr() if image else None,
+        scene.atlas.shape[0], scene.atlas.shape[1], scene.atlas.shape[2],
+        scene.srgb_lut.data_ptr() if image else None,
+        geom.prim_rows.data_ptr(),
+        cfg.P, params.data_ptr(), W, H, cfg.sqrt_spp, cfg.spp_local,
+        cfg.n_batches, int(batch0), int(sample_base), cfg.max_depth,
+        flags, sums.data_ptr(), traced.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"megakernel launch failed: CUDA error {err} "
+            f"({lib.megakernel_error_string(err).decode()})")
+    return sums, traced
+
+
+# The measuring build's counters (csrc/megakernel.cu MeasureSlot): the
+# lanes busy and the lane slots of every warp step, and the clock64 cycles
+# of the steps' phases, summed over warps.
+MEASURE_SLOTS = ("busy", "slots", "regen", "hit", "shade", "nee", "end")
+
+
+def measure_tile_mega(static, scene, geom, cam, batch0: int,
+                      n_batches: int = 1, sample_base: int = 0, *,
+                      use_dof: bool, times=None):
+    """``render_tile_mega``'s launch through the kernel's measuring build
+    (CUDA tensors only; not counted in LAUNCHES): (sums, traced, {slot:
+    count} of MEASURE_SLOTS for this launch).  The sums and counts are the
+    normal build's, byte for byte; the counters say what share of a warp's
+    lane slots did a bounce and where its cycles went."""
+    if geom.sph_table8.device.type != "cuda":
+        raise ValueError("the measuring build runs on a CUDA device only")
+    cfg = _checked_config(static, geom, use_dof, n_batches, times)
+    lib = measure_library()
+    counts = (ctypes.c_ulonglong * len(MEASURE_SLOTS))()
+
+    def read(reset: int) -> None:
+        err = lib.megakernel_measure_read(counts, reset)
+        if err != 0:
+            raise RuntimeError(
+                f"reading the measuring build's counters failed: CUDA error "
+                f"{err} ({lib.megakernel_error_string(err).decode()})")
+
+    read(1)  # zero them
+    sums, traced = _launch(lib, cfg, static, scene, geom, cam, batch0,
+                           sample_base, times)
+    read(0)
+    return sums, traced, dict(zip(MEASURE_SLOTS, map(int, counts)))
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """The kernel's shared library, built from csrc/ at first use."""
-    lib = _build.load_library("megakernel")
+    return _bind(_build.load_library("megakernel"))
+
+
+@functools.cache
+def measure_library() -> ctypes.CDLL:
+    """The kernel's measuring build (``_build.SOURCES``), built at first
+    use; only ``measure_tile_mega`` launches it."""
+    lib = _bind(_build.load_library("megakernel_measure"))
+    lib.megakernel_measure_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.megakernel_measure_read.restype = ctypes.c_int
+    return lib
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.megakernel_launch.argtypes = [p, p, p, i, p, i, p, p, i, i, i, p, i,
                                       i, i, p, p, p, p, i, i, i, p, p, i, p,

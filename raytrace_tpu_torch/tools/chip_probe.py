@@ -40,15 +40,21 @@ not with ``-m``, so that the package comes from TREE.
   with one JSON line.  It runs on a parent checkout whose K4 swept
   cluster boxes too, so TREE = the parent's ``git archive`` gives the
   before of the same card.
-- ``lights``: builds the fused kernel and prints nvcc's register report;
-  holds its lit forms against the plain version at depth 50, k=2 on the
-  four lit docs of tools/light_scenes.py (cornell-style at 128x128,
-  sphere-light-962 at 128x72, the lit spheres and the 70-instance doc at
-  96 wide; bit for bit or not, and two launches byte-identical), holds
-  one full batch of each light scene against the plain version (bit for
-  bit or not; the plain version's seconds and peak device memory) and
-  times it (kernel median of 3), and steps two full cornell-style
-  batches through ``Renderer`` with defaults.
+- ``lights``: builds the fused kernel (and its measuring build, where
+  TREE has one) and prints nvcc's register report; holds its lit forms
+  against the plain version at depth 50, k=2 on the four lit docs of
+  tools/light_scenes.py (cornell-style at 128x128, sphere-light-962 at
+  128x72, the lit spheres and the 70-instance doc at 96 wide; bit for bit
+  or not, and two launches byte-identical), holds one full batch of each
+  light scene against the plain version (bit for bit or not; the plain
+  version's seconds and peak device memory) and times it (kernel median
+  of 5), times final-one-weekend's batch at 1200x675; on those three
+  batches K4's lanes busy under the two warp models of this checkout's
+  smoke_lib (the wavefront's path lengths) and, with a measuring build,
+  K4's own count and phase cycles; steps two full cornell-style batches
+  through ``Renderer`` with defaults; ends with one JSON line.  TREE =
+  the parent's ``git archive`` gives the before of the same card (the
+  models, no measuring build).
 - ``paged``: builds the paged triangle sweep K3 (with K1 and K2) and
   prints nvcc's register report; holds K3 against its plain version and
   K2 on random soups with an alive mask and a repeat launch; on
@@ -86,14 +92,15 @@ not with ``-m``, so that the package comes from TREE.
   holds each form of its clustered sphere sweep against the plain version
   on the small docs of ``tools/stress_scenes.cluster_form_checks`` (2
   batches in one launch; bit for bit or not, two launches byte-identical,
-  the clustered launches counted); holds one full batch of
+  the clustered launches counted) and times it, clustered and dense
+  (medians of 5); holds one full batch of
   final-one-weekend (1200x675), its motion-blur twin and stress-4x
   (1024x576) against the plain version (bit for bit or not) and times the
   clustered form and the dense form (kernel medians of 5); compiles stress-16k
   (seconds), holds a 128x72, depth-50 batch of it against the plain
   version, times its full batch and holds it against the wavefront's;
   steps one batch of each stress scene through ``Renderer`` with
-  defaults.
+  defaults; ends with one JSON line of the times.
 - ``probes``: builds the three dev probes (P1-P3,
   ``raytrace_tpu_torch/tools_dev/``) together and prints nvcc's register
   reports, then runs the dev-probe phase of ``chip_smoke.py``
@@ -358,25 +365,50 @@ def tris() -> None:
     print(json.dumps(out))
 
 
+def _busy(lib, label, r, args, kw, megakernel, out):
+    """K4's lanes busy on Renderer ``r``'s batch: the two warp models of
+    this checkout's smoke_lib (``lib``) over the wavefront's path lengths
+    of the batch, and, where TREE's kernel has a measuring build, its own
+    count and phase cycles (lib.measure_busy: its sums byte-identical to
+    the normal build's).  Into ``out[label]``."""
+    from raytrace_tpu_torch.engine import wavefront
+
+    w = r.static
+    geom = r._geometry(0)
+    trace = wavefront.make_trace_fn(w, r.scene, geom)
+    _, _, lengths = lib.wave_lengths(w, r.scene, r.camera, trace, geom,
+                                     r.use_dof, r.rows_per_tile)
+    res = {"per_sample": lib.warp_tail(lengths)[0],
+           "regen": lib.warp_regen(lengths)[0]}
+    if hasattr(megakernel, "measure_tile_mega"):
+        res["measured"] = lib.measure_busy(args, kw)
+    out[label] = res
+    print(label, "lanes busy", res)
+
+
 def lights() -> None:
     import concurrent.futures
 
     import torch
 
+    from raytrace_tpu_torch import cli
     from raytrace_tpu_torch.engine import Renderer
     from raytrace_tpu_torch.ops import (_build, megakernel, sphere_sweep,
                                         tri_sweep)
     from raytrace_tpu_torch.tools import light_scenes as ls
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip())
+    lib = _change_smoke_lib()
+    card = _card()
+    print(card)
     print(sys.version.split()[0], torch.__version__, torch.version.cuda)
-    mods = (megakernel, tri_sweep, sphere_sweep)
+    mods = [megakernel.library, tri_sweep.library, sphere_sweep.library]
+    if hasattr(megakernel, "measure_library"):
+        mods.append(megakernel.measure_library)
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
-        list(pool.map(lambda m: m.library(), mods))
+        list(pool.map(lambda load: load(), mods))
     print(_build.library_path("megakernel").with_suffix(".log").read_text())
     dev = torch.device("cuda:0")
+    out = {"card": card, "bitwise": {}, "ms": {}, "busy": {}}
 
     for label, doc, w in (("cornell-style", ls.cornell_doc(), 128),
                           ("sphere-light-962", ls.sphere_light_doc(), 128),
@@ -390,9 +422,11 @@ def lights() -> None:
         t0 = time.perf_counter()
         ref, rt = megakernel.megakernel_reference(*args, **kw)
         torch.cuda.synchronize()
+        ok = (torch.equal(s1, s2) and torch.equal(t1, t2)
+              and torch.equal(s1, ref) and torch.equal(t1, rt))
+        out["bitwise"][label] = ok
         print(label, r.path, r.static.width, r.static.height,
-              "repeat identical", torch.equal(s1, s2) and torch.equal(t1, t2),
-              "bitwise", torch.equal(s1, ref), torch.equal(t1, rt),
+              "bit for bit, repeat identical", ok,
               "maxdiff", (s1 - ref).abs().max().item(), "rays",
               int(t1.sum()), int(rt.sum()), "plain s",
               time.perf_counter() - t0, "LIGHT_LAUNCHES",
@@ -409,23 +443,36 @@ def lights() -> None:
         ref, rt = megakernel.megakernel_reference(*args, **kw)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
+        out["bitwise"][label + " full"] = (torch.equal(sums, ref)
+                                           and torch.equal(traced, rt))
+        out["ms"][label] = _med(
+            lambda: megakernel.render_tile_mega(*args, **kw), 5)
         print(label, "full batch", r.static.width, r.static.height, "rays",
-              int(traced.sum()), "kernel ms",
-              _med(lambda: megakernel.render_tile_mega(*args, **kw), 3),
-              "bitwise", torch.equal(sums, ref), torch.equal(traced, rt),
-              "plain s", plain_s, "plain peak GiB",
+              int(traced.sum()), "kernel ms", out["ms"][label],
+              "bit for bit", out["bitwise"][label + " full"], "plain s",
+              plain_s, "plain peak GiB",
               torch.cuda.max_memory_allocated(dev) / 2 ** 30)
         del sums, traced, ref, rt
+        _busy(lib, label, r, args, kw, megakernel, out["busy"])
+    r = Renderer(_scene(cli.DEFAULT_SCENE, 1200, 675), device=dev)
+    args = (r.static, r.scene, r._geometry(0), r.camera, 0, 1)
+    kw = dict(use_dof=r.use_dof, times=r.batch_times_dev)
+    out["ms"]["final-one-weekend"] = _med(
+        lambda: megakernel.render_tile_mega(*args, **kw), 5)
+    _busy(lib, "final-one-weekend", r, args, kw, megakernel, out["busy"])
+
     r = Renderer(_doc_scene(ls.cornell_doc(), 1024), device=dev)
     before = (megakernel.LIGHT_LAUNCHES, sphere_sweep.LAUNCHES,
               tri_sweep.LAUNCHES)
     for _ in range(2):
         r.render_next_batch()
+    out["cornell-style_mrays"] = r.stats.mrays_per_sec
     print("cornell-style main path", r.path, "Mrays/s",
           r.stats.mrays_per_sec, "rays", r.stats.rays_traced, "launches",
           megakernel.LIGHT_LAUNCHES - before[0],
           sphere_sweep.LAUNCHES - before[1], tri_sweep.LAUNCHES - before[2],
           "means", r.image().mean((0, 1)))
+    print(json.dumps(out))
 
 
 def noise() -> None:
@@ -595,6 +642,7 @@ def spheres() -> None:
     print("build", time.perf_counter() - t0)
     print(_build.library_path("megakernel").with_suffix(".log").read_text())
     dev = torch.device("cuda:0")
+    out = {"card": _card(), "small_ms": {}, "ms": {}}
     tmp = tempfile.mkdtemp()
     png = ims.texel_id_png(str(Path(tmp) / "small.png"), 640, 320)
     for form, (doc, w, depth) in stress_scenes.cluster_form_checks(
@@ -613,6 +661,7 @@ def spheres() -> None:
               "maxdiff", (s1 - ref).abs().max().item(), "rays",
               int(t1.sum()), int(rt.sum()), "SPHERE_CLUSTER_LAUNCHES +",
               megakernel.SPHERE_CLUSTER_LAUNCHES - before)
+        out["small_ms"][form] = _cluster_times(args, kw, True)
 
     stress = stress_scenes.write_sphere_stress(tmp)
     mb = str(Path(cli.DEFAULT_SCENE).with_name(MB_SCENE))
@@ -642,6 +691,7 @@ def spheres() -> None:
               torch.equal(s1, ref), torch.equal(t1, rt), "rays",
               int(t1.sum()), "plain s", plain_s, "ms", _cluster_times(
                   args, kw, dense))
+        out["ms"][label] = _cluster_times(args, kw, dense)
         del r, args, kw, s1, t1, ref, rt
 
     t0 = time.perf_counter()
@@ -677,6 +727,7 @@ def spheres() -> None:
           abs(fused.mean((0, 1)) - w.image().mean((0, 1))).max(),
           "wavefront s", time.perf_counter() - t0, "ms",
           _cluster_times(args, kw, False))
+    out["ms"]["stress-16k"] = _cluster_times(args, kw, False)
     del r, w, args, kw, sums, traced
     for name in stress_scenes.SPHERE_STRESS:
         before = (megakernel.SPHERE_CLUSTER_LAUNCHES, sphere_sweep.LAUNCHES)
@@ -690,6 +741,7 @@ def spheres() -> None:
               sphere_sweep.LAUNCHES - before[1], "means",
               r.image().mean((0, 1)), "peak GiB",
               torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    print(json.dumps(out))
 
 
 def _change_smoke_lib():

@@ -1,12 +1,14 @@
 """What chip_smoke.py and tools/chip_probe.py share: the card's peak
 rates and the least time they allow, CUDA-event timing, the kernel
-builds with K4's form pins, K1's check against its plain version and the
-dev-probe phase.
+builds with K4's form pins, K1's check against its plain version, the
+dev-probe phase, and K4's idle lanes: two warp models over path lengths
+and the measuring build's own count.
 
 Every function here needs a CUDA card but ``least_ms``, ``ptxas_forms``,
-``ptxas_kernel``, ``sweep_diagnostics``, ``library_call`` and
-``rows_to_v3``; the port's modules are imported inside the functions
-that use them.
+``ptxas_kernel``, ``sweep_diagnostics``, ``library_call``,
+``rows_to_v3``, ``warp_tail``, ``warp_regen``, ``measured_busy`` and
+``wave_lengths`` (on CPU tensors); the port's modules are imported inside
+the functions that use them.
 """
 
 from __future__ import annotations
@@ -43,39 +45,33 @@ PEAK_BYTES = 3.35e12
 FLOPS_PER_TEST = 25
 FLOPS_PER_TEST_ANIM = 35
 
-# Registers and spill-store bytes of K4's forms without images, as the
-# parent of the image forms compiled them (nvcc -Xptxas -v; PERF.md, PR
-# 7), and of its image forms, as the parent of the clustered sphere forms
-# compiled them (PERF.md): the dense forms must compile as before.  The
-# sixteen triangle forms ("tris" in the name) are pinned as they compile
-# with the tree walk of csrc/tri_tree.cuh (PERF.md §6); the twenty others
-# must not move.
-FORMS_BEFORE = {"static": (61, 0), "anim": (62, 0), "tris": (64, 32),
-                "lights": (72, 0), "tris+lights": (72, 0),
-                "static+noise": (72, 8), "anim+noise": (72, 8),
-                "tris+noise": (72, 12), "lights+noise": (72, 8),
-                "tris+lights+noise": (72, 12)}
-IMAGE_FORMS_BEFORE = {"static+image": (64, 0), "tris+image": (64, 32),
-                      "lights+image": (64, 0), "tris+lights+image": (64, 32),
-                      "static+noise+image": (72, 8),
+# Registers and spill-store bytes of K4's 36 forms (nvcc -Xptxas -v) as
+# they compile with the loop of steps and per-lane regeneration (PERF.md
+# §6; 24 forms moved from the nested loops' pins, CHANGES.md): a change
+# to the kernel that moves a form must re-pin it and say so.  The dense
+# forms without images, the dense image forms, and the clustered twins.
+FORMS_BEFORE = {"static": (64, 0), "anim": (64, 0), "tris": (64, 8),
+                "lights": (64, 0), "tris+lights": (64, 4),
+                "static+noise": (72, 12), "anim+noise": (79, 0),
+                "tris+noise": (72, 12), "lights+noise": (72, 12),
+                "tris+lights+noise": (72, 20)}
+IMAGE_FORMS_BEFORE = {"static+image": (64, 0), "tris+image": (72, 0),
+                      "lights+image": (64, 0), "tris+lights+image": (69, 0),
+                      "static+noise+image": (80, 0),
                       "tris+noise+image": (72, 12),
-                      "lights+noise+image": (72, 8),
+                      "lights+noise+image": (80, 0),
                       "tris+lights+noise+image": (72, 12)}
-# The clustered sphere forms, as the parent of K4's raygen header
-# (csrc/raygen.cuh) compiled them on the same card (PERF.md): the header
-# move must change no form.  The triangle forms as above.
 CLUSTER_FORMS_BEFORE = {
-    "static+clusters": (56, 12), "anim+clusters": (64, 0),
-    "tris+clusters": (64, 32), "lights+clusters": (64, 0),
-    "tris+lights+clusters": (64, 32), "static+image+clusters": (64, 0),
-    "tris+image+clusters": (64, 32), "lights+image+clusters": (64, 0),
-    "tris+lights+image+clusters": (64, 32),
-    "static+noise+clusters": (72, 8), "anim+noise+clusters": (72, 8),
-    "tris+noise+clusters": (72, 12), "lights+noise+clusters": (72, 8),
-    "tris+lights+noise+clusters": (72, 12),
-    "static+noise+image+clusters": (72, 8),
+    "static+clusters": (64, 0), "anim+clusters": (64, 0),
+    "tris+clusters": (64, 8), "lights+clusters": (64, 0),
+    "tris+lights+clusters": (64, 4), "static+image+clusters": (64, 0),
+    "tris+image+clusters": (64, 12), "lights+image+clusters": (64, 0),
+    "tris+lights+image+clusters": (64, 8), "static+noise+clusters": (72, 12),
+    "anim+noise+clusters": (72, 20), "tris+noise+clusters": (72, 12),
+    "lights+noise+clusters": (72, 12), "tris+lights+noise+clusters": (72, 20),
+    "static+noise+image+clusters": (72, 20),
     "tris+noise+image+clusters": (72, 12),
-    "lights+noise+image+clusters": (72, 8),
+    "lights+noise+image+clusters": (72, 20),
     "tris+lights+noise+image+clusters": (72, 12)}
 # K3's registers and spill-store bytes (PERF.md): its walk, shared with K4
 # in csrc/tri_tree.cuh, compiles as when it was K3's alone.
@@ -249,40 +245,44 @@ def rows_to_v3(a, dev):
                 for i in range(3)))
 
 
-def kernel_modules():
-    """The module of each kernel source phase 2 builds, by source name."""
+def kernel_builds():
+    """The loader of each library phase 2 builds, by library name: the
+    seven kernel sources and K4's measuring build."""
     from raytrace_tpu_torch.ops import (megakernel, paged_tri, sphere_sweep,
                                         tri_sweep)
     from raytrace_tpu_torch.tools_dev import (micro_raygen, probe_ops,
                                               probe_trig)
 
-    return {"sphere_sweep": sphere_sweep, "tri_sweep": tri_sweep,
-            "megakernel": megakernel, "paged_tri": paged_tri,
-            "probe_ops": probe_ops, "probe_trig": probe_trig,
-            "micro_raygen": micro_raygen}
+    return {"sphere_sweep": sphere_sweep.library,
+            "tri_sweep": tri_sweep.library, "megakernel": megakernel.library,
+            "megakernel_measure": megakernel.measure_library,
+            "paged_tri": paged_tri.library, "probe_ops": probe_ops.library,
+            "probe_trig": probe_trig.library,
+            "micro_raygen": micro_raygen.library}
 
 
 def build_kernels(names=None):
-    """Phase 2: builds every kernel source (or those ``names``), one nvcc
-    each, started together; prints each build's seconds and nvcc's
-    register report, a line per K4 form and K3's; every K4 form must keep
-    the registers and spills pinned for it (FORMS_BEFORE,
-    IMAGE_FORMS_BEFORE, CLUSTER_FORMS_BEFORE), and K3 its K3_BEFORE."""
+    """Phase 2: builds every library (or those ``names``), one nvcc each,
+    started together; prints each build's seconds and nvcc's register
+    report, a line per K4 form and K3's; every K4 form must keep the
+    registers and spills pinned for it (FORMS_BEFORE, IMAGE_FORMS_BEFORE,
+    CLUSTER_FORMS_BEFORE), and K3 its K3_BEFORE.  K4's measuring build
+    has every form too; its registers are printed, not pinned."""
     from raytrace_tpu_torch.ops import _build
 
-    def timed_build(mod):
+    def timed_build(load):
         t0 = time.perf_counter()
-        mod.library()
+        load()
         return time.perf_counter() - t0
 
-    mods = {name: mod for name, mod in kernel_modules().items()
-            if names is None or name in names}
-    with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
-        secs = dict(zip(mods, pool.map(timed_build, mods.values())))
+    loads = {name: load for name, load in kernel_builds().items()
+             if names is None or name in names}
+    with concurrent.futures.ThreadPoolExecutor(len(loads)) as pool:
+        secs = dict(zip(loads, pool.map(timed_build, loads.values())))
     for name, sec in secs.items():
-        print(f"build: csrc/{name}.cu in {sec:.2f} s")
+        print(f"build: {name} ({_build.source(name).name}) in {sec:.2f} s")
         log = _build.library_path(name).with_suffix(".log")
-        if log.exists():
+        if log.exists() and name != "megakernel_measure":
             print(log.read_text().strip())
     if names is not None:
         return secs
@@ -298,6 +298,12 @@ def build_kernels(names=None):
             raise AssertionError(f"K4's {form} form changed: {regs} "
                                  f"registers, {spill} bytes spilled, "
                                  f"before {before[form]}")
+    measured = ptxas_forms(_build.library_path(
+        "megakernel_measure").with_suffix(".log").read_text())
+    if sorted(f for f, _, _ in measured) != K4_FORMS:
+        raise AssertionError(f"K4's measuring build's forms: {measured}")
+    print("K4's measuring build (registers, spill bytes): "
+          + ", ".join(f"{f} {r}/{b}" for f, r, b in measured))
     k3_regs, k3_spill = ptxas_kernel(_build.library_path(
         "paged_tri").with_suffix(".log").read_text())
     print(f"K3: {k3_regs} registers, {k3_spill} bytes spill stores")
@@ -305,6 +311,107 @@ def build_kernels(names=None):
         raise AssertionError(f"K3 changed: {k3_regs} registers, {k3_spill} "
                              f"bytes spilled, before {K3_BEFORE}")
     return secs
+
+
+# ---- K4's idle lanes: two models of a warp over per-(pixel, sample) path
+# lengths, and the measuring build's own count.
+
+def _warps(lengths):
+    """[n_warps, 32, K] float64 of [n_pix, K] path lengths: warps of 32
+    consecutive pixels, a last partial warp dropped."""
+    n_pix, k = lengths.shape
+    return torch.as_tensor(lengths)[:n_pix - n_pix % 32].reshape(
+        -1, 32, k).double()
+
+
+def warp_tail(lengths):
+    """Lanes busy under per-sample reconvergence (a loop over samples around
+    a loop over bounces: a warp of 32 consecutive pixels runs each sample
+    until its longest path ends) from [n_pix, K] path lengths: for each
+    warp and sample, the longest and the mean path length of its 32 lanes.
+    Returns (mean lanes busy: the sum of the means over the sum of the
+    longest, the mean of the per-(warp, sample) ratios, the mean longest,
+    the mean path length)."""
+    warps = _warps(lengths)
+    longest = warps.amax(dim=1)
+    mean = warps.mean(dim=1)
+    return (float(mean.sum() / longest.sum()),
+            float((mean / longest.clamp(min=1)).mean()),
+            float(longest.mean()), float(mean.mean()))
+
+
+def warp_regen(lengths):
+    """Lanes busy under per-lane regeneration (one loop of steps, a lane
+    starting its pixel's next sample where a path ends: a warp runs as many
+    steps as its busiest lane's total over its K samples) from [n_pix, K]
+    path lengths.  Returns (mean lanes busy: the sum over warps of the
+    lanes' total path lengths over the sum of 32 x the busiest lane's
+    total, the mean of the per-warp ratios, the mean busiest lane's total,
+    the mean lane's total)."""
+    totals = _warps(lengths).sum(dim=2)
+    busiest = totals.amax(dim=1)
+    mean = totals.mean(dim=1)
+    return (float(mean.sum() / busiest.sum()),
+            float((mean / busiest.clamp(min=1)).mean()),
+            float(busiest.mean()), float(mean.mean()))
+
+
+def measured_busy(counts):
+    """The measuring build's lanes-busy share and each phase's share of the
+    warps' cycles, from megakernel.measure_tile_mega's counters."""
+    from raytrace_tpu_torch.ops import megakernel
+
+    phases = megakernel.MEASURE_SLOTS[2:]
+    cycles = sum(counts[k] for k in phases)
+    return (counts["busy"] / max(counts["slots"], 1),
+            {k: counts[k] / max(cycles, 1) for k in phases})
+
+
+def measure_busy(args, kw):
+    """K4's measuring build on one launch of ``render_tile_mega(*args,
+    **kw)``: its sums and counts must be the normal build's, byte for
+    byte, and its busy lanes must add up to the bounces traced.  Returns
+    {"busy": lanes-busy share, "phases": measured_busy's, "steps": warp
+    steps}."""
+    from raytrace_tpu_torch.ops import megakernel
+
+    sums, traced = megakernel.render_tile_mega(*args, **kw)
+    m_sums, m_traced, counts = megakernel.measure_tile_mega(*args, **kw)
+    if not (torch.equal(sums, m_sums) and torch.equal(traced, m_traced)):
+        raise AssertionError("the measuring build's sums differ from the "
+                             "normal build's")
+    if counts["busy"] != int(traced.sum()):
+        raise AssertionError(f"the measuring build counted {counts['busy']} "
+                             f"busy lanes for {int(traced.sum())} bounces")
+    busy, phases = measured_busy(counts)
+    return {"busy": busy, "phases": phases, "steps": counts["slots"] // 32}
+
+
+def wave_lengths(static, scene, cam, trace, geom, use_dof, rows_per_tile,
+                 batch: int = 0):
+    """Batch ``batch`` on the wavefront with ``trace``, as render_tile
+    renders it tile by tile, keeping each ray's bounce count.  Returns
+    (image [H, W, 3] on the card, rays traced, [H * W, spp] int32 each
+    (pixel, sample)'s bounces: its path length)."""
+    from raytrace_tpu_torch.engine import wavefront
+    from raytrace_tpu_torch.ops import vec3
+
+    W, H = static.width, static.height
+    spp = static.sqrt_spp ** 2
+    dev = geom.sph_table8.device
+    tiles, rays, lengths = [], 0, []
+    for row0 in range(0, H, rows_per_tile):
+        state, o, d = wavefront.primary_rays(static, cam, batch, row0,
+                                             rows_per_tile, use_dof, dev)
+        counts = torch.zeros(o.x.shape[0], dtype=torch.int32, device=dev)
+        radiance, tr = wavefront.bounce_wavefront(static, scene, trace,
+                                                  geom, state, o, d, counts)
+        tiles.append(vec3.to_rows(radiance).reshape(
+            rows_per_tile, W, spp, 3).mean(2))
+        lengths.append(counts.reshape(rows_per_tile, W * spp)[:H - row0])
+        rays += tr
+    return (torch.cat(tiles, dim=0)[:H], rays,
+            torch.cat(lengths).reshape(H * W, spp))
 
 
 def library_call(name, x, tab):

@@ -48,8 +48,12 @@ clustered sphere forms (each form, and its noise and image twins, with
 the spheres in Morton clusters): bit for bit with their plain (dense)
 versions on the small docs of tools/stress_scenes.cluster_form_checks,
 two launches byte-identical, and the dense forms the same on those docs
-with the cluster layout dropped; the Renderer's fused path on stress-4x
-against its wavefront: channel means within 2e-3, rays within 0.5%.  The
+with the cluster layout dropped, each at the doc's depth and, for the
+loop of steps' termination, at max_depth 1, 2 and 50 over batches 1-2
+with the samples numbered from 2; no bounce at max_depth <= 0; the
+measuring build's sums byte-identical with the normal build's on every
+form, its busy lanes adding up to the bounces traced; the Renderer's
+fused path on stress-4x against its wavefront: channel means within 2e-3, rays within 0.5%.  The
 final-one-weekend and motion-blur checks above run both the clustered
 form (the scenes' layout) and the dense one (layout dropped).  The dev
 probes (raytrace_tpu_torch/tools_dev/, built without contraction): P1's
@@ -1028,20 +1032,38 @@ CLUSTER_FORMS = ["static", "anim", "tris", "lights", "tris+lights",
                  "tris+lights+noise+image"]
 
 
-def _cluster_form_args(form, tmp_path, dev, w=48):
+def _cluster_form_args(form, tmp_path, dev, w=48, depth=None, batches=2):
+    """The launch arguments of ``form``'s clustered doc at width ``w``
+    (its depth replaced where given) for 2 batches from batch 0."""
     from raytrace_tpu_torch.tools import stress_scenes
 
-    doc, _, depth = stress_scenes.cluster_form_checks(
+    doc, _, doc_depth = stress_scenes.cluster_form_checks(
         _image_png(tmp_path))[form]
-    r = Renderer(_doc_cs(doc, w, depth, 2), device=dev)
+    r = Renderer(_doc_cs(doc, w, depth or doc_depth, batches), device=dev)
     assert r.use_megakernel and r._geometry(0).sph_boxes is not None
     return (r.static, r.scene, r._geometry(0), r.camera, 0, 2), dict(
         use_dof=r.use_dof, times=r.batch_times_dev)
 
 
+# The loop of steps' termination and sample numbering: the doc's depth from
+# batch 0, and max_depth 1, 2 and 50 over batches 1-2 with the samples
+# numbered from 2 (sample_base; the plain version numbers them the same).
+LOOP_CASES = {"doc": (None, 0, 0), "depth-1": (1, 1, 2),
+              "depth-2": (2, 1, 2), "depth-50": (50, 1, 2)}
+
+
+def _loop_case_args(form, case, tmp_path, dev):
+    depth, batch0, base = LOOP_CASES[case]
+    args, kw = _cluster_form_args(form, tmp_path, dev, depth=depth,
+                                  batches=batch0 + 2)
+    return args[:4] + (batch0, 2, base), kw
+
+
+@pytest.mark.parametrize("case", LOOP_CASES)
 @pytest.mark.parametrize("form", CLUSTER_FORMS)
-def test_sphere_cluster_kernel_matches_plain_bit_for_bit(dev, form, tmp_path):
-    args, kw = _cluster_form_args(form, tmp_path, dev)
+def test_sphere_cluster_kernel_matches_plain_bit_for_bit(dev, form, case,
+                                                         tmp_path):
+    args, kw = _loop_case_args(form, case, tmp_path, dev)
     before = megakernel.LAUNCHES, megakernel.SPHERE_CLUSTER_LAUNCHES
     sums, traced = megakernel.render_tile_mega(*args, **kw)
     again, traced2 = megakernel.render_tile_mega(*args, **kw)
@@ -1054,12 +1076,14 @@ def test_sphere_cluster_kernel_matches_plain_bit_for_bit(dev, form, tmp_path):
     assert torch.equal(sums, ref) and torch.equal(traced, ref_traced)
 
 
+@pytest.mark.parametrize("case", LOOP_CASES)
 @pytest.mark.parametrize("form", CLUSTER_FORMS)
-def test_dense_kernel_matches_plain_on_the_cluster_docs(dev, form, tmp_path):
+def test_dense_kernel_matches_plain_on_the_cluster_docs(dev, form, case,
+                                                        tmp_path):
     """The dense form of each clustered one, on the same doc with the
     cluster layout dropped: bit for bit with the plain version, two
     launches byte-identical, no clustered launch."""
-    args, kw = _cluster_form_args(form, tmp_path, dev)
+    args, kw = _loop_case_args(form, case, tmp_path, dev)
     args = _with_layout(args, "dense")
     before = megakernel.LAUNCHES, megakernel.SPHERE_CLUSTER_LAUNCHES
     sums, traced = megakernel.render_tile_mega(*args, **kw)
@@ -1071,6 +1095,38 @@ def test_dense_kernel_matches_plain_on_the_cluster_docs(dev, form, tmp_path):
     ref, ref_traced = megakernel.megakernel_reference(*args, **kw)
     assert torch.isfinite(sums).all() and float(sums.max()) > 0.0
     assert torch.equal(sums, ref) and torch.equal(traced, ref_traced)
+
+
+@pytest.mark.parametrize("depth", [0, -1])
+def test_fused_kernel_traces_nothing_without_depth(dev, depth, tmp_path):
+    """max_depth <= 0: no bounce, sums and counts 0, as the plain version;
+    the loop of steps must not spin."""
+    args, kw = _cluster_form_args("lights", tmp_path, dev, w=16)
+    args = (dataclasses.replace(args[0], max_ray_depth=depth),) + args[1:]
+    sums, traced = megakernel.render_tile_mega(*args, **kw)
+    ref, ref_traced = megakernel.megakernel_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert not sums.any() and not traced.any()
+    assert torch.equal(sums, ref) and torch.equal(traced, ref_traced)
+
+
+@pytest.mark.parametrize("layout", ["clusters", "dense"])
+@pytest.mark.parametrize("form", CLUSTER_FORMS)
+def test_measuring_build_gives_the_same_bytes(dev, form, layout, tmp_path):
+    """K4's measuring build (csrc/megakernel.cu under K4_MEASURE): the
+    normal build's sums and counts, byte for byte, not counted as a
+    launch; its busy lanes add up to the bounces traced, within its lane
+    slots, and every phase took cycles."""
+    args, kw = _cluster_form_args(form, tmp_path, dev)
+    args = _with_layout(args, layout)
+    sums, traced = megakernel.render_tile_mega(*args, **kw)
+    before = megakernel.LAUNCHES
+    m_sums, m_traced, counts = megakernel.measure_tile_mega(*args, **kw)
+    assert megakernel.LAUNCHES == before
+    assert torch.equal(sums, m_sums) and torch.equal(traced, m_traced)
+    assert counts["busy"] == int(traced.sum())
+    assert counts["slots"] % 32 == 0 and counts["slots"] >= counts["busy"]
+    assert all(counts[k] > 0 for k in megakernel.MEASURE_SLOTS[2:])
 
 
 def test_sphere_cluster_kernel_needs_the_boxes(dev, tmp_path):

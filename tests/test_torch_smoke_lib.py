@@ -1,10 +1,14 @@
 """What chip_smoke.py and tools/chip_probe.py share
 (raytrace_tpu_torch/tools/smoke_lib.py), on the CPU: the least time the
 card allows, the parse of nvcc's register report, K1's failure
-diagnostics and the PyTorch calls timed beside the P1 probes."""
+diagnostics, the PyTorch calls timed beside the P1 probes, and K4's idle
+lanes: the per-sample and regenerating warp models, the measuring
+build's counters and the wavefront's path lengths."""
 
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from raytrace_tpu_torch.tools import smoke_lib
 from raytrace_tpu_torch.tools_dev import probe_ops
@@ -101,3 +105,121 @@ def test_k3_tables_take_the_tree():
     assert smoke_lib.k3_tables(SimpleNamespace(tri_tree="tree",
                                                tri_pages=None)) == "tree"
     assert smoke_lib.k3_tables(SimpleNamespace(tri_pages="pages")) == "pages"
+
+
+# ---- K4's idle lanes: the two warp models over path lengths ---------------
+
+def test_warp_models_give_one_for_equal_lengths():
+    lengths = torch.full((96, 5), 7, dtype=torch.int32)
+    assert smoke_lib.warp_tail(lengths) == (1.0, 1.0, 7.0, 7.0)
+    assert smoke_lib.warp_regen(lengths) == (1.0, 1.0, 35.0, 35.0)
+
+
+def test_warp_models_on_two_warps_worked_by_hand():
+    """Warp 0: every path 1 bounce but lane 0's first sample (3).  Warp 1:
+    every path 2 but lane 5's second sample and lane 7's first (4 each).
+    Per sample the warps run 3 + 1 and 4 + 4 steps; regenerating, their
+    busiest lanes' totals, 4 and 6."""
+    lengths = torch.ones((64, 2), dtype=torch.int32)
+    lengths[0, 0] = 3
+    lengths[32:] = 2
+    lengths[32 + 5, 1] = 4
+    lengths[32 + 7, 0] = 4
+    tail = smoke_lib.warp_tail(lengths)
+    assert tail == pytest.approx((
+        (34 / 32 + 1 + 66 / 32 + 66 / 32) / 12,
+        (34 / 96 + 1 + 66 / 128 + 66 / 128) / 4, 3.0,
+        (34 / 32 + 1 + 66 / 32 + 66 / 32) / 4), abs=1e-12)
+    regen = smoke_lib.warp_regen(lengths)
+    assert regen == pytest.approx((
+        (66 / 32 + 132 / 32) / 10, (66 / 128 + 132 / 192) / 2, 5.0,
+        (66 / 32 + 132 / 32) / 2), abs=1e-12)
+    assert regen[0] > tail[0]
+
+
+def test_warp_tail_gives_the_per_sample_numbers():
+    """The per-sample model (moved from chip_smoke.py) against a plain
+    loop over warps and samples; a last partial warp is dropped."""
+    import numpy as np
+
+    g = np.random.default_rng(5)
+    lengths = g.integers(1, 40, (32 * 3 + 11, 6)).astype(np.int32)
+    ratios, means, longest = [], [], []
+    for w in range(3):
+        for s in range(6):
+            lane = lengths[32 * w:32 * (w + 1), s].astype(np.float64)
+            ratios.append(lane.mean() / lane.max())
+            means.append(lane.mean())
+            longest.append(lane.max())
+    want = (sum(means) / sum(longest), np.mean(ratios), np.mean(longest),
+            np.mean(means))
+    assert smoke_lib.warp_tail(torch.tensor(lengths)) == pytest.approx(
+        want, rel=1e-12)
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.integers(1, 4), st.integers(1, 9), st.integers(0, 2 ** 32 - 1),
+       st.integers(1, 60))
+def test_regeneration_keeps_at_least_as_many_lanes_busy(warps, k, seed, top):
+    """A lane's total over its samples is at most the sum of each sample's
+    longest path, so the regenerating share is never below the per-sample
+    one."""
+    import numpy as np
+
+    g = np.random.default_rng(seed)
+    lengths = torch.tensor(g.integers(1, top + 1, (32 * warps, k)),
+                           dtype=torch.int32)
+    tail, regen = smoke_lib.warp_tail(lengths), smoke_lib.warp_regen(lengths)
+    assert regen[0] >= tail[0] - 1e-12 and regen[1] >= tail[1] - 1e-12
+    assert 0.0 < tail[0] <= 1.0 and 0.0 < regen[0] <= 1.0
+
+
+def test_measured_busy_reads_the_counters():
+    counts = {"busy": 96, "slots": 128, "regen": 10, "hit": 50, "shade": 20,
+              "nee": 15, "end": 5}
+    busy, phases = smoke_lib.measured_busy(counts)
+    assert busy == 0.75
+    assert phases == {"regen": 0.1, "hit": 0.5, "shade": 0.2, "nee": 0.15,
+                      "end": 0.05}
+
+
+def test_wave_lengths_count_each_sample_bounce_by_bounce():
+    """A small cornell-style frame on the CPU's wavefront: the path
+    lengths add up to the rays traced, and per pixel to the fused path's
+    plain version's bounce counts."""
+    import dataclasses
+
+    from raytrace_tpu_torch.engine import Renderer, wavefront
+    from raytrace_tpu_torch.models import compile_scene
+    from raytrace_tpu_torch.ops import megakernel
+    from raytrace_tpu_torch.scene_file import SceneFile
+    from raytrace_tpu_torch.tools import light_scenes
+
+    cs = compile_scene(SceneFile.from_json_dict(light_scenes.cornell_doc()),
+                       width=8)
+    cs = dataclasses.replace(cs, render=dataclasses.replace(
+        cs.render, samples_per_pixel=4, max_ray_depth=20))
+    r = Renderer(cs, device="cpu", use_megakernel=True)
+    geom = r._geometry(0)
+    trace = wavefront.make_trace_fn(r.static, r.scene, geom)
+    img, rays, lengths = smoke_lib.wave_lengths(
+        r.static, r.scene, r.camera, trace, geom, r.use_dof,
+        r.rows_per_tile)
+    assert img.shape == (8, 8, 3) and lengths.shape == (64, 4)
+    assert int(lengths.sum()) == rays and int(lengths.min()) >= 1
+    _, traced = megakernel.megakernel_reference(
+        r.static, r.scene, geom, r.camera, 0, 1, use_dof=r.use_dof)
+    assert torch.equal(lengths.sum(1).reshape(8, 8), traced)
+
+
+def test_kernel_builds_include_the_measuring_build():
+    from raytrace_tpu_torch.ops import _build, megakernel
+
+    builds = smoke_lib.kernel_builds()
+    assert builds["megakernel_measure"] is megakernel.measure_library
+    assert len(builds) == 8
+    assert _build.source("megakernel_measure") == _build.source("megakernel")
+    assert "-DK4_MEASURE" in _build.nvcc_flags("megakernel_measure")
+    assert "-DK4_MEASURE" not in _build.nvcc_flags("megakernel")
+    assert (_build.library_path("megakernel_measure")
+            != _build.library_path("megakernel"))
