@@ -77,8 +77,9 @@ printing a result.  No path runs at a cut depth.  Phases:
    and at the main path's 1200x675, 4 spp, depth 50, one batch (rays
    within 0.5%, means within 2e-3, and bit for bit: the clustered static
    form); two launches give the same bytes; both timed with CUDA events,
-   and the dense form on the same batch; the clustered traversal's work
-   counted for the bound on 2^17 of the wavefront's rays of the batch;
+   and the dense form on the same batch; the clustered sweep's work (the
+   sphere tree's walk, beside the flat cluster walk it replaced) counted
+   for the bound on 2^17 of the wavefront's rays of the batch;
    wherever a scene in clusters is held to the plain version (here and
    below, up to the dense gate's 4096 spheres), its dense form (the
    layout dropped) is too, bit for bit, two launches byte-identical;
@@ -120,7 +121,8 @@ printing a result.  No path runs at a cut depth.  Phases:
    depth 50, k=1, and each full batch bit for bit with the plain version
    (both timed, stress-4x's dense form too) and against the wavefront
    with K1 on the same batch (rays within 0.5%, means within 2e-3),
-   whose rays count the clustered work of the bound; then K3 bit
+   whose rays count the clustered work of the bound (stress-16k's tree
+   larger than the node rows a block stages); then K3 bit
    for bit with its plain version and with K2 (two launches
    byte-identical) on random soups whose leaf counts are not powers of
    two, with a duplicate pair and an alive mask (40,000, 3,001 and 5
@@ -210,7 +212,8 @@ spheres, not the table's padding rows; K4's triangle, lit, noise and
 image forms' and K3's are estimates, see _k4_tris_bound (the tree's
 work, beside the flat cluster walk's as flat_bound_ms), _noise_bound,
 _image_bound and _k3_full; its clustered forms' count the traversal's
-work on a subset of the rays, _cluster_bound), the last line
+work on a subset of the rays, the sphere tree's beside the flat cluster
+walk's as flat_bound_ms, _cluster_bound), the last line
 {"ok": true, "device": {...}}.
 """
 
@@ -390,16 +393,19 @@ def _k4_tris_bound(static, geom, work, width: int, height: int, scene=None):
 def _cluster_work(wave_r, geom, times=None):
     """Render batch 0 of ``wave_r``'s scene on the wavefront (K1), as
     render_next_batch does, capturing every bounce's alive rays; count on
-    CLUSTER_SUBSET of them K4's clustered traversal against ``geom`` (the
-    fused path's geometry, moved to times[0] when it moves) with
-    ops/megakernel.sphere_cluster_sweep_reference.  Returns (image [H, W,
-    3] on the host, rays traced, per-ray work: prefix sphere tests, box
-    tests and sphere tests in clusters that pass, [H * W, spp] each
-    (pixel, sample)'s path length)."""
+    CLUSTER_SUBSET of them K4's clustered sweep against ``geom`` (the
+    fused path's geometry, moved to times[0] when it moves): the tree
+    walk's work (ops/sphere_tree.sphere_tree_visit_counts, against the
+    dense sweep's closest hit) and the flat cluster walk's that it
+    replaced (ops/megakernel.sphere_cluster_sweep_reference over
+    sphere_cluster_boxes).  Returns (image [H, W, 3] on the host, rays
+    traced, per-ray work: prefix sphere tests, the tree's node and sphere
+    tests, the flat walk's box tests and sphere tests in clusters that
+    pass, [H * W, spp] each (pixel, sample)'s path length)."""
     import torch
 
     from raytrace_tpu_torch.engine import wavefront
-    from raytrace_tpu_torch.ops import megakernel
+    from raytrace_tpu_torch.ops import megakernel, sphere_sweep, sphere_tree
     from raytrace_tpu_torch.ops.vec3 import V3
 
     static, scene = wave_r.static, wave_r.scene
@@ -422,36 +428,67 @@ def _cluster_work(wave_r, geom, times=None):
         allr.device)
     sub = allr[:, sel]
     o, d = V3(*sub[0:3]), V3(*sub[3:6])
-    n_prefix, G, _ = megakernel.sphere_cluster_layout(static)
-    work = {}
+    layout = megakernel.sphere_cluster_layout(static)
+    t = None if times is None else times[0]
+    moved = (geom.sph_table8 if t is None else
+             megakernel.moved_table(geom.sph_table8, geom.sph_dtab8, t))
+    best_t, _ = sphere_sweep.sphere_sweep_reference(o, d, moved)
+    tree = sphere_tree.sphere_tree_visit_counts(o, d, geom.sph_tree, best_t)
+    flat = {}
     megakernel.sphere_cluster_sweep_reference(
-        o, d, geom.sph_table8, geom.sph_boxes, n_prefix, G,
-        dtab8=geom.sph_dtab8, t=None if times is None else times[0],
-        work=work)
-    per_ray = {k: work[k] / work["rays"] for k in ("prefix_tests",
+        o, d, geom.sph_table8, megakernel.sphere_cluster_boxes(
+            geom.sph_table8, *layout, dtab8=geom.sph_dtab8),
+        *layout[:2], dtab8=geom.sph_dtab8, t=t, work=flat)
+    per_ray = {k: flat[k] / flat["rays"] for k in ("prefix_tests",
                                                   "box_tests",
                                                   "sphere_tests")}
+    per_ray.update(node_tests=tree["node_tests"] / tree["rays"],
+                   tree_sphere_tests=tree["sphere_tests"] / tree["rays"])
     return img, rays, per_ray, lengths
+
+
+def _tree_work_text(per_ray) -> str:
+    """The clustered sweep's work a bounce, the tree's beside the flat
+    walk's, as the phases print it."""
+    return (f"{per_ray['prefix_tests']:.0f} prefix tests, then the tree's "
+            f"{per_ray['node_tests']:.2f} nodes "
+            f"({2 * per_ray['node_tests']:.2f} box tests) and {per_ray['tree_sphere_tests']:.2f} sphere tests "
+            f"(the flat walk's {per_ray['box_tests']:.0f} box pretests and "
+            f"{per_ray['sphere_tests']:.2f} sphere tests in clusters that "
+            f"pass)")
 
 
 def _cluster_bound(geom, per_ray, traced_sum: int, width: int, height: int,
                    n_times: int):
     """K4's bound for one launch of a clustered sphere form, from the
     per-ray work ``_cluster_work`` counted: every bounce tests the prefix,
-    every cluster box and the spheres of the clusters that pass; bytes
-    are the tables, boxes, rows, parameters (and motion rows and times)
-    read once and the sums and counts written once."""
+    then the tree's nodes (two widened boxes each) and the spheres of the
+    leaves that a walk proving its closest hit must reach; bytes are the
+    prefix's rows, the tree's rows, nodes and ids, the fat rows and
+    parameters (and motion rows and times) read once and the sums and
+    counts written once.  Returns (that bound, the flat cluster walk's
+    that the tree replaced: every cluster box pretested and the spheres
+    of the clusters that pass, the table and boxes read once)."""
     anim = geom.sph_dtab8 is not None
     per_test = FLOPS_PER_TEST_ANIM if anim else FLOPS_PER_TEST
-    flops = traced_sum * ((per_ray["prefix_tests"] + per_ray["sphere_tests"])
-                          * per_test
-                          + per_ray["box_tests"] * FLOPS_PER_SPHERE_PRETEST)
-    nbytes = (geom.sph_table8.numel() + geom.sph_boxes.numel()
-              + geom.prim_rows.numel() + 40) * 4
+    tree = geom.sph_tree
+    nbytes = (geom.prim_rows.numel() + 40) * 4 + width * height * (3 * 4 + 4)
     if anim:
-        nbytes += (geom.sph_dtab8.numel() + n_times) * 4
-    nbytes += width * height * (3 * 4 + 4)
-    return least_ms(flops, nbytes)
+        nbytes += n_times * 4
+    rows = 2 if anim else 1      # [n, 8] rows, and their motion rows
+    tree_flops = traced_sum * (
+        (per_ray["prefix_tests"] + per_ray["tree_sphere_tests"]) * per_test
+        + per_ray["node_tests"] * 2 * FLOPS_PER_SPHERE_PRETEST)
+    tree_bytes = (rows * 8 * (tree.n_prefix + tree.num_spheres)
+                  + tree.nodes.numel() + tree.ids.numel()) * 4
+    flat_flops = traced_sum * (
+        (per_ray["prefix_tests"] + per_ray["sphere_tests"]) * per_test
+        + per_ray["box_tests"] * FLOPS_PER_SPHERE_PRETEST)
+    # Every ray pretests every cluster box: box_tests a ray is C.
+    flat_bytes = (geom.sph_table8.numel() * rows
+                  + 8 * round(per_ray["box_tests"])) * 4
+    return (least_ms(tree_flops, nbytes + tree_bytes),
+            least_ms(flat_flops, nbytes + flat_bytes))
 
 
 def _dense_ms(args, kw):
@@ -1350,7 +1387,8 @@ def main() -> int:
     dense_bound = _k4_bound(full.static, args[2], k4_rays, WIDTH, HEIGHT, 0)
     _, _, per_ray, lengths = _cluster_work(
         Renderer(cs, device=dev, use_megakernel=False), args[2])
-    k4_bound = _cluster_bound(args[2], per_ray, k4_rays, WIDTH, HEIGHT, 0)
+    k4_bound, k4_flat = _cluster_bound(args[2], per_ray, k4_rays, WIDTH,
+                                       HEIGHT, 0)
     fow = _warp_models("final-one-weekend", lengths, card)
     fow["measured"] = _measured_busy("final-one-weekend", args, kw, fow,
                                      card)
@@ -1360,11 +1398,9 @@ def main() -> int:
           f"the dense form {k4_dense_ms:.3f} ms (median of 5), plain "
           f"PyTorch {k4_plain_ms:.3f} ms (median of 2) (CUDA events); work "
           f"counted on {CLUSTER_SUBSET} of the wavefront's rays, a bounce: "
-          f"{per_ray['prefix_tests']:.0f} prefix tests, "
-          f"{per_ray['box_tests']:.0f} box pretests, "
-          f"{per_ray['sphere_tests']:.2f} sphere tests in clusters that "
-          f"pass; bound {k4_bound[0]:.4f} ms by {k4_bound[1]} "
-          f"({k4_bound[0] / k4_ms:.4f} of it), the dense sweep's "
+          f"{_tree_work_text(per_ray)}; bound {k4_bound[0]:.4f} ms by "
+          f"{k4_bound[1]} ({k4_bound[0] / k4_ms:.4f} of it), the flat "
+          f"walk's {k4_flat[0]:.4f} ms, the dense sweep's "
           f"{dense_bound[0]:.4f} ms by {dense_bound[1]} ({card})")
     print(f"raygen's share of K4's final-one-weekend batch: P3 base at "
           f"{WIDTH}x{HEIGHT}x4 cells, one iteration, {raygen_b1['ms']:.4f} "
@@ -1406,17 +1442,16 @@ def main() -> int:
         Renderer(cs_mb, device=dev, use_megakernel=False), args[2],
         mb_full.batch_times_dev)
     lanes_busy["motion-blur"] = _warp_models("motion-blur", lengths, card)
-    anim_bound = _cluster_bound(args[2], per_ray, anim_rays, MB_WIDTH,
-                                MB_HEIGHT, n_times)
+    anim_bound, anim_flat = _cluster_bound(args[2], per_ray, anim_rays,
+                                           MB_WIDTH, MB_HEIGHT, n_times)
     print(f"animated fused kernel (clustered) time at {MB_WIDTH}x"
           f"{MB_HEIGHT}, 4 spp, depth 50, one batch: kernel {anim_ms:.3f} ms "
           f"(median of 5), the dense form {anim_dense_ms:.3f} ms (median of "
           f"5), plain PyTorch {anim_plain_ms:.3f} ms (median of 2) (CUDA "
-          f"events); work a bounce: {per_ray['prefix_tests']:.0f} prefix "
-          f"tests, {per_ray['box_tests']:.0f} box pretests, "
-          f"{per_ray['sphere_tests']:.2f} sphere tests; bound "
+          f"events); work a bounce: {_tree_work_text(per_ray)}; bound "
           f"{anim_bound[0]:.4f} ms by {anim_bound[1]} "
-          f"({anim_bound[0] / anim_ms:.4f} of it), the dense sweep's "
+          f"({anim_bound[0] / anim_ms:.4f} of it), the flat walk's "
+          f"{anim_flat[0]:.4f} ms, the dense sweep's "
           f"{dense_bound[0]:.4f} ms by {dense_bound[1]} ({card})")
     del mb_small, mb_full, args, kw
 
@@ -1698,7 +1733,7 @@ def main() -> int:
         shape = (r.path == "fused_anim", r.static.has_tris,
                  r.static.has_lights, r.static.flags.has_noise,
                  r.static.flags.has_image)
-        if (not r.use_megakernel or r._geometry(0).sph_boxes is None
+        if (not r.use_megakernel or r._geometry(0).sph_tree is None
                 or shape != tuple(f in parts for f in ("anim", "tris",
                                                        "lights", "noise",
                                                        "image"))):
@@ -1775,7 +1810,8 @@ def main() -> int:
         if abs(rays - wave_rays) > 0.005 * wave_rays or mdiff > 2e-3:
             raise AssertionError(f"{name}: the fused and wavefront renders "
                                  f"disagree")
-        bound = _cluster_bound(args[2], per_ray, rays, *STRESS_SIZE, 0)
+        bound, flat = _cluster_bound(args[2], per_ray, rays, *STRESS_SIZE,
+                                     0)
         dense_bound = _k4_bound(r.static, args[2], rays, *STRESS_SIZE, 0)
         dense = (f"the dense form {_dense_ms(args, kw):.3f} ms (median of "
                  f"5), " if r.static.num_spheres <= megakernel.MAX_SPHERES
@@ -1787,15 +1823,13 @@ def main() -> int:
               f"{rays / stress_ms / 1e3:.1f} Mrays/s in the kernel, the "
               f"wavefront "
               f"{wave_rays / wave_s / 1e6:.3f} Mrays/s; work a bounce: "
-              f"{per_ray['prefix_tests']:.0f} prefix tests, "
-              f"{per_ray['box_tests']:.0f} box pretests, "
-              f"{per_ray['sphere_tests']:.2f} sphere tests in clusters that "
-              f"pass (of {r.static.num_spheres}); bound {bound[0]:.4f} ms by "
-              f"{bound[1]} ({bound[0] / stress_ms:.4f} of it), the dense "
-              f"sweep's "
+              f"{_tree_work_text(per_ray)} (of {r.static.num_spheres} "
+              f"spheres); bound {bound[0]:.4f} ms by {bound[1]} "
+              f"({bound[0] / stress_ms:.4f} of it), the flat walk's "
+              f"{flat[0]:.4f} ms, the dense sweep's "
               f"{dense_bound[0]:.4f} ms ({card})")
         stress[name] = dict(ms=stress_ms, plain_ms=plain_s * 1e3,
-                            bound=bound)
+                            bound=bound, flat_bound=flat)
         del args, kw, sums
 
     # -- 4f. K3 vs plain and K2, at small size and on the 2M-triangle mesh ---
@@ -2436,6 +2470,7 @@ def main() -> int:
         "launches": k4_launches, "max_abs_err": k4_err, "ms": k4_ms,
         "plain_ms": k4_plain_ms, "bound_ms": k4_bound[0],
         "bound_by": k4_bound[1], "library_ms": None,
+        "flat_bound_ms": k4_flat[0],
     }, {
         "name": "megakernel_anim", "route": "cuda",
         "source": "raytrace_tpu_torch/csrc/megakernel.cu",
@@ -2443,6 +2478,7 @@ def main() -> int:
         "launches": anim_launches, "max_abs_err": anim_err, "ms": anim_ms,
         "plain_ms": anim_plain_ms, "bound_ms": anim_bound[0],
         "bound_by": anim_bound[1], "library_ms": None,
+        "flat_bound_ms": anim_flat[0],
     }, {
         "name": "tri_sweep", "route": "cuda",
         "source": "raytrace_tpu_torch/csrc/tri_sweep.cu",
@@ -2505,6 +2541,7 @@ def main() -> int:
         "plain_ms": stress["stress-4x"]["plain_ms"],
         "bound_ms": stress["stress-4x"]["bound"][0],
         "bound_by": stress["stress-4x"]["bound"][1], "library_ms": None,
+        "flat_bound_ms": stress["stress-4x"]["flat_bound"][0],
     }, {
         "name": "megakernel_stress_16k", "route": "cuda",
         "source": "raytrace_tpu_torch/csrc/megakernel.cu",
@@ -2514,6 +2551,7 @@ def main() -> int:
         "plain_ms": stress["stress-16k"]["plain_ms"],
         "bound_ms": stress["stress-16k"]["bound"][0],
         "bound_by": stress["stress-16k"]["bound"][1], "library_ms": None,
+        "flat_bound_ms": stress["stress-16k"]["flat_bound"][0],
     }, {
         # final-one-weekend --mesh-geometry's primary rays, the main
         # path's, and its whole batch (every bounce's launch); the bounds

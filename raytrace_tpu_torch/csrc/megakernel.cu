@@ -156,40 +156,55 @@
 // each form above, so the dense forms are compiled as before): a scene whose
 // compiler put its sphere block in Morton clusters (models/sphere_order.py:
 // a dense prefix of n_prefix large spheres, then the rest in contiguous
-// clusters of sph_g) is swept as the JAX kernel's gather sweep is
+// clusters) has the closest hit of the JAX kernel's gather sweep
 // (megakernel.py _sweep :1389, _sweep_sieve :1005, _cluster_rounds_gather
-// :550), without its TPU mechanisms.  The prefix is swept densely; then the
-// thread visits the n_sph_clusters clusters in ascending id, slab-tests each
-// box (ops/megakernel.py sphere_cluster_boxes, at most 128 x 32 B in shared
-// memory after the sphere table) with the JAX kernel's pretest
-// (megakernel.py:1262-1280, box_passes below) against its running best t, and tests the spheres of each cluster that passes with the
-// dense sweep's own test (test_sphere), strict < over ascending ids.  Prefix
-// ids are below cluster ids, and a skipped cluster can hold only hits at t
-// above the best t, so the result is the dense sweep's (t, id), bit for bit.
-// The box is first widened by a margin for the quadratic's rounding, (|o| +
-// reach)^2 * 2^-19 / r_min (its w components hold reach and 2^-19 / r_min;
-// ops/megakernel.py sphere_cluster_pretest derives it): the f32 test can
-// report a grazing hit up to that far outside a sphere, and without it a ray
-// from ~1,800 units away kept a hit that the dense sweep does not (measured
-// on the lit cluster doc); at the camera of final-one-weekend it is ~0.008.
-// The animated form's boxes are the union of a cluster's boxes at shutter
-// times 0 and 1, which holds each sphere c0 + t dc for t in [0, 1].  The
-// clustered forms read the sphere rows from global memory through the
-// read-only cache (up to 16,384 spheres: 512 KiB static, 768 KiB with the
-// motion rows, which stay in L2): a ray reads only the rows of the
-// clusters it enters, and a staged table would lower the blocks each
-// multiprocessor holds.  A warp runs the union of its threads' passing
-// clusters.
+// :550): the dense sweep's (t, id).  The prefix is swept densely; then the
+// thread walks a binary tree over the other spheres with csrc/tri_tree.cuh's
+// walk, the one K3 and the triangle forms run: nearest first, the nearer
+// passing child taken and the other pushed (Aila and Laine), seeded with
+// the prefix's best (t, id).  The tree (ops/sphere_tree.py
+// build_sphere_tree) is built over a Morton order of the spheres' centres,
+// since the compiler's clusters are Morton-ordered only as groups: a
+// permuted copy of their [n, 8] rows (and motion rows), an int32 slot -> id
+// table, and one 64-byte row an internal node, both children's boxes with
+// each child's reach (the most |c| + |r| below it) and rounding
+// coefficient (2^-19 over the least positive radius below it).  A child's
+// box is widened for the ray by (|o| + reach)^2 coef: the f32 quadratic
+// can report a grazing hit up to that far outside a sphere, and without
+// the margin a ray from ~1,800 units away kept a hit that the dense sweep
+// does not report (measured on the lit cluster doc); at the camera of
+// final-one-weekend it is ~0.008.  Reach and coef are maxima over a
+// node's spheres, so a node's widened box holds every widened sphere box
+// below it.  The boxes prune as the JAX kernel's pretest
+// (megakernel.py:1262-1280).  At a leaf each sphere is tested with the
+// dense sweep's arithmetic (sphere_t), and a real hit replaces the best
+// one when t < best_t, or t == best_t and id < best_id, the id read from
+// the slot table only for a hit at or below the best t: the lexicographic
+// minimum of (t, id) over a conservative walk and the prefix (whose ids are
+// below every tree id), which is the dense sweep's winner, bit for bit, in
+// any order of the walk.  The animated form's leaf boxes also hold each
+// sphere at c0 + dc, so they hold it at every time in [0, 1].  The tree's
+// top node rows (SphereTree.staged: the whole tree when it fits the cap,
+// ops/sphere_tree.py STAGE_BYTES, else its top 2^k - 1 rows) are staged in
+// shared memory, since every ray reads them and each step of the walk
+// waits on its row; the other rows, the sphere rows (up to 16,384: 512
+// KiB, 768 KiB with the motion rows) and the ids are read through the
+// read-only cache, where a ray reads only what its walk reaches.  The
+// sphere walk and the triangle walk run one after the other and share one
+// stack (kStack entries, the deeper of the two trees).  It replaces a flat
+// walk that slab-tested every cluster box (up to 128) in ascending id at
+// every bounce.
 //
 // What bounds it: per bounce S ray-sphere tests of ~20 flops and a sqrt
-// (for clustered spheres the prefix, the box pretests and the spheres of
-// the clusters that pass; for triangles the node tests and the triangles
-// of the leaves the walk reaches), against one 112-byte row fetch: the
+// (for clustered spheres the prefix, then the node tests and the spheres
+// of the leaves the walk reaches; for triangles the node tests and the
+// triangles of the leaves), against one 112-byte row fetch: the
 // fp32 ALU issue rate, times the share of a warp's lane slots that do a
 // bounce.  With per-lane regeneration that share is the warp's total
 // bounces over 32 x its busiest lane's, the tail of the pixel with the
-// most bounces over its K samples; the measuring build below reads it.  A
-// persistent work queue and a deeper hierarchy come later.
+// most bounces over its K samples; the measuring build below reads it.
+// The tree walks add divergence (a warp's lanes walk different paths) and
+// a dependent load a step.  A persistent work queue comes later.
 //
 // Bits: built with -fmad=false (ops/_build.py), so no multiply-add is
 // contracted and each operation rounds as PyTorch's elementwise kernels
@@ -215,6 +230,9 @@ constexpr float kTMax = 10000.0f;  // ops/intersect.py T_MAX
 constexpr int kThreads = 128;
 constexpr int kRowWidth = 64;      // engine/wavefront.py prepare_batch rows
 constexpr int kTriStack = 13;      // ops/megakernel.py MAX_TRI_DEPTH
+constexpr int kSphStack = 14;      // ops/sphere_tree.py MAX_SPHERE_DEPTH
+// The one stack of a step's two walks.
+constexpr int kStack = kSphStack > kTriStack ? kSphStack : kTriStack;
 
 // raytrace_tpu/models/compile.py MAT_TYPE_*; shading_table.py MODE_CHECKER.
 constexpr int kLambertian = 1;
@@ -241,12 +259,6 @@ constexpr int kHasImage = 16;
 // float4 per sphere in shared memory.
 template <bool kAnim>
 constexpr int kStride = kAnim ? 3 : 2;
-
-// The slab pretest's guard on 1 / d (megakernel.py:1262) and the prune
-// margin on the best t (:1280).
-constexpr float kSlabEps = 1e-30f;
-constexpr float kPruneScale = 1.0001f;
-constexpr float kPruneAdd = 1e-4f;
 
 // Float parameters, staged into shared memory (ops/megakernel.py
 // _float_params builds the same layout; slots 0-37 in raygen.cuh).
@@ -505,31 +517,6 @@ __device__ __forceinline__ V3 eval_slot(const float* __restrict__ row, int base,
   return load3(row, base);
 }
 
-// 1 / d for the slab pretest, with |d| kept at least kSlabEps
-// (megakernel.py:1264-1266).
-__device__ __forceinline__ float slab_inv(float dx) {
-  return 1.0f / (fabsf(dx) < kSlabEps ? (dx < 0.0f ? -kSlabEps : kSlabEps) : dx);
-}
-
-// The slab pretest of one sphere cluster's box (min, max) against the ray,
-// pruned by its best t so far (megakernel.py:1262-1280).
-__device__ __forceinline__ bool box_passes(float4 mn, float4 mx, V3 o, float ivx, float ivy,
-                                           float ivz, float best_t) {
-  float a0 = (mn.x - o.x) * ivx;
-  float a1 = (mx.x - o.x) * ivx;
-  float te = fminf(a0, a1);
-  float tx = fmaxf(a0, a1);
-  a0 = (mn.y - o.y) * ivy;
-  a1 = (mx.y - o.y) * ivy;
-  te = fmaxf(te, fminf(a0, a1));
-  tx = fminf(tx, fmaxf(a0, a1));
-  a0 = (mn.z - o.z) * ivz;
-  a1 = (mx.z - o.z) * ivz;
-  te = fmaxf(te, fminf(a0, a1));
-  tx = fminf(tx, fmaxf(a0, a1));
-  return te <= tx && tx > kTMin && te < best_t * kPruneScale + kPruneAdd;
-}
-
 // Sphere j of the table staged in shared memory, at the sample's time in
 // the animated form (megakernel.py sph_8 anim_lerp).
 template <bool kAnim>
@@ -580,12 +567,11 @@ __device__ __forceinline__ void fetch_sphere(const float4* tbl, const float4* __
   }
 }
 
-// The closest-hit quadratic against sphere j (csrc/sphere_sweep.cu and
-// ops/spheres.py intersect_spheres_world), and the strict < update of the
-// best hit.  d_dot_o, a, o_sq and inv_a are the ray's.
-__device__ __forceinline__ void test_sphere(float4 sph, float k, V3 o, V3 d, float d_dot_o,
-                                            float a, float o_sq, float inv_a, int j,
-                                            float& best_t, int& best_id) {
+// The closest-hit quadratic against one sphere (csrc/sphere_sweep.cu and
+// ops/spheres.py intersect_spheres_world): its nearer root in (T_MIN,
+// T_MAX), or kTMax for no hit.  d_dot_o, a, o_sq and inv_a are the ray's.
+__device__ __forceinline__ float sphere_t(float4 sph, float k, V3 o, V3 d, float d_dot_o, float a,
+                                          float o_sq, float inv_a) {
   const float dc = sph.x * d.x + sph.y * d.y + sph.z * d.z;
   const float oc = sph.x * o.x + sph.y * o.y + sph.z * o.z;
   const float h = d_dot_o - dc;
@@ -597,52 +583,93 @@ __device__ __forceinline__ void test_sphere(float4 sph, float k, V3 o, V3 d, flo
   const float t2 = (-h + sq) * inv_a;
   const bool t1_ok = ok && t1 > kTMin && t1 < kTMax;
   const bool t2_ok = ok && t2 > kTMin && t2 < kTMax;
-  const float t = t1_ok ? t1 : (t2_ok ? t2 : kTMax);
+  return t1_ok ? t1 : (t2_ok ? t2 : kTMax);
+}
+
+// Sphere j tested in ascending id: the strict < update of the dense sweep.
+__device__ __forceinline__ void test_sphere(float4 sph, float k, V3 o, V3 d, float d_dot_o,
+                                            float a, float o_sq, float inv_a, int j,
+                                            float& best_t, int& best_id) {
+  const float t = sphere_t(sph, k, o, d, d_dot_o, a, o_sq, inv_a);
   if (t < best_t) {
     best_t = t;
     best_id = j;
   }
 }
 
+// The clustered spheres' tree (ops/sphere_tree.py SphereTree): slot j's rows
+// rows[2j], rows[2j + 1] (and drows' in the animated form) hold sphere
+// ids[j]; n slots; the node rows, the first `staged` also in shared memory.
+struct SphereTree {
+  const float4* rows;
+  const float4* drows;
+  const float4* nodes;
+  const float4* staged_nodes;
+  const int* ids;
+  int n, depth, leaf, staged;
+};
+
 // The clustered spheres against one ray, after the prefix: see the header.
 template <bool kAnim>
-__device__ __forceinline__ void sweep_sphere_clusters(
-    const float4* __restrict__ table, const float4* __restrict__ dtable, const float4* boxes,
-    int n_clusters, int g, int n_prefix, int n_sph, float tcur, V3 o, V3 d, float d_dot_o,
-    float a, float o_sq, float inv_a, float& best_t, int& best_id) {
-  const float ivx = slab_inv(d.x);
-  const float ivy = slab_inv(d.y);
-  const float ivz = slab_inv(d.z);
+__device__ __forceinline__ void sweep_sphere_tree(const SphereTree& tree,
+                                                  tri_tree::Stack<kStack>& stack, float tcur,
+                                                  V3 o, V3 d, float d_dot_o, float a, float o_sq,
+                                                  float inv_a, float& best_t, int& best_id) {
+  const tri_tree::Ray r = tri_tree::make_ray(o.x, o.y, o.z, d.x, d.y, d.z);
   const float onorm = sqrtf(o_sq);
-  for (int c = 0; c < n_clusters; ++c) {
-    const float4 mn = boxes[2 * c];
-    const float4 mx = boxes[2 * c + 1];
-    // The rounding margin: (|o| + reach)^2 * SPHERE_ROUNDING / r_min.
-    const float s = onorm + mx.w;
-    const float m = s * s * mn.w;
-    if (!box_passes(make_float4(mn.x - m, mn.y - m, mn.z - m, 0.0f),
-                    make_float4(mx.x + m, mx.y + m, mx.z + m, 0.0f), o, ivx, ivy, ivz, best_t)) {
-      continue;
-    }
-    const int j1 = min(n_prefix + (c + 1) * g, n_sph);
-    for (int j = n_prefix + c * g; j < j1; ++j) {
-      float4 sph;
-      float k;
-      global_sphere<kAnim>(table, dtable, j, tcur, sph, k);
-      test_sphere(sph, k, o, d, d_dot_o, a, o_sq, inv_a, j, best_t, best_id);
-    }
-  }
+  tri_tree::walk_tree(
+      stack, tree.depth, r, best_t,
+      [&](int node, float4& ra, float4& rb, float4& rc, float4& re) {
+        if (node < tree.staged) {
+          const float4* row = tree.staged_nodes + 4 * node;
+          ra = row[0];
+          rb = row[1];
+          rc = row[2];
+          re = row[3];
+        } else {
+          const float4* row = tree.nodes + 4 * node;
+          ra = __ldg(row);
+          rb = __ldg(row + 1);
+          rc = __ldg(row + 2);
+          re = __ldg(row + 3);
+        }
+      },
+      [&](float4 e, bool right) {
+        // The rounding margin: (|o| + reach)^2 * SPHERE_ROUNDING / r_min.
+        const float s = onorm + (right ? e.y : e.x);
+        return s * s * (right ? e.w : e.z);
+      },
+      [&](int k) {
+        const int j0 = k * tree.leaf;
+        const int j1 = min(j0 + tree.leaf, tree.n);
+        for (int j = j0; j < j1; ++j) {
+          float4 sph;
+          float kk;
+          global_sphere<kAnim>(tree.rows, tree.drows, j, tcur, sph, kk);
+          const float t = sphere_t(sph, kk, o, d, d_dot_o, a, o_sq, inv_a);
+          // A real hit may win; the id is read only for one at or below
+          // the best t.
+          if (t < kTMax && t <= best_t) {
+            const int id = __ldg(tree.ids + j);
+            if (t < best_t || id < best_id) {
+              best_t = t;
+              best_id = id;
+            }
+          }
+        }
+      });
 }
 
 // The triangle soup's tree against one ray, after the sphere sweep: see
 // the header.  Updates the best t and id, the barycentrics and the hit
 // point.
-__device__ __forceinline__ void sweep_tris(const tri_tree::Tree& tree, int s_pad, V3 o, V3 d,
+__device__ __forceinline__ void sweep_tris(const tri_tree::Tree& tree,
+                                           tri_tree::Stack<kStack>& stack, int s_pad, V3 o, V3 d,
                                            float& best_t, int& best_id, float& best_u,
                                            float& best_v, V3& tp) {
   const tri_tree::Ray r = tri_tree::make_ray(o.x, o.y, o.z, d.x, d.y, d.z);
-  tri_tree::walk<kTriStack, true>(
-      tree, r, s_pad, best_t, best_id, best_u, best_v,
+  tri_tree::walk<kStack, true>(
+      stack, tree, r, s_pad, best_t, best_id, best_u, best_v,
       [&](float4 v0, float4 e1, float4 e2, float u, float v) {
         tp = {v0.x + u * e1.x + v * e2.x, v0.y + u * e1.y + v * e2.y,
               v0.z + u * e1.z + v * e2.z};
@@ -710,9 +737,10 @@ __global__ void __launch_bounds__(kThreads)
 megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
            const float* __restrict__ times, int n_sph, const float4* __restrict__ tris, int t8,
            const float4* __restrict__ tri_nodes, const int* __restrict__ tri_ids, int tri_depth,
-           int tri_leaf, int s_pad,
-           const float4* __restrict__ sph_boxes, int n_prefix, int sph_g, int n_sph_clusters,
-           const float* __restrict__ lights, const float* __restrict__ o2w,
+           int tri_leaf, int s_pad, const float4* __restrict__ sph_rows,
+           const float4* __restrict__ sph_drows, const float4* __restrict__ sph_nodes,
+           const int* __restrict__ sph_ids, int n_prefix, int sph_depth, int sph_leaf,
+           int sph_staged, const float* __restrict__ lights, const float* __restrict__ o2w,
            const int* __restrict__ atlas_words, const int* __restrict__ atlas_wh, int n_images,
            int atlas_h, int atlas_w, const float* __restrict__ lut,
            const float* __restrict__ rows, int n_rows, const float* __restrict__ fparams,
@@ -729,13 +757,14 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
   // The clustered forms stage no row.
   const int n_staged = kSphClusters ? 0 : n_sph;
   float4* tbl = smem + kNumParams / 4;
-  // Sphere cluster c's box: sboxes[2c] = (min, -), sboxes[2c+1] = (max, -).
-  float4* sboxes = tbl + kStride<kAnim> * n_staged;
-  // The sRGB table, after the boxes.
-  float* lut_s = reinterpret_cast<float*>(sboxes + (kSphClusters ? 2 * n_sph_clusters : 0));
+  // The clustered forms' top node rows of the sphere tree, four float4 a
+  // node.
+  float4* snodes = tbl + kStride<kAnim> * n_staged;
+  // The sRGB table, after the nodes.
+  float* lut_s = reinterpret_cast<float*>(snodes + (kSphClusters ? 4 * sph_staged : 0));
   for (int j = threadIdx.x; j < kNumParams; j += kThreads) prm[j] = fparams[j];
   if constexpr (kSphClusters) {
-    for (int j = threadIdx.x; j < 2 * n_sph_clusters; j += kThreads) sboxes[j] = sph_boxes[j];
+    for (int j = threadIdx.x; j < 4 * sph_staged; j += kThreads) snodes[j] = sph_nodes[j];
   }
   if constexpr (kImage) {
     for (int j = threadIdx.x; j < kLutSize; j += kThreads) lut_s[j] = lut[j];
@@ -765,6 +794,9 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
   const int n_samples = n_batches * spp_local;
   const Atlas atlas = {atlas_words, atlas_wh, n_images, atlas_h, atlas_w, lut_s};
   const tri_tree::Tree tree = {tris, tri_nodes, tri_ids, t8, tri_depth, tri_leaf};
+  const SphereTree sph_tree = {sph_rows, sph_drows, sph_nodes, snodes, sph_ids,
+                               n_sph - n_prefix, sph_depth, sph_leaf, sph_staged};
+  tri_tree::Stack<kStack> stack;
 
   float sum_x = 0.0f, sum_y = 0.0f, sum_z = 0.0f;
   int traced = 0;
@@ -813,7 +845,7 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
     float best_t = kTMax;
     int best_id = -1;
     // Every real sphere densely, or in the clustered forms the prefix,
-    // then the clusters.
+    // then the tree.
     const int n_dense = kSphClusters ? n_prefix : n_sph;
     for (int j = 0; j < n_dense; ++j) {
       float4 sph;
@@ -822,13 +854,13 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
       test_sphere(sph, k, o, d, d_dot_o, a, o_sq, inv_a, j, best_t, best_id);
     }
     if constexpr (kSphClusters) {
-      sweep_sphere_clusters<kAnim>(table, dtable, sboxes, n_sph_clusters, sph_g, n_prefix,
-                                   n_sph, tcur, o, d, d_dot_o, a, o_sq, inv_a, best_t, best_id);
+      sweep_sphere_tree<kAnim>(sph_tree, stack, tcur, o, d, d_dot_o, a, o_sq, inv_a, best_t,
+                               best_id);
     }
     float bu = 0.0f, bv = 0.0f;
     V3 tp = {0.0f, 0.0f, 0.0f};
     if constexpr (kTris) {
-      sweep_tris(tree, s_pad, o, d, best_t, best_id, bu, bv, tp);
+      sweep_tris(tree, stack, s_pad, o, d, best_t, best_id, bu, bv, tp);
     }
     K4_MEASURE_SPAN(kMeasureHit);
 
@@ -1024,17 +1056,16 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
 template <bool kAnim, bool kTris, bool kLights, bool kNoise, bool kImage, bool kSphClusters>
 int launch(const void* table8, const void* dtab8, const void* times, int n_sph, const void* tris12,
            int t8, const void* tri_nodes, const void* tri_ids, int tri_depth, int tri_leaf,
-           int s_pad, const void* sph_boxes, int n_prefix, int sph_g, int n_sph_clusters,
+           int s_pad, const void* sph_rows, const void* sph_drows, const void* sph_nodes,
+           const void* sph_ids, int n_prefix, int sph_depth, int sph_leaf, int sph_staged,
            const void* lights16, const void* o2w12, const void* atlas_words,
            const void* atlas_wh, int n_images, int atlas_h, int atlas_w, const void* lut,
            const void* rows, int n_rows, const void* fparams, int width, int height,
            int sqrt_spp, int spp_local, int n_batches, int batch0, int sample_base,
-           int max_depth, int flags, void* sums, void* traced, void* stream) {
-  const int n_pix = width * height;
-  if (n_pix <= 0) return static_cast<int>(cudaGetLastError());
+           int max_depth, int flags, void* sums, void* traced, void* stream, void* query) {
   const size_t n_staged = kSphClusters ? 0 : static_cast<size_t>(n_sph);
   const size_t smem = (kNumParams + 4 * kStride<kAnim> * n_staged +
-                       (kSphClusters ? 8 * static_cast<size_t>(n_sph_clusters) : 0) +
+                       (kSphClusters ? 16 * static_cast<size_t>(sph_staged) : 0) +
                        (kImage ? kLutSize : 0)) *
                       sizeof(float);
   auto* kernel = megakernel<kAnim, kTris, kLights, kNoise, kImage, kSphClusters>;
@@ -1043,12 +1074,22 @@ int launch(const void* table8, const void* dtab8, const void* times, int n_sph, 
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  if (query != nullptr) {  // the form's occupancy at this shared memory, no launch
+    int* out = static_cast<int*>(query);
+    out[1] = static_cast<int>(smem);
+    return static_cast<int>(
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, kThreads, smem));
+  }
+  const int n_pix = width * height;
+  if (n_pix <= 0) return static_cast<int>(cudaGetLastError());
   const int blocks = (n_pix + kThreads - 1) / kThreads;
   kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(table8), static_cast<const float4*>(dtab8),
       static_cast<const float*>(times), n_sph, static_cast<const float4*>(tris12), t8,
       static_cast<const float4*>(tri_nodes), static_cast<const int*>(tri_ids), tri_depth,
-      tri_leaf, s_pad, static_cast<const float4*>(sph_boxes), n_prefix, sph_g, n_sph_clusters,
+      tri_leaf, s_pad, static_cast<const float4*>(sph_rows),
+      static_cast<const float4*>(sph_drows), static_cast<const float4*>(sph_nodes),
+      static_cast<const int*>(sph_ids), n_prefix, sph_depth, sph_leaf, sph_staged,
       static_cast<const float*>(lights16), static_cast<const float*>(o2w12),
       static_cast<const int*>(atlas_words), static_cast<const int*>(atlas_wh), n_images, atlas_h,
       atlas_w, static_cast<const float*>(lut), static_cast<const float*>(rows), n_rows,
@@ -1060,18 +1101,20 @@ int launch(const void* table8, const void* dtab8, const void* times, int n_sph, 
 #define MEGA_PARAMS                                                                            \
   const void *table8, const void *dtab8, const void *times, int n_sph, const void *tris12,     \
       int t8, const void *tri_nodes, const void *tri_ids, int tri_depth, int tri_leaf,         \
-      int s_pad, const void *sph_boxes, int n_prefix, int sph_g, int n_sph_clusters,           \
+      int s_pad, const void *sph_rows, const void *sph_drows, const void *sph_nodes,           \
+      const void *sph_ids, int n_prefix, int sph_depth, int sph_leaf, int sph_staged,          \
       const void *lights16, const void *o2w12, const void *atlas_words, const void *atlas_wh,  \
       int n_images, int atlas_h, int atlas_w, const void *lut, const void *rows, int n_rows,   \
       const void *fparams, int width, int height, int sqrt_spp, int spp_local, int n_batches, \
       int batch0, int sample_base, int max_depth, int flags, void *sums, void *traced,         \
-      void *stream
+      void *stream, void *query
 
 #define MEGA_ARGS                                                                            \
   table8, dtab8, times, n_sph, tris12, t8, tri_nodes, tri_ids, tri_depth, tri_leaf, s_pad,   \
-      sph_boxes, n_prefix, sph_g, n_sph_clusters, lights16, o2w12, atlas_words, atlas_wh,    \
-      n_images, atlas_h, atlas_w, lut, rows, n_rows, fparams, width, height, sqrt_spp,         \
-      spp_local, n_batches, batch0, sample_base, max_depth, flags, sums, traced, stream
+      sph_rows, sph_drows, sph_nodes, sph_ids, n_prefix, sph_depth, sph_leaf, sph_staged,      \
+      lights16, o2w12, atlas_words, atlas_wh, n_images, atlas_h, atlas_w, lut, rows, n_rows,   \
+      fparams, width, height, sqrt_spp, spp_local, n_batches, batch0, sample_base, max_depth,  \
+      flags, sums, traced, stream, query
 
 // The form for the inputs that megakernel_launch has checked.
 template <bool kNoise, bool kImage, bool kSphClusters>
@@ -1115,10 +1158,13 @@ int dispatch_textures(MEGA_PARAMS) {
 // triangles), tri_nodes: the tree's [2^tri_depth - 1, 16] f32 node rows
 // (16-byte aligned; tri_depth <= kTriStack), tri_ids: [t8] i32 each row's
 // triangle id, tri_leaf: triangles per leaf, s_pad: the primitive id of
-// triangle 0; sph_boxes: null for the dense sphere sweep, else the [n_sph_clusters, 8] f32 boxes
-// (16-byte aligned, 1 <= n_sph_clusters <= 128) of the clusters of sph_g
-// spheres after the n_prefix swept densely (their rows read from global
-// memory); lights16: null for no lights, else the [n_lights, 16] f32 light
+// triangle 0; sph_rows: null for the dense sphere sweep, else the tree over
+// the spheres n_prefix .. n_sph - 1 after the n_prefix swept densely: their
+// [n_sph - n_prefix, 8] f32 rows in slot order (and sph_drows their motion
+// rows with dtab8), the [2^sph_depth - 1, 16] f32 node rows (all 16-byte
+// aligned; sph_depth <= kSphStack), sph_ids: each slot's sphere id, i32,
+// sph_leaf spheres a leaf, the first sph_staged node rows staged in shared
+// memory; lights16: null for no lights, else the [n_lights, 16] f32 light
 // rows (p0 p1 p2, prob, alias; not with dtab8) and o2w12 the [n_instances,
 // 12] f32 objectToWorld rows; atlas_words: with kHasImage the [n_images,
 // atlas_h, atlas_w] i32 packed atlas, atlas_wh its [n_images, 2] i32 sizes
@@ -1127,7 +1173,8 @@ int dispatch_textures(MEGA_PARAMS) {
 // kHasEmissive | kHasNoise | kHasImage (the last two pick the noise and
 // image forms); sums: [height * width, 3] f32 out; traced: [height * width]
 // i32 out.  Launches on `stream` without synchronising and returns
-// cudaGetLastError().
+// cudaGetLastError(); with query, an int[2], launches nothing and writes the
+// form's resident blocks a multiprocessor and its dynamic shared memory.
 extern "C" int megakernel_launch(MEGA_PARAMS) {
   if (tris12 != nullptr &&
       (dtab8 != nullptr || tri_ids == nullptr || (tri_depth > 0 && tri_nodes == nullptr) ||
@@ -1142,9 +1189,14 @@ extern "C" int megakernel_launch(MEGA_PARAMS) {
                             n_images < 1 || atlas_h < 1 || atlas_w < 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (sph_boxes != nullptr) {
-    if (n_sph_clusters < 1 || n_sph_clusters > 128 || sph_g < 1 || n_prefix < 0 ||
-        n_prefix + n_sph_clusters * sph_g < n_sph) {
+  if (sph_rows != nullptr) {
+    const int n = n_sph - n_prefix;
+    const int n_leaves = sph_leaf < 1 ? 0 : (n + sph_leaf - 1) / sph_leaf;
+    if (n_prefix < 0 || n < 1 || sph_leaf < 1 || sph_depth < 0 || sph_depth > kSphStack ||
+        n_leaves > (1 << sph_depth) || (sph_depth > 0 && 2 * n_leaves <= (1 << sph_depth)) ||
+        sph_ids == nullptr || (sph_depth > 0 && sph_nodes == nullptr) ||
+        (dtab8 != nullptr) != (sph_drows != nullptr) || sph_staged < 0 ||
+        sph_staged > (1 << sph_depth) - 1) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     return dispatch_textures<true>(MEGA_ARGS);

@@ -74,7 +74,9 @@ paged_tri_kernel(tri_tree::Tree tree, const float* __restrict__ ox,
   int best_id = -1;
   if (alive[i] != 0) {
     const tri_tree::Ray r = tri_tree::make_ray(ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]);
-    tri_tree::walk<kStack, false>(tree, r, 0, best_t, best_id, best_u, best_v, NoCapture{});
+    tri_tree::Stack<kStack> stack;
+    tri_tree::walk<kStack, false>(stack, tree, r, 0, best_t, best_id, best_u, best_v,
+                                  NoCapture{});
   }
   t_out[i] = best_t;
   id_out[i] = best_id;

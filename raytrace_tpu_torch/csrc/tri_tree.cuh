@@ -1,9 +1,11 @@
-// The closest-hit walk of a triangle soup's implicit binary tree: a
-// per-thread, nearest-first walk that the paged triangle sweep K3
-// (csrc/paged_tri.cu) runs for each ray of the wavefront and the fused
-// bounce kernel K4 (csrc/megakernel.cu) runs at each bounce of its
-// triangle forms.  Both include this file, so the two walks cannot drift
-// apart.
+// The closest-hit walk of an implicit binary tree: a per-thread,
+// nearest-first walk that the paged triangle sweep K3 (csrc/paged_tri.cu)
+// runs for each ray of the wavefront and the fused bounce kernel K4
+// (csrc/megakernel.cu) runs at each bounce of its triangle forms, over a
+// soup's tree, and of its clustered sphere forms, over the spheres' tree.
+// Both kernels include this file, so the walks cannot drift apart: one
+// loop (walk_tree), given how to read a node's row, how far to widen its
+// children's boxes and how to test a leaf.
 //
 // The tree (ops/paged_tri.py build_tri_tree) is implicit: leaf k holds the
 // triangle rows [k L, (k+1) L) and is node K - 1 + k; node n has children
@@ -74,12 +76,11 @@ __device__ __forceinline__ Ray make_ray(float ox, float oy, float oz, float dx, 
   return r;
 }
 
-// The slab test of the ray against the box (lo, hi) widened by the ray's
-// margin, pruned by its best t; *te_out is the entry t.
+// The slab test of the ray against the box (lo, hi) widened by m on every
+// side, pruned by its best t; *te_out is the entry t.
 __device__ __forceinline__ bool box_passes(float lx, float ly, float lz, float hx, float hy,
-                                           float hz, float reach, const Ray& r, float best_t,
+                                           float hz, float m, const Ray& r, float best_t,
                                            float* te_out) {
-  const float m = (r.o_inf + reach) * kRounding;
   float a0 = (lx - m - r.ox) * r.ivx;
   float a1 = (hx + m - r.ox) * r.ivx;
   float te = fminf(a0, a1);
@@ -96,39 +97,41 @@ __device__ __forceinline__ bool box_passes(float lx, float ly, float lz, float h
   return te <= tx && tx > kTMin && te < best_t * 1.0001f + 1e-4f;
 }
 
-struct Tree {
-  const float4* tris;  // [>= n_tris, 3] (v0, -), (e1, -), (e2, -)
-  const float4* nodes;  // [K - 1, 4]
-  const int* ids;       // [n_tris] slot -> id (kIds), else unused
-  int n_tris, depth, leaf;
+// The walk's stack: one entry a level at most.  A caller that runs two
+// walks one after the other (K4's sphere and triangle walks) passes both
+// the same stack.
+template <int kStack>
+struct Stack {
+  int node[kStack];
+  float te[kStack];
 };
 
-// The walk of one ray, updating (best_t, best_id, best_u, best_v) as the
-// lexicographic minimum of (t, id); a triangle's id is its slot, or with
-// kIds id_base + ids[slot].  on_hit(v0, e1, e2, u, v) runs at each update
-// (K4 captures the hit point there).  kStack bounds the depth: one entry
-// a level at most.
-template <int kStack, bool kIds, typename OnHit>
-__device__ __forceinline__ void walk(const Tree& tree, const Ray& r, int id_base, float& best_t,
-                                     int& best_id, float& best_u, float& best_v, OnHit on_hit) {
-  const int first_leaf = (1 << tree.depth) - 1;
-  int stack_node[kStack];
-  float stack_te[kStack];
+// The nearest-first walk of an implicit tree of `depth` levels, updating
+// best_t through `leaf`.  row(node, a, b, c, e) reads internal node's
+// 64-byte row (both children's boxes in a, b, c); margin(e, right) gives
+// the left or right child's widening from its fourth float4; leaf(k) tests leaf
+// k's primitives against the ray and lowers best_t (and the caller's id)
+// where one wins.  The triangle walk below and K4's sphere walk
+// (csrc/megakernel.cu) are this loop with their own three.
+template <int kStack, typename Row, typename Margin, typename Leaf>
+__device__ __forceinline__ void walk_tree(Stack<kStack>& stack, int depth, const Ray& r,
+                                          float& best_t, Row row, Margin margin, Leaf leaf) {
+  const int first_leaf = (1 << depth) - 1;
   int sp = 0;
   int node = 0;
   while (node >= 0) {
     if (node < first_leaf) {
-      const float4* row = tree.nodes + 4 * node;
-      const float4 a = __ldg(row), b = __ldg(row + 1), c = __ldg(row + 2), e = __ldg(row + 3);
+      float4 a, b, c, e;
+      row(node, a, b, c, e);
       float tl, tr;
-      const bool hl = box_passes(a.x, a.y, a.z, a.w, b.x, b.y, e.x, r, best_t, &tl);
-      const bool hr = box_passes(b.z, b.w, c.x, c.y, c.z, c.w, e.y, r, best_t, &tr);
+      const bool hl = box_passes(a.x, a.y, a.z, a.w, b.x, b.y, margin(e, false), r, best_t, &tl);
+      const bool hr = box_passes(b.z, b.w, c.x, c.y, c.z, c.w, margin(e, true), r, best_t, &tr);
       const int left = 2 * node + 1;
       if (hl && hr) {
         const bool left_first = tl <= tr;
         node = left_first ? left : left + 1;
-        stack_node[sp] = left_first ? left + 1 : left;
-        stack_te[sp] = left_first ? tr : tl;
+        stack.node[sp] = left_first ? left + 1 : left;
+        stack.te[sp] = left_first ? tr : tl;
         ++sp;
         continue;
       }
@@ -137,61 +140,92 @@ __device__ __forceinline__ void walk(const Tree& tree, const Ray& r, int id_base
         continue;
       }
     } else {
-      const int j0 = (node - first_leaf) * tree.leaf;
-      const int j1 = min(j0 + tree.leaf, tree.n_tris);
-      for (int j = j0; j < j1; ++j) {
-        const float4 v0 = __ldg(tree.tris + 3 * j);
-        const float4 e1 = __ldg(tree.tris + 3 * j + 1);
-        const float4 e2 = __ldg(tree.tris + 3 * j + 2);
-        const float px = r.dy * e2.z - r.dz * e2.y;
-        const float py = r.dz * e2.x - r.dx * e2.z;
-        const float pz = r.dx * e2.y - r.dy * e2.x;
-        const float det = e1.x * px + e1.y * py + e1.z * pz;
-        const float inv_det = det != 0.0f ? 1.0f / det : 0.0f;
-        const float tx = r.ox - v0.x;
-        const float ty = r.oy - v0.y;
-        const float tz = r.oz - v0.z;
-        const float u = (tx * px + ty * py + tz * pz) * inv_det;
-        const float qx = ty * e1.z - tz * e1.y;
-        const float qy = tz * e1.x - tx * e1.z;
-        const float qz = tx * e1.y - ty * e1.x;
-        const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-        const float t = (e2.x * qx + e2.y * qy + e2.z * qz) * inv_det;
-        const bool ok = det != 0.0f && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > kTMin &&
-                        t < kTMax;
-        if constexpr (kIds) {
-          // The id table is read only for a hit that may win.
-          if (ok && t <= best_t) {
-            const int id = id_base + __ldg(tree.ids + j);
-            if (t < best_t || id < best_id) {
-              best_t = t;
-              best_id = id;
-              best_u = u;
-              best_v = v;
-              on_hit(v0, e1, e2, u, v);
-            }
-          }
-        } else {
-          if (ok && (t < best_t || (t == best_t && j < best_id))) {
-            best_t = t;
-            best_id = j;
-            best_u = u;
-            best_v = v;
-            on_hit(v0, e1, e2, u, v);
-          }
-        }
-      }
+      leaf(node - first_leaf);
     }
     // Pop the nearest pending sibling that still passes.
     node = -1;
     while (sp > 0) {
       --sp;
-      if (stack_te[sp] < best_t * 1.0001f + 1e-4f) {
-        node = stack_node[sp];
+      if (stack.te[sp] < best_t * 1.0001f + 1e-4f) {
+        node = stack.node[sp];
         break;
       }
     }
   }
+}
+
+struct Tree {
+  const float4* tris;  // [>= n_tris, 3] (v0, -), (e1, -), (e2, -)
+  const float4* nodes;  // [K - 1, 4]
+  const int* ids;       // [n_tris] slot -> id (kIds), else unused
+  int n_tris, depth, leaf;
+};
+
+// The triangle walk of one ray, updating (best_t, best_id, best_u,
+// best_v) as the lexicographic minimum of (t, id); a triangle's id is its
+// slot, or with kIds id_base + ids[slot].  on_hit(v0, e1, e2, u, v) runs
+// at each update (K4 captures the hit point there).  Each child box is
+// widened by (|o|_inf + reach) 2^-18.
+template <int kStack, bool kIds, typename OnHit>
+__device__ __forceinline__ void walk(Stack<kStack>& stack, const Tree& tree, const Ray& r,
+                                     int id_base, float& best_t, int& best_id, float& best_u,
+                                     float& best_v, OnHit on_hit) {
+  walk_tree(
+      stack, tree.depth, r, best_t,
+      [&](int node, float4& a, float4& b, float4& c, float4& e) {
+        const float4* row = tree.nodes + 4 * node;
+        a = __ldg(row);
+        b = __ldg(row + 1);
+        c = __ldg(row + 2);
+        e = __ldg(row + 3);
+      },
+      [&](float4 e, bool right) { return (r.o_inf + (right ? e.y : e.x)) * kRounding; },
+      [&](int k) {
+        const int j0 = k * tree.leaf;
+        const int j1 = min(j0 + tree.leaf, tree.n_tris);
+        for (int j = j0; j < j1; ++j) {
+          const float4 v0 = __ldg(tree.tris + 3 * j);
+          const float4 e1 = __ldg(tree.tris + 3 * j + 1);
+          const float4 e2 = __ldg(tree.tris + 3 * j + 2);
+          const float px = r.dy * e2.z - r.dz * e2.y;
+          const float py = r.dz * e2.x - r.dx * e2.z;
+          const float pz = r.dx * e2.y - r.dy * e2.x;
+          const float det = e1.x * px + e1.y * py + e1.z * pz;
+          const float inv_det = det != 0.0f ? 1.0f / det : 0.0f;
+          const float tx = r.ox - v0.x;
+          const float ty = r.oy - v0.y;
+          const float tz = r.oz - v0.z;
+          const float u = (tx * px + ty * py + tz * pz) * inv_det;
+          const float qx = ty * e1.z - tz * e1.y;
+          const float qy = tz * e1.x - tx * e1.z;
+          const float qz = tx * e1.y - ty * e1.x;
+          const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+          const float t = (e2.x * qx + e2.y * qy + e2.z * qz) * inv_det;
+          const bool ok = det != 0.0f && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
+                          t > kTMin && t < kTMax;
+          if constexpr (kIds) {
+            // The id table is read only for a hit that may win.
+            if (ok && t <= best_t) {
+              const int id = id_base + __ldg(tree.ids + j);
+              if (t < best_t || id < best_id) {
+                best_t = t;
+                best_id = id;
+                best_u = u;
+                best_v = v;
+                on_hit(v0, e1, e2, u, v);
+              }
+            }
+          } else {
+            if (ok && (t < best_t || (t == best_t && j < best_id))) {
+              best_t = t;
+              best_id = j;
+              best_u = u;
+              best_v = v;
+              on_hit(v0, e1, e2, u, v);
+            }
+          }
+        }
+      });
 }
 
 }  // namespace tri_tree

@@ -59,7 +59,7 @@ import torch
 from ..models.bvh_build import permute_soup
 from ..models.compile import CompiledScene
 from ..ops import camera as cam_ops
-from ..ops import megakernel, paged_tri
+from ..ops import megakernel, paged_tri, sphere_sweep, sphere_tree
 from ..ops.spheres import world_sphere_anim_tables, world_sphere_tables
 from ..tools.chacha import ChaCha20Rng
 from ..utils.image import write_png
@@ -227,6 +227,22 @@ class Renderer:
             _, world_p, _ = world_soup(self.scene, self.batch_times_dev[0])
             self._tri_order = paged_tri.soup_order(world_p,
                                                    self.static.num_triangles)
+        # The fused kernel's tree over clustered spheres: their Morton order
+        # at shutter time 0.5, on the host once; for a static scene the
+        # whole tree once, over the first batch's table (every batch's).
+        self._sph_order = self._sph_tree = None
+        layout = megakernel.sphere_cluster_layout(self.static)
+        if self.use_megakernel and layout is not None:
+            n_sph = self.static.num_spheres
+            mid = world_sphere_tables(compiled, np.array([0.5], np.float32))
+            self._sph_order = torch.tensor(
+                sphere_tree.sphere_order(mid[0, :, 0:3], layout[0], n_sph),
+                dtype=torch.int32, device=self.device)
+            if not self.static.any_animated:
+                table8 = sphere_sweep.pad_table8(torch.tensor(
+                    self.sphere_tables[0], device=self.device))
+                self._sph_tree = sphere_tree.build_sphere_tree(
+                    table8, layout[0], n_sph, self._sph_order)
         # The animated fused kernel's one geometry, built once.  Not for
         # triangles or lights, nor for image textures, whose spheres'
         # world-to-object rows change with every batch time (the JAX
@@ -241,7 +257,8 @@ class Renderer:
                                for t in tables)
                 self._anim_geom = prepare_batch(self.static, self.scene,
                                                 tab0, sph_dtab=dtab8,
-                                                fused=True)
+                                                fused=True,
+                                                sph_order=self._sph_order)
         if not self.use_megakernel:
             self.path = "wavefront"
         elif not self.static.any_animated:
@@ -283,7 +300,9 @@ class Renderer:
         return prepare_batch(self.static, self.scene, sph_table, tris=tris,
                              batch_time=self.batch_times_dev[batch],
                              atlas_words=self._atlas_words,
-                             fused=self.use_megakernel)
+                             fused=self.use_megakernel,
+                             sph_order=self._sph_order,
+                             sph_tree=self._sph_tree)
 
     def _record(self, batches: int, rays: int, t0: float) -> None:
         dt = _time.perf_counter() - t0

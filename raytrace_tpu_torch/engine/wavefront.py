@@ -32,6 +32,7 @@ from ..models.compile import SKY_SOLID, SKY_VERTICAL_GRADIENT
 
 from ..ops import camera as cam_ops
 from ..ops import (megakernel, nee, paged_tri, rng, shading, sphere_sweep,
+                   sphere_tree,
                    spheres, transforms, tri_sweep, vec3)
 from ..ops.intersect import T_MAX, Hit
 from ..ops.materials import LIGHT_PDF
@@ -89,11 +90,11 @@ class BatchGeometry(NamedTuple):
     # The fused kernel's copy of the image atlas (engine/arrays.pack_atlas),
     # in a scene with an image texture; the wavefront reads scene.atlas.
     atlas_words: Optional[torch.Tensor] = None
-    # The fused kernel's [C, 8] sphere cluster boxes
-    # (ops/megakernel.sphere_cluster_boxes; with sph_dtab8, the union over
-    # the shutter), in a scene with its spheres in clusters, on the fused
-    # path only.
-    sph_boxes: Optional[torch.Tensor] = None
+    # The fused kernel's tree over the spheres past the dense prefix
+    # (ops/sphere_tree.build_sphere_tree; with sph_dtab8, its boxes hold the
+    # spheres over the shutter), in a scene with its spheres in clusters, on
+    # the fused path only.
+    sph_tree: Optional[sphere_tree.SphereTree] = None
 
 
 def _compact_size(R: int) -> int:
@@ -195,7 +196,10 @@ def prepare_batch(static: SceneStatic, scene: SceneArrays,
                   tris: Optional[dict] = None,
                   batch_time: Optional[torch.Tensor] = None,
                   atlas_words: Optional[torch.Tensor] = None,
-                  fused: bool = False) -> BatchGeometry:
+                  fused: bool = False,
+                  sph_order: Optional[torch.Tensor] = None,
+                  sph_tree: Optional[sphere_tree.SphereTree] = None
+                  ) -> BatchGeometry:
     """Kernel tables and fat rows for one batch.
 
     sph_table: [S, 5] world sphere rows at the batch time
@@ -220,8 +224,11 @@ def prepare_batch(static: SceneStatic, scene: SceneArrays,
     packed atlas, engine/arrays.pack_atlas) where the wavefront reads the
     scene's atlas.  With ``fused`` (the geometry feeds the fused kernel), a
     scene with its spheres in clusters (ops/megakernel.
-    sphere_cluster_layout) gets the clusters' boxes, built on the table's
-    device; the wavefront reads none.
+    sphere_cluster_layout) gets the tree over them: ``sph_tree`` where it
+    is given (a static scene's, built once), else built on the table's
+    device in the Morton order ``sph_order`` (ops/sphere_tree.sphere_order,
+    [n] int32; taken from this table's centres, at shutter time 0.5 with
+    ``sph_dtab``, when not given); the wavefront reads none.
     """
     s_pad = scene.sph_center.shape[0]
     P = scene.shade_rows.shape[0]
@@ -263,9 +270,18 @@ def prepare_batch(static: SceneStatic, scene: SceneArrays,
                          "prepare_tris's tables)")
     table8 = sphere_sweep.pad_table8(sph_table)
     layout = megakernel.sphere_cluster_layout(static) if fused else None
+    if layout is not None and sph_tree is None:
+        n_sph = min(table8.shape[0], static.num_spheres)
+        if sph_order is None:
+            mid = table8[:, 0:3] if sph_dtab is None else (
+                table8[:, 0:3] + 0.5 * sph_dtab[:, 0:3])
+            sph_order = torch.tensor(
+                sphere_tree.sphere_order(mid.cpu().numpy(), layout[0], n_sph),
+                dtype=torch.int32, device=table8.device)
+        sph_tree = sphere_tree.build_sphere_tree(
+            table8, layout[0], n_sph, sph_order, dtab8=sph_dtab)
     if layout is not None:
-        extra["sph_boxes"] = megakernel.sphere_cluster_boxes(
-            table8, *layout, dtab8=sph_dtab)
+        extra["sph_tree"] = sph_tree
     return BatchGeometry(sph_table8=table8, prim_rows=rows,
                          sph_dtab8=sph_dtab, atlas_words=atlas_words, **extra)
 

@@ -20,20 +20,26 @@ show that its main path went through the kernel.
 
 Spheres in clusters: a scene whose sphere block the compiler put in
 Morton clusters (``SceneStatic.sph_prefix`` > 0, models/sphere_order.py)
-takes the clustered twin of its form (``MegaConfig.n_sph_clusters`` > 0)
-when the clusters number at most ``MAX_SPHERE_CLUSTERS``: the kernel
-sweeps the prefix densely, then visits the clusters in ascending order,
-slab-tests each cluster's box (``sphere_cluster_boxes``, built with the
-batch's geometry as ``BatchGeometry.sph_boxes``, widened by the ray's
-rounding margin, ``sphere_cluster_pretest``) against the ray's best t
-so far, and tests the spheres of the clusters that pass with the dense
-sweep's operations.  The result is the dense sweep's (t, id), bit for
-bit: the JAX kernel's gather sweep (``_sweep`` :1389, ``_sweep_sieve``
-:1005, ``_cluster_rounds_gather`` :550) as its contract, without its
-TPU mechanisms (the MXU sieve, lane gathers, rounds and bands).  Such a
-scene may hold MAX_SPHERES_CLUSTERED spheres, whose rows the clustered
-forms read from global memory.  ``sphere_cluster_sweep_reference`` is
-the clustered loop in plain PyTorch; ``megakernel_reference`` keeps the
+takes the clustered twin of its form (``MegaConfig.clustered``) when the
+clusters number at most ``MAX_SPHERE_CLUSTERS``: the kernel sweeps the
+prefix densely, then walks a binary tree over the other spheres, nearest
+first, with the walk of the triangle trees (csrc/tri_tree.cuh), seeded
+with the prefix's best hit.  The tree (ops/sphere_tree.py, built with the
+batch's geometry as ``BatchGeometry.sph_tree``: a Morton-permuted copy of
+the spheres' rows, a slot -> id table and one 64-byte row a node, its top
+staged in shared memory) widens each box by the ray's rounding margin
+(``sphere_cluster_pretest``'s), and a hit is kept as the lexicographic
+minimum of (t, id), so the result is the dense sweep's (t, id), bit for
+bit, whatever the order of the walk: the JAX kernel's gather sweep
+(``_sweep`` :1389, ``_sweep_sieve`` :1005, ``_cluster_rounds_gather``
+:550) as its contract, without its TPU mechanisms (the MXU sieve, lane
+gathers, rounds and bands).  Such a scene may hold MAX_SPHERES_CLUSTERED
+spheres, whose rows the clustered forms read from global memory.
+``sphere_cluster_boxes``, ``sphere_cluster_pretest`` and
+``sphere_cluster_sweep_reference`` stay as the plain versions of the TPU
+kernel's flat walk over the cluster boxes, held to JAX's ``cluster_aabbs``;
+the kernel reads none of them.  ``sphere_tree.sphere_tree_sweep_reference``
+is the tree walk in plain PyTorch; ``megakernel_reference`` keeps the
 dense sweep, the yardstick the kernel is held to.
 
 The kernel covers spheres in world space, triangle soups in world space,
@@ -121,13 +127,14 @@ MAX_SPHERES = 4096
 MAX_SPHERES_ANIM = min(MAX_SPHERES, (_SMEM_BYTES - 4 * _N_PARAMS) // 48)
 
 # Spheres in clusters (models/sphere_order.py): at most MAX_SPHERE_CLUSTERS
-# boxes of 32 B in shared memory (the JAX gather table's 128 lanes,
+# clusters (the JAX gather table's 128 lanes,
 # raytrace_tpu/ops/megakernel.py:2607-2611), and so at most 128 x 128
-# spheres (the JAX gate's ceiling, :2756-2781).  A clustered form reads
+# spheres (the JAX gate's ceiling, :2756-2781; the tree walk could take
+# more, but the JAX package renders no more fused).  A clustered form reads
 # the sphere rows from global memory through the read-only cache, where a
-# ray reads only the rows of the clusters it enters; it stages only the
-# boxes.  SPHERE_ROUNDING (32 u, u = 2^-24) scales the pretest's rounding
-# margin (sphere_cluster_pretest).
+# ray reads only the rows of the leaves it reaches; it stages only the top
+# of the tree (ops/sphere_tree.py).  SPHERE_ROUNDING (32 u, u = 2^-24)
+# scales the boxes' rounding margin (sphere_cluster_pretest).
 MAX_SPHERE_CLUSTERS = 128
 MAX_SPHERES_CLUSTERED = 16384
 SPHERE_ROUNDING = 2.0 ** -19
@@ -172,11 +179,10 @@ class MegaConfig(NamedTuple):
     tri_depth: int  # the soup's tree: its depth and triangles per leaf
     tri_leaf: int
     n_sph: int      # the real spheres, the rows the kernel sweeps
-    # The clustered sphere sweep: the dense prefix, spheres per cluster and
-    # clusters (all 0 for a scene without the cluster layout).
+    # The clustered sphere sweep (a scene with the cluster layout): the
+    # spheres swept densely before the tree walk (0 without the layout).
+    clustered: bool
     n_prefix: int
-    sph_g: int
-    n_sph_clusters: int
 
 
 def sphere_cluster_layout(static):
@@ -367,16 +373,17 @@ def sphere_cluster_boxes(table8: torch.Tensor, n_prefix: int, G: int,
 
 def sphere_cluster_pretest(o: V3, d: V3, box: torch.Tensor,
                            best_t: torch.Tensor) -> torch.Tensor:
-    """[R] bool: the kernel's pretest of one sphere cluster's box
+    """[R] bool: the flat walk's pretest of one sphere cluster's box
     (``sphere_cluster_boxes`` row) against every ray: the slab test and
     prune of ``cluster_pretest`` on the box widened by the ray's rounding
-    margin m = (|o| + reach)^2 * box[3], reach = box[7] (csrc/megakernel.cu
-    sweep_sphere_clusters).  m bounds how far outside a sphere the dense
-    sweep's f32 quadratic can report a hit: its discriminant's error is
-    below ~18 u a S^2 (S = |o| + |c| + |r|, u = 2^-24), so a reported hit
-    lies within (S^2 * SPHERE_ROUNDING / (2 r)) of the sphere, and with
-    SPHERE_ROUNDING = 32 u the margin also covers the error of the
-    reported t.  Without it the JAX pad alone lets a ray from far away
+    margin m = (|o| + reach)^2 * box[3], reach = box[7] (the margin the
+    kernel's tree walk widens each node's child boxes by,
+    csrc/megakernel.cu sweep_sphere_tree).  m bounds how far outside a
+    sphere the dense sweep's f32 quadratic can report a hit: its
+    discriminant's error is below ~18 u a S^2 (S = |o| + |c| + |r|,
+    u = 2^-24), so a reported hit lies within (S^2 * SPHERE_ROUNDING /
+    (2 r)) of the sphere, and with SPHERE_ROUNDING = 32 u the margin also
+    covers the error of the reported t.  Without it the JAX pad alone lets a ray from far away
     (|o| ~ 1,800 inside final-one-weekend's ground sphere) keep a hit the
     dense sweep does not report."""
     s = torch.sqrt(o.x * o.x + o.y * o.y + o.z * o.z) + box[7]
@@ -449,7 +456,6 @@ def make_config(static, geom, use_dof: bool, n_batches: int) -> MegaConfig:
     S8 = geom.sph_table8.shape[0]
     n_sph = min(S8, static.num_spheres)
     layout = sphere_cluster_layout(static)
-    n_prefix, sph_g, n_sph_clusters = layout or (0, 0, 0)
     anim = geom.sph_dtab8 is not None
     return MegaConfig(
         width=static.width, height=static.height, sqrt_spp=static.sqrt_spp,
@@ -465,8 +471,8 @@ def make_config(static, geom, use_dof: bool, n_batches: int) -> MegaConfig:
         n_tris=min(T8, static.num_triangles),
         tri_depth=tree.depth if tree is not None else 0,
         tri_leaf=tree.leaf if tree is not None else 0,
-        n_sph=n_sph, n_prefix=n_prefix, sph_g=sph_g,
-        n_sph_clusters=n_sph_clusters)
+        n_sph=n_sph, clustered=layout is not None,
+        n_prefix=layout[0] if layout else 0)
 
 
 def _float_params(cfg: MegaConfig, static, scene, cam) -> torch.Tensor:
@@ -566,13 +572,15 @@ def _check_inputs(cfg: MegaConfig, scene, geom, params, times,
                          "tensor on the table's device")
     if params.device != device:
         raise ValueError("camera and scene must be on the table's device")
-    if cfg.n_sph_clusters:
-        _check_sphere_clusters(cfg, geom, device)
-    else:
-        cap = MAX_SPHERES_ANIM if cfg.anim else MAX_SPHERES
-        if cfg.n_sph > cap:
-            raise ValueError(f"{cfg.n_sph} spheres: the kernel holds at most "
-                             f"{cap} outside clusters (megakernel_supported)")
+    if cfg.clustered and geom.sph_tree is None:
+        raise ValueError("a scene with its spheres in clusters needs its "
+                         "sph_tree (engine/wavefront.prepare_batch)")
+    cap = (MAX_SPHERES_CLUSTERED if cfg.clustered
+           else MAX_SPHERES_ANIM if cfg.anim else MAX_SPHERES)
+    if cfg.n_sph > cap:
+        raise ValueError(f"{cfg.n_sph} spheres: the kernel holds at most "
+                         f"{cap} {'in' if cfg.clustered else 'outside'} "
+                         f"clusters (megakernel_supported)")
     if table8.data_ptr() % 16:
         raise ValueError("sph_table8 must be 16-byte aligned (float4 loads)")
     if cfg.lights:
@@ -594,25 +602,16 @@ def _check_inputs(cfg: MegaConfig, scene, geom, params, times,
                          "the table's device with a time for every batch")
 
 
-def _check_sphere_clusters(cfg: MegaConfig, geom, device) -> None:
-    boxes = geom.sph_boxes
-    if boxes is None:
-        raise ValueError("a scene with its spheres in clusters needs "
-                         "sph_boxes (engine/wavefront.prepare_batch)")
-    if (boxes.dtype != torch.float32
-            or boxes.shape != (cfg.n_sph_clusters, 8)
-            or boxes.device != device or not boxes.is_contiguous()
-            or boxes.data_ptr() % 16):
-        raise ValueError(f"sph_boxes must be a contiguous, 16-byte aligned "
-                         f"float32 [{cfg.n_sph_clusters}, 8] tensor on the "
-                         f"table's device")
-    if (cfg.n_sph > MAX_SPHERES_CLUSTERED
-            or cfg.n_sph_clusters > MAX_SPHERE_CLUSTERS
-            or cfg.n_prefix + cfg.n_sph_clusters * cfg.sph_g < cfg.n_sph):
-        raise ValueError(f"{cfg.n_sph} spheres in {cfg.n_sph_clusters} "
-                         f"clusters of {cfg.sph_g}: the kernel holds at most "
-                         f"{MAX_SPHERES_CLUSTERED} in {MAX_SPHERE_CLUSTERS} "
-                         f"(megakernel_supported)")
+def _check_sphere_clusters(cfg: MegaConfig, geom) -> None:
+    """The sphere tree against the scene, on any device (ops/sphere_tree.
+    check_tree: the spheres it holds, its depth within the walk's stack,
+    its node count, a contiguous and 16-byte-aligned layout, an id table
+    that is a permutation).  The plain version sweeps densely and needs
+    none; the kernel's launch refuses a geometry without one."""
+    from . import sphere_tree
+
+    sphere_tree.check_tree(geom.sph_tree, geom.sph_table8, cfg.n_prefix,
+                           cfg.n_sph, cfg.anim)
 
 
 def _check_tris(cfg: MegaConfig, geom, device) -> None:
@@ -712,7 +711,7 @@ def render_tile_mega(static, scene, geom, cam, batch0: int,
         LIGHT_LAUNCHES += cfg.lights
         NOISE_LAUNCHES += cfg.has_noise
         IMAGE_LAUNCHES += cfg.has_image
-        SPHERE_CLUSTER_LAUNCHES += cfg.n_sph_clusters > 0
+        SPHERE_CLUSTER_LAUNCHES += cfg.clustered
     if reduce_mean:
         sums = sums / float(np.float32(cfg.spp_local * cfg.n_batches))
     return sums, traced
@@ -726,13 +725,18 @@ def _checked_config(static, geom, use_dof: bool, n_batches: int,
         raise ValueError("an animated geometry needs the batch times")
     if cfg.tris:
         _check_tris(cfg, geom, geom.sph_table8.device)
+    if cfg.clustered and geom.sph_tree is not None:
+        _check_sphere_clusters(cfg, geom)
     return cfg
 
 
 def _launch(lib, cfg: MegaConfig, static, scene, geom, cam, batch0: int,
-            sample_base: int, times):
+            sample_base: int, times, query=None):
     """One launch of ``lib``'s kernel on the card (the inputs checked
-    first): (sums [H, W, 3] f32, traced [H, W] int32)."""
+    first): (sums [H, W, 3] f32, traced [H, W] int32).  With ``query`` (a
+    ctypes int array of 2) nothing is launched: the form's resident blocks
+    a multiprocessor and its dynamic shared memory a block are written
+    there."""
     device = geom.sph_table8.device
     params = _float_params(cfg, static, scene, cam)
     _check_inputs(cfg, scene, geom, params, times, batch0)
@@ -748,8 +752,8 @@ def _launch(lib, cfg: MegaConfig, static, scene, geom, cam, batch0: int,
              | (_HAS_NOISE if cfg.has_noise else 0)
              | (_HAS_IMAGE if cfg.has_image else 0))
     image = cfg.has_image
-    clustered = cfg.n_sph_clusters > 0
     tree = geom.tri_tree if cfg.tris else None
+    sph = geom.sph_tree if cfg.clustered else None
     err = lib.megakernel_launch(
         geom.sph_table8.data_ptr(),
         geom.sph_dtab8.data_ptr() if cfg.anim else None,
@@ -758,8 +762,12 @@ def _launch(lib, cfg: MegaConfig, static, scene, geom, cam, batch0: int,
         tree.nodes.data_ptr() if cfg.tris else None,
         tree.ids.data_ptr() if cfg.tris else None, cfg.tri_depth,
         cfg.tri_leaf, cfg.S8,
-        geom.sph_boxes.data_ptr() if clustered else None, cfg.n_prefix,
-        cfg.sph_g, cfg.n_sph_clusters,
+        sph.rows.data_ptr() if sph else None,
+        sph.drows.data_ptr() if sph and cfg.anim else None,
+        sph.nodes.data_ptr() if sph else None,
+        sph.ids.data_ptr() if sph else None, cfg.n_prefix,
+        sph.depth if sph else 0, sph.leaf if sph else 0,
+        sph.staged if sph else 0,
         scene.light_tri_packed.data_ptr() if cfg.lights else None,
         geom.inst_o2w_rows.data_ptr() if cfg.lights else None,
         geom.atlas_words.data_ptr() if image else None,
@@ -770,10 +778,11 @@ def _launch(lib, cfg: MegaConfig, static, scene, geom, cam, batch0: int,
         cfg.P, params.data_ptr(), W, H, cfg.sqrt_spp, cfg.spp_local,
         cfg.n_batches, int(batch0), int(sample_base), cfg.max_depth,
         flags, sums.data_ptr(), traced.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream)
+        torch.cuda.current_stream(device).cuda_stream, query)
     if err != 0:
         raise RuntimeError(
-            f"megakernel launch failed: CUDA error {err} "
+            f"megakernel {'query' if query else 'launch'} failed: CUDA "
+            f"error {err} "
             f"({lib.megakernel_error_string(err).decode()})")
     return sums, traced
 
@@ -812,6 +821,20 @@ def measure_tile_mega(static, scene, geom, cam, batch0: int,
     return sums, traced, dict(zip(MEASURE_SLOTS, map(int, counts)))
 
 
+def occupancy(static, scene, geom, cam, *, use_dof: bool,
+              times=None) -> tuple:
+    """(blocks resident on one multiprocessor, dynamic shared memory bytes
+    a block) of the form ``render_tile_mega`` would launch for these
+    inputs (cudaOccupancyMaxActiveBlocksPerMultiprocessor; CUDA tensors
+    only; nothing is launched)."""
+    if geom.sph_table8.device.type != "cuda":
+        raise ValueError("the occupancy query runs on a CUDA device only")
+    cfg = _checked_config(static, geom, use_dof, 1, times)
+    out = (ctypes.c_int * 2)()
+    _launch(library(), cfg, static, scene, geom, cam, 0, 0, times, out)
+    return out[0], out[1]
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """The kernel's shared library, built from csrc/ at first use."""
@@ -830,9 +853,10 @@ def measure_library() -> ctypes.CDLL:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.megakernel_launch.argtypes = [p, p, p, i, p, i, p, p, i, i, i, p, i,
-                                      i, i, p, p, p, p, i, i, i, p, p, i, p,
-                                      i, i, i, i, i, i, i, i, i, p, p, p]
+    lib.megakernel_launch.argtypes = [p, p, p, i, p, i, p, p, i, i, i, p, p,
+                                      p, p, i, i, i, i, p, p, p, p, i, i, i,
+                                      p, p, i, p, i, i, i, i, i, i, i, i, i,
+                                      p, p, p, p]
     lib.megakernel_launch.restype = i
     lib.megakernel_error_string.argtypes = [i]
     lib.megakernel_error_string.restype = ctypes.c_char_p

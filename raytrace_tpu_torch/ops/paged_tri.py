@@ -458,35 +458,93 @@ _SUBTREE_LEVELS = 11
 _NO_ID = np.iinfo(np.int64).max
 
 
-def _descend(o3, iv3, tree: TriTree, ray, node, level: int, bt, work=None):
-    """(ray, node) pairs at ``level`` walked to the leaves: at each level
-    both children's boxes of every pair's node are tested against the
-    ray's best t and the pairs of the children that pass go on.  Returns
-    (ray, leaf index) pairs; counts the nodes tested in ``work``."""
+def tri_margins(o3):
+    """The triangle tree's rounding margins: each child box of a node row
+    widened by (|o|_inf + reach) TREE_ROUNDING, reach in columns 12:14.
+    Returns margins(rows, ray) -> (left, right), as ``_descend`` takes."""
     o_inf = torch.maximum(torch.maximum(o3[0].abs(), o3[1].abs()),
                           o3[2].abs())
+
+    def margins(rows, ray):
+        far = o_inf[ray]
+        return ((far + rows[:, 12]) * TREE_ROUNDING,
+                (far + rows[:, 13]) * TREE_ROUNDING)
+    return margins
+
+
+def _descend(o3, iv3, tree, ray, node, level: int, bt, margins, work=None):
+    """(ray, node) pairs at ``level`` walked to the leaves: at each level
+    both children's boxes of every pair's node, widened by ``margins``
+    (``tri_margins``; ops/sphere_tree.py has the spheres'), are tested
+    against the ray's best t and the pairs of the children that pass go
+    on.  ``tree`` is any implicit tree with ``nodes`` rows (both children's
+    boxes in columns 0:12) and a ``depth``.  Returns (ray, leaf index)
+    pairs; counts the nodes tested in ``work``."""
     for _ in range(level, tree.depth):
         if work is not None:
             work["node_tests"] += ray.numel()
             work["seen"][node] = True
         rows = tree.nodes[node]
         ro, ri = (tuple(x[ray] for x in v) for v in (o3, iv3))
-        b, far = bt[ray], o_inf[ray]
-        hit_l = _slab(ro, ri, rows[:, 0:6], b, 3,
-                      (far + rows[:, 12]) * TREE_ROUNDING)
-        hit_r = _slab(ro, ri, rows[:, 6:12], b, 3,
-                      (far + rows[:, 13]) * TREE_ROUNDING)
+        b = bt[ray]
+        ml, mr = margins(rows, ray)
+        hit_l = _slab(ro, ri, rows[:, 0:6], b, 3, ml)
+        hit_r = _slab(ro, ri, rows[:, 6:12], b, 3, mr)
         ray = torch.cat([ray[hit_l], ray[hit_r]])
         node = torch.cat([2 * node[hit_l] + 1, 2 * node[hit_r] + 2])
     return ray, node - ((1 << tree.depth) - 1)
 
 
+def walk_reference(o3, iv3, tree, rays, bt, margins, on_leaves) -> None:
+    """The plain walk of an implicit tree over the rays ``rays`` (indices),
+    each (ray, node) pair pruned by its ray's best t ``bt``.  The rays walk
+    in chunks; each chunk walks to the roots of the subtrees of
+    ``_SUBTREE_LEVELS`` levels, then through those subtrees one after
+    another in ascending order, handing each subtree's (ray, leaf) pairs
+    to ``on_leaves``, which updates ``bt`` in place, so the best t found in
+    one subtree prunes the next."""
+    top = max(0, tree.depth - _SUBTREE_LEVELS)
+    for r0 in range(0, rays.numel(), _RAY_STEP):
+        rr = rays[r0:r0 + _RAY_STEP]
+        ray, sub = _descend(o3, iv3, tree._replace(depth=top), rr,
+                            torch.zeros_like(rr), 0, bt, margins)
+        for k in torch.unique(sub).tolist():
+            root = (1 << top) - 1 + k
+            ray_k, leaf = _descend(o3, iv3, tree, ray[sub == k],
+                                   torch.full_like(ray[sub == k], root),
+                                   top, bt, margins)
+            on_leaves(ray_k, leaf)
+
+
+def merge_hits(best, kr, t, gid, u=None, v=None) -> None:
+    """Merge the hits of (ray, leaf) pairs into ``best`` = [t, id] (or
+    [t, id, u, v]), in place, as the lexicographic minimum of (t, id) per
+    ray: ``kr`` [K] each pair's ray, ``t`` and ``gid`` (int64) [K, L] each
+    pair's primitives' t (T_MAX for no hit) and ids, ``u`` and ``v`` their
+    barycentrics where ``best`` keeps them."""
+    bt, bid = best[0], best[1]
+    tk = t.amin(dim=1)
+    # Each pair's lowest id at its closest t.
+    idk, arg = torch.min(torch.where((t == tk[:, None]) & (t < T_MAX),
+                                     gid, _NO_ID), dim=1)
+    lt = bt.clone()
+    lt.scatter_reduce_(0, kr, tk, "amin")
+    near = tk == lt[kr]
+    li = torch.where((bt == lt) & (bid >= 0), bid.long(), _NO_ID)
+    li.scatter_reduce_(0, kr[near], idk[near], "amin")
+    if u is not None:
+        won = near & (idk == li[kr]) & (tk < T_MAX)
+        best[2][kr[won]] = u.gather(1, arg[:, None])[:, 0][won]
+        best[3][kr[won]] = v.gather(1, arg[:, None])[:, 0][won]
+    bt.copy_(lt)
+    bid.copy_(torch.where(li != _NO_ID, li, bid.long()).int())
+
+
 def _leaf_hits(o: V3, d: V3, tree: TriTree, ray, leaf, best,
                id_base: int) -> None:
     """The triangles of (ray, leaf) pairs, merged into ``best`` = [t, id,
-    u, v] (in place) as the lexicographic minimum of (t, id) per ray; a
-    triangle's id is its slot, or ``id_base`` + ``tree.ids[slot]``."""
-    bt, bid, bu, bv = best
+    u, v] (in place, ``merge_hits``); a triangle's id is its slot, or
+    ``id_base`` + ``tree.ids[slot]``."""
     L = tree.leaf
     lane = torch.arange(L, device=ray.device)
     step = max(1, _CHUNK_ELEMS // L)
@@ -499,31 +557,15 @@ def _leaf_hits(o: V3, d: V3, tree: TriTree, ray, leaf, best,
         gid = slots
         if tree.ids is not None:
             gid = id_base + tree.ids[slots.clamp(max=tree.num_tris - 1)].long()
-        tk = t.amin(dim=1)
-        # Each pair's lowest id at its closest t (the first, if slots).
-        idk, arg = torch.min(torch.where((t == tk[:, None]) & (t < T_MAX),
-                                         gid, _NO_ID), dim=1)
-        lt = bt.clone()
-        lt.scatter_reduce_(0, kr, tk, "amin")
-        near = tk == lt[kr]
-        li = torch.where((bt == lt) & (bid >= 0), bid.long(), _NO_ID)
-        li.scatter_reduce_(0, kr[near], idk[near], "amin")
-        won = near & (idk == li[kr]) & (tk < T_MAX)
-        bu[kr[won]] = u.gather(1, arg[:, None])[:, 0][won]
-        bv[kr[won]] = v.gather(1, arg[:, None])[:, 0][won]
-        bt.copy_(lt)
-        bid.copy_(torch.where(li != _NO_ID, li, bid.long()).int())
+        merge_hits(best, kr, t, gid, u, v)
 
 
 def tri_tree_sweep_reference(o: V3, d: V3, tree: TriTree,
                              active: Optional[torch.Tensor] = None,
                              seed=None, id_base: int = 0):
     """The plain version of the kernel: the same tree walked level by
-    level over (ray, node) pairs, each pair pruned by its ray's best t.
-    The rays walk in chunks; each chunk walks to the roots of the
-    subtrees of ``_SUBTREE_LEVELS`` levels, then through those subtrees
-    one after another in ascending order, so the best t found in one
-    prunes the next.  At the leaves each ray keeps the lexicographic
+    level over (ray, node) pairs, each pair pruned by its ray's best t
+    (``walk_reference``).  At the leaves each ray keeps the lexicographic
     minimum of (t, id), so any order of the walk gives the kernel's bits.
     A triangle's id is its slot, or with an id table ``id_base`` +
     ``tree.ids[slot]``.  ``seed`` (t [R] f32, id [R] int32) is each ray's
@@ -540,47 +582,48 @@ def tri_tree_sweep_reference(o: V3, d: V3, tree: TriTree,
             torch.zeros(R, dtype=torch.float32, device=dev)]
     live = (torch.ones(R, dtype=torch.bool, device=dev) if active is None
             else active)
-    iv3 = tuple(_inv(x) for x in d)
-    top = max(0, tree.depth - _SUBTREE_LEVELS)
-    rays = torch.nonzero(live).squeeze(1)
-    for r0 in range(0, rays.numel(), _RAY_STEP):
-        rr = rays[r0:r0 + _RAY_STEP]
-        ray, sub = _descend(tuple(o), iv3, tree._replace(depth=top), rr,
-                            torch.zeros_like(rr), 0, best[0])
-        for k in torch.unique(sub).tolist():
-            root = (1 << top) - 1 + k
-            ray_k, leaf = _descend(tuple(o), iv3, tree, ray[sub == k],
-                                   torch.full_like(ray[sub == k], root),
-                                   top, best[0])
-            _leaf_hits(o, d, tree, ray_k, leaf, best, id_base)
+    walk_reference(tuple(o), tuple(_inv(x) for x in d), tree,
+                   torch.nonzero(live).squeeze(1), best[0], tri_margins(o),
+                   lambda ray, leaf: _leaf_hits(o, d, tree, ray, leaf, best,
+                                                id_base))
     return tuple(best)
 
 
-def tree_visit_counts(o: V3, d: V3, tree: TriTree, best_t: torch.Tensor,
-                      active: torch.Tensor) -> dict:
-    """The work of the tree walk for rays whose closest hit is ``best_t``:
-    the internal nodes whose two child boxes a walk must test (the root,
-    and every node whose box and its ancestors' pass against ``best_t``)
-    and the real triangles of every leaf reached so.  No walk of this
-    tree that proves ``best_t`` does less (a bound counts it).  Returns
-    Python ints: ``rays``, ``node_tests`` (two box tests each),
-    ``tri_tests``, and the distinct rows those read, ``nodes_read`` and
-    ``tris_read``."""
-    iv3 = tuple(_inv(x) for x in d)
-    rays = torch.nonzero(active).squeeze(1)
+def tree_work(o3, iv3, tree, rays, best_t, margins, leaf_sizes) -> dict:
+    """The work of a tree walk for rays (indices ``rays``) whose closest
+    hit is ``best_t``: the internal nodes whose two child boxes a walk
+    must test (the root, and every node whose box and its ancestors' pass
+    against ``best_t``) and the real primitives of every leaf reached so
+    (``leaf_sizes(leaf)``).  No walk of the tree that proves ``best_t``
+    does less.  Returns Python ints: ``rays``, ``node_tests`` (two box
+    tests each), ``leaf_tests``, and the distinct rows those read,
+    ``nodes_read`` and ``leaf_read``."""
     K = 1 << tree.depth
-    work = dict(rays=rays.numel(), node_tests=0, tri_tests=0,
+    work = dict(rays=rays.numel(), node_tests=0, leaf_tests=0,
                 seen=torch.zeros(K, dtype=torch.bool, device=rays.device))
     reached = torch.zeros(K, dtype=torch.bool, device=rays.device)
     for r0 in range(0, rays.numel(), _RAY_STEP):
         rr = rays[r0:r0 + _RAY_STEP]
-        _, leaf = _descend(tuple(o), iv3, tree, rr, torch.zeros_like(rr), 0,
-                           best_t, work)
-        work["tri_tests"] += int(_leaf_sizes(tree, leaf).sum())
+        _, leaf = _descend(o3, iv3, tree, rr, torch.zeros_like(rr), 0,
+                           best_t, margins, work)
+        work["leaf_tests"] += int(leaf_sizes(leaf).sum())
         reached[leaf] = True
     work["nodes_read"] = int(work.pop("seen")[:K - 1].sum())
-    work["tris_read"] = int(_leaf_sizes(tree, torch.nonzero(reached)[:, 0])
-                            .sum())
+    work["leaf_read"] = int(leaf_sizes(torch.nonzero(reached)[:, 0]).sum())
+    return work
+
+
+def tree_visit_counts(o: V3, d: V3, tree: TriTree, best_t: torch.Tensor,
+                      active: torch.Tensor) -> dict:
+    """The work of the tree walk for rays whose closest hit is ``best_t``
+    (``tree_work``).  Returns Python ints: ``rays``, ``node_tests`` (two
+    box tests each), ``tri_tests``, and the distinct rows those read,
+    ``nodes_read`` and ``tris_read``."""
+    work = tree_work(tuple(o), tuple(_inv(x) for x in d), tree,
+                     torch.nonzero(active).squeeze(1), best_t, tri_margins(o),
+                     lambda leaf: _leaf_sizes(tree, leaf))
+    work["tri_tests"] = work.pop("leaf_tests")
+    work["tris_read"] = work.pop("leaf_read")
     return work
 
 

@@ -88,19 +88,27 @@ not with ``-m``, so that the package comes from TREE.
   version (bit for bit or not, texel ids of the primary hits, the plain
   version's seconds) and times it (kernel median of 3), steps that batch
   through ``Renderer`` with defaults, and one batch of earth-motion-blur.
-- ``spheres``: builds the fused kernel and prints nvcc's register report;
-  holds each form of its clustered sphere sweep against the plain version
-  on the small docs of ``tools/stress_scenes.cluster_form_checks`` (2
-  batches in one launch; bit for bit or not, two launches byte-identical,
-  the clustered launches counted) and times it, clustered and dense
-  (medians of 5); holds one full batch of
-  final-one-weekend (1200x675), its motion-blur twin and stress-4x
-  (1024x576) against the plain version (bit for bit or not) and times the
-  clustered form and the dense form (kernel medians of 5); compiles stress-16k
-  (seconds), holds a 128x72, depth-50 batch of it against the plain
-  version, times its full batch and holds it against the wavefront's;
-  steps one batch of each stress scene through ``Renderer`` with
-  defaults; ends with one JSON line of the times.
+- ``spheres``: builds the fused kernel and prints each K4 form's
+  registers and spills; with a sphere tree (since the tree walk), each
+  clustered form's resident blocks a multiprocessor at each staging cap
+  of STAGE_CAPS; holds each form of its clustered sphere sweep against
+  the plain version on the small docs of
+  ``tools/stress_scenes.cluster_form_checks`` (2 batches in one launch;
+  bit for bit or not, two launches byte-identical, the clustered launches
+  counted) and times it, clustered and dense (medians of 5); holds one
+  full batch of final-one-weekend (1200x675), its motion-blur twin and
+  stress-4x (1024x576) against the plain version (bit for bit or not) and
+  times the clustered form and the dense form (kernel medians of 5), with
+  a tree also at each leaf size of SPHERE_LEAVES and cap of STAGE_CAPS,
+  and the tree's build (CUDA events); final-one-weekend's batch through
+  the measuring build (its phase cycles); compiles stress-16k (seconds),
+  holds a 128x72, depth-50 batch of it against the plain version, times
+  its full batch (and the sweep) and holds it against the wavefront's;
+  steps two batches of each stress scene through ``Renderer`` with
+  defaults; final-one-weekend's main path, four stepped batches and a
+  12-batch chunk (Mrays/s); the soup tree's build for tri-stress-15360
+  (CUDA events); ends with one JSON line.  TREE = the parent's ``git
+  archive`` gives the before of the same card (no sweep there).
 - ``probes``: builds the three dev probes (P1-P3,
   ``raytrace_tpu_torch/tools_dev/``) together and prints nvcc's register
   reports, then runs the dev-probe phase of ``chip_smoke.py``
@@ -622,6 +630,86 @@ def _cluster_times(args, kw, dense):
     return out
 
 
+# The sphere tree's leaf sizes and shared-memory caps swept on the card
+# (bytes of node rows a block stages; ops/sphere_tree.stage_nodes).
+SPHERE_LEAVES = (1, 2, 4, 8)
+STAGE_CAPS = (0, 8192, 16384, 24576, 32768)
+
+
+def _event_ms(fn, reps=5):
+    """Median CUDA-event ms of ``fn`` (its host work included: a tree
+    build is host-issued work on the card), after one warm-up call."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _tree_sweep(r, args, kw):
+    """K4's median ms (5 launches) on ``args``'s batch with the Renderer's
+    sphere tree rebuilt at each leaf size of SPHERE_LEAVES and each cap of
+    STAGE_CAPS, and the tree's build ms on the card (CUDA events, median
+    of 5) at the Renderer's leaf."""
+    from raytrace_tpu_torch.ops import megakernel, sphere_tree
+
+    geom = args[2]
+    tree = geom.sph_tree
+    n = r.static.num_spheres
+
+    def build(leaf, cap=sphere_tree.STAGE_BYTES):
+        return sphere_tree.build_sphere_tree(
+            geom.sph_table8, tree.n_prefix, n, tree.ids,
+            dtab8=geom.sph_dtab8, leaf=leaf, stage_bytes=cap)
+
+    out = {"leaf": tree.leaf, "staged": tree.staged,
+           "build_ms": _event_ms(lambda: build(tree.leaf)), "ms": {}}
+    for leaf in SPHERE_LEAVES:
+        for cap in STAGE_CAPS:
+            t = build(leaf, cap)
+            if t.depth > sphere_tree.MAX_SPHERE_DEPTH:
+                continue
+            a = args[:2] + (geom._replace(sph_tree=t),) + args[3:]
+            out["ms"][f"L={leaf} cap={cap} staged={t.staged}"] = _med(
+                lambda: megakernel.render_tile_mega(*a, **kw), 5)
+    return out
+
+
+def _occupancy(forms_docs, dev):
+    """Each clustered form's resident blocks a multiprocessor
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) at each cap of
+    STAGE_CAPS, on its small doc's tree rebuilt at leaves of one (at
+    least 511 nodes, so each cap stages what it would on a big tree)."""
+    from raytrace_tpu_torch.engine import Renderer
+    from raytrace_tpu_torch.ops import megakernel, sphere_tree
+
+    out = {}
+    for form, (doc, w, depth) in forms_docs.items():
+        r = Renderer(_doc_scene(doc, w, depth, 2), device=dev)
+        geom = r._geometry(0)
+        tree = geom.sph_tree
+        deep = sphere_tree.build_sphere_tree(
+            geom.sph_table8, tree.n_prefix, r.static.num_spheres, tree.ids,
+            dtab8=geom.sph_dtab8, leaf=1)
+        out[form] = {}
+        for cap in STAGE_CAPS:
+            t = deep._replace(staged=sphere_tree.stage_nodes(
+                deep.nodes.shape[0], cap))
+            blocks, smem = megakernel.occupancy(
+                r.static, r.scene, geom._replace(sph_tree=t), r.camera,
+                use_dof=r.use_dof, times=r.batch_times_dev)
+            out[form][cap] = [blocks, smem]
+    return out
+
+
 def spheres() -> None:
     import tempfile
 
@@ -629,24 +717,33 @@ def spheres() -> None:
 
     from raytrace_tpu_torch import cli
     from raytrace_tpu_torch.engine import Renderer
-    from raytrace_tpu_torch.ops import _build, megakernel, sphere_sweep
+    from raytrace_tpu_torch.ops import _build, megakernel, paged_tri
+    from raytrace_tpu_torch.ops import sphere_sweep
     from raytrace_tpu_torch.tools import image_scenes as ims
     from raytrace_tpu_torch.tools import stress_scenes
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip())
+    lib = _change_smoke_lib()
+    card = _card()
+    print(card)
     print(sys.version.split()[0], torch.__version__, torch.version.cuda)
     t0 = time.perf_counter()
     megakernel.library()
     print("build", time.perf_counter() - t0)
-    print(_build.library_path("megakernel").with_suffix(".log").read_text())
+    log = _build.library_path("megakernel").with_suffix(".log").read_text()
     dev = torch.device("cuda:0")
-    out = {"card": _card(), "small_ms": {}, "ms": {}}
+    tree_side = hasattr(megakernel, "occupancy")   # a checkout with the tree
+    out = {"card": card, "tree": tree_side, "small_ms": {}, "ms": {},
+           "forms": {f: [regs, spill] for f, regs, spill
+                     in lib.ptxas_forms(log)}}
+    print("K4 forms (registers, spill bytes):", out["forms"])
     tmp = tempfile.mkdtemp()
     png = ims.texel_id_png(str(Path(tmp) / "small.png"), 640, 320)
-    for form, (doc, w, depth) in stress_scenes.cluster_form_checks(
-            png).items():
+    docs = stress_scenes.cluster_form_checks(png)
+    if tree_side:
+        out["occupancy"] = _occupancy(docs, dev)
+        print("clustered forms' blocks a multiprocessor, shared memory "
+              "bytes, by cap:", out["occupancy"])
+    for form, (doc, w, depth) in docs.items():
         r = Renderer(_doc_scene(doc, w, depth, 2), device=dev)
         args = (r.static, r.scene, r._geometry(0), r.camera, 0, 2)
         kw = dict(use_dof=r.use_dof, times=r.batch_times_dev)
@@ -670,6 +767,7 @@ def spheres() -> None:
             ("motion-blur", lambda: _scene(mb, 1024, 576), True),
             ("stress-4x", lambda: cli.load_scene(stress["stress-4x"]),
              True)]
+    out["sweep"] = {}
     for label, make, dense in full:
         t0 = time.perf_counter()
         cs = make()
@@ -684,14 +782,19 @@ def spheres() -> None:
         ref, rt = megakernel.megakernel_reference(*args, **kw)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
+        out["ms"][label] = _cluster_times(args, kw, dense)
         print(label, r.path, r.static.width, r.static.height,
               r.static.num_spheres,
               megakernel.sphere_cluster_layout(r.static), "compile s",
               compile_s, "Renderer s", init_s, "bitwise",
               torch.equal(s1, ref), torch.equal(t1, rt), "rays",
-              int(t1.sum()), "plain s", plain_s, "ms", _cluster_times(
-                  args, kw, dense))
-        out["ms"][label] = _cluster_times(args, kw, dense)
+              int(t1.sum()), "plain s", plain_s, "ms", out["ms"][label])
+        if tree_side:
+            out["sweep"][label] = _tree_sweep(r, args, kw)
+            print(label, "tree sweep", out["sweep"][label])
+        if label == "final-one-weekend":
+            out["fow_measured"] = lib.measure_busy(args, kw)
+            print(label, "measuring build", out["fow_measured"])
         del r, args, kw, s1, t1, ref, rt
 
     t0 = time.perf_counter()
@@ -728,6 +831,9 @@ def spheres() -> None:
           "wavefront s", time.perf_counter() - t0, "ms",
           _cluster_times(args, kw, False))
     out["ms"]["stress-16k"] = _cluster_times(args, kw, False)
+    if tree_side:
+        out["sweep"]["stress-16k"] = _tree_sweep(r, args, kw)
+        print("stress-16k tree sweep", out["sweep"]["stress-16k"])
     del r, w, args, kw, sums, traced
     for name in stress_scenes.SPHERE_STRESS:
         before = (megakernel.SPHERE_CLUSTER_LAUNCHES, sphere_sweep.LAUNCHES)
@@ -741,6 +847,23 @@ def spheres() -> None:
               sphere_sweep.LAUNCHES - before[1], "means",
               r.image().mean((0, 1)), "peak GiB",
               torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+
+    # final-one-weekend's main path: four stepped batches, then two
+    # 12-batch chunks (the second timed), as chip_smoke.py phase 6 steps.
+    r = Renderer(_scene(cli.DEFAULT_SCENE, 1200, 675), device=dev)
+    for _ in range(4):
+        r.render_next_batch()
+    out["fow_stepped_mrays"] = r.stats.mrays_per_sec
+    out["fow_chunk_mrays"] = _chunk_mrays(r)
+    print("final-one-weekend main path", r.path, "stepped Mrays/s",
+          out["fow_stepped_mrays"], "chunk Mrays/s", out["fow_chunk_mrays"])
+
+    # The soup tree's build on the card (tri-stress-15360), CUDA events.
+    tri = Renderer(_tri_stress(4, 1024), device=dev)
+    g = tri._geometry(0)
+    out["soup_tree_build_ms"] = _event_ms(lambda: paged_tri.build_soup_tree(
+        g.world_p, tri.static.num_triangles, g.tri_table12, g.tri_tree.ids))
+    print("tri-stress soup tree build ms", out["soup_tree_build_ms"])
     print(json.dumps(out))
 
 

@@ -46,11 +46,12 @@ FLOPS_PER_TEST = 25
 FLOPS_PER_TEST_ANIM = 35
 
 # Registers and spill-store bytes of K4's 36 forms (nvcc -Xptxas -v) as
-# they compile with the loop of steps and per-lane regeneration (PERF.md
-# §6; 24 forms moved from the nested loops' pins, CHANGES.md): a change
-# to the kernel that moves a form must re-pin it and say so.  The dense
-# forms without images, the dense image forms, and the clustered twins.
-FORMS_BEFORE = {"static": (64, 0), "anim": (64, 0), "tris": (64, 8),
+# they compile with the loop of steps and per-lane regeneration and, in
+# the clustered forms, the sphere tree's walk (PERF.md §6; the forms that
+# moved are listed in CHANGES.md): a change to the kernel that moves a
+# form must re-pin it and say so.  The dense forms without images, the
+# dense image forms, and the clustered twins.
+FORMS_BEFORE = {"static": (64, 0), "anim": (64, 0), "tris": (72, 0),
                 "lights": (64, 0), "tris+lights": (64, 4),
                 "static+noise": (72, 12), "anim+noise": (79, 0),
                 "tris+noise": (72, 12), "lights+noise": (72, 12),
@@ -63,12 +64,12 @@ IMAGE_FORMS_BEFORE = {"static+image": (64, 0), "tris+image": (72, 0),
                       "tris+lights+noise+image": (72, 12)}
 CLUSTER_FORMS_BEFORE = {
     "static+clusters": (64, 0), "anim+clusters": (64, 0),
-    "tris+clusters": (64, 8), "lights+clusters": (64, 0),
-    "tris+lights+clusters": (64, 4), "static+image+clusters": (64, 0),
-    "tris+image+clusters": (64, 12), "lights+image+clusters": (64, 0),
-    "tris+lights+image+clusters": (64, 8), "static+noise+clusters": (72, 12),
+    "tris+clusters": (72, 0), "lights+clusters": (64, 0),
+    "tris+lights+clusters": (72, 0), "static+image+clusters": (64, 0),
+    "tris+image+clusters": (72, 0), "lights+image+clusters": (64, 4),
+    "tris+lights+image+clusters": (72, 0), "static+noise+clusters": (72, 12),
     "anim+noise+clusters": (72, 20), "tris+noise+clusters": (72, 12),
-    "lights+noise+clusters": (72, 12), "tris+lights+noise+clusters": (72, 20),
+    "lights+noise+clusters": (72, 20), "tris+lights+noise+clusters": (72, 20),
     "static+noise+image+clusters": (72, 20),
     "tris+noise+image+clusters": (72, 12),
     "lights+noise+image+clusters": (72, 20),

@@ -1040,7 +1040,7 @@ def _cluster_form_args(form, tmp_path, dev, w=48, depth=None, batches=2):
     doc, _, doc_depth = stress_scenes.cluster_form_checks(
         _image_png(tmp_path))[form]
     r = Renderer(_doc_cs(doc, w, depth or doc_depth, batches), device=dev)
-    assert r.use_megakernel and r._geometry(0).sph_boxes is not None
+    assert r.use_megakernel and r._geometry(0).sph_tree is not None
     return (r.static, r.scene, r._geometry(0), r.camera, 0, 2), dict(
         use_dof=r.use_dof, times=r.batch_times_dev)
 
@@ -1130,10 +1130,150 @@ def test_measuring_build_gives_the_same_bytes(dev, form, layout, tmp_path):
 
 
 def test_sphere_cluster_kernel_needs_the_boxes(dev, tmp_path):
+    """A clustered geometry without its sphere tree is refused on the
+    card, where the kernel walks it."""
     args, kw = _cluster_form_args("static", tmp_path, dev, 16)
-    geom = args[2]._replace(sph_boxes=None)
-    with pytest.raises(ValueError, match="sph_boxes"):
+    geom = args[2]._replace(sph_tree=None)
+    with pytest.raises(ValueError, match="sph_tree"):
         megakernel.render_tile_mega(*args[:2], geom, *args[3:], **kw)
+
+
+def _hold_clusters(args, kw):
+    """K4 on ``args`` bit for bit with the plain version's dense sweep, two
+    launches byte-identical, one clustered launch each."""
+    before = megakernel.SPHERE_CLUSTER_LAUNCHES
+    sums, traced = megakernel.render_tile_mega(*args, **kw)
+    again, traced2 = megakernel.render_tile_mega(*args, **kw)
+    torch.cuda.synchronize()
+    assert megakernel.SPHERE_CLUSTER_LAUNCHES == before + 2
+    assert torch.equal(sums, again) and torch.equal(traced, traced2)
+    ref, ref_traced = megakernel.megakernel_reference(*args, **kw)
+    assert torch.isfinite(sums).all() and float(sums.max()) > 0.0
+    assert torch.equal(sums, ref) and torch.equal(traced, ref_traced)
+
+
+def _retree(r, geom, leaf=None, ids=None, staged=None):
+    """``geom`` with its sphere tree rebuilt at another leaf size or over
+    another order, or with another number of node rows staged."""
+    from raytrace_tpu_torch.ops import sphere_tree
+
+    t = geom.sph_tree
+    if leaf is not None or ids is not None:
+        t = sphere_tree.build_sphere_tree(
+            geom.sph_table8, t.n_prefix, r.static.num_spheres,
+            t.ids if ids is None else ids, dtab8=geom.sph_dtab8,
+            leaf=leaf or t.leaf)
+    if staged is not None:
+        t = t._replace(staged=staged)
+    return geom._replace(sph_tree=t)
+
+
+SPHERE_TREE_VARIANTS = ["leaf 1", "leaf 2", "leaf 8", "random order",
+                        "staged 0", "staged 7", "staged all"]
+
+
+@pytest.mark.parametrize("variant", SPHERE_TREE_VARIANTS)
+@pytest.mark.parametrize("scene", ["stress-4x", "motion-blur"])
+def test_sphere_tree_variants_bit_for_bit(dev, scene, variant):
+    """stress-4x (a tree of 1,023 nodes, more than the cap stages) and the
+    moving motion-blur scene at 64 wide, depth 8: the tree at other leaf
+    sizes, over a random order (the lower id of a tie not first), and
+    with none, 7 or all of its node rows staged in shared memory (the
+    staged and the __ldg parts of the walk), each bit for bit."""
+    from raytrace_tpu_torch.tools import stress_scenes
+
+    if scene == "stress-4x":
+        cs = _doc_cs(stress_scenes.sphere_stress_doc(2), 64, 8, 2)
+    else:
+        cs = cli.load_scene(cli.DEFAULT_SCENE.replace(
+            "final-one-weekend.json", "final-one-weekend-motion-blur.json"),
+            64)
+        cs = dataclasses.replace(cs, render=dataclasses.replace(
+            cs.render, max_ray_depth=8, sample_batches=2))
+    r = Renderer(cs, device=dev)
+    geom = r._geometry(0)
+    tree = geom.sph_tree
+    kind, value = variant.split(" ", 1)
+    if kind == "leaf":
+        geom = _retree(r, geom, leaf=int(value))
+    elif kind == "random":
+        perm = np.random.default_rng(3).permutation(tree.num_spheres)
+        geom = _retree(r, geom, ids=tree.ids[torch.tensor(perm, device=dev)])
+    else:
+        geom = _retree(r, geom, staged=(tree.nodes.shape[0] if value == "all"
+                                        else int(value)))
+    _hold_clusters((r.static, r.scene, geom, r.camera, 0, 2),
+                   dict(use_dof=r.use_dof, times=r.batch_times_dev))
+
+
+def _sphere_tie_doc():
+    """final-one-weekend with each of its small spheres given twice, the
+    copy under the next sphere's material: every hit on one ties at equal
+    t, and the lowest id must win, or the pixel takes the copy's colour."""
+    with open(cli.DEFAULT_SCENE) as f:
+        doc = json.load(f)
+    prims = [p for p in doc["primitives"]
+             if p["uv_sphere"]["radius"] < 10]
+    mats = [p["uv_sphere"]["material"] for p in prims]
+    for k, prim in enumerate(prims):
+        body = prim["uv_sphere"]
+        doc["primitives"].append({"uv_sphere": dict(
+            body, name=body["name"] + "2",
+            material=mats[(k + 1) % len(mats)])})
+        doc["instances"].append({"name": body["name"] + "2"})
+    return doc
+
+
+@pytest.mark.parametrize("order", ["morton", "random"])
+def test_sphere_kernel_on_equal_t_duplicates(dev, order):
+    """Every small sphere twice under another material, in the Renderer's
+    tree and in one over a random order: bit for bit."""
+    r = Renderer(_doc_cs(_sphere_tie_doc(), 48, 8, 2), device=dev)
+    assert r.path == "fused" and r.static.num_spheres > 900
+    geom = r._geometry(0)
+    if order == "random":
+        perm = np.random.default_rng(5).permutation(
+            geom.sph_tree.num_spheres)
+        geom = _retree(r, geom, ids=geom.sph_tree.ids[
+            torch.tensor(perm, device=dev)])
+    _hold_clusters((r.static, r.scene, geom, r.camera, 0, 2),
+                   dict(use_dof=r.use_dof))
+
+
+def test_sphere_kernel_on_far_grazing_rays(dev):
+    """final-one-weekend seen from 1,800 units away, low over the ground,
+    through a narrow field of view: rays graze its small spheres far from
+    the origin, where each box is widened by the ray's rounding margin;
+    bit for bit."""
+    with open(cli.DEFAULT_SCENE) as f:
+        doc = json.load(f)
+    # The scene's ground lies at y > 0: the spheres stand at y < 0.
+    doc["cameras"][0]["perspective"].update(eye=[1800.0, -0.6, 40.0],
+                                            look_at=[0.0, -0.4, 0.0],
+                                            fov_y=0.3, z_far=10000.0,
+                                            aperture_size=0.0)
+    r = Renderer(_doc_cs(doc, 96, 8, 2), device=dev)
+    assert r.path == "fused"
+    _hold_clusters((r.static, r.scene, r._geometry(0), r.camera, 0, 2),
+                   dict(use_dof=r.use_dof))
+
+
+def test_sphere_kernel_on_stress_16k_beyond_the_staging_cap(dev):
+    """stress-16k at 128x72, depth 50: a tree of 2,047 nodes (leaves of
+    8) of which the top 255 are staged, the walk reading the rest through
+    __ldg; bit for bit."""
+    from raytrace_tpu_torch.tools import stress_scenes
+
+    doc = stress_scenes.sphere_stress_doc(*stress_scenes.SPHERE_STRESS[
+        "stress-16k"])
+    cs = compile_scene(SceneFile.from_json_dict(doc), width=128, height=72)
+    cs = dataclasses.replace(cs, render=dataclasses.replace(
+        cs.render, sample_batches=1))
+    r = Renderer(cs, device=dev)
+    tree = r._geometry(0).sph_tree
+    assert r.path == "fused" and 0 < tree.staged < tree.nodes.shape[0]
+    _hold_clusters((r.static, r.scene, r._geometry(0), r.camera, 0, 1),
+                   dict(use_dof=r.use_dof))
 
 
 def test_renderer_takes_the_clustered_kernel_on_the_card(dev):

@@ -380,8 +380,9 @@ def test_paged_wrapper_rejects_a_tree_with_an_id_table():
 # ---- the shared source and the register pins -------------------------------
 
 # The twenty K4 forms without triangles, as they compile with the loop of
-# steps and per-lane regeneration (re-pinned with it): the triangle walk
-# moves none of them.
+# steps and per-lane regeneration and, in their clustered twins, the
+# sphere tree's walk (re-pinned with each): the triangle walk moves none
+# of them.
 _NO_TRIANGLE_FORMS = {
     "static": (64, 0), "anim": (64, 0), "lights": (64, 0),
     "static+noise": (72, 12), "anim+noise": (79, 0), "lights+noise": (72, 12),
@@ -389,8 +390,8 @@ _NO_TRIANGLE_FORMS = {
     "static+noise+image": (80, 0), "lights+noise+image": (80, 0),
     "static+clusters": (64, 0), "anim+clusters": (64, 0),
     "lights+clusters": (64, 0), "static+image+clusters": (64, 0),
-    "lights+image+clusters": (64, 0), "static+noise+clusters": (72, 12),
-    "anim+noise+clusters": (72, 20), "lights+noise+clusters": (72, 12),
+    "lights+image+clusters": (64, 4), "static+noise+clusters": (72, 12),
+    "anim+noise+clusters": (72, 20), "lights+noise+clusters": (72, 20),
     "static+noise+image+clusters": (72, 20),
     "lights+noise+image+clusters": (72, 20)}
 

@@ -432,16 +432,17 @@ def test_config_sweeps_the_real_spheres():
         geom = wavefront.prepare_batch(static, arrays.upload_scene(
             cs, "cpu")[0], _table8(cs)[:, :5])
         cfg = megakernel.make_config(static, geom, False, 1)
-        assert (cfg.n_sph, cfg.n_sph_clusters) == (n, clusters)
+        assert (cfg.n_sph, cfg.clustered, cfg.n_prefix) == (n, True, 4)
+        assert megakernel.sphere_cluster_layout(static)[2] == clusters
         flat = megakernel.make_config(
             dataclasses.replace(static, sph_prefix=0), geom, False, 1)
-        assert (flat.n_sph, flat.n_prefix, flat.n_sph_clusters) == (n, 0, 0)
+        assert (flat.n_sph, flat.n_prefix, flat.clustered) == (n, 0, False)
     cs = compile_scene(SceneFile.from_json_dict(light_scenes.cornell_doc()),
                        width=16)
     r = Renderer(cs, device="cpu", use_megakernel=True)
     cfg = megakernel.make_config(r.static, r._geometry(0), False, 1)
-    assert (cfg.n_sph, cfg.S8, cfg.n_sph_clusters) == (0, 8, 0)
-    assert r._geometry(0).sph_boxes is None
+    assert (cfg.n_sph, cfg.S8, cfg.clustered) == (0, 8, False)
+    assert r._geometry(0).sph_tree is None
 
 
 @pytest.mark.parametrize("scene", ["final-one-weekend", "motion-blur"])
@@ -485,22 +486,29 @@ def test_cpu_renderer_takes_the_fused_path_on_stress_4x():
         cs.render, width=16, height=9, max_ray_depth=3, sample_batches=1))
     r = Renderer(cs, device="cpu", use_megakernel=True)
     assert r.path == "fused"
-    assert r._geometry(0).sph_boxes.shape == (121, 8)
+    tree = r._geometry(0).sph_tree
+    assert (tree.num_spheres, tree.leaf, tree.depth) == (1936, 2, 10)
     img = r.render_all()
     assert np.isfinite(img).all() and img.mean() > 0.05
 
 
 @pytest.mark.parametrize("name", ["stress-4x", "motion-blur"])
 def test_only_the_fused_path_builds_the_sphere_boxes(name):
-    """The wavefront reads no cluster boxes, so its geometry has none; the
-    fused path's (a batch's, or the moving scene's one geometry) has."""
+    """The wavefront reads no sphere tree, so its geometry has none; the
+    fused path's (a batch's, or the moving scene's one geometry) has the
+    tree over every sphere past the prefix, in the Renderer's order, with
+    motion rows where the spheres move."""
     cs = _port_cs(name)
     fused = Renderer(cs, device="cpu", use_megakernel=True)
     wave = Renderer(cs, device="cpu", use_megakernel=False)
     assert fused.path in ("fused", "fused_anim") and wave.path == "wavefront"
-    C = megakernel.sphere_cluster_layout(fused.static)[2]
-    assert fused._geometry(0).sph_boxes.shape == (C, 8)
-    assert wave._geometry(0).sph_boxes is None
+    n_prefix = megakernel.sphere_cluster_layout(fused.static)[0]
+    tree = fused._geometry(0).sph_tree
+    assert (tree.n_prefix, tree.num_spheres) == (
+        n_prefix, cs.num_spheres - n_prefix)
+    assert torch.equal(tree.ids, fused._sph_order)
+    assert (tree.drows is not None) == (fused.path == "fused_anim")
+    assert wave._geometry(0).sph_tree is None and wave._sph_order is None
 
 
 @functools.lru_cache(maxsize=None)
