@@ -106,7 +106,12 @@ printing a result.  No path runs at a cut depth.  Phases:
    docs, and sphere-light-962 at 128x72, depth 50; k=2), and
    perlin-spheres' full batch bit for bit with the plain version (both
    timed; the plain version run again counts the noise hits of the
-   bound); then K4's eight image forms, each bit for bit with its plain
+   bound; the measuring build's turbulences, equal to those noise hits,
+   and those a warp step); then every noise form (smoke_lib.noise_form_docs: the five
+   noise docs, the noise image docs and the clustered noise docs, a
+   clustered doc's dense form too) bit for bit at the partial-warp width
+   (97 wide: the frame's last warp has lanes past the image) at depths 1
+   and 50, k=1; then K4's eight image forms, each bit for bit with its plain
    version (and two launches byte-identical) on the small frames of
    image_scenes.form_checks (a 640x320 texel-id image; k=2), and earth's
    full batch bit for bit with the plain version (both timed; the plain
@@ -207,7 +212,8 @@ printing a result.  No path runs at a cut depth.  Phases:
 The line before the last is the kernels' JSON record (with each kernel's
 bound: the larger of its FP32 operations over 67 TFLOP/s (the dev
 probes' INT32 operations counted as PEAK_INT32_OPS says) and its bytes
-over 3.35 TB/s, counted from this run's inputs and the scene's real
+over 3.35 TB/s (the noise forms' turbulences' shared-memory loads over
+PEAK_SHARED_BYTES), counted from this run's inputs and the scene's real
 spheres, not the table's padding rows; K4's triangle, lit, noise and
 image forms' and K3's are estimates, see _k4_tris_bound (the tree's
 work, beside the flat cluster walk's as flat_bound_ms), _noise_bound,
@@ -279,14 +285,26 @@ CLUSTER_SUBSET = 1 << 17
 FLOPS_PER_NEE = 175
 # FP32 operations of one noise evaluation of K4's noise forms, counted
 # from csrc/megakernel.cu as above (compares and selects not counted;
-# floorf, fmodf, fabsf and sinf one each): a cnoise is 451 (the lattice
-# floors, the six mod-289s and the offsets 36, three fades 21, each of the
-# four (x, y) corners 96: its hash 15, its two z corners 39 each with
-# their permute, gradient, normalisation and dot, and a z mix 3; the y
-# and x mixes and the gain 10); an octave adds 6, the turbulence's abs 1
-# and the marble around it 6.  An estimate: it counts the turbulence
-# alone, once per hit whose slot is in noise mode (_slot_hits).
-FLOPS_PER_TURBULENCE = 7 * (451 + 6) + 1 + 6
+# floorf, fabsf and sinf one each), as the noise forms compute it from the
+# lattice tables in shared memory: a cnoise is 128 operations (the lattice
+# floors, the six mod-289s and the offsets 36, the tables' guard 3, the six
+# lattice coordinates converted to table arguments 6, three fades 21, each
+# of the four (x, y) corners 13: its two z corners' dot products 5 each and
+# a z mix 3; the y and x mixes and the gain 10) and 14 shared-memory loads
+# (6 permutes of 4 bytes, 8 gradients of 16 bytes); an octave adds 6, the
+# turbulence's abs 1 and the marble around it 6.  An estimate: it counts
+# the turbulence alone, once per hit whose slot is in noise mode
+# (_slot_hits).
+OPS_PER_TURBULENCE = 7 * (128 + 6) + 1 + 6
+SHARED_BYTES_PER_TURBULENCE = 7 * (6 * 4 + 8 * 16)
+# The same turbulence computed without the tables, as the noise forms did
+# before them, counted the same way (fmodf one operation): a cnoise is 451
+# (the floors, mod-289s and offsets 36, three fades 21, each of the four
+# (x, y) corners 96: its hash 15, its two z corners 39 each with their
+# permute, gradient, normalisation and dot, and a z mix 3; the mixes and
+# the gain 10).  The noise row's bound_ms_fp32_chain is on this count, so
+# that times from before and after the tables read on one yardstick too.
+FLOPS_PER_TURBULENCE_CHAIN = 7 * (451 + 6) + 1 + 6
 # FP32 operations of one image read of K4's image forms, counted from
 # csrc/megakernel.cu as above (compares, selects and integer work not
 # counted; acosf, atan2f, floorf and fmodf one each): a sphere's object
@@ -360,7 +378,8 @@ def _k4_tris_bound(static, geom, work, width: int, height: int, scene=None):
     real triangles of the leaves that a walk proving each ray's closest
     hit must reach (paged_tri.tree_visit_counts, on a subset of each
     bounce's rays: the kernel's walk, seeded by the sphere hit, can only
-    do more); every noise hit takes FLOPS_PER_TURBULENCE.  With ``scene``
+    do more); every noise hit takes OPS_PER_TURBULENCE and
+    SHARED_BYTES_PER_TURBULENCE of shared memory.  With ``scene``
     (the lit form), every bounce but a sample's last takes an NEE step,
     and the light rows and instance transforms are read too.  Bytes: the
     tables, the tree's rows, ids and nodes, the fat rows and parameters
@@ -371,7 +390,8 @@ def _k4_tris_bound(static, geom, work, width: int, height: int, scene=None):
     with the soup's table and boxes read once)."""
     tree = geom.tri_tree
     flops = (work["rays"] * _spheres(static) * FLOPS_PER_TEST
-             + work["noise_hits"] * FLOPS_PER_TURBULENCE)
+             + work["noise_hits"] * OPS_PER_TURBULENCE)
+    shared = work["noise_hits"] * SHARED_BYTES_PER_TURBULENCE
     nbytes = (geom.sph_table8.numel() + geom.prim_rows.numel() + 40) * 4
     if scene is not None:
         flops += (work["rays"] - work["samples"]) * FLOPS_PER_NEE
@@ -382,11 +402,12 @@ def _k4_tris_bound(static, geom, work, width: int, height: int, scene=None):
         flops + work["node_tests"] * FLOPS_PER_TREE_NODE
         + work["tree_tri_tests"] * FLOPS_PER_TRI_TEST,
         nbytes + (tree.tris.numel() + tree.nodes.numel()
-                  + tree.ids.numel()) * 4)
+                  + tree.ids.numel()) * 4, shared_bytes=shared)
     flat_bound = least_ms(
         flops + work["pretests"] * FLOPS_PER_PRETEST
         + work["tri_tests"] * FLOPS_PER_TRI_TEST,
-        nbytes + (geom.tri_table12.numel() + 8 * work["clusters"]) * 4)
+        nbytes + (geom.tri_table12.numel() + 8 * work["clusters"]) * 4,
+        shared_bytes=shared)
     return tree_bound, flat_bound
 
 
@@ -584,16 +605,20 @@ def _image_bound(static, scene, geom, work, width: int, height: int):
     return least_ms(flops, nbytes)
 
 
-def _noise_bound(static, geom, work, width: int, height: int):
+def _noise_bound(static, geom, work, width: int, height: int,
+                 per_turbulence=(OPS_PER_TURBULENCE,
+                                 SHARED_BYTES_PER_TURBULENCE)):
     """An estimate of K4's noise form's bound for one launch of a sphere
     scene, from the work ``_plain_work`` counted: every bounce tests
-    every sphere and every noise hit takes FLOPS_PER_TURBULENCE; bytes as
+    every sphere and every noise hit takes ``per_turbulence``'s
+    (operations, shared-memory bytes); device-memory bytes as
     _k4_bound's."""
+    ops, shared = per_turbulence
     flops = (work["rays"] * _spheres(static) * FLOPS_PER_TEST
-             + work["noise_hits"] * FLOPS_PER_TURBULENCE)
+             + work["noise_hits"] * ops)
     nbytes = ((geom.sph_table8.numel() + geom.prim_rows.numel() + 40) * 4
               + width * height * (3 * 4 + 4))
-    return least_ms(flops, nbytes)
+    return least_ms(flops, nbytes, shared_bytes=work["noise_hits"] * shared)
 
 
 def _tri_stress(k: int, width: int, obj_dir: str, depth=None, batches=None):
@@ -724,12 +749,15 @@ def _measured_busy(label, args, kw, models, card):
     its lanes-busy share beside the models and each phase's share of the
     warps' cycles; returns them."""
     res = smoke_lib.measure_busy(args, kw)
+    noise = (f"; {res['noise_lanes']} turbulences, "
+             f"{res['noise_lanes_a_step']:.3f} a warp step"
+             if res.get("noise_lanes") else "")
     print(f"{label}: K4's own lanes busy (measuring build, byte-identical "
           f"sums) {res['busy']:.4f} of {res['steps']} warp steps, against "
           f"the models' {models['regen']:.4f} (regeneration) and "
           f"{models['per_sample']:.4f} (per-sample); the warps' cycles: "
           + ", ".join(f"{k} {v:.4f}" for k, v in res["phases"].items())
-          + f" ({card})")
+          + f"{noise} ({card})")
     return res
 
 
@@ -1653,8 +1681,17 @@ def main() -> int:
         raise AssertionError("perlin-spheres: the counted rays differ")
     lanes_busy["perlin-spheres"] = _warp_models(
         "perlin-spheres", work["lengths"], card)
+    lanes_busy["perlin-spheres"]["measured"] = _measured_busy(
+        "perlin-spheres", args, kw, lanes_busy["perlin-spheres"], card)
+    if (lanes_busy["perlin-spheres"]["measured"]["noise_lanes"]
+            != work["noise_hits"]):
+        raise AssertionError("perlin-spheres: the measuring build's "
+                             "turbulences differ from the noise hits")
     noise_bound = _noise_bound(perlin_full.static, args[2], work,
                                *PERLIN_SIZE)
+    chain_bound = _noise_bound(perlin_full.static, args[2], work,
+                               *PERLIN_SIZE,
+                               per_turbulence=(FLOPS_PER_TURBULENCE_CHAIN, 0))
     print(f"fused kernel (noise form) time on perlin-spheres at 1024x576, 16 "
           f"spp, depth 50, one batch: kernel {noise_ms:.3f} ms (median of 5, "
           f"CUDA events), plain PyTorch {noise_plain_s * 1e3:.1f} ms (one "
@@ -1663,8 +1700,45 @@ def main() -> int:
           f"{work['rays']} bounces, {work['noise_hits']} noise hits "
           f"({work['noise_hits'] / work['rays']:.4f} a bounce); bound (an "
           f"estimate) {noise_bound[0]:.4f} ms by {noise_bound[1]} "
-          f"({noise_bound[0] / noise_ms:.4f} of it) ({card})")
+          f"({noise_bound[0] / noise_ms:.4f} of it), a turbulence "
+          f"{OPS_PER_TURBULENCE} operations and "
+          f"{SHARED_BYTES_PER_TURBULENCE} bytes of shared-memory loads; on "
+          f"the turbulence without tables ({FLOPS_PER_TURBULENCE_CHAIN} "
+          f"operations) {chain_bound[0]:.4f} ms by {chain_bound[1]} "
+          f"({chain_bound[0] / noise_ms:.4f} of it); sphere-light-962's "
+          f"batch (the lit noise form, phase 4d) "
+          f"{light_full['sphere-light-962']['ms']:.3f} ms ({card})")
     del perlin_full, args, kw, sums
+
+    # -- 4e'. Every noise form on frames with partial warps -----------------
+    # Each noise form's small doc at an odd width, so that the frame's last
+    # warp has lanes past the image, at depth 1 (lanes whose pixel is done
+    # while others still trace) and 50, bit for bit.  A doc in clusters
+    # also holds its dense form (_compare_fused).
+    warp_png = image_scenes.texel_id_png(
+        os.path.join(tri_dir.name, "warp.png"), 640, 320)
+    with open(mb_scene) as f:
+        warp_docs = smoke_lib.noise_form_docs(json.load(f), warp_png)
+    for form, (doc, _, _) in warp_docs.items():
+        for depth in smoke_lib.PARTIAL_WARP_DEPTHS:
+            warp_cs = compile_scene(SceneFile.from_json_dict(doc),
+                                    width=smoke_lib.PARTIAL_WARP_WIDTH)
+            r = Renderer(_scene(warp_cs, warp_cs.render.width,
+                                warp_cs.render.height, depth, 1), device=dev)
+            n_pix = r.static.width * r.static.height
+            if not r.static.flags.has_noise or n_pix % 32 == 0:
+                raise AssertionError(f"partial warp {form}: no noise form "
+                                     f"or no partial warp")
+            before = megakernel.NOISE_LAUNCHES
+            warp_err, *_ = _compare_fused(
+                f"noise {form} partial warps {r.static.width}x"
+                f"{r.static.height} ({n_pix % 32} lanes of the last warp in "
+                f"the image) depth {depth} k=1 ({r.path})", r, 1, 0.0, None,
+                card, bitwise_required=True)
+            if megakernel.NOISE_LAUNCHES != before + 2:
+                raise AssertionError(f"partial warp {form}: the noise form "
+                                     f"was not launched")
+            noise_err = max(noise_err, warp_err)
 
     # -- 4g. K4's image forms vs plain, and earth's full batch ---------------
     small_png = image_scenes.texel_id_png(
@@ -2521,6 +2595,13 @@ def main() -> int:
         "ms": noise_ms, "plain_ms": noise_plain_s * 1e3,
         "bound_ms": noise_bound[0], "bound_by": noise_bound[1],
         "library_ms": None,
+        # The lit noise form on sphere-light-962's full batch (phase 4d),
+        # the bound on the turbulence without the lattice tables, and the
+        # measuring build's turbulences a warp step.
+        "sphere_light_962_ms": light_full["sphere-light-962"]["ms"],
+        "bound_ms_fp32_chain": chain_bound[0],
+        "noise_lanes_a_step": lanes_busy["perlin-spheres"]["measured"][
+            "noise_lanes_a_step"],
     }, {
         # earth's full batch, the slice's main path.
         "name": "megakernel_image", "route": "cuda",

@@ -122,10 +122,22 @@
 // version evaluates every slot of every ray and selects, but noise draws no
 // random number and a dielectric reads no albedo, so the values taken are
 // the same.  Perlin's operations run in ops/perlin.py's order: floorf, the
-// floor-mod of torch.remainder as fmodf with its sign fix-up, the fade
-// t*t*t*(t*(t*6-15)+10) left to right, the corners in cnoise_v3's order,
-// and the accurate sinf.  A turbulence is ~3,000 operations, so a noise
-// hit costs about as much as 120 sphere tests.
+// floor-mod of torch.remainder (x - floorf(x): the same bits on the
+// gradient's arguments), the fade t*t*t*(t*(t*6-15)+10) left to right, the
+// corners in cnoise_v3's order, and the accurate sinf.  The lattice
+// tables: where an octave's lattice coordinates are below 2^24 the hash
+// chain is exact integer arithmetic on floats and takes few values, so each
+// block builds at its start, with the same device functions, the permutes
+// of [-1, 577] and each corner's scaled gradient by the argument of its
+// last permute (579 float4 rows: gradient(permute(x))) in shared memory,
+// 11.6 KB, and a corner reads them there: a turbulence is ~950 operations
+// and 98 shared loads (42 permutes, 56 gradients) in place of ~3,200
+// operations and 112 fmodf calls.  An octave whose lattice coordinates
+// reach 2^24 computes them as before, so every point keeps its bits.  The
+// octaves stay with the lane that needs them: dealing a warp's octaves over
+// its 32 lanes (warp-wide rounds, shuffles) was measured slower on both
+// noise scenes (PERF.md §6), since the table forms wait on the
+// shared-memory pipe, whose work follows the loads, not the lanes.
 //
 // Images (template parameter kImage, instantiated with each form but the
 // animated one, with and without kNoise, so the forms without images are
@@ -360,6 +372,15 @@ constexpr float kTaylor0 = static_cast<float>(1.79284291400159);
 constexpr float kTaylor1 = static_cast<float>(0.85373472095314);
 constexpr float kNoiseGain = static_cast<float>(2.2);
 constexpr int kOctaves = 7;
+// The lattice tables.  Where a lattice coordinate floor(p) is below 2^24 in
+// magnitude, the hash chain is exact integer arithmetic on floats: mod289
+// gives integers in [-1, 289], every argument of permute lies in [-1, 577]
+// and every hash in [0, 288] (tests/test_torch_noise_warp.py checks every
+// such coordinate), so kTableRows permutes, and as many gradients indexed
+// by the last permute's argument, hold every value the chain can produce
+// there.
+constexpr int kTableRows = 579;              // x in [-1, 577], at x + 1
+constexpr float kTableLimit = 16777216.0f;  // 2^24
 
 __device__ __forceinline__ float mod289(float x) { return x - floorf(x * kInv289) * 289.0f; }
 
@@ -372,30 +393,50 @@ __device__ __forceinline__ float rem1(float x) {
   return m < 0.0f ? m + 1.0f : m;
 }
 
+// torch.remainder(x, 1.0) as the gradient takes it: x - floor(x) is rem1's
+// bits for x >= 0 (every argument a hash in [0, 288] gives), and elsewhere
+// differs at most in the sign of a zero, which no sum of the turbulence
+// keeps (its accumulator starts at +0)
+__device__ __forceinline__ float fract(float x) { return x - floorf(x); }
+
 __device__ __forceinline__ float fade(float t) {
   return t * t * t * (t * (t * 6.0f - 15.0f) + 10.0f);
 }
 
 __device__ __forceinline__ float mix(float a, float b, float t) { return a + (b - a) * t; }
 
-// perlin._grads of one hashed corner, scaled by _taylor_inv_sqrt of its
-// squared length, dotted with the corner's offset (xx, yy, zz)
-__device__ __forceinline__ float corner(float hash, float xx, float yy, float zz) {
+// perlin._grads of one hash, each component scaled by _taylor_inv_sqrt of
+// the gradient's squared length
+__device__ __forceinline__ float4 gradient(float hash) {
   float gx = hash * kInv7;
-  float gy = rem1(floorf(gx) * kInv7) - 0.5f;
-  gx = rem1(gx);
+  float gy = fract(floorf(gx) * kInv7) - 0.5f;
+  gx = fract(gx);
   const float gz = 0.5f - fabsf(gx) - fabsf(gy);
   const float sz = gz <= 0.0f ? 1.0f : 0.0f;
   gx = gx - sz * ((gx >= 0.0f ? 1.0f : 0.0f) - 0.5f);
   gy = gy - sz * ((gy >= 0.0f ? 1.0f : 0.0f) - 0.5f);
   const float norm = kTaylor0 - kTaylor1 * (gx * gx + gy * gy + gz * gz);
-  return (gx * norm) * xx + (gy * norm) * yy + (gz * norm) * zz;
+  return make_float4(gx * norm, gy * norm, gz * norm, 0.0f);
 }
+
+// A hashed corner's scaled gradient dotted with the corner's offset
+__device__ __forceinline__ float corner(float4 g, float xx, float yy, float zz) {
+  return g.x * xx + g.y * yy + g.z * zz;
+}
+
+// The lattice tables a noise form stages in shared memory at block start,
+// built by permute() and gradient() themselves: row x + 1 of each holds
+// permute(x) and gradient(permute(x)), x in [-1, 577].
+struct NoiseTables {
+  const float4* grad;
+  const int* perm;
+};
 
 // perlin.cnoise_v3.  Each (x, y) corner's two z corners are mixed along z
 // as soon as both are known, which computes the same mixes in fewer
-// registers.
-__device__ __forceinline__ float cnoise(float px, float py, float pz) {
+// registers.  Below 2^24 the permutes and gradients are read from the
+// tables; beyond, where the chain is no longer exact, they are computed.
+__device__ __forceinline__ float cnoise(float px, float py, float pz, const NoiseTables& nt) {
   const float fpx = floorf(px);
   const float fpy = floorf(py);
   const float fpz = floorf(pz);
@@ -405,14 +446,32 @@ __device__ __forceinline__ float cnoise(float px, float py, float pz) {
   const float x1 = x0 - 1.0f, y1 = y0 - 1.0f, z1 = z0 - 1.0f;
   const float fz = fade(z0);
   float nz[4];  // corners (x0,y0) (x1,y0) (x0,y1) (x1,y1), as cnoise_v3's
+  if (fabsf(fpx) < kTableLimit && fabsf(fpy) < kTableLimit && fabsf(fpz) < kTableLimit) {
+    const int* perm = nt.perm + 1;       // perm[x] = permute(x)
+    const float4* grad = nt.grad + 1;    // grad[x] = gradient(permute(x))
+    const int hx0 = perm[static_cast<int>(x0i)];
+    const int hx1 = perm[static_cast<int>(x1i)];
+    const int iz0 = static_cast<int>(z0i);
+    const int iz1 = static_cast<int>(z1i);
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const float ixy = permute(permute(c & 1 ? x1i : x0i) + (c & 2 ? y1i : y0i));
-    const float xx = c & 1 ? x1 : x0;
-    const float yy = c & 2 ? y1 : y0;
-    const float n0 = corner(permute(ixy + z0i), xx, yy, z0);
-    const float n1 = corner(permute(ixy + z1i), xx, yy, z1);
-    nz[c] = mix(n0, n1, fz);
+    for (int c = 0; c < 4; ++c) {
+      const int ixy = perm[(c & 1 ? hx1 : hx0) + static_cast<int>(c & 2 ? y1i : y0i)];
+      const float xx = c & 1 ? x1 : x0;
+      const float yy = c & 2 ? y1 : y0;
+      const float n0 = corner(grad[ixy + iz0], xx, yy, z0);
+      const float n1 = corner(grad[ixy + iz1], xx, yy, z1);
+      nz[c] = mix(n0, n1, fz);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float ixy = permute(permute(c & 1 ? x1i : x0i) + (c & 2 ? y1i : y0i));
+      const float xx = c & 1 ? x1 : x0;
+      const float yy = c & 2 ? y1 : y0;
+      const float n0 = corner(gradient(permute(ixy + z0i)), xx, yy, z0);
+      const float n1 = corner(gradient(permute(ixy + z1i)), xx, yy, z1);
+      nz[c] = mix(n0, n1, fz);
+    }
   }
   const float fy = fade(y0);
   const float fx = fade(x0);
@@ -420,12 +479,12 @@ __device__ __forceinline__ float cnoise(float px, float py, float pz) {
 }
 
 // perlin.turbulence_v3(p, 7)
-__device__ __forceinline__ float turbulence(V3 p) {
+__device__ __forceinline__ float turbulence(V3 p, const NoiseTables& nt) {
   float accum = 0.0f;
   float weight = 1.0f;
 #pragma unroll 1
   for (int i = 0; i < kOctaves; ++i) {
-    accum = accum + weight * cnoise(p.x, p.y, p.z);
+    accum = accum + weight * cnoise(p.x, p.y, p.z, nt);
     weight *= 0.5f;
     p = p * 2.0f;
   }
@@ -480,12 +539,25 @@ __device__ __forceinline__ V3 sample_image(const Atlas& at, float aux, float u, 
 // shading._eval_property in the noise and image forms: the slot (cols
 // base:base+3, its mode at mode, its aux after it), or the row's checker's
 // even or odd slot where the mode says so; a slot in noise mode is the
-// marble, one in image mode the texel at the hit's UV (a sphere's from its
-// object normal at p, a triangle's the lerp of fat-row slots 58:64).
+// marble (its turbulence from the lattice tables nt), one in image mode the
+// texel at the hit's UV (a sphere's from its object normal at p, a
+// triangle's the lerp of fat-row slots 58:64).  The measuring build's
+// eval_slot also sets took_noise where the slot takes a turbulence; the
+// normal build's has no such parameter, so its code is as without it.
+#ifdef K4_MEASURE
+#define K4_MEASURE_TOOK_PARAM , bool& took_noise
+#define K4_MEASURE_TOOK_ARG , m_took
+#define K4_MEASURE_TOOK() took_noise = true
+#else
+#define K4_MEASURE_TOOK_PARAM
+#define K4_MEASURE_TOOK_ARG
+#define K4_MEASURE_TOOK() static_cast<void>(0)
+#endif
 template <bool kNoise, bool kImage>
 __device__ __forceinline__ V3 eval_slot(const float* __restrict__ row, int base, int mode,
                                         bool has_checker, V3 p, bool is_sphere, float bu,
-                                        float bv, const Atlas& atlas) {
+                                        float bv, const Atlas& atlas,
+                                        const NoiseTables& nt K4_MEASURE_TOOK_PARAM) {
   float m = __ldg(row + mode);
   int aux = mode + 1;
   if (has_checker && m == kModeChecker) {
@@ -496,7 +568,8 @@ __device__ __forceinline__ V3 eval_slot(const float* __restrict__ row, int base,
   }
   if constexpr (kNoise) {
     if (m == kModeNoise) {
-      const float v = 0.5f * (1.0f + sinf(__ldg(row + aux) * p.z + 10.0f * turbulence(p)));
+      K4_MEASURE_TOOK();
+      const float v = 0.5f * (1.0f + sinf(__ldg(row + aux) * p.z + 10.0f * turbulence(p, nt)));
       return {v, v, v};
     }
   }
@@ -682,16 +755,18 @@ __device__ __forceinline__ void sweep_tris(const tri_tree::Tree& tree,
 // loaded by the Renderer), the kernel also counts, each step of a warp,
 // its busy lanes (__popc(__activemask())) and 32 lane slots, and clock64
 // spans of the step's phases: regeneration, closest hit, shading, NEE and
-// the sample's end.  The step's lowest active lane keeps the warp's counts
-// in registers; each lane adds what it kept into g_measure once, after
-// its last step.  The clocks are read by every active lane at the points
+// the sample's end; and in the noise forms, each lane's turbulences, as
+// eval_slot reports them.  The step's lowest active lane keeps the warp's
+// busy lanes, slots and spans in registers, and each lane its own
+// turbulences; each lane adds what it kept into g_measure once, after its
+// last step.  The clocks are read by every active lane at the points
 // where the warp has reconverged, so a span is the warp's time in that
 // phase, other warps' issue slots on the multiprocessor included.  The
 // sums and bounce counts are the normal build's, byte for byte.
 
 enum MeasureSlot {
   kMeasureBusy, kMeasureSlots, kMeasureRegen, kMeasureHit, kMeasureShade, kMeasureNee,
-  kMeasureEnd, kMeasureCount
+  kMeasureEnd, kMeasureNoiseLanes, kMeasureCount
 };
 
 #ifdef K4_MEASURE
@@ -700,6 +775,7 @@ __device__ unsigned long long g_measure[kMeasureCount];
 #define K4_MEASURE_INIT()                             \
   unsigned long long m_acc[kMeasureCount] = {};       \
   bool m_lead = false;                                \
+  bool m_took = false;                                \
   long long m_t = 0
 #define K4_MEASURE_STEP()                                          \
   do {                                                             \
@@ -710,6 +786,11 @@ __device__ unsigned long long g_measure[kMeasureCount];
       m_acc[kMeasureBusy] += __popc(m_mask);                       \
       m_acc[kMeasureSlots] += 32;                                  \
     }                                                              \
+  } while (0)
+#define K4_MEASURE_NOISE()                                         \
+  do {                                                             \
+    if (m_took) ++m_acc[kMeasureNoiseLanes];                       \
+    m_took = false;                                                \
   } while (0)
 #define K4_MEASURE_SPAN(slot)                                      \
   do {                                                             \
@@ -726,6 +807,7 @@ __device__ unsigned long long g_measure[kMeasureCount];
 #else
 #define K4_MEASURE_INIT() static_cast<void>(0)
 #define K4_MEASURE_STEP() static_cast<void>(0)
+#define K4_MEASURE_NOISE() static_cast<void>(0)
 #define K4_MEASURE_SPAN(slot) static_cast<void>(0)
 #define K4_MEASURE_FLUSH() static_cast<void>(0)
 #endif
@@ -762,12 +844,22 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
   float4* snodes = tbl + kStride<kAnim> * n_staged;
   // The sRGB table, after the nodes.
   float* lut_s = reinterpret_cast<float*>(snodes + (kSphClusters ? 4 * sph_staged : 0));
+  // The noise forms' lattice tables, after the sRGB table.
+  float4* grad_s = reinterpret_cast<float4*>(lut_s + (kImage ? kLutSize : 0));
+  int* perm_s = reinterpret_cast<int*>(grad_s + kTableRows);
   for (int j = threadIdx.x; j < kNumParams; j += kThreads) prm[j] = fparams[j];
   if constexpr (kSphClusters) {
     for (int j = threadIdx.x; j < 4 * sph_staged; j += kThreads) snodes[j] = sph_nodes[j];
   }
   if constexpr (kImage) {
     for (int j = threadIdx.x; j < kLutSize; j += kThreads) lut_s[j] = lut[j];
+  }
+  if constexpr (kNoise) {
+    for (int j = threadIdx.x; j < kTableRows; j += kThreads) {
+      const float h = permute(static_cast<float>(j - 1));
+      perm_s[j] = static_cast<int>(h);
+      grad_s[j] = gradient(h);
+    }
   }
   if constexpr (kAnim) {
     for (int j = threadIdx.x; j < n_staged; j += kThreads) {
@@ -796,6 +888,7 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
   const tri_tree::Tree tree = {tris, tri_nodes, tri_ids, t8, tri_depth, tri_leaf};
   const SphereTree sph_tree = {sph_rows, sph_drows, sph_nodes, snodes, sph_ids,
                                n_sph - n_prefix, sph_depth, sph_leaf, sph_staged};
+  const NoiseTables noise_tables = {grad_s, perm_s};
   tri_tree::Stack<kStack> stack;
 
   float sum_x = 0.0f, sum_y = 0.0f, sum_z = 0.0f;
@@ -924,7 +1017,9 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
         if (reads_albedo || (has_emissive && is_light && front)) {
           const V3 v = eval_slot<kNoise, kImage>(row, reads_albedo ? 2 : 8,
                                                  reads_albedo ? 11 : 15, has_checker, p,
-                                                 is_sphere, bu, bv, atlas);
+                                                 is_sphere, bu, bv, atlas,
+                                                 noise_tables K4_MEASURE_TOOK_ARG);
+          K4_MEASURE_NOISE();
           if (reads_albedo) {
             attenuation = v;
           } else {
@@ -1066,7 +1161,8 @@ int launch(const void* table8, const void* dtab8, const void* times, int n_sph, 
   const size_t n_staged = kSphClusters ? 0 : static_cast<size_t>(n_sph);
   const size_t smem = (kNumParams + 4 * kStride<kAnim> * n_staged +
                        (kSphClusters ? 16 * static_cast<size_t>(sph_staged) : 0) +
-                       (kImage ? kLutSize : 0)) *
+                       (kImage ? kLutSize : 0) +
+                       (kNoise ? 5 * kTableRows : 0)) *  // a float4 and an int a row
                       sizeof(float);
   auto* kernel = megakernel<kAnim, kTris, kLights, kNoise, kImage, kSphClusters>;
   if (smem > 48 * 1024) {  // above the default limit it must be opted into

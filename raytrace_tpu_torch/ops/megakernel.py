@@ -9,9 +9,10 @@ the per-pixel bounce counts.  The kernel's thread runs them as one loop of
 bounces, starting the pixel's next sample where a path ends (per-lane
 regeneration), so a warp waits only for its busiest pixel's total; its
 measuring build (``measure_tile_mega``) also counts each warp step's busy
-lanes and the cycles of its phases.  ``render_tile_mega`` is the one
-entry point: for tensors on the CPU it runs the plain version, for CUDA
-tensors it launches the kernel on the current stream, or raises.
+lanes and the cycles of its phases, and in the noise forms the
+turbulences its lanes took.  ``render_tile_mega`` is the one entry point:
+for tensors on the CPU it runs the plain version, for CUDA tensors it
+launches the kernel on the current stream, or raises.
 ``LAUNCHES`` counts kernel launches, ``ANIM_LAUNCHES``, ``TRI_LAUNCHES``,
 ``LIGHT_LAUNCHES``, ``NOISE_LAUNCHES``, ``IMAGE_LAUNCHES`` and
 ``SPHERE_CLUSTER_LAUNCHES`` those of the animated, the triangle, the
@@ -788,9 +789,11 @@ def _launch(lib, cfg: MegaConfig, static, scene, geom, cam, batch0: int,
 
 
 # The measuring build's counters (csrc/megakernel.cu MeasureSlot): the
-# lanes busy and the lane slots of every warp step, and the clock64 cycles
-# of the steps' phases, summed over warps.
-MEASURE_SLOTS = ("busy", "slots", "regen", "hit", "shade", "nee", "end")
+# lanes busy and the lane slots of every warp step, the clock64 cycles of
+# the steps' phases (MEASURE_PHASES), and in the noise forms the
+# turbulences the lanes took, summed over warps.
+MEASURE_PHASES = ("regen", "hit", "shade", "nee", "end")
+MEASURE_SLOTS = ("busy", "slots") + MEASURE_PHASES + ("noise_lanes",)
 
 
 def measure_tile_mega(static, scene, geom, cam, batch0: int,

@@ -189,3 +189,101 @@ def turbulence(p, depth: int = 7):
         weight *= 0.5
         q = q * 2.0
     return torch.abs(accum)
+
+
+# ---- the fused kernel's noise design, in plain PyTorch ----
+#
+# csrc/megakernel.cu reads the hash chain's permutes from a table over
+# [-1, 577] and each corner's scaled gradient from a table indexed by the
+# argument of its last permute (gradient(permute(x))), both staged in
+# shared memory, wherever an octave's lattice coordinates are below 2^24 in
+# magnitude (there the chain is exact integer arithmetic on floats, so the
+# tables hold every value it can produce), and computes them elsewhere
+# (cnoise_table).  The tests hold the models to cnoise_v3 and
+# turbulence_v3 bit for bit; nothing on a card path uses them.
+
+TABLE_LIMIT = 2.0 ** 24
+PERM_MIN, PERM_MAX = -1, 577   # the arguments the tables cover
+OCTAVES = 7
+
+
+def _fract(x):
+    """torch.remainder(x, 1.0) as the kernel's gradient takes it: exact
+    for x >= 0, elsewhere equal but for the sign of a zero."""
+    return x - torch.floor(x)
+
+
+def _scaled_grads(v):
+    """[..., 3]: the gradient of hash ``v`` (_grads, with _fract for the
+    remainder: the kernel's gradient()) scaled by _taylor_inv_sqrt of its
+    squared length, as cnoise_v3 scales it."""
+    gx = v * (1.0 / 7.0)
+    gy = _fract(torch.floor(gx) * (1.0 / 7.0)) - 0.5
+    gx = _fract(gx)
+    gz = 0.5 - torch.abs(gx) - torch.abs(gy)
+    sz = torch.where(gz <= 0.0, 1.0, 0.0)
+    gx = gx - sz * (torch.where(gx >= 0.0, 1.0, 0.0) - 0.5)
+    gy = gy - sz * (torch.where(gy >= 0.0, 1.0, 0.0) - 0.5)
+    norm = _taylor_inv_sqrt(gx * gx + gy * gy + gz * gz)
+    return torch.stack([gx * norm, gy * norm, gz * norm], -1)
+
+
+def permute_table() -> torch.Tensor:
+    """[PERM_MAX - PERM_MIN + 1] int64: _permute(x) of each integer x in
+    [PERM_MIN, PERM_MAX], at x - PERM_MIN (the kernel's permute table)."""
+    x = torch.arange(PERM_MIN, PERM_MAX + 1, dtype=torch.float32)
+    return _permute(x).to(torch.int64)
+
+
+def gradient_table() -> torch.Tensor:
+    """[PERM_MAX - PERM_MIN + 1, 3] float32: the scaled gradient of the hash
+    _permute(x) of each integer x in [PERM_MIN, PERM_MAX], at x - PERM_MIN
+    (the kernel's gradient table, read by a corner's last permute
+    argument)."""
+    x = torch.arange(PERM_MIN, PERM_MAX + 1, dtype=torch.float32)
+    return _scaled_grads(_permute(x))
+
+
+def cnoise_table(px, py, pz, grad, perm):
+    """cnoise_v3 as the kernel computes it: where every |floor(p)| is below
+    TABLE_LIMIT, the permutes from ``perm`` and the gradients from
+    ``grad`` (permute_table, gradient_table); elsewhere both computed."""
+    fpx, fpy, fpz = torch.floor(px), torch.floor(py), torch.floor(pz)
+    x0i, y0i, z0i = _mod289(fpx), _mod289(fpy), _mod289(fpz)
+    x1i, y1i, z1i = (_mod289(fpx + 1.0), _mod289(fpy + 1.0),
+                     _mod289(fpz + 1.0))
+    x0, y0, z0 = px - fpx, py - fpy, pz - fpz
+    x1, y1, z1 = x0 - 1.0, y0 - 1.0, z0 - 1.0
+    inside = ((fpx.abs() < TABLE_LIMIT) & (fpy.abs() < TABLE_LIMIT)
+              & (fpz.abs() < TABLE_LIMIT))
+
+    def idx(v):  # a lattice value as a table argument (0 outside)
+        return torch.where(inside, v, 0.0).to(torch.int64) - PERM_MIN
+
+    fz = _fade(z0)
+    nz = []
+    for c in range(4):   # (x0,y0) (x1,y0) (x0,y1) (x1,y1), as cnoise_v3's
+        cx, cy = (x1i if c & 1 else x0i), (y1i if c & 2 else y0i)
+        xx, yy = (x1 if c & 1 else x0), (y1 if c & 2 else y0)
+        ixy_t = perm[perm[idx(cx)] + idx(cy)]
+        ixy_a = _permute(_permute(cx) + cy)
+        n = []
+        for czi, cz in ((z0i, z0), (z1i, z1)):
+            g = torch.where(inside[..., None], grad[ixy_t + idx(czi)],
+                            _scaled_grads(_permute(ixy_a + czi)))
+            n.append(g[..., 0] * xx + g[..., 1] * yy + g[..., 2] * cz)
+        nz.append(_mix(n[0], n[1], fz))
+    fy, fx = _fade(y0), _fade(x0)
+    return 2.2 * _mix(_mix(nz[0], nz[2], fy), _mix(nz[1], nz[3], fy), fx)
+
+
+def turbulence_table(px, py, pz, grad, perm, depth: int = OCTAVES):
+    """turbulence_v3 over cnoise_table: one lane's turbulence."""
+    accum = torch.zeros_like(px)
+    weight = 1.0
+    for _ in range(depth):
+        accum = accum + weight * cnoise_table(px, py, pz, grad, perm)
+        weight *= 0.5
+        px, py, pz = px * 2.0, py * 2.0, pz * 2.0
+    return torch.abs(accum)
+

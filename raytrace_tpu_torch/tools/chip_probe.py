@@ -11,6 +11,7 @@
     python3 raytrace_tpu_torch/tools/chip_probe.py probes [TREE]
     python3 raytrace_tpu_torch/tools/chip_probe.py k1 [TREE]
     python3 raytrace_tpu_torch/tools/chip_probe.py forms [TREE]
+    python3 raytrace_tpu_torch/tools/chip_probe.py sass [TREE]
 
 TREE is the root of a checkout whose ``raytrace_tpu_torch`` is measured
 (default: the checkout holding this file), so two trees can be compared on
@@ -71,14 +72,22 @@ not with ``-m``, so that the package comes from TREE.
   whose K3 walked page tables too (``smoke_lib``'s K3 helpers, loaded
   from beside this file), so TREE = the parent's ``git archive`` gives
   the before of the same card.
-- ``noise``: builds the fused kernel and prints nvcc's register report;
-  holds each of its five noise forms against the plain version on the
-  small frames of ``tools/noise_scenes.form_checks`` (2 batches in one
-  launch; bit for bit or not, two launches byte-identical, the noise
-  launches counted), holds perlin-spheres' full batch (1024x576, 16 spp,
-  depth 50) against the plain version (bit for bit or not; the plain
-  version's seconds and peak device memory) and times it (kernel median
-  of 3), and steps that batch through ``Renderer`` with defaults.
+- ``noise``: builds the fused kernel (and its measuring build, where
+  TREE has one) and prints nvcc's register report; holds each of its 18
+  noise forms against the plain version (bit for bit, two launches
+  byte-identical) on its small doc (``smoke_lib.noise_form_docs``, 2
+  batches in one launch) and on the same doc at the partial-warp width
+  (``smoke_lib.PARTIAL_WARP_WIDTH``) at depths 1 and 50, and prints each
+  noise form's resident blocks a multiprocessor at its shared memory (a
+  clustered form with a full staged tree); holds the full batches of
+  perlin-spheres (1024x576, 16 spp, depth 50) and sphere-light-962
+  (1024x576, 64 spp) against the plain version and times them (kernel
+  medians of 5), and runs them through the measuring build (busy lanes,
+  phase cycles and, since the lattice tables, the turbulences the lanes
+  took, a warp step); times one batch of final-one-weekend, cornell-style,
+  tri-stress-15360 and earth (forms without noise); steps perlin-spheres'
+  batch through ``Renderer`` with defaults; ends with one JSON line.
+  TREE = the parent's ``git archive`` gives the before of the same card.
 - ``image``: builds the fused kernel and prints nvcc's register report;
   holds each of its image forms against the plain version on the small
   frames of ``tools/image_scenes.form_checks`` (a 640x320 texel-id image;
@@ -125,6 +134,10 @@ not with ``-m``, so that the package comes from TREE.
   K4 form's registers and spill-store bytes (nvcc -Xptxas -v), to set a
   ``*_FORMS_BEFORE`` table of ``smoke_lib`` from a parent's build on
   the same card.
+- ``sass``: builds TREE's fused kernel and prints one JSON line of each
+  K4 form's SASS (``cuobjdump -sass``): its instruction count and the
+  SHA-256 of its listing, so that two trees' forms can be shown to
+  compile to the same code.
 """
 
 from __future__ import annotations
@@ -483,66 +496,157 @@ def lights() -> None:
     print(json.dumps(out))
 
 
+def _form_name(r) -> str:
+    """The name (smoke_lib.K4_FORMS) of the K4 form Renderer ``r``'s first
+    batch launches."""
+    st = r.static
+    name = ("anim" if r.path == "fused_anim" else "+".join(
+        f for f, on in (("tris", st.has_tris), ("lights", st.has_lights))
+        if on) or "static")
+    return (name + ("+noise" if st.flags.has_noise else "")
+            + ("+image" if st.flags.has_image else "")
+            + ("+clusters" if r._geometry(0).sph_tree is not None else ""))
+
+
+def _static(r, dense):
+    """Renderer ``r``'s static scene, with its cluster layout dropped (the
+    dense form) when ``dense``."""
+    return dataclasses.replace(r.static, sph_prefix=0) if dense else r.static
+
+
+def _form_occupancy(r, dense):
+    """(resident blocks a multiprocessor, dynamic shared memory bytes) of
+    the form Renderer ``r`` launches (the dense one when ``dense``); a
+    clustered form's tree rebuilt at leaves of one, so that it stages what
+    it would on a big tree (STAGE_BYTES of node rows)."""
+    from raytrace_tpu_torch.ops import megakernel, sphere_tree
+
+    geom = r._geometry(0)
+    tree = geom.sph_tree
+    if tree is not None and not dense:
+        geom = geom._replace(sph_tree=sphere_tree.build_sphere_tree(
+            geom.sph_table8, tree.n_prefix, r.static.num_spheres, tree.ids,
+            dtab8=geom.sph_dtab8, leaf=1))
+    return megakernel.occupancy(_static(r, dense), r.scene, geom, r.camera,
+                                use_dof=r.use_dof, times=r.batch_times_dev)
+
+
+def _held(r, k, label, out, dense=False):
+    """K4 against its plain version on batches 0..k-1 of Renderer ``r``
+    (its dense form when ``dense``): bit for bit and two launches
+    byte-identical, into ``out[label]``."""
+    import torch
+
+    from raytrace_tpu_torch.ops import megakernel
+
+    args = (_static(r, dense), r.scene, r._geometry(0), r.camera, 0, k)
+    kw = dict(use_dof=r.use_dof, times=r.batch_times_dev)
+    before = megakernel.NOISE_LAUNCHES
+    s1, t1 = megakernel.render_tile_mega(*args, **kw)
+    s2, t2 = megakernel.render_tile_mega(*args, **kw)
+    t0 = time.perf_counter()
+    ref, rt = megakernel.megakernel_reference(*args, **kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    ok = (torch.equal(s1, s2) and torch.equal(t1, t2)
+          and torch.equal(s1, ref) and torch.equal(t1, rt))
+    out[label] = ok
+    print(label, r.path, r.static.width, r.static.height, "depth",
+          r.static.max_ray_depth, "bit for bit, repeat identical", ok,
+          "maxdiff", (s1 - ref).abs().max().item(), "rays", int(t1.sum()),
+          int(rt.sum()), "NOISE_LAUNCHES +",
+          megakernel.NOISE_LAUNCHES - before, "plain s", plain_s)
+    return args, kw, plain_s
+
+
 def noise() -> None:
+    import concurrent.futures
+    import tempfile
+
     import torch
 
     from raytrace_tpu_torch import cli
     from raytrace_tpu_torch.engine import Renderer
     from raytrace_tpu_torch.ops import _build, megakernel, sphere_sweep
+    from raytrace_tpu_torch.tools import image_scenes as ims
+    from raytrace_tpu_torch.tools import light_scenes as ls
     from raytrace_tpu_torch.tools import noise_scenes as ns
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip())
+    lib = _change_smoke_lib()
+    card = _card()
+    print(card)
     print(sys.version.split()[0], torch.__version__, torch.version.cuda)
+    mods = [megakernel.library]
+    if hasattr(megakernel, "measure_library"):
+        mods.append(megakernel.measure_library)
     t0 = time.perf_counter()
-    megakernel.library()
-    print("build", time.perf_counter() - t0)
-    print(_build.library_path("megakernel").with_suffix(".log").read_text())
+    with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
+        list(pool.map(lambda load: load(), mods))
+    log = _build.library_path("megakernel").with_suffix(".log").read_text()
+    print(log)
     dev = torch.device("cuda:0")
+    out = {"card": card, "build_s": time.perf_counter() - t0,
+           "forms": {f: [regs, spill]
+                     for f, regs, spill in lib.ptxas_forms(log)},
+           "bitwise": {}, "occupancy": {}, "ms": {}, "plain_s": {},
+           "measured": {}}
 
     with open(Path(cli.DEFAULT_SCENE).with_name(MB_SCENE)) as f:
-        checks = ns.form_checks(json.load(f))
-    for form, (doc, w, depth) in checks.items():
-        r = Renderer(_doc_scene(doc, w, depth, 2), device=dev)
-        args = (r.static, r.scene, r._geometry(0), r.camera, 0, 2)
-        kw = dict(use_dof=r.use_dof, times=r.batch_times_dev)
-        before = megakernel.NOISE_LAUNCHES
-        s1, t1 = megakernel.render_tile_mega(*args, **kw)
-        s2, t2 = megakernel.render_tile_mega(*args, **kw)
-        ref, rt = megakernel.megakernel_reference(*args, **kw)
-        torch.cuda.synchronize()
-        print(form, r.path, r.static.width, r.static.height, "depth", depth,
-              "repeat identical", torch.equal(s1, s2) and torch.equal(t1, t2),
-              "bitwise", torch.equal(s1, ref), torch.equal(t1, rt),
-              "maxdiff", (s1 - ref).abs().max().item(), "pixels > 1e-4",
-              ((s1 - ref).abs().amax(-1) > 1e-4).double().mean().item(),
-              "rays", int(t1.sum()), int(rt.sum()), "NOISE_LAUNCHES +",
-              megakernel.NOISE_LAUNCHES - before)
+        mb_doc = json.load(f)
+    png = ims.texel_id_png(str(Path(tempfile.mkdtemp()) / "small.png"),
+                           640, 320)
+    for form, (doc, w, depth) in lib.noise_form_docs(mb_doc, png).items():
+        frames = [("small", w, depth, 2)] + [
+            (f"{lib.PARTIAL_WARP_WIDTH} wide depth {d}",
+             lib.PARTIAL_WARP_WIDTH, d, 1) for d in lib.PARTIAL_WARP_DEPTHS]
+        for label, width, d, k in frames:
+            r = Renderer(_doc_scene(doc, width, d, k), device=dev)
+            # A doc in clusters holds a dense form with its layout dropped.
+            dense = _form_name(r) == form + "+clusters"
+            if _form_name(r) != form and not dense:
+                raise AssertionError(f"{form}: the doc takes {_form_name(r)}")
+            _held(r, k, f"{form} {label}", out["bitwise"], dense)
+        out["occupancy"][form] = _form_occupancy(r, dense)
+        print(form, "blocks a multiprocessor, shared memory bytes",
+              out["occupancy"][form])
 
-    r = Renderer(_doc_scene(ns.perlin_spheres_doc(), 1024), device=dev)
-    args = (r.static, r.scene, r._geometry(0), r.camera, 0, 1)
-    kw = dict(use_dof=r.use_dof, times=r.batch_times_dev)
-    sums, traced = megakernel.render_tile_mega(*args, **kw)
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    ref, rt = megakernel.megakernel_reference(*args, **kw)
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
-    print("perlin-spheres full batch", r.static.width, r.static.height,
-          "rays", int(traced.sum()), "kernel ms",
-          _med(lambda: megakernel.render_tile_mega(*args, **kw), 3),
-          "bitwise", torch.equal(sums, ref), torch.equal(traced, rt),
-          "maxdiff", (sums - ref).abs().max().item(), "plain s", plain_s,
-          "plain peak GiB", torch.cuda.max_memory_allocated(dev) / 2 ** 30)
-    del sums, traced, ref, rt
+    # The two full batches of the noise forms' default paths, and through
+    # the measuring build.
+    for label, doc in (("perlin-spheres", ns.perlin_spheres_doc()),
+                       ("sphere-light-962", ls.sphere_light_doc())):
+        r = Renderer(_doc_scene(doc, 1024), device=dev)
+        args, kw, out["plain_s"][label] = _held(r, 1, label + " full",
+                                                out["bitwise"])
+        out["ms"][label] = _med(
+            lambda: megakernel.render_tile_mega(*args, **kw), 5)
+        print(label, "full batch kernel ms", out["ms"][label], card)
+        if hasattr(megakernel, "measure_tile_mega"):
+            out["measured"][label] = lib.measure_busy(args, kw)
+            print(label, "measuring build", out["measured"][label])
+
+    # Batches of forms without noise, to hold them to the parent's.
+    fow = Renderer(_scene(cli.DEFAULT_SCENE, 1200, 675), device=dev)
+    tmp = tempfile.mkdtemp()
+    earth_json, _ = ims.write_earth_scenes(tmp)
+    for label, r in (
+            ("final-one-weekend", fow),
+            ("cornell-style", Renderer(_doc_scene(ls.cornell_doc(), 1024),
+                                       device=dev)),
+            ("tri-stress-15360", Renderer(_tri_stress(4, 1024), device=dev)),
+            ("earth", Renderer(cli.load_scene(earth_json, ims.EARTH_WIDTH),
+                               device=dev))):
+        out["ms"][label] = _batch_ms(r, 5)
+        print(label, _form_name(r), "batch kernel ms", out["ms"][label])
+
     before = (megakernel.NOISE_LAUNCHES, sphere_sweep.LAUNCHES)
     r = Renderer(_doc_scene(ns.perlin_spheres_doc(), 1024), device=dev)
     r.render_next_batch()
+    out["perlin_mrays_stepped"] = r.stats.mrays_per_sec
     print("perlin-spheres main path", r.path, "Mrays/s", r.stats.mrays_per_sec,
           "rays", r.stats.rays_traced, "NOISE_LAUNCHES +",
           megakernel.NOISE_LAUNCHES - before[0], "K1 +",
           sphere_sweep.LAUNCHES - before[1], "means", r.image().mean((0, 1)))
+    print(json.dumps(out))
 
 
 def image() -> None:
@@ -1133,6 +1237,28 @@ def forms() -> None:
         for form, regs, spill in smoke_lib.ptxas_forms(log)}}))
 
 
+def sass() -> None:
+    import hashlib
+    import re
+
+    from raytrace_tpu_torch.ops import _build, megakernel
+
+    lib = _change_smoke_lib()
+    megakernel.library()
+    listing = subprocess.run(
+        ["/usr/local/cuda/bin/cuobjdump", "-sass",
+         str(_build.library_path("megakernel"))], check=True,
+        capture_output=True, text=True).stdout
+    forms = {}
+    for func in re.split(r"\n\s*Function : ", listing)[1:]:
+        name, _, body = func.partition("\n")
+        form = lib.k4_form(name)
+        if form is not None:
+            forms[form] = [len(re.findall(r"/\*[0-9a-f]{4,}\*/", body)),
+                           hashlib.sha256(body.encode()).hexdigest()]
+    print(json.dumps({"card": _card(), "sass": forms}))
+
+
 def chunks(tree: str) -> None:
     import torch
 
@@ -1170,7 +1296,8 @@ def chunks(tree: str) -> None:
 def main(argv) -> int:
     if len(argv) < 2 or argv[1] not in ("anim", "chunks", "tris", "lights",
                                         "paged", "noise", "image",
-                                        "spheres", "probes", "k1", "forms"):
+                                        "spheres", "probes", "k1", "forms",
+                                        "sass"):
         print(__doc__, file=sys.stderr)
         return 2
     tree = str(Path(argv[2] if len(argv) > 2
@@ -1186,7 +1313,8 @@ def main(argv) -> int:
     else:
         {"anim": anim, "tris": tris, "lights": lights, "paged": paged,
          "noise": noise, "image": image, "spheres": spheres,
-         "probes": probes, "k1": k1, "forms": forms}[argv[1]]()
+         "probes": probes, "k1": k1, "forms": forms,
+         "sass": sass}[argv[1]]()
     return 0
 
 

@@ -47,33 +47,40 @@ FLOPS_PER_TEST_ANIM = 35
 
 # Registers and spill-store bytes of K4's 36 forms (nvcc -Xptxas -v) as
 # they compile with the loop of steps and per-lane regeneration and, in
-# the clustered forms, the sphere tree's walk (PERF.md §6; the forms that
-# moved are listed in CHANGES.md): a change to the kernel that moves a
+# the clustered forms, the sphere tree's walk and, in the noise forms, the
+# lattice tables (PERF.md §6; the forms that moved are listed in
+# CHANGES.md): a change to the kernel that moves a
 # form must re-pin it and say so.  The dense forms without images, the
 # dense image forms, and the clustered twins.
 FORMS_BEFORE = {"static": (64, 0), "anim": (64, 0), "tris": (72, 0),
                 "lights": (64, 0), "tris+lights": (64, 4),
-                "static+noise": (72, 12), "anim+noise": (79, 0),
-                "tris+noise": (72, 12), "lights+noise": (72, 12),
-                "tris+lights+noise": (72, 20)}
+                "static+noise": (80, 4), "anim+noise": (80, 0),
+                "tris+noise": (72, 0), "lights+noise": (80, 4),
+                "tris+lights+noise": (80, 4)}
 IMAGE_FORMS_BEFORE = {"static+image": (64, 0), "tris+image": (72, 0),
                       "lights+image": (64, 0), "tris+lights+image": (69, 0),
                       "static+noise+image": (80, 0),
-                      "tris+noise+image": (72, 12),
+                      "tris+noise+image": (80, 4),
                       "lights+noise+image": (80, 0),
-                      "tris+lights+noise+image": (72, 12)}
+                      "tris+lights+noise+image": (80, 4)}
 CLUSTER_FORMS_BEFORE = {
     "static+clusters": (64, 0), "anim+clusters": (64, 0),
     "tris+clusters": (72, 0), "lights+clusters": (64, 0),
     "tris+lights+clusters": (72, 0), "static+image+clusters": (64, 0),
     "tris+image+clusters": (72, 0), "lights+image+clusters": (64, 4),
-    "tris+lights+image+clusters": (72, 0), "static+noise+clusters": (72, 12),
-    "anim+noise+clusters": (72, 20), "tris+noise+clusters": (72, 12),
-    "lights+noise+clusters": (72, 20), "tris+lights+noise+clusters": (72, 20),
-    "static+noise+image+clusters": (72, 20),
-    "tris+noise+image+clusters": (72, 12),
-    "lights+noise+image+clusters": (72, 20),
-    "tris+lights+noise+image+clusters": (72, 12)}
+    "tris+lights+image+clusters": (72, 0), "static+noise+clusters": (72, 0),
+    "anim+noise+clusters": (80, 4), "tris+noise+clusters": (72, 0),
+    "lights+noise+clusters": (80, 4), "tris+lights+noise+clusters": (80, 4),
+    "static+noise+image+clusters": (80, 0),
+    "tris+noise+image+clusters": (72, 0),
+    "lights+noise+image+clusters": (80, 0),
+    "tris+lights+noise+image+clusters": (72, 0)}
+# The noise forms' partial-warp frames: each noise form's small doc at an
+# odd width, so that the frame's last warp has lanes past the image, at
+# depth 1 (every sample ends after one bounce, so lanes finish at
+# different steps) and at depth 50.
+PARTIAL_WARP_WIDTH = 97
+PARTIAL_WARP_DEPTHS = (1, 50)
 # K3's registers and spill-store bytes (PERF.md): its walk, shared with K4
 # in csrc/tri_tree.cuh, compiles as when it was K3's alone.
 K3_BEFORE = (48, 0)
@@ -92,6 +99,12 @@ K4_FORMS = sorted(DENSE_FORMS + CLUSTER_FORMS)
 # bound is the larger of its FP32 ops over PEAK_FP32_FLOPS, its INT32 ops
 # over PEAK_INT32_OPS and all its ops over PEAK_FP32_FLOPS.
 PEAK_INT32_OPS = PEAK_FP32_FLOPS / 2
+# Shared memory: 32 banks of 4 bytes a clock on each SM (CUDA C++
+# Programming Guide, compute capability 9.0), against its 128 FP32 FMAs (256
+# operations) a clock, so half of PEAK_FP32_FLOPS in bytes a second on the
+# same clock.  A warp's load of 4-byte words at 32 distinct banks takes one
+# clock, of 16-byte rows at least four.
+PEAK_SHARED_BYTES = PEAK_FP32_FLOPS / 2
 # FP32 and INT32 operations of each P1 probe per element, counted from
 # csrc/probe_ops.cu (library transcendentals, sqrt and conversions one
 # each; compares and selects not counted): (fp32, int32).  The branch
@@ -120,35 +133,66 @@ RAYGEN_OPS = {"base": (65 + 55 + 5 * 2 + 7, 13 + 5 * 9),
               "packedpx": (65 + 55 + 5 * 2 + 7, 13 + 5 * 9)}
 
 
-def least_ms(flops: float, nbytes: float, int_ops: float = 0.0):
+def noise_form_docs(mb_doc: dict, png: str) -> dict:
+    """Each of K4's 18 noise forms, by its name in K4_FORMS: (doc, width,
+    depth) of the small doc on which it is held against its plain version
+    (tools/noise_scenes.form_checks, the noise twins of
+    tools/image_scenes.form_checks and of
+    tools/stress_scenes.cluster_form_checks).  ``mb_doc`` is the
+    motion-blur scene's doc, ``png`` a texel-id image."""
+    from raytrace_tpu_torch.tools import (image_scenes, noise_scenes,
+                                          stress_scenes)
+
+    out = {f + "+noise": v for f, v in noise_scenes.form_checks(
+        mb_doc).items()}
+    out.update({f + "+image": v for f, v in image_scenes.form_checks(
+        png).items() if "noise" in f})
+    out.update({f + "+clusters": v for f, v in
+                stress_scenes.cluster_form_checks(png).items()
+                if "noise" in f})
+    return out
+
+
+def least_ms(flops: float, nbytes: float, int_ops: float = 0.0,
+             shared_bytes: float = 0.0):
     """(least ms, "operations" or "bytes"): the larger of the two (the
-    operations' time as PEAK_INT32_OPS says)."""
+    operations' time as PEAK_INT32_OPS says; the bytes' time the larger of
+    device memory's and, for ``shared_bytes``, shared memory's)."""
     t_ops = max(flops, int_ops * PEAK_FP32_FLOPS / PEAK_INT32_OPS,
                 flops + int_ops) / PEAK_FP32_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_bytes = max(nbytes / PEAK_BYTES,
+                  shared_bytes / PEAK_SHARED_BYTES) * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def k4_form(text: str):
+    """The name of the first K4 instantiation named in ``text`` (its mangled
+    symbol, megakernel<kAnim, kTris, kLights, kNoise, kImage,
+    kSphClusters>; a noise form's name has "+noise", an image form's
+    "+image", a clustered sphere form's ends in "+clusters"), or None."""
+    m = re.search(r"megakernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E",
+                  text)
+    if m is None:
+        return None
+    names = {("0", "0", "0"): "static", ("1", "0", "0"): "anim",
+             ("0", "1", "0"): "tris", ("0", "0", "1"): "lights",
+             ("0", "1", "1"): "tris+lights"}
+    return (names.get(m.groups()[:3], str(m.groups()))
+            + ("+noise" if m.group(4) == "1" else "")
+            + ("+image" if m.group(5) == "1" else "")
+            + ("+clusters" if m.group(6) == "1" else ""))
 
 
 def ptxas_forms(log: str):
     """[(form, registers, spill store bytes)] of each K4 instantiation in
-    nvcc's -Xptxas=-v report (megakernel<kAnim, kTris, kLights, kNoise,
-    kImage, kSphClusters>; a noise form's name has "+noise", an image
-    form's "+image", a clustered sphere form's ends in "+clusters")."""
+    nvcc's -Xptxas=-v report (named by k4_form)."""
     forms = []
-    names = {("0", "0", "0"): "static", ("1", "0", "0"): "anim",
-             ("0", "1", "0"): "tris", ("0", "0", "1"): "lights",
-             ("0", "1", "1"): "tris+lights"}
     for block in log.split("Compiling entry function")[1:]:
-        m = re.search(r"megakernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E",
-                      block)
+        name = k4_form(block)
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores", block)
-        if m and regs and spill:
-            name = names.get(m.groups()[:3], str(m.groups()))
-            forms.append((name + ("+noise" if m.group(4) == "1" else "")
-                          + ("+image" if m.group(5) == "1" else "")
-                          + ("+clusters" if m.group(6) == "1" else ""),
-                          int(regs.group(1)), int(spill.group(1))))
+        if name and regs and spill:
+            forms.append((name, int(regs.group(1)), int(spill.group(1))))
     return forms
 
 
@@ -362,7 +406,8 @@ def measured_busy(counts):
     warps' cycles, from megakernel.measure_tile_mega's counters."""
     from raytrace_tpu_torch.ops import megakernel
 
-    phases = megakernel.MEASURE_SLOTS[2:]
+    # The phases' slots, after busy and slots, in every checkout's order.
+    phases = megakernel.MEASURE_SLOTS[2:7]
     cycles = sum(counts[k] for k in phases)
     return (counts["busy"] / max(counts["slots"], 1),
             {k: counts[k] / max(cycles, 1) for k in phases})
@@ -373,7 +418,8 @@ def measure_busy(args, kw):
     **kw)``: its sums and counts must be the normal build's, byte for
     byte, and its busy lanes must add up to the bounces traced.  Returns
     {"busy": lanes-busy share, "phases": measured_busy's, "steps": warp
-    steps}."""
+    steps} and, where the build counts them (the noise forms), the
+    turbulences the lanes took ("noise_lanes") and those a warp step."""
     from raytrace_tpu_torch.ops import megakernel
 
     sums, traced = megakernel.render_tile_mega(*args, **kw)
@@ -385,7 +431,12 @@ def measure_busy(args, kw):
         raise AssertionError(f"the measuring build counted {counts['busy']} "
                              f"busy lanes for {int(traced.sum())} bounces")
     busy, phases = measured_busy(counts)
-    return {"busy": busy, "phases": phases, "steps": counts["slots"] // 32}
+    out = {"busy": busy, "phases": phases, "steps": counts["slots"] // 32}
+    if "noise_lanes" in counts:  # since the lattice tables
+        out["noise_lanes"] = counts["noise_lanes"]
+        out["noise_lanes_a_step"] = counts["noise_lanes"] / max(
+            out["steps"], 1)
+    return out
 
 
 def wave_lengths(static, scene, cam, trace, geom, use_dof, rows_per_tile,

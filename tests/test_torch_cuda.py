@@ -36,7 +36,9 @@ the card byte-identical with its dense sweep, and within the card-vs-CPU
 limits (means 1e-2, rays 2%) of the CPU's render.  The fused kernel's
 noise forms (each of its five forms with noise textures): bit for bit
 with their plain versions on the small docs of
-tools/noise_scenes.form_checks, and the Renderer's fused path on
+tools/noise_scenes.form_checks, and at 97 wide (a partial last warp) at
+depths 1 and 50; the measuring build's turbulences, one for each noise
+hit; the Renderer's fused path on
 perlin-spheres against its wavefront: channel means within 2e-3, rays
 within 0.5%.  The fused kernel's image forms (each form but the animated
 one, with and without noise, with image textures): bit for bit with their
@@ -913,6 +915,43 @@ def test_noise_fused_kernel_matches_plain_bit_for_bit(dev, form):
     assert torch.equal(sums, ref) and torch.equal(traced, ref_traced)
 
 
+@pytest.mark.parametrize("depth", [1, 50])
+@pytest.mark.parametrize("form", ["static", "anim", "tris", "lights",
+                                  "tris+lights"])
+def test_noise_forms_on_partial_warps(dev, form, depth):
+    """At an odd width the frame's last warp has lanes past the image, and
+    at depth 1 lanes finish while others trace: a partial warp's
+    turbulences keep the plain version's bits."""
+    from raytrace_tpu_torch.tools import smoke_lib
+
+    cs = _noise_form_scene(form, smoke_lib.PARTIAL_WARP_WIDTH)
+    r = Renderer(dataclasses.replace(cs, render=dataclasses.replace(
+        cs.render, max_ray_depth=depth)), device=dev)
+    assert r.static.flags.has_noise
+    assert (r.static.width * r.static.height) % 32 != 0
+    args = (r.static, r.scene, r._geometry(0), r.camera, 0, 1)
+    kw = dict(use_dof=r.use_dof, times=r.batch_times_dev)
+    sums, traced = megakernel.render_tile_mega(*args, **kw)
+    again, traced2 = megakernel.render_tile_mega(*args, **kw)
+    ref, ref_traced = megakernel.megakernel_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(sums, again) and torch.equal(traced, traced2)
+    assert torch.equal(sums, ref) and torch.equal(traced, ref_traced)
+
+
+@pytest.mark.parametrize("form", ["static", "tris+lights"])
+def test_measuring_build_counts_the_noise_lanes(dev, form):
+    """The measuring build of a noise form counts the turbulences its
+    lanes take, as eval_slot takes them: some, and at most one a
+    bounce."""
+    r = Renderer(_noise_form_scene(form), device=dev)
+    args = (r.static, r.scene, r._geometry(0), r.camera, 0, 2)
+    kw = dict(use_dof=r.use_dof, times=r.batch_times_dev)
+    _, traced, counts = megakernel.measure_tile_mega(*args, **kw)
+    assert counts["busy"] == int(traced.sum())
+    assert 0 < counts["noise_lanes"] <= counts["busy"]
+
+
 def test_renderer_takes_the_noise_kernel_on_the_card(dev):
     from raytrace_tpu_torch.tools import noise_scenes
 
@@ -1126,7 +1165,7 @@ def test_measuring_build_gives_the_same_bytes(dev, form, layout, tmp_path):
     assert torch.equal(sums, m_sums) and torch.equal(traced, m_traced)
     assert counts["busy"] == int(traced.sum())
     assert counts["slots"] % 32 == 0 and counts["slots"] >= counts["busy"]
-    assert all(counts[k] > 0 for k in megakernel.MEASURE_SLOTS[2:])
+    assert all(counts[k] > 0 for k in megakernel.MEASURE_PHASES)
 
 
 def test_sphere_cluster_kernel_needs_the_boxes(dev, tmp_path):

@@ -26,6 +26,22 @@ def test_least_ms_takes_the_larger_time():
     assert (ms, by) == (pytest.approx(1.0), "operations")
 
 
+def test_least_ms_counts_shared_memory_bytes():
+    """Shared-memory bytes at their own rate, against device memory's and
+    the operations'; the larger time wins."""
+    ms, by = smoke_lib.least_ms(0.0, 0.0,
+                                shared_bytes=smoke_lib.PEAK_SHARED_BYTES / 1e3)
+    assert (ms, by) == (pytest.approx(1.0), "bytes")
+    ms, by = smoke_lib.least_ms(smoke_lib.PEAK_FP32_FLOPS / 1e3,
+                                smoke_lib.PEAK_BYTES / 2e3,
+                                shared_bytes=smoke_lib.PEAK_SHARED_BYTES / 4e3)
+    assert (ms, by) == (pytest.approx(1.0), "operations")
+    ms, by = smoke_lib.least_ms(smoke_lib.PEAK_FP32_FLOPS / 4e3,
+                                smoke_lib.PEAK_BYTES / 2e3,
+                                shared_bytes=smoke_lib.PEAK_SHARED_BYTES / 1e3)
+    assert (ms, by) == (pytest.approx(1.0), "bytes")
+
+
 def test_ptxas_forms_names_each_instantiation():
     log = "".join(
         f"ptxas info    : Compiling entry function "
@@ -181,6 +197,31 @@ def test_measured_busy_reads_the_counters():
     assert busy == 0.75
     assert phases == {"regen": 0.1, "hit": 0.5, "shade": 0.2, "nee": 0.15,
                       "end": 0.05}
+
+
+def test_noise_form_docs_give_each_noise_form_partial_warps(tmp_path):
+    """One small doc for each of K4's 18 noise forms, each with a noise
+    texture and, at the partial-warp width, a frame whose last warp has
+    lanes past the image."""
+    import json
+    import os
+
+    from raytrace_tpu_torch import cli
+    from raytrace_tpu_torch.models import compile_scene
+    from raytrace_tpu_torch.scene_file import SceneFile
+    from raytrace_tpu_torch.tools import image_scenes
+
+    png = image_scenes.texel_id_png(str(tmp_path / "small.png"), 64, 32)
+    with open(os.path.join(os.path.dirname(cli.DEFAULT_SCENE),
+                           "final-one-weekend-motion-blur.json")) as f:
+        docs = smoke_lib.noise_form_docs(json.load(f), png)
+    assert sorted(docs) == sorted(f for f in smoke_lib.K4_FORMS
+                                  if "noise" in f)
+    for form, (doc, _, _) in docs.items():
+        cs = compile_scene(SceneFile.from_json_dict(doc),
+                           width=smoke_lib.PARTIAL_WARP_WIDTH)
+        assert cs.render.width * cs.render.height % 32 != 0, form
+        assert "noise" in json.dumps(doc), form
 
 
 def test_wave_lengths_count_each_sample_bounce_by_bounce():
