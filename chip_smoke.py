@@ -51,14 +51,19 @@ printing a result.  No path runs at a cut depth.  Phases:
    K3's; every K4 form must keep the registers and spills pinned for it
    as it compiles with the loop of steps (FORMS_BEFORE,
    IMAGE_FORMS_BEFORE, CLUSTER_FORMS_BEFORE), and K3 its K3_BEFORE;
-3. K1 against the plain PyTorch sweep: the 3,240,000 primary rays of the
-   main path and 2^20 random rays with an alive mask (ids equal, and ids
-   equal with t within rtol=1e-3, atol=1e-3, each on >= 99.9% of rays),
-   timed with CUDA events; then K2 the same way (bit for bit, or the same
-   agreement): 2^18 of tri-stress's primary rays against its 15,360
-   triangles and 2^20 random rays with an alive mask against 960, timed
-   over all 9,437,184 primary rays; a failed K1 check first prints what
-   it saw (smoke_lib.sweep_diagnostics); then the dev probes
+   K1's and K2's walks print theirs (smoke_lib.WALKS_BEFORE pins them);
+3. K1 (the scene's dense prefix, then a walk of its sphere tree, as the
+   wavefront runs it) against the plain PyTorch sweep: the 3,240,000
+   primary rays of the main path and 2^20 random rays with an alive mask
+   (ids equal, and ids equal with t within rtol=1e-3, atol=1e-3, each on
+   >= 99.9% of rays; then K1 and its dense entry point bit for bit), timed
+   with CUDA events beside the dense entry point; then K2's walk of the
+   soup's tree (bit for bit, and its dense entry point too): 2^18 of
+   tri-stress's primary rays against its 15,360 triangles, 2^20 random
+   rays with an alive mask against 960, and all 9,437,184 primary rays,
+   timed there beside the dense entry point; each walk's bound from its
+   work on 2^17 rays beside the dense sweep's; a failed K1 check first
+   prints what it saw (smoke_lib.sweep_diagnostics); then the dev probes
    (raytrace_tpu_torch/tools_dev/; smoke_lib.dev_probes): each module's
    main run as a user runs it (the dev-probe path, every probe kernel
    launched), which holds P1's ten probes against their plain versions
@@ -79,7 +84,17 @@ printing a result.  No path runs at a cut depth.  Phases:
    form); two launches give the same bytes; both timed with CUDA events,
    and the dense form on the same batch; the clustered sweep's work (the
    sphere tree's walk, beside the flat cluster walk it replaced) counted
-   for the bound on 2^17 of the wavefront's rays of the batch;
+   for the bound on 2^17 of the wavefront's rays of the batch (that
+   wavefront, like every wavefront render this script holds a fused
+   path against, runs through the dense entry points of K1 and K2,
+   smoke_lib.dense_trace_fn, and the same batch rendered again by the
+   Renderer's own wavefront, the walks of K1 and K2 at every bounce and
+   on the shadow rays, must give its bytes and its ray count, with the
+   walks' launches counted from 0 there; K1's walk on its first bounce is
+   held to the dense entry's bits and both are timed, here and on the
+   motion-blur and stress scenes' forced wavefronts; K2's walk on 2^17
+   rays of bounces 0, 1, 2 and 10 of each triangle scene's batch, bit for
+   bit with its plain version and its dense entry);
    wherever a scene in clusters is held to the plain version (here and
    below, up to the dense gate's 4096 spheres), its dense form (the
    layout dropped) is too, bit for bit, two launches byte-identical;
@@ -133,7 +148,8 @@ printing a result.  No path runs at a cut depth.  Phases:
    two, with a duplicate pair and an alive mask (40,000, 3,001 and 5
    triangles), the mesh's tree built on the card (timed), all 3,240,000
    primary rays of the mesh scene's batch 0 (plain version timed) and
-   2^17 of the rays of bounces 0, 1, 2 and 10 against K2 (and the plain
+   2^17 of the rays of bounces 0, 1, 2 and 10 against K2's dense entry
+   (and the plain
    version past bounce 0); 2^18 far grazing rays (1,000-2,000 units away,
    aimed at the mesh's leaf boxes) against K2, bit for bit but for rays
    whose K2 hit lies off its own triangle by more than the rounding
@@ -187,8 +203,9 @@ printing a result.  No path runs at a cut depth.  Phases:
    and K4 not), Mrays/s over batches 1-3 stepped and over the other 21
    in render_all, the image checks and its channel means beside the
    analytic scene's; a reduced frame
-   (240x135, depth 50, one batch) of its soup on the paged and on the
-   dense sweep, byte-identical with equal ray counts; one batch of the
+   (240x135, depth 50, one batch) of its soup on the paged sweep, on
+   K2's walk (use_bvh=False) and through K2's dense entry point,
+   byte-identical with equal ray counts; one batch of the
    motion-blur mesh (its tree re-fitted once for the batch; the re-fit
    timed), the image checks
    and the same reduced-frame identity; final-one-weekend and its
@@ -257,6 +274,9 @@ TRI_SUBSET = 1 << 18
 # Rays of each bounce on which the work of K4's tree walk is counted for
 # its bound (_tri_work).
 TREE_SUBSET = 1 << 17
+# The bounces at which _tri_work holds K2's walk on TREE_SUBSET rays
+# against its plain version and its dense entry point.
+K2_BOUNCES = (0, 1, 2, 10)
 # FP32 operations of one ray-triangle test, counted from the loops of
 # csrc/tri_sweep.cu and csrc/megakernel.cu as FLOPS_PER_TEST is (compares
 # not counted): p = d x e2 9, det 5, 1 / det 1, s = o - v0 3, u 6,
@@ -321,20 +341,23 @@ BYTES_PER_IMAGE_READ = 32
 # that hold K4's lit forms against the plain version at depth 50, k=2.
 LIGHT_SMALL = {"cornell-style": 128, "sphere-light-962": 128,
                "lit spheres": 96, "70 instances": 96}
-# The light scenes' full batch, fused against the wavefront with K2 (and
-# K1, which contracts multiply-adds): per-sample channel means within
-# this.  Measured 6.0e-8 (cornell-style) and 1.1e-6 (sphere-light-962)
-# on an H100 (PERF.md).
+# The light scenes' full batch, fused against the wavefront through the
+# dense entry points of K2 and K1 (K1 built with multiply-add contraction
+# when these limits were set, without it since it shares K4's sphere
+# test): per-sample channel means within this.  Measured 6.0e-8
+# (cornell-style) and 1.1e-6 (sphere-light-962) on an H100 (PERF.md).
 LIGHT_MEAN_TOL = 1e-5
 # Big meshes: final-one-weekend --mesh-geometry (its 488 uv spheres
 # tessellated, as the reference renders them), held against the plain
-# version and K2 on this many of its rays at a bounce; the reduced frame
-# on which the paged and the dense sweep must render the same bytes.
+# version and K2's dense entry on this many of its rays at a bounce; the
+# reduced frame on which the paged sweep, K2's walk and the dense sweep
+# must render the same bytes.
 MESH_TRIANGLES = 2_033_920
 # perlin-spheres (tools/noise_scenes.py): its size, and its full batch,
-# fused against the wavefront with K1 (which contracts multiply-adds,
-# and the turbulence amplifies a hit point's last bits about 100x):
-# per-sample channel means within this.
+# fused against the wavefront with K1 (built with multiply-add
+# contraction when this limit was set, without it since it shares K4's
+# sphere test; the turbulence amplifies a hit point's last bits about
+# 100x): per-sample channel means within this.
 PERLIN_SIZE = (1024, 576)
 NOISE_MEAN_TOL = 1e-4
 MESH_SUBSET = 1 << 17
@@ -346,8 +369,9 @@ REDUCED = (240, 135)
 GRAZING_RAYS = 1 << 18
 FLOPS_PER_TREE_NODE = 2 * (FLOPS_PER_PRETEST + 8)
 # earth (tools/image_scenes.py): its size, and its full batch, fused
-# against the wavefront with K1 (which contracts multiply-adds): channel
-# means within this.  earth-motion-blur's batch on fused_per_batch against
+# against the wavefront with K1 (built with multiply-add contraction when
+# this limit was set, without it since it shares K4's sphere test):
+# channel means within this.  earth-motion-blur's batch on fused_per_batch against
 # its wavefront batch, the same.
 EARTH_SIZE = (512, 512)
 IMAGE_MEAN_TOL = 1e-4
@@ -411,9 +435,12 @@ def _k4_tris_bound(static, geom, work, width: int, height: int, scene=None):
     return tree_bound, flat_bound
 
 
-def _cluster_work(wave_r, geom, times=None):
-    """Render batch 0 of ``wave_r``'s scene on the wavefront (K1), as
-    render_next_batch does, capturing every bounce's alive rays; count on
+def _cluster_work(name, wave_r, geom, card, times=None):
+    """Render batch 0 of scene ``name``, ``wave_r``'s, on the wavefront, as
+    render_next_batch does but through K1's dense entry point (the
+    independent oracle, smoke_lib.dense_trace_fn), capturing every
+    bounce's alive rays; hold K1's walk, as the wavefront launches it, to
+    the dense entry's bits on the first bounce and time both; count on
     CLUSTER_SUBSET of them K4's clustered sweep against ``geom`` (the
     fused path's geometry, moved to times[0] when it moves): the tree
     walk's work (ops/sphere_tree.sphere_tree_visit_counts, against the
@@ -422,26 +449,48 @@ def _cluster_work(wave_r, geom, times=None):
     sphere_cluster_boxes).  Returns (image [H, W, 3] on the host, rays
     traced, per-ray work: prefix sphere tests, the tree's node and sphere
     tests, the flat walk's box tests and sphere tests in clusters that
-    pass, [H * W, spp] each (pixel, sample)'s path length)."""
+    pass, [H * W, spp] each (pixel, sample)'s path length, K1's launches
+    in the Renderer's own batch, the first bounce's rays and K1's and its
+    dense entry's ms there).  The Renderer's own batch: the same batch
+    rendered by ``wave_r`` itself (_walk_batch: K1 walking its tree at
+    every bounce), the dense oracle's bytes and ray count."""
     import torch
 
-    from raytrace_tpu_torch.engine import wavefront
     from raytrace_tpu_torch.ops import megakernel, sphere_sweep, sphere_tree
     from raytrace_tpu_torch.ops.vec3 import V3
 
     static, scene = wave_r.static, wave_r.scene
     wave_geom = wave_r._geometry(0)
-    trace = wavefront.make_trace_fn(static, scene, wave_geom)
-    seen = []
+    trace = smoke_lib.dense_trace_fn(static, scene, wave_geom)
+    seen, first = [], []
 
     def capture(o, d, alive):
         seen.append(torch.stack([*o, *d])[:, alive])
+        if not first:
+            first.append((o, d, alive))
         return trace(o, d, alive)
 
     img, rays, lengths = smoke_lib.wave_lengths(
         static, scene, wave_r.camera, capture, wave_geom, wave_r.use_dof,
         wave_r.rows_per_tile)
+    walked = _walk_batch(name, wave_r, img, rays, card)
     img = img.cpu().numpy()
+    # K1 as the wavefront launches it, on the batch's first bounce, beside
+    # its dense entry point: bit for bit, then one launch timed each.
+    o0, d0, a0 = first[0]
+    table8, k1_tree = wave_geom.sph_table8, wave_geom.sph_tree
+    walk = sphere_sweep.intersect_spheres_sweep(o0, d0, table8, a0, k1_tree)
+    dense = sphere_sweep.intersect_spheres_dense(o0, d0, table8, a0)
+    if not (torch.equal(walk.t, dense.t) and torch.equal(walk.sph,
+                                                         dense.sph)):
+        raise AssertionError("K1's walk is not its dense entry's bits")
+    k1 = dict(launches=walked["k1"], batch_s=walked["s"],
+              rays=o0.x.shape[0], ms=median_ms(
+        lambda: sphere_sweep.intersect_spheres_sweep(o0, d0, table8, a0,
+                                                     k1_tree), 5),
+              dense_ms=median_ms(lambda: sphere_sweep.intersect_spheres_dense(
+                  o0, d0, table8, a0), 5))
+    del first, o0, d0, a0
     allr = torch.cat(seen, dim=1)
     del seen
     gen = torch.Generator().manual_seed(0)
@@ -465,7 +514,51 @@ def _cluster_work(wave_r, geom, times=None):
                                                   "sphere_tests")}
     per_ray.update(node_tests=tree["node_tests"] / tree["rays"],
                    tree_sphere_tests=tree["sphere_tests"] / tree["rays"])
-    return img, rays, per_ray, lengths
+    return img, rays, per_ray, lengths, k1
+
+
+def _walk_batch(name, r, dense_img, dense_rays, card):
+    """Batch 0 of wavefront Renderer ``r`` rendered by the Renderer itself
+    (render_next_batch: K2 and K1 walking their trees at every bounce,
+    shadow rays included), every count set to 0 just before: its image
+    must be the bytes of ``dense_img``, the same batch through the dense
+    entry points (on the card), and its ray count ``dense_rays``.  Returns
+    {"k1", "k2": launches, "s": seconds}."""
+    from raytrace_tpu_torch.ops import sphere_sweep, tri_sweep
+
+    if r.use_megakernel or r.current_batch != 0:
+        raise AssertionError(f"{name}: not a fresh wavefront Renderer")
+    # The Renderer's fold of its first batch (render_next_batch).
+    want = ((0.0 * r.accum + dense_img) / 1.0).cpu().numpy()
+    _reset_counts()
+    (rays, sec), = _step(r, 1)
+    out = {"k1": sphere_sweep.LAUNCHES, "k2": tri_sweep.LAUNCHES, "s": sec}
+    same = r.image().tobytes() == want.tobytes()
+    print(f"{name}'s batch through the Renderer's own wavefront (the "
+          f"walks): {rays} rays in {sec:.3f} s, K1 {out['k1']} and K2 "
+          f"{out['k2']} launches; byte-identical with the dense entry "
+          f"points' batch {same}, {dense_rays} rays there ({card})")
+    if not same or rays != dense_rays:
+        raise AssertionError(f"{name}: the Renderer's wavefront and the "
+                             f"dense oracle's batch differ")
+    # On the card each sweep the scene has must have launched (on the CPU
+    # the wavefront runs the plain versions and launches nothing).
+    idle = [k for k, has in (("k1", r.static.has_spheres),
+                             ("k2", r.static.has_tris
+                              and r.static.bvh_mode != "paged"))
+            if has and out[k] <= 0]
+    if idle and r.device.type == "cuda":
+        raise AssertionError(f"{name}: the wavefront launched no "
+                             f"{' or '.join(k.upper() for k in idle)}")
+    return out
+
+
+def _print_k1_launch(name, k1, card) -> None:
+    """K1's launch on a forced wavefront's first bounce (_cluster_work)."""
+    print(f"K1 on {name}'s forced wavefront: {k1['launches']} launches in "
+          f"the Renderer's batch; the first bounce's {k1['rays']} rays: the walk "
+          f"{k1['ms']:.4f} ms, its dense entry {k1['dense_ms']:.4f} ms "
+          f"(medians of 5, CUDA events), bit for bit ({card})")
 
 
 def _tree_work_text(per_ray) -> str:
@@ -633,21 +726,27 @@ def _tri_stress(k: int, width: int, obj_dir: str, depth=None, batches=None):
                   batches), path
 
 
-def _compare_tris(name, o, d, table16, alive):
-    """K2 vs its plain version on the same rays: bit for bit, or else ids
-    equal and t within rtol/atol on >= 99.9% of rays.  Returns max |dt|
-    over the rays whose ids agree."""
+def _compare_tris(name, o, d, table16, alive, tree, ref=None):
+    """K2 (its walk of the soup's ``tree``) vs its plain version on the
+    same rays: bit for bit, or else ids equal and t within rtol/atol on
+    >= 99.9% of rays; then the walk and its dense entry point must both
+    be the plain version's bits.  ``ref`` is the plain version's (t, id,
+    u, v) where it is already computed.  Returns max |dt| over the rays
+    whose ids agree."""
     import torch
 
     from raytrace_tpu_torch.ops import tri_sweep
     from raytrace_tpu_torch.ops.intersect import T_MAX
 
-    hit = tri_sweep.intersect_tris_sweep(o, d, table16, alive)
-    t, ids, u, v = tri_sweep.tri_sweep_reference(o, d, table16)
+    hit = tri_sweep.intersect_tris_sweep(o, d, table16, alive, tree)
+    dense = tri_sweep.intersect_tris_dense(o, d, table16, alive)
+    t, ids, u, v = (tri_sweep.tri_sweep_reference(o, d, table16)
+                    if ref is None else ref)
     ref = (torch.where(alive, t, T_MAX), torch.where(alive, ids, -1),
            torch.where(alive, u, 0.0), torch.where(alive, v, 0.0))
     torch.cuda.synchronize()
     bitwise = all(torch.equal(a, b) for a, b in zip(hit, ref))
+    dense_bitwise = all(torch.equal(a, b) for a, b in zip(dense, ref))
     same_id = hit.tri == ref[1]
     agree = same_id & ((hit.t - ref[0]).abs() <= ATOL + RTOL * ref[0].abs())
     frac = agree.double().mean().item()
@@ -656,16 +755,27 @@ def _compare_tris(name, o, d, table16, alive):
                              f"rays (need {AGREEMENT})")
     err = (hit.t[same_id] - ref[0][same_id]).abs().max().item()
     print(f"triangle sweep {name}: R={o.x.shape[0]} T8={table16.shape[0]} "
-          f"alive {alive.double().mean().item():.4f}: bit for bit "
-          f"{bitwise}; (id, t) agree on {frac:.6f} of rays; hit share "
+          f"(tree: leaves of {tree.leaf}, depth {tree.depth}) alive "
+          f"{alive.double().mean().item():.4f}: bit for bit: the walk "
+          f"{bitwise}, the dense entry {dense_bitwise}; (id, t) agree on "
+          f"{frac:.6f} of rays; hit share "
           f"{(hit.tri >= 0).double().mean().item():.4f}; max |dt| where "
           f"ids agree {err:.3g}")
+    if not (bitwise and dense_bitwise):
+        raise AssertionError(f"K2 {name}: the walk (bit for bit {bitwise}) "
+                             f"or its dense entry ({dense_bitwise}) is not "
+                             f"the plain version's bits")
     return err
 
 
-def _tri_work(renderer):
-    """Render batch 0 of ``renderer``'s triangle scene on the wavefront
-    (K2, K1), as render_next_batch does, and count at every bounce the
+def _tri_work(name, renderer, card):
+    """Render batch 0 of ``renderer``'s triangle scene ``name`` on the
+    wavefront,
+    as render_next_batch does but through the dense entry points of K2 and
+    K1 (the independent oracle, smoke_lib.dense_trace_fn), hold K2's walk
+    on TREE_SUBSET of the rays of each bounce of K2_BOUNCES to its plain
+    version and its dense entry (_compare_tris), and count at every
+    bounce the
     work of K4's triangle form on the same rays (for _k4_tris_bound): the
     alive rays; the tree walk's node tests and triangle tests against each
     ray's closest hit (paged_tri.tree_visit_counts on TREE_SUBSET of the
@@ -674,17 +784,18 @@ def _tri_work(renderer):
     clusters that pass the pretest against each ray's sphere hit, on every
     ray; the noise hits (_slot_hits); and the samples.  Returns (image
     [H, W, 3] on the host, rays traced, work, [H * W, spp] int32 each
-    (pixel, sample)'s bounces: its path length)."""
+    (pixel, sample)'s bounces: its path length).  Then the same batch
+    through the Renderer's own wavefront (_walk_batch, K2 and K1 walking
+    at every bounce): the dense oracle's bytes and ray count."""
     import torch
 
-    from raytrace_tpu_torch.engine import wavefront
     from raytrace_tpu_torch.models.shading_table import MODE_NOISE
     from raytrace_tpu_torch.ops import megakernel, paged_tri, sphere_sweep
     from raytrace_tpu_torch.ops.vec3 import V3
 
     static, scene = renderer.static, renderer.scene
     geom = renderer._geometry(0)
-    trace = wavefront.make_trace_fn(static, scene, geom)
+    trace = smoke_lib.dense_trace_fn(static, scene, geom)
     group = megakernel.tri_group(static, geom.tri_table16.shape[0])
     boxes = megakernel.cluster_boxes(geom.tri_table16, static.num_triangles,
                                      group)
@@ -698,8 +809,10 @@ def _tri_work(renderer):
                 node_tests=0.0, tree_tri_tests=0.0, clusters=n_clusters,
                 samples=W * H * spp)
 
+    bounce = [0]
+
     def counting(o, d, alive):
-        sph = sphere_sweep.intersect_spheres_sweep(o, d, geom.sph_table8,
+        sph = sphere_sweep.intersect_spheres_dense(o, d, geom.sph_table8,
                                                    alive)
         passes = megakernel.cluster_pretest(o, d, boxes, sph.t)
         n = int(alive.sum())
@@ -717,6 +830,15 @@ def _tri_work(renderer):
         if tree["rays"]:
             work["node_tests"] += tree["node_tests"] * n / tree["rays"]
             work["tree_tri_tests"] += tree["tri_tests"] * n / tree["rays"]
+        if bounce[0] in K2_BOUNCES and static.bvh_mode != "paged":
+            # K2's walk on TREE_SUBSET of the bounce's rays, held against
+            # the plain version and its dense entry point.
+            _compare_tris(f"{static.num_triangles}-triangle bounce "
+                          f"{bounce[0]}",
+                          *(V3(*(x[sel].contiguous() for x in v))
+                            for v in (o, d)), geom.tri_table16,
+                          alive[sel].contiguous(), geom.tri_tree)
+        bounce[0] += 1
         work["noise_hits"] += _slot_hits(static, scene, geom, o, d, alive,
                                          raw, MODE_NOISE)
         return raw
@@ -724,6 +846,7 @@ def _tri_work(renderer):
     img, rays, lengths = smoke_lib.wave_lengths(
         static, scene, renderer.camera, counting, geom, renderer.use_dof,
         renderer.rows_per_tile)
+    _walk_batch(name, renderer, img, rays, card)
     return img.cpu().numpy(), rays, work, lengths
 
 
@@ -781,7 +904,7 @@ def _compare_paged(name, o, d, tree, table16, alive, plain=True):
 
     hit = paged_tri.intersect_tris_paged(o, d, tree, alive)
     again = paged_tri.intersect_tris_paged(o, d, tree, alive)
-    k2 = tri_sweep.intersect_tris_sweep(o, d, table16, alive)
+    k2 = tri_sweep.intersect_tris_dense(o, d, table16, alive)
     torch.cuda.synchronize()
     plain_s = None
     checks = {"K2": _paged_equal(hit, k2, alive),
@@ -847,7 +970,7 @@ def _k3_far_grazing(geom, static, dev):
     o, d = smoke_lib.grazing_rays(boxes.cpu().numpy(), GRAZING_RAYS, 11, dev)
     alive = torch.ones(GRAZING_RAYS, dtype=torch.bool, device=dev)
     hit = paged_tri.intersect_tris_paged(o, d, geom.tri_tree, alive)
-    k2 = tri_sweep.intersect_tris_sweep(o, d, geom.tri_table16, alive)
+    k2 = tri_sweep.intersect_tris_dense(o, d, geom.tri_table16, alive)
     bad = torch.nonzero((hit.t != k2.t) | (hit.tri != k2.tri))[:, 0]
     for r in bad.tolist():
         j = int(k2.tri[r])
@@ -1172,10 +1295,35 @@ def _busy_share(events, label, wall_s, kernel="megakernel", labels=()):
                 kernel=k4 / busy if busy else 0.0)
 
 
+def _dense_batch(r):
+    """Batch 0 of ``r``'s scene on the wavefront, as render_next_batch
+    renders it but through the dense entry points of K2 and K1
+    (smoke_lib.dense_trace_fn): (image [H, W, 3] on the host, rays,
+    seconds)."""
+    import torch
+
+    from raytrace_tpu_torch.engine import wavefront
+
+    t0 = time.perf_counter()
+    geom = r._geometry(0)
+    trace = smoke_lib.dense_trace_fn(r.static, r.scene, geom)
+    tiles, rays = [], 0
+    for row0 in range(0, r.static.height, r.rows_per_tile):
+        tile, traced = wavefront.render_tile(
+            r.static, r.scene, r.camera, trace, geom, 0, row0,
+            r.rows_per_tile, r.use_dof)
+        tiles.append(tile)
+        rays += traced
+    img = (0.0 * r.accum + torch.cat(tiles, dim=0)[:r.static.height]) / 1.0
+    torch.cuda.synchronize()
+    return img.cpu().numpy(), rays, time.perf_counter() - t0
+
+
 def _paged_vs_dense(label, paged_cs, dev, card):
     """A reduced frame of a soup in paged order, one batch at full depth,
-    on the paged sweep and on the dense sweep K2: the same bytes and the
-    same ray count."""
+    on the paged sweep K3, on K2's walk of the soup's own tree
+    (use_bvh=False) and through the dense sweep K2's dense entry point:
+    the same bytes and the same ray count."""
     from raytrace_tpu_torch.engine import Renderer
 
     small = _scene(paged_cs, *REDUCED, batches=1)
@@ -1184,14 +1332,18 @@ def _paged_vs_dense(label, paged_cs, dev, card):
         r = Renderer(small, device=dev, use_bvh=mode)
         (rays, sec), = _step(r, 1)
         out[mode] = (r.image(), rays, sec)
-    same = out["paged"][0].tobytes() == out[False][0].tobytes()
+    out["dense"] = _dense_batch(Renderer(small, device=dev, use_bvh=False))
+    same = (out["paged"][0].tobytes() == out[False][0].tobytes()
+            == out["dense"][0].tobytes())
     print(f"{label} at {REDUCED[0]}x{REDUCED[1]}, depth "
-          f"{small.render.max_ray_depth}, one batch: paged and dense images "
-          f"byte-identical {same}; rays {out['paged'][1]} vs "
-          f"{out[False][1]}; {out['paged'][2]:.3f} s vs {out[False][2]:.3f} "
-          f"s ({card})")
-    if not same or out["paged"][1] != out[False][1]:
-        raise AssertionError(f"{label}: the paged and dense renders differ")
+          f"{small.render.max_ray_depth}, one batch: paged, K2's walk and "
+          f"dense images byte-identical {same}; rays {out['paged'][1]} vs "
+          f"{out[False][1]} vs {out['dense'][1]}; {out['paged'][2]:.3f} s "
+          f"vs {out[False][2]:.3f} s vs {out['dense'][2]:.3f} s ({card})")
+    if not same or not (out["paged"][1] == out[False][1]
+                        == out["dense"][1]):
+        raise AssertionError(f"{label}: the paged, walk and dense renders "
+                             f"differ")
 
 
 def _mesh_paths(mesh_r, mb_scene, fused_img, wave_img, dev, card):
@@ -1342,7 +1494,9 @@ def main() -> int:
         raise AssertionError("tri-stress: unexpected soup "
                              f"{probe.static.num_triangles} / "
                              f"{probe.static.tri_cluster_g}")
-    table16 = probe._geometry(0).tri_table16
+    tri_geom = probe._geometry(0)
+    table16, tree = tri_geom.tri_table16, tri_geom.tri_tree
+    del tri_geom
     _, o, d = primary_rays(probe.static, probe.camera, 0, 0, TRI_HEIGHT,
                            probe.use_dof, dev)
     n_rays = o.x.shape[0]
@@ -1352,7 +1506,8 @@ def main() -> int:
     sel = torch.tensor(rng.choice(n_rays, TRI_SUBSET, replace=False),
                        device=dev)
     k2_err = _compare_tris(f"{TRI_SUBSET} primary", V3(*(c[sel] for c in o)),
-                           V3(*(c[sel] for c in d)), table16, alive[sel])
+                           V3(*(c[sel] for c in d)), table16, alive[sel],
+                           tree)
 
     # Random rays against tri-stress k=1's 960 triangles: from around the
     # soup towards random points of random triangles, a tenth of them in
@@ -1371,25 +1526,49 @@ def main() -> int:
     r_alive = torch.tensor(rng.random(RANDOM_RAYS) < 0.75, device=dev)
     k2_err = max(k2_err, _compare_tris(
         "random", to_v3(ro.astype(np.float32)), to_v3(rd.astype(np.float32)),
-        soup.tri_table16, r_alive))
+        soup.tri_table16, r_alive, soup.tri_tree))
 
-    k2_ms = median_ms(
-        lambda: tri_sweep.intersect_tris_sweep(o, d, table16, alive), 5)
+    k2_ms = median_ms(lambda: tri_sweep.intersect_tris_sweep(
+        o, d, table16, alive, tree), 5)
+    k2_dense_ms = median_ms(
+        lambda: tri_sweep.intersect_tris_dense(o, d, table16, alive), 3)
     t0 = time.perf_counter()
-    tri_sweep.tri_sweep_reference(o, d, table16)
+    plain = tri_sweep.tri_sweep_reference(o, d, table16)
     torch.cuda.synchronize()
     k2_plain_ms = (time.perf_counter() - t0) * 1e3
+    # The walk on every primary ray, bit for bit with the plain version.
+    k2_err = max(k2_err, _compare_tris(f"all {n_rays} primary", o, d,
+                                       table16, alive, tree, ref=plain))
     t8 = table16.shape[0]
     # Rays in: origin, direction, alive; out: t, id, u, v; the table once.
-    k2_bound = least_ms(n_rays * t8 * FLOPS_PER_TRI_TEST,
-                      n_rays * (6 * 4 + 1 + 4 * 4) + table16.numel() * 4)
+    k2_dense_bound = least_ms(n_rays * t8 * FLOPS_PER_TRI_TEST,
+                              n_rays * (6 * 4 + 1 + 4 * 4)
+                              + table16.numel() * 4)
+    # The walk's: the nodes and leaf triangles a walk proving each ray's
+    # closest hit must test (paged_tri.tree_visit_counts on TREE_SUBSET of
+    # the rays, scaled to all), the distinct rows those read once.
+    sub = torch.arange(0, n_rays, n_rays // TREE_SUBSET,
+                       device=dev)[:TREE_SUBSET]
+    work = paged_tri.tree_visit_counts(
+        *(V3(*(x[sub].contiguous() for x in v)) for v in (o, d)), tree,
+        plain[0][sub].contiguous(), alive[sub].contiguous())
+    k2_per = {k: work[k] / work["rays"] for k in ("node_tests", "tri_tests")}
+    k2_bound = least_ms(
+        n_rays * (k2_per["node_tests"] * FLOPS_PER_TREE_NODE
+                  + k2_per["tri_tests"] * FLOPS_PER_TRI_TEST),
+        n_rays * (6 * 4 + 1 + 4 * 4) + work["nodes_read"] * 64
+        + work["tris_read"] * (48 + 4))
     print(f"triangle sweep time at R={n_rays} (tri-stress's primary rays), "
-          f"T8={t8}: kernel {k2_ms:.3f} ms (median of 5), plain PyTorch "
-          f"{k2_plain_ms:.3f} ms (one run); "
-          f"{n_rays * t8 / k2_ms / 1e6:.4g}G ray-triangle tests/s; bound "
-          f"{k2_bound[0]:.4f} ms by {k2_bound[1]} "
-          f"({k2_bound[0] / k2_ms:.3f} of it) ({card})")
-    del probe, soup, table16, o, d, alive, sel
+          f"T8={t8}: K2's walk {k2_ms:.3f} ms (median of 5), its dense "
+          f"entry {k2_dense_ms:.3f} ms (median of 3), plain PyTorch "
+          f"{k2_plain_ms:.3f} ms (one run); the walk's work a ray: "
+          f"{k2_per['node_tests']:.2f} nodes, {k2_per['tri_tests']:.2f} "
+          f"triangle tests; bound {k2_bound[0]:.4f} ms by {k2_bound[1]} "
+          f"({k2_bound[0] / k2_ms:.4f} of it), the dense sweep's "
+          f"{k2_dense_bound[0]:.4f} ms by {k2_dense_bound[1]} "
+          f"({k2_dense_bound[0] / k2_dense_ms:.3f} of the dense entry) "
+          f"({card})")
+    del probe, soup, table16, tree, o, d, alive, sel, plain, sub
 
     # -- 3c. the dev probes P1-P3 -------------------------------------------
     probe_entries, raygen_b1 = smoke_lib.dev_probes(dev, card)
@@ -1413,8 +1592,10 @@ def main() -> int:
         lambda: megakernel.megakernel_reference(*args, **kw), 2)
     k4_dense_ms = _dense_ms(args, kw)
     dense_bound = _k4_bound(full.static, args[2], k4_rays, WIDTH, HEIGHT, 0)
-    _, _, per_ray, lengths = _cluster_work(
-        Renderer(cs, device=dev, use_megakernel=False), args[2])
+    _, _, per_ray, lengths, fow_k1 = _cluster_work(
+        "final-one-weekend", Renderer(cs, device=dev, use_megakernel=False),
+        args[2], card)
+    _print_k1_launch("final-one-weekend", fow_k1, card)
     k4_bound, k4_flat = _cluster_bound(args[2], per_ray, k4_rays, WIDTH,
                                        HEIGHT, 0)
     fow = _warp_models("final-one-weekend", lengths, card)
@@ -1466,9 +1647,10 @@ def main() -> int:
     n_times = len(mb_full.batch_times)
     dense_bound = _k4_bound(mb_full.static, args[2], anim_rays, MB_WIDTH,
                             MB_HEIGHT, n_times)
-    _, _, per_ray, lengths = _cluster_work(
-        Renderer(cs_mb, device=dev, use_megakernel=False), args[2],
-        mb_full.batch_times_dev)
+    _, _, per_ray, lengths, mb_k1 = _cluster_work(
+        "motion-blur", Renderer(cs_mb, device=dev, use_megakernel=False),
+        args[2], card, mb_full.batch_times_dev)
+    _print_k1_launch("motion-blur", mb_k1, card)
     lanes_busy["motion-blur"] = _warp_models("motion-blur", lengths, card)
     anim_bound, anim_flat = _cluster_bound(args[2], per_ray, anim_rays,
                                            MB_WIDTH, MB_HEIGHT, n_times)
@@ -1516,7 +1698,8 @@ def main() -> int:
     # The same batch on the wavefront with K2 and K1, counting the work
     # of the kernel's bound on its rays.
     wave_img, wave_rays, work, lengths = _tri_work(
-        Renderer(tri_cs, device=dev, use_megakernel=False))
+        "tri-stress-15360", Renderer(tri_cs, device=dev,
+                                     use_megakernel=False), card)
     lanes_busy["tri-stress"] = _warp_models("tri-stress-15360", lengths,
                                             card)
     mdiff = np.abs(fused_img.mean(axis=(0, 1))
@@ -1600,7 +1783,8 @@ def main() -> int:
         # counting the work of the kernel's bound on its rays.
         t0 = time.perf_counter()
         wave_img, wave_rays, work, lengths = _tri_work(
-            Renderer(light_cs[name], device=dev, use_megakernel=False))
+            name, Renderer(light_cs[name], device=dev,
+                           use_megakernel=False), card)
         wave_s = time.perf_counter() - t0
         mdiff = np.abs(fused_img.mean(axis=(0, 1))
                        - wave_img.mean(axis=(0, 1))).max()
@@ -1612,7 +1796,8 @@ def main() -> int:
         print(f"fused (lit form) vs wavefront with K2 on {name}'s batch at "
               f"{w}x{h}, 64 spp, depth 50: rays {lit_rays} vs {wave_rays}, "
               f"max channel-mean diff {mdiff:.3g}; the wavefront's batch "
-              f"{wave_s:.2f} s with the work count ({card})")
+              f"with the work count, then the Renderer's own, {wave_s:.2f} "
+              f"s ({card})")
         if (abs(lit_rays - wave_rays) > 0.005 * wave_rays
                 or mdiff > LIGHT_MEAN_TOL):
             raise AssertionError(f"{name}: the fused and wavefront renders "
@@ -1870,17 +2055,18 @@ def main() -> int:
         sums, _ = megakernel.render_tile_mega(*args, **kw)
         fused_img = (sums / rs.samples_per_pixel).cpu().numpy()
         t0 = time.perf_counter()
-        wave_img, wave_rays, per_ray, lengths = _cluster_work(
-            Renderer(stress_cs[name], device=dev, use_megakernel=False),
-            args[2])
+        wave_img, wave_rays, per_ray, lengths, wave_k1 = _cluster_work(
+            name, Renderer(stress_cs[name], device=dev,
+                           use_megakernel=False), args[2], card)
+        _print_k1_launch(name, wave_k1, card)
         lanes_busy[name] = _warp_models(name, lengths, card)
         wave_s = time.perf_counter() - t0
         mdiff = np.abs(fused_img.mean(axis=(0, 1))
                        - wave_img.mean(axis=(0, 1))).max()
         print(f"fused (clustered) vs wavefront with K1 on {name}'s batch: "
               f"rays {rays} vs {wave_rays}, max channel-mean diff "
-              f"{mdiff:.3g}; the wavefront's batch {wave_s:.2f} s with the "
-              f"work count ({card})")
+              f"{mdiff:.3g}; the wavefront's batch with the work count, "
+              f"then the Renderer's own, {wave_s:.2f} s ({card})")
         if abs(rays - wave_rays) > 0.005 * wave_rays or mdiff > 2e-3:
             raise AssertionError(f"{name}: the fused and wavefront renders "
                                  f"disagree")
@@ -1895,15 +2081,16 @@ def main() -> int:
               f"{stress_ms:.3f} ms (median of 5, CUDA events), {dense}plain "
               f"PyTorch {plain_s * 1e3:.1f} ms (one run, host clock), "
               f"{rays / stress_ms / 1e3:.1f} Mrays/s in the kernel, the "
-              f"wavefront "
-              f"{wave_rays / wave_s / 1e6:.3f} Mrays/s; work a bounce: "
+              f"wavefront (the Renderer's own batch) "
+              f"{wave_rays / wave_k1['batch_s'] / 1e6:.3f} Mrays/s; work a "
+              f"bounce: "
               f"{_tree_work_text(per_ray)} (of {r.static.num_spheres} "
               f"spheres); bound {bound[0]:.4f} ms by {bound[1]} "
               f"({bound[0] / stress_ms:.4f} of it), the flat walk's "
               f"{flat[0]:.4f} ms, the dense sweep's "
               f"{dense_bound[0]:.4f} ms ({card})")
         stress[name] = dict(ms=stress_ms, plain_ms=plain_s * 1e3,
-                            bound=bound, flat_bound=flat)
+                            bound=bound, flat_bound=flat, k1=wave_k1)
         del args, kw, sums
 
     # -- 4f. K3 vs plain and K2, at small size and on the 2M-triangle mesh ---
@@ -2536,7 +2723,11 @@ def main() -> int:
         "launches": sweep_launches, "max_abs_err": k1["err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound"][0], "bound_by": k1["bound"][1],
-        "library_ms": None,
+        "library_ms": None, "dense_ms": k1["dense_ms"],
+        "dense_bound_ms": k1["dense_bound"][0],
+        "stress16k_wave_launches": stress["stress-16k"]["k1"]["launches"],
+        "stress16k_wave_ms": stress["stress-16k"]["k1"]["ms"],
+        "stress16k_wave_dense_ms": stress["stress-16k"]["k1"]["dense_ms"],
     }, {
         "name": "megakernel", "route": "cuda",
         "source": "raytrace_tpu_torch/csrc/megakernel.cu",
@@ -2560,6 +2751,7 @@ def main() -> int:
         "launches": k2_launches, "max_abs_err": k2_err, "ms": k2_ms,
         "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
         "bound_by": k2_bound[1], "library_ms": None,
+        "dense_ms": k2_dense_ms, "dense_bound_ms": k2_dense_bound[0],
     }, {
         "name": "megakernel_tris", "route": "cuda",
         "source": "raytrace_tpu_torch/csrc/megakernel.cu",

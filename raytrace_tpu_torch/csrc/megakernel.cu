@@ -189,7 +189,9 @@
 // node's spheres, so a node's widened box holds every widened sphere box
 // below it.  The boxes prune as the JAX kernel's pretest
 // (megakernel.py:1262-1280).  At a leaf each sphere is tested with the
-// dense sweep's arithmetic (sphere_t), and a real hit replaces the best
+// dense sweep's arithmetic (sphere_t; the test and this walk are
+// csrc/sphere_tree.cuh's, which the wavefront's K1 runs too), and a real
+// hit replaces the best
 // one when t < best_t, or t == best_t and id < best_id, the id read from
 // the slot table only for a hit at or below the best t: the lexicographic
 // minimum of (t, id) over a conservative walk and the prefix (whose ids are
@@ -234,10 +236,11 @@
 #include "raygen.cuh"
 // The triangle tree walk shared with K3.
 #include "tri_tree.cuh"
+// The sphere test and the sphere tree's walk shared with K1.
+#include "sphere_tree.cuh"
 
 namespace {
 
-constexpr float kTMin = 0.001f;    // ops/intersect.py T_MIN
 constexpr float kTMax = 10000.0f;  // ops/intersect.py T_MAX
 constexpr int kThreads = 128;
 constexpr int kRowWidth = 64;      // engine/wavefront.py prepare_batch rows
@@ -607,25 +610,11 @@ __device__ __forceinline__ void staged_sphere(const float4* tbl, int j, float tc
   }
 }
 
-// The same sphere read from the tables in global memory through the
-// read-only cache: (c, r) and k from the [s8, 8] table, (dc) and (k1, k2)
-// from the motion rows.
-template <bool kAnim>
-__device__ __forceinline__ void global_sphere(const float4* __restrict__ table,
-                                              const float4* __restrict__ dtable, int j,
-                                              float tcur, float4& sph, float& k) {
-  const float4 c0 = __ldg(table + 2 * j);
-  const float k0 = __ldg(reinterpret_cast<const float*>(table + 2 * j + 1));
-  if constexpr (kAnim) {
-    const float4 dc = __ldg(dtable + 2 * j);
-    const float2 kk = __ldg(reinterpret_cast<const float2*>(dtable + 2 * j + 1));
-    sph = make_float4(c0.x + tcur * dc.x, c0.y + tcur * dc.y, c0.z + tcur * dc.z, c0.w);
-    k = k0 + tcur * (kk.x + tcur * kk.y);
-  } else {
-    sph = c0;
-    k = k0;
-  }
-}
+// The sphere read from the tables in global memory (csrc/sphere_tree.cuh),
+// the sphere test and the clustered spheres' tree, shared with K1.
+using sphere_tree::global_sphere;
+using sphere_tree::SphereTree;
+using sphere_tree::test_sphere;
 
 // Sphere j: staged in the dense forms, from global memory in the
 // clustered ones.
@@ -638,99 +627,6 @@ __device__ __forceinline__ void fetch_sphere(const float4* tbl, const float4* __
   } else {
     staged_sphere<kAnim>(tbl, j, tcur, sph, k);
   }
-}
-
-// The closest-hit quadratic against one sphere (csrc/sphere_sweep.cu and
-// ops/spheres.py intersect_spheres_world): its nearer root in (T_MIN,
-// T_MAX), or kTMax for no hit.  d_dot_o, a, o_sq and inv_a are the ray's.
-__device__ __forceinline__ float sphere_t(float4 sph, float k, V3 o, V3 d, float d_dot_o, float a,
-                                          float o_sq, float inv_a) {
-  const float dc = sph.x * d.x + sph.y * d.y + sph.z * d.z;
-  const float oc = sph.x * o.x + sph.y * o.y + sph.z * o.z;
-  const float h = d_dot_o - dc;
-  const float c2 = o_sq - 2.0f * oc + k;
-  const float disc = h * h - a * c2;
-  const bool ok = disc >= 0.0f && sph.w > 0.0f;
-  const float sq = sqrtf(fmaxf(disc, 0.0f));
-  const float t1 = (-h - sq) * inv_a;
-  const float t2 = (-h + sq) * inv_a;
-  const bool t1_ok = ok && t1 > kTMin && t1 < kTMax;
-  const bool t2_ok = ok && t2 > kTMin && t2 < kTMax;
-  return t1_ok ? t1 : (t2_ok ? t2 : kTMax);
-}
-
-// Sphere j tested in ascending id: the strict < update of the dense sweep.
-__device__ __forceinline__ void test_sphere(float4 sph, float k, V3 o, V3 d, float d_dot_o,
-                                            float a, float o_sq, float inv_a, int j,
-                                            float& best_t, int& best_id) {
-  const float t = sphere_t(sph, k, o, d, d_dot_o, a, o_sq, inv_a);
-  if (t < best_t) {
-    best_t = t;
-    best_id = j;
-  }
-}
-
-// The clustered spheres' tree (ops/sphere_tree.py SphereTree): slot j's rows
-// rows[2j], rows[2j + 1] (and drows' in the animated form) hold sphere
-// ids[j]; n slots; the node rows, the first `staged` also in shared memory.
-struct SphereTree {
-  const float4* rows;
-  const float4* drows;
-  const float4* nodes;
-  const float4* staged_nodes;
-  const int* ids;
-  int n, depth, leaf, staged;
-};
-
-// The clustered spheres against one ray, after the prefix: see the header.
-template <bool kAnim>
-__device__ __forceinline__ void sweep_sphere_tree(const SphereTree& tree,
-                                                  tri_tree::Stack<kStack>& stack, float tcur,
-                                                  V3 o, V3 d, float d_dot_o, float a, float o_sq,
-                                                  float inv_a, float& best_t, int& best_id) {
-  const tri_tree::Ray r = tri_tree::make_ray(o.x, o.y, o.z, d.x, d.y, d.z);
-  const float onorm = sqrtf(o_sq);
-  tri_tree::walk_tree(
-      stack, tree.depth, r, best_t,
-      [&](int node, float4& ra, float4& rb, float4& rc, float4& re) {
-        if (node < tree.staged) {
-          const float4* row = tree.staged_nodes + 4 * node;
-          ra = row[0];
-          rb = row[1];
-          rc = row[2];
-          re = row[3];
-        } else {
-          const float4* row = tree.nodes + 4 * node;
-          ra = __ldg(row);
-          rb = __ldg(row + 1);
-          rc = __ldg(row + 2);
-          re = __ldg(row + 3);
-        }
-      },
-      [&](float4 e, bool right) {
-        // The rounding margin: (|o| + reach)^2 * SPHERE_ROUNDING / r_min.
-        const float s = onorm + (right ? e.y : e.x);
-        return s * s * (right ? e.w : e.z);
-      },
-      [&](int k) {
-        const int j0 = k * tree.leaf;
-        const int j1 = min(j0 + tree.leaf, tree.n);
-        for (int j = j0; j < j1; ++j) {
-          float4 sph;
-          float kk;
-          global_sphere<kAnim>(tree.rows, tree.drows, j, tcur, sph, kk);
-          const float t = sphere_t(sph, kk, o, d, d_dot_o, a, o_sq, inv_a);
-          // A real hit may win; the id is read only for one at or below
-          // the best t.
-          if (t < kTMax && t <= best_t) {
-            const int id = __ldg(tree.ids + j);
-            if (t < best_t || id < best_id) {
-              best_t = t;
-              best_id = id;
-            }
-          }
-        }
-      });
 }
 
 // The triangle soup's tree against one ray, after the sphere sweep: see
@@ -947,8 +843,8 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
       test_sphere(sph, k, o, d, d_dot_o, a, o_sq, inv_a, j, best_t, best_id);
     }
     if constexpr (kSphClusters) {
-      sweep_sphere_tree<kAnim>(sph_tree, stack, tcur, o, d, d_dot_o, a, o_sq, inv_a, best_t,
-                               best_id);
+      sphere_tree::sweep_sphere_tree<kAnim>(sph_tree, stack, tcur, o, d, d_dot_o, a, o_sq,
+                                            inv_a, best_t, best_id);
     }
     float bu = 0.0f, bv = 0.0f;
     V3 tp = {0.0f, 0.0f, 0.0f};

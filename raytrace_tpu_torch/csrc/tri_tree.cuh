@@ -1,11 +1,13 @@
 // The closest-hit walk of an implicit binary tree: a per-thread,
 // nearest-first walk that the paged triangle sweep K3 (csrc/paged_tri.cu)
-// runs for each ray of the wavefront and the fused bounce kernel K4
-// (csrc/megakernel.cu) runs at each bounce of its triangle forms, over a
-// soup's tree, and of its clustered sphere forms, over the spheres' tree.
-// Both kernels include this file, so the walks cannot drift apart: one
-// loop (walk_tree), given how to read a node's row, how far to widen its
-// children's boxes and how to test a leaf.
+// and the triangle sweep K2 (csrc/tri_sweep.cu) run for each ray of the
+// wavefront, over a soup's tree, the sphere sweep K1 (csrc/sphere_sweep.cu)
+// over the spheres' tree (csrc/sphere_tree.cuh), and the fused bounce
+// kernel K4 (csrc/megakernel.cu) at each bounce of its triangle forms and
+// of its clustered sphere forms.  Every kernel includes this file, so the
+// walks cannot drift apart: one loop (walk_tree), given how to read a
+// node's row, how far to widen its children's boxes and how to test a
+// leaf.
 //
 // The tree (ops/paged_tri.py build_tri_tree) is implicit: leaf k holds the
 // triangle rows [k L, (k+1) L) and is node K - 1 + k; node n has children
@@ -15,8 +17,8 @@
 // holding no real triangle is the point (BIG, BIG, BIG) with reach 0,
 // which never passes.  A triangle row is three float4, (v0, -), (e1, -),
 // (e2, -).  K3's soup is in Morton order itself, so a row's slot is its
-// id; K4's soup keeps its compiled order, and the tree is built over a
-// Morton-permuted copy of its rows with an int32 slot -> id table
+// id; K2's and K4's soup keeps its compiled order, and the tree is built
+// over a Morton-permuted copy of its rows with an int32 slot -> id table
 // (ops/paged_tri.py build_soup_tree), read here only for a hit at or
 // below the best t.
 //

@@ -35,9 +35,12 @@ sample (the hit-instance quirk, ops/nee.py) come with the soup, or, in a
 scene without triangles, at each batch's time.
 
 ``use_bvh`` picks how the wavefront traces triangles, as in the JAX
-package: ``"auto"`` takes the dense sweep (K2) up to ``triangle_ceiling``
-and the paged sweep (K3, ops/paged_tri.py) above it; ``"paged"`` takes the
-paged sweep at any size; ``False`` the dense sweep at any size.  The paged
+package: ``"auto"`` keeps the soup in its compiled order up to
+``triangle_ceiling``, where K2 walks the soup's own tree
+(ops/paged_tri.build_soup_tree, the JAX package's dense sweep there), and
+takes the paged sweep (K3, ops/paged_tri.py) above it; ``"paged"`` takes
+the paged sweep at any size; ``False`` keeps the compiled order, and K2
+walks its own tree, at any size.  The paged
 sweep first puts the soup in Morton order (``paged_soup``), and the fused
 kernel refuses such a soup, so the scene renders on the wavefront (path
 ``"wavefront"``, ``static.bvh_mode == "paged"``).  Where the port differs
@@ -65,7 +68,7 @@ from ..tools.chacha import ChaCha20Rng
 from ..utils.image import write_png
 from .arrays import SceneStatic, pack_atlas, scene_static, upload_scene
 from .wavefront import (make_trace_fn, prepare_batch, prepare_tris,
-                        render_tile, world_soup)
+                        render_tile, sphere_prefix, world_soup)
 
 # The reference seeds its host RNG with this value (render_engine.rs:116);
 # it drives the batch-time jitter stream.
@@ -111,8 +114,9 @@ def triangle_ceiling(static: SceneStatic) -> int:
 
 
 def bvh_mode(static: SceneStatic, use_bvh="auto") -> str:
-    """How the scene's triangles are traced: "paged" or "none" (the dense
-    sweep, or the fused kernel's clusters).  ``static`` has
+    """How the scene's triangles are traced: "paged" or "none" (the soup
+    in its compiled order: K2's walk of its own tree, or the fused
+    kernel's).  ``static`` has
     ``bvh_mode`` "none"; "auto" pages a soup above ``triangle_ceiling``
     (raytrace_tpu/engine/renderer.py:331-359)."""
     if use_bvh is True:
@@ -227,22 +231,25 @@ class Renderer:
             _, world_p, _ = world_soup(self.scene, self.batch_times_dev[0])
             self._tri_order = paged_tri.soup_order(world_p,
                                                    self.static.num_triangles)
-        # The fused kernel's tree over clustered spheres: their Morton order
-        # at shutter time 0.5, on the host once; for a static scene the
-        # whole tree once, over the first batch's table (every batch's).
+        # The tree over the spheres past the dense prefix, where the path
+        # walks one (the fused kernel's clustered forms, or K1 on the
+        # wavefront): their Morton order at shutter time 0.5, on the host
+        # once; for a static scene the whole tree once, over the first
+        # batch's table (every batch's).  A moving scene's tree is built
+        # each batch over that batch's table, in this order.
         self._sph_order = self._sph_tree = None
-        layout = megakernel.sphere_cluster_layout(self.static)
-        if self.use_megakernel and layout is not None:
+        n_prefix = sphere_prefix(self.static, self.use_megakernel)
+        if n_prefix is not None:
             n_sph = self.static.num_spheres
             mid = world_sphere_tables(compiled, np.array([0.5], np.float32))
             self._sph_order = torch.tensor(
-                sphere_tree.sphere_order(mid[0, :, 0:3], layout[0], n_sph),
+                sphere_tree.sphere_order(mid[0, :, 0:3], n_prefix, n_sph),
                 dtype=torch.int32, device=self.device)
             if not self.static.any_animated:
                 table8 = sphere_sweep.pad_table8(torch.tensor(
                     self.sphere_tables[0], device=self.device))
                 self._sph_tree = sphere_tree.build_sphere_tree(
-                    table8, layout[0], n_sph, self._sph_order)
+                    table8, n_prefix, n_sph, self._sph_order)
         # The animated fused kernel's one geometry, built once.  Not for
         # triangles or lights, nor for image textures, whose spheres'
         # world-to-object rows change with every batch time (the JAX

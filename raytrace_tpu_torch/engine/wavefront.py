@@ -9,11 +9,13 @@ of ray_gen.glsl:457-541 across the whole wavefront).  The loop runs on the
 host, one bounce per iteration; each iteration reads the alive count once,
 which both ends the loop and drives the tail compaction.
 
-Covered here: spheres swept in world mode, with direct normals, or in a
-scene with an image texture with the normal and UV of the sphere's
-world-to-object branch; triangles swept
-densely (the kernel K2) or, on a soup the Renderer put in paged order, by
-a walk of a tree over it (the kernel K3), with their hit point, normal and UV
+Covered here: spheres in world mode (the kernel K1: the scene's dense
+prefix, then a walk of a tree over the rest), with direct normals, or in
+a scene with an image texture with the normal and UV of the sphere's
+world-to-object branch; triangles in a soup that keeps its compiled
+order (the kernel K2, a walk of the soup's own tree) or, on a soup the
+Renderer put in paged order, by a walk of a tree over it (the kernel K3),
+with their hit point, normal and UV
 rebuilt from the packed position and attribute tables, fat-row shading
 (constant, checker, noise and image textures), next-event
 estimation with lights (the alias-table light sample moved by the hit
@@ -80,8 +82,8 @@ class BatchGeometry(NamedTuple):
     # tri_table12): the rows the trees are built from.
     tri_table12: Optional[torch.Tensor] = None
     # The soup's tree: on a "paged" soup the one K3 walks
-    # (ops/paged_tri.build_tri_tree), else the one the fused kernel walks
-    # (ops/paged_tri.build_soup_tree, with its slot -> id table).
+    # (ops/paged_tri.build_tri_tree), else the one K2 and the fused kernel
+    # walk (ops/paged_tri.build_soup_tree, with its slot -> id table).
     tri_tree: Optional[paged_tri.TriTree] = None
     # [I, 12] every instance's objectToWorld at the batch's time, row-major
     # 3x4: the light sample's transform (raytrace_tpu/engine/wavefront.py:
@@ -90,10 +92,11 @@ class BatchGeometry(NamedTuple):
     # The fused kernel's copy of the image atlas (engine/arrays.pack_atlas),
     # in a scene with an image texture; the wavefront reads scene.atlas.
     atlas_words: Optional[torch.Tensor] = None
-    # The fused kernel's tree over the spheres past the dense prefix
+    # The tree over the spheres past the dense prefix
     # (ops/sphere_tree.build_sphere_tree; with sph_dtab8, its boxes hold the
-    # spheres over the shutter), in a scene with its spheres in clusters, on
-    # the fused path only.
+    # spheres over the shutter): the fused kernel's, in a scene with its
+    # spheres in clusters, or K1's on the wavefront
+    # (ops/sphere_sweep.tree_prefix); None where neither walks one.
     sph_tree: Optional[sphere_tree.SphereTree] = None
 
 
@@ -161,9 +164,10 @@ def prepare_tris(static: SceneStatic, scene: SceneArrays,
     """The triangle fields of a BatchGeometry for one batch time (a 0-dim
     f32 tensor): the instances go to that time, the soup to world space,
     then the packed position and attribute tables and the soup's tree: on
-    a "paged" soup the paged sweep's, else the fused kernel's over the
-    Morton order ``order`` (ops/paged_tri.soup_order; taken from this
-    batch's soup when not given) (raytrace_tpu/engine/wavefront.py:779-839,
+    a "paged" soup the paged sweep's, else the one K2 and the fused kernel
+    walk, over the Morton order ``order`` (ops/paged_tri.soup_order; taken
+    from this batch's soup when not given)
+    (raytrace_tpu/engine/wavefront.py:779-839,
     :881-890).  A static scene builds them once; a moving one every batch
     (the tree re-fitted over the same order: the Renderer passes the order
     of its first batch time)."""
@@ -188,6 +192,17 @@ def prepare_tris(static: SceneStatic, scene: SceneArrays,
 
 def _o2w_rows(mats: transforms.InstanceMatrices) -> torch.Tensor:
     return mats.object_to_world.reshape(-1, 12).contiguous()
+
+
+def sphere_prefix(static: SceneStatic, fused: bool) -> Optional[int]:
+    """The dense prefix before the sphere tree that the path walks, or
+    None where it walks none: the fused kernel's clustered layout
+    (ops/megakernel.sphere_cluster_layout), or K1's on the wavefront
+    (ops/sphere_sweep.tree_prefix)."""
+    if fused:
+        layout = megakernel.sphere_cluster_layout(static)
+        return None if layout is None else layout[0]
+    return sphere_sweep.tree_prefix(static)
 
 
 def prepare_batch(static: SceneStatic, scene: SceneArrays,
@@ -222,13 +237,16 @@ def prepare_batch(static: SceneStatic, scene: SceneArrays,
     [44:48]; a triangle's row also holds uv0, uv1 - uv0 and uv2 - uv0 in
     [58:64], for the fused kernel, which reads ``atlas_words`` (the
     packed atlas, engine/arrays.pack_atlas) where the wavefront reads the
-    scene's atlas.  With ``fused`` (the geometry feeds the fused kernel), a
-    scene with its spheres in clusters (ops/megakernel.
-    sphere_cluster_layout) gets the tree over them: ``sph_tree`` where it
-    is given (a static scene's, built once), else built on the table's
+    scene's atlas.  The spheres past a dense prefix get the tree over
+    them where a kernel walks one (``sphere_prefix``): with ``fused`` (the
+    geometry feeds the fused kernel), a scene with its spheres in clusters;
+    without it, K1 on the wavefront.  The tree is ``sph_tree`` where it is
+    given (a static scene's, built once), else built on the table's
     device in the Morton order ``sph_order`` (ops/sphere_tree.sphere_order,
-    [n] int32; taken from this table's centres, at shutter time 0.5 with
-    ``sph_dtab``, when not given); the wavefront reads none.
+    [n] int32, fixed once per Renderer; taken from this table's centres,
+    at shutter time 0.5 with ``sph_dtab``, when not given) over this
+    table: a moving scene's wavefront table is at the batch's time, so
+    its tree is built again each batch over the same order.
     """
     s_pad = scene.sph_center.shape[0]
     P = scene.shade_rows.shape[0]
@@ -269,18 +287,18 @@ def prepare_batch(static: SceneStatic, scene: SceneArrays,
         raise ValueError("a scene with lights needs the batch time (or "
                          "prepare_tris's tables)")
     table8 = sphere_sweep.pad_table8(sph_table)
-    layout = megakernel.sphere_cluster_layout(static) if fused else None
-    if layout is not None and sph_tree is None:
+    n_prefix = sphere_prefix(static, fused)
+    if n_prefix is not None and sph_tree is None:
         n_sph = min(table8.shape[0], static.num_spheres)
         if sph_order is None:
             mid = table8[:, 0:3] if sph_dtab is None else (
                 table8[:, 0:3] + 0.5 * sph_dtab[:, 0:3])
             sph_order = torch.tensor(
-                sphere_tree.sphere_order(mid.cpu().numpy(), layout[0], n_sph),
+                sphere_tree.sphere_order(mid.cpu().numpy(), n_prefix, n_sph),
                 dtype=torch.int32, device=table8.device)
         sph_tree = sphere_tree.build_sphere_tree(
-            table8, layout[0], n_sph, sph_order, dtab8=sph_dtab)
-    if layout is not None:
+            table8, n_prefix, n_sph, sph_order, dtab8=sph_dtab)
+    if n_prefix is not None:
         extra["sph_tree"] = sph_tree
     return BatchGeometry(sph_table8=table8, prim_rows=rows,
                          sph_dtab8=sph_dtab, atlas_words=atlas_words, **extra)
@@ -316,10 +334,24 @@ def combine_hits(sph: Optional[SphereHit], tri: Optional[Hit], s_pad: int,
 def make_trace_fn(static: SceneStatic, scene: SceneArrays,
                   geom: BatchGeometry) -> Callable:
     """trace(o, d, alive) -> RawHit for this batch: the triangle sweep
-    (K2, or the paged sweep K3 on a "paged" soup), then the sphere sweep
-    (K1), each only where the scene has such primitives
-    (raytrace_tpu/engine/wavefront.py:138-232)."""
+    (K2 over the soup's tree, or the paged sweep K3 on a "paged" soup),
+    then the sphere sweep (K1, over the batch's sphere tree where it has
+    one), each only where the scene has such primitives
+    (raytrace_tpu/engine/wavefront.py:138-232).  Raises where the batch's
+    sphere tree is not the one K1 walks (``sphere_sweep.tree_prefix``):
+    K1 sweeps every sphere only where no tree pays, never for want of one."""
     s_pad = scene.sph_center.shape[0]
+    n_prefix = sphere_sweep.tree_prefix(static)
+    tree = geom.sph_tree
+    if ((static.has_spheres or not static.has_tris)
+            and (None if tree is None else tree.n_prefix) != n_prefix):
+        want = ("no tree" if n_prefix is None
+                else f"a tree past the first {n_prefix} spheres")
+        got = ("none" if tree is None
+               else f"one past the first {tree.n_prefix}")
+        raise ValueError(f"K1 walks {want} here (ops/sphere_sweep."
+                         f"tree_prefix); the batch's geometry has {got}: "
+                         f"build it with prepare_batch(fused=False)")
 
     def trace(o: V3, d: V3, alive) -> RawHit:
         tri = None
@@ -327,9 +359,9 @@ def make_trace_fn(static: SceneStatic, scene: SceneArrays,
             tri = paged_tri.intersect_tris_paged(o, d, geom.tri_tree, alive)
         elif static.has_tris:
             tri = tri_sweep.intersect_tris_sweep(o, d, geom.tri_table16,
-                                                 alive)
+                                                 alive, geom.tri_tree)
         sph = (sphere_sweep.intersect_spheres_sweep(o, d, geom.sph_table8,
-                                                    alive)
+                                                    alive, geom.sph_tree)
                if static.has_spheres or not static.has_tris else None)
         return combine_hits(sph, tri, s_pad)
 

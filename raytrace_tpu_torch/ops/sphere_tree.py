@@ -196,12 +196,16 @@ def build_sphere_tree(table8: torch.Tensor, n_prefix: int, num_spheres: int,
 
 
 def check_tree(tree: SphereTree, table8: torch.Tensor, n_prefix: int,
-               num_spheres: int, anim: bool) -> None:
+               num_spheres: int, anim: bool,
+               max_depth: int = MAX_SPHERE_DEPTH,
+               permutation: bool = True) -> None:
     """The tree against its scene (the [S8, 8] table, the layout's prefix,
-    the real spheres, and whether they move) and the kernel's stack:
+    the real spheres, and whether they move) and the kernel's stack
+    (``max_depth``: K4's by default, ops/sphere_sweep.WALK_DEPTH for K1):
     shapes, devices, a contiguous and 16-byte-aligned layout for the
-    float4 loads, and an id table that is a permutation of the spheres
-    past the prefix (checked on the device, so the check waits for it)."""
+    float4 loads, and with ``permutation`` an id table that is a
+    permutation of the spheres past the prefix (checked on the device, so
+    the check waits for it)."""
     n = num_spheres - n_prefix
     dev = table8.device
     if tree.n_prefix != n_prefix or tree.num_spheres != n or n < 1:
@@ -211,9 +215,12 @@ def check_tree(tree: SphereTree, table8: torch.Tensor, n_prefix: int,
     if tree.leaf < 1 or tree.depth != (-(-n // tree.leaf) - 1).bit_length():
         raise ValueError(f"a sphere tree of depth {tree.depth} does not match "
                          f"its {n} spheres in leaves of {tree.leaf}")
-    if tree.depth > MAX_SPHERE_DEPTH:
+    if tree.depth > max_depth:
         raise ValueError(f"a sphere tree of depth {tree.depth} is deeper than "
-                         f"the kernel's stack ({MAX_SPHERE_DEPTH})")
+                         f"the kernel's stack ({max_depth})")
+    if num_spheres > table8.shape[0]:
+        raise ValueError(f"{num_spheres} spheres in a table of "
+                         f"{table8.shape[0]} rows")
     n_nodes = (1 << tree.depth) - 1
     if not 0 <= tree.staged <= n_nodes:
         raise ValueError(f"{tree.staged} staged node rows of {n_nodes}")
@@ -231,6 +238,8 @@ def check_tree(tree: SphereTree, table8: torch.Tensor, n_prefix: int,
             raise ValueError(f"the sphere tree's {name} must be a contiguous, "
                              f"16-byte aligned {dtype} {list(shape)} tensor "
                              f"on the table's device")
+    if not permutation:
+        return
     seen = torch.zeros(num_spheres, dtype=torch.int32, device=dev)
     ok = bool(((tree.ids >= n_prefix) & (tree.ids < num_spheres)).all())
     if ok:

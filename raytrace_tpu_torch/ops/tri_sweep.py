@@ -1,10 +1,19 @@
-"""Dense triangle closest hit: the CUDA kernel ``csrc/tri_sweep.cu`` and its
-plain PyTorch version (counterpart of raytrace_tpu/ops/pallas_tri_sweep.py).
+"""The wavefront's triangle closest hit: the CUDA kernel ``csrc/tri_sweep.cu``
+(K2) and its plain PyTorch version (counterpart of
+raytrace_tpu/ops/pallas_tri_sweep.py).
 
-``intersect_tris_sweep`` is the one entry point.  For tensors on the CPU it
-runs the plain version; for CUDA tensors it launches the kernel on the
-current stream, or raises.  ``LAUNCHES`` counts kernel launches, so a run
-can show that its main path went through the kernel.
+``intersect_tris_sweep`` is the entry point.  For tensors on the CPU it
+runs the plain version, a dense sweep of every ray against every table
+row; for CUDA tensors it launches the kernel on the current stream, or
+raises.  The kernel walks the soup's tree (ops/paged_tri.build_soup_tree,
+which the wavefront builds for every soup outside the paged sweep) and
+returns the dense sweep's bits.  ``LAUNCHES`` counts kernel launches, so a
+run can show that its main path went through the kernel.
+
+``intersect_tris_dense`` is the dense sweep of the kernel's first version,
+kept as a check-only entry point: ``chip_smoke.py``, the chip probes and
+the card tests hold other kernels against it as an independent oracle.
+No Renderer path calls it, and ``LAUNCHES`` does not count it.
 
 Table layout [T8, 16] (``pack_tri_table``): v0.xyz, e1.xyz, e2.xyz, valid,
 then six zeros; T8 is the soup's length rounded up to a multiple of 8.
@@ -109,42 +118,110 @@ def _check_inputs(o: V3, d: V3, table16, active) -> None:
                          "rays' device")
 
 
+def _check_tree(tree, table16: torch.Tensor, device) -> None:
+    """The soup's tree against its table and the kernel's stack
+    (ops/paged_tri._check_tree), with one id a real triangle."""
+    from .paged_tri import MAX_DEPTH, _check_tree as check_tree
+
+    check_tree(tree, device, MAX_DEPTH)
+    if tree.ids is None:
+        raise ValueError("K2 walks a soup in its own order: its tree needs "
+                         "the slot -> id table (ops/paged_tri."
+                         "build_soup_tree)")
+    if tree.num_tris > table16.shape[0]:
+        raise ValueError(f"a tree of {tree.num_tris} triangles over a table "
+                         f"of {table16.shape[0]} rows")
+
+
+def _masked(hit, active) -> Hit:
+    t, ids, u, v = hit
+    return Hit(t=torch.where(active, t, T_MAX),
+               tri=torch.where(active, ids, -1),
+               u=torch.where(active, u, 0.0),
+               v=torch.where(active, v, 0.0))
+
+
+def _outputs(R: int, device):
+    return (torch.empty(R, dtype=torch.float32, device=device),
+            torch.empty(R, dtype=torch.int32, device=device),
+            torch.empty(R, dtype=torch.float32, device=device),
+            torch.empty(R, dtype=torch.float32, device=device))
+
+
+def _raise_on(lib, err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{name} launch failed: CUDA error {err} "
+            f"({lib.tri_sweep_error_string(err).decode()})")
+
+
 def intersect_tris_sweep(o: V3, d: V3, table16: torch.Tensor,
-                         active: torch.Tensor) -> Hit:
-    """Closest hit of rays o + t d against the [T8, 16] table; the lowest
-    id on ties; inactive rays and misses give (T_MAX, -1, 0, 0)."""
+                         active: torch.Tensor, tree=None) -> Hit:
+    """Closest hit of rays o + t d against the soup of the [T8, 16] table;
+    the lowest id on ties; inactive rays and misses give (T_MAX, -1, 0, 0).
+    On the CPU the plain version sweeps the table; on the card the kernel
+    walks ``tree``, the soup's TriTree with its slot -> id table
+    (ops/paged_tri.build_soup_tree over the same soup), and gives the
+    same bits.  A launch without a tree raises: the dense sweep is
+    ``intersect_tris_dense``."""
     global LAUNCHES
     _check_inputs(o, d, table16, active)
     device = o.x.device
+    if tree is not None:
+        _check_tree(tree, table16, device)
     if device.type == "cpu":
-        t, ids, u, v = tri_sweep_reference(o, d, table16)
-        return Hit(t=torch.where(active, t, T_MAX),
-                   tri=torch.where(active, ids, -1),
-                   u=torch.where(active, u, 0.0),
-                   v=torch.where(active, v, 0.0))
+        return _masked(tri_sweep_reference(o, d, table16), active)
+    if device.type != "cuda":
+        raise ValueError(f"no triangle sweep for device {device}")
+    if tree is None:
+        raise ValueError("K2 walks the soup's tree: pass tree "
+                         "(ops/paged_tri.build_soup_tree)")
+    if (tree.tris.data_ptr() % 16 or tree.nodes.data_ptr() % 16
+            or tree.ids.data_ptr() % 4):
+        raise ValueError("the tree's tables must be 16-byte aligned (float4 "
+                         "loads)")
+    R = o.x.shape[0]
+    if R >= 2 ** 31:
+        raise ValueError(f"{R} rays: the kernel indexes rays in 32 bits")
+    lib = library()
+    t, ids, u, v = _outputs(R, device)
+    err = lib.tri_sweep_launch(
+        tree.tris.data_ptr(), tree.num_tris, tree.nodes.data_ptr(),
+        tree.ids.data_ptr(), tree.depth, tree.leaf,
+        o.x.data_ptr(), o.y.data_ptr(), o.z.data_ptr(),
+        d.x.data_ptr(), d.y.data_ptr(), d.z.data_ptr(),
+        active.data_ptr(), R, t.data_ptr(), ids.data_ptr(), u.data_ptr(),
+        v.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(lib, err, "tri_sweep")
+    LAUNCHES += 1
+    return Hit(t=t, tri=ids, u=u, v=v)
+
+
+def intersect_tris_dense(o: V3, d: V3, table16: torch.Tensor,
+                         active: torch.Tensor) -> Hit:
+    """The dense sweep, a check-only oracle: the same contract as
+    ``intersect_tris_sweep``, every ray against every table row.  On the
+    CPU the plain version; on the card the kernel's dense entry point
+    (csrc/tri_sweep.cu tri_sweep_dense_launch), not counted in
+    ``LAUNCHES``."""
+    _check_inputs(o, d, table16, active)
+    device = o.x.device
+    if device.type == "cpu":
+        return _masked(tri_sweep_reference(o, d, table16), active)
     if device.type != "cuda":
         raise ValueError(f"no triangle sweep for device {device}")
     if table16.data_ptr() % 16:
         raise ValueError("table16 must be 16-byte aligned (float4 loads)")
-
     lib = library()
     R = o.x.shape[0]
-    t = torch.empty(R, dtype=torch.float32, device=device)
-    ids = torch.empty(R, dtype=torch.int32, device=device)
-    u = torch.empty(R, dtype=torch.float32, device=device)
-    v = torch.empty(R, dtype=torch.float32, device=device)
-    err = lib.tri_sweep_launch(
+    t, ids, u, v = _outputs(R, device)
+    err = lib.tri_sweep_dense_launch(
         table16.data_ptr(), table16.shape[0],
         o.x.data_ptr(), o.y.data_ptr(), o.z.data_ptr(),
         d.x.data_ptr(), d.y.data_ptr(), d.z.data_ptr(),
         active.data_ptr(), R, t.data_ptr(), ids.data_ptr(), u.data_ptr(),
-        v.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(
-            f"tri_sweep launch failed: CUDA error {err} "
-            f"({lib.tri_sweep_error_string(err).decode()})")
-    LAUNCHES += 1
+        v.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(lib, err, "tri_sweep_dense")
     return Hit(t=t, tri=ids, u=u, v=v)
 
 
@@ -153,9 +230,12 @@ def library() -> ctypes.CDLL:
     """The kernel's shared library, built from csrc/ at first use."""
     lib = _build.load_library("tri_sweep")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tri_sweep_launch.argtypes = [p, i, p, p, p, p, p, p, p, i, p, p, p,
-                                     p, p]
+    lib.tri_sweep_launch.argtypes = [p, i, p, p, i, i, p, p, p, p, p, p,
+                                     p, i, p, p, p, p, p]
     lib.tri_sweep_launch.restype = i
+    lib.tri_sweep_dense_launch.argtypes = [p, i, p, p, p, p, p, p, p, i, p,
+                                           p, p, p, p]
+    lib.tri_sweep_dense_launch.restype = i
     lib.tri_sweep_error_string.argtypes = [i]
     lib.tri_sweep_error_string.restype = ctypes.c_char_p
     return lib

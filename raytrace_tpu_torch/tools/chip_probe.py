@@ -12,6 +12,7 @@
     python3 raytrace_tpu_torch/tools/chip_probe.py k1 [TREE]
     python3 raytrace_tpu_torch/tools/chip_probe.py forms [TREE]
     python3 raytrace_tpu_torch/tools/chip_probe.py sass [TREE]
+    python3 raytrace_tpu_torch/tools/chip_probe.py walks [TREE]
 
 TREE is the root of a checkout whose ``raytrace_tpu_torch`` is measured
 (default: the checkout holding this file), so two trees can be compared on
@@ -138,6 +139,23 @@ not with ``-m``, so that the package comes from TREE.
   K4 form's SASS (``cuobjdump -sass``): its instruction count and the
   SHA-256 of its listing, so that two trees' forms can be shown to
   compile to the same code.
+- ``walks``: the wavefront's K1 and K2 as it launches them: on a TREE
+  whose K1 and K2 walk trees (the walks), else a parent's dense kernels.
+  Builds both and prints nvcc's reports (with the walks, each walk's
+  registers); K1 on the forced wavefront of final-one-weekend (1200x675)
+  and stress-16k (1024x576), one batch's bounces kept: its time on the
+  first bounce and summed over the batch (CUDA events), and with the
+  walks its dense entry point's time and the two bit for bit on every
+  bounce; the uncut ``stress_scenes.sphere_stress_doc(6)`` (17,428
+  spheres, past the fused gate) compiled (seconds) and rendered on
+  defaults: the wavefront, K1 launched, Mrays/s over batches 1-2; K2 on
+  tri-stress-15360's forced wavefront, its 9,437,184 primary rays (with
+  the walks: its dense entry point, bit for bit) and one batch (seconds,
+  Mrays/s, launches); with the walks, K1 without a tree against its walk
+  over 8 to 256 small spheres past a ground sphere, on 2^21 rays (where
+  the walk starts to pay, ops/sphere_sweep.SPHERE_FLAT_MAX); ends with
+  one JSON line.  TREE = the parent's ``git archive`` gives the before
+  of the same card.
 """
 
 from __future__ import annotations
@@ -983,6 +1001,13 @@ def _change_smoke_lib():
     return mod
 
 
+def _k2_dense(tri_sweep):
+    """K2's dense sweep in TREE's package: its check-only entry point
+    (since K2 walks the soup's tree), or a parent's K2 itself."""
+    return getattr(tri_sweep, "intersect_tris_dense",
+                   tri_sweep.intersect_tris_sweep)
+
+
 def _hits_equal(a, b, alive):
     """(t, id equal) and (u, v equal on the alive rays) of two hits."""
     import torch
@@ -1041,7 +1066,7 @@ def paged() -> None:
         hit = paged_tri.intersect_tris_paged(o, d, tables, alive)
         again = paged_tri.intersect_tris_paged(o, d, tables, alive)
         ref = plain(o, d, tables, alive)
-        k2 = tri_sweep.intersect_tris_sweep(
+        k2 = _k2_dense(tri_sweep)(
             o, d, tri_sweep.pack_tri_table(wp, T), alive)
         torch.cuda.synchronize()
         print(f"random T={T} R={R}: vs plain {_hits_equal(hit, ref, alive)}"
@@ -1085,7 +1110,7 @@ def paged() -> None:
         so, sd = (V3(*(x[sel].contiguous() for x in v)) for v in (o, d))
         sa = alive[sel].contiguous()
         hit = paged_tri.intersect_tris_paged(so, sd, tables, sa)
-        k2 = tri_sweep.intersect_tris_sweep(so, sd, geom.tri_table16, sa)
+        k2 = _k2_dense(tri_sweep)(so, sd, geom.tri_table16, sa)
         torch.cuda.synchronize()
         print(f"bounce {b}: R {o.x.shape[0]}, 2^17 subset vs K2 "
               f"{_hits_equal(hit, k2, sa)}, hit share "
@@ -1103,7 +1128,7 @@ def paged() -> None:
     go, gd = lib.grazing_rays(boxes, 1 << 16, 1, dev)
     ga = torch.ones(1 << 16, dtype=torch.bool, device=dev)
     hit = paged_tri.intersect_tris_paged(go, gd, tables, ga)
-    k2 = tri_sweep.intersect_tris_sweep(go, gd, geom.tri_table16, ga)
+    k2 = _k2_dense(tri_sweep)(go, gd, geom.tri_table16, ga)
     bad = (hit.t != k2.t) | (hit.tri != k2.tri)
     out["grazing_disagree"] = int(bad.sum())
     print("far grazing 2^16 vs K2: disagree", int(bad.sum()), "K2 hits",
@@ -1225,6 +1250,192 @@ def k1() -> None:
     print(json.dumps({"k1": res}))
 
 
+def _k1_batch(r, walk):
+    """Batch 0 of wavefront Renderer ``r`` through its trace, every
+    bounce's rays kept; K1 as the wavefront launches it (walk: with the
+    batch's sphere tree, else a parent's dense K1) timed on the first
+    bounce and summed over the batch's bounces, and with a walk its dense
+    entry point on the first bounce and the two held bit for bit on every
+    bounce.  Returns a dict."""
+    import torch
+
+    from raytrace_tpu_torch.engine import wavefront
+    from raytrace_tpu_torch.ops import sphere_sweep
+
+    geom = r._geometry(0)
+    trace = wavefront.make_trace_fn(r.static, r.scene, geom)
+    seen = []
+
+    def capture(o, d, alive):
+        seen.append((o, d, alive))
+        return trace(o, d, alive)
+
+    wavefront.render_tile(r.static, r.scene, r.camera, capture, geom, 0, 0,
+                          r.rows_per_tile, r.use_dof)
+    table8 = geom.sph_table8
+    tree = geom.sph_tree if walk else None
+
+    def k1(o, d, a):
+        if walk:
+            return sphere_sweep.intersect_spheres_sweep(o, d, table8, a, tree)
+        return sphere_sweep.intersect_spheres_sweep(o, d, table8, a)
+
+    o, d, a = seen[0]
+    out = dict(spheres=r.static.num_spheres, prefix=r.static.sph_prefix,
+               launches=len(seen), rays=o.x.shape[0],
+               ms=_med(lambda: k1(o, d, a), 5),
+               batch_ms=sum(_med(lambda o=o, d=d, a=a: k1(o, d, a), 3)
+                            for o, d, a in seen))
+    if walk:
+        out["tree"] = (None if tree is None else
+                       [tree.num_spheres, tree.leaf, tree.depth])
+        out["dense_ms"] = _med(lambda: sphere_sweep.intersect_spheres_dense(
+            o, d, table8, a), 5)
+        out["bitwise"] = True
+        for o, d, a in seen:
+            w = k1(o, d, a)
+            x = sphere_sweep.intersect_spheres_dense(o, d, table8, a)
+            out["bitwise"] &= torch.equal(w.t, x.t) and torch.equal(w.sph,
+                                                                    x.sph)
+    return out
+
+
+def walks() -> None:
+    """K1 and K2 as the wavefront launches them, on TREE (a parent's dense
+    kernels, or the walks): see the module docstring."""
+    import numpy as np
+    import torch
+
+    from raytrace_tpu_torch import cli
+    from raytrace_tpu_torch.engine import Renderer
+    from raytrace_tpu_torch.engine.wavefront import primary_rays
+    from raytrace_tpu_torch.models import compile_scene
+    from raytrace_tpu_torch.ops import _build, sphere_sweep, tri_sweep
+    from raytrace_tpu_torch.scene_file import SceneFile
+    from raytrace_tpu_torch.tools import stress_scenes
+
+    card = _card()
+    dev = torch.device("cuda:0")
+    walk = hasattr(sphere_sweep, "intersect_spheres_dense")
+    lib = _change_smoke_lib()
+    out = {"card": card, "walk": walk}
+    print(card, "walks:", walk, flush=True)
+    for mod in (sphere_sweep, tri_sweep):
+        mod.library()
+        name = mod.__name__.rsplit(".", 1)[1]
+        log = _build.library_path(name).with_suffix(".log").read_text()
+        print(log.strip())
+        if walk:
+            out[f"{name}_regs"] = lib.ptxas_entry(log, f"{name}_kernel")
+
+    # K1 on forced wavefronts: final-one-weekend, stress-16k.
+    tmp = __import__("tempfile").mkdtemp()
+    scenes = {"final-one-weekend": cli.load_scene(cli.DEFAULT_SCENE, 1200,
+                                                  675),
+              "stress-16k": cli.load_scene(
+                  stress_scenes.write_sphere_stress(tmp)["stress-16k"])}
+    for name, cs in scenes.items():
+        r = Renderer(cs, device=dev, use_megakernel=False)
+        out[name] = _k1_batch(r, walk)
+        print(name, "forced wavefront K1", out[name], flush=True)
+        del r
+
+    # The uncut sphere_stress_doc(6) on defaults: the wavefront, K1.
+    t0 = time.perf_counter()
+    cs = compile_scene(SceneFile.from_json_dict(
+        stress_scenes.sphere_stress_doc(6)))
+    compile_s = time.perf_counter() - t0
+    r = Renderer(cs, device=dev)
+    if r.path != "wavefront" or r.static.num_spheres != 17428:
+        raise AssertionError(f"stress-17428: {r.static.num_spheres} spheres "
+                             f"on {r.path}")
+    before = sphere_sweep.LAUNCHES
+    r.render_next_batch()
+    rays0, sec0 = r.stats.rays_traced, r.stats.render_seconds
+    r.render_next_batch()
+    r.render_next_batch()
+    launches = sphere_sweep.LAUNCHES - before
+    if launches <= 0:
+        raise AssertionError("stress-17428's wavefront launched no K1")
+    out["stress-17428"] = dict(
+        compile_s=compile_s, path=r.path, k1_launches=launches,
+        mrays=(r.stats.rays_traced - rays0)
+        / (r.stats.render_seconds - sec0) / 1e6,
+        width=cs.render.width, height=cs.render.height,
+        spp=cs.render.samples_per_pixel)
+    print("stress-17428 on defaults", out["stress-17428"], flush=True)
+    del r
+
+    # K2 on tri-stress-15360's forced wavefront: its primary rays, one batch.
+    r = Renderer(_tri_stress(4, 1024), device=dev, use_megakernel=False)
+    geom = r._geometry(0)
+    _, o, d = primary_rays(r.static, r.camera, 0, 0, r.static.height,
+                           r.use_dof, dev)
+    alive = torch.ones(o.x.shape[0], dtype=torch.bool, device=dev)
+    table16 = geom.tri_table16
+
+    def k2():
+        if not walk:
+            return tri_sweep.intersect_tris_sweep(o, d, table16, alive)
+        return tri_sweep.intersect_tris_sweep(o, d, table16, alive,
+                                              geom.tri_tree)
+
+    res = dict(rays=o.x.shape[0], ms=_med(k2, 3))
+    if walk:
+        dense = tri_sweep.intersect_tris_dense(o, d, table16, alive)
+        res["bitwise"] = all(torch.equal(a, b) for a, b in zip(k2(), dense))
+        res["dense_ms"] = _med(lambda: tri_sweep.intersect_tris_dense(
+            o, d, table16, alive), 3)
+    before = tri_sweep.LAUNCHES
+    r.render_next_batch()
+    res["batch_launches"] = tri_sweep.LAUNCHES - before
+    res["batch_s"] = r.stats.render_seconds
+    res["batch_mrays"] = r.stats.mrays_per_sec
+    out["tri-stress-15360"] = res
+    print("tri-stress-15360 forced wavefront K2", res, flush=True)
+    del r, geom, o, d, alive, table16
+
+    if walk:
+        # Where the walk starts to pay: n small spheres past a ground
+        # prefix, 2^21 rays from the air, K1 dense (no tree) vs its walk.
+        g = np.random.default_rng(0)
+        R = 1 << 21
+        ro = g.uniform([-12, 0.3, -12], [12, 3.0, 12], (R, 3))
+        rd = g.standard_normal((R, 3))
+        rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+        ro, rd = (lib.rows_to_v3(x.astype(np.float32), dev) for x in (ro, rd))
+        ra = torch.ones(R, dtype=torch.bool, device=dev)
+        from raytrace_tpu_torch.ops import sphere_tree
+
+        flat = {}
+        for n in (8, 16, 24, 32, 48, 64, 96, 128, 256):
+            c = np.zeros((n + 1, 3))
+            rad = np.zeros(n + 1)
+            c[0], rad[0] = (0.0, -1000.0, 0.0), 1000.0
+            c[1:] = g.uniform([-10, 0.2, -10], [10, 1.0, 10], (n, 3))
+            rad[1:] = g.uniform(0.2, 1.0, n)
+            tab = np.zeros((n + 1, 5))
+            tab[:, :3], tab[:, 3] = c, rad
+            tab[:, 4] = (c ** 2).sum(-1) - rad ** 2
+            t8 = sphere_sweep.pad_table8(torch.tensor(
+                tab.astype(np.float32), device=dev))
+            ids = torch.tensor(sphere_tree.sphere_order(
+                t8[:, :3].cpu().numpy(), 1, n + 1), dtype=torch.int32,
+                device=dev)
+            tree = sphere_tree.build_sphere_tree(t8, 1, n + 1, ids)
+            a = sphere_sweep.intersect_spheres_sweep(ro, rd, t8, ra, tree)
+            b = sphere_sweep.intersect_spheres_sweep(ro, rd, t8, ra)
+            flat[n] = dict(
+                walk_ms=_med(lambda: sphere_sweep.intersect_spheres_sweep(
+                    ro, rd, t8, ra, tree), 5),
+                dense_ms=_med(lambda: sphere_sweep.intersect_spheres_sweep(
+                    ro, rd, t8, ra), 5),
+                bitwise=torch.equal(a.t, b.t) and torch.equal(a.sph, b.sph))
+            print("flat threshold", n, flat[n], flush=True)
+        out["flat"] = flat
+    print(json.dumps(out))
+
+
 def forms() -> None:
     from raytrace_tpu_torch.ops import _build, megakernel
     from raytrace_tpu_torch.tools import smoke_lib
@@ -1297,7 +1508,7 @@ def main(argv) -> int:
     if len(argv) < 2 or argv[1] not in ("anim", "chunks", "tris", "lights",
                                         "paged", "noise", "image",
                                         "spheres", "probes", "k1", "forms",
-                                        "sass"):
+                                        "sass", "walks"):
         print(__doc__, file=sys.stderr)
         return 2
     tree = str(Path(argv[2] if len(argv) > 2
@@ -1314,7 +1525,7 @@ def main(argv) -> int:
         {"anim": anim, "tris": tris, "lights": lights, "paged": paged,
          "noise": noise, "image": image, "spheres": spheres,
          "probes": probes, "k1": k1, "forms": forms,
-         "sass": sass}[argv[1]]()
+         "sass": sass, "walks": walks}[argv[1]]()
     return 0
 
 

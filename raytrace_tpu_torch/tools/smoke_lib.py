@@ -1,14 +1,16 @@
 """What chip_smoke.py and tools/chip_probe.py share: the card's peak
 rates and the least time they allow, CUDA-event timing, the kernel
-builds with K4's form pins, K1's check against its plain version, the
+builds with K4's form pins and the walks' pins, K1's check against its
+plain version, the wavefront's dense oracle, the
 dev-probe phase, and K4's idle lanes: two warp models over path lengths
 and the measuring build's own count.
 
 Every function here needs a CUDA card but ``least_ms``, ``ptxas_forms``,
-``ptxas_kernel``, ``sweep_diagnostics``, ``library_call``,
-``rows_to_v3``, ``warp_tail``, ``warp_regen``, ``measured_busy`` and
-``wave_lengths`` (on CPU tensors); the port's modules are imported inside
-the functions that use them.
+``ptxas_kernel``, ``ptxas_entry``, ``sweep_diagnostics``,
+``library_call``, ``rows_to_v3``, ``warp_tail``, ``warp_regen``,
+``measured_busy``, ``wave_lengths``, ``dense_trace_fn`` and
+``sphere_walk_bound`` (on CPU tensors); the port's modules are imported
+inside the functions that use them.
 """
 
 from __future__ import annotations
@@ -44,6 +46,11 @@ PEAK_BYTES = 3.35e12
 # alone and is a lower bound.
 FLOPS_PER_TEST = 25
 FLOPS_PER_TEST_ANIM = 35
+# One child box test of a sphere tree's node: the slab test (per axis two
+# subtractions, two multiplies, a min and a max: 18), the running max and
+# min over axes (4), the pruned best t (2), the rounding margin (|o| +
+# reach)^2 coef (3) and the box widened by it on its six faces (6).
+FLOPS_PER_SPHERE_BOX = 33
 
 # Registers and spill-store bytes of K4's 36 forms (nvcc -Xptxas -v) as
 # they compile with the loop of steps and per-lane regeneration and, in
@@ -84,6 +91,14 @@ PARTIAL_WARP_DEPTHS = (1, 50)
 # K3's registers and spill-store bytes (PERF.md): its walk, shared with K4
 # in csrc/tri_tree.cuh, compiles as when it was K3's alone.
 K3_BEFORE = (48, 0)
+# The walks of K1 and K2 (csrc/sphere_sweep.cu sphere_sweep_kernel,
+# csrc/tri_sweep.cu tri_sweep_kernel) as they compile with their trees:
+# (registers, spill-store bytes), pinned from their first build on the
+# card (PERF.md §6); each source's dense entry point is printed, not
+# pinned.
+WALK_KERNELS = {"K1": ("sphere_sweep", "sphere_sweep_kernel"),
+                "K2": ("tri_sweep", "tri_sweep_kernel")}
+WALKS_BEFORE = {"K1": (56, 0), "K2": (48, 0)}
 # The image forms: each form but the animated one, with and without noise.
 IMAGE_FORMS = sorted(IMAGE_FORMS_BEFORE)
 DENSE_FORMS = sorted(list(FORMS_BEFORE) + IMAGE_FORMS)
@@ -203,6 +218,18 @@ def ptxas_kernel(log: str):
     return int(regs.group(1)), int(spill.group(1)) if spill else 0
 
 
+def ptxas_entry(log: str, entry: str):
+    """(registers, spill store bytes) of the kernel named ``entry`` (its
+    length-prefixed name in the mangled symbol) in nvcc's report of a
+    source with several."""
+    for block in log.split("Compiling entry function")[1:]:
+        if f"{len(entry)}{entry}" in block.split("\n", 1)[0]:
+            regs = re.search(r"Used (\d+) registers", block)
+            spill = re.search(r"(\d+) bytes spill stores", block)
+            return int(regs.group(1)), int(spill.group(1)) if spill else 0
+    raise AssertionError(f"no entry {entry} in nvcc's report")
+
+
 def median_ms(fn, reps: int = 5) -> float:
     """Median device time of ``fn`` in ms by CUDA events, after a warm-up
     call.  A spin kernel of SPIN_CYCLES is queued before each start event,
@@ -249,17 +276,19 @@ def sweep_diagnostics(ids, id_ref, t, s8: int, block: int = 256) -> str:
             f"disagreement")
 
 
-def compare_sweep(name, o, d, table8, alive):
+def compare_sweep(name, o, d, table8, alive, tree=None):
     """Kernel vs plain version on the same rays.  A ray agrees when both
     give the same sphere id and t within rtol/atol; ids must agree on
     >= 99.9% of rays, and so must whole hits.  (A ray that starts within
     float error of T_MIN from a surface may keep the near root in one
-    version and take the far root in the other.)  Returns max |dt| over
-    the rays that agree."""
+    version and take the far root in the other.)  K1 walks ``tree`` where
+    it is given.  Then K1, and its dense entry point, must equal the
+    plain version bit for bit (both are built without contraction).
+    Returns max |dt| over the rays that agree."""
     from raytrace_tpu_torch.ops import sphere_sweep
     from raytrace_tpu_torch.ops.intersect import T_MAX
 
-    hit = sphere_sweep.intersect_spheres_sweep(o, d, table8, alive)
+    hit = sphere_sweep.intersect_spheres_sweep(o, d, table8, alive, tree)
     t_ref, id_ref = sphere_sweep.sphere_sweep_reference(o, d, table8)
     t_ref = torch.where(alive, t_ref, T_MAX)
     id_ref = torch.where(alive, id_ref, -1)
@@ -275,11 +304,72 @@ def compare_sweep(name, o, d, table8, alive):
                              f"{frac:.6f} of rays (need {AGREEMENT}); {diag}")
     err = (hit.t[agree] - t_ref[agree]).abs().max().item()
     hits = (hit.sph >= 0).double().mean().item()
-    print(f"sweep {name}: R={o.x.shape[0]} S8={table8.shape[0]}: ids agree "
-          f"on {frac_id:.6f}, (id, t) on {frac:.6f} of rays "
+    dense = sphere_sweep.intersect_spheres_dense(o, d, table8, alive)
+    bitwise = torch.equal(hit.t, t_ref) and torch.equal(hit.sph, id_ref)
+    dense_bitwise = (torch.equal(dense.t, t_ref)
+                     and torch.equal(dense.sph, id_ref))
+    walk = ("none" if tree is None else
+            f"prefix {tree.n_prefix}, tree of {tree.num_spheres} in leaves "
+            f"of {tree.leaf}, depth {tree.depth}")
+    print(f"sweep {name}: R={o.x.shape[0]} S8={table8.shape[0]} ({walk}): "
+          f"ids agree on {frac_id:.6f}, (id, t) on {frac:.6f} of rays "
           f"({int((same_id & ~agree).sum())} same-id root flips); hit share "
-          f"{hits:.4f}; max |dt| where they agree {err:.3g}")
+          f"{hits:.4f}; max |dt| where they agree {err:.3g}; bit for bit "
+          f"with the plain version: K1 {bitwise}, its dense entry "
+          f"{dense_bitwise}")
+    if not (bitwise and dense_bitwise):
+        raise AssertionError(f"{name}: K1 (bit for bit {bitwise}) or its "
+                             f"dense entry ({dense_bitwise}) is not the "
+                             f"plain version's bits")
     return err
+
+
+def dense_trace_fn(static, scene, geom):
+    """engine/wavefront.make_trace_fn with the dense entry points of K2 and
+    K1 (ops/tri_sweep.intersect_tris_dense, ops/sphere_sweep.
+    intersect_spheres_dense) in place of their walks: the independent
+    dense oracle that chip_smoke.py holds the fused paths against.  No
+    Renderer path runs it."""
+    from raytrace_tpu_torch.engine import wavefront
+    from raytrace_tpu_torch.ops import paged_tri, sphere_sweep, tri_sweep
+
+    s_pad = scene.sph_center.shape[0]
+
+    def trace(o, d, alive):
+        tri = None
+        if static.bvh_mode == "paged":
+            tri = paged_tri.intersect_tris_paged(o, d, geom.tri_tree, alive)
+        elif static.has_tris:
+            tri = tri_sweep.intersect_tris_dense(o, d, geom.tri_table16,
+                                                 alive)
+        sph = (sphere_sweep.intersect_spheres_dense(o, d, geom.sph_table8,
+                                                    alive)
+               if static.has_spheres or not static.has_tris else None)
+        return wavefront.combine_hits(sph, tri, s_pad)
+
+    return trace
+
+
+def sphere_walk_bound(o, d, alive, tree, best_t, n_rays):
+    """K1's least time over ``n_rays`` rays from the walk's work on the
+    rays (o, d, alive), a subset of them whose closest hits are
+    ``best_t`` (ops/sphere_tree.sphere_tree_visit_counts): the prefix's
+    tests, the nodes' box tests and the leaves' sphere tests a ray, scaled
+    to ``n_rays``; bytes the rays (25 in, 8 out), the prefix's rows, the
+    distinct node rows, sphere rows and ids the walk reads.  Returns
+    (least ms, "operations" or "bytes", per-ray work)."""
+    from raytrace_tpu_torch.ops import sphere_tree
+
+    work = sphere_tree.sphere_tree_visit_counts(o, d, tree, best_t, alive)
+    rays = max(work["rays"], 1)
+    per = {k: work[k] / rays for k in ("prefix_tests", "node_tests",
+                                       "sphere_tests")}
+    flops = n_rays * ((per["prefix_tests"] + per["sphere_tests"])
+                      * FLOPS_PER_TEST
+                      + per["node_tests"] * 2 * FLOPS_PER_SPHERE_BOX)
+    nbytes = (n_rays * (6 * 4 + 1 + 4 + 4) + tree.n_prefix * 32
+              + work["nodes_read"] * 64 + work["spheres_read"] * (32 + 4))
+    return (*least_ms(flops, nbytes), per)
 
 
 def rows_to_v3(a, dev):
@@ -355,6 +445,14 @@ def build_kernels(names=None):
     if (k3_regs, k3_spill) != K3_BEFORE:
         raise AssertionError(f"K3 changed: {k3_regs} registers, {k3_spill} "
                              f"bytes spilled, before {K3_BEFORE}")
+    for label, (lib, entry) in WALK_KERNELS.items():
+        got = ptxas_entry(_build.library_path(lib).with_suffix(
+            ".log").read_text(), entry)
+        print(f"{label}'s walk: {got[0]} registers, {got[1]} bytes spill "
+              f"stores")
+        if got != WALKS_BEFORE[label]:
+            raise AssertionError(f"{label}'s walk changed: {got}, before "
+                                 f"{WALKS_BEFORE[label]}")
     return secs
 
 
@@ -621,24 +719,31 @@ def dev_probes(dev, card):
 
 
 def k1_checks(cs, dev, card, rng):
-    """Phase 3's K1 part: K1 against the plain sweep on the main path's
+    """Phase 3's K1 part: K1 (the scene's prefix, then its sphere tree,
+    as the wavefront runs it) against the plain sweep on the main path's
     3,240,000 primary rays of ``cs`` (final-one-weekend at 1200x675) and
-    on 2^20 random rays with an alive mask drawn from ``rng``, then its
-    time.  Returns {err, ms, plain_ms, bound}."""
+    on 2^20 random rays with an alive mask drawn from ``rng`` (the
+    agreement check, then bit for bit), then its time beside its dense
+    entry point's and the plain version's, and its bound from the walk's
+    work on 2^17 of the primary rays beside the dense sweep's.  Returns
+    {err, ms, dense_ms, plain_ms, bound, dense_bound}."""
     from raytrace_tpu_torch.engine import Renderer
     from raytrace_tpu_torch.engine.wavefront import prepare_batch, primary_rays
     from raytrace_tpu_torch.ops import sphere_sweep
+    from raytrace_tpu_torch.ops.vec3 import V3
 
     probe = Renderer(cs, device=dev, use_megakernel=False)
     geom = prepare_batch(probe.static, probe.scene,
                          torch.tensor(probe.sphere_tables[0], device=dev))
-    table8 = geom.sph_table8
+    table8, tree = geom.sph_table8, geom.sph_tree
+    if tree is None or tree.n_prefix != probe.static.sph_prefix:
+        raise AssertionError("the wavefront's geometry has no K1 tree")
     _, o, d = primary_rays(probe.static, probe.camera, 0, 0, HEIGHT,
                            probe.use_dof, dev)
     if o.x.shape[0] != WIDTH * HEIGHT * 4:
         raise AssertionError(f"primary rays: {o.x.shape[0]}")
     alive = torch.ones(o.x.shape[0], dtype=torch.bool, device=dev)
-    err = compare_sweep("primary", o, d, table8, alive)
+    err = compare_sweep("primary", o, d, table8, alive, tree)
 
     # Origins in the scene's air (its ground fills y > 0).
     ro = rng.uniform([-14.0, -4.0, -14.0], [14.0, -0.05, 14.0],
@@ -647,20 +752,33 @@ def k1_checks(cs, dev, card, rng):
     rd /= np.linalg.norm(rd, axis=1, keepdims=True)
     r_alive = torch.tensor(rng.random(RANDOM_RAYS) < 0.75, device=dev)
     err = max(err, compare_sweep("random", rows_to_v3(ro, dev),
-                                 rows_to_v3(rd, dev), table8, r_alive))
+                                 rows_to_v3(rd, dev), table8, r_alive, tree))
 
-    ms = median_ms(
-        lambda: sphere_sweep.intersect_spheres_sweep(o, d, table8, alive), 20)
+    ms = median_ms(lambda: sphere_sweep.intersect_spheres_sweep(
+        o, d, table8, alive, tree), 20)
+    dense_ms = median_ms(lambda: sphere_sweep.intersect_spheres_dense(
+        o, d, table8, alive), 20)
     plain_ms = median_ms(
         lambda: sphere_sweep.sphere_sweep_reference(o, d, table8), 5)
     n_rays, s8 = o.x.shape[0], table8.shape[0]
     # Rays in: origin, direction, alive; out: t and id; the table once.
-    bound = least_ms(n_rays * s8 * FLOPS_PER_TEST,
-                     n_rays * (6 * 4 + 1 + 4 + 4) + table8.numel() * 4)
-    print(f"sweep time at R={n_rays}, S8={s8}: kernel {ms:.3f} ms, plain "
-          f"PyTorch {plain_ms:.3f} ms (median, CUDA events); bound "
-          f"{bound[0]:.4f} ms by {bound[1]} ({card})")
-    return dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound)
+    dense_bound = least_ms(n_rays * s8 * FLOPS_PER_TEST,
+                           n_rays * (6 * 4 + 1 + 4 + 4) + table8.numel() * 4)
+    sel = torch.arange(0, n_rays, n_rays // (1 << 17), device=dev)[:1 << 17]
+    so, sd = (V3(*(x[sel].contiguous() for x in v)) for v in (o, d))
+    best_t = sphere_sweep.sphere_sweep_reference(so, sd, table8)[0]
+    *bound, per = sphere_walk_bound(so, sd, alive[sel].contiguous(), tree,
+                                    best_t, n_rays)
+    print(f"sweep time at R={n_rays}, S8={s8}: K1 (prefix "
+          f"{tree.n_prefix}, then the tree) {ms:.4f} ms, its dense entry "
+          f"{dense_ms:.4f} ms, plain PyTorch {plain_ms:.3f} ms (median, CUDA "
+          f"events); the walk's work a ray: {per['prefix_tests']:.0f} prefix "
+          f"tests, {per['node_tests']:.2f} nodes, {per['sphere_tests']:.2f} "
+          f"sphere tests; bound {bound[0]:.4f} ms by {bound[1]} "
+          f"({bound[0] / ms:.4f} of it), the dense sweep's "
+          f"{dense_bound[0]:.4f} ms by {dense_bound[1]} ({card})")
+    return dict(err=err, ms=ms, dense_ms=dense_ms, plain_ms=plain_ms,
+                bound=tuple(bound), dense_bound=dense_bound)
 
 
 # ---- K3 on the mesh path.  Written against paged_tri's entry point and

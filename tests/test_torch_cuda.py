@@ -6,10 +6,15 @@ No JAX here, so they also run on a GPU machine without it
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Every test skips with a reason where torch.cuda.is_available() is false.
-Sphere sweep: ids equal, and ids equal with t within rtol=1e-3, atol=1e-3,
-each on >= 99.9% of rays (nvcc contracts multiply-adds into FMAs, PyTorch's
-elementwise kernels do not; a ray starting within float error of T_MIN
-from a surface may take the other root).  Fused bounce kernel (built
+Sphere sweep K1 (built without contraction since it shares K4's sphere
+test, csrc/sphere_tree.cuh): the prefix and the sphere tree's walk, and
+its dense entry point, bit for bit with the plain version, on random,
+far and grazing rays and on a tree deeper than K4's stack (more than
+131,072 spheres), two launches byte-identical; the older agreement check
+(ids, and ids with t within rtol=1e-3, atol=1e-3, each on >= 99.9% of
+rays) kept beside it.  Triangle sweep K2's walk of the soup's tree: bit
+for bit with its dense entry point and the plain version, on a
+use_bvh=False soup above 8,192 triangles too.  Fused bounce kernel (built
 without contraction): traced rays within 0.5%, per-sample channel means
 within 1e-3, at most 5% of pixels with a max-channel difference above
 1e-4; on small scenes every pixel's bounce count equal.  Its animated
@@ -124,14 +129,43 @@ def _plain(o, d, t8, alive):
     return torch.where(alive, t, T_MAX), torch.where(alive, ids, -1)
 
 
+def _sphere_tree(t8, n_prefix, n_sph):
+    """K1's tree over the spheres past ``n_prefix`` (None where the walk
+    does not pay: ops/sphere_sweep.SPHERE_FLAT_MAX)."""
+    from raytrace_tpu_torch.ops import sphere_tree
+
+    if n_sph - n_prefix <= sphere_sweep.SPHERE_FLAT_MAX:
+        return None
+    ids = torch.tensor(sphere_tree.sphere_order(
+        t8[:, 0:3].cpu().numpy(), n_prefix, n_sph), dtype=torch.int32,
+        device=t8.device)
+    return sphere_tree.build_sphere_tree(t8, n_prefix, n_sph, ids)
+
+
+def _assert_k1_is_plain(o, d, t8, alive, tree):
+    """K1 (prefix and walk), its dense entry point and the plain version
+    give the same bits; a second launch the same bytes.  Returns K1's
+    hit."""
+    before = sphere_sweep.LAUNCHES
+    hit = sphere_sweep.intersect_spheres_sweep(o, d, t8, alive, tree)
+    again = sphere_sweep.intersect_spheres_sweep(o, d, t8, alive, tree)
+    dense = sphere_sweep.intersect_spheres_dense(o, d, t8, alive)
+    torch.cuda.synchronize()
+    assert sphere_sweep.LAUNCHES == before + 2   # the dense entry uncounted
+    t_ref, id_ref = _plain(o, d, t8, alive)
+    for other in (again, dense):
+        assert torch.equal(hit.t, other.t) and torch.equal(hit.sph, other.sph)
+    assert torch.equal(hit.t, t_ref) and torch.equal(hit.sph, id_ref)
+    return hit
+
+
 @pytest.mark.parametrize("S,R", [(3, 2048), (37, 4099), (488, 1 << 16),
                                  (1000, 2048)])
 def test_kernel_matches_plain(dev, S, R):
     o, d, t8, alive = _inputs(S, R, seed=S, dev=dev)
-    before = sphere_sweep.LAUNCHES
-    hit = sphere_sweep.intersect_spheres_sweep(o, d, t8, alive)
-    torch.cuda.synchronize()
-    assert sphere_sweep.LAUNCHES == before + 1
+    tree = _sphere_tree(t8, 1, S)
+    assert (tree is None) == (S - 1 <= sphere_sweep.SPHERE_FLAT_MAX)
+    hit = _assert_k1_is_plain(o, d, t8, alive, tree)
     t_ref, id_ref = _plain(o, d, t8, alive)
     same_id = hit.sph == id_ref
     agree = same_id & ((hit.t - t_ref).abs() <= ATOL + RTOL * t_ref.abs())
@@ -161,6 +195,64 @@ def test_kernel_rejects_misaligned_table(dev):
     shifted.copy_(t8)
     with pytest.raises(ValueError, match="aligned"):
         sphere_sweep.intersect_spheres_sweep(o, d, shifted, alive)
+
+
+@pytest.mark.parametrize("S,prefix", [(3000, 1), (140000, 1), (5000, 0)])
+def test_sphere_walk_on_random_far_and_grazing_rays(dev, S, prefix):
+    """K1's walk bit for bit with its dense entry point and the plain
+    version on random rays, rays from 1,000-2,000 units away and far rays
+    grazing the spheres' boxes; 140,000 spheres make a tree of depth 15,
+    deeper than K4's stack of 14."""
+    from raytrace_tpu_torch.ops import sphere_tree
+    from raytrace_tpu_torch.tools import smoke_lib
+
+    o, d, t8, alive = _inputs(S, 1 << 14, seed=S, dev=dev)
+    if prefix == 0:
+        t8[0, 3] = 0.5   # the ground shrinks to one of the small spheres
+        t8[0, 4] = (t8[0, 0:3] ** 2).sum() - 0.25
+    tree = _sphere_tree(t8, prefix, S)
+    assert (tree.depth > sphere_tree.MAX_SPHERE_DEPTH) == (S == 140000)
+    if S == 140000:
+        assert tree.depth == 15
+    assert (_assert_k1_is_plain(o, d, t8, alive, tree).sph >= 0).any()
+    tab = t8[prefix:S].cpu().numpy()
+    boxes = np.concatenate([tab[:, 0:3] - np.abs(tab[:, 3:4]),
+                            tab[:, 0:3] + np.abs(tab[:, 3:4])], axis=1)
+    ones = torch.ones(1 << 14, dtype=torch.bool, device=dev)
+    for seed, jitter in ((1, 1e-5), (2, 1e-2)):
+        go, gd = smoke_lib.grazing_rays(boxes, 1 << 14, seed, dev, jitter)
+        hit = _assert_k1_is_plain(go, gd, t8, ones, tree)
+        assert (hit.sph >= 0).any()
+
+
+def test_tri_walk_on_a_deep_unpaged_soup(dev, tmp_path):
+    """use_bvh=False sends a soup of any size to K2: 20,000 triangles in
+    leaves of 2 make a tree of depth 14, deeper than K4's triangle stack
+    (13).  Bit for bit with the dense entry point and the plain version,
+    on random rays and far grazing rays, two launches byte-identical; and
+    the Renderer takes K2 on that soup."""
+    from raytrace_tpu_torch.tools import smoke_lib, stress_scenes
+
+    T = 20000
+    tri = _tri_soup(T, seed=5)
+    wp = torch.tensor(tri, device=dev)
+    table16 = tri_sweep.pack_tri_table(wp, T)
+    tree = _soup_tree(wp, T, table16)
+    assert tree.depth == 14 > megakernel.MAX_TRI_DEPTH
+    o, d, alive = _tri_rays(tri, 1 << 15, seed=6, dev=dev)
+    assert (_assert_k2_is_plain(o, d, table16, alive, tree).tri >= 0).any()
+    mn, mx = tri.min(1), tri.max(1)
+    go, gd = smoke_lib.grazing_rays(np.concatenate([mn, mx], 1), 1 << 15, 7,
+                                    dev)
+    _assert_k2_is_plain(go, gd, table16,
+                        torch.ones(1 << 15, dtype=torch.bool, device=dev),
+                        tree)
+    cs = _doc_cs(stress_scenes.box_grid_doc(2000), 64, depth=4, batches=1)
+    r = Renderer(cs, device=dev, use_megakernel=False, use_bvh=False)
+    assert r.static.bvh_mode == "none" and r.static.num_triangles > 8192
+    before = tri_sweep.LAUNCHES
+    assert np.isfinite(r.render_all()).all()
+    assert tri_sweep.LAUNCHES > before
 
 
 def test_render_on_card_matches_cpu(dev):
@@ -392,6 +484,28 @@ def _tri_rays(tri, R, seed, dev):
     return v3(o), v3(d), torch.tensor(g.random(R) < 0.7, device=dev)
 
 
+def _soup_tree(wp, n, table16):
+    """K2's tree over the first ``n`` triangles of the [T, 3, 3] world
+    soup (ops/paged_tri.build_soup_tree, as the wavefront builds it)."""
+    return paged_tri.build_soup_tree(wp, n, megakernel.tri_table12(table16),
+                                     paged_tri.soup_order(wp, n))
+
+
+def _assert_k2_is_plain(o, d, table16, alive, tree):
+    """K2's walk, twice, its dense entry point and the plain version give
+    the same bits.  Returns K2's hit."""
+    hit = tri_sweep.intersect_tris_sweep(o, d, table16, alive, tree)
+    again = tri_sweep.intersect_tris_sweep(o, d, table16, alive, tree)
+    dense = tri_sweep.intersect_tris_dense(o, d, table16, alive)
+    torch.cuda.synchronize()
+    t, ids, u, v = tri_sweep.tri_sweep_reference(o, d, table16)
+    plain = (torch.where(alive, t, T_MAX), torch.where(alive, ids, -1),
+             torch.where(alive, u, 0.0), torch.where(alive, v, 0.0))
+    for other in (again, dense, plain):
+        assert all(torch.equal(a, b) for a, b in zip(hit, other))
+    return hit
+
+
 @pytest.mark.parametrize("T,R", [(7, 2048), (300, 4099), (2000, 1 << 16)])
 def test_tri_sweep_kernel_matches_plain_bit_for_bit(dev, T, R):
     """Built without contraction, K2 gives the plain version's bits."""
@@ -399,14 +513,9 @@ def test_tri_sweep_kernel_matches_plain_bit_for_bit(dev, T, R):
     table16 = tri_sweep.pack_tri_table(torch.tensor(tri, device=dev), T - 1)
     o, d, alive = _tri_rays(tri, R, seed=R, dev=dev)
     before = tri_sweep.LAUNCHES
-    hit = tri_sweep.intersect_tris_sweep(o, d, table16, alive)
-    torch.cuda.synchronize()
-    assert tri_sweep.LAUNCHES == before + 1
-    t, ids, u, v = tri_sweep.tri_sweep_reference(o, d, table16)
-    assert torch.equal(hit.t, torch.where(alive, t, T_MAX))
-    assert torch.equal(hit.tri, torch.where(alive, ids, -1))
-    assert torch.equal(hit.u, torch.where(alive, u, 0.0))
-    assert torch.equal(hit.v, torch.where(alive, v, 0.0))
+    tree = _soup_tree(torch.tensor(tri, device=dev), T - 1, table16)
+    hit = _assert_k2_is_plain(o, d, table16, alive, tree)
+    assert tri_sweep.LAUNCHES == before + 2
     assert (hit.tri >= 0).any() and (hit.tri != T // 2).all()
     assert (hit.tri < T - 1).all()   # the last row is marked invalid
 
@@ -418,7 +527,16 @@ def test_tri_sweep_kernel_rejects_misaligned_table(dev):
     shifted.copy_(table16)
     o, d, alive = _tri_rays(tri, 256, seed=2, dev=dev)
     with pytest.raises(ValueError, match="aligned"):
-        tri_sweep.intersect_tris_sweep(o, d, shifted, alive)
+        tri_sweep.intersect_tris_dense(o, d, shifted, alive)
+    tree = _soup_tree(torch.tensor(tri, device=dev), 8, table16)
+    rows = torch.zeros(tree.tris.numel() + 1, device=dev)[1:].view(
+        tree.tris.shape)
+    rows.copy_(tree.tris)
+    with pytest.raises(ValueError, match="aligned"):
+        tri_sweep.intersect_tris_sweep(o, d, table16, alive,
+                                       tree._replace(tris=rows))
+    with pytest.raises(ValueError, match="tree"):
+        tri_sweep.intersect_tris_sweep(o, d, table16, alive)
 
 
 def _tri_scene(name, w, depth, batches, tmp_path):
@@ -723,7 +841,7 @@ def test_paged_kernel_matches_plain_and_k2_bit_for_bit(dev, T, leaf, R):
     torch.cuda.synchronize()
     assert paged_tri.LAUNCHES == before + 1
     ref = paged_tri.tri_tree_sweep_reference(o, d, tree, alive)
-    dense = tri_sweep.intersect_tris_sweep(o, d, table16, alive)
+    dense = tri_sweep.intersect_tris_dense(o, d, table16, alive)
     for other in (ref, dense):
         _assert_hits_equal(hit, other, alive)
     assert (hit.tri[~alive] == -1).all() and (hit.t[~alive] == T_MAX).all()
@@ -784,7 +902,7 @@ def test_paged_kernel_on_equal_t_duplicates(dev):
     tree = paged_tri.build_tri_tree(wp, 4000)
     o, d, alive = _tri_rays(tri, 1 << 15, seed=10, dev=dev)
     hit = paged_tri.intersect_tris_paged(o, d, tree, alive)
-    dense = tri_sweep.intersect_tris_sweep(
+    dense = tri_sweep.intersect_tris_dense(
         o, d, tri_sweep.pack_tri_table(wp, 4000), alive)
     _assert_hits_equal(hit, dense, alive)
     _assert_hits_equal(hit, paged_tri.tri_tree_sweep_reference(
@@ -813,7 +931,7 @@ def test_paged_kernel_on_far_grazing_rays(dev):
     hit = paged_tri.intersect_tris_paged(o, d, tree, alive)
     _assert_hits_equal(hit, paged_tri.tri_tree_sweep_reference(
         o, d, tree, alive), alive)
-    k2 = tri_sweep.intersect_tris_sweep(o, d, tri_sweep.pack_tri_table(wp, T),
+    k2 = tri_sweep.intersect_tris_dense(o, d, tri_sweep.pack_tri_table(wp, T),
                                         alive)
     assert (k2.tri >= 0).double().mean() > 0.3
     for r in torch.nonzero((hit.t != k2.t) | (hit.tri != k2.tri))[:, 0].tolist():

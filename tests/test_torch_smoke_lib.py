@@ -264,3 +264,133 @@ def test_kernel_builds_include_the_measuring_build():
     assert "-DK4_MEASURE" not in _build.nvcc_flags("megakernel")
     assert (_build.library_path("megakernel_measure")
             != _build.library_path("megakernel"))
+
+
+def test_ptxas_entry_reads_one_kernel_of_several():
+    """K1's and K2's sources each hold a walk and a dense entry point; the
+    walk's registers are read by its own length-prefixed name."""
+    log = ("ptxas info    : Compiling entry function "
+           "'_ZN12_GLOBAL__N_125sphere_sweep_dense_kernelEPK6float4i' for "
+           "'sm_90a'\nptxas info    : Used 40 registers\n"
+           "ptxas info    : Compiling entry function "
+           "'_ZN12_GLOBAL__N_119sphere_sweep_kernelEPK6float4i' for "
+           "'sm_90a'\n    224 bytes stack frame, 8 bytes spill stores, 8 "
+           "bytes spill loads\nptxas info    : Used 56 registers\n")
+    assert smoke_lib.ptxas_entry(log, "sphere_sweep_kernel") == (56, 8)
+    assert smoke_lib.ptxas_entry(log, "sphere_sweep_dense_kernel") == (40, 0)
+    with pytest.raises(AssertionError, match="no entry"):
+        smoke_lib.ptxas_entry(log, "tri_sweep_kernel")
+    assert set(smoke_lib.WALK_KERNELS) == set(smoke_lib.WALKS_BEFORE)
+
+
+def _walk_renderer(doc, width=16):
+    import dataclasses
+
+    from raytrace_tpu_torch.engine import Renderer
+    from raytrace_tpu_torch.models import compile_scene
+    from raytrace_tpu_torch.scene_file import SceneFile
+
+    cs = compile_scene(SceneFile.from_json_dict(doc), width=width)
+    cs = dataclasses.replace(cs, render=dataclasses.replace(
+        cs.render, samples_per_pixel=4, max_ray_depth=4))
+    return Renderer(cs, device="cpu", use_megakernel=False)
+
+
+@pytest.mark.parametrize("name", ["final-one-weekend", "cornell-style"])
+def test_dense_trace_is_the_wavefronts_trace(name):
+    """The dense oracle's trace gives the wavefront's own hits, ray for
+    ray, on the CPU (where both are the plain versions)."""
+    import json
+
+    from raytrace_tpu_torch import cli
+    from raytrace_tpu_torch.engine import wavefront
+    from raytrace_tpu_torch.tools import light_scenes
+
+    if name == "cornell-style":
+        doc = light_scenes.cornell_doc()
+    else:
+        with open(cli.DEFAULT_SCENE) as f:
+            doc = json.load(f)
+    r = _walk_renderer(doc)
+    geom = r._geometry(0)
+    own = wavefront.make_trace_fn(r.static, r.scene, geom)
+    dense = smoke_lib.dense_trace_fn(r.static, r.scene, geom)
+    _, o, d = wavefront.primary_rays(r.static, r.camera, 0, 0,
+                                     r.static.height, r.use_dof, "cpu")
+    alive = torch.rand(o.x.shape[0], generator=torch.Generator().manual_seed(
+        1)) < 0.8
+    a, b = own(o, d, alive), dense(o, d, alive)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_sphere_walk_bound_counts_the_walks_work():
+    """K1's bound from the walk's work: more rays cost more, the prefix's
+    tests are counted, and it is far below the dense sweep's."""
+    import json
+
+    from raytrace_tpu_torch import cli
+    from raytrace_tpu_torch.engine import wavefront
+    from raytrace_tpu_torch.ops import sphere_sweep
+
+    with open(cli.DEFAULT_SCENE) as f:
+        r = _walk_renderer(json.load(f), width=32)
+    geom = r._geometry(0)
+    _, o, d = wavefront.primary_rays(r.static, r.camera, 0, 0,
+                                     r.static.height, r.use_dof, "cpu")
+    alive = torch.ones(o.x.shape[0], dtype=torch.bool)
+    best_t = sphere_sweep.sphere_sweep_reference(o, d, geom.sph_table8)[0]
+    ms, by, per = smoke_lib.sphere_walk_bound(o, d, alive, geom.sph_tree,
+                                              best_t, 1 << 20)
+    ms2, _, _ = smoke_lib.sphere_walk_bound(o, d, alive, geom.sph_tree,
+                                            best_t, 1 << 22)
+    assert 0 < ms < ms2 and by in ("operations", "bytes")
+    assert per["prefix_tests"] == geom.sph_tree.n_prefix > 0
+    assert 1 <= per["node_tests"] and per["sphere_tests"] < 100
+    dense, _ = smoke_lib.least_ms(
+        (1 << 20) * geom.sph_table8.shape[0] * smoke_lib.FLOPS_PER_TEST, 0.0)
+    assert ms < dense / 5
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", ["final-one-weekend", "cornell-style"])
+def test_walk_batch_holds_the_renderers_wavefront_to_the_dense_oracle(
+        name):
+    """chip_smoke's _walk_batch: a batch rendered through the dense
+    oracle's trace (smoke_lib.dense_trace_fn) and the same batch rendered
+    by the Renderer itself are the same bytes and rays, with the sweeps'
+    launches counted from 0 (none on the CPU); a batch that differs by
+    one ulp, or by one ray, fails."""
+    import json
+
+    from raytrace_tpu_torch import cli
+    from raytrace_tpu_torch.tools import light_scenes
+
+    chip_smoke = _chip_smoke()
+    if name == "cornell-style":
+        doc = light_scenes.cornell_doc()
+    else:
+        with open(cli.DEFAULT_SCENE) as f:
+            doc = json.load(f)
+    r = _walk_renderer(doc)
+    geom = r._geometry(0)
+    trace = smoke_lib.dense_trace_fn(r.static, r.scene, geom)
+    img, rays, _ = smoke_lib.wave_lengths(r.static, r.scene, r.camera, trace,
+                                          geom, r.use_dof, r.rows_per_tile)
+    out = chip_smoke._walk_batch(name, r, img, rays, "cpu")
+    assert out["k1"] == out["k2"] == 0 and r.current_batch == 1
+    off = img.clone()
+    off.view(-1)[0] = torch.nextafter(off.view(-1)[0], torch.tensor(1.0))
+    for bad_img, bad_rays in ((off, rays), (img, rays + 1)):
+        r = _walk_renderer(doc)
+        with pytest.raises(AssertionError, match="differ"):
+            chip_smoke._walk_batch(name, r, bad_img, bad_rays, "cpu")

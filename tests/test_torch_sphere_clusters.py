@@ -494,10 +494,11 @@ def test_cpu_renderer_takes_the_fused_path_on_stress_4x():
 
 @pytest.mark.parametrize("name", ["stress-4x", "motion-blur"])
 def test_only_the_fused_path_builds_the_sphere_boxes(name):
-    """The wavefront reads no sphere tree, so its geometry has none; the
-    fused path's (a batch's, or the moving scene's one geometry) has the
-    tree over every sphere past the prefix, in the Renderer's order, with
-    motion rows where the spheres move."""
+    """The fused path's geometry (a batch's, or the moving scene's one
+    geometry) has the tree over every sphere past the prefix, in the
+    Renderer's order, with motion rows where the spheres move; the
+    wavefront's has K1's tree over the same spheres in the same order,
+    built over the batch's own table, with no motion rows."""
     cs = _port_cs(name)
     fused = Renderer(cs, device="cpu", use_megakernel=True)
     wave = Renderer(cs, device="cpu", use_megakernel=False)
@@ -508,7 +509,14 @@ def test_only_the_fused_path_builds_the_sphere_boxes(name):
         n_prefix, cs.num_spheres - n_prefix)
     assert torch.equal(tree.ids, fused._sph_order)
     assert (tree.drows is not None) == (fused.path == "fused_anim")
-    assert wave._geometry(0).sph_tree is None and wave._sph_order is None
+    wtree = wave._geometry(1).sph_tree
+    assert (wtree.n_prefix, wtree.num_spheres) == (
+        n_prefix, cs.num_spheres - n_prefix)
+    assert torch.equal(wtree.ids, fused._sph_order)
+    assert torch.equal(wave._sph_order, fused._sph_order)
+    assert wtree.drows is None
+    assert torch.equal(wtree.rows, wave._geometry(1).sph_table8[
+        wtree.ids.long()])
 
 
 @functools.lru_cache(maxsize=None)
