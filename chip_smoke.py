@@ -70,12 +70,14 @@ printing a result.  No path runs at a cut depth.  Phases:
    at the JAX probe's shapes (bit for bit; sin+cos and pow-exp-log within
    2^-22), P2 at (8, 128) and 2^24 points (within 2 ulps; its ulps
    against float64 printed), P3's three variants at the JAX layout (8
-   programs over one (8, 128) block) and at a cell per pixel-sample of
-   final-one-weekend (3,240,000 cells), bit for bit at 4 iterations with
-   two launches byte-identical, and times each (P3 at 20,000 iterations
-   and at 1 and 16); the bounds, and the PyTorch call of the fetch and
-   the two table reads, timed beside; with K4's batch time below,
-   raygen's share of it;
+   programs over one (8, 128) block: the split kernel, each cell's
+   iterations spread over a block) and at a cell per pixel-sample of
+   final-one-weekend (3,240,000 cells, one thread a cell), bit for bit at
+   4 iterations with two launches byte-identical, and times each (P3 at
+   20,000 iterations and at 1 and 16, each run byte for byte with the
+   sequential entry point at its own iterations and timed beside it); the
+   bounds, and the PyTorch call of the fetch and the two table reads,
+   timed beside; with K4's batch time below, raygen's share of it;
 4. K4 against its plain version (the wavefront loop with the plain
    sweeps): at 96x54, depth 8, 2 batches fused (rays within 0.5%,
    per-sample channel means within 1e-3, at most 5% of pixels above 1e-4)
@@ -130,7 +132,9 @@ printing a result.  No path runs at a cut depth.  Phases:
    version (and two launches byte-identical) on the small frames of
    image_scenes.form_checks (a 640x320 texel-id image; k=2), and earth's
    full batch bit for bit with the plain version (both timed; the plain
-   version run again counts the image hits of the bound); then K4's
+   version run again counts the image hits of the bound; its lanes busy
+   and phase cycles from the measuring build), and render_all's first
+   chunk of earth (12 batches, one launch) the same way; then K4's
    eighteen clustered sphere forms, each bit for bit with its plain
    (dense) version (and two launches byte-identical, the clustered
    launches counted) on the small docs of stress_scenes.
@@ -161,8 +165,9 @@ printing a result.  No path runs at a cut depth.  Phases:
    earth and both stress scenes (the wavefront's, or the plain version's
    where that batch is rendered anyway), the share of a warp's lane slots
    that trace a bounce under per-sample reconvergence and under per-lane
-   regeneration (smoke_lib.warp_tail, warp_regen); on final-one-weekend
-   and the light scenes K4's own share, from its measuring build
+   regeneration (smoke_lib.warp_tail, warp_regen); on final-one-weekend,
+   the light scenes, perlin-spheres and earth K4's own share, from its
+   measuring build
    (csrc/megakernel.cu under K4_MEASURE), whose sums must be the normal
    build's byte for byte and whose busy lanes must add up to the bounces
    traced, with the warps' cycles by phase (raygen, closest hit,
@@ -1252,6 +1257,7 @@ def _reset_counts():
     megakernel.SPHERE_CLUSTER_LAUNCHES = 0
     probe_ops.LAUNCHES = dict.fromkeys(probe_ops.PROBES, 0)
     probe_trig.LAUNCHES = micro_raygen.LAUNCHES = 0
+    micro_raygen.SPLIT_LAUNCHES = 0
 
 
 def _mrays(per_batch):
@@ -1968,6 +1974,8 @@ def main() -> int:
     if work["rays"] != image_rays:
         raise AssertionError("earth: the counted rays differ")
     lanes_busy["earth"] = _warp_models("earth", work["lengths"], card)
+    lanes_busy["earth"]["measured"] = _measured_busy(
+        "earth", args, kw, lanes_busy["earth"], card)
     image_bound = _image_bound(earth_full.static, earth_full.scene, args[2],
                                work, *EARTH_SIZE)
     print(f"fused kernel (image form) time on earth at 512x512, 4 spp, depth "
@@ -1979,6 +1987,28 @@ def main() -> int:
           f"({work['image_hits'] / work['rays']:.4f} a bounce); bound (an "
           f"estimate) {image_bound[0]:.5f} ms by {image_bound[1]} "
           f"({image_bound[0] / image_ms:.4f} of it) ({card})")
+    # render_all's first chunk of earth (batches 0-11, one launch), bit for
+    # bit with the plain version, timed, and its bound from its own work.
+    err_chunk, args, kw, chunk_rays, chunk_plain_s = _compare_fused(
+        f"earth 512x512 4 spp depth 50 k={CHUNK_BATCHES}", earth_full,
+        CHUNK_BATCHES, 0.0, None, card, bitwise_required=True)
+    image_err = max(image_err, err_chunk)
+    image_chunk_ms = median_ms(
+        lambda: megakernel.render_tile_mega(*args, **kw), 5)
+    work = _plain_work(args, kw)
+    if work["rays"] != chunk_rays:
+        raise AssertionError("earth's chunk: the counted rays differ")
+    image_chunk_bound = _image_bound(earth_full.static, earth_full.scene,
+                                     args[2], work, *EARTH_SIZE)
+    print(f"fused kernel (image form) time on earth's chunk of "
+          f"{CHUNK_BATCHES} batches (render_all's first launch): kernel "
+          f"{image_chunk_ms:.3f} ms (median of 5, CUDA events), "
+          f"{image_chunk_ms / CHUNK_BATCHES:.4f} ms a batch against the "
+          f"batch's {image_ms:.4f}; plain PyTorch {chunk_plain_s:.2f} s; "
+          f"{work['rays']} bounces, {work['image_hits']} image hits; bound "
+          f"(an estimate) {image_chunk_bound[0]:.5f} ms by "
+          f"{image_chunk_bound[1]} ({image_chunk_bound[0] / image_chunk_ms:.4f}"
+          f" of it) ({card})")
     del earth_full, args, kw, sums
 
     # -- 4h. K4's clustered sphere forms vs plain, and the stress scenes ----
@@ -2803,6 +2833,13 @@ def main() -> int:
         "ms": image_ms, "plain_ms": image_plain_s * 1e3,
         "bound_ms": image_bound[0], "bound_by": image_bound[1],
         "library_ms": None,
+        # render_all's first chunk (12 batches in one launch), and the
+        # measuring build's phase cycles on the batch.
+        "chunk_batches": CHUNK_BATCHES, "chunk_ms": image_chunk_ms,
+        "chunk_plain_ms": chunk_plain_s * 1e3,
+        "chunk_bound_ms": image_chunk_bound[0],
+        "chunk_bound_by": image_chunk_bound[1],
+        "phases": lanes_busy["earth"]["measured"]["phases"],
     }, {
         # stress-4x's and stress-16k's full batches (K4's clustered form),
         # the slice's main paths.

@@ -145,20 +145,25 @@
 // matrix at the batch's time (slots 32:44) and its object-space centre and
 // radius (44:48), so the normal is engine/wavefront.py reconstruct_hit's
 // world-to-object branch: the hit point moved to object space, (p_obj - c) /
-// r, taken to world space by the transposed matrix.  Where the slot a hit
-// reads is in image mode (after the checker, as for noise), the thread
-// computes the UV: a sphere's from its unit object normal, v = acosf(-n.y) /
-// pi and u = atan2f(n.z, -n.x) / 2 pi floor-mod 1 (the object normal is
-// computed again there from the hit point, by the same operations, so it is
-// not held across the draws), a triangle's as the barycentric lerp of uv0,
+// r, taken to world space by the transposed matrix (the matrix read once,
+// the object normal kept for the UV).  Where the slot a hit reads is in
+// image mode (after the checker, as for noise), the thread computes the UV
+// right after the hit's reconstruction, before the hit's draws: a sphere's
+// from its unit object normal, v = acosf(-n.y) / pi and u = atan2f(n.z,
+// -n.x) / 2 pi floor-mod 1, a triangle's as the barycentric lerp of uv0,
 // uv1 - uv0, uv2 - uv0 in fat-row slots 58:64; then the texel of
 // sample_image_nearest, floor((u floor-mod 1) * w) clamped to [0, w - 1] (and
-// the same in v), read as one 32-bit word (r | g << 8 | b << 16) through the
-// read-only cache from the packed atlas (engine/arrays.pack_atlas: the images
-// padded to the largest, row stride its width), each byte decoded by the
-// 256-entry sRGB table staged in shared memory after the other tables.  The
-// TPU kernel shades images as 1 and multiplies each sample by its primary
-// hit's texel afterwards (its item mode and _texel_factor), which is exact
+// the same in v; the floor-mod as x - floorf(x), which gives every float
+// the texel of torch.remainder's fmodf), read as one 32-bit word (r | g <<
+// 8 | b << 16) through the read-only cache from the packed atlas
+// (engine/arrays.pack_atlas: the images padded to the largest, row stride
+// its width).  The draws and the material's scatter do not depend on it,
+// so the read of an atlas larger than L2 (earth's 5400x2700 words are 58
+// MB) is in flight across them; each byte is decoded where the shading
+// takes the texel, by the 256-entry sRGB table staged in shared memory
+// after the other tables.  The TPU kernel shades images as 1 and
+// multiplies each sample by its primary hit's texel afterwards (its item
+// mode and _texel_factor), which is exact
 // only for one convex sphere seen from outside: this kernel samples the
 // image at every hit, as the wavefront does.  An animated image scene
 // renders with the static form, one launch per batch, because the
@@ -389,17 +394,13 @@ __device__ __forceinline__ float mod289(float x) { return x - floorf(x * kInv289
 
 __device__ __forceinline__ float permute(float x) { return mod289(((x * 34.0f) + 10.0f) * x); }
 
-// torch.remainder(x, 1.0): fmod, plus the divisor where the result's sign
-// differs from the divisor's
-__device__ __forceinline__ float rem1(float x) {
-  const float m = fmodf(x, 1.0f);
-  return m < 0.0f ? m + 1.0f : m;
-}
-
-// torch.remainder(x, 1.0) as the gradient takes it: x - floor(x) is rem1's
-// bits for x >= 0 (every argument a hash in [0, 288] gives), and elsewhere
-// differs at most in the sign of a zero, which no sum of the turbulence
-// keeps (its accumulator starts at +0)
+// torch.remainder(x, 1.0) as the gradient and the image UVs take it.
+// torch.remainder adds 1 to fmodf(x, 1) where that is negative; fmodf is
+// exact, so both that sum and x - floor(x) are the one rounding of x -
+// floor(x) and give the same bits, but for the sign of a zero (fmodf keeps
+// -0 where x is a negative integer): no sum of the turbulence keeps it (its
+// accumulator starts at +0), and no texel index (floor(+-0 * w) is 0;
+// tests/test_torch_image_fract.py checks the indices).
 __device__ __forceinline__ float fract(float x) { return x - floorf(x); }
 
 __device__ __forceinline__ float fade(float t) {
@@ -496,27 +497,24 @@ __device__ __forceinline__ float turbulence(V3 p, const NoiseTables& nt) {
 
 // ---- images: the sphere's world-to-object branch, its UV, the sampler ----
 
-// engine/wavefront.py reconstruct_hit's object normal (p_obj - c) / r of a
+// engine/wavefront.py reconstruct_hit's world-to-object branch for a
 // sphere whose fat row holds its world-to-object matrix (slots 32:44) and
-// its object-space centre and radius (44:48), at world point p
-__device__ __forceinline__ V3 object_normal(const float* __restrict__ row, V3 p) {
+// its object-space centre and radius (44:48), at world point p: the object
+// normal on = (p_obj - c) / r and the world normal, on taken back by the
+// transposed matrix (ops/vec3.py mat34_apply_transposed_vec) and
+// normalised.  The matrix is read once; the UV takes on too.
+__device__ __forceinline__ void sphere_normals(const float* __restrict__ row, V3 p, V3& on,
+                                               V3& n) {
   float m[12];
 #pragma unroll
   for (int k = 0; k < 12; ++k) m[k] = __ldg(row + 32 + k);
   const V3 po = apply_point(m, p);
   const float r = __ldg(row + 47);
   const float inv_r = 1.0f / (r == 0.0f ? 1.0f : r);
-  return {(po.x - __ldg(row + 44)) * inv_r, (po.y - __ldg(row + 45)) * inv_r,
-          (po.z - __ldg(row + 46)) * inv_r};
-}
-
-// ops/vec3.py mat34_apply_transposed_vec: v M of the row's 3x4 matrix
-__device__ __forceinline__ V3 apply_transposed(const float* __restrict__ row, V3 v) {
-  float m[12];
-#pragma unroll
-  for (int k = 0; k < 12; ++k) m[k] = __ldg(row + 32 + k);
-  return {m[0] * v.x + m[4] * v.y + m[8] * v.z, m[1] * v.x + m[5] * v.y + m[9] * v.z,
-          m[2] * v.x + m[6] * v.y + m[10] * v.z};
+  on = {(po.x - __ldg(row + 44)) * inv_r, (po.y - __ldg(row + 45)) * inv_r,
+        (po.z - __ldg(row + 46)) * inv_r};
+  n = normalize(v3(m[0] * on.x + m[4] * on.y + m[8] * on.z, m[1] * on.x + m[5] * on.y + m[9] * on.z,
+                   m[2] * on.x + m[6] * on.y + m[10] * on.z));
 }
 
 // The packed image atlas (engine/arrays.pack_atlas) and what samples it.
@@ -527,26 +525,26 @@ struct Atlas {
   const float* lut;               // the sRGB table, in shared memory
 };
 
-// textures.sample_image_nearest of image `aux` (clipped to the atlas) at (u, v)
-__device__ __forceinline__ V3 sample_image(const Atlas& at, float aux, float u, float v) {
+// textures.sample_image_nearest of image `aux` (clipped to the atlas) at (u,
+// v), up to the sRGB decode: the texel's packed word
+__device__ __forceinline__ uint32_t texel_word(const Atlas& at, float aux, float u, float v) {
   const int idx = min(max(static_cast<int>(aux), 0), at.n - 1);
   const int w = __ldg(at.wh + 2 * idx);
   const int h = __ldg(at.wh + 2 * idx + 1);
-  const int x = min(max(static_cast<int>(floorf(rem1(u) * static_cast<float>(w))), 0), w - 1);
-  const int y = min(max(static_cast<int>(floorf(rem1(v) * static_cast<float>(h))), 0), h - 1);
-  const uint32_t word = static_cast<uint32_t>(
+  const int x = min(max(static_cast<int>(floorf(fract(u) * static_cast<float>(w))), 0), w - 1);
+  const int y = min(max(static_cast<int>(floorf(fract(v) * static_cast<float>(h))), 0), h - 1);
+  return static_cast<uint32_t>(
       __ldg(at.words + (static_cast<size_t>(idx) * at.h + y) * at.w + x));
+}
+
+// ... and its decode by the sRGB table
+__device__ __forceinline__ V3 decode_texel(const Atlas& at, uint32_t word) {
   return {at.lut[word & 0xffu], at.lut[(word >> 8) & 0xffu], at.lut[(word >> 16) & 0xffu]};
 }
 
-// shading._eval_property in the noise and image forms: the slot (cols
-// base:base+3, its mode at mode, its aux after it), or the row's checker's
-// even or odd slot where the mode says so; a slot in noise mode is the
-// marble (its turbulence from the lattice tables nt), one in image mode the
-// texel at the hit's UV (a sphere's from its object normal at p, a
-// triangle's the lerp of fat-row slots 58:64).  The measuring build's
-// eval_slot also sets took_noise where the slot takes a turbulence; the
-// normal build's has no such parameter, so its code is as without it.
+// The measuring build's eval_slot and slot_value also set took_noise where
+// the slot takes a turbulence; the normal build's have no such parameter,
+// so their code is as without it.
 #ifdef K4_MEASURE
 #define K4_MEASURE_TOOK_PARAM , bool& took_noise
 #define K4_MEASURE_TOOK_ARG , m_took
@@ -556,10 +554,14 @@ __device__ __forceinline__ V3 sample_image(const Atlas& at, float aux, float u, 
 #define K4_MEASURE_TOOK_ARG
 #define K4_MEASURE_TOOK() static_cast<void>(0)
 #endif
-template <bool kNoise, bool kImage>
+
+// shading._eval_property in the noise forms without images: the slot (cols
+// base:base+3, its mode at mode, its aux after it), or the row's checker's
+// even or odd slot where the mode says so; a slot in noise mode is the
+// marble (its turbulence from the lattice tables nt).
+template <bool kNoise>
 __device__ __forceinline__ V3 eval_slot(const float* __restrict__ row, int base, int mode,
-                                        bool has_checker, V3 p, bool is_sphere, float bu,
-                                        float bv, const Atlas& atlas,
+                                        bool has_checker, V3 p,
                                         const NoiseTables& nt K4_MEASURE_TOOK_PARAM) {
   float m = __ldg(row + mode);
   int aux = mode + 1;
@@ -576,21 +578,75 @@ __device__ __forceinline__ V3 eval_slot(const float* __restrict__ row, int base,
       return {v, v, v};
     }
   }
-  if constexpr (kImage) {
-    if (m == kModeImage) {
-      float u, v;
-      if (is_sphere) {
-        const V3 nn = normalize(object_normal(row, p));
-        v = acosf(fminf(fmaxf(-nn.y, -1.0f), 1.0f)) * (1.0f / kPi);
-        u = rem1(atan2f(nn.z, -nn.x) * (1.0f / kTwoPi));
-      } else {
-        u = __ldg(row + 58) + bu * __ldg(row + 60) + bv * __ldg(row + 62);
-        v = __ldg(row + 59) + bu * __ldg(row + 61) + bv * __ldg(row + 63);
-      }
-      return sample_image(atlas, __ldg(row + aux), u, v);
+  return load3(row, base);
+}
+
+// The image forms' slot read, in two parts around the draws.  read_slot,
+// right after the hit is reconstructed: the slot the hit reads (the albedo
+// of a lambertian or metal, or a front-facing light's emission, through the
+// row's checker where its mode says so), and where that slot is in image
+// mode the texel's word, fetched then (at the UV of the sphere's object
+// normal on, or the lerp of a triangle's fat-row slots 58:64) so that the
+// read of the atlas, larger than L2, overlaps the draws and the material's
+// scatter.  slot_value, where the hit's shading needs it: the texel
+// decoded, the marble (with kNoise) or the constant slot.
+struct SlotRead {
+  bool wants;     // the hit reads a slot
+  bool albedo;    // ... its albedo, else its emission
+  int base;       // the slot's columns, after the checker
+  int aux;        // its aux column
+  float mode;     // its mode
+  uint32_t word;  // image mode: the texel's packed word
+};
+
+__device__ __forceinline__ SlotRead read_slot(const float* __restrict__ row, int mat, bool front,
+                                              bool has_emissive, bool has_checker, V3 p,
+                                              bool is_sphere, V3 on, float bu, float bv,
+                                              const Atlas& atlas) {
+  SlotRead s;
+  s.albedo = mat == kLambertian || mat == kMetal;
+  s.wants = s.albedo || (has_emissive && mat == kDiffuseLight && front);
+  s.base = s.albedo ? 2 : 8;
+  s.aux = s.albedo ? 12 : 16;
+  s.mode = 0.0f;
+  s.word = 0u;
+  if (!s.wants) return s;
+  s.mode = __ldg(row + s.aux - 1);
+  if (has_checker && s.mode == kModeChecker) {
+    const bool even = checker_is_even(__ldg(row + 17), p);
+    s.base = even ? 18 : 21;
+    s.aux = even ? 25 : 27;
+    s.mode = __ldg(row + s.aux - 1);
+  }
+  if (s.mode == kModeImage) {
+    float u, v;
+    if (is_sphere) {
+      const V3 nn = normalize(on);
+      v = acosf(fminf(fmaxf(-nn.y, -1.0f), 1.0f)) * (1.0f / kPi);
+      u = fract(atan2f(nn.z, -nn.x) * (1.0f / kTwoPi));
+    } else {
+      u = __ldg(row + 58) + bu * __ldg(row + 60) + bv * __ldg(row + 62);
+      v = __ldg(row + 59) + bu * __ldg(row + 61) + bv * __ldg(row + 63);
+    }
+    s.word = texel_word(atlas, __ldg(row + s.aux), u, v);
+  }
+  return s;
+}
+
+template <bool kNoise>
+__device__ __forceinline__ V3 slot_value(const float* __restrict__ row, const SlotRead& s, V3 p,
+                                         const Atlas& atlas,
+                                         const NoiseTables& nt K4_MEASURE_TOOK_PARAM) {
+  if constexpr (kNoise) {
+    if (s.mode == kModeNoise) {
+      K4_MEASURE_TOOK();
+      const float v =
+          0.5f * (1.0f + sinf(__ldg(row + s.aux) * p.z + 10.0f * turbulence(p, nt)));
+      return {v, v, v};
     }
   }
-  return load3(row, base);
+  if (s.mode == kModeImage) return decode_texel(atlas, s.word);
+  return load3(row, s.base);
 }
 
 // Sphere j of the table staged in shared memory, at the sample's time in
@@ -873,10 +929,11 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
       // normal.
       const bool is_sphere = !kTris || best_id < s_pad;
       V3 n;
+      V3 on = {0.0f, 0.0f, 0.0f};  // kImage: a sphere's object normal
       if (is_sphere) {
         p = {o.x + d.x * best_t, o.y + d.y * best_t, o.z + d.z * best_t};
         if constexpr (kImage) {
-          n = normalize(apply_transposed(row, object_normal(row, p)));
+          sphere_normals(row, p, on, n);
         } else {
           V3 c = load3(row, 44);
           if constexpr (kAnim) {  // the centre at the sample's time, as swept
@@ -898,6 +955,11 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
 
       // shading.scatter_and_emit_v3 (fat rows); the draws are unconditional.
       const int mat = static_cast<int>(__ldg(row + 0));
+      SlotRead slot;  // kImage: the slot, and its texel fetched before the draws
+      if constexpr (kImage) {
+        slot = read_slot(row, mat, front, has_emissive, has_checker, p, is_sphere, on, bu, bv,
+                         atlas);
+      }
       const V3 fuzz_unit = random_unit(state);
       const float diel_u = random_float(state);
       is_lamb = mat == kLambertian;
@@ -906,15 +968,23 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
       const bool is_light = mat == kDiffuseLight;
 
       V3 emit = {0.0f, 0.0f, 0.0f};
-      if constexpr (kNoise || kImage) {
+      if constexpr (kImage) {
+        if (slot.wants) {
+          const V3 v = slot_value<kNoise>(row, slot, p, atlas, noise_tables K4_MEASURE_TOOK_ARG);
+          K4_MEASURE_NOISE();
+          if (slot.albedo) {
+            attenuation = v;
+          } else {
+            emit = v;
+          }
+        }
+      } else if constexpr (kNoise) {
         // The one slot this hit reads, evaluated once: one call site
-        // holds the turbulence and the texel read.
+        // holds the turbulence.
         const bool reads_albedo = is_lamb || is_metal;
         if (reads_albedo || (has_emissive && is_light && front)) {
-          const V3 v = eval_slot<kNoise, kImage>(row, reads_albedo ? 2 : 8,
-                                                 reads_albedo ? 11 : 15, has_checker, p,
-                                                 is_sphere, bu, bv, atlas,
-                                                 noise_tables K4_MEASURE_TOOK_ARG);
+          const V3 v = eval_slot<kNoise>(row, reads_albedo ? 2 : 8, reads_albedo ? 11 : 15,
+                                         has_checker, p, noise_tables K4_MEASURE_TOOK_ARG);
           K4_MEASURE_NOISE();
           if (reads_albedo) {
             attenuation = v;

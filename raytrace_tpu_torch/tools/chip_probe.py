@@ -89,15 +89,21 @@ not with ``-m``, so that the package comes from TREE.
   tri-stress-15360 and earth (forms without noise); steps perlin-spheres'
   batch through ``Renderer`` with defaults; ends with one JSON line.
   TREE = the parent's ``git archive`` gives the before of the same card.
-- ``image``: builds the fused kernel and prints nvcc's register report;
-  holds each of its image forms against the plain version on the small
-  frames of ``tools/image_scenes.form_checks`` (a 640x320 texel-id image;
-  2 batches in one launch; bit for bit or not, two launches
-  byte-identical, the image launches counted), holds earth's full batch
-  (512x512, 4 spp, depth 50, its 5400x2700 image) against the plain
-  version (bit for bit or not, texel ids of the primary hits, the plain
-  version's seconds) and times it (kernel median of 3), steps that batch
-  through ``Renderer`` with defaults, and one batch of earth-motion-blur.
+- ``image``: builds the fused kernel and its measuring build and prints
+  nvcc's register report; holds each of its 16 image forms against the
+  plain version on its small doc (``tools/image_scenes.form_checks``, a
+  640x320 texel-id image, and the image docs of
+  ``tools/stress_scenes.cluster_form_checks``; 2 batches in one launch;
+  bit for bit or not, two launches byte-identical) and prints its
+  resident blocks a multiprocessor; holds earth's full batch (512x512, 4
+  spp, depth 50, its 5400x2700 image) and ``render_all``'s two chunks of
+  it (batches 0-11 and 12-15) against the plain version (bit for bit or
+  not, the plain version's seconds) and times them (kernel medians of 21
+  and 9); runs the batch through the measuring build (busy lanes, phase
+  cycles); holds earth-motion-blur's first per-batch launch against the
+  plain version and times it (median of 21); steps earth's batch through
+  ``Renderer`` with defaults; ends with one JSON line.  TREE = the
+  parent's ``git archive`` gives the before of the same card.
 - ``spheres``: builds the fused kernel and prints each K4 form's
   registers and spills; with a sphere tree (since the tree walk), each
   clustered form's resident blocks a multiprocessor at each staging cap
@@ -668,6 +674,7 @@ def noise() -> None:
 
 
 def image() -> None:
+    import concurrent.futures
     import tempfile
 
     import torch
@@ -676,66 +683,96 @@ def image() -> None:
     from raytrace_tpu_torch.engine import Renderer
     from raytrace_tpu_torch.ops import _build, megakernel, sphere_sweep
     from raytrace_tpu_torch.tools import image_scenes as ims
+    from raytrace_tpu_torch.tools import stress_scenes
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip())
+    lib = _change_smoke_lib()
+    card = _card()
+    print(card)
     print(sys.version.split()[0], torch.__version__, torch.version.cuda)
     t0 = time.perf_counter()
-    megakernel.library()
-    print("build", time.perf_counter() - t0)
-    print(_build.library_path("megakernel").with_suffix(".log").read_text())
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        list(pool.map(lambda load: load(), (megakernel.library,
+                                            megakernel.measure_library)))
+    log = _build.library_path("megakernel").with_suffix(".log").read_text()
+    print(log)
     dev = torch.device("cuda:0")
+    out = {"card": card, "build_s": time.perf_counter() - t0,
+           "forms": {f: [regs, spill]
+                     for f, regs, spill in lib.ptxas_forms(log)
+                     if "+image" in f},
+           "bitwise": {}, "occupancy": {}, "ms": {}, "plain_s": {}}
     tmp = tempfile.mkdtemp()
     png = ims.texel_id_png(str(Path(tmp) / "small.png"), 640, 320)
-    for form, (doc, w, depth) in ims.form_checks(png).items():
+    docs = {f + "+image": v for f, v in ims.form_checks(png).items()}
+    docs.update({f + "+clusters": v for f, v in
+                 stress_scenes.cluster_form_checks(png).items()
+                 if "image" in f})
+    for form, (doc, w, depth) in docs.items():
         r = Renderer(_doc_scene(doc, w, depth, 2), device=dev)
-        args = (r.static, r.scene, r._geometry(0), r.camera, 0, 2)
-        kw = dict(use_dof=r.use_dof, times=r.batch_times_dev)
-        before = megakernel.IMAGE_LAUNCHES
-        s1, t1 = megakernel.render_tile_mega(*args, **kw)
-        s2, t2 = megakernel.render_tile_mega(*args, **kw)
-        ref, rt = megakernel.megakernel_reference(*args, **kw)
-        torch.cuda.synchronize()
-        print(form, r.path, r.static.width, r.static.height, "depth", depth,
-              "repeat identical", torch.equal(s1, s2) and torch.equal(t1, t2),
-              "bitwise", torch.equal(s1, ref), torch.equal(t1, rt),
-              "maxdiff", (s1 - ref).abs().max().item(), "pixels > 1e-4",
-              ((s1 - ref).abs().amax(-1) > 1e-4).double().mean().item(),
-              "rays", int(t1.sum()), int(rt.sum()), "IMAGE_LAUNCHES +",
-              megakernel.IMAGE_LAUNCHES - before, "means",
-              s1.mean((0, 1)).tolist())
+        if _form_name(r) != form:
+            raise AssertionError(f"{form}: the doc takes {_form_name(r)}")
+        _held(r, 2, f"{form} small", out["bitwise"])
+        out["occupancy"][form] = _form_occupancy(r, False)
+        print(form, "blocks a multiprocessor, shared memory bytes",
+              out["occupancy"][form])
 
+    # earth: its full batch and render_all's two chunks (12 and 4
+    # batches), held to the plain version and timed; its batch through the
+    # measuring build; earth-motion-blur's per-batch launch.
     earth_json, mb_json = ims.write_earth_scenes(tmp)
     r = Renderer(cli.load_scene(earth_json, ims.EARTH_WIDTH), device=dev)
-    args = (r.static, r.scene, r._geometry(0), r.camera, 0, 1)
     kw = dict(use_dof=r.use_dof, times=r.batch_times_dev)
-    sums, traced = megakernel.render_tile_mega(*args, **kw)
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    ref, rt = megakernel.megakernel_reference(*args, **kw)
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
-    print("earth full batch", r.static.width, r.static.height,
-          "rays", int(traced.sum()), "kernel ms",
-          _med(lambda: megakernel.render_tile_mega(*args, **kw), 3),
-          "bitwise", torch.equal(sums, ref), torch.equal(traced, rt),
-          "maxdiff", (sums - ref).abs().max().item(), "pixels > 1e-4",
-          ((sums - ref).abs().amax(-1) > 1e-4).double().mean().item(),
-          "plain s", plain_s, "plain peak GiB",
-          torch.cuda.max_memory_allocated(dev) / 2 ** 30)
-    del sums, traced, ref, rt
+    geom = r._geometry(0)
+    for label, b0, k in (("batch", 0, 1), ("chunk12", 0, 12),
+                         ("chunk4", 12, 4)):
+        args = (r.static, r.scene, geom, r.camera, b0, k)
+        s1, t1 = megakernel.render_tile_mega(*args, **kw)
+        s2, t2 = megakernel.render_tile_mega(*args, **kw)
+        t0 = time.perf_counter()
+        ref, rt = megakernel.megakernel_reference(*args, **kw)
+        torch.cuda.synchronize()
+        out["plain_s"][label] = time.perf_counter() - t0
+        out["bitwise"][f"earth {label}"] = (
+            torch.equal(s1, s2) and torch.equal(t1, t2)
+            and torch.equal(s1, ref) and torch.equal(t1, rt))
+        out["ms"][f"earth {label}"] = _med(
+            lambda: megakernel.render_tile_mega(*args, **kw),
+            21 if k == 1 else 9)
+        print("earth", label, "batches", b0, "+", k, "rays", int(t1.sum()),
+              "kernel ms", out["ms"][f"earth {label}"], "bit for bit, "
+              "repeat identical", out["bitwise"][f"earth {label}"],
+              "plain s", out["plain_s"][label], card)
+        del s1, s2, t1, t2, ref, rt
+    args = (r.static, r.scene, geom, r.camera, 0, 1)
+    out["measured"] = lib.measure_busy(args, kw)
+    print("earth measuring build", out["measured"])
+    out["occupancy"]["earth"] = megakernel.occupancy(
+        r.static, r.scene, geom, r.camera, use_dof=r.use_dof,
+        times=r.batch_times_dev)
+    mb = Renderer(cli.load_scene(mb_json, ims.EARTH_WIDTH), device=dev)
+    if mb.path != "fused_per_batch":
+        raise AssertionError(f"earth-motion-blur takes {mb.path}")
+    mb_args = (mb.static, mb.scene, mb._geometry(0), mb.camera, 0, 1)
+    mb_kw = dict(use_dof=mb.use_dof, times=mb.batch_times_dev)
+    s1, t1 = megakernel.render_tile_mega(*mb_args, **mb_kw)
+    ref, rt = megakernel.megakernel_reference(*mb_args, **mb_kw)
+    out["bitwise"]["earth-motion-blur batch"] = (torch.equal(s1, ref)
+                                                 and torch.equal(t1, rt))
+    out["ms"]["earth-motion-blur batch"] = _med(
+        lambda: megakernel.render_tile_mega(*mb_args, **mb_kw), 21)
+    print("earth-motion-blur batch kernel ms",
+          out["ms"]["earth-motion-blur batch"], "bit for bit",
+          out["bitwise"]["earth-motion-blur batch"])
+
     before = (megakernel.IMAGE_LAUNCHES, sphere_sweep.LAUNCHES)
     r = Renderer(cli.load_scene(earth_json, ims.EARTH_WIDTH), device=dev)
     r.render_next_batch()
+    out["earth_mrays_stepped"] = r.stats.mrays_per_sec
     print("earth main path", r.path, "Mrays/s", r.stats.mrays_per_sec,
           "rays", r.stats.rays_traced, "IMAGE_LAUNCHES +",
           megakernel.IMAGE_LAUNCHES - before[0], "K1 +",
           sphere_sweep.LAUNCHES - before[1], "means", r.image().mean((0, 1)))
-    r = Renderer(cli.load_scene(mb_json, ims.EARTH_WIDTH), device=dev)
-    r.render_next_batch()
-    print("earth-motion-blur", r.path, "Mrays/s", r.stats.mrays_per_sec,
-          "means", r.image().mean((0, 1)))
+    print(json.dumps(out))
 
 
 def _cluster_times(args, kw, dense):

@@ -55,7 +55,8 @@ FLOPS_PER_SPHERE_BOX = 33
 # Registers and spill-store bytes of K4's 36 forms (nvcc -Xptxas -v) as
 # they compile with the loop of steps and per-lane regeneration and, in
 # the clustered forms, the sphere tree's walk and, in the noise forms, the
-# lattice tables (PERF.md §6; the forms that moved are listed in
+# lattice tables, and in the image forms the texel fetched before the
+# hit's draws (PERF.md §6; the forms that moved are listed in
 # CHANGES.md): a change to the kernel that moves a
 # form must re-pin it and say so.  The dense forms without images, the
 # dense image forms, and the clustered twins.
@@ -67,21 +68,21 @@ FORMS_BEFORE = {"static": (64, 0), "anim": (64, 0), "tris": (72, 0),
 IMAGE_FORMS_BEFORE = {"static+image": (64, 0), "tris+image": (72, 0),
                       "lights+image": (64, 0), "tris+lights+image": (69, 0),
                       "static+noise+image": (80, 0),
-                      "tris+noise+image": (80, 4),
+                      "tris+noise+image": (80, 0),
                       "lights+noise+image": (80, 0),
-                      "tris+lights+noise+image": (80, 4)}
+                      "tris+lights+noise+image": (80, 0)}
 CLUSTER_FORMS_BEFORE = {
     "static+clusters": (64, 0), "anim+clusters": (64, 0),
     "tris+clusters": (72, 0), "lights+clusters": (64, 0),
     "tris+lights+clusters": (72, 0), "static+image+clusters": (64, 0),
-    "tris+image+clusters": (72, 0), "lights+image+clusters": (64, 4),
+    "tris+image+clusters": (72, 0), "lights+image+clusters": (64, 0),
     "tris+lights+image+clusters": (72, 0), "static+noise+clusters": (72, 0),
     "anim+noise+clusters": (80, 4), "tris+noise+clusters": (72, 0),
     "lights+noise+clusters": (80, 4), "tris+lights+noise+clusters": (80, 4),
     "static+noise+image+clusters": (80, 0),
-    "tris+noise+image+clusters": (72, 0),
+    "tris+noise+image+clusters": (80, 0),
     "lights+noise+image+clusters": (80, 0),
-    "tris+lights+noise+image+clusters": (72, 0)}
+    "tris+lights+noise+image+clusters": (80, 0)}
 # The noise forms' partial-warp frames: each noise form's small doc at an
 # odd width, so that the frame's last warp has lanes past the image, at
 # depth 1 (every sample ends after one bounce, so lanes finish at
@@ -593,23 +594,26 @@ def dev_probes(dev, card):
     raises where one disagrees (P1 bit for bit, sin+cos and pow-exp-log
     within probe_ops.TRANSCENDENTAL_ATOL; P2 at (8, 128) and 2^24 points
     within probe_trig.ULP_TOL ulps; P3's three variants at shapes (a) and
-    (b) bit for bit at 4 iterations, two launches byte-identical) and
-    times both (CUDA-event medians of 5; P3 at (a) with 20,000 iterations
-    and at (b) with 1 and 16).  The launches are counted from 0 across
-    the mains, and every probe kernel must launch there.  Adds what the
-    mains do not give: each least time the card allows and the PyTorch
-    call where one computes a P1 probe's function.  Returns the three
-    entries of the kernels line and P3's base variant at (b) with one
-    iteration."""
+    (b) bit for bit at 4 iterations, two launches byte-identical, and
+    each timed run byte for byte with the sequential entry point at its
+    own iterations) and times both (CUDA-event medians of 5; P3 at (a)
+    with 20,000 iterations on its split kernel and at (b) with 1 and 16
+    one thread a cell, each beside the sequential entry point).  The
+    launches are counted from 0 across the mains, and every probe kernel
+    must launch there (P3's split kernel too).  Adds what the mains do
+    not give: each least time the card allows and the PyTorch call where
+    one computes a P1 probe's function.  Returns the three entries of the
+    kernels line and P3's base variant at (b) with one iteration."""
     from raytrace_tpu_torch.tools_dev import micro_raygen as mr
     from raytrace_tpu_torch.tools_dev import probe_ops, probe_trig
 
     probe_ops.LAUNCHES = dict.fromkeys(probe_ops.PROBES, 0)
-    probe_trig.LAUNCHES = mr.LAUNCHES = 0
+    probe_trig.LAUNCHES = mr.LAUNCHES = mr.SPLIT_LAUNCHES = 0
     t0 = time.perf_counter()
     p1, p2, p3 = probe_ops.main([]), probe_trig.main([]), mr.main([])
     launches = dict(probe_ops.LAUNCHES, probe_trig=probe_trig.LAUNCHES,
-                    micro_raygen=mr.LAUNCHES)
+                    micro_raygen=mr.LAUNCHES,
+                    micro_raygen_split=mr.SPLIT_LAUNCHES)
     idle = [name for name, count in launches.items() if count <= 0]
     if idle:
         raise AssertionError(f"dev probes never launched: {idle}")
@@ -674,9 +678,13 @@ def dev_probes(dev, card):
                 fp * cells * iters, (pixels + cells + mr.N_PARAMS) * 4,
                 (iops * iters + 2) * cells)
             print(f"P3 {variant} {run}: {cells} cells x {iters} iterations"
-                  f", {res['ms']:.4f} ms; bound {bound[0]:.4f} ms by "
-                  f"{bound[1]} ({bound[0] / res['ms']:.3f} of it) ({card})")
-    b1 = p3["base"]["b1"]
+                  f", {res['ms']:.4f} ms in {res['launches']} launches "
+                  f"({'split' if run == 'a' else 'a thread a cell'}), the "
+                  f"sequential loop {res['sequential_ms']:.4f} ms, byte for "
+                  f"byte {res['sequential_identical']}; bound "
+                  f"{bound[0]:.4f} ms by {bound[1]} "
+                  f"({bound[0] / res['ms']:.3f} of it) ({card})")
+    b1, a = p3["base"]["b1"], p3["base"]["a"]
     print(f"dev-probe phase in {time.perf_counter() - t0:.1f} s")
 
     entries = [{
@@ -706,7 +714,10 @@ def dev_probes(dev, card):
         "bound_by": trig["large"]["bound"][1], "library_ms": None,
     }, {
         # The base variant at shape (b), one iteration: the raygen work of
-        # one K4 batch of final-one-weekend.
+        # one K4 batch of final-one-weekend; beside it shape (a), the JAX
+        # layout at 20,000 iterations on the split kernel, and the
+        # launches at that shape's full iterations (each variant's
+        # warm-up and five timed), of the split kernel's in all.
         "name": "micro_raygen", "route": "cuda", "variant": "base",
         "source": "raytrace_tpu_torch/csrc/micro_raygen.cu",
         "replaces": "tools_dev/micro_raygen.py:89",
@@ -714,6 +725,12 @@ def dev_probes(dev, card):
         "max_abs_err": b1["max_abs_err"], "ms": b1["ms"],
         "plain_ms": b1["plain_ms"], "bound_ms": b1["bound"][0],
         "bound_by": b1["bound"][1], "library_ms": None,
+        "sequential_ms": b1["sequential_ms"],
+        "a_ms": a["ms"], "a_bound_ms": a["bound"][0],
+        "a_bound_by": a["bound"][1], "a_sequential_ms": a["sequential_ms"],
+        "a_launches": sum(r["a"]["launches"] for r in p3.values()),
+        "split_launches": launches["micro_raygen_split"],
+        "a_ms_by_variant": {v: r["a"]["ms"] for v, r in p3.items()},
     }]
     return entries, b1
 

@@ -67,7 +67,9 @@ probes (raytrace_tpu_torch/tools_dev/, built without contraction): P1's
 ten probe kernels bit for bit with their plain versions (sin+cos and
 pow-exp-log within 2^-22), P2 within 2 ulps at (8, 128) and 2^24 points,
 P3's three variants bit for bit at 4 iterations at both shapes, two
-launches byte-identical; each module's main runs on the card.
+launches byte-identical, and byte for byte with its sequential entry
+point at 20,000 iterations at shape (a) (the split kernel) and at 1 and
+16 at shape (b); each module's main runs on the card.
 """
 
 import dataclasses
@@ -1491,6 +1493,30 @@ def test_micro_raygen_kernel_matches_plain(dev, variant, shape):
     chk = mr.check(params, pix, variant, mr.PROGRAMS if shape == "a" else 1)
     assert mr.LAUNCHES == before + 2
     assert chk["bitwise"] and chk["repeat_identical"], chk
+
+
+@pytest.mark.parametrize("run", ["a", "b1", "b16"])
+@pytest.mark.parametrize("variant", mr.VARIANTS)
+def test_micro_raygen_matches_the_sequential_loop(dev, variant, run):
+    """P3 byte for byte with its check-only sequential entry point at the
+    timed runs' own iterations: shape (a) at the full 20,000 on the split
+    kernel, shape (b) at 1 and 16 iterations one thread a cell."""
+    shape = run[0]
+    iters = mr.ITERS if shape == "a" else int(run[1:])
+    programs = mr.PROGRAMS if shape == "a" else 1
+    params = mr.camera_params(dev)
+    pix = mr.pixels(variant, shape, dev)
+    before = mr.LAUNCHES, mr.SPLIT_LAUNCHES
+    got = mr.raygen_sums(params, pix, iters, variant, programs)
+    again = mr.raygen_sums(params, pix, iters, variant, programs)
+    assert (mr.LAUNCHES, mr.SPLIT_LAUNCHES) == (
+        before[0] + 2, before[1] + (2 if shape == "a" else 0))
+    seq = mr.raygen_sums(params, pix, iters, variant, programs,
+                         sequential=True)
+    torch.cuda.synchronize()
+    assert mr.LAUNCHES == before[0] + 2
+    assert torch.equal(got, again) and torch.equal(got, seq)
+    assert torch.isfinite(got).all()
 
 
 def test_probe_mains_run_on_the_card(dev, capsys, monkeypatch):

@@ -381,8 +381,9 @@ def test_paged_wrapper_rejects_a_tree_with_an_id_table():
 
 # The twenty K4 forms without triangles, as they compile with the loop of
 # steps and per-lane regeneration and, in their clustered twins, the
-# sphere tree's walk, and in their noise forms the lattice tables
-# (re-pinned with each): the triangle walk moves none of them.
+# sphere tree's walk, in their noise forms the lattice tables and in their
+# image forms the early texel fetch (re-pinned with each): the triangle
+# walk moves none of them.
 _NO_TRIANGLE_FORMS = {
     "static": (64, 0), "anim": (64, 0), "lights": (64, 0),
     "static+noise": (80, 4), "anim+noise": (80, 0), "lights+noise": (80, 4),
@@ -390,7 +391,7 @@ _NO_TRIANGLE_FORMS = {
     "static+noise+image": (80, 0), "lights+noise+image": (80, 0),
     "static+clusters": (64, 0), "anim+clusters": (64, 0),
     "lights+clusters": (64, 0), "static+image+clusters": (64, 0),
-    "lights+image+clusters": (64, 4), "static+noise+clusters": (72, 0),
+    "lights+image+clusters": (64, 0), "static+noise+clusters": (72, 0),
     "anim+noise+clusters": (80, 4), "lights+noise+clusters": (80, 4),
     "static+noise+image+clusters": (80, 0),
     "lights+noise+image+clusters": (80, 0)}
