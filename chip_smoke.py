@@ -68,8 +68,9 @@ printing a result.  No path runs at a cut depth.  Phases:
    main run as a user runs it (the dev-probe path, every probe kernel
    launched), which holds P1's ten probes against their plain versions
    at the JAX probe's shapes (bit for bit; sin+cos and pow-exp-log within
-   2^-22), P2 at (8, 128) and 2^24 points (within 2 ulps; its ulps
-   against float64 printed), P3's three variants at the JAX layout (8
+   2^-22), P2 at (8, 128) and 2^24 points (within 2 ulps, and byte for
+   byte with its check-only kernel as first ported, timed beside it; its
+   ulps against float64 printed), P3's three variants at the JAX layout (8
    programs over one (8, 128) block: the split kernel, each cell's
    iterations spread over a block) and at a cell per pixel-sample of
    final-one-weekend (3,240,000 cells, one thread a cell), bit for bit at
@@ -77,7 +78,10 @@ printing a result.  No path runs at a cut depth.  Phases:
    20,000 iterations and at 1 and 16, each run byte for byte with the
    sequential entry point at its own iterations and timed beside it); the
    bounds, and the PyTorch call of the fetch and the two table reads,
-   timed beside; with K4's batch time below, raygen's share of it;
+   timed beside, the card's launch floor beside P1 (one one-element
+   PyTorch kernel), P2's SASS instructions an element and their
+   issue-slot time at the SM clock read under load; with K4's batch time
+   below, raygen's share of it;
 4. K4 against its plain version (the wavefront loop with the plain
    sweeps): at 96x54, depth 8, 2 batches fused (rays within 0.5%,
    per-sample channel means within 1e-3, at most 5% of pixels above 1e-4)
@@ -1256,7 +1260,8 @@ def _reset_counts():
     megakernel.NOISE_LAUNCHES = megakernel.IMAGE_LAUNCHES = 0
     megakernel.SPHERE_CLUSTER_LAUNCHES = 0
     probe_ops.LAUNCHES = dict.fromkeys(probe_ops.PROBES, 0)
-    probe_trig.LAUNCHES = micro_raygen.LAUNCHES = 0
+    probe_trig.LAUNCHES = probe_trig.SCALAR_LAUNCHES = 0
+    micro_raygen.LAUNCHES = 0
     micro_raygen.SPLIT_LAUNCHES = 0
 
 

@@ -9,6 +9,7 @@
     python3 raytrace_tpu_torch/tools/chip_probe.py image [TREE]
     python3 raytrace_tpu_torch/tools/chip_probe.py spheres [TREE]
     python3 raytrace_tpu_torch/tools/chip_probe.py probes [TREE]
+    python3 raytrace_tpu_torch/tools/chip_probe.py trig [TREE]
     python3 raytrace_tpu_torch/tools/chip_probe.py k1 [TREE]
     python3 raytrace_tpu_torch/tools/chip_probe.py forms [TREE]
     python3 raytrace_tpu_torch/tools/chip_probe.py sass [TREE]
@@ -130,7 +131,15 @@ not with ``-m``, so that the package comes from TREE.
   reports, then runs the dev-probe phase of ``chip_smoke.py``
   (``smoke_lib.dev_probes``): each module's ``main`` on the card, which
   holds each kernel against its plain version and times both, and the
-  bounds; one JSON line of the times.
+  bounds; one JSON line of the times, with P2's SASS instructions an
+  element in each kernel of TREE's build (``smoke_lib.trig_sass`` of
+  this checkout, so a parent's build is counted the same way).
+- ``trig``: builds each variant of TREE's ``csrc/probe_trig.cu`` in
+  ``TRIG_VARIANTS`` (text replaced in the source, one nvcc each, started
+  together) and prints each one's registers and SASS instructions an
+  element; at both of P2's sizes holds each variant byte for byte with
+  the source's check-only kernel and times it (CUDA-event medians of 21,
+  the variants in order and then in reverse); one JSON line.
 - ``k1``: what ``chip_smoke.py``'s phases 2 and 3 do for K1
   (``smoke_lib.build_kernels`` and ``smoke_lib.k1_checks``): every kernel
   source built together, then K1 against its plain version on the main
@@ -1258,13 +1267,113 @@ def _card() -> str:
 def probes() -> None:
     import torch
 
+    from raytrace_tpu_torch.ops import _build
     from raytrace_tpu_torch.tools import smoke_lib
 
     card = _card()
     secs = smoke_lib.build_kernels(("probe_ops", "probe_trig",
                                     "micro_raygen"))
     entries, _ = smoke_lib.dev_probes(torch.device("cuda:0"), card)
-    print(json.dumps({"card": card, "build_s": secs, "kernels": entries}))
+    # P2's SASS instructions an element in TREE's build (a parent's too),
+    # counted by this checkout's smoke_lib.
+    sass = _change_smoke_lib().trig_sass(_build.library_path("probe_trig"))
+    print(json.dumps({"card": card, "build_s": secs, "p2_sass": sass,
+                      "kernels": entries}))
+
+
+# P2's source variants (``trig``): (name, [(text in csrc/probe_trig.cu,
+# its replacement)]); the first is the source as it stands.
+TRIG_VARIANTS = [
+    ("kept", []),
+    ("a half a pass", [("#pragma unroll\n    for (int h = 0; h < 2;",
+                        "#pragma unroll 1\n    for (int h = 0; h < 2;")]),
+    ("runs of 8 side by side", [("return i + w + h * min(32, vectors - w);",
+                                 "return 2 * i + h;")]),
+    ("streaming stores", [
+        ("ov[half_index(i, h, vectors)] = uv_sum4(h == 0 ? a : b);",
+         "__stcs(ov + half_index(i, h, vectors), uv_sum4(h == 0 ? a : b));"
+         )]),
+    # Diagnostics, not the function: the loads and stores alone (also
+    # with a thread's two float4 side by side), and the trig and stores on
+    # values made in registers.
+    ("copy only", [("uv_sum4(h == 0 ? a : b)", "(h == 0 ? a : b)")]),
+    ("copy only, side by side", [
+        ("uv_sum4(h == 0 ? a : b)", "(h == 0 ? a : b)"),
+        ("return i + w + h * min(32, vectors - w);", "return 2 * i + h;")]),
+    ("no loads", [(f"__ldg(xv + half_index({v}, {h}, vectors))",
+                   f"make_float4({v} * {s}1e-7f, {v} * {s}2e-7f, "
+                   f"{v} * {s}3e-7f, {v} * {s}4e-7f)")
+                  for v in ("i", "next") for h, s in ((0, ""), (1, "-"))]),
+]
+
+
+def trig() -> None:
+    import concurrent.futures
+    import ctypes
+    import tempfile
+
+    import torch
+
+    from raytrace_tpu_torch.ops import _build
+    from raytrace_tpu_torch.tools import smoke_lib
+    from raytrace_tpu_torch.tools_dev import probe_trig
+
+    src = _build.source("probe_trig").read_text()
+    tmp = Path(tempfile.mkdtemp())
+
+    def build(k):
+        name, subs = TRIG_VARIANTS[k]
+        text = src
+        for old, new in subs:
+            if old not in text:
+                raise AssertionError(f"variant {name}: {old!r} not in source")
+            text = text.replace(old, new)
+        (tmp / f"v{k}.cu").write_text(text)
+        out = subprocess.run(
+            [_build._nvcc(), *_build.nvcc_flags("probe_trig"), "-o",
+             str(tmp / f"v{k}.so"), str(tmp / f"v{k}.cu")],
+            capture_output=True, text=True, check=True)
+        return out.stdout + out.stderr
+
+    with concurrent.futures.ThreadPoolExecutor(len(TRIG_VARIANTS)) as pool:
+        logs = list(pool.map(build, range(len(TRIG_VARIANTS))))
+    dev = torch.device("cuda:0")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = {"card": _card(), "variants": {}}
+    libs = []
+    for k, (name, _) in enumerate(TRIG_VARIANTS):
+        lib = ctypes.CDLL(str(tmp / f"v{k}.so"))
+        for fn in (lib.probe_trig_launch, lib.probe_trig_launch_scalar):
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                           ctypes.c_void_p]
+        libs.append(lib)
+        regs = smoke_lib.ptxas_entry(logs[k], "probe_trig_vec")
+        out["variants"][name] = dict(
+            registers=regs[0], spills=regs[1],
+            sass=smoke_lib.trig_sass(tmp / f"v{k}.so")["probe_trig_vec"],
+            ms={}, identical={})
+        print(name, regs, out["variants"][name]["sass"], flush=True)
+    for size, shape in probe_trig.SIZES.items():
+        x = probe_trig.points(shape, dev)
+        want = torch.empty_like(x)
+        libs[0].probe_trig_launch_scalar(x.data_ptr(), x.numel(),
+                                         want.data_ptr(), stream)
+        for k in [*range(len(libs)), *reversed(range(len(libs)))]:
+            name = TRIG_VARIANTS[k][0]
+            got = torch.empty_like(x)
+
+            def launch(lib=libs[k], got=got):
+                err = lib.probe_trig_launch(x.data_ptr(), x.numel(),
+                                            got.data_ptr(), stream)
+                assert err == 0, err
+
+            ms = smoke_lib.median_ms(launch, 21)
+            res = out["variants"][name]
+            res["ms"].setdefault(size, []).append(ms)
+            res["identical"][size] = probe_trig.same_bytes(got, want)
+            print(f"{name} at {x.numel()}: {ms:.5f} ms, byte for byte "
+                  f"{res['identical'][size]}", flush=True)
+    print(json.dumps(out))
 
 
 def k1() -> None:
@@ -1544,7 +1653,8 @@ def chunks(tree: str) -> None:
 def main(argv) -> int:
     if len(argv) < 2 or argv[1] not in ("anim", "chunks", "tris", "lights",
                                         "paged", "noise", "image",
-                                        "spheres", "probes", "k1", "forms",
+                                        "spheres", "probes", "trig", "k1",
+                                        "forms",
                                         "sass", "walks"):
         print(__doc__, file=sys.stderr)
         return 2
@@ -1561,7 +1671,7 @@ def main(argv) -> int:
     else:
         {"anim": anim, "tris": tris, "lights": lights, "paged": paged,
          "noise": noise, "image": image, "spheres": spheres,
-         "probes": probes, "k1": k1, "forms": forms,
+         "probes": probes, "trig": trig, "k1": k1, "forms": forms,
          "sass": sass, "walks": walks}[argv[1]]()
     return 0
 

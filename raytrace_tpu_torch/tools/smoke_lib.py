@@ -1,5 +1,6 @@
 """What chip_smoke.py and tools/chip_probe.py share: the card's peak
-rates and the least time they allow, CUDA-event timing, the kernel
+rates and the least time they allow, a kernel's SASS instructions an
+element and their issue-slot time, CUDA-event timing, the kernel
 builds with K4's form pins and the walks' pins, K1's check against its
 plain version, the wavefront's dense oracle, the
 dev-probe phase, and K4's idle lanes: two warp models over path lengths
@@ -8,8 +9,9 @@ and the measuring build's own count.
 Every function here needs a CUDA card but ``least_ms``, ``ptxas_forms``,
 ``ptxas_kernel``, ``ptxas_entry``, ``sweep_diagnostics``,
 ``library_call``, ``rows_to_v3``, ``warp_tail``, ``warp_regen``,
-``measured_busy``, ``wave_lengths``, ``dense_trace_fn`` and
-``sphere_walk_bound`` (on CPU tensors); the port's modules are imported
+``measured_busy``, ``wave_lengths``, ``dense_trace_fn``,
+``sphere_walk_bound`` (on CPU tensors), ``sass_functions``, ``sass_path``,
+``sass_per_element`` and ``issue_ms``; the port's modules are imported
 inside the functions that use them.
 """
 
@@ -17,7 +19,9 @@ from __future__ import annotations
 
 import concurrent.futures
 import re
+import shutil
 import statistics
+import subprocess
 import time
 
 import numpy as np
@@ -131,9 +135,13 @@ PROBE_OPS = {"sin+cos": (3, 0), "pcg-rng": (2, 9), "onehot-fetch": (0, 0),
              "lax-cond-datadep": (2, 0), "pl-when-datadep": (1, 0),
              "vmem-scalar-read": (1, 0), "vmem-dynrow-read": (1, 0),
              "pow-exp-log": (11, 0)}
-# P2 per element: neg, add, atan2f, scale, fmodf and its fix-up; scale,
-# max, min, acosf, scale; the sum.
+# P2 per element: neg, add, atan2f, scale, the floor-mod (floorf and the
+# subtraction); scale, max, min, acosf, scale; the sum.
 TRIG_FLOPS = 12
+# The card's issue rate: each SM's four schedulers issue one warp
+# instruction a clock each, 128 lane-instructions a clock (NVIDIA's Hopper
+# white paper).
+LANES_ISSUED_PER_SM_CLOCK = 128
 # P3 per raygen (one iteration), counted from csrc/raygen.cuh's get_ray
 # and csrc/micro_raygen.cu's loop: a random_float is 9 INT32 operations
 # (the PCG step and word) and 2 FP32 (the conversion and the scale); the
@@ -229,6 +237,133 @@ def ptxas_entry(log: str, entry: str):
             spill = re.search(r"(\d+) bytes spill stores", block)
             return int(regs.group(1)), int(spill.group(1)) if spill else 0
     raise AssertionError(f"no entry {entry} in nvcc's report")
+
+
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+
+
+def sass_functions(listing: str) -> dict:
+    """{mangled name: [(address, instruction)]} of each function in
+    ``cuobjdump -sass``'s listing."""
+    funcs = {}
+    for func in re.split(r"\n\s*Function : ", listing)[1:]:
+        name, _, body = func.partition("\n")
+        funcs[name.strip()] = [(int(a, 16), ins) for a, ins in
+                               _SASS_LINE.findall(body)]
+    return funcs
+
+
+def _branch(ins: str):
+    """(target, conditional) of a BRA, else None."""
+    m = re.match(r"(@!?U?P\w+\s+)?BRA(\.\w+)*\s+(.*)$", ins)
+    if m is None:
+        return None
+    args = m.group(3)
+    target = int(re.findall(r"0x([0-9a-f]+)", args)[-1], 16)
+    return target, bool(m.group(1)) or bool(re.match(r"!?U?P\w+\s*,", args))
+
+
+def _skips_slow_path(code, i: int, target: int) -> bool:
+    """Whether the conditional branch at code[i] jumps over a slow path:
+    the instructions it skips hold a backward branch (a loop: fmodf's long
+    reduction) or a subroutine call and no conditional branch (the slow
+    path of a division or a reciprocal)."""
+    skipped = [(a, ins, _branch(ins)) for a, ins in code[i + 1:]
+               if a < target]
+    loop = any(b and b[0] <= a for a, _, b in skipped)
+    call = any(ins.startswith("CALL") for _, ins, _ in skipped)
+    cond = any(b and b[1] for _, _, b in skipped)
+    return loop or (call and not cond)
+
+
+def sass_path(code, start: int, stop=None, trips=None) -> list:
+    """The instructions one thread runs from address ``start`` to the first
+    EXIT, or to the instruction at ``stop`` (included), taking a
+    conditional branch only where it skips a slow path
+    (``_skips_slow_path``: inputs of ordinary magnitude never take a
+    division's, a reciprocal's or fmodf's slow path) and falling through
+    the others (atan2f's zero and infinite arguments), and following every
+    unconditional one.  A backward branch at an address in ``trips`` (an
+    inner loop's end) is taken until its loop has run that many times and
+    then falls through; any other backward branch ends the path."""
+    index = {a: k for k, (a, _) in enumerate(code)}
+    trips, taken = trips or {}, {}
+    k, path = index[start], []
+    while k < len(code):
+        addr, ins = code[k]
+        path.append(ins)
+        if addr == stop or ins == "EXIT":
+            break
+        branch = _branch(ins)
+        if branch is not None:
+            target, conditional = branch
+            if target <= addr:
+                if addr not in trips:
+                    break
+                taken[addr] = taken.get(addr, 0) + 1
+                if taken[addr] < trips[addr]:
+                    k = index[target]
+                    continue
+            elif not conditional or _skips_slow_path(code, k, target):
+                k = index[target]
+                continue
+        k += 1
+    return path
+
+
+def sass_per_element(code, elements: int = 1, inner_trips: int = 1) -> float:
+    """SASS instructions an element runs through: the whole path from the
+    entry for a kernel of one element a thread (``elements`` = 1), else the
+    body of its outermost loop (from the target of its lowest-reaching
+    backward branch to that branch), which takes ``elements`` an
+    iteration, each loop inside it run ``inner_trips`` times."""
+    if elements == 1:
+        return float(len(sass_path(code, code[0][0])))
+    latches = [(b[0], a) for a, ins in code
+               if (b := _branch(ins)) and b[0] < a]
+    target, latch = min(latches)
+    inner = {a: inner_trips for t, a in latches if t > target and a < latch}
+    return len(sass_path(code, target, stop=latch, trips=inner)) / elements
+
+
+def sass_listing(library) -> str:
+    """``cuobjdump -sass`` of a built library."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([tool, "-sass", str(library)], check=True,
+                          capture_output=True, text=True).stdout
+
+
+def trig_sass(library) -> dict:
+    """P2's SASS instructions an element in each kernel of its library
+    (the short name after "probe_trig" in the mangled symbol): a kernel
+    named ``probe_trig_vec`` takes 8 elements a loop iteration (a loop
+    inside it is its two float4 halves, run twice), any other one an
+    element a thread."""
+    out = {}
+    for name, code in sass_functions(sass_listing(library)).items():
+        m = re.search(r"\d+(probe_trig\w*?)E", name)
+        if m:
+            vec = m.group(1) == "probe_trig_vec"
+            out[m.group(1)] = sass_per_element(code, 8 if vec else 1,
+                                               2 if vec else 1)
+    return out
+
+
+def sm_clock_mhz() -> float:
+    """The SM clock nvidia-smi reads while the card runs a spin kernel
+    (an idle card reads its idle clock)."""
+    torch.cuda._sleep(2_000_000_000)
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"], check=True,
+                         capture_output=True, text=True).stdout
+    torch.cuda.synchronize()
+    return float(mhz.split()[0])
+
+
+def issue_ms(instructions: float, sms: int, mhz: float) -> float:
+    """The least time ``instructions`` lane-instructions take at the card's
+    issue rate (LANES_ISSUED_PER_SM_CLOCK an SM a clock)."""
+    return instructions / (sms * LANES_ISSUED_PER_SM_CLOCK * mhz * 1e6) * 1e3
 
 
 def median_ms(fn, reps: int = 5) -> float:
@@ -593,25 +728,31 @@ def dev_probes(dev, card):
     others).  Each main holds its kernels against their plain versions,
     raises where one disagrees (P1 bit for bit, sin+cos and pow-exp-log
     within probe_ops.TRANSCENDENTAL_ATOL; P2 at (8, 128) and 2^24 points
-    within probe_trig.ULP_TOL ulps; P3's three variants at shapes (a) and
-    (b) bit for bit at 4 iterations, two launches byte-identical, and
-    each timed run byte for byte with the sequential entry point at its
-    own iterations) and times both (CUDA-event medians of 5; P3 at (a)
-    with 20,000 iterations on its split kernel and at (b) with 1 and 16
-    one thread a cell, each beside the sequential entry point).  The
+    within probe_trig.ULP_TOL ulps and byte for byte with its check-only
+    kernel; P3's three variants at shapes (a) and (b) bit for bit at 4
+    iterations, two launches byte-identical, and each timed run byte for
+    byte with the sequential entry point at its own iterations) and times
+    both (CUDA-event medians of 5; P2's check-only kernel beside it; P3 at
+    (a) with 20,000 iterations on its split kernel and at (b) with 1 and
+    16 one thread a cell, each beside the sequential entry point).  The
     launches are counted from 0 across the mains, and every probe kernel
-    must launch there (P3's split kernel too).  Adds what the mains do
-    not give: each least time the card allows and the PyTorch call where
-    one computes a P1 probe's function.  Returns the three entries of the
-    kernels line and P3's base variant at (b) with one iteration."""
+    must launch there (P2's check-only kernel and P3's split kernel too).
+    Adds what the mains do not give: each least time the card allows, the
+    PyTorch call where one computes a P1 probe's function, the card's
+    launch floor beside P1 (one one-element PyTorch kernel), and P2's SASS
+    instructions an element (``trig_sass``) with the issue-slot time they
+    imply at the SM clock read under load.  Returns the three entries of
+    the kernels line and P3's base variant at (b) with one iteration."""
     from raytrace_tpu_torch.tools_dev import micro_raygen as mr
     from raytrace_tpu_torch.tools_dev import probe_ops, probe_trig
 
     probe_ops.LAUNCHES = dict.fromkeys(probe_ops.PROBES, 0)
-    probe_trig.LAUNCHES = mr.LAUNCHES = mr.SPLIT_LAUNCHES = 0
+    probe_trig.LAUNCHES = probe_trig.SCALAR_LAUNCHES = 0
+    mr.LAUNCHES = mr.SPLIT_LAUNCHES = 0
     t0 = time.perf_counter()
     p1, p2, p3 = probe_ops.main([]), probe_trig.main([]), mr.main([])
     launches = dict(probe_ops.LAUNCHES, probe_trig=probe_trig.LAUNCHES,
+                    probe_trig_scalar=probe_trig.SCALAR_LAUNCHES,
                     micro_raygen=mr.LAUNCHES,
                     micro_raygen_split=mr.SPLIT_LAUNCHES)
     idle = [name for name, count in launches.items() if count <= 0]
@@ -621,6 +762,11 @@ def dev_probes(dev, card):
           f"launches {launches}")
 
     # P1 at the JAX probe's shapes; every probe is bound by its launch.
+    # The card's launch floor: one one-element PyTorch kernel.
+    one = torch.ones(1, device=dev)
+    floor_ms = median_ms(lambda: one.add_(1))
+    print(f"launch floor: one one-element PyTorch kernel {floor_ms:.4f} ms "
+          f"({card})")
     inp = probe_ops.make_inputs(dev)
     rows = []
     for name in probe_ops.PROBES:
@@ -651,21 +797,37 @@ def dev_probes(dev, card):
               f"{res['plain_ms']:.4f} ms"
               + (f", one PyTorch call {library_ms:.4f} ms"
                  if library_ms is not None else "")
-              + f"; bound {bound[0]:.6f} ms by {bound[1]}: launch-bound "
-              f"({card})")
+              + f"; the launch floor {floor_ms:.4f} ms, "
+              f"{(res['ms'] - floor_ms) * 1e3:+.2f} us over it; bound "
+              f"{bound[0]:.6f} ms by {bound[1]}: launch-bound ({card})")
     p1_bound = least_ms(sum(r["flops"] for r in rows),
                         sum(r["bytes"] for r in rows),
                         sum(r["int_ops"] for r in rows))
 
-    # P2 at the probe's (8, 128) and at 2^24 points.
+    # P2 at the probe's (8, 128) and at 2^24 points, and the issue-slot
+    # time of its SASS instructions an element.
+    from raytrace_tpu_torch.ops import _build
+
+    sass = trig_sass(_build.library_path("probe_trig"))
+    mhz = sm_clock_mhz()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    large = p2["large"]["n"]
+    print(f"P2 SASS instructions an element: {sass}; SM clock {mhz:.0f} MHz "
+          f"under load, {sms} SMs; their issue slots at {large} points: "
+          + ", ".join(f"{k} {issue_ms(v * large, sms, mhz):.6f} ms"
+                      for k, v in sass.items()))
     trig = {}
     for size, res in p2.items():
         bound = least_ms(TRIG_FLOPS * res["n"], 8 * res["n"])
-        trig[size] = dict(res, bound=bound)
-        print(f"P2 at {res['n']} points: kernel {res['ms']:.4f} ms; bound "
+        issue = issue_ms(sass["probe_trig_vec"] * res["n"], sms, mhz)
+        trig[size] = dict(res, bound=bound, issue_ms=issue)
+        print(f"P2 at {res['n']} points: kernel {res['ms']:.4f} ms, the "
+              f"check-only kernel {res['scalar_ms']:.4f} ms; bound "
               f"{bound[0]:.6f} ms by {bound[1]}"
               + (": launch-bound" if size == "probe" else
-                 f" ({bound[0] / res['ms']:.3f} of it)") + f" ({card})")
+                 f" ({bound[0] / res['ms']:.3f} of it)")
+              + f"; issue slots {issue:.6f} ms ({issue / res['ms']:.3f} of "
+              f"it) ({card})")
 
     # P3: every variant at both shapes.
     for variant, runs in p3.items():
@@ -699,11 +861,14 @@ def dev_probes(dev, card):
         "ms": sum(r["ms"] for r in rows),
         "plain_ms": sum(r["plain_ms"] for r in rows),
         "bound_ms": p1_bound[0], "bound_by": p1_bound[1], "library_ms": None,
+        "launch_floor_ms": floor_ms,
         "probes": [{k: r[k] for k in (
             "name", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")} for r in rows],
     }, {
-        # 2^24 points; the probe's (8, 128) is launch-bound.
+        # 2^24 points; the probe's (8, 128) is launch-bound.  Beside it the
+        # check-only kernel as first ported, and the issue-slot time of the
+        # kernel's SASS instructions an element at the SM clock.
         "name": "probe_trig", "route": "cuda",
         "source": "raytrace_tpu_torch/csrc/probe_trig.cu",
         "replaces": "tools_dev/probe_trig.py:20",
@@ -712,6 +877,14 @@ def dev_probes(dev, card):
         "ms": trig["large"]["ms"], "plain_ms": trig["large"]["plain_ms"],
         "bound_ms": trig["large"]["bound"][0],
         "bound_by": trig["large"]["bound"][1], "library_ms": None,
+        "scalar_ms": trig["large"]["scalar_ms"],
+        "scalar_launches": launches["probe_trig_scalar"],
+        "probe_ms": trig["probe"]["ms"],
+        "sass_per_element": sass["probe_trig_vec"],
+        "scalar_sass_per_element": sass["probe_trig_scalar"],
+        "sm_clock_mhz": mhz, "issue_ms": trig["large"]["issue_ms"],
+        "scalar_issue_ms": issue_ms(sass["probe_trig_scalar"] * large, sms,
+                                    mhz),
     }, {
         # The base variant at shape (b), one iteration: the raygen work of
         # one K4 batch of final-one-weekend; beside it shape (a), the JAX

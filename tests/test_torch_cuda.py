@@ -65,8 +65,10 @@ final-one-weekend and motion-blur checks above run both the clustered
 form (the scenes' layout) and the dense one (layout dropped).  The dev
 probes (raytrace_tpu_torch/tools_dev/, built without contraction): P1's
 ten probe kernels bit for bit with their plain versions (sin+cos and
-pow-exp-log within 2^-22), P2 within 2 ulps at (8, 128) and 2^24 points,
-P3's three variants bit for bit at 4 iterations at both shapes, two
+pow-exp-log within 2^-22), P2 within 2 ulps at (8, 128) and 2^24 points
+and byte for byte with its check-only kernel there, at lengths 1, 7, 8,
+1,025 and 2^24 + 3 from an aligned and a misaligned start and on wide
+inputs, the C launcher's split the Python ``plan``, P3's three variants bit for bit at 4 iterations at both shapes, two
 launches byte-identical, and byte for byte with its sequential entry
 point at 20,000 iterations at shape (a) (the split kernel) and at 1 and
 16 at shape (b); each module's main runs on the card.
@@ -1476,12 +1478,62 @@ def test_probe_ops_fetch_gives_nan_for_ids_out_of_range(dev):
 @pytest.mark.parametrize("size", sorted(probe_trig.SIZES))
 def test_probe_trig_kernel_matches_plain(dev, size):
     x = probe_trig.points(probe_trig.SIZES[size], dev)
-    before = probe_trig.LAUNCHES
+    before = (probe_trig.LAUNCHES, probe_trig.SCALAR_LAUNCHES)
     out = probe_trig.uv_sum(x)
+    scalar = probe_trig.uv_sum(x, scalar=True)
     ref = probe_trig.uv_sum_reference(x)
-    assert probe_trig.LAUNCHES == before + 1
+    assert (probe_trig.LAUNCHES, probe_trig.SCALAR_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    assert probe_trig.same_bytes(out, scalar)
     assert _common.max_ulps(out, ref) <= probe_trig.ULP_TOL
     assert probe_trig.ulps_vs_float64(x, out) < 8
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [1, 7, 8, 1025, (1 << 24) + 3])
+def test_probe_trig_kernel_at_any_length_and_offset(dev, n, offset):
+    # A view that starts ``offset`` floats into its storage: the kernel's
+    # head runs up to the first 16-byte boundary.
+    x = probe_trig.points((n + 1,), dev)[offset:offset + n]
+    assert probe_trig.misalignment(x) == offset
+    before = probe_trig.LAUNCHES
+    out = probe_trig.uv_sum(x)
+    torch.cuda.synchronize()
+    assert probe_trig.LAUNCHES == before + 1
+    assert out.shape == x.shape
+    assert probe_trig.misalignment(out) == offset
+    assert _common.max_ulps(out, probe_trig.uv_sum_reference(x)) <= (
+        probe_trig.ULP_TOL)
+    assert probe_trig.same_bytes(out, probe_trig.uv_sum(x, scalar=True))
+
+
+def test_probe_trig_kernel_on_wide_inputs(dev):
+    g = np.random.default_rng(7)
+    special = [-0.0, 0.0, np.inf, -np.inf, 1e-45, -1e-45, 3e38, -3e38, 0.5,
+               -0.5, 2.0, -2.0]
+    x = torch.tensor(np.concatenate([special, g.uniform(-1e4, 1e4, 2045)])
+                     .astype(np.float32), device=dev)[1:]
+    out = probe_trig.uv_sum(x)
+    assert probe_trig.same_bytes(out, probe_trig.uv_sum(x, scalar=True))
+    assert _common.max_ulps(out, probe_trig.uv_sum_reference(x)) <= (
+        probe_trig.ULP_TOL)
+
+
+def test_probe_trig_card_plan_is_the_python_plan(dev):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    resident = probe_trig.card_plan(0, 0)[4]
+    assert resident >= sms and resident % sms == 0
+    for n in [*range(71), (1 << 24) + 3]:
+        for misalign in range(4):
+            assert probe_trig.card_plan(n, misalign)[:4] == probe_trig.plan(
+                n, misalign, sms, resident // sms)
+    # Input and output at different offsets from a 16-byte boundary: refused.
+    x = probe_trig.points((64,), dev)
+    out = torch.empty_like(x)
+    err = probe_trig.library().probe_trig_launch(
+        x[1:].data_ptr(), 63, out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    assert err != 0
 
 
 @pytest.mark.parametrize("shape", ["a", "b"])
