@@ -33,13 +33,21 @@ raytrace_tpu_torch/tools/stress_scenes.py, final-one-weekend's small
 spheres tiled 2 x 2 (stress-4x: 1,940 spheres, 121 clusters of 16) and 6 x
 6 cut to 16,384 (stress-16k: 128 clusters of 128), 1024x576, 4 spp x 25,
 depth 50: K4's clustered sphere form, which final-one-weekend and its
-motion-blur twin take too, and the wavefront with K1.  Every phase
+motion-blur twin take too, and the wavefront with K1; the mesh and its
+motion-blur twin also with use_bvh=True (the SAH BVH, walked by H1,
+csrc/bvh_walk.cu); and fow-ellipsoids (raytrace_tpu_torch/tools/
+ellipsoid_scenes.py: final-one-weekend with its three large spheres
+scaled by [1, 1.5, 1], 1200x675, 4 spp x 25, depth 50: the wavefront
+with H2, csrc/sphere_obj.cu, every sphere in object space).  Every phase
 is checked; any failure raises and the script exits non-zero without
 printing a result.  No path runs at a cut depth.  Phases:
 
 1. needs torch.cuda.is_available(); prints nvidia-smi's name and power limit;
-2. builds the seven kernel sources from the checkout, one nvcc each,
-   started together: the sphere sweep K1 (csrc/sphere_sweep.cu), the
+2. builds the nine kernel sources from the checkout, one nvcc each,
+   started together, and the native SAH builder (g++,
+   csrc/bvh_builder.cc): the BVH walk H1 (csrc/bvh_walk.cu), the
+   object-space sphere sweep H2 (csrc/sphere_obj.cu), the sphere sweep K1
+   (csrc/sphere_sweep.cu), the
    triangle sweep K2 (csrc/tri_sweep.cu), the fused bounce kernel K4
    (csrc/megakernel.cu: static, animated, triangle and the two lit
    forms, each without and with noise, and each but the animated one
@@ -51,7 +59,8 @@ printing a result.  No path runs at a cut depth.  Phases:
    K3's; every K4 form must keep the registers and spills pinned for it
    as it compiles with the loop of steps (FORMS_BEFORE,
    IMAGE_FORMS_BEFORE, CLUSTER_FORMS_BEFORE), and K3 its K3_BEFORE;
-   K1's and K2's walks print theirs (smoke_lib.WALKS_BEFORE pins them);
+   K1's and K2's walks, H1 and H2 print theirs (smoke_lib.WALKS_BEFORE
+   pins them);
 3. K1 (the scene's dense prefix, then a walk of its sphere tree, as the
    wavefront runs it) against the plain PyTorch sweep: the 3,240,000
    primary rays of the main path and 2^20 random rays with an alive mask
@@ -183,7 +192,8 @@ printing a result.  No path runs at a cut depth.  Phases:
    batch's channel means); a small frame on the card against the
    CPU, for both paths and the animated fused path, for both triangle
    paths, both paths of each light scene, of perlin-spheres and of earth,
-   and the paged wavefront (a tessellated big-spheres doc);
+   the paged wavefront and use_bvh=True (a tessellated big-spheres doc),
+   and fow-ellipsoids at 48x27;
 6. the main path, Renderer(cs) with defaults: it must take the fused path
    (K4 launched, K1 not); Mrays/s over batches 1-3 stepped one at a time
    and over one fused chunk of 12 batches, the chunk beside the 298.602
@@ -217,7 +227,19 @@ printing a result.  No path runs at a cut depth.  Phases:
    byte-identical with equal ray counts; one batch of the
    motion-blur mesh (its tree re-fitted once for the batch; the re-fit
    timed), the image checks
-   and the same reduced-frame identity; final-one-weekend and its
+   and the same reduced-frame identity; then the mesh with use_bvh=True:
+   the SAH build's host seconds, rows, depth and stack, H1 bit for bit
+   with its plain version on 2^17 primary rays, timed there and on every
+   bounce's rays of a batch (CUDA events), its work counted on 2^17 rays
+   of bounces 0 and 1 for the bound (ops/bvh.visit_counts), the
+   Renderer's batch 0 byte-identical with K2's on the same soup
+   (use_bvh=False) with equal rays, batches 1-3 stepped (H1 alone
+   launched; Mrays/s beside the paged path's), and the motion-blur mesh
+   the same way for one batch (its tree over the shutter); then
+   fow-ellipsoids with defaults (the wavefront, H2 alone launched): H2
+   bit for bit with its plain version on the 3,240,000 primary rays,
+   timed there and on every bounce's rays, its 25 batches, Mrays/s and
+   the image checks; final-one-weekend and its
    motion-blur twin must count every K4 launch as clustered; then
    stress-4x's and stress-16k's Renderer with defaults, which must take
    the fused path in K4's clustered form (K1 not launched), Mrays/s over
@@ -377,6 +399,13 @@ REDUCED = (240, 135)
 # (|o|_inf + reach) 2^-18 (2) on its six faces (6).
 GRAZING_RAYS = 1 << 18
 FLOPS_PER_TREE_NODE = 2 * (FLOPS_PER_PRETEST + 8)
+# use_bvh=True on the mesh (the SAH BVH, H1): its walk held to its plain
+# version on this many primary rays, and its work counted on this many of
+# a bounce's rays for the bound.  fow-ellipsoids (tools/
+# ellipsoid_scenes.py, H2): one object-space sphere test, csrc/
+# sphere_obj.cu's count.
+BVH_SUBSET = 1 << 17
+FLOPS_PER_OBJ_SPHERE_TEST = 65
 # earth (tools/image_scenes.py): its size, and its full batch, fused
 # against the wavefront with K1 (built with multiply-add contraction when
 # this limit was set, without it since it shares K4's sphere test):
@@ -1249,12 +1278,13 @@ def _step(renderer, batches):
 
 def _reset_counts():
     """Every kernel's launch count to 0."""
-    from raytrace_tpu_torch.ops import (megakernel, paged_tri, sphere_sweep,
-                                        tri_sweep)
+    from raytrace_tpu_torch.ops import (bvh, megakernel, paged_tri,
+                                        sphere_obj, sphere_sweep, tri_sweep)
     from raytrace_tpu_torch.tools_dev import (micro_raygen, probe_ops,
                                               probe_trig)
 
     sphere_sweep.LAUNCHES = tri_sweep.LAUNCHES = paged_tri.LAUNCHES = 0
+    bvh.LAUNCHES = sphere_obj.LAUNCHES = 0
     megakernel.LAUNCHES = megakernel.ANIM_LAUNCHES = 0
     megakernel.TRI_LAUNCHES = megakernel.LIGHT_LAUNCHES = 0
     megakernel.NOISE_LAUNCHES = megakernel.IMAGE_LAUNCHES = 0
@@ -1361,7 +1391,8 @@ def _mesh_paths(mesh_r, mb_scene, fused_img, wave_img, dev, card):
     """The big-mesh paths: ``mesh_r`` (final-one-weekend --mesh-geometry,
     Renderer with defaults) stepped as the main path, the reduced-frame
     identity on its soup, and one batch of the motion-blur scene with
-    --mesh-geometry.  Returns K3's launches on the main path."""
+    --mesh-geometry.  Returns K3's launches on the main path and its
+    Mrays/s over batches 1-3 stepped."""
     from raytrace_tpu_torch import cli
     from raytrace_tpu_torch.engine import Renderer
     from raytrace_tpu_torch.ops import (megakernel, paged_tri, sphere_sweep,
@@ -1442,7 +1473,298 @@ def _mesh_paths(mesh_r, mb_scene, fused_img, wave_img, dev, card):
     _check_image(mb_mesh.image(), "motion-blur mesh paged", MB_WIDTH,
                  MB_HEIGHT)
     _paged_vs_dense("motion-blur mesh", mb_mesh.compiled, dev, card)
-    return k3_launches
+    return k3_launches, _mrays(per_batch[1:])
+
+
+def _subset(o, d, alive, n, gen):
+    """``n`` of the rays (o, d, alive), drawn with ``gen``."""
+    import torch
+
+    from raytrace_tpu_torch.ops.vec3 import V3
+
+    sel = torch.randperm(o.x.shape[0], generator=gen)[:n].to(o.x.device)
+    return (*(V3(*(x[sel].contiguous() for x in v)) for v in (o, d)),
+            alive[sel].contiguous())
+
+
+def _h1_work(o, d, alive, table12, tree, gen):
+    """H1's work a ray (ops/bvh.visit_counts against the plain walk's
+    closest hits) on BVH_SUBSET of the rays: (node tests, triangle tests)
+    a ray and the distinct bytes those read."""
+    from raytrace_tpu_torch.ops import bvh
+
+    so, sd, sa = _subset(o, d, alive, BVH_SUBSET, gen)
+    best_t = bvh.bvh_walk_reference(so, sd, table12, tree, sa)[0]
+    work = bvh.visit_counts(so, sd, tree, best_t, sa)
+    rays = max(1, work["rays"])
+    return ((work["node_tests"] / rays, work["tri_tests"] / rays),
+            work["nodes_read"] * 64 + work["tris_read"] * 48)
+
+
+def _h1_bound(per, active: int, rays: int, launches: int, tree_bytes: int):
+    """H1's least time for ``active`` rays of ``rays`` in ``launches``
+    launches at ``per`` = (node tests, triangle tests) a ray: the FP32
+    operations of those tests, and the rays' bytes (25 in, 16 out) with
+    the distinct node and triangle rows once a launch."""
+    return least_ms(active * (per[0] * FLOPS_PER_TREE_NODE
+                              + per[1] * FLOPS_PER_TRI_TEST),
+                    rays * (6 * 4 + 1 + 4 * 4) + launches * tree_bytes)
+
+
+def _sah_paths(cs_mesh, mb_scene, paged_mrays, dev, card):
+    """use_bvh=True on final-one-weekend --mesh-geometry (the SAH BVH and
+    H1): the native build's host time, rows, depth and stack; H1 bit for
+    bit with its plain version on BVH_SUBSET primary rays and timed on
+    the primary rays and on every bounce's rays of a batch, its work
+    counted for the bound; the Renderer's batch byte-identical with K2's
+    on the same soup (use_bvh=False) with equal ray counts, its Mrays/s
+    beside the paged path's; the same identity for one batch of the
+    motion-blur mesh.  Returns a dict for the kernels line."""
+    import torch
+
+    from raytrace_tpu_torch import cli
+    from raytrace_tpu_torch.engine import Renderer
+    from raytrace_tpu_torch.engine import renderer as renderer_mod
+    from raytrace_tpu_torch.engine import wavefront
+    from raytrace_tpu_torch.models import bvh_native
+    from raytrace_tpu_torch.ops import (bvh, megakernel, paged_tri,
+                                        sphere_sweep, tri_sweep)
+
+    def sah_renderer(cs):
+        """Renderer(cs, use_bvh=True) and the SAH build's host seconds."""
+        secs = []
+        build = renderer_mod.build_bvh_sah
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = build(*a, **k)
+            secs.append(time.perf_counter() - t0)
+            return out
+
+        renderer_mod.build_bvh_sah = timed
+        try:
+            t0 = time.perf_counter()
+            r = Renderer(cs, device=dev, use_bvh=True)
+            init_s = time.perf_counter() - t0
+        finally:
+            renderer_mod.build_bvh_sah = build
+        if (r.static.bvh_mode != "sah" or bvh_native.error() is not None
+                or r.path != "wavefront" or len(secs) != 1):
+            raise AssertionError(
+                f"use_bvh=True did not build the SAH BVH (bvh_mode "
+                f"{r.static.bvh_mode}, path {r.path}, native builder "
+                f"error {bvh_native.error()})")
+        return r, secs[0], init_s
+
+    def identity(label, r, size):
+        """One batch of ``r`` (batch 0) against the same batch on K2 over
+        r's soup: (rays, seconds)."""
+        _reset_counts()
+        (rays, sec), = _step(r, 1)
+        img = r.image()
+        if (bvh.LAUNCHES <= 0 or tri_sweep.LAUNCHES or paged_tri.LAUNCHES
+                or megakernel.LAUNCHES or sphere_sweep.LAUNCHES):
+            raise AssertionError(f"{label} did not run on H1 alone (H1 "
+                                 f"{bvh.LAUNCHES}, K2 {tri_sweep.LAUNCHES}"
+                                 f", K3 {paged_tri.LAUNCHES})")
+        launches = bvh.LAUNCHES
+        k2 = Renderer(r.compiled, device=dev, use_bvh=False)
+        (k2_rays, k2_sec), = _step(k2, 1)
+        same = img.tobytes() == k2.image().tobytes()
+        print(f"{label} ({size[0]}x{size[1]}, 4 spp, depth 50), batch 0: "
+              f"the SAH BVH (H1, {launches} launches) and K2's walk over "
+              f"the same soup byte-identical {same}; rays {rays} vs "
+              f"{k2_rays}; {sec:.3f} s vs {k2_sec:.3f} s ({card})")
+        if not same or rays != k2_rays:
+            raise AssertionError(f"{label}: the SAH BVH's batch is not "
+                                 f"K2's")
+        _check_image(img, label, *size)
+        return rays, sec, launches
+
+    r, build_s, init_s = sah_renderer(cs_mesh)
+    data = r.bvh
+    print(f"SAH BVH of final-one-weekend --mesh-geometry: "
+          f"{cs_mesh.num_triangles} triangles, built on the host in "
+          f"{build_s:.2f} s (world bounds and the native builder; the "
+          f"Renderer {init_s:.2f} s with the permutation and upload): "
+          f"{data.child_boxes.shape[0]} node rows, depth {data.depth}, a "
+          f"stack of {r.static.bvh_stack_depth} of the kernel's "
+          f"{bvh.MAX_STACK}, root link {data.root} ({card})")
+
+    # H1 against its plain version, and timed, on batch 0's rays.
+    tree = wavefront.bvh_tree(r.static, r.scene)
+    geom, seen = smoke_lib.capture_bounces(r)
+    table12 = geom.tri_table12
+    o, d, alive = seen[0]
+    gen = torch.Generator().manual_seed(1)
+    so, sd, sa = _subset(o, d, alive, BVH_SUBSET, gen)
+    hit = bvh.intersect_tris_bvh(so, sd, table12, tree, sa)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = bvh.bvh_walk_reference(so, sd, table12, tree, sa)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(hit, plain))
+    err = float((hit.t - plain[0]).abs().max())
+    print(f"H1 vs plain on {BVH_SUBSET} of the {o.x.shape[0]} primary rays "
+          f"of the mesh: bit for bit {same}, {int((hit.tri >= 0).sum())} "
+          f"hits ({card})")
+    if not same:
+        raise AssertionError("H1 disagrees with its plain version")
+    sub_ms = median_ms(
+        lambda: bvh.intersect_tris_bvh(so, sd, table12, tree, sa), 5)
+    ms = median_ms(lambda: bvh.intersect_tris_bvh(o, d, table12, tree,
+                                                  alive), 5)
+    per_bounce = [median_ms(lambda o=o, d=d, a=a: bvh.intersect_tris_bvh(
+        o, d, table12, tree, a), 3) for o, d, a in seen]
+    work0, bytes0 = _h1_work(o, d, alive, table12, tree, gen)
+    work1, bytes1 = _h1_work(*seen[1], table12, tree, gen)
+    active = [int(a.sum()) for _, _, a in seen]
+    R_all = sum(x.x.shape[0] for x, _, _ in seen)
+    bound = _h1_bound(work0, active[0], o.x.shape[0], 1, bytes0)
+    later = _h1_bound(work1, sum(active[1:]), R_all - o.x.shape[0],
+                      len(seen) - 1, bytes1)
+    batch_ms, batch_bound = sum(per_bounce), (bound[0] + later[0], later[1])
+    print(f"H1 ms per bounce of batch 0 ({len(seen)} launches, "
+          f"{sum(active)} active rays of {R_all}): "
+          + ", ".join(f"{x:.3f}" for x in per_bounce) + f" ({card})")
+    print(f"H1 on the mesh's SAH BVH: {batch_ms:.3f} ms a batch, the "
+          f"primary rays' launch {ms:.3f} ms, {BVH_SUBSET} of them "
+          f"{sub_ms:.3f} ms (medians, CUDA events), plain PyTorch on those "
+          f"{plain_ms:.1f} ms (one run, host clock); work a ray on the "
+          f"primary rays {work0[0]:.2f} node and {work0[1]:.2f} triangle "
+          f"tests, on bounce 1's {work1[0]:.2f} and {work1[1]:.2f}; bound "
+          f"{bound[0]:.4f} ms on the primary rays by {bound[1]} "
+          f"({bound[0] / ms:.4f} of it), {batch_bound[0]:.4f} ms a batch "
+          f"({batch_bound[0] / batch_ms:.4f} of it) ({card})")
+    del geom, seen, o, d, alive, so, sd, sa, hit, plain
+
+    rays0, sec0, _ = identity("mesh SAH", r, (WIDTH, HEIGHT))
+    _reset_counts()
+    per_batch = _step(r, MAIN_BATCHES - 1)
+    launches = bvh.LAUNCHES
+    if launches <= 0 or tri_sweep.LAUNCHES or paged_tri.LAUNCHES:
+        raise AssertionError("the mesh's SAH path did not run on H1")
+    mrays = _mrays(per_batch)
+    print(f"mesh SAH path (wavefront, use_bvh=True): final-one-weekend "
+          f"--mesh-geometry {WIDTH}x{HEIGHT}, 4 spp, depth 50: {mrays:.3f} "
+          f"Mrays/s over batches 1-{MAIN_BATCHES - 1} stepped, beside the "
+          f"paged path's {paged_mrays:.3f} in this run; bvh LAUNCHES="
+          f"{launches}, tri_sweep, paged_tri, megakernel and sphere_sweep "
+          f"LAUNCHES=0 ({card})")
+    del r
+
+    cs_mb_mesh = cli.load_scene(mb_scene, analytic_spheres=False)
+    mb, mb_build_s, mb_init_s = sah_renderer(cs_mb_mesh)
+    print(f"SAH BVH of final-one-weekend-motion-blur --mesh-geometry: "
+          f"{cs_mb_mesh.num_triangles} triangles over the shutter (9 "
+          f"samples), built on the host in {mb_build_s:.2f} s (the "
+          f"Renderer {mb_init_s:.2f} s): {mb.bvh.child_boxes.shape[0]} node "
+          f"rows, depth {mb.bvh.depth} ({card})")
+    if not mb.static.any_animated:
+        raise AssertionError("the motion-blur mesh does not move")
+    mb_rays, mb_s, _ = identity("motion-blur mesh SAH", mb,
+                                (MB_WIDTH, MB_HEIGHT))
+    print(f"motion-blur mesh SAH path: one batch {mb_rays} rays in "
+          f"{mb_s:.4f} s ({mb_rays / mb_s / 1e6:.3f} Mrays/s) ({card})")
+    return dict(ms=ms, plain_ms=plain_ms, sub_ms=sub_ms, bound=bound,
+                batch_ms=batch_ms, batch_bound=batch_bound, err=err,
+                launches=launches, mrays=mrays, depth=data.depth,
+                build_s=build_s)
+
+
+def _ellipsoid_paths(ell_json, dev, card):
+    """fow-ellipsoids (tools/ellipsoid_scenes.py) on the wavefront with H2:
+    H2 bit for bit with its plain version on the primary rays, timed
+    there and on every bounce's rays of a batch; the Renderer with
+    defaults over every batch (Mrays/s, the image checks).  Returns a
+    dict for the kernels line."""
+    import torch
+
+    from raytrace_tpu_torch import cli
+    from raytrace_tpu_torch.engine import Renderer
+    from raytrace_tpu_torch.ops import (bvh, megakernel, sphere_obj,
+                                        sphere_sweep, spheres, tri_sweep)
+    from raytrace_tpu_torch.ops.intersect import T_MAX
+
+    cs_e = cli.load_scene(ell_json, WIDTH, HEIGHT)
+    r = Renderer(cs_e, device=dev)
+    if (r.path != "wavefront" or r.static.sphere_world_mode
+            or r.static.num_spheres != 488):
+        raise AssertionError(f"fow-ellipsoids: path {r.path}, world mode "
+                             f"{r.static.sphere_world_mode}")
+    geom, seen = smoke_lib.capture_bounces(r)
+    table = geom.sph_obj16
+    o, d, alive = seen[0]
+    hit = sphere_obj.intersect_spheres_object(o, d, table, alive)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = spheres.intersect_spheres(o, d, table)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    want = (torch.where(alive, plain.t, T_MAX),
+            torch.where(alive, plain.sph, -1))
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(hit, want))
+    err = float((hit.t - want[0]).abs().max())
+    n_rays = o.x.shape[0]
+    print(f"H2 vs plain on fow-ellipsoids' {n_rays} primary rays "
+          f"({table.shape[0]} table rows, {r.static.num_spheres} spheres): "
+          f"bit for bit {same}, {int((hit.sph >= 0).sum())} hits ({card})")
+    if not same:
+        raise AssertionError("H2 disagrees with its plain version")
+    ms = median_ms(lambda: sphere_obj.intersect_spheres_object(
+        o, d, table, alive), 5)
+    per_bounce = [median_ms(lambda o=o, d=d, a=a:
+                            sphere_obj.intersect_spheres_object(
+                                o, d, table, a), 3) for o, d, a in seen]
+    active = [int(a.sum()) for _, _, a in seen]
+    S = r.static.num_spheres
+
+    def bound_of(act, rays, launches):
+        return least_ms(act * S * FLOPS_PER_OBJ_SPHERE_TEST,
+                        rays * (6 * 4 + 1 + 2 * 4) + launches * S * 64)
+
+    bound = bound_of(active[0], n_rays, 1)
+    R_all = sum(x.x.shape[0] for x, _, _ in seen)
+    batch_bound = bound_of(sum(active), R_all, len(seen))
+    batch_ms = sum(per_bounce)
+    print(f"H2 ms per bounce of batch 0 ({len(seen)} launches, "
+          f"{sum(active)} active rays of {R_all}): "
+          + ", ".join(f"{x:.3f}" for x in per_bounce) + f" ({card})")
+    print(f"H2 on fow-ellipsoids: {batch_ms:.3f} ms a batch, the primary "
+          f"rays' launch {ms:.3f} ms (medians, CUDA events), plain PyTorch "
+          f"{plain_ms:.1f} ms (one run, host clock); bound {bound[0]:.4f} "
+          f"ms by {bound[1]} ({bound[0] / ms:.4f} of it), "
+          f"{batch_bound[0]:.4f} ms a batch ({batch_bound[0] / batch_ms:.4f}"
+          f" of it) ({card})")
+    del geom, seen, o, d, alive, hit, plain, want
+
+    _reset_counts()
+    per_batch = _step(r, MAIN_BATCHES)
+    rays0, sec0 = r.stats.rays_traced, r.stats.render_seconds
+    r.render_all()
+    launches = sphere_obj.LAUNCHES
+    if (launches <= 0 or sphere_sweep.LAUNCHES or megakernel.LAUNCHES
+            or tri_sweep.LAUNCHES or bvh.LAUNCHES):
+        raise AssertionError(f"fow-ellipsoids did not run on H2 alone (H2 "
+                             f"{launches}, K1 {sphere_sweep.LAUNCHES}, K4 "
+                             f"{megakernel.LAUNCHES})")
+    all_rays = r.stats.rays_traced - rays0
+    all_s = r.stats.render_seconds - sec0
+    mrays = _mrays(per_batch[1:])
+    print(f"fow-ellipsoids (wavefront, spheres in object space): "
+          f"{WIDTH}x{HEIGHT}, 4 spp x {r.current_batch} batches, depth 50: "
+          f"{mrays:.3f} Mrays/s over batches 1-{MAIN_BATCHES - 1} stepped, "
+          f"{all_rays / all_s / 1e6:.3f} over the other "
+          f"{r.current_batch - MAIN_BATCHES} in render_all ({all_s:.3f} s); "
+          f"sphere_obj LAUNCHES={launches}, sphere_sweep, megakernel, "
+          f"tri_sweep and bvh LAUNCHES=0 ({card})")
+    _check_image(r.image(), "fow-ellipsoids")
+    return dict(ms=ms, plain_ms=plain_ms, bound=bound, batch_ms=batch_ms,
+                batch_bound=batch_bound, err=err, launches=launches,
+                mrays=mrays)
 
 
 class _Capture(logging.Handler):
@@ -1470,8 +1792,9 @@ def main() -> int:
                                         tri_sweep)
     from raytrace_tpu_torch.ops.vec3 import V3
     from raytrace_tpu_torch.scene_file import SceneFile
-    from raytrace_tpu_torch.tools import (image_scenes, light_scenes,
-                                          noise_scenes, stress_scenes)
+    from raytrace_tpu_torch.tools import (ellipsoid_scenes, image_scenes,
+                                          light_scenes, noise_scenes,
+                                          stress_scenes)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1485,8 +1808,9 @@ def main() -> int:
     torch.cuda.set_device(dev)
 
     tri_dir = tempfile.TemporaryDirectory()
+    ell_json = ellipsoid_scenes.write_fow_ellipsoids(tri_dir.name)
 
-    # -- 2. build the seven kernel sources, one nvcc each, started together --
+    # -- 2. build the nine kernel sources, one nvcc each, started together --
     smoke_lib.build_kernels()
 
     # -- 3. K1 vs plain at the main path's shapes ---------------------------
@@ -2267,7 +2591,10 @@ def main() -> int:
     tiny_mesh = _scene(compile_scene(SceneFile.from_json_dict(
         stress_scenes.big_spheres_doc()), width=48,
         analytic_spheres=False), 48, 27, depth=8, batches=1)
-    for name, small_cs, fused in (("final-one-weekend", tiny, False),
+    tiny_ell = _scene(cli.load_scene(ell_json, WIDTH, HEIGHT), 48, 27,
+                      depth=8, batches=1)
+    for name, small_cs, fused, *bvh_opt in (
+                                  ("final-one-weekend", tiny, False),
                                   ("final-one-weekend", tiny, True),
                                   ("motion-blur", tiny_mb, False),
                                   ("motion-blur", tiny_mb, True),
@@ -2284,9 +2611,15 @@ def main() -> int:
                                   ("earth", tiny_earth, False),
                                   ("earth", tiny_earth, True),
                                   ("big spheres --mesh-geometry", tiny_mesh,
-                                   None)):
-        gpu_s = Renderer(small_cs, device=dev, use_megakernel=fused)
-        cpu_s = Renderer(small_cs, device="cpu", use_megakernel=fused)
+                                   None),
+                                  ("big spheres --mesh-geometry", tiny_mesh,
+                                   None, True),
+                                  ("fow-ellipsoids", tiny_ell, None)):
+        use_bvh = bvh_opt[0] if bvh_opt else "auto"
+        gpu_s = Renderer(small_cs, device=dev, use_megakernel=fused,
+                         use_bvh=use_bvh)
+        cpu_s = Renderer(small_cs, device="cpu", use_megakernel=fused,
+                         use_bvh=use_bvh)
         if gpu_s.path != cpu_s.path or (
                 gpu_s.static.bvh_mode != cpu_s.static.bvh_mode):
             raise AssertionError(f"{name}: card path {gpu_s.path}, CPU path "
@@ -2600,9 +2933,15 @@ def main() -> int:
                              "renders disagree")
     del emb_r, emb_wave
 
-    k3_launches = _mesh_paths(mesh_r, mb_scene, fused_img, wave_img, dev,
-                              card)
+    k3_launches, paged_mrays = _mesh_paths(mesh_r, mb_scene, fused_img,
+                                           wave_img, dev, card)
     del mesh_r
+
+    # The wavefront's last two closest-hit branches: use_bvh=True on the
+    # mesh (the SAH BVH, H1) and its motion-blur twin, and the ellipsoids
+    # of fow-ellipsoids in object space (H2).
+    sah = _sah_paths(cs_mesh, mb_scene, paged_mrays, dev, card)
+    ell = _ellipsoid_paths(ell_json, dev, card)
 
     # -- 7. checkpoint round trips, same chunk boundaries --------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -2880,6 +3219,34 @@ def main() -> int:
         "batch_ms": k3["batch_ms"], "batch_bound_ms": k3["batch_bound"][0],
         "flat_bound_ms": k3["flat_bound"][0],
         "batch_flat_bound_ms": k3["batch_flat_bound"][0], "leaf": k3["leaf"],
+    }, {
+        # use_bvh=True on final-one-weekend --mesh-geometry: the primary
+        # rays' launch and the batch's (every bounce's launch); the plain
+        # version timed on BVH_SUBSET of the primary rays, as the kernel
+        # on those (subset_ms).  No TPU kernel: the JAX package traces
+        # this tree with XLA while loops.
+        "name": "bvh_walk", "route": "cuda",
+        "source": "raytrace_tpu_torch/csrc/bvh_walk.cu",
+        "replaces": "raytrace_tpu/ops/bvh.py:191",
+        "tpu_kernel": False,
+        "launches": sah["launches"], "max_abs_err": sah["err"],
+        "ms": sah["ms"], "plain_ms": sah["plain_ms"],
+        "plain_rays": BVH_SUBSET, "subset_ms": sah["sub_ms"],
+        "bound_ms": sah["bound"][0], "bound_by": sah["bound"][1],
+        "library_ms": None, "batch_ms": sah["batch_ms"],
+        "batch_bound_ms": sah["batch_bound"][0],
+    }, {
+        # fow-ellipsoids' primary rays and its batch.  No TPU kernel: the
+        # JAX package traces this sweep with XLA.
+        "name": "sphere_obj", "route": "cuda",
+        "source": "raytrace_tpu_torch/csrc/sphere_obj.cu",
+        "replaces": "raytrace_tpu/ops/spheres.py:40",
+        "tpu_kernel": False,
+        "launches": ell["launches"], "max_abs_err": ell["err"],
+        "ms": ell["ms"], "plain_ms": ell["plain_ms"],
+        "bound_ms": ell["bound"][0], "bound_by": ell["bound"][1],
+        "library_ms": None, "batch_ms": ell["batch_ms"],
+        "batch_bound_ms": ell["batch_bound"][0],
     }, *probe_entries]}))
     tri_dir.cleanup()
     print(json.dumps({"ok": True, "device": {

@@ -30,6 +30,9 @@ log = logging.getLogger("raytrace_tpu_torch")
 
 DEFAULT_SCENE = str(Path(__file__).resolve().parents[1] / "assets"
                     / "final-one-weekend.json")
+# How the log names the wavefront's triangle paths (static.bvh_mode).
+TRIANGLE_PATHS = {"paged": "paged triangles", "sah": "SAH BVH",
+                  "implicit": "implicit BVH"}
 
 
 def load_scene(path: str, width=None, height=None,
@@ -69,8 +72,7 @@ def cmd_render(args) -> int:
 
     log.info("path: %s (%s)", "fused bounce kernel"
              if renderer.use_megakernel else "wavefront",
-             "paged triangles" if renderer.static.bvh_mode == "paged"
-             else renderer.path)
+             TRIANGLE_PATHS.get(renderer.static.bvh_mode, renderer.path))
 
     t0 = time.perf_counter()
     total = cs.render.sample_batches

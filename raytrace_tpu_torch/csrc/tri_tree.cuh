@@ -99,6 +99,29 @@ __device__ __forceinline__ bool box_passes(float lx, float ly, float lz, float h
   return te <= tx && tx > kTMin && te < best_t * 1.0001f + 1e-4f;
 }
 
+// The Moller-Trumbore test of the ray against the triangle (v0, e1, e2)
+// in csrc/tri_sweep.cu's operation order: true on a hit in (T_MIN, T_MAX),
+// with its t and barycentrics u, v.  Every triangle walk's leaf test (K2,
+// K3, K4 through walk below, and the BVH walk H1 of csrc/bvh_walk.cu).
+__device__ __forceinline__ bool tri_hit(const Ray& r, float4 v0, float4 e1, float4 e2,
+                                        float& t, float& u, float& v) {
+  const float px = r.dy * e2.z - r.dz * e2.y;
+  const float py = r.dz * e2.x - r.dx * e2.z;
+  const float pz = r.dx * e2.y - r.dy * e2.x;
+  const float det = e1.x * px + e1.y * py + e1.z * pz;
+  const float inv_det = det != 0.0f ? 1.0f / det : 0.0f;
+  const float tx = r.ox - v0.x;
+  const float ty = r.oy - v0.y;
+  const float tz = r.oz - v0.z;
+  u = (tx * px + ty * py + tz * pz) * inv_det;
+  const float qx = ty * e1.z - tz * e1.y;
+  const float qy = tz * e1.x - tx * e1.z;
+  const float qz = tx * e1.y - ty * e1.x;
+  v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+  t = (e2.x * qx + e2.y * qy + e2.z * qz) * inv_det;
+  return det != 0.0f && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > kTMin && t < kTMax;
+}
+
 // The walk's stack: one entry a level at most.  A caller that runs two
 // walks one after the other (K4's sphere and triangle walks) passes both
 // the same stack.
@@ -189,22 +212,8 @@ __device__ __forceinline__ void walk(Stack<kStack>& stack, const Tree& tree, con
           const float4 v0 = __ldg(tree.tris + 3 * j);
           const float4 e1 = __ldg(tree.tris + 3 * j + 1);
           const float4 e2 = __ldg(tree.tris + 3 * j + 2);
-          const float px = r.dy * e2.z - r.dz * e2.y;
-          const float py = r.dz * e2.x - r.dx * e2.z;
-          const float pz = r.dx * e2.y - r.dy * e2.x;
-          const float det = e1.x * px + e1.y * py + e1.z * pz;
-          const float inv_det = det != 0.0f ? 1.0f / det : 0.0f;
-          const float tx = r.ox - v0.x;
-          const float ty = r.oy - v0.y;
-          const float tz = r.oz - v0.z;
-          const float u = (tx * px + ty * py + tz * pz) * inv_det;
-          const float qx = ty * e1.z - tz * e1.y;
-          const float qy = tz * e1.x - tx * e1.z;
-          const float qz = tx * e1.y - ty * e1.x;
-          const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-          const float t = (e2.x * qx + e2.y * qy + e2.z * qz) * inv_det;
-          const bool ok = det != 0.0f && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
-                          t > kTMin && t < kTMax;
+          float t, u, v;
+          const bool ok = tri_hit(r, v0, e1, e2, t, u, v);
           if constexpr (kIds) {
             // The id table is read only for a hit that may win.
             if (ok && t <= best_t) {

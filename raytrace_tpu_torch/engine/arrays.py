@@ -23,6 +23,7 @@ import torch
 
 from ..models import compile as _compile
 from ..models.compile import CompiledScene
+from ..ops.bvh import node_rows
 from ..ops.textures import TexFlags, srgb_u8_to_linear_lut
 
 
@@ -116,9 +117,17 @@ class SceneStatic:
     # (models/sphere_order.apply_triangle_order); 0 = file order.
     tri_cluster_g: int = 0
     num_instances: int = 0
-    # How triangles are traced: "none" (the dense sweep, or the fused
-    # kernel's clusters) or "paged" (ops/paged_tri.py), set by the Renderer.
+    # How triangles are traced, set by the Renderer: "none" (the soup's
+    # own tree, or the fused kernel's clusters), "paged" (ops/paged_tri.py)
+    # or, with use_bvh=True, "sah" or "implicit" (the BVH of
+    # models/bvh_build.py, walked by ops/bvh.py); the BVH's facts as the
+    # JAX package keeps them, but ``bvh_root``, the walk's root link (a
+    # leaf link for a one-leaf implicit tree; 0 in the JAX package).
     bvh_mode: str = "none"
+    bvh_num_leaves: int = 0
+    bvh_leaf_size: int = 4
+    bvh_stack_depth: int = 0
+    bvh_root: int = 0
 
 
 def light_table16(tri_p, prob, alias) -> np.ndarray:
@@ -146,9 +155,11 @@ def pack_atlas(atlas: torch.Tensor) -> torch.Tensor:
     return (a[..., 0] | (a[..., 1] << 8) | (a[..., 2] << 16)).contiguous()
 
 
-def _scene_numpy(cs: CompiledScene) -> dict:
+def _scene_numpy(cs: CompiledScene, bvh=None) -> dict:
     """CompiledScene → the SceneArrays fields as numpy arrays, with the
-    dtypes and derived tables of the JAX package's upload_scene."""
+    dtypes and derived tables of the JAX package's upload_scene; with a
+    models/bvh_build.BVHData, its node rows as the walk reads them
+    (ops/bvh.node_rows)."""
     i32 = lambda x: np.asarray(x, np.int32)      # noqa: E731
     f32 = lambda x: np.asarray(x, np.float32)    # noqa: E731
     n_image = (0 if int(np.prod(cs.atlas.shape[1:3])) <= 1
@@ -191,7 +202,8 @@ def _scene_numpy(cs: CompiledScene) -> dict:
         n_light_mat=i32(len(cs.light_emit)),
         sky_solid=f32(cs.sky_solid), sky_top=f32(cs.sky_top),
         sky_bottom=f32(cs.sky_bottom), sky_factor=f32(cs.sky_factor),
-        bvh_child_boxes=np.zeros((0, 16), np.float32),
+        bvh_child_boxes=(np.zeros((0, 16), np.float32) if bvh is None
+                         else node_rows(bvh, cs.num_triangles)[0]),
         shade_rows=f32(cs.shade_rows if cs.shade_rows is not None
                        else np.zeros((1, 32), np.float32)),
     )
@@ -202,14 +214,19 @@ def _to_device(arrays: dict, device) -> SceneArrays:
                           for k, v in arrays.items()})
 
 
-def upload_scene(cs: CompiledScene, device):
-    """CompiledScene (numpy) → (SceneArrays on ``device``, SceneStatic)."""
-    static = scene_static(cs)
-    return _to_device(_scene_numpy(cs), device), static
+def upload_scene(cs: CompiledScene, device, bvh=None):
+    """CompiledScene (numpy) → (SceneArrays on ``device``, SceneStatic);
+    with ``bvh`` (a models/bvh_build.BVHData over ``cs``'s soup, already
+    permuted into its order) the BVH's rows and facts
+    (raytrace_tpu/engine/arrays.py:194-223)."""
+    static = scene_static(cs, bvh)
+    return _to_device(_scene_numpy(cs, bvh), device), static
 
 
-def scene_static(cs: CompiledScene) -> SceneStatic:
-    """The host-side facts of a CompiledScene, without uploading it."""
+def scene_static(cs: CompiledScene, bvh=None) -> SceneStatic:
+    """The host-side facts of a CompiledScene, without uploading it; the
+    BVH's (mode, leaves, leaf size, the walk's stack, as the JAX package
+    sizes it, depth + 2, and root link) with a BVHData."""
     if not isinstance(cs, CompiledScene):
         raise TypeError(
             f"upload_scene takes the port's models.compile.CompiledScene, "
@@ -232,6 +249,11 @@ def scene_static(cs: CompiledScene) -> SceneStatic:
         num_triangles=int(cs.num_triangles),
         tri_cluster_g=int(cs.tri_cluster_g),
         num_instances=int(cs.num_instances),
+        **({} if bvh is None else dict(
+            bvh_mode=bvh.mode, bvh_num_leaves=int(bvh.num_leaves),
+            bvh_leaf_size=int(bvh.leaf_size),
+            bvh_stack_depth=int(bvh.depth + 2),
+            bvh_root=node_rows(bvh, cs.num_triangles)[1])),
     )
 
 

@@ -40,13 +40,22 @@ package: ``"auto"`` keeps the soup in its compiled order up to
 (ops/paged_tri.build_soup_tree, the JAX package's dense sweep there), and
 takes the paged sweep (K3, ops/paged_tri.py) above it; ``"paged"`` takes
 the paged sweep at any size; ``False`` keeps the compiled order, and K2
-walks its own tree, at any size.  The paged
-sweep first puts the soup in Morton order (``paged_soup``), and the fused
-kernel refuses such a soup, so the scene renders on the wavefront (path
-``"wavefront"``, ``static.bvh_mode == "paged"``).  Where the port differs
-from JAX: on the CPU the JAX Renderer traces a big mesh through its SAH
-BVH, while the port takes K3's plain version there too; ``True`` (the SAH
-or implicit BVH) is not ported yet.
+walks its own tree, at any size; ``True`` builds the binned-SAH BVH of
+the native builder (models/bvh_build.build_bvh_sah, leaves of at most 8),
+or where that library cannot be built the implicit Morton BVH over leaves
+of ``leaf_size`` (build_bvh), puts the soup in its order and walks it
+with H1 (ops/bvh.py; ``static.bvh_mode`` "sah" or "implicit").  The paged
+sweep first puts the soup in Morton order (``paged_soup``); the fused
+kernel refuses a soup in either order, so the scene renders on the
+wavefront (path ``"wavefront"``).  Where the port differs from JAX: on the
+CPU the JAX Renderer traces a big mesh through its SAH BVH under
+``"auto"``, while the port takes K3's plain version there too.
+
+Spheres whose instances all map them to spheres (a uniform scale) have
+world-space tables (``sphere_world_mode``); a scene with a non-uniform
+scale (ellipsoids) has none, and its spheres are swept in object space
+by H2 (ops/sphere_obj.py) on the wavefront, which the fused kernel's gate
+sends it to.
 """
 
 from __future__ import annotations
@@ -59,9 +68,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..models.bvh_build import permute_soup
+from ..models.bvh_build import build_bvh, build_bvh_sah, permute_soup
 from ..models.compile import CompiledScene
 from ..ops import camera as cam_ops
+from ..ops import bvh as bvh_ops
 from ..ops import megakernel, paged_tri, sphere_sweep, sphere_tree
 from ..ops.spheres import world_sphere_anim_tables, world_sphere_tables
 from ..tools.chacha import ChaCha20Rng
@@ -114,20 +124,19 @@ def triangle_ceiling(static: SceneStatic) -> int:
 
 
 def bvh_mode(static: SceneStatic, use_bvh="auto") -> str:
-    """How the scene's triangles are traced: "paged" or "none" (the soup
-    in its compiled order: K2's walk of its own tree, or the fused
-    kernel's).  ``static`` has
-    ``bvh_mode`` "none"; "auto" pages a soup above ``triangle_ceiling``
-    (raytrace_tpu/engine/renderer.py:331-359)."""
-    if use_bvh is True:
-        raise NotImplementedError(
-            "not ported yet: the SAH and implicit BVH (use_bvh=True; "
-            "ROADMAP queue 1: 'SAH BVH'); use_bvh='paged' traces any soup")
-    if use_bvh not in ("auto", "paged", False):
-        raise ValueError(f"use_bvh must be 'auto', 'paged' or False, not "
-                         f"{use_bvh!r}")
+    """How the scene's triangles are traced: "paged", "sah" (use_bvh=True:
+    the SAH BVH, which the Renderer replaces by "implicit" where the
+    native builder is unavailable) or "none" (the soup in its compiled
+    order: K2's walk of its own tree, or the fused kernel's).  ``static``
+    has ``bvh_mode`` "none"; "auto" pages a soup above ``triangle_ceiling``
+    (raytrace_tpu/engine/renderer.py:331-386)."""
+    if use_bvh not in ("auto", "paged", False, True):
+        raise ValueError(f"use_bvh must be 'auto', 'paged', True or False, "
+                         f"not {use_bvh!r}")
     if not static.has_tris or use_bvh is False:
         return "none"
+    if use_bvh is True:
+        return "sah"
     if use_bvh == "paged" or static.num_triangles > triangle_ceiling(static):
         return "paged"
     return "none"
@@ -178,34 +187,47 @@ class Renderer:
     CHUNK = 12
 
     def __init__(self, compiled: CompiledScene, device="cuda",
-                 use_megakernel: Optional[bool] = None, use_bvh="auto"):
+                 use_megakernel: Optional[bool] = None, use_bvh="auto",
+                 leaf_size: int = 4):
         self.device = torch.device(device)
         # Kept so update_image_size rebuilds with the same options.
         self._ctor_kwargs = dict(device=self.device,
                                  use_megakernel=use_megakernel,
-                                 use_bvh=use_bvh)
+                                 use_bvh=use_bvh, leaf_size=leaf_size)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA is not available; rendering on the CPU must be asked "
                 "for with device='cpu'")
         self.batch_times = get_batch_ray_times(compiled.render.sample_batches)
-        # World-space sphere tables per batch time (host f64 -> f32).
+        # World-space sphere tables per batch time (host f64 -> f32), or
+        # None where a non-uniform scale makes an ellipsoid: the spheres
+        # are then swept in object space.
         self.sphere_tables = world_sphere_tables(compiled, self.batch_times)
-        if self.sphere_tables is None:
-            raise NotImplementedError(
-                "not ported yet: spheres with non-uniform scale, which need "
-                "object-space intersection (ROADMAP queue 1: 'Object-space "
-                "spheres')")
+        world_mode = self.sphere_tables is not None
         static = dataclasses.replace(scene_static(compiled),
-                                     sphere_world_mode=True)
+                                     sphere_world_mode=world_mode)
         missing = unsupported_feature(static)
         if missing is not None:
             raise NotImplementedError(f"not ported yet: {missing}")
         mode = bvh_mode(static, use_bvh)
+        # The BVH of use_bvh=True (raytrace_tpu/engine/renderer.py:375-386):
+        # the native SAH builder's, else the implicit tree's; the soup is
+        # put in its order.
+        self.bvh = None
         if mode == "paged":
             compiled = paged_soup(compiled)
-        self.scene, static = upload_scene(compiled, self.device)
-        self.static = dataclasses.replace(static, sphere_world_mode=True,
+        elif mode == "sah":
+            self.bvh = build_bvh_sah(compiled, leaf_max=8)
+            if self.bvh is None:
+                self.bvh = build_bvh(compiled, leaf_size=leaf_size)
+            if self.bvh.depth + 2 > bvh_ops.MAX_STACK:
+                raise ValueError(
+                    f"a BVH of depth {self.bvh.depth}: its walk's stack "
+                    f"would outgrow the kernel's {bvh_ops.MAX_STACK}")
+            compiled = permute_soup(compiled, self.bvh.order)
+            mode = self.bvh.mode
+        self.scene, static = upload_scene(compiled, self.device, self.bvh)
+        self.static = dataclasses.replace(static, sphere_world_mode=world_mode,
                                           bvh_mode=mode)
         self.compiled = compiled
         if use_megakernel is None:
@@ -227,7 +249,7 @@ class Renderer:
         if self.static.has_tris and not self.static.any_animated:
             self._tris = prepare_tris(self.static, self.scene,
                                       self.batch_times_dev[0])
-        elif self.static.has_tris and mode != "paged":
+        elif self.static.has_tris and mode == "none":
             _, world_p, _ = world_soup(self.scene, self.batch_times_dev[0])
             self._tri_order = paged_tri.soup_order(world_p,
                                                    self.static.num_triangles)
@@ -238,7 +260,8 @@ class Renderer:
         # batch's table (every batch's).  A moving scene's tree is built
         # each batch over that batch's table, in this order.
         self._sph_order = self._sph_tree = None
-        n_prefix = sphere_prefix(self.static, self.use_megakernel)
+        n_prefix = (sphere_prefix(self.static, self.use_megakernel)
+                    if world_mode else None)
         if n_prefix is not None:
             n_sph = self.static.num_spheres
             mid = world_sphere_tables(compiled, np.array([0.5], np.float32))
@@ -299,7 +322,8 @@ class Renderer:
         ``batch`` from."""
         if self._anim_geom is not None:
             return self._anim_geom
-        sph_table = torch.tensor(self.sphere_tables[batch], device=self.device)
+        sph_table = (None if self.sphere_tables is None else torch.tensor(
+            self.sphere_tables[batch], device=self.device))
         tris = self._tris
         if self.static.has_tris and tris is None:
             tris = prepare_tris(self.static, self.scene,

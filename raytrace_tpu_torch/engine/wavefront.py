@@ -12,9 +12,13 @@ which both ends the loop and drives the tail compaction.
 Covered here: spheres in world mode (the kernel K1: the scene's dense
 prefix, then a walk of a tree over the rest), with direct normals, or in
 a scene with an image texture with the normal and UV of the sphere's
-world-to-object branch; triangles in a soup that keeps its compiled
+world-to-object branch; spheres in object space, where an instance's
+non-uniform scale makes an ellipsoid (the kernel H2, with that branch's
+normal); triangles in a soup that keeps its compiled
 order (the kernel K2, a walk of the soup's own tree) or, on a soup the
 Renderer put in paged order, by a walk of a tree over it (the kernel K3),
+or, on a soup the Renderer put in the order of its SAH or implicit BVH
+(use_bvh=True), by a walk of that BVH (the kernel H1),
 with their hit point, normal and UV
 rebuilt from the packed position and attribute tables, fat-row shading
 (constant, checker, noise and image textures), next-event
@@ -33,14 +37,17 @@ import torch
 from ..models.compile import SKY_SOLID, SKY_VERTICAL_GRADIENT
 
 from ..ops import camera as cam_ops
-from ..ops import (megakernel, nee, paged_tri, rng, shading, sphere_sweep,
-                   sphere_tree,
-                   spheres, transforms, tri_sweep, vec3)
+from ..ops import (bvh, megakernel, nee, paged_tri, rng, shading,
+                   sphere_obj, sphere_sweep, sphere_tree, spheres, transforms,
+                   tri_sweep, vec3)
 from ..ops.intersect import T_MAX, Hit
 from ..ops.materials import LIGHT_PDF
 from ..ops.spheres import SphereHit
 from ..ops.vec3 import V3
 from .arrays import SceneArrays, SceneStatic
+
+# The bvh_modes of use_bvh=True's trees, which the BVH walk H1 traces.
+BVH_MODES = ("sah", "implicit")
 
 
 class RawHit(NamedTuple):
@@ -69,7 +76,8 @@ class BatchGeometry(NamedTuple):
     so one geometry serves every batch.  The triangle fields are None for
     a scene without triangles (see ``prepare_tris``)."""
 
-    sph_table8: torch.Tensor  # [S8, 8] the sweep kernel's table
+    # [S8, 8] the sweep kernel's table; None for spheres in object space
+    sph_table8: Optional[torch.Tensor]
     prim_rows: torch.Tensor   # [P, 64] combined per-primitive rows
     # [S8, 8] motion rows (dc xyz, -, k1, k2), or None for a static table
     sph_dtab8: Optional[torch.Tensor] = None
@@ -98,6 +106,10 @@ class BatchGeometry(NamedTuple):
     # spheres in clusters, or K1's on the wavefront
     # (ops/sphere_sweep.tree_prefix); None where neither walks one.
     sph_tree: Optional[sphere_tree.SphereTree] = None
+    # [S8, 16] the spheres in object space at the batch's time
+    # (ops/spheres.object_sphere_table), the table H2 sweeps where the
+    # scene has no world-space sphere table; else None.
+    sph_obj16: Optional[torch.Tensor] = None
 
 
 def _compact_size(R: int) -> int:
@@ -164,13 +176,15 @@ def prepare_tris(static: SceneStatic, scene: SceneArrays,
     """The triangle fields of a BatchGeometry for one batch time (a 0-dim
     f32 tensor): the instances go to that time, the soup to world space,
     then the packed position and attribute tables and the soup's tree: on
-    a "paged" soup the paged sweep's, else the one K2 and the fused kernel
-    walk, over the Morton order ``order`` (ops/paged_tri.soup_order; taken
-    from this batch's soup when not given)
+    a "paged" soup the paged sweep's, on a soup in the order of its SAH or
+    implicit BVH none (the BVH is the scene's, ``scene.bvh_child_boxes``,
+    and H1 reads the batch's [T8, 12] rows), else the one K2 and the fused
+    kernel walk, over the Morton order ``order`` (ops/paged_tri.soup_order;
+    taken from this batch's soup when not given)
     (raytrace_tpu/engine/wavefront.py:779-839,
     :881-890).  A static scene builds them once; a moving one every batch
     (the tree re-fitted over the same order: the Renderer passes the order
-    of its first batch time)."""
+    of its first batch time; a BVH keeps its shutter-wide boxes)."""
     mats, world_p, world_n = world_soup(scene, batch_time)
     table16 = tri_sweep.pack_tri_table(world_p, static.num_triangles)
     T8 = table16.shape[0]
@@ -182,7 +196,7 @@ def prepare_tris(static: SceneStatic, scene: SceneArrays,
     n = static.num_triangles
     if static.bvh_mode == "paged":
         out["tri_tree"] = paged_tri.build_tri_tree(world_p, n, table12)
-    else:
+    elif static.bvh_mode not in BVH_MODES:
         if order is None:
             order = paged_tri.soup_order(world_p, n)
         out["tri_tree"] = paged_tri.build_soup_tree(world_p, n, table12,
@@ -206,7 +220,7 @@ def sphere_prefix(static: SceneStatic, fused: bool) -> Optional[int]:
 
 
 def prepare_batch(static: SceneStatic, scene: SceneArrays,
-                  sph_table: torch.Tensor,
+                  sph_table: Optional[torch.Tensor],
                   sph_dtab: Optional[torch.Tensor] = None,
                   tris: Optional[dict] = None,
                   batch_time: Optional[torch.Tensor] = None,
@@ -220,7 +234,11 @@ def prepare_batch(static: SceneStatic, scene: SceneArrays,
     sph_table: [S, 5] world sphere rows at the batch time
     (ops/spheres.world_sphere_tables), or at shutter time 0 when
     ``sph_dtab`` ([S8, 8], ops/spheres.world_sphere_anim_tables) gives the
-    spheres' linear motion.  A scene with triangles takes ``tris``, the
+    spheres' linear motion; None for spheres in object space (a scene with
+    no world table: the Renderer's ``sphere_world_mode`` False), which
+    take the world-to-object branch's rows below and H2's table
+    ``sph_obj16`` at ``batch_time``, and no sphere tree.
+    A scene with triangles takes ``tris``, the
     fields ``prepare_tris`` built for the batch's time, with the instances'
     objectToWorld rows at that time; a scene with lights and without
     triangles takes ``batch_time`` (a 0-dim f32 tensor) for those rows
@@ -254,10 +272,15 @@ def prepare_batch(static: SceneStatic, scene: SceneArrays,
                        device=scene.shade_rows.device)
     rows[:, 0:32] = scene.shade_rows
     image = static.flags.has_image
-    if image:
+    object_space = sph_table is None
+    if object_space and fused:
+        raise ValueError("spheres in object space (no world table) render "
+                         "on the wavefront only")
+    if image or object_space:
         if batch_time is None:
-            raise ValueError("a scene with an image texture needs the batch "
-                             "time (its spheres' world-to-object rows)")
+            raise ValueError("a scene with an image texture or spheres in "
+                             "object space needs the batch time (its "
+                             "spheres' world-to-object rows)")
         w2o = transforms.interpolate_instances(
             scene.inst_t0, scene.inst_t1, batch_time).world_to_object
         rows[:s_pad, 32:44] = w2o[scene.sph_inst.long()].reshape(s_pad, 12)
@@ -286,6 +309,12 @@ def prepare_batch(static: SceneStatic, scene: SceneArrays,
     if static.has_lights and extra.get("inst_o2w_rows") is None:
         raise ValueError("a scene with lights needs the batch time (or "
                          "prepare_tris's tables)")
+    if object_space:
+        return BatchGeometry(
+            sph_table8=None, prim_rows=rows, atlas_words=atlas_words,
+            sph_obj16=spheres.object_sphere_table(
+                rows[:s_pad, 32:44].reshape(s_pad, 3, 4),
+                scene.sph_center, scene.sph_radius), **extra)
     table8 = sphere_sweep.pad_table8(sph_table)
     n_prefix = sphere_prefix(static, fused)
     if n_prefix is not None and sph_tree is None:
@@ -331,19 +360,36 @@ def combine_hits(sph: Optional[SphereHit], tri: Optional[Hit], s_pad: int,
                   bv=torch.where(sphere_wins, 0.0, tri.v))
 
 
+def bvh_tree(static: SceneStatic,
+             scene: SceneArrays) -> Optional[bvh.BVHTree]:
+    """The scene's BVH as H1 walks it (its node rows and static facts), on
+    a soup in the order of its SAH or implicit BVH; else None."""
+    if static.bvh_mode not in BVH_MODES:
+        return None
+    return bvh.BVHTree(nodes=scene.bvh_child_boxes, root=static.bvh_root,
+                       stack_depth=static.bvh_stack_depth,
+                       leaf=static.bvh_leaf_size,
+                       num_tris=static.num_triangles)
+
+
 def make_trace_fn(static: SceneStatic, scene: SceneArrays,
                   geom: BatchGeometry) -> Callable:
     """trace(o, d, alive) -> RawHit for this batch: the triangle sweep
-    (K2 over the soup's tree, or the paged sweep K3 on a "paged" soup),
-    then the sphere sweep (K1, over the batch's sphere tree where it has
-    one), each only where the scene has such primitives
+    (K2 over the soup's tree, the paged sweep K3 on a "paged" soup, or the
+    BVH walk H1 on a soup in the order of its SAH or implicit BVH), then
+    the sphere sweep (K1, over the batch's sphere tree where it has one,
+    or H2 where the batch's spheres are in object space, ``sph_obj16``),
+    each only where the scene has such primitives
     (raytrace_tpu/engine/wavefront.py:138-232).  Raises where the batch's
-    sphere tree is not the one K1 walks (``sphere_sweep.tree_prefix``):
-    K1 sweeps every sphere only where no tree pays, never for want of one."""
+    sphere tree is not the one K1 walks
+    (``sphere_sweep.tree_prefix``): K1 sweeps every sphere only where no
+    tree pays, never for want of one."""
     s_pad = scene.sph_center.shape[0]
     n_prefix = sphere_sweep.tree_prefix(static)
     tree = geom.sph_tree
-    if ((static.has_spheres or not static.has_tris)
+    sweep_spheres = static.has_spheres or not static.has_tris
+    tri_bvh = bvh_tree(static, scene)
+    if (geom.sph_obj16 is None and sweep_spheres
             and (None if tree is None else tree.n_prefix) != n_prefix):
         want = ("no tree" if n_prefix is None
                 else f"a tree past the first {n_prefix} spheres")
@@ -354,15 +400,21 @@ def make_trace_fn(static: SceneStatic, scene: SceneArrays,
                          f"build it with prepare_batch(fused=False)")
 
     def trace(o: V3, d: V3, alive) -> RawHit:
-        tri = None
+        tri = sph = None
         if static.bvh_mode == "paged":
             tri = paged_tri.intersect_tris_paged(o, d, geom.tri_tree, alive)
+        elif tri_bvh is not None:
+            tri = bvh.intersect_tris_bvh(o, d, geom.tri_table12, tri_bvh,
+                                         alive)
         elif static.has_tris:
             tri = tri_sweep.intersect_tris_sweep(o, d, geom.tri_table16,
                                                  alive, geom.tri_tree)
-        sph = (sphere_sweep.intersect_spheres_sweep(o, d, geom.sph_table8,
-                                                    alive, geom.sph_tree)
-               if static.has_spheres or not static.has_tris else None)
+        if geom.sph_obj16 is not None:
+            sph = sphere_obj.intersect_spheres_object(o, d, geom.sph_obj16,
+                                                      alive)
+        elif sweep_spheres:
+            sph = sphere_sweep.intersect_spheres_sweep(
+                o, d, geom.sph_table8, alive, geom.sph_tree)
         return combine_hits(sph, tri, s_pad)
 
     return trace
@@ -370,7 +422,8 @@ def make_trace_fn(static: SceneStatic, scene: SceneArrays,
 
 def reconstruct_hit(raw: RawHit, ray_o: V3, ray_d: V3, rows,
                     geom: BatchGeometry, s_pad: int,
-                    has_image: bool = False) -> HitRecord:
+                    has_image: bool = False,
+                    object_space: bool = False) -> HitRecord:
     """RawHit → HitRecord.  A sphere's normal is the direct one from the
     fat rows, (hit - c_world) / r_world; a triangle's hit point is
     v0 + u e1 + v e2 from the position table and its normal the
@@ -378,10 +431,11 @@ def reconstruct_hit(raw: RawHit, ray_o: V3, ray_d: V3, rows,
     then normalised (raytrace_tpu/engine/wavefront.py:321-341, :355-365,
     :388-399).
 
-    With ``has_image`` the sphere takes JAX's world-to-object branch
-    (:366-386) from the rows of ``prepare_batch``: the hit point moved to
-    object space, the object normal (p_obj - c) / r taken back to world
-    space by the transposed matrix, and the UV of the tessellator's
+    With ``has_image``, or ``object_space`` (spheres without a world
+    table), the sphere takes JAX's world-to-object branch (:366-386) from
+    the rows of ``prepare_batch``: the hit point moved to object space,
+    the object normal (p_obj - c) / r taken back to world space by the
+    transposed matrix; with ``has_image`` also the UV of the tessellator's
     parameterisation, v = arccos(-n.y) / pi and u = arctan2(n.z, -n.x) /
     2 pi floor-mod 1, of the unit object normal; a triangle's UV is the
     barycentric lerp of its attribute rows' uv0, duv1, duv2."""
@@ -389,18 +443,19 @@ def reconstruct_hit(raw: RawHit, ray_o: V3, ray_d: V3, rows,
     r = rows[:, 47]
     inv_r = 1.0 / torch.where(r == 0.0, 1.0, r)
     su = sv = None
-    if has_image:
+    if has_image or object_space:
         m_cols = tuple(rows[:, 32 + i] for i in range(12))
         p_obj = vec3.mat34_apply_point(m_cols, p)
         n_obj = V3((p_obj.x - rows[:, 44]) * inv_r,
                    (p_obj.y - rows[:, 45]) * inv_r,
                    (p_obj.z - rows[:, 46]) * inv_r)
         n = vec3.mat34_apply_transposed_vec(m_cols, n_obj)
+    if has_image:
         nn = vec3.normalize(n_obj)
         sv = torch.arccos(torch.clamp(-nn.y, -1.0, 1.0)) / spheres.PI
         su = torch.remainder(torch.arctan2(nn.z, -nn.x) / spheres.TWO_PI,
                              1.0)
-    else:
+    if not (has_image or object_space):
         c = V3(rows[:, 44], rows[:, 45], rows[:, 46])
         n = V3((p.x - c.x) * inv_r, (p.y - c.y) * inv_r, (p.z - c.z) * inv_r)
     if geom.tri_table16 is not None:
@@ -454,7 +509,8 @@ def _bounce(static: SceneStatic, scene: SceneArrays, bg: V3, trace_fn,
     rows = geom.prim_rows[torch.clamp(prim, 0, P - 1)]
 
     rec = reconstruct_hit(raw, w.ray_o, w.ray_d, rows, geom, s_pad,
-                          static.flags.has_image)
+                          static.flags.has_image,
+                          geom.sph_obj16 is not None)
     front = vec3.dot(w.ray_d, rec.n) < 0.0   # common.glsl:239-241
     normal = vec3.where(front, rec.n, -rec.n)
 

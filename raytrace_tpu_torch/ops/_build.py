@@ -30,12 +30,13 @@ NVCC_FLAGS = (
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 # Flags a kernel adds to NVCC_FLAGS.  The fused bounce kernel, the sphere
-# sweep, the two triangle sweeps and the three dev probes are built
-# without multiply-add contraction, so each of their operations rounds as
-# the plain PyTorch version's elementwise kernels do.
+# sweeps (world and object space), the triangle sweeps and the BVH walk,
+# and the three dev probes are built without multiply-add contraction, so
+# each of their operations rounds as the plain PyTorch version's
+# elementwise kernels do.
 KERNEL_FLAGS = {name: ("-fmad=false",) for name in (
-    "megakernel", "sphere_sweep", "tri_sweep", "paged_tri", "probe_ops",
-    "probe_trig", "micro_raygen")}
+    "megakernel", "sphere_sweep", "tri_sweep", "paged_tri", "bvh_walk",
+    "sphere_obj", "probe_ops", "probe_trig", "micro_raygen")}
 # Libraries built from another library's source, with their own flags:
 # the fused bounce kernel's measuring build (csrc/megakernel.cu under
 # K4_MEASURE: its warp lanes-busy counts and phase clocks; loaded by

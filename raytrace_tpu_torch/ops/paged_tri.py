@@ -290,12 +290,13 @@ def _inv(x: torch.Tensor) -> torch.Tensor:
 
 
 def _slab(o3, iv3, boxes: torch.Tensor, best_t: torch.Tensor, hi: int = 4,
-          margin=None):
+          margin=None, enter: bool = False):
     """The slab test of rays (o3, iv3: three [..] tensors) against boxes
     ([.., 8] with the max at column 4, or [.., 6] with ``hi`` 3; broadcast
     against the rays), pruned by each ray's best t
     (raytrace_tpu/ops/pallas_paged_tri.py:226-236, :241-251); each box
-    first widened by ``margin`` where one is given."""
+    first widened by ``margin`` where one is given.  With ``enter`` it
+    returns the entry t beside the mask."""
     te = tx = None
     for ax in range(3):
         lo, up = boxes[..., ax], boxes[..., hi + ax]
@@ -306,7 +307,8 @@ def _slab(o3, iv3, boxes: torch.Tensor, best_t: torch.Tensor, hi: int = 4,
         tn, tf = torch.minimum(a0, a1), torch.maximum(a0, a1)
         te = tn if te is None else torch.maximum(te, tn)
         tx = tf if tx is None else torch.minimum(tx, tf)
-    return (te <= tx) & (tx > T_MIN) & (te < best_t * 1.0001 + 1e-4)
+    hit = (te <= tx) & (tx > T_MIN) & (te < best_t * 1.0001 + 1e-4)
+    return (hit, te) if enter else hit
 
 
 def _cluster_hits(o3, d3, tris: torch.Tensor, tri_ids: torch.Tensor,

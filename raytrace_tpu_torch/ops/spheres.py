@@ -1,10 +1,16 @@
 """Analytic spheres in world space (raytrace_tpu/ops/spheres.py:104, :137,
-:203).
+:203) and in object space (:40).
 
 Any rigid + uniform-scale instance maps a sphere to a sphere, so each batch
 gets a world table (c.xyz, r, k = |c|^2 - r^2) precomputed on the host in
 float64, which keeps k exact for the 1000-radius ground sphere.  The
 closest hit is then the stable "h-form" quadratic against every sphere.
+
+A scene with a non-uniform instance scale (an ellipsoid) has no world
+table: ``intersect_spheres`` takes each ray into each sphere's object
+space through its world-to-object matrix at the batch time
+(``object_sphere_table``) and solves the quadratic there; it is the plain
+version of the kernel H2 (ops/sphere_obj.py).
 """
 
 from __future__ import annotations
@@ -149,6 +155,65 @@ def intersect_spheres_world(o: V3, d: V3, table) -> SphereHit:
         disc = h * h - a * c2
         ok = (disc >= 0.0) & (r > 0.0)
         sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+        t1 = (-h - sq) * inv_a
+        t2 = (-h + sq) * inv_a
+        t1_ok = ok & (t1 > T_MIN) & (t1 < T_MAX)
+        t2_ok = ok & (t2 > T_MIN) & (t2 < T_MAX)
+        t = torch.where(t1_ok, t1, torch.where(t2_ok, t2, T_MAX))
+        tc, arg = torch.min(t, dim=0)
+        better = tc < best_t
+        best_t = torch.where(better, tc, best_t)
+        best_id = torch.where(better, (arg + s0).to(torch.int32), best_id)
+    return SphereHit(t=best_t, sph=best_id)
+
+
+def object_sphere_table(w2o: torch.Tensor, centers: torch.Tensor,
+                        radii: torch.Tensor) -> torch.Tensor:
+    """[S, 3, 4] world-to-object matrices (each sphere's instance's, at the
+    batch time), [S, 3] object-space centres and [S] radii → the [S8, 16]
+    table of ``intersect_spheres`` and the kernel H2: M's 12 floats
+    row-major, then c.xyz and r (S8 = S rounded up to a multiple of 8, at
+    least 8; padding rows all zero: r = 0 never hits)."""
+    S = centers.shape[0]
+    S8 = max(8, -(-S // 8) * 8)
+    out = torch.zeros((S8, 16), dtype=torch.float32, device=centers.device)
+    out[:S, 0:12] = w2o.reshape(S, 12)
+    out[:S, 12:15] = centers
+    out[:S, 15] = radii
+    return out
+
+
+def intersect_spheres(o: V3, d: V3, table16: torch.Tensor) -> SphereHit:
+    """Closest hit of rays (V3 of [R]) against spheres in object space
+    (raytrace_tpu/ops/spheres.py:40-101): per sphere the ray moved by its
+    world-to-object M, o' = M o + t and d' = M d (each row summed left to
+    right, as the JAX einsum), then the quadratic against the object-space
+    centre and radius, t1 before t2, both in (T_MIN, T_MAX), r > 0 and
+    a > 0.  table16 is ``object_sphere_table``'s.  Swept in chunks whose
+    [chunk, R] temporaries stay near 64 MiB; the first minimum wins within
+    a chunk and a strictly closer chunk replaces the best, so ties go to
+    the lowest sphere id.  Returns (T_MAX, -1) on a miss."""
+    R = o.x.shape[0]
+    S = table16.shape[0]
+    chunk = max(8, min(128, _CHUNK_ELEMS // max(R, 1)) // 8 * 8)
+    best_t = torch.full((R,), T_MAX, dtype=torch.float32, device=o.x.device)
+    best_id = torch.full((R,), -1, dtype=torch.int32, device=o.x.device)
+    for s0 in range(0, S, chunk):
+        tb = table16[s0:s0 + chunk]
+        m = [tb[:, i:i + 1] for i in range(12)]                 # [C, 1]
+        cx, cy, cz, r = (tb[:, i:i + 1] for i in range(12, 16))
+        po = [m[4 * i] * o.x + m[4 * i + 1] * o.y + m[4 * i + 2] * o.z
+              + m[4 * i + 3] for i in range(3)]                 # [C, R]
+        pd = [m[4 * i] * d.x + m[4 * i + 1] * d.y + m[4 * i + 2] * d.z
+              for i in range(3)]
+        ocx, ocy, ocz = po[0] - cx, po[1] - cy, po[2] - cz
+        a = pd[0] * pd[0] + pd[1] * pd[1] + pd[2] * pd[2]
+        h = pd[0] * ocx + pd[1] * ocy + pd[2] * ocz
+        c2 = ocx * ocx + ocy * ocy + ocz * ocz - r * r
+        disc = h * h - a * c2
+        ok = (disc >= 0.0) & (r > 0.0) & (a > 0.0)
+        sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+        inv_a = 1.0 / torch.where(a == 0.0, 1.0, a)
         t1 = (-h - sq) * inv_a
         t2 = (-h + sq) * inv_a
         t1_ok = ok & (t1 > T_MIN) & (t1 < T_MAX)

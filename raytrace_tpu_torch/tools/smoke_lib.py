@@ -97,13 +97,16 @@ PARTIAL_WARP_DEPTHS = (1, 50)
 # in csrc/tri_tree.cuh, compiles as when it was K3's alone.
 K3_BEFORE = (48, 0)
 # The walks of K1 and K2 (csrc/sphere_sweep.cu sphere_sweep_kernel,
-# csrc/tri_sweep.cu tri_sweep_kernel) as they compile with their trees:
-# (registers, spill-store bytes), pinned from their first build on the
-# card (PERF.md §6); each source's dense entry point is printed, not
-# pinned.
+# csrc/tri_sweep.cu tri_sweep_kernel) as they compile with their trees,
+# and the BVH walk H1 and the object-space sphere sweep H2
+# (csrc/bvh_walk.cu, csrc/sphere_obj.cu): (registers, spill-store bytes),
+# pinned from their first build on the card (PERF.md §6); each source's
+# dense entry point is printed, not pinned.
 WALK_KERNELS = {"K1": ("sphere_sweep", "sphere_sweep_kernel"),
-                "K2": ("tri_sweep", "tri_sweep_kernel")}
-WALKS_BEFORE = {"K1": (56, 0), "K2": (48, 0)}
+                "K2": ("tri_sweep", "tri_sweep_kernel"),
+                "H1": ("bvh_walk", "bvh_walk_kernel"),
+                "H2": ("sphere_obj", "sphere_obj_kernel")}
+WALKS_BEFORE = {"K1": (56, 0), "K2": (48, 0), "H1": (48, 0), "H2": (48, 0)}
 # The image forms: each form but the animated one, with and without noise.
 IMAGE_FORMS = sorted(IMAGE_FORMS_BEFORE)
 DENSE_FORMS = sorted(list(FORMS_BEFORE) + IMAGE_FORMS)
@@ -518,18 +521,28 @@ def rows_to_v3(a, dev):
 
 def kernel_builds():
     """The loader of each library phase 2 builds, by library name: the
-    seven kernel sources and K4's measuring build."""
-    from raytrace_tpu_torch.ops import (megakernel, paged_tri, sphere_sweep,
-                                        tri_sweep)
+    nine kernel sources, K4's measuring build and the host library of
+    the native SAH builder (g++, models/bvh_native.py; a failed build
+    raises here)."""
+    from raytrace_tpu_torch.models import bvh_native
+    from raytrace_tpu_torch.ops import (bvh, megakernel, paged_tri,
+                                        sphere_obj, sphere_sweep, tri_sweep)
     from raytrace_tpu_torch.tools_dev import (micro_raygen, probe_ops,
                                               probe_trig)
+
+    def sah_builder():
+        if bvh_native.get_library() is None:
+            raise RuntimeError(f"the native SAH builder did not build: "
+                               f"{bvh_native.error()}")
 
     return {"sphere_sweep": sphere_sweep.library,
             "tri_sweep": tri_sweep.library, "megakernel": megakernel.library,
             "megakernel_measure": megakernel.measure_library,
-            "paged_tri": paged_tri.library, "probe_ops": probe_ops.library,
+            "paged_tri": paged_tri.library, "bvh_walk": bvh.library,
+            "sphere_obj": sphere_obj.library, "probe_ops": probe_ops.library,
             "probe_trig": probe_trig.library,
-            "micro_raygen": micro_raygen.library}
+            "micro_raygen": micro_raygen.library,
+            "bvh_builder": sah_builder}
 
 
 def build_kernels(names=None):
@@ -551,6 +564,10 @@ def build_kernels(names=None):
     with concurrent.futures.ThreadPoolExecutor(len(loads)) as pool:
         secs = dict(zip(loads, pool.map(timed_build, loads.values())))
     for name, sec in secs.items():
+        if name == "bvh_builder":
+            print(f"build: the native SAH builder (csrc/bvh_builder.cc, "
+                  f"g++) in {sec:.2f} s")
+            continue
         print(f"build: {name} ({_build.source(name).name}) in {sec:.2f} s")
         log = _build.library_path(name).with_suffix(".log")
         if log.exists() and name != "megakernel_measure":

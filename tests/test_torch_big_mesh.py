@@ -139,8 +139,10 @@ def test_paged_and_dense_sweeps_render_the_same_bytes(name, monkeypatch):
 def test_use_bvh_options():
     jcs = _jcs("box-grid")
     cs = from_jax_compiled(jcs)
-    with pytest.raises(NotImplementedError, match="SAH BVH"):
-        Renderer(cs, device="cpu", use_bvh=True)
+    # True builds the SAH BVH (tests/test_torch_bvh.py holds its renders).
+    r = Renderer(cs, device="cpu", use_bvh=True)
+    assert r.static.bvh_mode == "sah" and r.path == "wavefront"
+    assert r.compiled.tri_p.shape[0] % 256 == 0
     with pytest.raises(ValueError, match="use_bvh"):
         Renderer(cs, device="cpu", use_bvh="sah")
     # "paged" at any size; a scene without triangles has nothing to page.

@@ -71,7 +71,17 @@ and byte for byte with its check-only kernel there, at lengths 1, 7, 8,
 inputs, the C launcher's split the Python ``plan``, P3's three variants bit for bit at 4 iterations at both shapes, two
 launches byte-identical, and byte for byte with its sequential entry
 point at 20,000 iterations at shape (a) (the split kernel) and at 1 and
-16 at shape (b); each module's main runs on the card.
+16 at shape (b); each module's main runs on the card.  The BVH walk H1
+(use_bvh=True, built without contraction): bit for bit with its plain
+version and with K2's dense entry point over the SAH and the implicit
+tree of a static and a moving box grid, and over a one-leaf tree, two
+launches byte-identical; a tree deeper than its stack refused; the SAH
+Renderer byte-identical with use_bvh=False on its soup and within the
+card-vs-CPU limits.  The object-space sphere sweep H2 (built without
+contraction): bit for bit with its plain version on the ellipsoid
+fixture (static and moving) and fow-ellipsoids, two launches
+byte-identical; the ellipsoid Renderer on the card within the
+card-vs-CPU limits.
 """
 
 import dataclasses
@@ -1580,3 +1590,154 @@ def test_probe_mains_run_on_the_card(dev, capsys, monkeypatch):
                and r["b1"]["plain_ms"] > 0 for r in res.values())
     out = capsys.readouterr().out
     assert out.count("PASS ") == 10 and "FAIL" not in out
+
+
+# ---- the BVH walk H1 and the object-space sphere sweep H2 --------------------
+
+def _bvh_tree(soup_cs, data, dev):
+    from raytrace_tpu_torch.ops import bvh
+
+    rows, root = bvh.node_rows(data, soup_cs.num_triangles)
+    return bvh.BVHTree(torch.tensor(rows, device=dev), root, data.depth + 2,
+                       data.leaf_size, soup_cs.num_triangles)
+
+
+def _assert_h1_is_plain(o, d, table12, tree, alive, table16):
+    """H1, twice, its plain version and K2's dense entry point give the
+    same bits.  Returns H1's hit."""
+    from raytrace_tpu_torch.ops import bvh
+
+    before = bvh.LAUNCHES
+    hit = bvh.intersect_tris_bvh(o, d, table12, tree, alive)
+    again = bvh.intersect_tris_bvh(o, d, table12, tree, alive)
+    assert bvh.LAUNCHES == before + 2
+    plain = bvh.bvh_walk_reference(o, d, table12, tree, alive)
+    dense = tri_sweep.intersect_tris_dense(o, d, table16, alive)
+    torch.cuda.synchronize()
+    for a, b, c, e in zip(hit, again, plain, dense):
+        assert a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+        assert a.cpu().numpy().tobytes() == c.cpu().numpy().tobytes()
+        assert a.cpu().numpy().tobytes() == e.cpu().numpy().tobytes()
+    return hit
+
+
+@pytest.mark.parametrize("mode", ["sah", "implicit"])
+@pytest.mark.parametrize("moving", [False, True])
+def test_bvh_walk_matches_plain(dev, mode, moving):
+    """H1 over the SAH tree and the implicit one of a 5,000-instance box
+    grid (static, or sliding over the shutter: its batch's world rows
+    under the shutter-wide boxes), on random rays with an alive mask."""
+    from raytrace_tpu_torch.engine import wavefront
+    from raytrace_tpu_torch.models import bvh_build
+    from raytrace_tpu_torch.tools import stress_scenes
+
+    cs = _doc_cs(stress_scenes.box_grid_doc(5000, moving), 32, 4, 2)
+    data = (bvh_build.build_bvh_sah(cs) if mode == "sah"
+            else bvh_build.build_bvh(cs, 4))
+    assert data is not None and data.mode == mode
+    soup = bvh_build.permute_soup(cs, data.order)
+    r = Renderer(soup, device=dev, use_megakernel=False, use_bvh=False)
+    tris = wavefront.prepare_tris(r.static, r.scene, r.batch_times_dev[1])
+    n = soup.num_triangles
+    wp = tris["world_p"][:n].cpu().numpy()
+    o, d, alive = _tri_rays(wp, 1 << 16, seed=8, dev=dev)
+    hit = _assert_h1_is_plain(o, d, tris["tri_table12"],
+                              _bvh_tree(soup, data, dev), alive,
+                              tris["tri_table16"])
+    assert (hit.tri >= 0).sum() > 1000
+
+
+def test_bvh_walk_refuses_a_deep_tree_and_walks_one_leaf(dev):
+    from raytrace_tpu_torch.ops import bvh
+
+    tri = _tri_soup(5, seed=9)
+    wp = torch.tensor(tri, device=dev)
+    table16 = tri_sweep.pack_tri_table(wp, 5)
+    table12 = megakernel.tri_table12(table16)
+    one_leaf = bvh.BVHTree(torch.zeros((1, 16), device=dev),
+                           bvh.leaf_link(0, 5), 2, 8, 5)
+    o, d, alive = _tri_rays(tri, 4096, seed=10, dev=dev)
+    assert (_assert_h1_is_plain(o, d, table12, one_leaf, alive,
+                                table16).tri >= 0).any()
+    with pytest.raises(ValueError, match="stack"):
+        bvh.intersect_tris_bvh(o, d, table12, one_leaf._replace(
+            stack_depth=bvh.MAX_STACK + 1), alive)
+
+
+def test_sah_renderer_on_card_matches_dense_and_cpu(dev):
+    """final-one-weekend's four large spheres tessellated (28,032
+    triangles), use_bvh=True on the card: H1 launched, the same bytes as
+    use_bvh=False (K2) on the same soup, and within the card-vs-CPU limits
+    of the CPU's SAH render."""
+    from raytrace_tpu_torch.ops import bvh
+    from raytrace_tpu_torch.tools import stress_scenes
+
+    cs = compile_scene(SceneFile.from_json_dict(
+        stress_scenes.big_spheres_doc()), width=64, analytic_spheres=False)
+    cs = dataclasses.replace(cs, render=dataclasses.replace(
+        cs.render, max_ray_depth=8, sample_batches=1))
+    before = bvh.LAUNCHES
+    r = Renderer(cs, device=dev, use_bvh=True)
+    assert r.static.bvh_mode == "sah" and r.path == "wavefront"
+    img = r.render_all()
+    assert bvh.LAUNCHES > before
+    k2 = Renderer(r.compiled, device=dev, use_bvh=False)
+    assert img.tobytes() == k2.render_all().tobytes()
+    cpu = Renderer(cs, device="cpu", use_bvh=True)
+    c_img = cpu.render_all()
+    np.testing.assert_allclose(img.mean(axis=(0, 1)), c_img.mean(axis=(0, 1)),
+                               atol=1e-2)
+    assert abs(r.stats.rays_traced - cpu.stats.rays_traced) <= (
+        0.02 * cpu.stats.rays_traced)
+
+
+@pytest.mark.parametrize("moving", [False, True])
+def test_object_sphere_sweep_matches_plain(dev, moving):
+    """H2 on the ellipsoid fixture's table at a batch time (and fow-
+    ellipsoids' 488 spheres), on random rays with an alive mask: bit for
+    bit with its plain version, two launches byte-identical."""
+    from raytrace_tpu_torch.ops import sphere_obj, spheres
+    from raytrace_tpu_torch.tools import ellipsoid_scenes
+
+    for doc in (ellipsoid_scenes.ellipsoid_fixture_doc(moving=moving),
+                ellipsoid_scenes.fow_ellipsoids_doc()):
+        r = Renderer(_doc_cs(doc, 32, 4, 2), device=dev)
+        assert r.path == "wavefront" and not r.static.sphere_world_mode
+        table = r._geometry(1).sph_obj16
+        g = np.random.default_rng(12)
+        R = 1 << 16
+        o = g.uniform([-12, -6, -12], [14, -0.2, 12], (R, 3))
+        d = g.uniform([-5, -3, -3], [5, 0.5, 3], (R, 3)) - o
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        ov, dv = (V3(*(torch.tensor(np.ascontiguousarray(a[:, i], np.float32),
+                                    device=dev) for i in range(3)))
+                  for a in (o, d))
+        alive = torch.tensor(g.random(R) < 0.8, device=dev)
+        before = sphere_obj.LAUNCHES
+        hit = sphere_obj.intersect_spheres_object(ov, dv, table, alive)
+        again = sphere_obj.intersect_spheres_object(ov, dv, table, alive)
+        assert sphere_obj.LAUNCHES == before + 2
+        plain = spheres.intersect_spheres(ov, dv, table)
+        torch.cuda.synchronize()
+        want = (torch.where(alive, plain.t, T_MAX),
+                torch.where(alive, plain.sph, -1))
+        for a, b, c in zip(hit, again, want):
+            assert a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+            assert a.cpu().numpy().tobytes() == c.cpu().numpy().tobytes()
+        assert (hit.sph >= 0).sum() > 1000
+
+
+def test_ellipsoid_render_on_card_matches_cpu(dev):
+    from raytrace_tpu_torch.ops import sphere_obj
+    from raytrace_tpu_torch.tools import ellipsoid_scenes
+
+    cs = _doc_cs(ellipsoid_scenes.ellipsoid_fixture_doc(triangles=True), 96,
+                 8, 1)
+    before = sphere_obj.LAUNCHES
+    gpu = Renderer(cs, device=dev)
+    assert gpu.path == "wavefront" and not gpu.static.sphere_world_mode
+    g_img = gpu.render_all()
+    assert sphere_obj.LAUNCHES > before
+    c_img = Renderer(cs, device="cpu").render_all()
+    np.testing.assert_allclose(g_img.mean(axis=(0, 1)),
+                               c_img.mean(axis=(0, 1)), atol=1e-2)

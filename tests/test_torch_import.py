@@ -1,5 +1,6 @@
 """The PyTorch port loads without JAX and without the JAX package
-(raytrace_tpu), and chip_smoke.py refuses to run without a CUDA device."""
+(raytrace_tpu) or its top-level ``native``, and chip_smoke.py refuses to
+run without a CUDA device."""
 
 import os
 import pathlib
@@ -61,6 +62,25 @@ def test_port_sources_never_import_the_jax_package():
     assert pattern.search("from raytrace_tpu.models import compile_scene")
     assert pattern.search("import raytrace_tpu\n")
     assert not pattern.search("from raytrace_tpu_torch import cli")
+
+
+def test_port_sources_never_import_the_native_package():
+    """The port builds its own copy of the SAH builder
+    (raytrace_tpu_torch/csrc/bvh_builder.cc, models/bvh_native.py) and
+    never loads the JAX package's top-level ``native``."""
+    pattern = re.compile(r"^\s*(import native|from native)(\.|\s|$)",
+                         re.MULTILINE)
+    sources = [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]
+    offenders = [str(p.relative_to(REPO)) for p in sources
+                 if pattern.search(p.read_text())]
+    assert offenders == []
+    assert pattern.search("        from native import build_sah_bvh")
+    assert pattern.search("import native\n")
+    assert not pattern.search("from .bvh_native import build_sah_bvh")
+    proc = _run(["-c", _IMPORT_ALL.replace(
+        'print(len(names))',
+        'assert "native" not in sys.modules\nprint(len(names))')], REPO)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_chip_smoke_refuses_without_cuda():

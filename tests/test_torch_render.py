@@ -155,14 +155,14 @@ def _big_mesh_doc(n_boxes=1366):
     pytest.param(_tiny_doc(material="l"), None, id="doc1-NEE with lights"),
     # Noise textures are inside the slice now: the marble renders.
     pytest.param(_tiny_doc(albedo="n"), None, id="doc2-Noise textures"),
-    # Motion blur is inside the slice; a moving ellipsoid is not, for its
-    # shape.
+    # Motion blur is inside the slice, and object-space spheres are now:
+    # a moving ellipsoid and a static one render.
     pytest.param(_tiny_doc(transform={"animated": [
         {"translate": [0, 0, 0]}, {"translate": [0, 1, 0],
                                    "scale": [1, 2, 1]}]}),
-        "Object-space spheres", id="doc3-Motion blur"),
-    (_tiny_doc(transform={"static": {"scale": [1, 2, 1]}}),
-     "Object-space spheres"),
+        None, id="doc3-Motion blur"),
+    pytest.param(_tiny_doc(transform={"static": {"scale": [1, 2, 1]}}),
+                 None, id="doc4-Object-space spheres"),
 ])
 def test_scenes_outside_the_slice_raise(doc, item):
     """Each scene outside the slice raises, naming its ROADMAP item; a
@@ -174,7 +174,8 @@ def test_scenes_outside_the_slice_raise(doc, item):
         assert r.path == "wavefront"
         # Each case shows the one feature it ports.
         assert sum((r.static.has_lights, r.static.bvh_mode == "paged",
-                    r.static.flags.has_noise)) == 1
+                    r.static.flags.has_noise,
+                    not r.static.sphere_world_mode)) == 1
         assert img.shape == (8, 16, 3) and np.isfinite(img).all()
         assert img.max() > 0.0
         return

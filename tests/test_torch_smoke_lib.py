@@ -258,7 +258,8 @@ def test_kernel_builds_include_the_measuring_build():
 
     builds = smoke_lib.kernel_builds()
     assert builds["megakernel_measure"] is megakernel.measure_library
-    assert len(builds) == 8
+    # The nine kernel sources, the measuring build and the SAH builder.
+    assert len(builds) == 11 and "bvh_builder" in builds
     assert _build.source("megakernel_measure") == _build.source("megakernel")
     assert "-DK4_MEASURE" in _build.nvcc_flags("megakernel_measure")
     assert "-DK4_MEASURE" not in _build.nvcc_flags("megakernel")
