@@ -239,7 +239,22 @@ printing a result.  No path runs at a cut depth.  Phases:
    fow-ellipsoids with defaults (the wavefront, H2 alone launched): H2
    bit for bit with its plain version on the 3,240,000 primary rays,
    timed there and on every bounce's rays, its 25 batches, Mrays/s and
-   the image checks; final-one-weekend and its
+   the image checks; then fow-registry (tools/registry_scenes.py:
+   final-one-weekend with every metal's fuzz a checker, which the fat
+   shading row cannot encode; 1200x675, 4 spp, depth 50) with defaults:
+   the wavefront with registry shading and K1 (launches counted from 0,
+   K4 none), two batches stepped, Mrays/s, the image checks, and a 48x27
+   frame on the card against the CPU; then the sharded renderer
+   (raytrace_tpu_torch/parallel/multichip.py): K4's row-range launch
+   (rows 338-405 of final-one-weekend's 675, samples 2-3 of 4) bit for bit
+   with its plain version and timed; world size 1 over NCCL at 1200x675, a
+   stepped batch and a 12-batch chunk byte-identical with the Renderer's;
+   two ranks sharing the one card over gloo (their own processes,
+   smoke_lib.multichip_rank): sp=2 and px=2 on the fused path at 240x135
+   (K4 on a rank's rows and samples) and sc=2 on the wavefront at 120x68
+   (K1 over each rank's slice of the spheres), px and sc byte-identical
+   with the single-device render and sp within TWO_RANK_SP_ATOL, the
+   collectives' host time a batch and its share; final-one-weekend and its
    motion-blur twin must count every K4 launch as clustered; then
    stress-4x's and stress-16k's Renderer with defaults, which must take
    the fused path in K4's clustered form (K1 not launched), Mrays/s over
@@ -412,6 +427,19 @@ FLOPS_PER_OBJ_SPHERE_TEST = 65
 # channel means within this.  earth-motion-blur's batch on fused_per_batch against
 # its wavefront batch, the same.
 EARTH_SIZE = (512, 512)
+# fow-registry's stepped batches on defaults (the wavefront).
+REGISTRY_BATCHES = 2
+# K4's row range held to its plain version: (row_base, rows, spp_local,
+# sample_base) of final-one-weekend's 1200x675 frame.
+ROW_RANGE = (338, 68, 2, 2)
+# The two-rank phase's frames: final-one-weekend on the fused path and on
+# the wavefront; its limits: the rendezvous's wait, and an sp split's
+# largest difference from the single-device render (the sample sums'
+# order changes).
+TWO_RANK_FUSED = (240, 135)
+TWO_RANK_WAVE = (120, 68)
+TWO_RANK_SECONDS = 240
+TWO_RANK_SP_ATOL = 1e-5
 IMAGE_MEAN_TOL = 1e-4
 def _spheres(static) -> int:
     """The scene's real spheres: the rows of the sphere table that a bound
@@ -1767,6 +1795,229 @@ def _ellipsoid_paths(ell_json, dev, card):
                 mrays=mrays)
 
 
+def _registry_paths(dev, card):
+    """fow-registry (tools/registry_scenes.py: final-one-weekend with every
+    metal's fuzz a checker, which the fat shading row cannot encode) with
+    defaults: the wavefront with registry shading and K1, two batches
+    stepped (K1's launches counted from 0, K4's none), Mrays/s, the image
+    checks; then a 48x27 frame of it on the card against the CPU.
+    Returns a dict for the kernels line."""
+    from raytrace_tpu_torch.engine import Renderer
+    from raytrace_tpu_torch.models import compile_scene
+    from raytrace_tpu_torch.ops import (bvh, megakernel, paged_tri,
+                                        sphere_obj, sphere_sweep, tri_sweep)
+    from raytrace_tpu_torch.scene_file import SceneFile
+    from raytrace_tpu_torch.tools import registry_scenes
+
+    t0 = time.perf_counter()
+    cs_r = compile_scene(SceneFile.from_json_dict(
+        registry_scenes.fow_registry_doc()), width=WIDTH, height=HEIGHT)
+    compile_s = time.perf_counter() - t0
+    if cs_r.shade_rows is not None or cs_r.num_spheres != 488:
+        raise AssertionError("fow-registry: fat rows, or not 488 spheres")
+    _reset_counts()
+    r = Renderer(cs_r, device=dev)
+    if r.path != "wavefront" or r.use_megakernel:
+        raise AssertionError(f"fow-registry took the {r.path} path")
+    per_batch = _step(r, REGISTRY_BATCHES)
+    launches = sphere_sweep.LAUNCHES
+    if launches <= 0 or (megakernel.LAUNCHES or tri_sweep.LAUNCHES
+                         or paged_tri.LAUNCHES or bvh.LAUNCHES
+                         or sphere_obj.LAUNCHES):
+        raise AssertionError(f"fow-registry did not run on K1 alone (K1 "
+                             f"{launches}, K4 {megakernel.LAUNCHES})")
+    print(f"fow-registry (wavefront, registry shading): {WIDTH}x{HEIGHT}, 4 "
+          f"spp, depth 50, {REGISTRY_BATCHES} batches stepped: "
+          + ", ".join(f"{rays / s / 1e6:.3f}" for rays, s in per_batch)
+          + f" Mrays/s ({[rays for rays, _ in per_batch]} rays, "
+          f"{[round(s, 4) for _, s in per_batch]} s); compile "
+          f"{compile_s:.2f} s; sphere_sweep LAUNCHES={launches}, "
+          f"megakernel, tri_sweep, paged_tri, bvh and sphere_obj "
+          f"LAUNCHES=0 ({card})")
+    _check_image(r.image(), "fow-registry")
+    mrays = _mrays(per_batch[1:])
+    del r
+    small = _scene(cs_r, 48, 27, batches=2)
+    g = Renderer(small, device=dev)
+    c = Renderer(small, device="cpu")
+    g_img, c_img = g.render_all(), c.render_all()
+    g_rays, c_rays = g.stats.rays_traced, c.stats.rays_traced
+    mdiff = np.abs(g_img.mean(axis=(0, 1)) - c_img.mean(axis=(0, 1))).max()
+    rmse = float(np.sqrt(np.mean((g_img - c_img) ** 2)))
+    if g.path != c.path or mdiff > 1e-2 or abs(g_rays - c_rays) > (
+            0.02 * c_rays):
+        raise AssertionError(f"fow-registry card vs CPU at 48x27: paths "
+                             f"{g.path}/{c.path}, mean diff {mdiff}, rays "
+                             f"{g_rays} vs {c_rays}")
+    print(f"fow-registry {g.path} card vs CPU at 48x27, depth 50, 2 "
+          f"batches: max channel-mean diff {mdiff:.3g}, RMSE {rmse:.3g}, "
+          f"rays {g_rays} vs {c_rays} ({card})")
+    return dict(launches=launches, mrays=mrays)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _multichip_paths(cs, fow_per_ray, dev, card):
+    """The sharded renderer (parallel/multichip.py) on the one card: K4's
+    row-range launch (a middle band of final-one-weekend's rows, half its
+    samples) bit for bit with its plain version and timed; world size 1
+    over NCCL at 1200x675, a stepped batch and a 12-batch chunk on the
+    fused path byte-identical with the Renderer's; then two ranks sharing
+    the card over gloo (smoke_lib.multichip_rank): sp=2 and px=2 on the
+    fused path at 240x135 (K4 with a row range and spp_local 2) and sc=2
+    on the wavefront at 120x68 (K1 over each rank's slice), each held to
+    the single-device render.  Returns a dict for the kernels line."""
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from raytrace_tpu_torch.engine import Renderer
+    from raytrace_tpu_torch.ops import megakernel
+    from raytrace_tpu_torch.parallel import MultiChipRenderer
+
+    # K4's row and sample ranges, bit for bit with the plain version.
+    r = Renderer(cs, device=dev)
+    geom = r._geometry(0)
+    row_base, rows, spp_local, base = ROW_RANGE
+    args = (r.static, r.scene, geom, r.camera, 0, 1, base)
+    kw = dict(use_dof=r.use_dof, times=r.batch_times_dev,
+              spp_local=spp_local, row_base=row_base, rows=rows)
+    sums, traced = megakernel.render_tile_mega(*args, **kw)
+    t0 = time.perf_counter()
+    ref, ref_traced = megakernel.megakernel_reference(*args, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    same = torch.equal(sums, ref) and torch.equal(traced, ref_traced)
+    err = float((sums - ref).abs().max())
+    range_traced = int(traced.sum())
+    ms = median_ms(lambda: megakernel.render_tile_mega(*args, **kw), 5)
+    bound, _ = _cluster_bound(geom, fow_per_ray, range_traced, WIDTH, rows,
+                              0)
+    print(f"K4 row range: rows {row_base}..{row_base + rows - 1} of "
+          f"{HEIGHT}, samples {base}..{base + spp_local - 1} of 4, "
+          f"{WIDTH} wide, depth 50: bit for bit with its plain version "
+          f"{same} (max abs err {err:.3g}), {range_traced} bounces; kernel "
+          f"{ms:.3f} ms (median of 5, CUDA events), plain PyTorch "
+          f"{plain_ms:.1f} ms (one run, host clock); bound {bound[0]:.4f} ms "
+          f"by {bound[1]} ({bound[0] / ms:.4f} of it) ({card})")
+    if not same:
+        raise AssertionError("K4's row-range launch differs from its plain "
+                             "version")
+    del r, geom, sums, traced, ref, ref_traced
+
+    # World size 1 over NCCL: the Renderer's bytes.
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        _reset_counts()
+        m = MultiChipRenderer(cs, device=dev)
+        one = Renderer(cs, device=dev)
+        if m.path != "fused" or (m.layout.px, m.layout.sp,
+                                 m.layout.sc) != (1, 1, 1):
+            raise AssertionError(f"world size 1: path {m.path}, layout "
+                                 f"{m.layout}")
+        for k in (1, CHUNK_BATCHES):
+            before = megakernel.LAUNCHES
+            if m.render_batches(k) != k:
+                raise AssertionError("the sharded renderer stopped short")
+            if megakernel.LAUNCHES != before + 1:
+                raise AssertionError(f"world size 1: {k} batches took "
+                                     f"{megakernel.LAUNCHES - before} "
+                                     f"launches")
+            one.render_batches(k)
+            if m.image().tobytes() != one.image().tobytes():
+                raise AssertionError(f"world size 1 differs from the "
+                                     f"Renderer after {m.current_batch} "
+                                     f"batches")
+        rays = torch.tensor([m.stats.rays_traced], device=dev)
+        dist.all_reduce(rays)
+        print(f"multichip world size 1 (NCCL, {dist.get_backend()}): "
+              f"{WIDTH}x{HEIGHT}, a stepped batch and a {CHUNK_BATCHES}-"
+              f"batch chunk, byte-identical with the Renderer; "
+              f"{m.stats.mrays_per_sec:.3f} Mrays/s over "
+              f"{m.current_batch} batches, {int(rays)} rays (an NCCL "
+              f"all_reduce) ({card})")
+        world1_mrays = m.stats.mrays_per_sec
+        del m, one
+    finally:
+        dist.destroy_process_group()
+
+    # Two ranks on the one card over gloo.
+    fused_cs = _scene(cs, *TWO_RANK_FUSED, batches=2)
+    wave_cs = _scene(cs, *TWO_RANK_WAVE, batches=2)
+    jobs = [("sp2", fused_cs, dict(sp=2)), ("px2", fused_cs, dict(sp=1)),
+            ("sc2", wave_cs, dict(sp=1, sc=2))]
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        init = f"file://{os.path.join(tmp, 'init')}"
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=smoke_lib.multichip_rank,
+                             args=(rank, 2, init, jobs, results,
+                                   str(dev)))
+                 for rank in range(2)]
+        for p in procs:
+            p.start()
+        got = {}
+        try:
+            for _ in procs:
+                rank, out, tb = results.get(timeout=TWO_RANK_SECONDS)
+                if tb is not None:
+                    raise AssertionError(f"rank {rank} failed:\n{tb}")
+                got[rank] = out
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+        spawn_s = time.perf_counter() - t0
+    fused_ref = Renderer(fused_cs, device=dev)
+    fused_img = fused_ref.render_all()
+    wave_ref = Renderer(wave_cs, device=dev, use_megakernel=False)
+    wave_img = wave_ref.render_all()
+    out = {}
+    for name, _, _ in jobs:
+        a, b = got[0][name], got[1][name]
+        if a["img"].tobytes() != b["img"].tobytes():
+            raise AssertionError(f"two ranks, {name}: the ranks' images "
+                                 f"differ")
+        ref = wave_img if name == "sc2" else fused_img
+        ref_r = wave_ref if name == "sc2" else fused_ref
+        diff = float(np.abs(a["img"] - ref).max())
+        exact = a["img"].tobytes() == ref.tobytes()
+        kernel = "k1" if name == "sc2" else "k4"
+        if (not exact if name != "sp2" else diff > TWO_RANK_SP_ATOL) or (
+                a["rays"] != ref_r.stats.rays_traced
+                or min(a[kernel], b[kernel]) <= 0):
+            raise AssertionError(f"two ranks, {name}: max diff {diff}, rays "
+                                 f"{a['rays']} vs {ref_r.stats.rays_traced}, "
+                                 f"launches {a[kernel]}/{b[kernel]}")
+        per_batch = [x["collective_s"] / x["batches"] for x in (a, b)]
+        share = [x["collective_s"] / x["render_s"] for x in (a, b)]
+        print(f"two ranks on one card (gloo), {name} {a['path']} layout "
+              f"(px, sp, sc) {a['layout']}, rows {[x['rows'] for x in (a, b)]}"
+              f", samples {[x['samples'] for x in (a, b)]}: "
+              f"{'byte-identical with' if exact else f'max diff {diff:.3g} against'}"
+              f" the single-device render, rays {a['rays']}; "
+              f"{'K1' if name == 'sc2' else 'K4'} launches {a[kernel]} and "
+              f"{b[kernel]}; collectives {per_batch[0] * 1e3:.2f} and "
+              f"{per_batch[1] * 1e3:.2f} ms a batch, {share[0]:.4f} and "
+              f"{share[1]:.4f} of the ranks' render time ({card})")
+        out[name] = dict(launches=a[kernel] + b[kernel],
+                         collective_ms=max(per_batch) * 1e3,
+                         share=max(share), diff=diff)
+    print(f"two ranks on one card: {spawn_s:.1f} s for both processes, "
+          f"start-up and imports included ({card})")
+    return dict(range_ms=ms, range_plain_ms=plain_ms, range_bound=bound,
+                range_err=err, world1_mrays=world1_mrays, two_rank=out)
+
+
 class _Capture(logging.Handler):
     def __init__(self):
         super().__init__()
@@ -1933,6 +2184,7 @@ def main() -> int:
     _print_k1_launch("final-one-weekend", fow_k1, card)
     k4_bound, k4_flat = _cluster_bound(args[2], per_ray, k4_rays, WIDTH,
                                        HEIGHT, 0)
+    fow_per_ray = per_ray
     fow = _warp_models("final-one-weekend", lengths, card)
     fow["measured"] = _measured_busy("final-one-weekend", args, kw, fow,
                                      card)
@@ -2943,6 +3195,11 @@ def main() -> int:
     sah = _sah_paths(cs_mesh, mb_scene, paged_mrays, dev, card)
     ell = _ellipsoid_paths(ell_json, dev, card)
 
+    # Registry shading (fow-registry on the wavefront) and the sharded
+    # renderer on the one card.
+    reg = _registry_paths(dev, card)
+    multi = _multichip_paths(cs, fow_per_ray, dev, card)
+
     # -- 7. checkpoint round trips, same chunk boundaries --------------------
     with tempfile.TemporaryDirectory() as tmp:
         ck = os.path.join(tmp, "ck.npz")
@@ -3098,6 +3355,10 @@ def main() -> int:
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound"][0], "bound_by": k1["bound"][1],
         "library_ms": None, "dense_ms": k1["dense_ms"],
+        # fow-registry's stepped batches (registry shading, the wavefront):
+        # K1's launches there, Mrays/s past the first batch.
+        "registry_launches": reg["launches"],
+        "registry_mrays": reg["mrays"],
         "dense_bound_ms": k1["dense_bound"][0],
         "stress16k_wave_launches": stress["stress-16k"]["k1"]["launches"],
         "stress16k_wave_ms": stress["stress-16k"]["k1"]["ms"],
@@ -3118,6 +3379,26 @@ def main() -> int:
         "plain_ms": anim_plain_ms, "bound_ms": anim_bound[0],
         "bound_by": anim_bound[1], "library_ms": None,
         "flat_bound_ms": anim_flat[0],
+    }, {
+        # K4's launch over a band of final-one-weekend's rows and half its
+        # samples (ROW_RANGE), as a rank of the sharded renderer launches
+        # it; launches: the two-rank phase's sp=2 and px=2 renders, both
+        # ranks.  The collectives' host time a batch and its share of the
+        # ranks' render time, over the three two-rank renders.
+        "name": "megakernel_row_range", "route": "cuda",
+        "source": "raytrace_tpu_torch/csrc/megakernel.cu",
+        "replaces": "raytrace_tpu/ops/megakernel.py:1666",
+        "launches": (multi["two_rank"]["sp2"]["launches"]
+                     + multi["two_rank"]["px2"]["launches"]),
+        "max_abs_err": multi["range_err"], "ms": multi["range_ms"],
+        "plain_ms": multi["range_plain_ms"],
+        "bound_ms": multi["range_bound"][0],
+        "bound_by": multi["range_bound"][1], "library_ms": None,
+        "collective_ms_a_batch": max(
+            x["collective_ms"] for x in multi["two_rank"].values()),
+        "collective_share": max(
+            x["share"] for x in multi["two_rank"].values()),
+        "world1_mrays": multi["world1_mrays"],
     }, {
         "name": "tri_sweep", "route": "cuda",
         "source": "raytrace_tpu_torch/csrc/tri_sweep.cu",

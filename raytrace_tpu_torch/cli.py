@@ -3,7 +3,9 @@
 Usage:
   python -m raytrace_tpu_torch.cli render [--path scene.json] [-o out.png]
       [--width W] [--height H] [--mesh-geometry] [--checkpoint ck.npz]
-      [--resume] [--device cuda|cpu]
+      [--resume] [--device cuda|cpu] [--multichip [--scene-shards N]]
+  torchrun --nproc-per-node N -m raytrace_tpu_torch.cli render --multichip
+      [--scene-shards S] ...
 
 ``--device`` defaults to ``cuda`` and fails with a clear error when no
 CUDA device is present; the CPU has to be asked for with ``--device cpu``.
@@ -15,6 +17,12 @@ wavefront, whose big meshes take the paged sweep K3) and logs it.  The render st
 ``Renderer.chunk_size()`` batches (one fused kernel launch each on the
 fused paths); with ``--checkpoint`` the state is saved after every chunk,
 and ``--resume`` continues from it.
+
+``--multichip`` renders with parallel/multichip.MultiChipRenderer over the
+ranks ``torchrun`` starts (one a card, NCCL; run alone, one rank):
+image rows over "px" and samples over "sp", and with ``--scene-shards S``
+the scene's primitives over an "sc" axis of S ranks.  The first rank
+logs and writes the PNG and checkpoints.
 """
 
 from __future__ import annotations
@@ -57,6 +65,13 @@ def cmd_render(args) -> int:
         log.error("CUDA is not available on this machine; pass --device cpu "
                   "to render on the CPU")
         return 2
+    from .scene_file import SceneError
+
+    if args.scene_shards < 1:
+        raise SceneError(f"--scene-shards must be >= 1, got "
+                         f"{args.scene_shards}")
+    if args.scene_shards > 1 and not args.multichip:
+        raise SceneError("--scene-shards requires --multichip")
     cs = load_scene(args.path, args.width, args.height,
                     analytic_spheres=not args.mesh_geometry)
     log.info("scene: %d spheres, %d triangles, %dx%d, %d spp x %d batches",
@@ -65,7 +80,21 @@ def cmd_render(args) -> int:
              cs.render.sample_batches)
     out = args.output or (os.path.splitext(os.path.basename(args.path))[0]
                           + ".png")
-    renderer = Renderer(cs, device=args.device)
+    if args.multichip:
+        from .parallel import MultiChipRenderer
+
+        try:
+            renderer = MultiChipRenderer(
+                cs, device=args.device,
+                sc=args.scene_shards if args.scene_shards > 1 else None)
+        except ValueError as e:
+            raise SceneError(str(e))
+        lay = renderer.layout
+        if not renderer.is_lead:
+            log.setLevel(logging.WARNING)
+        log.info("multichip: px=%d sp=%d sc=%d", lay.px, lay.sp, lay.sc)
+    else:
+        renderer = Renderer(cs, device=args.device)
     if args.resume and args.checkpoint and os.path.exists(args.checkpoint):
         renderer.load_checkpoint(args.checkpoint)
         log.info("resumed at batch %d", renderer.current_batch)
@@ -86,7 +115,8 @@ def cmd_render(args) -> int:
     log.info("rendered %d batches in %.1fs — %.1f Mrays/s on %s -> %s",
              renderer.stats.batches_done, dt, renderer.stats.mrays_per_sec,
              args.device, out)
-    print(out)
+    if getattr(renderer, "is_lead", True):
+        print(out)
     return 0
 
 
@@ -108,6 +138,11 @@ def main(argv=None) -> int:
     pr.add_argument("--resume", action="store_true")
     pr.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu must be asked for)")
+    pr.add_argument("--multichip", action="store_true",
+                    help="render sharded over torchrun's ranks")
+    pr.add_argument("--scene-shards", type=int, default=1,
+                    help="shard the primitive tables over an 'sc' axis of "
+                         "this many ranks; needs --multichip")
     pr.set_defaults(fn=cmd_render)
 
     args = p.parse_args(argv)

@@ -777,10 +777,10 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
            int sph_staged, const float* __restrict__ lights, const float* __restrict__ o2w,
            const int* __restrict__ atlas_words, const int* __restrict__ atlas_wh, int n_images,
            int atlas_h, int atlas_w, const float* __restrict__ lut,
-           const float* __restrict__ rows, int n_rows, const float* __restrict__ fparams,
-           int width, int height, int sqrt_spp, int spp_local, int n_batches, int batch0,
-           int sample_base, int max_depth, int flags, float* __restrict__ sums,
-           int* __restrict__ traced_out) {
+           const float* __restrict__ rows, int n_prim_rows, const float* __restrict__ fparams,
+           int width, int height, int row_base, int n_rows, int sqrt_spp, int spp_local,
+           int n_batches, int batch0, int sample_base, int max_depth, int flags,
+           float* __restrict__ sums, int* __restrict__ traced_out) {
   static_assert(!(kAnim && kTris), "the animated form has no triangles");
   static_assert(!(kAnim && kLights), "the animated form has no lights");
   static_assert(!(kAnim && kImage), "the animated form has no images");
@@ -825,11 +825,13 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
   }
   __syncthreads();  // the only barrier: no thread waits on another below
 
-  const int n_pix = width * height;
+  // The launch's pixels: rows row_base .. row_base + n_rows - 1 of the
+  // frame, each thread one pixel, the outputs indexed from the first.
+  const int n_pix = width * n_rows;
   const int pix = blockIdx.x * kThreads + threadIdx.x;
   if (pix >= n_pix) return;
   const int px = pix % width;
-  const int py = pix / width;
+  const int py = row_base + pix / width;
   const bool use_dof = flags & kUseDof;
   const bool has_checker = flags & kHasChecker;
   const bool has_emissive = flags & kHasEmissive;
@@ -913,7 +915,7 @@ megakernel(const float4* __restrict__ table, const float4* __restrict__ dtable,
     // either scatters or is absorbed.  What the next phase needs of the
     // hit is declared here.
     const float* __restrict__ row =
-        rows + static_cast<size_t>(min(max(best_id, 0), n_rows - 1)) * kRowWidth;
+        rows + static_cast<size_t>(min(max(best_id, 0), n_prim_rows - 1)) * kRowWidth;
     V3 p = {0.0f, 0.0f, 0.0f};
     V3 normal = {0.0f, 0.0f, 0.0f};
     V3 attenuation = {0.0f, 0.0f, 0.0f};
@@ -1121,9 +1123,10 @@ int launch(const void* table8, const void* dtab8, const void* times, int n_sph, 
            const void* sph_ids, int n_prefix, int sph_depth, int sph_leaf, int sph_staged,
            const void* lights16, const void* o2w12, const void* atlas_words,
            const void* atlas_wh, int n_images, int atlas_h, int atlas_w, const void* lut,
-           const void* rows, int n_rows, const void* fparams, int width, int height,
-           int sqrt_spp, int spp_local, int n_batches, int batch0, int sample_base,
-           int max_depth, int flags, void* sums, void* traced, void* stream, void* query) {
+           const void* rows, int n_prim_rows, const void* fparams, int width, int height,
+           int row_base, int n_rows, int sqrt_spp, int spp_local, int n_batches, int batch0,
+           int sample_base, int max_depth, int flags, void* sums, void* traced, void* stream,
+           void* query) {
   const size_t n_staged = kSphClusters ? 0 : static_cast<size_t>(n_sph);
   const size_t smem = (kNumParams + 4 * kStride<kAnim> * n_staged +
                        (kSphClusters ? 16 * static_cast<size_t>(sph_staged) : 0) +
@@ -1142,7 +1145,7 @@ int launch(const void* table8, const void* dtab8, const void* times, int n_sph, 
     return static_cast<int>(
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, kThreads, smem));
   }
-  const int n_pix = width * height;
+  const int n_pix = width * n_rows;
   if (n_pix <= 0) return static_cast<int>(cudaGetLastError());
   const int blocks = (n_pix + kThreads - 1) / kThreads;
   kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -1154,9 +1157,10 @@ int launch(const void* table8, const void* dtab8, const void* times, int n_sph, 
       static_cast<const int*>(sph_ids), n_prefix, sph_depth, sph_leaf, sph_staged,
       static_cast<const float*>(lights16), static_cast<const float*>(o2w12),
       static_cast<const int*>(atlas_words), static_cast<const int*>(atlas_wh), n_images, atlas_h,
-      atlas_w, static_cast<const float*>(lut), static_cast<const float*>(rows), n_rows,
-      static_cast<const float*>(fparams), width, height, sqrt_spp, spp_local, n_batches, batch0,
-      sample_base, max_depth, flags, static_cast<float*>(sums), static_cast<int*>(traced));
+      atlas_w, static_cast<const float*>(lut), static_cast<const float*>(rows), n_prim_rows,
+      static_cast<const float*>(fparams), width, height, row_base, n_rows, sqrt_spp, spp_local,
+      n_batches, batch0, sample_base, max_depth, flags, static_cast<float*>(sums),
+      static_cast<int*>(traced));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1166,17 +1170,17 @@ int launch(const void* table8, const void* dtab8, const void* times, int n_sph, 
       int s_pad, const void *sph_rows, const void *sph_drows, const void *sph_nodes,           \
       const void *sph_ids, int n_prefix, int sph_depth, int sph_leaf, int sph_staged,          \
       const void *lights16, const void *o2w12, const void *atlas_words, const void *atlas_wh,  \
-      int n_images, int atlas_h, int atlas_w, const void *lut, const void *rows, int n_rows,   \
-      const void *fparams, int width, int height, int sqrt_spp, int spp_local, int n_batches, \
-      int batch0, int sample_base, int max_depth, int flags, void *sums, void *traced,         \
-      void *stream, void *query
+      int n_images, int atlas_h, int atlas_w, const void *lut, const void *rows,               \
+      int n_prim_rows, const void *fparams, int width, int height, int row_base, int n_rows,   \
+      int sqrt_spp, int spp_local, int n_batches, int batch0, int sample_base, int max_depth,  \
+      int flags, void *sums, void *traced, void *stream, void *query
 
 #define MEGA_ARGS                                                                            \
   table8, dtab8, times, n_sph, tris12, t8, tri_nodes, tri_ids, tri_depth, tri_leaf, s_pad,   \
       sph_rows, sph_drows, sph_nodes, sph_ids, n_prefix, sph_depth, sph_leaf, sph_staged,      \
-      lights16, o2w12, atlas_words, atlas_wh, n_images, atlas_h, atlas_w, lut, rows, n_rows,   \
-      fparams, width, height, sqrt_spp, spp_local, n_batches, batch0, sample_base, max_depth,  \
-      flags, sums, traced, stream, query
+      lights16, o2w12, atlas_words, atlas_wh, n_images, atlas_h, atlas_w, lut, rows,           \
+      n_prim_rows, fparams, width, height, row_base, n_rows, sqrt_spp, spp_local, n_batches,   \
+      batch0, sample_base, max_depth, flags, sums, traced, stream, query
 
 // The form for the inputs that megakernel_launch has checked.
 template <bool kNoise, bool kImage, bool kSphClusters>
@@ -1230,14 +1234,22 @@ int dispatch_textures(MEGA_PARAMS) {
 // rows (p0 p1 p2, prob, alias; not with dtab8) and o2w12 the [n_instances,
 // 12] f32 objectToWorld rows; atlas_words: with kHasImage the [n_images,
 // atlas_h, atlas_w] i32 packed atlas, atlas_wh its [n_images, 2] i32 sizes
-// and lut the [256] f32 sRGB table (not with dtab8); rows: [n_rows, 64] f32;
-// fparams: [40] f32 (layout above); flags: kUseDof | kHasChecker |
+// and lut the [256] f32 sRGB table (not with dtab8); rows: [n_prim_rows, 64]
+// f32; fparams: [40] f32 (layout above); the frame is width x height, and
+// the launch renders its rows row_base .. row_base + n_rows - 1 (the caller
+// keeps them inside the frame), samples sample_base .. sample_base +
+// spp_local - 1 of each pixel in each batch (numbered past the pixel's spp
+// where the caller asks: each number is its own RNG stream); flags: kUseDof | kHasChecker |
 // kHasEmissive | kHasNoise | kHasImage (the last two pick the noise and
-// image forms); sums: [height * width, 3] f32 out; traced: [height * width]
+// image forms); sums: [n_rows * width, 3] f32 out; traced: [n_rows * width]
 // i32 out.  Launches on `stream` without synchronising and returns
 // cudaGetLastError(); with query, an int[2], launches nothing and writes the
 // form's resident blocks a multiprocessor and its dynamic shared memory.
 extern "C" int megakernel_launch(MEGA_PARAMS) {
+  if (row_base < 0 || n_rows < 0 || row_base + n_rows > height || spp_local < 1 ||
+      sample_base < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (tris12 != nullptr &&
       (dtab8 != nullptr || tri_ids == nullptr || (tri_depth > 0 && tri_nodes == nullptr) ||
        tri_depth < 0 || tri_depth > kTriStack || tri_leaf < 1)) {

@@ -51,6 +51,21 @@ wavefront (path ``"wavefront"``).  Where the port differs from JAX: on the
 CPU the JAX Renderer traces a big mesh through its SAH BVH under
 ``"auto"``, while the port takes K3's plain version there too.
 
+A scene whose material graph the fat shading row cannot encode
+(models/shading_table.py ComplexMaterial: a checker on a non-albedo
+property, two checkers on one material, a nested checker, a metal fuzz
+that is not constant) has no ``shade_rows``; the fused kernel's gate
+refuses it, as the JAX gate does, and it renders on the wavefront with
+registry shading (ops/materials.py).
+
+A Renderer given a ``shard`` (parallel/multichip.SceneShard) holds one
+slice of the scene's primitives, as a rank of the "sc" axis of the
+sharded renderer does: every table of spheres and triangles, their shading
+rows and world tables are cut to the slice, the trees are built over it,
+and the wavefront combines the slices' closest hits at every bounce
+(engine/wavefront.py); such a scene renders on the wavefront, with its
+soup in its compiled order, and needs its fat shading rows.
+
 Spheres whose instances all map them to spheres (a uniform scale) have
 world-space tables (``sphere_world_mode``); a scene with a non-uniform
 scale (ellipsoids) has none, and its spheres are swept in object space
@@ -156,11 +171,10 @@ def paged_soup(cs: CompiledScene) -> CompiledScene:
 
 def unsupported_feature(static: SceneStatic) -> Optional[str]:
     """Why this port cannot render the scene yet, naming the ROADMAP
-    queue 1 item that will add it; None when it is inside the slice.
-    ``static`` is the Renderer's, with ``sphere_world_mode`` set."""
-    if not static.use_fat_shading:
-        return ("materials beyond the fat-row encoding (ROADMAP queue 1: "
-                "'Registry shading')")
+    queue 1 item that will add it; None when it is inside the port.
+    Since registry shading every scene the compiler takes is, so no item
+    is named.  ``static`` is the Renderer's, with ``sphere_world_mode``
+    set."""
     return None
 
 
@@ -188,12 +202,14 @@ class Renderer:
 
     def __init__(self, compiled: CompiledScene, device="cuda",
                  use_megakernel: Optional[bool] = None, use_bvh="auto",
-                 leaf_size: int = 4):
+                 leaf_size: int = 4, shard=None):
         self.device = torch.device(device)
         # Kept so update_image_size rebuilds with the same options.
         self._ctor_kwargs = dict(device=self.device,
                                  use_megakernel=use_megakernel,
-                                 use_bvh=use_bvh, leaf_size=leaf_size)
+                                 use_bvh=use_bvh, leaf_size=leaf_size,
+                                 shard=shard)
+        self.shard = shard
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA is not available; rendering on the CPU must be asked "
@@ -209,6 +225,16 @@ class Renderer:
         missing = unsupported_feature(static)
         if missing is not None:
             raise NotImplementedError(f"not ported yet: {missing}")
+        if shard is not None:
+            # raytrace_tpu/parallel/multichip.py:374-375, :424-426.
+            if use_bvh is True or use_bvh == "paged":
+                raise ValueError("scene sharding (sc > 1) shards the soup in "
+                                 "its compiled order, not a BVH or a paged "
+                                 "soup")
+            if not static.use_fat_shading:
+                raise ValueError("scene sharding needs the fat shading rows "
+                                 "(shade_rows)")
+            use_bvh = use_megakernel = False
         mode = bvh_mode(static, use_bvh)
         # The BVH of use_bvh=True (raytrace_tpu/engine/renderer.py:375-386):
         # the native SAH builder's, else the implicit tree's; the soup is
@@ -229,6 +255,13 @@ class Renderer:
         self.scene, static = upload_scene(compiled, self.device, self.bvh)
         self.static = dataclasses.replace(static, sphere_world_mode=world_mode,
                                           bvh_mode=mode)
+        if shard is not None:
+            # The slice's primitives and world tables; the static facts
+            # that differ by slice are its counts.
+            self.scene = shard.scene(self.scene)
+            if world_mode:
+                self.sphere_tables = shard.tables(self.sphere_tables)
+            self.static = shard.static(self.static, self.scene)
         self.compiled = compiled
         if use_megakernel is None:
             use_megakernel = self.device.type == "cuda"
@@ -249,7 +282,8 @@ class Renderer:
         if self.static.has_tris and not self.static.any_animated:
             self._tris = prepare_tris(self.static, self.scene,
                                       self.batch_times_dev[0])
-        elif self.static.has_tris and mode == "none":
+        elif (self.static.has_tris and mode == "none"
+              and self.static.num_triangles > 0):
             _, world_p, _ = world_soup(self.scene, self.batch_times_dev[0])
             self._tri_order = paged_tri.soup_order(world_p,
                                                    self.static.num_triangles)
@@ -265,6 +299,8 @@ class Renderer:
         if n_prefix is not None:
             n_sph = self.static.num_spheres
             mid = world_sphere_tables(compiled, np.array([0.5], np.float32))
+            if shard is not None:
+                mid = shard.tables(mid)
             self._sph_order = torch.tensor(
                 sphere_tree.sphere_order(mid[0, :, 0:3], n_prefix, n_sph),
                 dtype=torch.int32, device=self.device)
@@ -333,7 +369,7 @@ class Renderer:
                              atlas_words=self._atlas_words,
                              fused=self.use_megakernel,
                              sph_order=self._sph_order,
-                             sph_tree=self._sph_tree)
+                             sph_tree=self._sph_tree, shard=self.shard)
 
     def _record(self, batches: int, rays: int, t0: float) -> None:
         dt = _time.perf_counter() - t0

@@ -21,11 +21,20 @@ or, on a soup the Renderer put in the order of its SAH or implicit BVH
 (use_bvh=True), by a walk of that BVH (the kernel H1),
 with their hit point, normal and UV
 rebuilt from the packed position and attribute tables, fat-row shading
-(constant, checker, noise and image textures), next-event
+(constant, checker, noise and image textures) or, for a material graph the
+fat row cannot encode, registry shading (ops/materials.py: each property
+looked up in the scene's tables), next-event
 estimation with lights (the alias-table light sample moved by the hit
 instance's objectToWorld, and the 50/50 mixture of the light and material
-pdfs); animated spheres and instances through per-batch geometry.  The
-Renderer rejects every other scene.
+pdfs); animated spheres and instances through per-batch geometry.
+
+A tile may hold a range of the frame's rows and of each pixel's samples
+(``render_tile``'s ``spp_local`` and ``sample_base``, for the sharded
+renderer of parallel/multichip.py), and a batch's geometry may hold one
+slice of the scene's primitives (``BatchGeometry.shard``): every bounce
+then combines the slices' closest hits and fetches the winner's rows from
+the slice that owns it, with collectives over the slices' process group
+(``_sc_combine_hit``, ``_sc_decode``, ``_sc_fetch``).
 """
 
 from __future__ import annotations
@@ -37,8 +46,8 @@ import torch
 from ..models.compile import SKY_SOLID, SKY_VERTICAL_GRADIENT
 
 from ..ops import camera as cam_ops
-from ..ops import (bvh, megakernel, nee, paged_tri, rng, shading,
-                   sphere_obj, sphere_sweep, sphere_tree, spheres, transforms,
+from ..ops import (bvh, materials, megakernel, nee, paged_tri, perlin, rng,
+                   shading, sphere_obj, sphere_sweep, sphere_tree, spheres, transforms,
                    tri_sweep, vec3)
 from ..ops.intersect import T_MAX, Hit
 from ..ops.materials import LIGHT_PDF
@@ -110,6 +119,10 @@ class BatchGeometry(NamedTuple):
     # (ops/spheres.object_sphere_table), the table H2 sweeps where the
     # scene has no world-space sphere table; else None.
     sph_obj16: Optional[torch.Tensor] = None
+    # The scene shard this geometry is a slice of (parallel/multichip.
+    # SceneShard: its rank among the shards, their count, and its
+    # all_reduce over them), or None for the whole scene.
+    shard: Optional[object] = None
 
 
 def _compact_size(R: int) -> int:
@@ -196,7 +209,7 @@ def prepare_tris(static: SceneStatic, scene: SceneArrays,
     n = static.num_triangles
     if static.bvh_mode == "paged":
         out["tri_tree"] = paged_tri.build_tri_tree(world_p, n, table12)
-    elif static.bvh_mode not in BVH_MODES:
+    elif static.bvh_mode not in BVH_MODES and n > 0:
         if order is None:
             order = paged_tri.soup_order(world_p, n)
         out["tri_tree"] = paged_tri.build_soup_tree(world_p, n, table12,
@@ -227,9 +240,9 @@ def prepare_batch(static: SceneStatic, scene: SceneArrays,
                   atlas_words: Optional[torch.Tensor] = None,
                   fused: bool = False,
                   sph_order: Optional[torch.Tensor] = None,
-                  sph_tree: Optional[sphere_tree.SphereTree] = None
-                  ) -> BatchGeometry:
-    """Kernel tables and fat rows for one batch.
+                  sph_tree: Optional[sphere_tree.SphereTree] = None,
+                  shard=None) -> BatchGeometry:
+    """Kernel tables and per-primitive rows for one batch.
 
     sph_table: [S, 5] world sphere rows at the batch time
     (ops/spheres.world_sphere_tables), or at shutter time 0 when
@@ -243,7 +256,8 @@ def prepare_batch(static: SceneStatic, scene: SceneArrays,
     objectToWorld rows at that time; a scene with lights and without
     triangles takes ``batch_time`` (a 0-dim f32 tensor) for those rows
     (a scene without lights needs none).  Rows of
-    ``prim_rows``: [0:32] shading row |
+    ``prim_rows`` (a sphere slot's, then a triangle slot's): [0:32] the
+    fat shading row (zero for registry shading) |
     [44:47] world center | [47] world radius | [48] instance id | [49:52]
     the center's motion delta when ``sph_dtab`` is given; a triangle's row
     holds its normal rows n0, dn1, dn2 in [49:58] (the JAX megakernel's
@@ -264,13 +278,16 @@ def prepare_batch(static: SceneStatic, scene: SceneArrays,
     [n] int32, fixed once per Renderer; taken from this table's centres,
     at shutter time 0.5 with ``sph_dtab``, when not given) over this
     table: a moving scene's wavefront table is at the batch's time, so
-    its tree is built again each batch over the same order.
+    its tree is built again each batch over the same order.  ``shard``
+    (parallel/multichip.SceneShard) marks a geometry built from one slice
+    of the scene's primitives.
     """
     s_pad = scene.sph_center.shape[0]
-    P = scene.shade_rows.shape[0]
+    P = s_pad + scene.tri_inst.shape[0]
     rows = torch.zeros((P, 64), dtype=torch.float32,
-                       device=scene.shade_rows.device)
-    rows[:, 0:32] = scene.shade_rows
+                       device=scene.sph_center.device)
+    if static.use_fat_shading:
+        rows[:, 0:32] = scene.shade_rows
     image = static.flags.has_image
     object_space = sph_table is None
     if object_space and fused:
@@ -312,6 +329,7 @@ def prepare_batch(static: SceneStatic, scene: SceneArrays,
     if object_space:
         return BatchGeometry(
             sph_table8=None, prim_rows=rows, atlas_words=atlas_words,
+            shard=shard,
             sph_obj16=spheres.object_sphere_table(
                 rows[:s_pad, 32:44].reshape(s_pad, 3, 4),
                 scene.sph_center, scene.sph_radius), **extra)
@@ -330,7 +348,8 @@ def prepare_batch(static: SceneStatic, scene: SceneArrays,
     if n_prefix is not None:
         extra["sph_tree"] = sph_tree
     return BatchGeometry(sph_table8=table8, prim_rows=rows,
-                         sph_dtab8=sph_dtab, atlas_words=atlas_words, **extra)
+                         sph_dtab8=sph_dtab, atlas_words=atlas_words,
+                         shard=shard, **extra)
 
 
 def combine_hits(sph: Optional[SphereHit], tri: Optional[Hit], s_pad: int,
@@ -372,6 +391,8 @@ def bvh_tree(static: SceneStatic,
                        num_tris=static.num_triangles)
 
 
+
+
 def make_trace_fn(static: SceneStatic, scene: SceneArrays,
                   geom: BatchGeometry) -> Callable:
     """trace(o, d, alive) -> RawHit for this batch: the triangle sweep
@@ -383,7 +404,10 @@ def make_trace_fn(static: SceneStatic, scene: SceneArrays,
     (raytrace_tpu/engine/wavefront.py:138-232).  Raises where the batch's
     sphere tree is not the one K1 walks
     (``sphere_sweep.tree_prefix``): K1 sweeps every sphere only where no
-    tree pays, never for want of one."""
+    tree pays, never for want of one.  On a geometry of one scene slice
+    (``geom.shard``) the slices' hits are combined (``_sc_combine_hit``),
+    and the hit's primitive id is a global one; a slice that holds no real
+    triangle sweeps none."""
     s_pad = scene.sph_center.shape[0]
     n_prefix = sphere_sweep.tree_prefix(static)
     tree = geom.sph_tree
@@ -406,24 +430,80 @@ def make_trace_fn(static: SceneStatic, scene: SceneArrays,
         elif tri_bvh is not None:
             tri = bvh.intersect_tris_bvh(o, d, geom.tri_table12, tri_bvh,
                                          alive)
-        elif static.has_tris:
+        elif static.has_tris and static.num_triangles > 0:
             tri = tri_sweep.intersect_tris_sweep(o, d, geom.tri_table16,
                                                  alive, geom.tri_tree)
         if geom.sph_obj16 is not None:
             sph = sphere_obj.intersect_spheres_object(o, d, geom.sph_obj16,
                                                       alive)
-        elif sweep_spheres:
+        elif sweep_spheres or tri is None:
             sph = sphere_sweep.intersect_spheres_sweep(
                 o, d, geom.sph_table8, alive, geom.sph_tree)
-        return combine_hits(sph, tri, s_pad)
+        raw = combine_hits(sph, tri, s_pad)
+        if geom.shard is None:
+            return raw
+        return _sc_combine_hit(geom.shard, raw, s_pad,
+                               geom.prim_rows.shape[0])
 
     return trace
+
+
+def _sc_combine_hit(shard, rh: RawHit, s_pad: int, P_loc: int) -> RawHit:
+    """The closest hit over the scene slices (raytrace_tpu/engine/
+    wavefront.py:240-273): each slice swept its own primitives, and ``rh``
+    holds its local ids (a sphere below ``s_pad``, a triangle ``s_pad`` +
+    j in a slice of ``P_loc`` rows).  The tie key is family-major and
+    rank-major over local ids, as the whole scene's sweep orders its hits:
+    at equal t a triangle beats a sphere (``combine_hits``), and within a
+    family the lowest original index wins (each kernel keeps its lowest id
+    on ties, and the slices are contiguous, so rank-major local order is
+    original order; a duplicate of ``_pad_dup`` sits at a higher id and
+    never wins).  One all_reduce MIN over the int64 (t bits, key) picks the
+    winner (t is finite and not negative, so its bits order as it does),
+    and one all_reduce SUM of the winner's fields as int32 bits, a single
+    nonzero term a lane, carries them to every slice bit for bit.  The
+    returned prim is global: rank * P_loc + the local id."""
+    rank, n_sc = shard.rank, shard.count
+    t_span = P_loc - s_pad
+    fam_key = torch.where(rh.is_sphere,
+                          n_sc * t_span + rank * s_pad + rh.prim,
+                          rank * t_span + (rh.prim - s_pad)).to(torch.int64)
+    t_bits = rh.t.view(torch.int32).to(torch.int64)
+    key = (t_bits << 32) | fam_key
+    best = shard.all_reduce(key, "min")
+    win = key == best
+    t = (best >> 32).to(torch.int32).view(torch.float32)
+    fields = torch.stack([rank * P_loc + rh.prim,
+                          rh.is_sphere.to(torch.int32),
+                          rh.bu.view(torch.int32), rh.bv.view(torch.int32)])
+    fields = shard.all_reduce(torch.where(win, fields, 0), "sum")
+    return RawHit(missed=t >= T_MAX, t=t, prim=fields[0],
+                  is_sphere=fields[1] > 0,
+                  bu=fields[2].view(torch.float32),
+                  bv=fields[3].view(torch.float32))
+
+
+def _sc_decode(shard, P_loc: int, prim):
+    """A global primitive id → (its local id, whether this slice owns it)
+    under scene sharding (raytrace_tpu/engine/wavefront.py:276-283)."""
+    return prim % P_loc, (prim // P_loc) == shard.rank
+
+
+def _sc_fetch(shard, mine, rows):
+    """Rows gathered from a slice's table, each kept by the slice that owns
+    it and zeroed elsewhere, summed over the slices as int32 bits: one
+    nonzero term a lane, so every slice gets the owner's rows bit for bit
+    (raytrace_tpu/engine/wavefront.py:286-292)."""
+    mask = mine.reshape(mine.shape + (1,) * (rows.dim() - 1))
+    bits = torch.where(mask, rows.view(torch.int32), 0)
+    return shard.all_reduce(bits, "sum").view(torch.float32)
 
 
 def reconstruct_hit(raw: RawHit, ray_o: V3, ray_d: V3, rows,
                     geom: BatchGeometry, s_pad: int,
                     has_image: bool = False,
-                    object_space: bool = False) -> HitRecord:
+                    object_space: bool = False,
+                    prim=None, fetch=None) -> HitRecord:
     """RawHit → HitRecord.  A sphere's normal is the direct one from the
     fat rows, (hit - c_world) / r_world; a triangle's hit point is
     v0 + u e1 + v e2 from the position table and its normal the
@@ -438,7 +518,9 @@ def reconstruct_hit(raw: RawHit, ray_o: V3, ray_d: V3, rows,
     transposed matrix; with ``has_image`` also the UV of the tessellator's
     parameterisation, v = arccos(-n.y) / pi and u = arctan2(n.z, -n.x) /
     2 pi floor-mod 1, of the unit object normal; a triangle's UV is the
-    barycentric lerp of its attribute rows' uv0, duv1, duv2."""
+    barycentric lerp of its attribute rows' uv0, duv1, duv2.  On a scene
+    slice, ``prim`` is the hit's local id and ``fetch`` combines the rows
+    read from the slice's tables over the slices (``_sc_fetch``)."""
     p = ray_o + raw.t * ray_d
     r = rows[:, 47]
     inv_r = 1.0 / torch.where(r == 0.0, 1.0, r)
@@ -459,11 +541,13 @@ def reconstruct_hit(raw: RawHit, ray_o: V3, ray_d: V3, rows,
         c = V3(rows[:, 44], rows[:, 45], rows[:, 46])
         n = V3((p.x - c.x) * inv_r, (p.y - c.y) * inv_r, (p.z - c.z) * inv_r)
     if geom.tri_table16 is not None:
-        tri = torch.clamp_min(raw.prim - s_pad, 0)
+        tri = torch.clamp_min((raw.prim if prim is None else prim) - s_pad, 0)
         pos = geom.tri_table16[torch.clamp(tri, 0,
                                            geom.tri_table16.shape[0] - 1)]
         att = geom.tri_attr16[torch.clamp(tri, 0,
                                           geom.tri_attr16.shape[0] - 1)]
+        if fetch is not None:
+            pos, att = fetch(pos), fetch(att)
         bu, bv = raw.bu, raw.bv
         tp = V3(pos[:, 0] + bu * pos[:, 3] + bv * pos[:, 6],
                 pos[:, 1] + bu * pos[:, 4] + bv * pos[:, 7],
@@ -479,6 +563,50 @@ def reconstruct_hit(raw: RawHit, ray_o: V3, ray_d: V3, rows,
             su = torch.where(raw.is_sphere, su, tu)
             sv = torch.where(raw.is_sphere, sv, tv)
     return HitRecord(p=p, n=vec3.normalize(n), u=su, v=sv)
+
+
+def registry_material(static: SceneStatic, scene: SceneArrays, raw: RawHit):
+    """(material type, material index, instance) of each hit, looked up by
+    primitive in the scene's tables: the registry path's counterpart of
+    the fat row's slots 0 and 48 (raytrace_tpu/engine/wavefront.py:
+    405-420)."""
+    s_pad = scene.sph_center.shape[0]
+    sid = torch.clamp_max(raw.prim, s_pad - 1).long()
+    tri = torch.clamp_min(raw.prim - s_pad, 0).long()
+    sph = (scene.sph_mat_type[sid], scene.sph_mat_index[sid],
+           scene.sph_inst[sid])
+    if not static.has_tris:
+        return sph
+    tris = (scene.tri_mat_type[tri], scene.tri_mat_index[tri],
+            scene.tri_inst[tri])
+    if not static.has_spheres:
+        return tris
+    return tuple(torch.where(raw.is_sphere, a, b) for a, b in zip(sph, tris))
+
+
+def _registry_scatter(state, scene: SceneArrays, static: SceneStatic,
+                      mat_type, mat_index, rec: HitRecord, normal: V3,
+                      front, ray_d: V3, alive):
+    """Registry scatter and emission (raytrace_tpu/engine/wavefront.py:
+    428-453): a dead ray's material type is 0, the [R, 3] rows of
+    ops/materials.py at the boundary and V3 back.  One turbulence at the
+    hit point serves every property."""
+    mat_type = torch.where(alive, mat_type, 0)
+    p_rows = vec3.to_rows(rec.p)
+    turb = (perlin.turbulence(p_rows, 7) if static.flags.has_noise
+            else None)
+    emit = materials.calculate_emission(scene, static.flags, mat_type,
+                                        mat_index, p_rows, front, rec.u,
+                                        rec.v, turb=turb)
+    state, srec = materials.calculate_scatter(
+        state, scene, static.flags, mat_type, mat_index, p_rows,
+        vec3.to_rows(normal), front, rec.u, rec.v, vec3.to_rows(ray_d),
+        turb=turb)
+    rows3 = lambda a: V3(a[:, 0], a[:, 1], a[:, 2])  # noqa: E731
+    return state, shading.ScatterV3(
+        is_scattered=srec.is_scattered, attenuation=rows3(srec.attenuation),
+        mat_pdf_type=srec.mat_pdf_type, skip_pdf=srec.skip_pdf,
+        skip_dir=rows3(srec.skip_dir)), rows3(emit)
 
 
 class _Wave(NamedTuple):
@@ -503,30 +631,44 @@ def _bounce(static: SceneStatic, scene: SceneArrays, bg: V3, trace_fn,
                              w.accumulated)
     alive = w.alive & ~raw.missed
 
-    # One combined row fetch per bounce.
+    # One combined row fetch per bounce; on a scene slice the rows come
+    # from the slice that owns the hit.
     prim = torch.where(alive, raw.prim, 0)
     P = geom.prim_rows.shape[0]
+    lprim = fetch = None
+    if geom.shard is not None:
+        prim, mine = _sc_decode(geom.shard, P, prim)
+        lprim = prim
+        fetch = lambda x: _sc_fetch(geom.shard, mine, x)  # noqa: E731
     rows = geom.prim_rows[torch.clamp(prim, 0, P - 1)]
+    if fetch is not None:
+        rows = fetch(rows)
 
     rec = reconstruct_hit(raw, w.ray_o, w.ray_d, rows, geom, s_pad,
                           static.flags.has_image,
-                          geom.sph_obj16 is not None)
+                          geom.sph_obj16 is not None, lprim, fetch)
     front = vec3.dot(w.ray_d, rec.n) < 0.0   # common.glsl:239-241
     normal = vec3.where(front, rec.n, -rec.n)
 
-    state, srec, emit = shading.scatter_and_emit_v3(
-        w.state, static.flags, rows, rec.p, normal, front, w.ray_d,
-        scene=scene, hit_u=rec.u, hit_v=rec.v)
+    if static.use_fat_shading:
+        state, srec, emit = shading.scatter_and_emit_v3(
+            w.state, static.flags, rows, rec.p, normal, front, w.ray_d,
+            scene=scene, hit_u=rec.u, hit_v=rec.v)
+        inst = rows[:, 48].to(torch.int64)
+    else:
+        mat_type, mat_index, inst = registry_material(static, scene, raw)
+        state, srec, emit = _registry_scatter(
+            w.state, scene, static, mat_type, mat_index, rec, normal, front,
+            w.ray_d, alive)
     accumulated = vec3.where(alive, accumulated + w.throughput * emit,
                              accumulated)
     alive = alive & srec.is_scattered
 
     if static.has_lights:
         # NEE / MIS (ray_gen.glsl:516-537): a light sample moved by the hit
-        # instance's objectToWorld (fat-row slot 48), the 50/50 mixture,
+        # instance's objectToWorld at the batch's time, the 50/50 mixture,
         # and the material pdf over the mixture's pdf.
-        inst = rows[:, 48].to(torch.int64)
-        o2w = geom.inst_o2w_rows[inst]                   # [R, 12]
+        o2w = geom.inst_o2w_rows[inst.long()]            # [R, 12]
         state, light = nee.sample_light_sources_v3(
             state, scene, tuple(o2w[:, i] for i in range(12)))
         state, chosen = nee.choose_mixture_pdf(state, srec.mat_pdf_type,
@@ -589,7 +731,9 @@ def bounce_wavefront(static: SceneStatic, scene: SceneArrays,
     fraction of the cost.  The JAX package compacts at the same alive
     counts (into fixed-size waves with dead padding, which this eager
     loop does not need), so each ray's radiance sums the same terms in
-    the same grouping.
+    the same grouping.  On a scene slice every slice holds the same rays,
+    so all of them bounce the same number of times and meet at each
+    bounce's collectives.
     """
     R = ray_o.x.shape[0]
     dev = ray_o.x.device
@@ -635,17 +779,21 @@ def bounce_wavefront(static: SceneStatic, scene: SceneArrays,
 
 def primary_rays(static: SceneStatic, cam: cam_ops.CameraArrays,
                  sample_batch: int, row0: int, rows_per_tile: int,
-                 use_dof: bool, device, sample_base: int = 0):
-    """Raygen for ``rows_per_tile`` pixel rows x width x spp samples, ray
-    order (row, column, sample); the samples are numbered from
-    ``sample_base``.  Returns (rng state, origin, direction)."""
+                 use_dof: bool, device, sample_base: int = 0,
+                 spp_local: int = 0):
+    """Raygen for ``rows_per_tile`` pixel rows x width x ``spp_local``
+    samples (all of the pixel's spp when 0), ray order (row, column,
+    sample); the samples are numbered from ``sample_base``, in the same
+    per-sample streams as a render of all of them.  Returns (rng state,
+    origin, direction)."""
     W = static.width
     sqrt_spp = static.sqrt_spp
     spp = sqrt_spp * sqrt_spp
-    ray_ids = torch.arange(rows_per_tile * W * spp, dtype=torch.int64,
+    spp_local = spp_local or spp
+    ray_ids = torch.arange(rows_per_tile * W * spp_local, dtype=torch.int64,
                            device=device)
-    s = ray_ids % spp + sample_base
-    pix = ray_ids // spp
+    s = ray_ids % spp_local + sample_base
+    pix = ray_ids // spp_local
     px = pix % W
     py = row0 + pix // W
     state = rng.init_rng(sample_batch, s, py, px, W, static.height, spp)
@@ -657,14 +805,20 @@ def primary_rays(static: SceneStatic, cam: cam_ops.CameraArrays,
 def render_tile(static: SceneStatic, scene: SceneArrays,
                 cam: cam_ops.CameraArrays, trace_fn: Callable,
                 geom: BatchGeometry, sample_batch: int, row0: int,
-                rows_per_tile: int, use_dof: bool):
-    """Render ``rows_per_tile`` pixel rows x width x spp samples and average
-    the samples.  Returns (tile [rows, W, 3], rays traced)."""
-    device = scene.shade_rows.device
+                rows_per_tile: int, use_dof: bool, spp_local: int = 0,
+                sample_base: int = 0, reduce_mean: bool = True):
+    """Render ``rows_per_tile`` pixel rows x width x ``spp_local`` samples
+    (every sample of the pixel when 0) numbered from ``sample_base``
+    (raytrace_tpu/engine/wavefront.py:673-739).  Returns (tile [rows, W,
+    3], rays traced): the samples' mean with ``reduce_mean``, else their
+    sum, for a sum over the sample shards."""
+    device = scene.sph_center.device
+    spp_local = spp_local or static.sqrt_spp * static.sqrt_spp
     state, ray_o, ray_d = primary_rays(static, cam, sample_batch, row0,
-                                       rows_per_tile, use_dof, device)
+                                       rows_per_tile, use_dof, device,
+                                       sample_base, spp_local)
     radiance, rays_traced = bounce_wavefront(static, scene, trace_fn, geom,
                                              state, ray_o, ray_d)
-    spp = static.sqrt_spp * static.sqrt_spp
-    tile = vec3.to_rows(radiance).reshape(rows_per_tile, static.width, spp, 3)
-    return tile.mean(dim=2), rays_traced
+    tile = vec3.to_rows(radiance).reshape(rows_per_tile, static.width,
+                                          spp_local, 3)
+    return (tile.mean(dim=2) if reduce_mean else tile.sum(dim=2)), rays_traced

@@ -2,10 +2,13 @@
 plain PyTorch version (counterpart of raytrace_tpu/ops/megakernel.py,
 ``render_tile_mega`` and ``megakernel_supported``).
 
-One launch renders every pixel of the frame for ``n_batches`` consecutive
-sample batches: each pixel's K = n_batches * spp samples are traced in
-sample order and summed, so the result is the per-pixel radiance sums and
-the per-pixel bounce counts.  The kernel's thread runs them as one loop of
+One launch renders every pixel of the frame, or of a range of its rows,
+for ``n_batches`` consecutive sample batches: each pixel's K = n_batches *
+spp_local samples (all of its spp, or a range of them numbered from
+``sample_base``, in the same per-sample streams) are traced in sample
+order and summed, so the result is the per-pixel radiance sums and the
+per-pixel bounce counts.  The row and sample ranges are what one shard of
+the sharded renderer (parallel/multichip.py) renders.  The kernel's thread runs them as one loop of
 bounces, starting the pixel's next sample where a path ends (per-lane
 regeneration), so a warp waits only for its busiest pixel's total; its
 measuring build (``measure_tile_mega``) also counts each warp step's busy
@@ -173,6 +176,12 @@ class MegaConfig(NamedTuple):
     anim: bool
     tris: bool
     lights: bool
+    # The launch's rows of the frame: row_base .. row_base + rows - 1 (rows
+    # past the frame's height are not rendered), and its output's rows,
+    # out_rows >= rows (the sums of the rest zero).
+    row_base: int
+    rows: int
+    out_rows: int
     S8: int        # sphere table rows; also the primitive id of triangle 0
     P: int
     T8: int         # triangle table rows (0 without triangles)
@@ -449,8 +458,19 @@ def sphere_cluster_sweep_reference(o: V3, d: V3, table8: torch.Tensor,
     return best_t, best_id
 
 
-def make_config(static, geom, use_dof: bool, n_batches: int) -> MegaConfig:
+def make_config(static, geom, use_dof: bool, n_batches: int,
+                spp_local: int = 0, sample_base: int = 0, row_base: int = 0,
+                rows: int = 0) -> MegaConfig:
+    """The launch's config: the whole frame and every sample by default,
+    else rows ``row_base`` .. ``row_base + rows - 1`` (those inside the
+    frame rendered) and samples ``sample_base`` .. ``sample_base +
+    spp_local - 1`` of each pixel."""
     spp = static.sqrt_spp ** 2
+    spp_local = spp_local or spp
+    out_rows = rows or static.height
+    if spp_local < 1 or sample_base < 0 or row_base < 0 or out_rows < 0:
+        raise ValueError(f"samples {sample_base} .. +{spp_local} and rows "
+                         f"{row_base} .. +{out_rows} are not ranges")
     tris = geom.tri_table12 is not None
     T8 = geom.tri_table12.shape[0] if tris else 0
     tree = geom.tri_tree if tris else None
@@ -460,7 +480,7 @@ def make_config(static, geom, use_dof: bool, n_batches: int) -> MegaConfig:
     anim = geom.sph_dtab8 is not None
     return MegaConfig(
         width=static.width, height=static.height, sqrt_spp=static.sqrt_spp,
-        spp=spp, spp_local=spp, n_batches=int(n_batches),
+        spp=spp, spp_local=int(spp_local), n_batches=int(n_batches),
         max_depth=static.max_ray_depth, use_dof=bool(use_dof),
         has_checker=static.flags.has_checker,
         has_emissive=static.flags.has_emissive,
@@ -468,7 +488,9 @@ def make_config(static, geom, use_dof: bool, n_batches: int) -> MegaConfig:
         has_image=static.flags.has_image,
         anim=anim, tris=tris,
         lights=bool(static.has_lights),
-        S8=S8, P=geom.prim_rows.shape[0], T8=T8,
+        row_base=int(row_base),
+        rows=max(0, min(out_rows, static.height - row_base)),
+        out_rows=int(out_rows), S8=S8, P=geom.prim_rows.shape[0], T8=T8,
         n_tris=min(T8, static.num_triangles),
         tri_depth=tree.depth if tree is not None else 0,
         tri_leaf=tree.leaf if tree is not None else 0,
@@ -511,9 +533,14 @@ def geometry_at(geom, t: torch.Tensor):
 
 def megakernel_reference(static, scene, geom, cam, batch0: int,
                          n_batches: int = 1, sample_base: int = 0, *,
-                         use_dof: bool, times=None):
-    """The plain version of the kernel: (sums [H, W, 3] f32, traced
-    [H, W] int32).  Each batch's pixel x sample rays go through the
+                         use_dof: bool, times=None, spp_local: int = 0,
+                         row_base: int = 0, rows: int = 0):
+    """The plain version of the kernel: (sums [rows, W, 3] f32, traced
+    [rows, W] int32), the whole frame by default, else rows ``row_base``
+    .. ``row_base + rows - 1`` (zero past the frame's height) and samples
+    ``sample_base`` .. ``sample_base + spp_local - 1`` of each pixel, as
+    ``make_config`` takes them.  Each batch's pixel x sample rays go
+    through the
     wavefront bounce loop with the plain sphere sweep (not the K1 kernel)
     and, for a soup, the plain dense triangle sweep over the soup in its
     stored order (not K2), the sphere keeping the hit at equal t as in the
@@ -523,8 +550,9 @@ def megakernel_reference(static, scene, geom, cam, batch0: int,
     from ..engine.wavefront import (RawHit, bounce_wavefront, combine_hits,
                                     primary_rays)
 
-    H, W = static.height, static.width
-    spp = static.sqrt_spp ** 2
+    cfg = make_config(static, geom, use_dof, n_batches, spp_local,
+                      sample_base, row_base, rows)
+    H, W, spp = cfg.rows, static.width, cfg.spp_local
     dev = geom.sph_table8.device
     s_pad = scene.sph_center.shape[0]
 
@@ -544,8 +572,8 @@ def megakernel_reference(static, scene, geom, cam, batch0: int,
     for b in range(n_batches):
         g = (geom if geom.sph_dtab8 is None
              else geometry_at(geom, times[batch0 + b]))
-        state, o, d = primary_rays(static, cam, batch0 + b, 0, H, use_dof,
-                                   dev, sample_base)
+        state, o, d = primary_rays(static, cam, batch0 + b, row_base, H,
+                                   use_dof, dev, sample_base, spp)
         counts = torch.zeros(H * W * spp, dtype=torch.int32, device=dev)
         radiance, _ = bounce_wavefront(
             static, scene, lambda o, d, alive, g=g: trace(o, d, alive, g),
@@ -554,7 +582,16 @@ def megakernel_reference(static, scene, geom, cam, batch0: int,
         for j in range(spp):
             sums = sums + rad[:, j]
         traced = traced + counts.reshape(H * W, spp).sum(1, dtype=torch.int32)
-    return sums.reshape(H, W, 3), traced.reshape(H, W)
+    return _pad_rows(cfg, sums.reshape(H, W, 3), traced.reshape(H, W))
+
+
+def _pad_rows(cfg: MegaConfig, sums, traced):
+    """The launch's outputs with zero rows up to ``cfg.out_rows``."""
+    pad = cfg.out_rows - cfg.rows
+    if pad == 0:
+        return sums, traced
+    return (torch.cat([sums, sums.new_zeros((pad,) + sums.shape[1:])]),
+            torch.cat([traced, traced.new_zeros((pad,) + traced.shape[1:])]))
 
 
 def _check_inputs(cfg: MegaConfig, scene, geom, params, times,
@@ -685,22 +722,30 @@ def _check_image(cfg: MegaConfig, scene, geom, device) -> None:
 
 def render_tile_mega(static, scene, geom, cam, batch0: int,
                      n_batches: int = 1, sample_base: int = 0, *,
-                     use_dof: bool, reduce_mean: bool = False, times=None):
+                     use_dof: bool, reduce_mean: bool = False, times=None,
+                     spp_local: int = 0, row_base: int = 0, rows: int = 0):
     """Render the whole frame for sample batches batch0 .. batch0 +
-    n_batches - 1 in one launch.  Returns (image [H, W, 3] f32, traced
-    [H, W] int32): the image is the per-pixel radiance sums over the
-    K = n_batches * spp samples, or their mean with ``reduce_mean``;
-    traced is each pixel's number of bounces.  An animated geometry
+    n_batches - 1 in one launch, or with ``rows`` the frame's rows
+    ``row_base`` .. ``row_base + rows - 1`` (the launch renders those
+    inside the frame, and the outputs' rows past it are zero), and with
+    ``spp_local`` the samples ``sample_base`` .. ``sample_base +
+    spp_local - 1`` of each pixel.  Returns (image [rows, W, 3] f32,
+    traced [rows, W] int32): the image is the per-pixel radiance sums over
+    the K = n_batches * spp_local samples, or their mean with
+    ``reduce_mean``; traced is each pixel's number of bounces.  An
+    animated geometry
     (``geom.sph_dtab8``) needs ``times``, every batch's shutter time
     ([B] f32 on the geometry's device); a static one ignores it."""
     global LAUNCHES, ANIM_LAUNCHES, TRI_LAUNCHES, LIGHT_LAUNCHES
     global NOISE_LAUNCHES, IMAGE_LAUNCHES, SPHERE_CLUSTER_LAUNCHES
     device = geom.sph_table8.device
-    cfg = _checked_config(static, geom, use_dof, n_batches, times)
+    cfg = _checked_config(static, geom, use_dof, n_batches, times, spp_local,
+                          sample_base, row_base, rows)
     if device.type == "cpu":
-        sums, traced = megakernel_reference(static, scene, geom, cam, batch0,
-                                            n_batches, sample_base,
-                                            use_dof=use_dof, times=times)
+        sums, traced = megakernel_reference(
+            static, scene, geom, cam, batch0, n_batches, sample_base,
+            use_dof=use_dof, times=times, spp_local=spp_local,
+            row_base=row_base, rows=rows)
     elif device.type != "cuda":
         raise ValueError(f"no fused bounce kernel for device {device}")
     else:
@@ -719,9 +764,10 @@ def render_tile_mega(static, scene, geom, cam, batch0: int,
 
 
 def _checked_config(static, geom, use_dof: bool, n_batches: int,
-                    times) -> MegaConfig:
-    """The launch's config, after the checks that hold on any device."""
-    cfg = make_config(static, geom, use_dof, n_batches)
+                    times, *ranges) -> MegaConfig:
+    """The launch's config (``ranges``: make_config's sample and row
+    ranges), after the checks that hold on any device."""
+    cfg = make_config(static, geom, use_dof, n_batches, *ranges)
     if cfg.anim and times is None:
         raise ValueError("an animated geometry needs the batch times")
     if cfg.tris:
@@ -744,7 +790,7 @@ def _launch(lib, cfg: MegaConfig, static, scene, geom, cam, batch0: int,
     if cfg.tris and cfg.S8 != scene.sph_center.shape[0]:
         raise ValueError("the sphere table must have a row for every "
                          "sphere slot: triangle ids start after it")
-    H, W = cfg.height, cfg.width
+    H, W = cfg.rows, cfg.width
     sums = torch.empty((H, W, 3), dtype=torch.float32, device=device)
     traced = torch.empty((H, W), dtype=torch.int32, device=device)
     flags = ((_USE_DOF if cfg.use_dof else 0)
@@ -776,7 +822,8 @@ def _launch(lib, cfg: MegaConfig, static, scene, geom, cam, batch0: int,
         scene.atlas.shape[0], scene.atlas.shape[1], scene.atlas.shape[2],
         scene.srgb_lut.data_ptr() if image else None,
         geom.prim_rows.data_ptr(),
-        cfg.P, params.data_ptr(), W, H, cfg.sqrt_spp, cfg.spp_local,
+        cfg.P, params.data_ptr(), W, cfg.height, cfg.row_base, H,
+        cfg.sqrt_spp, cfg.spp_local,
         cfg.n_batches, int(batch0), int(sample_base), cfg.max_depth,
         flags, sums.data_ptr(), traced.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream, query)
@@ -785,7 +832,7 @@ def _launch(lib, cfg: MegaConfig, static, scene, geom, cam, batch0: int,
             f"megakernel {'query' if query else 'launch'} failed: CUDA "
             f"error {err} "
             f"({lib.megakernel_error_string(err).decode()})")
-    return sums, traced
+    return _pad_rows(cfg, sums, traced)
 
 
 # The measuring build's counters (csrc/megakernel.cu MeasureSlot): the
@@ -859,7 +906,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.megakernel_launch.argtypes = [p, p, p, i, p, i, p, p, i, i, i, p, p,
                                       p, p, i, i, i, i, p, p, p, p, i, i, i,
                                       p, p, i, p, i, i, i, i, i, i, i, i, i,
-                                      p, p, p, p]
+                                      i, i, p, p, p, p]
     lib.megakernel_launch.restype = i
     lib.megakernel_error_string.argtypes = [i]
     lib.megakernel_error_string.restype = ctypes.c_char_p

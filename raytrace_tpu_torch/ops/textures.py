@@ -1,10 +1,14 @@
-"""Texture families (raytrace_tpu/ops/textures.py:32-61 and :118-124).
+"""Texture families (raytrace_tpu/ops/textures.py).
 
 The fat shading rows (``models/shading_table.py``) resolve
 constant colours on the host, so on the device the constant family is the
 row's rgb slots, the checker family is one parity test and the noise
 family is the marble of ops/perlin.py's turbulence (ops/shading.py) and
-the image family ``sample_image_nearest`` at the hit's UV.
+the image family ``sample_image_nearest`` at the hit's UV.  Scenes whose
+material graph the fat row cannot encode look each property up in the
+scene's texture tables instead: ``eval_basic`` (constant, image, noise)
+and ``eval_property`` (those and one checker indirection), as
+ops/materials.py's registry shading calls them.
 
 ``TexFlags.for_scene`` is the JAX rule as it stands, quirk included: a
 ``noise`` texture whose scale is 0 leaves ``has_noise`` False, so its slot
@@ -18,7 +22,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..models.compile import MAT_TYPE_DIFFUSE_LIGHT
+from ..models.compile import (MAT_PROP_CHECKER, MAT_PROP_IMAGE,
+                              MAT_PROP_NOISE, MAT_PROP_RGB,
+                              MAT_TYPE_DIFFUSE_LIGHT)
+from . import perlin
+from .vec3 import V3
 
 
 class TexFlags(NamedTuple):
@@ -77,3 +85,57 @@ def sample_image_nearest(atlas, atlas_wh, srgb_lut, index, u, v):
     y = torch.minimum(torch.clamp_min(y, 0), wh[:, 1] - 1)
     texel = atlas[index.long(), y.long(), x.long()]
     return srgb_lut[texel.long()]
+
+
+def eval_basic(scene, flags: TexFlags, ptype, pindex, hit_p, hit_u, hit_v,
+               turb=None):
+    """Constant / image / noise evaluation (ray_gen.glsl:184-212;
+    raytrace_tpu/ops/textures.py:78-110).  ptype, pindex: [R] int32;
+    hit_p: [R, 3]; hit_u, hit_v: [R] (read only with an image texture);
+    ``turb``: the hit points' turbulence where the caller has it (computed
+    here otherwise).  Returns [R, 3]; a reference outside its table, or of
+    another family, gives 0."""
+    R = ptype.shape[0]
+    out = torch.zeros((R, 3), dtype=torch.float32, device=hit_p.device)
+    rgb = scene.const_colours[torch.clamp(
+        pindex, 0, scene.const_colours.shape[0] - 1).long()]
+    out = torch.where(((ptype == MAT_PROP_RGB)
+                       & (pindex < scene.n_const))[:, None], rgb, out)
+    if flags.has_image:
+        idx = torch.clamp(pindex, 0, scene.atlas.shape[0] - 1)
+        img = sample_image_nearest(scene.atlas, scene.atlas_wh,
+                                   scene.srgb_lut, idx, hit_u, hit_v)
+        out = torch.where(((ptype == MAT_PROP_IMAGE)
+                           & (pindex < scene.n_image))[:, None], img, out)
+    if flags.has_noise:
+        if turb is None:
+            turb = perlin.turbulence(hit_p, 7)
+        scale = scene.noise_scale[torch.clamp(
+            pindex, 0, scene.noise_scale.shape[0] - 1).long()]
+        marble = 0.5 * (1.0 + torch.sin(scale * hit_p[:, 2] + 10.0 * turb))
+        out = torch.where(((ptype == MAT_PROP_NOISE)
+                           & (pindex < scene.n_noise))[:, None],
+                          marble[:, None].expand(R, 3), out)
+    return out
+
+
+def eval_property(scene, flags: TexFlags, ptype, pindex, hit_p, hit_u,
+                  hit_v, turb=None):
+    """A material property with one checker indirection (ray_gen.glsl:
+    214-243; raytrace_tpu/ops/textures.py:113-139): ``eval_basic``, or
+    where the property is a checker, its even or odd side by
+    ``checker_is_even`` at the hit point.  Returns [R, 3]."""
+    out = eval_basic(scene, flags, ptype, pindex, hit_p, hit_u, hit_v, turb)
+    if flags.has_checker:
+        ck = torch.clamp(pindex, 0, scene.checker_scale.shape[0] - 1).long()
+        p = V3(hit_p[:, 0], hit_p[:, 1], hit_p[:, 2])
+        even = checker_is_even(scene.checker_scale[ck], p)
+        e, o = scene.checker_even[ck], scene.checker_odd[ck]
+        even_val = eval_basic(scene, flags, e[:, 0], e[:, 1], hit_p, hit_u,
+                              hit_v, turb)
+        odd_val = eval_basic(scene, flags, o[:, 0], o[:, 1], hit_p, hit_u,
+                             hit_v, turb)
+        out = torch.where(((ptype == MAT_PROP_CHECKER)
+                           & (pindex < scene.n_checker))[:, None],
+                          torch.where(even[:, None], even_val, odd_val), out)
+    return out

@@ -1045,3 +1045,46 @@ def grazing_rays(boxes, n: int, seed: int, dev, jitter: float = 1e-5):
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     return (rows_to_v3(o.astype(np.float32), dev),
             rows_to_v3(d.astype(np.float32), dev))
+
+
+def multichip_rank(rank: int, world: int, init: str, jobs, results,
+                   device: str = "cuda:0") -> None:
+    """One rank of chip_smoke.py's multi-rank phase, a process of its own
+    (torch.multiprocessing spawn): a gloo process group of ``world`` ranks
+    over ``init`` (a ``file://`` rendezvous), every rank on the one
+    ``device`` (NCCL refuses two ranks on one card; parallel/multichip.py
+    takes gloo's collectives through host copies), then each job (name, compiled
+    scene, MultiChipRenderer keywords) rendered whole.  Puts (rank,
+    {name: what the job gave}, None) on ``results``, or (rank, None, the
+    traceback) where the rank failed.  Each job's kernel launches are
+    counted from 0 for it."""
+    import traceback
+
+    try:
+        import torch.distributed as dist
+
+        from ..ops import megakernel, sphere_sweep
+        from ..parallel import MultiChipRenderer
+
+        if torch.device(device).type == "cuda":
+            torch.cuda.set_device(device)
+        dist.init_process_group("gloo", init_method=init, rank=rank,
+                                world_size=world)
+        out = {}
+        for name, cs, kw in jobs:
+            megakernel.LAUNCHES = sphere_sweep.LAUNCHES = 0
+            m = MultiChipRenderer(cs, device=device, **kw)
+            img = m.render_all()
+            out[name] = dict(
+                img=img, rays=m.stats.rays_traced, path=m.path,
+                layout=(m.layout.px, m.layout.sp, m.layout.sc),
+                k4=megakernel.LAUNCHES, k1=sphere_sweep.LAUNCHES,
+                batches=m.stats.batches_done,
+                render_s=m.stats.render_seconds,
+                collective_s=m.collective_seconds(),
+                rows=(m.row_base, m.rows, m.rows_local),
+                samples=(m.sample_base, m.spp_local))
+        dist.destroy_process_group()
+        results.put((rank, out, None))
+    except BaseException:
+        results.put((rank, None, traceback.format_exc()))

@@ -81,7 +81,12 @@ card-vs-CPU limits.  The object-space sphere sweep H2 (built without
 contraction): bit for bit with its plain version on the ellipsoid
 fixture (static and moving) and fow-ellipsoids, two launches
 byte-identical; the ellipsoid Renderer on the card within the
-card-vs-CPU limits.
+card-vs-CPU limits.  The fused kernel's row and sample ranges (the
+sharded renderer's launch): bit for bit with the plain version at
+row_base > 0, rows past the frame and spp_local < spp, on a static, an
+animated and a lit, textured triangle form, each range's rows the full
+frame's where it takes every sample; the sharded renderer with one rank
+on the card byte-identical with the Renderer, stepped and in a chunk.
 """
 
 import dataclasses
@@ -1741,3 +1746,47 @@ def test_ellipsoid_render_on_card_matches_cpu(dev):
     c_img = Renderer(cs, device="cpu").render_all()
     np.testing.assert_allclose(g_img.mean(axis=(0, 1)),
                                c_img.mean(axis=(0, 1)), atol=1e-2)
+
+
+# ---- K4's row and sample ranges: the sharded renderer's launch ------------
+
+# (row_base, rows, spp_local, sample_base) on a 48 x 27 frame: a middle
+# range, one running past the frame's last row, the whole frame.
+RANGES = [(7, 9, 2, 2), (22, 9, 1, 3), (0, 27, 4, 0)]
+
+
+@pytest.mark.parametrize("form", ["static", "anim", "tris+lights+noise+image"])
+def test_fused_kernel_row_and_sample_ranges_bit_for_bit(dev, form, tmp_path):
+    args, kw = _cluster_form_args(form, tmp_path, dev, w=48)
+    assert args[0].height == 27
+    full, full_traced = megakernel.render_tile_mega(*args, **kw)
+    for row_base, rows, spp_local, base in RANGES:
+        rk = dict(kw, spp_local=spp_local, row_base=row_base, rows=rows)
+        before = megakernel.LAUNCHES
+        sums, traced = megakernel.render_tile_mega(*args, base, **rk)
+        torch.cuda.synchronize()
+        assert megakernel.LAUNCHES == before + 1
+        assert sums.shape == (rows, 48, 3) and traced.shape == (rows, 48)
+        ref, ref_traced = megakernel.megakernel_reference(*args, base, **rk)
+        assert torch.equal(sums, ref) and torch.equal(traced, ref_traced)
+        inside = min(rows, 27 - row_base)
+        assert not sums[inside:].any() and not traced[inside:].any()
+        assert float(sums[:inside].max()) > 0.0
+        if spp_local == 4:
+            assert torch.equal(sums, full[row_base:row_base + rows])
+            assert torch.equal(traced, full_traced[row_base:row_base + rows])
+
+
+def test_one_rank_sharded_renderer_is_the_renderer_on_the_card(dev):
+    from raytrace_tpu_torch.parallel import MultiChipRenderer
+
+    cs = _final(64, 36, 8)
+    for step in (1, 2):
+        r = Renderer(cs, device=dev)
+        m = MultiChipRenderer(cs, device=dev)
+        assert r.path == m.path == "fused"
+        before = megakernel.LAUNCHES
+        assert m.render_batches(step) == step
+        assert megakernel.LAUNCHES == before + 1
+        r.render_batches(step)
+        assert m.image().tobytes() == r.image().tobytes()

@@ -147,6 +147,18 @@ def _big_mesh_doc(n_boxes=1366):
     return doc
 
 
+def _registry_doc():
+    """The tiny doc with its sphere a metal whose fuzz is a checker."""
+    doc = _tiny_doc(material="metal")
+    doc["textures"] += [
+        {"constant": {"name": "f0", "rgb": [0.0, 0.0, 0.0]}},
+        {"checker": {"name": "fuzz", "scale": 0.5, "even": "f0",
+                     "odd": "white"}}]
+    doc["materials"].append({"metal": {"name": "metal", "albedo": "white",
+                                       "fuzz": "fuzz"}})
+    return doc
+
+
 @pytest.mark.parametrize("doc,item", [
     # Triangles are inside the slice at any count: a mesh above the dense
     # ceiling renders on the paged sweep.
@@ -163,6 +175,9 @@ def _big_mesh_doc(n_boxes=1366):
         None, id="doc3-Motion blur"),
     pytest.param(_tiny_doc(transform={"static": {"scale": [1, 2, 1]}}),
                  None, id="doc4-Object-space spheres"),
+    # Registry shading is inside the slice now: a metal whose fuzz is a
+    # checker, which the fat row cannot encode, renders.
+    pytest.param(_registry_doc(), None, id="doc5-Registry shading"),
 ])
 def test_scenes_outside_the_slice_raise(doc, item):
     """Each scene outside the slice raises, naming its ROADMAP item; a
@@ -175,7 +190,8 @@ def test_scenes_outside_the_slice_raise(doc, item):
         # Each case shows the one feature it ports.
         assert sum((r.static.has_lights, r.static.bvh_mode == "paged",
                     r.static.flags.has_noise,
-                    not r.static.sphere_world_mode)) == 1
+                    not r.static.sphere_world_mode,
+                    not r.static.use_fat_shading)) == 1
         assert img.shape == (8, 16, 3) and np.isfinite(img).all()
         assert img.max() > 0.0
         return
