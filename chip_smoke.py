@@ -254,7 +254,8 @@ printing a result.  No path runs at a cut depth.  Phases:
    (K4 on a rank's rows and samples) and sc=2 on the wavefront at 120x68
    (K1 over each rank's slice of the spheres), px and sc byte-identical
    with the single-device render and sp within TWO_RANK_SP_ATOL, the
-   collectives' host time a batch and its share; final-one-weekend and its
+   collectives' host time a batch and its share after a warm-up batch;
+   final-one-weekend and its
    motion-blur twin must count every K4 launch as clustered; then
    stress-4x's and stress-16k's Renderer with defaults, which must take
    the fused path in K4's clustered form (K1 not launched), Mrays/s over
@@ -439,6 +440,8 @@ ROW_RANGE = (338, 68, 2, 2)
 TWO_RANK_FUSED = (240, 135)
 TWO_RANK_WAVE = (120, 68)
 TWO_RANK_SECONDS = 240
+# Their batches: the first a warm-up, the collectives timed over the rest.
+TWO_RANK_BATCHES = 4
 TWO_RANK_SP_ATOL = 1e-5
 IMAGE_MEAN_TOL = 1e-4
 def _spheres(static) -> int:
@@ -522,8 +525,7 @@ def _cluster_work(name, wave_r, geom, card, times=None):
     every bounce), the dense oracle's bytes and ray count."""
     import torch
 
-    from raytrace_tpu_torch.ops import megakernel, sphere_sweep, sphere_tree
-    from raytrace_tpu_torch.ops.vec3 import V3
+    from raytrace_tpu_torch.ops import sphere_sweep
 
     static, scene = wave_r.static, wave_r.scene
     wave_geom = wave_r._geometry(0)
@@ -557,8 +559,26 @@ def _cluster_work(name, wave_r, geom, card, times=None):
               dense_ms=median_ms(lambda: sphere_sweep.intersect_spheres_dense(
                   o0, d0, table8, a0), 5))
     del first, o0, d0, a0
+    per_ray = _per_ray_work(static, geom, seen, times)
+    return img, rays, per_ray, lengths, k1
+
+
+def _per_ray_work(static, geom, seen, times=None):
+    """K4's clustered sweep's work a ray on CLUSTER_SUBSET of the rays in
+    ``seen`` (each bounce's alive rays, [6, n] origins and directions),
+    against ``geom`` moved to times[0] when it moves: the tree walk's
+    (ops/sphere_tree.sphere_tree_visit_counts, against the dense sweep's
+    closest hit) and the flat cluster walk's that it replaced
+    (ops/megakernel.sphere_cluster_sweep_reference over
+    sphere_cluster_boxes): {prefix_tests, box_tests, sphere_tests,
+    node_tests, tree_sphere_tests}."""
+    import torch
+
+    from raytrace_tpu_torch.ops import megakernel, sphere_sweep, sphere_tree
+    from raytrace_tpu_torch.ops.vec3 import V3
+
     allr = torch.cat(seen, dim=1)
-    del seen
+    seen.clear()
     gen = torch.Generator().manual_seed(0)
     sel = torch.randperm(allr.shape[1], generator=gen)[:CLUSTER_SUBSET].to(
         allr.device)
@@ -580,7 +600,32 @@ def _cluster_work(name, wave_r, geom, card, times=None):
                                                   "sphere_tests")}
     per_ray.update(node_tests=tree["node_tests"] / tree["rays"],
                    tree_sphere_tests=tree["sphere_tests"] / tree["rays"])
-    return img, rays, per_ray, lengths, k1
+    return per_ray
+
+
+def _band_work(cs, fused_geom, dev):
+    """K4's work a ray on ROW_RANGE's own rays (its rows and samples of
+    batch 0 of ``cs``), counted as _cluster_work counts the frame's: the
+    band rendered on the wavefront through K1's dense entry point, every
+    bounce's alive rays captured, _per_ray_work against ``fused_geom``."""
+    import torch
+
+    from raytrace_tpu_torch.engine import Renderer, wavefront
+
+    r = Renderer(cs, device=dev, use_megakernel=False)
+    geom = r._geometry(0)
+    trace = smoke_lib.dense_trace_fn(r.static, r.scene, geom)
+    seen = []
+
+    def capture(o, d, alive):
+        seen.append(torch.stack([*o, *d])[:, alive])
+        return trace(o, d, alive)
+
+    row_base, rows, spp_local, base = ROW_RANGE
+    wavefront.render_tile(r.static, r.scene, r.camera, capture, geom, 0,
+                          row_base, min(rows, HEIGHT - row_base), r.use_dof,
+                          spp_local, base)
+    return _per_ray_work(r.static, fused_geom, seen)
 
 
 def _walk_batch(name, r, dense_img, dense_rays, card):
@@ -1863,10 +1908,11 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _multichip_paths(cs, fow_per_ray, dev, card):
+def _multichip_paths(cs, dev, card):
     """The sharded renderer (parallel/multichip.py) on the one card: K4's
     row-range launch (a middle band of final-one-weekend's rows, half its
-    samples) bit for bit with its plain version and timed; world size 1
+    samples) bit for bit with its plain version and timed, its bound from
+    the band's own work (_band_work); world size 1
     over NCCL at 1200x675, a stepped batch and a 12-batch chunk on the
     fused path byte-identical with the Renderer's; then two ranks sharing
     the card over gloo (smoke_lib.multichip_rank): sp=2 and px=2 on the
@@ -1897,14 +1943,15 @@ def _multichip_paths(cs, fow_per_ray, dev, card):
     err = float((sums - ref).abs().max())
     range_traced = int(traced.sum())
     ms = median_ms(lambda: megakernel.render_tile_mega(*args, **kw), 5)
-    bound, _ = _cluster_bound(geom, fow_per_ray, range_traced, WIDTH, rows,
-                              0)
+    band = _band_work(cs, geom, dev)
+    bound, _ = _cluster_bound(geom, band, range_traced, WIDTH, rows, 0)
     print(f"K4 row range: rows {row_base}..{row_base + rows - 1} of "
           f"{HEIGHT}, samples {base}..{base + spp_local - 1} of 4, "
           f"{WIDTH} wide, depth 50: bit for bit with its plain version "
           f"{same} (max abs err {err:.3g}), {range_traced} bounces; kernel "
           f"{ms:.3f} ms (median of 5, CUDA events), plain PyTorch "
-          f"{plain_ms:.1f} ms (one run, host clock); bound {bound[0]:.4f} ms "
+          f"{plain_ms:.1f} ms (one run, host clock); the band's own work "
+          f"a bounce: {_tree_work_text(band)}; bound {bound[0]:.4f} ms "
           f"by {bound[1]} ({bound[0] / ms:.4f} of it) ({card})")
     if not same:
         raise AssertionError("K4's row-range launch differs from its plain "
@@ -1949,8 +1996,8 @@ def _multichip_paths(cs, fow_per_ray, dev, card):
         dist.destroy_process_group()
 
     # Two ranks on the one card over gloo.
-    fused_cs = _scene(cs, *TWO_RANK_FUSED, batches=2)
-    wave_cs = _scene(cs, *TWO_RANK_WAVE, batches=2)
+    fused_cs = _scene(cs, *TWO_RANK_FUSED, batches=TWO_RANK_BATCHES)
+    wave_cs = _scene(cs, *TWO_RANK_WAVE, batches=TWO_RANK_BATCHES)
     jobs = [("sp2", fused_cs, dict(sp=2)), ("px2", fused_cs, dict(sp=1)),
             ("sc2", wave_cs, dict(sp=1, sc=2))]
     ctx = mp.get_context("spawn")
@@ -1977,9 +2024,12 @@ def _multichip_paths(cs, fow_per_ray, dev, card):
                 if p.is_alive():
                     p.kill()
         spawn_s = time.perf_counter() - t0
+    # The references step as the ranks do: a first batch, then the rest.
     fused_ref = Renderer(fused_cs, device=dev)
+    fused_ref.render_next_batch()
     fused_img = fused_ref.render_all()
     wave_ref = Renderer(wave_cs, device=dev, use_megakernel=False)
+    wave_ref.render_next_batch()
     wave_img = wave_ref.render_all()
     out = {}
     for name, _, _ in jobs:
@@ -2007,8 +2057,13 @@ def _multichip_paths(cs, fow_per_ray, dev, card):
               f" the single-device render, rays {a['rays']}; "
               f"{'K1' if name == 'sc2' else 'K4'} launches {a[kernel]} and "
               f"{b[kernel]}; collectives {per_batch[0] * 1e3:.2f} and "
-              f"{per_batch[1] * 1e3:.2f} ms a batch, {share[0]:.4f} and "
-              f"{share[1]:.4f} of the ranks' render time ({card})")
+              f"{per_batch[1] * 1e3:.2f} ms a batch over the "
+              f"{a['batches']} batches after the first, {share[0]:.4f} and "
+              f"{share[1]:.4f} of the ranks' render time there (the first "
+              f"batch: collectives {a['warm_collective_s'] * 1e3:.2f} and "
+              f"{b['warm_collective_s'] * 1e3:.2f} ms of "
+              f"{a['warm_render_s'] * 1e3:.2f} and "
+              f"{b['warm_render_s'] * 1e3:.2f} ms) ({card})")
         out[name] = dict(launches=a[kernel] + b[kernel],
                          collective_ms=max(per_batch) * 1e3,
                          share=max(share), diff=diff)
@@ -2184,7 +2239,6 @@ def main() -> int:
     _print_k1_launch("final-one-weekend", fow_k1, card)
     k4_bound, k4_flat = _cluster_bound(args[2], per_ray, k4_rays, WIDTH,
                                        HEIGHT, 0)
-    fow_per_ray = per_ray
     fow = _warp_models("final-one-weekend", lengths, card)
     fow["measured"] = _measured_busy("final-one-weekend", args, kw, fow,
                                      card)
@@ -3198,7 +3252,7 @@ def main() -> int:
     # Registry shading (fow-registry on the wavefront) and the sharded
     # renderer on the one card.
     reg = _registry_paths(dev, card)
-    multi = _multichip_paths(cs, fow_per_ray, dev, card)
+    multi = _multichip_paths(cs, dev, card)
 
     # -- 7. checkpoint round trips, same chunk boundaries --------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -3382,9 +3436,10 @@ def main() -> int:
     }, {
         # K4's launch over a band of final-one-weekend's rows and half its
         # samples (ROW_RANGE), as a rank of the sharded renderer launches
-        # it; launches: the two-rank phase's sp=2 and px=2 renders, both
-        # ranks.  The collectives' host time a batch and its share of the
-        # ranks' render time, over the three two-rank renders.
+        # it, its bound from the band's own work; launches: the two-rank
+        # phase's sp=2 and px=2 renders, both ranks.  The collectives' host
+        # time a batch and its share of the ranks' render time, after each
+        # render's warm-up batch, the most over the three two-rank renders.
         "name": "megakernel_row_range", "route": "cuda",
         "source": "raytrace_tpu_torch/csrc/megakernel.cu",
         "replaces": "raytrace_tpu/ops/megakernel.py:1666",

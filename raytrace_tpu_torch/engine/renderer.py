@@ -58,6 +58,11 @@ that is not constant) has no ``shade_rows``; the fused kernel's gate
 refuses it, as the JAX gate does, and it renders on the wavefront with
 registry shading (ops/materials.py).
 
+A Renderer given a ``split`` (``FrameSplit``; parallel/multichip.RankSplit)
+renders one part of every batch, a slab of rows and a run of each pixel's
+samples, and joins the parts through the split's hooks at every step, so
+the sharded renderer steps through this one loop.
+
 A Renderer given a ``shard`` (parallel/multichip.SceneShard) holds one
 slice of the scene's primitives, as a rank of the "sc" axis of the
 sharded renderer does: every table of spheres and triangles, their shading
@@ -196,20 +201,45 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+class FrameSplit:
+    """How a Renderer shares every batch with others
+    (parallel/multichip.RankSplit): the image's rows cut into ``px`` slabs
+    of ceil(H / px) rows, this one the ``px_i``-th (its rows past the frame
+    are zero), and each pixel's samples into ``sp`` runs,
+    this one the ``sp_i``-th.  Its hooks join the parts at every step:
+    ``reduce_samples`` sums a slab's sample sums over the runs,
+    ``gather_rows`` stacks the slabs in row order, ``sum_rays`` adds up the
+    rays traced.  This one is the whole frame, its hooks the identity."""
+
+    px = sp = 1
+    px_i = sp_i = 0
+
+    def reduce_samples(self, slab: torch.Tensor) -> torch.Tensor:
+        return slab
+
+    def gather_rows(self, slab: torch.Tensor) -> torch.Tensor:
+        return slab
+
+    def sum_rays(self, rays: int) -> int:
+        return rays
+
+
 class Renderer:
     # Batches fused into one kernel launch by render_all and the CLI.
     CHUNK = 12
 
     def __init__(self, compiled: CompiledScene, device="cuda",
                  use_megakernel: Optional[bool] = None, use_bvh="auto",
-                 leaf_size: int = 4, shard=None):
+                 leaf_size: int = 4, shard=None,
+                 split: Optional[FrameSplit] = None):
         self.device = torch.device(device)
         # Kept so update_image_size rebuilds with the same options.
         self._ctor_kwargs = dict(device=self.device,
                                  use_megakernel=use_megakernel,
                                  use_bvh=use_bvh, leaf_size=leaf_size,
-                                 shard=shard)
+                                 shard=shard, split=split)
         self.shard = shard
+        self.split = split = split or FrameSplit()
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA is not available; rendering on the CPU must be asked "
@@ -341,12 +371,24 @@ class Renderer:
             params, self.static.width, self.static.height, self.device)
         self.use_dof = params.aperture_size > 0.0
 
-        # Tiles of at most RAY_BUDGET rays, balanced so the last tile is
-        # not mostly padding rows.
+        # This renderer's part of every batch (the split's): rows row_base
+        # .. row_base + rows - 1 of a slab of rows_local, samples
+        # sample_base .. sample_base + spp_local - 1 of each pixel.
         H, W = self.static.height, self.static.width
-        budget = max(1, RAY_BUDGET // (W * self.static.sqrt_spp ** 2))
-        n_tiles = -(-H // budget)
-        self.rows_per_tile = -(-H // n_tiles)
+        spp = self.static.sqrt_spp ** 2
+        if spp % split.sp != 0:
+            raise ValueError(f"effective spp {spp} must be divisible by "
+                             f"sp={split.sp}")
+        self.spp_local = spp // split.sp
+        self.sample_base = split.sp_i * self.spp_local
+        self.rows_local = -(-H // split.px)
+        self.row_base = split.px_i * self.rows_local
+        self.rows = max(0, min(self.rows_local, H - self.row_base))
+        # The wavefront's tiles: at most RAY_BUDGET rays, balanced so the
+        # last tile is not mostly padding rows.
+        budget = max(1, RAY_BUDGET // (W * self.spp_local))
+        n_tiles = max(1, -(-self.rows // budget))
+        self.rows_per_tile = max(1, -(-self.rows // n_tiles))
 
         self.accum = torch.zeros((H, W, 3), dtype=torch.float32,
                                  device=self.device)
@@ -378,41 +420,70 @@ class Renderer:
         self.stats.rays_traced += rays
         self.stats.render_seconds += dt
 
+    def _slab(self, b0: int, k: int, mean: bool):
+        """Batches b0 .. b0 + k - 1 (k > 1 only on the paths that take a
+        chunk in one launch) over this renderer's rows and samples: (the
+        sample sums [rows_local, W, 3], or their mean with ``mean``; rays
+        traced)."""
+        s = self.static
+        geom = self._geometry(b0)
+        if self.use_megakernel:
+            slab, traced = megakernel.render_tile_mega(
+                s, self.scene, geom, self.camera, b0, k, self.sample_base,
+                use_dof=self.use_dof, reduce_mean=mean,
+                times=self.batch_times_dev, spp_local=self.spp_local,
+                row_base=self.row_base, rows=self.rows_local)
+            return slab, int(traced.sum(dtype=torch.int64))
+        trace = make_trace_fn(s, self.scene, geom)
+        end = self.row_base + self.rows
+        tiles, rays = [], 0
+        for row0 in range(self.row_base, end, self.rows_per_tile):
+            # A tile stops where another slab's rows start; the frame's last
+            # tile keeps its size, its rows past the frame cropped (the JAX
+            # Renderer's tiles).
+            n = (self.rows_per_tile if end == s.height
+                 else min(self.rows_per_tile, end - row0))
+            tile, tr = render_tile(s, self.scene, self.camera, trace, geom,
+                                   b0, row0, n, self.use_dof, self.spp_local,
+                                   self.sample_base, reduce_mean=mean)
+            tiles.append(tile)
+            rays += tr
+        pad = torch.zeros((self.rows_local - self.rows, s.width, 3),
+                          dtype=torch.float32, device=self.device)
+        slab = torch.cat(tiles)[:self.rows] if tiles else pad[:0]
+        return (torch.cat([slab, pad]) if pad.shape[0] else slab), rays
+
+    def _step(self, b0: int, k: int) -> None:
+        """Render batches b0 .. b0 + k - 1 into the running mean: this
+        renderer's part, joined with the others' by the split's hooks."""
+        t0 = _time.perf_counter()
+        spp = self.static.sqrt_spp ** 2
+        mean = k == 1 and self.spp_local == spp
+        slab, rays = self._slab(b0, k, mean)
+        slab = self.split.reduce_samples(slab)
+        img = self.split.gather_rows(slab)[:self.static.height]
+        if mean:
+            self.accum = (float(b0) * self.accum + img) / (float(b0) + 1.0)
+        else:
+            self.accum = (float(b0) * self.accum + img / spp) / float(b0 + k)
+        rays = self.split.sum_rays(rays)
+        _synchronize(self.device)
+        self._record(k, rays, t0)
+
     def render_next_batch(self) -> bool:
         """Trace one sample batch; returns False when every batch is done."""
         if self.current_batch >= self.compiled.render.sample_batches:
             return False
-        t0 = _time.perf_counter()
-        H = self.static.height
-        geom = self._geometry(self.current_batch)
-        if self.use_megakernel:
-            img, traced = megakernel.render_tile_mega(
-                self.static, self.scene, geom, self.camera,
-                self.current_batch, 1, use_dof=self.use_dof, reduce_mean=True,
-                times=self.batch_times_dev)
-            rays = int(traced.sum(dtype=torch.int64))
-        else:
-            trace = make_trace_fn(self.static, self.scene, geom)
-            tiles, rays = [], 0
-            for row0 in range(0, H, self.rows_per_tile):
-                tile, tr = render_tile(
-                    self.static, self.scene, self.camera, trace, geom,
-                    self.current_batch, row0, self.rows_per_tile,
-                    self.use_dof)
-                tiles.append(tile)
-                rays += tr
-            img = torch.cat(tiles, dim=0)[:H]
-        b = float(self.current_batch)
-        self.accum = (b * self.accum + img) / (b + 1.0)
-        _synchronize(self.device)
-        self._record(1, rays, t0)
+        self._step(self.current_batch, 1)
         return True
 
     def render_batches(self, k: int) -> int:
         """Render up to k batches; returns how many were rendered.  On the
         "fused" and "fused_anim" paths the k batches are one kernel launch
         of k x spp samples per pixel; otherwise (and for k == 1) they are
-        stepped one by one."""
+        stepped one by one.  Static: every batch of the chunk shares batch
+        b0's table; animated: the one geometry, moved to each batch's time
+        in the kernel."""
         k = min(k, self.compiled.render.sample_batches - self.current_batch)
         if k <= 0:
             return 0
@@ -421,19 +492,7 @@ class Renderer:
             while done < k and self.render_next_batch():
                 done += 1
             return done
-        t0 = _time.perf_counter()
-        b0 = self.current_batch
-        # Static: every batch of the chunk shares batch b0's table.
-        # Animated: the one geometry, moved to each batch's time in the
-        # kernel.
-        sums, traced = megakernel.render_tile_mega(
-            self.static, self.scene, self._geometry(b0), self.camera, b0, k,
-            use_dof=self.use_dof, times=self.batch_times_dev)
-        spp = self.static.sqrt_spp ** 2
-        self.accum = (float(b0) * self.accum + sums / spp) / float(b0 + k)
-        rays = int(traced.sum(dtype=torch.int64))
-        _synchronize(self.device)
-        self._record(k, rays, t0)
+        self._step(self.current_batch, k)
         return k
 
     def chunk_size(self) -> int:
@@ -468,10 +527,11 @@ class Renderer:
 
     def update_image_size(self, width: int, height: int) -> "Renderer":
         """A resize restarts accumulation (render_engine.rs:397-414): returns
-        a new Renderer for the new resolution with this one's options."""
+        a new renderer of this one's class for the new resolution with this
+        one's options."""
         cs = dataclasses.replace(
             self.compiled,
             render=dataclasses.replace(self.compiled.render, width=width,
                                        height=height),
         )
-        return Renderer(cs, **self._ctor_kwargs)
+        return type(self)(cs, **self._ctor_kwargs)

@@ -727,7 +727,8 @@ def render_tile_mega(static, scene, geom, cam, batch0: int,
     """Render the whole frame for sample batches batch0 .. batch0 +
     n_batches - 1 in one launch, or with ``rows`` the frame's rows
     ``row_base`` .. ``row_base + rows - 1`` (the launch renders those
-    inside the frame, and the outputs' rows past it are zero), and with
+    inside the frame, and the outputs' rows past it are zero; with none
+    inside, nothing is launched), and with
     ``spp_local`` the samples ``sample_base`` .. ``sample_base +
     spp_local - 1`` of each pixel.  Returns (image [rows, W, 3] f32,
     traced [rows, W] int32): the image is the per-pixel radiance sums over
@@ -741,7 +742,13 @@ def render_tile_mega(static, scene, geom, cam, batch0: int,
     device = geom.sph_table8.device
     cfg = _checked_config(static, geom, use_dof, n_batches, times, spp_local,
                           sample_base, row_base, rows)
-    if device.type == "cpu":
+    if cfg.rows == 0:
+        # Every row past the frame (a row shard below its last row): no
+        # launch, the zero outputs.
+        sums, traced = _pad_rows(cfg, torch.zeros(
+            (0, cfg.width, 3), dtype=torch.float32, device=device),
+            torch.zeros((0, cfg.width), dtype=torch.int32, device=device))
+    elif device.type == "cpu":
         sums, traced = megakernel_reference(
             static, scene, geom, cam, batch0, n_batches, sample_base,
             use_dof=use_dof, times=times, spp_local=spp_local,

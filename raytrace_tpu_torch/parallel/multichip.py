@@ -11,7 +11,8 @@ Layout (``make_layout``, the JAX ``make_mesh``'s rules): the ranks form a
 (px, sp, sc) grid, rank = (px_i * sp + sp_i) * sc + sc_i.
 
 - "px" shards the image's rows: a rank renders rows_local = ceil(H / px)
-  rows from row_base = px_i * rows_local (rows past H are not rendered);
+  rows from row_base = px_i * rows_local (a slab's rows past H are zero;
+  a slab wholly past H launches nothing);
 - "sp" shards each pixel's samples: a rank renders spp_local = spp / sp
   of them, numbered from sample_base = sp_i * spp_local in the same
   per-sample RNG streams as the single-device render; the sample sums are
@@ -23,7 +24,10 @@ Layout (``make_layout``, the JAX ``make_mesh``'s rules): the ranks form a
   rows with collectives over "sc" (engine/wavefront._sc_combine_hit);
   rays repeat over "sc".
 
-The image rows are gathered over "px" and cropped to H, so every rank
+``MultiChipRenderer`` is the ``Renderer`` given a ``RankSplit``: the
+Renderer's one stepping loop renders the rank's part of every batch and
+joins it with the others' through the split's hooks.  The image rows are
+gathered over "px" and cropped to H, so every rank
 holds the whole accumulation image; rays traced are summed over "px" and
 "sp".  A batch with sp = 1 computes each pixel as the ``Renderer`` does,
 so px and sc shards give its bytes (on the wavefront, where a path's
@@ -54,9 +58,7 @@ import torch
 import torch.distributed as dist
 
 from ..engine.arrays import SceneArrays
-from ..engine.renderer import RAY_BUDGET, Renderer, _synchronize
-from ..engine.wavefront import make_trace_fn, render_tile
-from ..ops import megakernel
+from ..engine.renderer import FrameSplit, Renderer
 
 
 class Layout(NamedTuple):
@@ -109,16 +111,17 @@ def make_layout(world_size: int, sp: Optional[int] = None,
     return n // (sp * sc), sp, sc
 
 
-def init_distributed() -> tuple:
+def init_distributed(device: torch.device) -> tuple:
     """(rank, world size) of this process: the process group's where one
     exists, else one made from torchrun's environment (RANK, WORLD_SIZE,
-    MASTER_ADDR, MASTER_PORT; NCCL where CUDA is available, each rank's
-    card ``cuda:LOCAL_RANK``, else gloo), else (0, 1) with no group."""
+    MASTER_ADDR, MASTER_PORT) for the rank's ``device``: NCCL for a card
+    (made the current one), gloo for the CPU; else (0, 1) with no
+    group."""
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
-        if torch.cuda.is_available():
-            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
             dist.init_process_group("nccl", init_method="env://")
         else:
             dist.init_process_group("gloo", init_method="env://")
@@ -166,7 +169,16 @@ class Collective:
         self.ranks, self.group = _groups(layout, axes)
         self.size = len(self.ranks)
         self.host = host
-        self.seconds = 0.0  # host time spent in this group's collectives
+        # Host time spent in this group's collectives: with host copies,
+        # from when the rank's own device work is done (the copy would
+        # wait for it), so the waits for the other ranks and the copies
+        # count, the rank's kernels not.
+        self.seconds = 0.0
+
+    def _start(self, t: torch.Tensor) -> float:
+        if self.host and t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        return _time.perf_counter()
 
     def _in(self, t: torch.Tensor) -> torch.Tensor:
         return t.cpu() if self.host else t.contiguous()
@@ -176,7 +188,7 @@ class Collective:
         over the group, as a new tensor on ``t``'s device."""
         if self.size == 1:
             return t
-        t0 = _time.perf_counter()
+        t0 = self._start(t)
         x = self._in(t).clone()
         dist.all_reduce(x, op=getattr(dist.ReduceOp, _OPS[op]),
                         group=self.group)
@@ -188,7 +200,7 @@ class Collective:
         """Every member's ``t`` (one shape on all), in rank order."""
         if self.size == 1:
             return [t]
-        t0 = _time.perf_counter()
+        t0 = self._start(t)
         x = self._in(t)
         out = [torch.empty_like(x) for _ in range(self.size)]
         dist.all_gather(out, x, group=self.group)
@@ -292,12 +304,38 @@ class SceneShard:
             num_triangles=local(static.num_triangles, T))
 
 
-class MultiChipRenderer:
+class RankSplit(FrameSplit):
+    """A rank's part of every batch in its (px, sp, sc) layout (the
+    Renderer's ``split``): its slab of rows and run of samples, joined with
+    the other ranks' by the layout's collectives: the sample sums
+    all_reduced over "sp", the slabs gathered over "px", the rays summed
+    over ("px", "sp") (they repeat over "sc")."""
+
+    def __init__(self, layout: Layout, samples: Collective,
+                 rows: Collective, rays: Collective, device: torch.device):
+        self.px, self.px_i = layout.px, layout.px_i
+        self.sp, self.sp_i = layout.sp, layout.sp_i
+        self._samples, self._rows, self._rays = samples, rows, rays
+        self._device = device
+
+    def reduce_samples(self, slab: torch.Tensor) -> torch.Tensor:
+        return self._samples.all_reduce(slab, "sum")
+
+    def gather_rows(self, slab: torch.Tensor) -> torch.Tensor:
+        return torch.cat(self._rows.all_gather(slab))
+
+    def sum_rays(self, rays: int) -> int:
+        return int(self._rays.all_reduce(torch.tensor(
+            [rays], dtype=torch.int64, device=self._device))[0])
+
+
+class MultiChipRenderer(Renderer):
     """Progressive renderer sharded over the ranks of a process group
-    (raytrace_tpu/parallel/multichip.py:335-636): the ``Renderer``'s
-    semantics, options, running mean, checkpoints (the same ``.npz``, so
-    a checkpoint of either renderer resumes in the other) and PNG export,
-    each rank rendering its rows and samples of every batch.
+    (raytrace_tpu/parallel/multichip.py:335-636): the ``Renderer``, its
+    stepping loop, running mean, checkpoints (the same ``.npz``, so a
+    checkpoint of either renderer resumes in the other) and PNG export,
+    with a ``RankSplit`` of every batch and, with sc > 1, a
+    ``SceneShard`` of the scene.
 
     The renderer spans the process group's world (one rank without one):
     every rank constructs it and makes the same calls.  ``sp`` and ``sc``
@@ -305,61 +343,31 @@ class MultiChipRenderer:
     ``device``: a bare "cuda" is the rank's ``cuda:LOCAL_RANK``; the CPU
     must be asked for.  ``use_megakernel``, ``use_bvh`` and ``leaf_size``
     as the ``Renderer`` takes them; with sc > 1 a BVH or a paged soup is
-    refused, as is a scene without fat shading rows.  The running mean,
-    batch index and stats are held by the rank's ``Renderer``
-    (``self.renderer``), whose checkpoints and PNGs the lead rank
-    writes."""
+    refused, as is a scene without fat shading rows.  Checkpoints and PNGs
+    are written by the lead rank."""
 
     def __init__(self, compiled, device="cuda", sp: Optional[int] = None,
                  sc: Optional[int] = None,
                  use_megakernel: Optional[bool] = None, use_bvh="auto",
                  leaf_size: int = 4):
-        rank, world = init_distributed()
+        device = default_device(device)
+        rank, world = init_distributed(device)
         self.layout = lay = Layout.of(rank, *make_layout(world, sp, sc))
-        px, sp, sc = lay.px, lay.sp, lay.sc
-        self.device = default_device(device)
-        host = (world > 1 and self.device.type == "cuda"
+        host = (world > 1 and device.type == "cuda"
                 and dist.get_backend() == "gloo")
-        self._sp = Collective(lay, "p", host)
-        self._px = Collective(lay, "x", host)
-        self._pxsp = Collective(lay, "xp", host)
-        self._all = Collective(lay, "xpc", host)
-        self._sc = Collective(lay, "c", host)
-        shard = (SceneShard(lay.sc_i, sc, self._sc) if sc > 1 else None)
-        self.renderer = Renderer(compiled, device=self.device,
+        self._collectives = {axes: Collective(lay, axes, host)
+                             for axes in ("p", "x", "xp", "xpc", "c")}
+        c = self._collectives
+        super().__init__(
+            compiled, device=device, use_megakernel=use_megakernel,
+            use_bvh=use_bvh, leaf_size=leaf_size,
+            shard=(SceneShard(lay.sc_i, lay.sc, c["c"]) if lay.sc > 1
+                   else None),
+            split=RankSplit(lay, c["p"], c["x"], c["xp"], device))
+        # update_image_size makes a MultiChipRenderer with these.
+        self._ctor_kwargs = dict(device=device, sp=lay.sp, sc=lay.sc,
                                  use_megakernel=use_megakernel,
-                                 use_bvh=use_bvh, leaf_size=leaf_size,
-                                 shard=shard)
-        r = self.renderer
-        self.compiled, self.static = r.compiled, r.static
-        self.use_megakernel, self.path = r.use_megakernel, r.path
-        spp = self.static.sqrt_spp ** 2
-        if spp % sp != 0:
-            raise ValueError(f"effective spp {spp} must be divisible by "
-                             f"sp={sp}")
-        H, W = self.static.height, self.static.width
-        self.spp_local = spp // sp
-        self.sample_base = lay.sp_i * self.spp_local
-        self.rows_local = -(-H // px)
-        self.row_base = lay.px_i * self.rows_local
-        self.rows = max(0, min(self.rows_local, H - self.row_base))
-        # The wavefront's tiles inside the shard's rows, balanced as the
-        # Renderer's are.
-        budget = max(1, RAY_BUDGET // (W * self.spp_local))
-        n_tiles = max(1, -(-self.rows // budget))
-        self.rows_per_tile = max(1, -(-self.rows // n_tiles))
-
-    @property
-    def current_batch(self) -> int:
-        return self.renderer.current_batch
-
-    @property
-    def stats(self):
-        return self.renderer.stats
-
-    @property
-    def accum(self) -> torch.Tensor:
-        return self.renderer.accum
+                                 use_bvh=use_bvh, leaf_size=leaf_size)
 
     @property
     def is_lead(self) -> bool:
@@ -368,106 +376,21 @@ class MultiChipRenderer:
 
     def collective_seconds(self) -> float:
         """Host seconds spent in this renderer's collectives so far."""
-        return sum(c.seconds for c in (self._sp, self._px, self._pxsp,
-                                       self._all, self._sc))
-
-    def _tile(self, b0: int, k: int):
-        """This rank's rows x samples of batches b0 .. b0 + k - 1 (k > 1
-        only on the fused paths that take a chunk in one launch): (sums
-        over its samples [rows_local, W, 3], or their mean when sp == 1
-        and k == 1, as the Renderer takes it; rays traced)."""
-        r, s = self.renderer, self.static
-        mean = self.layout.sp == 1 and k == 1
-        geom = r._geometry(b0)
-        if self.use_megakernel:
-            tile, traced = megakernel.render_tile_mega(
-                s, r.scene, geom, r.camera, b0, k, self.sample_base,
-                use_dof=r.use_dof, reduce_mean=mean, times=r.batch_times_dev,
-                spp_local=self.spp_local, row_base=self.row_base,
-                rows=self.rows_local)
-            return tile, int(traced.sum(dtype=torch.int64))
-        trace = make_trace_fn(s, r.scene, geom)
-        tiles, rays = [], 0
-        for row0 in range(self.row_base, self.row_base + self.rows,
-                          self.rows_per_tile):
-            n = min(self.rows_per_tile, self.row_base + self.rows - row0)
-            tile, tr = render_tile(s, r.scene, r.camera, trace, geom, b0,
-                                   row0, n, r.use_dof, self.spp_local,
-                                   self.sample_base, reduce_mean=mean)
-            tiles.append(tile)
-            rays += tr
-        pad = self.rows_local - self.rows
-        tiles.append(torch.zeros((pad, s.width, 3), dtype=torch.float32,
-                                 device=self.device))
-        return torch.cat(tiles), rays
-
-    def _step(self, b0: int, k: int) -> None:
-        """Render batches b0 .. b0 + k - 1 into the running mean."""
-        t0 = _time.perf_counter()
-        H = self.static.height
-        spp = self.static.sqrt_spp ** 2
-        tile, rays = self._tile(b0, k)
-        if self.layout.sp > 1:
-            tile = self._sp.all_reduce(tile, "sum")
-        img = torch.cat(self._px.all_gather(tile))[:H]
-        r = self.renderer
-        if k == 1 and self.layout.sp == 1:
-            r.accum = (float(b0) * r.accum + img) / (float(b0) + 1.0)
-        else:
-            r.accum = (float(b0) * r.accum + img / spp) / float(b0 + k)
-        rays = int(self._pxsp.all_reduce(
-            torch.tensor([rays], dtype=torch.int64, device=self.device))[0])
-        _synchronize(self.device)
-        r._record(k, rays, t0)
-
-    def render_next_batch(self) -> bool:
-        """Trace one sample batch; False when every batch is done."""
-        if self.current_batch >= self.compiled.render.sample_batches:
-            return False
-        self._step(self.current_batch, 1)
-        return True
-
-    def render_batches(self, k: int) -> int:
-        """Render up to k batches; returns how many were rendered: one
-        launch on the "fused" and "fused_anim" paths, else stepped."""
-        k = min(k, self.compiled.render.sample_batches - self.current_batch)
-        if k <= 0:
-            return 0
-        if self.path not in ("fused", "fused_anim") or k == 1:
-            done = 0
-            while done < k and self.render_next_batch():
-                done += 1
-            return done
-        self._step(self.current_batch, k)
-        return k
-
-    def chunk_size(self) -> int:
-        return self.renderer.chunk_size()
-
-    def render_all(self) -> np.ndarray:
-        while self.render_batches(self.chunk_size()):
-            pass
-        return self.image()
-
-    def image(self) -> np.ndarray:
-        """The linear-light accumulation image [H, W, 3] (float32)."""
-        return self.renderer.image()
+        return sum(c.seconds for c in self._collectives.values())
 
     def _barrier(self) -> None:
-        self._all.all_reduce(torch.zeros(1, device=self.device))
+        self._collectives["xpc"].all_reduce(
+            torch.zeros(1, device=self.device))
 
     def save_png(self, path: str) -> None:
         """Written by the lead rank; every rank returns once it is."""
         if self.is_lead:
-            self.renderer.save_png(path)
+            super().save_png(path)
         self._barrier()
 
     def save_checkpoint(self, path: str) -> None:
         """The Renderer's npz, written by the lead rank; every rank
         returns once it is."""
         if self.is_lead:
-            self.renderer.save_checkpoint(path)
+            super().save_checkpoint(path)
         self._barrier()
-
-    def load_checkpoint(self, path: str) -> None:
-        self.renderer.load_checkpoint(path)

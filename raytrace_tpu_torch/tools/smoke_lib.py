@@ -1054,7 +1054,10 @@ def multichip_rank(rank: int, world: int, init: str, jobs, results,
     over ``init`` (a ``file://`` rendezvous), every rank on the one
     ``device`` (NCCL refuses two ranks on one card; parallel/multichip.py
     takes gloo's collectives through host copies), then each job (name, compiled
-    scene, MultiChipRenderer keywords) rendered whole.  Puts (rank,
+    scene, MultiChipRenderer keywords) rendered whole: a first batch
+    stepped, a warm-up (the first launch, the groups' first collectives),
+    then the rest by ``render_all``, whose batches, render seconds and
+    collective seconds are reported apart from the first's.  Puts (rank,
     {name: what the job gave}, None) on ``results``, or (rank, None, the
     traceback) where the rank failed.  Each job's kernel launches are
     counted from 0 for it."""
@@ -1074,14 +1077,17 @@ def multichip_rank(rank: int, world: int, init: str, jobs, results,
         for name, cs, kw in jobs:
             megakernel.LAUNCHES = sphere_sweep.LAUNCHES = 0
             m = MultiChipRenderer(cs, device=device, **kw)
+            m.render_next_batch()
+            warm_s, warm_c = m.stats.render_seconds, m.collective_seconds()
             img = m.render_all()
             out[name] = dict(
                 img=img, rays=m.stats.rays_traced, path=m.path,
                 layout=(m.layout.px, m.layout.sp, m.layout.sc),
                 k4=megakernel.LAUNCHES, k1=sphere_sweep.LAUNCHES,
-                batches=m.stats.batches_done,
-                render_s=m.stats.render_seconds,
-                collective_s=m.collective_seconds(),
+                batches=m.stats.batches_done - 1,
+                render_s=m.stats.render_seconds - warm_s,
+                collective_s=m.collective_seconds() - warm_c,
+                warm_render_s=warm_s, warm_collective_s=warm_c,
                 rows=(m.row_base, m.rows, m.rows_local),
                 samples=(m.sample_base, m.spp_local))
         dist.destroy_process_group()

@@ -83,7 +83,8 @@ fixture (static and moving) and fow-ellipsoids, two launches
 byte-identical; the ellipsoid Renderer on the card within the
 card-vs-CPU limits.  The fused kernel's row and sample ranges (the
 sharded renderer's launch): bit for bit with the plain version at
-row_base > 0, rows past the frame and spp_local < spp, on a static, an
+row_base > 0, rows past the frame, a range wholly past it (no launch,
+zero outputs) and spp_local < spp, on a static, an
 animated and a lit, textured triangle form, each range's rows the full
 frame's where it takes every sample; the sharded renderer with one rank
 on the card byte-identical with the Renderer, stepped and in a chunk.
@@ -1751,8 +1752,10 @@ def test_ellipsoid_render_on_card_matches_cpu(dev):
 # ---- K4's row and sample ranges: the sharded renderer's launch ------------
 
 # (row_base, rows, spp_local, sample_base) on a 48 x 27 frame: a middle
-# range, one running past the frame's last row, the whole frame.
-RANGES = [(7, 9, 2, 2), (22, 9, 1, 3), (0, 27, 4, 0)]
+# range, one running past the frame's last row, one wholly past it (a row
+# shard of 5 rows over 4 ranks has one: it launches nothing), the whole
+# frame.
+RANGES = [(7, 9, 2, 2), (22, 9, 1, 3), (30, 4, 2, 0), (0, 27, 4, 0)]
 
 
 @pytest.mark.parametrize("form", ["static", "anim", "tris+lights+noise+image"])
@@ -1765,13 +1768,13 @@ def test_fused_kernel_row_and_sample_ranges_bit_for_bit(dev, form, tmp_path):
         before = megakernel.LAUNCHES
         sums, traced = megakernel.render_tile_mega(*args, base, **rk)
         torch.cuda.synchronize()
-        assert megakernel.LAUNCHES == before + 1
+        inside = max(0, min(rows, 27 - row_base))
+        assert megakernel.LAUNCHES == before + (inside > 0)
         assert sums.shape == (rows, 48, 3) and traced.shape == (rows, 48)
         ref, ref_traced = megakernel.megakernel_reference(*args, base, **rk)
         assert torch.equal(sums, ref) and torch.equal(traced, ref_traced)
-        inside = min(rows, 27 - row_base)
         assert not sums[inside:].any() and not traced[inside:].any()
-        assert float(sums[:inside].max()) > 0.0
+        assert inside == 0 or float(sums[:inside].max()) > 0.0
         if spp_local == 4:
             assert torch.equal(sums, full[row_base:row_base + rows])
             assert torch.equal(traced, full_traced[row_base:row_base + rows])

@@ -4,8 +4,8 @@ single-device Renderer and against the JAX package's MultiChipRenderer.
 Ranks run as spawned processes on the CPU, gloo over a ``file://``
 rendezvous under the test's temporary directory (so xdist workers never
 share a port), at most 4 ranks, one torch thread each, joined with a
-timeout that fails the test.  One spawn renders every layout in turn, each
-in a process group of its own over the ranks it takes.
+timeout that fails the test.  One spawn renders every layout in turn, in
+one process group for each set of ranks that layouts take.
 
 Tolerances:
 
@@ -63,7 +63,7 @@ MEAN_TOL, RMSE_TOL, RAY_TOL = 5e-3, 0.05, 0.02
 
 
 def _doc(name):
-    if name in ("fow11", "fow18"):
+    if name in ("fow5", "fow11", "fow18"):
         with open(cli.DEFAULT_SCENE) as f:
             doc = json.load(f)
     else:
@@ -78,7 +78,7 @@ def _doc(name):
     return doc
 
 
-SIZES = {"fow11": (20, 11), "fow18": (32, 18), "tri": (16, 9),
+SIZES = {"fow5": (8, 5), "fow11": (20, 11), "fow18": (32, 18), "tri": (16, 9),
          "cornell": (12, 12), "ellipsoid-tri": (16, 9), "registry": (16, 9)}
 
 
@@ -106,6 +106,9 @@ JOBS = [
     ("sc3", "fow11", dict(sp=1, sc=3, ranks=(0, 1, 2))),
     ("fused-px4", "fow11", dict(sp=1, use_megakernel=True)),
     ("fused-px2sp2", "fow11", dict(sp=2, use_megakernel=True)),
+    # 5 rows over 4 ranks: slabs of 2, the last wholly past the frame.
+    ("px4-h5", "fow5", dict(sp=1)),
+    ("fused-px4-h5", "fow5", dict(sp=1, use_megakernel=True)),
     ("tri-sc4", "tri", dict(sp=1, sc=4)),
     ("tri-sc3", "tri", dict(sp=1, sc=3, ranks=(1, 2, 3))),
     ("cornell-sc2", "cornell", dict(sp=1, sc=2, ranks=(0, 1))),
@@ -122,41 +125,53 @@ REFUSALS = [
 ]
 
 
-def _session(tmp, job, rank, ranks, fn):
+def _session(tmp, rank, ranks, fn):
     """fn() in a gloo process group over ``ranks`` of the spawn, on the
     ranks in it."""
     if rank not in ranks:
         return
     dist = torch.distributed
-    dist.init_process_group("gloo", init_method=f"file://{tmp}/init-{job}",
-                            rank=ranks.index(rank), world_size=len(ranks))
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"file://{tmp}/init-{'-'.join(map(str, ranks))}",
+            rank=ranks.index(rank), world_size=len(ranks))
+    except Exception as e:
+        e.add_note(f"the process group of ranks {ranks}, on rank {rank}")
+        raise
     try:
         fn()
     finally:
         dist.destroy_process_group()
 
 
-def _work(rank, tmp):
+def _work(rank, tmp, port):
     """Every job this rank takes part in: {job: (image, rays, path,
-    layout)}, the refusals' messages, and a resumed render."""
-    out, refused = {}, {}
-    cs = {}
+    layout)}, the refusals' messages, a resumed render, and a render from
+    torchrun's environment.  The jobs on one set of ranks share one
+    process group, made once (each its own layout's groups in it): the
+    observed gloo failures came at a process group's rendezvous."""
+    out, refused, cs = {}, {}, {}
+    by_ranks = {}
     for job, scene, kw in JOBS + REFUSALS:
         kw = dict(kw)
-        ranks = tuple(kw.pop("ranks", range(WORLD)))
-        if scene not in cs:
-            cs[scene] = _cs(scene)
+        by_ranks.setdefault(tuple(kw.pop("ranks", range(WORLD))),
+                            []).append((job, scene, kw))
 
-        def render(job=job, scene=scene, kw=kw):
+    def render(jobs):
+        for job, scene, kw in jobs:
+            if scene not in cs:
+                cs[scene] = _cs(scene)
             try:
                 r = mc.MultiChipRenderer(cs[scene], device="cpu", **kw)
             except ValueError as e:
                 refused[job] = str(e)
-                return
+                continue
+            except Exception as e:
+                e.add_note(f"job {job}")
+                raise
             img = r.render_all()
             out[job] = (img, r.stats.rays_traced, r.path,
                         (r.layout.px, r.layout.sp, r.layout.sc))
-        _session(tmp, job, rank, ranks, render)
 
     def resume():
         # Checkpoint and resume on px=2, sp=2: every rank reads the file
@@ -169,14 +184,53 @@ def _work(rank, tmp):
         resumed.load_checkpoint(path)
         assert resumed.current_batch == 1
         out["resumed"] = (resumed.render_all(), None, None, None)
-    _session(tmp, "resume", rank, tuple(range(WORLD)), resume)
+
+    # The same order on every rank (dicts keep it).
+    for ranks, jobs in by_ranks.items():
+        everyone = ranks == tuple(range(WORLD))
+        _session(tmp, rank, ranks, lambda jobs=jobs, everyone=everyone: (
+            render(jobs), everyone and resume()))
+    if rank < 2:
+        out["torchrun-px2"] = _torchrun_render(rank, port, cs["fow11"])
     return out, refused
 
 
-def _worker(rank, tmp, results):
+def _torchrun_render(rank, port, compiled):
+    """Ranks 0 and 1 of 2 from torchrun's environment, with no process
+    group made first, rendering on the CPU where CUDA is reported (its
+    set_device refused): (image, rays, (path, backend), layout).  As
+    under torchrun, the launcher hosts the store (the fixture's, on a port
+    it bound itself: a port picked free and bound later may be taken by
+    then, by another process's gloo listener)."""
+    dist = torch.distributed
+    env = dict(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+               TORCHELASTIC_USE_AGENT_STORE="True")
+    saved = torch.cuda.is_available, torch.cuda.set_device
+
+    def no_card(*_):
+        raise AssertionError("a CPU render set a card")
+
+    os.environ.update(env)
+    torch.cuda.is_available, torch.cuda.set_device = (lambda: True), no_card
+    try:
+        r = mc.MultiChipRenderer(compiled, device="cpu", sp=1)
+        backend = dist.get_backend()
+        img = r.render_all()
+        return (img, r.stats.rays_traced, (r.path, backend),
+                (r.layout.px, r.layout.sp, r.layout.sc))
+    finally:
+        torch.cuda.is_available, torch.cuda.set_device = saved
+        for k in env:
+            del os.environ[k]
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _worker(rank, tmp, port, results):
     try:
         torch.set_num_threads(1)
-        results.put((rank, _work(rank, tmp), None))
+        results.put((rank, _work(rank, tmp, port), None))
     except BaseException:  # reported to the parent, which fails the test
         results.put((rank, None, traceback.format_exc()))
 
@@ -187,24 +241,31 @@ def spawned(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("gloo")
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    procs = [ctx.Process(target=_worker, args=(r, str(tmp), results))
+    # The torchrun job's store, hosted here as torchrun's agent hosts it.
+    store = torch.distributed.TCPStore("127.0.0.1", 0, is_master=True,
+                                       wait_for_workers=False)
+    procs = [ctx.Process(target=_worker,
+                         args=(r, str(tmp), store.port, results))
              for r in range(WORLD)]
     for p in procs:
         p.start()
-    out = {}
+    out, errs = {}, []
     try:
         for _ in procs:
             rank, res, err = results.get(timeout=JOIN_SECONDS)
             if err is not None:
-                pytest.fail(f"rank {rank} failed:\n{err}")
+                errs.append(f"rank {rank} failed:\n{err}")
             out[rank] = res
     except queue.Empty:
-        pytest.fail(f"the ranks did not finish in {JOIN_SECONDS} s")
+        errs.append(f"the ranks did not finish in {JOIN_SECONDS} s")
     finally:
         for p in procs:
             p.join(timeout=30)
             if p.is_alive():
                 p.kill()
+    if errs:
+        # Every rank's failure: one rank's is often another's effect.
+        pytest.fail("\n".join(errs))
     return out
 
 
@@ -233,6 +294,8 @@ def _single(scene, fused=False):
     ("sc4", "fow11", False, (1, 1, 4)),
     ("sc3", "fow11", False, (1, 1, 3)),
     ("fused-px4", "fow11", True, (4, 1, 1)),
+    ("px4-h5", "fow5", False, (4, 1, 1)),
+    ("fused-px4-h5", "fow5", True, (4, 1, 1)),
     ("tri-sc4", "tri", False, (1, 1, 4)),
     ("tri-sc3", "tri", False, (1, 1, 3)),
     ("cornell-sc2", "cornell", False, (1, 1, 2)),
@@ -255,6 +318,15 @@ def test_sp_split_within_its_tolerance(spawned, job, fused):
     ref, ref_rays, _ = _single("fow11", fused)
     assert lay == (2, 2, 1) and rays == ref_rays
     np.testing.assert_allclose(img, ref, rtol=0, atol=SP_ATOL)
+
+
+def test_torchrun_environment_on_the_cpu_takes_gloo(spawned):
+    """torchrun's environment and device "cpu": a gloo group and no card,
+    where CUDA is reported too; the single-device render's bytes."""
+    img, rays, (path, backend), lay = _job(spawned, "torchrun-px2")
+    ref, ref_rays, _ = _single("fow11")
+    assert backend == "gloo" and lay == (2, 1, 1) and path == "wavefront"
+    assert rays == ref_rays and img.tobytes() == ref.tobytes()
 
 
 def test_resume_on_the_ranks_is_byte_identical(spawned):
@@ -281,6 +353,7 @@ def test_scene_sharding_refusals(spawned, job, match):
 ])
 def test_matches_jax_multichip(spawned, job, mesh):
     img, rays, _, lay = _job(spawned, job)
+    mesh = dict(mesh)
     n = mesh.pop("n")
     j = JaxMultiChip(_jcs("fow18"), mesh=make_mesh(jax.devices()[:n],
                                                    **mesh))
@@ -359,6 +432,15 @@ def test_world_of_one_is_the_renderer():
         assert r.path == ("fused" if fused else "wavefront")
         assert r.render_batches(2) == 2
         assert r.image().tobytes() == _single("fow11", fused)[0].tobytes()
+
+
+def test_resize_keeps_the_sharded_renderer():
+    r = mc.MultiChipRenderer(_cs("fow11"), device="cpu")
+    r.render_next_batch()
+    small = r.update_image_size(16, 9)
+    assert isinstance(small, mc.MultiChipRenderer)
+    assert (small.static.width, small.static.height) == (16, 9)
+    assert small.current_batch == 0 and small.layout == r.layout
 
 
 def test_checkpoints_cross_with_jax_multichip(tmp_path):
