@@ -271,7 +271,19 @@ printing a result.  No path runs at a cut depth.  Phases:
    stress-16k and one batch of the mesh scene under torch.profiler
    (one session): the device's busy share of the traced window's own
    device timeline and of the untraced wall, the fused kernel's (or
-   K3's) share of device time and device operations per batch.
+   K3's) share of device time and device operations per batch;
+10. the app layer (_app_paths) on final-one-weekend at 1200x675, 4 spp x
+   25, depth 50, its files in a temporary directory: the CLI with
+   --preview-every 1 and --debug (K4 launched 25 times, counted from 0,
+   every step validated, the PNG byte-equal to 25 stepped batches),
+   render_all with progress and metrics_jsonl (25 lines adding up to the
+   rays traced), one batch at the runtime max_depth 8 on K4 bit for bit
+   with its plain version at that depth, the viewer over HTTP (a bad
+   hot-swap kept out, the motion-blur twin swapped in on fused_anim, a
+   resize to 600x338 restarting accumulation, the finished image
+   byte-equal to render_all's), gen-final-one-weekend and a fused batch
+   of the generated scene, and a batch under utils/profiling.trace in a
+   process of its own whose Chrome trace names K4; its wall time.
 
 The line before the last is the kernels' JSON record (with each kernel's
 bound: the larger of its FP32 operations over 67 TFLOP/s (the dev
@@ -771,7 +783,7 @@ def _plain_work(args, kw):
     work = dict(rays=0, noise_hits=0, image_hits=0)
     inner = wavefront.bounce_wavefront
 
-    def counting(static_, scene_, trace_fn, geom, *rest):
+    def counting(static_, scene_, trace_fn, geom, *rest, **kw):
         def trace(o, d, alive):
             raw = trace_fn(o, d, alive)
             work["rays"] += int(alive.sum())
@@ -781,7 +793,7 @@ def _plain_work(args, kw):
                                         raw, mode)
             return raw
 
-        out = inner(static_, scene_, trace, geom, *rest)
+        out = inner(static_, scene_, trace, geom, *rest, **kw)
         work["lengths"] = rest[-1].reshape(static.width * static.height, -1)
         return out
 
@@ -2071,6 +2083,280 @@ def _multichip_paths(cs, dev, card):
           f"start-up and imports included ({card})")
     return dict(range_ms=ms, range_plain_ms=plain_ms, range_bound=bound,
                 range_err=err, world1_mrays=world1_mrays, two_rank=out)
+
+
+# The app-layer phase: final-one-weekend's full batches, K4's runtime
+# depth on one batch, its waits for the viewer and its spawned trace.
+APP_BATCHES = 25
+APP_DEPTH = 8
+APP_WAIT_S = 60
+APP_RESIZE = (600, 338)
+
+
+def _http_get(port: int, path: str) -> bytes:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=APP_WAIT_S) as r:
+        return r.read()
+
+
+def _viewer_wait(port: int, pred, what: str) -> dict:
+    """The viewer's /status once ``pred`` holds, polled for at most
+    APP_WAIT_S seconds."""
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < APP_WAIT_S:
+        st = json.loads(_http_get(port, "/status"))
+        if pred(st):
+            return st
+        time.sleep(0.05)
+    raise AssertionError(f"viewer: no {what} within {APP_WAIT_S} s: {st}")
+
+
+def _viewer_png(port: int) -> np.ndarray:
+    import io
+
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(_http_get(port, "/image.png"))))
+
+
+def _app_paths(cs, mb_scene, dev, card):
+    """10. The app layer on the card, at final-one-weekend's full 1200x675,
+    4 spp x 25, depth 50, its files in a temporary directory (never
+    assets/): (a) the CLI with --preview-every 1 and --debug, its PNG
+    byte-equal to a Renderer stepped 25 times, every step checked, K4
+    launched 25 times; (b) render_all(progress) with metrics_jsonl, a line
+    a batch adding up to the rays traced; (c) the runtime max_depth on K4,
+    bit for bit with its plain version at that depth (and the dense form,
+    _hold_dense), through the Renderer too; (d) the viewer over HTTP:
+    refinement, a bad hot-swap kept out, the motion-blur twin swapped in
+    (fused_anim), a resize restarting accumulation, the finished image
+    byte-equal to a Renderer's render_all; (e) gen-final-one-weekend and
+    one fused batch of the generated scene; (f) a batch under
+    utils/profiling.trace in a process of its own, its Chrome trace
+    naming K4's kernel.  Returns the phase's numbers."""
+    import multiprocessing as mp
+
+    import torch
+
+    from raytrace_tpu_torch import cli
+    from raytrace_tpu_torch.engine import Renderer
+    from raytrace_tpu_torch.ops import megakernel
+    from raytrace_tpu_torch.utils.image import to_srgb_u8
+    from raytrace_tpu_torch.viewer import Viewer
+
+    t_phase = time.perf_counter()
+    out = {}
+    if (cs.render.width, cs.render.height, cs.render.sample_batches,
+            cs.render.max_ray_depth) != (WIDTH, HEIGHT, APP_BATCHES, 50):
+        raise AssertionError("app phase: final-one-weekend's settings "
+                             "changed")
+    logger = logging.getLogger("raytrace_tpu_torch")
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) The CLI, a batch at a time, the PNG after each, validated.
+        png = os.path.join(tmp, "preview.png")
+        capture = _Capture()
+        logger.addHandler(capture)
+        _reset_counts()
+        t0 = time.perf_counter()
+        try:
+            rc = cli.main(["render", "--path", cli.DEFAULT_SCENE,
+                           "--width", str(WIDTH), "--height", str(HEIGHT),
+                           "--preview-every", "1", "--debug", "-o", png])
+        finally:
+            logger.removeHandler(capture)
+        cli_s = time.perf_counter() - t0
+        launches = megakernel.LAUNCHES
+        if rc != 0:
+            raise AssertionError(f"app cli: exit {rc}")
+        if launches != APP_BATCHES:
+            raise AssertionError(f"app cli: K4 launched {launches} times, "
+                                 f"not {APP_BATCHES}")
+        valid = [m for m in capture.lines if m.startswith("debug: batch ")]
+        summary = [m for m in capture.lines
+                   if m.startswith(f"debug: {APP_BATCHES} checks, ")]
+        if len(valid) != APP_BATCHES or len(summary) != 1:
+            raise AssertionError(f"app cli: {len(valid)} validated steps, "
+                                 f"summary {summary}")
+        words = summary[0].split()
+        checks, nonf, neg = int(words[1]), int(words[3]), int(words[5])
+        max_rad, bound = float(words[9]), float(words[12])
+        if (checks, nonf, neg) != (APP_BATCHES, 0, 0) or max_rad > bound:
+            raise AssertionError(f"app cli: debug stats {summary[0]}")
+        stepped = Renderer(cs, device=dev)
+        for _ in range(APP_BATCHES):
+            stepped.render_next_batch()
+        stepped_png = os.path.join(tmp, "stepped.png")
+        stepped.save_png(stepped_png)
+        with open(png, "rb") as f, open(stepped_png, "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError("app cli: --preview-every 1's PNG is "
+                                     "not the stepped Renderer's")
+        print(f"app (a): cli render --preview-every 1 --debug: rc 0, K4 "
+              f"{launches} launches, {checks} checks, 0 non-finite, 0 "
+              f"negative, max radiance {max_rad} of bound {bound}; PNG "
+              f"byte-equal to 25 stepped batches; {cli_s:.2f} s ({card})")
+        out["a_s"] = time.perf_counter() - t_phase
+
+        # (b) render_all with progress and metrics.
+        t0 = time.perf_counter()
+        jsonl = os.path.join(tmp, "metrics.jsonl")
+        calls = []
+        r = Renderer(cs, device=dev, metrics_jsonl=jsonl)
+        img = r.render_all(progress=lambda b, total: calls.append(b))
+        with open(jsonl) as f:
+            lines = [json.loads(line) for line in f]
+        expect = list(range(r.chunk_size(), APP_BATCHES, r.chunk_size()))
+        if (len(lines) != APP_BATCHES
+                or sum(x["rays"] for x in lines) != r.stats.rays_traced
+                or calls != expect + [APP_BATCHES]):
+            raise AssertionError(f"app render_all: {len(lines)} lines, rays "
+                                 f"{sum(x['rays'] for x in lines)} vs "
+                                 f"{r.stats.rays_traced}, progress {calls}")
+        _check_image(img, "app render_all", WIDTH, HEIGHT)
+        out["mrays"] = r.metrics.mrays_per_sec
+        print(f"app (b): render_all: {len(lines)} JSONL lines, rays "
+              f"{r.stats.rays_traced} as traced, progress at {calls}, "
+              f"{out['mrays']:.1f} Mrays/s ({card})")
+        del r, stepped
+        out["b_s"] = time.perf_counter() - t0
+
+        # (c) The runtime depth on K4, held to its plain version.
+        t0 = time.perf_counter()
+        r = Renderer(cs, device=dev)
+        r.max_depth = APP_DEPTH
+        args = (r.static, r.scene, r._geometry(0), r.camera, 0, 1)
+        kw = dict(use_dof=r.use_dof, times=r.batch_times_dev,
+                  max_depth=APP_DEPTH)
+        _reset_counts()
+        sums, traced = megakernel.render_tile_mega(*args, **kw)
+        launched = megakernel.LAUNCHES
+        ref, ref_traced = megakernel.megakernel_reference(*args, **kw)
+        torch.cuda.synchronize()
+        bitwise = torch.equal(sums, ref) and torch.equal(traced, ref_traced)
+        most = int(traced.max())
+        spp = r.static.sqrt_spp ** 2
+        if launched != 1 or not bitwise or most > APP_DEPTH * spp:
+            raise AssertionError(f"app max_depth {APP_DEPTH}: launched "
+                                 f"{launched}, bit for bit {bitwise}, most "
+                                 f"bounces a pixel {most}")
+        _hold_dense(f"final-one-weekend at max_depth {APP_DEPTH}", args, kw,
+                    ref, ref_traced, card)
+        r.render_next_batch()
+        if not torch.equal(r.accum, ref / float(np.float32(spp))):
+            raise AssertionError("app max_depth: the Renderer's batch is not "
+                                 "the plain version's mean")
+        out["depth_rays"] = int(traced.sum())
+        print(f"app (c): K4 at max_depth {APP_DEPTH}: bit for bit with the "
+              f"plain version, {out['depth_rays']} rays, at most {most} "
+              f"bounces a pixel ({spp} samples); the Renderer's batch the "
+              f"same ({card})")
+        del r, sums, traced, ref, ref_traced
+        out["c_s"] = time.perf_counter() - t0
+
+        # (d) The viewer over HTTP.
+        t0 = time.perf_counter()
+        v = Viewer(cli.DEFAULT_SCENE, WIDTH, HEIGHT, port=0, device=dev)
+        v.start()
+        try:
+            port = v.port
+            _viewer_wait(port, lambda s: s["batch"] >= 1, "first batch")
+            first = _viewer_png(port)
+            if first.shape != (HEIGHT, WIDTH, 3):
+                raise AssertionError(f"viewer: image {first.shape}")
+            gen0 = json.loads(_http_get(port, "/status"))["generation"]
+            _http_get(port, "/reload?path=" + os.path.join(tmp, "no.json"))
+            st = _viewer_wait(port, lambda s: s["error"] is not None,
+                              "error from the bad reload")
+            if st["generation"] != gen0 or v.state.render_error:
+                raise AssertionError(f"viewer: the bad reload was not kept "
+                                     f"out: {st}")
+            _http_get(port, f"/reload?path={mb_scene}")
+            st = _viewer_wait(port, lambda s: s["generation"] > gen0,
+                              "motion-blur swap")
+            if v.state.renderer.path != "fused_anim" or st["error"]:
+                raise AssertionError(f"viewer: the twin took "
+                                     f"{v.state.renderer.path}: {st}")
+            gen1 = st["generation"]
+            _http_get(port, "/resize?width={}&height={}".format(*APP_RESIZE))
+            st = _viewer_wait(port, lambda s: s["generation"] > gen1
+                              and s["width"] == APP_RESIZE[0], "resize")
+            st = _viewer_wait(port, lambda s: s["batch"] == s[
+                "total_batches"], "the resized render's end")
+            vr = v.state.renderer
+            if vr.stats.batches_done != st["total_batches"]:
+                raise AssertionError("viewer: the resize did not restart "
+                                     "accumulation")
+            final = _viewer_png(port)
+            viewed = vr.compiled
+            if v.state.render_error or not v._render_thread.is_alive():
+                raise AssertionError(f"viewer: render thread failed: "
+                                     f"{v.state.render_error}")
+        finally:
+            v.stop()
+        want = to_srgb_u8(Renderer(viewed, device=dev).render_all())
+        if not np.array_equal(final, want):
+            raise AssertionError("viewer: the finished image is not the "
+                                 "Renderer's render_all")
+        print(f"app (d): viewer: {WIDTH}x{HEIGHT} refining, a bad reload "
+              f"kept out, the motion-blur twin on fused_anim, resized to "
+              f"{st['width']}x{st['height']} and restarted, its "
+              f"{st['total_batches']} batches byte-equal to render_all "
+              f"({card})")
+        out["d_s"] = time.perf_counter() - t0
+
+        # (e) The generator, and a batch of the generated scene.
+        t0 = time.perf_counter()
+        gen_dir = os.path.join(tmp, "gen")
+        if cli.main(["gen-final-one-weekend", "--out-dir", gen_dir]) != 0:
+            raise AssertionError("gen-final-one-weekend failed")
+        gen_path = os.path.join(gen_dir, "final-one-weekend.json")
+        with open(gen_path) as f, open(cli.DEFAULT_SCENE) as g:
+            ours, shipped = json.load(f), json.load(g)
+        moved = sum(next(iter(a.values())).get("center") != next(iter(
+            b.values())).get("center") for a, b in zip(
+            ours["primitives"], shipped["primitives"]))
+        r = Renderer(cli.load_scene(gen_path, WIDTH, HEIGHT), device=dev)
+        if r.path != "fused":
+            raise AssertionError(f"generated scene took {r.path}")
+        r.render_next_batch()
+        _check_image(r.image(), "app generated final-one-weekend", WIDTH,
+                     HEIGHT)
+        print(f"app (e): generated final-one-weekend "
+              f"({len(ours['primitives'])} primitives, {moved} centres "
+              f"other than assets/'s): a fused batch ({card})")
+        del r
+        out["e_s"] = time.perf_counter() - t0
+
+        # (f) A batch under the profiler, in a process of its own.
+        t0 = time.perf_counter()
+        ctx = mp.get_context("spawn")
+        results = ctx.Queue()
+        proc = ctx.Process(target=smoke_lib.app_trace,
+                           args=(cs, os.path.join(tmp, "trace"), results,
+                                 str(dev)))
+        proc.start()
+        try:
+            got, tb = results.get(timeout=APP_WAIT_S * 2)
+        finally:
+            proc.join(timeout=30)
+            if proc.is_alive():
+                proc.kill()
+        if tb is not None:
+            raise AssertionError(f"app trace failed:\n{tb}")
+        k4 = [n for n in got["kernels"] if "megakernel" in n]
+        if not k4 or got["launches"] != 1:
+            raise AssertionError(f"app trace: no K4 kernel in "
+                                 f"{got['kernels']}")
+        print(f"app (f): profiling.trace of a {got['path']} batch: "
+              f"{len(got['kernels'])} kernels traced, K4 as {k4[0][:80]}")
+        out["f_s"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"app phase: {out['seconds']:.1f} s, (a)-(f) "
+          + ", ".join(f"{out[k + '_s']:.1f}" for k in "abcdef")
+          + f" s ({card})")
+    return out
 
 
 class _Capture(logging.Handler):
@@ -3393,6 +3679,9 @@ def main() -> int:
     print(prof.key_averages().table(sort_by="device_time_total",
                                     row_limit=8))
     del runs, prof_r
+
+    # -- 10. the app layer: CLI, metrics, runtime depth, viewer, trace -----
+    _app_paths(cs, mb_scene, dev, card)
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

@@ -4,8 +4,12 @@ Usage:
   python -m raytrace_tpu_torch.cli render [--path scene.json] [-o out.png]
       [--width W] [--height H] [--mesh-geometry] [--checkpoint ck.npz]
       [--resume] [--device cuda|cpu] [--multichip [--scene-shards N]]
+      [--preview-every N] [--debug]
   torchrun --nproc-per-node N -m raytrace_tpu_torch.cli render --multichip
       [--scene-shards S] ...
+  python -m raytrace_tpu_torch.cli gen-final-one-weekend [--out-dir assets]
+  python -m raytrace_tpu_torch.cli view [scene.json] [--width W]
+      [--height H] [--port 8000] [--device cuda|cpu]
 
 ``--device`` defaults to ``cuda`` and fails with a clear error when no
 CUDA device is present; the CPU has to be asked for with ``--device cpu``.
@@ -16,7 +20,16 @@ every scene it covers, static or with moving spheres, else the
 wavefront, whose big meshes take the paged sweep K3) and logs it.  The render steps in chunks of
 ``Renderer.chunk_size()`` batches (one fused kernel launch each on the
 fused paths); with ``--checkpoint`` the state is saved after every chunk,
-and ``--resume`` continues from it.
+and ``--resume`` continues from it.  ``--preview-every N`` caps the chunk
+at N batches and writes the PNG every N batches.  ``--debug`` validates
+the accumulation after every chunk (finite, non-negative, under the
+Renderer's energy bound), logs each chunk's largest value against the
+bound, and exits 3 on a violation.
+
+``gen-final-one-weekend`` writes the generated final-one-weekend scene
+and its motion-blur twin (tools/generate.py) into ``--out-dir``, by
+default ``assets``, whose copies it overwrites.  ``view`` serves the
+progressive viewer (viewer.py) on ``--port``.
 
 ``--multichip`` renders with parallel/multichip.MultiChipRenderer over the
 ranks ``torchrun`` starts (one a card, NCCL; run alone, one rank):
@@ -72,6 +85,9 @@ def cmd_render(args) -> int:
                          f"{args.scene_shards}")
     if args.scene_shards > 1 and not args.multichip:
         raise SceneError("--scene-shards requires --multichip")
+    if args.debug and args.multichip:
+        raise SceneError("--debug validates a single-device render; it "
+                         "does not take --multichip")
     cs = load_scene(args.path, args.width, args.height,
                     analytic_spheres=not args.mesh_geometry)
     log.info("scene: %d spheres, %d triangles, %dx%d, %d spp x %d batches",
@@ -94,7 +110,7 @@ def cmd_render(args) -> int:
             log.setLevel(logging.WARNING)
         log.info("multichip: px=%d sp=%d sc=%d", lay.px, lay.sp, lay.sc)
     else:
-        renderer = Renderer(cs, device=args.device)
+        renderer = Renderer(cs, device=args.device, debug=args.debug)
     if args.resume and args.checkpoint and os.path.exists(args.checkpoint):
         renderer.load_checkpoint(args.checkpoint)
         log.info("resumed at batch %d", renderer.current_batch)
@@ -106,8 +122,17 @@ def cmd_render(args) -> int:
     t0 = time.perf_counter()
     total = cs.render.sample_batches
     chunk = renderer.chunk_size()
+    if args.preview_every:
+        chunk = min(chunk, args.preview_every)
+    ds = renderer.debug_stats
     while renderer.render_batches(chunk):
-        log.info("batch %d/%d done", renderer.current_batch, total)
+        batch = renderer.current_batch
+        log.info("batch %d/%d done", batch, total)
+        if ds is not None:
+            log.info("debug: batch %d valid (max radiance %.3g of bound "
+                     "%.3g)", batch, ds.max_radiance, ds.energy_bound)
+        if args.preview_every and batch % args.preview_every == 0:
+            renderer.save_png(out)
         if args.checkpoint:
             renderer.save_checkpoint(args.checkpoint)
     dt = time.perf_counter() - t0
@@ -115,8 +140,40 @@ def cmd_render(args) -> int:
     log.info("rendered %d batches in %.1fs — %.1f Mrays/s on %s -> %s",
              renderer.stats.batches_done, dt, renderer.stats.mrays_per_sec,
              args.device, out)
+    if ds is not None:
+        log.info("debug: %d checks, %d non-finite, %d negative, max "
+                 "radiance %.6g of bound %.6g", ds.checks,
+                 ds.nonfinite_values, ds.negative_values, ds.max_radiance,
+                 ds.energy_bound)
     if getattr(renderer, "is_lead", True):
         print(out)
+    return 0
+
+
+def cmd_generate(args) -> int:
+    from .tools import generate_final_one_weekend_pair
+
+    os.makedirs(args.out_dir, exist_ok=True)
+    static, blur = generate_final_one_weekend_pair()
+    for scene, name in [(static, "final-one-weekend.json"),
+                        (blur, "final-one-weekend-motion-blur.json")]:
+        path = os.path.join(args.out_dir, name)
+        scene.save_json(path)
+        log.info("wrote %s", path)
+    return 0
+
+
+def cmd_view(args) -> int:
+    import torch
+
+    from .viewer import Viewer
+
+    if args.device.startswith("cuda") and not torch.cuda.is_available():
+        log.error("CUDA is not available on this machine; pass --device cpu "
+                  "to render on the CPU")
+        return 2
+    Viewer(args.path, width=args.width, height=args.height, port=args.port,
+           device=args.device).serve_forever()
     return 0
 
 
@@ -143,7 +200,31 @@ def main(argv=None) -> int:
     pr.add_argument("--scene-shards", type=int, default=1,
                     help="shard the primitive tables over an 'sc' axis of "
                          "this many ranks; needs --multichip")
+    pr.add_argument("--preview-every", type=int, default=0,
+                    help="write the PNG every N batches (progressive "
+                         "preview)")
+    pr.add_argument("--debug", action="store_true",
+                    help="validate every chunk (finite / non-negative / "
+                         "energy-bounded accumulation); exit 3 if not")
     pr.set_defaults(fn=cmd_render)
+
+    pg = sub.add_parser("gen-final-one-weekend",
+                        help="generate the RTiOW final scene files")
+    pg.add_argument("--out-dir", default="assets",
+                    help="where to write them (default assets, whose "
+                         "copies are overwritten)")
+    pg.set_defaults(fn=cmd_generate)
+
+    pv = sub.add_parser(
+        "view", help="interactive progressive viewer (browser; hot-swap "
+                     "+ resize like the reference's windowed app)")
+    pv.add_argument("path", nargs="?", default=DEFAULT_SCENE)
+    pv.add_argument("--width", type=int, default=None)
+    pv.add_argument("--height", type=int, default=None)
+    pv.add_argument("--port", type=int, default=8000)
+    pv.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu must be asked for)")
+    pv.set_defaults(fn=cmd_view)
 
     args = p.parse_args(argv)
     from .scene_file import SceneError
@@ -153,9 +234,16 @@ def main(argv=None) -> int:
     except FileNotFoundError as e:
         log.error("file not found: %s", e.filename or e)
         return 2
-    except (SceneError, NotImplementedError) as e:
+    except SceneError as e:
         log.error("%s", e)
         return 2
+    except RuntimeError as e:
+        from .engine.renderer import DebugValidationError
+
+        if isinstance(e, DebugValidationError):
+            log.error("debug validation failed: %s", e)
+            return 3
+        raise
 
 
 if __name__ == "__main__":

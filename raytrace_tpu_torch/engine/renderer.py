@@ -76,6 +76,13 @@ world-space tables (``sphere_world_mode``); a scene with a non-uniform
 scale (ellipsoids) has none, and its spheres are swept in object space
 by H2 (ops/sphere_obj.py) on the wavefront, which the fused kernel's gate
 sends it to.
+
+The JAX Renderer's app-layer options are here too: ``camera_name`` renders
+through a camera other than the scene's own; ``metrics_jsonl`` appends a
+``utils/profiling.BatchMetrics`` line a batch; ``max_depth``, an attribute
+set at any time, limits the bounces from the next step on; ``debug``
+scans the accumulation after every step (``DebugStats``) and raises
+``DebugValidationError`` on a non-finite, negative or over-bright value.
 """
 
 from __future__ import annotations
@@ -96,6 +103,7 @@ from ..ops import megakernel, paged_tri, sphere_sweep, sphere_tree
 from ..ops.spheres import world_sphere_anim_tables, world_sphere_tables
 from ..tools.chacha import ChaCha20Rng
 from ..utils.image import write_png
+from ..utils.profiling import BatchMetrics
 from .arrays import SceneStatic, pack_atlas, scene_static, upload_scene
 from .wavefront import (make_trace_fn, prepare_batch, prepare_tris,
                         render_tile, sphere_prefix, world_soup)
@@ -174,13 +182,33 @@ def paged_soup(cs: CompiledScene) -> CompiledScene:
         [order, np.arange(n, cs.tri_p.shape[0])]))
 
 
-def unsupported_feature(static: SceneStatic) -> Optional[str]:
-    """Why this port cannot render the scene yet, naming the ROADMAP
-    queue 1 item that will add it; None when it is inside the port.
-    Since registry shading every scene the compiler takes is, so no item
-    is named.  ``static`` is the Renderer's, with ``sphere_world_mode``
-    set."""
-    return None
+def _debug_scan(accum: torch.Tensor):
+    """The per-step validation reduction: (non-finite values, negative
+    values, the largest finite value) of the accumulation, read back in
+    one copy."""
+    finite = torch.isfinite(accum)
+    clean = torch.where(finite, accum, 0.0)
+    nonf, neg, mx = torch.stack([
+        (~finite).sum().double(), (clean < 0.0).sum().double(),
+        clean.max().double()]).tolist()
+    return int(nonf), int(neg), mx
+
+
+@dataclass
+class DebugStats:
+    """``debug=True`` counters, the validation-layer analogue of the
+    reference's Vulkan debug callback (bin/src/app.rs:317-369): every
+    step's accumulation is scanned for non-finite, negative and
+    energy-violating radiance."""
+    checks: int = 0
+    nonfinite_values: int = 0
+    negative_values: int = 0
+    max_radiance: float = 0.0
+    energy_bound: float = 0.0
+
+
+class DebugValidationError(RuntimeError):
+    pass
 
 
 @dataclass
@@ -231,13 +259,17 @@ class Renderer:
     def __init__(self, compiled: CompiledScene, device="cuda",
                  use_megakernel: Optional[bool] = None, use_bvh="auto",
                  leaf_size: int = 4, shard=None,
-                 split: Optional[FrameSplit] = None):
+                 split: Optional[FrameSplit] = None,
+                 camera_name: Optional[str] = None,
+                 metrics_jsonl: Optional[str] = None, debug: bool = False):
         self.device = torch.device(device)
         # Kept so update_image_size rebuilds with the same options.
         self._ctor_kwargs = dict(device=self.device,
                                  use_megakernel=use_megakernel,
                                  use_bvh=use_bvh, leaf_size=leaf_size,
-                                 shard=shard, split=split)
+                                 shard=shard, split=split,
+                                 camera_name=camera_name,
+                                 metrics_jsonl=metrics_jsonl, debug=debug)
         self.shard = shard
         self.split = split = split or FrameSplit()
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -252,9 +284,6 @@ class Renderer:
         world_mode = self.sphere_tables is not None
         static = dataclasses.replace(scene_static(compiled),
                                      sphere_world_mode=world_mode)
-        missing = unsupported_feature(static)
-        if missing is not None:
-            raise NotImplementedError(f"not ported yet: {missing}")
         if shard is not None:
             # raytrace_tpu/parallel/multichip.py:374-375, :424-426.
             if use_bvh is True or use_bvh == "paged":
@@ -363,7 +392,7 @@ class Renderer:
             self.path = ("fused_per_batch" if self._anim_geom is None
                          else "fused_anim")
 
-        name = compiled.render.camera
+        name = camera_name or compiled.render.camera
         if name not in compiled.cameras:
             raise KeyError(f"Camera {name} not found")
         params = compiled.cameras[name]
@@ -394,6 +423,22 @@ class Renderer:
                                  device=self.device)
         self.current_batch = 0
         self.stats = RenderStats()
+        # The bounce limit of the next step, which may be set at any time.
+        # Both paths take it at run time: K4 as its launch argument, the
+        # wavefront as its loop's bound.  The JAX Renderer sends a depth
+        # other than the scene's down its XLA wavefront; the port keeps K4,
+        # which computes the same function at any depth.
+        self.max_depth = compiled.render.max_ray_depth
+        self.debug_stats = None
+        if debug:
+            # A loose ceiling on a sample's radiance: every added term is a
+            # product of albedos (each at most 1) and one emission or the
+            # sky, and NEE adds at most one light term a bounce.
+            emax = max(1.0, float(compiled.const_colours.max()))
+            self.debug_stats = DebugStats(
+                energy_bound=emax * (self.max_depth + 2))
+        self.metrics = BatchMetrics(pixels=W * H, spp=spp,
+                                    jsonl_path=metrics_jsonl)
 
     def _geometry(self, batch: int):
         """The geometry the fused kernel or the wavefront renders batch
@@ -413,10 +458,39 @@ class Renderer:
                              sph_order=self._sph_order,
                              sph_tree=self._sph_tree, shard=self.shard)
 
-    def _record(self, batches: int, rays: int, t0: float) -> None:
+    def _debug_check(self, batch: int) -> None:
+        """debug=True: validate the accumulation after a step (finite,
+        non-negative, energy-bounded); raises DebugValidationError naming
+        the step's last batch on the first violation."""
+        st = self.debug_stats
+        if st is None:
+            return
+        nonf, neg, mx = _debug_scan(self.accum)
+        st.checks += 1
+        st.nonfinite_values += nonf
+        st.negative_values += neg
+        st.max_radiance = max(st.max_radiance, mx)
+        if nonf or neg:
+            raise DebugValidationError(
+                f"batch {batch}: {nonf} non-finite / {neg} "
+                f"negative accumulation values")
+        if mx > st.energy_bound:
+            raise DebugValidationError(
+                f"batch {batch}: radiance {mx:.3g} exceeds energy "
+                f"bound {st.energy_bound:.3g}")
+
+    def _record(self, b0: int, k: int, rays: int, t0: float) -> None:
+        """Account batches b0 .. b0 + k - 1, rendered since ``t0``.  Each
+        gets one metrics record of dt / k seconds and rays / k rays (the
+        remainder to the first batches), so the records add up to
+        ``stats``: K4 counts a pixel's bounces over the whole launch, where
+        the JAX package records each fused batch's own rays."""
         dt = _time.perf_counter() - t0
-        self.current_batch += batches
-        self.stats.batches_done += batches
+        q, r = divmod(rays, k)
+        for i in range(k):
+            self.metrics.record(b0 + i, dt / k, float(q + (i < r)))
+        self.current_batch += k
+        self.stats.batches_done += k
         self.stats.rays_traced += rays
         self.stats.render_seconds += dt
 
@@ -432,7 +506,8 @@ class Renderer:
                 s, self.scene, geom, self.camera, b0, k, self.sample_base,
                 use_dof=self.use_dof, reduce_mean=mean,
                 times=self.batch_times_dev, spp_local=self.spp_local,
-                row_base=self.row_base, rows=self.rows_local)
+                row_base=self.row_base, rows=self.rows_local,
+                max_depth=self.max_depth)
             return slab, int(traced.sum(dtype=torch.int64))
         trace = make_trace_fn(s, self.scene, geom)
         end = self.row_base + self.rows
@@ -445,7 +520,8 @@ class Renderer:
                  else min(self.rows_per_tile, end - row0))
             tile, tr = render_tile(s, self.scene, self.camera, trace, geom,
                                    b0, row0, n, self.use_dof, self.spp_local,
-                                   self.sample_base, reduce_mean=mean)
+                                   self.sample_base, reduce_mean=mean,
+                                   max_depth=self.max_depth)
             tiles.append(tile)
             rays += tr
         pad = torch.zeros((self.rows_local - self.rows, s.width, 3),
@@ -468,7 +544,8 @@ class Renderer:
             self.accum = (float(b0) * self.accum + img / spp) / float(b0 + k)
         rays = self.split.sum_rays(rays)
         _synchronize(self.device)
-        self._record(k, rays, t0)
+        self._debug_check(b0 + k - 1)
+        self._record(b0, k, rays, t0)
 
     def render_next_batch(self) -> bool:
         """Trace one sample batch; returns False when every batch is done."""
@@ -500,9 +577,13 @@ class Renderer:
         spp = max(1, self.static.sqrt_spp ** 2)
         return max(1, min(self.CHUNK, 256 // spp))
 
-    def render_all(self) -> np.ndarray:
+    def render_all(self, progress=None) -> np.ndarray:
+        """Render every batch left, in chunks of ``chunk_size()``;
+        ``progress(current_batch, total)`` is called after each chunk."""
+        total = self.compiled.render.sample_batches
         while self.render_batches(self.chunk_size()):
-            pass
+            if progress is not None:
+                progress(self.current_batch, total)
         return self.image()
 
     def image(self) -> np.ndarray:

@@ -718,11 +718,13 @@ def _bounce(static: SceneStatic, scene: SceneArrays, bg: V3, trace_fn,
 def bounce_wavefront(static: SceneStatic, scene: SceneArrays,
                      trace_fn: Callable, geom: BatchGeometry, state,
                      ray_o: V3, ray_d: V3,
-                     counts: Optional[torch.Tensor] = None):
-    """Bounce a wavefront to termination; returns (radiance V3 of [R],
-    rays traced).  Rays traced is the sum over bounces of the rays alive
-    at that bounce, as in the JAX package.  ``counts`` ([R] int32), when
-    given, gets each ray's own number of bounces added to it.
+                     counts: Optional[torch.Tensor] = None,
+                     max_depth: Optional[int] = None):
+    """Bounce a wavefront to termination, at most ``max_depth`` bounces
+    (the scene's ``max_ray_depth`` by default); returns (radiance V3 of
+    [R], rays traced).  Rays traced is the sum over bounces of the rays
+    alive at that bounce, as in the JAX package.  ``counts`` ([R] int32),
+    when given, gets each ray's own number of bounces added to it.
 
     Tail compaction: scenes run to max depth 50 while most paths end after
     a few bounces.  Whenever the alive count falls to the next size of
@@ -753,7 +755,8 @@ def bounce_wavefront(static: SceneStatic, scene: SceneArrays,
             o[w.idx] = o[w.idx] + a
 
     rays_traced = 0
-    for _ in range(static.max_ray_depth):
+    for _ in range(static.max_ray_depth if max_depth is None
+                   else max_depth):
         n_alive = int(w.alive.sum())
         if n_alive == 0:
             break
@@ -806,19 +809,22 @@ def render_tile(static: SceneStatic, scene: SceneArrays,
                 cam: cam_ops.CameraArrays, trace_fn: Callable,
                 geom: BatchGeometry, sample_batch: int, row0: int,
                 rows_per_tile: int, use_dof: bool, spp_local: int = 0,
-                sample_base: int = 0, reduce_mean: bool = True):
+                sample_base: int = 0, reduce_mean: bool = True,
+                max_depth: Optional[int] = None):
     """Render ``rows_per_tile`` pixel rows x width x ``spp_local`` samples
     (every sample of the pixel when 0) numbered from ``sample_base``
-    (raytrace_tpu/engine/wavefront.py:673-739).  Returns (tile [rows, W,
-    3], rays traced): the samples' mean with ``reduce_mean``, else their
-    sum, for a sum over the sample shards."""
+    (raytrace_tpu/engine/wavefront.py:673-739), at most ``max_depth``
+    bounces (the scene's by default).  Returns (tile [rows, W, 3], rays
+    traced): the samples' mean with ``reduce_mean``, else their sum, for a
+    sum over the sample shards."""
     device = scene.sph_center.device
     spp_local = spp_local or static.sqrt_spp * static.sqrt_spp
     state, ray_o, ray_d = primary_rays(static, cam, sample_batch, row0,
                                        rows_per_tile, use_dof, device,
                                        sample_base, spp_local)
     radiance, rays_traced = bounce_wavefront(static, scene, trace_fn, geom,
-                                             state, ray_o, ray_d)
+                                             state, ray_o, ray_d,
+                                             max_depth=max_depth)
     tile = vec3.to_rows(radiance).reshape(rows_per_tile, static.width,
                                           spp_local, 3)
     return (tile.mean(dim=2) if reduce_mean else tile.sum(dim=2)), rays_traced

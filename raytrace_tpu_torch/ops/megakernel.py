@@ -95,7 +95,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -460,11 +460,13 @@ def sphere_cluster_sweep_reference(o: V3, d: V3, table8: torch.Tensor,
 
 def make_config(static, geom, use_dof: bool, n_batches: int,
                 spp_local: int = 0, sample_base: int = 0, row_base: int = 0,
-                rows: int = 0) -> MegaConfig:
+                rows: int = 0, max_depth: Optional[int] = None) -> MegaConfig:
     """The launch's config: the whole frame and every sample by default,
     else rows ``row_base`` .. ``row_base + rows - 1`` (those inside the
     frame rendered) and samples ``sample_base`` .. ``sample_base +
-    spp_local - 1`` of each pixel."""
+    spp_local - 1`` of each pixel.  ``max_depth`` (the scene's
+    ``max_ray_depth`` by default) is the launch's bounce limit, a runtime
+    argument of every form."""
     spp = static.sqrt_spp ** 2
     spp_local = spp_local or spp
     out_rows = rows or static.height
@@ -481,7 +483,8 @@ def make_config(static, geom, use_dof: bool, n_batches: int,
     return MegaConfig(
         width=static.width, height=static.height, sqrt_spp=static.sqrt_spp,
         spp=spp, spp_local=int(spp_local), n_batches=int(n_batches),
-        max_depth=static.max_ray_depth, use_dof=bool(use_dof),
+        max_depth=int(static.max_ray_depth if max_depth is None
+                      else max_depth), use_dof=bool(use_dof),
         has_checker=static.flags.has_checker,
         has_emissive=static.flags.has_emissive,
         has_noise=static.flags.has_noise,
@@ -534,7 +537,8 @@ def geometry_at(geom, t: torch.Tensor):
 def megakernel_reference(static, scene, geom, cam, batch0: int,
                          n_batches: int = 1, sample_base: int = 0, *,
                          use_dof: bool, times=None, spp_local: int = 0,
-                         row_base: int = 0, rows: int = 0):
+                         row_base: int = 0, rows: int = 0,
+                         max_depth: Optional[int] = None):
     """The plain version of the kernel: (sums [rows, W, 3] f32, traced
     [rows, W] int32), the whole frame by default, else rows ``row_base``
     .. ``row_base + rows - 1`` (zero past the frame's height) and samples
@@ -551,7 +555,7 @@ def megakernel_reference(static, scene, geom, cam, batch0: int,
                                     primary_rays)
 
     cfg = make_config(static, geom, use_dof, n_batches, spp_local,
-                      sample_base, row_base, rows)
+                      sample_base, row_base, rows, max_depth)
     H, W, spp = cfg.rows, static.width, cfg.spp_local
     dev = geom.sph_table8.device
     s_pad = scene.sph_center.shape[0]
@@ -577,7 +581,7 @@ def megakernel_reference(static, scene, geom, cam, batch0: int,
         counts = torch.zeros(H * W * spp, dtype=torch.int32, device=dev)
         radiance, _ = bounce_wavefront(
             static, scene, lambda o, d, alive, g=g: trace(o, d, alive, g),
-            g, state, o, d, counts)
+            g, state, o, d, counts, max_depth=cfg.max_depth)
         rad = vec3.to_rows(radiance).reshape(H * W, spp, 3)
         for j in range(spp):
             sums = sums + rad[:, j]
@@ -723,7 +727,8 @@ def _check_image(cfg: MegaConfig, scene, geom, device) -> None:
 def render_tile_mega(static, scene, geom, cam, batch0: int,
                      n_batches: int = 1, sample_base: int = 0, *,
                      use_dof: bool, reduce_mean: bool = False, times=None,
-                     spp_local: int = 0, row_base: int = 0, rows: int = 0):
+                     spp_local: int = 0, row_base: int = 0, rows: int = 0,
+                     max_depth: Optional[int] = None):
     """Render the whole frame for sample batches batch0 .. batch0 +
     n_batches - 1 in one launch, or with ``rows`` the frame's rows
     ``row_base`` .. ``row_base + rows - 1`` (the launch renders those
@@ -736,12 +741,14 @@ def render_tile_mega(static, scene, geom, cam, batch0: int,
     ``reduce_mean``; traced is each pixel's number of bounces.  An
     animated geometry
     (``geom.sph_dtab8``) needs ``times``, every batch's shutter time
-    ([B] f32 on the geometry's device); a static one ignores it."""
+    ([B] f32 on the geometry's device); a static one ignores it.
+    ``max_depth`` overrides the scene's bounce limit: the kernel's launch
+    argument, so no form is built for it."""
     global LAUNCHES, ANIM_LAUNCHES, TRI_LAUNCHES, LIGHT_LAUNCHES
     global NOISE_LAUNCHES, IMAGE_LAUNCHES, SPHERE_CLUSTER_LAUNCHES
     device = geom.sph_table8.device
     cfg = _checked_config(static, geom, use_dof, n_batches, times, spp_local,
-                          sample_base, row_base, rows)
+                          sample_base, row_base, rows, max_depth=max_depth)
     if cfg.rows == 0:
         # Every row past the frame (a row shard below its last row): no
         # launch, the zero outputs.
@@ -752,7 +759,7 @@ def render_tile_mega(static, scene, geom, cam, batch0: int,
         sums, traced = megakernel_reference(
             static, scene, geom, cam, batch0, n_batches, sample_base,
             use_dof=use_dof, times=times, spp_local=spp_local,
-            row_base=row_base, rows=rows)
+            row_base=row_base, rows=rows, max_depth=cfg.max_depth)
     elif device.type != "cuda":
         raise ValueError(f"no fused bounce kernel for device {device}")
     else:
@@ -771,10 +778,13 @@ def render_tile_mega(static, scene, geom, cam, batch0: int,
 
 
 def _checked_config(static, geom, use_dof: bool, n_batches: int,
-                    times, *ranges) -> MegaConfig:
+                    times, *ranges, max_depth: Optional[int] = None
+                    ) -> MegaConfig:
     """The launch's config (``ranges``: make_config's sample and row
-    ranges), after the checks that hold on any device."""
-    cfg = make_config(static, geom, use_dof, n_batches, *ranges)
+    ranges; ``max_depth`` its bounce limit), after the checks that hold on
+    any device."""
+    cfg = make_config(static, geom, use_dof, n_batches, *ranges,
+                      max_depth=max_depth)
     if cfg.anim and times is None:
         raise ValueError("an animated geometry needs the batch times")
     if cfg.tris:

@@ -341,15 +341,17 @@ class MultiChipRenderer(Renderer):
     every rank constructs it and makes the same calls.  ``sp`` and ``sc``
     as ``make_layout`` takes them.
     ``device``: a bare "cuda" is the rank's ``cuda:LOCAL_RANK``; the CPU
-    must be asked for.  ``use_megakernel``, ``use_bvh`` and ``leaf_size``
-    as the ``Renderer`` takes them; with sc > 1 a BVH or a paged soup is
-    refused, as is a scene without fat shading rows.  Checkpoints and PNGs
-    are written by the lead rank."""
+    must be asked for.  ``use_megakernel``, ``use_bvh``, ``leaf_size``,
+    ``camera_name`` and ``metrics_jsonl`` as the ``Renderer`` takes them;
+    with sc > 1 a BVH or a paged soup is refused, as is a scene without
+    fat shading rows.  Checkpoints, PNGs and the metrics' JSONL lines are
+    written by the lead rank (every rank keeps its records)."""
 
     def __init__(self, compiled, device="cuda", sp: Optional[int] = None,
                  sc: Optional[int] = None,
                  use_megakernel: Optional[bool] = None, use_bvh="auto",
-                 leaf_size: int = 4):
+                 leaf_size: int = 4, camera_name: Optional[str] = None,
+                 metrics_jsonl: Optional[str] = None):
         device = default_device(device)
         rank, world = init_distributed(device)
         self.layout = lay = Layout.of(rank, *make_layout(world, sp, sc))
@@ -363,11 +365,15 @@ class MultiChipRenderer(Renderer):
             use_bvh=use_bvh, leaf_size=leaf_size,
             shard=(SceneShard(lay.sc_i, lay.sc, c["c"]) if lay.sc > 1
                    else None),
-            split=RankSplit(lay, c["p"], c["x"], c["xp"], device))
+            split=RankSplit(lay, c["p"], c["x"], c["xp"], device),
+            camera_name=camera_name,
+            metrics_jsonl=metrics_jsonl if self.is_lead else None)
         # update_image_size makes a MultiChipRenderer with these.
         self._ctor_kwargs = dict(device=device, sp=lay.sp, sc=lay.sc,
                                  use_megakernel=use_megakernel,
-                                 use_bvh=use_bvh, leaf_size=leaf_size)
+                                 use_bvh=use_bvh, leaf_size=leaf_size,
+                                 camera_name=camera_name,
+                                 metrics_jsonl=metrics_jsonl)
 
     @property
     def is_lead(self) -> bool:

@@ -1094,3 +1094,39 @@ def multichip_rank(rank: int, world: int, init: str, jobs, results,
         results.put((rank, out, None))
     except BaseException:
         results.put((rank, None, traceback.format_exc()))
+
+
+def app_trace(compiled, log_dir: str, results,
+              device: str = "cuda:0") -> None:
+    """chip_smoke.py's profiled batch of the app layer, a process of its
+    own (torch.multiprocessing spawn: a second torch.profiler session in
+    one process has dropped the card's kernel events): the compiled
+    scene's first batch with the Renderer's defaults under
+    ``utils/profiling.trace(log_dir)``.  Puts ({"path": the
+    Renderer's, "trace": the Chrome trace's file, "kernels": the names of
+    its kernel events, "launches": K4's launches in the batch}, None) on
+    ``results``, or (None, the traceback) where it failed."""
+    import json
+    import traceback
+
+    try:
+        from ..engine import Renderer
+        from ..ops import megakernel
+        from ..utils import profiling
+
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        r = Renderer(compiled, device=dev)
+        launches = megakernel.LAUNCHES
+        with profiling.trace(log_dir) as prof:
+            r.render_next_batch()
+        with open(prof.trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        results.put(({
+            "path": r.path, "trace": prof.trace_path,
+            "kernels": sorted({e["name"] for e in events
+                               if e.get("cat") == "kernel"}),
+            "launches": megakernel.LAUNCHES - launches}, None))
+    except BaseException:
+        results.put((None, traceback.format_exc()))

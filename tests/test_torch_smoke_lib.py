@@ -403,3 +403,25 @@ def test_walk_batch_holds_the_renderers_wavefront_to_the_dense_oracle(
         r = _walk_renderer(doc)
         with pytest.raises(AssertionError, match="differ"):
             chip_smoke._walk_batch(name, r, bad_img, bad_rays, "cpu")
+
+
+def test_app_trace_reports_the_traced_batch(tmp_path):
+    """The smoke's profiled app batch, called in this process on the CPU
+    at a small size: the wavefront's batch traced to a Chrome trace file;
+    no kernel events and no K4 launch on the CPU.  A failure (here, no
+    scene) comes back as its traceback."""
+    import queue
+
+    from raytrace_tpu_torch import cli
+
+    results = queue.Queue()
+    smoke_lib.app_trace(cli.load_scene(cli.DEFAULT_SCENE, 16, 9),
+                        str(tmp_path / "trace"), results, device="cpu")
+    out, tb = results.get_nowait()
+    assert tb is None
+    assert out["path"] == "wavefront" and out["launches"] == 0
+    assert out["trace"].startswith(str(tmp_path / "trace"))
+    assert out["kernels"] == []
+    smoke_lib.app_trace(None, str(tmp_path), results, device="cpu")
+    out, tb = results.get_nowait()
+    assert out is None and "Traceback" in tb

@@ -34,7 +34,7 @@ from raytrace_tpu.models import compile_scene as jax_compile_scene
 from raytrace_tpu.scene_file import SceneFile as JaxSceneFile
 from raytrace_tpu_torch.engine import Renderer
 from raytrace_tpu_torch.engine.arrays import from_jax_compiled, upload_scene
-from raytrace_tpu_torch.engine.renderer import bvh_mode, unsupported_feature
+from raytrace_tpu_torch.engine.renderer import bvh_mode
 from raytrace_tpu_torch.ops import megakernel
 from raytrace_tpu_torch.tools import stress_scenes
 
@@ -153,14 +153,12 @@ def test_gate_and_triangle_ceiling(g, n, fused, renders):
     refuses a paged soup, as the JAX gate does."""
     static = dataclasses.replace(_static(), tri_cluster_g=g, num_triangles=n)
     assert megakernel.megakernel_supported(static) is fused
-    assert unsupported_feature(static) is None
     mode = bvh_mode(static)
     assert mode == ("none" if renders else "paged")
     assert bvh_mode(static, use_bvh=False) == "none"
     assert bvh_mode(static, use_bvh="paged") == "paged"
     paged = dataclasses.replace(static, bvh_mode="paged")
     assert not megakernel.megakernel_supported(paged)
-    assert unsupported_feature(paged) is None
 
 
 def test_other_gates_still_hold_triangle_scenes_back():
@@ -169,11 +167,8 @@ def test_other_gates_still_hold_triangle_scenes_back():
     else in the gate reads the texture families."""
     lit = dataclasses.replace(_static(), has_lights=True)
     assert megakernel.megakernel_supported(lit)
-    assert unsupported_feature(lit) is None
     noisy = dataclasses.replace(lit, flags=lit.flags._replace(has_noise=True))
     assert megakernel.megakernel_supported(noisy)
-    assert unsupported_feature(noisy) is None
     static = dataclasses.replace(
         noisy, flags=noisy.flags._replace(has_image=True))
     assert megakernel.megakernel_supported(static)
-    assert unsupported_feature(static) is None
