@@ -228,18 +228,30 @@ printing a result.  No path runs at a cut depth.  Phases:
    motion-blur mesh (its tree re-fitted once for the batch; the re-fit
    timed), the image checks
    and the same reduced-frame identity; then the mesh with use_bvh=True:
-   the SAH build's host seconds, rows, depth and stack, H1 bit for bit
-   with its plain version on 2^17 primary rays, timed there and on every
-   bounce's rays of a batch (CUDA events), its work counted on 2^17 rays
-   of bounces 0 and 1 for the bound (ops/bvh.visit_counts), the
-   Renderer's batch 0 byte-identical with K2's on the same soup
-   (use_bvh=False) with equal rays, batches 1-3 stepped (H1 alone
-   launched; Mrays/s beside the paged path's), and the motion-blur mesh
-   the same way for one batch (its tree over the shutter); then
-   fow-ellipsoids with defaults (the wavefront, H2 alone launched): H2
-   bit for bit with its plain version on the 3,240,000 primary rays,
-   timed there and on every bounce's rays, its 25 batches, Mrays/s and
-   the image checks; then fow-registry (tools/registry_scenes.py:
+   the SAH build's and the four-wide collapse's host seconds, rows,
+   depth and stack; on the SAH tree and on the implicit one, H1 on every
+   bounce's rays of batch 0 bit for bit with K2's walk over the same
+   soup (the dense sweep's bits) and on 2^17 primary rays with its plain
+   walk and the binary rows' plain walk, timed on the primary rays and
+   on every bounce (CUDA events), its work counted on 2^17 rays of
+   bounces 0 and 1 (ops/bvh.visit_counts over the binary rows, the least
+   work that proves the hits, for the bound; over the wide rows, the
+   walk's own work, for a second figure), beside the dense sweep's
+   bound; the Renderer's batch 0
+   byte-identical with K2's on the same soup (use_bvh=False) with equal
+   rays, batches 1-3 stepped (H1 alone launched; Mrays/s beside the paged
+   path's), and the motion-blur mesh the same way for one batch (its
+   tree over the shutter); then fow-ellipsoids with defaults (the
+   wavefront, H2 alone launched, its four large spheres dense, then the
+   tree over the other 484's world boxes): H2 bit for bit with the dense
+   plain sweep on the 3,240,000 primary rays and every bounce's rays of
+   batch 0, timed there beside its dense entry point, its work counted
+   on 2^17 rays of bounces 0 and 1 for the bound, beside the dense
+   sweep's, the tree's build timed; grazing rays from near and from
+   1,000-2,000 away through the once-built tree at batch 0's rows and at
+   a time whose rows differ from batch 0's in their last bits, bit for
+   bit with the dense entry point; its 25 batches, Mrays/s and the
+   image checks; then fow-registry (tools/registry_scenes.py:
    final-one-weekend with every metal's fuzz a checker, which the fat
    shading row cannot encode; 1200x675, 4 spp, depth 50) with defaults:
    the wavefront with registry shading and K1 (launches counted from 0,
@@ -314,8 +326,9 @@ import numpy as np
 
 from raytrace_tpu_torch.tools import smoke_lib
 from raytrace_tpu_torch.tools.smoke_lib import (
-    AGREEMENT, ATOL, FLOPS_PER_TEST, FLOPS_PER_TEST_ANIM, HEIGHT,
-    RANDOM_RAYS, RTOL, WIDTH, least_ms, median_ms, rows_to_v3)
+    AGREEMENT, ATOL, FLOPS_PER_SPHERE_BOX, FLOPS_PER_TEST,
+    FLOPS_PER_TEST_ANIM, HEIGHT, RANDOM_RAYS, RTOL, WIDTH, least_ms,
+    median_ms, rows_to_v3)
 
 MB_WIDTH, MB_HEIGHT = 1024, 576   # the motion-blur scene's shipped size
 MAIN_BATCHES = 4          # the first one is warm-up for the Mrays/s figure
@@ -434,6 +447,15 @@ FLOPS_PER_TREE_NODE = 2 * (FLOPS_PER_PRETEST + 8)
 # sphere_obj.cu's count.
 BVH_SUBSET = 1 << 17
 FLOPS_PER_OBJ_SPHERE_TEST = 65
+# One four-wide node of H1's tree: its four children's box tests, the
+# wide walk's own work (its bound takes the binary walk's, which tests
+# fewer boxes over the same tree).
+FLOPS_PER_WIDE_NODE = 2 * FLOPS_PER_TREE_NODE
+# H1's binary walk and H2's dense loop before their redesign (PERF.md §6,
+# on an NVIDIA H100 80GB HBM3 at 700 W): the primary rays' launch and a
+# batch, ms.
+H1_BEFORE = {"primary_ms": (1.432, 1.446), "batch_ms": (14.959, 15.017)}
+H2_BEFORE = {"primary_ms": (5.629, 5.672), "batch_ms": (27.276, 27.427)}
 # earth (tools/image_scenes.py): its size, and its full batch, fused
 # against the wavefront with K1 (built with multiply-add contraction when
 # this limit was set, without it since it shares K4's sphere test):
@@ -1561,85 +1583,186 @@ def _mesh_paths(mesh_r, mb_scene, fused_img, wave_img, dev, card):
     return k3_launches, _mrays(per_batch[1:])
 
 
-def _subset(o, d, alive, n, gen):
-    """``n`` of the rays (o, d, alive), drawn with ``gen``."""
-    import torch
-
-    from raytrace_tpu_torch.ops.vec3 import V3
-
-    sel = torch.randperm(o.x.shape[0], generator=gen)[:n].to(o.x.device)
-    return (*(V3(*(x[sel].contiguous() for x in v)) for v in (o, d)),
-            alive[sel].contiguous())
-
-
-def _h1_work(o, d, alive, table12, tree, gen):
-    """H1's work a ray (ops/bvh.visit_counts against the plain walk's
-    closest hits) on BVH_SUBSET of the rays: (node tests, triangle tests)
-    a ray and the distinct bytes those read."""
-    from raytrace_tpu_torch.ops import bvh
-
-    so, sd, sa = _subset(o, d, alive, BVH_SUBSET, gen)
-    best_t = bvh.bvh_walk_reference(so, sd, table12, tree, sa)[0]
-    work = bvh.visit_counts(so, sd, tree, best_t, sa)
-    rays = max(1, work["rays"])
-    return ((work["node_tests"] / rays, work["tri_tests"] / rays),
-            work["nodes_read"] * 64 + work["tris_read"] * 48)
-
-
-def _h1_bound(per, active: int, rays: int, launches: int, tree_bytes: int):
+def _h1_bound(per, active: int, rays: int, launches: int, tree_bytes: int,
+              per_node: int = FLOPS_PER_TREE_NODE):
     """H1's least time for ``active`` rays of ``rays`` in ``launches``
-    launches at ``per`` = (node tests, triangle tests) a ray: the FP32
-    operations of those tests, and the rays' bytes (25 in, 16 out) with
-    the distinct node and triangle rows once a launch."""
-    return least_ms(active * (per[0] * FLOPS_PER_TREE_NODE
+    launches at ``per`` = (node steps, triangle tests) a ray, ``per_node``
+    FP32 operations a node step (a binary node's two box tests, or with
+    FLOPS_PER_WIDE_NODE a wide node's four): the FP32 operations of those
+    tests, and the rays' bytes (25 in, 16 out) with the distinct node and
+    triangle rows once a launch."""
+    return least_ms(active * (per[0] * per_node
                               + per[1] * FLOPS_PER_TRI_TEST),
                     rays * (6 * 4 + 1 + 4 * 4) + launches * tree_bytes)
 
 
+def _h1_bounces(label, r, card, gen):
+    """H1 on batch 0 of wavefront Renderer ``r`` (use_bvh=True): every
+    bounce's rays held bit for bit against K2's walk over the same soup
+    (use_bvh=False: the dense sweep's bits), H1 against its plain walk
+    and the binary rows' plain walk on BVH_SUBSET of the primary rays,
+    timed on the primary rays and on every bounce, its work counted on
+    bounces 0 and 1 for the bounds (the wide walk's and the dense
+    sweep's).  Returns a dict."""
+    import torch
+
+    from raytrace_tpu_torch.engine import Renderer, wavefront
+    from raytrace_tpu_torch.ops import bvh, tri_sweep
+
+    t_phase = time.perf_counter()
+    tree = wavefront.bvh_tree(r.static, r.scene)
+    n = r.static.num_triangles
+    rows, root = bvh.node_rows(r.bvh, n)
+    binary = bvh.BVHTree(torch.tensor(rows, device=tree.nodes.device), root,
+                         r.bvh.depth + 2, tree.leaf, n)
+    geom, seen = smoke_lib.capture_bounces(r)
+    table12 = geom.tri_table12
+    k2_geom = Renderer(r.compiled, device=tree.nodes.device,
+                       use_bvh=False)._geometry(0)
+
+    def h1(o, d, a):
+        return bvh.intersect_tris_bvh(o, d, table12, tree, a)
+
+    same = True
+    for o, d, a in seen:
+        hit = h1(o, d, a)
+        k2 = tri_sweep.intersect_tris_sweep(o, d, k2_geom.tri_table16, a,
+                                            k2_geom.tri_tree)
+        same &= (torch.equal(hit.t, k2.t) and torch.equal(hit.tri, k2.tri)
+                 and torch.equal(hit.u[a], k2.u[a])
+                 and torch.equal(hit.v[a], k2.v[a]))
+    del k2_geom
+    o, d, alive = seen[0]
+    so, sd, sa = smoke_lib.subset_rays(o, d, alive, BVH_SUBSET, gen)
+    hit = h1(so, sd, sa)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = bvh.bvh_walk_reference(so, sd, table12, tree, sa)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    walk = bvh.bvh_walk_reference(so, sd, table12, binary, sa)
+    held = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               and torch.equal(x.view(torch.int32), z.view(torch.int32))
+               for x, y, z in zip(hit, plain, walk))
+    err = float((hit.t - plain[0]).abs().max())
+    print(f"H1 on {label} ({tree.nodes.shape[0]} four-wide rows, a stack of "
+          f"{tree.stack_depth}): every bounce of batch 0 ({len(seen)} "
+          f"launches) bit for bit with K2's walk over the same soup {same}; "
+          f"{BVH_SUBSET} of the {o.x.shape[0]} primary rays bit for bit "
+          f"with its plain walk and the binary rows' {held}, "
+          f"{int((hit.tri >= 0).sum())} hits ({card})")
+    if not (same and held):
+        raise AssertionError(f"H1 on {label} disagrees with its plain "
+                             f"version or the dense sweep's bits")
+    sub_ms = median_ms(lambda: h1(so, sd, sa), 5)
+    ms, per_bounce = smoke_lib.bounce_ms(h1, seen)
+    # Its work on BVH_SUBSET of the rays of bounces 0 and 1: the bound
+    # takes the binary walk's, the least that proves the hits over these
+    # boxes; the wide walk's own (four box tests a step) is printed beside
+    # it as a figure.
+    (work0, wbytes0), (bin0, bytes0) = smoke_lib.bvh_work(
+        o, d, alive, table12, (tree, binary), BVH_SUBSET, gen)
+    (work1, wbytes1), (bin1, bytes1) = smoke_lib.bvh_work(
+        *seen[1], table12, (tree, binary), BVH_SUBSET, gen)
+    steps0, steps1 = bin0[0], bin1[0]
+    active = [int(a.sum()) for _, _, a in seen]
+    R_all = sum(x.x.shape[0] for x, _, _ in seen)
+    R0 = o.x.shape[0]
+    bound = _h1_bound(bin0, active[0], R0, 1, bytes0)
+    later = _h1_bound(bin1, sum(active[1:]), R_all - R0, len(seen) - 1,
+                      bytes1)
+    batch_ms, batch_bound = sum(per_bounce), (bound[0] + later[0], later[1])
+    wide = _h1_bound(work0, active[0], R0, 1, wbytes0, FLOPS_PER_WIDE_NODE)
+    wide_later = _h1_bound(work1, sum(active[1:]), R_all - R0,
+                           len(seen) - 1, wbytes1, FLOPS_PER_WIDE_NODE)
+    wide_batch = wide[0] + wide_later[0]
+    dense = least_ms(active[0] * n * FLOPS_PER_TRI_TEST,
+                     o.x.shape[0] * (6 * 4 + 1 + 4 * 4) + n * 48)
+    dense_batch = least_ms(sum(active) * n * FLOPS_PER_TRI_TEST,
+                           R_all * (6 * 4 + 1 + 4 * 4) + len(seen) * n * 48)
+    print(f"H1 on {label}, ms per bounce of batch 0 ({len(seen)} launches, "
+          f"{sum(active)} active rays of {R_all}): "
+          + ", ".join(f"{x:.3f}" for x in per_bounce) + f" ({card})")
+    print(f"H1 on {label}: {batch_ms:.3f} ms a batch, the primary rays' "
+          f"launch {ms:.4f} ms, {BVH_SUBSET} of them {sub_ms:.3f} ms "
+          f"(medians, CUDA events), plain PyTorch on those {plain_ms:.1f} ms "
+          f"(one run, host clock); work a ray on the primary rays "
+          f"{steps0:.2f} binary node steps and {bin0[1]:.2f} triangle tests "
+          f"(the wide walk's {work0[0]:.2f} steps and {work0[1]:.2f}), on "
+          f"bounce 1's {steps1:.2f} and {bin1[1]:.2f} ({work1[0]:.2f} and "
+          f"{work1[1]:.2f}); bound from the binary walk's work "
+          f"{bound[0]:.4f} ms on the primary rays by {bound[1]} "
+          f"({bound[0] / ms:.4f} of it), {batch_bound[0]:.4f} ms a batch "
+          f"({batch_bound[0] / batch_ms:.4f}); from the wide walk's own "
+          f"work {wide[0]:.4f} and {wide_batch:.4f} ms by {wide[1]}; from "
+          f"the dense sweep's work {dense[0]:.1f} and {dense_batch[0]:.1f} "
+          f"ms by {dense[1]}; the binary walk's figures {H1_BEFORE} "
+          f"({card})")
+    print(f"phase H1 on {label}: {time.perf_counter() - t_phase:.1f} s")
+    return dict(ms=ms, plain_ms=plain_ms, sub_ms=sub_ms, bound=bound,
+                batch_ms=batch_ms, batch_bound=batch_bound, err=err,
+                dense_bound=dense, dense_batch_bound=dense_batch,
+                wide_bound=wide, wide_batch_bound=wide_batch,
+                work=(work0, work1), steps=(steps0, steps1))
+
+
 def _sah_paths(cs_mesh, mb_scene, paged_mrays, dev, card):
     """use_bvh=True on final-one-weekend --mesh-geometry (the SAH BVH and
-    H1): the native build's host time, rows, depth and stack; H1 bit for
-    bit with its plain version on BVH_SUBSET primary rays and timed on
-    the primary rays and on every bounce's rays of a batch, its work
-    counted for the bound; the Renderer's batch byte-identical with K2's
-    on the same soup (use_bvh=False) with equal ray counts, its Mrays/s
-    beside the paged path's; the same identity for one batch of the
-    motion-blur mesh.  Returns a dict for the kernels line."""
+    H1, four-wide rows): the native build's and the collapse's host time,
+    rows, depth and stack; H1 on batch 0 of the SAH tree and of the
+    implicit tree (``_h1_bounces``); the Renderer's batch byte-identical
+    with K2's on the same soup (use_bvh=False) with equal ray counts, its
+    Mrays/s beside the paged path's; the same identity for one batch of
+    the motion-blur mesh.  Returns a dict for the kernels line."""
     import torch
 
     from raytrace_tpu_torch import cli
     from raytrace_tpu_torch.engine import Renderer
     from raytrace_tpu_torch.engine import renderer as renderer_mod
-    from raytrace_tpu_torch.engine import wavefront
     from raytrace_tpu_torch.models import bvh_native
     from raytrace_tpu_torch.ops import (bvh, megakernel, paged_tri,
                                         sphere_sweep, tri_sweep)
 
-    def sah_renderer(cs):
-        """Renderer(cs, use_bvh=True) and the SAH build's host seconds."""
-        secs = []
-        build = renderer_mod.build_bvh_sah
+    t_phase = time.perf_counter()
+
+    def sah_renderer(cs, implicit=False):
+        """Renderer(cs, use_bvh=True) (on the implicit tree that a failed
+        SAH build leaves, with ``implicit``), the SAH build's and the
+        collapse's host seconds."""
+        secs, wide_s = [], []
+        build, wide = renderer_mod.build_bvh_sah, bvh.wide_rows
 
         def timed(*a, **k):
+            if implicit:
+                secs.append(0.0)
+                return None
             t0 = time.perf_counter()
             out = build(*a, **k)
             secs.append(time.perf_counter() - t0)
             return out
 
-        renderer_mod.build_bvh_sah = timed
+        def timed_wide(*a, **k):
+            t0 = time.perf_counter()
+            out = wide(*a, **k)
+            wide_s.append(time.perf_counter() - t0)
+            return out
+
+        renderer_mod.build_bvh_sah, bvh.wide_rows = timed, timed_wide
         try:
             t0 = time.perf_counter()
             r = Renderer(cs, device=dev, use_bvh=True)
             init_s = time.perf_counter() - t0
         finally:
-            renderer_mod.build_bvh_sah = build
-        if (r.static.bvh_mode != "sah" or bvh_native.error() is not None
-                or r.path != "wavefront" or len(secs) != 1):
+            renderer_mod.build_bvh_sah, bvh.wide_rows = build, wide
+        want = "implicit" if implicit else "sah"
+        if (r.static.bvh_mode != want or bvh_native.error() is not None
+                or r.path != "wavefront" or len(secs) != 1
+                or len(wide_s) != 1):
             raise AssertionError(
-                f"use_bvh=True did not build the SAH BVH (bvh_mode "
+                f"use_bvh=True did not build the {want} BVH (bvh_mode "
                 f"{r.static.bvh_mode}, path {r.path}, native builder "
                 f"error {bvh_native.error()})")
-        return r, secs[0], init_s
+        return r, secs[0], wide_s[0], init_s
 
     def identity(label, r, size):
         """One batch of ``r`` (batch 0) against the same batch on K2 over
@@ -1666,65 +1789,19 @@ def _sah_paths(cs_mesh, mb_scene, paged_mrays, dev, card):
         _check_image(img, label, *size)
         return rays, sec, launches
 
-    r, build_s, init_s = sah_renderer(cs_mesh)
+    gen = torch.Generator().manual_seed(1)
+    r, build_s, wide_s, init_s = sah_renderer(cs_mesh)
     data = r.bvh
     print(f"SAH BVH of final-one-weekend --mesh-geometry: "
           f"{cs_mesh.num_triangles} triangles, built on the host in "
-          f"{build_s:.2f} s (world bounds and the native builder; the "
-          f"Renderer {init_s:.2f} s with the permutation and upload): "
-          f"{data.child_boxes.shape[0]} node rows, depth {data.depth}, a "
-          f"stack of {r.static.bvh_stack_depth} of the kernel's "
-          f"{bvh.MAX_STACK}, root link {data.root} ({card})")
-
-    # H1 against its plain version, and timed, on batch 0's rays.
-    tree = wavefront.bvh_tree(r.static, r.scene)
-    geom, seen = smoke_lib.capture_bounces(r)
-    table12 = geom.tri_table12
-    o, d, alive = seen[0]
-    gen = torch.Generator().manual_seed(1)
-    so, sd, sa = _subset(o, d, alive, BVH_SUBSET, gen)
-    hit = bvh.intersect_tris_bvh(so, sd, table12, tree, sa)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    plain = bvh.bvh_walk_reference(so, sd, table12, tree, sa)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-               for a, b in zip(hit, plain))
-    err = float((hit.t - plain[0]).abs().max())
-    print(f"H1 vs plain on {BVH_SUBSET} of the {o.x.shape[0]} primary rays "
-          f"of the mesh: bit for bit {same}, {int((hit.tri >= 0).sum())} "
-          f"hits ({card})")
-    if not same:
-        raise AssertionError("H1 disagrees with its plain version")
-    sub_ms = median_ms(
-        lambda: bvh.intersect_tris_bvh(so, sd, table12, tree, sa), 5)
-    ms = median_ms(lambda: bvh.intersect_tris_bvh(o, d, table12, tree,
-                                                  alive), 5)
-    per_bounce = [median_ms(lambda o=o, d=d, a=a: bvh.intersect_tris_bvh(
-        o, d, table12, tree, a), 3) for o, d, a in seen]
-    work0, bytes0 = _h1_work(o, d, alive, table12, tree, gen)
-    work1, bytes1 = _h1_work(*seen[1], table12, tree, gen)
-    active = [int(a.sum()) for _, _, a in seen]
-    R_all = sum(x.x.shape[0] for x, _, _ in seen)
-    bound = _h1_bound(work0, active[0], o.x.shape[0], 1, bytes0)
-    later = _h1_bound(work1, sum(active[1:]), R_all - o.x.shape[0],
-                      len(seen) - 1, bytes1)
-    batch_ms, batch_bound = sum(per_bounce), (bound[0] + later[0], later[1])
-    print(f"H1 ms per bounce of batch 0 ({len(seen)} launches, "
-          f"{sum(active)} active rays of {R_all}): "
-          + ", ".join(f"{x:.3f}" for x in per_bounce) + f" ({card})")
-    print(f"H1 on the mesh's SAH BVH: {batch_ms:.3f} ms a batch, the "
-          f"primary rays' launch {ms:.3f} ms, {BVH_SUBSET} of them "
-          f"{sub_ms:.3f} ms (medians, CUDA events), plain PyTorch on those "
-          f"{plain_ms:.1f} ms (one run, host clock); work a ray on the "
-          f"primary rays {work0[0]:.2f} node and {work0[1]:.2f} triangle "
-          f"tests, on bounce 1's {work1[0]:.2f} and {work1[1]:.2f}; bound "
-          f"{bound[0]:.4f} ms on the primary rays by {bound[1]} "
-          f"({bound[0] / ms:.4f} of it), {batch_bound[0]:.4f} ms a batch "
-          f"({batch_bound[0] / batch_ms:.4f} of it) ({card})")
-    del geom, seen, o, d, alive, so, sd, sa, hit, plain
-
+          f"{build_s:.2f} s (world bounds and the native builder), its "
+          f"{data.child_boxes.shape[0]} binary node rows collapsed into "
+          f"{r.scene.bvh_child_boxes.shape[0]} four-wide rows in "
+          f"{wide_s:.3f} s (the Renderer {init_s:.2f} s with the "
+          f"permutation and upload): depth {data.depth}, a stack of "
+          f"{bvh.wide_stack(data.depth)} of the kernel's {bvh.MAX_STACK}, "
+          f"root link {data.root} ({card})")
+    h1 = _h1_bounces("the mesh's SAH tree", r, card, gen)
     rays0, sec0, _ = identity("mesh SAH", r, (WIDTH, HEIGHT))
     _reset_counts()
     per_batch = _step(r, MAIN_BATCHES - 1)
@@ -1740,8 +1817,16 @@ def _sah_paths(cs_mesh, mb_scene, paged_mrays, dev, card):
           f"LAUNCHES=0 ({card})")
     del r
 
+    ri, _, iwide_s, iinit_s = sah_renderer(cs_mesh, implicit=True)
+    print(f"implicit BVH of the mesh (leaves of {ri.bvh.leaf_size}, depth "
+          f"{ri.bvh.depth}): {ri.scene.bvh_child_boxes.shape[0]} four-wide "
+          f"rows, collapsed in {iwide_s:.3f} s (the Renderer {iinit_s:.2f} "
+          f"s) ({card})")
+    implicit = _h1_bounces("the mesh's implicit tree", ri, card, gen)
+    del ri
+
     cs_mb_mesh = cli.load_scene(mb_scene, analytic_spheres=False)
-    mb, mb_build_s, mb_init_s = sah_renderer(cs_mb_mesh)
+    mb, mb_build_s, _, mb_init_s = sah_renderer(cs_mb_mesh)
     print(f"SAH BVH of final-one-weekend-motion-blur --mesh-geometry: "
           f"{cs_mb_mesh.num_triangles} triangles over the shutter (9 "
           f"samples), built on the host in {mb_build_s:.2f} s (the "
@@ -1753,16 +1838,63 @@ def _sah_paths(cs_mesh, mb_scene, paged_mrays, dev, card):
                                 (MB_WIDTH, MB_HEIGHT))
     print(f"motion-blur mesh SAH path: one batch {mb_rays} rays in "
           f"{mb_s:.4f} s ({mb_rays / mb_s / 1e6:.3f} Mrays/s) ({card})")
-    return dict(ms=ms, plain_ms=plain_ms, sub_ms=sub_ms, bound=bound,
-                batch_ms=batch_ms, batch_bound=batch_bound, err=err,
-                launches=launches, mrays=mrays, depth=data.depth,
-                build_s=build_s)
+    print(f"phase SAH paths: {time.perf_counter() - t_phase:.1f} s")
+    return dict(h1, launches=launches, mrays=mrays, depth=data.depth,
+                build_s=build_s, wide_s=wide_s, implicit=implicit)
+
+
+def _h2_drift(r, tree, h2, dense, dev, card) -> int:
+    """H2 through fow-ellipsoids' once-built tree (``tree``, batch 0's)
+    on GRAZING_RAYS grazing rays from near and from 1,000-2,000 away, at
+    batch 0's rows and at the first of 64 seeded times whose rows differ
+    from batch 0's in their last bits (taken into the tree as
+    prepare_batch takes them), bit for bit with the dense entry point.
+    ``h2`` and ``dense`` launch on (o, d, alive) with a table and tree.
+    Returns how many table rows differ at that time."""
+    import torch
+
+    from raytrace_tpu_torch.engine import wavefront
+    from raytrace_tpu_torch.ops.vec3 import V3
+    from raytrace_tpu_torch.tools import ellipsoid_scenes
+
+    first = wavefront.object_table(r.scene, r.batch_times_dev[0])
+    drifted = next(table for table in (
+        wavefront.object_table(r.scene, torch.tensor(
+            t, dtype=torch.float32, device=dev))
+        for t in np.random.default_rng(7).random(64))
+        if not torch.equal(table, first))
+    rows = int((drifted != first).any(dim=1).sum())
+    n, same, hits = r.static.num_spheres, True, 0
+    for k, table in enumerate((first, drifted)):
+        tk = tree._replace(rows=table[tree.ids.long()].contiguous())
+        for j, dist in enumerate(((1.0, 20.0), (1000.0, 2000.0))):
+            o, d = ellipsoid_scenes.grazing_rays(
+                table.cpu(), n, GRAZING_RAYS // 2, 61 + 2 * k + j, dist=dist)
+            ov, dv = (V3(*(torch.tensor(np.ascontiguousarray(a[:, i]),
+                                        device=dev) for i in range(3)))
+                      for a in (o, d))
+            on = torch.ones(len(o), dtype=torch.bool, device=dev)
+            hit, want = h2(ov, dv, on, table, tk), dense(ov, dv, on, table)
+            same &= all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                        for x, y in zip(hit, want))
+            hits += int((hit.sph >= 0).sum())
+    print(f"H2 through the once-built tree on {GRAZING_RAYS} grazing rays "
+          f"(near and 1,000-2,000 away) at batch 0's rows and {GRAZING_RAYS}"
+          f" at a time whose rows differ from them in {rows} rows: bit for "
+          f"bit with the dense entry point {same}, {hits} hits ({card})")
+    if not same:
+        raise AssertionError("H2's once-built tree loses a hit at a later "
+                             "time's rows")
+    return rows
 
 
 def _ellipsoid_paths(ell_json, dev, card):
-    """fow-ellipsoids (tools/ellipsoid_scenes.py) on the wavefront with H2:
-    H2 bit for bit with its plain version on the primary rays, timed
-    there and on every bounce's rays of a batch; the Renderer with
+    """fow-ellipsoids (tools/ellipsoid_scenes.py) on the wavefront with H2
+    (the dense prefix, then the tree over the ellipsoids' world boxes):
+    H2 bit for bit with the dense plain sweep on the primary rays and on
+    every bounce's rays of a batch, timed there beside its dense entry
+    point, its work counted on BVH_SUBSET of bounces 0 and 1 for the
+    bound (and the dense sweep's); the tree's build; the Renderer with
     defaults over every batch (Mrays/s, the image checks).  Returns a
     dict for the kernels line."""
     import torch
@@ -1773,57 +1905,97 @@ def _ellipsoid_paths(ell_json, dev, card):
                                         sphere_sweep, spheres, tri_sweep)
     from raytrace_tpu_torch.ops.intersect import T_MAX
 
+    t_phase = time.perf_counter()
     cs_e = cli.load_scene(ell_json, WIDTH, HEIGHT)
     r = Renderer(cs_e, device=dev)
     if (r.path != "wavefront" or r.static.sphere_world_mode
-            or r.static.num_spheres != 488):
+            or r.static.num_spheres != 488 or r._obj_tree is None):
         raise AssertionError(f"fow-ellipsoids: path {r.path}, world mode "
-                             f"{r.static.sphere_world_mode}")
+                             f"{r.static.sphere_world_mode}, tree "
+                             f"{r._obj_tree is not None}")
     geom, seen = smoke_lib.capture_bounces(r)
-    table = geom.sph_obj16
-    o, d, alive = seen[0]
-    hit = sphere_obj.intersect_spheres_object(o, d, table, alive)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    plain = spheres.intersect_spheres(o, d, table)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    want = (torch.where(alive, plain.t, T_MAX),
-            torch.where(alive, plain.sph, -1))
-    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-               for a, b in zip(hit, want))
-    err = float((hit.t - want[0]).abs().max())
-    n_rays = o.x.shape[0]
-    print(f"H2 vs plain on fow-ellipsoids' {n_rays} primary rays "
-          f"({table.shape[0]} table rows, {r.static.num_spheres} spheres): "
-          f"bit for bit {same}, {int((hit.sph >= 0).sum())} hits ({card})")
-    if not same:
-        raise AssertionError("H2 disagrees with its plain version")
-    ms = median_ms(lambda: sphere_obj.intersect_spheres_object(
-        o, d, table, alive), 5)
-    per_bounce = [median_ms(lambda o=o, d=d, a=a:
-                            sphere_obj.intersect_spheres_object(
-                                o, d, table, a), 3) for o, d, a in seen]
-    active = [int(a.sum()) for _, _, a in seen]
+    table, tree = geom.sph_obj16, geom.sph_obj_tree
     S = r.static.num_spheres
 
-    def bound_of(act, rays, launches):
+    def h2(o, d, a, tab=table, walk=tree):
+        return sphere_obj.intersect_spheres_object(o, d, tab, a, walk)
+
+    def dense(o, d, a, tab=table):
+        return sphere_obj.intersect_spheres_object_dense(o, d, tab, a)
+
+    same, plain_ms, err = True, 0.0, 0.0
+    for i, (o, d, a) in enumerate(seen):
+        hit = h2(o, d, a)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = spheres.intersect_spheres(o, d, table)
+        torch.cuda.synchronize()
+        if i == 0:
+            plain_ms = (time.perf_counter() - t0) * 1e3
+        want = (torch.where(a, plain.t, T_MAX), torch.where(a, plain.sph, -1))
+        same &= all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                    for x, y in zip(hit, want))
+        err = max(err, float((hit.t - want[0]).abs().max()))
+    o, d, alive = seen[0]
+    n_rays = o.x.shape[0]
+    print(f"H2 on fow-ellipsoids ({table.shape[0]} table rows, {S} spheres: "
+          f"{tree.n_prefix} swept densely, a tree over {tree.num_spheres} "
+          f"in leaves of {tree.leaf}, depth {tree.depth}, {tree.staged} "
+          f"node rows staged): bit for bit with the dense plain sweep on "
+          f"the {n_rays} primary rays and every bounce's of batch 0 "
+          f"({len(seen)} launches) {same} ({card})")
+    if not same:
+        raise AssertionError("H2 disagrees with the dense plain sweep")
+    ms, per_bounce = smoke_lib.bounce_ms(h2, seen)
+    dense_ms, dense_bounce = smoke_lib.bounce_ms(dense, seen)
+    build_ms = median_ms(lambda: sphere_obj.build_object_tree(
+        table, S, tree.n_prefix, tree.ids, static=True), 5)
+    gen = torch.Generator().manual_seed(3)
+    active = [int(a.sum()) for _, _, a in seen]
+    R_all = sum(x.x.shape[0] for x, _, _ in seen)
+
+    def walk_bound(k, act, rays, launches):
+        per, w = smoke_lib.sphere_obj_work(*seen[k], h2, tree, BVH_SUBSET,
+                                           gen)
+        flops = act * ((per["prefix_tests"] + per["sphere_tests"])
+                       * FLOPS_PER_OBJ_SPHERE_TEST
+                       + per["node_tests"] * 2 * FLOPS_PER_SPHERE_BOX)
+        nbytes = (rays * (6 * 4 + 1 + 2 * 4) + launches * (
+            tree.n_prefix * 64 + w["nodes_read"] * 64
+            + w["spheres_read"] * (64 + 4)))
+        return least_ms(flops, nbytes), per
+
+    def dense_bound(act, rays, launches):
         return least_ms(act * S * FLOPS_PER_OBJ_SPHERE_TEST,
                         rays * (6 * 4 + 1 + 2 * 4) + launches * S * 64)
 
-    bound = bound_of(active[0], n_rays, 1)
-    R_all = sum(x.x.shape[0] for x, _, _ in seen)
-    batch_bound = bound_of(sum(active), R_all, len(seen))
+    bound, per0 = walk_bound(0, active[0], n_rays, 1)
+    later, per1 = walk_bound(1, sum(active[1:]), R_all - n_rays,
+                             len(seen) - 1)
+    batch_bound = (bound[0] + later[0], later[1])
+    d_bound = dense_bound(active[0], n_rays, 1)
+    d_batch = dense_bound(sum(active), R_all, len(seen))
     batch_ms = sum(per_bounce)
+    drift = _h2_drift(r, tree, h2, dense, dev, card)
     print(f"H2 ms per bounce of batch 0 ({len(seen)} launches, "
           f"{sum(active)} active rays of {R_all}): "
-          + ", ".join(f"{x:.3f}" for x in per_bounce) + f" ({card})")
-    print(f"H2 on fow-ellipsoids: {batch_ms:.3f} ms a batch, the primary "
-          f"rays' launch {ms:.3f} ms (medians, CUDA events), plain PyTorch "
-          f"{plain_ms:.1f} ms (one run, host clock); bound {bound[0]:.4f} "
-          f"ms by {bound[1]} ({bound[0] / ms:.4f} of it), "
+          + ", ".join(f"{x:.3f}" for x in per_bounce) + f"; its dense "
+          f"entry point's: " + ", ".join(f"{x:.3f}" for x in dense_bounce)
+          + f" ({card})")
+    print(f"H2 on fow-ellipsoids: {batch_ms:.3f} ms a batch against the "
+          f"dense entry point's {sum(dense_bounce):.3f}, the primary rays' "
+          f"launch {ms:.4f} ms against {dense_ms:.4f} (medians, CUDA "
+          f"events), plain PyTorch (dense) {plain_ms:.1f} ms (one run, "
+          f"host clock); the tree's build {build_ms:.3f} ms; work a ray on "
+          f"the primary rays {per0['prefix_tests']:.0f} prefix tests, "
+          f"{per0['node_tests']:.2f} nodes and {per0['sphere_tests']:.2f} "
+          f"sphere tests, on bounce 1's {per1['node_tests']:.2f} and "
+          f"{per1['sphere_tests']:.2f}; bound from that work "
+          f"{bound[0]:.4f} ms by {bound[1]} ({bound[0] / ms:.4f} of it), "
           f"{batch_bound[0]:.4f} ms a batch ({batch_bound[0] / batch_ms:.4f}"
-          f" of it) ({card})")
+          f"); from the dense sweep's work {d_bound[0]:.4f} and "
+          f"{d_batch[0]:.4f} ms; the dense kernel's figures "
+          f"{H2_BEFORE} ({card})")
     del geom, seen, o, d, alive, hit, plain, want
 
     _reset_counts()
@@ -1847,9 +2019,13 @@ def _ellipsoid_paths(ell_json, dev, card):
           f"sphere_obj LAUNCHES={launches}, sphere_sweep, megakernel, "
           f"tri_sweep and bvh LAUNCHES=0 ({card})")
     _check_image(r.image(), "fow-ellipsoids")
+    print(f"phase ellipsoids: {time.perf_counter() - t_phase:.1f} s")
     return dict(ms=ms, plain_ms=plain_ms, bound=bound, batch_ms=batch_ms,
                 batch_bound=batch_bound, err=err, launches=launches,
-                mrays=mrays)
+                mrays=mrays, dense_ms=dense_ms,
+                dense_batch_ms=sum(dense_bounce), dense_bound=d_bound,
+                dense_batch_bound=d_batch, build_ms=build_ms,
+                drift_rows=drift)
 
 
 def _registry_paths(dev, card):
@@ -2368,6 +2544,22 @@ class _Capture(logging.Handler):
         self.lines.append(record.getMessage())
 
 
+class _PhaseClock:
+    """Prints each phase's host seconds when the next one starts
+    (``phase(name)``; ``phase(None)`` ends the last) and the total."""
+
+    def __init__(self):
+        self.start = self.t = time.perf_counter()
+        self.name = "1"
+
+    def __call__(self, name):
+        now = time.perf_counter()
+        print(f"phase {self.name}: {now - self.t:.1f} s", flush=True)
+        if name is None:
+            print(f"phases 1-{self.name}: {now - self.start:.1f} s")
+        self.name, self.t = name, now
+
+
 def main() -> int:
     import torch
 
@@ -2401,17 +2593,21 @@ def main() -> int:
 
     tri_dir = tempfile.TemporaryDirectory()
     ell_json = ellipsoid_scenes.write_fow_ellipsoids(tri_dir.name)
+    phase = _PhaseClock()
 
     # -- 2. build the nine kernel sources, one nvcc each, started together --
+    phase("2")
     smoke_lib.build_kernels()
 
     # -- 3. K1 vs plain at the main path's shapes ---------------------------
+    phase("3")
     cs = cli.load_scene(cli.DEFAULT_SCENE, WIDTH, HEIGHT)
     rng = np.random.default_rng(0)
     k1 = smoke_lib.k1_checks(cs, dev, card, rng)
     to_v3 = lambda a: rows_to_v3(a, dev)  # noqa: E731
 
     # -- 3b. K2 vs plain at tri-stress's shapes ------------------------------
+    phase("3b")
     tri_cs, tri_json = _tri_stress(TRI_K, TRI_WIDTH, tri_dir.name)
     if (tri_cs.render.width, tri_cs.render.height) != (TRI_WIDTH, TRI_HEIGHT):
         raise AssertionError("tri-stress's size changed")
@@ -2498,9 +2694,11 @@ def main() -> int:
     del probe, soup, table16, tree, o, d, alive, sel, plain, sub
 
     # -- 3c. the dev probes P1-P3 -------------------------------------------
+    phase("3c")
     probe_entries, raygen_b1 = smoke_lib.dev_probes(dev, card)
 
     # -- 4. K4 vs plain -----------------------------------------------------
+    phase("4")
     small = _scene(cs, 96, 54, depth=8, batches=2)
     k4_err, *_ = _compare_fused("96x54 depth 8 k=2",
                                 Renderer(small, device=dev), 2, 1e-3, 0.05,
@@ -2546,6 +2744,7 @@ def main() -> int:
     del full, args, kw
 
     # -- 4b. K4's animated form vs plain, on the motion-blur scene ----------
+    phase("4b")
     mb_scene = os.path.join(os.path.dirname(cli.DEFAULT_SCENE),
                             "final-one-weekend-motion-blur.json")
     cs_mb = cli.load_scene(mb_scene)
@@ -2593,6 +2792,7 @@ def main() -> int:
     del mb_small, mb_full, args, kw
 
     # -- 4c. K4's triangle form vs plain, on tri-stress and the fixture -----
+    phase("4c")
     fixture = compile_scene(SceneFile.from_json_dict(
         stress_scenes.triangle_fixture_doc()), width=96)
     tris_err = 0.0
@@ -2661,6 +2861,7 @@ def main() -> int:
     del tri_full, args, kw, sums
 
     # -- 4d. K4's lit forms vs plain, on the light scenes --------------------
+    phase("4d")
     light_paths = dict(zip(light_scenes.DOCS,
                            light_scenes.write_light_scenes(tri_dir.name)))
     light_cs = {name: cli.load_scene(path)
@@ -2751,6 +2952,7 @@ def main() -> int:
         del r, args, kw, sums
 
     # -- 4e. K4's noise forms vs plain, and perlin-spheres' full batch -------
+    phase("4e")
     with open(mb_scene) as f:
         form_docs = noise_scenes.form_checks(json.load(f))
     noise_err = 0.0
@@ -2823,6 +3025,7 @@ def main() -> int:
     del perlin_full, args, kw, sums
 
     # -- 4e'. Every noise form on frames with partial warps -----------------
+    phase("4e'")
     # Each noise form's small doc at an odd width, so that the frame's last
     # warp has lanes past the image, at depth 1 (lanes whose pixel is done
     # while others still trace) and 50, bit for bit.  A doc in clusters
@@ -2853,6 +3056,7 @@ def main() -> int:
             noise_err = max(noise_err, warp_err)
 
     # -- 4g. K4's image forms vs plain, and earth's full batch ---------------
+    phase("4g")
     small_png = image_scenes.texel_id_png(
         os.path.join(tri_dir.name, "small-map.png"), 640, 320)
     image_err = 0.0
@@ -2933,6 +3137,7 @@ def main() -> int:
     del earth_full, args, kw, sums
 
     # -- 4h. K4's clustered sphere forms vs plain, and the stress scenes ----
+    phase("4h")
     cluster_err = 0.0
     for form, (doc, w, depth) in stress_scenes.cluster_form_checks(
             small_png).items():
@@ -3045,6 +3250,7 @@ def main() -> int:
         del args, kw, sums
 
     # -- 4f. K3 vs plain and K2, at small size and on the 2M-triangle mesh ---
+    phase("4f")
     for T, R in ((40000, 1 << 16), (3001, 1 << 14), (5, 2048)):
         tree, table16, ro, rd, r_alive = _paged_random(T, R, T, dev)
         _compare_paged(f"random T={T}", ro, rd, tree, table16, r_alive)
@@ -3075,6 +3281,7 @@ def main() -> int:
     k3 = _k3_full(mesh_r, card)
 
     # -- 5. the wavefront path ----------------------------------------------
+    phase("5")
     _reset_counts()
     wave = Renderer(cs, device=dev, use_megakernel=False)
     per_batch = _step(wave, MAIN_BATCHES)
@@ -3231,6 +3438,7 @@ def main() -> int:
               f"{g_rays} vs {c_rays} ({card})")
 
     # -- 6. the main path: Renderer with defaults, the fused kernel ---------
+    phase("6")
     _reset_counts()
     main_r = Renderer(cs, device=dev)
     per_batch = _step(main_r, MAIN_BATCHES)
@@ -3541,6 +3749,7 @@ def main() -> int:
     multi = _multichip_paths(cs, dev, card)
 
     # -- 7. checkpoint round trips, same chunk boundaries --------------------
+    phase("7")
     with tempfile.TemporaryDirectory() as tmp:
         ck = os.path.join(tmp, "ck.npz")
         for fused in (False, True):
@@ -3578,6 +3787,7 @@ def main() -> int:
         del one_shot, first, resumed
 
         # -- 8. CLI: every batch of each scene -------------------------------
+        phase("8")
         full_size = ["--width", str(WIDTH), "--height", str(HEIGHT)]
         for scene_path, size_args, (w, h), path in (
                 (cli.DEFAULT_SCENE, full_size, (WIDTH, HEIGHT),
@@ -3626,6 +3836,7 @@ def main() -> int:
                   f"{time.perf_counter() - t0:.1f} s in all ({card})")
 
     # -- 9. one fused chunk of each scene under the profiler ----------------
+    phase("9")
     # One profiler session for all the chunks, each under its own
     # record_function range (a second session in one process has dropped
     # the kernel's device events); and one batch of the mesh scene's paged
@@ -3681,8 +3892,10 @@ def main() -> int:
     del runs, prof_r
 
     # -- 10. the app layer: CLI, metrics, runtime depth, viewer, trace -----
+    phase("10")
     _app_paths(cs, mb_scene, dev, card)
 
+    phase(None)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     print("K4's lanes busy by configuration (the two warp models; measured "
@@ -3845,11 +4058,11 @@ def main() -> int:
         "flat_bound_ms": k3["flat_bound"][0],
         "batch_flat_bound_ms": k3["batch_flat_bound"][0], "leaf": k3["leaf"],
     }, {
-        # use_bvh=True on final-one-weekend --mesh-geometry: the primary
-        # rays' launch and the batch's (every bounce's launch); the plain
-        # version timed on BVH_SUBSET of the primary rays, as the kernel
-        # on those (subset_ms).  No TPU kernel: the JAX package traces
-        # this tree with XLA while loops.
+        # use_bvh=True on final-one-weekend --mesh-geometry (the SAH tree
+        # in four-wide rows): the primary rays' launch and the batch's
+        # (every bounce's launch); the plain version timed on BVH_SUBSET
+        # of the primary rays, as the kernel on those (subset_ms).  No TPU
+        # kernel: the JAX package traces this tree with XLA while loops.
         "name": "bvh_walk", "route": "cuda",
         "source": "raytrace_tpu_torch/csrc/bvh_walk.cu",
         "replaces": "raytrace_tpu/ops/bvh.py:191",
@@ -3860,6 +4073,20 @@ def main() -> int:
         "bound_ms": sah["bound"][0], "bound_by": sah["bound"][1],
         "library_ms": None, "batch_ms": sah["batch_ms"],
         "batch_bound_ms": sah["batch_bound"][0],
+        # bound_ms takes the binary walk's work, the least that proves
+        # the hits; the bound from the wide walk's own work (four box
+        # tests a step) and from the dense sweep's; the wide and the
+        # binary walk's node steps a primary ray; the implicit tree's
+        # launch and batch; the collapse's host seconds.
+        "wide_work_bound_ms": sah["wide_bound"][0],
+        "wide_work_batch_bound_ms": sah["wide_batch_bound"],
+        "dense_bound_ms": sah["dense_bound"][0],
+        "wide_node_steps": sah["work"][0][0],
+        "binary_node_steps": sah["steps"][0],
+        "implicit_ms": sah["implicit"]["ms"],
+        "implicit_batch_ms": sah["implicit"]["batch_ms"],
+        "implicit_bound_ms": sah["implicit"]["bound"][0],
+        "collapse_s": sah["wide_s"],
     }, {
         # fow-ellipsoids' primary rays and its batch.  No TPU kernel: the
         # JAX package traces this sweep with XLA.
@@ -3872,6 +4099,11 @@ def main() -> int:
         "bound_ms": ell["bound"][0], "bound_by": ell["bound"][1],
         "library_ms": None, "batch_ms": ell["batch_ms"],
         "batch_bound_ms": ell["batch_bound"][0],
+        # The kept dense entry point, the bound from the dense sweep's
+        # work, and the tree's build on the card.
+        "dense_ms": ell["dense_ms"], "dense_batch_ms": ell["dense_batch_ms"],
+        "dense_bound_ms": ell["dense_bound"][0],
+        "tree_build_ms": ell["build_ms"],
     }, *probe_entries]}))
     tri_dir.cleanup()
     print(json.dumps({"ok": True, "device": {

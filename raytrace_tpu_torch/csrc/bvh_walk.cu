@@ -1,6 +1,6 @@
 // Closest hit of the wavefront's rays against a triangle soup through its
 // SAH or implicit BVH (H1, use_bvh=True): a per-thread, nearest-first walk
-// over explicit child links.
+// over four-wide nodes with explicit child links.
 //
 // Replaces no TPU kernel: the JAX package traces this tree with XLA while
 // loops (raytrace_tpu/ops/bvh.py:55 traverse, the implicit heap, and :191
@@ -8,24 +8,35 @@
 // at a time, which as PyTorch operations would be tens of small kernels a
 // step for hundreds of steps.  Here each thread walks its own ray.
 //
-// The tree (ops/bvh.py node_rows): one 64-byte row a node, four float4:
-// the left child's box (min xyz, max xyz), the right one's, both child
-// links bitcast to float, both boxes' reach (largest |coordinate|).  A
-// link >= 0 is a node row; a link < 0 a leaf, -(1 + (first << 5 |
-// count)), the rows [first, first + count) of the soup in the tree's
-// order, three float4 a triangle, (v0, valid), (e1, -), (e2, -)
-// (ops/megakernel.py tri_table12).  The root may itself be a leaf.
+// The tree (ops/bvh.py wide_rows): the binary tree (node_rows) collapsed
+// so that every internal binary node at an even depth is a wide node whose
+// children are its grandchildren (or a child that is a leaf): 2 to 4 of
+// them.  One 128-byte row a wide node, eight float4: the four children's
+// min x, max x, min y, max y, min z, max z (a float4 each, one lane a
+// child), their links bitcast to float, their reaches (largest
+// |coordinate| of the box).  A link >= 0 is a wide row; a link < 0 a
+// leaf, -(1 + (first << 5 | count)), the rows [first, first + count) of
+// the soup in the tree's order, three float4 a triangle, (v0, valid),
+// (e1, -), (e2, -) (ops/megakernel.py tri_table12).  An absent child is
+// the point (BIG, BIG, BIG), which no slab test passes.  The root may
+// itself be a leaf.  Each child's box is the binary subtree's, copied
+// with no new rounding.
 //
-// The walk is csrc/tri_tree.cuh's with links for heap indices (Aila and
-// Laine's while-while loop, the nearer passing child first): both child
-// boxes tested with tri_tree::box_passes, each widened for this ray by
-// (|o|_inf + reach) 2^-18, the other child pushed with its entry t and
-// tested again against the best t when popped, a leaf's triangles tested
-// with tri_tree::tri_hit, the Moller-Trumbore operations of every
-// triangle walk of the port.  The stack holds kStack = 64 entries, one a
-// level (ops/bvh.py MAX_STACK; the mesh scene's SAH tree is 26 deep): the
-// wrapper refuses a deeper tree, and a push past it traps, so a walk is
-// never cut short in silence.
+// The walk: at a node all four child boxes are tested with
+// tri_tree::box_passes, each widened for this ray by (|o|_inf + reach)
+// 2^-18; the four tests read one row and are independent, so they
+// overlap.  The children that pass are ranked by (entry t, slot) with a
+// five-step sorting network; the first is walked and the others pushed,
+// the farthest first, each with its entry t, tested again against the
+// best t when popped.  A leaf's triangles are tested with
+// tri_tree::tri_hit, the Moller-Trumbore operations of every triangle walk
+// of the port.  The stack holds kStack = 94 entries (ops/bvh.py
+// MAX_STACK): a wide level pushes at most three, so a binary tree of depth
+// d needs 3 ((d + 1) / 2) + 1 (ops/bvh.py wide_stack; the mesh scene's SAH
+// tree, depth 26, 40), and 94 holds every tree of depth 62 or less, the
+// binary walk's 64 entries' reach.  The stack is local memory, which costs
+// no registers.  The wrapper refuses a deeper tree, and a push past the
+// stack traps, so a walk is never cut short in silence.
 //
 // Bits.  A hit replaces the best one when t < best_t, or t == best_t and
 // its row is lower: the lexicographic minimum of (t, id).  The boxes bound
@@ -35,14 +46,23 @@
 // so the dense sweep's winner is always visited, and the minimum over any
 // superset holding it is that winner, whatever the order.  Built with
 // -fmad=false (ops/_build.py KERNEL_FLAGS) and IEEE division, so it
-// matches its plain PyTorch version (ops/bvh.py bvh_walk_reference) bit
-// for bit, and the dense sweep K2 over the same soup.
+// matches its plain PyTorch version (ops/bvh.py bvh_walk_reference, which
+// walks the same rows, or the binary ones) bit for bit, and the dense
+// sweep K2 over the same soup.
 //
-// What bounds it: the work depends on the data.  Per ray two box tests at
-// each node the walk reaches and 46 FP32 operations a triangle at each
-// leaf; the bytes are the rays (25 in, 16 out), 64 a node row and 48 a
-// triangle row.  Like K2's and K3's walks it is held back by divergence
-// and the dependent row loads, not by either roof.
+// What bounds it: the work depends on the data.  The least work that
+// proves a ray's hit over these boxes is the binary walk's (ops/bvh.py
+// visit_counts over the binary rows): two box tests at each binary node
+// it reaches and 46 FP32 operations a triangle at each leaf; the bytes are
+// the rays (25 in, 16 out), 64 a binary node row and 48 a triangle row.
+// This kernel does more: four box tests a wide node, absent slots and
+// children of a failing binary box included.  A wide node brings four
+// boxes a load, so the chain of
+// dependent node loads is half the binary walk's (14.9 steps a primary ray
+// on the mesh against 28.6): that shortens the small late bounces, each as
+// long as its slowest ray's chain.  The large bounces move little (PERF.md
+// §6): a ray still makes ~60 box tests and reads ~3 KB of node and
+// triangle rows, which the collapse leaves as they were.
 
 #include <cuda_runtime.h>
 
@@ -51,7 +71,21 @@
 namespace {
 
 constexpr int kThreads = 128;  // as K2's and K3's walks
-constexpr int kStack = 64;     // ops/bvh.py MAX_STACK
+constexpr int kStack = 94;     // ops/bvh.py MAX_STACK
+
+// A child that passed: its entry t, link and slot (the tie-break).
+struct Child {
+  float te;
+  int link, slot;
+};
+
+__device__ __forceinline__ void order2(Child& a, Child& b) {
+  const bool swap = b.te < a.te || (b.te == a.te && b.slot < a.slot);
+  const Child lo = swap ? b : a;
+  const Child hi = swap ? a : b;
+  a = lo;
+  b = hi;
+}
 
 __global__ void __launch_bounds__(kThreads)
 bvh_walk_kernel(const float4* __restrict__ nodes, int root, const float4* __restrict__ tris,
@@ -73,31 +107,59 @@ bvh_walk_kernel(const float4* __restrict__ nodes, int root, const float4* __rest
     int link = root;
     for (;;) {
       if (link >= 0) {
-        const float4* row = nodes + 4 * link;
-        const float4 a = __ldg(row);
-        const float4 b = __ldg(row + 1);
-        const float4 c = __ldg(row + 2);
-        const float4 e = __ldg(row + 3);
-        float tl, tr;
-        const bool hl = tri_tree::box_passes(a.x, a.y, a.z, a.w, b.x, b.y,
-                                             (r.o_inf + e.z) * tri_tree::kRounding, r, best_t,
-                                             &tl);
-        const bool hr = tri_tree::box_passes(b.z, b.w, c.x, c.y, c.z, c.w,
-                                             (r.o_inf + e.w) * tri_tree::kRounding, r, best_t,
-                                             &tr);
-        const int l0 = __float_as_int(e.x);
-        const int l1 = __float_as_int(e.y);
-        if (hl && hr) {
-          const bool left_first = tl <= tr;
-          if (sp >= kStack) __trap();
-          stack_link[sp] = left_first ? l1 : l0;
-          stack_te[sp] = left_first ? tr : tl;
-          ++sp;
-          link = left_first ? l0 : l1;
-          continue;
-        }
-        if (hl || hr) {
-          link = hl ? l0 : l1;
+        const float4* row = nodes + 8 * link;
+        const float4 lx = __ldg(row), hx = __ldg(row + 1);
+        const float4 ly = __ldg(row + 2), hy = __ldg(row + 3);
+        const float4 lz = __ldg(row + 4), hz = __ldg(row + 5);
+        const float4 ln = __ldg(row + 6), re = __ldg(row + 7);
+        // Each child's key: its entry t where it passes, else +inf, which
+        // sorts it after every child that passes.
+        Child c0, c1, c2, c3;
+        float te;
+        const bool p0 = tri_tree::box_passes(lx.x, ly.x, lz.x, hx.x, hy.x, hz.x,
+                                             (r.o_inf + re.x) * tri_tree::kRounding, r, best_t,
+                                             &te);
+        c0 = {p0 ? te : __int_as_float(0x7f800000), __float_as_int(ln.x), 0};
+        const bool p1 = tri_tree::box_passes(lx.y, ly.y, lz.y, hx.y, hy.y, hz.y,
+                                             (r.o_inf + re.y) * tri_tree::kRounding, r, best_t,
+                                             &te);
+        c1 = {p1 ? te : __int_as_float(0x7f800000), __float_as_int(ln.y), 1};
+        const bool p2 = tri_tree::box_passes(lx.z, ly.z, lz.z, hx.z, hy.z, hz.z,
+                                             (r.o_inf + re.z) * tri_tree::kRounding, r, best_t,
+                                             &te);
+        c2 = {p2 ? te : __int_as_float(0x7f800000), __float_as_int(ln.z), 2};
+        const bool p3 = tri_tree::box_passes(lx.w, ly.w, lz.w, hx.w, hy.w, hz.w,
+                                             (r.o_inf + re.w) * tri_tree::kRounding, r, best_t,
+                                             &te);
+        c3 = {p3 ? te : __int_as_float(0x7f800000), __float_as_int(ln.w), 3};
+        const int passed = int(p0) + int(p1) + int(p2) + int(p3);
+        if (passed > 0) {
+          // Sort the four by (key, slot): c0 nearest, then c1, c2, c3.
+          order2(c0, c1);
+          order2(c2, c3);
+          order2(c0, c2);
+          order2(c1, c3);
+          order2(c1, c2);
+          // Push the others that passed, the farthest first.
+          if (passed > 3) {
+            if (sp >= kStack) __trap();
+            stack_link[sp] = c3.link;
+            stack_te[sp] = c3.te;
+            ++sp;
+          }
+          if (passed > 2) {
+            if (sp >= kStack) __trap();
+            stack_link[sp] = c2.link;
+            stack_te[sp] = c2.te;
+            ++sp;
+          }
+          if (passed > 1) {
+            if (sp >= kStack) __trap();
+            stack_link[sp] = c1.link;
+            stack_te[sp] = c1.te;
+            ++sp;
+          }
+          link = c0.link;
           continue;
         }
       } else {
@@ -137,10 +199,11 @@ bvh_walk_kernel(const float4* __restrict__ nodes, int root, const float4* __rest
 
 }  // namespace
 
-// nodes: [N, 16] f32 (16-byte aligned); root: the root link; tris: [>=
-// n_tris, 12] f32 in the tree's order (16-byte aligned); ox..dz: [n] f32;
-// alive: [n] bool; t, u, v: [n] f32 out; id: [n] i32 out.  Launches on
-// `stream` without synchronising and returns cudaGetLastError().
+// nodes: [N, 32] f32 four-wide rows (16-byte aligned); root: the root
+// link; tris: [>= n_tris, 12] f32 in the tree's order (16-byte aligned);
+// ox..dz: [n] f32; alive: [n] bool; t, u, v: [n] f32 out; id: [n] i32 out.
+// Launches on `stream` without synchronising and returns
+// cudaGetLastError().
 extern "C" int bvh_walk_launch(const void* nodes, int root, const void* tris, int n_tris,
                                const void* ox, const void* oy, const void* oz, const void* dx,
                                const void* dy, const void* dz, const void* alive, int n,

@@ -23,7 +23,7 @@ import torch
 
 from ..models import compile as _compile
 from ..models.compile import CompiledScene
-from ..ops.bvh import node_rows
+from ..ops.bvh import wide_tree
 from ..ops.textures import TexFlags, srgb_u8_to_linear_lut
 
 
@@ -83,7 +83,8 @@ class SceneArrays(NamedTuple):
     sky_top: torch.Tensor
     sky_bottom: torch.Tensor
     sky_factor: torch.Tensor
-    # BVH node rows ([0,16] when tracing brute force)
+    # BVH node rows: the walk's four-wide rows, [N, 32] (ops/bvh.
+    # wide_rows); [0,16] when tracing brute force
     bvh_child_boxes: torch.Tensor
     # pre-resolved shading rows ([1,32] dummy when unavailable)
     shade_rows: torch.Tensor
@@ -121,8 +122,9 @@ class SceneStatic:
     # own tree, or the fused kernel's clusters), "paged" (ops/paged_tri.py)
     # or, with use_bvh=True, "sah" or "implicit" (the BVH of
     # models/bvh_build.py, walked by ops/bvh.py); the BVH's facts as the
-    # JAX package keeps them, but ``bvh_root``, the walk's root link (a
-    # leaf link for a one-leaf implicit tree; 0 in the JAX package).
+    # JAX package keeps them, but ``bvh_root``, the root link of the
+    # walk's four-wide tree (a leaf link for a one-leaf tree; 0 in the JAX
+    # package).
     bvh_mode: str = "none"
     bvh_num_leaves: int = 0
     bvh_leaf_size: int = 4
@@ -155,11 +157,11 @@ def pack_atlas(atlas: torch.Tensor) -> torch.Tensor:
     return (a[..., 0] | (a[..., 1] << 8) | (a[..., 2] << 16)).contiguous()
 
 
-def _scene_numpy(cs: CompiledScene, bvh=None) -> dict:
+def _scene_numpy(cs: CompiledScene, bvh_rows=None) -> dict:
     """CompiledScene → the SceneArrays fields as numpy arrays, with the
     dtypes and derived tables of the JAX package's upload_scene; with a
-    models/bvh_build.BVHData, its node rows as the walk reads them
-    (ops/bvh.node_rows)."""
+    BVH, its node rows as the walk reads them (``bvh_rows``,
+    ops/bvh.wide_tree)."""
     i32 = lambda x: np.asarray(x, np.int32)      # noqa: E731
     f32 = lambda x: np.asarray(x, np.float32)    # noqa: E731
     n_image = (0 if int(np.prod(cs.atlas.shape[1:3])) <= 1
@@ -202,8 +204,8 @@ def _scene_numpy(cs: CompiledScene, bvh=None) -> dict:
         n_light_mat=i32(len(cs.light_emit)),
         sky_solid=f32(cs.sky_solid), sky_top=f32(cs.sky_top),
         sky_bottom=f32(cs.sky_bottom), sky_factor=f32(cs.sky_factor),
-        bvh_child_boxes=(np.zeros((0, 16), np.float32) if bvh is None
-                         else node_rows(bvh, cs.num_triangles)[0]),
+        bvh_child_boxes=(np.zeros((0, 16), np.float32) if bvh_rows is None
+                         else bvh_rows),
         shade_rows=f32(cs.shade_rows if cs.shade_rows is not None
                        else np.zeros((1, 32), np.float32)),
     )
@@ -219,14 +221,18 @@ def upload_scene(cs: CompiledScene, device, bvh=None):
     with ``bvh`` (a models/bvh_build.BVHData over ``cs``'s soup, already
     permuted into its order) the BVH's rows and facts
     (raytrace_tpu/engine/arrays.py:194-223)."""
-    static = scene_static(cs, bvh)
-    return _to_device(_scene_numpy(cs, bvh), device), static
+    rows, root = (None, 0) if bvh is None else wide_tree(
+        bvh, cs.num_triangles)[:2]
+    static = scene_static(cs, bvh, root)
+    return _to_device(_scene_numpy(cs, rows), device), static
 
 
-def scene_static(cs: CompiledScene, bvh=None) -> SceneStatic:
+def scene_static(cs: CompiledScene, bvh=None, bvh_root: int = 0
+                 ) -> SceneStatic:
     """The host-side facts of a CompiledScene, without uploading it; the
-    BVH's (mode, leaves, leaf size, the walk's stack, as the JAX package
-    sizes it, depth + 2, and root link) with a BVHData."""
+    BVH's (mode, leaves, leaf size, the stack as the JAX package sizes
+    it, depth + 2, and the wide tree's root link ``bvh_root``) with a
+    BVHData."""
     if not isinstance(cs, CompiledScene):
         raise TypeError(
             f"upload_scene takes the port's models.compile.CompiledScene, "
@@ -253,7 +259,7 @@ def scene_static(cs: CompiledScene, bvh=None) -> SceneStatic:
             bvh_mode=bvh.mode, bvh_num_leaves=int(bvh.num_leaves),
             bvh_leaf_size=int(bvh.leaf_size),
             bvh_stack_depth=int(bvh.depth + 2),
-            bvh_root=node_rows(bvh, cs.num_triangles)[1])),
+            bvh_root=int(bvh_root))),
     )
 
 

@@ -75,7 +75,8 @@ Spheres whose instances all map them to spheres (a uniform scale) have
 world-space tables (``sphere_world_mode``); a scene with a non-uniform
 scale (ellipsoids) has none, and its spheres are swept in object space
 by H2 (ops/sphere_obj.py) on the wavefront, which the fused kernel's gate
-sends it to.
+sends it to: the dense prefix, then a tree over the world boxes of the
+rest, built once where no sphere instance moves, else every batch.
 
 The JAX Renderer's app-layer options are here too: ``camera_name`` renders
 through a camera other than the scene's own; ``metrics_jsonl`` appends a
@@ -99,14 +100,14 @@ from ..models.bvh_build import build_bvh, build_bvh_sah, permute_soup
 from ..models.compile import CompiledScene
 from ..ops import camera as cam_ops
 from ..ops import bvh as bvh_ops
-from ..ops import megakernel, paged_tri, sphere_sweep, sphere_tree
+from ..ops import megakernel, paged_tri, sphere_obj, sphere_sweep, sphere_tree
 from ..ops.spheres import world_sphere_anim_tables, world_sphere_tables
 from ..tools.chacha import ChaCha20Rng
 from ..utils.image import write_png
 from ..utils.profiling import BatchMetrics
 from .arrays import SceneStatic, pack_atlas, scene_static, upload_scene
-from .wavefront import (make_trace_fn, prepare_batch, prepare_tris,
-                        render_tile, sphere_prefix, world_soup)
+from .wavefront import (make_trace_fn, object_table, prepare_batch,
+                        prepare_tris, render_tile, sphere_prefix, world_soup)
 
 # The reference seeds its host RNG with this value (render_engine.rs:116);
 # it drives the batch-time jitter stream.
@@ -305,7 +306,7 @@ class Renderer:
             self.bvh = build_bvh_sah(compiled, leaf_max=8)
             if self.bvh is None:
                 self.bvh = build_bvh(compiled, leaf_size=leaf_size)
-            if self.bvh.depth + 2 > bvh_ops.MAX_STACK:
+            if bvh_ops.wide_stack(self.bvh.depth) > bvh_ops.MAX_STACK:
                 raise ValueError(
                     f"a BVH of depth {self.bvh.depth}: its walk's stack "
                     f"would outgrow the kernel's {bvh_ops.MAX_STACK}")
@@ -368,6 +369,27 @@ class Renderer:
                     self.sphere_tables[0], device=self.device))
                 self._sph_tree = sphere_tree.build_sphere_tree(
                     table8, n_prefix, n_sph, self._sph_order)
+        # The tree H2 walks over the world boxes of the spheres in object
+        # space past the dense prefix: their Morton order at shutter time
+        # 0.5, once; where no sphere instance moves, the whole tree once,
+        # over the first batch's table, its boxes widened for the maps'
+        # drift between batch times (each batch takes its own sphere rows
+        # into it), else each batch over that batch's table.
+        self._obj_order = self._obj_tree = None
+        if not world_mode and self.static.num_spheres > 0:
+            mid = object_table(self.scene, torch.tensor(
+                0.5, dtype=torch.float32, device=self.device))
+            n_prefix = sphere_obj.tree_prefix(self.static, mid)
+            if n_prefix is not None:
+                n_sph = min(self.static.num_spheres, mid.shape[0])
+                self._obj_order = sphere_obj.object_order(mid, n_prefix,
+                                                          n_sph)
+                inst = self.scene.sph_inst[:n_sph].long()
+                if torch.equal(self.scene.inst_t0[inst],
+                               self.scene.inst_t1[inst]):
+                    self._obj_tree = sphere_obj.build_object_tree(
+                        object_table(self.scene, self.batch_times_dev[0]),
+                        n_sph, n_prefix, self._obj_order, static=True)
         # The animated fused kernel's one geometry, built once.  Not for
         # triangles or lights, nor for image textures, whose spheres'
         # world-to-object rows change with every batch time (the JAX
@@ -456,7 +478,9 @@ class Renderer:
                              atlas_words=self._atlas_words,
                              fused=self.use_megakernel,
                              sph_order=self._sph_order,
-                             sph_tree=self._sph_tree, shard=self.shard)
+                             sph_tree=self._sph_tree, shard=self.shard,
+                             obj_order=self._obj_order,
+                             obj_tree=self._obj_tree)
 
     def _debug_check(self, batch: int) -> None:
         """debug=True: validate the accumulation after a step (finite,

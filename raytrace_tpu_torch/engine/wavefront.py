@@ -119,6 +119,10 @@ class BatchGeometry(NamedTuple):
     # (ops/spheres.object_sphere_table), the table H2 sweeps where the
     # scene has no world-space sphere table; else None.
     sph_obj16: Optional[torch.Tensor] = None
+    # The tree H2 walks over the world boxes of the spheres past the dense
+    # prefix (ops/sphere_obj.build_object_tree), its rows this batch's;
+    # None where H2 sweeps every sphere (ops/sphere_obj.tree_prefix).
+    sph_obj_tree: Optional[sphere_tree.SphereTree] = None
     # The scene shard this geometry is a slice of (parallel/multichip.
     # SceneShard: its rank among the shards, their count, and its
     # all_reduce over them), or None for the whole scene.
@@ -217,6 +221,16 @@ def prepare_tris(static: SceneStatic, scene: SceneArrays,
     return out
 
 
+def object_table(scene: SceneArrays, batch_time: torch.Tensor) -> torch.Tensor:
+    """The [S8, 16] object-space sphere table at a batch time (a 0-dim f32
+    tensor), as ``prepare_batch`` builds H2's: each sphere's instance's
+    world-to-object map at that time, its centre and radius."""
+    w2o = transforms.interpolate_instances(
+        scene.inst_t0, scene.inst_t1, batch_time).world_to_object
+    return spheres.object_sphere_table(w2o[scene.sph_inst.long()],
+                                       scene.sph_center, scene.sph_radius)
+
+
 def _o2w_rows(mats: transforms.InstanceMatrices) -> torch.Tensor:
     return mats.object_to_world.reshape(-1, 12).contiguous()
 
@@ -241,7 +255,10 @@ def prepare_batch(static: SceneStatic, scene: SceneArrays,
                   fused: bool = False,
                   sph_order: Optional[torch.Tensor] = None,
                   sph_tree: Optional[sphere_tree.SphereTree] = None,
-                  shard=None) -> BatchGeometry:
+                  shard=None,
+                  obj_order: Optional[torch.Tensor] = None,
+                  obj_tree: Optional[sphere_tree.SphereTree] = None
+                  ) -> BatchGeometry:
     """Kernel tables and per-primitive rows for one batch.
 
     sph_table: [S, 5] world sphere rows at the batch time
@@ -250,7 +267,12 @@ def prepare_batch(static: SceneStatic, scene: SceneArrays,
     spheres' linear motion; None for spheres in object space (a scene with
     no world table: the Renderer's ``sphere_world_mode`` False), which
     take the world-to-object branch's rows below and H2's table
-    ``sph_obj16`` at ``batch_time``, and no sphere tree.
+    ``sph_obj16`` at ``batch_time`` with the tree H2 walks past the dense
+    prefix (ops/sphere_obj.tree_prefix): ``obj_tree`` where it is given
+    (built once where no sphere instance moves; its sphere rows are taken
+    again from this batch's table), else built over this batch's table in
+    the order ``obj_order`` (ops/sphere_obj.object_order, fixed once per
+    Renderer; taken from this table when not given).
     A scene with triangles takes ``tris``, the
     fields ``prepare_tris`` built for the batch's time, with the instances'
     objectToWorld rows at that time; a scene with lights and without
@@ -327,12 +349,25 @@ def prepare_batch(static: SceneStatic, scene: SceneArrays,
         raise ValueError("a scene with lights needs the batch time (or "
                          "prepare_tris's tables)")
     if object_space:
+        table16 = spheres.object_sphere_table(
+            rows[:s_pad, 32:44].reshape(s_pad, 3, 4), scene.sph_center,
+            scene.sph_radius)
+        n_sph = min(static.num_spheres, s_pad)
+        if obj_tree is not None:
+            obj_tree = obj_tree._replace(
+                rows=table16[obj_tree.ids.long()].contiguous())
+        else:
+            if obj_order is None:
+                n_prefix = sphere_obj.tree_prefix(static, table16)
+                if n_prefix is not None:
+                    obj_order = sphere_obj.object_order(table16, n_prefix,
+                                                        n_sph)
+            if obj_order is not None:
+                obj_tree = sphere_obj.build_object_tree(
+                    table16, n_sph, n_sph - obj_order.shape[0], obj_order)
         return BatchGeometry(
             sph_table8=None, prim_rows=rows, atlas_words=atlas_words,
-            shard=shard,
-            sph_obj16=spheres.object_sphere_table(
-                rows[:s_pad, 32:44].reshape(s_pad, 3, 4),
-                scene.sph_center, scene.sph_radius), **extra)
+            shard=shard, sph_obj16=table16, sph_obj_tree=obj_tree, **extra)
     table8 = sphere_sweep.pad_table8(sph_table)
     n_prefix = sphere_prefix(static, fused)
     if n_prefix is not None and sph_tree is None:
@@ -381,12 +416,13 @@ def combine_hits(sph: Optional[SphereHit], tri: Optional[Hit], s_pad: int,
 
 def bvh_tree(static: SceneStatic,
              scene: SceneArrays) -> Optional[bvh.BVHTree]:
-    """The scene's BVH as H1 walks it (its node rows and static facts), on
-    a soup in the order of its SAH or implicit BVH; else None."""
+    """The scene's BVH as H1 walks it (its four-wide rows, their root and
+    the wide walk's stack from the binary depth), on a soup in the order
+    of its SAH or implicit BVH; else None."""
     if static.bvh_mode not in BVH_MODES:
         return None
     return bvh.BVHTree(nodes=scene.bvh_child_boxes, root=static.bvh_root,
-                       stack_depth=static.bvh_stack_depth,
+                       stack_depth=bvh.wide_stack(static.bvh_stack_depth - 2),
                        leaf=static.bvh_leaf_size,
                        num_tris=static.num_triangles)
 
@@ -399,7 +435,8 @@ def make_trace_fn(static: SceneStatic, scene: SceneArrays,
     (K2 over the soup's tree, the paged sweep K3 on a "paged" soup, or the
     BVH walk H1 on a soup in the order of its SAH or implicit BVH), then
     the sphere sweep (K1, over the batch's sphere tree where it has one,
-    or H2 where the batch's spheres are in object space, ``sph_obj16``),
+    or H2 where the batch's spheres are in object space, ``sph_obj16``,
+    over the batch's ``sph_obj_tree`` where it has one),
     each only where the scene has such primitives
     (raytrace_tpu/engine/wavefront.py:138-232).  Raises where the batch's
     sphere tree is not the one K1 walks
@@ -434,8 +471,8 @@ def make_trace_fn(static: SceneStatic, scene: SceneArrays,
             tri = tri_sweep.intersect_tris_sweep(o, d, geom.tri_table16,
                                                  alive, geom.tri_tree)
         if geom.sph_obj16 is not None:
-            sph = sphere_obj.intersect_spheres_object(o, d, geom.sph_obj16,
-                                                      alive)
+            sph = sphere_obj.intersect_spheres_object(
+                o, d, geom.sph_obj16, alive, geom.sph_obj_tree)
         elif sweep_spheres or tri is None:
             sph = sphere_sweep.intersect_spheres_sweep(
                 o, d, geom.sph_table8, alive, geom.sph_tree)

@@ -4,33 +4,49 @@ plain PyTorch version (counterpart of raytrace_tpu/ops/bvh.py:55
 ``traverse`` and :191 ``traverse_sah``, which the JAX package traces with
 XLA while loops: there is no Pallas kernel to port, and H1 replaces none).
 
-Both trees become one row layout (``node_rows``), so one walk serves both
-``bvh_mode``s.  A node is one [16] f32 row: both children's boxes (left
-min xyz, left max xyz, right min xyz, right max xyz, the JAX rows' cols
-0:12 but for the implicit tree's empty boxes), both child links bitcast
-to float in cols 12:14 (the SAH builder's own; the implicit heap's
-2i + 1 and 2i + 2, a heap leaf becoming the run of ``leaf_size`` rows it
-holds), and each child box's reach, its largest |coordinate|, in cols
-14:16 (zero in the JAX rows).  A link below 0 is a
-leaf, -(1 + (first << 5 | count)), over the soup permuted into the tree's
-order (models/bvh_build.permute_soup), so a triangle's id is its row.
+Both trees become one binary row layout (``node_rows``).  A binary node
+is one [16] f32 row: both children's boxes (left min xyz, left max xyz,
+right min xyz, right max xyz, the JAX rows' cols 0:12 but for the
+implicit tree's empty boxes), both child links bitcast to float in cols
+12:14 (the SAH builder's own; the implicit heap's 2i + 1 and 2i + 2, a
+heap leaf becoming the run of ``leaf_size`` rows it holds), and each
+child box's reach, its largest |coordinate|, in cols 14:16 (zero in the
+JAX rows).  A link below 0 is a leaf, -(1 + (first << 5 | count)), over
+the soup permuted into the tree's order (models/bvh_build.permute_soup),
+so a triangle's id is its row.
 
-The walk is the port's (csrc/tri_tree.cuh): from the root link, both
-children's boxes slab-tested, each widened for the ray by (|o|_inf +
-reach) 2^-18, pruned at ``best_t * 1.0001 + 1e-4``, the nearer of two that
-pass walked and the other pushed with its entry t, re-tested when popped;
-a leaf's triangles tested with the dense sweep's Moller-Trumbore
-operations; a hit kept as the lexicographic minimum of (t, id).  The
-tree's boxes bound each triangle over the whole shutter
+The kernel walks the binary tree collapsed into four-wide nodes
+(``wide_rows``): every internal binary node at an even depth becomes a
+wide node, whose children are its children's children where a child is
+internal and the child itself where it is a leaf, so 2 to 4 of them.  A
+wide node is one [32] f32 row, 128 bytes: the four child boxes as rows of
+four (min x, max x, min y, max y, min z, max z: cols 0:24), their links
+(24:28) and their reaches (28:32); an absent child is the point (BIG,
+BIG, BIG) with reach 0, which no slab test passes.  Each child's box and
+reach are copied from the binary row that held them, so a wide child's
+box is exactly its binary subtree's, with no new rounding.  The wide
+tree has (depth + 1) // 2 levels of internal nodes for a binary tree of
+``depth`` (``wide_stack``).
+
+The walk (csrc/bvh_walk.cu; ``bvh_walk_reference`` walks binary and wide
+rows alike): from the root link, every child box of a node slab-tested,
+each widened for the ray by (|o|_inf + reach) 2^-18, pruned at
+``best_t * 1.0001 + 1e-4``; of those that pass, the one entered first
+(the lowest slot on equal entry t) is walked and the others pushed with
+their entry t, the farthest first, each tested against the best t again
+when popped; a leaf's triangles tested with the dense sweep's
+Moller-Trumbore operations; a hit kept as the lexicographic minimum of
+(t, id).  The tree's boxes bound each triangle over the whole shutter
 (models/bvh_build.world_triangle_bounds) and the widening covers their
 rounding against the batch's world triangles, so the dense sweep's winner
 is always visited and the walk gives the dense sweep's bits over the same
-soup, in any order.  The JAX traversals keep the first hit found at equal
-t instead, which differs only on exact ties.
+soup, in any order and at any width.  The JAX traversals keep the first
+hit found at equal t instead, which differs only on exact ties.
 
 ``intersect_tris_bvh`` is the entry point: for tensors on the CPU it runs
-``bvh_walk_reference``; for CUDA tensors it launches the kernel, or
-raises.  ``LAUNCHES`` counts kernel launches.
+``bvh_walk_reference`` on either layout; for CUDA tensors it launches the
+kernel on a four-wide tree, or raises.  ``LAUNCHES`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -52,8 +68,13 @@ from .vec3 import V3
 LAUNCHES = 0
 
 # The kernel's stack (csrc/bvh_walk.cu kStack): a tree whose walk may need
-# more entries is refused.  The mesh scene's SAH tree is 26 deep.
-MAX_STACK = 64
+# more entries is refused.  The mesh scene's SAH tree is 26 deep, so its
+# wide walk needs 40 (``wide_stack``); 94 is ``wide_stack(62)``, so every
+# tree the binary walk's 64 entries held (depth + 2 <= 64) is walked.
+MAX_STACK = 94
+# Children of a wide node, and the columns of its row.
+WIDE = 4
+WIDE_COLS = 32
 # A leaf's count has 5 bits and its first row the other 26.
 MAX_LEAF = 31
 MAX_ROWS = 1 << 26
@@ -62,9 +83,13 @@ MAX_ROWS = 1 << 26
 class BVHTree(NamedTuple):
     """The node rows the walk reads (``node_rows``), on the soup's device."""
 
-    nodes: torch.Tensor   # [N, 16] f32, at least one row
+    # [N, 16] f32 binary rows (``node_rows``) or [N, 32] four-wide rows
+    # (``wide_rows``, the kernel's), at least one row
+    nodes: torch.Tensor
     root: int             # the root link (a leaf link for a one-leaf tree)
-    stack_depth: int      # the stack the walk may need: the depth + 2
+    # the stack the walk may need: the depth + 2 for binary rows, as the
+    # JAX package sizes it; ``wide_stack(depth)`` for wide rows
+    stack_depth: int
     leaf: int             # the most triangles a leaf holds
     num_tris: int         # the real triangles, rows [0, num_tris)
 
@@ -116,14 +141,109 @@ def node_rows(bvh, num_real: int):
     return rows, root
 
 
+def wide_stack(depth: int) -> int:
+    """The stack the wide walk may need over a binary tree whose leaves lie
+    at most ``depth`` below its root (models/bvh_build.BVHData.depth): its
+    internal nodes lie at depths 0 .. depth - 1, so the wide tree has
+    (depth + 1) // 2 levels of internal nodes, a walk holds at most three
+    pending children of each, and one entry more."""
+    return 3 * ((depth + 1) // 2) + 1
+
+
+def wide_rows(rows: np.ndarray, root: int):
+    """Binary node rows (``node_rows``) and their root link → ([M, 32] f32
+    four-wide rows, the wide root link).  The internal binary nodes at an
+    even depth below the root become the wide nodes, in the order of
+    their binary rows; a wide node's slots 2s and 2s + 1 hold the children
+    of its binary child s where that child is internal, else that child
+    alone in slot 2s.  Each slot's box and reach are copied from the
+    binary row that held them; an absent child is the point (BIG, BIG,
+    BIG) with reach 0 and a leaf link of no triangle.  A one-leaf tree
+    (a leaf root link) keeps its root and one zero row."""
+    if root < 0:
+        return np.zeros((1, WIDE_COLS), np.float32), int(root)
+    rows = np.asarray(rows, np.float32)
+    n = rows.shape[0]
+    links = rows[:, 12:14].view(np.int32).astype(np.int64)
+    depth = np.full(n, -1, np.int64)
+    frontier, d = np.array([root], np.int64), 0
+    while frontier.size:
+        depth[frontier] = d
+        frontier = links[frontier].ravel()
+        frontier = frontier[frontier >= 0]
+        d += 1
+    wide = np.nonzero((depth >= 0) & (depth % 2 == 0))[0]
+    wide_id = np.full(n, -1, np.int64)
+    wide_id[wide] = np.arange(wide.size)
+    M = wide.size
+    box = np.full((M, WIDE, 6), BIG, np.float32)
+    reach = np.zeros((M, WIDE), np.float32)
+    link = np.full((M, WIDE), leaf_link(0, 0), np.int64)
+    for side in (0, 1):
+        child = links[wide, side]
+        leaf = child < 0
+        box[leaf, 2 * side] = rows[wide[leaf], 6 * side:6 * side + 6]
+        reach[leaf, 2 * side] = rows[wide[leaf], 14 + side]
+        link[leaf, 2 * side] = child[leaf]
+        inner = child[~leaf]
+        for t in (0, 1):
+            grand = links[inner, t]
+            box[~leaf, 2 * side + t] = rows[inner, 6 * t:6 * t + 6]
+            reach[~leaf, 2 * side + t] = rows[inner, 14 + t]
+            link[~leaf, 2 * side + t] = np.where(
+                grand >= 0, wide_id[np.maximum(grand, 0)], grand)
+    out = np.zeros((M, WIDE_COLS), np.float32)
+    # [M, slot, (lo, hi), axis] -> columns axis * 8 + (lo, hi) * 4 + slot.
+    out[:, 0:24] = box.reshape(M, WIDE, 2, 3).transpose(0, 3, 2, 1).reshape(
+        M, 24)
+    out[:, 24:28] = link.astype(np.int32).view(np.float32)
+    out[:, 28:32] = reach
+    return out, int(wide_id[root])
+
+
+def wide_tree(bvh, num_real: int):
+    """A models/bvh_build.BVHData → (its [M, 32] f32 four-wide rows, their
+    root link, the walk's stack): ``node_rows`` collapsed by
+    ``wide_rows``, the stack ``wide_stack(bvh.depth)``."""
+    rows, root = wide_rows(*node_rows(bvh, num_real))
+    return rows, root, wide_stack(bvh.depth)
+
+
 # ------------------------------------------------------------ plain version
+
+def _children(rows: torch.Tensor):
+    """The child boxes [n, k, 6] (min xyz, max xyz), links [n, k] (int64)
+    and reaches [n, k] of n binary (k = 2) or four-wide (k = 4) rows."""
+    if rows.shape[1] == 16:
+        return (rows[:, 0:12].reshape(-1, 2, 6),
+                rows[:, 12:14].contiguous().view(torch.int32).long(),
+                rows[:, 14:16])
+    b = rows[:, 0:24].reshape(-1, 3, 2, WIDE)      # [n, axis, lo/hi, slot]
+    return (torch.cat([b[:, :, 0], b[:, :, 1]], dim=1).transpose(1, 2),
+            rows[:, 24:28].contiguous().view(torch.int32).long(),
+            rows[:, 28:32])
+
+
+def _child_tests(o3, iv3, o_inf, rows, best_t, enter=False):
+    """Every child box of each ray's node (``rows`` [m, 16 or 32], the
+    rays' o3, iv3, o_inf and best t [m]) slab-tested as the kernel tests
+    it, widened by (|o|_inf + reach) 2^-18: (pass [m, k], entry t [m, k]
+    with ``enter``, links [m, k])."""
+    boxes, links, reach = _children(rows)
+    out = _slab(tuple(x[:, None] for x in o3),
+                tuple(x[:, None] for x in iv3), boxes, best_t[:, None], 3,
+                (o_inf[:, None] + reach) * TREE_ROUNDING, enter)
+    return (*out, links) if enter else (out, links)
+
 
 def bvh_walk_reference(o: V3, d: V3, table12: torch.Tensor, tree: BVHTree,
                        active: torch.Tensor):
     """The plain version of the kernel: the same walk, vectorised over the
-    rays that still walk, a step at a time (an internal node's two box
-    tests and push, or a leaf's triangles, then the pops), with the
-    kernel's operations.  Returns (t, id, u, v): (T_MAX, -1, 0, 0) on a
+    rays that still walk, a step at a time (an internal node's box tests
+    and pushes, or a leaf's triangles, then the pops), with the kernel's
+    operations, over binary or four-wide rows.  The children that pass
+    are ranked by (entry t, slot); the first is walked and the others
+    pushed from the last.  Returns (t, id, u, v): (T_MAX, -1, 0, 0) on a
     miss and for inactive rays; at equal t the lowest id."""
     R = o.x.shape[0]
     dev = o.x.device
@@ -135,7 +255,6 @@ def bvh_walk_reference(o: V3, d: V3, table12: torch.Tensor, tree: BVHTree,
         return bt, bid, bu, bv
     iv3 = tuple(_inv(x) for x in d)
     o_inf = torch.maximum(torch.maximum(o.x.abs(), o.y.abs()), o.z.abs())
-    links = tree.nodes[:, 12:14].contiguous().view(torch.int32).long()
     lane = torch.arange(tree.leaf, device=dev)
     no_row = table12.shape[0]
 
@@ -152,30 +271,32 @@ def bvh_walk_reference(o: V3, d: V3, table12: torch.Tensor, tree: BVHTree,
         li = torch.nonzero(~internal).squeeze(1)
         pop = [li]
         if ii.numel():
-            r, lk = ray[ii], link[ii]
-            rows = tree.nodes[lk]
-            o3 = tuple(x[r] for x in o)
-            ri = tuple(x[r] for x in iv3)
-            b = bt[r]
-            hl, tl = _slab(o3, ri, rows[:, 0:6], b, 3,
-                           (o_inf[r] + rows[:, 14]) * TREE_ROUNDING, True)
-            hr, tr = _slab(o3, ri, rows[:, 6:12], b, 3,
-                           (o_inf[r] + rows[:, 15]) * TREE_ROUNDING, True)
-            l0, l1 = links[lk, 0], links[lk, 1]
-            both = hl & hr
-            left_first = tl <= tr
-            pb = ii[both]
-            if pb.numel():
-                if int(sp[pb].max()) >= tree.stack_depth:
+            r = ray[ii]
+            hit, te, links = _child_tests(
+                tuple(x[r] for x in o), tuple(x[r] for x in iv3), o_inf[r],
+                tree.nodes[link[ii]], bt[r], enter=True)
+            k = hit.shape[1]
+            key = torch.where(hit, te, float("inf"))
+            slot = torch.arange(k, device=dev)
+            ahead = ((key[:, :, None] < key[:, None, :])
+                     | ((key[:, :, None] == key[:, None, :])
+                        & (slot[:, None] < slot[None, :])))
+            order = torch.empty_like(links).scatter_(
+                1, ahead.sum(dim=1), slot.expand_as(links).clone())
+            n_pass = hit.sum(dim=1)
+            for j in range(k - 1, 0, -1):
+                pj = ii[n_pass > j]
+                if not pj.numel():
+                    continue
+                if int(sp[pj].max()) >= tree.stack_depth:
                     raise ValueError("the walk outgrew its stack: the tree "
                                      "is deeper than its stack_depth")
-                stack[pb, sp[pb]] = torch.where(left_first, l1, l0)[both]
-                stack_te[pb, sp[pb]] = torch.where(left_first, tr, tl)[both]
-                sp[pb] += 1
-            go = hl | hr
-            nxt = torch.where(both, torch.where(left_first, l0, l1),
-                              torch.where(hl, l0, l1))
-            link[ii[go]] = nxt[go]
+                cj = order[n_pass > j, j:j + 1]
+                stack[pj, sp[pj]] = links[n_pass > j].gather(1, cj)[:, 0]
+                stack_te[pj, sp[pj]] = te[n_pass > j].gather(1, cj)[:, 0]
+                sp[pj] += 1
+            go = n_pass > 0
+            link[ii[go]] = links[go].gather(1, order[go, :1])[:, 0]
             pop.append(ii[~go])
         if li.numel():
             r = ray[li]
@@ -216,16 +337,19 @@ def bvh_walk_reference(o: V3, d: V3, table12: torch.Tensor, tree: BVHTree,
 def visit_counts(o: V3, d: V3, tree: BVHTree, best_t: torch.Tensor,
                  active: torch.Tensor) -> dict:
     """The work of a walk that proves each ray's closest hit ``best_t``
-    (ops/paged_tri.tree_work's convention): the internal nodes whose two
-    child boxes it must test (the root, and every node reached from it
-    through boxes that pass against ``best_t``) and the triangles of every
-    leaf so reached.  No walk of the tree that proves ``best_t`` does
-    less.  Returns Python ints: ``rays``, ``node_tests`` (two box tests
-    each), ``tri_tests``, and the distinct rows those read, ``nodes_read``
-    and ``tris_read``."""
+    (ops/paged_tri.tree_work's convention), over binary or four-wide rows:
+    the internal nodes whose child boxes it must test (the root, and every
+    node reached from it through boxes that pass against ``best_t``) and
+    the triangles of every leaf so reached.  Over binary rows no walk of
+    the tree that proves ``best_t`` does less.  Over four-wide rows it is
+    the wide walk's own work, four box tests a node step, absent slots and
+    the children of a binary box that fails included: the binary walk over
+    the same boxes does less, so a bound takes the binary rows' count.
+    Returns Python ints: ``rays``, ``node_tests`` (a node's two or four box
+    tests each), ``tri_tests``, and the distinct rows those read,
+    ``nodes_read`` and ``tris_read``."""
     iv3 = tuple(_inv(x) for x in d)
     o_inf = torch.maximum(torch.maximum(o.x.abs(), o.y.abs()), o.z.abs())
-    links = tree.nodes[:, 12:14].contiguous().view(torch.int32).long()
     ray = torch.nonzero(active).squeeze(1)
     work = dict(rays=ray.numel(), node_tests=0, tri_tests=0)
     seen = torch.zeros(tree.nodes.shape[0], dtype=torch.bool,
@@ -240,16 +364,11 @@ def visit_counts(o: V3, d: V3, tree: BVHTree, best_t: torch.Tensor,
         r, lk = ray[internal], link[internal]
         work["node_tests"] += r.numel()
         seen[lk] = True
-        rows = tree.nodes[lk]
-        o3 = tuple(x[r] for x in o)
-        ri = tuple(x[r] for x in iv3)
-        b = best_t[r]
-        hl = _slab(o3, ri, rows[:, 0:6], b, 3,
-                   (o_inf[r] + rows[:, 14]) * TREE_ROUNDING)
-        hr = _slab(o3, ri, rows[:, 6:12], b, 3,
-                   (o_inf[r] + rows[:, 15]) * TREE_ROUNDING)
-        ray = torch.cat([r[hl], r[hr]])
-        link = torch.cat([links[lk, 0][hl], links[lk, 1][hr]])
+        hit, links = _child_tests(tuple(x[r] for x in o),
+                                  tuple(x[r] for x in iv3), o_inf[r],
+                                  tree.nodes[lk], best_t[r])
+        ray = r[:, None].expand_as(hit)[hit]
+        link = links[hit]
     reached = torch.unique(torch.cat(leaves)) if leaves else link
     work["nodes_read"] = int(seen.sum())
     work["tris_read"] = int((-(reached + 1) & 31).sum())
@@ -262,10 +381,10 @@ def check_tree(tree: BVHTree, table12: torch.Tensor, device) -> None:
     """The tree against its table, the kernel's stack and leaf links."""
     nodes = tree.nodes
     if (nodes.dtype != torch.float32 or nodes.dim() != 2
-            or nodes.shape[1] != 16 or nodes.shape[0] < 1
+            or nodes.shape[1] not in (16, WIDE_COLS) or nodes.shape[0] < 1
             or nodes.device != device or not nodes.is_contiguous()):
         raise ValueError("tree.nodes must be a contiguous float32 [N, 16] "
-                         "tensor (N >= 1) on the rays' device")
+                         "or [N, 32] tensor (N >= 1) on the rays' device")
     if (table12.dtype != torch.float32 or table12.dim() != 2
             or table12.shape[1] != 12 or table12.device != device
             or not table12.is_contiguous()):
@@ -290,7 +409,8 @@ def intersect_tris_bvh(o: V3, d: V3, table12: torch.Tensor, tree: BVHTree,
     """Closest hit of rays o + t d against the soup of the [T8, 12] table
     (ops/megakernel.tri_table12, in the tree's order) through ``tree``; the
     lowest id on ties; inactive rays and misses give (T_MAX, -1, 0, 0).
-    A soup with no triangle launches nothing."""
+    On the CPU the plain walk takes binary or four-wide rows, the kernel
+    four-wide rows only.  A soup with no triangle launches nothing."""
     global LAUNCHES
     _check_rays(o, d, active)
     device = o.x.device
@@ -300,6 +420,9 @@ def intersect_tris_bvh(o: V3, d: V3, table12: torch.Tensor, tree: BVHTree,
         return Hit(*bvh_walk_reference(o, d, table12, tree, active))
     if device.type != "cuda":
         raise ValueError(f"no BVH walk for device {device}")
+    if tree.nodes.shape[1] != WIDE_COLS:
+        raise ValueError("the kernel walks four-wide rows: collapse the "
+                         "binary rows with wide_rows")
     if R >= 2 ** 31:
         raise ValueError(f"{R} rays: the kernel indexes rays in 32 bits")
     if table12.data_ptr() % 16 or tree.nodes.data_ptr() % 16:

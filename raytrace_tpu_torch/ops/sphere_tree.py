@@ -25,7 +25,11 @@ node's widened box holds the widened box of every sphere below it.  A box
 holding no sphere is the point (_BIGF, _BIGF, _BIGF) with no margin,
 which never passes.  The top ``SphereTree.staged`` node rows are staged in
 shared memory (``stage_nodes``); the rest, the sphere rows and the ids
-are read through the read-only cache.
+are read through the read-only cache.  ``build_box_nodes`` builds the
+node rows from any slots' boxes and margin terms: ``build_sphere_tree``'s
+from world spheres, and ops/sphere_obj.build_object_tree's from the world
+boxes of ellipsoids (the object-space sweep H2), whose tree is a
+``SphereTree`` with 64-byte sphere rows.
 
 ``sphere_tree_sweep_reference`` is the kernel's sweep in plain PyTorch (the
 prefix, then the walk), bit for bit with the dense sweep
@@ -113,26 +117,82 @@ def stage_nodes(n_nodes: int, stage_bytes: int = STAGE_BYTES) -> int:
     return (1 << ((fit + 1).bit_length() - 1)) - 1
 
 
-def _leaf_bounds(rows: torch.Tensor, n: int, K: int, leaf: int):
-    """[K, 3] min and max of c -/+ |r| over each leaf's valid rows (slots
-    below ``n`` with k < 1e37), each widened by 1e-5 + 1e-5 max(|min|,
-    |max|) as ops/megakernel.sphere_cluster_boxes widens a cluster's; a
-    leaf without one gets (+_BIG, -_BIG).  Also [K] its reach, the most
-    |c| + |r|."""
-    grid = torch.zeros((K * leaf, 8), dtype=torch.float32, device=rows.device)
-    grid[:, 4] = _BIGF
-    grid[:n] = rows[:n]
-    g = grid.reshape(K, leaf, 8)
-    c, r = g[..., 0:3], g[..., 3:4].abs()
-    valid = g[..., 4:5] < 1e37
-    mn = torch.where(valid, c - r, _BIG).amin(dim=1)
-    mx = torch.where(valid, c + r, -_BIG).amax(dim=1)
+def _leaf_boxes(lo: torch.Tensor, hi: torch.Tensor, valid: torch.Tensor,
+                K: int, leaf: int):
+    """[K, 3] min of ``lo`` and max of ``hi`` ([n, 3] each slot's box) over
+    each leaf's valid slots, each widened by 1e-5 + 1e-5 max(|min|, |max|)
+    as ops/megakernel.sphere_cluster_boxes widens a cluster's; a leaf
+    without one gets (+_BIG, -_BIG)."""
+    n = lo.shape[0]
+    ok = torch.zeros(K * leaf, dtype=torch.bool, device=lo.device)
+    ok[:n] = valid
+    ok = ok.reshape(K, leaf, 1)
+    grid = lo.new_zeros((2, K * leaf, 3))
+    grid[0, :n], grid[1, :n] = lo, hi
+    mn = torch.where(ok, grid[0].reshape(K, leaf, 3), _BIG).amin(dim=1)
+    mx = torch.where(ok, grid[1].reshape(K, leaf, 3), -_BIG).amax(dim=1)
     pad = 1e-5 + 1e-5 * torch.maximum(mn.abs(), mx.abs())
-    reach = torch.where(valid[..., 0], torch.linalg.vector_norm(c, dim=-1)
-                        + r[..., 0], 0.0).amax(dim=1)
-    anyv = valid[..., 0].any(dim=1, keepdim=True)
+    anyv = ok[..., 0].any(dim=1, keepdim=True)
     return (torch.where(anyv, mn - pad, _BIG),
-            torch.where(anyv, mx + pad, -_BIG), reach)
+            torch.where(anyv, mx + pad, -_BIG))
+
+
+def build_box_nodes(boxes, valid: torch.Tensor, reach: torch.Tensor,
+                    coef: torch.Tensor, leaf: int):
+    """The internal node rows ([K - 1, 16]) and depth (log2 K) of the
+    implicit tree over n slots in leaves of ``leaf``, built level by level
+    on the slots' device from each slot's boxes: ``boxes`` a list of (lo,
+    hi) pairs of [n, 3] (a moving sphere's box at each end of the
+    shutter; each leaf's union of every pair, each pair's union widened
+    by ``_leaf_boxes``), ``valid`` [n] the slots a box holds, ``reach`` and
+    ``coef`` [n] the terms of each slot's rounding margin, (|o| + reach)^2
+    coef.  A leaf's reach and coef are their maxima over its valid slots
+    (0 where it has none); an internal node's box is the exact union of
+    its children's, its reach and coef their maxima.  A box holding no
+    slot is the point (_BIGF, _BIGF, _BIGF) with no margin, which never
+    passes."""
+    n = valid.shape[0]
+    n_leaves = -(-n // leaf)
+    K = 1 << (n_leaves - 1).bit_length()
+    mn = mx = None
+    for lo, hi in boxes:
+        a, b = _leaf_boxes(lo, hi, valid, K, leaf)
+        mn = a if mn is None else torch.minimum(mn, a)
+        mx = b if mx is None else torch.maximum(mx, b)
+
+    def leaf_max(x):
+        g = x.new_zeros(K * leaf)
+        g[:n] = torch.where(valid, x, 0.0)
+        return g.reshape(K, leaf).amax(dim=1)
+
+    levels = [torch.cat([mn, mx, leaf_max(reach)[:, None],
+                         leaf_max(coef)[:, None]], dim=1)]
+    while levels[-1].shape[0] > 1:
+        pair = levels[-1].reshape(-1, 2, 8)
+        levels.append(torch.cat([pair[:, :, 0:3].amin(dim=1),
+                                 pair[:, :, 3:8].amax(dim=1)], dim=1))
+    heap = torch.cat(levels[::-1])                   # [2K - 1, 8] node n's
+    empty = (heap[:, 0:3] > heap[:, 3:6]).any(dim=1, keepdim=True)
+    heap = torch.where(empty, torch.tensor([_BIGF] * 6 + [0.0, 0.0],
+                                           device=heap.device), heap)
+    nodes = mn.new_zeros((K - 1, 16))
+    nodes[:, 0:12] = heap[1:, 0:6].reshape(K - 1, 12)
+    nodes[:, 12:14] = heap[1:, 6].reshape(K - 1, 2)
+    nodes[:, 14:16] = heap[1:, 7].reshape(K - 1, 2)
+    return nodes, len(levels) - 1
+
+
+def _sphere_boxes(rows: torch.Tensor):
+    """Each [.., 8] table row's box (c -/+ |r|), its validity (k < 1e37),
+    its reach (|c| + |r|) and its rounding coefficient (SPHERE_ROUNDING /
+    r where r > 0, else 0)."""
+    c, r = rows[:, 0:3], rows[:, 3:4].abs()
+    valid = rows[:, 4] < 1e37
+    coef = torch.where(valid & (rows[:, 3] > 0.0),
+                       SPHERE_ROUNDING / torch.where(rows[:, 3] > 0.0,
+                                                     rows[:, 3], 1.0), 0.0)
+    return (c - r, c + r, valid,
+            torch.linalg.vector_norm(c, dim=-1) + r[:, 0], coef)
 
 
 def build_sphere_tree(table8: torch.Tensor, n_prefix: int, num_spheres: int,
@@ -141,13 +201,13 @@ def build_sphere_tree(table8: torch.Tensor, n_prefix: int, num_spheres: int,
                       stage_bytes: int = STAGE_BYTES) -> SphereTree:
     """The tree over the spheres ``n_prefix`` .. ``num_spheres`` - 1 of the
     [S8, 8] table, in the order ``ids`` ([num_spheres - n_prefix] int32 on
-    the table's device, ``sphere_order``), built level by level on the
-    table's device.  A leaf's box is the union of its spheres' boxes;
-    with ``dtab8`` (the spheres' linear motion, the table at shutter time
-    0) also of their boxes at c0 + dc, which holds each sphere at every
-    time in [0, 1], the radii fixed.  An internal node's box is the exact
-    union of its children's, its reach and coefficient their maxima.
-    ``leaf`` spheres a leaf, ``sphere_leaf``'s when not given."""
+    the table's device, ``sphere_order``), built on the table's device by
+    ``build_box_nodes``.  A sphere's box is c -/+ |r|; with ``dtab8`` (the
+    spheres' linear motion, the table at shutter time 0) also its box at
+    c0 + dc, so a leaf's box holds each sphere at every time in [0, 1],
+    the radii fixed.  Its reach is |c| + |r| (the larger of the two ends),
+    its coefficient SPHERE_ROUNDING over its radius.  ``leaf`` spheres a
+    leaf, ``sphere_leaf``'s when not given."""
     n = num_spheres - n_prefix
     if leaf is None:
         leaf = sphere_leaf(n)
@@ -160,39 +220,19 @@ def build_sphere_tree(table8: torch.Tensor, n_prefix: int, num_spheres: int,
     take = ids.long()
     rows = table8[take].contiguous()
     drows = None if dtab8 is None else dtab8[take].contiguous()
-    n_leaves = -(-n // leaf)
-    K = 1 << (n_leaves - 1).bit_length()
-    mn, mx, reach = _leaf_bounds(rows, n, K, leaf)
+    lo, hi, valid, reach, coef = _sphere_boxes(rows)
+    boxes = [(lo, hi)]
     if drows is not None:
         moved = rows.clone()
         moved[:, 0:3] = rows[:, 0:3] + drows[:, 0:3]
-        mn1, mx1, reach1 = _leaf_bounds(moved, n, K, leaf)
-        mn, mx = torch.minimum(mn, mn1), torch.maximum(mx, mx1)
+        lo1, hi1, _, reach1, _ = _sphere_boxes(moved)
+        boxes.append((lo1, hi1))
         reach = torch.maximum(reach, reach1)
-    grid = rows.new_zeros((K * leaf, 8))
-    grid[:, 4] = _BIGF
-    grid[:n] = rows
-    g = grid.reshape(K, leaf, 8)
-    radius = torch.where((g[..., 4] < 1e37) & (g[..., 3] > 0.0), g[..., 3],
-                         _BIGF).amin(dim=1)
-    coef = torch.where(radius < _BIGF, SPHERE_ROUNDING / radius, 0.0)
-    levels = [torch.cat([mn, mx, reach[:, None], coef[:, None]], dim=1)]
-    while levels[-1].shape[0] > 1:
-        pair = levels[-1].reshape(-1, 2, 8)
-        levels.append(torch.cat([pair[:, :, 0:3].amin(dim=1),
-                                 pair[:, :, 3:8].amax(dim=1)], dim=1))
-    heap = torch.cat(levels[::-1])                   # [2K - 1, 8] node n's
-    empty = (heap[:, 0:3] > heap[:, 3:6]).any(dim=1, keepdim=True)
-    heap = torch.where(empty, torch.tensor([_BIGF] * 6 + [0.0, 0.0],
-                                           device=heap.device), heap)
-    nodes = rows.new_zeros((K - 1, 16))
-    nodes[:, 0:12] = heap[1:, 0:6].reshape(K - 1, 12)
-    nodes[:, 12:14] = heap[1:, 6].reshape(K - 1, 2)
-    nodes[:, 14:16] = heap[1:, 7].reshape(K - 1, 2)
+    nodes, depth = build_box_nodes(boxes, valid, reach, coef, leaf)
     return SphereTree(rows=rows, drows=drows, nodes=nodes, ids=ids,
                       n_prefix=int(n_prefix), num_spheres=int(n),
-                      leaf=int(leaf), depth=len(levels) - 1,
-                      staged=stage_nodes(K - 1, stage_bytes))
+                      leaf=int(leaf), depth=depth,
+                      staged=stage_nodes(nodes.shape[0], stage_bytes))
 
 
 def check_tree(tree: SphereTree, table8: torch.Tensor, n_prefix: int,
@@ -224,7 +264,7 @@ def check_tree(tree: SphereTree, table8: torch.Tensor, n_prefix: int,
     n_nodes = (1 << tree.depth) - 1
     if not 0 <= tree.staged <= n_nodes:
         raise ValueError(f"{tree.staged} staged node rows of {n_nodes}")
-    tables = [("rows", tree.rows, (n, 8), torch.float32),
+    tables = [("rows", tree.rows, (n, table8.shape[1]), torch.float32),
               ("nodes", tree.nodes, (n_nodes, 16), torch.float32),
               ("ids", tree.ids, (n,), torch.int32)]
     if anim != (tree.drows is not None):

@@ -183,16 +183,44 @@ def object_sphere_table(w2o: torch.Tensor, centers: torch.Tensor,
     return out
 
 
+def object_hit_t(o3, d3, cols) -> torch.Tensor:
+    """t of the object-space test (raytrace_tpu/ops/spheres.py:40-101) of
+    rays (o3, d3: three tensors each) against spheres (``cols``: the 16
+    columns of ``object_sphere_table``'s rows, each broadcastable against
+    the rays): the ray moved by the sphere's world-to-object M, o' = M o +
+    t and d' = M d (each row summed left to right, as the JAX einsum), then
+    the quadratic against the object-space centre and radius, t1 before
+    t2, both in (T_MIN, T_MAX), r > 0 and a > 0; T_MAX on a miss.  The
+    operations of the kernel H2 (csrc/sphere_obj.cu obj_t), in its order."""
+    m = cols[:12]
+    cx, cy, cz, r = cols[12:16]
+    po = [m[4 * i] * o3[0] + m[4 * i + 1] * o3[1] + m[4 * i + 2] * o3[2]
+          + m[4 * i + 3] for i in range(3)]
+    pd = [m[4 * i] * d3[0] + m[4 * i + 1] * d3[1] + m[4 * i + 2] * d3[2]
+          for i in range(3)]
+    ocx, ocy, ocz = po[0] - cx, po[1] - cy, po[2] - cz
+    a = pd[0] * pd[0] + pd[1] * pd[1] + pd[2] * pd[2]
+    h = pd[0] * ocx + pd[1] * ocy + pd[2] * ocz
+    c2 = ocx * ocx + ocy * ocy + ocz * ocz - r * r
+    disc = h * h - a * c2
+    ok = (disc >= 0.0) & (r > 0.0) & (a > 0.0)
+    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    inv_a = 1.0 / torch.where(a == 0.0, 1.0, a)
+    t1 = (-h - sq) * inv_a
+    t2 = (-h + sq) * inv_a
+    t1_ok = ok & (t1 > T_MIN) & (t1 < T_MAX)
+    t2_ok = ok & (t2 > T_MIN) & (t2 < T_MAX)
+    return torch.where(t1_ok, t1, torch.where(t2_ok, t2, T_MAX))
+
+
 def intersect_spheres(o: V3, d: V3, table16: torch.Tensor) -> SphereHit:
     """Closest hit of rays (V3 of [R]) against spheres in object space
-    (raytrace_tpu/ops/spheres.py:40-101): per sphere the ray moved by its
-    world-to-object M, o' = M o + t and d' = M d (each row summed left to
-    right, as the JAX einsum), then the quadratic against the object-space
-    centre and radius, t1 before t2, both in (T_MIN, T_MAX), r > 0 and
-    a > 0.  table16 is ``object_sphere_table``'s.  Swept in chunks whose
-    [chunk, R] temporaries stay near 64 MiB; the first minimum wins within
-    a chunk and a strictly closer chunk replaces the best, so ties go to
-    the lowest sphere id.  Returns (T_MAX, -1) on a miss."""
+    (raytrace_tpu/ops/spheres.py:40-101): each ray against each row of the
+    [S8, 16] table (``object_sphere_table``) with ``object_hit_t``.  Swept
+    in chunks whose [chunk, R] temporaries stay near 64 MiB; the first
+    minimum wins within a chunk and a strictly closer chunk replaces the
+    best, so ties go to the lowest sphere id.  Returns (T_MAX, -1) on a
+    miss."""
     R = o.x.shape[0]
     S = table16.shape[0]
     chunk = max(8, min(128, _CHUNK_ELEMS // max(R, 1)) // 8 * 8)
@@ -200,25 +228,8 @@ def intersect_spheres(o: V3, d: V3, table16: torch.Tensor) -> SphereHit:
     best_id = torch.full((R,), -1, dtype=torch.int32, device=o.x.device)
     for s0 in range(0, S, chunk):
         tb = table16[s0:s0 + chunk]
-        m = [tb[:, i:i + 1] for i in range(12)]                 # [C, 1]
-        cx, cy, cz, r = (tb[:, i:i + 1] for i in range(12, 16))
-        po = [m[4 * i] * o.x + m[4 * i + 1] * o.y + m[4 * i + 2] * o.z
-              + m[4 * i + 3] for i in range(3)]                 # [C, R]
-        pd = [m[4 * i] * d.x + m[4 * i + 1] * d.y + m[4 * i + 2] * d.z
-              for i in range(3)]
-        ocx, ocy, ocz = po[0] - cx, po[1] - cy, po[2] - cz
-        a = pd[0] * pd[0] + pd[1] * pd[1] + pd[2] * pd[2]
-        h = pd[0] * ocx + pd[1] * ocy + pd[2] * ocz
-        c2 = ocx * ocx + ocy * ocy + ocz * ocz - r * r
-        disc = h * h - a * c2
-        ok = (disc >= 0.0) & (r > 0.0) & (a > 0.0)
-        sq = torch.sqrt(torch.clamp_min(disc, 0.0))
-        inv_a = 1.0 / torch.where(a == 0.0, 1.0, a)
-        t1 = (-h - sq) * inv_a
-        t2 = (-h + sq) * inv_a
-        t1_ok = ok & (t1 > T_MIN) & (t1 < T_MAX)
-        t2_ok = ok & (t2 > T_MIN) & (t2 < T_MAX)
-        t = torch.where(t1_ok, t1, torch.where(t2_ok, t2, T_MAX))
+        t = object_hit_t(tuple(o), tuple(d),
+                         [tb[:, i:i + 1] for i in range(16)])  # [C, R]
         tc, arg = torch.min(t, dim=0)
         better = tc < best_t
         best_t = torch.where(better, tc, best_t)

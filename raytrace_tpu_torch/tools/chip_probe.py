@@ -14,6 +14,7 @@
     python3 raytrace_tpu_torch/tools/chip_probe.py forms [TREE]
     python3 raytrace_tpu_torch/tools/chip_probe.py sass [TREE]
     python3 raytrace_tpu_torch/tools/chip_probe.py walks [TREE]
+    python3 raytrace_tpu_torch/tools/chip_probe.py hwalks [TREE]
 
 TREE is the root of a checkout whose ``raytrace_tpu_torch`` is measured
 (default: the checkout holding this file), so two trees can be compared on
@@ -171,6 +172,21 @@ not with ``-m``, so that the package comes from TREE.
   the walk starts to pay, ops/sphere_sweep.SPHERE_FLAT_MAX); ends with
   one JSON line.  TREE = the parent's ``git archive`` gives the before
   of the same card.
+- ``hwalks``: the wavefront's H1 and H2 as it launches them.  Builds both
+  and prints each kernel's registers and spills.  H1 on final-one-weekend
+  --mesh-geometry at 1200x675 with ``use_bvh=True``, on the SAH tree and
+  on the implicit tree (``build_bvh`` at the Renderer's leaf size): one
+  batch's bounces kept, H1 timed on each bounce's rays (CUDA-event
+  medians of 3; the primary rays' of 5), its work a ray on every bounce
+  (TREE's ``bvh.visit_counts`` against H1's own hits, on 2^17 of the
+  rays), H1 bit for bit with TREE's plain walk on 2^17 primary rays; with
+  four-wide nodes also the collapse's host seconds.  H2 on fow-ellipsoids
+  (1200x675): timed on each bounce's rays of one batch, bit for bit with
+  the dense plain sweep on every bounce; with the tree walk also the
+  dense entry point's times, the tree's build (CUDA events) and the
+  walk's work a ray on bounces 0 and 1.  The timing and the work are
+  smoke_lib's, as chip_smoke.py takes them.  One JSON line.  TREE = the
+  parent's ``git archive`` gives the before of the same card.
 """
 
 from __future__ import annotations
@@ -1582,6 +1598,151 @@ def walks() -> None:
     print(json.dumps(out))
 
 
+def _h1_tree(cs, dev, implicit):
+    """Renderer(cs, use_bvh=True) on the SAH tree, or with ``implicit``
+    on the implicit tree that a failed SAH build leaves; the collapse's
+    host seconds where TREE has four-wide nodes."""
+    from raytrace_tpu_torch.engine import Renderer
+    from raytrace_tpu_torch.engine import renderer as renderer_mod
+    from raytrace_tpu_torch.ops import bvh
+
+    secs = []
+    sah, wide = renderer_mod.build_bvh_sah, getattr(bvh, "wide_rows", None)
+    if wide is not None:
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = wide(*a, **k)
+            secs.append(time.perf_counter() - t0)
+            return out
+        bvh.wide_rows = timed
+    if implicit:
+        renderer_mod.build_bvh_sah = lambda *a, **k: None
+    try:
+        r = Renderer(cs, device=dev, use_bvh=True)
+    finally:
+        renderer_mod.build_bvh_sah = sah
+        if wide is not None:
+            bvh.wide_rows = wide
+    want = "implicit" if implicit else "sah"
+    if r.static.bvh_mode != want:
+        raise AssertionError(f"use_bvh=True built {r.static.bvh_mode}, "
+                             f"not {want}")
+    return r, secs
+
+
+def _h1_probe(r, lib, gen):
+    """H1 on batch 0 of Renderer ``r``: see ``hwalks``."""
+    import torch
+
+    from raytrace_tpu_torch.engine import wavefront
+    from raytrace_tpu_torch.ops import bvh
+
+    tree = wavefront.bvh_tree(r.static, r.scene)
+    geom, seen = lib.capture_bounces(r)
+    table12 = geom.tri_table12
+
+    def h1(o, d, a):
+        return bvh.intersect_tris_bvh(o, d, table12, tree, a)
+
+    so, sd, sa = lib.subset_rays(*seen[0], 1 << 17, gen)
+    hit = h1(so, sd, sa)
+    plain = bvh.bvh_walk_reference(so, sd, table12, tree, sa)
+    ms, bounce_ms = lib.bounce_ms(h1, seen)
+    return dict(rows=list(tree.nodes.shape), stack=tree.stack_depth,
+                launches=len(seen), rays=[x.x.shape[0] for x, _, _ in seen],
+                active=[int(x.sum()) for _, _, x in seen],
+                bitwise=all(torch.equal(x.view(torch.int32),
+                                        y.view(torch.int32))
+                            for x, y in zip(hit, plain)),
+                ms=ms, bounce_ms=bounce_ms, batch_ms=sum(bounce_ms),
+                work=[lib.bvh_work(*x, table12, (tree,), 1 << 17, gen)[0][0]
+                      for x in seen])
+
+
+def _h2_probe(r, lib):
+    """H2 on batch 0 of fow-ellipsoids' Renderer ``r``: see ``hwalks``."""
+    import torch
+
+    from raytrace_tpu_torch.ops import sphere_obj, spheres
+    from raytrace_tpu_torch.ops.intersect import T_MAX
+
+    geom, seen = lib.capture_bounces(r)
+    table = geom.sph_obj16
+    walk = getattr(geom, "sph_obj_tree", None)
+    kw = {} if not hasattr(sphere_obj, "intersect_spheres_object_dense") \
+        else {"tree": walk}
+
+    def h2(o, d, a):
+        return sphere_obj.intersect_spheres_object(o, d, table, a, **kw)
+
+    bitwise = True
+    for o, d, a in seen:
+        hit, plain = h2(o, d, a), spheres.intersect_spheres(o, d, table)
+        bitwise &= (torch.equal(hit.t, torch.where(a, plain.t, T_MAX))
+                    and torch.equal(hit.sph, torch.where(a, plain.sph, -1)))
+    ms, bounce_ms = lib.bounce_ms(h2, seen)
+    out = dict(launches=len(seen), bitwise=bitwise, ms=ms,
+               bounce_ms=bounce_ms, batch_ms=sum(bounce_ms))
+    if kw:
+        def dense(o, d, a):
+            return sphere_obj.intersect_spheres_object_dense(o, d, table, a)
+
+        out["dense_ms"], dense_bounce = lib.bounce_ms(dense, seen)
+        out["dense_batch_ms"] = sum(dense_bounce)
+        out["tree"] = None if walk is None else [
+            walk.n_prefix, walk.num_spheres, walk.leaf, walk.depth]
+        out["build_ms"] = _med(lambda: sphere_obj.build_object_tree(
+            table, r.static.num_spheres, walk.n_prefix, walk.ids,
+            static=r._obj_tree is not None), 5)
+        gen = torch.Generator().manual_seed(2)
+        out["work"] = [list(lib.sphere_obj_work(*x, h2, walk, 1 << 17,
+                                                gen)[0].values())
+                       for x in seen[:2]]
+    return out
+
+
+def hwalks() -> None:
+    """H1 and H2 as the wavefront launches them, on TREE: see the module
+    docstring."""
+    import tempfile
+
+    import torch
+
+    from raytrace_tpu_torch import cli
+    from raytrace_tpu_torch.engine import Renderer
+    from raytrace_tpu_torch.ops import _build, bvh, sphere_obj
+    from raytrace_tpu_torch.tools import ellipsoid_scenes
+
+    card = _card()
+    dev = torch.device("cuda:0")
+    lib = _change_smoke_lib()
+    out = {"card": card, "wide": hasattr(bvh, "wide_rows"),
+           "obj_walk": hasattr(sphere_obj, "intersect_spheres_object_dense")}
+    print(card, out, flush=True)
+    for mod, name, kernel in ((bvh, "bvh_walk", "bvh_walk_kernel"),
+                              (sphere_obj, "sphere_obj",
+                               "sphere_obj_kernel")):
+        mod.library()
+        log = _build.library_path(name).with_suffix(".log").read_text()
+        print(log.strip())
+        out[f"{name}_regs"] = lib.ptxas_entry(log, kernel)
+    gen = torch.Generator().manual_seed(1)
+    cs = cli.load_scene(cli.DEFAULT_SCENE, 1200, 675, analytic_spheres=False)
+    for implicit in (False, True):
+        t0 = time.perf_counter()
+        r, secs = _h1_tree(cs, dev, implicit)
+        key = "implicit" if implicit else "sah"
+        out[key] = dict(renderer_s=time.perf_counter() - t0,
+                        collapse_s=secs, **_h1_probe(r, lib, gen))
+        print("H1", key, out[key], flush=True)
+        del r
+    path = ellipsoid_scenes.write_fow_ellipsoids(tempfile.mkdtemp())
+    r = Renderer(cli.load_scene(path, 1200, 675), device=dev)
+    out["ellipsoids"] = _h2_probe(r, lib)
+    print("H2", out["ellipsoids"], flush=True)
+    print(json.dumps(out))
+
+
 def forms() -> None:
     from raytrace_tpu_torch.ops import _build, megakernel
     from raytrace_tpu_torch.tools import smoke_lib
@@ -1655,7 +1816,7 @@ def main(argv) -> int:
                                         "paged", "noise", "image",
                                         "spheres", "probes", "trig", "k1",
                                         "forms",
-                                        "sass", "walks"):
+                                        "sass", "walks", "hwalks"):
         print(__doc__, file=sys.stderr)
         return 2
     tree = str(Path(argv[2] if len(argv) > 2
@@ -1672,7 +1833,7 @@ def main(argv) -> int:
         {"anim": anim, "tris": tris, "lights": lights, "paged": paged,
          "noise": noise, "image": image, "spheres": spheres,
          "probes": probes, "trig": trig, "k1": k1, "forms": forms,
-         "sass": sass, "walks": walks}[argv[1]]()
+         "sass": sass, "walks": walks, "hwalks": hwalks}[argv[1]]()
     return 0
 
 

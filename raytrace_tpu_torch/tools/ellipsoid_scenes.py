@@ -21,6 +21,11 @@ A fixture small enough for the CPU:
   metal one also slides and grows along x over the shutter; with
   ``triangles`` a red quad wall of two triangles stands behind them.
 
+And rays that test the object-space walk's boxes (ops/sphere_obj.py):
+``surface_points`` samples every ellipsoid's surface from an
+object-space table, ``grazing_rays`` aims rays along its tangent planes,
+from near and from far.
+
 Run as a script to write ``fow-ellipsoids.json`` into a directory:
 
     python -m raytrace_tpu_torch.tools.ellipsoid_scenes OUT_DIR
@@ -31,6 +36,8 @@ from __future__ import annotations
 import json
 import os
 import sys
+
+import numpy as np
 
 from .stress_scenes import _FINAL_ONE_WEEKEND, big_spheres_doc
 
@@ -76,6 +83,53 @@ def ellipsoid_fixture_doc(moving: bool = False,
             "material": "wall"}})
         doc["instances"].append({"name": "wall"})
     return doc
+
+
+def _surface(tab: np.ndarray, u: np.ndarray):
+    """World points and unit normals of spheres (float64 rows ``tab`` of
+    an object-space table, [.., 16]) at the unit object-space directions
+    ``u`` ([.., 3]): sphere {x : |M x + t - c| = r} at y = c + r u is x =
+    A (y - t), A the inverse of M's 3 x 3 part, with normal M^T u."""
+    m = tab[..., 0:12].reshape(tab.shape[:-1] + (3, 4))
+    y = tab[..., 12:15] + tab[..., 15:16] * u
+    x = np.einsum("...ij,...j->...i", np.linalg.inv(m[..., 0:3]),
+                  y - m[..., 3])
+    n = np.einsum("...ji,...j->...i", m[..., 0:3], u)
+    return x, n / np.linalg.norm(n, axis=-1, keepdims=True)
+
+
+def _directions(g, shape):
+    u = g.standard_normal(shape + (3,))
+    return u / np.linalg.norm(u, axis=-1, keepdims=True)
+
+
+def surface_points(table16, num_spheres: int, per_sphere: int, seed: int):
+    """``per_sphere`` random points on each ellipsoid of an [S8, 16]
+    object-space table (ops/spheres.object_sphere_table, a tensor or an
+    array), in float64: ([num_spheres, per_sphere, 3] world points, the
+    same shape of unit world normals)."""
+    tab = np.asarray(table16, np.float64)[:num_spheres]
+    u = _directions(np.random.default_rng(seed), (len(tab), per_sphere))
+    return _surface(np.repeat(tab[:, None], per_sphere, axis=1), u)
+
+
+def grazing_rays(table16, num_spheres: int, n: int, seed: int,
+                 dist=(1.0, 20.0), jitter: float = 1e-5):
+    """n float32 rays (o [n, 3], d [n, 3]) along the tangent planes of the
+    ellipsoids of an object-space table: at a random surface point of a
+    random sphere each, d a random unit tangent there, o a distance in
+    ``dist`` back along it, moved off the surface along its normal by up
+    to ``jitter`` of that distance either way."""
+    g = np.random.default_rng(seed)
+    tab = np.asarray(table16, np.float64)[:num_spheres]
+    x, nrm = _surface(tab[g.integers(0, num_spheres, n)],
+                      _directions(g, (n,)))
+    v = _directions(g, (n,))
+    d = v - (v * nrm).sum(1, keepdims=True) * nrm
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    far = g.uniform(*dist, n)[:, None]
+    o = x - far * d + g.uniform(-jitter, jitter, (n, 1)) * far * nrm
+    return o.astype(np.float32), d.astype(np.float32)
 
 
 def write_fow_ellipsoids(out_dir: str) -> str:

@@ -10,7 +10,8 @@ Every function here needs a CUDA card but ``least_ms``, ``ptxas_forms``,
 ``ptxas_kernel``, ``ptxas_entry``, ``sweep_diagnostics``,
 ``library_call``, ``rows_to_v3``, ``warp_tail``, ``warp_regen``,
 ``measured_busy``, ``wave_lengths``, ``dense_trace_fn``,
-``sphere_walk_bound`` (on CPU tensors), ``sass_functions``, ``sass_path``,
+``sphere_walk_bound``, ``subset_rays``, ``bvh_work`` and
+``sphere_obj_work`` (on CPU tensors), ``sass_functions``, ``sass_path``,
 ``sass_per_element`` and ``issue_ms``; the port's modules are imported
 inside the functions that use them.
 """
@@ -100,13 +101,15 @@ K3_BEFORE = (48, 0)
 # csrc/tri_sweep.cu tri_sweep_kernel) as they compile with their trees,
 # and the BVH walk H1 and the object-space sphere sweep H2
 # (csrc/bvh_walk.cu, csrc/sphere_obj.cu): (registers, spill-store bytes),
-# pinned from their first build on the card (PERF.md §6); each source's
-# dense entry point is printed, not pinned.
+# pinned from their first build on the card (PERF.md §6); H1 and H2 as
+# redesigned, H1 over four-wide nodes (48/0 before), H2 the prefix then a
+# tree walk, its far rays swept by their warp (48/0 before); each
+# source's dense entry point is printed, not pinned.
 WALK_KERNELS = {"K1": ("sphere_sweep", "sphere_sweep_kernel"),
                 "K2": ("tri_sweep", "tri_sweep_kernel"),
                 "H1": ("bvh_walk", "bvh_walk_kernel"),
                 "H2": ("sphere_obj", "sphere_obj_kernel")}
-WALKS_BEFORE = {"K1": (56, 0), "K2": (48, 0), "H1": (48, 0), "H2": (48, 0)}
+WALKS_BEFORE = {"K1": (56, 0), "K2": (48, 0), "H1": (56, 0), "H2": (48, 56)}
 # The image forms: each form but the animated one, with and without noise.
 IMAGE_FORMS = sorted(IMAGE_FORMS_BEFORE)
 DENSE_FORMS = sorted(list(FORMS_BEFORE) + IMAGE_FORMS)
@@ -1017,6 +1020,60 @@ def capture_bounces(renderer, batch: int = 0):
                           geom, batch, 0, static.height, renderer.use_dof)
     torch.cuda.synchronize()
     return geom, seen
+
+
+def subset_rays(o, d, alive, n, gen):
+    """``n`` of the rays (o, d, alive), drawn with ``gen``."""
+    from raytrace_tpu_torch.ops.vec3 import V3
+
+    sel = torch.randperm(o.x.shape[0], generator=gen)[:n].to(o.x.device)
+    return (*(V3(*(x[sel].contiguous() for x in v)) for v in (o, d)),
+            alive[sel].contiguous())
+
+
+def bounce_ms(launch, seen, reps: int = 3, first_reps: int = 5):
+    """A kernel's median device ms (median_ms) of ``launch(o, d, alive)``
+    on the first bounce's rays (``first_reps`` reps) and on each bounce's
+    of ``seen`` (``reps`` each): (first ms, [ms a bounce])."""
+    o, d, a = seen[0]
+    return (median_ms(lambda: launch(o, d, a), first_reps),
+            [median_ms(lambda o=o, d=d, a=a: launch(o, d, a), reps)
+             for o, d, a in seen])
+
+
+def bvh_work(o, d, alive, table12, trees, n: int, gen):
+    """H1's work a ray on ``n`` of the rays (o, d, alive): ops/bvh.
+    visit_counts against H1's own closest hits over each of ``trees``
+    (its walk's first, which it launches on; binary or four-wide rows of
+    the same boxes), as ((node steps, triangle tests) a ray, the distinct
+    bytes those read: 64 a binary and 128 a wide node row, 48 a triangle
+    row) for each."""
+    from raytrace_tpu_torch.ops import bvh
+
+    so, sd, sa = subset_rays(o, d, alive, n, gen)
+    best_t = bvh.intersect_tris_bvh(so, sd, table12, trees[0], sa).t
+    out = []
+    for tree in trees:
+        w = bvh.visit_counts(so, sd, tree, best_t, sa)
+        rays = max(1, w["rays"])
+        out.append(((w["node_tests"] / rays, w["tri_tests"] / rays),
+                    w["nodes_read"] * 4 * tree.nodes.shape[1]
+                    + w["tris_read"] * 48))
+    return out
+
+
+def sphere_obj_work(o, d, alive, launch, tree, n: int, gen):
+    """H2's work on ``n`` of the rays (o, d, alive) through ``tree``
+    (ops/sphere_tree.sphere_tree_visit_counts against ``launch``'s own
+    closest hits): (prefix tests, node tests and sphere tests a ray as a
+    dict, the counts' dict with the distinct rows read)."""
+    from raytrace_tpu_torch.ops import sphere_tree
+
+    so, sd, sa = subset_rays(o, d, alive, n, gen)
+    w = sphere_tree.sphere_tree_visit_counts(so, sd, tree,
+                                             launch(so, sd, sa).t, sa)
+    return {key: w[key] / max(1, w["rays"]) for key in (
+        "prefix_tests", "node_tests", "sphere_tests")}, w
 
 
 def k3_bounce_ms(tables, bounces, reps: int = 3):

@@ -33,6 +33,10 @@ and big sphere fields.
 - ``cluster_form_checks(png)``: small docs on final-one-weekend's 488
   spheres (and its motion-blur twin), one for each form of the fused
   kernel's clustered sphere sweep.
+- ``deep_bvh(depth)``: a soup of one-triangle leaves under a binary BVH
+  of exactly ``depth`` levels, in ops/bvh.node_rows' layout, whose wide
+  walk (ops/bvh.wide_rows) from x = -10 along +x fills the stack that
+  ops/bvh.wide_stack gives that depth, but for its spare entry.
 
 Run as a script to write tri-stress-<n>.json and its OBJ into a directory,
 or with ``spheres`` the two sphere stress scenes:
@@ -47,6 +51,8 @@ import copy
 import json
 import os
 import sys
+
+import numpy as np
 
 from ..models.tessellate import generate_uv_sphere
 
@@ -336,6 +342,62 @@ def cluster_form_checks(png: str) -> dict:
     names += [f + "+image" for f in forms if f != "anim"]
     names += [f + "+noise+image" for f in forms if f != "anim"]
     return {name: form_doc(name) for name in names}
+
+
+def deep_bvh(depth: int):
+    """A binary BVH of exactly ``depth`` levels (even, at least 2) over a
+    soup of one triangle a leaf: (world triangles [T, 3, 3] f32, the
+    tree's [N, 16] f32 rows as ops/bvh.node_rows makes them, its root
+    link 0).  Its depth // 2 = K levels of wide nodes (ops/bvh.wide_rows)
+    each hold three leaves and the next wide node, or four leaves at the
+    last; every triangle spans y, z in [-2, 4] in a plane x = const, the
+    deeper the nearer to x = -10, so a ray from there along +x passes all
+    four child boxes at each wide node and enters the deeper subtree
+    first: it pushes the three leaves of each wide node, 3 K entries, one
+    fewer than ops/bvh.wide_stack(depth)."""
+    from ..ops.bvh import leaf_link
+
+    if depth < 2 or depth % 2:
+        raise ValueError(f"depth {depth}: an even number from 2")
+    K = depth // 2
+    xs = []
+    for k in range(K):
+        xs += [10.0 * (K - k) + j for j in (0.0, 1.0, 2.0)]
+    xs.append(5.0)                                 # the last wide level's 4th
+    tris = np.array([[[x, -2.0, -2.0], [x, 4.0, -2.0], [x, -2.0, 4.0]]
+                     for x in xs], np.float32)
+    boxes = np.concatenate([tris.min(axis=1), tris.max(axis=1)], axis=1)
+    rows = []
+
+    def node(children):
+        """A binary row over two (link, box) children: (its link, box)."""
+        row = np.zeros(16, np.float32)
+        for side, (link, box) in enumerate(children):
+            row[6 * side:6 * side + 6] = box
+            row[12 + side] = np.array([link], np.int32).view(np.float32)[0]
+            row[14 + side] = np.abs(box).max()
+        rows.append(row)
+        lo = np.minimum(children[0][1][:3], children[1][1][:3])
+        hi = np.maximum(children[0][1][3:], children[1][1][3:])
+        return len(rows) - 1, np.concatenate([lo, hi])
+
+    def leaf(i):
+        return leaf_link(i, 1), boxes[i]
+
+    def wide(k):
+        """The binary node at depth 2k over levels k .. K - 1, its rows
+        appended in depth-first order from the root (row 0)."""
+        at = len(rows)
+        rows.append(None)
+        a = node([leaf(3 * k), leaf(3 * k + 1)])
+        b = node([leaf(3 * k + 2), wide(k + 1) if k + 1 < K else leaf(3 * K)])
+        row_at = len(rows)
+        link, box = node([a, b])
+        rows[at] = rows.pop(row_at)
+        return at, box
+
+    wide(0)
+    return tris, np.stack(rows), 0
 
 
 def write_tri_stress(out_dir: str, k: int = 4) -> str:

@@ -33,7 +33,18 @@ spheres), final-one-weekend's four large spheres tessellated
   implicit tree that a failed native build leaves, with a warning;
 - a tree deeper than the walk's stack raises; a one-leaf tree and a soup
   with no triangle are walked; a resumed SAH render is byte-identical
-  with a one-shot render.
+  with a one-shot render;
+- the four-wide rows H1 walks (``wide_rows``), on both trees: each wide
+  child's box is the union of the boxes below it, a leaf's that of its
+  triangles' shutter bounds, bit for bit, the leaves cover the soup once,
+  the wide tree is (depth + 1) // 2 levels deep; the plain walk over them
+  bit for bit with the walk over the binary rows and with K2's dense
+  plain sweep, moving and static; its work fewer node steps than the
+  binary walk's; a wide tree too deep for the kernel's stack refused;
+  the Renderer takes a tree of depth 62, the binary walk's deepest, and
+  refuses 63; a tree of depth 62 whose walk fills the stack but for its
+  spare entry (stress_scenes.deep_bvh) walked bit for bit with the dense
+  sweep.
 """
 
 import dataclasses
@@ -370,7 +381,7 @@ def test_one_leaf_tree_and_no_triangles():
     r = Renderer(from_jax_compiled(_jcs("one-leaf")), device="cpu",
                  use_bvh=True)
     assert r.static.num_triangles == 5 and r.static.bvh_mode == "sah"
-    assert r.static.bvh_root < 0 and r.scene.bvh_child_boxes.shape == (1, 16)
+    assert r.static.bvh_root < 0 and r.scene.bvh_child_boxes.shape == (1, 32)
     img = r.render_all()
     dense = Renderer(r.compiled, device="cpu", use_bvh=False)
     assert img.tobytes() == dense.render_all().tobytes()
@@ -432,3 +443,154 @@ def test_visit_counts_bound_the_walk():
                            alive)
     assert far["node_tests"] > work["node_tests"]
     assert far["tri_tests"] > work["tri_tests"]
+
+
+# ---- the four-wide rows H1 walks -------------------------------------------
+
+def _wide(data, n):
+    rows, root, stack = bvh.wide_tree(data, n)
+    return rows, bvh.BVHTree(torch.tensor(rows), root, stack, data.leaf_size,
+                             n)
+
+
+@pytest.mark.parametrize("mode", ["sah", "implicit"])
+@pytest.mark.parametrize("name", ["fixture-moving", "tri-stress-k1",
+                                  "box-grid-moving"])
+def test_wide_rows_hold_their_binary_subtrees(name, mode):
+    soup, data, _, _ = _world_soup(name, mode)
+    n = soup.num_triangles
+    rows, tree = _wide(data, n)
+    mn, mx = bvh_build.world_triangle_bounds(soup)
+    box = rows[:, :24].reshape(-1, 3, 2, 4).transpose(0, 3, 2, 1).reshape(
+        -1, 4, 6)
+    links = rows[:, 24:28].view(np.int32)
+    empty = (box[..., :3] >= jbvh.BIG).all(axis=2)
+    covered = np.zeros(n, np.int64)
+    depth = np.zeros(len(rows), np.int64)
+    for w in range(len(rows)):
+        for k in range(bvh.WIDE):
+            link = links[w, k]
+            if link >= 0:
+                # A wide child: the union of its own children's boxes.
+                depth[link] = depth[w] + 1
+                real = box[link][~empty[link]]
+                want = (np.concatenate([real[:, :3].min(0), real[:, 3:].max(0)])
+                        if len(real) else None)
+            else:
+                enc = -(link + 1)
+                first, count = enc >> 5, enc & 31
+                covered[first:first + count] += 1
+                want = (np.concatenate([mn[first:first + count].min(0),
+                                        mx[first:first + count].max(0)])
+                        if count else None)
+            if want is None:
+                assert empty[w, k]
+            else:
+                assert box[w, k].tobytes() == want.astype(np.float32).tobytes()
+    assert (covered == 1).all()
+    assert tree.root == 0 and depth.max() + 1 <= (data.depth + 1) // 2
+    assert tree.stack_depth == bvh.wide_stack(data.depth) == (
+        3 * ((data.depth + 1) // 2) + 1)
+    assert np.array_equal(rows[:, 28:32], np.where(
+        empty, 0.0, np.abs(box).max(axis=2)))
+
+
+@pytest.mark.parametrize("mode", ["sah", "implicit"])
+@pytest.mark.parametrize("name", ["fixture-moving", "tri-stress-k1",
+                                  "box-grid-moving"])
+def test_wide_walk_is_the_binary_walk_and_the_dense_sweep(name, mode):
+    soup, data, table12, world_p = _world_soup(name, mode)
+    n = soup.num_triangles
+    o, d, alive = _rays(world_p[:n], 4096, 7)
+    alive = torch.tensor(alive)
+    rows, root = bvh.node_rows(data, n)
+    binary = bvh.BVHTree(torch.tensor(rows), root, data.depth + 2,
+                         data.leaf_size, n)
+    _, wide = _wide(data, n)
+    got = bvh.intersect_tris_bvh(_v3(o), _v3(d), table12, wide, alive)
+    walk = bvh.bvh_walk_reference(_v3(o), _v3(d), table12, binary, alive)
+    dense = tri_sweep.intersect_tris_dense(
+        _v3(o), _v3(d), tri_sweep.pack_tri_table(torch.tensor(world_p), n),
+        alive)
+    for a, b, c in zip(got, walk, dense):
+        assert a.numpy().tobytes() == b.numpy().tobytes()
+        assert a.numpy().tobytes() == c.numpy().tobytes()
+    assert (got.tri >= 0).sum() > 500
+    # The wide walk's work: about half the node steps, no fewer triangles.
+    wb = bvh.visit_counts(_v3(o), _v3(d), binary, got.t, alive)
+    ww = bvh.visit_counts(_v3(o), _v3(d), wide, got.t, alive)
+    assert wb["rays"] == ww["rays"] == int(alive.sum())
+    assert ww["node_tests"] < 0.8 * wb["node_tests"]
+    assert ww["tri_tests"] >= wb["tri_tests"] > 0
+    assert ww["tris_read"] == wb["tris_read"]
+    assert ww["nodes_read"] <= len(wide.nodes)
+
+
+def test_wide_tree_deeper_than_the_stack_is_refused(monkeypatch):
+    soup, data, table12, world_p = _world_soup("box-grid-moving", "sah")
+    n = soup.num_triangles
+    _, wide = _wide(data, n)
+    o, d, alive = _rays(world_p[:n], 256, 9)
+    with pytest.raises(ValueError, match="stack"):
+        bvh.intersect_tris_bvh(_v3(o), _v3(d), table12, wide._replace(
+            stack_depth=bvh.MAX_STACK + 1), torch.tensor(alive))
+    # A stack smaller than the walk needs is not cut short: it raises.
+    with pytest.raises(ValueError, match="stack"):
+        bvh.intersect_tris_bvh(_v3(o), _v3(d), table12,
+                               wide._replace(stack_depth=1),
+                               torch.ones(256, dtype=torch.bool))
+    # The Renderer sizes the wide walk's stack from the binary depth: the
+    # deepest tree it takes is 62 levels (3 * 31 + 1 = 94 entries), as the
+    # binary walk's 64 entries took (depth + 2).
+    assert bvh.wide_stack(62) == bvh.MAX_STACK < bvh.wide_stack(63)
+    r = Renderer(from_jax_compiled(_jcs("fixture")), device="cpu",
+                 use_bvh=True)
+    tree = wavefront.bvh_tree(r.static, r.scene)
+    assert tree.nodes.shape[1] == bvh.WIDE_COLS
+    assert tree.stack_depth == bvh.wide_stack(r.bvh.depth)
+    from raytrace_tpu_torch.engine import renderer
+    for depth in (62, 63):
+        deep = dataclasses.replace(r.bvh, depth=depth)
+        monkeypatch.setattr(renderer, "build_bvh_sah",
+                            lambda *a, deep=deep, **k: deep)
+        if depth == 62:
+            ok = Renderer(r.compiled, device="cpu", use_bvh=True)
+            assert wavefront.bvh_tree(ok.static, ok.scene).stack_depth == 94
+        else:
+            with pytest.raises(ValueError, match="stack"):
+                Renderer(r.compiled, device="cpu", use_bvh=True)
+
+
+def test_depth_62_tree_fills_the_stack_it_is_given():
+    """stress_scenes.deep_bvh(62): its wide walk from x = -10 along +x
+    pushes 93 entries, so it is walked with wide_stack(62) = MAX_STACK
+    entries and with 93, bit for bit with the binary walk and the dense
+    plain sweep, and refused with 92."""
+    tris, rows, root = stress_scenes.deep_bvh(62)
+    n = len(tris)
+    table16 = tri_sweep.pack_tri_table(torch.tensor(tris), n)
+    table12 = megakernel.tri_table12(table16)
+    wide, wide_root = bvh.wide_rows(rows, root)
+    assert wide.shape == (31, bvh.WIDE_COLS)
+    g = np.random.default_rng(47)
+    R = 512
+    o = np.concatenate([np.full((R, 1), -10.0), g.uniform(-1.5, 0.9, (R, 2))],
+                       1)
+    d = np.tile([[1.0, 0.0, 0.0]], (R, 1))
+    d[R // 2:] = g.standard_normal((R // 2, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = _v3(o.astype(np.float32)), _v3(d.astype(np.float32))
+    alive = torch.tensor(g.random(R) < 0.9)
+    dense = tri_sweep.intersect_tris_dense(o, d, table16, alive)
+    binary = bvh.BVHTree(torch.tensor(rows), root, 64, 1, n)
+    walks = [bvh.bvh_walk_reference(o, d, table12, binary, alive)]
+    for stack in (bvh.MAX_STACK, 93):
+        walks.append(bvh.intersect_tris_bvh(o, d, table12, bvh.BVHTree(
+            torch.tensor(wide), wide_root, stack, 1, n), alive))
+    for walk in walks:
+        for a, b in zip(walk, dense):
+            assert a.numpy().tobytes() == b.numpy().tobytes()
+    assert (dense.tri == n - 1).sum() >= 0.4 * R
+    with pytest.raises(ValueError, match="stack"):
+        bvh.intersect_tris_bvh(o, d, table12, bvh.BVHTree(
+            torch.tensor(wide), wide_root, 92, 1, n), alive)

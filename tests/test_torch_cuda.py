@@ -1600,30 +1600,39 @@ def test_probe_mains_run_on_the_card(dev, capsys, monkeypatch):
 
 # ---- the BVH walk H1 and the object-space sphere sweep H2 --------------------
 
-def _bvh_tree(soup_cs, data, dev):
+def _bvh_tree(soup_cs, data, dev, wide=True):
+    """The tree H1 walks (four-wide rows), or with ``wide`` False its
+    binary rows, which only the plain walk takes."""
     from raytrace_tpu_torch.ops import bvh
 
-    rows, root = bvh.node_rows(data, soup_cs.num_triangles)
-    return bvh.BVHTree(torch.tensor(rows, device=dev), root, data.depth + 2,
-                       data.leaf_size, soup_cs.num_triangles)
+    n = soup_cs.num_triangles
+    if wide:
+        rows, root, stack = bvh.wide_tree(data, n)
+    else:
+        (rows, root), stack = bvh.node_rows(data, n), data.depth + 2
+    return bvh.BVHTree(torch.tensor(rows, device=dev), root, stack,
+                       data.leaf_size, n)
 
 
-def _assert_h1_is_plain(o, d, table12, tree, alive, table16):
-    """H1, twice, its plain version and K2's dense entry point give the
-    same bits.  Returns H1's hit."""
+def _assert_h1_is_plain(o, d, table12, tree, alive, table16, binary=None):
+    """H1, twice, its plain version (and the plain walk of the ``binary``
+    rows, where given) and K2's dense entry point give the same bits.
+    Returns H1's hit."""
     from raytrace_tpu_torch.ops import bvh
 
     before = bvh.LAUNCHES
     hit = bvh.intersect_tris_bvh(o, d, table12, tree, alive)
     again = bvh.intersect_tris_bvh(o, d, table12, tree, alive)
     assert bvh.LAUNCHES == before + 2
-    plain = bvh.bvh_walk_reference(o, d, table12, tree, alive)
-    dense = tri_sweep.intersect_tris_dense(o, d, table16, alive)
+    refs = [bvh.bvh_walk_reference(o, d, table12, tree, alive),
+            tri_sweep.intersect_tris_dense(o, d, table16, alive)]
+    if binary is not None:
+        refs.append(bvh.bvh_walk_reference(o, d, table12, binary, alive))
     torch.cuda.synchronize()
-    for a, b, c, e in zip(hit, again, plain, dense):
+    for a, b, *c in zip(hit, again, *refs):
         assert a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
-        assert a.cpu().numpy().tobytes() == c.cpu().numpy().tobytes()
-        assert a.cpu().numpy().tobytes() == e.cpu().numpy().tobytes()
+        for e in c:
+            assert a.cpu().numpy().tobytes() == e.cpu().numpy().tobytes()
     return hit
 
 
@@ -1649,7 +1658,8 @@ def test_bvh_walk_matches_plain(dev, mode, moving):
     o, d, alive = _tri_rays(wp, 1 << 16, seed=8, dev=dev)
     hit = _assert_h1_is_plain(o, d, tris["tri_table12"],
                               _bvh_tree(soup, data, dev), alive,
-                              tris["tri_table16"])
+                              tris["tri_table16"],
+                              _bvh_tree(soup, data, dev, wide=False))
     assert (hit.tri >= 0).sum() > 1000
 
 
@@ -1660,7 +1670,7 @@ def test_bvh_walk_refuses_a_deep_tree_and_walks_one_leaf(dev):
     wp = torch.tensor(tri, device=dev)
     table16 = tri_sweep.pack_tri_table(wp, 5)
     table12 = megakernel.tri_table12(table16)
-    one_leaf = bvh.BVHTree(torch.zeros((1, 16), device=dev),
+    one_leaf = bvh.BVHTree(torch.zeros((1, bvh.WIDE_COLS), device=dev),
                            bvh.leaf_link(0, 5), 2, 8, 5)
     o, d, alive = _tri_rays(tri, 4096, seed=10, dev=dev)
     assert (_assert_h1_is_plain(o, d, table12, one_leaf, alive,
@@ -1668,6 +1678,64 @@ def test_bvh_walk_refuses_a_deep_tree_and_walks_one_leaf(dev):
     with pytest.raises(ValueError, match="stack"):
         bvh.intersect_tris_bvh(o, d, table12, one_leaf._replace(
             stack_depth=bvh.MAX_STACK + 1), alive)
+
+
+def test_bvh_walk_fills_its_stack_on_a_depth_62_tree(dev):
+    """stress_scenes.deep_bvh(62), the deepest tree the Renderer takes:
+    rays from x = -10 along +x push 93 of the kernel's 94 entries, and H1
+    is bit for bit with its plain walk and K2's dense entry point."""
+    from raytrace_tpu_torch.ops import bvh
+    from raytrace_tpu_torch.tools import stress_scenes
+
+    tris, rows, root = stress_scenes.deep_bvh(62)
+    n = len(tris)
+    table16 = tri_sweep.pack_tri_table(torch.tensor(tris, device=dev), n)
+    table12 = megakernel.tri_table12(table16)
+    wide, wide_root = bvh.wide_rows(rows, root)
+    tree = bvh.BVHTree(torch.tensor(wide, device=dev), wide_root,
+                       bvh.wide_stack(62), 1, n)
+    assert tree.stack_depth == bvh.MAX_STACK
+    g = np.random.default_rng(48)
+    R = 1 << 12
+    o = np.concatenate([np.full((R, 1), -10.0), g.uniform(-1.5, 0.9, (R, 2))],
+                       1)
+    d = np.tile([[1.0, 0.0, 0.0]], (R, 1))
+    d[R // 2:] = g.standard_normal((R // 2, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    alive = torch.tensor(g.random(R) < 0.9, device=dev)
+    hit = _assert_h1_is_plain(_v3_dev(o, dev), _v3_dev(d, dev), table12,
+                              tree, alive, table16)
+    assert (hit.tri == n - 1).sum() >= 0.4 * R
+
+
+@pytest.mark.parametrize("mode", ["sah", "implicit"])
+def test_bvh_walk_on_inactive_rays_and_binary_rows(dev, mode):
+    """H1 with every ray inactive (each a miss, bit for bit with the plain
+    walk); binary rows, which only the plain walk takes, refused on the
+    card."""
+    from raytrace_tpu_torch.engine import wavefront
+    from raytrace_tpu_torch.models import bvh_build
+    from raytrace_tpu_torch.ops import bvh
+    from raytrace_tpu_torch.tools import stress_scenes
+
+    cs = _doc_cs(stress_scenes.box_grid_doc(500, False), 32, 4, 2)
+    data = (bvh_build.build_bvh_sah(cs) if mode == "sah"
+            else bvh_build.build_bvh(cs, 4))
+    soup = bvh_build.permute_soup(cs, data.order)
+    r = Renderer(soup, device=dev, use_megakernel=False, use_bvh=False)
+    tris = wavefront.prepare_tris(r.static, r.scene, r.batch_times_dev[0])
+    n = soup.num_triangles
+    o, d, _ = _tri_rays(tris["world_p"][:n].cpu().numpy(), 1 << 12, seed=11,
+                        dev=dev)
+    none = torch.zeros(1 << 12, dtype=torch.bool, device=dev)
+    hit = _assert_h1_is_plain(o, d, tris["tri_table12"],
+                              _bvh_tree(soup, data, dev), none,
+                              tris["tri_table16"],
+                              _bvh_tree(soup, data, dev, wide=False))
+    assert (hit.tri == -1).all() and (hit.t == T_MAX).all()
+    with pytest.raises(ValueError, match="four-wide"):
+        bvh.intersect_tris_bvh(o, d, tris["tri_table12"],
+                               _bvh_tree(soup, data, dev, wide=False), none)
 
 
 def test_sah_renderer_on_card_matches_dense_and_cpu(dev):
@@ -1697,40 +1765,108 @@ def test_sah_renderer_on_card_matches_dense_and_cpu(dev):
         0.02 * cpu.stats.rays_traced)
 
 
+def _assert_h2_is_plain(ov, dv, table, tree, alive):
+    """H2's walk (over ``tree``, twice) and its launch without a tree, its
+    dense entry point, the plain walk and the dense plain sweep give the
+    same bits.  Returns the walk's hit."""
+    from raytrace_tpu_torch.ops import sphere_obj, spheres
+
+    before = sphere_obj.LAUNCHES
+    hit = sphere_obj.intersect_spheres_object(ov, dv, table, alive, tree)
+    again = sphere_obj.intersect_spheres_object(ov, dv, table, alive, tree)
+    flat = sphere_obj.intersect_spheres_object(ov, dv, table, alive)
+    assert sphere_obj.LAUNCHES == before + 3
+    dense = sphere_obj.intersect_spheres_object_dense(ov, dv, table, alive)
+    assert sphere_obj.LAUNCHES == before + 3
+    plain = spheres.intersect_spheres(ov, dv, table)
+    refs = [again, flat, dense, (torch.where(alive, plain.t, T_MAX),
+                                 torch.where(alive, plain.sph, -1))]
+    if tree is not None:
+        live = torch.nonzero(alive).squeeze(1)
+        walk = sphere_obj.object_tree_sweep_reference(
+            *(V3(*(x[live] for x in v)) for v in (ov, dv)), table, tree)
+        refs.append((torch.full_like(hit.t, T_MAX).index_put_(
+            (live,), walk[0]), torch.full_like(hit.sph, -1).index_put_(
+                (live,), walk[1])))
+    torch.cuda.synchronize()
+    for ref in refs:
+        for a, b in zip(hit, ref):
+            assert a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+    return hit
+
+
+def _v3_dev(a, dev):
+    return V3(*(torch.tensor(np.ascontiguousarray(a[:, i], np.float32),
+                             device=dev) for i in range(3)))
+
+
 @pytest.mark.parametrize("moving", [False, True])
 def test_object_sphere_sweep_matches_plain(dev, moving):
     """H2 on the ellipsoid fixture's table at a batch time (and fow-
-    ellipsoids' 488 spheres), on random rays with an alive mask: bit for
-    bit with its plain version, two launches byte-identical."""
-    from raytrace_tpu_torch.ops import sphere_obj, spheres
+    ellipsoids' 488 spheres, the Renderer's tree past its four large
+    ones), on random rays with an alive mask: the walk bit for bit with
+    its plain walk, its dense entry point and the dense plain sweep, two
+    launches byte-identical."""
     from raytrace_tpu_torch.tools import ellipsoid_scenes
 
     for doc in (ellipsoid_scenes.ellipsoid_fixture_doc(moving=moving),
                 ellipsoid_scenes.fow_ellipsoids_doc()):
         r = Renderer(_doc_cs(doc, 32, 4, 2), device=dev)
         assert r.path == "wavefront" and not r.static.sphere_world_mode
-        table = r._geometry(1).sph_obj16
+        geom = r._geometry(1)
+        table, tree = geom.sph_obj16, geom.sph_obj_tree
+        assert (tree is None) == (r.static.num_spheres == 4)
         g = np.random.default_rng(12)
         R = 1 << 16
         o = g.uniform([-12, -6, -12], [14, -0.2, 12], (R, 3))
         d = g.uniform([-5, -3, -3], [5, 0.5, 3], (R, 3)) - o
         d /= np.linalg.norm(d, axis=1, keepdims=True)
-        ov, dv = (V3(*(torch.tensor(np.ascontiguousarray(a[:, i], np.float32),
-                                    device=dev) for i in range(3)))
-                  for a in (o, d))
         alive = torch.tensor(g.random(R) < 0.8, device=dev)
-        before = sphere_obj.LAUNCHES
-        hit = sphere_obj.intersect_spheres_object(ov, dv, table, alive)
-        again = sphere_obj.intersect_spheres_object(ov, dv, table, alive)
-        assert sphere_obj.LAUNCHES == before + 2
-        plain = spheres.intersect_spheres(ov, dv, table)
-        torch.cuda.synchronize()
-        want = (torch.where(alive, plain.t, T_MAX),
-                torch.where(alive, plain.sph, -1))
-        for a, b, c in zip(hit, again, want):
-            assert a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
-            assert a.cpu().numpy().tobytes() == c.cpu().numpy().tobytes()
+        hit = _assert_h2_is_plain(_v3_dev(o, dev), _v3_dev(d, dev), table,
+                                  tree, alive)
         assert (hit.sph >= 0).sum() > 1000
+
+
+def test_object_sphere_walk_far_grazing_one_leaf_and_inactive(dev):
+    """fow-ellipsoids' table on the card: the Renderer's tree (built once)
+    on grazing rays from near and from 1,000-2,000 away, at the first
+    batch's time and at a later time whose rows differ from its in their
+    last bits (taken into the once-built tree as prepare_batch takes
+    them), a one-leaf tree, and every ray inactive, each bit for bit with
+    the plain versions."""
+    from raytrace_tpu_torch.engine import wavefront
+    from raytrace_tpu_torch.ops import sphere_obj
+    from raytrace_tpu_torch.tools import ellipsoid_scenes
+
+    r = Renderer(_doc_cs(ellipsoid_scenes.fow_ellipsoids_doc(), 32, 4, 2),
+                 device=dev)
+    geom = r._geometry(0)
+    first, n = geom.sph_obj16, r.static.num_spheres
+    assert torch.equal(geom.sph_obj_tree.nodes, r._obj_tree.nodes)
+    drifted = next(table for table in (
+        wavefront.object_table(r.scene, torch.tensor(
+            t, dtype=torch.float32, device=dev))
+        for t in np.random.default_rng(45).random(64))
+        if not torch.equal(table, first))
+    for k, table in enumerate((first, drifted)):
+        tree = r._obj_tree._replace(
+            rows=table[r._obj_tree.ids.long()].contiguous())
+        rays = [ellipsoid_scenes.grazing_rays(table.cpu(), n, 1 << 15,
+                                              43 + 2 * k),
+                ellipsoid_scenes.grazing_rays(table.cpu(), n, 1 << 15,
+                                              44 + 2 * k,
+                                              dist=(1000.0, 2000.0))]
+        one_leaf = sphere_obj.build_object_tree(table, n, 4, tree.ids,
+                                                leaf=n - 4)
+        assert one_leaf.depth == 0
+        for o, d in rays:
+            ov, dv = _v3_dev(o, dev), _v3_dev(d, dev)
+            on = torch.ones(len(o), dtype=torch.bool, device=dev)
+            assert (_assert_h2_is_plain(ov, dv, table, tree, on).sph
+                    >= 0).sum() > 1 << 14
+            _assert_h2_is_plain(ov, dv, table, one_leaf, on)
+            hit = _assert_h2_is_plain(ov, dv, table, tree, ~on)
+            assert (hit.sph == -1).all() and (hit.t == T_MAX).all()
 
 
 def test_ellipsoid_render_on_card_matches_cpu(dev):

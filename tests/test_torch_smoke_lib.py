@@ -1,9 +1,10 @@
 """What chip_smoke.py and tools/chip_probe.py share
 (raytrace_tpu_torch/tools/smoke_lib.py), on the CPU: the least time the
 card allows, the parse of nvcc's register report, K1's failure
-diagnostics, the PyTorch calls timed beside the P1 probes, and K4's idle
+diagnostics, the PyTorch calls timed beside the P1 probes, K4's idle
 lanes: the per-sample and regenerating warp models, the measuring
-build's counters and the wavefront's path lengths."""
+build's counters and the wavefront's path lengths, and H1's and H2's
+work counts."""
 
 import pytest
 import torch
@@ -425,3 +426,86 @@ def test_app_trace_reports_the_traced_batch(tmp_path):
     smoke_lib.app_trace(None, str(tmp_path), results, device="cpu")
     out, tb = results.get_nowait()
     assert out is None and "Traceback" in tb
+
+
+def test_subset_rays_take_the_same_rays_from_each_tensor():
+    from raytrace_tpu_torch.ops.vec3 import V3
+
+    R = 1000
+    o = V3(*(torch.arange(R, dtype=torch.float32) + k for k in (0, 1, 2)))
+    d = V3(*(-torch.arange(R, dtype=torch.float32) - k for k in (0, 1, 2)))
+    alive = torch.arange(R) % 3 == 0
+    so, sd, sa = smoke_lib.subset_rays(o, d, alive, 64,
+                                       torch.Generator().manual_seed(0))
+    assert so.x.shape == (64,) and len(set(so.x.tolist())) == 64
+    assert torch.equal(so.y, so.x + 1) and torch.equal(sd.z, -so.x - 2)
+    assert torch.equal(sa, so.x.long() % 3 == 0)
+    assert all(v.is_contiguous() for v in (*so, *sd, sa))
+
+
+def test_bvh_work_counts_the_binary_proof_beside_the_wide_walk():
+    """H1's work over the four-wide rows it walks and over the binary
+    rows of the same boxes: fewer wide node steps, but no fewer box tests
+    (four a wide step, two a binary one) and no fewer triangle tests, and
+    each row read counted at its width."""
+    import numpy as np
+
+    from raytrace_tpu_torch.engine import Renderer, wavefront
+    from raytrace_tpu_torch.models import bvh_build, compile_scene
+    from raytrace_tpu_torch.ops import bvh
+    from raytrace_tpu_torch.ops.vec3 import V3
+    from raytrace_tpu_torch.scene_file import SceneFile
+    from raytrace_tpu_torch.tools import stress_scenes
+
+    cs = compile_scene(SceneFile.from_json_dict(
+        stress_scenes.box_grid_doc(200, False)), width=16)
+    data = bvh_build.build_bvh_sah(cs)
+    soup = bvh_build.permute_soup(cs, data.order)
+    r = Renderer(soup, device="cpu", use_bvh=False)
+    tris = wavefront.prepare_tris(r.static, r.scene, r.batch_times_dev[0])
+    n = soup.num_triangles
+    wp = tris["world_p"][:n].numpy()
+    g = np.random.default_rng(3)
+    o = g.uniform(wp.min((0, 1)) - 1, wp.max((0, 1)) + 1, (2048, 3))
+    d = wp[g.integers(0, n, 2048)].mean(axis=1) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = (V3(*(torch.tensor(a[:, i], dtype=torch.float32)
+                 for i in range(3))) for a in (o, d))
+    alive = torch.ones(2048, dtype=torch.bool)
+    rows, root, stack = bvh.wide_tree(data, n)
+    wide = bvh.BVHTree(torch.tensor(rows), root, stack, data.leaf_size, n)
+    b_rows, b_root = bvh.node_rows(data, n)
+    binary = bvh.BVHTree(torch.tensor(b_rows), b_root, data.depth + 2,
+                         data.leaf_size, n)
+    (w_per, w_bytes), (b_per, b_bytes) = smoke_lib.bvh_work(
+        o, d, alive, tris["tri_table12"], (wide, binary), 1024,
+        torch.Generator().manual_seed(0))
+    assert 1 <= w_per[0] < b_per[0]
+    assert 4 * w_per[0] >= 2 * b_per[0] and w_per[1] >= b_per[1] > 0
+    assert w_bytes % 16 == 0 and b_bytes % 16 == 0 and w_bytes >= 128
+
+
+def test_sphere_obj_work_counts_the_walks_work():
+    """H2's work on fow-ellipsoids' primary rays through the Renderer's
+    tree: every ray tests the dense prefix, a few nodes and far fewer
+    spheres than the table holds."""
+    from raytrace_tpu_torch.engine import wavefront
+    from raytrace_tpu_torch.ops import sphere_obj
+    from raytrace_tpu_torch.tools import ellipsoid_scenes
+
+    r = _walk_renderer(ellipsoid_scenes.fow_ellipsoids_doc(), width=32)
+    geom = r._geometry(0)
+    table, tree = geom.sph_obj16, geom.sph_obj_tree
+    _, o, d = wavefront.primary_rays(r.static, r.camera, 0, 0,
+                                     r.static.height, r.use_dof, "cpu")
+    alive = torch.ones(o.x.shape[0], dtype=torch.bool)
+
+    def launch(o, d, a):
+        return sphere_obj.intersect_spheres_object(o, d, table, a, tree)
+
+    per, w = smoke_lib.sphere_obj_work(o, d, alive, launch, tree, 256,
+                                       torch.Generator().manual_seed(0))
+    assert w["rays"] == 256 and per["prefix_tests"] == tree.n_prefix == 4
+    assert per["node_tests"] >= 1
+    assert 0 < per["sphere_tests"] < tree.num_spheres / 8
+    assert 0 < w["spheres_read"] <= tree.num_spheres
