@@ -84,12 +84,25 @@ through a camera other than the scene's own; ``metrics_jsonl`` appends a
 set at any time, limits the bounces from the next step on; ``debug``
 scans the accumulation after every step (``DebugStats``) and raises
 ``DebugValidationError`` on a non-finite, negative or over-bright value.
+
+Each layer boundary is a span of the program's tracer
+(utils/profiling.py; ``profiling.spans()`` reads them): ``renderer.init``
+around the constructor, with one child for each of its phases
+(``world_tables``, ``upload``, ``bvh``, ``tris``, ``sphere_tree``,
+``object_tree``, ``anim_geom``); ``renderer.step`` around each step,
+tagged with the Renderer's serial number, its first batch, its batch
+count and its path, with children ``geometry`` (the bytes of the batch's
+sphere table copied to the card), ``launch``, ``wait`` (the host waiting
+on the card: for the fused kernel's ray count, and the step's final
+synchronize), ``accumulate`` and, with ``debug``, ``debug``; then
+``renderer.step.record``, which books the step span's seconds into
+``stats`` and ``metrics``; ``renderer.readback`` around ``image()``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time as _time
+import itertools
 from dataclasses import dataclass
 from typing import Optional
 
@@ -104,7 +117,7 @@ from ..ops import megakernel, paged_tri, sphere_obj, sphere_sweep, sphere_tree
 from ..ops.spheres import world_sphere_anim_tables, world_sphere_tables
 from ..tools.chacha import ChaCha20Rng
 from ..utils.image import write_png
-from ..utils.profiling import BatchMetrics
+from ..utils.profiling import BatchMetrics, span
 from .arrays import SceneStatic, pack_atlas, scene_static, upload_scene
 from .wavefront import (make_trace_fn, object_table, prepare_batch,
                         prepare_tris, render_tile, sphere_prefix, world_soup)
@@ -125,6 +138,9 @@ RAY_BUDGET = 1 << 22
 # raytrace_tpu/engine/renderer.py:341-350); above it, and above the fused
 # kernel's own ceiling, "auto" takes the paged sweep.
 DENSE_SWEEP_MAX_TRIANGLES = 8192
+
+# The serial numbers of the process's Renderers, which tag their spans.
+_SERIALS = itertools.count()
 
 
 def get_batch_ray_times(sample_batches: int,
@@ -263,14 +279,21 @@ class Renderer:
                  split: Optional[FrameSplit] = None,
                  camera_name: Optional[str] = None,
                  metrics_jsonl: Optional[str] = None, debug: bool = False):
-        self.device = torch.device(device)
         # Kept so update_image_size rebuilds with the same options.
-        self._ctor_kwargs = dict(device=self.device,
+        self._ctor_kwargs = dict(device=torch.device(device),
                                  use_megakernel=use_megakernel,
                                  use_bvh=use_bvh, leaf_size=leaf_size,
                                  shard=shard, split=split,
                                  camera_name=camera_name,
                                  metrics_jsonl=metrics_jsonl, debug=debug)
+        self.serial = next(_SERIALS)
+        with span("renderer.init", renderer=self.serial):
+            self._build(compiled, **self._ctor_kwargs)
+
+    def _build(self, compiled: CompiledScene, device, use_megakernel,
+               use_bvh, leaf_size, shard, split, camera_name, metrics_jsonl,
+               debug) -> None:
+        self.device = device
         self.shard = shard
         self.split = split = split or FrameSplit()
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -281,10 +304,14 @@ class Renderer:
         # World-space sphere tables per batch time (host f64 -> f32), or
         # None where a non-uniform scale makes an ellipsoid: the spheres
         # are then swept in object space.
-        self.sphere_tables = world_sphere_tables(compiled, self.batch_times)
+        with span("renderer.init.world_tables",
+                  tables=len(self.batch_times)):
+            self.sphere_tables = world_sphere_tables(compiled,
+                                                     self.batch_times)
         world_mode = self.sphere_tables is not None
-        static = dataclasses.replace(scene_static(compiled),
-                                     sphere_world_mode=world_mode)
+        with span("renderer.init.upload"):
+            static = dataclasses.replace(scene_static(compiled),
+                                         sphere_world_mode=world_mode)
         if shard is not None:
             # raytrace_tpu/parallel/multichip.py:374-375, :424-426.
             if use_bvh is True or use_bvh == "paged":
@@ -301,18 +328,22 @@ class Renderer:
         # put in its order.
         self.bvh = None
         if mode == "paged":
-            compiled = paged_soup(compiled)
+            with span("renderer.init.bvh"):
+                compiled = paged_soup(compiled)
         elif mode == "sah":
-            self.bvh = build_bvh_sah(compiled, leaf_max=8)
-            if self.bvh is None:
-                self.bvh = build_bvh(compiled, leaf_size=leaf_size)
-            if bvh_ops.wide_stack(self.bvh.depth) > bvh_ops.MAX_STACK:
-                raise ValueError(
-                    f"a BVH of depth {self.bvh.depth}: its walk's stack "
-                    f"would outgrow the kernel's {bvh_ops.MAX_STACK}")
-            compiled = permute_soup(compiled, self.bvh.order)
+            with span("renderer.init.bvh"):
+                self.bvh = build_bvh_sah(compiled, leaf_max=8)
+                if self.bvh is None:
+                    self.bvh = build_bvh(compiled, leaf_size=leaf_size)
+                if bvh_ops.wide_stack(self.bvh.depth) > bvh_ops.MAX_STACK:
+                    raise ValueError(
+                        f"a BVH of depth {self.bvh.depth}: its walk's stack "
+                        f"would outgrow the kernel's {bvh_ops.MAX_STACK}")
+                compiled = permute_soup(compiled, self.bvh.order)
             mode = self.bvh.mode
-        self.scene, static = upload_scene(compiled, self.device, self.bvh)
+        with span("renderer.init.upload"):
+            self.scene, static = upload_scene(compiled, self.device,
+                                              self.bvh)
         self.static = dataclasses.replace(static, sphere_world_mode=world_mode,
                                           bvh_mode=mode)
         if shard is not None:
@@ -340,13 +371,16 @@ class Renderer:
         # from that time, on the host once, and re-fits the tree each batch.
         self._tris = self._tri_order = None
         if self.static.has_tris and not self.static.any_animated:
-            self._tris = prepare_tris(self.static, self.scene,
-                                      self.batch_times_dev[0])
+            with span("renderer.init.tris"):
+                self._tris = prepare_tris(self.static, self.scene,
+                                          self.batch_times_dev[0])
         elif (self.static.has_tris and mode == "none"
               and self.static.num_triangles > 0):
-            _, world_p, _ = world_soup(self.scene, self.batch_times_dev[0])
-            self._tri_order = paged_tri.soup_order(world_p,
-                                                   self.static.num_triangles)
+            with span("renderer.init.tris"):
+                _, world_p, _ = world_soup(self.scene,
+                                           self.batch_times_dev[0])
+                self._tri_order = paged_tri.soup_order(
+                    world_p, self.static.num_triangles)
         # The tree over the spheres past the dense prefix, where the path
         # walks one (the fused kernel's clustered forms, or K1 on the
         # wavefront): their Morton order at shutter time 0.5, on the host
@@ -357,18 +391,8 @@ class Renderer:
         n_prefix = (sphere_prefix(self.static, self.use_megakernel)
                     if world_mode else None)
         if n_prefix is not None:
-            n_sph = self.static.num_spheres
-            mid = world_sphere_tables(compiled, np.array([0.5], np.float32))
-            if shard is not None:
-                mid = shard.tables(mid)
-            self._sph_order = torch.tensor(
-                sphere_tree.sphere_order(mid[0, :, 0:3], n_prefix, n_sph),
-                dtype=torch.int32, device=self.device)
-            if not self.static.any_animated:
-                table8 = sphere_sweep.pad_table8(torch.tensor(
-                    self.sphere_tables[0], device=self.device))
-                self._sph_tree = sphere_tree.build_sphere_tree(
-                    table8, n_prefix, n_sph, self._sph_order)
+            with span("renderer.init.sphere_tree"):
+                self._sphere_tree(compiled, shard, n_prefix)
         # The tree H2 walks over the world boxes of the spheres in object
         # space past the dense prefix: their Morton order at shutter time
         # 0.5, once; where no sphere instance moves, the whole tree once,
@@ -377,19 +401,8 @@ class Renderer:
         # into it), else each batch over that batch's table.
         self._obj_order = self._obj_tree = None
         if not world_mode and self.static.num_spheres > 0:
-            mid = object_table(self.scene, torch.tensor(
-                0.5, dtype=torch.float32, device=self.device))
-            n_prefix = sphere_obj.tree_prefix(self.static, mid)
-            if n_prefix is not None:
-                n_sph = min(self.static.num_spheres, mid.shape[0])
-                self._obj_order = sphere_obj.object_order(mid, n_prefix,
-                                                          n_sph)
-                inst = self.scene.sph_inst[:n_sph].long()
-                if torch.equal(self.scene.inst_t0[inst],
-                               self.scene.inst_t1[inst]):
-                    self._obj_tree = sphere_obj.build_object_tree(
-                        object_table(self.scene, self.batch_times_dev[0]),
-                        n_sph, n_prefix, self._obj_order, static=True)
+            with span("renderer.init.object_tree"):
+                self._object_tree()
         # The animated fused kernel's one geometry, built once.  Not for
         # triangles or lights, nor for image textures, whose spheres'
         # world-to-object rows change with every batch time (the JAX
@@ -398,14 +411,14 @@ class Renderer:
         if (self.use_megakernel and self.static.any_animated
                 and not (self.static.has_tris or self.static.has_lights
                          or self.static.flags.has_image)):
-            tables = world_sphere_anim_tables(compiled)
-            if tables is not None:
-                tab0, dtab8 = (torch.tensor(t, device=self.device)
-                               for t in tables)
-                self._anim_geom = prepare_batch(self.static, self.scene,
-                                                tab0, sph_dtab=dtab8,
-                                                fused=True,
-                                                sph_order=self._sph_order)
+            with span("renderer.init.anim_geom"):
+                tables = world_sphere_anim_tables(compiled)
+                if tables is not None:
+                    tab0, dtab8 = (torch.tensor(t, device=self.device)
+                                   for t in tables)
+                    self._anim_geom = prepare_batch(
+                        self.static, self.scene, tab0, sph_dtab=dtab8,
+                        fused=True, sph_order=self._sph_order)
         if not self.use_megakernel:
             self.path = "wavefront"
         elif not self.static.any_animated:
@@ -462,25 +475,65 @@ class Renderer:
         self.metrics = BatchMetrics(pixels=W * H, spp=spp,
                                     jsonl_path=metrics_jsonl)
 
+    def _sphere_tree(self, compiled: CompiledScene, shard,
+                     n_prefix: int) -> None:
+        """The spheres' Morton order at shutter time 0.5 and, for a static
+        scene, their tree over the first batch's table."""
+        n_sph = self.static.num_spheres
+        mid = world_sphere_tables(compiled, np.array([0.5], np.float32))
+        if shard is not None:
+            mid = shard.tables(mid)
+        self._sph_order = torch.tensor(
+            sphere_tree.sphere_order(mid[0, :, 0:3], n_prefix, n_sph),
+            dtype=torch.int32, device=self.device)
+        if not self.static.any_animated:
+            table8 = sphere_sweep.pad_table8(torch.tensor(
+                self.sphere_tables[0], device=self.device))
+            self._sph_tree = sphere_tree.build_sphere_tree(
+                table8, n_prefix, n_sph, self._sph_order)
+
+    def _object_tree(self) -> None:
+        """H2's order of the object-space spheres past the dense prefix
+        and, where no sphere instance moves, its tree."""
+        mid = object_table(self.scene, torch.tensor(
+            0.5, dtype=torch.float32, device=self.device))
+        n_prefix = sphere_obj.tree_prefix(self.static, mid)
+        if n_prefix is None:
+            return
+        n_sph = min(self.static.num_spheres, mid.shape[0])
+        self._obj_order = sphere_obj.object_order(mid, n_prefix, n_sph)
+        inst = self.scene.sph_inst[:n_sph].long()
+        if torch.equal(self.scene.inst_t0[inst], self.scene.inst_t1[inst]):
+            self._obj_tree = sphere_obj.build_object_tree(
+                object_table(self.scene, self.batch_times_dev[0]),
+                n_sph, n_prefix, self._obj_order, static=True)
+
     def _geometry(self, batch: int):
         """The geometry the fused kernel or the wavefront renders batch
         ``batch`` from."""
-        if self._anim_geom is not None:
-            return self._anim_geom
-        sph_table = (None if self.sphere_tables is None else torch.tensor(
-            self.sphere_tables[batch], device=self.device))
-        tris = self._tris
-        if self.static.has_tris and tris is None:
-            tris = prepare_tris(self.static, self.scene,
-                                self.batch_times_dev[batch], self._tri_order)
-        return prepare_batch(self.static, self.scene, sph_table, tris=tris,
-                             batch_time=self.batch_times_dev[batch],
-                             atlas_words=self._atlas_words,
-                             fused=self.use_megakernel,
-                             sph_order=self._sph_order,
-                             sph_tree=self._sph_tree, shard=self.shard,
-                             obj_order=self._obj_order,
-                             obj_tree=self._obj_tree)
+        table = (None if self.sphere_tables is None
+                 or self._anim_geom is not None
+                 else self.sphere_tables[batch])
+        with span("renderer.step.geometry",
+                  h2d_bytes=0 if table is None else table.nbytes):
+            if self._anim_geom is not None:
+                return self._anim_geom
+            sph_table = (None if table is None
+                         else torch.tensor(table, device=self.device))
+            tris = self._tris
+            if self.static.has_tris and tris is None:
+                tris = prepare_tris(self.static, self.scene,
+                                    self.batch_times_dev[batch],
+                                    self._tri_order)
+            return prepare_batch(self.static, self.scene, sph_table,
+                                 tris=tris,
+                                 batch_time=self.batch_times_dev[batch],
+                                 atlas_words=self._atlas_words,
+                                 fused=self.use_megakernel,
+                                 sph_order=self._sph_order,
+                                 sph_tree=self._sph_tree, shard=self.shard,
+                                 obj_order=self._obj_order,
+                                 obj_tree=self._obj_tree)
 
     def _debug_check(self, batch: int) -> None:
         """debug=True: validate the accumulation after a step (finite,
@@ -503,13 +556,13 @@ class Renderer:
                 f"batch {batch}: radiance {mx:.3g} exceeds energy "
                 f"bound {st.energy_bound:.3g}")
 
-    def _record(self, b0: int, k: int, rays: int, t0: float) -> None:
-        """Account batches b0 .. b0 + k - 1, rendered since ``t0``.  Each
-        gets one metrics record of dt / k seconds and rays / k rays (the
-        remainder to the first batches), so the records add up to
-        ``stats``: K4 counts a pixel's bounces over the whole launch, where
-        the JAX package records each fused batch's own rays."""
-        dt = _time.perf_counter() - t0
+    def _record(self, b0: int, k: int, rays: int, dt: float) -> None:
+        """Account batches b0 .. b0 + k - 1, rendered in ``dt`` seconds (the
+        step span's).  Each gets one metrics record of dt / k seconds and
+        rays / k rays (the remainder to the first batches), so the records
+        add up to ``stats``: K4 counts a pixel's bounces over the whole
+        launch, where the JAX package records each fused batch's own
+        rays."""
         q, r = divmod(rays, k)
         for i in range(k):
             self.metrics.record(b0 + i, dt / k, float(q + (i < r)))
@@ -526,28 +579,32 @@ class Renderer:
         s = self.static
         geom = self._geometry(b0)
         if self.use_megakernel:
-            slab, traced = megakernel.render_tile_mega(
-                s, self.scene, geom, self.camera, b0, k, self.sample_base,
-                use_dof=self.use_dof, reduce_mean=mean,
-                times=self.batch_times_dev, spp_local=self.spp_local,
-                row_base=self.row_base, rows=self.rows_local,
-                max_depth=self.max_depth)
-            return slab, int(traced.sum(dtype=torch.int64))
-        trace = make_trace_fn(s, self.scene, geom)
+            with span("renderer.step.launch"):
+                slab, traced = megakernel.render_tile_mega(
+                    s, self.scene, geom, self.camera, b0, k,
+                    self.sample_base, use_dof=self.use_dof,
+                    reduce_mean=mean, times=self.batch_times_dev,
+                    spp_local=self.spp_local, row_base=self.row_base,
+                    rows=self.rows_local, max_depth=self.max_depth)
+            with span("renderer.step.wait"):
+                return slab, int(traced.sum(dtype=torch.int64))
         end = self.row_base + self.rows
         tiles, rays = [], 0
-        for row0 in range(self.row_base, end, self.rows_per_tile):
-            # A tile stops where another slab's rows start; the frame's last
-            # tile keeps its size, its rows past the frame cropped (the JAX
-            # Renderer's tiles).
-            n = (self.rows_per_tile if end == s.height
-                 else min(self.rows_per_tile, end - row0))
-            tile, tr = render_tile(s, self.scene, self.camera, trace, geom,
-                                   b0, row0, n, self.use_dof, self.spp_local,
-                                   self.sample_base, reduce_mean=mean,
-                                   max_depth=self.max_depth)
-            tiles.append(tile)
-            rays += tr
+        with span("renderer.step.launch"):
+            trace = make_trace_fn(s, self.scene, geom)
+            for row0 in range(self.row_base, end, self.rows_per_tile):
+                # A tile stops where another slab's rows start; the frame's
+                # last tile keeps its size, its rows past the frame cropped
+                # (the JAX Renderer's tiles).
+                n = (self.rows_per_tile if end == s.height
+                     else min(self.rows_per_tile, end - row0))
+                tile, tr = render_tile(s, self.scene, self.camera, trace,
+                                       geom, b0, row0, n, self.use_dof,
+                                       self.spp_local, self.sample_base,
+                                       reduce_mean=mean,
+                                       max_depth=self.max_depth)
+                tiles.append(tile)
+                rays += tr
         pad = torch.zeros((self.rows_local - self.rows, s.width, 3),
                           dtype=torch.float32, device=self.device)
         slab = torch.cat(tiles)[:self.rows] if tiles else pad[:0]
@@ -556,20 +613,28 @@ class Renderer:
     def _step(self, b0: int, k: int) -> None:
         """Render batches b0 .. b0 + k - 1 into the running mean: this
         renderer's part, joined with the others' by the split's hooks."""
-        t0 = _time.perf_counter()
-        spp = self.static.sqrt_spp ** 2
-        mean = k == 1 and self.spp_local == spp
-        slab, rays = self._slab(b0, k, mean)
-        slab = self.split.reduce_samples(slab)
-        img = self.split.gather_rows(slab)[:self.static.height]
-        if mean:
-            self.accum = (float(b0) * self.accum + img) / (float(b0) + 1.0)
-        else:
-            self.accum = (float(b0) * self.accum + img / spp) / float(b0 + k)
-        rays = self.split.sum_rays(rays)
-        _synchronize(self.device)
-        self._debug_check(b0 + k - 1)
-        self._record(b0, k, rays, t0)
+        with span("renderer.step", renderer=self.serial, b0=b0, k=k,
+                  path=self.path) as step:
+            spp = self.static.sqrt_spp ** 2
+            mean = k == 1 and self.spp_local == spp
+            slab, rays = self._slab(b0, k, mean)
+            with span("renderer.step.accumulate"):
+                slab = self.split.reduce_samples(slab)
+                img = self.split.gather_rows(slab)[:self.static.height]
+                if mean:
+                    self.accum = ((float(b0) * self.accum + img)
+                                  / (float(b0) + 1.0))
+                else:
+                    self.accum = ((float(b0) * self.accum + img / spp)
+                                  / float(b0 + k))
+                rays = self.split.sum_rays(rays)
+            with span("renderer.step.wait"):
+                _synchronize(self.device)
+            if self.debug_stats is not None:
+                with span("renderer.step.debug"):
+                    self._debug_check(b0 + k - 1)
+        with span("renderer.step.record"):
+            self._record(b0, k, rays, step.seconds)
 
     def render_next_batch(self) -> bool:
         """Trace one sample batch; returns False when every batch is done."""
@@ -612,7 +677,9 @@ class Renderer:
 
     def image(self) -> np.ndarray:
         """Current linear-light accumulation image [H, W, 3] (float32)."""
-        return self.accum.cpu().numpy()
+        with span("renderer.readback",
+                  d2h_bytes=self.accum.numel() * self.accum.element_size()):
+            return self.accum.cpu().numpy()
 
     def save_png(self, path: str) -> None:
         write_png(path, self.image())

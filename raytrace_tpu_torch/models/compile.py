@@ -38,6 +38,7 @@ from ..scene_file import (
     SolidSky,
     VerticalGradientSky,
 )
+from ..utils.profiling import span
 from .alias_table import build_alias_table
 from .tessellate import Mesh, mesh_from_primitive
 from .transform import DecomposedTransform, decompose_matrix
@@ -388,6 +389,13 @@ def compile_scene(scene: SceneFile, width: Optional[int] = None,
     closed-form sphere table instead of the triangle soup; the light alias
     table always uses tessellated geometry (light.rs semantics).
     """
+    with span("scene.compile"):
+        return _compile_scene(scene, width, height, analytic_spheres)
+
+
+def _compile_scene(scene: SceneFile, width: Optional[int],
+                   height: Optional[int],
+                   analytic_spheres: bool) -> CompiledScene:
     scene.validate()
 
     ar = scene.render.aspect_ratio

@@ -7,7 +7,8 @@ rebuilds and a stale library is never loaded.  A library named in
 ``SOURCES`` is another build of a source under its own flags (the fused
 bounce kernel's measuring build).
 A file lock serialises concurrent builds; a failed build raises with
-nvcc's output.  Delete ``raytrace_tpu_torch/build/`` to force a rebuild.
+nvcc's output.  Each nvcc run is a ``kernels.build`` span
+(utils/profiling.py) naming the library.  Delete ``raytrace_tpu_torch/build/`` to force a rebuild.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+from ..utils.profiling import span
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -91,10 +94,12 @@ def build(name: str) -> Path:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         try:
-            proc = subprocess.run(
-                [_nvcc(), *nvcc_flags(name), "-o", tmp, str(source(name))],
-                capture_output=True, text=True,
-            )
+            with span("kernels.build", library=name):
+                proc = subprocess.run(
+                    [_nvcc(), *nvcc_flags(name), "-o", tmp,
+                     str(source(name))],
+                    capture_output=True, text=True,
+                )
             if proc.returncode != 0:
                 raise RuntimeError(
                     f"nvcc failed to build {name} (exit {proc.returncode}):"
