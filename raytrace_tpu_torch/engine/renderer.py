@@ -88,13 +88,18 @@ scans the accumulation after every step (``DebugStats``) and raises
 Each layer boundary is a span of the program's tracer
 (utils/profiling.py; ``profiling.spans()`` reads them): ``renderer.init``
 around the constructor, with one child for each of its phases
-(``world_tables``, ``upload``, ``bvh``, ``tris``, ``sphere_tree``,
-``object_tree``, ``anim_geom``); ``renderer.step`` around each step,
-tagged with the Renderer's serial number, its first batch, its batch
-count and its path, with children ``geometry`` (the bytes of the batch's
-sphere table copied to the card), ``launch``, ``wait`` (the host waiting
-on the card: for the fused kernel's ray count, and the step's final
-synchronize), ``accumulate`` and, with ``debug``, ``debug``; then
+(``world_tables``, tagged with the tables it computes: every batch
+time's where a sphere instance moves, else the first's; ``upload``,
+``bvh``, ``tris``, ``sphere_tree``, ``object_tree``, ``anim_geom``);
+``renderer.step`` around each step, tagged with the Renderer's serial
+number, its first batch, its batch count and its path, with children
+``geometry`` (the bytes of the batch's sphere table copied to the card),
+``launch``, ``wait`` (the host waiting on the card: for the fused
+kernel's ray count, and the step's final synchronize), ``accumulate``
+and, with ``debug``, ``debug``; a static scene's other world tables are
+``renderer.step.world_table`` spans tagged with their batch: the next
+step's, between ``launch`` and ``wait``, or the step's own, inside
+``geometry`` where it was not built ahead; then
 ``renderer.step.record``, which books the step span's seconds into
 ``stats`` and ``metrics``; ``renderer.readback`` around ``image()``.
 """
@@ -269,6 +274,34 @@ class FrameSplit:
         return rays
 
 
+class WorldTables:
+    """A static scene's world sphere tables, one a batch time, as a
+    sequence: ``tables[b]`` is ops/spheres.world_sphere_tables' table at
+    batch time b (cut by ``at``, which maps [k] times to [k, S, 5]
+    tables), computed on its first read in a ``renderer.step.world_table``
+    span and kept.  Each is the very table a list of every batch time
+    holds, so no step reads another batch's."""
+
+    def __init__(self, at, times: np.ndarray, first: np.ndarray):
+        self._at, self._times = at, times
+        self._built = {0: first}
+
+    def __len__(self) -> int:
+        return len(self._times)
+
+    def built(self, batch: int) -> bool:
+        return batch in self._built
+
+    def __getitem__(self, batch: int) -> np.ndarray:
+        batch = range(len(self._times))[batch]
+        table = self._built.get(batch)
+        if table is None:
+            with span("renderer.step.world_table", batch=batch):
+                table = self._at(self._times[batch:batch + 1])[0]
+            self._built[batch] = table
+        return table
+
+
 class Renderer:
     # Batches fused into one kernel launch by render_all and the CLI.
     CHUNK = 12
@@ -301,13 +334,28 @@ class Renderer:
                 "CUDA is not available; rendering on the CPU must be asked "
                 "for with device='cpu'")
         self.batch_times = get_batch_ray_times(compiled.render.sample_batches)
-        # World-space sphere tables per batch time (host f64 -> f32), or
-        # None where a non-uniform scale makes an ellipsoid: the spheres
-        # are then swept in object space.
-        with span("renderer.init.world_tables",
-                  tables=len(self.batch_times)):
-            self.sphere_tables = world_sphere_tables(compiled,
-                                                     self.batch_times)
+
+        def tables_at(times):
+            tables = world_sphere_tables(compiled, times)
+            if tables is None or shard is None:
+                return tables
+            return shard.tables(tables)
+
+        # World-space sphere tables per batch time (host f64 -> f32, the
+        # shard's slice), or None where a non-uniform scale makes an
+        # ellipsoid: the spheres are then swept in object space.  Where a
+        # sphere instance moves, every batch time's now; else the first
+        # now, which decides the mode, and each other on its first read
+        # (WorldTables; the step before builds it while the card runs).
+        inst = compiled.sph_inst[:compiled.num_spheres]
+        moving = (compiled.inst_t0[inst].tobytes()
+                  != compiled.inst_t1[inst].tobytes())
+        times = self.batch_times if moving else self.batch_times[:1]
+        with span("renderer.init.world_tables", tables=len(times)):
+            self.sphere_tables = tables_at(times)
+        if self.sphere_tables is not None and not moving:
+            self.sphere_tables = WorldTables(tables_at, self.batch_times,
+                                             self.sphere_tables[0])
         world_mode = self.sphere_tables is not None
         with span("renderer.init.upload"):
             static = dataclasses.replace(scene_static(compiled),
@@ -347,11 +395,9 @@ class Renderer:
         self.static = dataclasses.replace(static, sphere_world_mode=world_mode,
                                           bvh_mode=mode)
         if shard is not None:
-            # The slice's primitives and world tables; the static facts
-            # that differ by slice are its counts.
+            # The slice's primitives (its world tables are cut above); the
+            # static facts that differ by slice are its counts.
             self.scene = shard.scene(self.scene)
-            if world_mode:
-                self.sphere_tables = shard.tables(self.sphere_tables)
             self.static = shard.static(self.static, self.scene)
         self.compiled = compiled
         if use_megakernel is None:
@@ -392,7 +438,7 @@ class Renderer:
                     if world_mode else None)
         if n_prefix is not None:
             with span("renderer.init.sphere_tree"):
-                self._sphere_tree(compiled, shard, n_prefix)
+                self._sphere_tree(tables_at, n_prefix)
         # The tree H2 walks over the world boxes of the spheres in object
         # space past the dense prefix: their Morton order at shutter time
         # 0.5, once; where no sphere instance moves, the whole tree once,
@@ -475,14 +521,12 @@ class Renderer:
         self.metrics = BatchMetrics(pixels=W * H, spp=spp,
                                     jsonl_path=metrics_jsonl)
 
-    def _sphere_tree(self, compiled: CompiledScene, shard,
-                     n_prefix: int) -> None:
-        """The spheres' Morton order at shutter time 0.5 and, for a static
-        scene, their tree over the first batch's table."""
+    def _sphere_tree(self, tables_at, n_prefix: int) -> None:
+        """The spheres' Morton order at shutter time 0.5 (``tables_at``'s
+        table there) and, for a static scene, their tree over the first
+        batch's table."""
         n_sph = self.static.num_spheres
-        mid = world_sphere_tables(compiled, np.array([0.5], np.float32))
-        if shard is not None:
-            mid = shard.tables(mid)
+        mid = tables_at(np.array([0.5], np.float32))
         self._sph_order = torch.tensor(
             sphere_tree.sphere_order(mid[0, :, 0:3], n_prefix, n_sph),
             dtype=torch.int32, device=self.device)
@@ -511,13 +555,13 @@ class Renderer:
     def _geometry(self, batch: int):
         """The geometry the fused kernel or the wavefront renders batch
         ``batch`` from."""
-        table = (None if self.sphere_tables is None
-                 or self._anim_geom is not None
-                 else self.sphere_tables[batch])
-        with span("renderer.step.geometry",
-                  h2d_bytes=0 if table is None else table.nbytes):
+        with span("renderer.step.geometry", h2d_bytes=0) as geom:
             if self._anim_geom is not None:
                 return self._anim_geom
+            table = (None if self.sphere_tables is None
+                     else self.sphere_tables[batch])
+            if table is not None:
+                geom.attrs["h2d_bytes"] = table.nbytes
             sph_table = (None if table is None
                          else torch.tensor(table, device=self.device))
             tris = self._tris
@@ -534,6 +578,14 @@ class Renderer:
                                  sph_tree=self._sph_tree, shard=self.shard,
                                  obj_order=self._obj_order,
                                  obj_tree=self._obj_tree)
+
+    def _table_ahead(self, batch: int) -> None:
+        """Build batch ``batch``'s world table, where it is built on first
+        read and not yet, while the card runs the step just launched."""
+        tables = self.sphere_tables
+        if (isinstance(tables, WorldTables) and batch < len(tables)
+                and not tables.built(batch)):
+            tables[batch]
 
     def _debug_check(self, batch: int) -> None:
         """debug=True: validate the accumulation after a step (finite,
@@ -586,6 +638,7 @@ class Renderer:
                     reduce_mean=mean, times=self.batch_times_dev,
                     spp_local=self.spp_local, row_base=self.row_base,
                     rows=self.rows_local, max_depth=self.max_depth)
+            self._table_ahead(b0 + k)
             with span("renderer.step.wait"):
                 return slab, int(traced.sum(dtype=torch.int64))
         end = self.row_base + self.rows
@@ -605,6 +658,7 @@ class Renderer:
                                        max_depth=self.max_depth)
                 tiles.append(tile)
                 rays += tr
+        self._table_ahead(b0 + k)
         pad = torch.zeros((self.rows_local - self.rows, s.width, 3),
                           dtype=torch.float32, device=self.device)
         slab = torch.cat(tiles)[:self.rows] if tiles else pad[:0]

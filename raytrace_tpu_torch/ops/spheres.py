@@ -45,15 +45,19 @@ def world_sphere_tables(cs, batch_times) -> "np.ndarray | None":
     S = cs.sph_center.shape[0]
     out = np.zeros((len(batch_times), S, 5), np.float64)
     n = cs.num_spheres
+    if n == 0:
+        # No real sphere: padding rows alone, whatever the instances do.
+        out[:, :, 4] = 3.0e37
+        return out.astype(np.float32)
     for bi, t in enumerate(batch_times):
         mats = _instance_matrix_at(cs.inst_t0, cs.inst_t1, float(t))
         m = mats[cs.sph_inst[:n]]
         rot = m[:, :, :3]
         scale = np.linalg.norm(rot, axis=1)  # column norms [n, 3]
-        if n and not np.allclose(scale, scale[:, :1], rtol=1e-5, atol=1e-7):
+        if not np.allclose(scale, scale[:, :1], rtol=1e-5, atol=1e-7):
             return None
         c_world = np.einsum("sij,sj->si", rot, cs.sph_center[:n]) + m[:, :, 3]
-        r_world = scale[:, 0] * cs.sph_radius[:n] if n else np.zeros(0)
+        r_world = scale[:, 0] * cs.sph_radius[:n]
         out[bi, :n, 0:3] = c_world
         out[bi, :n, 3] = r_world
         out[bi, :n, 4] = (c_world ** 2).sum(-1) - r_world ** 2

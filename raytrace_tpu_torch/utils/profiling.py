@@ -21,12 +21,15 @@ The spans the program records (attributes in brackets):
 
 - ``scene.compile``: ``models/compile.compile_scene``;
 - ``renderer.init`` [renderer]: ``Renderer.__init__``, with children
-  ``renderer.init.world_tables`` [tables], ``.upload``, ``.bvh``,
-  ``.tris``, ``.sphere_tree``, ``.object_tree`` and ``.anim_geom``;
+  ``renderer.init.world_tables`` [tables: those computed at set-up],
+  ``.upload``, ``.bvh``, ``.tris``, ``.sphere_tree``, ``.object_tree``
+  and ``.anim_geom``;
 - ``renderer.step`` [renderer, b0, k, path]: ``Renderer._step``, with
   children ``renderer.step.geometry`` [h2d_bytes], ``.launch``,
-  ``.wait`` (each of the step's waits on the card), ``.accumulate`` and
-  ``.debug``; ``renderer.step.record`` follows its step and books the
+  ``.wait`` (each of the step's waits on the card), ``.accumulate``,
+  ``.debug`` and ``.world_table`` [batch] (a static scene's table built
+  after set-up: ahead, between ``.launch`` and ``.wait``, or inside
+  ``.geometry``); ``renderer.step.record`` follows its step and books the
   step span's seconds into ``RenderStats`` and ``BatchMetrics``;
 - ``renderer.readback`` [d2h_bytes]: ``Renderer.image()``;
 - ``kernels.build`` [library]: an nvcc run of ``ops/_build.build``.

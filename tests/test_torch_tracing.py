@@ -163,12 +163,29 @@ def test_renderer_init_spans(compiled):
     assert init.attrs == {"renderer": r.serial} and init.parent is None
     tables = _children(init, "renderer.init.world_tables")
     assert len(tables) == 1
-    assert tables[0].attrs["tables"] == compiled.render.sample_batches
+    # A static scene's set-up computes the first batch time's table; each
+    # other is built when a step reads it.
+    assert tables[0].attrs["tables"] == 1
     assert _children(init, "renderer.init.upload")
     for s in profiling.spans(init.t0):
         if s.name.startswith("renderer.init."):
             assert s.parent is init and init.t0 <= s.t0 <= s.t1 <= init.t1
     assert Renderer(compiled, device="cpu").serial == r.serial + 1
+
+
+def test_a_moving_scene_tables_every_batch_time_at_init():
+    doc = _doc()
+    doc["instances"][1]["transform"] = {"animated": [
+        {"translate": [0.0, 0.0, 0.0]}, {"translate": [0.0, 0.5, 0.0]}]}
+    cs = compile_scene(SceneFile.from_json_dict(doc), width=W, height=H)
+    r = Renderer(cs, device="cpu", use_megakernel=True)
+    (init,) = _mine(r, "renderer.init", None)
+    (tables,) = _children(init, "renderer.init.world_tables")
+    assert tables.attrs["tables"] == BATCHES
+    since = profiling.spans()[-1].t1
+    r.render_all()
+    assert not [s for s in profiling.spans(since)
+                if s.name == "renderer.step.world_table"]
 
 
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "wavefront"])
