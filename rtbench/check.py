@@ -1,5 +1,7 @@
-"""How ``correct`` is decided: the program's images against the plain
-reference (reference/pathtracer.py), on pixels drawn from the seed.
+"""How ``correct`` is decided: the program's images against the
+configuration's plain reference (reference/pathtracer.py unless the
+configuration names another, ``core.reference_of``), on pixels drawn
+from the seed.
 
 An answer is an image the timed path produced (a finished render, or a
 preview's running mean) with the number n of samples a pixel behind it.

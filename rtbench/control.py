@@ -3,13 +3,14 @@
     python3 rtbench/control.py --workload <cell> --seeds 1,2,3
 
 For each seed, on the card, at the cell's own sizes: the control, the
-plain reference computed in bfloat16 (the precision below the float32
-the program renders in) put in the program's place: its images at the
-cell's drawn pixels, with as many samples a pixel as the cell's answers
-hold (``--samples``; by default those of a whole image, and for a
-progressive cell 8, 100 and 1024), judged against the float64 reference
-as the program's are.  The program's own readings are the benchmark's
-runs.  One JSON line a reading; the benchmark's runs do not run this.
+configuration's plain reference (``core.reference_of``) computed in
+bfloat16 (the precision below the float32 the program renders in) put
+in the program's place: its images at the cell's drawn pixels, with as
+many samples a pixel as the cell's answers hold (``--samples``; by
+default those of a whole image, and for a progressive cell 8, 100 and
+1024), judged against the float64 reference as the program's are.  The
+program's own readings are the benchmark's runs.  One JSON line a
+reading; the benchmark's runs do not run this.
 """
 
 from __future__ import annotations
@@ -31,10 +32,10 @@ def control_readings(bench, cell_name: str, seed: int, samples: list,
     import torch
 
     from rtbench import check, core, scene
-    from rtbench.reference import pathtracer
 
     cell = bench.cell(cell_name)
     cfg = {**bench.config(cell["config"]), **(overrides or {})}
+    reference = core.reference_of(cfg)
     W, H = int(cfg["width"]), int(cfg["height"])
     offset = scene.batch_offset(cfg, seed)
     doc = scene.make(bench.dir / "configs", cfg, seed,
@@ -44,14 +45,13 @@ def control_readings(bench, cell_name: str, seed: int, samples: list,
     args = (doc, px, py, W, H)
     kw = dict(device=device)
     depth, s = int(cfg["max_ray_depth"]), scene.sqrt_spp(cfg)
-    mean, var = pathtracer.render_pixels(*args, int(chk["ref_samples"]), s,
-                                         depth, seed=seed, **kw)
+    mean, var = reference(*args, int(chk["ref_samples"]), s, depth,
+                          seed=seed, **kw)
     out = []
     for n in samples:
         t0 = time.perf_counter()
-        low, _ = pathtracer.render_pixels(*args, n, s, depth,
-                                          seed=seed + 7919 * n,
-                                          dtype=torch.bfloat16, **kw)
+        low, _ = reference(*args, n, s, depth, seed=seed + 7919 * n,
+                           dtype=torch.bfloat16, **kw)
         bad = int(np.count_nonzero(~np.isfinite(low))
                   + np.count_nonzero(low < 0.0))
         ans = check.Answer(f"bfloat16 reference, {n} samples", low, n, bad)

@@ -2,7 +2,12 @@
 result line.  Everything is found by name from BENCHMARK.json:
 
 - a cell's configuration: configs/<config>.json (the scene, the frame,
-  the samples, the depth, the check's sizes and limits);
+  the samples, the depth, the check's sizes and limits; optionally
+  ``"reference"``, the module reference/<name>.py whose
+  ``render_pixels`` is the plain reference of the check, by default
+  ``pathtracer``, and ``"mesh_geometry"``, true to compile the scene's
+  uv spheres into triangles as the CLI's ``--mesh-geometry`` does, by
+  default false);
 - its traffic mix: traffic/<mix>.json, read by drive.py;
 - each metric: metrics/<metric>.py (for a metric split over cells,
   ``base.part``, the base's file where it has none of its own), whose
@@ -36,6 +41,41 @@ ROOT = Path(__file__).resolve().parents[1]
 # Top-level module names that may not be loaded in a run's process.
 FORBIDDEN = ("jax", "jaxlib", "flax", "raytrace_tpu")
 PROGRAM = "raytrace_tpu_torch"
+REFERENCE = "pathtracer"
+
+
+class ConfigError(ValueError):
+    """A configuration the harness refuses before set-up."""
+
+
+def reference_of(cfg: dict):
+    """``render_pixels`` of reference/<name>.py, ``name`` the
+    configuration's ``"reference"`` (``REFERENCE`` where it has none).
+    Its contract: ``render_pixels(doc, px, py, width, height, samples,
+    sqrt_spp, max_depth, *, seed, device, dtype=torch.float64)`` returns
+    float64 numpy arrays (mean [P, 3], var [P, 3]) of the drawn pixels;
+    ``dtype`` is the precision it computes in (the control's bfloat16)."""
+    name = cfg.get("reference", REFERENCE)
+    module = f"rtbench.reference.{name}"
+    if not (isinstance(name, str) and name.isidentifier()
+            and importlib.util.find_spec(module) is not None):
+        raise ConfigError(
+            f"configuration {cfg.get('name')!r}: no plain reference "
+            f"{name!r} (a module rtbench/reference/<name>.py)")
+    render = getattr(importlib.import_module(module), "render_pixels", None)
+    if not callable(render):
+        raise ConfigError(f"configuration {cfg.get('name')!r}: the reference "
+                          f"{name!r} has no render_pixels")
+    return render
+
+
+def mesh_geometry(cfg: dict) -> bool:
+    """The configuration's ``"mesh_geometry"`` (false where it has none)."""
+    mesh = cfg.get("mesh_geometry", False)
+    if not isinstance(mesh, bool):
+        raise ConfigError(f"configuration {cfg.get('name')!r}: mesh_geometry "
+                          f"must be true or false, not {mesh!r}")
+    return mesh
 
 
 class Bench:
@@ -123,17 +163,20 @@ def run(bench: Bench, cell_name: str, seed: int, seconds: float,
         traced: bool, t_start: float, *, device: str = "cuda",
         overrides: dict | None = None, log=print) -> dict:
     """One run; returns the result line's object.  ``overrides`` (tests
-    only) replaces configuration keys, to run a cell at a small size."""
+    only) replaces configuration keys, to run a cell at a small size.
+    A configuration whose reference or geometry is refused raises
+    ``ConfigError`` before set-up."""
+    cell = bench.cell(cell_name)
+    cfg = {**bench.config(cell["config"]), **(overrides or {})}
+    reference = reference_of(cfg)
+    mesh = mesh_geometry(cfg)
+
     import torch
 
     from raytrace_tpu_torch.engine import Renderer
     from raytrace_tpu_torch.models import compile_scene
     from raytrace_tpu_torch.scene_file import SceneFile
 
-    from rtbench.reference import pathtracer
-
-    cell = bench.cell(cell_name)
-    cfg = {**bench.config(cell["config"]), **(overrides or {})}
     mix = bench.traffic(cell["traffic"])
     dev = torch.device(device)
     on_card = dev.type == "cuda"
@@ -150,11 +193,11 @@ def run(bench: Bench, cell_name: str, seed: int, seconds: float,
     held = (per_image if mix["renderer_per_image"]
             else drive.progressive_batches(mix, seconds))
     doc = scene.make(bench.dir / "configs", cfg, seed, offset + held)
-    facts = SceneFacts.of(doc, W, H)
+    facts = SceneFacts.of(doc, W, H, mesh_geometry=mesh)
 
     with spans.span("scene_compile", setup=True):
         compiled = compile_scene(SceneFile.from_json_dict(doc), width=W,
-                                 height=H)
+                                 height=H, analytic_spheres=not mesh)
 
     def make_renderer():
         r = Renderer(compiled, device=dev)
@@ -203,7 +246,7 @@ def run(bench: Bench, cell_name: str, seed: int, seconds: float,
                for k in answers_in]
     del answers_in
     t_ref = time.perf_counter()
-    mean, var = pathtracer.render_pixels(
+    mean, var = reference(
         doc, px, py, W, H, int(chk["ref_samples"]), scene.sqrt_spp(cfg),
         int(cfg["max_ray_depth"]), seed=seed, device=dev)
     correct, table = check.judge(answers, mean, var, int(chk["ref_samples"]),

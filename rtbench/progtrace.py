@@ -14,11 +14,12 @@ benchmark's spans.  The program's spans are on the host clock and the
 trace on the profiler's, so the two are tied by the benchmark's profiled
 spans, which exist on both (``run.spans`` and ``run.trace.spans``): paired
 by name in start order, the offset is the median of the pairs' (profiler
-start - host start).
+start - host start), those far from it set aside.
 
 Every call returns None where it finds nothing to read: a program
 without the tracer, an untraced run, a ring that dropped spans of the
-window, pairs whose offsets spread by more than ``MAX_SPREAD_US``.
+window, no pair, or pairs of which fewer than half lie within
+``MAX_SPREAD_US`` of their median offset.
 """
 
 from __future__ import annotations
@@ -101,8 +102,11 @@ def per_init_ms(run, names) -> float | None:
 
 def clock_offset_us(run) -> float | None:
     """The profiler's clock less the host's (microseconds), from the
-    benchmark's profiled spans, or None where no pair exists or the pairs
-    disagree by more than ``MAX_SPREAD_US``."""
+    benchmark's profiled spans: the median of the pairs within
+    ``MAX_SPREAD_US`` of all pairs' median, or None where no pair exists
+    or fewer than half of them are that close.  A pair whose host stamp
+    came late (host noise between the profiler's stamp and
+    ``perf_counter``) is set aside."""
     t = run.trace
     if t is None:
         return None
@@ -113,9 +117,13 @@ def clock_offset_us(run) -> float | None:
         dev = sorted(s for s, _ in t.spans_named(name))
         if len(host) == len(dev):
             offsets += [d - 1e6 * h for h, d in zip(host, dev)]
-    if not offsets or max(offsets) - min(offsets) > MAX_SPREAD_US:
+    if not offsets:
         return None
-    return statistics.median(offsets)
+    mid = statistics.median(offsets)
+    kept = [o for o in offsets if abs(o - mid) <= MAX_SPREAD_US]
+    if 2 * len(kept) < len(offsets):
+        return None
+    return statistics.median(kept)
 
 
 def idle_gaps_us(trace) -> list:

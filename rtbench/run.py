@@ -75,8 +75,12 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count()} found", file=sys.stderr)
         return 2
     os.chdir(ROOT)
-    result = core.run(bench, args.workload, args.seed, args.seconds,
-                      bool(args.trace), T_START)
+    try:
+        result = core.run(bench, args.workload, args.seed, args.seconds,
+                          bool(args.trace), T_START)
+    except core.ConfigError as exc:
+        print(f"rtbench: {exc}", file=sys.stderr)
+        return 2
     found = core.forbidden_modules()
     if found:
         print(f"rtbench: loaded in this process: {', '.join(found)}",

@@ -279,13 +279,17 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 
 def test_reference_imports_nothing_of_the_program():
-    for f in sorted((BENCH / "reference").rglob("*.py")):
+    files = sorted((BENCH / "reference").rglob("*.py"))
+    for f in files:
         assert core.PROGRAM not in _imports(f), f
+    # Every reference a configuration can name, loaded as a run loads it.
+    modules = ", ".join(
+        "rtbench.reference." + f.stem for f in files if f.stem != "__init__")
+    assert "rtbench.reference.pathtracer" in modules
     code = ("import sys; sys.path.insert(0, %r); "
-            "import rtbench.reference.pathtracer, rtbench.check, "
-            "rtbench.configs.fow_scene; "
+            "import %s, rtbench.check, rtbench.configs.fow_scene; "
             "print(sorted({m.split('.')[0] for m in sys.modules}))"
-            % str(ROOT))
+            % (str(ROOT), modules))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True).stdout
     loaded = set(eval(out))
@@ -327,7 +331,12 @@ def test_benchmark_json_keeps_the_contract():
     cells = {w["name"]: w for w in spec["workloads"]}
     for c in spec["configs"]:
         assert set(c) == {"name", "source", "file", "reduced", "why"}
-        assert NAME.fullmatch(c["name"]) and c["reduced"] == []
+        assert NAME.fullmatch(c["name"]) and isinstance(c["reduced"], list)
+        # Each cut key once, named as a name is.
+        assert len(c["reduced"]) <= 16
+        assert len(set(c["reduced"])) == len(c["reduced"])
+        assert all(isinstance(k, str) and NAME.fullmatch(k)
+                   for k in c["reduced"])
         assert c["file"] == f"rtbench/configs/{c['name']}.json"
         assert (ROOT / c["file"]).exists()
         assert any(w["config"] == c["name"] for w in cells.values())

@@ -60,6 +60,18 @@ PIXEL_BYTES = 12
 _TRIANGLES_OF = {"triangle": 1, "quad": 2, "box": 12}
 
 
+def triangles_of(kind: str, body: dict) -> int:
+    """The triangles of one primitive of the scene document.  A uv_sphere
+    tessellates (mesh.rs) into a fan of ``segments`` at each pole and two
+    triangles a segment on each of the ``rings`` - 2 bands between."""
+    if kind == "uv_sphere":
+        return 2 * int(body["segments"]) * (int(body["rings"]) - 1)
+    if kind not in _TRIANGLES_OF:
+        raise ValueError(f"the work count cannot count a {kind!r} primitive "
+                         f"({body.get('name')!r})")
+    return _TRIANGLES_OF[kind]
+
+
 @dataclass(frozen=True)
 class SceneFacts:
     """What the count needs of a scene document and its frame."""
@@ -71,7 +83,12 @@ class SceneFacts:
     pixels: int
 
     @classmethod
-    def of(cls, doc: dict, width: int, height: int) -> "SceneFacts":
+    def of(cls, doc: dict, width: int, height: int,
+           mesh_geometry: bool = False) -> "SceneFacts":
+        """The facts of ``doc`` at ``width`` x ``height``.  A uv_sphere
+        instance is one sphere, or with ``mesh_geometry`` (the scene
+        compiled as the CLI's ``--mesh-geometry`` compiles it) the
+        triangles of its tessellation."""
         prims = {}
         for p in doc["primitives"]:
             kind = next(iter(p))
@@ -81,10 +98,10 @@ class SceneFacts:
         spheres = triangles = light_tris = 0
         for inst in doc["instances"]:
             kind, body = prims[inst["name"]]
-            if kind == "uv_sphere":
+            if kind == "uv_sphere" and not mesh_geometry:
                 spheres += 1
                 continue
-            n = _TRIANGLES_OF[kind]
+            n = triangles_of(kind, body)
             triangles += n
             if body["material"] in lights:
                 light_tris += n
